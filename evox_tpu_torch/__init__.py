@@ -1,0 +1,31 @@
+"""evox_tpu_torch — the PyTorch/CUDA port of evox_tpu.
+
+The same ask–evaluate–tell surface as the JAX package (``evox_tpu``, which
+stays the reference), written in PyTorch for one NVIDIA Hopper card. Plain
+tensor code is PyTorch; every Pallas kernel of the JAX package becomes a
+kernel written by hand for Hopper (CUDA C++ under ``csrc/``), beside a plain
+PyTorch version with the same contract.
+
+Every entry point takes ``device=None``, which means ``"cuda"``; it raises
+when CUDA is missing unless the caller passes ``device="cpu"``. A kernel
+wrapper takes its plain version only for tensors that lie on the CPU.
+
+This package imports neither ``jax`` nor anything of ``evox_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+from .core import Algorithm, Monitor, Problem, PyTreeNode, field, resolve_device, static_field
+from .workflows import StdWorkflow, StdWorkflowState
+
+__all__ = [
+    "Algorithm",
+    "Monitor",
+    "Problem",
+    "PyTreeNode",
+    "StdWorkflow",
+    "StdWorkflowState",
+    "field",
+    "resolve_device",
+    "static_field",
+]

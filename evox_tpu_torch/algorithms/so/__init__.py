@@ -1,0 +1,3 @@
+from .es import OpenES, OpenESState
+
+__all__ = ["OpenES", "OpenESState"]

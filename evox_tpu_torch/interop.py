@@ -1,0 +1,91 @@
+"""Carry state from the JAX package into the port.
+
+The functions here take the JAX package's states *as numpy arrays* — e.g.
+``jax.tree.map(numpy.asarray, state)`` on the JAX side — and build the
+port's states from them, so both packages can start from the same point.
+They read attributes by name and never import the JAX package.
+
+What crosses unchanged: OpenES centers, the optimizer state (sgd's is
+empty; adam's holds count, mu and nu), the workflow's generation and
+first-step flag, and populations and genomes as ``(pop, dim)`` arrays.
+
+What cannot cross: PRNG keys. JAX's threefry keys and the port's integer
+seeds for ``torch.Generator`` name unrelated streams, so the port's states
+get fresh seeds from ``seed``; a comparison that needs the same random
+numbers hands both sides the same draws.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .algorithms.so.es.open_es import OpenES, OpenESState
+from .core.device import DeviceLike, resolve_device
+from .utils.common import split_seed
+from .utils.optimizers import SGD, Adam, AdamState
+from .workflows.std import StdWorkflow, StdWorkflowState
+
+
+def population(array: Any, device: DeviceLike = None) -> torch.Tensor:
+    """A ``(pop, dim)`` population or genome batch as a float32 tensor."""
+    arr = np.asarray(array, dtype=np.float32)
+    if arr.ndim != 2:
+        raise ValueError(f"expected a (pop, dim) array, got shape {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def _adam_leaf(opt_state: Any) -> Any:
+    """optax's ScaleByAdamState inside an adam chain state."""
+    for part in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
+        if all(hasattr(part, name) for name in ("count", "mu", "nu")):
+            return part
+    raise ValueError("no adam (count, mu, nu) state in the given optimizer state")
+
+
+def optimizer_state(optimizer: Any, opt_state: Any, device: torch.device) -> Any:
+    """The port's optimizer state for ``optimizer`` from an optax state."""
+    if isinstance(optimizer, SGD):
+        return ()
+    if isinstance(optimizer, Adam):
+        leaf = _adam_leaf(opt_state)
+        as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        return AdamState(count=int(np.asarray(leaf.count)), mu=as_t(leaf.mu), nu=as_t(leaf.nu))
+    raise NotImplementedError(f"no carry-over for {type(optimizer).__name__}")
+
+
+def open_es_state(algo: OpenES, jax_state: Any, seed: int = 0) -> OpenESState:
+    """``OpenESState`` from the JAX package's ``OpenESState`` (numpy leaves:
+    ``center``, ``opt_state``). The noise and key streams start from
+    ``seed``."""
+    center = torch.from_numpy(np.array(jax_state.center, dtype=np.float32)).to(algo.device)
+    if center.shape != (algo.dim,):
+        raise ValueError(f"center has shape {tuple(center.shape)}, expected ({algo.dim},)")
+    fresh = algo.init(seed)
+    return fresh.replace(
+        center=center,
+        opt_state=optimizer_state(algo.optimizer, jax_state.opt_state, algo.device),
+    )
+
+
+def std_workflow_state(
+    wf: StdWorkflow, jax_state: Any, seed: int = 0, prob_state: Optional[Any] = None
+) -> StdWorkflowState:
+    """``StdWorkflowState`` from the JAX package's (numpy leaves): the
+    generation, the first-step flag and the algorithm state cross; the
+    problem and monitor states are the port's own, seeded from ``seed``
+    (or ``prob_state`` for the problem)."""
+    if not isinstance(wf.algorithm, OpenES):
+        raise NotImplementedError(
+            f"no carry-over for {type(wf.algorithm).__name__} yet"
+        )
+    fresh = wf.init(seed)
+    algo_seed = split_seed(seed, 1)[0]
+    return fresh.replace(
+        generation=int(np.asarray(jax_state.generation)),
+        algo=open_es_state(wf.algorithm, jax_state.algo, algo_seed),
+        prob=fresh.prob if prob_state is None else prob_state,
+        first_step=bool(jax_state.first_step),
+    )

@@ -1,0 +1,337 @@
+"""Fused policy rollout: whole episodes in one CUDA kernel.
+
+The port of ``evox_tpu/kernels/rollout.py``. ``fused_rollout`` returns the
+total episode reward of every env for a flat-genome tanh MLP
+(``flat_mlp_policy`` layout) over environments in SoA form: a dict of
+``(envs,)`` component planes. On a CUDA tensor it launches the hand-written
+kernel of ``csrc/rollout.cu`` (one thread per env, the genome and the env
+state in registers for all T steps; that file's header says what bounds
+it). On a CPU tensor it runs ``fused_rollout_plain``, the same arithmetic
+as full-width PyTorch ops. There is no other route: a CUDA tensor goes to
+the kernel or raises.
+
+The JAX kernel traces any ``step_soa`` callable; the CUDA kernel knows only
+the envs compiled into it (``SoAEnv.cuda_env``): pendulum 3-16-1 and
+cartpole 4-16-2. Mountain car and acrobot wait (ROADMAP A4).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core.device import DeviceLike, check_device, resolve_device
+from ..problems.neuroevolution.control.envs import EnvSpec, cartpole, pendulum
+from . import _build
+
+# environments in SoA form: state is a dict of per-env component planes
+SoAState = Dict[str, torch.Tensor]
+
+
+class SoAEnv(NamedTuple):
+    """An :class:`EnvSpec` re-expressed over SoA component planes.
+
+    ``base`` keeps the batched spec (used for reset, so the fused and scan
+    engines draw the same initial states); ``to_soa`` turns a state batch
+    ``(n, state_dim)`` into the dict of ``(n,)`` planes that ``obs_soa`` and
+    ``step_soa`` work on. ``step_soa`` returns ``(state, reward, done)``;
+    rewards after an env's first ``done`` are dropped, as in the standard
+    engine. ``terminating`` lets the kernel stop a warp once all its envs
+    are done. ``cuda_env`` names the env's counterpart compiled into
+    ``csrc/rollout.cu`` (``None``: no counterpart, CPU only).
+    """
+
+    base: EnvSpec
+    to_soa: Callable[[torch.Tensor], SoAState]
+    obs_soa: Callable[[SoAState], Tuple[torch.Tensor, ...]]
+    step_soa: Callable[
+        [SoAState, Tuple[torch.Tensor, ...]],
+        Tuple[SoAState, torch.Tensor, torch.Tensor],
+    ]
+    terminating: bool = True
+    cuda_env: Optional[str] = None
+
+
+def pendulum_obs_soa(s: SoAState) -> Tuple[torch.Tensor, ...]:
+    return (torch.cos(s["th"]), torch.sin(s["th"]), s["thdot"])
+
+
+def pendulum_step_soa(s: SoAState, a: Tuple[torch.Tensor, ...]):
+    """One step on ``(envs,)`` planes; the math of control/envs.pendulum."""
+    max_speed, max_torque, dt, g = 8.0, 2.0, 0.05, 10.0
+    th, thdot = s["th"], s["thdot"]
+    u = torch.clamp(a[0], -max_torque, max_torque)
+    # floored modulo, like jnp's % (fmod would truncate)
+    norm_th = torch.remainder(th + math.pi, 2 * math.pi) - math.pi
+    cost = norm_th**2 + 0.1 * thdot**2 + 0.001 * u**2
+    thdot = thdot + (3.0 * g / 2.0 * torch.sin(th) + 3.0 * u) * dt
+    thdot = torch.clamp(thdot, -max_speed, max_speed)
+    never_done = torch.zeros_like(th, dtype=torch.bool)
+    return {"th": th + thdot * dt, "thdot": thdot}, -cost, never_done
+
+
+def pendulum_soa(max_steps: int = 200) -> SoAEnv:
+    """The pendulum :class:`SoAEnv` (the north-star workload's env)."""
+    return SoAEnv(
+        base=pendulum(max_steps=max_steps),
+        to_soa=lambda s: {"th": s[..., 0], "thdot": s[..., 1]},
+        obs_soa=pendulum_obs_soa,
+        step_soa=pendulum_step_soa,
+        terminating=False,
+        cuda_env="pendulum",
+    )
+
+
+def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division on every backend. PyTorch's CUDA kernel
+    turns division by a Python scalar into multiplication by its
+    reciprocal, which rounds differently from JAX and from the CUDA
+    kernel; a 0-d tensor divisor keeps the true division."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def cartpole_soa(max_steps: int = 500) -> SoAEnv:
+    """control/envs.cartpole over SoA planes (terminating: the kernel keeps
+    a sticky done flag and stops a warp once all its envs are done)."""
+    gravity, masscart, masspole = 9.8, 1.0, 0.1
+    total_mass = masscart + masspole
+    length = 0.5
+    polemass_length = masspole * length
+    force_mag = 10.0
+    tau = 0.02
+    theta_limit = 12 * 2 * math.pi / 360
+    x_limit = 2.4
+
+    def obs_soa(s):
+        return (s["x"], s["xd"], s["th"], s["thd"])
+
+    def step_soa(s, a):
+        # arithmetic select, 2c - 1 maps {0, 1} -> {-1, +1}
+        go_right = (a[1] > a[0]).to(a[0].dtype)
+        force = force_mag * (2.0 * go_right - 1.0)
+        x, x_dot, th, th_dot = s["x"], s["xd"], s["th"], s["thd"]
+        costh, sinth = torch.cos(th), torch.sin(th)
+        temp = _true_div(force + polemass_length * th_dot**2 * sinth, total_mass)
+        thacc = (gravity * sinth - costh * temp) / (
+            length * (4.0 / 3.0 - _true_div(masspole * costh**2, total_mass))
+        )
+        xacc = temp - _true_div(polemass_length * thacc * costh, total_mass)
+        x = x + tau * x_dot
+        x_dot = x_dot + tau * xacc
+        th = th + tau * th_dot
+        th_dot = th_dot + tau * thacc
+        done = (torch.abs(x) > x_limit) | (torch.abs(th) > theta_limit)
+        new = {"x": x, "xd": x_dot, "th": th, "thd": th_dot}
+        return new, torch.ones_like(x), done
+
+    return SoAEnv(
+        base=cartpole(max_steps=max_steps),
+        to_soa=lambda s: {
+            "x": s[..., 0], "xd": s[..., 1], "th": s[..., 2], "thd": s[..., 3]
+        },
+        obs_soa=obs_soa,
+        step_soa=step_soa,
+        cuda_env="cartpole",
+    )
+
+
+def _mlp_act(
+    theta_t: torch.Tensor,
+    obs: Tuple[torch.Tensor, ...],
+    obs_dim: int,
+    hidden: int,
+    act_dim: int,
+) -> Tuple[torch.Tensor, ...]:
+    """``(envs,)`` actions from TRANSPOSED genomes ``theta_t`` ``(dim, envs)``:
+    each genome component is one row, so every term is a full-width plane.
+    Order of operations as in the JAX kernel and the CUDA one: start from
+    b1, accumulate over obs k, then over hidden j."""
+    n1 = obs_dim * hidden
+    n2 = n1 + hidden
+    n3 = n2 + hidden * act_dim
+    h = [theta_t[n1 + j] for j in range(hidden)]  # start from b1
+    for k in range(obs_dim):
+        for j in range(hidden):
+            h[j] = h[j] + obs[k] * theta_t[k * hidden + j]
+    th = [torch.tanh(hj) for hj in h]
+    acts = []
+    for i in range(act_dim):
+        a = theta_t[n3 + i]  # b2[i]
+        for j in range(hidden):
+            a = a + th[j] * theta_t[n2 + j * act_dim + i]
+        acts.append(a)
+    return tuple(acts)
+
+
+def _check_args(theta, init_state, obs_dim, hidden, act_dim, episodes) -> int:
+    if theta.ndim != 2 or theta.dtype != torch.float32:
+        raise ValueError(f"theta must be float32 (n, dim), got {theta.dtype} {tuple(theta.shape)}")
+    n, dim = theta.shape
+    expect_dim = obs_dim * hidden + hidden + hidden * act_dim + act_dim
+    if dim != expect_dim:
+        raise ValueError(
+            f"theta dim {dim} != flat MLP size {expect_dim} for "
+            f"({obs_dim} -> {hidden} -> {act_dim})"
+        )
+    for k, v in init_state.items():
+        if v.shape != (episodes * n,) or v.dtype != torch.float32:
+            raise ValueError(
+                f"state plane {k!r} is {v.dtype} {tuple(v.shape)}, expected "
+                f"float32 ({episodes * n},) = episodes*n, episode-major"
+            )
+    return n
+
+
+def fused_rollout_plain(
+    theta: torch.Tensor,
+    init_state: SoAState,
+    T: int,
+    obs_dim: int = 3,
+    hidden: int = 16,
+    act_dim: int = 1,
+    env: Optional[SoAEnv] = None,
+    episodes: int = 1,
+) -> torch.Tensor:
+    """The kernel's own arithmetic on full ``(episodes*n,)`` planes, in plain
+    PyTorch (the counterpart of the JAX tests' ``_loop_reference``). It
+    runs all T steps; the kernel's early exit skips only steps whose
+    rewards are masked, so the totals are the same."""
+    env = env if env is not None else pendulum_soa()
+    _check_args(theta, init_state, obs_dim, hidden, act_dim, episodes)
+    # episode-major: column e*n + i of theta_t is genome i
+    theta_t = theta.t().repeat(1, episodes)
+    state = dict(init_state)
+    total = torch.zeros_like(next(iter(state.values())))
+    done = torch.zeros_like(total)
+    for _ in range(T):
+        obs = env.obs_soa(state)
+        a = _mlp_act(theta_t, obs, obs_dim, hidden, act_dim)
+        state, reward, step_done = env.step_soa(state, a)
+        total = total + torch.where(done > 0.5, torch.zeros_like(reward), reward)
+        done = torch.maximum(done, step_done.to(done.dtype))
+    return total
+
+
+# env name -> (id in csrc/rollout.cu, plane order, (obs, hidden, act))
+_CUDA_ENVS = {
+    "pendulum": (0, ("th", "thdot"), (3, 16, 1)),
+    "cartpole": (1, ("x", "xd", "th", "thd"), (4, 16, 2)),
+}
+_LIB: Dict[str, Any] = {}
+
+
+def _lib():
+    """The built library, with its C signatures declared (first use builds)."""
+    lib = _LIB.get("rollout")
+    if lib is None:
+        lib = _build.load("rollout")
+        lib.evox_fused_rollout.argtypes = [
+            ctypes.c_int,  # env id
+            ctypes.c_void_p,  # theta (n, dim)
+            ctypes.c_void_p,  # state planes (C, episodes*n)
+            ctypes.c_void_p,  # out (episodes*n,)
+            ctypes.c_int,  # n
+            ctypes.c_int,  # episodes
+            ctypes.c_int,  # T
+            ctypes.c_int,  # obs_dim
+            ctypes.c_int,  # hidden
+            ctypes.c_int,  # act_dim
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.evox_fused_rollout.restype = ctypes.c_int
+        lib.evox_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.evox_cuda_error_string.restype = ctypes.c_char_p
+        _LIB["rollout"] = lib
+    return lib
+
+
+def _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n):
+    spec = _CUDA_ENVS.get(env.cuda_env)
+    if spec is None:
+        raise ValueError(
+            "this SoAEnv has no CUDA counterpart in csrc/rollout.cu "
+            f"(cuda_env={env.cuda_env!r}); built in: {sorted(_CUDA_ENVS)}"
+        )
+    env_id, keys, shape = spec
+    if (obs_dim, hidden, act_dim) != shape:
+        raise ValueError(
+            f"the CUDA kernel for {env.cuda_env} is compiled for MLP "
+            f"{shape[0]}-{shape[1]}-{shape[2]}, got {obs_dim}-{hidden}-{act_dim}"
+        )
+    if set(init_state) != set(keys):
+        raise ValueError(f"state planes {sorted(init_state)} != {sorted(keys)}")
+    theta = theta.contiguous()
+    planes = torch.stack([init_state[k] for k in keys]).contiguous()
+    out = torch.empty(episodes * n, dtype=torch.float32, device=theta.device)
+    if n == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(theta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.evox_fused_rollout(
+            env_id, theta.data_ptr(), planes.data_ptr(), out.data_ptr(),
+            n, episodes, int(T), obs_dim, hidden, act_dim, stream,
+        )
+    if err != 0:
+        msg = lib.evox_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_rollout kernel launch failed: CUDA error {err} ({msg})")
+    fused_rollout.launches += 1
+    return out
+
+
+def fused_rollout(
+    theta: torch.Tensor,
+    init_state: SoAState,
+    T: int,
+    obs_dim: int = 3,
+    hidden: int = 16,
+    act_dim: int = 1,
+    env: Optional[SoAEnv] = None,
+    episodes: int = 1,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Total episode reward per environment, fully fused.
+
+    Args:
+        theta: ``(n, dim)`` float32 flat MLP genomes (``flat_mlp_policy``
+            layout), one row per individual.
+        init_state: SoA env state, a dict of ``(episodes * n,)`` float32
+            planes, EPISODE-MAJOR (all of episode 0's envs, then episode
+            1's...). Env ``e*n + i`` runs genome ``i``.
+        T: fixed episode length.
+        obs_dim / hidden / act_dim: MLP shape.
+        env: the :class:`SoAEnv` (default ``pendulum_soa()``).
+        episodes: episodes per individual.
+        device: where the inputs lie; ``None`` means ``"cuda"``. On ``cuda``
+            the hand kernel runs; on ``cpu``, ``fused_rollout_plain``.
+
+    The JAX kernel's ``tile`` and ``interpret`` arguments are TPU knobs: a
+    tile sized the VMEM block and its (8, 128) padding, and interpret mode
+    ran Pallas on the CPU. The CUDA kernel has one thread per env and masks
+    the ragged edge, and the CPU route is the plain version, so neither has
+    a counterpart.
+
+    ``fused_rollout.launches`` counts kernel launches.
+
+    Returns:
+        ``(episodes * n,)`` total rewards, episode-major.
+    """
+    dev = resolve_device(device)
+    env = env if env is not None else pendulum_soa()
+    n = _check_args(theta, init_state, obs_dim, hidden, act_dim, episodes)
+    check_device(theta, dev, "theta")
+    for k, v in init_state.items():
+        check_device(v, dev, f"state plane {k!r}")
+    if dev.type == "cpu":
+        return fused_rollout_plain(
+            theta, init_state, T, obs_dim, hidden, act_dim, env, episodes
+        )
+    if dev.type == "cuda":
+        return _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n)
+    raise ValueError(f"fused_rollout runs on cuda or cpu, not {dev}")
+
+
+fused_rollout.launches = 0

@@ -1,0 +1,261 @@
+"""StdWorkflow of the port against the JAX package, and the slice as a
+whole: OpenES + fused pendulum rollouts through StdWorkflow, on the CPU,
+with JAX's noise and reset draws handed to the port."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from evox_tpu import StdWorkflow as JaxStdWorkflow
+from evox_tpu.algorithms.so.es import OpenES as JaxOpenES
+from evox_tpu.core.monitor import Monitor as JaxMonitor
+from evox_tpu.core.problem import Problem as JaxProblemBase
+from evox_tpu.kernels import rollout as jkr
+from evox_tpu.problems.neuroevolution import PolicyRolloutProblem as JaxRolloutProblem
+from evox_tpu.problems.neuroevolution import flat_mlp_policy as jax_flat_mlp_policy
+from evox_tpu.utils.common import rank_based_fitness as jax_rank_based_fitness
+from evox_tpu_torch import Monitor, Problem, StdWorkflow, interop
+from evox_tpu_torch.algorithms.so.es import OpenES
+from evox_tpu_torch.core.monitor import HOOK_NAMES
+from evox_tpu_torch.kernels import rollout as tkr
+from evox_tpu_torch.problems.neuroevolution import PolicyRolloutProblem, flat_mlp_policy
+from evox_tpu_torch.utils import rank_based_fitness
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _substitute_noise(algo, halves):
+    """The n-th new noise seed the port sees gets JAX's n-th draw."""
+    by_seed = {}
+
+    def draw(seed):
+        if seed not in by_seed:
+            by_seed[seed] = torch.as_tensor(np.array(halves[len(by_seed)]))
+        return by_seed[seed]
+
+    algo._draw_noise = draw
+
+
+def _recorder(base):
+    """A monitor class over ``base`` that logs (hook, numbers seen)."""
+
+    class Recorder(base):
+        def __init__(self, log):
+            self.log = log
+
+        def hooks(self):
+            return HOOK_NAMES
+
+    def hook(name):
+        def method(self, mstate, *args):
+            arrays = [np.asarray(a) for a in args if hasattr(a, "shape")]
+            self.log.append((name, arrays))
+            return mstate
+
+        return method
+
+    for name in HOOK_NAMES:
+        setattr(Recorder, name, hook(name))
+    return Recorder
+
+
+class _JaxSphere(JaxProblemBase):
+    def evaluate(self, state, pop):
+        return jnp.sum(pop**2, axis=1), state
+
+
+class _Sphere(Problem):
+    def evaluate(self, state, pop):
+        return torch.sum(pop**2, dim=1), state
+
+
+def test_hook_order_and_hook_data_match_jax():
+    pop_size, dim, gens = 8, 3, 2
+    jlog, tlog = [], []
+    jalgo = JaxOpenES(np.ones(dim, np.float32), pop_size, noise_stdev=0.1)
+    jwf = JaxStdWorkflow(jalgo, _JaxSphere(), monitors=[_recorder(JaxMonitor)(jlog)],
+                         opt_direction="max", fit_transforms=[jax_rank_based_fitness],
+                         jit_step=False)
+    jstate = jwf.init(jax.random.PRNGKey(0))
+    talgo = OpenES(np.ones(dim, np.float32), pop_size, noise_stdev=0.1, device="cpu")
+    twf = StdWorkflow(talgo, _Sphere(), monitors=[_recorder(Monitor)(tlog)],
+                      opt_direction="max", fit_transforms=[rank_based_fitness], device="cpu")
+    tstate = interop.std_workflow_state(twf, _numpy_tree(jstate))
+    halves = []
+    for _ in range(gens):
+        jstate = jwf.step(jstate)
+        halves.append(np.asarray(jax.random.normal(jstate.algo.noise_key, (pop_size // 2, dim))))
+    _substitute_noise(talgo, halves)
+    tstate = twf.run(tstate, gens)
+
+    assert [n for n, _ in tlog] == [n for n, _ in jlog] == list(HOOK_NAMES) * gens
+    for (name, jarrs), (_, tarrs) in zip(jlog, tlog):
+        assert len(jarrs) == len(tarrs), name
+        for ja, ta in zip(jarrs, tarrs):
+            np.testing.assert_allclose(ta, ja, rtol=1e-5, atol=1e-6, err_msg=name)
+    # post_eval sees the raw fitness, pre_tell the flipped and shaped one
+    post_eval = [a for n, a in tlog if n == "post_eval"][0][1]
+    pre_tell = [a for n, a in tlog if n == "pre_tell"][0][0]
+    assert (post_eval >= 0).all() and pre_tell.min() == -0.5 and pre_tell.max() == 0.5
+    assert tstate.generation == int(jstate.generation) == gens
+    np.testing.assert_allclose(tstate.algo.center.numpy(), np.asarray(jstate.algo.center),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_slice_openes_fused_pendulum_matches_jax_over_three_generations():
+    """The slice as a whole, at pop 16, T 20, hidden 8: both packages start
+    from the same state (through interop), see the same noise and resets,
+    and end with the same center.
+
+    Tolerance: each fitness differs by last-ulp rounding of sin/cos/tanh
+    between the two libraries, compounded over 20 steps (the JAX package's
+    engine tolerance is 2e-4); the center moves by lr * grad with a grad
+    that sums 8 such differences, over 3 generations. Measured: 1.2e-5
+    absolute on centers of size 0.6."""
+    pop_size, hidden, T, gens = 16, 8, 20, 3
+    jsoa, tsoa = jkr.pendulum_soa(T), tkr.pendulum_soa(T)
+    japply, dim = jax_flat_mlp_policy(3, hidden, 1)
+    tapply, _ = flat_mlp_policy(3, hidden, 1)
+    kw = dict(num_episodes=2, stochastic_reset=False, early_exit=False)
+    jwf = JaxStdWorkflow(
+        JaxOpenES(jnp.zeros(dim), pop_size, learning_rate=0.05, noise_stdev=0.05),
+        JaxRolloutProblem(japply, jsoa.base, fused_env=jsoa, fused_interpret=True, **kw),
+        opt_direction="max",
+    )
+    talgo = OpenES(torch.zeros(dim), pop_size, learning_rate=0.05, noise_stdev=0.05, device="cpu")
+    tprob = PolicyRolloutProblem(tapply, tsoa.base, fused_env=tsoa, device="cpu", **kw)
+    twf = StdWorkflow(talgo, tprob, opt_direction="max", device="cpu")
+
+    jstate = jwf.init(jax.random.PRNGKey(0))
+    tstate = interop.std_workflow_state(twf, _numpy_tree(jstate))
+    # stochastic_reset=False: every generation rolls out from the same resets
+    k_eps = jax.random.fold_in(jstate.prob.key, 0)
+    resets = np.asarray(jax.vmap(jsoa.base.reset)(jax.random.split(k_eps, 2)))
+    tprob._episode_states = lambda seed, env: torch.as_tensor(resets.copy())
+
+    halves = []
+    for _ in range(gens):
+        jstate = jwf.step(jstate)
+        halves.append(np.asarray(jax.random.normal(jstate.algo.noise_key, (pop_size // 2, dim))))
+    _substitute_noise(talgo, halves)
+    launches = tkr.fused_rollout.launches
+    tstate = twf.run(tstate, gens)
+
+    assert tstate.generation == int(jstate.generation) == gens
+    assert tkr.fused_rollout.launches == launches  # the CPU route launches nothing
+    jcenter = np.asarray(jstate.algo.center)
+    assert np.abs(jcenter).max() > 0.1  # the slice moved the center
+    np.testing.assert_allclose(tstate.algo.center.numpy(), jcenter, rtol=2e-4, atol=5e-5)
+
+
+def test_entry_points_refuse_a_missing_cuda(monkeypatch):
+    """device=None means cuda: without a card every entry point raises,
+    and nothing goes on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    soa = tkr.pendulum_soa()
+    apply, dim = flat_mlp_policy(3, 16, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OpenES(torch.zeros(dim), 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PolicyRolloutProblem(apply, soa.base, fused_env=soa)
+    algo = OpenES(torch.zeros(dim), 4, device="cpu")
+    prob = PolicyRolloutProblem(apply, soa.base, fused_env=soa, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StdWorkflow(algo, prob)
+    theta = torch.zeros(2, dim)
+    planes = {"th": torch.zeros(2), "thdot": torch.zeros(2)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tkr.fused_rollout(theta, planes, 3)
+    # asked for the CPU, the same calls run
+    assert tkr.fused_rollout(theta, planes, 3, device="cpu").shape == (2,)
+
+
+def test_deferred_arguments_raise():
+    soa = tkr.pendulum_soa()
+    apply, dim = flat_mlp_policy(3, 16, 1)
+    algo = OpenES(torch.zeros(dim), 4, device="cpu")
+    prob = PolicyRolloutProblem(apply, soa.base, fused_env=soa, device="cpu")
+    for kwargs in ({"mesh": object()}, {"external_problem": True}, {"eval_shard_map": True},
+                   {"migrate_helper": lambda: None}, {"dtype_policy": object()},
+                   {"donate_carries": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            StdWorkflow(algo, prob, device="cpu", **kwargs)
+    wf = StdWorkflow(algo, prob, device="cpu")
+    for kwargs in ({"checkpointer": object()}, {"resume_from": "dir"}, {"restarts": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            wf.run(wf.init(0), 1, **kwargs)
+    for kwargs in ({"cap_episode": object()}, {"obs_normalizer": object()}, {"fused_planes": object()}):
+        with pytest.raises(NotImplementedError):
+            PolicyRolloutProblem(apply, soa.base, device="cpu", **kwargs)
+    no_cuda_twin = tkr.SoAEnv(*soa[:-1], cuda_env=None)
+    assert no_cuda_twin.cuda_env is None and soa.cuda_env == "pendulum"
+
+
+def test_interop_carries_populations_and_workflow_state():
+    pop = np.random.default_rng(0).normal(size=(6, 81)).astype(np.float32)
+    np.testing.assert_array_equal(interop.population(pop, device="cpu").numpy(), pop)
+    soa = jkr.pendulum_soa()
+    japply, dim = jax_flat_mlp_policy(3, 16, 1)
+    jwf = JaxStdWorkflow(JaxOpenES(jnp.arange(dim, dtype=jnp.float32), 4),
+                         JaxRolloutProblem(japply, soa.base), opt_direction="max")
+    jstate = jwf.step(jwf.init(jax.random.PRNGKey(1)))
+    apply, _ = flat_mlp_policy(3, 16, 1)
+    twf = StdWorkflow(OpenES(torch.zeros(dim), 4, device="cpu"),
+                      PolicyRolloutProblem(apply, tkr.pendulum_soa().base, device="cpu"),
+                      device="cpu")
+    tstate = interop.std_workflow_state(twf, _numpy_tree(jstate))
+    assert tstate.generation == 1 and tstate.first_step is False
+    np.testing.assert_array_equal(tstate.algo.center.numpy(), np.asarray(jstate.algo.center))
+    assert tstate.algo.opt_state == ()
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Import every module of the port in a fresh interpreter: neither
+    ``jax`` nor ``evox_tpu`` (exact keys: ``evox_tpu_torch`` starts with
+    ``evox_tpu``) may appear in ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import evox_tpu_torch\n"
+        "for m in pkgutil.walk_packages(evox_tpu_torch.__path__, 'evox_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'evox_tpu')\n"
+        "       or k.startswith(('jax.', 'evox_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module)
+    return roots
+
+
+def test_port_and_chip_smoke_sources_name_no_jax_import():
+    files = sorted((REPO / "evox_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "torch_fmad_ab.py"
+    ]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_roots(path):
+            assert not (mod in ("jax", "evox_tpu") or mod.startswith(("jax.", "evox_tpu."))), (
+                f"{path.relative_to(REPO)} imports {mod}"
+            )
