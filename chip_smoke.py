@@ -11,22 +11,37 @@ exit 0):
 
 1. device: the card's name and power limit (nvidia-smi); build every CUDA
    source of the port from the checkout (one nvcc per source, in parallel).
-2. kernel against plain: ``fused_rollout`` on the card against
-   ``fused_rollout_plain`` on the same inputs — pendulum at pop 65536,
-   2 episodes, T 200 (the main path's shape), and cartpole (early exit) at
-   pop 8192 and 1500 (ragged edge), T 500. Times both with CUDA events.
-3. main path: ``StdWorkflow(OpenES(zeros(81), 65536), PolicyRolloutProblem(
-   flat_mlp_policy 3-16-1, pendulum(200), 2 episodes, fused_env=
-   pendulum_soa(200)), opt_direction="max")`` — init, one warm-up step,
-   then ``run`` for 20 generations with the launch counters set to 0 just
-   before and read just after. Checks one launch per generation, finite fitness,
-   a center that moved, and the fused engine against the scan engine (the
-   plain PyTorch reference engine) on a small population.
-4. a ``{"kernels": [...]}`` line, then the last line
+2. kernels against plain: ``fused_rollout`` against
+   ``fused_rollout_plain`` — pendulum at pop 65536, 2 episodes, T 200 (the
+   first main path's shape), and cartpole (early exit) at pop 8192 and 1500
+   (ragged edge), T 500; ``packed_dominance`` against
+   ``packed_dominance_reference`` on the second main path's first merged
+   fitness (n 20000, m 3) and on stress inputs; ``partial_topk`` against
+   ``partial_topk_reference`` on that path's cut key (n 20000, k 10000) and
+   on stress inputs. All bit for bit. Times each kernel and its plain
+   version with CUDA events, and ``torch.topk`` beside ``partial_topk``.
+3. main path 1: ``StdWorkflow(OpenES(zeros(81), 65536),
+   PolicyRolloutProblem(flat_mlp_policy 3-16-1, pendulum(200), 2 episodes,
+   fused_env=pendulum_soa(200)), opt_direction="max")`` — init, one
+   warm-up step, then ``run`` for 20 generations with every launch counter
+   set to 0 just before and read just after. Checks one rollout launch per
+   generation, finite fitness, a center that moved, and the fused engine
+   against the scan engine on a small population.
+4. main path 2: ``StdWorkflow(NSGA2(*LSMOP1(d=300, m=3).bounds(), n_objs=3,
+   pop_size=10000, use_kernel=True), LSMOP1(d=300, m=3))`` — init step,
+   one warm-up generation, then ``run`` for 20 generations, counters as
+   above. Checks one ``packed_dominance`` and one ``partial_topk`` launch
+   per generation, finite fitness, a population within bounds; one
+   ``tell`` on the card against the same ``tell`` on the CPU's plain
+   routes (survivors and ranks equal); the lexsort truncation against the
+   partial-top-k one (same survivor set). Reports ms per generation, the
+   fronts peeled per generation and a per-stage breakdown of a generation.
+5. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, with no result line, when CUDA is unavailable or when the
-checkout is missing. Imports nothing of JAX.
+``--profile`` adds a torch.profiler breakdown of 5 generations of each main
+path. Exits non-zero, with no result line, when CUDA is unavailable or when
+the checkout is missing. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +62,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 GENERATIONS = 20  # timed main-path generations, after one warm-up step
 SEED = 0
+# main path 2: bench.py:374-388's NSGA-II workload, at full width
+NSGA2_POP = 10000
+LSMOP_D, LSMOP_M = 300, 3
 
 
 def _nvidia_smi() -> str:
@@ -105,7 +123,7 @@ def compare(name: str, got, want, rtol: float, atol: float) -> dict:
     diff = (got - want).abs()
     bad = diff > atol + rtol * want.abs()
     stats = {
-        "envs": int(got.numel()),
+        "elements": int(got.numel()),
         "max_abs_err": float(diff.max()),
         "max_rel_err": float((diff / want.abs().clamp_min(1e-6)).max()),
         "median_abs_err": float(diff.median()),
@@ -238,14 +256,16 @@ def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: 
     state = wf.step(state)  # warm-up: first-use library loads, cuBLAS handle
     torch.cuda.synchronize()
 
-    kr.fused_rollout.launches = 0  # every count to 0 just before the run
+    reset_launches()  # every count to 0 just before the run
     t0 = time.perf_counter()
     state = wf.run(state, gens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kr.fused_rollout.launches  # read just after
-    if launches != gens:
-        raise AssertionError(f"fused_rollout launched {launches} times in {gens} generations")
+    counts = read_launches()  # read just after
+    want = {"fused_rollout": gens, "packed_dominance": 0, "partial_topk": 0}
+    if counts != want:
+        raise AssertionError(f"launches in {gens} OpenES generations: {counts}, expected {want}")
+    launches = counts["fused_rollout"]
     if state.generation != gens + 1:
         raise AssertionError(f"generation {state.generation} != {gens + 1}")
     records = state.monitors[0]
@@ -324,6 +344,308 @@ def profile_generations(torch, wf, state, gens: int) -> dict:
     }
 
 
+# ----------------------------------------------------------- main path 2
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from evox_tpu_torch.kernels import dominance, rollout, topk
+
+    return {"fused_rollout": rollout.fused_rollout, "packed_dominance": dominance.packed_dominance,
+            "partial_topk": topk.partial_topk}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def compare_exact(name: str, got, want) -> dict:
+    """Tensors equal bit for bit (floats as their int32 bit patterns, so the
+    sign of zero and NaN payloads count). ``max_abs_err`` is the largest
+    difference of the compared integers (0 when equal)."""
+    import torch
+
+    stats = {"elements": 0, "mismatches": 0, "max_abs_err": 0.0}
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)} != {w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        g, w = g.cpu().to(torch.float64), w.cpu().to(torch.float64)
+        stats["elements"] += g.numel()
+        stats["mismatches"] += int((g != w).sum())
+        if g.numel():
+            stats["max_abs_err"] = max(stats["max_abs_err"], float((g - w).abs().max()))
+    print(f"[compare] {name}: {json.dumps(stats)}", flush=True)
+    if stats["mismatches"]:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version: {stats}")
+    return stats
+
+
+def build_nsga2_path(torch):
+    """Main path 2 as a user builds it."""
+    from evox_tpu_torch import Monitor, StdWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.problems.numerical import LSMOP1
+
+    class FrontRecorder(Monitor):
+        """Each evaluation's finite flag and each generation's fronts peeled
+        (the survivors' worst rank + 1: the peel stops at the cut front),
+        kept as device tensors and read once, after the run."""
+
+        def init(self, seed=None):
+            return ((), ())
+
+        def hooks(self):
+            return ("post_eval", "post_step")
+
+        def post_eval(self, mstate, cand, fitness):
+            return (mstate[0] + (torch.isfinite(fitness).all(),), mstate[1])
+
+        def post_step(self, mstate, wf_state):
+            return (mstate[0], mstate[1] + (wf_state.algo.rank.max() + 1,))
+
+    prob = LSMOP1(d=LSMOP_D, m=LSMOP_M)
+    algo = NSGA2(*prob.bounds(), n_objs=LSMOP_M, pop_size=NSGA2_POP, use_kernel=True)
+    return StdWorkflow(algo, prob, monitors=[FrontRecorder()])
+
+
+def dominance_work(n: int, m: int) -> tuple:
+    """(bytes, operations) of the packed dominance matrix: fitness read
+    once, words and counts written once; per (row, column) pair 2m compares
+    and m and/or steps, about 3m operations."""
+    n_words = (n + 31) // 32
+    return 4 * (n * m + n_words * n + n), 3 * m * n * n
+
+
+def topk_work(n: int, k: int) -> tuple:
+    """(bytes, operations) of selecting the k smallest: n floats read, k
+    values and k indices written; one key per value (a radix select needs
+    O(n) work)."""
+    return 4 * n + 8 * k, n
+
+
+def stress_fitness(torch, n: int, m: int, seed: int, dev):
+    """Rounded uniform objectives (ties), duplicate rows, +inf, -inf and NaN
+    rows and a NaN objective."""
+    g = torch.Generator().manual_seed(seed)
+    fit = torch.round(torch.rand(n, m, generator=g) * 20) / 20
+    fit[n // 2] = fit[0]
+    fit[n // 3] = fit[1]
+    fit[3] = float("inf")
+    fit[7] = float("nan")
+    fit[11, 1] = float("nan")
+    fit[n - 1, 0] = float("-inf")
+    return fit.to(dev)
+
+
+def stress_values(torch, n: int, seed: int, dev):
+    """Duplicate-heavy values with ±0.0, ±inf and NaNs of both signs and
+    several payloads."""
+    import numpy as np
+
+    g = torch.Generator().manual_seed(seed)
+    v = torch.round(torch.randn(n, generator=g) * 4) / 4  # few levels: heavy ties
+    bits = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFF00000, 0x7F800000,
+                     0xFF800000, 0x00000000, 0x80000000], dtype=np.uint32)
+    special = torch.from_numpy(bits.view(np.int32).copy()).view(torch.float32)
+    hit = torch.randint(0, n, (min(n, 64),), generator=g)
+    v[hit] = special.repeat(len(hit) // len(special) + 1)[: len(hit)]
+    return v.to(dev)
+
+
+def phase_nsga2_kernels(torch, wf, seed: int) -> dict:
+    """Hold packed_dominance and partial_topk against their plain versions
+    on the card, on the main path's inputs and on stress inputs."""
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.kernels import topk as kt
+    from evox_tpu_torch.operators.selection import crowding_distance, non_dominated_sort
+
+    # the main path's first merged fitness: parents after the init step,
+    # then the first generation's offspring
+    state = wf.step(wf.init(seed))
+    off, astate = wf.algorithm.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    merged = torch.cat([astate.fitness, fit])
+    n, m = merged.shape
+    k = wf.algorithm.pop_size
+    dev = merged.device
+    results = {}
+
+    got = kd.packed_dominance(merged, device=dev)
+    want = kd.packed_dominance_reference(merged)
+    torch.cuda.synchronize()
+    stats = compare_exact(f"packed_dominance, main-path merged fitness n={n} m={m}", got, want)
+    stats["ms"] = _time_ms(lambda: kd.packed_dominance(merged, device=dev), 3, 20)
+    stats["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(merged), 1, 3)
+    nbytes, ops = dominance_work(n, m)
+    stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
+    stats["bytes"], stats["ops"] = nbytes, ops
+    results["packed_dominance"] = stats
+    # 20001: the plain version's chunked build; 1000: ragged, one column tile
+    # short; both with duplicates, ±inf and NaN rows
+    for sn, sm in ((20001, 3), (1000, 3), (1000, 7)):
+        fit_s = stress_fitness(torch, sn, sm, seed + sn, dev)
+        results[f"packed_dominance_stress_{sn}_{sm}"] = compare_exact(
+            f"packed_dominance, stress n={sn} m={sm}",
+            kd.packed_dominance(fit_s, device=dev), kd.packed_dominance_reference(fit_s))
+
+    # the main path's cut key: -crowding on the cut front, +inf elsewhere
+    rank, cut = non_dominated_sort(merged, until=k, return_cut_rank=True)
+    crowd = crowding_distance(merged, mask=rank == cut)
+    cut_key = torch.where(rank == cut, -crowd, float("inf"))
+    got = kt.partial_topk(cut_key, k, device=dev)
+    want = kt.partial_topk_reference(cut_key, k)
+    torch.cuda.synchronize()
+    stats = compare_exact(f"partial_topk, main-path cut key n={n} k={k}", got, want)
+    stats["ms"] = _time_ms(lambda: kt.partial_topk(cut_key, k, device=dev), 3, 20)
+    stats["plain_ms"] = _time_ms(lambda: kt.partial_topk_reference(cut_key, k), 3, 20)
+    # the library call: torch.topk's tie order is unspecified, so it computes
+    # the same set of values but not necessarily the same indices
+    stats["library_ms"] = _time_ms(lambda: torch.topk(cut_key, k, largest=False), 3, 20)
+    nbytes, ops = topk_work(n, k)
+    stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
+    stats["bytes"], stats["ops"] = nbytes, ops
+    stats["cut_front"] = int((rank == cut).sum())
+    results["partial_topk"] = stats
+    for sn in (100003, 20000, 1000):
+        v = stress_values(torch, sn, seed + sn, dev)
+        for sk in sorted({1, 100, sn // 2, sn}):
+            results[f"partial_topk_stress_{sn}_{sk}"] = compare_exact(
+                f"partial_topk, stress n={sn} k={sk}",
+                kt.partial_topk(v, sk, device=dev), kt.partial_topk_reference(v, sk))
+    return results
+
+
+def nsga2_breakdown(torch, wf, state, reps: int = 5) -> dict:
+    """Median host-clock ms of each stage of one generation, each stage
+    synchronised on both sides: ask (mating and variation), LSMOP1, the
+    whole tell, and inside the tell packed_dominance, the sort (the kernel
+    and the peel loop), and partial_topk on the cut key."""
+    import statistics
+
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.kernels import topk as kt
+    from evox_tpu_torch.operators.selection import crowding_distance, non_dominated_sort
+
+    algo, prob = wf.algorithm, wf.problem
+    k = algo.pop_size
+    times = {name: [] for name in ("ask", "evaluate", "tell", "packed_dominance", "sort",
+                                   "partial_topk")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        off, astate = timed("ask", lambda: algo.ask(state.algo))
+        fit, _ = timed("evaluate", lambda: prob.evaluate(state.prob, off))
+        timed("tell", lambda: algo.tell(astate, fit))
+        merged = torch.cat([astate.fitness, fit])
+        timed("packed_dominance", lambda: kd.packed_dominance(merged, device=merged.device))
+        rank, cut = timed("sort", lambda: non_dominated_sort(merged, until=k, return_cut_rank=True))
+        crowd = crowding_distance(merged, mask=rank == cut)
+        cut_key = torch.where(rank == cut, -crowd, float("inf"))
+        timed("partial_topk", lambda: kt.partial_topk(cut_key, k, device=merged.device))
+    out = {name: statistics.median(v) for name, v in times.items()}
+    out["peel"] = out["sort"] - out["packed_dominance"]
+    out["tell_rest"] = out["tell"] - out["sort"] - out["partial_topk"]
+    return out
+
+
+def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.operators.selection import rank_crowding_truncate
+
+    algo = wf.algorithm
+    state = wf.step(wf.init(seed))  # init step: evaluate the parents, sort them
+    state = wf.step(state)  # warm-up generation
+    torch.cuda.synchronize()
+
+    reset_launches()  # every count to 0 just before the run
+    t0 = time.perf_counter()
+    state = wf.run(state, gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # read just after
+    want = {"fused_rollout": 0, "packed_dominance": gens, "partial_topk": gens}
+    if launches != want:
+        raise AssertionError(f"launches in {gens} NSGA-II generations: {launches}, expected {want}")
+    if state.generation != gens + 2:
+        raise AssertionError(f"generation {state.generation} != {gens + 2}")
+    flags, fronts = state.monitors[0]
+    if not all(bool(f) for f in flags):
+        raise AssertionError("non-finite fitness on the NSGA-II path")
+    fronts = [int(f) for f in fronts[-gens:]]  # the timed generations
+    pop = state.algo.population
+    if not (torch.isfinite(state.algo.fitness).all() and (pop >= algo.lb).all()
+            and (pop <= algo.ub).all()):
+        raise AssertionError("the final population leaves the bounds or its fitness is not finite")
+
+    # one tell on the card against the same tell on the CPU's plain routes
+    off, astate = algo.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    on_card = algo.tell(astate, fit)
+    cpu_algo = NSGA2(algo.lb.cpu(), algo.ub.cpu(), n_objs=algo.n_objs, pop_size=algo.pop_size,
+                     use_kernel=True, device="cpu")
+    cpu_state = astate.replace(**{f: getattr(astate, f).cpu() for f in
+                                  ("population", "fitness", "offspring", "rank", "crowd")})
+    t_cpu = time.perf_counter()
+    on_cpu = cpu_algo.tell(cpu_state, fit.cpu())
+    cpu_tell_s = time.perf_counter() - t_cpu
+    tell_stats = compare_exact(
+        "NSGA-II tell on the card against the CPU's plain routes (population, fitness, rank)",
+        [on_card.population.cpu(), on_card.fitness.cpu(), on_card.rank.cpu()],
+        [on_cpu.population, on_cpu.fitness, on_cpu.rank])
+    crowd_card, crowd_cpu = on_card.crowd.cpu(), on_cpu.crowd
+    finite = torch.isfinite(crowd_cpu)
+    if not torch.equal(torch.isfinite(crowd_card), finite) or not torch.equal(
+            crowd_card[~finite], crowd_cpu[~finite]):
+        raise AssertionError("NSGA-II tell: the infinite crowding distances differ")
+    # the same float32 operations on both devices; the tolerance allows an
+    # ulp of the division, which no run has shown
+    tell_stats["crowd"] = compare("NSGA-II tell crowd (finite entries), card against CPU",
+                                  crowd_card[finite], crowd_cpu[finite], rtol=1e-6, atol=0.0)
+    tell_stats["cpu_tell_s"] = cpu_tell_s
+
+    # the lexsort truncation against the partial-top-k one, same input
+    merged = torch.cat([astate.fitness, fit])
+    o_lex, r_lex = rank_crowding_truncate(merged, algo.pop_size, use_kernel=False)
+    o_top, r_top = rank_crowding_truncate(merged, algo.pop_size, use_kernel=True)
+    lex = dict(zip(o_lex.tolist(), r_lex.tolist()))
+    top = dict(zip(o_top.tolist(), r_top.tolist()))
+    if lex != top or len(top) != algo.pop_size:
+        raise AssertionError("lexsort and partial-top-k truncation keep different survivors")
+    print(f"[compare] truncation, lexsort against partial-top-k: {len(top)} survivors, "
+          "same set and ranks", flush=True)
+
+    out = {
+        "generations": gens,
+        "pop": algo.pop_size,
+        "launches": launches,
+        "wall_s": wall,
+        "ms_per_generation": wall / gens * 1e3,
+        "generations_per_s": gens / wall,
+        "fronts_peeled": fronts,
+        "tell_vs_cpu": tell_stats,
+        "breakdown_ms": nsga2_breakdown(torch, wf, state),
+    }
+    if profile:
+        prof = profile_generations(torch, wf, state, 5)
+        prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
+        out["profile"] = prof
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None, help="also write the full results as JSON here")
@@ -364,9 +686,16 @@ def main() -> int:
     wf, make_problem = build_main_path(torch, SEED)
     kernels = phase_kernels(torch, kr, wf, SEED)
 
-    # 3. main path
+    wf2 = build_nsga2_path(torch)
+    kernels.update(phase_nsga2_kernels(torch, wf2, SEED))
+
+    # 3. main path 1
     main_path = phase_main_path(torch, kr, wf, make_problem, GENERATIONS, SEED, args.profile)
     print(f"[main path] {json.dumps(main_path)}", flush=True)
+
+    # 4. main path 2
+    nsga2_path = phase_nsga2_path(torch, wf2, GENERATIONS, SEED, args.profile)
+    print(f"[nsga2 path] {json.dumps(nsga2_path)}", flush=True)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -387,7 +716,35 @@ def main() -> int:
                 "bound_ms": pend["bound_ms"],
                 "bound_by": pend["bound_by"],
                 "library_ms": None,  # no single PyTorch call computes this
-            }
+            },
+            {
+                "name": "packed_dominance",
+                "route": "cuda",
+                "source": "evox_tpu_torch/csrc/dominance.cu",
+                "replaces": "evox_tpu/kernels/dominance.py:222",
+                "launches": nsga2_path["launches"]["packed_dominance"],
+                "max_abs_err": kernels["packed_dominance"]["max_abs_err"],
+                "ms": kernels["packed_dominance"]["ms"],
+                "plain_ms": kernels["packed_dominance"]["plain_ms"],
+                "bound_ms": kernels["packed_dominance"]["bound_ms"],
+                "bound_by": kernels["packed_dominance"]["bound_by"],
+                "library_ms": None,  # no single PyTorch call computes this
+            },
+            {
+                "name": "partial_topk",
+                "route": "cuda",
+                "source": "evox_tpu_torch/csrc/topk.cu",
+                "replaces": "evox_tpu/kernels/topk.py:185",
+                "launches": nsga2_path["launches"]["partial_topk"],
+                "max_abs_err": kernels["partial_topk"]["max_abs_err"],
+                "ms": kernels["partial_topk"]["ms"],
+                "plain_ms": kernels["partial_topk"]["plain_ms"],
+                "bound_ms": kernels["partial_topk"]["bound_ms"],
+                "bound_by": kernels["partial_topk"]["bound_by"],
+                # torch.topk(v, k, largest=False): the same values, with an
+                # unspecified tie order
+                "library_ms": kernels["partial_topk"]["library_ms"],
+            },
         ]
     }
     result = {
@@ -397,6 +754,7 @@ def main() -> int:
         "build_s": build_s,
         "kernels": kernels,
         "main_path": main_path,
+        "nsga2_path": nsga2_path,
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

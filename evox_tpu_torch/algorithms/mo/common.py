@@ -1,0 +1,136 @@
+"""Shared machinery for multi-objective EAs — the port of
+``evox_tpu/algorithms/mo/common.py``.
+
+The GA skeleton: uniform init -> evaluate the parents once
+(init_ask/init_tell) -> each generation propose offspring by (mating
+selection, SBX, polynomial mutation) -> merge parents and offspring ->
+environmental selection in ``tell``. :class:`GAMOAlgorithm` captures it;
+subclasses implement ``select`` and may override ``mate`` or
+``variation``.
+
+Randomness: the state holds an integer ``seed``; ``ask`` splits it into a
+mating seed and a variation seed, and each operator draws from its own
+``torch.Generator``. The initial population is drawn by
+:func:`uniform_init`, through the one method ``_init_population``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from ...core.algorithm import Algorithm
+from ...core.device import DeviceLike, resolve_device
+from ...core.struct import PyTreeNode
+from ...operators.crossover.sbx import simulated_binary
+from ...operators.mutation.ops import polynomial
+from ...utils.common import generator, split_seed
+
+
+class MOState(PyTreeNode):
+    population: torch.Tensor
+    fitness: torch.Tensor  # (pop, m)
+    offspring: torch.Tensor
+    seed: int
+
+
+def uniform_init(
+    seed: int, lb: torch.Tensor, ub: torch.Tensor, pop_size: int
+) -> torch.Tensor:
+    """``(pop_size, dim)`` uniform in ``[lb, ub)``, on ``lb``'s device."""
+    u = torch.rand((pop_size, lb.shape[0]), generator=generator(seed, lb.device), device=lb.device)
+    return u * (ub - lb) + lb
+
+
+def _bound(x: Any, device: torch.device) -> torch.Tensor:
+    """A float32 copy of a bound vector (a tensor, or anything numpy reads)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32, copy=True)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+class GAMOAlgorithm(Algorithm):
+    """GA-skeleton MO base: subclasses implement ``select(state, merged_pop,
+    merged_fit) -> (pop, fit)``.
+
+    ``mesh`` (the row-sharded sort of the JAX package) waits for ROADMAP
+    A11: passing one raises ``NotImplementedError``. ``device``: ``None``
+    means ``"cuda"``."""
+
+    def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, mesh: Any = None,
+                 device: DeviceLike = None):
+        if mesh is not None:
+            raise NotImplementedError(f"{type(self).__name__}(mesh=...) is not ported yet (ROADMAP A11)")
+        self.device = resolve_device(device)
+        self.lb = _bound(lb, self.device)
+        self.ub = _bound(ub, self.device)
+        self.dim = int(self.lb.shape[0])
+        self.n_objs = n_objs
+        self.pop_size = pop_size
+        self.mesh = mesh
+
+    # -- state ----------------------------------------------------------------
+    def _init_population(self, seed: int) -> torch.Tensor:
+        """The initial population's one draw."""
+        return uniform_init(seed, self.lb, self.ub, self.pop_size)
+
+    def init(self, seed: int) -> MOState:
+        seed, pop_seed = split_seed(seed)
+        pop = self._init_population(pop_seed)
+        return MOState(
+            population=pop,
+            fitness=torch.full((self.pop_size, self.n_objs), float("inf"), device=self.device),
+            offspring=pop,
+            seed=seed,
+        )
+
+    def init_ask(self, state: MOState) -> Tuple[torch.Tensor, MOState]:
+        return state.population, state
+
+    def init_tell(self, state: MOState, fitness: torch.Tensor) -> MOState:
+        return state.replace(fitness=fitness)
+
+    # -- generation -----------------------------------------------------------
+    def mate(self, seed: int, state: MOState) -> torch.Tensor:
+        """Mating pool (default: a random shuffle of the parents)."""
+        idx = torch.randperm(self.pop_size, generator=generator(seed, self.device), device=self.device)
+        return state.population[idx]
+
+    def variation(self, seed: int, mating_pool: torch.Tensor) -> torch.Tensor:
+        s1, s2 = split_seed(seed)
+        off = simulated_binary(s1, mating_pool)
+        return polynomial(s2, off, (self.lb, self.ub))
+
+    def ask(self, state: MOState) -> Tuple[torch.Tensor, MOState]:
+        seed, s_mate, s_var = split_seed(state.seed, 3)
+        off = self.variation(s_var, self.mate(s_mate, state))
+        return off, state.replace(offspring=off, seed=seed)
+
+    def tell(self, state: MOState, fitness: torch.Tensor) -> MOState:
+        merged_pop = torch.cat([state.population, state.offspring])
+        merged_fit = torch.cat([state.fitness, fitness])
+        pop, fit = self.select(state, merged_pop, merged_fit)
+        return state.replace(population=pop, fitness=fit)
+
+    # -- migration ------------------------------------------------------------
+    def migrate(self, state: MOState, pop: torch.Tensor, fitness: torch.Tensor) -> MOState:
+        """Merge migrants into the population and keep the best by NSGA-II
+        (rank, crowding) truncation, for every GA-skeleton MOEA. States that
+        carry (rank, crowd) mating keys get them refreshed."""
+        from ...operators.selection.non_dominate import crowding_distance, rank_crowding_truncate
+
+        merged_pop = torch.cat([state.population, pop])
+        merged_fit = torch.cat([state.fitness, fitness])
+        order, ranks = rank_crowding_truncate(merged_fit, self.pop_size, mesh=self.mesh)
+        fit_sel = merged_fit[order]
+        updates = dict(population=merged_pop[order], fitness=fit_sel)
+        if hasattr(state, "rank"):
+            updates["rank"] = ranks
+        if hasattr(state, "crowd"):
+            updates["crowd"] = crowding_distance(fit_sel)
+        return state.replace(**updates)
+
+    def select(self, state: MOState, pop: torch.Tensor, fit: torch.Tensor):
+        raise NotImplementedError

@@ -13,7 +13,7 @@ import torch
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
 from ....core.struct import PyTreeNode
-from ....utils.common import split_seed
+from ....utils.common import generator, split_seed
 from ....utils.optimizers import make_optimizer
 
 
@@ -68,9 +68,9 @@ class OpenES(Algorithm):
         when mirrored, else ``(pop, dim)``. ``ask`` and ``tell`` both call
         this with the generation's ``noise_seed``."""
         rows = self.pop_size // 2 if self.mirrored else self.pop_size
-        g = torch.Generator(device=self.device).manual_seed(seed)
         return torch.randn(
-            (rows, self.dim), generator=g, device=self.device, dtype=torch.float32
+            (rows, self.dim), generator=generator(seed, self.device), device=self.device,
+            dtype=torch.float32,
         )
 
     def ask(self, state: OpenESState) -> Tuple[torch.Tensor, OpenESState]:

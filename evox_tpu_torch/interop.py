@@ -6,8 +6,10 @@ port's states from them, so both packages can start from the same point.
 They read attributes by name and never import the JAX package.
 
 What crosses unchanged: OpenES centers, the optimizer state (sgd's is
-empty; adam's holds count, mu and nu), the workflow's generation and
-first-step flag, and populations and genomes as ``(pop, dim)`` arrays.
+empty; adam's holds count, mu and nu), the GA-skeleton MO states
+(population, fitness, offspring; NSGA-II's rank and crowd too), the
+workflow's generation and first-step flag, and populations and genomes as
+``(pop, dim)`` arrays.
 
 What cannot cross: PRNG keys. JAX's threefry keys and the port's integer
 seeds for ``torch.Generator`` name unrelated streams, so the port's states
@@ -22,6 +24,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .algorithms.mo.common import GAMOAlgorithm, MOState
+from .algorithms.mo.nsga2 import NSGA2, NSGA2State
 from .algorithms.so.es.open_es import OpenES, OpenESState
 from .core.device import DeviceLike, resolve_device
 from .utils.common import split_seed
@@ -70,6 +74,36 @@ def open_es_state(algo: OpenES, jax_state: Any, seed: int = 0) -> OpenESState:
     )
 
 
+def _tensor(array: Any, dtype: Any, shape: tuple, name: str, device: torch.device) -> torch.Tensor:
+    """A copy of numpy ``array`` as a tensor of numpy ``dtype`` on ``device``."""
+    arr = np.array(array, dtype=dtype)
+    if arr.shape != shape:
+        raise ValueError(f"{name} has shape {arr.shape}, expected {shape}")
+    return torch.from_numpy(arr).to(device)
+
+
+def mo_state(algo: GAMOAlgorithm, jax_state: Any, seed: int = 0) -> MOState:
+    """``MOState`` from the JAX package's (numpy leaves ``population``,
+    ``fitness``, ``offspring``); the key does not cross, the port's seed
+    starts from ``seed``."""
+    n, d, m, dev = algo.pop_size, algo.dim, algo.n_objs, algo.device
+    return algo.init(seed).replace(
+        population=_tensor(jax_state.population, np.float32, (n, d), "population", dev),
+        fitness=_tensor(jax_state.fitness, np.float32, (n, m), "fitness", dev),
+        offspring=_tensor(jax_state.offspring, np.float32, (n, d), "offspring", dev),
+    )
+
+
+def nsga2_state(algo: NSGA2, jax_state: Any, seed: int = 0) -> NSGA2State:
+    """``NSGA2State`` from the JAX package's: the ``MOState`` leaves, and the
+    survivors' ``rank`` (int32) and ``crowd``."""
+    n, dev = algo.pop_size, algo.device
+    return mo_state(algo, jax_state, seed).replace(
+        rank=_tensor(jax_state.rank, np.int32, (n,), "rank", dev),
+        crowd=_tensor(jax_state.crowd, np.float32, (n,), "crowd", dev),
+    )
+
+
 def std_workflow_state(
     wf: StdWorkflow, jax_state: Any, seed: int = 0, prob_state: Optional[Any] = None
 ) -> StdWorkflowState:
@@ -77,7 +111,8 @@ def std_workflow_state(
     generation, the first-step flag and the algorithm state cross; the
     problem and monitor states are the port's own, seeded from ``seed``
     (or ``prob_state`` for the problem)."""
-    if not isinstance(wf.algorithm, OpenES):
+    carry = _ALGO_STATES.get(type(wf.algorithm))
+    if carry is None:
         raise NotImplementedError(
             f"no carry-over for {type(wf.algorithm).__name__} yet"
         )
@@ -85,7 +120,11 @@ def std_workflow_state(
     algo_seed = split_seed(seed, 1)[0]
     return fresh.replace(
         generation=int(np.asarray(jax_state.generation)),
-        algo=open_es_state(wf.algorithm, jax_state.algo, algo_seed),
+        algo=carry(wf.algorithm, jax_state.algo, algo_seed),
         prob=fresh.prob if prob_state is None else prob_state,
         first_step=bool(jax_state.first_step),
     )
+
+
+# algorithm class -> the carry-over of its state
+_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state}

@@ -2,6 +2,12 @@
 version with the same contract. A wrapper takes the plain version only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises."""
 
+from .dominance import (
+    column_popcount,
+    pack_dominator_rows,
+    packed_dominance,
+    packed_dominance_reference,
+)
 from .rollout import (
     SoAEnv,
     cartpole_soa,
@@ -9,11 +15,20 @@ from .rollout import (
     fused_rollout_plain,
     pendulum_soa,
 )
+from .topk import default_use_kernel, partial_topk, partial_topk_reference, total_order_key
 
 __all__ = [
     "SoAEnv",
     "cartpole_soa",
+    "column_popcount",
+    "default_use_kernel",
     "fused_rollout",
     "fused_rollout_plain",
+    "pack_dominator_rows",
+    "packed_dominance",
+    "packed_dominance_reference",
+    "partial_topk",
+    "partial_topk_reference",
     "pendulum_soa",
+    "total_order_key",
 ]

@@ -21,12 +21,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES: Dict[str, Path] = {"rollout": CSRC / "rollout.cu"}
+SOURCES: Dict[str, Path] = {
+    name: CSRC / f"{name}.cu" for name in ("rollout", "dominance", "topk")
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -108,3 +110,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence[Any], restype: Any = ctypes.c_int) -> Any:
+    """``symbol`` of the library built from ``csrc/<name>.cu``, with its C
+    signature declared (pointers and the stream as ``c_void_p``)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def check_launch(name: str, err: int, what: str) -> None:
+    """Raise when a C entry point of ``csrc/<name>.cu`` returned a CUDA
+    error instead of 0."""
+    if err != 0:
+        text = function(name, "evox_cuda_error_string", [ctypes.c_int], ctypes.c_char_p)(err)
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({text.decode()})")

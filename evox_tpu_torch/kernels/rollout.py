@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -220,34 +220,6 @@ _CUDA_ENVS = {
     "pendulum": (0, ("th", "thdot"), (3, 16, 1)),
     "cartpole": (1, ("x", "xd", "th", "thd"), (4, 16, 2)),
 }
-_LIB: Dict[str, Any] = {}
-
-
-def _lib():
-    """The built library, with its C signatures declared (first use builds)."""
-    lib = _LIB.get("rollout")
-    if lib is None:
-        lib = _build.load("rollout")
-        lib.evox_fused_rollout.argtypes = [
-            ctypes.c_int,  # env id
-            ctypes.c_void_p,  # theta (n, dim)
-            ctypes.c_void_p,  # state planes (C, episodes*n)
-            ctypes.c_void_p,  # out (episodes*n,)
-            ctypes.c_int,  # n
-            ctypes.c_int,  # episodes
-            ctypes.c_int,  # T
-            ctypes.c_int,  # obs_dim
-            ctypes.c_int,  # hidden
-            ctypes.c_int,  # act_dim
-            ctypes.c_void_p,  # cudaStream_t
-        ]
-        lib.evox_fused_rollout.restype = ctypes.c_int
-        lib.evox_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.evox_cuda_error_string.restype = ctypes.c_char_p
-        _LIB["rollout"] = lib
-    return lib
-
-
 def _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n):
     spec = _CUDA_ENVS.get(env.cuda_env)
     if spec is None:
@@ -268,16 +240,26 @@ def _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n):
     out = torch.empty(episodes * n, dtype=torch.float32, device=theta.device)
     if n == 0:
         return out
-    lib = _lib()
+    fn = _build.function("rollout", "evox_fused_rollout", [
+        ctypes.c_int,  # env id
+        ctypes.c_void_p,  # theta (n, dim)
+        ctypes.c_void_p,  # state planes (C, episodes*n)
+        ctypes.c_void_p,  # out (episodes*n,)
+        ctypes.c_int,  # n
+        ctypes.c_int,  # episodes
+        ctypes.c_int,  # T
+        ctypes.c_int,  # obs_dim
+        ctypes.c_int,  # hidden
+        ctypes.c_int,  # act_dim
+        ctypes.c_void_p,  # cudaStream_t
+    ])
     with torch.cuda.device(theta.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.evox_fused_rollout(
+        err = fn(
             env_id, theta.data_ptr(), planes.data_ptr(), out.data_ptr(),
             n, episodes, int(T), obs_dim, hidden, act_dim, stream,
         )
-    if err != 0:
-        msg = lib.evox_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_rollout kernel launch failed: CUDA error {err} ({msg})")
+    _build.check_launch("rollout", err, "fused_rollout")
     fused_rollout.launches += 1
     return out
 

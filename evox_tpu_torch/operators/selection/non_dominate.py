@@ -1,0 +1,263 @@
+"""Non-dominated sorting and crowding distance — the port of
+``evox_tpu/operators/selection/non_dominate.py``.
+
+The dominance matrix comes bit-packed from
+:func:`~evox_tpu_torch.kernels.dominance.packed_dominance` (the CUDA kernel
+for tensors on the card), 32 dominators per int32 word. Fronts are peeled
+off it by a Python ``while`` loop that reads one number from the device per
+front (the front's size: the loop's condition); each peel is one
+``popcount(front & packed)`` pass over the words in plain PyTorch. The JAX
+package runs the same loop as a ``lax.while_loop`` on the device.
+
+Sorts follow the JAX package's stable ones (``jnp.argsort``,
+``jnp.lexsort``): ``stable=True`` everywhere, and ``lexsort`` from
+successive stable sorts, so ranks and survivor sets match it exactly.
+
+The JAX package's ``mesh=`` (the row-sharded sort) waits for the scale-out
+slice (ROADMAP A11): passing one raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple, Union
+
+import torch
+
+from ...kernels.dominance import column_popcount, pack_dominator_rows, packed_dominance
+from ...kernels.topk import default_use_kernel, partial_topk
+from ...utils.common import lexsort
+
+INF = float("inf")
+
+
+def _refuse_mesh(mesh: Any) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the mesh-sharded sort is not ported yet (ROADMAP A11)")
+
+
+def _pack_front(front: torch.Tensor, n_words: int) -> torch.Tensor:
+    """Bit-pack a boolean front vector ``(n,)`` into ``(n_words,)`` int32
+    words (bit ``k`` of word ``w`` <- row ``32w + k``)."""
+    return pack_dominator_rows(front[:, None], n_words)[:, 0]
+
+
+def _peel_fronts(
+    count: torch.Tensor,
+    stop: int,
+    n_words: int,
+    delta_fn: Callable[[torch.Tensor], torch.Tensor],
+) -> Tuple[torch.Tensor, int]:
+    """Peel fronts until ``stop`` rows are ranked.
+
+    ``count``: ``(n,)`` int32 domination counts. ``delta_fn(front_words)``
+    maps the packed current front ``(n_words,)`` to the ``(n,)`` int32
+    number of its members dominating each row. Each iteration ranks one
+    front ``r``, subtracts its domination counts, and drops its rows to -1
+    so they never re-enter. Returns ``(rank, cut)``: unranked rows hold the
+    sentinel ``n``, and ``cut`` is the first rank at which the cumulative
+    front sizes reach ``stop`` (``n`` if they never do).
+    """
+    n = count.shape[0]
+    rank = torch.full((n,), n, dtype=torch.int32, device=count.device)
+    front = count == 0
+    r, done, cut = 0, 0, n
+    while done < stop:
+        size = int(front.sum())  # the one host read of each front
+        if size == 0:
+            break
+        rank = torch.where(front, r, rank)
+        done += size
+        if done >= stop and cut == n:
+            cut = r
+        delta = delta_fn(_pack_front(front, n_words))
+        count = count - delta - front.to(torch.int32)
+        front = count == 0
+        r += 1
+    return rank, cut
+
+
+def non_dominated_sort(
+    fitness: torch.Tensor,
+    until: Optional[int] = None,
+    return_cut_rank: bool = False,
+    mesh: Any = None,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
+    """Pareto rank of each row of ``fitness`` ``(n, m)``; rank 0 is the
+    non-dominated front (minimisation).
+
+    With ``until=k`` the peeling stops once at least ``k`` rows are ranked;
+    unranked rows get the sentinel rank ``n``. ``return_cut_rank=True``
+    also returns the rank at which the cumulative front sizes first reach
+    ``until`` (the worst admitted rank of environmental selection), as a
+    Python int.
+    """
+    _refuse_mesh(mesh)
+    n = fitness.shape[0]
+    stop = n if until is None else min(until, n)
+    n_words = (n + 31) // 32
+    dom_packed, count = packed_dominance(fitness, device=fitness.device)
+
+    def delta_fn(front_words: torch.Tensor) -> torch.Tensor:
+        return column_popcount(dom_packed & front_words[:, None])
+
+    rank, cut = _peel_fronts(count, stop, n_words, delta_fn)
+    if return_cut_rank:
+        return rank, cut
+    return rank
+
+
+def crowding_distance(fitness: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NSGA-II crowding distance per row ``(n,)``, larger = less crowded.
+
+    Rows outside the boolean ``mask`` get ``-inf`` so they sort last; the
+    boundary rows of each objective get ``+inf``. The objectives' terms are
+    added in objective order, as the JAX package's sum adds them.
+    """
+    n, m = fitness.shape
+    dev = fitness.device
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    num_valid = mask.sum()
+    last = torch.clamp_min(num_valid - 1, 0)
+    fv = torch.where(mask[:, None], fitness, INF)
+    order = torch.argsort(fv, dim=0, stable=True)
+    s = fv.gather(0, order)
+    f_range = torch.clamp_min(s.gather(0, last.expand(1, m)) - s[:1], 1e-12)
+    inner = (s[2:] - s[:-2]) / f_range
+    edge = torch.full((1, m), INF, dtype=fitness.dtype, device=dev)
+    d = torch.cat([edge, inner, edge])
+    pos = torch.arange(n, device=dev)[:, None]
+    d = torch.where(pos == last, INF, d)
+    d = torch.where(pos >= num_valid, -INF, d)
+    d = torch.nan_to_num(d, nan=0.0, posinf=INF, neginf=-INF)
+    d = torch.zeros_like(d).scatter(0, order, d)
+    total = d[:, 0]
+    for k in range(1, m):
+        total = total + d[:, k]
+    return total
+
+
+def crowding_distance_sort(fitness: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices by descending crowding distance (ties by lowest index)."""
+    return torch.argsort(-crowding_distance(fitness, mask), stable=True)
+
+
+def _first_occurrence(pop: torch.Tensor) -> torch.Tensor:
+    """``(n,)`` bool: the row is the first of its identical rows."""
+    n = pop.shape[0]
+    unique, inverse = torch.unique(pop, dim=0, return_inverse=True)
+    index = torch.arange(n, device=pop.device)
+    # the smallest index of each group: every group has a member, so every
+    # slot ends below n
+    first = torch.full((unique.shape[0],), n, dtype=index.dtype, device=pop.device).scatter_reduce(
+        0, inverse, index, reduce="amin"
+    )
+    is_first = torch.zeros((n,), dtype=torch.bool, device=pop.device)
+    is_first[first] = True
+    return is_first
+
+
+def non_dominate_indices(
+    fitness: torch.Tensor,
+    topk: int,
+    pop: Optional[torch.Tensor] = None,
+    deduplicate: bool = False,
+    mesh: Any = None,
+) -> torch.Tensor:
+    """Indices of the ``topk`` best by (rank, -crowding) environmental
+    selection. With ``deduplicate`` (requires ``pop``), every repeat of a
+    decision vector gets ``+inf`` fitness, so it goes to the back."""
+    if deduplicate:
+        fitness = torch.where(_first_occurrence(pop)[:, None], fitness, INF)
+    rank, worst_rank = non_dominated_sort(fitness, until=topk, return_cut_rank=True, mesh=mesh)
+    crowd = crowding_distance(fitness, mask=rank == worst_rank)
+    return lexsort((-crowd, rank))[:topk]
+
+
+def _take(pop: Any, order: torch.Tensor) -> Any:
+    """``pop[order]`` for a tensor, or for each tensor of a dict, list or
+    tuple of them (the JAX package's pytree of population leaves)."""
+    if isinstance(pop, torch.Tensor):
+        return pop[order]
+    if isinstance(pop, dict):
+        return {k: v[order] for k, v in pop.items()}
+    return type(pop)(v[order] for v in pop)
+
+
+def non_dominate(
+    pop: Any,
+    fitness: torch.Tensor,
+    topk: int,
+    deduplicate: bool = False,
+    mesh: Any = None,
+) -> Tuple[Any, torch.Tensor]:
+    """Environmental selection: keep the ``topk`` best by (rank,
+    -crowding). ``pop`` is a tensor or a dict, list or tuple of tensors with
+    a leading population axis."""
+    if isinstance(pop, torch.Tensor):
+        leaf = pop
+    else:
+        leaf = next(iter(pop.values())) if isinstance(pop, dict) else pop[0]
+    order = non_dominate_indices(fitness, topk, leaf, deduplicate, mesh)
+    return _take(pop, order), fitness[order]
+
+
+class NonDominate:
+    """Class-form environmental selector."""
+
+    def __init__(self, topk: int, deduplicate: bool = False, mesh: Any = None):
+        _refuse_mesh(mesh)
+        self.topk = topk
+        self.deduplicate = deduplicate
+        self.mesh = mesh
+
+    def __call__(self, pop: Any, fitness: torch.Tensor) -> Tuple[Any, torch.Tensor]:
+        return non_dominate(pop, fitness, self.topk, self.deduplicate, self.mesh)
+
+
+def rank_crowding_truncate(
+    fitness: torch.Tensor,
+    k: int,
+    mesh: Any = None,
+    use_kernel: Optional[bool] = None,
+    interpret: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NSGA-II environmental truncation: the ``k`` survivors of ``fitness``
+    ``(n, m)`` by (Pareto rank ascending, crowding distance descending on
+    the cut front). Returns ``(order, ranks)``: int64 survivor indices into
+    ``fitness`` and their int32 ranks.
+
+    ``use_kernel`` (``None``: :func:`~evox_tpu_torch.kernels.topk.
+    default_use_kernel`, False): instead of the full ``lexsort``, admit the
+    fronts better than the cut wholesale by an O(n) cumsum-scatter
+    compaction, in index order, and fill the rest from the cut front by
+    crowding through :func:`~evox_tpu_torch.kernels.topk.partial_topk` (the
+    CUDA kernel for tensors on the card). The survivor SET equals the
+    lexsort path's; the order of the admitted fronts is index order, not
+    rank-major. ``interpret`` ran the JAX package's Pallas kernel in
+    interpreter mode on the CPU; here it is accepted and ignored.
+    """
+    rank, worst_rank = non_dominated_sort(fitness, until=k, return_cut_rank=True, mesh=mesh)
+    crowd = crowding_distance(fitness, mask=rank == worst_rank)
+    if use_kernel is None:
+        use_kernel = default_use_kernel()
+    if not use_kernel:
+        order = lexsort((-crowd, rank))[:k]
+        return order, rank[order]
+    n = fitness.shape[0]
+    dev = fitness.device
+    better = rank < worst_rank  # whole fronts above the cut: all admitted
+    n_better = better.sum()  # < k by the cut's construction
+    # slot k is a sink for every row not written: one extra slot, dropped
+    order = torch.zeros((k + 1,), dtype=torch.int64, device=dev)
+    pos = torch.cumsum(better, dim=0) - 1
+    order.scatter_(0, torch.where(better, pos, k), torch.arange(n, device=dev))
+    # the cut front fills the remaining k - n_better slots by crowding,
+    # descending: other rows carry +inf keys, boundary members -inf
+    cut_key = torch.where(rank == worst_rank, -crowd, INF)
+    _, cut_idx = partial_topk(cut_key, k, device=dev)
+    j = torch.arange(k, device=dev)
+    slots = torch.where(j < k - n_better, n_better + j, k)
+    order.scatter_(0, slots, cut_idx.to(torch.int64))
+    order = order[:k]
+    return order, rank[order]

@@ -1,3 +1,3 @@
-from . import neuroevolution
+from . import neuroevolution, numerical
 
-__all__ = ["neuroevolution"]
+__all__ = ["neuroevolution", "numerical"]

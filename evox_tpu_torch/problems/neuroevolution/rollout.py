@@ -26,7 +26,7 @@ import torch
 from ...core.device import DeviceLike, check_device, resolve_device
 from ...core.problem import Problem
 from ...core.struct import PyTreeNode
-from ...utils.common import fold_in_seed, split_seed
+from ...utils.common import fold_in_seed, generator, split_seed
 from .control.envs import EnvSpec
 
 
@@ -147,8 +147,7 @@ class PolicyRolloutProblem(Problem):
         """``(num_episodes, state_dim)`` initial states, one per episode,
         shared by the whole population (common random numbers). The one
         place the engines draw resets."""
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        return env.reset(g, self.num_episodes, self.device)
+        return env.reset(generator(seed, self.device), self.num_episodes, self.device)
 
     def fused_inputs(self, state: RolloutState, pop: torch.Tensor) -> dict:
         """The keyword arguments the fused engine hands

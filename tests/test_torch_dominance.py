@@ -1,0 +1,132 @@
+"""The port's dominance stack against the JAX package, on the CPU.
+
+Same numpy inputs, made from a seed, go through the JAX functions and their
+counterparts in ``evox_tpu_torch`` (``device="cpu"``, which takes the plain
+route of ``packed_dominance``). The JAX Pallas kernel runs in interpret
+mode, as the JAX package's own tests run it on the CPU. Every output here is
+boolean or integer, so the tolerance is zero: words compare through a
+numpy ``view(uint32)``, counts and ranks exactly. The CUDA kernel is held
+against the plain version on the card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from evox_tpu.kernels.dominance import packed_dominance as jax_packed_dominance
+from evox_tpu.kernels.dominance import packed_dominance_reference as jax_reference
+from evox_tpu.operators.selection.non_dominate import non_dominated_sort as jax_nds
+from evox_tpu.utils.common import dominate_relation as jax_dominate_relation
+from evox_tpu_torch.kernels import dominance as tdom
+from evox_tpu_torch.operators.selection import non_dominated_sort
+from evox_tpu_torch.utils import dominate_relation
+
+
+def _fitness(n, m, seed, specials=True):
+    """Uniform objectives with per-objective ties (the first one rounded),
+    a duplicated row and, with ``specials``, +inf, -inf and NaN rows."""
+    rng = np.random.default_rng(seed)
+    fit = rng.random((n, m)).astype(np.float32)
+    fit[:, 0] = np.round(fit[:, 0], 1)
+    if n > 2:
+        fit[n // 2] = fit[0]
+    if specials and n > 8:
+        fit[3] = np.inf
+        fit[5, 1 % m] = np.nan
+        fit[7] = np.nan
+        fit[n - 1, 0] = -np.inf
+    return fit
+
+
+def _assert_words_equal(jax_out, torch_out):
+    (jp, jc), (tp, tc) = jax_out, torch_out
+    assert tp.dtype == torch.int32 and tc.dtype == torch.int32
+    np.testing.assert_array_equal(tp.numpy().view(np.uint32), np.asarray(jp))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("n,m,seed", [(1, 2, 0), (31, 3, 1), (33, 3, 2), (100, 2, 3), (257, 4, 4)])
+def test_dominate_relation_matches_jax(n, m, seed):
+    fit = _fitness(n, m, seed)
+    other = _fitness(n + 5, m, seed + 100)
+    for x, y in ((fit, fit), (fit, other)):
+        np.testing.assert_array_equal(
+            dominate_relation(torch.from_numpy(x), torch.from_numpy(y)).numpy(),
+            np.asarray(jax_dominate_relation(jnp.asarray(x), jnp.asarray(y))),
+        )
+
+
+@pytest.mark.parametrize(
+    "n,m,seed", [(1, 2, 0), (31, 3, 1), (32, 3, 2), (33, 4, 3), (257, 2, 4), (700, 5, 5)]
+)
+def test_packed_words_match_jax_reference(n, m, seed):
+    """Ragged n, duplicates, ±inf and NaN rows: word for word."""
+    fit = _fitness(n, m, seed)
+    _assert_words_equal(
+        jax_reference(jnp.asarray(fit)),
+        tdom.packed_dominance(torch.from_numpy(fit), device="cpu"),
+    )
+
+
+@pytest.mark.parametrize("n,chunk_rows", [(300, 64), (257, 100), (130, 32)])
+def test_chunked_build_matches_jax(n, chunk_rows):
+    """The slab build (forced here by ``chunk_rows``; by default above
+    n = 20000): the same words as JAX's chunked build and as the dense one,
+    also with extra words asked for."""
+    fit = _fitness(n, 3, n)
+    t_fit, j_fit = torch.from_numpy(fit), jnp.asarray(fit)
+    dense = tdom.packed_dominance_reference(t_fit)
+    for n_words in (None, (n + 31) // 32 + 2):
+        chunked = tdom.packed_dominance_reference(t_fit, n_words=n_words, chunk_rows=chunk_rows)
+        _assert_words_equal(jax_reference(j_fit, n_words, chunk_rows), chunked)
+    np.testing.assert_array_equal(chunked[0][: dense[0].shape[0]].numpy(), dense[0].numpy())
+    np.testing.assert_array_equal(chunked[1].numpy(), dense[1].numpy())
+
+
+@pytest.mark.parametrize("n,m,seed", [(5, 3, 0), (64, 3, 1), (100, 3, 2), (700, 2, 3)])
+def test_plain_version_matches_jax_pallas_kernel(n, m, seed):
+    """The Pallas kernel in interpret mode, with its +inf padding rows and
+    columns (n below and across one tile)."""
+    fit = _fitness(n, m, seed)
+    _assert_words_equal(
+        jax_packed_dominance(jnp.asarray(fit), use_pallas=True, interpret=True),
+        tdom.packed_dominance(torch.from_numpy(fit), device="cpu"),
+    )
+
+
+def test_column_popcount_counts_every_bit():
+    rng = np.random.default_rng(0)
+    words = rng.integers(0, 2**32, size=(7, 50), dtype=np.uint64).astype(np.uint32)
+    words[0, :4] = [0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
+    want = np.unpackbits(words.view(np.uint8).reshape(7, 50, 4), axis=2).sum(axis=(0, 2))
+    got = tdom.column_popcount(torch.from_numpy(words.view(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "n,m,until,seed",
+    [(300, 3, None, 0), (300, 3, 150, 1), (257, 2, 100, 2), (500, 4, 1, 3), (200, 3, 200, 4)],
+)
+def test_non_dominated_sort_matches_jax(n, m, until, seed):
+    """Ranks (unranked rows hold the sentinel n) and the cut rank."""
+    fit = _fitness(n, m, seed)
+    j_rank, j_cut = jax_nds(jnp.asarray(fit), until=until, return_cut_rank=True)
+    t_rank, t_cut = non_dominated_sort(torch.from_numpy(fit), until=until, return_cut_rank=True)
+    assert t_rank.dtype == torch.int32
+    np.testing.assert_array_equal(t_rank.numpy(), np.asarray(j_rank))
+    assert t_cut == int(j_cut)
+    if until is not None and until < n:
+        assert (t_rank.numpy() == n).any()  # the peel stopped early
+
+
+def test_non_dominated_sort_refuses_a_mesh():
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        non_dominated_sort(torch.zeros(4, 2), mesh=object())
+
+
+def test_packed_dominance_checks_its_input():
+    with pytest.raises(ValueError, match="float32"):
+        tdom.packed_dominance(torch.zeros(4, 2, dtype=torch.float64), device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        tdom.packed_dominance(torch.zeros(4), device="cpu")

@@ -22,10 +22,13 @@ from evox_tpu.problems.neuroevolution import PolicyRolloutProblem as JaxRolloutP
 from evox_tpu.problems.neuroevolution import flat_mlp_policy as jax_flat_mlp_policy
 from evox_tpu.utils.common import rank_based_fitness as jax_rank_based_fitness
 from evox_tpu_torch import Monitor, Problem, StdWorkflow, interop
+from evox_tpu_torch.algorithms.mo import NSGA2
 from evox_tpu_torch.algorithms.so.es import OpenES
 from evox_tpu_torch.core.monitor import HOOK_NAMES
+from evox_tpu_torch.kernels import packed_dominance, partial_topk
 from evox_tpu_torch.kernels import rollout as tkr
 from evox_tpu_torch.problems.neuroevolution import PolicyRolloutProblem, flat_mlp_policy
+from evox_tpu_torch.problems.numerical import LSMOP1, ZDT1
 from evox_tpu_torch.utils import rank_based_fitness
 
 REPO = Path(__file__).resolve().parent.parent
@@ -179,6 +182,20 @@ def test_entry_points_refuse_a_missing_cuda(monkeypatch):
         tkr.fused_rollout(theta, planes, 3)
     # asked for the CPU, the same calls run
     assert tkr.fused_rollout(theta, planes, 3, device="cpu").shape == (2,)
+    # the NSGA-II slice's entry points
+    fitness = torch.rand(40, 3)
+    for make in (lambda: NSGA2(torch.zeros(5), torch.ones(5), n_objs=3, pop_size=8),
+                 lambda: LSMOP1(d=30, m=3), lambda: ZDT1(n_dim=5),
+                 lambda: partial_topk(fitness[:, 0], 4), lambda: packed_dominance(fitness)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert partial_topk(fitness[:, 0], 4, device="cpu")[1].shape == (4,)
+    assert packed_dominance(fitness, device="cpu")[0].shape == (2, 40)
+    nsga2 = NSGA2(torch.zeros(5), torch.ones(5), n_objs=3, pop_size=8, device="cpu")
+    lsmop = LSMOP1(d=5, m=3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StdWorkflow(nsga2, lsmop)
+    assert StdWorkflow(nsga2, lsmop, device="cpu").init(0).algo.population.shape == (8, 5)
 
 
 def test_deferred_arguments_raise():
