@@ -18,8 +18,15 @@ exit 0):
    ``packed_dominance_reference`` on the second main path's first merged
    fitness (n 20000, m 3) and on stress inputs; ``partial_topk`` against
    ``partial_topk_reference`` on that path's cut key (n 20000, k 10000) and
-   on stress inputs. All bit for bit. Times each kernel and its plain
-   version with CUDA events, and ``torch.topk`` beside ``partial_topk``.
+   on stress inputs; ``fused_mlp_rollout`` against
+   ``fused_mlp_rollout_plain`` on the third main path's first-generation
+   inputs (pop 65536, MLP 244-64-64-17, T 100) and on stress inputs (large
+   weights, envs pushed to fall, explode, start done or run out of time; a
+   ragged n of 1500 with 2 episodes; a low-rank ``linear=(0,)`` policy;
+   the 7-mass walker). All bit for bit, NaN returns by bit pattern, and a
+   non-finite return only where the env exploded. Times each kernel and its
+   plain version with CUDA events, and ``torch.topk`` beside
+   ``partial_topk``.
 3. main path 1: ``StdWorkflow(OpenES(zeros(81), 65536),
    PolicyRolloutProblem(flat_mlp_policy 3-16-1, pendulum(200), 2 episodes,
    fused_env=pendulum_soa(200)), opt_direction="max")`` — init, one
@@ -36,7 +43,17 @@ exit 0):
    routes (survivors and ranks equal); the lexsort truncation against the
    partial-top-k one (same survivor set). Reports ms per generation, the
    fronts peeled per generation and a per-stage breakdown of a generation.
-5. a ``{"kernels": [...]}`` line, then the last line
+5. main path 3: ``StdWorkflow(OpenES(zeros(20945), 65536),
+   PolicyRolloutProblem(mlp_policy 244-64-64-17, chain_walker(100), 1
+   episode, fused_planes=chain_walker_planes(100)), opt_direction="max",
+   pop_transforms=(TreeAndVector.batched_to_tree,),
+   fit_transforms=(rank_based_fitness,))`` — init, one warm-up step, then
+   ``run`` for 20 generations, counters as above. Checks one
+   ``fused_mlp_rollout`` launch per generation and no other, fitness finite
+   or non-finite only where the env exploded, a center that moved, and the
+   fused engine against the scan engine on 512 genomes near the center at
+   T 25. Reports ms per generation, evals/s and the mean episode length.
+6. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
@@ -65,6 +82,19 @@ SEED = 0
 # main path 2: bench.py:374-388's NSGA-II workload, at full width
 NSGA2_POP = 10000
 LSMOP_D, LSMOP_M = 300, 3
+# main path 3: bench.py:286-338's walker workload at the north-star
+# population (bench.py:329), at full width and full episode cap
+WALKER_POP = 65536
+WALKER_SIZES = (244, 64, 64, 17)
+WALKER_T = 100
+# fused_mlp_rollout's stress cases: (name, sizes, n, episodes, T, weight
+# scale, linear, walker configuration)
+WALKER_STRESS = (
+    ("full width", WALKER_SIZES, 8192, 1, WALKER_T, 3.0, (), {}),
+    ("ragged n, 2 episodes", (244, 16, 8, 17), 1500, 2, WALKER_T, 3.0, (), {}),
+    ("low-rank linear=(0,)", (244, 16, 64, 17), 4096, 1, WALKER_T, 1.0, (0,), {}),
+    ("7-mass walker", (64, 16, 16, 4), 2000, 1, 40, 3.0, (), dict(n_masses=7, act_dim=4, obs_dim=64)),
+)
 
 
 def _nvidia_smi() -> str:
@@ -262,7 +292,8 @@ def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches()  # read just after
-    want = {"fused_rollout": gens, "packed_dominance": 0, "partial_topk": 0}
+    want = {"fused_rollout": gens, "packed_dominance": 0, "partial_topk": 0,
+            "fused_mlp_rollout": 0}
     if counts != want:
         raise AssertionError(f"launches in {gens} OpenES generations: {counts}, expected {want}")
     launches = counts["fused_rollout"]
@@ -349,10 +380,10 @@ def profile_generations(torch, wf, state, gens: int) -> dict:
 
 def launch_counters():
     """Every kernel wrapper's launch counter, by kernel name."""
-    from evox_tpu_torch.kernels import dominance, rollout, topk
+    from evox_tpu_torch.kernels import dominance, rollout, rollout_mlp, topk
 
     return {"fused_rollout": rollout.fused_rollout, "packed_dominance": dominance.packed_dominance,
-            "partial_topk": topk.partial_topk}
+            "partial_topk": topk.partial_topk, "fused_mlp_rollout": rollout_mlp.fused_mlp_rollout}
 
 
 def reset_launches() -> None:
@@ -577,7 +608,8 @@ def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()  # read just after
-    want = {"fused_rollout": 0, "packed_dominance": gens, "partial_topk": gens}
+    want = {"fused_rollout": 0, "packed_dominance": gens, "partial_topk": gens,
+            "fused_mlp_rollout": 0}
     if launches != want:
         raise AssertionError(f"launches in {gens} NSGA-II generations: {launches}, expected {want}")
     if state.generation != gens + 2:
@@ -646,6 +678,320 @@ def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
     return out
 
 
+# ----------------------------------------------------------- main path 3
+
+
+def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=None):
+    """Main path 3 as a user builds it: ``(workflow, make_problem, adapter)``.
+    ``pop``, ``T`` and ``device`` exist for a rehearsal on the CPU at a small
+    size; the chip run takes the defaults."""
+    from evox_tpu_torch import Monitor, StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import OpenES
+    from evox_tpu_torch.kernels import rollout_mlp as km
+    from evox_tpu_torch.problems.neuroevolution import PolicyRolloutProblem, mlp_policy
+    from evox_tpu_torch.utils import TreeAndVector, rank_based_fitness
+
+    penv = km.chain_walker_planes(max_steps=T)
+    init_params, apply = mlp_policy(WALKER_SIZES)
+    adapter = TreeAndVector(init_params(SEED, device=device))
+
+    def make_problem(fused, max_episode_length=None):
+        return PolicyRolloutProblem(
+            apply, penv.base, num_episodes=1, stochastic_reset=False,
+            max_episode_length=max_episode_length, fused_planes=penv if fused else None,
+            device=device,
+        )
+
+    class FitnessRecorder(Monitor):
+        """Each generation's raw fitness, kept on the card: no work and no
+        host read inside a run. With ``keep_nonfinite`` set (a replay after
+        the timed run), also the candidates whose fitness is not finite, for
+        the explosion check; finding them reads one count a generation."""
+
+        keep_nonfinite = False
+
+        def init(self, seed=None):
+            return ()
+
+        def hooks(self):
+            return ("post_eval",)
+
+        def post_eval(self, mstate, cand, fitness):
+            kept = None
+            if self.keep_nonfinite:
+                bad = (~torch.isfinite(fitness)).nonzero()[:, 0]
+                if bad.numel():
+                    kept = ([{k: v[bad].clone() for k, v in layer.items()} for layer in cand],
+                            fitness[bad].clone())
+            return mstate + ((fitness, kept),)
+
+    algo = OpenES(torch.zeros(adapter.dim), pop, learning_rate=0.05, noise_stdev=0.05,
+                  device=device)
+    wf = StdWorkflow(algo, make_problem(True), monitors=[FitnessRecorder()],
+                     opt_direction="max", pop_transforms=(adapter.batched_to_tree,),
+                     fit_transforms=(rank_based_fitness,), device=device)
+    return wf, make_problem, adapter
+
+
+def mlp_rollout_work(sizes, n: int, episodes: int, steps: int, n_masses: int, act_dim: int,
+                     substeps: int) -> tuple:
+    """(bytes, operations) that a fused walker rollout must move and do.
+
+    Bytes: each individual's weights and biases read once, the state planes
+    read once, the returns written once. Operations per live env-step,
+    counted from csrc/rollout_mlp.cu: 2 per multiply-add of the MLP, one
+    per tanh, ~32 per mass for the observation, ~60 per mass for each
+    substep's forces and integration, and the reward's sums; a
+    transcendental counts as one operation, so this is a lower bound.
+    ``steps`` is the live env-steps this run's data needs."""
+    policy = sum(fi * fo + fo for fi, fo in zip(sizes[:-1], sizes[1:]))
+    macs = sum(fi * fo for fi, fo in zip(sizes[:-1], sizes[1:]))
+    nbytes = 4 * (n * policy + (4 * n_masses + act_dim + 2) * episodes * n + episodes * n)
+    per_step = (2 * macs + sum(sizes[1:-1]) + 3 * act_dim + 32 * n_masses
+                + 60 * n_masses * substeps + n_masses + 6)
+    return nbytes, per_step * steps
+
+
+def check_exploded(torch, name: str, totals, exploded) -> int:
+    """A non-finite return is allowed only where the env exploded (its state
+    went non-finite or beyond the bound); returns how many there were."""
+    bad = ~torch.isfinite(totals)
+    if bool((bad & ~exploded).any()):
+        raise AssertionError(f"{name}: non-finite returns from envs that did not explode")
+    return int(bad.sum())
+
+
+def walker_stress_inputs(torch, km, sizes, n: int, episodes: int, T: int, w_scale: float,
+                         seed: int, dev, **walker):
+    """Large random weights given through strided views, and resets pushed
+    to every end of an episode: every 7th env with two masses on one spot
+    (the torque term hits its 1e6 cap and the chain explodes), every 11th
+    with a NaN velocity, every 13th fallen, every 17th done from the start,
+    every 19th two steps from the time limit, every 23rd moved beyond the
+    1e3 bound."""
+    penv = km.chain_walker_planes(max_steps=T, **walker)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    weights = tuple((w_scale * torch.randn(n, fi, fo, generator=g, device=dev)).permute(1, 2, 0)
+                    for fi, fo in zip(sizes[:-1], sizes[1:]))
+    biases = tuple((0.1 * torch.randn(n, fo, generator=g, device=dev)).T for fo in sizes[1:])
+    states = penv.base.reset(g, episodes * n, dev)
+    planes = penv.to_planes(states)
+    idx = torch.arange(episodes * n, device=dev)
+    for k, col in (("px", 4), ("py", 4)):
+        planes[k][col] = torch.where(idx % 7 == 0, planes[k][col - 1], planes[k][col])
+    planes["vx"][2] = torch.where(idx % 11 == 0, float("nan"), planes["vx"][2])
+    planes["py"] = torch.where(idx % 13 == 0, 0.3 * planes["py"], planes["py"])
+    planes["done"] = (idx % 17 == 0).float()[None]
+    planes["t"] = torch.where(idx % 19 == 0, float(T - 2), planes["t"][0])[None]
+    planes["px"] = torch.where(idx % 23 == 0, planes["px"] + 2e3, planes["px"])
+    return dict(weights=weights, biases=biases, init_state=planes, T=T, sizes=sizes, env=penv,
+                episodes=episodes)
+
+
+def phase_walker_kernels(torch, wf, adapter, seed: int) -> dict:
+    """Hold fused_mlp_rollout against fused_mlp_rollout_plain on the card,
+    on the main path's first-generation inputs and on stress inputs."""
+    from evox_tpu_torch.kernels import rollout_mlp as km
+
+    dev = wf.device
+    results = {}
+    state = wf.init(seed)
+    pop, _ = wf.algorithm.ask(state.algo)
+    kw = wf.problem.fused_planes_inputs(state.prob, adapter.batched_to_tree(pop))
+    plain_kw = {k: v for k, v in kw.items() if k != "device"}
+    got = km.fused_mlp_rollout(**kw)
+    torch.cuda.synchronize()
+    want, steps, exploded = km.fused_mlp_rollout_plain(**plain_kw, stats=True)
+    torch.cuda.synchronize()
+    n, ep, T = pop.shape[0], kw["episodes"], kw["T"]
+    # bit for bit: the kernel does the plain version's operations in its
+    # fixed order, each rounded on its own (no FMA contraction)
+    stats = compare_exact(f"fused_mlp_rollout, main-path inputs n={n} ep={ep} T={T}", [got], [want])
+    stats["nonfinite"] = check_exploded(torch, "main-path inputs", got, exploded)
+    stats["ms"] = _time_ms(lambda: km.fused_mlp_rollout(**kw), 2, 10)
+    # T = 0: the launch, the policy copies and the state loads alone; the
+    # rest of "ms" is the episodes' steps
+    stats["copy_only_ms"] = _time_ms(lambda: km.fused_mlp_rollout(**dict(kw, T=0)), 2, 10)
+    stats["plain_ms"] = _time_ms(lambda: km.fused_mlp_rollout_plain(**plain_kw), 1, 2)
+    live = int(steps.sum())  # the env-steps this data needs
+    cfg = kw["env"].config
+    nbytes, ops = mlp_rollout_work(kw["sizes"], n, ep, live, cfg["n_masses"], cfg["act_dim"],
+                                   cfg["substeps"])
+    stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
+    stats.update(bytes=nbytes, ops=ops, live_steps=live, mean_episode_length=live / (n * ep),
+                 exploded=int(exploded.sum()), mean_return=float(want.mean()),
+                 budget=km.fused_rollout_analysis(kw["sizes"], kw["env"]))
+    print(f"[walker kernel] {json.dumps(stats)}", flush=True)
+    del got, want, kw, plain_kw, pop
+    results["walker"] = stats
+
+    for i, (name, sizes, sn, sep, sT, scale, linear, walker) in enumerate(WALKER_STRESS):
+        skw = walker_stress_inputs(torch, km, sizes, sn, sep, sT, scale, seed + i, dev, **walker)
+        got = km.fused_mlp_rollout(**skw, linear=linear, device=dev)
+        torch.cuda.synchronize()
+        want, steps, exploded = km.fused_mlp_rollout_plain(**skw, linear=linear, stats=True)
+        torch.cuda.synchronize()
+        label = f"fused_mlp_rollout, stress: {name}, sizes {sizes} n={sn} ep={sep} T={sT}"
+        st = compare_exact(label, [got], [want])
+        st.update(nonfinite=check_exploded(torch, label, got, exploded),
+                  exploded=int(exploded.sum()), mean_episode_length=float(steps.float().mean()))
+        if not st["exploded"] or not (steps < sT).any():
+            raise AssertionError(f"{label}: the stress inputs ended no episode early")
+        results[f"walker_stress_{i}"] = st
+    return results
+
+
+def phase_walker_path(torch, wf, make_problem, adapter, gens: int, seed: int,
+                      profile: bool) -> dict:
+    from evox_tpu_torch.kernels import rollout_mlp as km
+
+    on_card = wf.device.type == "cuda"  # False only in a rehearsal on the CPU
+    state = wf.init(seed)
+    center0 = state.algo.center.clone()
+    state = wf.step(state)  # warm-up
+    before = state  # states are not changed in place: a replay starts here
+    torch.cuda.synchronize()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()  # every count to 0 just before the run
+    t0 = time.perf_counter()
+    state = wf.run(state, gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # read just after
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0,
+            "fused_mlp_rollout": gens}
+    if launches != want:
+        raise AssertionError(f"launches in {gens} walker generations: {launches}, expected {want}")
+    if state.generation != gens + 1:
+        raise AssertionError(f"generation {state.generation} != {gens + 1}")
+    fitness = torch.stack([f for f, _ in state.monitors[0][-gens:]])  # (gens, pop)
+    finite = torch.isfinite(fitness)
+    means = (torch.where(finite, fitness, 0.0).sum(1) / finite.sum(1).clamp_min(1)).tolist()
+    if not finite.any(1).all():
+        raise AssertionError("no finite fitness in a generation of the walker path")
+    nonfinite = int((~finite).sum())
+    if nonfinite:
+        # non-finite fitness only where the env exploded: replay the timed
+        # generations, untimed, keeping the candidates at fault
+        wf.monitors[0].keep_nonfinite = True
+        replay = wf.run(before, gens)
+        wf.monitors[0].keep_nonfinite = False
+        records = replay.monitors[0][-gens:]
+        compare_exact("walker main path, replayed fitness", [f for f, _ in records],
+                      list(fitness))
+        for _, kept in records:
+            if kept is not None:
+                tree, fit = kept
+                kw = wf.problem.fused_planes_inputs(replay.prob, tree)
+                kw.pop("device")
+                _, _, exploded = km.fused_mlp_rollout_plain(**kw, stats=True)
+                check_exploded(torch, "walker main path", fit, exploded)
+    moved = float((state.algo.center - center0).norm())
+    if not (moved > 0 and math.isfinite(moved)):
+        raise AssertionError(f"the center did not move (|delta| = {moved})")
+
+    # the episode lengths of the last population, from the plain version
+    pop, _ = wf.algorithm.ask(state.algo)
+    kw = wf.problem.fused_planes_inputs(state.prob, adapter.batched_to_tree(pop))
+    kw.pop("device")
+    _, steps, _ = km.fused_mlp_rollout_plain(**kw, stats=True)
+    del pop, kw
+
+    # the repo's own means: fused engine == scan engine on the same resets,
+    # up to float rounding (the scan engine's matmuls sum in another order);
+    # JAX's own tolerance (tests/test_kernels_mlp.py:158-160)
+    dev = wf.device
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    small = state.algo.center + 0.05 * torch.randn(512, adapter.dim, generator=g, device=dev)
+    tree = adapter.batched_to_tree(small)
+    pstate = wf.problem.init(seed)
+    f_fused, _ = make_problem(True, 25).evaluate(pstate, tree)
+    f_scan, _ = make_problem(False, 25).evaluate(pstate, tree)
+    torch.cuda.synchronize()
+    engines = compare("walker fused engine vs scan engine, pop 512, T 25", f_fused, f_scan,
+                      rtol=2e-3, atol=2e-3)
+    pop_size = wf.algorithm.pop_size
+    out = {
+        "generations": gens,
+        "pop": pop_size,
+        "episodes": wf.problem.num_episodes,
+        "T": wf.problem.max_len,
+        "launches": launches["fused_mlp_rollout"],
+        "wall_s": wall,
+        "ms_per_generation": wall / gens * 1e3,
+        "evals_per_s": gens * pop_size / wall,
+        "mean_fitness_first": means[0],
+        "mean_fitness_last": means[-1],
+        "nonfinite_fitness": nonfinite,
+        "mean_episode_length_last": float(steps.float().mean()),
+        "peak_memory_gb": peak_gb,  # of the timed generations (the state included)
+        "center_moved": moved,
+        "engines": engines,
+    }
+    if profile:
+        prof = profile_generations(torch, wf, state, 5)
+        prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
+        out["profile"] = prof
+    return out
+
+
+def kernel_entries(kernels: dict, paths: dict) -> list:
+    """The ``kernels`` line: one entry per kernel of the main paths."""
+    pend = kernels["pendulum"]
+    entries = [{
+        "name": "fused_rollout",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/rollout.cu",
+        "replaces": "evox_tpu/kernels/rollout.py:468",
+        "launches": paths["pendulum"]["launches"],
+        "max_abs_err": pend["max_abs_err"],
+        "ms": pend["ms"],
+        "plain_ms": pend["plain_ms"],
+        "bound_ms": pend["bound_ms"],
+        "bound_by": pend["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this
+    }]
+    for name, source, replaces in (
+        ("packed_dominance", "dominance.cu", "evox_tpu/kernels/dominance.py:222"),
+        ("partial_topk", "topk.cu", "evox_tpu/kernels/topk.py:185"),
+    ):
+        k = kernels[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"evox_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": paths["nsga2"]["launches"][name],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            # partial_topk: torch.topk(v, k, largest=False), the same
+            # values with an unspecified tie order; packed_dominance: no
+            # single PyTorch call computes it
+            "library_ms": k.get("library_ms"),
+        })
+    w = kernels["walker"]
+    entries.append({
+        "name": "fused_mlp_rollout",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/rollout_mlp.cu",
+        "replaces": "evox_tpu/kernels/rollout_mlp.py:569",
+        "launches": paths["walker"]["launches"],
+        "max_abs_err": w["max_abs_err"],
+        "ms": w["ms"],
+        "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this
+    })
+    return entries
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None, help="also write the full results as JSON here")
@@ -682,79 +1028,41 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
 
-    # 2. kernel against plain, on the main path's inputs and on stress inputs
+    # 2. kernels against plain, on the main paths' inputs and on stress inputs
     wf, make_problem = build_main_path(torch, SEED)
     kernels = phase_kernels(torch, kr, wf, SEED)
-
     wf2 = build_nsga2_path(torch)
     kernels.update(phase_nsga2_kernels(torch, wf2, SEED))
+    wf3, make_walker_problem, adapter = build_walker_path(torch)
+    kernels.update(phase_walker_kernels(torch, wf3, adapter, SEED))
 
-    # 3. main path 1
-    main_path = phase_main_path(torch, kr, wf, make_problem, GENERATIONS, SEED, args.profile)
-    print(f"[main path] {json.dumps(main_path)}", flush=True)
-
-    # 4. main path 2
-    nsga2_path = phase_nsga2_path(torch, wf2, GENERATIONS, SEED, args.profile)
-    print(f"[nsga2 path] {json.dumps(nsga2_path)}", flush=True)
+    # 3.-5. the main paths
+    paths = {}
+    paths["pendulum"] = phase_main_path(torch, kr, wf, make_problem, GENERATIONS, SEED,
+                                        args.profile)
+    print(f"[main path] {json.dumps(paths['pendulum'])}", flush=True)
+    del wf
+    paths["nsga2"] = phase_nsga2_path(torch, wf2, GENERATIONS, SEED, args.profile)
+    print(f"[nsga2 path] {json.dumps(paths['nsga2'])}", flush=True)
+    del wf2
+    paths["walker"] = phase_walker_path(torch, wf3, make_walker_problem, adapter,
+                                        GENERATIONS, SEED, args.profile)
+    print(f"[walker path] {json.dumps(paths['walker'])}", flush=True)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
         raise AssertionError("the port pulled in jax or the JAX package")
 
-    pend = kernels["pendulum"]
-    line = {
-        "kernels": [
-            {
-                "name": "fused_rollout",
-                "route": "cuda",
-                "source": "evox_tpu_torch/csrc/rollout.cu",
-                "replaces": "evox_tpu/kernels/rollout.py:468",
-                "launches": main_path["launches"],
-                "max_abs_err": pend["max_abs_err"],
-                "ms": pend["ms"],
-                "plain_ms": pend["plain_ms"],
-                "bound_ms": pend["bound_ms"],
-                "bound_by": pend["bound_by"],
-                "library_ms": None,  # no single PyTorch call computes this
-            },
-            {
-                "name": "packed_dominance",
-                "route": "cuda",
-                "source": "evox_tpu_torch/csrc/dominance.cu",
-                "replaces": "evox_tpu/kernels/dominance.py:222",
-                "launches": nsga2_path["launches"]["packed_dominance"],
-                "max_abs_err": kernels["packed_dominance"]["max_abs_err"],
-                "ms": kernels["packed_dominance"]["ms"],
-                "plain_ms": kernels["packed_dominance"]["plain_ms"],
-                "bound_ms": kernels["packed_dominance"]["bound_ms"],
-                "bound_by": kernels["packed_dominance"]["bound_by"],
-                "library_ms": None,  # no single PyTorch call computes this
-            },
-            {
-                "name": "partial_topk",
-                "route": "cuda",
-                "source": "evox_tpu_torch/csrc/topk.cu",
-                "replaces": "evox_tpu/kernels/topk.py:185",
-                "launches": nsga2_path["launches"]["partial_topk"],
-                "max_abs_err": kernels["partial_topk"]["max_abs_err"],
-                "ms": kernels["partial_topk"]["ms"],
-                "plain_ms": kernels["partial_topk"]["plain_ms"],
-                "bound_ms": kernels["partial_topk"]["bound_ms"],
-                "bound_by": kernels["partial_topk"]["bound_by"],
-                # torch.topk(v, k, largest=False): the same values, with an
-                # unspecified tie order
-                "library_ms": kernels["partial_topk"]["library_ms"],
-            },
-        ]
-    }
+    line = {"kernels": kernel_entries(kernels, paths)}
     result = {
         "nvidia_smi": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "build_s": build_s,
         "kernels": kernels,
-        "main_path": main_path,
-        "nsga2_path": nsga2_path,
+        "main_path": paths["pendulum"],
+        "nsga2_path": paths["nsga2"],
+        "walker_path": paths["walker"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -8,8 +8,8 @@ They read attributes by name and never import the JAX package.
 What crosses unchanged: OpenES centers, the optimizer state (sgd's is
 empty; adam's holds count, mu and nu), the GA-skeleton MO states
 (population, fitness, offspring; NSGA-II's rank and crowd too), the
-workflow's generation and first-step flag, and populations and genomes as
-``(pop, dim)`` arrays.
+workflow's generation and first-step flag, populations and genomes as
+``(pop, dim)`` arrays, and ``mlp_policy`` params trees.
 
 What cannot cross: PRNG keys. JAX's threefry keys and the port's integer
 seeds for ``torch.Generator`` name unrelated streams, so the port's states
@@ -39,6 +39,24 @@ def population(array: Any, device: DeviceLike = None) -> torch.Tensor:
     if arr.ndim != 2:
         raise ValueError(f"expected a (pop, dim) array, got shape {arr.shape}")
     return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def mlp_params(tree: Any, device: DeviceLike = None) -> list:
+    """The port's ``mlp_policy`` params from the JAX package's (numpy leaves):
+    a list of ``{"w": (..., fan_in, fan_out), "b": (..., fan_out)}`` layers,
+    one policy or a batch with leading axes, as float32 tensors."""
+    dev = resolve_device(device)
+    if not (isinstance(tree, (list, tuple)) and all(
+            isinstance(l, dict) and set(l) == {"w", "b"} for l in tree)):
+        raise ValueError("expected an mlp_policy params tree: a list of {'w', 'b'} layers")
+    out = []
+    for i, layer in enumerate(tree):
+        w = np.array(layer["w"], dtype=np.float32)
+        b = np.array(layer["b"], dtype=np.float32)
+        if w.ndim < 2 or b.shape != w.shape[:-2] + w.shape[-1:]:
+            raise ValueError(f"layer {i}: w {w.shape} and b {b.shape} are not one MLP layer")
+        out.append({"w": torch.from_numpy(w).to(dev), "b": torch.from_numpy(b).to(dev)})
+    return out
 
 
 def _adam_leaf(opt_state: Any) -> Any:

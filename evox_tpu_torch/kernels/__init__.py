@@ -15,14 +15,26 @@ from .rollout import (
     fused_rollout_plain,
     pendulum_soa,
 )
+from .rollout_mlp import (
+    PlaneEnv,
+    chain_walker_planes,
+    fused_mlp_rollout,
+    fused_mlp_rollout_plain,
+    fused_rollout_analysis,
+)
 from .topk import default_use_kernel, partial_topk, partial_topk_reference, total_order_key
 
 __all__ = [
+    "PlaneEnv",
     "SoAEnv",
     "cartpole_soa",
+    "chain_walker_planes",
     "column_popcount",
     "default_use_kernel",
+    "fused_mlp_rollout",
+    "fused_mlp_rollout_plain",
     "fused_rollout",
+    "fused_rollout_analysis",
     "fused_rollout_plain",
     "pack_dominator_rows",
     "packed_dominance",

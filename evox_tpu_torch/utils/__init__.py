@@ -1,4 +1,5 @@
 from .common import (
+    TreeAndVector,
     dominate_relation,
     fold_in_seed,
     generator,
@@ -7,6 +8,8 @@ from .common import (
     parse_opt_direction,
     rank_based_fitness,
     split_seed,
+    tree_flatten,
+    tree_map,
 )
 from .optimizers import SGD, Adam, AdamState, make_optimizer
 
@@ -14,6 +17,7 @@ __all__ = [
     "Adam",
     "AdamState",
     "SGD",
+    "TreeAndVector",
     "dominate_relation",
     "fold_in_seed",
     "generator",
@@ -23,4 +27,6 @@ __all__ = [
     "parse_opt_direction",
     "rank_based_fitness",
     "split_seed",
+    "tree_flatten",
+    "tree_map",
 ]

@@ -1,5 +1,8 @@
 """Common utilities — the port of parts of ``evox_tpu/utils/common.py``.
 
+- ``TreeAndVector``: parameter trees to flat genomes and back, batched.
+- ``tree_flatten``/``tree_map``: trees of dicts and lists, leaves in
+  ``jax.tree.leaves`` order (dict keys sorted).
 - ``parse_opt_direction``: min/max → ±1 per objective.
 - ``rank_based_fitness``: centered ranks in [-0.5, 0.5].
 - ``dominate_relation``: the Pareto-dominance matrix (minimisation).
@@ -15,11 +18,86 @@
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+import math
+from typing import Any, Callable, List, Sequence, Tuple, Union
 
 import torch
 
 _SEED_BOUND = 2**62
+
+
+def tree_flatten(tree: Any) -> Tuple[List[Any], Callable[[Sequence[Any]], Any]]:
+    """``(leaves, rebuild)`` of a tree of dicts and lists: the leaves in
+    ``jax.tree.leaves`` order (dict keys sorted, lists in order), and the
+    function that builds the same tree around new leaves."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+        make = lambda children: dict(zip(keys, children))
+    elif isinstance(tree, list):
+        parts = [tree_flatten(x) for x in tree]
+        make = list
+    else:
+        return [tree], lambda leaves: leaves[0]
+    counts = [len(leaves) for leaves, _ in parts]
+
+    def rebuild(leaves: Sequence[Any]) -> Any:
+        children, at = [], 0
+        for (_, sub), c in zip(parts, counts):
+            children.append(sub(leaves[at : at + c]))
+            at += c
+        return make(children)
+
+    return [leaf for leaves, _ in parts for leaf in leaves], rebuild
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    leaves, rebuild = tree_flatten(tree)
+    return rebuild([fn(x) for x in leaves])
+
+
+class TreeAndVector:
+    """Between a parameter tree and a flat genome — the port of
+    ``evox_tpu/utils/common.py::TreeAndVector``.
+
+    The genome holds the leaves in ``ravel_pytree``'s order (dict keys
+    sorted, so each ``mlp_policy`` layer is ``b`` then ``w``), each leaf
+    row-major, so genomes cross between the two packages unchanged.
+    ``batched_to_tree`` and ``batched_to_vector`` work on a leading
+    population axis; ``batched_to_tree`` returns views into the ``(pop,
+    dim)`` tensor (copies only when its rows are not unit-strided), so
+    a workflow's pop transform moves no genome bytes.
+    """
+
+    def __init__(self, dummy_input: Any):
+        leaves, self._rebuild = tree_flatten(dummy_input)
+        self._shapes = [tuple(torch.as_tensor(x).shape) for x in leaves]
+        self._sizes = [math.prod(s) for s in self._shapes]
+        self.dim = sum(self._sizes)
+
+    def to_vector(self, tree: Any) -> torch.Tensor:
+        leaves, _ = tree_flatten(tree)
+        return torch.cat([torch.as_tensor(x).reshape(-1) for x in leaves])
+
+    def to_tree(self, vector: torch.Tensor) -> Any:
+        return self._split(vector, ())
+
+    def batched_to_vector(self, trees: Any) -> torch.Tensor:
+        leaves, _ = tree_flatten(trees)
+        n = leaves[0].shape[0]
+        return torch.cat([x.reshape(n, -1) for x in leaves], dim=1)
+
+    def batched_to_tree(self, vectors: torch.Tensor) -> Any:
+        return self._split(vectors, tuple(vectors.shape[:-1]))
+
+    def _split(self, vectors: torch.Tensor, lead: Tuple[int, ...]) -> Any:
+        if vectors.shape[-1] != self.dim:
+            raise ValueError(f"genome length {vectors.shape[-1]} != {self.dim}")
+        leaves, at = [], 0
+        for shape, size in zip(self._shapes, self._sizes):
+            leaves.append(vectors[..., at : at + size].reshape(lead + shape))
+            at += size
+        return self._rebuild(leaves)
 
 
 def split_seed(seed: int, num: int = 2) -> List[int]:

@@ -212,7 +212,8 @@ def test_deferred_arguments_raise():
     for kwargs in ({"checkpointer": object()}, {"resume_from": "dir"}, {"restarts": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             wf.run(wf.init(0), 1, **kwargs)
-    for kwargs in ({"cap_episode": object()}, {"obs_normalizer": object()}, {"fused_planes": object()}):
+    for kwargs in ({"cap_episode": object()}, {"obs_normalizer": object()},
+                   {"fused_planes_dtype": torch.bfloat16}):
         with pytest.raises(NotImplementedError):
             PolicyRolloutProblem(apply, soa.base, device="cpu", **kwargs)
     no_cuda_twin = tkr.SoAEnv(*soa[:-1], cuda_env=None)
