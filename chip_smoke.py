@@ -23,10 +23,15 @@ exit 0):
    inputs (pop 65536, MLP 244-64-64-17, T 100) and on stress inputs (large
    weights, envs pushed to fall, explode, start done or run out of time; a
    ragged n of 1500 with 2 episodes; a low-rank ``linear=(0,)`` policy;
-   the 7-mass walker). All bit for bit, NaN returns by bit pattern, and a
-   non-finite return only where the env exploded. Times each kernel and its
-   plain version with CUDA events, and ``torch.topk`` beside
-   ``partial_topk``.
+   the 7-mass walker; widths whose dot products split raggedly; a policy
+   whose block is one warp). All bit
+   for bit, NaN returns by bit pattern, and a non-finite return only where
+   the env exploded. Times each kernel and its plain version with CUDA
+   events, and ``torch.topk`` beside ``partial_topk``. Records the walker
+   kernel's block shape (instance, threads, blocks an SM, planned and as
+   the runtime reports it) and ptxas's registers and spills of each of its
+   instances, and fails if the main path's instance spills or fits fewer
+   blocks an SM than its plan.
 3. main path 1: ``StdWorkflow(OpenES(zeros(81), 65536),
    PolicyRolloutProblem(flat_mlp_policy 3-16-1, pendulum(200), 2 episodes,
    fused_env=pendulum_soa(200)), opt_direction="max")`` — init, one
@@ -66,6 +71,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,6 +100,9 @@ WALKER_STRESS = (
     ("ragged n, 2 episodes", (244, 16, 8, 17), 1500, 2, WALKER_T, 3.0, (), {}),
     ("low-rank linear=(0,)", (244, 16, 64, 17), 4096, 1, WALKER_T, 1.0, (0,), {}),
     ("7-mass walker", (64, 16, 16, 4), 2000, 1, 40, 3.0, (), dict(n_masses=7, act_dim=4, obs_dim=64)),
+    ("ragged split", (244, 37, 23, 17), 3000, 1, WALKER_T, 3.0, (), {}),
+    # 32 threads: the generic instance's one-warp block (slices 4, 2, 1)
+    ("one warp", (64, 8, 4, 4), 2000, 1, 40, 3.0, (), dict(n_masses=7, act_dim=4, obs_dim=64)),
 )
 
 
@@ -752,6 +761,53 @@ def mlp_rollout_work(sizes, n: int, episodes: int, steps: int, n_masses: int, ac
     return nbytes, per_step * steps
 
 
+def ptxas_functions(log: str) -> dict:
+    """ptxas's report per kernel function in an nvcc log: registers a
+    thread and spill bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def walker_block_shape(km, sizes, linear=()) -> dict:
+    """The walker kernel's block shape at ``sizes``: the plan's instance,
+    threads, registers and blocks an SM, the blocks an SM the runtime
+    reports for that instance, and ptxas's registers and spills of both
+    instances."""
+    import ctypes
+
+    from evox_tpu_torch.kernels import _build
+
+    plan = km.fused_rollout_analysis(sizes, linear=linear)
+    fn = _build.function("rollout_mlp", "evox_mlp_rollout_blocks_per_sm", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    _build.check_launch("rollout_mlp", fn(int(plan["instance"] == "main"),
+                                          plan["threads_per_block"],
+                                          plan["smem_bytes_per_block"], ctypes.byref(blocks)),
+                        "occupancy query")
+    ptxas = {}
+    for name, rep in ptxas_functions(_build.build_log("rollout_mlp") or "").items():
+        # mlp_rollout_kernel<true> (the main instance) mangles to ...ILb1E...
+        ptxas["main" if "ILb1E" in name else "generic" if "ILb0E" in name else name] = rep
+    return {"instance": plan["instance"], "threads": plan["threads_per_block"],
+            "slices": plan["slices"], "smem_bytes": plan["smem_bytes_per_block"],
+            "planned_registers": plan["registers_per_thread"],
+            "planned_blocks_per_sm": plan["blocks_per_sm"],
+            "runtime_blocks_per_sm": blocks.value, "ptxas": ptxas}
+
+
 def check_exploded(torch, name: str, totals, exploded) -> int:
     """A non-finite return is allowed only where the env exploded (its state
     went non-finite or beyond the bound); returns how many there were."""
@@ -820,7 +876,7 @@ def phase_walker_kernels(torch, wf, adapter, seed: int) -> dict:
     stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
     stats.update(bytes=nbytes, ops=ops, live_steps=live, mean_episode_length=live / (n * ep),
                  exploded=int(exploded.sum()), mean_return=float(want.mean()),
-                 budget=km.fused_rollout_analysis(kw["sizes"], kw["env"]))
+                 block=walker_block_shape(km, kw["sizes"], kw["linear"]))
     print(f"[walker kernel] {json.dumps(stats)}", flush=True)
     del got, want, kw, plain_kw, pop
     results["walker"] = stats
@@ -838,6 +894,15 @@ def phase_walker_kernels(torch, wf, adapter, seed: int) -> dict:
         if not st["exploded"] or not (steps < sT).any():
             raise AssertionError(f"{label}: the stress inputs ended no episode early")
         results[f"walker_stress_{i}"] = st
+
+    # the main path's instance keeps its plan: no spill, its registers, its
+    # blocks an SM (a fall to two undoes the register-held layer)
+    block = stats["block"]
+    main = block["ptxas"].get("main", {})
+    if (block["instance"] != "main" or main.get("spill_stores", 1) or main.get("spill_loads", 1)
+            or main.get("registers", 999) > block["planned_registers"]
+            or block["runtime_blocks_per_sm"] != block["planned_blocks_per_sm"]):
+        raise AssertionError(f"the walker kernel's main instance misses its plan: {block}")
     return results
 
 
@@ -988,6 +1053,8 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "bound_ms": w["bound_ms"],
         "bound_by": w["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this
+        "copy_only_ms": w["copy_only_ms"],
+        "block": w["block"],
     })
     return entries
 

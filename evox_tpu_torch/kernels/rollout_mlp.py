@@ -7,24 +7,27 @@ per-layer weight planes ``(fan_in, fan_out, n)`` and bias planes
 ``(fan_out, n)`` (individual in the last axis, the JAX package's layout),
 over an env in plane form: a dict of ``(components, envs)`` planes
 (:class:`PlaneEnv`). On a CUDA tensor it launches the hand-written kernel
-of ``csrc/rollout_mlp.cu`` (one block per env, the env's whole policy in
-shared memory for the episode; that file's header says what bounds it). On
-a CPU tensor it runs ``fused_mlp_rollout_plain``, the same arithmetic as
-full-width PyTorch ops. There is no other route: a CUDA tensor goes to the
-kernel or raises.
+of ``csrc/rollout_mlp.cu`` (one block per env, the env's policy in
+shared memory for the episode, each dot product split over several
+threads; that file's header says what bounds it). On a CPU tensor it runs
+``fused_mlp_rollout_plain``, the same arithmetic as full-width PyTorch
+ops. There is no other route: a CUDA tensor goes to the kernel or raises.
 
 The plain version fixes every order of summation, and the kernel follows
-it, so the two agree bit for bit on the card: each dot product runs over
-its inputs in order, starting from the bias (``_mlp_planes``, as the JAX
-kernel's loop), and the sums over masses and actions of the walker's
+it, so the two agree bit for bit on the card: each dot product is cut into
+slices of whole quads of its inputs (:func:`_slice_bounds`), each slice
+summed in order (slice 0 from the bias), and the slices combined by a fixed
+tree (``_mlp_planes``); the sums over masses and actions of the walker's
 reward run in index order (``_ordered_sum``), with a true division for the
 mean. Maximum, minimum and sign propagate NaN as ``jnp`` does.
 
 The TPU kernel kept a 128-individual tile's full weights (~10.8 MB)
 resident in VMEM. An H100 SM has 228 KB of shared memory, so the CUDA
-kernel keeps one env's policy (83.8 KB at 244-64-64-17) per block, two
-blocks to an SM; :func:`fused_rollout_analysis` reports that budget in
-place of the JAX package's ``_vmem_plan``/VMEM report.
+kernel keeps one env's policy per block: at the main path's 244-64-64-17
+the instance built for it holds 56 KB in shared memory and the rest (the
+64 x 64 layer and 12 of the first layer's 61 quads of inputs) in
+registers, four blocks to an SM. :func:`fused_rollout_analysis` reports
+that budget in place of the JAX package's ``_vmem_plan``/VMEM report.
 """
 
 from __future__ import annotations
@@ -232,18 +235,45 @@ def chain_walker_planes(**kwargs) -> PlaneEnv:
 # ----------------------------------------------------------- plain version
 
 
+def _slices(fan_in: int) -> int:
+    """How many slices a dot product over ``fan_in`` inputs is cut into: 4,
+    2 or 1, the most that leaves every slice at least one whole quad."""
+    quads = -(-fan_in // 4)
+    return 4 if quads >= 4 else (2 if quads >= 2 else 1)
+
+
+def _slice_bounds(fan_in: int) -> Tuple[Tuple[int, int], ...]:
+    """The ``[k0, k1)`` input range of each slice of a dot product over
+    ``fan_in`` inputs: slice s takes quads ``[Q s // S, Q (s+1) // S)`` of
+    the ``Q = ceil(fan_in / 4)`` quads, ``S = _slices(fan_in)``. The CUDA
+    kernel cuts its dot products the same way (csrc/rollout_mlp.cu,
+    ``dense``), and its launch plan takes S from :func:`_slices`."""
+    quads, S = -(-fan_in // 4), _slices(fan_in)
+    return tuple(
+        (min(4 * (quads * s // S), fan_in), min(4 * (quads * (s + 1) // S), fan_in))
+        for s in range(S)
+    )
+
+
 def _mlp_planes(weights, biases, obs: torch.Tensor, sizes, linear=()) -> torch.Tensor:
-    """``(act_dim, n)`` actions: per layer, start from the bias plane and add
-    ``h[k] * w[k]`` for k = 0, 1, ... in order (the JAX kernel's loop, and
-    the order of each dot product in the CUDA kernel); tanh after every
-    layer but the last and those in ``linear``."""
+    """``(act_dim, n)`` actions, in the CUDA kernel's order of summation:
+    per layer, each slice of :func:`_slice_bounds` adds ``h[k] * w[k]`` for
+    its k in order, slice 0 starting from the bias plane and the others from
+    their first product; the slices combine pairwise, ``(s0 + s1) + (s2 +
+    s3)``. tanh after every layer but the last and those in ``linear``."""
     h = obs
     n_layers = len(sizes) - 1
     for li in range(n_layers):
-        acc = biases[li]
         w = weights[li]
-        for k in range(sizes[li]):
-            acc = acc + h[k : k + 1] * w[k]
+        parts = []
+        for s, (k0, k1) in enumerate(_slice_bounds(sizes[li])):
+            acc = biases[li] if s == 0 else h[k0 : k0 + 1] * w[k0]
+            for k in range(k0 if s == 0 else k0 + 1, k1):
+                acc = acc + h[k : k + 1] * w[k]
+            parts.append(acc)
+        while len(parts) > 1:
+            parts = [parts[q] + parts[q + 1] for q in range(0, len(parts), 2)]
+        acc = parts[0]
         h = acc if (li == n_layers - 1 or li in linear) else torch.tanh(acc)
     return h
 
@@ -337,22 +367,44 @@ MAX_MASSES = 32  # the walker's physics runs one mass per lane of one warp
 _PLANE_ORDER = ("px", "py", "vx", "vy", "pa", "t", "done")
 
 
+# the instance of csrc/rollout_mlp.cu built for the main path's policy: 128
+# threads (two outputs a thread), four blocks an SM; layer 1 (64 x 64) and
+# the last MAIN_REG_QUADS quads of each slice of layer 0 in registers
+MAIN_SIZES = (244, 64, 64, 17)
+MAIN_THREADS = 128
+MAIN_REG_QUADS = 3
+REGISTERS_PER_SM = 65536
+# the registers a thread both instances' __launch_bounds__ allow: 65536 /
+# (4 blocks x 128 threads) and 65536 / (2 x 256)
+REGISTERS_PER_THREAD = 128
+
+
 class _Plan(NamedTuple):
+    instance: str  # "main" or "generic"
     threads: int
     smem_bytes: int
-    w_off: Tuple[int, ...]  # offsets in floats
+    slices: Tuple[int, ...]  # S of each layer
+    w_off: Tuple[int, ...]  # offsets in floats (0 for the layer in registers)
     b_off: Tuple[int, ...]
     h_off: Tuple[int, ...]  # the observation, then each layer's output
-    scratch_off: int
+    scratch_off: int  # the reward's terms: vx by mass, tanh(action)^2 by action
 
 
-def _smem_plan(sizes: Sequence[int], n_masses: int, act_dim: int) -> _Plan:
-    """The kernel's shared-memory layout for one block (one env), in
-    float32s, each region 16-byte aligned: every layer's weights ``[k][j]``,
-    the biases, the activations (the last layer's output is the action,
-    kept as the next step's previous action), and 64 floats of scratch plus
-    the done flag. The single source of truth for the launch and for
+def _smem_plan(sizes: Sequence[int], linear: Sequence[int] = ()) -> _Plan:
+    """The kernel's launch plan for one block (one env): the instance, the
+    threads (generic: 32 / S outputs of a layer to a warp, enough warps for
+    the widest layer, at most 256; main: 128, two outputs a thread), each
+    layer's slice count (:func:`_slices`) and the shared-memory layout in
+    float32s, each region 16-byte aligned: every layer's weights as
+    ``[k/4][j][k%4]`` (but what the main instance holds in registers: layer
+    1, and the last MAIN_REG_QUADS quads of each slice of layer 0), the
+    biases, the activations padded to whole quads (the last layer's output
+    is the action), and 64 floats for the reward's terms of a step. The
+    single source of truth for the launch and for
     :func:`fused_rollout_analysis`."""
+    sizes = tuple(int(x) for x in sizes)
+    main = sizes == MAIN_SIZES and not tuple(linear)
+    slices = tuple(_slices(fi) for fi in sizes[:-1])
     at = 0
 
     def take(count: int) -> int:
@@ -361,31 +413,47 @@ def _smem_plan(sizes: Sequence[int], n_masses: int, act_dim: int) -> _Plan:
         at += -(-count // 4) * 4
         return off
 
-    w_off = tuple(take(fi * fo) for fi, fo in zip(sizes[:-1], sizes[1:]))
+    quads = [-(-fi // 4) for fi in sizes[:-1]]
+    if main:  # layer 1, and three quads of each slice of layer 0, in registers
+        quads[0] -= MAIN_REG_QUADS * slices[0]
+        quads[1] = 0
+    w_off = tuple(take(4 * q * fo) if q else 0 for q, fo in zip(quads, sizes[1:]))
     b_off = tuple(take(fo) for fo in sizes[1:])
-    h_off = tuple(take(s) for s in sizes)
-    scratch_off = take(2 * 32 + 1)
-    widest = max(max(sizes[1:]), n_masses, act_dim)
-    threads = min(256, 32 * -(-widest // 32))
-    return _Plan(threads, 4 * at, w_off, b_off, h_off, scratch_off)
+    h_off = tuple(take(x) for x in sizes)
+    scratch_off = take(2 * MAX_MASSES)
+    widest = max(fo * S for fo, S in zip(sizes[1:], slices))
+    threads = MAIN_THREADS if main else min(256, 32 * -(-widest // 32))
+    return _Plan("main" if main else "generic", threads, 4 * at, slices, w_off, b_off, h_off,
+                 scratch_off)
 
 
-def fused_rollout_analysis(sizes: Sequence[int], env: Optional[PlaneEnv] = None) -> dict:
-    """Host-side report of the kernel's Hopper budget for MLP ``sizes`` over
-    ``env`` (default: the default chain walker): shared memory per block
-    against the 227 KB a block may hold, the blocks (envs) an SM keeps
-    resident, and the policy bytes each block copies in once per episode.
-    Negative headroom means the launch is refused (``fused_mlp_rollout``
-    raises). The counterpart of the JAX package's VMEM report."""
+def fused_rollout_analysis(
+    sizes: Sequence[int], env: Optional[PlaneEnv] = None, linear: Sequence[int] = ()
+) -> dict:
+    """Host-side report of the kernel's Hopper budget for MLP ``sizes``
+    (with ``linear`` layers) over ``env`` (default: the default chain
+    walker), for the instance the launch would take: its threads a block,
+    slices a layer, shared memory a block against the 227 KB a block may
+    hold, the registers a thread its launch bounds allow, the blocks (envs)
+    an SM keeps resident by all three, and the policy bytes each block
+    copies in once per episode. Negative headroom means the launch is
+    refused (``fused_mlp_rollout`` raises). The counterpart of the JAX
+    package's VMEM report."""
     cfg = (env.config if env is not None else None) or walker_config()
     sizes = tuple(int(s) for s in sizes)
-    plan = _smem_plan(sizes, cfg["n_masses"], cfg["act_dim"])
+    if not 3 <= cfg["n_masses"] <= MAX_MASSES:
+        raise ValueError(f"the kernel runs 3 to {MAX_MASSES} masses, got {cfg['n_masses']}")
+    plan = _smem_plan(sizes, linear)
     per_block = plan.smem_bytes + SMEM_RESERVED_PER_BLOCK
-    blocks = min(SMEM_PER_SM // per_block, MAX_THREADS_PER_SM // plan.threads, MAX_BLOCKS_PER_SM)
+    blocks = min(SMEM_PER_SM // per_block, MAX_THREADS_PER_SM // plan.threads,
+                 REGISTERS_PER_SM // (plan.threads * REGISTERS_PER_THREAD), MAX_BLOCKS_PER_SM)
     policy = sum(fi * fo + fo for fi, fo in zip(sizes[:-1], sizes[1:]))
     return {
         "sizes": sizes,
+        "instance": plan.instance,
         "threads_per_block": plan.threads,
+        "slices": plan.slices,
+        "registers_per_thread": REGISTERS_PER_THREAD,
         "smem_bytes_per_block": plan.smem_bytes,
         "smem_limit_bytes": SMEM_PER_BLOCK_LIMIT,
         "headroom_bytes": SMEM_PER_BLOCK_LIMIT - plan.smem_bytes,
@@ -414,7 +482,7 @@ def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, n) -> 
         )
     if sizes[0] != cfg["obs_dim"] or sizes[-1] != A:
         raise ValueError(f"policy sizes {sizes} do not match the walker ({cfg['obs_dim']} -> {A})")
-    plan = _smem_plan(sizes, N, A)
+    plan = _smem_plan(sizes, linear)
     if plan.smem_bytes > SMEM_PER_BLOCK_LIMIT:
         raise ValueError(
             f"the policy {sizes} needs {plan.smem_bytes} bytes of shared memory "
@@ -435,8 +503,9 @@ def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, n) -> 
     w_strides = [w.stride() for w in weights] + [(0, 0, 0)] * (MAX_LAYERS - n_layers)
     b_strides = [b.stride() for b in biases] + [(0, 0)] * (MAX_LAYERS - n_layers)
     ints = (
-        [n_layers, *fan, sum(1 << i for i in set(linear)), n, episodes, int(T), N, A,
-         cfg["substeps"], plan.threads, plan.smem_bytes]
+        [n_layers, *fan, *pad(plan.slices, MAX_LAYERS), sum(1 << i for i in set(linear)), n,
+         episodes, int(T), N, A, cfg["substeps"], int(plan.instance == "main"), plan.threads,
+         plan.smem_bytes]
         + pad(plan.w_off, MAX_LAYERS) + pad(plan.b_off, MAX_LAYERS)
         + pad(plan.h_off, MAX_LAYERS + 1) + [plan.scratch_off]
         + [s[0] for s in w_strides] + [s[1] for s in w_strides] + [s[2] for s in w_strides]

@@ -172,6 +172,61 @@ def test_mlp_planes_match_jax(linear):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+def _emulate_mlp_order(weights, biases, obs, sizes, linear):
+    """The dot-product order that csrc/rollout_mlp.cu documents, in numpy
+    float32, written from the kernel's header and not from the port's code:
+    the Q = ceil(fan_in / 4) quads of inputs cut into S = 4, 2 or 1 slices
+    (the most that leaves none empty), slice s taking quads [Q s // S,
+    Q (s+1) // S); each slice summed in k order, slice 0 from the bias and
+    the others from -0.0; then (s0 + s1) + (s2 + s3). Every multiply and add
+    rounds on its own (numpy ufuncs); tanh is torch's, since numpy's may
+    round differently."""
+    h = obs
+    for li, (fi, w, b) in enumerate(zip(sizes[:-1], weights, biases)):
+        quads = -(-fi // 4)
+        S = max(x for x in (1, 2, 4) if x <= quads)
+        parts = []
+        for s in range(S):
+            k0, k1 = min(4 * (quads * s // S), fi), min(4 * (quads * (s + 1) // S), fi)
+            acc = b.copy() if s == 0 else np.full_like(b, -0.0)
+            for k in range(k0, k1):
+                acc = acc + h[k] * w[k]
+            parts.append(acc)
+        while len(parts) > 1:
+            parts = [parts[q] + parts[q + 1] for q in range(0, len(parts), 2)]
+        h = parts[0]
+        if li < len(sizes) - 2 and li not in linear:
+            h = torch.tanh(torch.from_numpy(h)).numpy()
+        assert h.dtype == np.float32
+    return h
+
+
+@pytest.mark.parametrize(
+    "sizes,linear",
+    [((244, 64, 64, 17), ()), ((244, 37, 23, 17), ()), ((244, 16, 64, 17), (0,)),
+     ((64, 8, 2, 4), ())],
+    ids=["main", "ragged", "low-rank", "narrow"])
+def test_mlp_planes_matches_documented_order(sizes, linear):
+    """_mlp_planes (the plain version, and so the kernel held to it bit for
+    bit on the card) equals the order the kernel's header documents, bit
+    for bit, with -0.0 and NaN inputs among the observations."""
+    weights, biases = _planes_params(12, 5, sizes, w_scale=0.3)
+    obs = np.random.default_rng(13).normal(size=(sizes[0], 5)).astype(np.float32)
+    obs[3, 0] = np.nan
+    # env 1: layer 0's sums are -0.0 exactly (a slice that started from +0.0
+    # would turn them to +0.0)
+    obs[:, 1] = np.abs(obs[:, 1]) + 0.5
+    weights[0][:, :, 1] = -0.0
+    biases[0][:, 1] = -0.0
+    want = _emulate_mlp_order(weights, biases, obs, sizes, linear)
+    got = tkm._mlp_planes([_t(w) for w in weights], [_t(b) for b in biases], _t(obs), sizes,
+                          linear).numpy()
+    assert got.shape == (sizes[-1], 5)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert tkm._slice_bounds(244) == ((0, 60), (60, 120), (120, 180), (180, 244))
+    assert tkm._slice_bounds(37) == ((0, 8), (8, 20), (20, 28), (28, 37))
+
+
 def _walker_planes(n, ep, max_steps, seed=0):
     """JAX resets broadcast over the population, episode-major, as planes of
     both packages."""
@@ -422,17 +477,40 @@ def test_fused_mlp_rollout_refuses_bad_inputs():
 
 
 def test_hopper_budget_report():
-    """The main path's policy: 85632 bytes of shared memory a block, two
-    blocks to an SM, 83780 policy bytes copied in once per episode; a
-    policy too wide for one block reports negative headroom."""
+    """The main path's policy takes the instance built for it: 128 threads
+    (64 outputs x 4 slices, two outputs a thread), layer 1 and 12 of layer
+    0's 61 quads in registers, 56944 bytes of shared memory a block (layer
+    0's other 49 quads and layer 2 as [k/4][j][k%4], biases, activations,
+    the reward's 64 terms), 128 registers a thread, four blocks to an SM;
+    83780 policy bytes copied in once per episode. The same widths with a
+    linear layer take the generic instance, all weights in shared memory,
+    256 threads, two blocks; a policy too wide for one block reports
+    negative headroom."""
     rep = tkm.fused_rollout_analysis((244, 64, 64, 17))
     assert rep["policy_floats"] == 20945 and rep["policy_bytes"] == 83780
-    assert rep["threads_per_block"] == 64 and rep["smem_bytes_per_block"] == 85632
-    assert rep["blocks_per_sm"] == 2 and rep["headroom_bytes"] == 232448 - 85632
+    assert rep["instance"] == "main" and rep["slices"] == (4, 4, 4)
+    assert rep["threads_per_block"] == 128
+    assert rep["smem_bytes_per_block"] == 4 * (49 * 64 * 4 + 16 * 17 * 4 + (64 + 64 + 20)
+                                               + (244 + 64 + 64 + 20) + 64) == 56944
+    assert rep["registers_per_thread"] == 128 and rep["blocks_per_sm"] == 4
+    assert rep["headroom_bytes"] == 232448 - 56944
+    lin = tkm.fused_rollout_analysis((244, 64, 64, 17), linear=(0,))
+    assert lin["instance"] == "generic" and lin["threads_per_block"] == 256
+    assert lin["smem_bytes_per_block"] == 56944 + 4 * (12 * 64 * 4 + 64 * 64) == 85616
+    assert lin["registers_per_thread"] == 128 and lin["blocks_per_sm"] == 2
+    # no fan_in a multiple of 4: whole quads, the last one short
+    ragged = tkm.fused_rollout_analysis((244, 37, 23, 17))
+    assert ragged["instance"] == "generic" and ragged["slices"] == (4, 4, 4)
+    floats = 4 * (61 * 37 + 10 * 23 + 6 * 17) + (40 + 24 + 20) + (244 + 40 + 24 + 20) + 64
+    assert ragged["threads_per_block"] == 160 and ragged["smem_bytes_per_block"] == 4 * floats
+    assert ragged["blocks_per_sm"] == 65536 // (160 * 128)  # registers bind first
     wide = tkm.fused_rollout_analysis((244, 256, 256, 17))
     assert wide["headroom_bytes"] < 0 and wide["blocks_per_sm"] == 0
-    small = tkm.fused_rollout_analysis((64, 8, 8, 4), tkm.chain_walker_planes(**SMALL))
-    assert small["threads_per_block"] == 32 and small["blocks_per_sm"] >= 16
+    small = tkm.fused_rollout_analysis((64, 16, 16, 4), tkm.chain_walker_planes(**SMALL))
+    assert small["instance"] == "generic" and small["threads_per_block"] == 64
+    assert small["blocks_per_sm"] == 8
+    tiny = tkm.fused_rollout_analysis((64, 8, 2, 4), tkm.chain_walker_planes(**SMALL))
+    assert tiny["slices"] == (4, 2, 1) and tiny["threads_per_block"] == 32
 
 
 def test_walker_entry_points_refuse_a_missing_cuda(monkeypatch):
