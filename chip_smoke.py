@@ -13,10 +13,16 @@ exit 0):
    source of the port from the checkout (one nvcc per source, in parallel).
 2. kernels against plain: ``fused_rollout`` against
    ``fused_rollout_plain`` — pendulum at pop 65536, 2 episodes, T 200 (the
-   first main path's shape), and cartpole (early exit) at pop 8192 and 1500
-   (ragged edge), T 500; ``packed_dominance`` against
+   first main path's shape), wide-angle pendulum stress (th in ±1e3) at
+   pop 65536, 1500 and an odd episode count, and cartpole (early exit) at
+   pop 8192 and 1500 (ragged edge), T 500; every libdevice function the
+   rollout kernel reaches in another form (``sincosf``, ``tanhf`` without
+   its clamp) against the original over all 2^32 inputs;
+   ``packed_dominance`` against
    ``packed_dominance_reference`` on the second main path's first merged
-   fitness (n 20000, m 3) and on stress inputs; ``partial_topk`` against
+   fitness (n 20000, m 3) and on stress inputs (m 2, 3, 4, 5, 8, 16, 32
+   against n 1, 31, 32, 33, 1000, 20001, with ties, duplicates, ±inf, NaN
+   and ±0.0); ``partial_topk`` against
    ``partial_topk_reference`` on that path's cut key (n 20000, k 10000) and
    on stress inputs; ``fused_mlp_rollout`` against
    ``fused_mlp_rollout_plain`` on the third main path's first-generation
@@ -27,11 +33,12 @@ exit 0):
    whose block is one warp). All bit
    for bit, NaN returns by bit pattern, and a non-finite return only where
    the env exploded. Times each kernel and its plain version with CUDA
-   events, and ``torch.topk`` beside ``partial_topk``. Records the walker
-   kernel's block shape (instance, threads, blocks an SM, planned and as
-   the runtime reports it) and ptxas's registers and spills of each of its
-   instances, and fails if the main path's instance spills or fits fewer
-   blocks an SM than its plan.
+   events, and ``torch.topk`` beside ``partial_topk``. Records the block
+   shape of the rollout, dominance and walker kernels (instance, threads,
+   blocks an SM, planned and as the runtime reports it) and ptxas's
+   registers and spills of each of their instances, and fails if any
+   rollout or dominance instance, or the walker's main one, spills, or if
+   the main paths' instances fit fewer blocks an SM than their plans.
 3. main path 1: ``StdWorkflow(OpenES(zeros(81), 65536),
    PolicyRolloutProblem(flat_mlp_policy 3-16-1, pendulum(200), 2 episodes,
    fused_env=pendulum_soa(200)), opt_direction="max")`` — init, one
@@ -93,6 +100,11 @@ LSMOP_D, LSMOP_M = 300, 3
 WALKER_POP = 65536
 WALKER_SIZES = (244, 64, 64, 17)
 WALKER_T = 100
+# fused_rollout's wide-angle pendulum cases: (n, episodes)
+PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
+# packed_dominance's stress cases: every objective count against every n
+DOMINANCE_STRESS_M = (2, 3, 4, 5, 8, 16, 32)
+DOMINANCE_STRESS_N = (1, 31, 32, 33, 1000, 20001)
 # fused_mlp_rollout's stress cases: (name, sizes, n, episodes, T, weight
 # scale, linear, walker configuration)
 WALKER_STRESS = (
@@ -265,6 +277,21 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
         "pendulum, stress inputs n=65536 ep=2 T=200", got, want,
         rtol=0.0, atol=0.0)
 
+    # wide angles: th in ±1e3 runs the floored modulo and the trig calls'
+    # range reduction far from [-pi, pi]; a ragged n of 1500; an odd
+    # episode count
+    for sn, sep in PENDULUM_STRESS:
+        theta, planes = stress_inputs(env, sn, sep, 0.5)
+        g = torch.Generator(device=dev).manual_seed(seed + sn)
+        planes["th"] = 2e3 * torch.rand(sep * sn, generator=g, device=dev) - 1e3
+        args = (theta, planes, 200, 3, 16, 1, env, sep)
+        got = kr.fused_rollout(*args, device=dev)
+        want = kr.fused_rollout_plain(*args)
+        torch.cuda.synchronize()
+        results[f"pendulum_wide_th_{sn}_{sep}"] = compare(
+            f"pendulum, stress inputs th in ±1e3 n={sn} ep={sep} T=200", got, want,
+            rtol=0.0, atol=0.0)
+
     # cartpole: terminating, the per-warp early exit; ragged edge at 1500
     env = kr.cartpole_soa(500)
     for n in (8192, 1500):
@@ -276,8 +303,7 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
         torch.cuda.synchronize()
         # bit for bit, as for pendulum (a bang-bang action flips on a
         # last-ulp difference of a1 - a0)
-        stats = compare(f"cartpole n={n} ep=2 T=500", got, want,
-                        rtol=0.0, atol=0.0)
+        stats = compare(f"cartpole n={n} ep=2 T=500", got, want, rtol=0.0, atol=0.0)
         if n == 8192:
             stats["ms"] = _time_ms(lambda: kr.fused_rollout(*args, device=dev), 3, 20)
             stats["plain_ms"] = _time_ms(lambda: kr.fused_rollout_plain(*args), 1, 3)
@@ -286,7 +312,48 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
             stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
             stats["mean_return"] = float(want.mean())
         results[f"cartpole_{n}"] = stats
+
+    # every libdevice function the kernel replaces, against the original
+    # over all 2^32 float32 bit patterns, bit for bit
+    for name in kr.REPLACED_LIBDEVICE:
+        res = kr.check_replaced_libdevice(name)
+        print(f"[exhaustive] {name}: {json.dumps(res)}", flush=True)
+        if res["mismatches"]:
+            raise AssertionError(f"{name} differs from the libdevice original: {res}")
+        results[f"exhaustive_{name}"] = res
+
+    # the block of each env's instance; no instance spills
+    ptxas = {}
+    for fname, rep in ptxas_functions(_build_log("rollout")).items():
+        found = re.search(r"rollout_kernelINS_\d+(Pendulum|CartPole)E", fname)
+        ptxas[found.group(1).lower() if found else fname] = rep
+    for env_name in ("pendulum", "cartpole"):
+        check_no_spill(ptxas, f"rollout_kernel<{env_name}>", env_name)
+    results["pendulum"]["block"] = rollout_block_shape(kr, "pendulum", pop.shape[0],
+                                                       kw["episodes"], ptxas)
+    results["cartpole_8192"]["block"] = rollout_block_shape(kr, "cartpole", 8192, 2, ptxas)
     return results
+
+
+def _build_log(name: str) -> str:
+    from evox_tpu_torch.kernels import _build
+
+    return _build.build_log(name) or ""
+
+
+def rollout_block_shape(kr, env_name: str, n: int, episodes: int, ptxas: dict) -> dict:
+    """The rollout kernel's launch for an env at ``(n, episodes)``: the
+    plan's threads, grid and blocks an SM, the runtime's blocks an SM and
+    registers, and ptxas's registers and spills of the env's instance."""
+    plan = kr.launch_plan(env_name, n, episodes, torch_sm_count())
+    runtime = kr.kernel_occupancy(env_name)
+    if runtime["blocks_per_sm"] < plan["blocks_per_sm"]:
+        raise AssertionError(f"the rollout kernel for {env_name} fits fewer blocks an SM than "
+                             f"its plan: {runtime} against {plan}")
+    return {"instance": env_name, **{k: (list(v) if isinstance(v, tuple) else v)
+                                     for k, v in plan.items()},
+            "runtime_blocks_per_sm": runtime["blocks_per_sm"],
+            "registers": runtime["registers"], "ptxas": ptxas.get(env_name)}
 
 
 def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: bool) -> dict:
@@ -471,15 +538,24 @@ def topk_work(n: int, k: int) -> tuple:
 
 
 def stress_fitness(torch, n: int, m: int, seed: int, dev):
-    """Rounded uniform objectives (ties), duplicate rows, +inf, -inf and NaN
-    rows and a NaN objective."""
+    """Rounded uniform objectives (ties, zeros of both signs), duplicate
+    rows, +inf, -inf and NaN rows and a NaN objective, as far as n and m
+    have room for them."""
     g = torch.Generator().manual_seed(seed)
     fit = torch.round(torch.rand(n, m, generator=g) * 20) / 20
+    # -0.0 must compare equal to +0.0: flip the sign of half the zeros
+    flip = (fit == 0) & (torch.rand(n, m, generator=g) < 0.5)
+    fit = torch.where(flip, -fit, fit)
     fit[n // 2] = fit[0]
-    fit[n // 3] = fit[1]
-    fit[3] = float("inf")
-    fit[7] = float("nan")
-    fit[11, 1] = float("nan")
+    fit[n // 3] = fit[min(1, n - 1)]
+    if n > 13:  # row 12: row 13 with its zeros negated
+        fit[13, 0] = 0.0
+        fit[12] = torch.where(fit[13] == 0, -fit[13], fit[13])
+    for row, value in ((3, "inf"), (7, "nan")):
+        if n > row:
+            fit[row] = float(value)
+    if n > 11:
+        fit[11, m - 1] = float("nan")
     fit[n - 1, 0] = float("-inf")
     return fit.to(dev)
 
@@ -497,6 +573,44 @@ def stress_values(torch, n: int, seed: int, dev):
     hit = torch.randint(0, n, (min(n, 64),), generator=g)
     v[hit] = special.repeat(len(hit) // len(special) + 1)[: len(hit)]
     return v.to(dev)
+
+
+def dominance_block_shape(kd, n: int, m: int) -> dict:
+    """The dominance kernel's launch at ``(n, m)``: the plan's instance,
+    threads, super-tile, grid, shared memory and blocks an SM, the
+    runtime's blocks an SM and registers for that instance, and ptxas's
+    registers and spills of every instance (keyed by m, 0 the generic)."""
+    from evox_tpu_torch.kernels import _build
+
+    plan = kd.launch_plan(n, m)
+    ptxas = {}
+    for name, rep in ptxas_functions(_build.build_log("dominance") or "").items():
+        found = re.search(r"dominance_kernelILi(\d+)E", name)
+        ptxas[int(found.group(1)) if found else name] = rep
+    runtime = kd.kernel_occupancy(plan, m)
+    if runtime["blocks_per_sm"] < plan["blocks_per_sm"]:
+        raise AssertionError(f"the dominance kernel fits fewer blocks an SM than its plan: "
+                             f"{runtime} against {plan}")
+    return {"instance": plan["instance"], "threads": plan["threads"],
+            "tile_words": plan["tile_words"], "grid": list(plan["grid"]),
+            "working_blocks": plan["working_blocks"], "smem_bytes": plan["smem_bytes"],
+            "planned_blocks_per_sm": plan["blocks_per_sm"],
+            "runtime_blocks_per_sm": runtime["blocks_per_sm"],
+            "registers": runtime["registers"], "ptxas": ptxas}
+
+
+def check_no_spill(ptxas: dict, label: str, key) -> None:
+    """Fail unless ptxas reported the function under ``key`` without
+    spills."""
+    rep = ptxas.get(key)
+    if rep is None or rep.get("spill_stores", 1) or rep.get("spill_loads", 1):
+        raise AssertionError(f"{label}: ptxas reports spills or no report ({key}: {rep})")
+
+
+def torch_sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_nsga2_kernels(torch, wf, seed: int) -> dict:
@@ -527,13 +641,20 @@ def phase_nsga2_kernels(torch, wf, seed: int) -> dict:
     stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
     stats["bytes"], stats["ops"] = nbytes, ops
     results["packed_dominance"] = stats
-    # 20001: the plain version's chunked build; 1000: ragged, one column tile
-    # short; both with duplicates, ±inf and NaN rows
-    for sn, sm in ((20001, 3), (1000, 3), (1000, 7)):
-        fit_s = stress_fitness(torch, sn, sm, seed + sn, dev)
-        results[f"packed_dominance_stress_{sn}_{sm}"] = compare_exact(
-            f"packed_dominance, stress n={sn} m={sm}",
-            kd.packed_dominance(fit_s, device=dev), kd.packed_dominance_reference(fit_s))
+    stats["block"] = dominance_block_shape(kd, n, m)
+    # every instance (exact m = 2, 3, 4; generic 5 to 32) at ragged and
+    # whole words (1, 31, 32, 33), a few column blocks (1000) and the plain
+    # version's chunked build (20001), with duplicates, ±inf, NaN and ±0.0
+    for sm in DOMINANCE_STRESS_M:
+        for sn in DOMINANCE_STRESS_N:
+            fit_s = stress_fitness(torch, sn, sm, seed + sn + sm, dev)
+            results[f"packed_dominance_stress_{sn}_{sm}"] = compare_exact(
+                f"packed_dominance, stress n={sn} m={sm}",
+                kd.packed_dominance(fit_s, device=dev), kd.packed_dominance_reference(fit_s))
+            del fit_s
+    for sm in DOMINANCE_STRESS_M:  # no instance spills
+        check_no_spill(stats["block"]["ptxas"], f"dominance_kernel, m={sm}",
+                       kd.launch_plan(1000, sm)["instance"])
 
     # the main path's cut key: -crowding on the cut front, +inf elsewhere
     rank, cut = non_dominated_sort(merged, until=k, return_cut_rank=True)
@@ -1018,6 +1139,7 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "bound_ms": pend["bound_ms"],
         "bound_by": pend["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this
+        "block": pend["block"],
     }]
     for name, source, replaces in (
         ("packed_dominance", "dominance.cu", "evox_tpu/kernels/dominance.py:222"),
@@ -1039,6 +1161,7 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
             # values with an unspecified tie order; packed_dominance: no
             # single PyTorch call computes it
             "library_ms": k.get("library_ms"),
+            **({"block": k["block"]} if "block" in k else {}),
         })
     w = kernels["walker"]
     entries.append({

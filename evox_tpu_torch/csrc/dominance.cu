@@ -10,128 +10,268 @@
 //     column j.
 // The words are int32 bit patterns of the JAX package's uint32 words.
 //
-// Design. One warp per 32-row word: lane k owns row 32w + k and keeps its
-// m objectives in registers. A block of kWarps warps shares a tile of
-// kTileJ columns, staged in shared memory objective-major (ys[k][j]), so
-// every lane of a warp reads the same column value (a broadcast, no bank
-// conflict). For each column j the lanes compare their row with it and
-// __ballot_sync packs the 32 answers into the word; bit k is lane k, the
-// JAX bit order. Lane c keeps the word of column jb + c, so after 32
-// columns each lane holds one word and the warp stores 32 consecutive
-// words at once (coalesced). Lanes past n vote 0 but stay in the ballot.
-// The dense (n, n) boolean matrix never exists, so the kernel needs no
-// chunked build; the plain version keeps the JAX package's chunked build
-// above n = 20000. A second small kernel sums __popc over each column of
-// words for count.
+// Design: each ordered pair is compared once, for "all <=" only. With
+// L[i][j] = (x_i <= x_j in every objective), row i dominates row j iff
+// L[i][j] and not L[j][i]: L[i][j] rules out a NaN and any larger
+// objective, and given it, L[j][i] holds iff the rows are equal (so -0.0
+// and +0.0 count as equal, and a row of +inf dominates nothing). A warp
+// takes two 32 x 32 tiles at once, the rows of word w against the columns
+// of word v and the rows of v against the columns of w:
+//   lane l builds a = bits k of L[32w + k][32v + l] and
+//                 b = bits k of L[32v + k][32w + l],
+// one broadcast shared-memory load a row and m chained compares a bit,
+// transposes both tiles across the warp (five rounds of __shfl_xor_sync),
+// and stores
+//   packed[w][32v + l] = a & ~transpose(b),
+//   packed[v][32w + l] = b & ~transpose(a)   (once when w == v).
+// The lane that builds a word stores it: 32 consecutive columns a store.
+// Each lane adds the words' __popc into per-column counters in shared
+// memory, and a block ends with one atomicAdd per column into count, which
+// the entry point zeroes on the stream first; integer sums are exact in
+// any order, so count is the same every run.
 //
-// What bounds it on an H100: the 2m compares and the and/or logic of each
-// of the n^2 (row, column) pairs, about n^2 * 3m operations (3.6e9 at
-// n = 20000, m = 3), against n^2 / 8 bytes of words written (50 MB). The
-// operations bound it; the design spends no instruction on data movement
-// inside the column loop beyond one shared-memory broadcast per objective.
+// Grid: block (bx, by) takes a super-tile of TILE x TILE words (the rows
+// of words from W0 = by * TILE against the columns of words from V0 =
+// bx * TILE; TILE is 8, or 4 for the generic instance), both row ranges
+// staged once in shared
+// memory, rows past n as NaN, which compare false and set no bit. Only
+// blocks with W0 <= V0 work (the others exit at once: their tiles are the
+// transposes of these), and a diagonal super-tile takes its w <= v pairs.
+// The launch plan (instance, grid) is computed by the wrapper,
+// kernels/dominance.py::launch_plan, and checked here.
 //
-// Numerics. Plain IEEE compares: a NaN objective makes every compare
-// false, so a NaN row dominates nothing and is dominated by nothing, and a
-// row of +inf dominates nothing, as in the JAX package.
+// Instances: the exact m = 1, 2, 3, 4 (no runtime test of m, a row in one
+// 4-, 8- or 16-byte load; m = 3 pads to 16 bytes) and a generic one for
+// m <= 32 that reads a row objective by objective.
+//
+// What bounds it on an H100: the compares of each of the n^2 (row, column)
+// pairs and the logic that packs them, about n^2 * 3m operations counted
+// the plain way (3.6e9 at n = 20000, m = 3), against n^2 / 8 bytes of words
+// written (50 MB). The operations bound it. Here a pair costs m
+// predicate-chained compares, ~1.5 instructions of packing (a select, and
+// an add of three selects) and a share of the transposes (~0.8): ~5.3 at
+// m = 3, where testing both ways (<= everywhere and < somewhere) a pair
+// took 7.5. Compares and selects issue at half rate, so they, not the
+// loads or the stores, set the pace.
+//
+// Numerics. Plain IEEE compares, as in the JAX package: a NaN objective
+// makes L false both ways, so a NaN row dominates nothing and is dominated
+// by nothing.
 //
 // C interface (loaded with ctypes): evox_packed_dominance returns
-// cudaGetLastError() after the launches; 0 means launched.
+// cudaGetLastError() after the launch; 0 means launched.
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
-constexpr int kWarps = 8;    // words (32-row groups) per block
-constexpr int kTileJ = 256;  // columns per block
-constexpr int kMaxM = 32;    // objectives the kernel takes
+constexpr int kThreads = 128;         // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxM = 32;             // objectives the kernel takes
 
-template <int MAXM>
-__global__ void __launch_bounds__(kWarps * 32)
-dominance_pack_kernel(const float* __restrict__ fit, int n, int m, int n_words,
-                      int* __restrict__ packed) {
-  __shared__ float ys[MAXM][kTileJ];
-  const int lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int row = w * 32 + lane;
-  const bool live = row < n;
-  const int j0 = blockIdx.y * kTileJ;
+// words a side of an instance's super-tile: 8 for the exact instances (8
+// KB of rows), 4 for the generic one (its rows of up to 32 objectives take
+// 32 KB)
+template <int M> struct TileWords { static constexpr int value = M > 0 ? 8 : 4; };
 
-  float x[MAXM];
+// a row of M objectives as one load: M = 1 float, 2 float2, 3 and 4 float4
+template <int M> struct RowOf { using T = float4; static constexpr int kStride = 4; };
+template <> struct RowOf<1> { using T = float; static constexpr int kStride = 1; };
+template <> struct RowOf<2> { using T = float2; static constexpr int kStride = 2; };
+
+__device__ __forceinline__ float get(const float& r, int) { return r; }
+__device__ __forceinline__ float get(const float2& r, int k) { return k == 0 ? r.x : r.y; }
+__device__ __forceinline__ float get(const float4& r, int k) {
+  return k == 0 ? r.x : k == 1 ? r.y : k == 2 ? r.z : r.w;
+}
+
+// every x_k <= y_k (bitwise &, no short circuit, so the compares chain
+// through predicates)
+template <int M, class Row>
+__device__ __forceinline__ bool le_all(const Row& x, const Row& y) {
+  bool le = true;
 #pragma unroll
-  for (int k = 0; k < MAXM; ++k) x[k] = (k < m && live) ? __ldg(fit + (long long)row * m + k) : 0.0f;
+  for (int k = 0; k < M; ++k) le = le & (get(x, k) <= get(y, k));
+  return le;
+}
 
-  // stage the column tile: the tile's rows are contiguous in fit, so the
-  // reads are coalesced; columns past n read as 0 and are never stored
-  const int jmax = min(kTileJ, n - j0);
-  for (int t = threadIdx.x; t < kTileJ * m; t += blockDim.x) {
-    const int jj = t / m, k = t - jj * m;
-    ys[k][jj] = jj < jmax ? __ldg(fit + (long long)(j0 + jj) * m + k) : 0.0f;
+__device__ __forceinline__ bool le_all_generic(const float* x, const float* y, int m) {
+  bool le = true;
+#pragma unroll 4
+  for (int k = 0; k < m; ++k) le = le & (x[k] <= y[k]);
+  return le;
+}
+
+// The transpose of a 32 x 32 bit tile held one 32-bit word a lane: bit k
+// of lane l's result is bit l of lane k's word. Round s swaps the
+// off-diagonal s x s blocks of each 2s x 2s block between lanes l and
+// l ^ s.
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) {
+    const unsigned low = s == 16 ? 0x0000FFFFu : s == 8 ? 0x00FF00FFu
+                       : s == 4 ? 0x0F0F0F0Fu : s == 2 ? 0x33333333u : 0x55555555u;
+    const unsigned y = __shfl_xor_sync(0xffffffffu, x, s);
+    x = (lane & s) ? ((x & ~low) | ((y & ~low) >> s)) : ((x & low) | ((y & low) << s));
+  }
+  return x;
+}
+
+// stage the rows of words [w0, w0 + words) into xs, `stride` floats a row,
+// objective k of row r at xs[(r - 32 w0) * stride + k]; rows past n are
+// NaN (they compare false), pad slots 0
+__device__ __forceinline__ void stage_rows(const float* __restrict__ fit, int n, int m,
+                                           int stride, int w0, int words, float* xs) {
+  const int r0 = 32 * w0;
+  const int total = 32 * words * stride;
+  for (int t = threadIdx.x; t < total; t += kThreads) {
+    const int rr = t / stride, k = t - rr * stride;
+    const int r = r0 + rr;
+    float v = 0.0f;
+    if (k < m) v = r < n ? __ldg(fit + (long long)r * m + k) : __int_as_float(0x7fc00000);
+    xs[t] = v;
+  }
+}
+
+// M in 1..4: exact; M == 0: generic, m <= kMaxM read one objective at a
+// time. The exact instances keep to 80 registers (6 blocks an SM; at 64
+// the m = 3 and 4 instances spill), the generic one to 64 (8).
+template <int M>
+__global__ void __launch_bounds__(kThreads, M > 0 ? 6 : 8)
+dominance_kernel(const float* __restrict__ fit, int n, int m, int n_words,
+                 int* __restrict__ packed, int* __restrict__ count) {
+  constexpr int TILE = TileWords<M>::value;
+  const int W0 = blockIdx.y * TILE, V0 = blockIdx.x * TILE;
+  if (W0 > V0) return;  // the transposes of tiles another block takes
+  extern __shared__ __align__(16) float smem[];
+  const int stride = M > 0 ? RowOf<(M > 0 ? M : 4)>::kStride : m;
+  const int wn = min(TILE, n_words - W0), vn = min(TILE, n_words - V0);
+  float* xs_w = smem;
+  float* xs_v = smem + 32 * TILE * stride;
+  int* cnt_w = reinterpret_cast<int*>(xs_v + 32 * TILE * stride);
+  int* cnt_v = cnt_w + 32 * TILE;
+  stage_rows(fit, n, m, stride, W0, wn, xs_w);
+  stage_rows(fit, n, m, stride, V0, vn, xs_v);
+  for (int t = threadIdx.x; t < 64 * TILE; t += kThreads) cnt_w[t] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < TILE * TILE; t += kWarps) {
+    const int wi = t / TILE, vi = t % TILE;
+    const int w = W0 + wi, v = V0 + vi;
+    // past the edge, or a diagonal super-tile's lower triangle
+    if (wi >= wn || vi >= vn || w > v) continue;
+    unsigned a = 0, b = 0;  // bit k: L[32w + k][32v + lane], L[32v + k][32w + lane]
+    if constexpr (M > 0) {
+      using Row = typename RowOf<M>::T;
+      const Row* rw = reinterpret_cast<const Row*>(xs_w) + 32 * wi;
+      const Row* rv = reinterpret_cast<const Row*>(xs_v) + 32 * vi;
+      const Row yv = rv[lane], yw = rw[lane];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        if (le_all<M>(rw[k], yv)) a |= 1u << k;
+        if (le_all<M>(rv[k], yw)) b |= 1u << k;
+      }
+    } else {
+      const float* rw = xs_w + 32 * wi * m;
+      const float* rv = xs_v + 32 * vi * m;
+      const float* yv = rv + lane * m;
+      const float* yw = rw + lane * m;
+#pragma unroll 2
+      for (int k = 0; k < 32; ++k) {
+        a |= static_cast<unsigned>(le_all_generic(rw + k * m, yv, m)) << k;
+        b |= static_cast<unsigned>(le_all_generic(rv + k * m, yw, m)) << k;
+      }
+    }
+    const unsigned at = transpose32(a, lane), bt = transpose32(b, lane);
+    const unsigned d_wv = a & ~bt;  // packed[w][32v + lane]
+    const int jv = 32 * v + lane;
+    if (jv < n) packed[(long long)w * n + jv] = static_cast<int>(d_wv);
+    atomicAdd(cnt_v + 32 * vi + lane, __popc(d_wv));
+    if (w != v) {
+      const unsigned d_vw = b & ~at;  // packed[v][32w + lane]
+      const int jw = 32 * w + lane;
+      if (jw < n) packed[(long long)v * n + jw] = static_cast<int>(d_vw);
+      atomicAdd(cnt_w + 32 * wi + lane, __popc(d_vw));
+    }
   }
   __syncthreads();
-  if (w >= n_words) return;  // whole warps: w is uniform in a warp
-
-  for (int jb = 0; jb < jmax; jb += 32) {
-    unsigned mine = 0;
-#pragma unroll 4
-    for (int c = 0; c < 32; ++c) {
-      bool le = true, lt = false;
-#pragma unroll
-      for (int k = 0; k < MAXM; ++k) {
-        if (k < m) {
-          const float y = ys[k][jb + c];
-          le = le && (x[k] <= y);
-          lt = lt || (x[k] < y);
-        }
-      }
-      const unsigned word = __ballot_sync(0xffffffffu, live && le && lt);
-      if (lane == c) mine = word;
-    }
-    const int j = j0 + jb + lane;
-    if (j < n) packed[(long long)w * n + j] = static_cast<int>(mine);
+  for (int t = threadIdx.x; t < 32 * TILE; t += kThreads) {
+    const int jw = 32 * W0 + t, jv = 32 * V0 + t;
+    if (jw < n && cnt_w[t]) atomicAdd(count + jw, cnt_w[t]);
+    if (jv < n && cnt_v[t]) atomicAdd(count + jv, cnt_v[t]);
   }
 }
 
-// count[j] = sum over words of popcount(packed[w][j]); consecutive threads
-// read consecutive columns of one word row
-__global__ void column_popcount_kernel(const int* __restrict__ packed, int n, int n_words,
-                                       int* __restrict__ count) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  int c = 0;
-  for (int w = 0; w < n_words; ++w) c += __popc(static_cast<unsigned>(__ldg(packed + (long long)w * n + j)));
-  count[j] = c;
+// the shared-memory floats a row takes in an instance
+int row_stride(int instance, int m) {
+  return instance == 0 ? m : instance == 1 ? 1 : instance == 2 ? 2 : 4;
 }
 
-template <int MAXM>
-void launch_pack(const float* fit, int n, int m, int n_words, int* packed, cudaStream_t st) {
-  const dim3 grid((n_words + kWarps - 1) / kWarps, (n + kTileJ - 1) / kTileJ);
-  dominance_pack_kernel<MAXM><<<grid, kWarps * 32, 0, st>>>(fit, n, m, n_words, packed);
+int tile_words(int instance) { return instance > 0 ? TileWords<1>::value : TileWords<0>::value; }
+
+// a super-tile's two row ranges and two column counters
+size_t smem_bytes(int instance, int m) {
+  return sizeof(float) * 2 * 32 * tile_words(instance) * row_stride(instance, m) +
+         sizeof(int) * 2 * 32 * tile_words(instance);
+}
+
+template <int M>
+void launch(const float* fit, int n, int m, int n_words, dim3 grid, int* packed, int* count,
+            cudaStream_t st) {
+  dominance_kernel<M><<<grid, kThreads, smem_bytes(M, m), st>>>(fit, n, m, n_words, packed,
+                                                                count);
+}
+
+const void* kernel_of(int instance) {
+  return instance == 1 ? reinterpret_cast<const void*>(dominance_kernel<1>)
+       : instance == 2 ? reinterpret_cast<const void*>(dominance_kernel<2>)
+       : instance == 3 ? reinterpret_cast<const void*>(dominance_kernel<3>)
+       : instance == 4 ? reinterpret_cast<const void*>(dominance_kernel<4>)
+       : reinterpret_cast<const void*>(dominance_kernel<0>);
 }
 
 }  // namespace
 
+// instance: 1..4 for the exact m (it must equal m), 0 for the generic one;
+// the grid is (grid, grid) with grid = ceil(ceil(n / 32) / tile_words) for
+// the instance's super-tile (kernels/dominance.py::launch_plan)
 extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* packed,
-                                     void* count, void* stream) {
-  if (n <= 0 || m <= 0 || m > kMaxM || (n + kTileJ - 1) / kTileJ > 65535) {
+                                     void* count, void* stream, int instance, int grid) {
+  const int n_words = (n + 31) / 32;
+  if (n <= 0 || m <= 0 || m > kMaxM || !(instance == 0 || instance == m) || instance > 4 ||
+      grid != (n_words + tile_words(instance) - 1) / tile_words(instance) || grid > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* fit = static_cast<const float*>(fitness);
   int* words = static_cast<int*>(packed);
-  const int n_words = (n + 31) / 32;
-  // the smallest register file that holds the row's objectives
-  if (m <= 4) {
-    launch_pack<4>(fit, n, m, n_words, words, st);
-  } else if (m <= 8) {
-    launch_pack<8>(fit, n, m, n_words, words, st);
-  } else if (m <= 16) {
-    launch_pack<16>(fit, n, m, n_words, words, st);
-  } else {
-    launch_pack<32>(fit, n, m, n_words, words, st);
+  int* counts = static_cast<int*>(count);
+  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(n), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g(grid, grid);
+  switch (instance) {
+    case 1: launch<1>(fit, n, m, n_words, g, words, counts, st); break;
+    case 2: launch<2>(fit, n, m, n_words, g, words, counts, st); break;
+    case 3: launch<3>(fit, n, m, n_words, g, words, counts, st); break;
+    case 4: launch<4>(fit, n, m, n_words, g, words, counts, st); break;
+    default: launch<0>(fit, n, m, n_words, g, words, counts, st); break;
   }
-  column_popcount_kernel<<<(n + 255) / 256, 256, 0, st>>>(words, n, n_words,
-                                                           static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
+}
+
+// the runtime's blocks an SM and registers a thread of an instance, at the
+// shared memory its super-tile takes for m objectives
+extern "C" int evox_dominance_occupancy(int instance, int m, int* blocks_per_sm,
+                                        int* registers) {
+  cudaFuncAttributes attr;
+  const void* fn = kernel_of(instance);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, kThreads, smem_bytes(instance, m)));
 }
 
 extern "C" const char* evox_cuda_error_string(int code) {

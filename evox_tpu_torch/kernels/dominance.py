@@ -12,8 +12,11 @@ bits in ``torch.int32`` (bit 31 is the sign bit). ``packed.numpy().view(
 numpy.uint32)`` gives the JAX package's words.
 
 On a CUDA tensor ``packed_dominance`` launches the hand-written kernel of
-``csrc/dominance.cu`` (one warp per 32-row word, ``__ballot_sync`` packs
-the bits; that file's header says what bounds it). On a CPU tensor it runs
+``csrc/dominance.cu`` (a warp compares two 32 x 32 tiles of rows and
+columns for "all <=" once, each tile against the other's transpose, and
+adds the words' popcounts into ``count``; that file's header says what
+bounds it), on the grid that :func:`launch_plan` computes. On a CPU tensor
+it runs
 ``packed_dominance_reference``, the JAX package's XLA fallback in plain
 PyTorch, with its chunked build above n = 20000. A CUDA tensor goes to the
 kernel or raises.
@@ -35,8 +38,21 @@ from . import _build
 # build caps it at (chunk_rows, n).
 _DENSE_BUILD_MAX_N = 20_000
 _BUILD_CHUNK_ROWS = 4096
-# the kernel keeps a row's objectives in registers (csrc/dominance.cu)
+# objectives the kernel takes (csrc/dominance.cu)
 MAX_OBJECTIVES = 32
+# csrc/dominance.cu's block: 128 threads on a super-tile of 8 x 8 words (4
+# x 4 for the generic instance, whose rows of up to 32 objectives then take
+# 32 KB of shared memory)
+THREADS = 128
+EXACT_TILE_WORDS = 8
+GENERIC_TILE_WORDS = 4
+# blocks an SM the __launch_bounds__ of the exact and the generic instances
+# guarantee
+EXACT_MIN_BLOCKS_PER_SM = 6
+GENERIC_MIN_BLOCKS_PER_SM = 8
+# an H100 SM's shared memory for blocks, and what the runtime keeps a block
+SM_SMEM_BYTES = 233_472
+BLOCK_SMEM_RESERVED = 1024
 # the weight of bit k of an int32 word
 _BIT_WEIGHTS = torch.tensor([1 << k for k in range(31)] + [-(2**31)], dtype=torch.int32)
 
@@ -111,11 +127,51 @@ def packed_dominance_reference(
     return packed, column_popcount(packed)
 
 
+def launch_plan(n: int, m: int) -> dict:
+    """The kernel's launch for ``(n, m)`` fitness.
+
+    ``instance``: ``m`` for the exact instances (m = 1..4), 0 for the
+    generic one, each with its ``tile_words``. Block ``(bx, by)`` takes the
+    super-tile of the rows of words ``[by * tile_words, (by + 1) *
+    tile_words)`` against the columns
+    of words ``[bx * tile_words, ...)`` (both cut at ``n_words``) and, from
+    the same compares, its transpose; blocks with ``by > bx`` exit at once,
+    and a block with ``by == bx`` takes the tiles ``w <= v``. A row takes
+    ``stride`` floats of shared memory.
+    """
+    if not 1 <= m <= MAX_OBJECTIVES or n < 1:
+        raise ValueError(f"packed_dominance plans n >= 1 and 1 <= m <= {MAX_OBJECTIVES}, got {n}, {m}")
+    instance = m if m <= 4 else 0
+    stride = {1: 1, 2: 2, 3: 4, 4: 4}.get(m, m)
+    tile_words = EXACT_TILE_WORDS if instance else GENERIC_TILE_WORDS
+    n_words = -(-n // 32)
+    grid = -(-n_words // tile_words)
+    smem = 4 * 2 * 32 * tile_words * (stride + 1)  # two row ranges, two column counters
+    return {"instance": instance, "threads": THREADS, "tile_words": tile_words,
+            "grid": (grid, grid), "working_blocks": grid * (grid + 1) // 2,
+            "n_words": n_words, "stride": stride, "smem_bytes": smem,
+            # the blocks an SM the __launch_bounds__ guarantee, as far as
+            # the SM's shared memory allows
+            "blocks_per_sm": min(EXACT_MIN_BLOCKS_PER_SM if instance else GENERIC_MIN_BLOCKS_PER_SM,
+                                 SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED))}
+
+
 def _check_fitness(fitness: torch.Tensor) -> None:
     if fitness.ndim != 2 or fitness.dtype != torch.float32:
         raise ValueError(
             f"fitness must be float32 (n, m), got {fitness.dtype} {tuple(fitness.shape)}"
         )
+
+
+def kernel_occupancy(plan: dict, m: int) -> dict:
+    """The runtime's blocks an SM and registers a thread of the kernel
+    instance of a ``launch_plan`` for ``m`` objectives; builds the kernel."""
+    fn = _build.function("dominance", "evox_dominance_occupancy", [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+    blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(plan["instance"], m, ctypes.byref(blocks), ctypes.byref(regs))
+    _build.check_launch("dominance", err, "occupancy query")
+    return {"blocks_per_sm": blocks.value, "registers": regs.value}
 
 
 def _launch(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,10 +192,14 @@ def _launch(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         ctypes.c_void_p,  # packed (ceil(n/32), n) int32
         ctypes.c_void_p,  # count (n,) int32
         ctypes.c_void_p,  # cudaStream_t
+        ctypes.c_int,  # instance
+        ctypes.c_int,  # grid (grid x grid blocks)
     ])
+    plan = launch_plan(n, m)
     with torch.cuda.device(fit.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(fit.data_ptr(), n, m, packed.data_ptr(), count.data_ptr(), stream)
+        err = fn(fit.data_ptr(), n, m, packed.data_ptr(), count.data_ptr(), stream,
+                 plan["instance"], plan["grid"][0])
     _build.check_launch("dominance", err, "packed_dominance")
     packed_dominance.launches += 1
     return packed, count
@@ -158,8 +218,8 @@ def packed_dominance(
 
     The JAX function's ``use_pallas``, ``interpret``, ``tile_i`` and
     ``tile_j`` chose between its kernel and XLA and sized the TPU tiles; here
-    the device of the tensor chooses, and the CUDA kernel's tiles are fixed,
-    so none of them has a counterpart.
+    the device of the tensor chooses, and the CUDA kernel's grid comes from
+    :func:`launch_plan`, so none of them has a counterpart.
 
     ``packed_dominance.launches`` counts kernel launches.
 

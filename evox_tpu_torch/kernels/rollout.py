@@ -5,10 +5,10 @@ total episode reward of every env for a flat-genome tanh MLP
 (``flat_mlp_policy`` layout) over environments in SoA form: a dict of
 ``(envs,)`` component planes. On a CUDA tensor it launches the hand-written
 kernel of ``csrc/rollout.cu`` (one thread per env, the genome and the env
-state in registers for all T steps; that file's header says what bounds
-it). On a CPU tensor it runs ``fused_rollout_plain``, the same arithmetic
-as full-width PyTorch ops. There is no other route: a CUDA tensor goes to
-the kernel or raises.
+state in registers for all T steps, on the grid of :func:`launch_plan`;
+that file's header says what bounds it). On a CPU tensor it runs
+``fused_rollout_plain``, the same arithmetic as full-width PyTorch ops.
+There is no other route: a CUDA tensor goes to the kernel or raises.
 
 The JAX kernel traces any ``step_soa`` callable; the CUDA kernel knows only
 the envs compiled into it (``SoAEnv.cuda_env``): pendulum 3-16-1 and
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -220,6 +221,60 @@ _CUDA_ENVS = {
     "pendulum": (0, ("th", "thdot"), (3, 16, 1)),
     "cartpole": (1, ("x", "xd", "th", "thd"), (4, 16, 2)),
 }
+# csrc/rollout.cu's block, and the blocks an SM each env's instance is
+# built for (its __launch_bounds__: the registers its genome takes)
+THREADS = 128
+BLOCKS_PER_SM = {"pendulum": 4, "cartpole": 3}
+# libdevice functions that csrc/rollout.cu reaches in another form than
+# the plain version's PyTorch ops (name -> id of its check there): sincosf
+# in place of sinf and cosf of one angle, and tanhf without its clamp
+REPLACED_LIBDEVICE = {"sincosf": 0, "tanhf": 1}
+
+
+def launch_plan(env_name: str, n: int, episodes: int, sms: int = 132) -> dict:
+    """The kernel's launch for ``n`` genomes and ``episodes`` episodes: one
+    thread per env, ``(ceil(n / THREADS), episodes)`` blocks, and the waves
+    that grid takes at the env's instance's blocks an SM."""
+    if env_name not in _CUDA_ENVS:
+        raise ValueError(f"no CUDA counterpart for {env_name!r}; built in: {sorted(_CUDA_ENVS)}")
+    grid = (-(-n // THREADS), episodes)
+    per_sm = BLOCKS_PER_SM[env_name]
+    return {"threads": THREADS, "grid": grid, "blocks_per_sm": per_sm,
+            "waves": grid[0] * grid[1] / (per_sm * sms)}
+
+
+def kernel_occupancy(env_name: str) -> dict:
+    """The runtime's blocks an SM and registers a thread of an env's kernel
+    instance; builds the kernel."""
+    fn = _build.function("rollout", "evox_rollout_occupancy", [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+    blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check_launch("rollout", fn(_CUDA_ENVS[env_name][0], ctypes.byref(blocks),
+                                      ctypes.byref(regs)), "occupancy query")
+    return {"blocks_per_sm": blocks.value, "registers": regs.value}
+
+
+def check_replaced_libdevice(name: str) -> dict:
+    """Hold a libdevice function that the kernel calls in another form
+    (``REPLACED_LIBDEVICE``) against its original on the card, over all
+    2^32 float32 bit patterns: the inputs whose results differ in any bit,
+    the smallest such bit pattern, and the check's ms."""
+    fn = _build.function("rollout", "evox_rollout_libdevice_check", [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    result = torch.tensor([0, -1], dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _build.check_launch("rollout", fn(REPLACED_LIBDEVICE[name], result.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream),
+                        f"{name} check")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    mismatches, first = result.tolist()
+    return {"inputs": 2**32, "mismatches": mismatches,
+            "first_mismatch_bits": None if mismatches == 0 else f"0x{first & 0xFFFFFFFF:08x}",
+            "ms": ms}
+
+
 def _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n):
     spec = _CUDA_ENVS.get(env.cuda_env)
     if spec is None:
@@ -292,9 +347,9 @@ def fused_rollout(
 
     The JAX kernel's ``tile`` and ``interpret`` arguments are TPU knobs: a
     tile sized the VMEM block and its (8, 128) padding, and interpret mode
-    ran Pallas on the CPU. The CUDA kernel has one thread per env and masks
-    the ragged edge, and the CPU route is the plain version, so neither has
-    a counterpart.
+    ran Pallas on the CPU. The CUDA kernel's launch comes from
+    :func:`launch_plan` and masks the ragged edge, and the CPU route is the
+    plain version, so neither has a counterpart.
 
     ``fused_rollout.launches`` counts kernel launches.
 

@@ -130,3 +130,56 @@ def test_packed_dominance_checks_its_input():
         tdom.packed_dominance(torch.zeros(4, 2, dtype=torch.float64), device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tdom.packed_dominance(torch.zeros(4), device="cpu")
+
+
+@pytest.mark.parametrize("m", list(range(1, tdom.MAX_OBJECTIVES + 1)))
+def test_launch_plan_instance_and_shared_memory(m):
+    """The exact instance for m = 1..4 (super-tiles of 8 words a side) and
+    the generic one above (4); a block's two row ranges fit in 32 KB of
+    shared memory (48 KB with the counters, the most a launch takes without
+    opting in); the main path's n = 20000 makes 79 x 79 super-tiles, half
+    of them working."""
+    plan = tdom.launch_plan(20000, m)
+    assert plan["instance"] == (m if m <= 4 else 0)
+    assert plan["tile_words"] == (8 if m <= 4 else 4)
+    assert 4 * 2 * 32 * plan["tile_words"] * plan["stride"] <= 32 * 1024
+    assert plan["smem_bytes"] <= 48 * 1024
+    g = plan["grid"][0]
+    assert plan["grid"] == (g, g) and (g - 1) * plan["tile_words"] < plan["n_words"] <= g * plan["tile_words"]
+    if m <= 4:
+        assert plan["grid"] == (79, 79) and plan["working_blocks"] == 3160
+
+
+def _plan_coverage(plan):
+    """``(n_words, n_words)``: how many (block, tile pair) of the plan write
+    word row w of the columns of word v, with the kernel's own index
+    arithmetic (``csrc/dominance.cu``: block ``(bx, by)`` works when
+    ``by <= bx``; its tile pair ``(wi, vi)`` is ``w = by * tile_words + wi``
+    against ``v = bx * tile_words + vi`` when both are words and ``w <= v``,
+    and writes word rows w (columns of v) and, when ``w != v``, v (columns
+    of w))."""
+    g, s, nw = plan["grid"][0], plan["tile_words"], plan["n_words"]
+    by, bx, wi, vi = (a.reshape(-1) for a in torch.meshgrid(
+        torch.arange(g), torch.arange(g), torch.arange(s), torch.arange(s), indexing="ij"))
+    w, v = by * s + wi, bx * s + vi
+    work = (by <= bx) & (w < nw) & (v < nw) & (w <= v)
+    w, v = w[work], v[work]
+    off = w != v
+    cells = torch.cat([w * nw + v, v[off] * nw + w[off]])
+    return torch.bincount(cells, minlength=nw * nw).view(nw, nw)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 20001])
+@pytest.mark.parametrize("m", [2, 3, 5, 32])
+def test_launch_plan_covers_every_word_once(n, m):
+    """Every (word row, word of columns) of the matrix, so every (word,
+    column), is written by exactly one (block, tile pair) of the plan."""
+    plan = tdom.launch_plan(n, m)
+    assert plan["n_words"] == (n + 31) // 32
+    assert bool((_plan_coverage(plan) == 1).all())
+
+
+def test_launch_plan_refuses_what_the_kernel_does_not_take():
+    for n, m in ((0, 3), (10, 0), (10, tdom.MAX_OBJECTIVES + 1)):
+        with pytest.raises(ValueError, match="plans"):
+            tdom.launch_plan(n, m)

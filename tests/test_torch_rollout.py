@@ -277,3 +277,36 @@ def test_fused_rollout_refuses_bad_inputs():
         tkr.fused_rollout(_t(theta), s0, 3, episodes=2, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tkr.fused_rollout(_t(theta).double(), s0, 3, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "env_name,n,episodes,grid,waves",
+    [("pendulum", 65536, 2, (512, 2), 1024 / 528), ("pendulum", 1500, 3, (12, 3), 36 / 528),
+     ("cartpole", 8192, 2, (64, 2), 128 / 396)],
+)
+def test_rollout_launch_plan(env_name, n, episodes, grid, waves):
+    """One thread per env, (ceil(n / 128), episodes) blocks; the pendulum
+    instance is built for four blocks an SM, cartpole's for three (its
+    genome takes more registers)."""
+    plan = tkr.launch_plan(env_name, n, episodes)
+    assert plan["threads"] == 128 and plan["grid"] == grid
+    assert plan["waves"] == pytest.approx(waves)
+
+
+@pytest.mark.parametrize("n,episodes", [(1, 1), (129, 2), (40000, 3), (700, 5)])
+def test_rollout_launch_plan_covers_every_env_once(n, episodes):
+    """Thread t of block (bx, by) runs genome bx * 128 + t in episode by
+    (csrc/rollout.cu): every (genome, episode) once."""
+    plan = tkr.launch_plan("pendulum", n, episodes)
+    gx, gy = plan["grid"]
+    genome = (torch.arange(gx)[:, None] * plan["threads"] + torch.arange(plan["threads"])).reshape(-1)
+    g, e = torch.meshgrid(genome, torch.arange(gy), indexing="ij")
+    keep = g < n
+    env = (e[keep] * n + g[keep]).sort().values
+    assert torch.equal(env, torch.arange(n * episodes))
+
+
+def test_rollout_launch_plan_refuses_an_env_without_a_kernel():
+    with pytest.raises(ValueError, match="no CUDA counterpart"):
+        tkr.launch_plan("acrobot", 10, 1)
+    assert set(tkr.REPLACED_LIBDEVICE) == {"sincosf", "tanhf"}

@@ -270,7 +270,8 @@ def _imported_roots(path):
 def test_port_and_chip_smoke_sources_name_no_jax_import():
     files = sorted((REPO / "evox_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "torch_fmad_ab.py",
-        REPO / "tools" / "torch_walker_ab.py",
+        REPO / "tools" / "torch_walker_ab.py", REPO / "tools" / "torch_kernel_ab.py",
+        REPO / "tools" / "torch_kernel_split.py", REPO / "tools" / "torch_tanh_branches.py",
     ]
     assert len(files) > 10
     for path in files:
