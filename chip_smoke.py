@@ -23,22 +23,28 @@ exit 0):
    fitness (n 20000, m 3) and on stress inputs (m 2, 3, 4, 5, 8, 16, 32
    against n 1, 31, 32, 33, 1000, 20001, with ties, duplicates, ±inf, NaN
    and ±0.0); ``partial_topk`` against
-   ``partial_topk_reference`` on that path's cut key (n 20000, k 10000) and
-   on stress inputs; ``fused_mlp_rollout`` against
-   ``fused_mlp_rollout_plain`` on the third main path's first-generation
-   inputs (pop 65536, MLP 244-64-64-17, T 100) and on stress inputs (large
+   ``partial_topk_reference`` on that path's cut key (n 20000, k 10000), at
+   every shape of the top-k sweep (n 1000 to 2**24 + 1, k 1, 100, n/10,
+   n/2, n; the value laws of ``topk_values``; one k at 2**24 + 1), on
+   all-equal inputs, at n 1 to 100 and on both sides of each route's
+   limit;
+   ``fused_mlp_rollout`` against ``fused_mlp_rollout_plain`` on the third
+   main path's first-generation inputs (pop 65536, MLP 244-64-64-17, T
+   100) and on stress inputs (large
    weights, envs pushed to fall, explode, start done or run out of time; a
    ragged n of 1500 with 2 episodes; a low-rank ``linear=(0,)`` policy;
    the 7-mass walker; widths whose dot products split raggedly; a policy
    whose block is one warp). All bit
    for bit, NaN returns by bit pattern, and a non-finite return only where
    the env exploded. Times each kernel and its plain version with CUDA
-   events, and ``torch.topk`` beside ``partial_topk``. Records the block
+   events, and ``torch.topk`` beside ``partial_topk`` (also at n 1e6, k
+   n/2, with an empty launch's time as the floor). Records the block
    shape of the rollout, dominance and walker kernels (instance, threads,
    blocks an SM, planned and as the runtime reports it) and ptxas's
    registers and spills of each of their instances, and fails if any
-   rollout or dominance instance, or the walker's main one, spills, or if
-   the main paths' instances fit fewer blocks an SM than their plans.
+   rollout, dominance or topk instance, or the walker's main one, spills,
+   or if the main paths' instances fit fewer blocks an SM than their
+   plans.
 3. main path 1: ``StdWorkflow(OpenES(zeros(81), 65536),
    PolicyRolloutProblem(flat_mlp_policy 3-16-1, pendulum(200), 2 episodes,
    fused_env=pendulum_soa(200)), opt_direction="max")`` — init, one
@@ -52,7 +58,9 @@ exit 0):
    above. Checks one ``packed_dominance`` and one ``partial_topk`` launch
    per generation, finite fitness, a population within bounds; one
    ``tell`` on the card against the same ``tell`` on the CPU's plain
-   routes (survivors and ranks equal); the lexsort truncation against the
+   routes (survivors and ranks equal); ``partial_topk`` on that late
+   generation's cut key against its plain version; the lexsort truncation
+   against the
    partial-top-k one (same survivor set). Reports ms per generation, the
    fronts peeled per generation and a per-stage breakdown of a generation.
 5. main path 3: ``StdWorkflow(OpenES(zeros(20945), 65536),
@@ -102,6 +110,13 @@ WALKER_SIZES = (244, 64, 64, 17)
 WALKER_T = 100
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
+# partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
+# value laws (topk_values); at 2**24 + 1, just above the JAX kernel's
+# envelope, the plain version checks k = n/2 only
+TOPK_NS = (1000, 20000, 100003, 1000000, 16777217)
+TOPK_LAWS = ("distinct", "rounded", "cut")
+TOPK_SPECIAL_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFF00000, 0x7F800000,
+                     0xFF800000, 0x00000000, 0x80000000)
 # packed_dominance's stress cases: every objective count against every n
 DOMINANCE_STRESS_M = (2, 3, 4, 5, 8, 16, 32)
 DOMINANCE_STRESS_N = (1, 31, 32, 33, 1000, 20001)
@@ -560,19 +575,80 @@ def stress_fitness(torch, n: int, m: int, seed: int, dev):
     return fit.to(dev)
 
 
-def stress_values(torch, n: int, seed: int, dev):
-    """Duplicate-heavy values with ±0.0, ±inf and NaNs of both signs and
-    several payloads."""
+def topk_ks(n: int) -> list:
+    return sorted({1, 100, n // 10, n // 2, n} - {0})
+
+
+def topk_values(torch, law: str, n: int, seed: int, inf_share: float, n_ninf: int):
+    """(n,) float32 values on the CPU, made from ``seed``, by value law:
+    ``distinct`` (a permutation of the integers, shifted to hold both signs;
+    exact in float32 up to 2**24 + 1), ``rounded`` (normals rounded to
+    quarters, heavy ties, with NaNs of both signs and payloads, ±inf and
+    ±0.0), ``cut`` (NSGA-II's cut key: -crowding on a front of n * (1 -
+    inf_share) rows, n_ninf of them -inf, +inf elsewhere)."""
     import numpy as np
 
     g = torch.Generator().manual_seed(seed)
-    v = torch.round(torch.randn(n, generator=g) * 4) / 4  # few levels: heavy ties
-    bits = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFF00000, 0x7F800000,
-                     0xFF800000, 0x00000000, 0x80000000], dtype=np.uint32)
-    special = torch.from_numpy(bits.view(np.int32).copy()).view(torch.float32)
-    hit = torch.randint(0, n, (min(n, 64),), generator=g)
-    v[hit] = special.repeat(len(hit) // len(special) + 1)[: len(hit)]
-    return v.to(dev)
+    if law == "distinct":
+        return torch.randperm(n, generator=g).to(torch.float32) - float(n // 2)
+    if law == "rounded":
+        v = torch.round(torch.randn(n, generator=g) * 4) / 4
+        special = torch.from_numpy(np.array(TOPK_SPECIAL_BITS, np.uint32).view(np.int32).copy())
+        hit = torch.randint(0, n, (min(n, max(64, n // 1000)),), generator=g)
+        v[hit] = special.view(torch.float32).repeat(len(hit) // len(TOPK_SPECIAL_BITS) + 1)[: len(hit)]
+        return v
+    if law == "cut":
+        front = max(1, min(n, round(n * (1.0 - inf_share))))
+        v = torch.full((n,), float("inf"))
+        rows = torch.randperm(n, generator=g)[:front]
+        crowd = torch.rand(front, generator=g) * 2.0
+        crowd[: min(n_ninf, front)] = float("inf")  # the front's boundary rows
+        v[rows] = -crowd
+        return v
+    raise ValueError(law)
+
+
+def topk_stress(torch, kt, dev, seed: int, inf_share: float, n_ninf: int) -> dict:
+    """partial_topk against partial_topk_reference, bit for bit: every shape
+    and value law of the sweep (one k at 2**24 + 1), all-equal inputs, n of
+    a warp or less, and n and k on both sides of each route's limit."""
+    results = {}
+
+    def check(label, v, k):
+        results[f"partial_topk_{label}"] = compare_exact(
+            f"partial_topk, {label}", kt.partial_topk(v, k, device=dev),
+            kt.partial_topk_reference(v, k))
+
+    for n in TOPK_NS:
+        for law in TOPK_LAWS:
+            v = topk_values(torch, law, n, seed + n, inf_share, n_ninf).to(dev)
+            for k in topk_ks(n) if n < 2**24 else [n // 2]:
+                check(f"sweep {law} n={n} k={k} ({kt.launch_plan(n, k)['route']})", v, k)
+            del v
+    # all-equal inputs: +inf, one NaN payload, -0.0, on both routes
+    for name, bits in (("+inf", 0x7F800000), ("nan 0xffc00123", 0xFFC00123), ("-0.0", 0x80000000)):
+        for n in (20000, 100003):
+            v = torch.full((n,), bits - 2**32 if bits >= 2**31 else bits, dtype=torch.int32,
+                           device=dev).view(torch.float32)
+            for k in (1, n // 2, n):
+                check(f"all equal {name} n={n} k={k}", v, k)
+    # small populations: a warp or less, a ragged warp
+    for n in (1, 2, 31, 33, 100):
+        for law in ("distinct", "rounded"):
+            v = topk_values(torch, law, n, seed + n, inf_share, n_ninf).to(dev)
+            for k in sorted({1, max(1, n // 2), n}):
+                check(f"small n {law} n={n} k={k}", v, k)
+    # each route's limit, from both sides (launch_plan's rules)
+    w = kt.SMALL_WORDS
+    for n, k in ((w - 2, 1), (w - 1, 1), (w // 4, w // 4), (w // 4 + 1, w // 4 + 1),
+                 (w // 2, w // 4), (w // 2 + 1, w // 4), (100003, w // 4), (100003, w // 4 + 1),
+                 (kt.SMALL_N, kt.SMALL_N // 2), (kt.SMALL_N + 1, kt.SMALL_N // 2)):
+        for law in ("distinct", "rounded"):
+            v = topk_values(torch, law, n, seed + n + k, inf_share, n_ninf).to(dev)
+            plan = kt.launch_plan(n, k)
+            check(f"limit {law} n={n} k={k} ({plan['route']}, {plan['sort']}, "
+                  f"scratch {plan['scratch_words']})", v, k)
+    return results
 
 
 def dominance_block_shape(kd, n: int, m: int) -> dict:
@@ -673,13 +749,33 @@ def phase_nsga2_kernels(torch, wf, seed: int) -> dict:
     stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
     stats["bytes"], stats["ops"] = nbytes, ops
     stats["cut_front"] = int((rank == cut).sum())
+    plan = kt.launch_plan(n, k)
+    stats["block"] = {key: plan[key] for key in ("route", "sort", "threads", "launches", "smem_bytes",
+                                                 "scratch_words")}
+    from evox_tpu_torch.kernels import _build
+
+    # ptxas's registers and spills of every topk kernel; none may spill
+    ptxas = {}
+    for name, rep in ptxas_functions(_build.build_log("topk") or "").items():
+        found = re.search(r"\d+((?:small|block_sort|select|compact_count|compact_scatter|sort_count|"
+                          r"sort_scan|sort_scatter|emit|empty)_kernel|block_sort_pass)(?:ILi(\d+)E)?",
+                          name)
+        ptxas[f"{found.group(1)}<{found.group(2)}>" if found and found.group(2) else
+              found.group(1) if found else name] = rep
+    for key in ptxas:
+        check_no_spill(ptxas, f"topk {key}", key)
+    stats["block"]["ptxas"] = ptxas
+    # the card's floor under any call that launches: one empty kernel
+    stats["empty_launch_ms"] = _time_ms(lambda: kt.empty_launch(100, dev), 2, 5) / 100
+    # and at n 1e6, k n/2 (distinct values), beside the library call
+    inf_share = 1.0 - stats["cut_front"] / n
+    n_ninf = int((cut_key == float("-inf")).sum())
+    big = topk_values(torch, "distinct", 10**6, seed, inf_share, n_ninf).to(dev)
+    stats["ms_1e6"] = _time_ms(lambda: kt.partial_topk(big, 10**6 // 2, device=dev), 2, 10)
+    stats["library_ms_1e6"] = _time_ms(lambda: torch.topk(big, 10**6 // 2, largest=False), 2, 10)
+    del big
     results["partial_topk"] = stats
-    for sn in (100003, 20000, 1000):
-        v = stress_values(torch, sn, seed + sn, dev)
-        for sk in sorted({1, 100, sn // 2, sn}):
-            results[f"partial_topk_stress_{sn}_{sk}"] = compare_exact(
-                f"partial_topk, stress n={sn} k={sk}",
-                kt.partial_topk(v, sk, device=dev), kt.partial_topk_reference(v, sk))
+    results.update(topk_stress(torch, kt, dev, seed, inf_share, n_ninf))
     return results
 
 
@@ -725,7 +821,9 @@ def nsga2_breakdown(torch, wf, state, reps: int = 5) -> dict:
 
 def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
     from evox_tpu_torch.algorithms.mo import NSGA2
-    from evox_tpu_torch.operators.selection import rank_crowding_truncate
+    from evox_tpu_torch.kernels import topk as kt
+    from evox_tpu_torch.operators.selection import (crowding_distance, non_dominated_sort,
+                                                    rank_crowding_truncate)
 
     algo = wf.algorithm
     state = wf.step(wf.init(seed))  # init step: evaluate the parents, sort them
@@ -779,8 +877,19 @@ def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
                                   crowd_card[finite], crowd_cpu[finite], rtol=1e-6, atol=0.0)
     tell_stats["cpu_tell_s"] = cpu_tell_s
 
-    # the lexsort truncation against the partial-top-k one, same input
+    # partial_topk on this late generation's cut key (the first
+    # generation's is checked in phase_nsga2_kernels)
     merged = torch.cat([astate.fitness, fit])
+    rank, cut = non_dominated_sort(merged, until=algo.pop_size, return_cut_rank=True)
+    crowd = crowding_distance(merged, mask=rank == cut)
+    cut_key = torch.where(rank == cut, -crowd, float("inf"))
+    late_topk = compare_exact(
+        f"partial_topk, cut key after {state.generation} generations n={merged.shape[0]} "
+        f"k={algo.pop_size}", kt.partial_topk(cut_key, algo.pop_size, device=cut_key.device),
+        kt.partial_topk_reference(cut_key, algo.pop_size))
+    late_topk["cut_front"] = int((rank == cut).sum())
+
+    # the lexsort truncation against the partial-top-k one, same input
     o_lex, r_lex = rank_crowding_truncate(merged, algo.pop_size, use_kernel=False)
     o_top, r_top = rank_crowding_truncate(merged, algo.pop_size, use_kernel=True)
     lex = dict(zip(o_lex.tolist(), r_lex.tolist()))
@@ -799,6 +908,7 @@ def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
         "generations_per_s": gens / wall,
         "fronts_peeled": fronts,
         "tell_vs_cpu": tell_stats,
+        "late_cut_key_topk": late_topk,
         "breakdown_ms": nsga2_breakdown(torch, wf, state),
     }
     if profile:
@@ -1162,6 +1272,7 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
             # single PyTorch call computes it
             "library_ms": k.get("library_ms"),
             **({"block": k["block"]} if "block" in k else {}),
+            **{key: k[key] for key in ("empty_launch_ms", "ms_1e6", "library_ms_1e6") if key in k},
         })
     w = kernels["walker"]
     entries.append({

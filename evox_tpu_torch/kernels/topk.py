@@ -1,4 +1,4 @@
-"""Exact partial top-k (the ``k`` smallest): one CUDA kernel on the card.
+"""Exact partial top-k (the ``k`` smallest): hand-written CUDA kernels on the card.
 
 The port of ``evox_tpu/kernels/topk.py``. ``partial_topk(values, k)`` returns
 the ``k`` smallest entries of a float32 vector and their int32 indices,
@@ -9,23 +9,33 @@ ascending, element for element as the JAX package's
 ranks ``-0.0`` before ``+0.0``, NaNs with the sign bit set before ``-inf``
 and NaNs without it after ``+inf``, NaNs among themselves by payload, and
 equal bits by lowest index: IEEE totalOrder. ``torch.sort`` and
-``jnp.argsort`` instead treat ``-0.0 == +0.0``. So both routes rank by
-:func:`total_order_key`, an int32 whose signed order is that total order,
-joined with the index into a unique 64-bit key.
+``jnp.argsort`` instead treat ``-0.0 == +0.0``. So the plain version ranks
+by :func:`total_order_key`, an int32 whose signed order is that total
+order, joined with the index into a unique 64-bit key, and the kernels by
+the same order on unsigned keys.
 
-On a CUDA tensor ``partial_topk`` launches the hand-written kernel of
-``csrc/topk.cu`` (global comparison counting; that file's header says what
-bounds it). On a CPU tensor it runs ``partial_topk_reference``: the same
-key, one ``torch.sort`` and a slice. The JAX kernel's envelope (``k <=
-block_size``, ``n < 2**24``, else a silent fallback to XLA) does not exist
-here: the kernel computes the whole contract for every ``1 <= k <= n``. A
-CUDA tensor goes to the kernel or raises.
+On a CUDA tensor ``partial_topk`` launches the hand-written kernels of
+``csrc/topk.cu``: a radix select of the threshold key over 11-, 11- and
+10-bit digits, a stable compaction of the ``k`` kept keys in index order,
+and a stable LSD radix sort of those below the threshold on the key alone,
+so equal keys keep index order (that file's header has the design and
+what bounds it). :func:`launch_plan` chooses the route: ``small`` (one
+block, one launch, everything in shared memory) or ``large`` (grid-wide
+select and compaction, then a one-block sort of the kept keys when they
+are few, else a grid-wide one). On a CPU tensor it runs
+``partial_topk_reference``: the same key, one ``torch.sort`` and a slice.
+The JAX kernel's envelope (``k <= block_size``, ``n < 2**24``, else a
+silent fallback to XLA) does not exist here: the kernel computes the
+whole contract for every ``1 <= k <= n < 2**31``. A CUDA tensor goes to the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from types import MappingProxyType
+from typing import Mapping, Tuple
 
 import torch
 
@@ -34,6 +44,8 @@ from . import _build
 
 __all__ = [
     "default_use_kernel",
+    "empty_launch",
+    "launch_plan",
     "partial_topk",
     "partial_topk_reference",
     "total_order_key",
@@ -81,26 +93,117 @@ def partial_topk_reference(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, 
     return values[order], order.to(torch.int32)
 
 
+# csrc/topk.cu's constants
+SMALL_WORDS = 49152  # 192 KB of keys and survivor pairs in one block's shared memory
+SMALL_N = 4096  # the small route's block is 256 threads up to here, else 1024
+CONTROL_WORDS = 64 + 3 * 2048 + 4 * 256  # control header, select and sort histograms
+COMPACT_TILE = 4096
+SORT_TILE = 4096
+SELECT_DIGITS = ((21, 11), (10, 11), (0, 10))  # (shift, bits) of the select passes
+BLOCK_SORT_BITS = 4  # the one-block sort's digit
+GRID_SORT_BITS = 8  # route 2's digit
+
+
+def _align4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, k: int, small_words: int = SMALL_WORDS) -> Mapping:
+    """The kernel's route for ``(n, k)``.
+
+    ``small`` (code 0): one launch, no scratch, when one block's shared
+    memory holds the keys (``n`` words, while ``k < n``) beside the kept
+    keys and indices (``2k`` words), and then two buffers of them:
+    ``max(n + 2k [k < n], 4k) <= small_words``. The block has 256 threads
+    up to ``n = SMALL_N``, else 1024. Else ``large``: a memset of the
+    control header, the three select passes (none when ``k == n``), the
+    compaction's count and scatter, and the sort: in one block of 1024
+    threads (code 1, ``sort: "block"``) when ``4k <= small_words``, else
+    over tiles of :data:`SORT_TILE` (code 2, ``sort: "grid"``: four passes
+    of count, scan and scatter, then the kernel that writes the kept keys
+    that need no sorting). ``small_words`` exists so that a model of the
+    algorithm can shrink the limit; the kernel's is :data:`SMALL_WORDS`.
+    The plan is cached and read-only.
+    """
+    if not 1 <= k <= n:
+        raise ValueError(f"launch_plan takes 1 <= k <= n, got n={n}, k={k}")
+    region = _align4(max(n + 2 * k if k < n else 0, 4 * k))
+    if region <= small_words:
+        threads = 256 if n <= SMALL_N else 1024
+        counters = max(8 * threads, 2048)  # the sort's 16-bit counters, the select's bins
+        return MappingProxyType({"route": "small", "code": 0, "sort": "block", "threads": threads,
+                                 "launches": 1, "smem_bytes": 4 * (region + counters),
+                                 "scratch_words": 0})
+    compact_tiles = -(-n // COMPACT_TILE)
+    scratch = CONTROL_WORDS + 2 * compact_tiles + 2 * k
+    launches = 1 + (3 if k < n else 0) + 2
+    if 4 * k <= small_words:
+        code, sort, launches = 1, "block", launches + 1
+        smem = 4 * (4 * _align4(k) + 8 * 1024)
+    else:
+        code, sort, launches = 2, "grid", launches + 4 * 3 + 1
+        scratch += 2 * k + 256 * -(-k // SORT_TILE)
+        smem = 0
+    return MappingProxyType({"route": "large", "code": code, "sort": sort, "threads": 1024,
+                             "launches": launches, "smem_bytes": smem, "scratch_words": scratch,
+                             "compact_tiles": compact_tiles})
+
+
+_kernels: dict = {}
+
+
+def _function(small: bool) -> ctypes._CFuncPtr:
+    fn = _kernels.get(small)
+    if fn is None:
+        if small:  # values, n, k, out values, out indices, stream
+            fn = _build.function("topk", "evox_partial_topk_small", [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p])
+        else:  # values, n, k, route, scratch, its words, out values, out indices, stream
+            fn = _build.function("topk", "evox_partial_topk", [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+        _kernels[small] = fn
+    return fn
+
+
 def _launch(values: torch.Tensor, k: int, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    v = values.contiguous()
-    rank = torch.empty((n,), dtype=torch.int32, device=v.device)  # kernel scratch
-    out_v = torch.empty((k,), dtype=torch.float32, device=v.device)
-    out_i = torch.empty((k,), dtype=torch.int32, device=v.device)
-    fn = _build.function("topk", "evox_partial_topk", [
-        ctypes.c_void_p,  # values (n,) float32
-        ctypes.c_int,  # n
-        ctypes.c_int,  # k
-        ctypes.c_void_p,  # rank scratch (n,) int32
-        ctypes.c_void_p,  # out values (k,) float32
-        ctypes.c_void_p,  # out indices (k,) int32
-        ctypes.c_void_p,  # cudaStream_t
-    ])
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(v.data_ptr(), n, k, rank.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
-    _build.check_launch("topk", err, "partial_topk")
+    v = values if values.is_contiguous() else values.contiguous()
+    dev = v.device
+    index = torch.cuda.current_device()
+    if dev.index is not None and dev.index != index:
+        with torch.cuda.device(dev):
+            return _launch(v, k, n)
+    plan = launch_plan(n, k)
+    out_v = v.new_empty((k,))
+    out_i = v.new_empty((k,), dtype=torch.int32)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if plan["code"] == 0:
+        err = _function(True)(v.data_ptr(), n, k, out_v.data_ptr(), out_i.data_ptr(), stream)
+    else:
+        # kernel scratch, held until the launches are queued (stream order
+        # keeps it for them after that)
+        words = plan["scratch_words"]
+        scratch = v.new_empty((words,), dtype=torch.int32)
+        err = _function(False)(v.data_ptr(), n, k, plan["code"], scratch.data_ptr(), words,
+                               out_v.data_ptr(), out_i.data_ptr(), stream)
+    if err:
+        _build.check_launch("topk", err, "partial_topk")
     partial_topk.launches += 1
     return out_v, out_i
+
+
+def empty_launch(count: int, device: DeviceLike = None) -> None:
+    """Launch an empty kernel ``count`` times, back to back from C, on
+    ``device``'s current stream: CUDA events around it, over ``count``, give
+    the card's floor under any call that launches (``chip_smoke.py`` records
+    it beside ``partial_topk``). Counts no launch of ``partial_topk``."""
+    dev = resolve_device(device)
+    with torch.cuda.device(dev):
+        fn = _build.function("topk", "evox_topk_empty_launch", [ctypes.c_int, ctypes.c_void_p])
+        err = fn(count, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("topk", err, "empty")
 
 
 def partial_topk(
@@ -125,6 +228,9 @@ def partial_topk(
         ``(values (k,) float32, indices (k,) int32)``, ascending in the
         total order of :func:`total_order_key`, ties by lowest index.
     """
+    # the hot path's call (no device, or the tensor's own), checked cheaply
+    if values.is_cuda and (device is None or device is values.device or device == values.device):
+        return _launch(values, k, _check_args(values, k))
     dev = resolve_device(device)
     n = _check_args(values, k)
     check_device(values, dev, "values")
