@@ -73,8 +73,29 @@ exit 0):
    or non-finite only where the env exploded, a center that moved, and the
    fused engine against the scan engine on 512 genomes near the center at
    T 25. Reports ms per generation, evals/s and the mean episode length.
-6. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+6. main path 4: ``StdWorkflow(CSO(lb=-32·1, ub=32·1, pop 4096, d 1024),
+   Ackley())`` (``bench.py:134-185``, no monitor, as there) — init, the
+   init step (everyone evaluated) and one warm-up generation, then ``run``
+   for 20 generations, counters as above (no kernel runs). Checks the
+   population within bounds and finite fitness; reports ms per generation,
+   generations/s and evals/s (pop/2 a generation), and times the replay
+   form of ``tell`` (the JAX package's) against the carried one in five
+   rounds of turns, equal bit for bit. Then the same run with
+   ``EvalMonitor(topk=8)`` from a fresh state: one ``partial_topk`` launch
+   a generation, the best fitness falling, the last elite update equal to
+   the plain route (indices, values, solutions), and ``partial_topk`` timed
+   at the monitor's shapes (n 2048 + k, k 1 and 8) beside ``torch.topk``
+   (CUDA events, device time, host time). One CSO generation on the card
+   against the CPU on the same draws (positions and velocities bit for bit,
+   fitness within 1e-5 relative). PSO, CLPSO, SLPSOGS, SLPSOUS, FIPS
+   (ring), DMS-PSO-EL, FSPSO and SwmmPSO (with and without shortcuts) for
+   10 generations each on Sphere (pop 1024, d 100) with an EvalMonitor.
+   Between paths 2 and 3: the EvalMonitor Pareto archive (pf_capacity 1024)
+   over two NSGA-II batches of 10000 on the card (``packed_dominance`` at n
+   11024) against the CPU's plain route, rows, order and ``pf_count``
+   equal.
+7. a ``{"kernels": [...]}`` line (B3 and B4 with their call sites), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path. Exits non-zero, with no result line, when CUDA is unavailable or when
@@ -87,6 +108,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -108,6 +130,13 @@ LSMOP_D, LSMOP_M = 300, 3
 WALKER_POP = 65536
 WALKER_SIZES = (244, 64, 64, 17)
 WALKER_T = 100
+# main path 4: bench.py:134-185's CSO workload, at full width (bounds ±32)
+CSO_POP, CSO_DIM, CSO_BOUND = 4096, 1024, 32.0
+MONITOR_TOPK = 8  # the monitored run's EvalMonitor(topk=8)
+CSO_AB_ROUNDS = 5  # rounds of the replay-against-carry turns
+# the rest of the PSO family on Sphere, a few generations each
+PSO_POP, PSO_DIM, PSO_GENERATIONS = 1024, 100, 10
+ARCHIVE_CAP = 1024  # the EvalMonitor Pareto archive's pf_capacity
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
@@ -1234,6 +1263,405 @@ def phase_walker_path(torch, wf, make_problem, adapter, gens: int, seed: int,
     return out
 
 
+# ----------------------------------------------------------- main path 4
+
+
+def build_cso_path(torch, pop: int = CSO_POP, dim: int = CSO_DIM, monitor: bool = False,
+                   algo_cls=None, device=None):
+    """Main path 4 as a user builds it (``bench.py:134-185``): ``(workflow,
+    monitor or None)``. ``algo_cls`` swaps in a CSO variant (the replay
+    form); ``pop``, ``dim`` and ``device`` exist for a rehearsal on the CPU
+    at a small size."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.pso import CSO
+    from evox_tpu_torch.monitors import EvalMonitor
+    from evox_tpu_torch.problems.numerical import Ackley
+
+    cls = algo_cls or CSO
+    bound = torch.full((dim,), CSO_BOUND)
+    algo = cls(lb=-bound, ub=bound, pop_size=pop, device=device)
+    mon = EvalMonitor(topk=MONITOR_TOPK, device=device) if monitor else None
+    wf = StdWorkflow(algo, Ackley(), monitors=[mon] if monitor else [], device=device)
+    return wf, mon
+
+
+def replay_cso_class():
+    """CSO whose ``tell`` replays ``ask``'s pass from the generation seed,
+    the JAX package's design (``evox_tpu/algorithms/so/pso/cso.py:142-159``),
+    in place of taking the pass that ``ask`` kept: timed beside the port's
+    form, with the same numbers."""
+    from evox_tpu_torch.algorithms.so.pso import CSO
+
+    class ReplayCSO(CSO):
+        def ask(self, state):
+            cand, state = super().ask(state)
+            return cand, state.replace(pending=None)
+
+        def tell(self, state, fitness):
+            done = self._pair_pass(state, *self._draw(state.pair_seed))
+            return super().tell(state.replace(pending=done), fitness)
+
+    return ReplayCSO
+
+
+def _check_swarm(torch, name: str, algo, population) -> None:
+    if not (torch.isfinite(population).all() and (population >= algo.lb).all()
+            and (population <= algo.ub).all()):
+        raise AssertionError(f"{name}: the population leaves the bounds or is not finite")
+
+
+def phase_cso_path(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 4: CSO on Ackley at pop 4096, d 1024, no monitor (as
+    bench.py), then the replay form against the carried one in turns."""
+    wf, _ = build_cso_path(torch)
+    algo = wf.algorithm
+    # the init step (everyone evaluated, no pair pass), then one warm-up
+    # generation: the first pair pass allocates its buffers
+    state = wf.step(wf.step(wf.init(seed)))
+    warm = state
+    torch.cuda.synchronize()
+
+    reset_launches()  # every count to 0 just before the run
+    t0 = time.perf_counter()
+    state = wf.run(state, gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # read just after
+    want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0, "fused_mlp_rollout": 0}
+    if launches != want:
+        raise AssertionError(f"launches in {gens} CSO generations: {launches}, expected {want}")
+    if state.generation != gens + 2:
+        raise AssertionError(f"generation {state.generation} != {gens + 2}")
+    _check_swarm(torch, "CSO path", algo, state.algo.population)
+    if not torch.isfinite(state.algo.fitness).all():
+        raise AssertionError("non-finite fitness on the CSO path")
+
+    # the replay form against the carried one: CSO_AB_ROUNDS rounds of turns
+    # carry, replay, replay, carry from the same state (the host's time
+    # swings between runs); the same draws give the same numbers
+    replay_wf, _ = build_cso_path(torch, algo_cls=replay_cso_class())
+    turns, finals = [], {}
+    order = (("carry", wf), ("replay", replay_wf), ("replay", replay_wf), ("carry", wf))
+    for name, w in order * CSO_AB_ROUNDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = w.run(warm, gens)
+        torch.cuda.synchronize()
+        turns.append({"form": name, "ms_per_generation": (time.perf_counter() - t0) / gens * 1e3})
+        finals[name] = end.algo
+    compare_exact("CSO replay form against the carried form, after 20 generations",
+                  [finals["replay"].population, finals["replay"].velocity, finals["replay"].fitness],
+                  [finals["carry"].population, finals["carry"].velocity, finals["carry"].fitness])
+    half = algo.pop_size // 2
+    medians = {form: statistics.median(t["ms_per_generation"] for t in turns if t["form"] == form)
+               for form in ("carry", "replay")}
+    print(f"[cso path] replay against carry, medians of {2 * CSO_AB_ROUNDS} runs each: "
+          f"{json.dumps(medians)}", flush=True)
+    out = {
+        "generations": gens,
+        "pop": algo.pop_size,
+        "dim": algo.dim,
+        "launches": launches,
+        "wall_s": wall,
+        "ms_per_generation": wall / gens * 1e3,
+        "generations_per_s": gens / wall,
+        "evals_per_s": gens * half / wall,
+        "best_fitness_last": float(state.algo.fitness.min()),
+        "replay_against_carry": turns,
+        "replay_against_carry_median_ms": medians,
+        "breakdown_ms": cso_breakdown(torch, wf, state),
+    }
+    if profile:
+        prof = profile_generations(torch, wf, state, 5)
+        prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
+        out["profile"] = prof
+    return out
+
+
+def cso_breakdown(torch, wf, state, reps: int = 10) -> dict:
+    """Median host-clock ms of each stage of one CSO generation, each stage
+    synchronised on both sides: the seed split (host only), the draw, the
+    ask (the draw and the pair pass), Ackley, the tell, and a whole step."""
+    from evox_tpu_torch.utils.common import split_seed
+
+    algo, prob = wf.algorithm, wf.problem
+    times = {name: [] for name in ("split_seed", "draw", "ask", "evaluate", "tell", "step")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        timed("split_seed", lambda: split_seed(state.algo.seed))
+        timed("draw", lambda: algo._draw(state.algo.seed))
+        cand, astate = timed("ask", lambda: algo.ask(state.algo))
+        fit, _ = timed("evaluate", lambda: prob.evaluate(state.prob, cand))
+        timed("tell", lambda: algo.tell(astate, fit))
+        timed("step", lambda: wf.step(state))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def device_us_per_call(torch, fn, calls: int = 20) -> float:
+    """Device microseconds a call of ``fn`` keeps the card busy (every kernel
+    it launches, torch.profiler), without the host's side of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def host_us_per_call(torch, fn, calls: int = 500) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue, back to back
+    (the card keeps up with calls this small)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def phase_cso_monitored(torch, gens: int, seed: int) -> dict:
+    """The same run from a fresh state with ``EvalMonitor(topk=8)``: one
+    elite update (one ``partial_topk`` launch) a generation, the best
+    fitness falling, the last update held against the plain route, and B4
+    timed at the monitor's shapes beside ``torch.topk``."""
+    from evox_tpu_torch.kernels import topk as kt
+
+    wf, mon = build_cso_path(torch, monitor=True)
+    state = wf.step(wf.step(wf.init(seed)))  # the init step and a warm-up generation, as above
+    best_warm = float(mon.get_best_fitness(state.monitors[0]))
+    torch.cuda.synchronize()
+
+    reset_launches()  # every count to 0 just before the run
+    t0 = time.perf_counter()
+    state = wf.run(state, gens - 1)
+    before = state
+    state = wf.step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # read just after
+    want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": gens, "fused_mlp_rollout": 0}
+    if launches != want:
+        raise AssertionError(f"launches in {gens} monitored CSO generations: {launches}, "
+                             f"expected {want}")
+    best_end = float(mon.get_best_fitness(state.monitors[0]))
+    print(f"[cso monitored] best fitness after the warm-up {best_warm!r}, after {gens} more "
+          f"generations {best_end!r}", flush=True)
+    if not best_end < best_warm:
+        raise AssertionError(f"the best fitness did not fall: {best_warm} -> {best_end}")
+
+    # the last elite update: the same generation again (the draws come from
+    # the state's seeds), its merged key through the plain route
+    cand, _ = wf.algorithm.ask(before.algo)
+    fit, _ = wf.problem.evaluate(before.prob, cand)
+    prev = before.monitors[0]
+    sign = mon.opt_direction[0]
+    merged_key = torch.cat([prev.topk_fitness * sign, fit * sign])
+    merged_fit = torch.cat([prev.topk_fitness, fit])
+    merged_sol = torch.cat([prev.topk_solution, cand])
+    plain_v, plain_i = kt.partial_topk_reference(merged_key, MONITOR_TOPK)
+    last = state.monitors[0]
+    elite = compare_exact(
+        f"EvalMonitor elite, last update (n={merged_key.shape[0]}, k={MONITOR_TOPK}) against the "
+        "plain route", [kt.partial_topk(merged_key, MONITOR_TOPK)[1], last.topk_fitness,
+                        last.topk_solution],
+        [plain_i, merged_fit[plain_i], merged_sol[plain_i]])
+
+    # B4 at the monitor's shapes (n = pop/2 + topk), against torch.topk
+    shapes = []
+    for k in (1, MONITOR_TOPK):
+        v = torch.cat([merged_key[:k], fit * sign]).contiguous()
+        n = v.shape[0]
+        compare_exact(f"partial_topk at the monitor's shape n={n} k={k}",
+                      kt.partial_topk(v, k), kt.partial_topk_reference(v, k))
+        b4 = lambda: kt.partial_topk(v, k)
+        lib = lambda: torch.topk(v, k, largest=False)
+        nbytes, ops = topk_work(n, k)
+        row = {"n": n, "k": k, "ms": _time_ms(b4, 20, 200), "library_ms": _time_ms(lib, 20, 200),
+               "device_us": device_us_per_call(torch, b4),
+               "library_device_us": device_us_per_call(torch, lib),
+               "host_us": host_us_per_call(torch, b4), "library_host_us": host_us_per_call(torch, lib),
+               "plain_ms": _time_ms(lambda: kt.partial_topk_reference(v, k), 5, 50)}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops)
+        print(f"[monitor topk] {json.dumps(row)}", flush=True)
+        shapes.append(row)
+    return {
+        "generations": gens,
+        "launches": launches,
+        "wall_s": wall,
+        "ms_per_generation": wall / gens * 1e3,
+        "best_fitness_warmup": best_warm,
+        "best_fitness_end": best_end,
+        "last_elite_update": elite,
+        "topk_at_monitor_shapes": shapes,
+    }
+
+
+def phase_cso_card_vs_cpu(torch, seed: int) -> dict:
+    """One CSO generation on the card against the same generation on the
+    CPU, from the same first-generation state with the draws made on the
+    CPU and moved to the card."""
+    from evox_tpu_torch.problems.numerical import ackley_func
+
+    wf_cpu, _ = build_cso_path(torch, device="cpu")
+    wf_card, _ = build_cso_path(torch)
+    cpu, card = wf_cpu.algorithm, wf_card.algorithm
+    state = cpu.init(seed)
+    cand, state = cpu.init_ask(state)
+    state = cpu.init_tell(state, ackley_func(cand))
+    card_state = state.replace(population=state.population.cuda(), velocity=state.velocity.cuda(),
+                               fitness=state.fitness.cuda())
+    draws = cpu._draw(seed + 1)
+    cpu._draw = lambda s: draws
+    card._draw = lambda s: tuple(d.cuda() for d in draws)
+    results = {}
+    for name, algo, st in (("cpu", cpu, state), ("card", card, card_state)):
+        c, st = algo.ask(st)
+        st = algo.tell(st, ackley_func(c))
+        results[name] = st
+    got, want = results["card"], results["cpu"]
+    # phi = 0 (bench.py's CSO): positions and velocities are the same
+    # elementwise float32 operations on both devices, one rounding each, on
+    # the same draws: bit for bit. The new fitness is Ackley's two means over
+    # d 1024, which the card sums in another order: n·eps ≈ 1.2e-4 relative
+    # in a mean at worst, shrunk by Ackley's outer terms (its value ~20 here
+    # moves by less than 1e-5 relative for such an error)
+    out = {"population": compare("CSO generation, population, card against CPU",
+                                 got.population.cpu(), want.population, rtol=0.0, atol=0.0),
+           "velocity": compare("CSO generation, velocity, card against CPU",
+                               got.velocity.cpu(), want.velocity, rtol=0.0, atol=0.0),
+           "fitness": compare("CSO generation, fitness, card against CPU",
+                              got.fitness.cpu(), want.fitness, rtol=1e-5, atol=0.0)}
+    return out
+
+
+def phase_pso_family(torch, gens: int, seed: int) -> dict:
+    """Every other algorithm of the PSO family for a few generations on the
+    card: Sphere, pop 1024, d 100, an EvalMonitor on each (FIPS on the ring,
+    DMS-PSO-EL in sub-swarms of 16 so that they divide 1024)."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so import pso
+    from evox_tpu_torch.monitors import EvalMonitor
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    lb, ub = torch.full((PSO_DIM,), -10.0), torch.full((PSO_DIM,), 10.0)
+    n = PSO_POP
+    makers = {
+        "PSO": lambda: pso.PSO(lb, ub, n),
+        "CLPSO": lambda: pso.CLPSO(lb, ub, n),
+        "SLPSOGS": lambda: pso.SLPSOGS(lb, ub, n),
+        "SLPSOUS": lambda: pso.SLPSOUS(lb, ub, n),
+        "FIPS (ring)": lambda: pso.FIPS(lb, ub, n, topology="ring"),
+        "DMSPSOEL": lambda: pso.DMSPSOEL(lb, ub, n, sub_swarm_size=16),
+        "FSPSO": lambda: pso.FSPSO(n, PSO_DIM),
+        "SwmmPSO": lambda: pso.SwmmPSO(lb, ub, n),
+        "SwmmPSO (shortcuts)": lambda: pso.SwmmPSO(lb, ub, n, shortcut_p=0.05),
+    }
+    out = {}
+    for name, make in makers.items():
+        algo = make()
+        mon = EvalMonitor()
+        wf = StdWorkflow(algo, Sphere(), monitors=[mon])
+        state = wf.step(wf.init(seed))
+        best_warm = float(mon.get_best_fitness(state.monitors[0]))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = wf.run(state, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if launches["partial_topk"] != gens:
+            raise AssertionError(f"{name}: {launches} in {gens} monitored generations")
+        best = float(mon.get_best_fitness(state.monitors[0]))
+        if not (math.isfinite(best) and best <= best_warm):
+            raise AssertionError(f"{name}: best fitness {best_warm} -> {best}")
+        _check_swarm(torch, name, algo, state.algo.population)
+        row = {"pop": n, "dim": PSO_DIM, "generations": gens, "ms_per_generation": wall / gens * 1e3,
+               "best_fitness_warmup": best_warm, "best_fitness": best}
+        print(f"[pso family] {name}: {json.dumps(row)}", flush=True)
+        out[name] = row
+    return out
+
+
+def phase_monitor_archive(torch, wf, seed: int) -> dict:
+    """The EvalMonitor Pareto archive (pf_capacity 1024) on the card
+    against the CPU's plain route, on the NSGA-II path's fitness: the
+    parents' batch of 10000, then the offspring's; B3 runs at n 11024."""
+    from evox_tpu_torch.monitors import EvalMonitor
+
+    state = wf.step(wf.init(seed))  # the init step: the parents evaluated
+    off, _ = wf.algorithm.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    batches = [(state.algo.population, state.algo.fitness), (off, fit)]
+    card = EvalMonitor(multi_obj=True, pf_capacity=ARCHIVE_CAP)
+    cpu = EvalMonitor(multi_obj=True, pf_capacity=ARCHIVE_CAP, device="cpu")
+    s_card, s_cpu = card.init(), cpu.init()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for cand, f in batches:
+        s_card = card.post_eval(s_card, cand, f)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"fused_rollout": 0, "packed_dominance": 2, "partial_topk": 0, "fused_mlp_rollout": 0}
+    if launches != want:
+        raise AssertionError(f"launches in two archive updates: {launches}, expected {want}")
+    for cand, f in batches:
+        s_cpu = cpu.post_eval(s_cpu, cand.cpu(), f.cpu())
+    # B3 alone at the second update's merged fitness (the archive after the
+    # first batch, then the offspring's)
+    from evox_tpu_torch.kernels import dominance as kd
+
+    merged = torch.cat([card.post_eval(card.init(), *batches[0]).topk_fitness, batches[1][1]])
+    b3 = {"ms": _time_ms(lambda: kd.packed_dominance(merged), 3, 20)}
+    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(*merged.shape))
+    stats = compare_exact(
+        f"EvalMonitor archive (cap {ARCHIVE_CAP}, n {ARCHIVE_CAP + f.shape[0]}) on the card "
+        "against the CPU's plain route (fitness, solutions, pf_count)",
+        [s_card.topk_fitness, s_card.topk_solution, s_card.pf_count],
+        [s_cpu.topk_fitness, s_cpu.topk_solution, s_cpu.pf_count])
+    stats.update({"n": ARCHIVE_CAP + f.shape[0], "m": f.shape[1], "launches": launches,
+                  "pf_count": int(s_card.pf_count), "ms_per_update": wall / len(batches) * 1e3,
+                  "packed_dominance": b3})
+    return stats
+
+
+def monitor_callers(name: str, paths: dict) -> list:
+    """Each call site of B3 or B4 on the main paths, with its shape and its
+    launches in that path's run."""
+    if name == "packed_dominance":
+        arch = paths["monitor_archive"]
+        return [{"caller": "non_dominated_sort in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
+                 "m": LSMOP_M, "launches": paths["nsga2"]["launches"][name]},
+                {"caller": "EvalMonitor Pareto archive (two updates)", "n": arch["n"], "m": arch["m"],
+                 "launches": arch["launches"][name], "ms_per_update": arch["ms_per_update"],
+                 **arch["packed_dominance"]}]
+    mon = paths["cso_monitored"]
+    return [{"caller": "rank_crowding_truncate in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
+             "k": NSGA2_POP, "launches": paths["nsga2"]["launches"][name]},
+            {"caller": "EvalMonitor elite (path 4, monitored run)",
+             "n": CSO_POP // 2 + MONITOR_TOPK, "k": MONITOR_TOPK,
+             "launches": mon["launches"][name], "shapes": mon["topk_at_monitor_shapes"]}]
+
+
 def kernel_entries(kernels: dict, paths: dict) -> list:
     """The ``kernels`` line: one entry per kernel of the main paths."""
     pend = kernels["pendulum"]
@@ -1273,6 +1701,7 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
             "library_ms": k.get("library_ms"),
             **({"block": k["block"]} if "block" in k else {}),
             **{key: k[key] for key in ("empty_launch_ms", "ms_1e6", "library_ms_1e6") if key in k},
+            "callers": monitor_callers(name, paths),
         })
     w = kernels["walker"]
     entries.append({
@@ -1345,10 +1774,22 @@ def main() -> int:
     del wf
     paths["nsga2"] = phase_nsga2_path(torch, wf2, GENERATIONS, SEED, args.profile)
     print(f"[nsga2 path] {json.dumps(paths['nsga2'])}", flush=True)
+    paths["monitor_archive"] = phase_monitor_archive(torch, wf2, SEED)
+    print(f"[monitor archive] {json.dumps(paths['monitor_archive'])}", flush=True)
     del wf2
     paths["walker"] = phase_walker_path(torch, wf3, make_walker_problem, adapter,
                                         GENERATIONS, SEED, args.profile)
     print(f"[walker path] {json.dumps(paths['walker'])}", flush=True)
+    del wf3, adapter, make_walker_problem
+    torch.cuda.empty_cache()
+    # 6. main path 4 (CSO on Ackley), its monitored run, one generation
+    # against the CPU, and the rest of the PSO family
+    paths["cso"] = phase_cso_path(torch, GENERATIONS, SEED, args.profile)
+    print(f"[cso path] {json.dumps(paths['cso'])}", flush=True)
+    paths["cso_monitored"] = phase_cso_monitored(torch, GENERATIONS, SEED)
+    print(f"[cso monitored] {json.dumps(paths['cso_monitored'])}", flush=True)
+    paths["cso_card_vs_cpu"] = phase_cso_card_vs_cpu(torch, SEED)
+    paths["pso_family"] = phase_pso_family(torch, PSO_GENERATIONS, SEED)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -1364,6 +1805,11 @@ def main() -> int:
         "main_path": paths["pendulum"],
         "nsga2_path": paths["nsga2"],
         "walker_path": paths["walker"],
+        "cso_path": paths["cso"],
+        "cso_monitored": paths["cso_monitored"],
+        "cso_card_vs_cpu": paths["cso_card_vs_cpu"],
+        "pso_family": paths["pso_family"],
+        "monitor_archive": paths["monitor_archive"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

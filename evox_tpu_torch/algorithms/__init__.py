@@ -1,4 +1,4 @@
 from .mo import NSGA2, NSGA2State
-from .so import OpenES, OpenESState
+from .so import CSO, PSO, OpenES, OpenESState
 
-__all__ = ["NSGA2", "NSGA2State", "OpenES", "OpenESState"]
+__all__ = ["CSO", "NSGA2", "NSGA2State", "OpenES", "OpenESState", "PSO"]

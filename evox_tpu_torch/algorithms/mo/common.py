@@ -18,7 +18,6 @@ from __future__ import annotations
 
 from typing import Any, Tuple
 
-import numpy as np
 import torch
 
 from ...core.algorithm import Algorithm
@@ -26,7 +25,7 @@ from ...core.device import DeviceLike, resolve_device
 from ...core.struct import PyTreeNode
 from ...operators.crossover.sbx import simulated_binary
 from ...operators.mutation.ops import polynomial
-from ...utils.common import generator, split_seed
+from ...utils.common import float_vector, generator, split_seed
 
 
 class MOState(PyTreeNode):
@@ -44,13 +43,6 @@ def uniform_init(
     return u * (ub - lb) + lb
 
 
-def _bound(x: Any, device: torch.device) -> torch.Tensor:
-    """A float32 copy of a bound vector (a tensor, or anything numpy reads)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32, copy=True)
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
-
-
 class GAMOAlgorithm(Algorithm):
     """GA-skeleton MO base: subclasses implement ``select(state, merged_pop,
     merged_fit) -> (pop, fit)``.
@@ -64,8 +56,8 @@ class GAMOAlgorithm(Algorithm):
         if mesh is not None:
             raise NotImplementedError(f"{type(self).__name__}(mesh=...) is not ported yet (ROADMAP A11)")
         self.device = resolve_device(device)
-        self.lb = _bound(lb, self.device)
-        self.ub = _bound(ub, self.device)
+        self.lb = float_vector(lb, self.device)
+        self.ub = float_vector(ub, self.device)
         self.dim = int(self.lb.shape[0])
         self.n_objs = n_objs
         self.pop_size = pop_size

@@ -1,3 +1,5 @@
-from .es import OpenES, OpenESState
+from .es import *  # noqa: F401,F403
+from .pso import *  # noqa: F401,F403
+from . import es, pso
 
-__all__ = ["OpenES", "OpenESState"]
+__all__ = ["es", "pso"]

@@ -7,9 +7,11 @@ They read attributes by name and never import the JAX package.
 
 What crosses unchanged: OpenES centers, the optimizer state (sgd's is
 empty; adam's holds count, mu and nu), the GA-skeleton MO states
-(population, fitness, offspring; NSGA-II's rank and crowd too), the
-workflow's generation and first-step flag, populations and genomes as
-``(pop, dim)`` arrays, and ``mlp_policy`` params trees.
+(population, fitness, offspring; NSGA-II's rank and crowd too), the CSO
+and PSO-family states (every field the two states share by name), the
+EvalMonitor state, the workflow's generation and first-step flag,
+populations and genomes as ``(pop, dim)`` arrays, and ``mlp_policy``
+params trees.
 
 What cannot cross: PRNG keys. JAX's threefry keys and the port's integer
 seeds for ``torch.Generator`` name unrelated streams, so the port's states
@@ -19,6 +21,7 @@ numbers hands both sides the same draws.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
@@ -27,8 +30,10 @@ import torch
 from .algorithms.mo.common import GAMOAlgorithm, MOState
 from .algorithms.mo.nsga2 import NSGA2, NSGA2State
 from .algorithms.so.es.open_es import OpenES, OpenESState
+from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.device import DeviceLike, resolve_device
-from .utils.common import split_seed
+from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
+from .utils.common import split_seed, tree_map
 from .utils.optimizers import SGD, Adam, AdamState
 from .workflows.std import StdWorkflow, StdWorkflowState
 
@@ -122,6 +127,41 @@ def nsga2_state(algo: NSGA2, jax_state: Any, seed: int = 0) -> NSGA2State:
     )
 
 
+def swarm_state(algo: SwarmAlgorithm, jax_state: Any, seed: int = 0) -> Any:
+    """A CSO or PSO-family state from the JAX package's (numpy leaves): each
+    field of the port's state that the JAX state has by the same name, at
+    the port's shape and dtype (DMS-PSO-EL's ``gen`` as an int). The keys
+    do not cross: the port's seeds start from ``seed``, and a CSO state
+    crosses between generations (no pending ``ask``)."""
+    fresh = algo.init(seed)
+    changes = {}
+    for f in dataclasses.fields(fresh):
+        if not hasattr(jax_state, f.name):
+            continue
+        ours, theirs = getattr(fresh, f.name), np.asarray(getattr(jax_state, f.name))
+        if isinstance(ours, torch.Tensor):
+            if theirs.shape != tuple(ours.shape):
+                raise ValueError(f"{f.name} has shape {theirs.shape}, expected {tuple(ours.shape)}")
+            changes[f.name] = torch.from_numpy(np.array(theirs)).to(device=ours.device, dtype=ours.dtype)
+        else:
+            changes[f.name] = int(theirs)
+    return fresh.replace(**changes)
+
+
+def eval_monitor_state(monitor: EvalMonitor, jax_state: Any) -> EvalMonitorState:
+    """``EvalMonitorState`` from the JAX package's (numpy leaves; solutions
+    may be trees of dicts and lists): every buffer in its own dtype on the
+    monitor's device, ``hist_count`` as an int, unset buffers as ``None``."""
+    as_t = lambda a: torch.from_numpy(np.array(a)).to(monitor.device)
+    changes = {}
+    for f in dataclasses.fields(EvalMonitorState):
+        value = getattr(jax_state, f.name, None)
+        if value is None:
+            continue
+        changes[f.name] = int(np.asarray(value)) if f.name == "hist_count" else tree_map(as_t, value)
+    return EvalMonitorState(**changes)
+
+
 def std_workflow_state(
     wf: StdWorkflow, jax_state: Any, seed: int = 0, prob_state: Optional[Any] = None
 ) -> StdWorkflowState:
@@ -130,6 +170,8 @@ def std_workflow_state(
     problem and monitor states are the port's own, seeded from ``seed``
     (or ``prob_state`` for the problem)."""
     carry = _ALGO_STATES.get(type(wf.algorithm))
+    if carry is None and isinstance(wf.algorithm, SwarmAlgorithm):
+        carry = swarm_state
     if carry is None:
         raise NotImplementedError(
             f"no carry-over for {type(wf.algorithm).__name__} yet"

@@ -1,3 +1,5 @@
-from . import crossover, mutation, sampling, selection
+from . import crossover, mutation, sampling, sanitize, selection
+from .sanitize import BOUND_METHODS, sanitize_bounds, validate_bound_handling
 
-__all__ = ["crossover", "mutation", "sampling", "selection"]
+__all__ = ["BOUND_METHODS", "crossover", "mutation", "sampling", "sanitize", "sanitize_bounds",
+           "selection", "validate_bound_handling"]

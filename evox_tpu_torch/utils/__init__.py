@@ -1,6 +1,7 @@
 from .common import (
     TreeAndVector,
     dominate_relation,
+    float_vector,
     fold_in_seed,
     generator,
     lexsort,
@@ -19,6 +20,7 @@ __all__ = [
     "SGD",
     "TreeAndVector",
     "dominate_relation",
+    "float_vector",
     "fold_in_seed",
     "generator",
     "lexsort",

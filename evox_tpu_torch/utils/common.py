@@ -9,6 +9,7 @@
 - ``pairwise_euclidean_dist``: ``(n, m)`` distances between two point sets.
 - ``lexsort``: ``jnp.lexsort`` from successive stable sorts.
 - ``generator``: a ``torch.Generator`` seeded from an integer.
+- ``float_vector``: a float32 copy of a bound or other vector argument.
 - ``split_seed``/``fold_in_seed``: the integer-seed counterparts of
   ``jax.random.split``/``fold_in``. States hold Python integers, and every
   draw comes from a ``torch.Generator`` seeded with one of them. The port's
@@ -21,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 _SEED_BOUND = 2**62
@@ -116,6 +118,14 @@ def generator(seed: int, device: torch.device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed``: where every
     draw of the port comes from."""
     return torch.Generator(device=device).manual_seed(int(seed) % 2**63)
+
+
+def float_vector(x: Any, device: torch.device) -> torch.Tensor:
+    """A float32 copy of ``x`` (a tensor, or anything numpy reads) on
+    ``device``: how constructors take their bound vectors."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32, copy=True)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
 
 def parse_opt_direction(opt_direction: Union[str, Sequence[str]]) -> torch.Tensor:

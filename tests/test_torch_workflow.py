@@ -23,10 +23,12 @@ from evox_tpu.problems.neuroevolution import flat_mlp_policy as jax_flat_mlp_pol
 from evox_tpu.utils.common import rank_based_fitness as jax_rank_based_fitness
 from evox_tpu_torch import Monitor, Problem, StdWorkflow, interop
 from evox_tpu_torch.algorithms.mo import NSGA2
+from evox_tpu_torch.algorithms.so import pso as tpso
 from evox_tpu_torch.algorithms.so.es import OpenES
 from evox_tpu_torch.core.monitor import HOOK_NAMES
 from evox_tpu_torch.kernels import packed_dominance, partial_topk
 from evox_tpu_torch.kernels import rollout as tkr
+from evox_tpu_torch.monitors import EvalMonitor
 from evox_tpu_torch.problems.neuroevolution import PolicyRolloutProblem, flat_mlp_policy
 from evox_tpu_torch.problems.numerical import LSMOP1, ZDT1
 from evox_tpu_torch.utils import rank_based_fitness
@@ -196,6 +198,32 @@ def test_entry_points_refuse_a_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StdWorkflow(nsga2, lsmop)
     assert StdWorkflow(nsga2, lsmop, device="cpu").init(0).algo.population.shape == (8, 5)
+    # the CSO / PSO-family slice's entry points
+    lb, ub = torch.zeros(3), torch.ones(3)
+    swarms = {
+        "CSO": lambda **kw: tpso.CSO(lb, ub, 8, **kw),
+        "PSO": lambda **kw: tpso.PSO(lb, ub, 8, **kw),
+        "CLPSO": lambda **kw: tpso.CLPSO(lb, ub, 8, **kw),
+        "SLPSOGS": lambda **kw: tpso.SLPSOGS(lb, ub, 8, **kw),
+        "SLPSOUS": lambda **kw: tpso.SLPSOUS(lb, ub, 8, **kw),
+        "FIPS": lambda **kw: tpso.FIPS(lb, ub, 8, **kw),
+        "DMSPSOEL": lambda **kw: tpso.DMSPSOEL(lb, ub, 8, sub_swarm_size=4, **kw),
+        "FSPSO": lambda **kw: tpso.FSPSO(8, 3, **kw),
+        "SwmmPSO": lambda **kw: tpso.SwmmPSO(lb, ub, 8, shortcut_p=0.1, **kw),
+    }
+    for name, make in swarms.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make(device="cpu").init(0).population.shape == (8, 3), name
+    for make in (EvalMonitor, lambda: tpso.topology.ring_neighbours(8),
+                 lambda: tpso.topology.square_neighbours(8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    mon = EvalMonitor(device="cpu")
+    cso = swarms["CSO"](device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StdWorkflow(cso, ZDT1(n_dim=3, device="cpu"), monitors=[mon])
+    assert mon.post_eval(mon.init(), torch.zeros(4, 3), torch.rand(4)).topk_fitness.shape == (1,)
 
 
 def test_deferred_arguments_raise():

@@ -135,8 +135,9 @@ def sweep(torch, kt, chip_smoke, args, main_key, inf_share, n_ninf) -> list:
                 row["library_ms"] = chip_smoke._time_ms(
                     lambda: torch.topk(v, k, largest=False), warm, reps)
                 if args.device_time and n <= 1000:  # where the host's side of a call shows
-                    row["device_us"] = device_us(torch, lambda: kt.partial_topk(v, k, device=dev))
-                    row["library_device_us"] = device_us(
+                    row["device_us"] = chip_smoke.device_us_per_call(
+                        torch, lambda: kt.partial_topk(v, k, device=dev))
+                    row["library_device_us"] = chip_smoke.device_us_per_call(
                         torch, lambda: torch.topk(v, k, largest=False))
                 if args.check and timed:
                     got = kt.partial_topk(v, k, device=dev)
@@ -177,24 +178,6 @@ def split(torch, v, k, label: str) -> list:
     for r in rows:
         print(f"[split] {json.dumps(r)}", flush=True)
     return rows
-
-
-def device_us(torch, fn, calls: int = 20) -> float:
-    """Device microseconds a call of ``fn`` keeps the card busy (every
-    kernel and memset it launches, torch.profiler), without the host's side
-    of the call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / calls
 
 
 def host_probe(torch, kt, dev, calls: int = 500) -> dict:
