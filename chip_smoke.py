@@ -94,12 +94,39 @@ exit 0):
    over two NSGA-II batches of 10000 on the card (``packed_dominance`` at n
    11024) against the CPU's plain route, rows, order and ``pf_count``
    equal.
-7. a ``{"kernels": [...]}`` line (B3 and B4 with their call sites), then
-   the last line ``{"ok": true, "device": {...}}``.
+7. main path 5: ``StdWorkflow(CMAES(full(1000, 3.0), init_stdev=1.0),
+   Rastrigin())``, pop 24 and ``decomp_per_iter`` 8 at their defaults —
+   init, one warm-up step and one untimed ``safe_eigh`` (cuSOLVER's first
+   call sets it up), then ``run`` over 3 whole decomposition periods (24
+   generations), counters as above (no kernel runs). Checks finite
+   fitness, a finite and symmetric covariance, a mean that moved and one
+   eigendecomposition a period; reports ms per generation, generations/s,
+   one ``safe_eigh`` at d 1000 (CUDA events and the host's clock) and a
+   split of a generation (ask, Rastrigin, tell, eigh). One CMA-ES
+   generation on the card against the CPU (the same draws, fitness and
+   (B, D); mean, C, ps, pc and sigma within 1e-4 relative), run on the card
+   with TF32 allowed and not (equal bit for bit: its products are full
+   float32 either way).
+8. main path 6: main path 3 with ``PGPE(pop_size=65536,
+   center_init=zeros(20945))`` (ClipUp) in OpenES's place, driven and
+   checked as path 3 (one ``fused_mlp_rollout`` launch a generation and no
+   other, a center that moved, fused against scan engine); the tell's one
+   redraw of delta timed.
+9. the rest of the ES family, 10 generations each on Sphere (pop 1024,
+   ESMC 1025, d 100) with an EvalMonitor: SepCMAES, IPOPCMAES, MAES,
+   LMMAES, RMES, XNES, SeparableNES, SNES, CR_FM_NES, ARS, ASEBO,
+   GuidedES, PersistentES, NoiseReuseES, ESMC, DES, AMaLGaM and
+   IndependentAMaLGaM. ARS's tell launches ``partial_topk`` once a
+   generation (n 512, k 51) beside the monitor's: its last tell equals a
+   tell on the plain route, and B4 at that shape is timed beside
+   ``torch.topk``. ``RestartCMAESDriver`` for 2 restarts (pop 17, then 34).
+10. a ``{"kernels": [...]}`` line (B2, B3 and B4 with their call sites),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
-path. Exits non-zero, with no result line, when CUDA is unavailable or when
-the checkout is missing. Imports nothing of JAX.
+path (of one decomposition period on path 5). Exits non-zero, with no
+result line, when CUDA is unavailable or when the checkout is missing.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -137,6 +164,14 @@ CSO_AB_ROUNDS = 5  # rounds of the replay-against-carry turns
 # the rest of the PSO family on Sphere, a few generations each
 PSO_POP, PSO_DIM, PSO_GENERATIONS = 1024, 100, 10
 ARCHIVE_CAP = 1024  # the EvalMonitor Pareto archive's pf_capacity
+# main path 5: BASELINE.json's dense CMA-ES at its width, d 1000 (on
+# Rastrigin: CEC'22 stops at d 20), default pop (24) and decomposition
+# period; the timed run is the smallest whole number of periods >= 20
+# generations
+CMAES_DIM, CMAES_CENTER = 1000, 3.0
+# the rest of the ES family on Sphere, a few generations each
+ES_POP, ES_DIM, ES_GENERATIONS = 1024, 100, 10
+RESTARTS, RESTART_GENERATIONS = 2, 50  # RestartCMAESDriver on Sphere, d 100
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
@@ -950,10 +985,12 @@ def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
 # ----------------------------------------------------------- main path 3
 
 
-def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=None):
+def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=None,
+                      algorithm=None):
     """Main path 3 as a user builds it: ``(workflow, make_problem, adapter)``.
-    ``pop``, ``T`` and ``device`` exist for a rehearsal on the CPU at a small
-    size; the chip run takes the defaults."""
+    ``algorithm(dim, pop, device)`` builds the algorithm in OpenES's place
+    (main path 6: PGPE); ``pop``, ``T`` and ``device`` exist for a rehearsal
+    on the CPU at a small size; the chip run takes the defaults."""
     from evox_tpu_torch import Monitor, StdWorkflow
     from evox_tpu_torch.algorithms.so.es import OpenES
     from evox_tpu_torch.kernels import rollout_mlp as km
@@ -994,8 +1031,11 @@ def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=No
                             fitness[bad].clone())
             return mstate + ((fitness, kept),)
 
-    algo = OpenES(torch.zeros(adapter.dim), pop, learning_rate=0.05, noise_stdev=0.05,
-                  device=device)
+    if algorithm is None:
+        algo = OpenES(torch.zeros(adapter.dim), pop, learning_rate=0.05, noise_stdev=0.05,
+                      device=device)
+    else:
+        algo = algorithm(adapter.dim, pop, device)
     wf = StdWorkflow(algo, make_problem(True), monitors=[FitnessRecorder()],
                      opt_direction="max", pop_transforms=(adapter.batched_to_tree,),
                      fit_transforms=(rank_based_fitness,), device=device)
@@ -1644,6 +1684,370 @@ def phase_monitor_archive(torch, wf, seed: int) -> dict:
     return stats
 
 
+# ----------------------------------------------------------- main path 5
+
+
+def build_cmaes_path(torch, dim: int = CMAES_DIM, device=None):
+    """Main path 5 as a user builds it: ``StdWorkflow(CMAES(full(dim, 3.0),
+    1.0), Rastrigin())``, pop and decomposition period at their defaults.
+    ``dim`` and ``device`` exist for a rehearsal on the CPU."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import CMAES
+    from evox_tpu_torch.problems.numerical import Rastrigin
+
+    algo = CMAES(torch.full((dim,), CMAES_CENTER), init_stdev=1.0, device=device)
+    return StdWorkflow(algo, Rastrigin(), device=device)
+
+
+def count_decompositions(algo) -> list:
+    """Wrap ``algo._decompose`` to count its calls; returns the counter (a
+    one-element list)."""
+    calls = [0]
+    decompose = algo._decompose
+
+    def counted(C):
+        calls[0] += 1
+        return decompose(C)
+
+    algo._decompose = counted
+    return calls
+
+
+def cmaes_breakdown(torch, wf, state, reps: int = 8) -> dict:
+    """Median host-clock ms of each stage of a CMA-ES generation, each stage
+    synchronised on both sides: ask, Rastrigin, tell and a whole step
+    without the decomposition (from a state whose next iteration does not
+    decompose), and ``safe_eigh`` of the covariance."""
+    from evox_tpu_torch.algorithms.so.es.common import safe_eigh
+
+    algo, prob = wf.algorithm, wf.problem
+    period = algo.decomp_per_iter
+    if (state.algo.iteration + 1) % period == 0 and period > 1:
+        state = wf.step(state)
+    times = {name: [] for name in ("ask", "evaluate", "tell", "step", "eigh")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        cand, astate = timed("ask", lambda: algo.ask(state.algo))
+        fit, _ = timed("evaluate", lambda: prob.evaluate(state.prob, cand))
+        if period > 1:
+            timed("tell", lambda: algo.tell(astate, fit))
+            timed("step", lambda: wf.step(state))
+        timed("eigh", lambda: safe_eigh(state.algo.C, algo.cond_cap, max_dim=algo.eigh_max_dim))
+    return {name: statistics.median(v) for name, v in times.items() if v}
+
+
+def phase_cmaes_path(torch, seed: int, profile: bool) -> dict:
+    """Main path 5: CMA-ES with dense covariance at d 1000 on Rastrigin."""
+    from evox_tpu_torch.algorithms.so.es.common import safe_eigh
+
+    wf = build_cmaes_path(torch)
+    algo = wf.algorithm
+    period = algo.decomp_per_iter
+    gens = period * math.ceil(GENERATIONS / period)
+    print(f"[cmaes path] d {algo.dim}, pop {algo.pop_size}, mu {algo.mu}, decomp_per_iter "
+          f"{period}, {gens} timed generations", flush=True)
+    decomps = count_decompositions(algo)
+    state = wf.init(seed)
+    mean0 = state.algo.mean.clone()
+    state = wf.step(state)  # warm-up: iteration 1, no decomposition unless the period is 1
+    # cuSOLVER's first eigh creates its handle and workspace (~0.25 s, once
+    # a process): made here, on the warm-up state's C, and timed on its own
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    safe_eigh(state.algo.C, algo.cond_cap, max_dim=algo.eigh_max_dim)
+    torch.cuda.synchronize()
+    eigh_first_ms = (time.perf_counter() - t0) * 1e3
+
+    reset_launches()  # every count to 0 just before the run
+    decomps[0] = 0
+    t0 = time.perf_counter()
+    state = wf.run(state, gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # read just after
+    want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0, "fused_mlp_rollout": 0}
+    if launches != want:
+        raise AssertionError(f"launches in {gens} CMA-ES generations: {launches}, expected {want}")
+    if decomps[0] != gens // period:
+        raise AssertionError(f"{decomps[0]} decompositions in {gens} generations, expected "
+                             f"{gens // period}")
+    s = state.algo
+    C = s.C
+    asym = float((C - C.T).abs().max() / C.abs().max())
+    if not (bool(torch.isfinite(C).all()) and asym <= 1e-5):
+        raise AssertionError(f"the covariance is not finite and symmetric (asymmetry {asym})")
+    moved = float((s.mean - mean0).norm())
+    if not (moved > 0 and math.isfinite(moved)):
+        raise AssertionError(f"the mean did not move (|delta| = {moved})")
+    cand, _ = algo.ask(s)
+    fit, _ = wf.problem.evaluate(state.prob, cand)
+    if not (cand.shape == (algo.pop_size, algo.dim) and bool(torch.isfinite(fit).all())):
+        raise AssertionError("non-finite fitness on the CMA-ES path")
+
+    # one safe_eigh at d 1000: CUDA events, and the host's clock (eigh waits
+    # for the host inside the call)
+    eigh = lambda: safe_eigh(C, algo.cond_cap, max_dim=algo.eigh_max_dim)
+    eigh_ms = _time_ms(eigh, 2, 10)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eigh()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t1) * 1e3)
+    out = {
+        "dim": algo.dim,
+        "pop": algo.pop_size,
+        "mu": algo.mu,
+        "decomp_per_iter": period,
+        "generations": gens,
+        "decompositions": decomps[0],
+        "launches": launches,
+        "wall_s": wall,
+        "ms_per_generation": wall / gens * 1e3,
+        "generations_per_s": gens / wall,
+        "evals_per_s": gens * algo.pop_size / wall,
+        "sigma_last": float(s.sigma),
+        "best_fitness_last": float(fit.min()),
+        "mean_moved": moved,
+        "covariance_asymmetry": asym,
+        "eigh_ms": eigh_ms,
+        "eigh_host_ms": statistics.median(host),
+        "eigh_first_call_ms": eigh_first_ms,
+        "breakdown_ms": cmaes_breakdown(torch, wf, state),
+    }
+    if profile:
+        # one whole period, so the decompositions' share is the timed run's
+        prof = profile_generations(torch, wf, state, period)
+        prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
+        out["profile"] = prof
+    return out
+
+
+def phase_cmaes_card_vs_cpu(torch, seed: int) -> dict:
+    """One CMA-ES generation at d 1000 on the card against the CPU: the state
+    after one decomposition period on the CPU, moved to the card, the same
+    draws, the same Rastrigin fitness (the CPU's), the same (B, D). The
+    card's generation runs twice, with TF32 allowed and not: CMA-ES's
+    products are full float32 either way, so the two are equal bit for bit."""
+    wf_cpu = build_cmaes_path(torch, device="cpu")
+    cpu = wf_cpu.algorithm
+    card = build_cmaes_path(torch).algorithm
+    state = cpu.init(seed)
+    for _ in range(cpu.decomp_per_iter):  # ends on a decomposition: B and D are not I and 1
+        cand, state = cpu.ask(state)
+        state = cpu.tell(state, wf_cpu.problem.evaluate(None, cand)[0])
+    z = cpu._draw(seed + 1)
+    cpu._draw = lambda s: z
+    card._draw = lambda s: z.cuda()
+    # should the compared generation decompose, both take the state's (B, D)
+    cpu._decompose = lambda C: (state.B, state.D)
+    card._decompose = lambda C: (state.B.cuda(), state.D.cuda())
+    cand, cpu_state = cpu.ask(state)
+    fit = wf_cpu.problem.evaluate(None, cand)[0]
+    want = cpu.tell(cpu_state, fit)
+    card_state = state.replace(**{
+        f: getattr(state, f).cuda() for f in ("mean", "sigma", "pc", "ps", "C", "B", "D", "z")})
+    results = {}
+    was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            _, st = card.ask(card_state)
+            results[tf32] = card.tell(st, fit.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    fields = ("mean", "C", "ps", "pc", "sigma")
+    compare_exact("CMA-ES generation on the card, TF32 allowed against not",
+                  [getattr(results[True], f) for f in fields],
+                  [getattr(results[False], f) for f in fields])
+    got = results[False]
+    # float32 products of length 1000 (B z, (z D) B^T) and 12 (the selected
+    # steps), summed by cuBLAS and by the CPU's BLAS in other orders: n eps =
+    # 6e-5 of a field's scale at worst over a 1000-term sum, ~4e-6 typical;
+    # so 1e-4 relative, with an absolute floor of 1e-5 of the field's
+    # largest entry for entries near 0
+    out = {}
+    for f in fields:
+        ref = getattr(want, f)
+        scale = float(ref.abs().max())
+        out[f] = compare(f"CMA-ES generation at d {cpu.dim}, {f}, card against CPU",
+                         getattr(got, f).cpu().reshape(-1), ref.reshape(-1), rtol=1e-4,
+                         atol=1e-5 * scale)
+    return out
+
+
+# ----------------------------------------------------------- main path 6
+
+
+def make_pgpe(dim: int, pop: int, device):
+    """Main path 6's algorithm: PGPE with its defaults (ClipUp, center lr
+    0.15, stdev 0.1) from a zero center."""
+    import torch
+
+    from evox_tpu_torch.algorithms.so.es import PGPE
+
+    return PGPE(pop_size=pop, center_init=torch.zeros(dim), device=device)
+
+
+def phase_pgpe_walker(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 6: the walker path with PGPE (ClipUp) in OpenES's place,
+    driven and checked by ``phase_walker_path``; and the tell's one redraw
+    of delta, timed."""
+    from evox_tpu_torch.utils import ClipUp
+
+    wf, make_problem, adapter = build_walker_path(torch, algorithm=make_pgpe)
+    algo = wf.algorithm
+    if not isinstance(algo.optimizer, ClipUp):
+        raise AssertionError(f"PGPE's optimizer is {type(algo.optimizer).__name__}, not ClipUp")
+    out = phase_walker_path(torch, wf, make_problem, adapter, gens, seed, profile)
+    state = algo.init(seed)
+    out["delta_redraw_ms"] = _time_ms(lambda: algo._delta(state), 1, 3)
+    out["delta_bytes"] = 4 * (algo.pop_size // 2) * algo.dim
+    return out
+
+
+# ------------------------------------------------------ the ES family phase
+
+
+def es_family_makers(torch, n: int, dim: int) -> dict:
+    """The ES family phase's algorithms at pop ``n`` (ESMC ``n + 1``: the
+    mean and n/2 antithetic pairs), from a center of 3.0 in every
+    coordinate."""
+    from evox_tpu_torch.algorithms.so import es
+
+    c = torch.full((dim,), 3.0)
+    return {
+        "SepCMAES": lambda: es.SepCMAES(c, 1.0, pop_size=n),
+        "IPOPCMAES": lambda: es.IPOPCMAES(c, 1.0, pop_size=n),
+        "MAES": lambda: es.MAES(c, 1.0, pop_size=n),
+        "LMMAES": lambda: es.LMMAES(c, 1.0, pop_size=n),
+        "RMES": lambda: es.RMES(c, 1.0, pop_size=n),
+        "XNES": lambda: es.XNES(c, 1.0, pop_size=n),
+        "SeparableNES": lambda: es.SeparableNES(c, 1.0, pop_size=n),
+        "SNES": lambda: es.SNES(c, 1.0, pop_size=n),
+        "CR_FM_NES": lambda: es.CR_FM_NES(c, 1.0, pop_size=n),
+        "ARS": lambda: es.ARS(c, n, learning_rate=0.1),
+        "ASEBO": lambda: es.ASEBO(c, n, subspace_dims=3),
+        "GuidedES": lambda: es.GuidedES(c, n, subspace_dims=2),
+        "PersistentES": lambda: es.PersistentES(c, n, truncation_length=5),
+        "NoiseReuseES": lambda: es.NoiseReuseES(c, n, truncation_length=5),
+        "ESMC": lambda: es.ESMC(c, n + 1),
+        "DES": lambda: es.DES(c, 1.0, pop_size=n),
+        "AMaLGaM": lambda: es.AMaLGaM(c, 1.0, pop_size=n),
+        "IndependentAMaLGaM": lambda: es.IndependentAMaLGaM(c, 1.0, pop_size=n),
+    }
+
+
+def phase_ars_topk(torch, wf, before, state) -> dict:
+    """ARS's last tell against the same tell on the plain route of
+    ``partial_topk``, and B4 at ARS's shape timed beside ``torch.topk``."""
+    from evox_tpu_torch.algorithms.so.es import ars as ars_module
+    from evox_tpu_torch.kernels import topk as kt
+
+    algo = wf.algorithm
+    cand, astate = algo.ask(before.algo)  # the last generation again, from its seeds
+    fit, _ = wf.problem.evaluate(before.prob, cand)
+    fit = fit * wf.opt_direction[0]
+    score = torch.minimum(fit[: algo.n_dirs], fit[algo.n_dirs :])
+    n, k = score.shape[0], algo.top_k
+    top = compare_exact(f"ARS's top-k (n={n}, k={k}) against the plain route",
+                        kt.partial_topk(score, k), kt.partial_topk_reference(score, k))
+    kernel_route = ars_module.partial_topk
+    ars_module.partial_topk = lambda v, kk, device=None: kt.partial_topk_reference(v, kk)
+    try:
+        plain_state = algo.tell(astate, fit)
+    finally:
+        ars_module.partial_topk = kernel_route
+    compare_exact("ARS's last center against a tell on the plain route",
+                  [state.algo.center], [plain_state.center])
+    b4 = lambda: kt.partial_topk(score, k)
+    lib = lambda: torch.topk(score, k, largest=False)
+    row = {"n": n, "k": k, "ms": _time_ms(b4, 20, 200), "library_ms": _time_ms(lib, 20, 200),
+           "device_us": device_us_per_call(torch, b4),
+           "library_device_us": device_us_per_call(torch, lib),
+           "host_us": host_us_per_call(torch, b4), "library_host_us": host_us_per_call(torch, lib),
+           "plain_ms": _time_ms(lambda: kt.partial_topk_reference(score, k), 5, 50),
+           "max_abs_err": top["max_abs_err"]}
+    row["bound_ms"], row["bound_by"] = bound_ms(*topk_work(n, k))
+    print(f"[ars topk] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_es_family(torch, gens: int, seed: int) -> dict:
+    """Every other algorithm of the ES family for a few generations on the
+    card: Sphere, pop 1024 (ESMC 1025), d 100, an EvalMonitor on each; ARS's
+    top-k checked and timed; and RestartCMAESDriver for two restarts."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import RestartCMAESDriver
+    from evox_tpu_torch.monitors import EvalMonitor
+    from evox_tpu_torch.problems.numerical import Sphere, sphere_func
+
+    out = {}
+    for name, make in es_family_makers(torch, ES_POP, ES_DIM).items():
+        algo = make()
+        mon = EvalMonitor()
+        wf = StdWorkflow(algo, Sphere(), monitors=[mon])
+        state = wf.step(wf.init(seed))
+        best_warm = float(mon.get_best_fitness(state.monitors[0]))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = wf.run(state, gens - 1)
+        before = state
+        state = wf.step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        # the monitor's elite launches B4 once a generation, ARS's tell once more
+        topk = 2 * gens if name == "ARS" else gens
+        want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": topk,
+                "fused_mlp_rollout": 0}
+        if launches != want:
+            raise AssertionError(f"{name}: {launches} in {gens} monitored generations, "
+                                 f"expected {want}")
+        best = float(mon.get_best_fitness(state.monitors[0]))
+        if not (math.isfinite(best) and best <= best_warm):
+            raise AssertionError(f"{name}: best fitness {best_warm} -> {best}")
+        row = {"pop": algo.pop_size, "dim": ES_DIM, "generations": gens,
+               "ms_per_generation": wall / gens * 1e3, "best_fitness_warmup": best_warm,
+               "best_fitness": best, "launches": launches}
+        if name == "ARS":
+            row["tell_topk_launches"] = launches["partial_topk"] - gens
+            row["topk"] = phase_ars_topk(torch, wf, before, state)
+        print(f"[es family] {name}: {json.dumps(row)}", flush=True)
+        out[name] = row
+
+    driver = RestartCMAESDriver(torch.full((ES_DIM,), 3.0), 1.0, sphere_func)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best_x, best_f = driver.run(seed, max_restarts=RESTARTS, gens_per_run=RESTART_GENERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    base = driver.base_pop_size
+    if driver.pop_sizes != [base * 2**i for i in range(RESTARTS)]:
+        raise AssertionError(f"IPOP pop sizes {driver.pop_sizes}, base {base}")
+    start = ES_DIM * 3.0**2
+    again = float(sphere_func(best_x[None])[0])  # one row's sum: another order, ~1 ulp
+    if not (math.isfinite(best_f) and best_f < start and best_x.device.type == driver.device.type
+            and abs(again - best_f) <= 1e-5 * best_f):
+        raise AssertionError(f"RestartCMAESDriver's best {best_f}: not a Sphere value below "
+                             f"the start's {start}")
+    out["RestartCMAESDriver"] = {"dim": ES_DIM, "pop_sizes": driver.pop_sizes,
+                                 "generations_per_run": RESTART_GENERATIONS, "wall_s": wall,
+                                 "best_fitness": best_f}
+    print(f"[es family] RestartCMAESDriver: {json.dumps(out['RestartCMAESDriver'])}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -1655,11 +2059,14 @@ def monitor_callers(name: str, paths: dict) -> list:
                  "launches": arch["launches"][name], "ms_per_update": arch["ms_per_update"],
                  **arch["packed_dominance"]}]
     mon = paths["cso_monitored"]
+    ars = paths["es_family"]["ARS"]
     return [{"caller": "rank_crowding_truncate in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
              "k": NSGA2_POP, "launches": paths["nsga2"]["launches"][name]},
             {"caller": "EvalMonitor elite (path 4, monitored run)",
              "n": CSO_POP // 2 + MONITOR_TOPK, "k": MONITOR_TOPK,
-             "launches": mon["launches"][name], "shapes": mon["topk_at_monitor_shapes"]}]
+             "launches": mon["launches"][name], "shapes": mon["topk_at_monitor_shapes"]},
+            {"caller": "ARS's tell (the ES family phase)", "n": ars["topk"]["n"],
+             "k": ars["topk"]["k"], "launches": ars["tell_topk_launches"], "shapes": [ars["topk"]]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -1718,6 +2125,10 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "library_ms": None,  # no single PyTorch call computes this
         "copy_only_ms": w["copy_only_ms"],
         "block": w["block"],
+        "callers": [{"caller": "PolicyRolloutProblem under OpenES (path 3)",
+                     "launches": paths["walker"]["launches"]},
+                    {"caller": "PolicyRolloutProblem under PGPE with ClipUp (path 6)",
+                     "launches": paths["pgpe_walker"]["launches"]}],
     })
     return entries
 
@@ -1790,6 +2201,16 @@ def main() -> int:
     print(f"[cso monitored] {json.dumps(paths['cso_monitored'])}", flush=True)
     paths["cso_card_vs_cpu"] = phase_cso_card_vs_cpu(torch, SEED)
     paths["pso_family"] = phase_pso_family(torch, PSO_GENERATIONS, SEED)
+    # 7. main path 5 (CMA-ES, dense covariance, d 1000) and one of its
+    # generations against the CPU; main path 6 (PGPE on the walker); the
+    # rest of the ES family
+    paths["cmaes"] = phase_cmaes_path(torch, SEED, args.profile)
+    print(f"[cmaes path] {json.dumps(paths['cmaes'])}", flush=True)
+    paths["cmaes_card_vs_cpu"] = phase_cmaes_card_vs_cpu(torch, SEED)
+    paths["pgpe_walker"] = phase_pgpe_walker(torch, GENERATIONS, SEED, args.profile)
+    print(f"[pgpe walker path] {json.dumps(paths['pgpe_walker'])}", flush=True)
+    torch.cuda.empty_cache()
+    paths["es_family"] = phase_es_family(torch, ES_GENERATIONS, SEED)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -1810,6 +2231,10 @@ def main() -> int:
         "cso_card_vs_cpu": paths["cso_card_vs_cpu"],
         "pso_family": paths["pso_family"],
         "monitor_archive": paths["monitor_archive"],
+        "cmaes_path": paths["cmaes"],
+        "cmaes_card_vs_cpu": paths["cmaes_card_vs_cpu"],
+        "pgpe_walker_path": paths["pgpe_walker"],
+        "es_family": paths["es_family"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -9,7 +9,9 @@ What crosses unchanged: OpenES centers, the optimizer state (sgd's is
 empty; adam's holds count, mu and nu), the GA-skeleton MO states
 (population, fitness, offspring; NSGA-II's rank and crowd too), the CSO
 and PSO-family states (every field the two states share by name), the
-EvalMonitor state, the workflow's generation and first-step flag,
+EvalMonitor state, the states of the rest of the ES family (CMA-ES,
+PGPE and the others, through ``es_state``; the ClipUp velocity too), the
+workflow's generation and first-step flag,
 populations and genomes as ``(pop, dim)`` arrays, and ``mlp_policy``
 params trees.
 
@@ -29,12 +31,13 @@ import torch
 
 from .algorithms.mo.common import GAMOAlgorithm, MOState
 from .algorithms.mo.nsga2 import NSGA2, NSGA2State
+from .algorithms.so import es as _es
 from .algorithms.so.es.open_es import OpenES, OpenESState
 from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.device import DeviceLike, resolve_device
 from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
 from .utils.common import split_seed, tree_map
-from .utils.optimizers import SGD, Adam, AdamState
+from .utils.optimizers import SGD, Adam, AdamState, ClipUp, ClipUpState
 from .workflows.std import StdWorkflow, StdWorkflowState
 
 
@@ -76,6 +79,9 @@ def optimizer_state(optimizer: Any, opt_state: Any, device: torch.device) -> Any
     """The port's optimizer state for ``optimizer`` from an optax state."""
     if isinstance(optimizer, SGD):
         return ()
+    if isinstance(optimizer, ClipUp):
+        velocity = opt_state.velocity
+        return ClipUpState(velocity=torch.from_numpy(np.array(velocity, dtype=np.float32)).to(device))
     if isinstance(optimizer, Adam):
         leaf = _adam_leaf(opt_state)
         as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
@@ -127,25 +133,49 @@ def nsga2_state(algo: NSGA2, jax_state: Any, seed: int = 0) -> NSGA2State:
     )
 
 
+def _carry_by_name(algo: Any, jax_state: Any, seed: int) -> Any:
+    """The port's fresh state for ``algo`` with each field that the JAX
+    state has by the same name carried across, at the port's shape and
+    dtype; host integers (iteration counters) as ints, the optimizer state
+    through :func:`optimizer_state`."""
+    fresh = algo.init(seed)
+    changes = {}
+    for f in dataclasses.fields(fresh):
+        if not hasattr(jax_state, f.name):
+            continue
+        ours, theirs = getattr(fresh, f.name), getattr(jax_state, f.name)
+        if f.name == "opt_state":
+            changes[f.name] = optimizer_state(algo.optimizer, theirs, algo.device)
+        elif isinstance(ours, torch.Tensor):
+            theirs = np.asarray(theirs)
+            if theirs.shape != tuple(ours.shape):
+                raise ValueError(f"{f.name} has shape {theirs.shape}, expected {tuple(ours.shape)}")
+            changes[f.name] = torch.from_numpy(np.array(theirs)).to(device=ours.device, dtype=ours.dtype)
+        else:
+            changes[f.name] = int(np.asarray(theirs))
+    return fresh.replace(**changes)
+
+
 def swarm_state(algo: SwarmAlgorithm, jax_state: Any, seed: int = 0) -> Any:
     """A CSO or PSO-family state from the JAX package's (numpy leaves): each
     field of the port's state that the JAX state has by the same name, at
     the port's shape and dtype (DMS-PSO-EL's ``gen`` as an int). The keys
     do not cross: the port's seeds start from ``seed``, and a CSO state
     crosses between generations (no pending ``ask``)."""
-    fresh = algo.init(seed)
-    changes = {}
-    for f in dataclasses.fields(fresh):
-        if not hasattr(jax_state, f.name):
-            continue
-        ours, theirs = getattr(fresh, f.name), np.asarray(getattr(jax_state, f.name))
-        if isinstance(ours, torch.Tensor):
-            if theirs.shape != tuple(ours.shape):
-                raise ValueError(f"{f.name} has shape {theirs.shape}, expected {tuple(ours.shape)}")
-            changes[f.name] = torch.from_numpy(np.array(theirs)).to(device=ours.device, dtype=ours.dtype)
-        else:
-            changes[f.name] = int(theirs)
-    return fresh.replace(**changes)
+    return _carry_by_name(algo, jax_state, seed)
+
+
+def es_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """The state of any ES algorithm of the port but OpenES (CMA-ES and its
+    variants, MA-ES, RM-ES, the NES family, PGPE, ARS, ASEBO, GuidedES,
+    PersistentES, NoiseReuseES, ESMC, DES, AMaLGaM) from the JAX package's
+    (numpy leaves): every field the two states share by name, the
+    optimizer state included (sgd, adam, clipup), and the device counters
+    (``iteration``, ``inner_step``) as the port's host integers. The keys do
+    not cross: the port's seeds start from ``seed``; a state crosses between
+    generations, or after ``ask`` where its stored samples (``z``,
+    ``noise``, ``delta``, ``population``) cross with it."""
+    return _carry_by_name(algo, jax_state, seed)
 
 
 def eval_monitor_state(monitor: EvalMonitor, jax_state: Any) -> EvalMonitorState:
@@ -188,3 +218,8 @@ def std_workflow_state(
 
 # algorithm class -> the carry-over of its state
 _ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state}
+_ALGO_STATES.update({
+    getattr(_es, name): es_state
+    for name in _es.__all__
+    if not name.endswith("State") and name not in ("OpenES", "ClipUp", "RestartCMAESDriver")
+})

@@ -1,10 +1,10 @@
 """Gradient-step optimizers for ES-style algorithms.
 
-The port of ``evox_tpu/utils/optimizers.py::make_optimizer``. The JAX
-package resolves names to optax transformations; here ``sgd`` and ``adam``
-are small classes with optax's ``init``/``update`` contract and optax's
-arithmetic (updates are *added* to the parameters). Other optax names, and
-the JAX package's ClipUp, are not ported yet (ROADMAP A4).
+The port of ``evox_tpu/utils/optimizers.py``. The JAX package resolves
+names to optax transformations and builds ClipUp as one; here ``sgd``,
+``adam`` and ``clipup`` are small classes with optax's ``init``/``update``
+contract and optax's arithmetic (updates are *added* to the parameters).
+Other optax names are not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -73,10 +73,46 @@ class Adam:
         return -self.learning_rate * u, AdamState(count=count, mu=mu, nu=nu)
 
 
+class ClipUpState(PyTreeNode):
+    velocity: torch.Tensor
+
+
+class ClipUp:
+    """ClipUp (Toklu et al. 2020), ``evox_tpu/utils/optimizers.py::clipup``:
+    the gradient normalised to unit length, a momentum velocity, and the
+    velocity's length clipped at ``max_speed``."""
+
+    def __init__(
+        self,
+        learning_rate: float = 0.15,
+        momentum: float = 0.9,
+        max_speed: float = 0.3,
+        fix_gradient_size: bool = True,
+    ):
+        self.learning_rate = float(learning_rate)
+        self.momentum = momentum
+        self.max_speed = max_speed
+        self.fix_gradient_size = fix_gradient_size
+
+    def init(self, params: torch.Tensor) -> ClipUpState:
+        return ClipUpState(velocity=torch.zeros_like(params))
+
+    def update(
+        self, grads: torch.Tensor, state: ClipUpState, params: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, ClipUpState]:
+        g = grads
+        if self.fix_gradient_size:
+            g = g / torch.clamp_min(torch.linalg.vector_norm(g), 1e-12)
+        v = self.momentum * state.velocity + self.learning_rate * g
+        speed = torch.linalg.vector_norm(v)
+        v = torch.where(speed > self.max_speed, v * (self.max_speed / speed), v)
+        return -v, ClipUpState(velocity=v)
+
+
 def make_optimizer(optimizer: Any, learning_rate: float = 0.01, **kwargs: Any) -> Any:
-    """Resolve ``None`` (sgd), ``"sgd"`` or ``"adam"``, or pass through an
-    object with ``init``/``update``. ES algorithms *minimize*, and the
-    gradients passed in are descent directions."""
+    """Resolve ``None`` (sgd), ``"sgd"``, ``"adam"`` or ``"clipup"``, or pass
+    through an object with ``init``/``update``. ES algorithms *minimize*,
+    and the gradients passed in are descent directions."""
     if optimizer is None:
         return SGD(learning_rate)
     if hasattr(optimizer, "init") and hasattr(optimizer, "update"):
@@ -85,7 +121,9 @@ def make_optimizer(optimizer: Any, learning_rate: float = 0.01, **kwargs: Any) -
         return SGD(learning_rate, **kwargs)
     if optimizer == "adam":
         return Adam(learning_rate, **kwargs)
+    if optimizer == "clipup":
+        return ClipUp(learning_rate=learning_rate, **kwargs)
     raise NotImplementedError(
-        f"optimizer {optimizer!r} is not ported yet (sgd and adam are; "
+        f"optimizer {optimizer!r} is not ported yet (sgd, adam and clipup are; "
         "see ROADMAP A4)"
     )

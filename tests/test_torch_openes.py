@@ -112,7 +112,7 @@ def test_open_es_rejects_bad_arguments():
     with pytest.raises(ValueError, match="> 0"):
         OpenES(np.zeros(3), 4, learning_rate=0.0, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_optimizer("clipup", 0.1)
+        make_optimizer("rmsprop", 0.1)
 
 
 @pytest.mark.parametrize(
