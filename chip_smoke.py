@@ -120,7 +120,32 @@ exit 0):
    generation (n 512, k 51) beside the monitor's: its last tell equals a
    tell on the plain route, and B4 at that shape is timed beside
    ``torch.topk``. ``RestartCMAESDriver`` for 2 restarts (pop 17, then 34).
-10. a ``{"kernels": [...]}`` line (B2, B3 and B4 with their call sites),
+10. main path 7: ``StdWorkflow(MOEAD(zeros(12), ones(12), n_objs=3,
+   pop_size=10000, aggregate_op="pbi"), DTLZ2(d=12, m=3))`` (9870
+   subproblems, T 20, max_replace 4) — the constructor and its (9870, 20)
+   neighbour table timed, the table built on the CPU too (equal element
+   for element); init, the init step, one warm-up generation, then ``run``
+   for 20 generations, counters as above (no kernel runs). Checks, after
+   the run, finite fitness and a population within the bounds; reports ms
+   a generation, generations/s, a split (ask, DTLZ2, tell), IGD against ``DTLZ2.pf()``
+   and the exact hypervolume at (1.1, 1.1, 1.1); one tell on the card
+   against the CPU (the same replacement decisions; population and fitness
+   bit for bit where they agree, the deciding aggregation values printed
+   where they do not).
+11. main path 8: ``StdWorkflow(NSGA3(zeros(7), ones(7), n_objs=3,
+   pop_size=10000), DTLZ1(d=7, m=3))`` (9870 reference points, merged n
+   19740) — driven and reported as path 7, with one ``packed_dominance``
+   launch a generation and the fronts peeled a generation; B3 at n 19740
+   against its plain version; the split adds B3, the sort to the cut
+   against the full peel, the normalisation and association, the
+   closed-form niching and the sequential loop (once, equal); one
+   selection on the card against the CPU (survivors and ranks equal).
+12. the MO family: MOEADDRA, MOEADM2M, EAGMOEAD, RVEA, RVEAa, TDEA and
+   LMOCSO, 10 generations each on DTLZ2(d=12, m=3) at pop 1000 requested
+   (990 vectors; B3 once a generation in MOEADM2M's, TDEA's and EAGMOEAD's
+   tells), ms a generation and IGD; DTLZ1-7 on the card against the CPU at
+   pop 9870, and DTLZ7's ``pf()`` (one B3 launch) against the CPU's.
+13. a ``{"kernels": [...]}`` line (B2, B3 and B4 with their call sites),
    then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
@@ -172,6 +197,15 @@ CMAES_DIM, CMAES_CENTER = 1000, 3.0
 # the rest of the ES family on Sphere, a few generations each
 ES_POP, ES_DIM, ES_GENERATIONS = 1024, 100, 10
 RESTARTS, RESTART_GENERATIONS = 2, 50  # RestartCMAESDriver on Sphere, d 100
+# main paths 7 and 8: BASELINE.json's "NSGA-II + MOEA/D on DTLZ/LSMOP" at
+# path 2's pop (10000 requested: 9870 Das-Dennis vectors at m 3), on Deb
+# et al.'s DTLZ widths for m 3 (k 10 for DTLZ2: d 12; k 5 for DTLZ1: d 7)
+MO_POP, MO_M = 10000, 3
+MO_SUBPROBLEMS = 9870  # UniformSampling(10000, 3): H 139
+MOEAD_D, NSGA3_D = 12, 7
+HV_REF = (1.1, 1.1, 1.1)  # the hypervolume's reference point
+# the rest of the decomposition and reference-vector family on DTLZ2(d 12)
+MO_FAMILY_POP, MO_GENERATIONS = 1000, 10
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
@@ -2048,16 +2082,362 @@ def phase_es_family(torch, gens: int, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------- main paths 7 and 8, MO family
+
+
+def _time_host_ms(torch, fn) -> float:
+    """Host-clock ms of one call of ``fn``, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mo_breakdown(torch, wf, state, extra: dict, reps: int = 5) -> dict:
+    """Median host-clock ms of each stage of one generation of an MO path,
+    each synchronised: ask, evaluate, tell, and the stages of ``extra``
+    (name -> fn(astate, fitness))."""
+    algo, prob = wf.algorithm, wf.problem
+    times = {name: [] for name in ("ask", "evaluate", "tell", *extra)}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        off, astate = timed("ask", lambda: algo.ask(state.algo))
+        fit, _ = timed("evaluate", lambda: prob.evaluate(state.prob, off))
+        timed("tell", lambda: algo.tell(astate, fit))
+        for name, fn in extra.items():
+            timed(name, lambda fn=fn: fn(astate, fit))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def run_mo_path(torch, wf, gens: int, seed: int, want_launches: dict) -> tuple:
+    """The init step, one warm-up generation, then ``gens`` timed
+    generations with every launch counter set to 0 just before and read
+    just after. Checks the launches, and, once after the run, fitness that
+    is finite (or an empty niche's +inf) and a population within the
+    bounds; returns ``(state, wall_s, launches)``."""
+    algo = wf.algorithm
+    state = wf.step(wf.init(seed))  # the init step: the parents evaluated
+    state = wf.step(state)  # warm-up generation
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = wf.run(state, gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0, "fused_mlp_rollout": 0,
+            **want_launches}
+    name = type(algo).__name__
+    if launches != want:
+        raise AssertionError(f"{name}: launches in {gens} generations {launches}, expected {want}")
+    if state.generation != gens + 2:
+        raise AssertionError(f"{name}: generation {state.generation} != {gens + 2}")
+    pop, fit = state.algo.population, state.algo.fitness
+    # RVEA's, RVEAa's and LMOCSO's empty niches hold +inf rows
+    finite = torch.isfinite(fit).all(dim=1)
+    if not (finite.any() and (fit[~finite] == float("inf")).all() and (pop >= algo.lb).all()
+            and (pop <= algo.ub).all()):
+        raise AssertionError(f"{name}: the population leaves the bounds or its fitness is neither "
+                             "finite nor an empty niche's")
+    return state, wall, launches
+
+
+def mo_quality(torch, wf, state) -> dict:
+    """IGD against the problem's true front, and the exact 3-D hypervolume
+    of the final population at ``HV_REF`` (outside the timed window)."""
+    from evox_tpu_torch.metrics import hypervolume_3d, igd
+
+    fit = state.algo.fitness
+    # empty niches' +inf rows count as far away, as tests/test_mo_algorithms.py counts them
+    fit = torch.where(torch.isfinite(fit).all(dim=1, keepdim=True), fit, 1e6)
+    value = float(igd(fit, wf.problem.pf()))
+    ref = torch.tensor(HV_REF, device=fit.device)
+    hv_ms = _time_host_ms(torch, lambda: hypervolume_3d(fit, ref))
+    hv = float(hypervolume_3d(fit, ref))
+    if not (math.isfinite(value) and 0.0 <= hv <= math.prod(HV_REF)):
+        raise AssertionError(f"IGD {value}, hypervolume {hv}: not a measure of a front")
+    return {"igd": value, "hypervolume": hv, "hypervolume_ref": list(HV_REF),
+            "hypervolume_ms": hv_ms}
+
+
+def profile_path(torch, wf, state, wall: float, gens: int) -> dict:
+    prof = profile_generations(torch, wf, state, 5)
+    prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
+    return prof
+
+
+def phase_moead_path(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 7: ``StdWorkflow(MOEAD(zeros(12), ones(12), n_objs=3,
+    pop_size=10000, aggregate_op="pbi"), DTLZ2(d=12, m=3))``: 9870
+    subproblems, T 20, max_replace 4, no kernel. Also the constructor's
+    neighbour table timed on the card and built on the CPU (equal element
+    for element), IGD and the hypervolume, and one tell on the card against
+    the same tell on the CPU."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import MOEAD
+    from evox_tpu_torch.algorithms.mo.moead import neighbor_table
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    lb, ub = torch.zeros(MOEAD_D), torch.ones(MOEAD_D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    algo = MOEAD(lb, ub, n_objs=MO_M, pop_size=MO_POP, aggregate_op="pbi")
+    torch.cuda.synchronize()
+    build = {"constructor_s": time.perf_counter() - t0}
+    build["neighbor_table_ms"] = statistics.median(
+        _time_host_ms(torch, lambda: neighbor_table(algo.weights, algo.T)) for _ in range(3))
+    t0 = time.perf_counter()
+    cpu_algo = MOEAD(lb, ub, n_objs=MO_M, pop_size=MO_POP, aggregate_op="pbi", device="cpu")
+    build["cpu_constructor_s"] = time.perf_counter() - t0
+    if (algo.pop_size, algo.T, algo.nr) != (MO_SUBPROBLEMS, 20, 4):
+        raise AssertionError(f"MOEA/D: {algo.pop_size} subproblems, T {algo.T}, nr {algo.nr}")
+    build["table"] = compare_exact(f"MOEA/D neighbour table ({algo.pop_size}, 20), built on the card against "
+                                   "built on the CPU", [algo.neighbors.cpu()], [cpu_algo.neighbors])
+
+    wf = StdWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M))
+    state, wall, launches = run_mo_path(torch, wf, gens, seed, {})
+    out = {"pop": algo.pop_size, "dim": MOEAD_D, "T": algo.T, "generations": gens,
+           "launches": launches, "wall_s": wall, "ms_per_generation": wall / gens * 1e3,
+           "generations_per_s": gens / wall, "build": build,
+           "breakdown_ms": mo_breakdown(torch, wf, state, {}), **mo_quality(torch, wf, state)}
+
+    # one tell on the card against the same tell on the CPU
+    off, astate = algo.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    on_card = algo.tell(astate, fit)
+    cpu_state = astate.replace(**{f: getattr(astate, f).cpu() for f in
+                                  ("population", "fitness", "ideal", "offspring")})
+    on_cpu = cpu_algo.tell(cpu_state, fit.cpu())
+    ideal = torch.minimum(astate.ideal, torch.amin(fit, dim=0))
+    rep_card, win_card = algo.replacement(astate.fitness, ideal, fit)
+    rep_cpu, win_cpu = cpu_algo.replacement(cpu_state.fitness, ideal.cpu(), fit.cpu())
+    differ = (rep_card.cpu() != rep_cpu) | (rep_cpu & (win_card.cpu() != win_cpu))
+    tell = {"replaced": int(rep_cpu.sum()), "decisions_differ": int(differ.sum())}
+    if tell["decisions_differ"]:
+        # the aggregation values that decided each differing slot, both sides
+        off_c, inc_c = (v.cpu() for v in algo.aggregation_values(astate.fitness, ideal, fit))
+        off_h, inc_h = cpu_algo.aggregation_values(cpu_state.fitness, ideal.cpu(), fit.cpu())
+        nbr = cpu_algo.neighbors
+        for s in torch.nonzero(differ)[:20, 0].tolist():
+            i, j = torch.nonzero(nbr == s, as_tuple=True)
+            print(f"[moead tell] slot {s}: card off {off_c[i, j].tolist()} inc {inc_c[i, j].tolist()}"
+                  f"; cpu off {off_h[i, j].tolist()} inc {inc_h[i, j].tolist()}", flush=True)
+        # PBI over m = 3 in index order on both, the root correctly rounded:
+        # equal by construction; 1e-6 would allow an ulp or two
+        tell["values"] = compare("MOEA/D aggregation values, card against CPU",
+                                 torch.cat([off_c, inc_c]), torch.cat([off_h, inc_h]),
+                                 rtol=1e-6, atol=0.0)
+    same = ~differ
+    tell.update(compare_exact(
+        "MOEA/D tell on the card against the CPU (population and fitness where the decisions "
+        "agree, ideal)", [on_card.population.cpu()[same], on_card.fitness.cpu()[same],
+                          on_card.ideal.cpu()],
+        [on_cpu.population[same], on_cpu.fitness[same], on_cpu.ideal]))
+    out["tell_vs_cpu"] = tell
+    if profile:
+        out["profile"] = profile_path(torch, wf, state, wall, gens)
+    return out
+
+
+def phase_nsga3_path(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 8: ``StdWorkflow(NSGA3(zeros(7), ones(7), n_objs=3,
+    pop_size=10000), DTLZ1(d=7, m=3))``: 9870 reference points, merged n
+    19740, one ``packed_dominance`` launch a generation. Also the fronts
+    peeled a generation, B3 at n 19740 against its plain version, the sort
+    to the cut against the full peel, the closed-form niching against the
+    sequential loop (timed once), IGD and the hypervolume, and one
+    selection on the card against the CPU's plain route."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA3
+    from evox_tpu_torch.algorithms.mo import nsga3 as mod
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.operators.selection import non_dominated_sort
+    from evox_tpu_torch.problems.numerical import DTLZ1
+
+    algo = NSGA3(torch.zeros(NSGA3_D), torch.ones(NSGA3_D), n_objs=MO_M, pop_size=MO_POP)
+    k = algo.pop_size
+    fronts = []  # each selection's fronts peeled, kept on the device
+    select_mask = algo.select_mask
+
+    def recording_select_mask(fit):
+        selected, rank = select_mask(fit)
+        # no host read: unranked rows (rank n) count as -1
+        fronts.append(torch.where(rank < fit.shape[0], rank, -1).amax() + 1)
+        return selected, rank
+
+    algo.select_mask = recording_select_mask
+    wf = StdWorkflow(algo, DTLZ1(d=NSGA3_D, m=MO_M))
+    state, wall, launches = run_mo_path(torch, wf, gens, seed, {"packed_dominance": gens})
+    algo.select_mask = select_mask
+    out = {"pop": k, "dim": NSGA3_D, "merged_n": 2 * k, "generations": gens, "launches": launches,
+           "wall_s": wall, "ms_per_generation": wall / gens * 1e3, "generations_per_s": gens / wall,
+           "fronts_peeled": [int(f) for f in fronts[-gens:]], **mo_quality(torch, wf, state)}
+
+    off, astate = algo.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    merged = torch.cat([astate.fitness, fit])
+    n = merged.shape[0]
+
+    def niching_inputs(f):
+        return mod.niching_inputs(f, algo.refs.to(f.device), k)[1]
+
+    args = niching_inputs(merged)
+    merged_of = lambda a, f: torch.cat([a.fitness, f])
+    extra = {
+        "packed_dominance": lambda a, f: kd.packed_dominance(merged_of(a, f)),
+        "sort_to_cut": lambda a, f: non_dominated_sort(merged_of(a, f), until=k),
+        "sort_full_peel": lambda a, f: non_dominated_sort(merged_of(a, f)),
+        "normalize_associate": lambda a, f: mod.associate(mod.normalize(merged_of(a, f)), algo.refs),
+        "niche_closed_form": lambda a, f: mod.niche(*args),
+    }
+    out["breakdown_ms"] = mo_breakdown(torch, wf, state, extra)
+    out["breakdown_ms"]["niche_sequential_once"] = _time_host_ms(torch, lambda: mod.niche_sequential(*args))
+    out["need"], out["candidates"] = int(args[5]), int(args[1].sum())
+    if not torch.equal(mod.niche_sequential(*args), mod.niche(*args)):
+        raise AssertionError("NSGA-III: the closed-form niching differs from the loop on the card")
+
+    # B3 at the path's merged fitness, against its plain version
+    got = kd.packed_dominance(merged, device=merged.device)
+    want = kd.packed_dominance_reference(merged)
+    b3 = compare_exact(f"packed_dominance, NSGA-III merged fitness n={n} m={MO_M}", got, want)
+    b3["ms"] = _time_ms(lambda: kd.packed_dominance(merged, device=merged.device), 3, 20)
+    b3["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(merged), 1, 3)
+    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(n, MO_M))
+    out["packed_dominance"] = b3
+
+    # one selection on the card against the CPU's plain route
+    cpu_algo = NSGA3(algo.lb.cpu(), algo.ub.cpu(), n_objs=MO_M, pop_size=MO_POP, device="cpu")
+    if not torch.equal(cpu_algo.refs, algo.refs.cpu()):
+        raise AssertionError("NSGA-III: the reference directions differ between the card and the CPU")
+    sel_card, rank_card = algo.select_mask(merged)
+    t0 = time.perf_counter()
+    sel_cpu, rank_cpu = cpu_algo.select_mask(merged.cpu())
+    cpu_s = time.perf_counter() - t0
+    differ = sel_card.cpu() != sel_cpu
+    if differ.any() or not torch.equal(rank_card.cpu(), rank_cpu):
+        # the near-ties that decided each difference: association and distance
+        c_args, h_args = niching_inputs(merged), niching_inputs(merged.cpu())
+        for i in torch.nonzero(differ)[:20, 0].tolist():
+            print(f"[nsga3 select] row {i}: card pi {int(c_args[2][i])} dist {float(c_args[3][i])!r}"
+                  f"; cpu pi {int(h_args[2][i])} dist {float(h_args[3][i])!r}", flush=True)
+    out["select_vs_cpu"] = compare_exact(
+        "NSGA-III selection on the card against the CPU (survivor mask, ranks)",
+        [sel_card.cpu(), rank_card.cpu()], [sel_cpu, rank_cpu])
+    out["select_vs_cpu"]["cpu_select_s"] = cpu_s
+    if profile:
+        out["profile"] = profile_path(torch, wf, state, wall, gens)
+    return out
+
+
+def mo_family_makers(torch) -> dict:
+    """The family phase's algorithms at pop ``MO_FAMILY_POP`` requested, each
+    with the B3 launches it makes a generation."""
+    from evox_tpu_torch.algorithms import mo
+
+    lb, ub = torch.zeros(MOEAD_D), torch.ones(MOEAD_D)
+
+    def make(cls):
+        return lambda: cls(lb, ub, n_objs=MO_M, pop_size=MO_FAMILY_POP)
+
+    return {
+        "MOEADDRA": (make(mo.MOEADDRA), 0),
+        "MOEADM2M": (make(mo.MOEADM2M), 1),  # the full sort of its tell
+        "EAGMOEAD": (make(mo.EAGMOEAD), 1),  # the archive's selection
+        "RVEA": (make(mo.RVEA), 0),
+        "RVEAa": (make(mo.RVEAa), 0),
+        "TDEA": (make(mo.TDEA), 1),  # the sort to the cut of its selection
+        "LMOCSO": (make(mo.LMOCSO), 0),
+    }
+
+
+def phase_mo_family(torch, gens: int, seed: int) -> dict:
+    """The rest of the decomposition and reference-vector family, ``gens``
+    generations each on DTLZ2(d=12, m=3) at pop 1000 requested: ms a
+    generation, IGD after the run, launches checked."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    out = {}
+    for name, (make, b3) in mo_family_makers(torch).items():
+        algo = make()
+        wf = StdWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M))
+        state, wall, launches = run_mo_path(torch, wf, gens, seed, {"packed_dominance": b3 * gens})
+        row = {"pop": algo.pop_size, "generations": gens, "ms_per_generation": wall / gens * 1e3,
+               "launches": launches, **mo_quality(torch, wf, state)}
+        if b3:
+            row["n"] = 2 * algo.pop_size  # B3's input: parents and offspring
+        print(f"[mo family] {name}: {json.dumps(row)}", flush=True)
+        out[name] = row
+    return out
+
+
+def phase_dtlz(torch, seed: int) -> dict:
+    """DTLZ1-7 evaluated on the card against the CPU at pop 9870 (m 3, each
+    at its default d), and DTLZ7's ``pf()``, which sorts on B3, against the
+    CPU's."""
+    from evox_tpu_torch.operators.sampling import UniformSampling
+    from evox_tpu_torch.problems import numerical
+
+    out = {}
+    g = torch.Generator().manual_seed(seed)
+    for i in range(1, 8):
+        prob = getattr(numerical, f"DTLZ{i}")(m=MO_M)
+        pop = torch.rand((MO_SUBPROBLEMS, prob.d), generator=g)
+        got, _ = prob.evaluate(None, pop.cuda())
+        want, _ = prob.evaluate(None, pop)
+        # the card's cosf/sinf/powf and the CPU's differ by an ulp or two;
+        # DTLZ1's and DTLZ3's g scale a sum of cosines by 100
+        out[f"DTLZ{i}"] = compare(f"DTLZ{i} (m 3, d {prob.d}, pop {MO_SUBPROBLEMS}) on the card "
+                                  "against the CPU",
+                                  got.cpu(), want, rtol=1e-5, atol=1e-5)
+    card, cpu = numerical.DTLZ7(m=MO_M), numerical.DTLZ7(m=MO_M, device="cpu")
+    torch.cuda.synchronize()
+    reset_launches()
+    pf = card.pf()
+    torch.cuda.synchronize()
+    launches = read_launches()["packed_dominance"]
+    if launches != 1:
+        raise AssertionError(f"DTLZ7.pf() launched packed_dominance {launches} times, expected 1")
+    pf_cpu = cpu.pf()
+    if pf.shape != pf_cpu.shape:
+        raise AssertionError(f"DTLZ7.pf(): {tuple(pf.shape)} on the card, {tuple(pf_cpu.shape)} on the CPU")
+    out["DTLZ7_pf"] = compare("DTLZ7.pf() on the card against the CPU", pf.cpu(), pf_cpu,
+                              rtol=1e-6, atol=1e-6)
+    out["DTLZ7_pf"].update({"launches": launches,
+                            "n": UniformSampling(card.ref_num * 10, MO_M - 1, device="cpu")()[1]})
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
     if name == "packed_dominance":
         arch = paths["monitor_archive"]
+        nsga3 = paths["nsga3"]
+        family = paths["mo_family"]
+        b3 = {key: nsga3["packed_dominance"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "max_abs_err")}
         return [{"caller": "non_dominated_sort in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
                  "m": LSMOP_M, "launches": paths["nsga2"]["launches"][name]},
                 {"caller": "EvalMonitor Pareto archive (two updates)", "n": arch["n"], "m": arch["m"],
                  "launches": arch["launches"][name], "ms_per_update": arch["ms_per_update"],
-                 **arch["packed_dominance"]}]
+                 **arch["packed_dominance"]},
+                {"caller": "non_dominated_sort(until=k) in NSGA-III's select (path 8)",
+                 "n": nsga3["merged_n"], "m": MO_M, "launches": nsga3["launches"][name], **b3},
+                *({"caller": f"{algo}'s tell (the MO family phase)", "n": family[algo]["n"], "m": MO_M,
+                   "launches": family[algo]["launches"][name]}
+                  for algo in ("MOEADM2M", "TDEA", "EAGMOEAD")),
+                {"caller": "DTLZ7.pf() (the DTLZ phase)", "n": paths["dtlz"]["DTLZ7_pf"]["n"],
+                 "m": MO_M, "launches": paths["dtlz"]["DTLZ7_pf"]["launches"]}]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     return [{"caller": "rank_crowding_truncate in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
@@ -2211,6 +2591,16 @@ def main() -> int:
     print(f"[pgpe walker path] {json.dumps(paths['pgpe_walker'])}", flush=True)
     torch.cuda.empty_cache()
     paths["es_family"] = phase_es_family(torch, ES_GENERATIONS, SEED)
+    # 8. main paths 7 (MOEA/D on DTLZ2) and 8 (NSGA-III on DTLZ1), the rest
+    # of their family, and DTLZ on the card against the CPU
+    torch.cuda.empty_cache()
+    paths["moead"] = phase_moead_path(torch, GENERATIONS, SEED, args.profile)
+    print(f"[moead path] {json.dumps(paths['moead'])}", flush=True)
+    paths["nsga3"] = phase_nsga3_path(torch, GENERATIONS, SEED, args.profile)
+    print(f"[nsga3 path] {json.dumps(paths['nsga3'])}", flush=True)
+    torch.cuda.empty_cache()
+    paths["mo_family"] = phase_mo_family(torch, MO_GENERATIONS, SEED)
+    paths["dtlz"] = phase_dtlz(torch, SEED)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -2235,10 +2625,15 @@ def main() -> int:
         "cmaes_card_vs_cpu": paths["cmaes_card_vs_cpu"],
         "pgpe_walker_path": paths["pgpe_walker"],
         "es_family": paths["es_family"],
+        "moead_path": paths["moead"],
+        "nsga3_path": paths["nsga3"],
+        "mo_family": paths["mo_family"],
+        "dtlz": paths["dtlz"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))
+    print(smi, flush=True)  # the card's name and power limit again, near the verdict
     print(json.dumps(line), flush=True)
     print(json.dumps({
         "ok": True,

@@ -12,6 +12,12 @@ Randomness: the state holds an integer ``seed``; ``ask`` splits it into a
 mating seed and a variation seed, and each operator draws from its own
 ``torch.Generator``. The initial population is drawn by
 :func:`uniform_init`, through the one method ``_init_population``.
+Algorithms with an ``ask`` of their own make every draw of a generation in
+one ``_draw`` method (:func:`draw_variation` for the SBX and polynomial
+parts), which the tests replace with the JAX package's draws. A draw with
+probabilities takes only its uniforms from ``_draw``: ``ask`` works out the
+probabilities and turns them into indices by :func:`weighted_indices`, so
+both meet the JAX package in the tests.
 """
 
 from __future__ import annotations
@@ -41,6 +47,64 @@ def uniform_init(
     """``(pop_size, dim)`` uniform in ``[lb, ub)``, on ``lb``'s device."""
     u = torch.rand((pop_size, lb.shape[0]), generator=generator(seed, lb.device), device=lb.device)
     return u * (ub - lb) + lb
+
+
+def draw_variation(g: torch.Generator, n_pairs: int, n_rows: int, dim: int,
+                   device: torch.device) -> dict:
+    """The draws of SBX over ``n_pairs`` parent pairs (``u_sbx``) and of the
+    polynomial mutation of ``n_rows`` rows at its default rate 1/dim
+    (``site``, ``u_pm``)."""
+    return {
+        "u_sbx": torch.rand((n_pairs, dim), generator=g, device=device),
+        "site": torch.rand((n_rows, dim), generator=g, device=device) < 1.0 / dim,
+        "u_pm": torch.rand((n_rows, dim), generator=g, device=device),
+    }
+
+
+def sbx_first_children(parents: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
+                       draws: dict) -> torch.Tensor:
+    """One child per parent pair: SBX over ``parents`` (pairs of consecutive
+    rows), the first child of each pair, then polynomial mutation."""
+    off = simulated_binary(0, parents, u=draws["u_sbx"])[0::2]
+    return polynomial(0, off, (lb, ub), site=draws["site"], u=draws["u_pm"])
+
+
+CUMSUM_BLOCK = 16
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The cumulative sum of ``x`` ``(n,)`` in the order XLA's CPU backend
+    adds it (the JAX package's ``jnp.cumsum`` in the tests): blocks of
+    ``CUMSUM_BLOCK`` summed left to right, the blocks' totals by the same
+    rule, each block's carry added to its sums. ``torch.cumsum`` rounds in
+    another order, and a draw with probabilities would then pick the
+    neighbouring index now and then. Elementwise adds only: the card and the
+    CPU round alike."""
+    n = x.shape[0]
+    if n <= CUMSUM_BLOCK:
+        blocks = x[None]
+    else:
+        pad = -n % CUMSUM_BLOCK
+        blocks = torch.cat([x, x.new_zeros((pad,))]).reshape(-1, CUMSUM_BLOCK)
+    cols = [blocks[:, 0]]
+    for j in range(1, blocks.shape[1]):
+        cols.append(cols[-1] + blocks[:, j])
+    inner = torch.stack(cols, dim=1)
+    if n <= CUMSUM_BLOCK:
+        return inner[0]
+    carry = torch.cat([x.new_zeros((1,)), blocked_cumsum(inner[:, -1])[:-1]])
+    return (carry[:, None] + inner).reshape(-1)[:n]
+
+
+def weighted_indices(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Indices drawn with probabilities ``p`` (``(n,)``, not necessarily
+    normalised) from the uniform draw ``u``, as ``jax.random.choice(key, n,
+    u.shape, p=p)`` draws them: a left search of ``cumsum(p)`` (summed as
+    :func:`blocked_cumsum` sums it) for ``total * (1 - u)``, so a flat
+    stretch of the sums goes to its first index. No host read, and no error
+    on an all-zero ``p`` (index 0)."""
+    cum = blocked_cumsum(p)
+    return torch.searchsorted(cum, cum[-1] * (1.0 - u)).clamp_max(p.shape[0] - 1)
 
 
 class GAMOAlgorithm(Algorithm):

@@ -11,9 +11,17 @@ empty; adam's holds count, mu and nu), the GA-skeleton MO states
 and PSO-family states (every field the two states share by name), the
 EvalMonitor state, the states of the rest of the ES family (CMA-ES,
 PGPE and the others, through ``es_state``; the ClipUp velocity too), the
-workflow's generation and first-step flag,
+decomposition and reference-vector MOEAs' states (MOEA/D and its
+variants, EAG-MOEA/D, RVEA, RVEAa, LMOCSO; NSGA-III and TDEA through
+``mo_state``), the workflow's generation and first-step flag,
 populations and genomes as ``(pop, dim)`` arrays, and ``mlp_policy``
 params trees.
+
+Constants an algorithm builds in its constructor can be replaced by the
+JAX package's where a float tie decides them: ``set_neighbors`` (MOEA/D's
+neighbour table, and its variants') and ``set_reference_vectors``
+(NSGA-III's, TDEA's, RVEA's, LMOCSO's unit reference directions and
+MOEA/D-M2M's subregion directions).
 
 What cannot cross: PRNG keys. JAX's threefry keys and the port's integer
 seeds for ``torch.Generator`` name unrelated streams, so the port's states
@@ -29,6 +37,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .algorithms import mo as _mo
 from .algorithms.mo.common import GAMOAlgorithm, MOState
 from .algorithms.mo.nsga2 import NSGA2, NSGA2State
 from .algorithms.so import es as _es
@@ -178,6 +187,46 @@ def es_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
     return _carry_by_name(algo, jax_state, seed)
 
 
+def mo_family_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """The state of MOEAD, MOEADDRA, MOEADM2M, EAGMOEAD, RVEA, RVEAa or
+    LMOCSO from the JAX package's (numpy leaves): every field the two
+    states share by name (``ideal``, ``utility``, ``old_value``,
+    ``success``, ``offspring_loc``, ``vectors``, ``velocity`` and the
+    rest), the device counter ``gen`` as the port's host integer. The key
+    does not cross: the port's seed starts from ``seed``."""
+    return _carry_by_name(algo, jax_state, seed)
+
+
+def set_neighbors(algo: Any, table: Any) -> None:
+    """Replace a MOEA/D-family algorithm's ``(n, T)`` neighbour table with
+    ``table`` (the JAX package's ``algo.neighbors``, as numpy)."""
+    arr = np.asarray(table)
+    want = tuple(algo.neighbors.shape)
+    if arr.shape != want:
+        raise ValueError(f"neighbors has shape {arr.shape}, expected {want}")
+    if arr.size and (arr.min() < 0 or arr.max() >= algo.pop_size):
+        raise ValueError(f"neighbors index outside [0, {algo.pop_size})")
+    algo.neighbors = torch.from_numpy(arr.astype(np.int64)).to(algo.device)
+
+
+# algorithm class -> the attribute holding its unit reference directions
+_REFERENCE_ATTRS = {_mo.NSGA3: "refs", _mo.TDEA: "refs", _mo.RVEA: "v0", _mo.RVEAa: "v0",
+                    _mo.LMOCSO: "vectors", _mo.MOEADM2M: "dirs"}
+
+
+def set_reference_vectors(algo: Any, vectors: Any) -> None:
+    """Replace the unit reference directions an algorithm built from
+    Das-Dennis points (NSGA3's and TDEA's ``refs``, RVEA's and RVEAa's
+    ``v0``, LMOCSO's ``vectors``, MOEADM2M's ``dirs``) with the JAX
+    package's, as numpy. Build the state after this call: RVEA's state
+    starts from ``v0``."""
+    name = _REFERENCE_ATTRS.get(type(algo))
+    if name is None:
+        raise NotImplementedError(f"{type(algo).__name__} has no reference vectors to set")
+    ours = getattr(algo, name)
+    setattr(algo, name, _tensor(vectors, np.float32, tuple(ours.shape), name, algo.device))
+
+
 def eval_monitor_state(monitor: EvalMonitor, jax_state: Any) -> EvalMonitorState:
     """``EvalMonitorState`` from the JAX package's (numpy leaves; solutions
     may be trees of dicts and lists): every buffer in its own dtype on the
@@ -217,7 +266,11 @@ def std_workflow_state(
 
 
 # algorithm class -> the carry-over of its state
-_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state}
+_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state, _mo.NSGA3: mo_state, _mo.TDEA: mo_state}
+_ALGO_STATES.update({
+    cls: mo_family_state
+    for cls in (_mo.MOEAD, _mo.MOEADDRA, _mo.MOEADM2M, _mo.EAGMOEAD, _mo.RVEA, _mo.RVEAa, _mo.LMOCSO)
+})
 _ALGO_STATES.update({
     getattr(_es, name): es_state
     for name in _es.__all__

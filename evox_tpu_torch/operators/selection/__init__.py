@@ -15,6 +15,7 @@ from .non_dominate import (
     non_dominated_sort,
     rank_crowding_truncate,
 )
+from .rvea_selection import ref_vec_guided, ref_vec_guided_indices
 
 __all__ = [
     "NonDominate",
@@ -24,6 +25,8 @@ __all__ = [
     "non_dominate_indices",
     "non_dominated_sort",
     "rank_crowding_truncate",
+    "ref_vec_guided",
+    "ref_vec_guided_indices",
     "roulette_wheel",
     "select_rand_pbest",
     "topk_fit",

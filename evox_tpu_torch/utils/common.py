@@ -6,7 +6,12 @@
 - ``parse_opt_direction``: min/max → ±1 per objective.
 - ``rank_based_fitness``: centered ranks in [-0.5, 0.5].
 - ``dominate_relation``: the Pareto-dominance matrix (minimisation).
-- ``pairwise_euclidean_dist``: ``(n, m)`` distances between two point sets.
+- ``pairwise_euclidean_dist``: ``(n, m)`` distances between two point sets;
+  ``pairwise_manhattan_dist``, ``pairwise_chebyshev_dist``, ``cos_dist``.
+- ``inner_products``, ``sum_last``, ``row_norm``, ``sqrt_rn``: products,
+  sums and square roots over a short last axis (objectives) by
+  elementwise steps in index order, correctly rounded, which give the same
+  bits on the card and on the CPU.
 - ``lexsort``: ``jnp.lexsort`` from successive stable sorts.
 - ``generator``: a ``torch.Generator`` seeded from an integer.
 - ``float_vector``: a float32 copy of a bound or other vector argument.
@@ -164,6 +169,56 @@ def pairwise_euclidean_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = torch.sum(y * y, dim=1, keepdim=True)
     sq = x2 - 2.0 * (x @ y.T) + y2.T
     return torch.sqrt(torch.clamp_min(sq, 0.0))
+
+
+def pairwise_manhattan_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.abs(x[:, None, :] - y[None, :, :]), dim=-1)
+
+
+def pairwise_chebyshev_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(x[:, None, :] - y[None, :, :]), dim=-1)
+
+
+def sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, added in index order one elementwise step at
+    a time. A reduction kernel may add in another order on the card than on
+    the CPU; these steps round alike on both."""
+    total = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        total = total + x[..., j]
+    return total
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float32 tensor. The card's is;
+    PyTorch's vectorised CPU one can be an ulp off (about one float32 input
+    in six with AVX-512), so the root is taken in float64 and rounded back,
+    which gives the correctly rounded float32 root on both."""
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def row_norm(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, squares added in index order."""
+    return sqrt_rn(sum_last(x * x))
+
+
+def inner_products(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``(n, k)``, ``(m, k)`` -> ``(n, m)``: ``x @ y.T`` for a short inner
+    axis ``k`` (objectives), summed in index order by elementwise steps.
+    cuBLAS and the CPU's BLAS may round the same product differently, and
+    the callers' argmax and argsort turn on its last bits."""
+    out = torch.mul(x[:, None, 0], y[None, :, 0])
+    tmp = torch.empty_like(out)
+    for j in range(1, x.shape[1]):
+        torch.mul(x[:, None, j], y[None, :, j], out=tmp)
+        out.add_(tmp)
+    return out
+
+
+def cos_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``(n, d)``, ``(m, d)`` -> ``(n, m)`` cosine similarity, for a short
+    ``d`` (through :func:`inner_products`)."""
+    return inner_products(x / row_norm(x)[:, None], y / row_norm(y)[:, None])
 
 
 def dominate_relation(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

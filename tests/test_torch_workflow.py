@@ -296,12 +296,9 @@ def _imported_roots(path):
 
 
 def test_port_and_chip_smoke_sources_name_no_jax_import():
-    files = sorted((REPO / "evox_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "torch_fmad_ab.py",
-        REPO / "tools" / "torch_walker_ab.py", REPO / "tools" / "torch_kernel_ab.py",
-        REPO / "tools" / "torch_kernel_split.py", REPO / "tools" / "torch_tanh_branches.py",
-    ]
-    assert len(files) > 10
+    tools = sorted((REPO / "tools").glob("torch_*.py"))
+    files = sorted((REPO / "evox_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + tools
+    assert len(files) > 10 and REPO / "tools" / "torch_topk_sweep.py" in tools
     for path in files:
         for mod in _imported_roots(path):
             assert not (mod in ("jax", "evox_tpu") or mod.startswith(("jax.", "evox_tpu."))), (
