@@ -116,7 +116,8 @@ exit 0):
    ESMC 1025, d 100) with an EvalMonitor: SepCMAES, IPOPCMAES, MAES,
    LMMAES, RMES, XNES, SeparableNES, SNES, CR_FM_NES, ARS, ASEBO,
    GuidedES, PersistentES, NoiseReuseES, ESMC, DES, AMaLGaM and
-   IndependentAMaLGaM. ARS's tell launches ``partial_topk`` once a
+   IndependentAMaLGaM, and LES with its bundled meta-trained parameters.
+   ARS's tell launches ``partial_topk`` once a
    generation (n 512, k 51) beside the monitor's: its last tell equals a
    tell on the plain route, and B4 at that shape is timed beside
    ``torch.topk``. ``RestartCMAESDriver`` for 2 restarts (pop 17, then 34).
@@ -145,8 +146,29 @@ exit 0):
    (990 vectors; B3 once a generation in MOEADM2M's, TDEA's and EAGMOEAD's
    tells), ms a generation and IGD; DTLZ1-7 on the card against the CPU at
    pop 9870, and DTLZ7's ``pf()`` (one B3 launch) against the CPU's.
-13. a ``{"kernels": [...]}`` line (B2, B3 and B4 with their call sites),
-   then the last line ``{"ok": true, "device": {...}}``.
+13. main path 9: ``StdWorkflow(SHADE(lb=-32·1, ub=32·1, pop 4096, d 1024,
+   memory_size 100), Ackley())`` (``bench.py:134-185``'s Ackley workload
+   at path 4's shape) — init, the init step and one warm-up generation,
+   then ``run`` for 20 generations, counters as above: one
+   ``partial_topk`` launch a generation (SHADE's pbest cut, n 4096, k 819)
+   and no other. Checks the population within bounds, finite fitness and a
+   best that did not rise, the cut on the card against a stable argsort,
+   B4 at (4096, 819) against its plain version and beside ``torch.topk``;
+   reports ms a generation, generations/s, evals/s (pop a generation) and
+   a split (ask, Ackley, tell). One SHADE generation on the card against
+   the CPU from that state, on the same draws and the same fitness handed
+   to both tells (pbest rows, trials, population, fitness, archive, its
+   size, the memory position, F, CR and the attribution bit for bit; M_F
+   and M_CR within 1e-4 relative).
+14. the DE family: DE (rand/1 and best/2), ODE, CoDE (3·pop evaluations a
+   generation), SaDE, JaDE and SHADE, 10 generations each on Sphere (pop
+   1024, d 100), launches counted (JaDE's and SHADE's pbest cut: one B4
+   launch a generation), ms a generation and the best fitness; JaDE's cut
+   (n 1024, k 51) against the plain route and beside ``torch.topk``. CEC
+   2022 F1-F12 at d 2, 10 and 20 (F6-F8 at 10 and 20) on the card against
+   the CPU at 1024 points each, and each member at its optimum.
+15. a ``{"kernels": [...]}`` line (B1-B4 with their call sites), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -206,6 +228,12 @@ MOEAD_D, NSGA3_D = 12, 7
 HV_REF = (1.1, 1.1, 1.1)  # the hypervolume's reference point
 # the rest of the decomposition and reference-vector family on DTLZ2(d 12)
 MO_FAMILY_POP, MO_GENERATIONS = 1000, 10
+# main path 9: bench.py:134-185's Ackley workload and shape (path 4's), with
+# SHADE at its default memory size; SHADE's pbest cut on B4 once a generation
+SHADE_POP, SHADE_DIM, SHADE_BOUND, SHADE_MEMORY = 4096, 1024, 32.0, 100
+# the DE family on Sphere, a few generations each
+DE_POP, DE_DIM, DE_GENERATIONS = 1024, 100, 10
+CEC_ROWS = 1024  # CEC 2022's points a member and dimension, card against CPU
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
@@ -1978,6 +2006,7 @@ def es_family_makers(torch, n: int, dim: int) -> dict:
         "DES": lambda: es.DES(c, 1.0, pop_size=n),
         "AMaLGaM": lambda: es.AMaLGaM(c, 1.0, pop_size=n),
         "IndependentAMaLGaM": lambda: es.IndependentAMaLGaM(c, 1.0, pop_size=n),
+        "LES": lambda: es.LES(c, 1.0, pop_size=n),  # its bundled meta-trained parameters
     }
 
 
@@ -2417,6 +2446,265 @@ def phase_dtlz(torch, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------- main path 9, DE family, CEC 2022
+
+
+def build_shade_path(torch, pop: int = SHADE_POP, dim: int = SHADE_DIM, device=None):
+    """Main path 9 as a user builds it: SHADE on the port's Ackley at path
+    4's shape (``bench.py:134-185``'s workload). ``pop``, ``dim`` and
+    ``device`` exist for a rehearsal on the CPU at a small size."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.de import SHADE
+    from evox_tpu_torch.problems.numerical import Ackley
+
+    bound = torch.full((dim,), SHADE_BOUND)
+    algo = SHADE(lb=-bound, ub=bound, pop_size=pop, memory_size=SHADE_MEMORY, device=device)
+    return StdWorkflow(algo, Ackley(), device=device)
+
+
+def state_to(state, device):
+    """A copy of an algorithm state with every tensor (nested states too) on
+    ``device``."""
+    import dataclasses
+
+    import torch
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if dataclasses.is_dataclass(v):
+            return v.replace(**{f.name: move(getattr(v, f.name)) for f in dataclasses.fields(v)})
+        return v
+
+    return move(state)
+
+
+def topk_row(torch, v, k: int, name: str) -> dict:
+    """``partial_topk`` on ``v`` held against its plain version, and timed
+    beside ``torch.topk`` (CUDA events, device time, host time) and its
+    bound."""
+    from evox_tpu_torch.kernels import topk as kt
+
+    check = compare_exact(f"{name} (n={v.shape[0]}, k={k}) against the plain route",
+                          kt.partial_topk(v, k), kt.partial_topk_reference(v, k))
+    b4 = lambda: kt.partial_topk(v, k)
+    lib = lambda: torch.topk(v, k, largest=False)
+    row = {"n": v.shape[0], "k": k, "ms": _time_ms(b4, 20, 200), "library_ms": _time_ms(lib, 20, 200),
+           "device_us": device_us_per_call(torch, b4),
+           "library_device_us": device_us_per_call(torch, lib),
+           "host_us": host_us_per_call(torch, b4), "library_host_us": host_us_per_call(torch, lib),
+           "plain_ms": _time_ms(lambda: kt.partial_topk_reference(v, k), 5, 50),
+           "max_abs_err": check["max_abs_err"]}
+    row["bound_ms"], row["bound_by"] = bound_ms(*topk_work(v.shape[0], k))
+    print(f"[{name}] {json.dumps(row)}", flush=True)
+    return row
+
+
+def phase_shade_path(torch, gens: int, seed: int, profile: bool) -> tuple:
+    """Main path 9: SHADE(±32, d 1024, pop 4096, memory 100) on Ackley —
+    the init step, one warm-up generation, then ``gens`` timed generations
+    with every count set to 0 just before and read just after: one
+    ``partial_topk`` launch a generation (the pbest cut) and no other. Then
+    the cut on the card against a stable argsort, B4 at (4096, k) against
+    its plain version and ``torch.topk``, the split, and the profile.
+    Returns ``(results, workflow, final state)``."""
+    from evox_tpu_torch.algorithms.so.de.common import pbest_cut, sort_key
+
+    wf = build_shade_path(torch)
+    algo = wf.algorithm
+    state = wf.step(wf.step(wf.init(seed)))  # the init step, then a warm-up generation
+    best_warm = float(state.algo.fitness.min())
+    torch.cuda.synchronize()
+
+    reset_launches()  # every count to 0 just before the run
+    t0 = time.perf_counter()
+    state = wf.run(state, gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()  # read just after
+    want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": gens, "fused_mlp_rollout": 0}
+    if launches != want:
+        raise AssertionError(f"launches in {gens} SHADE generations: {launches}, expected {want}")
+    if state.generation != gens + 2:
+        raise AssertionError(f"generation {state.generation} != {gens + 2}")
+    _check_swarm(torch, "SHADE path", algo, state.algo.population)
+    fit = state.algo.fitness
+    best = float(fit.min())
+    if not (torch.isfinite(fit).all() and best <= best_warm):
+        raise AssertionError(f"SHADE path: fitness not finite or the best rose ({best_warm} -> {best})")
+    k = algo.pbest_k
+    stable = torch.argsort(fit, stable=True)[:k]
+    cut = compare_exact(f"SHADE's pbest cut (n={algo.pop_size}, k={k}) against a stable argsort",
+                        [pbest_cut(fit, k)], [stable])
+    out = {
+        "generations": gens,
+        "pop": algo.pop_size,
+        "dim": algo.dim,
+        "memory_size": algo.H,
+        "pbest_k": k,
+        "launches": launches,
+        "wall_s": wall,
+        "ms_per_generation": wall / gens * 1e3,
+        "generations_per_s": gens / wall,
+        "evals_per_s": gens * algo.pop_size / wall,
+        "best_fitness_warmup": best_warm,
+        "best_fitness": best,
+        "archive_size": int(state.algo.archive_size),
+        "mem_pos": int(state.algo.mem_pos),
+        "pbest_cut_vs_argsort": cut,
+        "topk": topk_row(torch, sort_key(fit), k, "shade topk"),
+        "breakdown_ms": mo_breakdown(torch, wf, state, {}),
+    }
+    if profile:
+        out["profile"] = profile_path(torch, wf, state, wall, gens)
+    return out, wf, state
+
+
+def phase_shade_card_vs_cpu(torch, wf, state, seed: int) -> dict:
+    """One SHADE generation on the card against the same generation on the
+    CPU, from path 9's last state, with the same draws (made on the CPU and
+    moved) and the same fitness handed to both tells (Ackley of the CPU's
+    trials, so its transcendental last bits decide no selection)."""
+    from evox_tpu_torch.algorithms.so.de import SHADE
+    from evox_tpu_torch.problems.numerical import ackley_func
+
+    card = wf.algorithm
+    cpu = SHADE(lb=card.lb.cpu(), ub=card.ub.cpu(), pop_size=card.pop_size, memory_size=card.H,
+                device="cpu")
+    card_state = state.algo
+    cpu_state = state_to(card_state, "cpu")
+    draws = cpu._draw(seed + 1)
+    cpu._draw = lambda s: draws
+    card._draw = lambda s: {name: d.cuda() for name, d in draws.items()}
+    try:
+        cand_card, after_card = card.ask(card_state)
+        cand_cpu, after_cpu = cpu.ask(cpu_state)
+        pbest = compare_exact("SHADE pbest rows, card against CPU",
+                              [card.pbest_indices(card_state.fitness, draws["p"].cuda(),
+                                                  draws["u_pbest"].cuda()).cpu()],
+                              [cpu.pbest_indices(cpu_state.fitness, draws["p"], draws["u_pbest"])])
+        trials = compare_exact("SHADE trials, card against CPU", [cand_card.cpu()], [cand_cpu])
+        fit = ackley_func(cand_cpu)
+        got = card.tell(after_card, fit.cuda())
+        want = cpu.tell(after_cpu, fit)
+    finally:
+        del card._draw
+    out = {"pbest": pbest, "trials": trials, "replaced": int(want.attrib.success.sum()),
+           "archive_size": int(want.archive_size), "mem_pos": int(want.mem_pos)}
+    out["state"] = compare_exact(
+        "SHADE tell, card against CPU (population, fitness, archive, archive_size, mem_pos, F, CR, "
+        "attribution)",
+        [got.population.cpu(), got.fitness.cpu(), got.archive.cpu(), got.archive_size.cpu(),
+         got.mem_pos.cpu(), got.F.cpu(), got.CR.cpu(), got.attrib.success.cpu(),
+         got.attrib.improvement.cpu()],
+        [want.population, want.fitness, want.archive, want.archive_size, want.mem_pos, want.F,
+         want.CR, want.attrib.success, want.attrib.improvement])
+    # M_F and M_CR take weighted sums over the 4096 candidates, which the
+    # card adds in another order than the CPU: n eps ~ 2.4e-4 relative at
+    # worst for positive terms, ~1e-6 in practice; 1e-4 relative
+    out["memory"] = compare("SHADE memories M_F and M_CR, card against CPU",
+                            torch.cat([got.M_F, got.M_CR]).cpu(), torch.cat([want.M_F, want.M_CR]),
+                            rtol=1e-4, atol=0.0)
+    return out
+
+
+def de_family_makers(torch) -> dict:
+    """The DE family phase's algorithms (pop 1024, d 100, ±10), each with
+    its B4 launches a generation and its evaluations a generation."""
+    from evox_tpu_torch.algorithms.so import de
+
+    lb, ub = torch.full((DE_DIM,), -10.0), torch.full((DE_DIM,), 10.0)
+    n = DE_POP
+    return {
+        "DE (rand/1)": (lambda: de.DE(lb, ub, n), 0, n),
+        "DE (best/2)": (lambda: de.DE(lb, ub, n, base_vector="best", num_difference_vectors=2), 0, n),
+        "ODE": (lambda: de.ODE(lb, ub, n), 0, n),
+        "CoDE": (lambda: de.CoDE(lb, ub, n), 0, 3 * n),  # three trials a parent
+        "SaDE": (lambda: de.SaDE(lb, ub, n), 0, n),
+        "JaDE": (lambda: de.JaDE(lb, ub, n), 1, n),  # the pbest cut
+        "SHADE": (lambda: de.SHADE(lb, ub, n), 1, n),
+    }
+
+
+def phase_de_family(torch, gens: int, seed: int) -> dict:
+    """The DE family for a few generations each on the card: Sphere, pop
+    1024, d 100; launches counted as on a main path (JaDE's and SHADE's
+    pbest cut: one B4 launch a generation), ms a generation and the best
+    fitness; JaDE's cut (n 1024, k 51) held against the plain route and
+    timed beside ``torch.topk``."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.de.common import sort_key
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    out = {}
+    for name, (make, b4, evals) in de_family_makers(torch).items():
+        algo = make()
+        wf = StdWorkflow(algo, Sphere())
+        state = wf.step(wf.init(seed))  # the init step: the population evaluated
+        best_warm, mean_warm = float(state.algo.fitness.min()), float(state.algo.fitness.mean())
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = wf.run(state, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": b4 * gens,
+                "fused_mlp_rollout": 0}
+        if launches != want:
+            raise AssertionError(f"{name}: {launches} in {gens} generations, expected {want}")
+        # greedy slot selection: the best cannot rise, and any success lowers
+        # the mean (the best slot itself need not improve in a few generations)
+        best, mean = float(state.algo.fitness.min()), float(state.algo.fitness.mean())
+        if not (math.isfinite(mean) and best <= best_warm and mean < mean_warm):
+            raise AssertionError(f"{name}: best fitness {best_warm} -> {best}, mean {mean_warm} "
+                                 f"-> {mean}")
+        _check_swarm(torch, name, algo, state.algo.population)
+        row = {"pop": algo.pop_size, "dim": DE_DIM, "generations": gens,
+               "evals_per_generation": evals, "ms_per_generation": wall / gens * 1e3,
+               "best_fitness_warmup": best_warm, "best_fitness": best, "mean_fitness_warmup": mean_warm,
+               "mean_fitness": mean, "launches": launches}
+        if name == "JaDE":
+            row["topk"] = topk_row(torch, sort_key(state.algo.fitness), algo.p_num, "jade topk")
+        print(f"[de family] {name}: {json.dumps(row)}", flush=True)
+        out[name] = row
+    return out
+
+
+def phase_cec2022(torch, seed: int) -> dict:
+    """CEC 2022 F1-F12 at every dimension the suite defines (F6-F8 at 10
+    and 20), on the card against the CPU at 1024 points in the box; each
+    member's optimum (the shift vector) on the card."""
+    from evox_tpu_torch.problems.numerical import cec2022
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for f in range(1, 13):
+        card = cec2022.CEC2022TestSuite.create(f)
+        cpu = cec2022.CEC2022TestSuite.create(f, device="cpu")
+        for d in cec2022.SUPPORTED_DIMS:
+            if d not in cec2022.HYBRID_DIMS and f in (6, 7, 8):
+                continue
+            x = torch.rand((CEC_ROWS, d), generator=g) * 200.0 - 100.0
+            x[0] = cpu.shift[:d] if cpu.shift.ndim == 1 else cpu.shift[0, :d]
+            got, _ = card.evaluate(None, x.cuda())
+            want, _ = cpu.evaluate(None, x)
+            # the card's and the CPU's sin, cos, exp and pow differ by an ulp
+            # or two and the rotations' products add in other orders; a
+            # Schwefel part keeps a few ulps of its 418.98 k constant (4.9e-4
+            # at d 20) near the optimum (tests/test_torch_cec2022.py)
+            schwefel = f in (7, 8, 10, 11, 12)
+            row = compare(f"CEC2022 F{f} (d {d}, {CEC_ROWS} points) on the card against the CPU",
+                          got.cpu(), want, rtol=1e-4, atol=4e-3 if schwefel else 1e-6)
+            opt = float(got[0])
+            # 0, or the float32 residue of a Schwefel or Ackley constant
+            if not (opt == 0.0 or (f in (7, 8, 10) and 0.0 < opt <= 4e-3)):
+                raise AssertionError(f"CEC2022 F{f} (d {d}) at its optimum: {opt}")
+            row["at_optimum"] = opt
+            out[f"F{f}_d{d}"] = row
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -2440,13 +2728,19 @@ def monitor_callers(name: str, paths: dict) -> list:
                  "m": MO_M, "launches": paths["dtlz"]["DTLZ7_pf"]["launches"]}]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
+    shade = paths["shade"]
+    jade = paths["de_family"]["JaDE"]
     return [{"caller": "rank_crowding_truncate in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
              "k": NSGA2_POP, "launches": paths["nsga2"]["launches"][name]},
             {"caller": "EvalMonitor elite (path 4, monitored run)",
              "n": CSO_POP // 2 + MONITOR_TOPK, "k": MONITOR_TOPK,
              "launches": mon["launches"][name], "shapes": mon["topk_at_monitor_shapes"]},
             {"caller": "ARS's tell (the ES family phase)", "n": ars["topk"]["n"],
-             "k": ars["topk"]["k"], "launches": ars["tell_topk_launches"], "shapes": [ars["topk"]]}]
+             "k": ars["topk"]["k"], "launches": ars["tell_topk_launches"], "shapes": [ars["topk"]]},
+            {"caller": "SHADE's pbest cut in its ask (path 9)", "n": shade["topk"]["n"],
+             "k": shade["topk"]["k"], "launches": shade["launches"][name], "shapes": [shade["topk"]]},
+            {"caller": "JaDE's pbest cut in its ask (the DE family phase)", "n": jade["topk"]["n"],
+             "k": jade["topk"]["k"], "launches": jade["launches"][name], "shapes": [jade["topk"]]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -2601,6 +2895,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["mo_family"] = phase_mo_family(torch, MO_GENERATIONS, SEED)
     paths["dtlz"] = phase_dtlz(torch, SEED)
+    # 9. main path 9 (SHADE on Ackley) and one of its generations against the
+    # CPU, the DE family, and CEC 2022 on the card against the CPU
+    paths["shade"], wf9, state9 = phase_shade_path(torch, GENERATIONS, SEED, args.profile)
+    print(f"[shade path] {json.dumps(paths['shade'])}", flush=True)
+    paths["shade_card_vs_cpu"] = phase_shade_card_vs_cpu(torch, wf9, state9, SEED)
+    del wf9, state9
+    paths["de_family"] = phase_de_family(torch, DE_GENERATIONS, SEED)
+    paths["cec2022"] = phase_cec2022(torch, SEED)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -2629,6 +2931,10 @@ def main() -> int:
         "nsga3_path": paths["nsga3"],
         "mo_family": paths["mo_family"],
         "dtlz": paths["dtlz"],
+        "shade_path": paths["shade"],
+        "shade_card_vs_cpu": paths["shade_card_vs_cpu"],
+        "de_family": paths["de_family"],
+        "cec2022": paths["cec2022"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

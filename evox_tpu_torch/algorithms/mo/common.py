@@ -17,7 +17,8 @@ one ``_draw`` method (:func:`draw_variation` for the SBX and polynomial
 parts), which the tests replace with the JAX package's draws. A draw with
 probabilities takes only its uniforms from ``_draw``: ``ask`` works out the
 probabilities and turns them into indices by :func:`weighted_indices`, so
-both meet the JAX package in the tests.
+both meet the JAX package in the tests. ``blocked_cumsum`` and
+``weighted_indices`` live in ``utils/common.py`` and are re-exported here.
 """
 
 from __future__ import annotations
@@ -31,7 +32,14 @@ from ...core.device import DeviceLike, resolve_device
 from ...core.struct import PyTreeNode
 from ...operators.crossover.sbx import simulated_binary
 from ...operators.mutation.ops import polynomial
-from ...utils.common import float_vector, generator, split_seed
+from ...utils.common import (  # noqa: F401  (the cumsum helpers re-exported)
+    CUMSUM_BLOCK,
+    blocked_cumsum,
+    float_vector,
+    generator,
+    split_seed,
+    weighted_indices,
+)
 
 
 class MOState(PyTreeNode):
@@ -67,44 +75,6 @@ def sbx_first_children(parents: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor
     rows), the first child of each pair, then polynomial mutation."""
     off = simulated_binary(0, parents, u=draws["u_sbx"])[0::2]
     return polynomial(0, off, (lb, ub), site=draws["site"], u=draws["u_pm"])
-
-
-CUMSUM_BLOCK = 16
-
-
-def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """The cumulative sum of ``x`` ``(n,)`` in the order XLA's CPU backend
-    adds it (the JAX package's ``jnp.cumsum`` in the tests): blocks of
-    ``CUMSUM_BLOCK`` summed left to right, the blocks' totals by the same
-    rule, each block's carry added to its sums. ``torch.cumsum`` rounds in
-    another order, and a draw with probabilities would then pick the
-    neighbouring index now and then. Elementwise adds only: the card and the
-    CPU round alike."""
-    n = x.shape[0]
-    if n <= CUMSUM_BLOCK:
-        blocks = x[None]
-    else:
-        pad = -n % CUMSUM_BLOCK
-        blocks = torch.cat([x, x.new_zeros((pad,))]).reshape(-1, CUMSUM_BLOCK)
-    cols = [blocks[:, 0]]
-    for j in range(1, blocks.shape[1]):
-        cols.append(cols[-1] + blocks[:, j])
-    inner = torch.stack(cols, dim=1)
-    if n <= CUMSUM_BLOCK:
-        return inner[0]
-    carry = torch.cat([x.new_zeros((1,)), blocked_cumsum(inner[:, -1])[:-1]])
-    return (carry[:, None] + inner).reshape(-1)[:n]
-
-
-def weighted_indices(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Indices drawn with probabilities ``p`` (``(n,)``, not necessarily
-    normalised) from the uniform draw ``u``, as ``jax.random.choice(key, n,
-    u.shape, p=p)`` draws them: a left search of ``cumsum(p)`` (summed as
-    :func:`blocked_cumsum` sums it) for ``total * (1 - u)``, so a flat
-    stretch of the sums goes to its first index. No host read, and no error
-    on an all-zero ``p`` (index 0)."""
-    cum = blocked_cumsum(p)
-    return torch.searchsorted(cum, cum[-1] * (1.0 - u)).clamp_max(p.shape[0] - 1)
 
 
 class GAMOAlgorithm(Algorithm):

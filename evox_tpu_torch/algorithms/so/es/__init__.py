@@ -14,6 +14,7 @@ from .cr_fm_nes import CR_FM_NES, CRFMNESState
 from .des import DES, DESState
 from .esmc import ESMC, ESMCState
 from .guided_es import GuidedES, GuidedESState
+from .les import LES, LESState
 from .ma_es import LMMAES, MAES, LMMAESState, MAESState
 from .nes import XNES, SeparableNES, SeparableNESState, XNESState
 from .open_es import OpenES, OpenESState
@@ -43,6 +44,8 @@ __all__ = [
     "GuidedESState",
     "IPOPCMAES",
     "IndependentAMaLGaM",
+    "LES",
+    "LESState",
     "LMMAES",
     "LMMAESState",
     "MAES",

@@ -11,6 +11,9 @@ empty; adam's holds count, mu and nu), the GA-skeleton MO states
 and PSO-family states (every field the two states share by name), the
 EvalMonitor state, the states of the rest of the ES family (CMA-ES,
 PGPE and the others, through ``es_state``; the ClipUp velocity too), the
+DE family's (``de_state``: archives, memories and the ``attrib``
+attribution included), LES's state (``les_state``) and its flax
+parameter tree (``les_params``), the
 decomposition and reference-vector MOEAs' states (MOEA/D and its
 variants, EAG-MOEA/D, RVEA, RVEAa, LMOCSO; NSGA-III and TDEA through
 ``mo_state``), the workflow's generation and first-step flag,
@@ -40,7 +43,9 @@ import torch
 from .algorithms import mo as _mo
 from .algorithms.mo.common import GAMOAlgorithm, MOState
 from .algorithms.mo.nsga2 import NSGA2, NSGA2State
+from .algorithms.so import de as _de
 from .algorithms.so import es as _es
+from .algorithms.so.es import les_meta as _les_meta
 from .algorithms.so.es.open_es import OpenES, OpenESState
 from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.device import DeviceLike, resolve_device
@@ -142,27 +147,32 @@ def nsga2_state(algo: NSGA2, jax_state: Any, seed: int = 0) -> NSGA2State:
     )
 
 
+def _carried(ours: Any, theirs: Any, name: str, algo: Any) -> Any:
+    """One field of the JAX state at the port's shape and dtype: tensors as
+    tensors, nested states (an ``Attribution``) field by field, host
+    integers as ints, the optimizer state through
+    :func:`optimizer_state`."""
+    if name == "opt_state":
+        return optimizer_state(algo.optimizer, theirs, algo.device)
+    if isinstance(ours, torch.Tensor):
+        theirs = np.asarray(theirs)
+        if theirs.shape != tuple(ours.shape):
+            raise ValueError(f"{name} has shape {theirs.shape}, expected {tuple(ours.shape)}")
+        return torch.from_numpy(np.array(theirs)).to(device=ours.device, dtype=ours.dtype)
+    if dataclasses.is_dataclass(ours):
+        return ours.replace(**{
+            f.name: _carried(getattr(ours, f.name), getattr(theirs, f.name), f"{name}.{f.name}", algo)
+            for f in dataclasses.fields(ours) if hasattr(theirs, f.name)})
+    return int(np.asarray(theirs))
+
+
 def _carry_by_name(algo: Any, jax_state: Any, seed: int) -> Any:
     """The port's fresh state for ``algo`` with each field that the JAX
-    state has by the same name carried across, at the port's shape and
-    dtype; host integers (iteration counters) as ints, the optimizer state
-    through :func:`optimizer_state`."""
+    state has by the same name carried across (:func:`_carried`)."""
     fresh = algo.init(seed)
-    changes = {}
-    for f in dataclasses.fields(fresh):
-        if not hasattr(jax_state, f.name):
-            continue
-        ours, theirs = getattr(fresh, f.name), getattr(jax_state, f.name)
-        if f.name == "opt_state":
-            changes[f.name] = optimizer_state(algo.optimizer, theirs, algo.device)
-        elif isinstance(ours, torch.Tensor):
-            theirs = np.asarray(theirs)
-            if theirs.shape != tuple(ours.shape):
-                raise ValueError(f"{f.name} has shape {theirs.shape}, expected {tuple(ours.shape)}")
-            changes[f.name] = torch.from_numpy(np.array(theirs)).to(device=ours.device, dtype=ours.dtype)
-        else:
-            changes[f.name] = int(np.asarray(theirs))
-    return fresh.replace(**changes)
+    return fresh.replace(**{
+        f.name: _carried(getattr(fresh, f.name), getattr(jax_state, f.name), f.name, algo)
+        for f in dataclasses.fields(fresh) if hasattr(jax_state, f.name)})
 
 
 def swarm_state(algo: SwarmAlgorithm, jax_state: Any, seed: int = 0) -> Any:
@@ -227,6 +237,42 @@ def set_reference_vectors(algo: Any, vectors: Any) -> None:
     setattr(algo, name, _tensor(vectors, np.float32, tuple(ours.shape), name, algo.device))
 
 
+def de_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """The state of DE, ODE, CoDE, SaDE, JaDE or SHADE from the JAX
+    package's (numpy leaves): every field the two states share by name,
+    the ``attrib`` field by field, the archive and the memories included;
+    SaDE's ``gen`` as the port's host integer, ``mem_pos`` and
+    ``archive_size`` as 0-dim tensors. The key does not cross: the port's
+    seed starts from ``seed``; a state crosses between generations."""
+    return _carry_by_name(algo, jax_state, seed)
+
+
+def les_params(jax_params: Any, device: DeviceLike = None) -> dict:
+    """LES's parameter dict in the port's layout (``les.py``) from the JAX
+    package's flax tree (numpy leaves, ``{"weights": {"params": {...}},
+    "lr": {"params": {...}}}``): each ``Dense`` layer's ``kernel`` ``(in,
+    out)`` and ``bias`` as float32 tensors."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for net, layer, fan_in, fan_out in _les_meta.LAYERS:
+        tree = jax_params[net]["params"]
+        if layer not in tree:
+            raise ValueError(f"the LES parameters have no {net}.{layer}")
+        out.setdefault(net, {})[layer] = {
+            "bias": _tensor(tree[layer]["bias"], np.float32, (fan_out,), f"{net}.{layer}.bias", dev),
+            "kernel": _tensor(tree[layer]["kernel"], np.float32, (fan_in, fan_out),
+                              f"{net}.{layer}.kernel", dev),
+        }
+    return out
+
+
+def les_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """``LESState`` from the JAX package's (numpy leaves: ``mean``,
+    ``sigma``, the two paths and ``population``). The key does not
+    cross."""
+    return _carry_by_name(algo, jax_state, seed)
+
+
 def eval_monitor_state(monitor: EvalMonitor, jax_state: Any) -> EvalMonitorState:
     """``EvalMonitorState`` from the JAX package's (numpy leaves; solutions
     may be trees of dicts and lists): every buffer in its own dtype on the
@@ -274,5 +320,8 @@ _ALGO_STATES.update({
 _ALGO_STATES.update({
     getattr(_es, name): es_state
     for name in _es.__all__
-    if not name.endswith("State") and name not in ("OpenES", "ClipUp", "RestartCMAESDriver")
+    if not name.endswith("State") and name not in ("OpenES", "ClipUp", "RestartCMAESDriver", "LES")
 })
+_ALGO_STATES[_es.LES] = les_state
+_ALGO_STATES.update({getattr(_de, name): de_state for name in _de.__all__
+                     if not name.endswith("State") and name != "select_rand_indices"})

@@ -13,6 +13,8 @@
   elementwise steps in index order, correctly rounded, which give the same
   bits on the card and on the CPU.
 - ``lexsort``: ``jnp.lexsort`` from successive stable sorts.
+- ``blocked_cumsum``/``weighted_indices``: ``jnp.cumsum`` in XLA's CPU
+  order, and the indices ``jax.random.choice(p=)`` draws from uniforms.
 - ``generator``: a ``torch.Generator`` seeded from an integer.
 - ``float_vector``: a float32 copy of a bound or other vector argument.
 - ``split_seed``/``fold_in_seed``: the integer-seed counterparts of
@@ -237,6 +239,44 @@ def dominate_relation(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         le &= xk <= yk
         lt |= xk < yk
     return le & lt
+
+
+CUMSUM_BLOCK = 16
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The cumulative sum of ``x`` ``(n,)`` in the order XLA's CPU backend
+    adds it (the JAX package's ``jnp.cumsum`` in the tests): blocks of
+    ``CUMSUM_BLOCK`` summed left to right, the blocks' totals by the same
+    rule, each block's carry added to its sums. ``torch.cumsum`` rounds in
+    another order, and a draw with probabilities would then pick the
+    neighbouring index now and then. Elementwise adds only: the card and the
+    CPU round alike."""
+    n = x.shape[0]
+    if n <= CUMSUM_BLOCK:
+        blocks = x[None]
+    else:
+        pad = -n % CUMSUM_BLOCK
+        blocks = torch.cat([x, x.new_zeros((pad,))]).reshape(-1, CUMSUM_BLOCK)
+    cols = [blocks[:, 0]]
+    for j in range(1, blocks.shape[1]):
+        cols.append(cols[-1] + blocks[:, j])
+    inner = torch.stack(cols, dim=1)
+    if n <= CUMSUM_BLOCK:
+        return inner[0]
+    carry = torch.cat([x.new_zeros((1,)), blocked_cumsum(inner[:, -1])[:-1]])
+    return (carry[:, None] + inner).reshape(-1)[:n]
+
+
+def weighted_indices(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Indices drawn with probabilities ``p`` (``(n,)``, not necessarily
+    normalised) from the uniform draw ``u``, as ``jax.random.choice(key, n,
+    u.shape, p=p)`` draws them: a left search of ``cumsum(p)`` (summed as
+    :func:`blocked_cumsum` sums it) for ``total * (1 - u)``, so a flat
+    stretch of the sums goes to its first index. No host read, and no error
+    on an all-zero ``p`` (index 0)."""
+    cum = blocked_cumsum(p)
+    return torch.searchsorted(cum, cum[-1] * (1.0 - u)).clamp_max(p.shape[0] - 1)
 
 
 def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:

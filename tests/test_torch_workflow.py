@@ -301,6 +301,15 @@ def test_port_and_chip_smoke_sources_name_no_jax_import():
     assert len(files) > 10 and REPO / "tools" / "torch_topk_sweep.py" in tools
     for path in files:
         for mod in _imported_roots(path):
-            assert not (mod in ("jax", "evox_tpu") or mod.startswith(("jax.", "evox_tpu."))), (
+            assert not (mod in ("jax", "flax", "evox_tpu")
+                        or mod.startswith(("jax.", "flax.", "evox_tpu."))), (
                 f"{path.relative_to(REPO)} imports {mod}"
             )
+    # nor does a port module name a path under the JAX package (its data
+    # files: LES's parameters and CEC 2022's constants are the port's copies)
+    for path in sorted((REPO / "evox_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert not (node.value == "evox_tpu" or node.value.startswith("evox_tpu/")), (
+                    f"{path.relative_to(REPO)} names {node.value!r}"
+                )
