@@ -167,7 +167,30 @@ exit 0):
    (n 1024, k 51) against the plain route and beside ``torch.topk``. CEC
    2022 F1-F12 at d 2, 10 and 20 (F6-F8 at 10 and 20) on the card against
    the CPU at 1024 points each, and each member at its optimum.
-15. a ``{"kernels": [...]}`` line (B1-B4 with their call sites), then the
+15. main path 10: ``StdWorkflow(GDE3(*LSMOP1(d=300, m=3).bounds(),
+   n_objs=3, pop_size=10000, F=0.5, CR=0.3), LSMOP1(d=300, m=3))`` (path
+   2's shape) — driven and reported as path 7, with one
+   ``packed_dominance`` launch a generation (n 20000 in ``non_dominate``);
+   the split adds the pre-selection, B3, the sort to the cut and the whole
+   ``non_dominate``; B3 at the merged fitness (``+inf`` rows included)
+   against its plain version; one tell on the card against the CPU's plain
+   routes, on a told fitness that pushes 100 parents and 100 trials to
+   ``+inf`` (population and fitness, in order, bit for bit). Main path 11:
+   ``StdWorkflow(IBEA(zeros(12), ones(12), n_objs=3, pop_size=10000,
+   kappa=0.05), DTLZ2(d=12, m=3))`` — 6 timed generations, no kernel
+   launch; the split adds the (20000, 20000) indicator terms and the
+   10000-removal loop, with the launches a removal makes (profiler) and
+   its host time; one selection's fast loop against the step-by-step loop
+   on the card (survivors equal) and against the CPU (terms within 1e-5,
+   survivors and removal order equal).
+16. the indicator and knee family: IBEA, SRA, BCE-IBEA, SPEA2, HypE, KnEA
+   and BiGE, 10 generations each on DTLZ2(d=12, m=3) at pop 1000, B3
+   launches checked (HypE and KnEA 1 a generation, BiGE 3, BCE-IBEA 1 on
+   even generations, the others 0), ms a generation, the split, each
+   selection's sequential loop timed alone, IGD; MaF1-15 at m 3 and 5 on
+   the card against the CPU at pop 10000, and MaF11's ``pf()`` (one B3
+   launch each) against the CPU's.
+17. a ``{"kernels": [...]}`` line (B1-B4 with their call sites), then the
    last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
@@ -234,6 +257,16 @@ SHADE_POP, SHADE_DIM, SHADE_BOUND, SHADE_MEMORY = 4096, 1024, 32.0, 100
 # the DE family on Sphere, a few generations each
 DE_POP, DE_DIM, DE_GENERATIONS = 1024, 100, 10
 CEC_ROWS = 1024  # CEC 2022's points a member and dimension, card against CPU
+# main path 10: BASELINE.json's "NSGA-II + MOEA/D on DTLZ/LSMOP" with its DE
+# member, GDE3, at path 2's shape (LSMOP1, d 300, m 3, pop 10000) and the
+# JAX package's defaults; GDE3_FORCED pairs of the tell checked against the
+# CPU are pushed into each +inf branch
+GDE3_F, GDE3_CR, GDE3_FORCED = 0.5, 0.3, 100
+# main path 11: IBEA on path 7's DTLZ2 (d 12, m 3) at pop 10000, its default
+# kappa; a generation is 10000 sequential removals (PERF.md §5 has its
+# time), so fewer timed generations
+IBEA_KAPPA, IBEA_GENERATIONS = 0.05, 6
+MAF_POP = 10000  # MaF1-15's points a member, card against CPU
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
@@ -2198,8 +2231,8 @@ def mo_quality(torch, wf, state) -> dict:
             "hypervolume_ms": hv_ms}
 
 
-def profile_path(torch, wf, state, wall: float, gens: int) -> dict:
-    prof = profile_generations(torch, wf, state, 5)
+def profile_path(torch, wf, state, wall: float, gens: int, prof_gens: int = 5) -> dict:
+    prof = profile_generations(torch, wf, state, prof_gens)
     prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
     return prof
 
@@ -2705,6 +2738,323 @@ def phase_cec2022(torch, seed: int) -> dict:
     return out
 
 
+# ----------------------- main paths 10 and 11, the indicator and knee family, MaF
+
+
+def gde3_pre_selection(fit_parent, fit_trial):
+    """GDE3's ``+inf`` branches: (parents its trial dominates, trials their
+    parent dominates), as ``(n,)`` bool."""
+    from evox_tpu_torch.algorithms.mo.gde3 import pairwise_dominates
+
+    return pairwise_dominates(fit_trial, fit_parent), pairwise_dominates(fit_parent, fit_trial)
+
+
+def phase_gde3_path(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 10: ``StdWorkflow(GDE3(*LSMOP1(d=300, m=3).bounds(),
+    n_objs=3, pop_size=10000, F=0.5, CR=0.3), LSMOP1(d=300, m=3))`` (path
+    2's shape): one ``packed_dominance`` launch a generation at n 20000 in
+    ``non_dominate``. Also the split, B3 at the path's merged fitness
+    against its plain version, IGD and the hypervolume, and one tell on the
+    card against the CPU's plain routes on a told fitness that takes both
+    ``+inf`` branches."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import GDE3
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.operators.selection import non_dominate, non_dominated_sort
+    from evox_tpu_torch.problems.numerical import LSMOP1
+
+    prob = LSMOP1(d=LSMOP_D, m=LSMOP_M)
+    algo = GDE3(*prob.bounds(), n_objs=LSMOP_M, pop_size=NSGA2_POP, F=GDE3_F, CR=GDE3_CR)
+    wf = StdWorkflow(algo, prob)
+    state, wall, launches = run_mo_path(torch, wf, gens, seed, {"packed_dominance": gens})
+    k = algo.pop_size
+    out = {"pop": k, "dim": LSMOP_D, "merged_n": 2 * k, "F": algo.F, "CR": algo.CR,
+           "generations": gens, "launches": launches, "wall_s": wall,
+           "ms_per_generation": wall / gens * 1e3, "generations_per_s": gens / wall,
+           **mo_quality(torch, wf, state)}
+
+    def merged_of(a, f):
+        par_inf, tri_inf = gde3_pre_selection(a.fitness, f)
+        return torch.cat([torch.where(par_inf[:, None], torch.inf, a.fitness),
+                          torch.where(tri_inf[:, None], torch.inf, f)])
+
+    extra = {
+        "pre_selection": merged_of,
+        "packed_dominance": lambda a, f: kd.packed_dominance(merged_of(a, f)),
+        "sort_to_cut": lambda a, f: non_dominated_sort(merged_of(a, f), until=k),
+        "non_dominate": lambda a, f: non_dominate(torch.cat([a.population, a.offspring]),
+                                                  merged_of(a, f), k),
+    }
+    out["breakdown_ms"] = mo_breakdown(torch, wf, state, extra)
+
+    # one tell on the card against the CPU, on a told fitness with both
+    # +inf branches: trials that dominate their parents, trials that their
+    # parents dominate
+    off, astate = algo.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    fit = fit.clone()
+    fit[:GDE3_FORCED] = astate.fitness[:GDE3_FORCED] - 0.01
+    fit[GDE3_FORCED:2 * GDE3_FORCED] = astate.fitness[GDE3_FORCED:2 * GDE3_FORCED] + 0.01
+    par_inf, tri_inf = gde3_pre_selection(astate.fitness, fit)
+    branches = {"parents_to_inf": int(par_inf.sum()), "trials_to_inf": int(tri_inf.sum())}
+    if min(branches.values()) < GDE3_FORCED:
+        raise AssertionError(f"GDE3 tell: the +inf branches were not both taken: {branches}")
+    merged = merged_of(astate, fit)
+    on_card = algo.tell(astate, fit)
+    cpu_algo = GDE3(algo.lb.cpu(), algo.ub.cpu(), n_objs=LSMOP_M, pop_size=k, F=GDE3_F, CR=GDE3_CR,
+                    device="cpu")
+    cpu_state = state_to(astate, "cpu")
+    t0 = time.perf_counter()
+    on_cpu = cpu_algo.tell(cpu_state, fit.cpu())
+    tell = compare_exact("GDE3 tell on the card against the CPU's plain routes (population and "
+                         "fitness, in order)", [on_card.population.cpu(), on_card.fitness.cpu()],
+                         [on_cpu.population, on_cpu.fitness])
+    tell.update(branches, cpu_tell_s=time.perf_counter() - t0,
+                inf_in_merged=int(torch.isinf(merged).any(dim=1).sum()))
+    out["tell_vs_cpu"] = tell
+
+    # B3 at the path's merged fitness (+inf rows included), against its plain version
+    n = merged.shape[0]
+    b3 = compare_exact(f"packed_dominance, GDE3 merged fitness n={n} m={LSMOP_M}",
+                       kd.packed_dominance(merged, device=merged.device),
+                       kd.packed_dominance_reference(merged))
+    b3["ms"] = _time_ms(lambda: kd.packed_dominance(merged, device=merged.device), 3, 20)
+    b3["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(merged), 1, 3)
+    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(n, LSMOP_M))
+    out["packed_dominance"] = b3
+    if profile:
+        out["profile"] = profile_path(torch, wf, state, wall, gens)
+    return out
+
+
+def removal_launches(torch, expo, removals: int) -> float:
+    """CUDA kernels a removal of IBEA's loop launches, counted by the
+    profiler over ``removals`` removals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from evox_tpu_torch.algorithms.mo.ibea import worst_removal
+
+    keep = expo.shape[0] - removals
+    worst_removal(expo, keep)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        worst_removal(expo, keep)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    # the loop's setup (the scores' halving sum, the final sort) launches
+    # a fixed number: take the count at one removal off
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        worst_removal(expo, expo.shape[0] - 1)
+        torch.cuda.synchronize()
+    setup = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return (kernels - setup) / (removals - 1)
+
+
+def phase_ibea_path(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 11: ``StdWorkflow(IBEA(zeros(12), ones(12), n_objs=3,
+    pop_size=10000, kappa=0.05), DTLZ2(d=12, m=3))``: merged n 20000, a
+    (20000, 20000) float32 indicator matrix and 10000 sequential removals a
+    generation, no
+    kernel of the port. Also the split (the matrix, the removal loop), the
+    launches a removal makes and its host time, IGD and the hypervolume,
+    and one selection on the card held against the same loop step by step
+    on the card (survivors equal) and against the CPU (terms within the
+    tests' tolerance, survivors and the removal order equal)."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import IBEA
+    from evox_tpu_torch.algorithms.mo import ibea as mod
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    torch.cuda.reset_peak_memory_stats()  # the phase's own peak, not an earlier path's
+    algo = IBEA(torch.zeros(MOEAD_D), torch.ones(MOEAD_D), n_objs=MO_M, pop_size=MO_POP,
+                kappa=IBEA_KAPPA)
+    wf = StdWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M))
+    state, wall, launches = run_mo_path(torch, wf, gens, seed, {})
+    k = algo.pop_size
+    out = {"pop": k, "dim": MOEAD_D, "merged_n": 2 * k, "kappa": algo.kappa, "generations": gens,
+           "launches": launches, "wall_s": wall, "ms_per_generation": wall / gens * 1e3,
+           "generations_per_s": gens / wall, **mo_quality(torch, wf, state)}
+
+    off, astate = algo.ask(state.algo)
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    merged = torch.cat([astate.fitness, fit])
+    n = merged.shape[0]
+    expo = mod.indicator_terms(merged, algo.kappa)
+    extra = {
+        "indicator_terms": lambda a, f: mod.indicator_terms(torch.cat([a.fitness, f]), algo.kappa),
+        "removal_loop": lambda a, f: mod.worst_removal(expo, k),
+    }
+    out["breakdown_ms"] = mo_breakdown(torch, wf, state, extra, reps=3)
+    out["removals"] = n - k
+    out["removal_us"] = out["breakdown_ms"]["removal_loop"] * 1e3 / (n - k)
+    out["launches_per_removal"] = removal_launches(torch, expo.clone(), 200)
+    out["expo_bytes"] = expo.numel() * expo.element_size()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+    # the fast loop against the step-by-step one, on the card
+    fast = mod.worst_removal(expo, k)
+    t0 = time.perf_counter()
+    stepwise, order = mod.worst_removal_stepwise(expo, k)
+    torch.cuda.synchronize()
+    out["stepwise_loop_s"] = time.perf_counter() - t0
+    out["select_vs_stepwise"] = compare_exact(
+        f"IBEA select (n {n}, keep {k}), the fast loop against the step-by-step one on the card",
+        [fast], [stepwise])
+
+    # against the CPU: the terms within the tests' score tolerance, then the
+    # survivors and the removal order
+    t0 = time.perf_counter()
+    expo_cpu = mod.indicator_terms(merged.cpu(), algo.kappa)
+    stepwise_cpu, order_cpu = mod.worst_removal_stepwise(expo_cpu, k)
+    out["cpu_select_s"] = time.perf_counter() - t0
+    # tests/test_torch_mo_indicator.py's SCORE_RTOL: the terms are rounded
+    # once from float64 on both, so they should agree to the bit
+    terms = compare("IBEA terms -exp(-I/(c kappa)), card against CPU", expo.cpu(), expo_cpu,
+                    rtol=1e-5, atol=0.0)
+    terms["bit_equal"] = bool(torch.equal(expo.cpu(), expo_cpu))
+    out["select_vs_cpu"] = compare_exact(
+        "IBEA select, card against CPU (survivors, removal order)",
+        [stepwise.cpu(), order.cpu()], [stepwise_cpu, order_cpu])
+    out["select_vs_cpu"]["terms"] = terms
+    del expo, expo_cpu
+    if profile:
+        # 40000 launches a generation: two generations under the profiler
+        out["profile"] = profile_path(torch, wf, state, wall, gens, prof_gens=2)
+    return out
+
+
+def indicator_family_makers(torch, g: int) -> dict:
+    """The family phase's algorithms at pop ``MO_FAMILY_POP``, each with its
+    ``packed_dominance`` launches in ``g`` timed generations (which start on
+    an even BCE-IBEA generation)."""
+    from evox_tpu_torch.algorithms import mo
+
+    lb, ub = torch.zeros(MOEAD_D), torch.ones(MOEAD_D)
+
+    def make(cls):
+        return lambda: cls(lb, ub, n_objs=MO_M, pop_size=MO_FAMILY_POP)
+
+    return {
+        "IBEA": (make(mo.IBEA), 0),
+        "SRA": (make(mo.SRA), 0),
+        "BCEIBEA": (make(mo.BCEIBEA), (g + 1) // 2),  # the PC selection, even generations
+        "SPEA2": (make(mo.SPEA2), 0),
+        "HypE": (make(mo.HypE), g),  # the full sort of its tell
+        "KnEA": (make(mo.KnEA), g),  # the full sort of its tell
+        "BiGE": (make(mo.BiGE), 3 * g),  # the mating's bi-goals, the merged and the cut's bi-goals
+    }
+
+
+def family_loops(torch, algo, astate, fit) -> dict:
+    """Each sequential loop of the family's selections on one generation's
+    merged rows, alone: name -> fn()."""
+    from evox_tpu_torch.algorithms.mo import bce_ibea, ibea, knea, spea2, sra
+    from evox_tpu_torch.operators.selection import non_dominated_sort
+
+    name = type(algo).__name__
+    k = algo.pop_size
+    if name in ("IBEA", "BCEIBEA"):
+        merged = torch.cat([astate.npc_fit if name == "BCEIBEA" else astate.fitness, fit])
+        expo = ibea.indicator_terms(merged, algo.kappa)
+        loops = {"removal_loop": lambda: ibea.worst_removal(expo, k)}
+        if name == "BCEIBEA" and astate.counter % 2 == 0:
+            pc_fit = torch.cat([astate.fitness, fit, astate.new_pc_fit])
+            mask = non_dominated_sort(pc_fit, until=1) == 0
+            n_nd = mask.sum().to(torch.int32)
+            removals = int(n_nd) - k
+            if removals > 0:
+                loops["pc_thinning"] = lambda: bce_ibea.pc_thinning(pc_fit, mask, n_nd, removals)
+        return loops
+    merged = torch.cat([astate.fitness, fit])
+    if name == "SRA":
+        i_eps, sde = sra.sra_indicators(merged)
+        d = astate.select_draws
+        return {"sweeps": lambda: sra.stochastic_ranking(i_eps, sde, d["perm"], d["u_sweeps"], d["pc"])}
+    if name == "SPEA2":
+        dist = spea2.masked_dist(merged)
+        nd = spea2.spea2_fitness(merged, dist) < 1.0
+        removals = int(nd.sum()) - k
+        return {"truncation": lambda: spea2.truncate(dist, nd, removals)} if removals > 0 else {}
+    if name == "KnEA":
+        order, rank, last, sizes = algo.sorted_fronts(merged)
+        fit_sel = torch.where((rank <= last)[:, None], merged[order], torch.nan)
+        return {"knee_loop": lambda: algo.find_knees(fit_sel, rank, sizes, astate.r, astate.t)}
+    return {}
+
+
+def phase_indicator_family(torch, gens: int, seed: int) -> dict:
+    """IBEA, SRA, BCE-IBEA, SPEA2, HypE, KnEA and BiGE, ``gens`` generations
+    each on DTLZ2(d=12, m=3) at pop 1000: ms a generation, the split, each
+    sequential loop of the selection alone, IGD; launches checked."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    out = {}
+    for name, (make, b3) in indicator_family_makers(torch, gens).items():
+        algo = make()
+        wf = StdWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M))
+        state, wall, launches = run_mo_path(torch, wf, gens, seed, {"packed_dominance": b3})
+        row = {"pop": algo.pop_size, "generations": gens, "ms_per_generation": wall / gens * 1e3,
+               "launches": launches, **mo_quality(torch, wf, state)}
+        off, astate = algo.ask(state.algo)
+        fit, _ = wf.problem.evaluate(state.prob, off)
+        row["loops_ms"] = {loop: statistics.median(_time_host_ms(torch, fn) for _ in range(3))
+                           for loop, fn in family_loops(torch, algo, astate, fit).items()}
+        row["breakdown_ms"] = mo_breakdown(torch, wf, state, {}, reps=3)
+        print(f"[indicator family] {name}: {json.dumps(row)}", flush=True)
+        out[name] = row
+    return out
+
+
+def phase_maf(torch, seed: int) -> dict:
+    """MaF1-15 at m 3 and 5, each at its default d, evaluated on the card
+    against the CPU at pop 10000 in its own box; MaF11's ``pf()``, which
+    filters its points on B3, against the CPU's at m 3 and 5."""
+    from evox_tpu_torch.problems.numerical import maf
+
+    out = {}
+    g = torch.Generator().manual_seed(seed)
+    for m in (3, 5):
+        for i in range(1, 16):
+            card = getattr(maf, f"MaF{i}")(m=m)
+            cpu = getattr(maf, f"MaF{i}")(m=m, device="cpu")
+            lb, ub = cpu.bounds()
+            pop = torch.rand((MAF_POP, cpu.d), generator=g) * (ub - lb) + lb
+            got, _ = card.evaluate(None, pop.cuda())
+            want, _ = cpu.evaluate(None, pop)
+            # the card's and the CPU's cos, sin and pow differ by an ulp or
+            # two; where a factor nearly cancels (MaF4's and MaF15's 1 - a
+            # front of cosines, scaled by 1 + g up to ~1e5) that ulp is of the
+            # row's scale, not of the value: 1e-4 relative, 1e-6 of the
+            # row's largest |objective| (at least 1) absolute. MaF12's
+            # s_decept (slope 1/B = 1000) and s_multi (slope (4A + 2) pi ~
+            # 383) magnify an ulp of their input up to a thousandfold: 1e-4
+            # of the row's scale there
+            scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+            out[f"MaF{i}_m{m}"] = compare(f"MaF{i} (m {m}, d {cpu.d}, pop {MAF_POP}) on the card "
+                                          "against the CPU, over each row's scale",
+                                          got.cpu() / scale, want / scale, rtol=1e-4,
+                                          atol=1e-4 if i == 12 else 1e-6)
+        card, cpu = maf.MaF11(m=m), maf.MaF11(m=m, device="cpu")
+        torch.cuda.synchronize()
+        reset_launches()
+        pf = card.pf()
+        torch.cuda.synchronize()
+        launches = read_launches()["packed_dominance"]
+        if launches != 1:
+            raise AssertionError(f"MaF11.pf() (m {m}) launched packed_dominance {launches} times")
+        pf_cpu = cpu.pf()
+        if pf.shape != pf_cpu.shape:
+            raise AssertionError(f"MaF11.pf() (m {m}): {tuple(pf.shape)} on the card, "
+                                 f"{tuple(pf_cpu.shape)} on the CPU")
+        row = compare(f"MaF11.pf() (m {m}) on the card against the CPU", pf.cpu(), pf_cpu,
+                      rtol=1e-6, atol=2e-6)
+        row.update({"launches": launches, "n": cpu._uniform_pts().shape[0], "front": pf.shape[0]})
+        out[f"MaF11_pf_m{m}"] = row
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -2712,6 +3062,7 @@ def monitor_callers(name: str, paths: dict) -> list:
         arch = paths["monitor_archive"]
         nsga3 = paths["nsga3"]
         family = paths["mo_family"]
+        gde3, ind, maf = paths["gde3"], paths["indicator_family"], paths["maf"]
         b3 = {key: nsga3["packed_dominance"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                               "max_abs_err")}
         return [{"caller": "non_dominated_sort in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
@@ -2725,7 +3076,22 @@ def monitor_callers(name: str, paths: dict) -> list:
                    "launches": family[algo]["launches"][name]}
                   for algo in ("MOEADM2M", "TDEA", "EAGMOEAD")),
                 {"caller": "DTLZ7.pf() (the DTLZ phase)", "n": paths["dtlz"]["DTLZ7_pf"]["n"],
-                 "m": MO_M, "launches": paths["dtlz"]["DTLZ7_pf"]["launches"]}]
+                 "m": MO_M, "launches": paths["dtlz"]["DTLZ7_pf"]["launches"]},
+                {"caller": "non_dominate in GDE3's tell (path 10)", "n": gde3["merged_n"], "m": LSMOP_M,
+                 "launches": gde3["launches"][name],
+                 **{key: gde3["packed_dominance"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                                   "bound_by", "max_abs_err")}},
+                *({"caller": caller, "n": n, "m": m, "launches": ind[algo]["launches"][name]}
+                  for algo, caller, n, m in (
+                      ("HypE", "HypE's tell (the indicator family phase)", 2 * MO_FAMILY_POP, MO_M),
+                      ("KnEA", "KnEA's tell (the indicator family phase)", 2 * MO_FAMILY_POP, MO_M),
+                      ("BiGE", "BiGE's mating bi-goals, merged objectives and cut front's "
+                               "bi-goals (the indicator family phase)",
+                       [MO_FAMILY_POP, 2 * MO_FAMILY_POP, 2 * MO_FAMILY_POP], [2, MO_M, 2]),
+                      ("BCEIBEA", "BCE-IBEA's PC selection, until=1, even generations (the "
+                                  "indicator family phase)", 3 * MO_FAMILY_POP, MO_M))),
+                *({"caller": f"MaF11.pf() at m {m} (the MaF phase)", "n": maf[f"MaF11_pf_m{m}"]["n"],
+                   "m": m, "launches": maf[f"MaF11_pf_m{m}"]["launches"]} for m in (3, 5))]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     shade = paths["shade"]
@@ -2903,6 +3269,17 @@ def main() -> int:
     del wf9, state9
     paths["de_family"] = phase_de_family(torch, DE_GENERATIONS, SEED)
     paths["cec2022"] = phase_cec2022(torch, SEED)
+    # 10. main paths 10 (GDE3 on LSMOP1) and 11 (IBEA on DTLZ2), the
+    # indicator and knee family, and MaF on the card against the CPU
+    torch.cuda.empty_cache()
+    paths["gde3"] = phase_gde3_path(torch, GENERATIONS, SEED, args.profile)
+    print(f"[gde3 path] {json.dumps(paths['gde3'])}", flush=True)
+    torch.cuda.empty_cache()
+    paths["ibea"] = phase_ibea_path(torch, IBEA_GENERATIONS, SEED, args.profile)
+    print(f"[ibea path] {json.dumps(paths['ibea'])}", flush=True)
+    torch.cuda.empty_cache()
+    paths["indicator_family"] = phase_indicator_family(torch, MO_GENERATIONS, SEED)
+    paths["maf"] = phase_maf(torch, SEED)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -2935,6 +3312,10 @@ def main() -> int:
         "shade_card_vs_cpu": paths["shade_card_vs_cpu"],
         "de_family": paths["de_family"],
         "cec2022": paths["cec2022"],
+        "gde3_path": paths["gde3"],
+        "ibea_path": paths["ibea"],
+        "indicator_family": paths["indicator_family"],
+        "maf": paths["maf"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -69,6 +69,21 @@ def draw_variation(g: torch.Generator, n_pairs: int, n_rows: int, dim: int,
     }
 
 
+def draw_ga(g: torch.Generator, n: int, dim: int, device: torch.device) -> dict:
+    """A GA generation's draws: a binary tournament's ``contestants``
+    ``(n, 2)``, then SBX over ``n // 2`` pairs and the polynomial mutation
+    of ``n`` rows (:func:`draw_variation`)."""
+    return {"contestants": torch.randint(0, n, (n, 2), generator=g, device=device),
+            **draw_variation(g, n // 2, n, dim, device)}
+
+
+def ga_offspring(pool: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor, draws: dict) -> torch.Tensor:
+    """``GAMOAlgorithm.variation`` on given draws: SBX over consecutive
+    pairs of ``pool`` (both children), then polynomial mutation."""
+    off = simulated_binary(0, pool, u=draws["u_sbx"])
+    return polynomial(0, off, (lb, ub), site=draws["site"], u=draws["u_pm"])
+
+
 def sbx_first_children(parents: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
                        draws: dict) -> torch.Tensor:
     """One child per parent pair: SBX over ``parents`` (pairs of consecutive
@@ -160,3 +175,26 @@ class GAMOAlgorithm(Algorithm):
 
     def select(self, state: MOState, pop: torch.Tensor, fit: torch.Tensor):
         raise NotImplementedError
+
+
+class DrawnGAMOAlgorithm(GAMOAlgorithm):
+    """The GA skeleton with every draw of a generation made by one
+    ``_draw(seed)`` (by default :func:`draw_ga`), which the tests replace
+    with the JAX package's. Subclasses give the mating pool by
+    ``mate_with(state, draws)``; ``after_ask(state, draws)`` may keep draws
+    that ``tell`` uses in the state."""
+
+    def _draw(self, seed: int) -> dict:
+        return draw_ga(generator(seed, self.device), self.pop_size, self.dim, self.device)
+
+    def mate_with(self, state: MOState, draws: dict) -> torch.Tensor:
+        raise NotImplementedError
+
+    def after_ask(self, state: MOState, draws: dict) -> MOState:
+        return state
+
+    def ask(self, state: MOState) -> Tuple[torch.Tensor, MOState]:
+        seed, k = split_seed(state.seed)
+        draws = self._draw(k)
+        off = ga_offspring(self.mate_with(state, draws), self.lb, self.ub, draws)
+        return off, self.after_ask(state.replace(offspring=off, seed=seed), draws)

@@ -37,15 +37,18 @@ def pbest_k(n: int) -> int:
     hold no more.
 
     ``p`` is a float32 uniform on ``[2/n, 0.2)``, computed as
-    ``fl(fl(u * span) + 2/n)`` with ``u < 1`` and ``span = fl(0.2 - 2/n)``;
-    each rounding is at most half an ulp, so ``p`` lies at most one ulp
-    above ``float32(0.2)``: ``p <= succ(float32(0.2))``. Rounding is
-    monotone, so ``p_num = max(1, int32(fl(p * n))) <= max(1,
-    int32(fl(succ(float32(0.2)) * n)))``, computed here in float32 as the
-    ask computes it, and every drawn rank ``int32(u * p_num)``, ``u < 1``,
-    lies below ``p_num``. At n 4096 that is 819 (``tests/test_torch_de.py``
-    draws the largest rank there)."""
-    p_top = np.nextafter(np.float32(P_MAX), np.float32(1.0))
+    ``max(float32(2/n), fl(fl(u * span) + float32(2/n)))`` with ``u < 1``
+    and ``span = fl(0.2 - 2/n)``, as ``jax.random.uniform`` computes it.
+    For ``n >= 10`` each rounding is at most half an ulp, so ``p`` lies at
+    most one ulp above ``float32(0.2)``; for ``n < 10`` the span is negative
+    and the clamp makes every ``p`` equal ``float32(2/n)``. So ``p <=
+    max(succ(float32(0.2)), float32(2/n))``. Rounding is monotone, so
+    ``p_num = max(1, int32(fl(p * n)))`` is at most that bound's, computed
+    here in float32 as the ask computes it, and every drawn rank
+    ``int32(u * p_num)``, ``u < 1``, lies below ``p_num``. At n 4096 that
+    is 819 (``tests/test_torch_de.py`` draws the largest rank there), at n
+    2-9 it is 2."""
+    p_top = max(np.nextafter(np.float32(P_MAX), np.float32(1.0)), np.float32(2.0 / n))
     return min(n, max(1, int(p_top * np.float32(n))))
 
 
@@ -94,7 +97,8 @@ class SHADE(DEAlgorithm):
     def _draw(self, seed: int) -> Dict[str, torch.Tensor]:
         """A generation's draws, each ``(pop,)`` unless said: ``h`` memory
         slots in ``[0, H)``, ``cauchy``, ``z_CR`` standard normals, ``p`` in
-        ``[2/n, 0.2)``, ``u_pbest`` uniforms, ``r1`` other rows, ``r2_raw`` in
+        ``[2/n, 0.2)`` (every ``p`` is ``2/n`` when ``2/n > 0.2``, as the JAX
+        package's clamped uniform gives it), ``u_pbest`` uniforms, ``r1`` other rows, ``r2_raw`` in
         ``[0, 2 pop)``, ``u_cr`` ``(pop, dim)``, ``j_rand`` ``(pop, 1)``, and
         the tell's ``slots`` in ``[0, pop)``."""
         n, d, dev = self.pop_size, self.dim, self.device
@@ -105,7 +109,8 @@ class SHADE(DEAlgorithm):
             "h": torch.randint(0, self.H, (n,), generator=g, device=dev),
             "cauchy": cauchy(g, (n,), dev),
             "z_CR": torch.randn((n,), generator=g, device=dev),
-            "p": torch.rand((n,), generator=g, device=dev) * float(np.float32(P_MAX) - lo) + float(lo),
+            "p": torch.clamp_min(torch.rand((n,), generator=g, device=dev) * float(np.float32(P_MAX) - lo)
+                                 + float(lo), float(lo)),
             "u_pbest": torch.rand((n,), generator=g, device=dev),
             "r1": select_rand_indices(s_idx, n, 1, dev)[:, 0],
             "r2_raw": torch.randint(0, 2 * n, (n,), generator=g, device=dev),

@@ -198,12 +198,16 @@ def es_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
 
 
 def mo_family_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
-    """The state of MOEAD, MOEADDRA, MOEADM2M, EAGMOEAD, RVEA, RVEAa or
-    LMOCSO from the JAX package's (numpy leaves): every field the two
-    states share by name (``ideal``, ``utility``, ``old_value``,
-    ``success``, ``offspring_loc``, ``vectors``, ``velocity`` and the
-    rest), the device counter ``gen`` as the port's host integer. The key
-    does not cross: the port's seed starts from ``seed``."""
+    """The state of MOEAD, MOEADDRA, MOEADM2M, EAGMOEAD, RVEA, RVEAa,
+    LMOCSO, HypE, KnEA or BCEIBEA from the JAX package's (numpy leaves):
+    every field the two states share by name (``ideal``, ``utility``,
+    ``old_value``, ``success``, ``offspring_loc``, ``vectors``,
+    ``velocity``, HypE's ``ref_point`` and ``rank``, KnEA's ``knee``,
+    ``rank``, ``r`` and ``t``, BCE-IBEA's NPC and PC populations and
+    ``n_nd``, and the rest), the device counters ``gen`` and BCE-IBEA's
+    ``counter`` as the port's host integers. The key does not cross: the
+    port's seed starts from ``seed``; a state crosses between generations
+    (the draws ``ask`` keeps for ``tell`` do not cross)."""
     return _carry_by_name(algo, jax_state, seed)
 
 
@@ -312,10 +316,13 @@ def std_workflow_state(
 
 
 # algorithm class -> the carry-over of its state
-_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state, _mo.NSGA3: mo_state, _mo.TDEA: mo_state}
+_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state}
+_ALGO_STATES.update({cls: mo_state for cls in (_mo.NSGA3, _mo.TDEA, _mo.GDE3, _mo.IBEA, _mo.SRA,
+                                               _mo.SPEA2, _mo.BiGE)})
 _ALGO_STATES.update({
     cls: mo_family_state
-    for cls in (_mo.MOEAD, _mo.MOEADDRA, _mo.MOEADM2M, _mo.EAGMOEAD, _mo.RVEA, _mo.RVEAa, _mo.LMOCSO)
+    for cls in (_mo.MOEAD, _mo.MOEADDRA, _mo.MOEADM2M, _mo.EAGMOEAD, _mo.RVEA, _mo.RVEAa, _mo.LMOCSO,
+                _mo.HypE, _mo.KnEA, _mo.BCEIBEA)
 })
 _ALGO_STATES.update({
     getattr(_es, name): es_state

@@ -11,7 +11,8 @@
 - ``inner_products``, ``sum_last``, ``row_norm``, ``sqrt_rn``: products,
   sums and square roots over a short last axis (objectives) by
   elementwise steps in index order, correctly rounded, which give the same
-  bits on the card and on the CPU.
+  bits on the card and on the CPU; ``halving_sum`` and ``exp_rn``, a long
+  sum in a fixed order and a correctly rounded ``exp``, for the same end.
 - ``lexsort``: ``jnp.lexsort`` from successive stable sorts.
 - ``blocked_cumsum``/``weighted_indices``: ``jnp.cumsum`` in XLA's CPU
   order, and the indices ``jax.random.choice(p=)`` draws from uniforms.
@@ -197,6 +198,27 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     in six with AVX-512), so the root is taken in float64 and rounded back,
     which gives the correctly rounded float32 root on both."""
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def exp_rn(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of a float32 tensor, rounded once from float64: the card's
+    ``expf`` and the CPU's vectorised one each miss the correctly rounded
+    value now and then, and not alike."""
+    return torch.exp(x.to(torch.float64)).to(x.dtype)
+
+
+def halving_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim`` in a fixed order: the first half of the slices is
+    added to the second, elementwise, until one is left (an odd last slice
+    waits for a later round). ``log2(n)`` elementwise launches whose
+    roundings are the same on the card and on the CPU, where a reduction
+    kernel adds in an order of its own."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        head = x[:h] + x[h : 2 * h]
+        x = torch.cat([head, x[2 * h :]]) if x.shape[0] % 2 else head
+    return x[0]
 
 
 def row_norm(x: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,8 @@ import jax
 import numpy as np
 import torch
 
+from evox_tpu.algorithms.so.de import de as jde
+
 from evox_tpu_torch.algorithms.mo import common as mo_common
 from evox_tpu_torch.operators.crossover import simulated_binary
 from evox_tpu_torch.operators.mutation import polynomial
@@ -111,3 +113,69 @@ def inject_ga(monkeypatch, talgo, key):
                         functools.partial(simulated_binary, u=draws["u_sbx"]))
     monkeypatch.setattr(mo_common, "polynomial",
                         functools.partial(polynomial, site=draws["site"], u=draws["u_pm"]))
+
+
+def tournament_ga(jalgo, key):
+    """A GA-skeleton ask with a binary tournament (IBEA, SPEA2, KnEA, BiGE;
+    mo/common.py): the contestants from ``k_mate``, the variation's draws."""
+    n, d = jalgo.pop_size, jalgo.dim
+    _, k_mate, k_var = jax.random.split(key, 3)
+    return {"contestants": t(jax.random.randint(k_mate, (n, 2), 0, n)),
+            **ga_variation(k_var, n, d)}
+
+
+def hype(jalgo, key, mc_mate, mc_select):
+    """HypE.ask's draws (hype.py): ``k_mate`` splits into the mating score's
+    Monte Carlo key and the tournament's; the selection's uniforms come from
+    the key that ask leaves (HypE.tell)."""
+    n, d, m, s = jalgo.pop_size, jalgo.dim, jalgo.n_objs, jalgo.n_samples
+    key_after, k_mate, k_var = jax.random.split(key, 3)
+    k1, k2 = jax.random.split(k_mate)
+    out = {"contestants": t(jax.random.randint(k2, (n, 2), 0, n)), **ga_variation(k_var, n, d)}
+    if mc_mate:
+        out["u_mate"] = t(jax.random.uniform(k1, (s, m)))
+    if mc_select:
+        _, k_h = jax.random.split(key_after)
+        out["u_select"] = t(jax.random.uniform(k_h, (s, m)))
+    return out
+
+
+def sra(jalgo, key, pc=None):
+    """SRA's draws (sra.py): the mating permutation and the variation from
+    ask's keys; the selection's ``pc``, permutation and per-sweep uniforms
+    from ``fold_in(key after ask, 7)``, one split per sweep."""
+    n, d = jalgo.pop_size, jalgo.dim
+    key_after, k_mate, k_var = jax.random.split(key, 3)
+    out = {"perm_mate": t(jax.random.permutation(k_mate, n)), **ga_variation(k_var, n, d)}
+    k = jax.random.fold_in(key_after, 7)
+    k, k_pc, k_perm = jax.random.split(k, 3)
+    out["pc"] = t(jax.random.uniform(k_pc) * 0.2 + 0.4) if pc is None else pc
+    out["perm"] = t(jax.random.permutation(k_perm, 2 * n))
+    rows = []
+    for _ in range(jalgo.sweeps):
+        k, k_choice = jax.random.split(k)
+        rows.append(np.asarray(jax.random.uniform(k_choice, (2 * n,))))
+    out["u_sweeps"] = t(np.stack(rows))
+    return out
+
+
+def bce_ibea(jalgo, key, even):
+    """BCEIBEA's ask (bce_ibea.py): the NPC round's tournament and
+    variation, or the exploration's partners, SBX over pop pairs and the
+    mutation of pop children."""
+    n, d = jalgo.pop_size, jalgo.dim
+    _, k_sel, k_x, k_m = jax.random.split(key, 4)
+    if even:
+        return {"contestants": t(jax.random.randint(k_sel, (n, 2), 0, n)),
+                **variation(k_x, k_m, n // 2, n, d)}
+    return {"partner": t(jax.random.randint(k_sel, (n,), 0, n)), **variation(k_x, k_m, n, n, d)}
+
+
+def gde3(jalgo, key):
+    """GDE3.ask (gde3.py): three distinct other rows, the crossover's
+    uniforms and ``j_rand``."""
+    n, d = jalgo.pop_size, jalgo.dim
+    _, ki, kcr, kj = jax.random.split(key, 4)
+    return {"idx": t(jde.select_rand_indices(ki, n, 3)),
+            "u_cr": t(jax.random.uniform(kcr, (n, d))),
+            "j_rand": t(jax.random.randint(kj, (n, 1), 0, d))}

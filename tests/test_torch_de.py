@@ -392,6 +392,39 @@ def test_shade_pbest_k_holds_the_largest_drawable_rank(n):
     np.testing.assert_array_equal(got.numpy(), order[rank])
 
 
+@pytest.mark.parametrize("n", range(2, 10))
+def test_shade_pbest_at_small_pop_draws_jaxs_p_and_rows(n):
+    """Below n 10, 2/n > 0.2 and JAX's clamped uniform makes every p equal
+    float32(2/n), so p_num is 2. JAX's p and u_pbest handed to the port's
+    ``pbest_indices`` give JAX's pbest rows; the port's own draw gives p_num
+    2 (and ``pbest_k`` 2); JAX's whole ask on its draws equals the port's."""
+    assert pbest_k(n) == 2
+    jalgo = jde.SHADE(LB, UB, pop_size=n, memory_size=3)
+    talgo = tde.SHADE(LB, UB, pop_size=n, memory_size=3, device="cpu")
+    assert talgo.pbest_k == 2
+    jstate = jalgo.init(jax.random.PRNGKey(n))
+    fitness = np.round(np.random.default_rng(n).normal(size=n) * 2).astype(np.float32)
+    jstate = jalgo.init_tell(jstate, jnp.asarray(fitness))
+    draws = _shade_draws(jalgo, jstate.key)
+    p = draws["p"].numpy()
+    assert (p == np.float32(2.0 / n)).all()
+    # JAX's pbest rows, as its ask computes them
+    p_num = jnp.maximum(1, (jnp.asarray(p) * n).astype(jnp.int32))
+    rank = (jnp.asarray(draws["u_pbest"].numpy()) * p_num).astype(jnp.int32)
+    want = np.asarray(jnp.argsort(jnp.asarray(fitness))[rank])
+    assert (np.asarray(p_num) == 2).all()
+    got = talgo.pbest_indices(torch.from_numpy(fitness), draws["p"], draws["u_pbest"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    tstate = interop.de_state(talgo, jax.tree.map(np.asarray, jstate))
+    talgo._draw = lambda seed: draws
+    jcand, _ = jalgo.ask(jstate)
+    tcand, _ = talgo.ask(tstate)
+    np.testing.assert_array_equal(tcand.numpy(), np.asarray(jcand))
+    own = tde.SHADE.__dict__["_draw"](talgo, 5)["p"]
+    assert (own == np.float32(2.0 / n)).all()
+    assert ((own * n).to(torch.int32) == 2).all()
+
+
 def _best(algo, steps, seed=11):
     mon = EvalMonitor(device="cpu")
     wf = StdWorkflow(algo, Sphere(), monitors=[mon], device="cpu")

@@ -379,13 +379,16 @@ def test_interop_refuses_wrong_constants():
 
 def test_new_entry_points_refuse_a_missing_cuda(monkeypatch):
     """device=None means cuda: without a card every new entry point raises,
-    and with device="cpu" each builds."""
+    and with device="cpu" each builds (the MOEAs and problems of the
+    decomposition, indicator and knee slices, MaF1-15, the samplers)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     lb, ub = torch.zeros(D), torch.ones(D)
     makers = [lambda cls=cls, **kw: cls(lb, ub, n_objs=M, pop_size=20, **kw)
               for cls in (tmo.MOEAD, tmo.MOEADDRA, tmo.MOEADM2M, tmo.EAGMOEAD, tmo.NSGA3,
-                          tmo.TDEA, tmo.RVEA, tmo.RVEAa, tmo.LMOCSO)]
+                          tmo.TDEA, tmo.RVEA, tmo.RVEAa, tmo.LMOCSO, tmo.GDE3, tmo.IBEA, tmo.SRA,
+                          tmo.BCEIBEA, tmo.SPEA2, tmo.HypE, tmo.KnEA, tmo.BiGE)]
     makers += [lambda cls=getattr(tnum, f"DTLZ{i}"), **kw: cls(m=M, **kw) for i in range(1, 8)]
+    makers += [lambda cls=getattr(tnum, f"MaF{i}"), **kw: cls(m=M, **kw) for i in range(1, 16)]
     makers += [lambda **kw: tsampling.GridSampling(3, 2, **kw),
                lambda **kw: tsampling.LatinHypercubeSampling(5, 2, **kw)]
     for make in makers:
