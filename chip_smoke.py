@@ -17,7 +17,14 @@ exit 0):
    pop 65536, 1500 and an odd episode count, and cartpole (early exit) at
    pop 8192 and 1500 (ragged edge), T 500; every libdevice function the
    rollout kernel reaches in another form (``sincosf``, ``tanhf`` without
-   its clamp) against the original over all 2^32 inputs;
+   its clamp) against the original over all 2^32 inputs; acrobot on main
+   path 12's first-generation inputs (pop 65536, 2 episodes, T 500) and at
+   n 1500 with 3 episodes, mountain car at pop 65536 x 2 x T 999 and at n
+   1500, both at n 8192 and 1500 with every other env on the brink of done
+   (pos 0.44, vel 0.07; t1 2.8), where done must fire in at least half the
+   brink envs, and all four envs at hidden 8 (n 1500); ptxas's registers
+   and spills and the runtime's blocks an SM of all eight (env, hidden)
+   instances;
    ``packed_dominance`` against
    ``packed_dominance_reference`` on the second main path's first merged
    fitness (n 20000, m 3) and on stress inputs (m 2, 3, 4, 5, 8, 16, 32
@@ -34,7 +41,8 @@ exit 0):
    weights, envs pushed to fall, explode, start done or run out of time; a
    ragged n of 1500 with 2 episodes; a low-rank ``linear=(0,)`` policy;
    the 7-mass walker; widths whose dot products split raggedly; a policy
-   whose block is one warp). All bit
+   whose block is one warp); at bf16 policy residency, the same on main
+   path 13's first-generation inputs and on the same stress inputs. All bit
    for bit, NaN returns by bit pattern, and a non-finite return only where
    the env exploded. Times each kernel and its plain version with CUDA
    events, and ``torch.topk`` beside ``partial_topk`` (also at n 1e6, k
@@ -51,7 +59,17 @@ exit 0):
    warm-up step, then ``run`` for 20 generations with every launch counter
    set to 0 just before and read just after. Checks one rollout launch per
    generation, finite fitness, a center that moved, and the fused engine
-   against the scan engine on a small population.
+   against the scan engine on a small population. Then main path 12, the
+   same with acrobot: ``StdWorkflow(OpenES(zeros(163), 65536),
+   PolicyRolloutProblem(flat_mlp_policy 6-16-3, acrobot(500), 2 episodes,
+   fused_env=acrobot_soa(500)))``, driven and checked as path 1 (the
+   engines at T 100), with the mean live steps an env of the last
+   population; the mountain car phase, the same with mountain_car(999),
+   2-16-1, for 5 generations; and the normaliser phase: the scan engine
+   with ``CapEpisode(200)`` and ``ObsNormalizer`` on cartpole(500) (pop
+   4096, 2 episodes, 3 evaluations) on the card, then ``CapEpisode.update``,
+   ``ObsNormalizer.merge_moments`` and ``normalize`` on the card against
+   the CPU on the card's own episode lengths and moments.
 4. main path 2: ``StdWorkflow(NSGA2(*LSMOP1(d=300, m=3).bounds(), n_objs=3,
    pop_size=10000, use_kernel=True), LSMOP1(d=300, m=3))`` — init step,
    one warm-up generation, then ``run`` for 20 generations, counters as
@@ -73,6 +91,11 @@ exit 0):
    or non-finite only where the env exploded, a center that moved, and the
    fused engine against the scan engine on 512 genomes near the center at
    T 25. Reports ms per generation, evals/s and the mean episode length.
+   Then main path 13, path 3 with ``fused_planes_dtype=torch.bfloat16``
+   (bf16 policy residency), driven and checked as path 3 (the engines on
+   genomes rounded to bfloat16), and both residencies in turns (f32, bf16,
+   bf16, f32: ms a generation over 10 generations, B2's ms by CUDA events,
+   peak device memory).
 6. main path 4: ``StdWorkflow(CSO(lb=-32·1, ub=32·1, pop 4096, d 1024),
    Ackley())`` (``bench.py:134-185``, no monitor, as there) — init, the
    init step (everyone evaluated) and one warm-up generation, then ``run``
@@ -190,8 +213,9 @@ exit 0):
    selection's sequential loop timed alone, IGD; MaF1-15 at m 3 and 5 on
    the card against the CPU at pop 10000, and MaF11's ``pf()`` (one B3
    launch each) against the CPU's.
-17. a ``{"kernels": [...]}`` line (B1-B4 with their call sites), then the
-   last line ``{"ok": true, "device": {...}}``.
+17. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
+   paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -269,6 +293,20 @@ IBEA_KAPPA, IBEA_GENERATIONS = 0.05, 6
 MAF_POP = 10000  # MaF1-15's points a member, card against CPU
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
+# main path 12: path 1's shape (OpenES, pop 65536, 2 episodes, flat 1-hidden
+# MLP at hidden 16) with acrobot, the JAX kernel's fourth built-in env, at
+# its default episode cap, in pendulum's place
+ACROBOT_T = 500
+# the mountain car phase: the same at mountain car's default cap, a few
+# generations (a call site of B1's mountain car instance)
+MOUNTAIN_CAR_T, MOUNTAIN_CAR_GENERATIONS = 999, 5
+# B1's envs: (default T, obs, act, env operations a step and trig calls a
+# step, counted from csrc/rollout.cu)
+ROLLOUT_ENVS = {"pendulum": (200, 3, 1, 25, 2), "cartpole": (500, 4, 2, 36, 2),
+                "mountain_car": (999, 2, 1, 20, 1), "acrobot": (500, 6, 3, 60, 8)}
+# the normaliser phase: the scan engine with CapEpisode and ObsNormalizer on
+# cartpole, card against CPU
+NORM_POP, NORM_GENERATIONS, NORM_CAP = 4096, 3, 200
 # partial_topk's sweep: every n against k in {1, 100, n/10, n/2, n} and three
 # value laws (topk_values); at 2**24 + 1, just above the JAX kernel's
 # envelope, the plain version checks k = n/2 only
@@ -328,7 +366,7 @@ def rollout_work(n: int, episodes: int, steps: int, obs: int, hidden: int, act: 
     this a lower bound. ``steps`` is the env-steps this run's data needs.
     """
     dim = obs * hidden + hidden + hidden * act + act
-    state_planes = {3: 2, 4: 4}[obs]
+    state_planes = {2: 2, 3: 2, 4: 4, 6: 4}[obs]
     nbytes = 4 * (n * dim + state_planes * episodes * n + episodes * n)
     per_step = 2 * (obs * hidden + hidden * act) + hidden + trig + env_ops
     return nbytes, per_step * steps
@@ -365,20 +403,24 @@ def compare(name: str, got, want, rtol: float, atol: float) -> dict:
     return stats
 
 
-def build_main_path(torch, seed: int):
-    """The main path as a user builds it: ``(workflow, make_problem)``."""
+def build_b1_path(torch, soa, hidden: int = 16, pop: int = 65536, early_exit: bool = True,
+                  device=None):
+    """A B1 path as a user builds it: ``StdWorkflow(OpenES(zeros(dim), pop),
+    PolicyRolloutProblem(flat_mlp_policy obs-hidden-act, soa.base, 2
+    episodes, fused_env=soa))``; returns ``(workflow, make_problem)``.
+    ``make_problem(fused, max_episode_length=None)`` builds the problem on
+    the fused or the scan engine."""
     from evox_tpu_torch import Monitor, StdWorkflow
     from evox_tpu_torch.algorithms.so.es import OpenES
-    from evox_tpu_torch.kernels import rollout as kr
     from evox_tpu_torch.problems.neuroevolution import PolicyRolloutProblem, flat_mlp_policy
 
-    soa = kr.pendulum_soa(max_steps=200)
-    apply, dim = flat_mlp_policy(soa.base.obs_dim, 16, soa.base.act_dim)
+    apply, dim = flat_mlp_policy(soa.base.obs_dim, hidden, soa.base.act_dim)
 
-    def make_problem(fused):
+    def make_problem(fused, max_episode_length=None):
         return PolicyRolloutProblem(
             apply, soa.base, num_episodes=2, stochastic_reset=False,
-            fused_env=soa if fused else None, early_exit=False,
+            max_episode_length=max_episode_length, fused_env=soa if fused else None,
+            early_exit=early_exit, device=device,
         )
 
     class FitnessRecorder(Monitor):
@@ -394,9 +436,39 @@ def build_main_path(torch, seed: int):
         def post_eval(self, mstate, cand, fitness):
             return mstate + ((fitness.mean(), torch.isfinite(fitness).all()),)
 
-    algo = OpenES(torch.zeros(dim), 65536, learning_rate=0.05, noise_stdev=0.05)
-    wf = StdWorkflow(algo, make_problem(True), monitors=[FitnessRecorder()], opt_direction="max")
+    algo = OpenES(torch.zeros(dim), pop, learning_rate=0.05, noise_stdev=0.05, device=device)
+    wf = StdWorkflow(algo, make_problem(True), monitors=[FitnessRecorder()], opt_direction="max",
+                     device=device)
     return wf, make_problem
+
+
+def build_main_path(torch, seed: int):
+    """Main path 1 as a user builds it: ``(workflow, make_problem)``."""
+    from evox_tpu_torch.kernels import rollout as kr
+
+    return build_b1_path(torch, kr.pendulum_soa(max_steps=200), early_exit=False)
+
+
+def build_acrobot_path(torch, pop: int = 65536, device=None):
+    """Main path 12: OpenES on the fused acrobot(500), 6-16-3."""
+    from evox_tpu_torch.kernels import rollout as kr
+
+    return build_b1_path(torch, kr.acrobot_soa(max_steps=ACROBOT_T), pop=pop, device=device)
+
+
+def b1_stress_inputs(torch, env, n: int, episodes: int, scale: float, seed: int, hidden: int = 16,
+                     dev=None):
+    """Large random genomes and a fresh reset per env: policies that drive
+    the system hard, where trajectories are sensitive."""
+    dev = torch.device("cuda") if dev is None else dev
+    g = torch.Generator().manual_seed(seed)
+    obs, act = env.base.obs_dim, env.base.act_dim
+    dim = obs * hidden + hidden + hidden * act + act
+    theta = (scale * torch.randn(n, dim, generator=g)).to(dev)
+    g_dev = torch.Generator(device=dev).manual_seed(seed)
+    states = env.base.reset(g_dev, episodes * n, dev)
+    planes = {k: v.contiguous() for k, v in env.to_soa(states).items()}
+    return theta, planes
 
 
 def phase_kernels(torch, kr, wf, seed: int) -> dict:
@@ -426,23 +498,11 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
     stats["bytes"], stats["ops"] = nbytes, ops
     results["pendulum"] = stats
 
-    def stress_inputs(env, n, episodes, scale):
-        """Large random genomes and a fresh reset per env: policies that
-        drive the system hard, where trajectories are sensitive."""
-        g = torch.Generator().manual_seed(seed)
-        obs, act = env.base.obs_dim, env.base.act_dim
-        dim = obs * 16 + 16 + 16 * act + act
-        theta = (scale * torch.randn(n, dim, generator=g)).to(dev)
-        g_dev = torch.Generator(device=dev).manual_seed(seed)
-        states = env.base.reset(g_dev, episodes * n, dev)
-        planes = {k: v.contiguous() for k, v in env.to_soa(states).items()}
-        return theta, planes
-
     # a driven pendulum turns any last-ulp difference into a different
     # trajectory in some envs, so bit-for-bit agreement is the only check
     # that means something here
     env = kr.pendulum_soa(200)
-    theta, planes = stress_inputs(env, 65536, 2, 0.5)
+    theta, planes = b1_stress_inputs(torch, env, 65536, 2, 0.5, seed)
     args = (theta, planes, 200, 3, 16, 1, env, 2)
     got = kr.fused_rollout(*args, device=dev)
     want = kr.fused_rollout_plain(*args)
@@ -455,7 +515,7 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
     # range reduction far from [-pi, pi]; a ragged n of 1500; an odd
     # episode count
     for sn, sep in PENDULUM_STRESS:
-        theta, planes = stress_inputs(env, sn, sep, 0.5)
+        theta, planes = b1_stress_inputs(torch, env, sn, sep, 0.5, seed)
         g = torch.Generator(device=dev).manual_seed(seed + sn)
         planes["th"] = 2e3 * torch.rand(sep * sn, generator=g, device=dev) - 1e3
         args = (theta, planes, 200, 3, 16, 1, env, sep)
@@ -469,7 +529,7 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
     # cartpole: terminating, the per-warp early exit; ragged edge at 1500
     env = kr.cartpole_soa(500)
     for n in (8192, 1500):
-        theta, planes = stress_inputs(env, n, 2, 0.5)
+        theta, planes = b1_stress_inputs(torch, env, n, 2, 0.5, seed)
         args = (theta, planes, 500, 4, 16, 2, env, 2)
         got = kr.fused_rollout(*args, device=dev)
         torch.cuda.synchronize()
@@ -497,15 +557,111 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
         results[f"exhaustive_{name}"] = res
 
     # the block of each env's instance; no instance spills
-    ptxas = {}
-    for fname, rep in ptxas_functions(_build_log("rollout")).items():
-        found = re.search(r"rollout_kernelINS_\d+(Pendulum|CartPole)E", fname)
-        ptxas[found.group(1).lower() if found else fname] = rep
-    for env_name in ("pendulum", "cartpole"):
-        check_no_spill(ptxas, f"rollout_kernel<{env_name}>", env_name)
+    ptxas = rollout_ptxas(kr)
     results["pendulum"]["block"] = rollout_block_shape(kr, "pendulum", pop.shape[0],
                                                        kw["episodes"], ptxas)
     results["cartpole_8192"]["block"] = rollout_block_shape(kr, "cartpole", 8192, 2, ptxas)
+    return results
+
+
+def rollout_ptxas(kr) -> dict:
+    """ptxas's report of every (env, hidden) instance of csrc/rollout.cu,
+    keyed "env/hidden"; fails if an instance spills or is missing."""
+    names = {"Pendulum": "pendulum", "CartPole": "cartpole", "MountainCar": "mountain_car",
+             "Acrobot": "acrobot"}
+    ptxas = {}
+    for fname, rep in ptxas_functions(_build_log("rollout")).items():
+        found = re.search(r"rollout_kernelINS_\d+(Pendulum|CartPole|MountainCar|Acrobot)ELi(\d+)E",
+                          fname)
+        if found:
+            ptxas[f"{names[found.group(1)]}/{found.group(2)}"] = rep
+    for env_name, hidden in kr.BLOCKS_PER_SM:
+        check_no_spill(ptxas, f"rollout_kernel<{env_name}, {hidden}>", f"{env_name}/{hidden}")
+    return ptxas
+
+
+def phase_rollout_envs(torch, kr, wf12, seed: int) -> dict:
+    """Hold B1's mountain car and acrobot instances, and every env's hidden-8
+    instance, against fused_rollout_plain on the card, bit for bit: acrobot
+    on main path 12's first-generation inputs and at n 1500 with 3
+    episodes, mountain car at pop 65536 x 2 x T 999 and at n 1500, both
+    with half their envs on the brink of done, and all four envs at hidden
+    8 (n 1500, 2 episodes). Then the registers, spills and blocks an SM of
+    all eight instances."""
+    dev = wf12.device
+    results = {}
+
+    def check(label, kw, timed=False):
+        plain_kw = {k: v for k, v in kw.items() if k != "device"}
+        got = kr.fused_rollout(**kw)
+        torch.cuda.synchronize()
+        want, steps = kr.fused_rollout_plain(**plain_kw, stats=True)
+        torch.cuda.synchronize()
+        st = compare(label, got, want, rtol=0.0, atol=0.0)
+        st["mean_live_steps"] = float(steps.float().mean())
+        if timed:
+            n, ep = kw["theta"].shape[0], kw["episodes"]
+            _, _, _, env_ops, trig = ROLLOUT_ENVS[kw["env"].cuda_env]
+            st["ms"] = _time_ms(lambda: kr.fused_rollout(**kw), 3, 20)
+            st["plain_ms"] = _time_ms(lambda: kr.fused_rollout_plain(**plain_kw), 0, 1)
+            live = int(steps.sum())  # the env-steps this run's data needs
+            nbytes, ops = rollout_work(n, ep, live, kw["obs_dim"], kw["hidden"], kw["act_dim"],
+                                       env_ops=env_ops, trig=trig)
+            st["bound_ms"], st["bound_by"] = bound_ms(nbytes, ops)
+            st.update(bytes=nbytes, ops=ops, live_steps=live, mean_return=float(want.mean()))
+        return st, steps
+
+    def stress_kw(name, n, ep, hidden=16, T=None, brink=False):
+        env = getattr(kr, f"{name}_soa")()
+        T = T or ROLLOUT_ENVS[name][0]
+        theta, planes = b1_stress_inputs(torch, env, n, ep, 0.5, seed + n + hidden, hidden, dev)
+        if brink:  # every other env on the brink of done (tests/test_kernels.py:296-317)
+            half = torch.arange(ep * n, device=dev) % 2 == 0
+            near = ({"pos": 0.44, "vel": 0.07} if name == "mountain_car"
+                    else {"t1": 2.8, "t2": 0.1, "td1": 0.5, "td2": 0.0})
+            planes = {k: torch.where(half, near[k], v).contiguous() for k, v in planes.items()}
+        return dict(theta=theta, init_state=planes, T=T, obs_dim=env.base.obs_dim, hidden=hidden,
+                    act_dim=env.base.act_dim, env=env, episodes=ep, device=dev)
+
+    # acrobot: the inputs main path 12 hands the kernel in its first
+    # generation (OpenES's population, the problem's episode resets)
+    state = wf12.init(seed)
+    pop, _ = wf12.algorithm.ask(state.algo)
+    kw = wf12.problem.fused_inputs(state.prob, pop)
+    results["acrobot"], _ = check(
+        f"acrobot, main-path inputs n={pop.shape[0]} ep=2 T={ACROBOT_T}", kw, timed=True)
+    del pop, kw
+    results["mountain_car"], _ = check(
+        f"mountain car n=65536 ep=2 T={MOUNTAIN_CAR_T}", stress_kw("mountain_car", 65536, 2),
+        timed=True)
+    results["acrobot_1500"], _ = check("acrobot n=1500 ep=3", stress_kw("acrobot", 1500, 3))
+    results["mountain_car_1500"], _ = check("mountain car n=1500 ep=2",
+                                            stress_kw("mountain_car", 1500, 2))
+    # on the brink: done fires within the horizon in the brink half, so the
+    # warp exit and the masked rewards are really held
+    for name in ("mountain_car", "acrobot"):
+        for n in (8192, 1500):
+            kw = stress_kw(name, n, 2, brink=True)
+            st, steps = check(f"{name} near done n={n} ep=2", kw)
+            half = torch.arange(2 * n, device=dev) % 2 == 0
+            st["brink_done"] = int((steps[half] < kw["T"]).sum())
+            if st["brink_done"] < n // 2:
+                raise AssertionError(f"{name} near done: done fired in only {st['brink_done']} "
+                                     f"of {n} brink envs")
+            results[f"{name}_near_done_{n}"] = st
+    for name in ROLLOUT_ENVS:
+        results[f"{name}_hidden8"], _ = check(f"{name} hidden 8 n=1500 ep=2",
+                                              stress_kw(name, 1500, 2, hidden=8))
+
+    # all eight instances: no spill, and the runtime fits at least the
+    # blocks an SM each is built for
+    ptxas = rollout_ptxas(kr)
+    results["instances"] = {
+        f"{env_name}/{hidden}": rollout_block_shape(kr, env_name, 65536, 2, ptxas, hidden)
+        for env_name, hidden in kr.BLOCKS_PER_SM}
+    results["acrobot"]["block"] = results["instances"]["acrobot/16"]
+    results["mountain_car"]["block"] = results["instances"]["mountain_car/16"]
+    print(f"[rollout instances] {json.dumps(results['instances'])}", flush=True)
     return results
 
 
@@ -515,22 +671,31 @@ def _build_log(name: str) -> str:
     return _build.build_log(name) or ""
 
 
-def rollout_block_shape(kr, env_name: str, n: int, episodes: int, ptxas: dict) -> dict:
+def rollout_block_shape(kr, env_name: str, n: int, episodes: int, ptxas: dict,
+                        hidden: int = 16) -> dict:
     """The rollout kernel's launch for an env at ``(n, episodes)``: the
     plan's threads, grid and blocks an SM, the runtime's blocks an SM and
-    registers, and ptxas's registers and spills of the env's instance."""
-    plan = kr.launch_plan(env_name, n, episodes, torch_sm_count())
-    runtime = kr.kernel_occupancy(env_name)
+    registers, and ptxas's registers and spills of the (env, hidden)
+    instance."""
+    plan = kr.launch_plan(env_name, n, episodes, torch_sm_count(), hidden=hidden)
+    runtime = kr.kernel_occupancy(env_name, hidden)
     if runtime["blocks_per_sm"] < plan["blocks_per_sm"]:
-        raise AssertionError(f"the rollout kernel for {env_name} fits fewer blocks an SM than "
-                             f"its plan: {runtime} against {plan}")
-    return {"instance": env_name, **{k: (list(v) if isinstance(v, tuple) else v)
-                                     for k, v in plan.items()},
+        raise AssertionError(f"the rollout kernel for {env_name}/{hidden} fits fewer blocks an "
+                             f"SM than its plan: {runtime} against {plan}")
+    return {"instance": f"{env_name}/{hidden}",
+            **{k: (list(v) if isinstance(v, tuple) else v) for k, v in plan.items()},
             "runtime_blocks_per_sm": runtime["blocks_per_sm"],
-            "registers": runtime["registers"], "ptxas": ptxas.get(env_name)}
+            "registers": runtime["registers"], "ptxas": ptxas.get(f"{env_name}/{hidden}")}
 
 
-def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: bool) -> dict:
+def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: bool,
+                    engine_T=None, live_steps: bool = False) -> dict:
+    """A B1 path (1, 12, the mountain car phase): init, one warm-up step,
+    ``run`` for ``gens`` generations with the launch counts set to 0 just
+    before and read just after; the fused engine against the scan engine on
+    512 genomes (at ``engine_T`` steps, default the problem's cap); with
+    ``live_steps``, the mean live steps an env of the last population (the
+    plain version's count)."""
     state = wf.init(seed)
     center0 = state.algo.center.clone()
     state = wf.step(state)  # warm-up: first-use library loads, cuBLAS handle
@@ -559,15 +724,16 @@ def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: 
 
     # the repo's own means: fused engine == scan engine on the same resets,
     # up to float rounding (the scan engine's policy sums in another order)
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g = torch.Generator(device=wf.device).manual_seed(seed + 1)
     dim = state.algo.center.shape[0]
-    small = state.algo.center + 0.05 * torch.randn(512, dim, generator=g, device="cuda")
+    small = state.algo.center + 0.05 * torch.randn(512, dim, generator=g, device=wf.device)
     pstate = wf.problem.init(seed)
-    f_fused, _ = make_problem(True).evaluate(pstate, small)
-    f_scan, _ = make_problem(False).evaluate(pstate, small)
+    f_fused, _ = make_problem(True, engine_T).evaluate(pstate, small)
+    f_scan, _ = make_problem(False, engine_T).evaluate(pstate, small)
     torch.cuda.synchronize()
-    engines = compare("fused engine vs scan engine, pop 512", f_fused, f_scan,
-                      rtol=1e-4, atol=1e-2)
+    env_name = wf.problem.fused_env.cuda_env
+    engines = compare(f"{env_name} fused engine vs scan engine, pop 512, T {engine_T or 'full'}",
+                      f_fused, f_scan, rtol=1e-4, atol=1e-2)
     out = {
         "generations": gens,
         "pop": wf.algorithm.pop_size,
@@ -581,6 +747,13 @@ def phase_main_path(torch, kr, wf, make_problem, gens: int, seed: int, profile: 
         "center_moved": moved,
         "engines": engines,
     }
+    if live_steps:
+        pop, _ = wf.algorithm.ask(state.algo)
+        kw = wf.problem.fused_inputs(state.prob, pop)
+        kw.pop("device")
+        _, steps = kr.fused_rollout_plain(**kw, stats=True)
+        out["mean_live_steps_last"] = float(steps.float().mean())
+        del pop, kw, steps
     if profile:
         prof = profile_generations(torch, wf, state, 5)
         # the profiler slows the host; the idle share is taken against the
@@ -1081,11 +1254,13 @@ def phase_nsga2_path(torch, wf, gens: int, seed: int, profile: bool) -> dict:
 
 
 def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=None,
-                      algorithm=None):
+                      algorithm=None, weight_dtype=None):
     """Main path 3 as a user builds it: ``(workflow, make_problem, adapter)``.
     ``algorithm(dim, pop, device)`` builds the algorithm in OpenES's place
-    (main path 6: PGPE); ``pop``, ``T`` and ``device`` exist for a rehearsal
-    on the CPU at a small size; the chip run takes the defaults."""
+    (main path 6: PGPE); ``weight_dtype=torch.bfloat16`` is main path 13's
+    bf16 policy residency (``fused_planes_dtype``); ``pop``, ``T`` and
+    ``device`` exist for a rehearsal on the CPU at a small size; the chip
+    run takes the defaults."""
     from evox_tpu_torch import Monitor, StdWorkflow
     from evox_tpu_torch.algorithms.so.es import OpenES
     from evox_tpu_torch.kernels import rollout_mlp as km
@@ -1100,7 +1275,7 @@ def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=No
         return PolicyRolloutProblem(
             apply, penv.base, num_episodes=1, stochastic_reset=False,
             max_episode_length=max_episode_length, fused_planes=penv if fused else None,
-            device=device,
+            fused_planes_dtype=weight_dtype if fused else None, device=device,
         )
 
     class FitnessRecorder(Monitor):
@@ -1175,29 +1350,34 @@ def ptxas_functions(log: str) -> dict:
     return out
 
 
-def walker_block_shape(km, sizes, linear=()) -> dict:
-    """The walker kernel's block shape at ``sizes``: the plan's instance,
-    threads, registers and blocks an SM, the blocks an SM the runtime
-    reports for that instance, and ptxas's registers and spills of both
-    instances."""
+def walker_block_shape(km, sizes, linear=(), weight_dtype=None) -> dict:
+    """The walker kernel's block shape at ``sizes`` and residency: the
+    plan's instance, threads, registers, shared memory and blocks an SM, the
+    blocks an SM the runtime reports for that instance, and ptxas's
+    registers and spills of all four instances ("main", "generic", and
+    their "_bf16" residencies)."""
     import ctypes
 
     from evox_tpu_torch.kernels import _build
 
-    plan = km.fused_rollout_analysis(sizes, linear=linear)
+    plan = km.fused_rollout_analysis(sizes, linear=linear, weight_dtype=weight_dtype)
+    bf16 = plan["weight_dtype"] == "torch.bfloat16"
     fn = _build.function("rollout_mlp", "evox_mlp_rollout_blocks_per_sm", [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
     blocks = ctypes.c_int(0)
-    _build.check_launch("rollout_mlp", fn(int(plan["instance"] == "main"),
+    _build.check_launch("rollout_mlp", fn(int(plan["instance"] == "main"), int(bf16),
                                           plan["threads_per_block"],
                                           plan["smem_bytes_per_block"], ctypes.byref(blocks)),
                         "occupancy query")
     ptxas = {}
     for name, rep in ptxas_functions(_build.build_log("rollout_mlp") or "").items():
-        # mlp_rollout_kernel<true> (the main instance) mangles to ...ILb1E...
-        ptxas["main" if "ILb1E" in name else "generic" if "ILb0E" in name else name] = rep
-    return {"instance": plan["instance"], "threads": plan["threads_per_block"],
-            "slices": plan["slices"], "smem_bytes": plan["smem_bytes_per_block"],
+        # mlp_rollout_kernel<true, float> (the main instance) mangles to
+        # ...ILb1EfE..., its bf16 residency to ...ILb1E13__nv_bfloat16E...
+        kind = "main" if "ILb1E" in name else "generic" if "ILb0E" in name else name
+        ptxas[kind + ("_bf16" if "bfloat16" in name else "")] = rep
+    return {"instance": plan["instance"], "weight_dtype": plan["weight_dtype"],
+            "threads": plan["threads_per_block"], "slices": plan["slices"],
+            "smem_bytes": plan["smem_bytes_per_block"],
             "planned_registers": plan["registers_per_thread"],
             "planned_blocks_per_sm": plan["blocks_per_sm"],
             "runtime_blocks_per_sm": blocks.value, "ptxas": ptxas}
@@ -1239,12 +1419,15 @@ def walker_stress_inputs(torch, km, sizes, n: int, episodes: int, T: int, w_scal
                 episodes=episodes)
 
 
-def phase_walker_kernels(torch, wf, adapter, seed: int) -> dict:
+def phase_walker_kernels(torch, wf, adapter, seed: int, prefix: str = "walker") -> dict:
     """Hold fused_mlp_rollout against fused_mlp_rollout_plain on the card,
-    on the main path's first-generation inputs and on stress inputs."""
+    on the main path's first-generation inputs and on stress inputs, at the
+    path's residency (path 3: float32; path 13, ``prefix`` "walker_bf16":
+    bfloat16)."""
     from evox_tpu_torch.kernels import rollout_mlp as km
 
     dev = wf.device
+    weight_dtype = wf.problem.fused_planes_dtype
     results = {}
     state = wf.init(seed)
     pop, _ = wf.algorithm.ask(state.algo)
@@ -1257,7 +1440,8 @@ def phase_walker_kernels(torch, wf, adapter, seed: int) -> dict:
     n, ep, T = pop.shape[0], kw["episodes"], kw["T"]
     # bit for bit: the kernel does the plain version's operations in its
     # fixed order, each rounded on its own (no FMA contraction)
-    stats = compare_exact(f"fused_mlp_rollout, main-path inputs n={n} ep={ep} T={T}", [got], [want])
+    stats = compare_exact(f"fused_mlp_rollout ({prefix}), main-path inputs n={n} ep={ep} T={T}",
+                          [got], [want])
     stats["nonfinite"] = check_exploded(torch, "main-path inputs", got, exploded)
     stats["ms"] = _time_ms(lambda: km.fused_mlp_rollout(**kw), 2, 10)
     # T = 0: the launch, the policy copies and the state loads alone; the
@@ -1271,34 +1455,67 @@ def phase_walker_kernels(torch, wf, adapter, seed: int) -> dict:
     stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
     stats.update(bytes=nbytes, ops=ops, live_steps=live, mean_episode_length=live / (n * ep),
                  exploded=int(exploded.sum()), mean_return=float(want.mean()),
-                 block=walker_block_shape(km, kw["sizes"], kw["linear"]))
-    print(f"[walker kernel] {json.dumps(stats)}", flush=True)
+                 block=walker_block_shape(km, kw["sizes"], kw["linear"], weight_dtype))
+    print(f"[{prefix} kernel] {json.dumps(stats)}", flush=True)
     del got, want, kw, plain_kw, pop
-    results["walker"] = stats
+    results[prefix] = stats
 
     for i, (name, sizes, sn, sep, sT, scale, linear, walker) in enumerate(WALKER_STRESS):
         skw = walker_stress_inputs(torch, km, sizes, sn, sep, sT, scale, seed + i, dev, **walker)
-        got = km.fused_mlp_rollout(**skw, linear=linear, device=dev)
+        skw.update(linear=linear, weight_dtype=weight_dtype)
+        got = km.fused_mlp_rollout(**skw, device=dev)
         torch.cuda.synchronize()
-        want, steps, exploded = km.fused_mlp_rollout_plain(**skw, linear=linear, stats=True)
+        want, steps, exploded = km.fused_mlp_rollout_plain(**skw, stats=True)
         torch.cuda.synchronize()
-        label = f"fused_mlp_rollout, stress: {name}, sizes {sizes} n={sn} ep={sep} T={sT}"
+        label = (f"fused_mlp_rollout ({prefix}), stress: {name}, sizes {sizes} n={sn} ep={sep} "
+                 f"T={sT}")
         st = compare_exact(label, [got], [want])
         st.update(nonfinite=check_exploded(torch, label, got, exploded),
                   exploded=int(exploded.sum()), mean_episode_length=float(steps.float().mean()))
         if not st["exploded"] or not (steps < sT).any():
             raise AssertionError(f"{label}: the stress inputs ended no episode early")
-        results[f"walker_stress_{i}"] = st
+        results[f"{prefix}_stress_{i}"] = st
 
     # the main path's instance keeps its plan: no spill, its registers, its
     # blocks an SM (a fall to two undoes the register-held layer)
     block = stats["block"]
-    main = block["ptxas"].get("main", {})
+    main = block["ptxas"].get("main_bf16" if weight_dtype is not None else "main", {})
     if (block["instance"] != "main" or main.get("spill_stores", 1) or main.get("spill_loads", 1)
             or main.get("registers", 999) > block["planned_registers"]
             or block["runtime_blocks_per_sm"] != block["planned_blocks_per_sm"]):
         raise AssertionError(f"the walker kernel's main instance misses its plan: {block}")
     return results
+
+
+def phase_walker_turns(torch, seed: int, gens: int = 10, **build) -> dict:
+    """Paths 3 (float32 residency) and 13 (bfloat16) in turns, f32, bf16,
+    bf16, f32, each from a fresh workflow: ms a generation of ``run`` after a
+    warm-up step, B2's ms at that turn's first-generation inputs (CUDA
+    events) and peak device memory of the run."""
+    from evox_tpu_torch.kernels import rollout_mlp as km
+
+    turns = []
+    for dtype in (None, torch.bfloat16, torch.bfloat16, None):
+        wf, _, adapter = build_walker_path(torch, weight_dtype=dtype, **build)
+        state = wf.init(seed)
+        pop, _ = wf.algorithm.ask(state.algo)
+        kw = wf.problem.fused_planes_inputs(state.prob, adapter.batched_to_tree(pop))
+        kernel_ms = _time_ms(lambda: km.fused_mlp_rollout(**kw), 1, 5)
+        del pop, kw
+        state = wf.step(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wf.run(state, gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        turns.append({"weight_dtype": str(dtype or torch.float32), "kernel_ms": kernel_ms,
+                      "ms_per_generation": wall / gens * 1e3,
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        print(f"[walker turn] {json.dumps(turns[-1])}", flush=True)
+        del wf, state, adapter
+        torch.cuda.empty_cache()
+    return {"generations": gens, "turns": turns}
 
 
 def phase_walker_path(torch, wf, make_problem, adapter, gens: int, seed: int,
@@ -1366,6 +1583,10 @@ def phase_walker_path(torch, wf, make_problem, adapter, gens: int, seed: int,
     dev = wf.device
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     small = state.algo.center + 0.05 * torch.randn(512, adapter.dim, generator=g, device=dev)
+    if wf.problem.fused_planes_dtype is not None:
+        # bf16 residency: both engines see the genomes as the kernel keeps
+        # them (rounding again in the kernel is then the identity)
+        small = small.to(wf.problem.fused_planes_dtype).float()
     tree = adapter.batched_to_tree(small)
     pstate = wf.problem.init(seed)
     f_fused, _ = make_problem(True, 25).evaluate(pstate, tree)
@@ -1395,6 +1616,70 @@ def phase_walker_path(torch, wf, make_problem, adapter, gens: int, seed: int,
         prof = profile_generations(torch, wf, state, 5)
         prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (wall / gens * 1e6)
         out["profile"] = prof
+    return out
+
+
+def phase_normalizer(torch, seed: int, pop: int = NORM_POP, gens: int = NORM_GENERATIONS,
+                     device=None) -> dict:
+    """The scan engine with CapEpisode and ObsNormalizer on the card
+    (cartpole(500), flat 4-16-2 MLP, 2 episodes, ``gens`` evaluations of one
+    population), then the helpers on the card against the CPU on the card's
+    own inputs of the last evaluation (its episode lengths and moments):
+    the new cap equal, the merged (count, mean, m2) and a batch normalised
+    with them within 1e-6 relative (the same elementwise float32 operations
+    on both; the moments' sums were taken on the card only)."""
+    from evox_tpu_torch.problems.neuroevolution import (
+        CapEpisode,
+        ObsNormalizer,
+        PolicyRolloutProblem,
+        flat_mlp_policy,
+    )
+    from evox_tpu_torch.problems.neuroevolution.control import cartpole
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    env = cartpole(500)
+    apply, dim = flat_mlp_policy(4, 16, 2)
+    cap, norm = CapEpisode(NORM_CAP), ObsNormalizer(4)
+    seen = {}
+    update, merge = cap.update, norm.merge_moments
+    cap.update = lambda c, lengths: seen.update(cap=(c, lengths)) or update(c, lengths)
+    norm.merge_moments = lambda st, *m: seen.update(norm=(st, m)) or merge(st, *m)
+    prob = PolicyRolloutProblem(apply, env, num_episodes=2, cap_episode=cap, obs_normalizer=norm,
+                                device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    population = 0.5 * torch.randn(pop, dim, generator=g, device=dev)
+    state, caps, counts = prob.init(seed), [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(gens):
+        fitness, state = prob.evaluate(state, population)
+        caps.append(int(state.cap))
+        counts.append(float(state.norm[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(fitness).all()):
+        raise AssertionError("non-finite fitness on the normaliser phase")
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else tuple(y.cpu() for y in x)
+    c_in, lengths = seen["cap"]
+    n_in, moments = seen["norm"]
+    if float(moments[0]) != float(lengths.sum()):
+        raise AssertionError("the normaliser counted other steps than the live ones")
+    out = {"pop": pop, "episodes": 2, "evaluations": gens, "ms_per_evaluation": wall / gens * 1e3,
+           "caps": caps, "counts": counts, "mean_episode_length": float(lengths.float().mean())}
+    new_cap, want_cap = update(c_in, lengths), update(cpu(c_in), cpu(lengths))
+    if int(new_cap) != int(want_cap):
+        raise AssertionError(f"CapEpisode.update: card {int(new_cap)} != CPU {int(want_cap)}")
+    got = merge(n_in, *moments)
+    want = merge(cpu(n_in), *cpu(moments))
+    out["merge_moments"] = compare("ObsNormalizer.merge_moments, card vs CPU",
+                                   torch.cat([x.reshape(-1).cpu() for x in got]),
+                                   torch.cat([x.reshape(-1) for x in want]), rtol=1e-6, atol=0.0)
+    obs = env.obs(env.reset(g, pop, dev)) * 20.0
+    out["normalize"] = compare("ObsNormalizer.normalize, card vs CPU",
+                               norm.normalize(got, obs).cpu(), norm.normalize(want, obs.cpu()),
+                               rtol=1e-6, atol=1e-7)
+    out["cap"] = int(new_cap)
+    print(f"[normalizer] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -3125,6 +3410,17 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "bound_by": pend["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this
         "block": pend["block"],
+        "callers": [
+            {"caller": "PolicyRolloutProblem, fused pendulum under OpenES (path 1)",
+             "launches": paths["pendulum"]["launches"]},
+            *({"caller": caller, "launches": paths[key]["launches"],
+               **{f: kernels[key][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "max_abs_err", "mean_live_steps", "block")}}
+              for key, caller in (
+                  ("acrobot", "PolicyRolloutProblem, fused acrobot 6-16-3 under OpenES (path 12)"),
+                  ("mountain_car", "PolicyRolloutProblem, fused mountain car 2-16-1 under OpenES "
+                                   "(the mountain car phase)"))),
+        ],
     }]
     for name, source, replaces in (
         ("packed_dominance", "dominance.cu", "evox_tpu/kernels/dominance.py:222"),
@@ -3168,7 +3464,13 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "callers": [{"caller": "PolicyRolloutProblem under OpenES (path 3)",
                      "launches": paths["walker"]["launches"]},
                     {"caller": "PolicyRolloutProblem under PGPE with ClipUp (path 6)",
-                     "launches": paths["pgpe_walker"]["launches"]}],
+                     "launches": paths["pgpe_walker"]["launches"]},
+                    {"caller": "PolicyRolloutProblem under OpenES, bf16 policy residency "
+                               "(fused_planes_dtype, path 13)",
+                     "launches": paths["walker_bf16"]["launches"],
+                     **{f: kernels["walker_bf16"][f] for f in (
+                         "ms", "copy_only_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                         "block")}}],
     })
     return entries
 
@@ -3214,6 +3516,8 @@ def main() -> int:
     kernels = phase_kernels(torch, kr, wf, SEED)
     wf2 = build_nsga2_path(torch)
     kernels.update(phase_nsga2_kernels(torch, wf2, SEED))
+    wf12, make_acrobot_problem = build_acrobot_path(torch)
+    kernels.update(phase_rollout_envs(torch, kr, wf12, SEED))
     wf3, make_walker_problem, adapter = build_walker_path(torch)
     kernels.update(phase_walker_kernels(torch, wf3, adapter, SEED))
 
@@ -3223,6 +3527,18 @@ def main() -> int:
                                         args.profile)
     print(f"[main path] {json.dumps(paths['pendulum'])}", flush=True)
     del wf
+    # main path 12 (acrobot), the mountain car phase, the normaliser
+    paths["acrobot"] = phase_main_path(torch, kr, wf12, make_acrobot_problem, GENERATIONS, SEED,
+                                       args.profile, engine_T=100, live_steps=True)
+    print(f"[acrobot path] {json.dumps(paths['acrobot'])}", flush=True)
+    del wf12
+    wf_mc, make_mc_problem = build_b1_path(torch, kr.mountain_car_soa(max_steps=MOUNTAIN_CAR_T))
+    paths["mountain_car"] = phase_main_path(torch, kr, wf_mc, make_mc_problem,
+                                            MOUNTAIN_CAR_GENERATIONS, SEED, False, engine_T=100,
+                                            live_steps=True)
+    print(f"[mountain car] {json.dumps(paths['mountain_car'])}", flush=True)
+    del wf_mc
+    paths["normalizer"] = phase_normalizer(torch, SEED)
     paths["nsga2"] = phase_nsga2_path(torch, wf2, GENERATIONS, SEED, args.profile)
     print(f"[nsga2 path] {json.dumps(paths['nsga2'])}", flush=True)
     paths["monitor_archive"] = phase_monitor_archive(torch, wf2, SEED)
@@ -3233,6 +3549,16 @@ def main() -> int:
     print(f"[walker path] {json.dumps(paths['walker'])}", flush=True)
     del wf3, adapter, make_walker_problem
     torch.cuda.empty_cache()
+    # main path 13: path 3 with bf16 policy residency, its kernel checks, and
+    # both residencies in turns
+    wf13, make_walker_problem, adapter = build_walker_path(torch, weight_dtype=torch.bfloat16)
+    kernels.update(phase_walker_kernels(torch, wf13, adapter, SEED, prefix="walker_bf16"))
+    paths["walker_bf16"] = phase_walker_path(torch, wf13, make_walker_problem, adapter,
+                                             GENERATIONS, SEED, args.profile)
+    print(f"[walker bf16 path] {json.dumps(paths['walker_bf16'])}", flush=True)
+    del wf13, adapter, make_walker_problem
+    torch.cuda.empty_cache()
+    paths["walker_turns"] = phase_walker_turns(torch, SEED)
     # 6. main path 4 (CSO on Ackley), its monitored run, one generation
     # against the CPU, and the rest of the PSO family
     paths["cso"] = phase_cso_path(torch, GENERATIONS, SEED, args.profile)
@@ -3295,6 +3621,11 @@ def main() -> int:
         "main_path": paths["pendulum"],
         "nsga2_path": paths["nsga2"],
         "walker_path": paths["walker"],
+        "acrobot_path": paths["acrobot"],
+        "mountain_car": paths["mountain_car"],
+        "normalizer": paths["normalizer"],
+        "walker_bf16_path": paths["walker_bf16"],
+        "walker_turns": paths["walker_turns"],
         "cso_path": paths["cso"],
         "cso_monitored": paths["cso_monitored"],
         "cso_card_vs_cpu": paths["cso_card_vs_cpu"],

@@ -43,6 +43,16 @@
 //   __launch_bounds__ holds it to 128 registers a thread.
 //   kernels/rollout_mlp.py::_smem_plan chooses the instance and the layout,
 //   and fused_rollout_analysis reports the budget.
+// - Two residencies (the JAX kernel's weight_dtype). Each instance is built
+//   for float and for __nv_bfloat16 weights (Wt). With bf16 the copy-in reads
+//   the float32 planes it is given with plain loads (cp.async cannot
+//   convert) and stores each weight and bias rounded to nearest even
+//   (__float2bfloat16_rn), so the population is never cast in device
+//   memory; the block's policy takes half the shared memory (29392 bytes
+//   at the main path's widths, against 56944), a quad of weights is one
+//   8-byte load widened to four floats by shifts (exact), and the main
+//   instance's register-held weights are rounded and widened once, at
+//   copy-in. Sums, their order and the physics are the float instance's.
 // - The walker's physics runs on warp 0, one mass per lane (at most 32),
 //   link quantities from the neighbouring lane by shuffle. After the
 //   substeps warp 0 leaves the reward's terms in shared memory for warp 1,
@@ -82,10 +92,11 @@
 //
 // C interface (loaded with ctypes): evox_fused_mlp_rollout takes three
 // host arrays (integers, walker constants, device pointers; layouts below)
-// and returns cudaGetLastError() after the launch; 0 means launched.
+// and returns the launch's error (cudaLaunchKernel's); 0 means launched.
 // evox_mlp_rollout_blocks_per_sm reports the runtime's occupancy of an
 // instance.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -145,6 +156,52 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The resident policy's element type Wt: float, or __nv_bfloat16 for the
+// bf16 residency (weights and biases rounded to nearest even at copy-in,
+// as the plain version's .to(torch.bfloat16) rounds; widened back to float
+// where they are read, which is exact). Everything else is float.
+// A quad [k/4][j][k%4] of weights at quad index q, widened.
+__device__ __forceinline__ float4 load_quad(const float* W, int q) {
+  return reinterpret_cast<const float4*>(W)[q];
+}
+
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* W, int q) {
+  const uint2 u = reinterpret_cast<const uint2*>(W)[q];  // element 0 in the low half
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float load_one(const float* B, int j) { return B[j]; }
+
+__device__ __forceinline__ float load_one(const __nv_bfloat16* B, int j) {
+  return __bfloat162float(B[j]);
+}
+
+// one element of the policy into shared memory: float by cp.async; bf16
+// by a plain load and a rounding store (cp.async cannot convert)
+__device__ __forceinline__ void copy_in(float* dst, const float* src) { cp_async4(dst, src); }
+
+__device__ __forceinline__ void copy_in(__nv_bfloat16* dst, const float* src) {
+  *dst = __float2bfloat16_rn(__ldg(src));
+}
+
+// the resident weights or biases at offset `off` (in floats) of shared memory
+template <typename Wt>
+__device__ __forceinline__ const Wt* region(const float* smem, int off) {
+  return reinterpret_cast<const Wt*>(smem + off);
+}
+
+// a register-held weight as the residency holds it
+template <typename Wt>
+__device__ __forceinline__ float resident(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float resident<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // torch.maximum / torch.minimum on the card: a NaN argument wins (fmaxf and
@@ -228,7 +285,8 @@ __device__ __forceinline__ void walker_obs(const Params& p, float* obs, float pa
 // all threads: one layer, hout[j] = f(b[j] + sum_k hin[k] w[k][j]) for j <
 // fo, in the slice order of the header (W is [k/4][j][k%4], hin and W
 // 16-byte aligned, hin padded to whole quads)
-__device__ __forceinline__ void dense(const float* W, const float* B, const float* hin,
+template <typename Wt>
+__device__ __forceinline__ void dense(const Wt* W, const Wt* B, const float* hin,
                                       float* hout, int fi, int fo, int S, bool squash) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int G = 32 / S;
@@ -237,19 +295,18 @@ __device__ __forceinline__ void dense(const float* W, const float* B, const floa
   const int qa = Q * s / S, qb = Q * (s + 1) / S;
   const int qfull = min(qb, fi >> 2);  // a short last quad is added on its own
   const float4* h4 = reinterpret_cast<const float4*>(hin);
-  const float4* w4 = reinterpret_cast<const float4*>(W);
   for (int jb = warp * G; jb < fo; jb += nwarps * G) {  // warp-uniform
     const int j = jb + jl;
     float acc = -0.0f;
     if (j < fo) {
-      if (s == 0) acc = B[j];
+      if (s == 0) acc = load_one(B, j);
       int q = qa;
       for (; q + 4 <= qfull; q += 4) {  // four quads' loads ahead of their adds
         float4 x[4], w[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           x[u] = h4[q + u];
-          w[u] = w4[(q + u) * fo + j];
+          w[u] = load_quad(W, (q + u) * fo + j);
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -261,7 +318,7 @@ __device__ __forceinline__ void dense(const float* W, const float* B, const floa
       }
       for (; q < qfull; ++q) {
         const float4 x = h4[q];
-        const float4 w = w4[q * fo + j];
+        const float4 w = load_quad(W, q * fo + j);
         acc = acc + x.x * w.x;
         acc = acc + x.y * w.y;
         acc = acc + x.z * w.z;
@@ -269,7 +326,7 @@ __device__ __forceinline__ void dense(const float* W, const float* B, const floa
       }
       if (qfull < qb) {
         const float4 x = h4[qfull];
-        const float4 w = w4[qfull * fo + j];
+        const float4 w = load_quad(W, qfull * fo + j);
         const int rem = fi - 4 * qfull;
         acc = acc + x.x * w.x;
         if (rem > 1) acc = acc + x.y * w.y;
@@ -291,24 +348,25 @@ __device__ __forceinline__ int main_qa(int s) { return kMainQuads * s / 4; }
 // in k order: the slice's quads from shared memory, then its last three
 // from registers (wr[t][o][r]: quad qb - 3 + t, output jp + 32 o); the same
 // slices and tree as dense()
-__device__ __forceinline__ void dense0_main(const float* W, const float* B, const float* hin,
+template <typename Wt>
+__device__ __forceinline__ void dense0_main(const Wt* W, const Wt* B, const float* hin,
                                             float* hout,
                                             const float (&wr)[kMainRegQuads][2][4]) {
   const int lane = threadIdx.x & 31;
   const int s = lane >> 3, jp = (threadIdx.x >> 5) * 8 + (lane & 7);
   const int qa = main_qa(s), qr = main_qa(s + 1) - kMainRegQuads;
   const float4* h4 = reinterpret_cast<const float4*>(hin);
-  const float4* w4 = reinterpret_cast<const float4*>(W) + (qa - kMainRegQuads * s) * kMainHidden;
-  float a0 = s == 0 ? B[jp] : -0.0f;
-  float a1 = s == 0 ? B[jp + 32] : -0.0f;
+  int w4 = (qa - kMainRegQuads * s) * kMainHidden;  // quad index of row q's output 0
+  float a0 = s == 0 ? load_one(B, jp) : -0.0f;
+  float a1 = s == 0 ? load_one(B, jp + 32) : -0.0f;
   int q = qa;
   for (; q + 2 <= qr; q += 2, w4 += 2 * kMainHidden) {  // two quads' loads ahead
     float4 x[2], u[2], v[2];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       x[t] = h4[q + t];
-      u[t] = w4[t * kMainHidden + jp];
-      v[t] = w4[t * kMainHidden + jp + 32];
+      u[t] = load_quad(W, w4 + t * kMainHidden + jp);
+      v[t] = load_quad(W, w4 + t * kMainHidden + jp + 32);
     }
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
@@ -323,7 +381,7 @@ __device__ __forceinline__ void dense0_main(const float* W, const float* B, cons
     }
   }
   if (q < qr) {
-    const float4 x = h4[q], u = w4[jp], v = w4[jp + 32];
+    const float4 x = h4[q], u = load_quad(W, w4 + jp), v = load_quad(W, w4 + jp + 32);
     a0 = a0 + x.x * u.x;
     a1 = a1 + x.x * v.x;
     a0 = a0 + x.y * u.y;
@@ -357,13 +415,14 @@ __device__ __forceinline__ void dense0_main(const float* W, const float* B, cons
 
 // the main instance's layer 1 (64 -> 64, tanh): thread (jp, s) holds
 // w[16 s + t][jp + 32 o] in w[t][o]; the same slices and tree as dense()
-__device__ __forceinline__ void dense1_main(const float (&w)[16][2], const float* B,
+template <typename Wt>
+__device__ __forceinline__ void dense1_main(const float (&w)[16][2], const Wt* B,
                                             const float* hin, float* hout) {
   const int lane = threadIdx.x & 31;
   const int s = lane >> 3, jp = (threadIdx.x >> 5) * 8 + (lane & 7);
   const float4* h4 = reinterpret_cast<const float4*>(hin) + 4 * s;
-  float a0 = s == 0 ? B[jp] : -0.0f;
-  float a1 = s == 0 ? B[jp + 32] : -0.0f;
+  float a0 = s == 0 ? load_one(B, jp) : -0.0f;
+  float a1 = s == 0 ? load_one(B, jp + 32) : -0.0f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const float4 x = h4[q];
@@ -460,7 +519,7 @@ __device__ __forceinline__ float walker_reward(const Params& p, const float* rw)
 
 // __grid_constant__: the device functions take p by reference and index its
 // arrays at run time, which would otherwise copy it to local memory
-template <bool kMain>
+template <bool kMain, typename Wt>
 __global__ void __launch_bounds__(kMain ? kMainThreads : kMaxThreads,
                                   kMain ? kMainBlocksPerSM : 2)
     mlp_rollout_kernel(const __grid_constant__ Params p) {
@@ -472,17 +531,18 @@ __global__ void __launch_bounds__(kMain ? kMainThreads : kMaxThreads,
 
   // 1. individual i's policy, through its strides: weights to shared memory
   // as [k/4][j][k%4] (the main instance: its register-held quads of layer 0
-  // and layer 1 to registers), biases
+  // and layer 1 to registers), biases; rounded to Wt on the way
   for (int l = 0; l < p.n_layers; ++l) {
     const int fo = p.fan[l + 1];
     const float* bsrc = p.b[l] + (long long)i * p.b_si[l];
+    Wt* bdst = reinterpret_cast<Wt*>(smem + p.b_off[l]);
     for (int jj = tid; jj < fo; jj += blockDim.x) {
-      cp_async4(smem + p.b_off[l] + jj, bsrc + jj * p.b_sj[l]);
+      copy_in(bdst + jj, bsrc + jj * p.b_sj[l]);
     }
     if (kMain && l == 1) continue;
     const int count = p.fan[l] * fo;
     const float* src = p.w[l] + (long long)i * p.w_si[l];
-    float* dst = smem + p.w_off[l];
+    Wt* dst = reinterpret_cast<Wt*>(smem + p.w_off[l]);
     const int dk = blockDim.x / fo, dj = blockDim.x - dk * fo;
     int k = tid / fo, j = tid - (tid / fo) * fo;
     for (int idx = tid; idx < count; idx += blockDim.x) {
@@ -491,7 +551,7 @@ __global__ void __launch_bounds__(kMain ? kMainThreads : kMaxThreads,
         const int s = (row >= main_qa(1)) + (row >= main_qa(2)) + (row >= main_qa(3));
         row = row < main_qa(s + 1) - kMainRegQuads ? row - kMainRegQuads * s : -1;
       }
-      if (row >= 0) cp_async4(dst + ((row * fo + j) << 2) + (k & 3), src + k * p.w_sk[l] + j * p.w_sj[l]);
+      if (row >= 0) copy_in(dst + ((row * fo + j) << 2) + (k & 3), src + k * p.w_sk[l] + j * p.w_sj[l]);
       k += dk;
       j += dj;
       if (j >= fo) {
@@ -510,11 +570,11 @@ __global__ void __launch_bounds__(kMain ? kMainThreads : kMaxThreads,
 #pragma unroll
       for (int t = 0; t < kMainRegQuads; ++t) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) w0r[t][o][r] = src0[(4 * (q0 + t) + r) * p.w_sk[0]];
+        for (int r = 0; r < 4; ++r) w0r[t][o][r] = resident<Wt>(src0[(4 * (q0 + t) + r) * p.w_sk[0]]);
       }
       const float* src1 = p.w[1] + (long long)i * p.w_si[1] + (jp + 32 * o) * p.w_sj[1];
 #pragma unroll
-      for (int t = 0; t < 16; ++t) w1r[t][o] = src1[(16 * s + t) * p.w_sk[1]];
+      for (int t = 0; t < 16; ++t) w1r[t][o] = resident<Wt>(src1[(16 * s + t) * p.w_sk[1]]);
     }
   }
 
@@ -551,17 +611,18 @@ __global__ void __launch_bounds__(kMain ? kMainThreads : kMaxThreads,
   // reduces it)
   for (int step = 0; step < p.T && !done; ++step) {
     if (kMain) {  // the widths as constants
-      dense0_main(smem + p.w_off[0], smem + p.b_off[0], obs, smem + p.h_off[1], w0r);
+      dense0_main(region<Wt>(smem, p.w_off[0]), region<Wt>(smem, p.b_off[0]), obs,
+                  smem + p.h_off[1], w0r);
       __syncthreads();
-      dense1_main(w1r, smem + p.b_off[1], smem + p.h_off[1], smem + p.h_off[2]);
+      dense1_main(w1r, region<Wt>(smem, p.b_off[1]), smem + p.h_off[1], smem + p.h_off[2]);
       __syncthreads();
-      dense(smem + p.w_off[2], smem + p.b_off[2], smem + p.h_off[2], smem + p.h_off[3],
-            kMainHidden, kMainOut, 4, false);
+      dense(region<Wt>(smem, p.w_off[2]), region<Wt>(smem, p.b_off[2]), smem + p.h_off[2],
+            smem + p.h_off[3], kMainHidden, kMainOut, 4, false);
     } else {
       for (int l = 0; l < n_layers; ++l) {
         const bool squash = l < n_layers - 1 && !((p.linear_mask >> l) & 1);
-        dense(smem + p.w_off[l], smem + p.b_off[l], smem + p.h_off[l], smem + p.h_off[l + 1],
-              p.fan[l], p.fan[l + 1], p.slices[l], squash);
+        dense(region<Wt>(smem, p.w_off[l]), region<Wt>(smem, p.b_off[l]), smem + p.h_off[l],
+              smem + p.h_off[l + 1], p.fan[l], p.fan[l + 1], p.slices[l], squash);
         if (l < n_layers - 1) __syncthreads();
       }
     }
@@ -591,17 +652,25 @@ __global__ void __launch_bounds__(kMain ? kMainThreads : kMaxThreads,
 }
 
 // layouts of the three host arrays
-constexpr int kInts = 54;    // see the parsing below
+constexpr int kInts = 55;    // see the parsing below
 constexpr int kFloats = 13;  // h, rod_length, 1/rod_length, rod_stiffness, rod_damping,
                              // torque_scale, ground_stiffness, ground_damping, friction,
                              // gravity, stand_height, max_steps, n_masses
 constexpr int kPtrs = 10;    // w[0..3], b[0..3], planes, out
 
+// the instance's kernel: main or generic, float or bf16 residency
+const void* instance(bool main_instance, bool bf16) {
+  if (main_instance) {
+    return bf16 ? reinterpret_cast<const void*>(&mlp_rollout_kernel<true, __nv_bfloat16>)
+                : reinterpret_cast<const void*>(&mlp_rollout_kernel<true, float>);
+  }
+  return bf16 ? reinterpret_cast<const void*>(&mlp_rollout_kernel<false, __nv_bfloat16>)
+              : reinterpret_cast<const void*>(&mlp_rollout_kernel<false, float>);
+}
+
 // the instance's attributes: shared memory past 48 KB, and the most of it
 // for shared memory (blocks an SM)
-cudaError_t prepare(bool main_instance, int smem_bytes) {
-  const void* fn = main_instance ? reinterpret_cast<const void*>(&mlp_rollout_kernel<true>)
-                                 : reinterpret_cast<const void*>(&mlp_rollout_kernel<false>);
+cudaError_t prepare(const void* fn, int smem_bytes) {
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
@@ -641,6 +710,7 @@ extern "C" int evox_fused_mlp_rollout(const long long* ints, int n_ints, const f
   for (int l = 0; l < kMaxLayers; ++l) p.w_si[l] = ints[at++];
   for (int l = 0; l < kMaxLayers; ++l) p.b_sj[l] = ints[at++];
   for (int l = 0; l < kMaxLayers; ++l) p.b_si[l] = ints[at++];
+  const bool bf16 = ints[at++] != 0;
   const float* f = floats;
   p.h = f[0];
   p.rod_length = f[1];
@@ -682,27 +752,23 @@ extern "C" int evox_fused_mlp_rollout(const long long* ints, int n_ints, const f
   p.n = static_cast<int>(n);
   p.envs = n * episodes;
 
-  cudaError_t err = prepare(main_instance, static_cast<int>(smem_bytes));
+  const void* fn = instance(main_instance, bf16);
+  cudaError_t err = prepare(fn, static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(episodes));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (main_instance) {
-    mlp_rollout_kernel<true><<<grid, threads, static_cast<size_t>(smem_bytes), s>>>(p);
-  } else {
-    mlp_rollout_kernel<false><<<grid, threads, static_cast<size_t>(smem_bytes), s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&p};
+  return static_cast<int>(cudaLaunchKernel(fn, grid, dim3(threads), args,
+                                           static_cast<size_t>(smem_bytes),
+                                           static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int evox_mlp_rollout_blocks_per_sm(int main_instance, int threads, int smem_bytes,
-                                              int* blocks) {
-  cudaError_t err = prepare(main_instance != 0, smem_bytes);
+extern "C" int evox_mlp_rollout_blocks_per_sm(int main_instance, int bf16, int threads,
+                                              int smem_bytes, int* blocks) {
+  const void* fn = instance(main_instance != 0, bf16 != 0);
+  cudaError_t err = prepare(fn, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      main_instance ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, mlp_rollout_kernel<true>, threads, smem_bytes)
-                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, mlp_rollout_kernel<false>, threads, smem_bytes));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads, smem_bytes));
 }
 
 extern "C" const char* evox_cuda_error_string(int code) {

@@ -16,7 +16,8 @@ attribution included), LES's state (``les_state``) and its flax
 parameter tree (``les_params``), the
 decomposition and reference-vector MOEAs' states (MOEA/D and its
 variants, EAG-MOEA/D, RVEA, RVEAa, LMOCSO; NSGA-III and TDEA through
-``mo_state``), the workflow's generation and first-step flag,
+``mo_state``), the workflow's generation and first-step flag, the rollout problem's
+episode-length cap and observation statistics (``rollout_state``),
 populations and genomes as ``(pop, dim)`` arrays, and ``mlp_policy``
 params trees.
 
@@ -50,6 +51,7 @@ from .algorithms.so.es.open_es import OpenES, OpenESState
 from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.device import DeviceLike, resolve_device
 from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
+from .problems.neuroevolution.rollout import PolicyRolloutProblem, RolloutState
 from .utils.common import split_seed, tree_map
 from .utils.optimizers import SGD, Adam, AdamState, ClipUp, ClipUpState
 from .workflows.std import StdWorkflow, StdWorkflowState
@@ -275,6 +277,25 @@ def les_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
     ``sigma``, the two paths and ``population``). The key does not
     cross."""
     return _carry_by_name(algo, jax_state, seed)
+
+
+def rollout_state(problem: PolicyRolloutProblem, jax_state: Any, seed: int = 0) -> RolloutState:
+    """``RolloutState`` from the JAX package's (numpy leaves ``cap``, the
+    int32 episode-length cap, and ``norm``, the ``(count, mean, m2)``
+    observation statistics; each ``None`` where the problem has no
+    ``CapEpisode`` or ``ObsNormalizer``). The key does not cross: the
+    episode seeds start from ``seed``."""
+    dev = problem.device
+    cap = norm = None
+    if problem.cap_episode is not None:
+        cap = _tensor(jax_state.cap, np.int32, (), "cap", dev)
+    if problem.obs_normalizer is not None:
+        d = problem.obs_normalizer.obs_dim
+        count, mean, m2 = jax_state.norm
+        norm = (_tensor(count, np.float32, (), "norm count", dev),
+                _tensor(mean, np.float32, (d,), "norm mean", dev),
+                _tensor(m2, np.float32, (d,), "norm m2", dev))
+    return problem.init(seed).replace(cap=cap, norm=norm)
 
 
 def eval_monitor_state(monitor: EvalMonitor, jax_state: Any) -> EvalMonitorState:

@@ -10,9 +10,11 @@ from .dominance import (
 )
 from .rollout import (
     SoAEnv,
+    acrobot_soa,
     cartpole_soa,
     fused_rollout,
     fused_rollout_plain,
+    mountain_car_soa,
     pendulum_soa,
 )
 from .rollout_mlp import (
@@ -27,6 +29,7 @@ from .topk import default_use_kernel, partial_topk, partial_topk_reference, tota
 __all__ = [
     "PlaneEnv",
     "SoAEnv",
+    "acrobot_soa",
     "cartpole_soa",
     "chain_walker_planes",
     "column_popcount",
@@ -36,6 +39,7 @@ __all__ = [
     "fused_rollout",
     "fused_rollout_analysis",
     "fused_rollout_plain",
+    "mountain_car_soa",
     "pack_dominator_rows",
     "packed_dominance",
     "packed_dominance_reference",

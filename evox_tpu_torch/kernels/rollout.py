@@ -11,8 +11,9 @@ that file's header says what bounds it). On a CPU tensor it runs
 There is no other route: a CUDA tensor goes to the kernel or raises.
 
 The JAX kernel traces any ``step_soa`` callable; the CUDA kernel knows only
-the envs compiled into it (``SoAEnv.cuda_env``): pendulum 3-16-1 and
-cartpole 4-16-2. Mountain car and acrobot wait (ROADMAP A4).
+the envs compiled into it (``SoAEnv.cuda_env``): pendulum, cartpole,
+mountain car and acrobot, each at hidden widths 8 and 16 (``HIDDEN_WIDTHS``).
+Another width or a user's own ``step_soa`` raises on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.device import DeviceLike, check_device, resolve_device
-from ..problems.neuroevolution.control.envs import EnvSpec, cartpole, pendulum
+from ..problems.neuroevolution.control.envs import (
+    EnvSpec,
+    acrobot,
+    cartpole,
+    mountain_car,
+    pendulum,
+)
 from . import _build
 
 # environments in SoA form: state is a dict of per-env component planes
@@ -139,6 +146,93 @@ def cartpole_soa(max_steps: int = 500) -> SoAEnv:
     )
 
 
+
+def mountain_car_soa(max_steps: int = 999) -> SoAEnv:
+    """control/envs.mountain_car over SoA planes, op for op as the JAX
+    package's ``mountain_car_soa``: the wall stop is an arithmetic select,
+    so a stopped velocity can be ``-0.0``."""
+    power = 0.0015
+
+    def obs_soa(s):
+        return (s["pos"], s["vel"])
+
+    def step_soa(s, a):
+        pos, vel = s["pos"], s["vel"]
+        force = torch.clamp(a[0], -1.0, 1.0)
+        vel = vel + force * power - 0.0025 * torch.cos(3.0 * pos)
+        vel = torch.clamp(vel, -0.07, 0.07)
+        pos = torch.clamp(pos + vel, -1.2, 0.6)
+        at_wall = ((pos <= -1.2) & (vel < 0)).to(vel.dtype)
+        vel = vel * (1.0 - at_wall)
+        done = pos >= 0.45
+        reward = 100.0 * done.to(pos.dtype) - 0.1 * (force * force)
+        return {"pos": pos, "vel": vel}, reward, done
+
+    return SoAEnv(
+        base=mountain_car(max_steps=max_steps),
+        to_soa=lambda s: {"pos": s[..., 0], "vel": s[..., 1]},
+        obs_soa=obs_soa,
+        step_soa=step_soa,
+        cuda_env="mountain_car",
+    )
+
+
+def acrobot_soa(max_steps: int = 500) -> SoAEnv:
+    """control/envs.acrobot over SoA planes, op for op as the JAX package's
+    ``acrobot_soa``: the 3-logit argmax is the nested select ``-c0 + (1 -
+    c0) * inner`` (the first of equal maxima wins, as ``jnp.argmax``), and
+    the expression tree is the JAX step's with Python's constant folding
+    (``m1 * lc1**2`` is 0.25, ``jnp.pi / 2.0`` float32 1.5707964)."""
+    dt = 0.2
+    l1 = m1 = m2 = 1.0
+    lc1 = lc2 = 0.5
+    I1 = I2 = 1.0
+    g = 9.8
+
+    def obs_soa(s):
+        t1, t2 = s["t1"], s["t2"]
+        return (torch.cos(t1), torch.sin(t1), torch.cos(t2), torch.sin(t2), s["td1"], s["td2"])
+
+    def step_soa(s, a):
+        c0 = ((a[0] >= a[1]) & (a[0] >= a[2])).to(a[0].dtype)
+        inner = (a[1] < a[2]).to(a[0].dtype)  # 0 -> torque 0, 1 -> +1
+        torque = -c0 + (1.0 - c0) * inner
+        t1, t2, td1, td2 = s["t1"], s["t2"], s["td1"], s["td2"]
+        d1 = (
+            m1 * lc1**2
+            + m2 * (l1**2 + lc2**2 + 2 * l1 * lc2 * torch.cos(t2))
+            + I1
+            + I2
+        )
+        d2 = m2 * (lc2**2 + l1 * lc2 * torch.cos(t2)) + I2
+        phi2 = m2 * lc2 * g * torch.cos(t1 + t2 - math.pi / 2.0)
+        phi1 = (
+            -m2 * l1 * lc2 * (td2 * td2) * torch.sin(t2)
+            - 2 * m2 * l1 * lc2 * td2 * td1 * torch.sin(t2)
+            + (m1 * lc1 + m2 * l1) * g * torch.cos(t1 - math.pi / 2.0)
+            + phi2
+        )
+        tdd2 = (
+            torque + d2 / d1 * phi1 - m2 * l1 * lc2 * (td1 * td1) * torch.sin(t2) - phi2
+        ) / (m2 * lc2**2 + I2 - (d2 * d2) / d1)
+        tdd1 = -(d2 * tdd2 + phi1) / d1
+        td1 = torch.clamp(td1 + dt * tdd1, -4 * math.pi, 4 * math.pi)
+        td2 = torch.clamp(td2 + dt * tdd2, -9 * math.pi, 9 * math.pi)
+        t1 = t1 + dt * td1
+        t2 = t2 + dt * td2
+        done = -torch.cos(t1) - torch.cos(t2 + t1) > 1.0
+        reward = done.to(t1.dtype) - 1.0  # 0 when done, else -1
+        return {"t1": t1, "t2": t2, "td1": td1, "td2": td2}, reward, done
+
+    return SoAEnv(
+        base=acrobot(max_steps=max_steps),
+        to_soa=lambda s: {"t1": s[..., 0], "t2": s[..., 1], "td1": s[..., 2], "td2": s[..., 3]},
+        obs_soa=obs_soa,
+        step_soa=step_soa,
+        cuda_env="acrobot",
+    )
+
+
 def _mlp_act(
     theta_t: torch.Tensor,
     obs: Tuple[torch.Tensor, ...],
@@ -195,11 +289,14 @@ def fused_rollout_plain(
     act_dim: int = 1,
     env: Optional[SoAEnv] = None,
     episodes: int = 1,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """The kernel's own arithmetic on full ``(episodes*n,)`` planes, in plain
     PyTorch (the counterpart of the JAX tests' ``_loop_reference``). It
     runs all T steps; the kernel's early exit skips only steps whose
-    rewards are masked, so the totals are the same."""
+    rewards are masked, so the totals are the same. ``stats=True`` returns
+    ``(totals, steps)``: besides the totals, each env's live steps (those
+    whose reward counts)."""
     env = env if env is not None else pendulum_soa()
     _check_args(theta, init_state, obs_dim, hidden, act_dim, episodes)
     # episode-major: column e*n + i of theta_t is genome i
@@ -207,49 +304,73 @@ def fused_rollout_plain(
     state = dict(init_state)
     total = torch.zeros_like(next(iter(state.values())))
     done = torch.zeros_like(total)
+    steps = torch.zeros(total.shape, dtype=torch.int64, device=total.device)
     for _ in range(T):
         obs = env.obs_soa(state)
         a = _mlp_act(theta_t, obs, obs_dim, hidden, act_dim)
         state, reward, step_done = env.step_soa(state, a)
         total = total + torch.where(done > 0.5, torch.zeros_like(reward), reward)
+        if stats:
+            steps = steps + (done < 0.5)
         done = torch.maximum(done, step_done.to(done.dtype))
-    return total
+    return (total, steps) if stats else total
 
 
-# env name -> (id in csrc/rollout.cu, plane order, (obs, hidden, act))
+# env name -> (id in csrc/rollout.cu, plane order, obs, act)
 _CUDA_ENVS = {
-    "pendulum": (0, ("th", "thdot"), (3, 16, 1)),
-    "cartpole": (1, ("x", "xd", "th", "thd"), (4, 16, 2)),
+    "pendulum": (0, ("th", "thdot"), 3, 1),
+    "cartpole": (1, ("x", "xd", "th", "thd"), 4, 2),
+    "mountain_car": (2, ("pos", "vel"), 2, 1),
+    "acrobot": (3, ("t1", "t2", "td1", "td2"), 6, 3),
 }
-# csrc/rollout.cu's block, and the blocks an SM each env's instance is
-# built for (its __launch_bounds__: the registers its genome takes)
+# the hidden widths csrc/rollout.cu has an instance of, for every env
+HIDDEN_WIDTHS = (8, 16)
+# csrc/rollout.cu's block, and the blocks an SM each (env, hidden) instance
+# is built for (its __launch_bounds__: the registers its genome takes; the
+# kernel's header has ptxas's report)
 THREADS = 128
-BLOCKS_PER_SM = {"pendulum": 4, "cartpole": 3}
+BLOCKS_PER_SM = {
+    ("pendulum", 8): 4, ("pendulum", 16): 4,
+    ("cartpole", 8): 4, ("cartpole", 16): 3,
+    ("mountain_car", 8): 4, ("mountain_car", 16): 4,
+    ("acrobot", 8): 4, ("acrobot", 16): 2,
+}
 # libdevice functions that csrc/rollout.cu reaches in another form than
 # the plain version's PyTorch ops (name -> id of its check there): sincosf
 # in place of sinf and cosf of one angle, and tanhf without its clamp
 REPLACED_LIBDEVICE = {"sincosf": 0, "tanhf": 1}
 
 
-def launch_plan(env_name: str, n: int, episodes: int, sms: int = 132) -> dict:
-    """The kernel's launch for ``n`` genomes and ``episodes`` episodes: one
-    thread per env, ``(ceil(n / THREADS), episodes)`` blocks, and the waves
-    that grid takes at the env's instance's blocks an SM."""
+def _instance(env_name: str, hidden: int) -> int:
+    """The id of the (env, hidden) instance in csrc/rollout.cu."""
     if env_name not in _CUDA_ENVS:
         raise ValueError(f"no CUDA counterpart for {env_name!r}; built in: {sorted(_CUDA_ENVS)}")
+    if hidden not in HIDDEN_WIDTHS:
+        raise ValueError(
+            f"the CUDA kernel for {env_name} is built for hidden widths "
+            f"{HIDDEN_WIDTHS}, not {hidden}"
+        )
+    return _CUDA_ENVS[env_name][0]
+
+
+def launch_plan(env_name: str, n: int, episodes: int, sms: int = 132, hidden: int = 16) -> dict:
+    """The kernel's launch for ``n`` genomes and ``episodes`` episodes: one
+    thread per env, ``(ceil(n / THREADS), episodes)`` blocks, and the waves
+    that grid takes at the (env, hidden) instance's blocks an SM."""
+    _instance(env_name, hidden)
     grid = (-(-n // THREADS), episodes)
-    per_sm = BLOCKS_PER_SM[env_name]
+    per_sm = BLOCKS_PER_SM[env_name, hidden]
     return {"threads": THREADS, "grid": grid, "blocks_per_sm": per_sm,
             "waves": grid[0] * grid[1] / (per_sm * sms)}
 
 
-def kernel_occupancy(env_name: str) -> dict:
-    """The runtime's blocks an SM and registers a thread of an env's kernel
-    instance; builds the kernel."""
+def kernel_occupancy(env_name: str, hidden: int = 16) -> dict:
+    """The runtime's blocks an SM and registers a thread of an (env,
+    hidden) kernel instance; builds the kernel."""
     fn = _build.function("rollout", "evox_rollout_occupancy", [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
     blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check_launch("rollout", fn(_CUDA_ENVS[env_name][0], ctypes.byref(blocks),
+    _build.check_launch("rollout", fn(_instance(env_name, hidden), hidden, ctypes.byref(blocks),
                                       ctypes.byref(regs)), "occupancy query")
     return {"blocks_per_sm": blocks.value, "registers": regs.value}
 
@@ -282,11 +403,11 @@ def _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n):
             "this SoAEnv has no CUDA counterpart in csrc/rollout.cu "
             f"(cuda_env={env.cuda_env!r}); built in: {sorted(_CUDA_ENVS)}"
         )
-    env_id, keys, shape = spec
-    if (obs_dim, hidden, act_dim) != shape:
+    env_id, keys, obs, act = spec
+    if (obs_dim, act_dim) != (obs, act) or hidden not in HIDDEN_WIDTHS:
         raise ValueError(
-            f"the CUDA kernel for {env.cuda_env} is compiled for MLP "
-            f"{shape[0]}-{shape[1]}-{shape[2]}, got {obs_dim}-{hidden}-{act_dim}"
+            f"the CUDA kernel for {env.cuda_env} is compiled for MLPs "
+            f"{obs}-h-{act} with h in {HIDDEN_WIDTHS}, got {obs_dim}-{hidden}-{act_dim}"
         )
     if set(init_state) != set(keys):
         raise ValueError(f"state planes {sorted(init_state)} != {sorted(keys)}")

@@ -28,6 +28,14 @@ the instance built for it holds 56 KB in shared memory and the rest (the
 64 x 64 layer and 12 of the first layer's 61 quads of inputs) in
 registers, four blocks to an SM. :func:`fused_rollout_analysis` reports
 that budget in place of the JAX package's ``_vmem_plan``/VMEM report.
+
+``weight_dtype=torch.bfloat16`` is the JAX package's bf16 policy
+residency: every weight and bias is rounded to bfloat16 (to nearest, ties
+to even, as ``astype`` rounds) where the block copies it in, kept so in
+shared memory (2 bytes a weight) and in registers widened back to float32,
+and read as float32; the accumulators, the order of summation and the env
+stay float32. The plain version rounds the planes the same way and then
+runs its float32 arithmetic unchanged, so the two still agree bit for bit.
 """
 
 from __future__ import annotations
@@ -278,6 +286,24 @@ def _mlp_planes(weights, biases, obs: torch.Tensor, sizes, linear=()) -> torch.T
     return h
 
 
+def residency_bytes(weight_dtype: Optional[torch.dtype]) -> int:
+    """Bytes a resident weight takes: 4 for ``None`` (float32 residency), 2
+    for ``torch.bfloat16``; any other dtype raises ``ValueError``."""
+    if weight_dtype is None:
+        return 4
+    if weight_dtype == torch.bfloat16:
+        return 2
+    raise ValueError(
+        f"weight_dtype must be None (float32 residency) or torch.bfloat16, got {weight_dtype}"
+    )
+
+
+def _resident(x: torch.Tensor, weight_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """A weight or bias plane as the kernel holds it: rounded to
+    ``weight_dtype`` (to nearest, ties to even) and read back as float32."""
+    return x if weight_dtype is None else x.to(weight_dtype).to(torch.float32)
+
+
 def _check_args(weights, biases, init_state, sizes, episodes, linear) -> int:
     sizes = tuple(int(s) for s in sizes)
     n_layers = len(sizes) - 1
@@ -319,11 +345,15 @@ def fused_mlp_rollout_plain(
     episodes: int = 1,
     linear: Sequence[int] = (),
     stats: bool = False,
+    weight_dtype: Optional[torch.dtype] = None,
 ):
     """The kernel's own arithmetic on full ``(C, episodes*n)`` planes, in
     plain PyTorch (the counterpart of the JAX tests' ``_loop_reference``).
     It runs all T steps; the kernel stops each env at its ``done``, which
-    skips only masked rewards, so the totals are the same.
+    skips only masked rewards, so the totals are the same. With
+    ``weight_dtype=torch.bfloat16`` each weight and bias plane is first
+    rounded to bfloat16 and read back as float32 (:func:`_resident`); the
+    arithmetic after that is the float32 one.
 
     ``stats=True`` returns ``(totals, steps, exploded)``: besides the
     totals, each env's live steps (those whose reward counts) and whether
@@ -331,6 +361,9 @@ def fused_mlp_rollout_plain(
     sizes = tuple(int(s) for s in sizes)
     linear = tuple(int(i) for i in linear)
     _check_args(weights, biases, init_state, sizes, episodes, linear)
+    residency_bytes(weight_dtype)
+    weights = tuple(_resident(w, weight_dtype) for w in weights)
+    biases = tuple(_resident(b, weight_dtype) for b in biases)
     if episodes > 1:  # episode-major: column e*n + i runs individual i
         weights = tuple(w.repeat(1, 1, episodes) for w in weights)
         biases = tuple(b.repeat(1, episodes) for b in biases)
@@ -390,7 +423,9 @@ class _Plan(NamedTuple):
     scratch_off: int  # the reward's terms: vx by mass, tanh(action)^2 by action
 
 
-def _smem_plan(sizes: Sequence[int], linear: Sequence[int] = ()) -> _Plan:
+def _smem_plan(
+    sizes: Sequence[int], linear: Sequence[int] = (), weight_dtype: Optional[torch.dtype] = None
+) -> _Plan:
     """The kernel's launch plan for one block (one env): the instance, the
     threads (generic: 32 / S outputs of a layer to a warp, enough warps for
     the widest layer, at most 256; main: 128, two outputs a thread), each
@@ -399,26 +434,29 @@ def _smem_plan(sizes: Sequence[int], linear: Sequence[int] = ()) -> _Plan:
     ``[k/4][j][k%4]`` (but what the main instance holds in registers: layer
     1, and the last MAIN_REG_QUADS quads of each slice of layer 0), the
     biases, the activations padded to whole quads (the last layer's output
-    is the action), and 64 floats for the reward's terms of a step. The
-    single source of truth for the launch and for
+    is the action), and 64 floats for the reward's terms of a step. Offsets
+    count 4-byte units whatever ``weight_dtype``; at bfloat16 the weight and
+    bias regions hold 2 bytes an element, each region still 16-byte
+    aligned. The single source of truth for the launch and for
     :func:`fused_rollout_analysis`."""
     sizes = tuple(int(x) for x in sizes)
     main = sizes == MAIN_SIZES and not tuple(linear)
     slices = tuple(_slices(fi) for fi in sizes[:-1])
+    item = residency_bytes(weight_dtype)
     at = 0
 
-    def take(count: int) -> int:
+    def take(count: int, itemsize: int = 4) -> int:
         nonlocal at
         off = at
-        at += -(-count // 4) * 4
+        at += -(-count * itemsize // 16) * 4
         return off
 
     quads = [-(-fi // 4) for fi in sizes[:-1]]
     if main:  # layer 1, and three quads of each slice of layer 0, in registers
         quads[0] -= MAIN_REG_QUADS * slices[0]
         quads[1] = 0
-    w_off = tuple(take(4 * q * fo) if q else 0 for q, fo in zip(quads, sizes[1:]))
-    b_off = tuple(take(fo) for fo in sizes[1:])
+    w_off = tuple(take(4 * q * fo, item) if q else 0 for q, fo in zip(quads, sizes[1:]))
+    b_off = tuple(take(fo, item) for fo in sizes[1:])
     h_off = tuple(take(x) for x in sizes)
     scratch_off = take(2 * MAX_MASSES)
     widest = max(fo * S for fo, S in zip(sizes[1:], slices))
@@ -428,7 +466,10 @@ def _smem_plan(sizes: Sequence[int], linear: Sequence[int] = ()) -> _Plan:
 
 
 def fused_rollout_analysis(
-    sizes: Sequence[int], env: Optional[PlaneEnv] = None, linear: Sequence[int] = ()
+    sizes: Sequence[int],
+    env: Optional[PlaneEnv] = None,
+    linear: Sequence[int] = (),
+    weight_dtype: Optional[torch.dtype] = None,
 ) -> dict:
     """Host-side report of the kernel's Hopper budget for MLP ``sizes``
     (with ``linear`` layers) over ``env`` (default: the default chain
@@ -436,20 +477,21 @@ def fused_rollout_analysis(
     slices a layer, shared memory a block against the 227 KB a block may
     hold, the registers a thread its launch bounds allow, the blocks (envs)
     an SM keeps resident by all three, and the policy bytes each block
-    copies in once per episode. Negative headroom means the launch is
-    refused (``fused_mlp_rollout`` raises). The counterpart of the JAX
-    package's VMEM report."""
+    resides (at ``weight_dtype``'s 2 bytes a weight for bfloat16). Negative
+    headroom means the launch is refused (``fused_mlp_rollout`` raises). The
+    counterpart of the JAX package's VMEM report."""
     cfg = (env.config if env is not None else None) or walker_config()
     sizes = tuple(int(s) for s in sizes)
     if not 3 <= cfg["n_masses"] <= MAX_MASSES:
         raise ValueError(f"the kernel runs 3 to {MAX_MASSES} masses, got {cfg['n_masses']}")
-    plan = _smem_plan(sizes, linear)
+    plan = _smem_plan(sizes, linear, weight_dtype)
     per_block = plan.smem_bytes + SMEM_RESERVED_PER_BLOCK
     blocks = min(SMEM_PER_SM // per_block, MAX_THREADS_PER_SM // plan.threads,
                  REGISTERS_PER_SM // (plan.threads * REGISTERS_PER_THREAD), MAX_BLOCKS_PER_SM)
     policy = sum(fi * fo + fo for fi, fo in zip(sizes[:-1], sizes[1:]))
     return {
         "sizes": sizes,
+        "weight_dtype": str(weight_dtype or torch.float32),
         "instance": plan.instance,
         "threads_per_block": plan.threads,
         "slices": plan.slices,
@@ -459,14 +501,15 @@ def fused_rollout_analysis(
         "headroom_bytes": SMEM_PER_BLOCK_LIMIT - plan.smem_bytes,
         "blocks_per_sm": blocks if plan.smem_bytes <= SMEM_PER_BLOCK_LIMIT else 0,
         "policy_floats": policy,
-        "policy_bytes": 4 * policy,
+        "policy_bytes": residency_bytes(weight_dtype) * policy,
     }
 
 
 # ---------------------------------------------------------------- launch
 
 
-def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, n) -> torch.Tensor:
+def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, weight_dtype,
+            n) -> torch.Tensor:
     if env.cuda_env != "chain_walker" or env.config is None:
         raise ValueError(
             "this PlaneEnv has no CUDA counterpart in csrc/rollout_mlp.cu "
@@ -482,7 +525,7 @@ def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, n) -> 
         )
     if sizes[0] != cfg["obs_dim"] or sizes[-1] != A:
         raise ValueError(f"policy sizes {sizes} do not match the walker ({cfg['obs_dim']} -> {A})")
-    plan = _smem_plan(sizes, linear)
+    plan = _smem_plan(sizes, linear, weight_dtype)
     if plan.smem_bytes > SMEM_PER_BLOCK_LIMIT:
         raise ValueError(
             f"the policy {sizes} needs {plan.smem_bytes} bytes of shared memory "
@@ -510,6 +553,7 @@ def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, n) -> 
         + pad(plan.h_off, MAX_LAYERS + 1) + [plan.scratch_off]
         + [s[0] for s in w_strides] + [s[1] for s in w_strides] + [s[2] for s in w_strides]
         + [s[0] for s in b_strides] + [s[1] for s in b_strides]
+        + [int(weight_dtype == torch.bfloat16)]
     )
     rod_length = cfg["rod_length"]
     floats = [
@@ -569,8 +613,11 @@ def fused_mlp_rollout(
             the JAX package takes as two callables; the kernel runs its
             ``cuda_env`` counterpart.
         linear: layer indices with no tanh after them (low-rank layers).
-        weight_dtype: the JAX package's bf16 policy residency; not ported
-            yet (ROADMAP B2), anything but None raises.
+        weight_dtype: ``None`` (float32 residency) or ``torch.bfloat16``,
+            the JAX package's bf16 policy residency (module docstring): the
+            kernel rounds the float32 planes it is given as it copies them
+            in, so no bfloat16 copy of the population is made. Any other
+            dtype raises ``ValueError``.
         device: where the inputs lie; ``None`` means ``"cuda"``.
 
     The JAX kernel's ``tile`` and ``interpret`` arguments are TPU knobs: a
@@ -585,10 +632,7 @@ def fused_mlp_rollout(
     Returns:
         ``(episodes * n,)`` float32 total rewards, episode-major.
     """
-    if weight_dtype is not None:
-        raise NotImplementedError(
-            "weight_dtype (bf16 policy residency) is not ported yet (ROADMAP B2)"
-        )
+    residency_bytes(weight_dtype)
     dev = resolve_device(device)
     sizes = tuple(int(s) for s in sizes)
     linear = tuple(int(i) for i in linear)
@@ -599,9 +643,11 @@ def fused_mlp_rollout(
     for k, v in init_state.items():
         check_device(v, dev, f"state plane {k!r}")
     if dev.type == "cpu":
-        return fused_mlp_rollout_plain(weights, biases, init_state, T, sizes, env, episodes, linear)
+        return fused_mlp_rollout_plain(weights, biases, init_state, T, sizes, env, episodes, linear,
+                                       weight_dtype=weight_dtype)
     if dev.type == "cuda":
-        return _launch(weights, biases, init_state, T, sizes, env, episodes, linear, n)
+        return _launch(weights, biases, init_state, T, sizes, env, episodes, linear, weight_dtype,
+                       n)
     raise ValueError(f"fused_mlp_rollout runs on cuda or cpu, not {dev}")
 
 

@@ -16,14 +16,20 @@ Two engines, as in the JAX package:
 All draw the same initial states from one method, ``_episode_states``, so
 their fitness agrees up to float rounding. The population is a flat
 ``(pop, dim)`` tensor or, for ``mlp_policy``, a params tree whose leaves
-carry the population axis first. The JAX package's
-``CapEpisode``/``ObsNormalizer`` and bf16 policy residency
-(``fused_planes_dtype``) wait (ROADMAP A4, B2); passing them raises.
+carry the population axis first.
+
+The scan engine also runs the JAX package's host-side rollout helpers as
+state threaded through ``evaluate``: :class:`CapEpisode`, an episode-length
+cap at twice the measured mean episode length, and :class:`ObsNormalizer`,
+running observation statistics (observations normalised with the stats at
+the start of an evaluation, the moments of every live step merged after
+it). :meth:`PolicyRolloutProblem.visualize` returns one policy's whole
+:class:`Trajectory`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,14 +37,103 @@ import torch
 from ...core.device import DeviceLike, check_device, resolve_device
 from ...core.problem import Problem
 from ...core.struct import PyTreeNode
-from ...utils.common import fold_in_seed, generator, split_seed, tree_flatten, tree_map
+from ...utils.common import (
+    fold_in_seed,
+    generator,
+    split_seed,
+    sqrt_rn,
+    tree_flatten,
+    tree_map,
+)
 from .control.envs import EnvSpec
 
 
+class CapEpisode:
+    """Adaptive episode-length cap: roll out at most twice the measured mean
+    episode length. The state is a 0-d int32 tensor."""
+
+    def __init__(self, init_cap: int = 100):
+        self.init_cap = init_cap
+
+    def init(self, device: DeviceLike = None) -> torch.Tensor:
+        return torch.tensor(self.init_cap, dtype=torch.int32, device=resolve_device(device))
+
+    def update(self, cap: torch.Tensor, episode_lengths: torch.Tensor) -> torch.Tensor:
+        del cap  # the new cap depends only on the measured lengths
+        mean = episode_lengths.to(torch.float32).mean()
+        return torch.clamp_min((2.0 * mean).to(torch.int32), 1)
+
+    def get(self, cap: torch.Tensor) -> torch.Tensor:
+        return cap
+
+
+class ObsNormalizer:
+    """Running observation statistics; the state is ``(count, mean, m2)``:
+    a 0-d float32 count and two ``(obs_dim,)`` float32 tensors."""
+
+    def __init__(self, obs_dim: int, clip: float = 10.0):
+        self.obs_dim = obs_dim
+        self.clip = clip
+
+    def init(self, device: DeviceLike = None):
+        dev = resolve_device(device)
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+        return (zeros(), zeros(self.obs_dim), zeros(self.obs_dim))
+
+    def update(self, state, obs_batch: torch.Tensor):
+        """Welford batch update from a ``(..., obs_dim)`` batch of
+        observations."""
+        b = obs_batch.reshape(-1, self.obs_dim)
+        count = torch.tensor(float(b.shape[0]), dtype=torch.float32, device=b.device)
+        return self.merge_moments(state, count, b.sum(0), (b * b).sum(0))
+
+    def merge_moments(self, state, cnt, s1, s2):
+        """Merge raw moments (count, sum, sum of squares) into the running
+        ``(count, mean, m2)`` state (Chan's parallel update)."""
+        count, mean, m2 = state
+        one = torch.ones((), dtype=count.dtype, device=count.device)
+        safe_cnt = torch.maximum(cnt, one)
+        b_mean = s1 / safe_cnt
+        # clamp: the raw sum-of-squares form can cancel to small negatives
+        # in float32 when |mean| >> stddev, which would NaN the sqrt later
+        b_m2 = torch.maximum(s2 - safe_cnt * b_mean * b_mean, torch.zeros_like(s2))
+        new_count = count + cnt
+        delta = b_mean - mean
+        seen = cnt > 0
+        new_mean = torch.where(seen, mean + delta * cnt / torch.maximum(new_count, one), mean)
+        new_m2 = torch.where(
+            seen, m2 + b_m2 + delta * delta * count * cnt / torch.maximum(new_count, one), m2
+        )
+        return (new_count, new_mean, new_m2)
+
+    def normalize(self, state, obs: torch.Tensor) -> torch.Tensor:
+        count, mean, m2 = state
+        one = torch.ones((), dtype=count.dtype, device=count.device)
+        var = torch.where(
+            count > 1, torch.maximum(m2, torch.zeros_like(m2)) / torch.maximum(count - 1, one), one
+        )
+        return torch.clamp((obs - mean) / sqrt_rn(var + 1e-8), -self.clip, self.clip)
+
+
+class Trajectory(NamedTuple):
+    """One rollout's whole trace (:meth:`PolicyRolloutProblem.visualize`),
+    time-major with ``max_episode_length`` steps; steps after the episode's
+    end are frozen (the state repeats, reward 0, done True)."""
+
+    states: torch.Tensor  # (T, state_dim)
+    obs: torch.Tensor  # (T, obs_dim)
+    actions: torch.Tensor  # (T, act_dim)
+    rewards: torch.Tensor  # (T,)
+    dones: torch.Tensor  # (T,) bool: done before the step
+    length: torch.Tensor  # () int32: the live steps
+
+
 class RolloutState(PyTreeNode):
-    # integer seed of the episode-reset stream; the JAX state's cap and
-    # norm leaves come with CapEpisode / ObsNormalizer
+    # integer seed of the episode-reset stream; the cap (0-d int32) with a
+    # CapEpisode, the (count, mean, m2) stats with an ObsNormalizer, else None
     seed: int
+    cap: Any = None
+    norm: Any = None
 
 
 class PolicyRolloutProblem(Problem):
@@ -55,9 +150,17 @@ class PolicyRolloutProblem(Problem):
         reduce_fn: ``reduce_fn(returns, dim=-1)``, default ``torch.mean``.
         stochastic_reset: draw fresh episode seeds every evaluation; False
             keeps one evaluation seed (lower-variance ES gradients).
+        cap_episode: a :class:`CapEpisode` (scan engine): the episode-length
+            cap adapts to the measured mean episode length across
+            generations.
+        obs_normalizer: an :class:`ObsNormalizer` (scan engine):
+            observations are normalised before the policy sees them, and
+            the running stats are updated from every live (not yet done)
+            step of every rollout.
         early_exit: scan engine only — True stops once every episode is
             done, False always runs ``max_episode_length`` steps; the
-            fitness is the same.
+            fitness is the same. False cannot be combined with
+            ``cap_episode``.
         fused_env: an :class:`~evox_tpu_torch.kernels.rollout.SoAEnv` —
             evaluate through the fused rollout kernel. Requires a flat
             ``(pop, dim)`` population in ``flat_mlp_policy`` layout.
@@ -66,8 +169,10 @@ class PolicyRolloutProblem(Problem):
             ``mlp_policy`` params tree as the population (a
             ``TreeAndVector`` adapter's ``batched_to_tree`` as the
             workflow's pop transform); the kernel reads its leaves in place.
-        fused_planes_dtype: bf16 policy residency; not ported yet, anything
-            but None raises.
+        fused_planes_dtype: the big-policy kernel's residency dtype for the
+            policy, ``None`` (float32) or ``torch.bfloat16`` (half the shared
+            memory a block; accumulation and env math stay float32). Any
+            other dtype raises.
         fused_planes_linear: layer indices with no tanh after them, as the
             policy's ``mlp_policy(linear_layers=...)``.
         device: ``None`` means ``"cuda"``.
@@ -90,16 +195,20 @@ class PolicyRolloutProblem(Problem):
         fused_planes_linear: Tuple[int, ...] = (),
         device: DeviceLike = None,
     ):
-        if cap_episode is not None or obs_normalizer is not None:
-            raise NotImplementedError(
-                "cap_episode and obs_normalizer are not ported yet (ROADMAP A4)"
-            )
-        if fused_planes_dtype is not None:
-            raise NotImplementedError(
-                "fused_planes_dtype (bf16 policy residency) is not ported yet (ROADMAP B2)"
-            )
+        if not early_exit and cap_episode is not None:
+            raise ValueError("early_exit=False cannot be combined with cap_episode")
         if fused_env is not None and fused_planes is not None:
             raise ValueError("pass fused_env OR fused_planes, not both")
+        if (fused_env is not None or fused_planes is not None) and (
+            cap_episode is not None or obs_normalizer is not None
+        ):
+            raise ValueError(
+                "fused_env and fused_planes cannot be combined with cap_episode or "
+                "obs_normalizer"
+            )
+        from ...kernels.rollout_mlp import residency_bytes
+
+        residency_bytes(fused_planes_dtype)
         self.device = resolve_device(device)
         self.policy = policy
         self.env = env
@@ -107,6 +216,8 @@ class PolicyRolloutProblem(Problem):
         self.max_len = max_episode_length or env.max_steps
         self.reduce_fn = reduce_fn
         self.stochastic_reset = stochastic_reset
+        self.cap_episode = cap_episode
+        self.obs_normalizer = obs_normalizer
         self.early_exit = early_exit
         if fused_env is not None:
             self._check_fused_base(fused_env.base, "fused_env")
@@ -114,6 +225,7 @@ class PolicyRolloutProblem(Problem):
             self._check_fused_base(fused_planes.base, "fused_planes")
         self.fused_env = fused_env
         self.fused_planes = fused_planes
+        self.fused_planes_dtype = fused_planes_dtype
         self.fused_planes_linear = tuple(int(i) for i in fused_planes_linear)
         self._fused_policy_checked = False
 
@@ -181,7 +293,11 @@ class PolicyRolloutProblem(Problem):
         self._fused_policy_checked = True
 
     def init(self, seed: Optional[int] = None) -> RolloutState:
-        return RolloutState(seed=0 if seed is None else seed)
+        return RolloutState(
+            seed=0 if seed is None else seed,
+            cap=self.cap_episode.init(self.device) if self.cap_episode else None,
+            norm=self.obs_normalizer.init(self.device) if self.obs_normalizer else None,
+        )
 
     def _episode_seed(self, state: RolloutState) -> Tuple[int, int]:
         """(next state seed, this evaluation's episode seed)."""
@@ -245,7 +361,7 @@ class PolicyRolloutProblem(Problem):
         # (ep, pop) episode-major -> (pop, ep) so reduce_fn sees the same
         # axis convention as the scan engine
         fitness = self.reduce_fn(totals.reshape(self.num_episodes, pop.shape[0]).T, dim=-1)
-        return fitness, RolloutState(seed=seed)
+        return fitness, state.replace(seed=seed)
 
     def fused_planes_inputs(self, state: RolloutState, pop: Any) -> dict:
         """The keyword arguments the big-policy engine hands
@@ -285,6 +401,7 @@ class PolicyRolloutProblem(Problem):
             env=self.fused_planes,
             episodes=ep,
             linear=self.fused_planes_linear,
+            weight_dtype=self.fused_planes_dtype,
             device=self.device,
         )
 
@@ -299,7 +416,7 @@ class PolicyRolloutProblem(Problem):
         totals = fused_mlp_rollout(**self.fused_planes_inputs(state, pop))
         pop_size = pop[0]["b"].shape[0]
         fitness = self.reduce_fn(totals.reshape(self.num_episodes, pop_size).T, dim=-1)
-        return fitness, RolloutState(seed=seed)
+        return fitness, state.replace(seed=seed)
 
     def evaluate(self, state: RolloutState, pop: Any) -> Tuple[torch.Tensor, RolloutState]:
         leaves, _ = tree_flatten(pop)
@@ -316,17 +433,68 @@ class PolicyRolloutProblem(Problem):
         env_state = env_state0.expand((pop_size,) + env_state0.shape)  # (pop, ep, sd)
         # broadcasts over the episode axis; a params tree leaf by leaf
         params = tree_map(lambda x: x[:, None], pop)
+        max_len = int(self.max_len)
+        if self.cap_episode is not None:
+            max_len = min(max_len, int(self.cap_episode.get(state.cap)))
+        norm = self.obs_normalizer
 
         done = torch.zeros((pop_size, ep), dtype=torch.bool, device=self.device)
         total = torch.zeros((pop_size, ep), dtype=torch.float32, device=self.device)
-        for _ in range(int(self.max_len)):
+        ep_len = torch.zeros((pop_size, ep), dtype=torch.int32, device=self.device)
+        # the moments of the live steps' observations: count, sum, sum of squares
+        cnt = torch.zeros((), dtype=torch.float32, device=self.device)
+        s1 = torch.zeros(self.env.obs_dim, dtype=torch.float32, device=self.device)
+        s2 = torch.zeros_like(s1)
+        for _ in range(max_len):
             if self.early_exit and bool(done.all()):
                 break
-            actions = self.policy(params, self.env.obs(env_state))
+            o = self.env.obs(env_state)
+            if norm is not None:
+                live = (~done).to(o.dtype)[..., None]  # (pop, ep, 1)
+                cnt = cnt + live.sum()
+                s1 = s1 + (o * live).sum((0, 1))
+                s2 = s2 + (o * o * live).sum((0, 1))
+                o = norm.normalize(state.norm, o)
+            actions = self.policy(params, o)
             new_state, reward, step_done = self.env.step(env_state, actions)
             total = total + torch.where(done, torch.zeros_like(reward), reward)
+            ep_len = ep_len + (~done).to(torch.int32)
             # freeze finished episodes' states so the loop is a no-op there
             env_state = torch.where(done[..., None], env_state, new_state)
             done = done | step_done
         fitness = self.reduce_fn(total, dim=-1)
-        return fitness, RolloutState(seed=seed)
+        cap, stats = state.cap, state.norm
+        if self.cap_episode is not None:
+            cap = self.cap_episode.update(cap, ep_len)
+        if norm is not None:
+            stats = norm.merge_moments(stats, cnt, s1, s2)
+        return fitness, RolloutState(seed=seed, cap=cap, norm=stats)
+
+    def visualize(
+        self, params: Any, seed: Optional[int] = None, state: Optional[RolloutState] = None
+    ) -> Trajectory:
+        """Roll out ONE policy for ``max_episode_length`` steps and return its
+        whole :class:`Trajectory`: the env states, observations, actions,
+        rewards and done flags of every step, and the live steps. ``seed``
+        draws the initial state (default 0); with an :class:`ObsNormalizer`,
+        the policy sees the observations normalised with ``state.norm``
+        (pass the problem state after training to see what it saw)."""
+        env_state = self.env.reset(generator(0 if seed is None else seed, self.device), 1,
+                                   self.device)[0]
+        done = torch.zeros((), dtype=torch.bool, device=self.device)
+        trace = []
+        for _ in range(int(self.max_len)):
+            o = self.env.obs(env_state)
+            o_in = (
+                self.obs_normalizer.normalize(state.norm, o)
+                if self.obs_normalizer is not None and state is not None
+                else o
+            )
+            action = self.policy(params, o_in)
+            new_state, reward, step_done = self.env.step(env_state, action)
+            trace.append((env_state, o, action, torch.where(done, 0.0, reward), done))
+            env_state = torch.where(done, env_state, new_state)
+            done = done | step_done
+        states, obs, actions, rewards, dones = (torch.stack(x) for x in zip(*trace))
+        return Trajectory(states=states, obs=obs, actions=actions, rewards=rewards, dones=dones,
+                          length=(~dones).sum().to(torch.int32))

@@ -112,7 +112,9 @@ class TreeAndVector:
 
 def split_seed(seed: int, num: int = 2) -> List[int]:
     """``num`` new seeds derived deterministically from ``seed`` (on the
-    host: a few microseconds, no device work)."""
+    host: a few microseconds, no device work). The counterpart of the JAX
+    package's ``new_key``: ``split_seed(seed)`` gives ``(carry, use)`` as
+    ``new_key(key)`` does, a seed standing for a key."""
     g = torch.Generator().manual_seed(int(seed) % 2**63)
     return torch.randint(0, _SEED_BOUND, (num,), generator=g).tolist()
 
@@ -163,6 +165,27 @@ def rank_based_fitness(fitness: torch.Tensor) -> torch.Tensor:
     ranks = torch.empty_like(fitness)
     ranks[order] = torch.arange(n, dtype=fitness.dtype, device=fitness.device)
     return ranks / (n - 1) - 0.5
+
+
+def min_by(values: Sequence[torch.Tensor], keys: Sequence[torch.Tensor]):
+    """Select the value whose key is minimal across several batches: the
+    batches are joined (a 0-d value or key counts as a batch of one), and
+    the first minimal key wins. Returns ``(value, key)``."""
+    values = torch.cat([torch.atleast_1d(v) if v.ndim <= 1 else v for v in values])
+    keys = torch.cat([torch.atleast_1d(k) for k in keys])
+    i = torch.argmin(keys)
+    return values[i], keys[i]
+
+
+def compose(*functions: Callable) -> Callable:
+    """Left-to-right function composition: ``compose(f, g)(x) == g(f(x))``."""
+
+    def composed(x):
+        for f in functions:
+            x = f(x)
+        return x
+
+    return composed
 
 
 def pairwise_euclidean_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

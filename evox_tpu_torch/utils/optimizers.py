@@ -4,7 +4,7 @@ The port of ``evox_tpu/utils/optimizers.py``. The JAX package resolves
 names to optax transformations and builds ClipUp as one; here ``sgd``,
 ``adam`` and ``clipup`` are small classes with optax's ``init``/``update``
 contract and optax's arithmetic (updates are *added* to the parameters).
-Other optax names are not ported yet (ROADMAP A4).
+Other optax names are not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -125,5 +125,5 @@ def make_optimizer(optimizer: Any, learning_rate: float = 0.01, **kwargs: Any) -
         return ClipUp(learning_rate=learning_rate, **kwargs)
     raise NotImplementedError(
         f"optimizer {optimizer!r} is not ported yet (sgd, adam and clipup are; "
-        "see ROADMAP A4)"
+        "see ROADMAP A6)"
     )

@@ -307,6 +307,11 @@ def test_rollout_launch_plan_covers_every_env_once(n, episodes):
 
 
 def test_rollout_launch_plan_refuses_an_env_without_a_kernel():
+    """Every env of the JAX kernel has instances at hidden 8 and 16; an env
+    without a counterpart and another hidden width are refused."""
     with pytest.raises(ValueError, match="no CUDA counterpart"):
-        tkr.launch_plan("acrobot", 10, 1)
+        tkr.launch_plan("lunar_lander", 10, 1)
+    with pytest.raises(ValueError, match="hidden widths"):
+        tkr.launch_plan("acrobot", 10, 1, hidden=32)
+    assert tkr.launch_plan("acrobot", 10, 1)["blocks_per_sm"] == 2
     assert set(tkr.REPLACED_LIBDEVICE) == {"sincosf", "tanhf"}

@@ -444,8 +444,11 @@ def test_fused_planes_rejects_wrong_policy_and_inputs():
         prob.evaluate(prob.init(0), torch.zeros(4, 10))
     with pytest.raises(ValueError, match="do not match env"):
         prob.evaluate(prob.init(0), tree[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        PolicyRolloutProblem(apply, penv.base, fused_planes=penv, fused_planes_dtype=torch.bfloat16,
+    bf16 = PolicyRolloutProblem(tanh_apply, penv.base, fused_planes=penv,
+                                fused_planes_dtype=torch.bfloat16, device="cpu")
+    assert bf16.fused_planes_inputs(bf16.init(0), tree)["weight_dtype"] == torch.bfloat16
+    with pytest.raises(ValueError, match="weight_dtype must be"):
+        PolicyRolloutProblem(apply, penv.base, fused_planes=penv, fused_planes_dtype=torch.float16,
                              device="cpu")
     with pytest.raises(ValueError, match="OR"):
         PolicyRolloutProblem(apply, penv.base, fused_planes=penv, fused_env=object(), device="cpu")
@@ -466,8 +469,10 @@ def test_fused_mlp_rollout_refuses_bad_inputs():
         with pytest.raises(ValueError, match="out of range"):
             run(linear=bad)
     assert run(linear=(0,)).shape == (n,)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        run(weight_dtype=torch.bfloat16)
+    assert run(weight_dtype=torch.bfloat16).shape == (n,)
+    for bad in (torch.float16, torch.float32, torch.float64):
+        with pytest.raises(ValueError, match="weight_dtype must be"):
+            run(weight_dtype=bad)
     with pytest.raises(ValueError, match="weights\\[1\\]"):
         run(w=[weights[0], weights[1][:, :-1], weights[2]])
     with pytest.raises(ValueError, match="'done' plane"):
@@ -511,6 +516,85 @@ def test_hopper_budget_report():
     assert small["blocks_per_sm"] == 8
     tiny = tkm.fused_rollout_analysis((64, 8, 2, 4), tkm.chain_walker_planes(**SMALL))
     assert tiny["slices"] == (4, 2, 1) and tiny["threads_per_block"] == 32
+
+
+def test_hopper_budget_report_bf16():
+    """bf16 residency: 2 bytes a resident weight and bias, each region still
+    16-byte aligned (activations and the reward's terms stay float32). The
+    main instance's block needs 29392 bytes, half its weights' share;
+    registers still hold it to four blocks an SM. The policy too wide for
+    a float32 block fits once its weights take 2 bytes."""
+    rep = tkm.fused_rollout_analysis((244, 64, 64, 17), weight_dtype=torch.bfloat16)
+    assert rep["weight_dtype"] == "torch.bfloat16" and rep["instance"] == "main"
+    assert rep["smem_bytes_per_block"] == 2 * (49 * 64 * 4 + 16 * 17 * 4) + 2 * (64 + 64) + 48 + 4 * (
+        (244 + 64 + 64 + 20) + 64) == 29392
+    assert rep["blocks_per_sm"] == 4 and rep["policy_bytes"] == 2 * 20945
+    f32 = tkm.fused_rollout_analysis((244, 64, 64, 17))
+    assert f32["weight_dtype"] == "torch.float32" and f32["policy_bytes"] == 4 * 20945
+    plan = tkm._smem_plan((244, 64, 64, 17), (), torch.bfloat16)
+    assert all(off % 4 == 0 for off in plan.w_off + plan.b_off + plan.h_off)  # 16-byte aligned
+    wide = (244, 200, 200, 17)
+    assert tkm.fused_rollout_analysis(wide)["headroom_bytes"] < 0
+    assert tkm.fused_rollout_analysis(wide, weight_dtype=torch.bfloat16)["headroom_bytes"] > 0
+    with pytest.raises(ValueError, match="weight_dtype must be"):
+        tkm.fused_rollout_analysis(wide, weight_dtype=torch.float16)
+
+
+def test_fused_mlp_rollout_plain_bf16_matches_jax_kernel():
+    """bf16 residency at a tiny walker (7 masses, obs 64, act 4; MLP
+    64-8-8-4, n 6, T 5): the port's CPU route against the Pallas kernel in
+    interpret mode with weight_dtype=jnp.bfloat16. Both round the planes to
+    bfloat16 (to nearest even) and compute in float32, so the rollout
+    tolerance is the float32 one; the bf16 returns differ from the float32
+    ones, so the rounding did happen."""
+    n, T, sizes = 6, 5, (64, 8, 8, 4)
+    cfg = dict(SMALL, max_steps=T)
+    jp, tp = jkm.chain_walker_planes(**cfg), tkm.chain_walker_planes(**cfg)
+    env0 = jax.vmap(jp.base.reset)(jax.random.split(jax.random.PRNGKey(4), n))
+    jpl = jp.to_planes(env0)
+    tpl = {k: _t(v) for k, v in jpl.items()}
+    weights, biases = _planes_params(7, n, sizes, w_scale=0.7)
+    want = jkm.fused_mlp_rollout(
+        tuple(jnp.asarray(w) for w in weights), tuple(jnp.asarray(b) for b in biases), jpl,
+        T=T, sizes=sizes, step_planes=jp.step_planes, obs_planes=jp.obs_planes,
+        early_stop=False, interpret=True, weight_dtype=jnp.bfloat16)
+    tw, tb = [_t(w) for w in weights], [_t(b) for b in biases]
+    got = tkm.fused_mlp_rollout(tw, tb, tpl, T, sizes, tp, weight_dtype=torch.bfloat16, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL)
+    f32 = tkm.fused_mlp_rollout_plain(tw, tb, tpl, T, sizes, tp)
+    assert (f32 != got).any()
+    # the plain bf16 route is the float32 route on rounded planes, bit for bit
+    rounded = tkm.fused_mlp_rollout_plain([w.bfloat16().float() for w in tw],
+                                          [b.bfloat16().float() for b in tb], tpl, T, sizes, tp)
+    np.testing.assert_array_equal(got.numpy(), rounded.numpy())
+    assert (jnp.asarray(weights[0]).astype(jnp.bfloat16).astype(jnp.float32)
+            == jnp.asarray(tw[0].bfloat16().float().numpy())).all()  # both round alike
+
+
+def test_fused_planes_dtype_engine_matches_jax():
+    """PolicyRolloutProblem(fused_planes_dtype=bfloat16) against the JAX
+    package's, both on the big-policy engine (the JAX kernel in interpret
+    mode), JAX's resets handed to the port: 64-8-8-4 at the small walker,
+    pop 4, T 5."""
+    cfg = dict(SMALL, max_steps=5)
+    jp, tp = jkm.chain_walker_planes(**cfg), tkm.chain_walker_planes(**cfg)
+    sizes = (64, 8, 8, 4)
+    jinit, japply = jax_mlp_policy(sizes)
+    _, tapply = mlp_policy(sizes)
+    jparams = jinit(jax.random.PRNGKey(3))
+    jbatch = jax.tree.map(lambda x: jnp.stack([x, 0.5 * x, -x, 2.0 * x]), jparams)
+    kw = dict(num_episodes=1, stochastic_reset=False)
+    jprob = JaxProblem(japply, jp.base, fused_planes=jp, fused_interpret=True,
+                       fused_planes_dtype=jnp.bfloat16, **kw)
+    key = jax.random.PRNGKey(6)
+    want, _ = jprob.evaluate(jprob.init(key), jbatch)
+    tprob = PolicyRolloutProblem(tapply, tp.base, fused_planes=tp, fused_planes_dtype=torch.bfloat16,
+                                 device="cpu", **kw)
+    resets = _jax_resets(jp.base, key, 1)
+    tprob._episode_states = lambda seed, env: _t(resets)
+    got, _ = tprob.evaluate(tprob.init(0), interop.mlp_params(jax.tree.map(np.asarray, jbatch),
+                                                              device="cpu"))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ROLLOUT_RTOL, atol=ROLLOUT_ATOL)
 
 
 def test_walker_entry_points_refuse_a_missing_cuda(monkeypatch):

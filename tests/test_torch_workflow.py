@@ -240,10 +240,16 @@ def test_deferred_arguments_raise():
     for kwargs in ({"checkpointer": object()}, {"resume_from": "dir"}, {"restarts": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             wf.run(wf.init(0), 1, **kwargs)
-    for kwargs in ({"cap_episode": object()}, {"obs_normalizer": object()},
+    # ported since: the problem's helpers and bf16 residency construct, and
+    # the refusals the JAX package keeps stay
+    from evox_tpu_torch.problems.neuroevolution import CapEpisode, ObsNormalizer
+
+    for kwargs in ({"cap_episode": CapEpisode()}, {"obs_normalizer": ObsNormalizer(3)},
                    {"fused_planes_dtype": torch.bfloat16}):
-        with pytest.raises(NotImplementedError):
-            PolicyRolloutProblem(apply, soa.base, device="cpu", **kwargs)
+        PolicyRolloutProblem(apply, soa.base, device="cpu", **kwargs)
+        if "fused_planes_dtype" not in kwargs:
+            with pytest.raises(ValueError, match="cannot be combined"):
+                PolicyRolloutProblem(apply, soa.base, fused_env=soa, device="cpu", **kwargs)
     no_cuda_twin = tkr.SoAEnv(*soa[:-1], cuda_env=None)
     assert no_cuda_twin.cuda_env is None and soa.cuda_env == "pendulum"
 
