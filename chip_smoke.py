@@ -213,9 +213,43 @@ exit 0):
    selection's sequential loop timed alone, IGD; MaF1-15 at m 3 and 5 on
    the card against the CPU at pop 10000, and MaF11's ``pf()`` (one B3
    launch each) against the CPU's.
-17. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
-   paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13),
-   then the last line ``{"ok": true, "device": {...}}``.
+17. main path 14: ``IslandWorkflow(PSO(±32, d 256, pop 512), Ackley(),
+   n_islands=8, migrate_every=8)`` (``bench.py:405-456``, seed 5) and its
+   panmictic twin ``StdWorkflow(PSO(±32, d 256, pop 4096), Ackley())`` in
+   turns (islands, panmictic, panmictic, islands; 16 generations each, two
+   migration periods, after a warm-up period), counters as above: one
+   ``partial_topk`` launch a migration on the islands (one batched launch
+   over the 8 islands, k 1), none on the twin. Reports ms a generation and
+   evaluations/s of each and their ratio, a migrating generation against
+   one without on the host's clock, and (``--profile``) both idle shares.
+   B4's batched launch against its plain version, bit for bit, at the
+   migration's input and at (8, 512, 1), (8, 512, 4), (4, 2000, 4), (64,
+   2049, 8), (3, 20000, 10000) and (3, 30000, 15000) (the large route, a
+   launch sequence a row) on stress rows (ties, NaN, ±0.0, ±inf, +inf
+   rows, an all-equal row), one launch a call on the small route; timed at
+   (8, 512, 1) against ``torch.topk(dim=1)`` and against 8 one-row
+   launches. One migrating generation on the card against the CPU (the
+   same draws; positions, velocities, bests and elites bit for bit,
+   fitness within 1e-6 relative).
+18. main path 15: ``docs/GUIDE.md:504-520``'s IPOP-CMA-ES at path 5's
+   shape, ``StdWorkflow(GuardedAlgorithm(CMAES(zeros(1000), 1.0, pop 24),
+   stagnation_limit=80), Rastrigin()).run(state, N, restarts=IPOPRestarts(
+   factory, max_restarts=4, check_every=100))`` for 200 generations in two
+   calls, C, B and D poisoned with NaN between them (after generation 40):
+   one restart at the next tell, one doubling (24 to 48) at generation
+   100, a whole segment at 48; ms a generation a segment, the events, peak
+   device memory, and guarded against bare CMA-ES in turns. Then the
+   containers phase (ClusteredAlgorithm(CSO), VectorizedCoevolution and
+   Coevolution of PSO over 8 blocks of 128 on Ackley at d 1024,
+   RandomMaskAlgorithm through a mask change, TreeAlgorithm over a
+   two-leaf dict; each on the card against the CPU on the same draws,
+   states bit for bit) and the MO islands phase (NSGA-II islands, pop 1000,
+   on DTLZ2: one B3 launch an island at each migration, the elites held
+   against the CPU's).
+19. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
+   paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13, B4
+   batched on path 14 as ``partial_topk_rows``), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -291,6 +325,26 @@ GDE3_F, GDE3_CR, GDE3_FORCED = 0.5, 0.3, 100
 # time), so fewer timed generations
 IBEA_KAPPA, IBEA_GENERATIONS = 0.05, 6
 MAF_POP = 10000  # MaF1-15's points a member, card against CPU
+# main path 14: bench.py:405-456's island workload, 8 PSO islands of 512 on
+# Ackley at d 256 (±32) with ring migration every 8 generations (k 1, its
+# default), seed 5, against its panmictic twin, one PSO of 4096; each timed
+# turn is two whole migration periods
+ISL_N, ISL_POP, ISL_DIM, ISL_BOUND, ISL_EVERY, ISL_SEED = 8, 512, 256, 32.0, 8, 5
+ISL_GENERATIONS = 2 * ISL_EVERY
+# B4's batched launch, held bit for bit: (rows, n, k); (3, 20000, 10000) and
+# (64, 2049, 8) on the small route, (3, 30000, 15000) on the large (per row)
+TOPK_BATCHES = ((8, 512, 1), (8, 512, 4), (4, 2000, 4), (64, 2049, 8), (3, 20000, 10000),
+                (3, 30000, 15000))
+# main path 15: docs/GUIDE.md:504-520's IPOP-CMA-ES recipe at path 5's shape
+# (d 1000, pop 24, Rastrigin); C, B and D poisoned with NaN after
+# generation 40, so the boundary at 100 doubles λ to 48 for the segment
+# 100-200
+IPOP_POP, IPOP_STAGNATION, IPOP_RESTARTS, IPOP_CHECK = 24, 80, 4, 100
+IPOP_POISON_GEN, IPOP_GENERATIONS = 40, 200
+# the containers phase: path 4's Ackley width in 8 blocks, members of 512
+CONTAINER_POP, CONTAINER_DIM, CONTAINER_BLOCKS = 512, 1024, 8
+# the MO islands phase: NSGA-II islands at the MO family's pop on DTLZ2
+MO_ISLANDS, MO_ISLAND_GENERATIONS = 4, 10
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # main path 12: path 1's shape (OpenES, pop 65536, 2 episodes, flat 1-hidden
@@ -3340,6 +3394,544 @@ def phase_maf(torch, seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------- main path 14
+
+
+def build_island_paths(torch, pop: int = ISL_POP, dim: int = ISL_DIM, n: int = ISL_N,
+                       device=None):
+    """Main path 14 as ``bench.py:415-440`` builds it, ``IslandWorkflow(PSO(
+    ±32, d 256, pop 512), Ackley(), n_islands=8, migrate_every=8)``
+    (``migrate_k`` at its default of 1), and its panmictic twin
+    (``bench.py:443-455``), ``StdWorkflow(PSO(±32, d 256, pop 4096),
+    Ackley())``. ``pop``, ``dim``, ``n`` and ``device`` exist for a
+    rehearsal on the CPU."""
+    from evox_tpu_torch import IslandWorkflow, StdWorkflow
+    from evox_tpu_torch.algorithms.so.pso import PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+
+    bound = torch.full((dim,), ISL_BOUND)
+    islands = IslandWorkflow(PSO(lb=-bound, ub=bound, pop_size=pop, device=device), Ackley(),
+                             n_islands=n, migrate_every=ISL_EVERY, device=device)
+    panmictic = StdWorkflow(PSO(lb=-bound, ub=bound, pop_size=n * pop, device=device), Ackley(),
+                            device=device)
+    return islands, panmictic
+
+
+def catch_elites(wf) -> list:
+    """Wrap ``wf.elites`` to keep each migration's fitness input (a clone)
+    and the elites' indices; returns the list they go to. Unwrap with
+    ``del wf.elites``."""
+    caught = []
+    elites = type(wf).elites.__get__(wf)
+
+    def kept(fitness):
+        idx = elites(fitness)
+        caught.append((fitness.clone(), idx))
+        return idx
+
+    wf.elites = kept
+    return caught
+
+
+def _timed_host_ms(torch, fn, reps: int) -> float:
+    """Median host-clock ms of ``fn``, synchronised on both sides."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_topk_batched(torch, v_path) -> dict:
+    """B4's batched launch: ``partial_topk`` over ``(rows, n)`` against its
+    plain version (row by row, the 1-D plain version), bit for bit, at path
+    14's migration input and at every shape of ``TOPK_BATCHES`` (rounded
+    normals with NaNs, ±inf and ±0.0 in every row, an all-equal row, and the
+    NSGA-II cut key's +inf rows); one launch a call on the small route, one
+    a row on the large; then timed at path 14's shape against
+    ``torch.topk(v, 1, dim=1, largest=False)`` and against one-row launches."""
+    from evox_tpu_torch.kernels import topk as kt
+
+    out = {"shapes": []}
+    cases = [("path 14's migration input", v_path, 1)]
+    for rows, n, k in TOPK_BATCHES:
+        laws = [topk_values(torch, "rounded" if r % 2 else "cut", n, 7 * r + n, 0.5, 3)
+                for r in range(rows)]
+        v = torch.stack(laws).cuda()
+        v[-1] = v[-1, 0]  # an all-equal row
+        cases.append((f"stress rows ({rows}, {n}, {k})", v, k))
+    for name, v, k in cases:
+        plan = kt.launch_plan(v.shape[1], k, rows=v.shape[0])
+        before = kt.partial_topk.launches
+        got = kt.partial_topk(v, k)
+        launches = kt.partial_topk.launches - before
+        want_launches = 1 if plan["route"] == "small" else v.shape[0]
+        if launches != want_launches:
+            raise AssertionError(f"batched partial_topk {name}: {launches} launches, expected "
+                                 f"{want_launches} ({plan['route']} route)")
+        check = compare_exact(f"batched partial_topk, {name}, {plan['route']} route", got,
+                              kt.partial_topk_reference(v, k))
+        out["shapes"].append({"rows": v.shape[0], "n": v.shape[1], "k": k, "route": plan["route"],
+                              "launches": launches, "max_abs_err": check["max_abs_err"]})
+    v, k = v_path, 1
+    rows, n = v.shape
+    b4 = lambda: kt.partial_topk(v, k)
+    lib = lambda: torch.topk(v, k, dim=1, largest=False)
+    singles = lambda: [kt.partial_topk(v[r], k) for r in range(rows)]
+    timing = {"rows": rows, "n": n, "k": k,
+              "ms": _time_ms(b4, 20, 200), "library_ms": _time_ms(lib, 20, 200),
+              "one_row_launches_ms": _time_ms(singles, 5, 50),
+              "device_us": device_us_per_call(torch, b4),
+              "library_device_us": device_us_per_call(torch, lib),
+              "one_row_launches_device_us": device_us_per_call(torch, singles),
+              "host_us": host_us_per_call(torch, b4), "library_host_us": host_us_per_call(torch, lib),
+              "plain_ms": _time_ms(lambda: kt.partial_topk_reference(v, k), 3, 20),
+              "max_abs_err": out["shapes"][0]["max_abs_err"]}
+    timing["bound_ms"], timing["bound_by"] = bound_ms(4 * rows * n + 8 * rows * k, rows * n)
+    print(f"[topk batched] {json.dumps(timing)}", flush=True)
+    out.update(timing)
+    return out
+
+
+def phase_island_path(torch, seed: int, profile: bool) -> dict:
+    """Main path 14: the islands and their panmictic twin in turns
+    (islands, panmictic, panmictic, islands), ``ISL_GENERATIONS`` each
+    (two migration periods) after a warm-up of one period; counts set to 0
+    just before each turn and read just after: one ``partial_topk`` launch
+    a migration on the islands (a batched launch over the 8 islands), none
+    on the twin. Then B4's batched holds and times, a migrating generation
+    against one without on the host's clock, and one migrating generation
+    on the card against the CPU."""
+    wf, twin = build_island_paths(torch)
+    state = wf.run(wf.init(ISL_SEED), ISL_EVERY - 1)
+    caught = catch_elites(wf)
+    state = wf.step(state)  # generation 8 migrates: builds and warms B4's batched route
+    del wf.elites
+    tstate = twin.run(twin.init(ISL_SEED), ISL_EVERY)
+    torch.cuda.synchronize()
+    if len(caught) != 1 or caught[0][1].shape != (ISL_N, 1):
+        raise AssertionError(f"the warm-up's migration chose {caught and caught[0][1].shape}")
+    turns, launches = [], []
+    order = (("islands", wf), ("panmictic", twin), ("panmictic", twin), ("islands", wf))
+    for name, w in order:
+        s = state if name == "islands" else tstate
+        reset_launches()  # every count to 0 just before the run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = w.run(s, ISL_GENERATIONS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()  # read just after
+        migrations = ISL_GENERATIONS // ISL_EVERY if name == "islands" else 0
+        want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": migrations,
+                "fused_mlp_rollout": 0}
+        if got != want:
+            raise AssertionError(f"launches in {ISL_GENERATIONS} {name} generations: {got}, "
+                                 f"expected {want}")
+        launches.append(got["partial_topk"])
+        turns.append({"workflow": name, "generations": ISL_GENERATIONS, "wall_s": wall,
+                      "ms_per_generation": wall / ISL_GENERATIONS * 1e3,
+                      "evals_per_s": ISL_GENERATIONS * ISL_N * ISL_POP / wall,
+                      "migrations": migrations})
+        print(f"[island path] {json.dumps(turns[-1])}", flush=True)
+        if name == "islands":
+            state = s
+        else:
+            tstate = s
+    for name, s in (("islands", torch.cat([a.population for a in state.algo])),
+                    ("panmictic", tstate.algo.population)):
+        if not bool(torch.isfinite(s).all()) or float(s.abs().max()) > ISL_BOUND:
+            raise AssertionError(f"{name}: the population leaves the bounds or is not finite")
+    per_island, best = wf.best(state)
+    if not (per_island.shape == (ISL_N,) and bool(torch.isfinite(per_island).all())):
+        raise AssertionError(f"islands' best: {per_island}")
+    med = {w: statistics.median(t["ms_per_generation"] for t in turns if t["workflow"] == w)
+           for w in ("islands", "panmictic")}
+    out = {
+        "n_islands": ISL_N, "pop": ISL_POP, "dim": ISL_DIM, "migrate_every": ISL_EVERY,
+        "migrate_k": wf.migrate_k, "turns": turns, "launches": sum(launches),
+        "launches_per_turn": launches,
+        "ms_per_generation": med["islands"], "panmictic_ms_per_generation": med["panmictic"],
+        "evals_per_s": ISL_N * ISL_POP / med["islands"] * 1e3,
+        "panmictic_evals_per_s": ISL_N * ISL_POP / med["panmictic"] * 1e3,
+        "island_cost_ratio": med["islands"] / med["panmictic"],
+        "best_fitness": float(best),
+        "panmictic_best_fitness": float(tstate.algo.gbest_fitness),
+    }
+    # the host's clock of one generation that migrates (from generation
+    # 8k - 1) against one that does not (from 8k)
+    before = state
+    while (before.generation + 1) % ISL_EVERY:
+        before = wf.step(before)
+    after = wf.step(before)
+    out["migration_generation_ms"] = _timed_host_ms(torch, lambda: wf.step(before), 10)
+    out["plain_generation_ms"] = _timed_host_ms(torch, lambda: wf.step(after), 10)
+    out["topk_batched"] = phase_topk_batched(torch, caught[0][0])
+    out["card_vs_cpu"] = phase_island_card_vs_cpu(torch, wf, before)
+    if profile:
+        for name, w, s in (("islands", wf, before), ("panmictic", twin, tstate)):
+            prof = profile_generations(torch, w, s, ISL_EVERY)  # one migration on the islands
+            prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (
+                med[name] * 1e3)
+            out[f"profile_{name}"] = prof
+    print(f"[island path] {json.dumps({k: v for k, v in out.items() if k != 'turns'})}",
+          flush=True)
+    return out
+
+
+def phase_island_card_vs_cpu(torch, wf, state) -> dict:
+    """One migrating generation of path 14 on the card against the same
+    generation on the CPU: the card's state moved to the CPU, each island's
+    PSO draws made once on the CPU and handed to both. Ackley's sums of 256
+    squares and cosines run in other orders on the two devices, and CUDA's
+    ``exp``/``cos`` may differ from the CPU's by an ulp, so the fitness and
+    the personal-best fitness are held within 1e-6 relative; every position,
+    velocity, personal and global best position and the elites' indices
+    bit for bit (no decision lands within an ulp here; a flip would show as
+    a mismatch and fail the phase)."""
+    cpu_wf, _ = build_island_paths(torch, device="cpu")
+    card, cpu = wf.algorithm, cpu_wf.algorithm
+    draws = {}
+    draw = cpu._draw
+    cpu._draw = lambda s: draws.setdefault(s, draw(s))
+    card._draw = lambda s: tuple(t.cuda() for t in draws[s])
+    cpu_state = _state_on(torch, state, "cpu")
+    caught_cpu, caught_card = catch_elites(cpu_wf), catch_elites(wf)
+    try:
+        want = cpu_wf.step(cpu_state)
+        got = wf.step(state)
+    finally:
+        del card._draw, wf.elites
+    if not (len(caught_cpu) == len(caught_card) == 1):
+        raise AssertionError("the compared generation did not migrate")
+    fit = compare("island generation, fitness, card against CPU",
+                  caught_card[0][0].cpu().reshape(-1), caught_cpu[0][0].reshape(-1), 1e-6, 0.0)
+    out = {"fitness": fit, "elites": compare_exact("island generation, elites, card against CPU",
+                                                   [caught_card[0][1].cpu()], [caught_cpu[0][1]])}
+    exact = ("population", "velocity", "pbest_position", "gbest_position")
+    out["state"] = compare_exact(
+        "island generation, positions, velocities and bests, card against CPU",
+        [getattr(a, f).cpu() for a in got.algo for f in exact],
+        [getattr(a, f) for a in want.algo for f in exact])
+    out["pbest_fitness"] = compare(
+        "island generation, personal-best fitness, card against CPU",
+        torch.cat([a.pbest_fitness for a in got.algo]).cpu(),
+        torch.cat([a.pbest_fitness for a in want.algo]), 1e-6, 0.0)
+    return out
+
+
+# ----------------------------------------------------------- main path 15
+
+
+def build_ipop_path(torch, dim: int = CMAES_DIM, device=None):
+    """Main path 15 as ``docs/GUIDE.md:504-520`` builds it, at path 5's
+    shape: ``factory(pop) = GuardedAlgorithm(CMAES(zeros(1000), 1.0,
+    pop_size=pop), stagnation_limit=80)``, ``StdWorkflow(factory(24),
+    Rastrigin())`` and ``IPOPRestarts(factory, max_restarts=4,
+    check_every=100)``. Returns ``(workflow, policy, factory)``."""
+    from evox_tpu_torch import GuardedAlgorithm, IPOPRestarts, StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import CMAES
+    from evox_tpu_torch.problems.numerical import Rastrigin
+
+    def factory(pop):
+        return GuardedAlgorithm(CMAES(torch.zeros(dim), 1.0, pop_size=pop, device=device),
+                                stagnation_limit=IPOP_STAGNATION)
+
+    policy = IPOPRestarts(factory, max_restarts=IPOP_RESTARTS, check_every=IPOP_CHECK)
+    return StdWorkflow(factory(IPOP_POP), Rastrigin(), device=device), policy, factory
+
+
+def phase_ipop_path(torch, seed: int) -> dict:
+    """Main path 15: ``wf.run(state, N, restarts=policy)`` in two calls, the
+    covariance and its factorization poisoned with NaN between them (the
+    way ``tests/test_numeric_chaos.py`` does): the guard restarts at the
+    next tell, and the boundary at 100 doubles λ from 24 to 48; one whole
+    segment runs at 48. Each segment timed (synchronised at its ends, where
+    the host reads the counters anyway); then guarded against bare CMA-ES
+    (path 5's algorithm at its shape) in turns; peak device memory."""
+    import evox_tpu_torch.workflows.std as std_module
+    from evox_tpu_torch.algorithms.so.es import CMAES
+    from evox_tpu_torch.algorithms.so.es.common import safe_eigh
+
+    wf, policy, factory = build_ipop_path(torch)
+    segments = []
+    fused = std_module.fused_run
+
+    def timed_segment(w, s, chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = s.generation
+        s = fused(w, s, chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        segments.append({"from": start, "to": s.generation, "pop": w.algorithm.pop_size,
+                         "ms_per_generation": wall / chunk * 1e3,
+                         "restarts": s.algo.restarts})
+        return s
+
+    state = wf.init(seed)
+    safe_eigh(torch.eye(CMAES_DIM).cuda(), 1e14)  # cuSOLVER's first call, untimed
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    std_module.fused_run = timed_segment
+    try:
+        state = wf.run(state, IPOP_POISON_GEN, restarts=policy)
+        inner = state.algo.inner
+        state = state.replace(algo=state.algo.replace(inner=inner.replace(
+            C=torch.full_like(inner.C, float("nan")), B=torch.full_like(inner.B, float("nan")),
+            D=torch.full_like(inner.D, float("nan")))))
+        state = wf.run(state, IPOP_GENERATIONS - IPOP_POISON_GEN, restarts=policy)
+    finally:
+        std_module.fused_run = fused
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    events = wf._ipop_events
+    if launches != {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0,
+                    "fused_mlp_rollout": 0}:
+        raise AssertionError(f"kernel launches on the IPOP path: {launches}")
+    if [(e["generation"], e["pop_size"]) for e in events] != [(IPOP_CHECK, 2 * IPOP_POP)]:
+        raise AssertionError(f"IPOP events {events}, expected one doubling to {2 * IPOP_POP} "
+                             f"at generation {IPOP_CHECK}")
+    s = state.algo
+    if not (state.generation == IPOP_GENERATIONS and s.pop_size == 2 * IPOP_POP
+            and s.restarts >= 1 and s.checked_restarts >= 1):
+        raise AssertionError(f"IPOP path ended at generation {state.generation}, pop "
+                             f"{s.pop_size}, restarts {s.restarts}")
+    if not (bool(torch.isfinite(s.inner.C).all()) and math.isfinite(float(s.best_fitness))):
+        raise AssertionError("the IPOP path's state is not finite after the restart")
+    at48 = [g for g in segments if g["pop"] == 2 * IPOP_POP]
+    if not at48 or at48[0]["to"] - at48[0]["from"] < IPOP_CHECK:
+        raise AssertionError(f"no whole segment at {2 * IPOP_POP}: {segments}")
+    report = wf.algorithm.health_report(s)
+
+    # the guard's cost: guarded against bare CMA-ES at path 5's shape, from
+    # warm states, in turns (guarded, bare, bare, guarded), whole periods
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.problems.numerical import Rastrigin
+
+    bare = StdWorkflow(CMAES(torch.zeros(CMAES_DIM), 1.0, pop_size=IPOP_POP), Rastrigin())
+    guarded = StdWorkflow(factory(IPOP_POP), Rastrigin())
+    period = bare.algorithm.decomp_per_iter
+    gens = period * math.ceil(GENERATIONS / period)
+    warm = {"bare": bare.step(bare.init(seed)), "guarded": guarded.step(guarded.init(seed))}
+    turns = []
+    for name, w in (("guarded", guarded), ("bare", bare), ("bare", bare), ("guarded", guarded)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = w.run(warm[name], gens)
+        torch.cuda.synchronize()
+        turns.append({"algorithm": name, "ms_per_generation": (time.perf_counter() - t0) / gens * 1e3})
+    if end.algo.restarts:
+        raise AssertionError("the guard fired on the healthy run it was timed on")
+    med = {n: statistics.median(t["ms_per_generation"] for t in turns if t["algorithm"] == n)
+           for n in ("guarded", "bare")}
+    out = {"dim": CMAES_DIM, "pop": IPOP_POP, "generations": IPOP_GENERATIONS,
+           "poisoned_at": IPOP_POISON_GEN, "segments": segments, "ipop_events": events,
+           "launches": launches, "health_report": report, "peak_memory_bytes": peak,
+           "guard_turns": turns, "guarded_ms_per_generation": med["guarded"],
+           "bare_ms_per_generation": med["bare"],
+           "guard_cost_ms_per_generation": med["guarded"] - med["bare"]}
+    print(f"[ipop path] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ------------------------------------------------ containers and MO islands
+
+
+def _same_draws(torch, cpu_algo, card_algo, name: str = "_draw") -> None:
+    """Each draw made once on the CPU (by the CPU algorithm's own method)
+    and handed to both sides, keyed by its seed."""
+    made = {}
+    draw = getattr(cpu_algo, name)
+
+    def on_cpu(seed):
+        if seed not in made:
+            made[seed] = draw(seed)
+        return made[seed]
+
+    setattr(cpu_algo, name, on_cpu)
+    setattr(card_algo, name, lambda seed: _state_on(torch, made[seed], "cuda"))
+
+
+def _state_on(torch, state, device):
+    """Any state or draw (tuples of member states, nested states, dicts)
+    with every tensor on ``device``."""
+    import dataclasses
+
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if dataclasses.is_dataclass(state):
+        return state.replace(**{f.name: _state_on(torch, getattr(state, f.name), device)
+                                for f in dataclasses.fields(state)})
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_on(torch, v, device) for v in state)
+    if isinstance(state, dict):
+        return {k: _state_on(torch, v, device) for k, v in state.items()}
+    return state
+
+
+def _tensors(torch, state) -> list:
+    """Every tensor of a state or batch, in field (or sorted key) order."""
+    import dataclasses
+
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if dataclasses.is_dataclass(state):
+        return [t for f in dataclasses.fields(state) for t in _tensors(torch, getattr(state, f.name))]
+    if isinstance(state, (tuple, list)):
+        return [t for v in state for t in _tensors(torch, v)]
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in _tensors(torch, state[k])]
+    return []
+
+
+def container_run(torch, name: str, make, evaluate, gens: int, draws=("_draw",)) -> dict:
+    """``make(device) -> (container, base algorithms)`` built on the card and
+    on the CPU; the CPU's initial state moved to the card; ``gens``
+    generations (the init protocol, then steady), each draw made once on the
+    CPU and handed to both; each side evaluates its own batch
+    (``evaluate(cand) -> fitness``), the fitness held within 1e-5 relative
+    (Ackley's float32 sums and transcendentals on two devices), then both
+    tell the CPU's fitness, and the states are held bit for bit."""
+    card, card_bases = make(None)
+    cpu, cpu_bases = make("cpu")
+    for c_base, g_base in zip(cpu_bases, card_bases):
+        for d in draws:
+            if hasattr(c_base, d):
+                _same_draws(torch, c_base, g_base, d)
+    for d in ("_draw_active", "_draw_permutation"):
+        if hasattr(cpu, d):
+            _same_draws(torch, cpu, card, d)
+    s_cpu = cpu.init(SEED)
+    s_card = _state_on(torch, s_cpu, "cuda")
+    fit_err = 0.0
+    for gen in range(gens):
+        ask, tell = ("init_ask", "init_tell") if gen == 0 else ("ask", "tell")
+        c_cpu, s_cpu = getattr(cpu, ask)(s_cpu)
+        c_card, s_card = getattr(card, ask)(s_card)
+        compare_exact(f"{name}, generation {gen}, candidates, card against CPU",
+                      _tensors(torch, c_card), _tensors(torch, c_cpu))
+        f_cpu, f_card = evaluate(c_cpu), evaluate(c_card)
+        fit_err = max(fit_err, compare(f"{name}, generation {gen}, fitness, card against CPU",
+                                       f_card.cpu(), f_cpu, 1e-5, 0.0)["max_rel_err"])
+        s_cpu = getattr(cpu, tell)(s_cpu, f_cpu)
+        s_card = getattr(card, tell)(s_card, f_cpu.cuda())
+        check = compare_exact(f"{name}, generation {gen}, state, card against CPU",
+                              [t.cpu() for t in _tensors(torch, s_card)], _tensors(torch, s_cpu))
+    return {"generations": gens, "state_elements": check["elements"], "fitness_max_rel_err": fit_err}
+
+
+def phase_containers(torch) -> dict:
+    """The containers phase: ClusteredAlgorithm(CSO(pop 512), dim 1024, 8
+    clusters) on Ackley; VectorizedCoevolution and Coevolution of PSO(pop
+    512) over 8 blocks of 128 (``random_subpop`` on the vectorized one) on
+    Ackley at d 1024; RandomMaskAlgorithm(PSO(pop 512), 8 clusters, 2
+    masked, a new mask every 2 generations) through one mask change; and
+    TreeAlgorithm(PSO(pop 512)) over {"w": (32, 32), "b": (32,)} on a sum
+    of squares: each on the card against the CPU (``container_run``)."""
+    from evox_tpu_torch.algorithms import containers as tc
+    from evox_tpu_torch.algorithms.so.pso import CSO, PSO
+    from evox_tpu_torch.problems.numerical import Ackley
+
+    ackley = lambda c: Ackley().evaluate(None, c)[0]
+    sub = CONTAINER_DIM // CONTAINER_BLOCKS
+    bound = lambda d: torch.full((d,), 32.0)
+
+    def clustered(device):
+        base = CSO(-bound(sub), bound(sub), CONTAINER_POP, device=device)
+        return tc.ClusteredAlgorithm(base, CONTAINER_DIM, CONTAINER_BLOCKS), [base]
+
+    def coevolution(cls, **kw):
+        def make(device):
+            base = PSO(-bound(sub), bound(sub), CONTAINER_POP, device=device)
+            return cls(base, CONTAINER_DIM, CONTAINER_BLOCKS, **kw), [base]
+        return make
+
+    def random_mask(device):
+        base = PSO(-bound(sub), bound(sub), CONTAINER_POP, device=device)
+        return tc.RandomMaskAlgorithm(base, CONTAINER_DIM, CONTAINER_BLOCKS, num_mask=2,
+                                      change_every=2), [base]
+
+    def tree(device):
+        params = {"w": torch.zeros(32, 32), "b": torch.zeros(32)}
+        lbs = {"w": -torch.ones(1024), "b": -torch.ones(32)}
+        ubs = {"w": torch.ones(1024), "b": torch.ones(32)}
+        algo = tc.TreeAlgorithm(lambda lb, ub: PSO(lb, ub, CONTAINER_POP, device=device), params,
+                                lbs, ubs)
+        return algo, algo.inner
+
+    tree_fitness = lambda c: (c["w"] ** 2).sum(dim=(1, 2)) + (c["b"] ** 2).sum(dim=1)
+    out = {}
+    for name, make, evaluate, gens in (
+        ("ClusteredAlgorithm(CSO)", clustered, ackley, 4),
+        ("VectorizedCoevolution(PSO, random_subpop)",
+         coevolution(tc.VectorizedCoevolution, random_subpop=True), ackley, 3),
+        ("Coevolution(PSO)", coevolution(tc.Coevolution), ackley, 4),
+        ("RandomMaskAlgorithm(PSO)", random_mask, ackley, 6),
+        ("TreeAlgorithm(PSO)", tree, tree_fitness, 3),
+    ):
+        t0 = time.perf_counter()
+        out[name] = container_run(torch, name, make, evaluate, gens)
+        out[name]["command_s"] = time.perf_counter() - t0
+    print(f"[containers] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_mo_islands(torch, seed: int) -> dict:
+    """The MO islands phase: ``IslandWorkflow(NSGA2(pop 1000, m 3), DTLZ2(d
+    12), n_islands=4, migrate_every=5, migrate_k=4, num_objectives=3)`` for
+    10 generations: the elites (rank by B3, then crowding) one B3 launch an
+    island at each migration; the elites of the last migration held against
+    the CPU's plain route."""
+    from evox_tpu_torch import IslandWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.problems.numerical import DTLZ2
+    from evox_tpu_torch.workflows.islands import mo_elites
+
+    algo = NSGA2(torch.zeros(MOEAD_D), torch.ones(MOEAD_D), n_objs=MO_M, pop_size=MO_FAMILY_POP)
+    wf = IslandWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M), n_islands=MO_ISLANDS, migrate_every=5,
+                        migrate_k=4, num_objectives=MO_M)
+    elite_launches = []
+    caught = catch_elites(wf)
+    inner = wf.elites
+
+    def counted(fitness):
+        before = kd.packed_dominance.launches
+        idx = inner(fitness)
+        elite_launches.append(kd.packed_dominance.launches - before)
+        return idx
+
+    wf.elites = counted
+    state = wf.init(seed)
+    reset_launches()
+    t0 = time.perf_counter()
+    state = wf.run(state, MO_ISLAND_GENERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    del wf.elites
+    if elite_launches != [MO_ISLANDS] * (MO_ISLAND_GENERATIONS // 5):
+        raise AssertionError(f"B3 launches a migration's elites: {elite_launches}, expected "
+                             f"{MO_ISLANDS} each")
+    fitness, idx = caught[-1]
+    want = torch.stack([mo_elites(f, 4) for f in fitness.cpu()])
+    check = compare_exact("MO islands' elites, card against CPU", [idx.cpu()], [want])
+    per_island, ideal = wf.best(state)
+    if not (per_island.shape == (MO_ISLANDS, MO_M) and bool(torch.isfinite(per_island).all())):
+        raise AssertionError(f"MO islands' ideal points: {per_island}")
+    out = {"n_islands": MO_ISLANDS, "pop": MO_FAMILY_POP, "generations": MO_ISLAND_GENERATIONS,
+           "launches": launches, "elite_launches": elite_launches,
+           "ms_per_generation": wall / MO_ISLAND_GENERATIONS * 1e3,
+           "ideal": ideal.tolist(), "elites_max_abs_err": check["max_abs_err"]}
+    print(f"[mo islands] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -3391,7 +3983,10 @@ def monitor_callers(name: str, paths: dict) -> list:
             {"caller": "SHADE's pbest cut in its ask (path 9)", "n": shade["topk"]["n"],
              "k": shade["topk"]["k"], "launches": shade["launches"][name], "shapes": [shade["topk"]]},
             {"caller": "JaDE's pbest cut in its ask (the DE family phase)", "n": jade["topk"]["n"],
-             "k": jade["topk"]["k"], "launches": jade["launches"][name], "shapes": [jade["topk"]]}]
+             "k": jade["topk"]["k"], "launches": jade["launches"][name], "shapes": [jade["topk"]]},
+            {"caller": "IslandWorkflow's migration elites, one batched launch over the islands "
+                       "(path 14; the partial_topk_rows entry)", "rows": ISL_N, "n": ISL_POP, "k": 1,
+             "launches": paths["islands"]["launches"]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -3446,6 +4041,30 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
             **{key: k[key] for key in ("empty_launch_ms", "ms_1e6", "library_ms_1e6") if key in k},
             "callers": monitor_callers(name, paths),
         })
+    isl = paths["islands"]
+    tb = isl["topk_batched"]
+    entries.append({
+        "name": "partial_topk_rows",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/topk.cu",
+        "replaces": "evox_tpu/kernels/topk.py:185",
+        "launches": isl["launches"],
+        "max_abs_err": max(s["max_abs_err"] for s in tb["shapes"]),
+        "ms": tb["ms"],
+        "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"],
+        # torch.topk(v, 1, dim=1, largest=False): the same values, its tie
+        # order unspecified
+        "library_ms": tb["library_ms"],
+        "rows": tb["rows"], "n": tb["n"], "k": tb["k"],
+        **{key: tb[key] for key in ("device_us", "library_device_us", "one_row_launches_ms",
+                                    "one_row_launches_device_us", "host_us", "library_host_us")},
+        "shapes": tb["shapes"],
+        "callers": [{"caller": "IslandWorkflow's migration elites over 8 PSO islands of 512 "
+                               "(path 14), one launch a migration",
+                     "launches": isl["launches"], "launches_per_turn": isl["launches_per_turn"]}],
+    })
     w = kernels["walker"]
     entries.append({
         "name": "fused_mlp_rollout",
@@ -3606,6 +4225,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["indicator_family"] = phase_indicator_family(torch, MO_GENERATIONS, SEED)
     paths["maf"] = phase_maf(torch, SEED)
+    # 11. main paths 14 (the island workload, B4 batched over the islands)
+    # and 15 (IPOP-CMA-ES), the containers and the MO islands
+    torch.cuda.empty_cache()
+    paths["islands"] = phase_island_path(torch, SEED, args.profile)
+    paths["ipop"] = phase_ipop_path(torch, SEED)
+    paths["containers"] = phase_containers(torch)
+    paths["mo_islands"] = phase_mo_islands(torch, SEED)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -3647,6 +4273,10 @@ def main() -> int:
         "ibea_path": paths["ibea"],
         "indicator_family": paths["indicator_family"],
         "maf": paths["maf"],
+        "island_path": paths["islands"],
+        "ipop_path": paths["ipop"],
+        "containers": paths["containers"],
+        "mo_islands": paths["mo_islands"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

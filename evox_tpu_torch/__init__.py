@@ -15,11 +15,25 @@ This package imports neither ``jax`` nor anything of ``evox_tpu``.
 
 __version__ = "0.1.0"
 
-from .core import Algorithm, Monitor, Problem, PyTreeNode, field, resolve_device, static_field
-from .workflows import StdWorkflow, StdWorkflowState
+from .core import (
+    Algorithm,
+    GuardedAlgorithm,
+    IPOPRestarts,
+    Monitor,
+    Problem,
+    PyTreeNode,
+    field,
+    resolve_device,
+    static_field,
+)
+from .workflows import IslandWorkflow, IslandWorkflowState, StdWorkflow, StdWorkflowState
 
 __all__ = [
     "Algorithm",
+    "GuardedAlgorithm",
+    "IPOPRestarts",
+    "IslandWorkflow",
+    "IslandWorkflowState",
     "Monitor",
     "Problem",
     "PyTreeNode",

@@ -1,3 +1,10 @@
+from .containers import (
+    ClusteredAlgorithm,
+    Coevolution,
+    RandomMaskAlgorithm,
+    TreeAlgorithm,
+    VectorizedCoevolution,
+)
 from .mo import (
     BCEIBEA,
     GDE3,
@@ -16,6 +23,7 @@ from .mo import (
 )
 from .so import CSO, PSO, OpenES, OpenESState
 
-__all__ = ["BCEIBEA", "BCEIBEAState", "BiGE", "CSO", "GDE3", "HypE", "HypEState", "IBEA", "KnEA",
-           "KnEAState", "NSGA2", "NSGA2State", "OpenES", "OpenESState", "PSO", "SPEA2", "SRA",
-           "SRAState"]
+__all__ = ["BCEIBEA", "BCEIBEAState", "BiGE", "CSO", "ClusteredAlgorithm", "Coevolution", "GDE3",
+           "HypE", "HypEState", "IBEA", "KnEA", "KnEAState", "NSGA2", "NSGA2State", "OpenES",
+           "OpenESState", "PSO", "RandomMaskAlgorithm", "SPEA2", "SRA", "SRAState", "TreeAlgorithm",
+           "VectorizedCoevolution"]

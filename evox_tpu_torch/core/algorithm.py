@@ -5,7 +5,8 @@ hyperparameters (and its device); all mutable data lives in a frozen state
 dataclass returned by ``init`` and threaded through ``ask``/``tell``.
 Optional ``init_ask``/``init_tell`` overrides serve algorithms whose first
 generation differs from the steady state; workflows detect them by method
-override, as the JAX package does.
+override, as the JAX package does. ``migrate`` ingests foreign individuals
+(island migration); its default serves population-based states.
 """
 
 from __future__ import annotations
@@ -58,3 +59,34 @@ class Algorithm:
     @property
     def has_init_tell(self) -> bool:
         return type(self).init_tell is not Algorithm.init_tell
+
+    # -- optional migration hook --------------------------------------------
+    def migrate(self, state: AlgorithmState, pop: Any, fitness: torch.Tensor) -> AlgorithmState:
+        """Ingest foreign individuals (``IslandWorkflow``'s ring migration).
+
+        ``fitness`` is in the internal minimization convention. The default
+        offers each migrant to the worst rows of ``state.population`` /
+        ``state.fitness`` (a stable descending sort, as ``jnp.argsort`` of
+        the negated fitness), accepting only migrants that beat the row
+        they would displace: elitist acceptance, so a bad migrant cannot
+        overwrite a better row. Enough for every population-based
+        single-objective state carrying those two fields; algorithms with
+        more per-individual bookkeeping (personal bests, archives) or
+        multi-objective selection override it.
+        """
+        pop_arr = getattr(state, "population", None)
+        fit_arr = getattr(state, "fitness", None)
+        if pop_arr is None or fit_arr is None or fit_arr.ndim != 1:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no (population, 1-d fitness) "
+                "state fields; override migrate() to support migration"
+            )
+        k = fitness.shape[0]
+        worst = torch.argsort(-fit_arr, stable=True)[:k]
+        accept = fitness < fit_arr[worst]  # (k,) per-row elitism
+        new_rows = torch.where(accept[:, None], pop, pop_arr[worst])
+        new_fit = torch.where(accept, fitness, fit_arr[worst])
+        return state.replace(
+            population=pop_arr.index_put((worst,), new_rows),
+            fitness=fit_arr.index_put((worst,), new_fit),
+        )

@@ -53,7 +53,11 @@
 //   small (0): one block, one launch, no scratch: 256 threads up to n =
 //     kSmallN, else 1024. The keys (n words, while k < n) and two buffers
 //     of kept keys and indices (2k words each) live in dynamic shared
-//     memory: max(n + 2k [k < n], 4k) <= kSmallWords (192 KB).
+//     memory: max(n + 2k [k < n], 4k) <= kSmallWords (192 KB). Over a
+//     (rows, n) input it is one launch of a grid of `rows` such blocks,
+//     block b on row b (evox_partial_topk_small_rows), as vmap of the JAX
+//     kernel gives one kernel with a grid over the rows; each block's
+//     shared memory and work are the 1-D route's.
 //   large (1, 2): a memset of the control header, three grid-wide select
 //     passes (each block histograms its share, the last block to finish
 //     chooses the bucket; a finished select makes the later passes return
@@ -63,7 +67,9 @@
 //     four passes of count, scan and scatter (the compaction's digit
 //     histograms of the keys to sort decide the skipped passes and where
 //     each pass reads and writes; the last writes the output) and a kernel
-//     that writes the kept bucket keys.
+//     that writes the kept bucket keys. Over a (rows, n) input the wrapper
+//     queues this sequence once a row (a batched large route is left for
+//     later: ROADMAP B4).
 // Scratch (control header, tile totals, kept-key buffers, tile counts) is
 // one int32 buffer that the wrapper allocates; the kernels allocate
 // nothing. Element offsets are int; byte offsets are formed by pointer
@@ -417,6 +423,11 @@ __host__ __device__ int small_region(int n, int k) {
 template <int T>
 __global__ void __launch_bounds__(T, 1)
 small_kernel(const float* __restrict__ values, int n, int k, unsigned* out_v, int* out_i) {
+  // block b takes row b of a (rows, n) input and writes row b of the
+  // (rows, k) outputs; the 1-D entry launches one block
+  values += static_cast<size_t>(blockIdx.x) * n;
+  out_v += static_cast<size_t>(blockIdx.x) * k;
+  out_i += static_cast<size_t>(blockIdx.x) * k;
   extern __shared__ unsigned smem[];
   const int region = small_region(n, k);
   unsigned* counters = smem + region;
@@ -936,6 +947,37 @@ void sort_pass(unsigned* key0, int* idx0, unsigned* key1, int* idx1, int k, Cont
                                                         oi);
 }
 
+// The small route over `rows` rows of n values each: a grid of one block a
+// row, each block the 1-D small route on its row.
+cudaError_t small_launch(const float* v, int rows, int n, int k, unsigned* ov, int* oi,
+                         cudaStream_t st) {
+  const int region = small_region(n, k);
+  if (region > kSmallWords) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (n <= kSmallN) {
+    const int bytes = 4 * (region + small_counter_words(256));
+    static bool configured = false;
+    if (!configured) {
+      if ((err = set_smem(reinterpret_cast<const void*>(small_kernel<256>),
+                          4 * (kSmallWords + small_counter_words(256)))) != cudaSuccess)
+        return err;
+      configured = true;
+    }
+    small_kernel<256><<<rows, 256, bytes, st>>>(v, n, k, ov, oi);
+    return cudaGetLastError();
+  }
+  const int bytes = 4 * (region + small_counter_words(1024));
+  static bool configured = false;
+  if (!configured) {
+    if ((err = set_smem(reinterpret_cast<const void*>(small_kernel<1024>),
+                        4 * (kSmallWords + small_counter_words(1024)))) != cudaSuccess)
+      return err;
+    configured = true;
+  }
+  small_kernel<1024><<<rows, 1024, bytes, st>>>(v, n, k, ov, oi);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int evox_partial_topk(const void* values, int n, int k, int route, void* scratch,
@@ -949,32 +991,7 @@ extern "C" int evox_partial_topk(const void* values, int n, int k, int route, vo
   unsigned* ov = static_cast<unsigned*>(out_values);
   int* oi = static_cast<int*>(out_indices);
   cudaError_t err;
-  if (route == 0) {
-    const int region = small_region(n, k);
-    if (region > kSmallWords) return static_cast<int>(cudaErrorInvalidValue);
-    if (n <= kSmallN) {
-      const int bytes = 4 * (region + small_counter_words(256));
-      static bool configured = false;
-      if (!configured) {
-        if ((err = set_smem(reinterpret_cast<const void*>(small_kernel<256>),
-                            4 * (kSmallWords + small_counter_words(256)))) != cudaSuccess)
-          return static_cast<int>(err);
-        configured = true;
-      }
-      small_kernel<256><<<1, 256, bytes, st>>>(v, n, k, ov, oi);
-      return static_cast<int>(cudaGetLastError());
-    }
-    const int bytes = 4 * (region + small_counter_words(1024));
-    static bool configured = false;
-    if (!configured) {
-      if ((err = set_smem(reinterpret_cast<const void*>(small_kernel<1024>),
-                          4 * (kSmallWords + small_counter_words(1024)))) != cudaSuccess)
-        return static_cast<int>(err);
-      configured = true;
-    }
-    small_kernel<1024><<<1, 1024, bytes, st>>>(v, n, k, ov, oi);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (route == 0) return static_cast<int>(small_launch(v, 1, n, k, ov, oi, st));
   unsigned* base = static_cast<unsigned*>(scratch);
   Control* ctl = reinterpret_cast<Control*>(base);
   unsigned* sel_hist = base + 64;
@@ -1026,6 +1043,18 @@ extern "C" int evox_partial_topk(const void* values, int n, int k, int route, vo
 extern "C" int evox_partial_topk_small(const void* values, int n, int k, void* out_values,
                                        void* out_indices, void* stream) {
   return evox_partial_topk(values, n, k, 0, nullptr, 0, out_values, out_indices, stream);
+}
+
+// The small route over a (rows, n) row-major input in one launch: the k
+// smallest of each row to row b of the (rows, k) outputs. What vmap of the
+// JAX kernel gives: one kernel with a grid over the rows.
+extern "C" int evox_partial_topk_small_rows(const void* values, int rows, int n, int k,
+                                            void* out_values, void* out_indices, void* stream) {
+  if (rows < 1 || n <= 0 || k < 1 || k > n) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(small_launch(static_cast<const float*>(values), rows, n, k,
+                                       static_cast<unsigned*>(out_values),
+                                       static_cast<int*>(out_indices),
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // count launches of an empty kernel, back to back: the card's floor under

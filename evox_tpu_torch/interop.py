@@ -18,8 +18,13 @@ decomposition and reference-vector MOEAs' states (MOEA/D and its
 variants, EAG-MOEA/D, RVEA, RVEAa, LMOCSO; NSGA-III and TDEA through
 ``mo_state``), the workflow's generation and first-step flag, the rollout problem's
 episode-length cap and observation statistics (``rollout_state``),
-populations and genomes as ``(pop, dim)`` arrays, and ``mlp_policy``
-params trees.
+populations and genomes as ``(pop, dim)`` arrays, ``mlp_policy``
+params trees, the decomposition containers' states (their stacked member
+states split into the port's tuples), ``GuardedState`` (its inner state
+and counters; ``numpy_fields`` carries a port state back as numpy fields
+by name), and ``IslandWorkflowState`` (its island-stacked ``algo`` split
+into the port's per-island states). :func:`algorithm_state` picks the
+carry-over for any algorithm.
 
 Constants an algorithm builds in its constructor can be replaced by the
 JAX package's where a float tie decides them: ``set_neighbors`` (MOEA/D's
@@ -41,6 +46,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .algorithms import containers as _containers
 from .algorithms import mo as _mo
 from .algorithms.mo.common import GAMOAlgorithm, MOState
 from .algorithms.mo.nsga2 import NSGA2, NSGA2State
@@ -50,10 +56,12 @@ from .algorithms.so.es import les_meta as _les_meta
 from .algorithms.so.es.open_es import OpenES, OpenESState
 from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.device import DeviceLike, resolve_device
+from .core.guardrail import GuardedAlgorithm, GuardedState
 from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
 from .problems.neuroevolution.rollout import PolicyRolloutProblem, RolloutState
 from .utils.common import split_seed, tree_map
 from .utils.optimizers import SGD, Adam, AdamState, ClipUp, ClipUpState
+from .workflows.islands import IslandWorkflow, IslandWorkflowState
 from .workflows.std import StdWorkflow, StdWorkflowState
 
 
@@ -319,18 +327,11 @@ def std_workflow_state(
     generation, the first-step flag and the algorithm state cross; the
     problem and monitor states are the port's own, seeded from ``seed``
     (or ``prob_state`` for the problem)."""
-    carry = _ALGO_STATES.get(type(wf.algorithm))
-    if carry is None and isinstance(wf.algorithm, SwarmAlgorithm):
-        carry = swarm_state
-    if carry is None:
-        raise NotImplementedError(
-            f"no carry-over for {type(wf.algorithm).__name__} yet"
-        )
     fresh = wf.init(seed)
     algo_seed = split_seed(seed, 1)[0]
     return fresh.replace(
         generation=int(np.asarray(jax_state.generation)),
-        algo=carry(wf.algorithm, jax_state.algo, algo_seed),
+        algo=algorithm_state(wf.algorithm, jax_state.algo, algo_seed),
         prob=fresh.prob if prob_state is None else prob_state,
         first_step=bool(jax_state.first_step),
     )
@@ -353,3 +354,125 @@ _ALGO_STATES.update({
 _ALGO_STATES[_es.LES] = les_state
 _ALGO_STATES.update({getattr(_de, name): de_state for name in _de.__all__
                      if not name.endswith("State") and name != "select_rand_indices"})
+
+
+def _as_tensor(array: Any, device: torch.device, dtype: Any = None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(array))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def algorithm_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """The port's state for ``algo`` from the JAX package's state of the
+    same algorithm (numpy leaves), by the carry-over of its class: the
+    functions above, the containers' and :func:`guarded_state`."""
+    if isinstance(algo, GuardedAlgorithm):
+        return guarded_state(algo, jax_state, seed)
+    if isinstance(algo, (_containers.ClusteredAlgorithm, _containers.RandomMaskAlgorithm,
+                         _containers.VectorizedCoevolution, _containers.Coevolution,
+                         _containers.TreeAlgorithm)):
+        return container_state(algo, jax_state, seed)
+    carry = _ALGO_STATES.get(type(algo))
+    if carry is None and isinstance(algo, SwarmAlgorithm):
+        carry = swarm_state
+    if carry is None:
+        raise NotImplementedError(f"no carry-over for {type(algo).__name__} yet")
+    return carry(algo, jax_state, seed)
+
+
+def stacked_members(algo: Any, jax_stacked: Any, n: int, seed: int = 0) -> tuple:
+    """The port's tuple of ``n`` member states of ``algo`` from the JAX
+    package's member states stacked on a leading axis (``vmap(init)``'s
+    form: island states, cluster and block states); member ``i``'s seed is
+    ``split_seed(seed, n)[i]``."""
+    seeds = split_seed(seed, n)
+    return tuple(algorithm_state(algo, _containers.take_state(jax_stacked, i), s)
+                 for i, s in enumerate(seeds))
+
+
+def container_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """A decomposition container's state from the JAX package's: the
+    stacked member states split into the port's tuple; RandomMask's cache
+    (``None`` while the count is -1), active clusters and count, and
+    co-evolution's best-so-far vector, block fitness, last batch, counter
+    and permutation cross; the keys do not (the port's seeds start from
+    ``seed``)."""
+    s_self, s_members = split_seed(seed)
+    if isinstance(algo, _containers.TreeAlgorithm):  # a tuple of unstacked states
+        return tuple(algorithm_state(a, st, sd) for a, st, sd in
+                     zip(algo.inner, jax_state, split_seed(s_members, len(algo.inner))))
+    if isinstance(algo, _containers.ClusteredAlgorithm):
+        return stacked_members(algo.base, jax_state, algo.num_clusters, s_members)
+    dev = algo.base.device
+    if isinstance(algo, _containers.RandomMaskAlgorithm):
+        count = int(np.asarray(jax_state.count))
+        return _containers.RandomMaskState(
+            sub_states=stacked_members(algo.base, jax_state.sub_states, algo.num_clusters,
+                                       s_members),
+            sub_pops=None if count == -1 else _as_tensor(jax_state.sub_pops, dev, torch.float32),
+            active=tuple(int(i) for i in np.asarray(jax_state.active)),
+            count=count,
+            seed=s_self,
+        )
+    perm = jax_state.permutation
+    return _containers.CoevolutionState(
+        sub_states=stacked_members(algo.base, jax_state.sub_states, algo.num_subpops, s_members),
+        best_dec=_as_tensor(jax_state.best_dec, dev, torch.float32),
+        best_fit=_as_tensor(jax_state.best_fit, dev, torch.float32),
+        coop_pops=_as_tensor(jax_state.coop_pops, dev, torch.float32),
+        iter_counter=int(np.asarray(jax_state.iter_counter)),
+        permutation=None if perm is None else _as_tensor(perm, dev, torch.int64),
+        seed=s_self,
+    )
+
+
+def guarded_state(algo: GuardedAlgorithm, jax_state: Any, seed: int = 0) -> GuardedState:
+    """``GuardedState`` from the JAX package's (numpy leaves): the inner
+    state through :func:`algorithm_state`, the candidate buffer, best-so-far
+    and the counters (as host integers); the restart key does not cross
+    (the port's restart seed is ``fold_in_seed(seed, 0x6A72)``, as
+    ``init`` derives it)."""
+    fresh = algo.init(seed)
+    dev = fresh.best_fitness.device
+    as_t = lambda a: None if a is None else tree_map(lambda x: _as_tensor(x, dev), a)
+    return fresh.replace(
+        inner=algorithm_state(algo.algorithm, jax_state.inner, seed),
+        pop=as_t(jax_state.pop),
+        best_x=as_t(jax_state.best_x),
+        best_fitness=_as_tensor(jax_state.best_fitness, dev, torch.float32),
+        **{name: int(np.asarray(getattr(jax_state, name)))
+           for name in ("stagnation", "restarts", "checked_restarts", "last_trigger")},
+        pop_size=int(jax_state.pop_size),
+    )
+
+
+def numpy_fields(state: Any) -> Any:
+    """A port state carried back as plain data, field by field: tensors as
+    numpy arrays, nested states as dicts, tuples and dicts walked, host
+    values unchanged. What the JAX side's ``state.replace(**fields)`` takes
+    (after ``jnp.asarray`` of the arrays), e.g. to hand a port
+    ``GuardedState``'s counters and best-so-far to the JAX package."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return {f.name: numpy_fields(getattr(state, f.name)) for f in dataclasses.fields(state)}
+    if isinstance(state, dict):
+        return {k: numpy_fields(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(numpy_fields(v) for v in state)
+    return state
+
+
+def island_workflow_state(wf: IslandWorkflow, jax_state: Any, seed: int = 0,
+                          prob_state: Optional[Any] = None) -> IslandWorkflowState:
+    """``IslandWorkflowState`` from the JAX package's (numpy leaves): the
+    generation, the first-step flag and the island-stacked ``algo``, split
+    into the port's per-island states (:func:`stacked_members`); the
+    problem and monitor states are the port's own, seeded from ``seed`` (or
+    ``prob_state`` for the problem)."""
+    fresh = wf.init(seed)
+    return fresh.replace(
+        generation=int(np.asarray(jax_state.generation)),
+        algo=stacked_members(wf.algorithm, jax_state.algo, wf.n_islands, split_seed(seed, 1)[0]),
+        prob=fresh.prob if prob_state is None else prob_state,
+        first_step=bool(jax_state.first_step),
+    )

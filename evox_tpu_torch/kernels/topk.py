@@ -69,11 +69,14 @@ def total_order_key(values: torch.Tensor) -> torch.Tensor:
 
 
 def _check_args(values: torch.Tensor, k: int) -> int:
-    if values.ndim != 1:
-        raise ValueError(f"partial_topk takes a 1-D vector, got {tuple(values.shape)}")
+    if values.ndim not in (1, 2):
+        raise ValueError(f"partial_topk takes a 1-D vector or a 2-D batch of rows, got "
+                         f"{tuple(values.shape)}")
     if values.dtype != torch.float32:
         raise ValueError(f"partial_topk takes float32 values, got {values.dtype}")
-    n = values.shape[0]
+    n = values.shape[-1]
+    if values.ndim == 2 and not 1 <= values.shape[0] < 2**31:
+        raise ValueError(f"partial_topk takes 1 to 2**31 - 1 rows, got {values.shape[0]}")
     if not 1 <= k <= n:
         raise ValueError(f"k must be in [1, {n}], got {k}")
     if n >= 2**31:
@@ -85,8 +88,12 @@ def partial_topk_reference(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, 
     """The plain version: the ``k`` smallest of float32 ``values`` with their
     int32 indices, ascending, ties by lowest index under the total order of
     :func:`total_order_key`. The 64-bit key ``key * 2**32 + index`` is
-    unique, so one sort fixes the order."""
+    unique, so one sort fixes the order. A ``(rows, n)`` batch goes row by
+    row through the 1-D version, giving ``(rows, k)`` values and indices."""
     n = _check_args(values, k)
+    if values.ndim == 2:
+        rows = [partial_topk_reference(row, k) for row in values]
+        return torch.stack([v for v, _ in rows]), torch.stack([i for _, i in rows])
     index = torch.arange(n, dtype=torch.int64, device=values.device)
     key = total_order_key(values).to(torch.int64) * (1 << 32) + index
     order = torch.sort(key).indices[:k]
@@ -109,8 +116,8 @@ def _align4(words: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(n: int, k: int, small_words: int = SMALL_WORDS) -> Mapping:
-    """The kernel's route for ``(n, k)``.
+def launch_plan(n: int, k: int, small_words: int = SMALL_WORDS, rows: int = 1) -> Mapping:
+    """The kernel's route for ``(n, k)``, over ``rows`` rows of ``n``.
 
     ``small`` (code 0): one launch, no scratch, when one block's shared
     memory holds the keys (``n`` words, while ``k < n``) beside the kept
@@ -124,17 +131,26 @@ def launch_plan(n: int, k: int, small_words: int = SMALL_WORDS) -> Mapping:
     of count, scan and scatter, then the kernel that writes the kept keys
     that need no sorting). ``small_words`` exists so that a model of the
     algorithm can shrink the limit; the kernel's is :data:`SMALL_WORDS`.
-    The plan is cached and read-only.
+    Over ``rows > 1`` rows (``batched``): the small route is one launch of
+    a grid of ``rows`` blocks (``"grid"``, one block a row, each as the 1-D
+    route's); the large route queues its 1-D sequence once a row
+    (``"per_row"``: ``launches`` is ``rows`` times a row's; a batched large
+    route is left for later, ROADMAP B4). ``smem_bytes`` and
+    ``scratch_words`` are a row's (the per-row sequence reuses one
+    scratch). The plan is cached and read-only.
     """
     if not 1 <= k <= n:
         raise ValueError(f"launch_plan takes 1 <= k <= n, got n={n}, k={k}")
+    if rows < 1:
+        raise ValueError(f"launch_plan takes rows >= 1, got {rows}")
     region = _align4(max(n + 2 * k if k < n else 0, 4 * k))
     if region <= small_words:
         threads = 256 if n <= SMALL_N else 1024
         counters = max(8 * threads, 2048)  # the sort's 16-bit counters, the select's bins
         return MappingProxyType({"route": "small", "code": 0, "sort": "block", "threads": threads,
                                  "launches": 1, "smem_bytes": 4 * (region + counters),
-                                 "scratch_words": 0})
+                                 "scratch_words": 0, "rows": rows,
+                                 **({"batched": "grid"} if rows > 1 else {})})
     compact_tiles = -(-n // COMPACT_TILE)
     scratch = CONTROL_WORDS + 2 * compact_tiles + 2 * k
     launches = 1 + (3 if k < n else 0) + 2
@@ -146,25 +162,32 @@ def launch_plan(n: int, k: int, small_words: int = SMALL_WORDS) -> Mapping:
         scratch += 2 * k + 256 * -(-k // SORT_TILE)
         smem = 0
     return MappingProxyType({"route": "large", "code": code, "sort": sort, "threads": 1024,
-                             "launches": launches, "smem_bytes": smem, "scratch_words": scratch,
-                             "compact_tiles": compact_tiles})
+                             "launches": rows * launches, "smem_bytes": smem,
+                             "scratch_words": scratch, "compact_tiles": compact_tiles, "rows": rows,
+                             **({"batched": "per_row"} if rows > 1 else {})})
 
 
 _kernels: dict = {}
 
+# entry point -> its ctypes argument types
+_ENTRIES = {
+    # values, n, k, out values, out indices, stream
+    "evox_partial_topk_small": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p],
+    # values, rows, n, k, out values, out indices, stream
+    "evox_partial_topk_small_rows": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    # values, n, k, route, scratch, its words, out values, out indices, stream
+    "evox_partial_topk": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p],
+}
 
-def _function(small: bool) -> ctypes._CFuncPtr:
-    fn = _kernels.get(small)
+
+def _function(entry: str) -> ctypes._CFuncPtr:
+    fn = _kernels.get(entry)
     if fn is None:
-        if small:  # values, n, k, out values, out indices, stream
-            fn = _build.function("topk", "evox_partial_topk_small", [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p])
-        else:  # values, n, k, route, scratch, its words, out values, out indices, stream
-            fn = _build.function("topk", "evox_partial_topk", [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-        _kernels[small] = fn
+        fn = _kernels[entry] = _build.function("topk", entry, _ENTRIES[entry])
     return fn
 
 
@@ -175,22 +198,33 @@ def _launch(values: torch.Tensor, k: int, n: int) -> Tuple[torch.Tensor, torch.T
     if dev.index is not None and dev.index != index:
         with torch.cuda.device(dev):
             return _launch(v, k, n)
-    plan = launch_plan(n, k)
-    out_v = v.new_empty((k,))
-    out_i = v.new_empty((k,), dtype=torch.int32)
+    rows = v.shape[0] if v.ndim == 2 else 1
+    plan = launch_plan(n, k, rows=rows)
+    out_v = v.new_empty(v.shape[:-1] + (k,))
+    out_i = v.new_empty(v.shape[:-1] + (k,), dtype=torch.int32)
     stream = torch._C._cuda_getCurrentRawStream(index)
-    if plan["code"] == 0:
-        err = _function(True)(v.data_ptr(), n, k, out_v.data_ptr(), out_i.data_ptr(), stream)
+    if plan["code"] == 0 and v.ndim == 2:
+        err = _function("evox_partial_topk_small_rows")(
+            v.data_ptr(), rows, n, k, out_v.data_ptr(), out_i.data_ptr(), stream)
+    elif plan["code"] == 0:
+        err = _function("evox_partial_topk_small")(v.data_ptr(), n, k, out_v.data_ptr(),
+                                                   out_i.data_ptr(), stream)
     else:
         # kernel scratch, held until the launches are queued (stream order
-        # keeps it for them after that)
+        # keeps it for them after that); a batch queues a row's sequence
+        # once a row on the same scratch
         words = plan["scratch_words"]
         scratch = v.new_empty((words,), dtype=torch.int32)
-        err = _function(False)(v.data_ptr(), n, k, plan["code"], scratch.data_ptr(), words,
-                               out_v.data_ptr(), out_i.data_ptr(), stream)
+        err = 0
+        for r in range(rows):
+            err = _function("evox_partial_topk")(
+                v.data_ptr() + 4 * r * n, n, k, plan["code"], scratch.data_ptr(), words,
+                out_v.data_ptr() + 4 * r * k, out_i.data_ptr() + 4 * r * k, stream)
+            if err:
+                break
     if err:
         _build.check_launch("topk", err, "partial_topk")
-    partial_topk.launches += 1
+    partial_topk.launches += 1 if plan["code"] == 0 else rows
     return out_v, out_i
 
 
@@ -212,7 +246,9 @@ def partial_topk(
     """The exact ``k`` smallest entries of ``values`` and their indices.
 
     Args:
-        values: ``(n,)`` float32 (the minimisation-convention fitness).
+        values: ``(n,)`` float32 (the minimisation-convention fitness), or
+            a ``(rows, n)`` batch of such rows (what ``vmap`` of the JAX
+            function takes): each row follows the 1-D contract.
         k: selection size, ``1 <= k <= n``.
         device: where ``values`` lies; ``None`` means ``"cuda"``. On
             ``cuda`` the hand kernel runs; on ``cpu``,
@@ -222,11 +258,14 @@ def partial_topk(
     chose between its kernel and XLA and sized the TPU block; here the
     device of the tensor chooses, so none of them has a counterpart.
 
-    ``partial_topk.launches`` counts kernel launches.
+    ``partial_topk.launches`` counts kernel launches: one a call on the
+    small route, a batch included (one grid over its rows); one a row on
+    the large route.
 
     Returns:
         ``(values (k,) float32, indices (k,) int32)``, ascending in the
-        total order of :func:`total_order_key`, ties by lowest index.
+        total order of :func:`total_order_key`, ties by lowest index; a
+        ``(rows, n)`` batch gives ``(rows, k)`` of each.
     """
     # the hot path's call (no device, or the tensor's own), checked cheaply
     if values.is_cuda and (device is None or device is values.device or device == values.device):

@@ -37,16 +37,17 @@ _SEED_BOUND = 2**62
 
 
 def tree_flatten(tree: Any) -> Tuple[List[Any], Callable[[Sequence[Any]], Any]]:
-    """``(leaves, rebuild)`` of a tree of dicts and lists: the leaves in
-    ``jax.tree.leaves`` order (dict keys sorted, lists in order), and the
-    function that builds the same tree around new leaves."""
+    """``(leaves, rebuild)`` of a tree of dicts, lists and tuples: the
+    leaves in ``jax.tree.leaves`` order (dict keys sorted, lists and tuples
+    in order), and the function that builds the same tree around new
+    leaves."""
     if isinstance(tree, dict):
         keys = sorted(tree)
         parts = [tree_flatten(tree[k]) for k in keys]
         make = lambda children: dict(zip(keys, children))
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):
         parts = [tree_flatten(x) for x in tree]
-        make = list
+        make = type(tree)
     else:
         return [tree], lambda leaves: leaves[0]
     counts = [len(leaves) for leaves, _ in parts]

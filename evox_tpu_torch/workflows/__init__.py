@@ -1,3 +1,4 @@
+from .islands import IslandWorkflow, IslandWorkflowState
 from .std import StdWorkflow, StdWorkflowState
 
-__all__ = ["StdWorkflow", "StdWorkflowState"]
+__all__ = ["IslandWorkflow", "IslandWorkflowState", "StdWorkflow", "StdWorkflowState"]

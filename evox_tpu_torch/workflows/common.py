@@ -42,6 +42,16 @@ def finish_step(
     return new_state.replace(monitors=tuple(mstates))
 
 
+def refuse_deferred(where: str, **arguments: Any) -> None:
+    """Raise for each argument given whose port waits for the scale-out
+    slice (``None`` and ``False`` mean not given)."""
+    for name, value in arguments.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"{where}({name}=...) is not ported yet (ROADMAP A11)"
+            )
+
+
 def fused_run(wf: Any, state: Any, n_steps: int) -> Any:
     """Shared ``run()`` body: ``n_steps`` generations as a plain Python loop
     over ``wf.step``. The JAX package fuses them into one compiled

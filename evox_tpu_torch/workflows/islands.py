@@ -1,0 +1,259 @@
+"""IslandWorkflow — multi-population evolution with ring migration; the
+port of ``evox_tpu/workflows/islands.py``.
+
+``n_islands`` populations of one algorithm evolve side by side and every
+``migrate_every`` generations each island's best ``migrate_k`` candidates
+of that generation move one island around the ring, ingested by
+``algorithm.migrate`` (the base default covers ``(population, 1-d
+fitness)`` states; PSO and the GA-skeleton MOEAs override it).
+
+- The JAX package stacks the island states on a leading axis and runs
+  ``vmap(ask)``/``vmap(tell)``; the port holds a **tuple of island
+  states** and loops over the islands (``torch.func.vmap`` cannot batch
+  the port's ``torch.Generator`` draws nor its ``ctypes`` kernel
+  launches). Island ``i``'s seed comes from ``split_seed``, as its key
+  from ``jax.random.split``.
+- The candidates of all islands are scored as one flattened
+  ``(islands * pop, ...)`` batch, and the fitness flipped to the internal
+  minimization convention once, for ``tell`` and migration alike.
+- Single-objective elites: one batched ``partial_topk`` over the
+  ``(islands, pop)`` fitness (B4, one launch of a grid over the islands on
+  the card; the JAX package's ``vmap`` of the kernel). Multi-objective
+  elites: per island, non-dominated rank (B3) with crowding distance as
+  the tie-break, boundary points (+inf crowding) first.
+- Whether a generation migrates is decided on the host's generation
+  counter (the JAX package's ``lax.cond`` on a device counter).
+
+The JAX package's ``mesh``, ``external_problem``, ``dtype_policy``,
+``donate_carries`` and ``run``'s ``checkpointer``/``resume_from`` wait for
+ROADMAP A11, ``analysis_targets`` for A12: each raises
+``NotImplementedError``. Its ``use_topk_kernel`` and ``topk_interpret``
+have no counterpart: the tensor's device chooses, as in B4's wrapper.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.algorithm import Algorithm
+from ..core.device import DeviceLike, resolve_device
+from ..core.monitor import Monitor
+from ..core.problem import Problem
+from ..core.struct import PyTreeNode, static_field
+from ..kernels.topk import partial_topk
+from ..utils.common import lexsort, parse_opt_direction, split_seed, tree_flatten, tree_map
+from .common import build_hook_table, finish_step, fused_run, refuse_deferred, run_hooks
+
+
+class IslandWorkflowState(PyTreeNode):
+    generation: int
+    algo: Tuple[Any, ...]  # one algorithm state per island
+    prob: Any
+    monitors: Tuple[Any, ...] = ()
+    first_step: bool = static_field(default=True)
+
+
+def mo_elites(fitness: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` best rows of an island's ``(B, m)`` fitness:
+    ascending non-dominated rank, and within a rank descending crowding
+    distance, ties kept in index order (``jnp.lexsort((-crowd, rank))[:k]``:
+    two stable sorts)."""
+    from ..operators.selection.non_dominate import crowding_distance, non_dominated_sort
+
+    rank = non_dominated_sort(fitness)
+    crowd = crowding_distance(fitness)
+    return lexsort((-crowd, rank))[:k]
+
+
+class IslandWorkflow:
+    """Evolve ``n_islands`` populations with ring migration.
+
+    Args:
+        algorithm: the per-island :class:`Algorithm` (every island runs the
+            same hyperparameters; diversity comes from independent seeds).
+            Must support ``migrate``.
+        problem: shared :class:`Problem`; the candidates of all islands are
+            scored as one flattened batch.
+        n_islands: number of islands (at least 2).
+        migrate_every: generations between migrations.
+        migrate_k: individuals each island sends per migration.
+        monitors: 8-hook monitors, as :class:`StdWorkflow`'s; the hooks see
+            the flattened ``(islands * pop, ...)`` batch.
+        opt_direction / pop_transforms: as :class:`StdWorkflow`'s;
+            transforms see the flattened batch. ``fit_transforms`` is
+            refused: shaped fitness is population-relative, while migrants
+            carry raw fitness into the algorithm's state.
+        num_objectives: fitness arity; above 1 the elites are chosen by
+            rank and crowding (:func:`mo_elites`) and ingested through the
+            algorithm's multi-objective ``migrate``.
+        device: ``None`` means ``"cuda"``.
+    """
+
+    def __init__(
+        self,
+        algorithm: Algorithm,
+        problem: Problem,
+        n_islands: int,
+        migrate_every: int = 10,
+        migrate_k: int = 1,
+        monitors: Sequence[Monitor] = (),
+        opt_direction: Any = "min",
+        pop_transforms: Sequence[Callable] = (),
+        fit_transforms: Sequence[Callable] = (),
+        num_objectives: int = 1,
+        device: DeviceLike = None,
+        mesh: Any = None,
+        external_problem: Optional[bool] = None,
+        dtype_policy: Any = None,
+        donate_carries: bool = False,
+    ):
+        if n_islands < 2:
+            raise ValueError(f"need at least 2 islands, got {n_islands}")
+        if migrate_every < 1 or migrate_k < 1:
+            raise ValueError("migrate_every and migrate_k must be >= 1")
+        if num_objectives < 1:
+            raise ValueError(f"num_objectives must be >= 1, got {num_objectives}")
+        if fit_transforms:
+            raise ValueError(
+                "fit_transforms cannot be combined with island migration: "
+                "migrants carry raw fitness while tell stores shaped values"
+            )
+        refuse_deferred("IslandWorkflow", mesh=mesh, external_problem=external_problem,
+                         dtype_policy=dtype_policy, donate_carries=donate_carries)
+        self.device = resolve_device(device)
+        for part in (algorithm, problem):
+            dev = getattr(part, "device", None)
+            if dev is not None and dev.type != self.device.type:
+                raise ValueError(
+                    f"{type(part).__name__} runs on {dev}, the workflow on {self.device}")
+        self.algorithm = algorithm
+        self.problem = problem
+        self.n_islands = n_islands
+        self.num_objectives = num_objectives
+        self.migrate_every = migrate_every
+        self.migrate_k = migrate_k
+        self.monitors = tuple(monitors)
+        self.opt_direction = parse_opt_direction(opt_direction).to(self.device)
+        for m in self.monitors:
+            m.set_opt_direction(self.opt_direction)
+        self._hook_table = build_hook_table(self.monitors)
+        self.pop_transforms = tuple(pop_transforms)
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: int = 0) -> IslandWorkflowState:
+        seeds = split_seed(seed, 2 + len(self.monitors))
+        return IslandWorkflowState(
+            generation=0,
+            algo=tuple(self.algorithm.init(s) for s in split_seed(seeds[1], self.n_islands)),
+            prob=self.problem.init(seeds[0]),
+            monitors=tuple(m.init(s) for m, s in zip(self.monitors, seeds[2:])),
+            first_step=True,
+        )
+
+    # ------------------------------------------------------------------ step
+    def step(self, state: IslandWorkflowState) -> IslandWorkflowState:
+        return self._step_impl(state)
+
+    def run(self, state: IslandWorkflowState, n_steps: int, checkpointer: Any = None,
+            resume_from: Any = None) -> IslandWorkflowState:
+        """Run ``n_steps`` generations (a Python loop over ``step``)."""
+        refuse_deferred("IslandWorkflow.run", checkpointer=checkpointer, resume_from=resume_from)
+        return fused_run(self, state, n_steps)
+
+    def analysis_targets(self, state: IslandWorkflowState) -> dict:
+        """The JAX package's AOT cost targets have no counterpart yet."""
+        raise NotImplementedError(
+            "IslandWorkflow.analysis_targets is not ported yet (ROADMAP A12)")
+
+    def best(self, state: IslandWorkflowState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(per-island best fitness, global best) in the user's convention
+        (a maximization run's best comes back positive), from states
+        carrying ``gbest_fitness``, ``pbest_fitness`` or ``fitness``.
+
+        Multi-objective: per-objective minima, the per-island ideal points
+        ``(islands, m)`` and the global ideal point ``(m,)``."""
+        for name in ("gbest_fitness", "pbest_fitness", "fitness"):
+            if getattr(state.algo[0], name, None) is None:
+                continue
+            arr = torch.stack([getattr(s, name) for s in state.algo])
+            if self.num_objectives > 1:
+                per_island = arr.reshape(self.n_islands, -1, self.num_objectives).amin(dim=1)
+                return (per_island * self.opt_direction,
+                        per_island.amin(dim=0) * self.opt_direction)
+            per_island = arr.reshape(self.n_islands, -1).amin(dim=1)
+            sign = self.opt_direction[0]
+            return per_island * sign, per_island.amin() * sign
+        raise NotImplementedError(f"{type(state.algo[0]).__name__} exposes no fitness field")
+
+    # ------------------------------------------------------------- internals
+    def elites(self, fitness: torch.Tensor) -> torch.Tensor:
+        """``(islands, migrate_k)`` indices of each island's elites in this
+        generation's internal-convention fitness ``(islands, B[, m])``."""
+        k = self.migrate_k
+        if k > fitness.shape[1]:
+            raise ValueError(
+                f"migrate_k={k} exceeds the per-island candidate batch ({fitness.shape[1]})")
+        if self.num_objectives > 1:
+            return torch.stack([mo_elites(f, k) for f in fitness])
+        return partial_topk(fitness.to(torch.float32), k, device=fitness.device)[1].long()
+
+    def _migrate(self, astates: Tuple[Any, ...], pop: Any, fitness: torch.Tensor) -> Tuple[Any, ...]:
+        """Ring migration of each island's elites: island i receives from
+        island i - 1."""
+        idx = self.elites(fitness)
+        rows = torch.arange(self.n_islands, device=idx.device)[:, None]
+        recv = tree_map(lambda c: torch.roll(c[rows, idx], 1, dims=0), pop)
+        recv_fit = torch.roll(fitness[rows, idx], 1, dims=0)
+        return tuple(
+            self.algorithm.migrate(s, tree_map(lambda r: r[i], recv), recv_fit[i])
+            for i, s in enumerate(astates))
+
+    def _step_impl(self, state: IslandWorkflowState) -> IslandWorkflowState:
+        mstates = list(state.monitors)
+        run_hooks(self.monitors, self._hook_table, "pre_step", mstates)
+        run_hooks(self.monitors, self._hook_table, "pre_ask", mstates)
+
+        use_init = state.first_step and (
+            self.algorithm.has_init_ask or self.algorithm.has_init_tell)
+        ask = self.algorithm.init_ask if use_init else self.algorithm.ask
+        pairs = [ask(s) for s in state.algo]
+        astates = tuple(s for _, s in pairs)
+        # (islands, B, ...) leaf by leaf
+        leaves, rebuild = tree_flatten(pairs[0][0])
+        per_island = [tree_flatten(p)[0] for p, _ in pairs]
+        pop = rebuild([torch.stack([isl[j] for isl in per_island]) for j in range(len(leaves))])
+        batch = leaves[0].shape[0]
+        cand_flat = tree_map(lambda x: x.reshape((self.n_islands * batch,) + x.shape[2:]), pop)
+        run_hooks(self.monitors, self._hook_table, "post_ask", mstates, cand_flat)
+        for t in self.pop_transforms:
+            cand_flat = t(cand_flat)
+
+        run_hooks(self.monitors, self._hook_table, "pre_eval", mstates, cand_flat)
+        raw_fitness, pstate = self.problem.evaluate(state.prob, cand_flat)
+        run_hooks(self.monitors, self._hook_table, "post_eval", mstates, cand_flat, raw_fitness)
+        # the internal minimization convention, shared by tell and migration
+        if self.num_objectives > 1:
+            fitness = (raw_fitness * self.opt_direction).reshape(
+                self.n_islands, batch, self.num_objectives)
+        else:
+            fitness = (raw_fitness * self.opt_direction[0]).reshape(self.n_islands, batch)
+
+        run_hooks(self.monitors, self._hook_table, "pre_tell", mstates,
+                  fitness.reshape((self.n_islands * batch,) + fitness.shape[2:]))
+        tell = self.algorithm.init_tell if use_init else self.algorithm.tell
+        astates = tuple(tell(s, f) for s, f in zip(astates, fitness))
+        run_hooks(self.monitors, self._hook_table, "post_tell", mstates)
+
+        gen = state.generation + 1
+        if gen % self.migrate_every == 0:
+            astates = self._migrate(astates, pop, fitness)
+        new_state = state.replace(
+            generation=gen,
+            algo=astates,
+            prob=pstate,
+            monitors=tuple(mstates),
+            first_step=False,
+        )
+        return finish_step(self.monitors, self._hook_table, new_state)

@@ -4,9 +4,10 @@ One generation is ask → pop transforms → evaluate → direction flip →
 (quarantine) → fit transforms → tell, with the 8 monitor hooks in the same
 order as the JAX package. PyTorch runs eagerly, so ``step`` is a plain call
 and ``run`` a Python loop over it (a CUDA graph over the loop is later work,
-ROADMAP A2). The JAX package's mesh, host-callback, migration, dtype-policy,
-donation and checkpoint arguments wait for ROADMAP A11: passing one raises
-``NotImplementedError``.
+ROADMAP A2). ``run(restarts=IPOPRestarts(...))`` adds IPOP's population
+doubling between segments (``workflows/ipop.py``). The JAX package's mesh,
+host-callback, migration, dtype-policy, donation and checkpoint arguments
+wait for ROADMAP A11: passing one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .common import (
     fused_run,
     ingest_fitness,
     quarantine_nonfinite,
+    refuse_deferred,
     run_hooks,
 )
 
@@ -37,14 +39,6 @@ class StdWorkflowState(PyTreeNode):
     prob: Any
     monitors: Tuple[Any, ...]
     first_step: bool = static_field(default=True)
-
-
-def _refuse_deferred(where: str, **arguments: Any) -> None:
-    for name, value in arguments.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet (ROADMAP A11)"
-            )
 
 
 class StdWorkflow:
@@ -84,7 +78,12 @@ class StdWorkflow:
         dtype_policy: Any = None,
         donate_carries: bool = False,
     ):
-        _refuse_deferred(
+        self._ctor_args = dict(
+            problem=problem, monitors=monitors, opt_direction=opt_direction,
+            pop_transforms=pop_transforms, fit_transforms=fit_transforms,
+            quarantine_nonfinite=quarantine_nonfinite, device=device,
+        )
+        refuse_deferred(
             "StdWorkflow",
             mesh=mesh,
             external_problem=external_problem,
@@ -112,6 +111,12 @@ class StdWorkflow:
             m.set_opt_direction(self.opt_direction)
         self._hook_table = build_hook_table(self.monitors)
 
+    def clone_with_algorithm(self, algorithm: Algorithm) -> "StdWorkflow":
+        """A new workflow like this one but driving ``algorithm`` (the same
+        problem and monitor objects): where IPOP's population growth
+        rebuilds the workflow (``workflows/ipop.py``)."""
+        return StdWorkflow(algorithm, **self._ctor_args)
+
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> StdWorkflowState:
         seeds = split_seed(seed, 2 + len(self.monitors))
@@ -135,13 +140,25 @@ class StdWorkflow:
         resume_from: Any = None,
         restarts: Any = None,
     ) -> StdWorkflowState:
-        """Run ``n_steps`` generations (a Python loop over ``step``)."""
-        _refuse_deferred(
+        """Run ``n_steps`` generations (a Python loop over ``step``).
+
+        ``restarts=`` (an :class:`~evox_tpu_torch.core.guardrail.IPOPRestarts`;
+        the algorithm must be a ``GuardedAlgorithm``) adds IPOP's population
+        doubling: the run goes in segments on the policy's ``check_every``
+        grid, the guarded state's counters are read between segments, and a
+        restart since the last check rebuilds the workflow around a doubled
+        population, best-so-far carried across (``workflows/ipop.py``).
+        ``checkpointer=`` and ``resume_from=`` wait for ROADMAP A11.
+        """
+        refuse_deferred(
             "StdWorkflow.run",
             checkpointer=checkpointer,
             resume_from=resume_from,
-            restarts=restarts,
         )
+        if restarts is not None:
+            from .ipop import ipop_run
+
+            return ipop_run(self, state, n_steps, restarts, segment=fused_run)
         return fused_run(self, state, n_steps)
 
     def _dispatch_ask(self, state: StdWorkflowState) -> Tuple[bool, Any, Any]:

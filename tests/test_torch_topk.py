@@ -11,6 +11,7 @@ The CUDA kernel is held against the plain version on the card by
 stages (below), against the JAX reference.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,6 +79,68 @@ def test_matches_jax_pallas_kernel_in_interpret_mode(n, k, seed):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+def _stress_rows(rows, n, seed, special):
+    """Rows of rounded normals (heavy ties) with ±inf sprinkled in; with
+    ``special``, the SPECIAL_BITS too (NaNs by sign and payload, ±0.0)."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.normal(size=(rows, n)), 1).astype(np.float32)
+    for r in range(rows):
+        v[r, rng.integers(0, n, 3)] = np.inf
+        v[r, rng.integers(0, n, 3)] = -np.inf
+        if special:
+            hit = rng.integers(0, n, size=len(SPECIAL_BITS))
+            v[r, hit] = SPECIAL_BITS.view(np.float32)
+    v[-1] = v[-1, 0]  # an all-equal row
+    return v
+
+
+@pytest.mark.parametrize("rows,n,k", [(8, 512, 1), (8, 512, 4), (4, 2000, 4), (3, 2049, 8),
+                                      (2, 300, 300)])
+def test_batched_rows_match_vmapped_jax_pallas_kernel(rows, n, k):
+    """A ``(rows, n)`` batch against ``jax.vmap`` of the JAX function on
+    its Pallas kernel in interpret mode (what ``IslandWorkflow`` runs: one
+    batched kernel with a grid over the rows), values and indices exact:
+    ties, ±inf and an all-equal row (no NaN or signed zero: the Pallas
+    kernel ranks inside a block by float compares). (8, 512, 1) is the
+    island workload's migration; k = n the whole row sorted."""
+    v = _stress_rows(rows, n, rows * n + k, special=False)
+    v[v == 0] = 0.5
+    jv, ji = jax.vmap(lambda r: jax_partial_topk(r, k, use_kernel=True, interpret=True))(
+        jnp.asarray(v))
+    tv, ti = tk.partial_topk(torch.from_numpy(v), k, device="cpu")
+    assert tv.shape == ti.shape == (rows, k) and ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("rows,n,k", [(8, 512, 1), (5, 100, 100), (3, 1000, 37)])
+def test_batched_rows_follow_the_total_order_like_vmapped_reference(rows, n, k):
+    """Stress rows with NaNs of both signs and payloads and ±0.0: each row
+    of the batch follows the 1-D contract, the total order on bits (JAX's
+    ``lax.top_k`` reference under ``vmap``), bit for bit."""
+    v = _stress_rows(rows, n, n + k, special=True)
+    jv, ji = jax.vmap(lambda r: jax_reference(r, k))(jnp.asarray(v))
+    tv, ti = tk.partial_topk(torch.from_numpy(v), k, device="cpu")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.uint32), np.asarray(jv).view(np.uint32))
+
+
+def test_launch_plan_of_a_batch():
+    """The small route batches into one launch of a grid of rows; the large
+    route queues a row's sequence once a row."""
+    one, batch = tk.launch_plan(512, 1), tk.launch_plan(512, 1, rows=8)
+    assert batch["route"] == "small" and batch["batched"] == "grid" and batch["launches"] == 1
+    assert {k: v for k, v in batch.items() if k not in ("rows", "batched")} == {
+        k: v for k, v in one.items() if k != "rows"}
+    assert "batched" not in one and one["rows"] == 1
+    assert tk.launch_plan(20000, 10000, rows=3)["batched"] == "grid"
+    large = tk.launch_plan(30000, 15000, rows=3)
+    assert large["route"] == "large" and large["batched"] == "per_row"
+    assert large["launches"] == 3 * tk.launch_plan(30000, 15000)["launches"]
+    with pytest.raises(ValueError, match="rows"):
+        tk.launch_plan(10, 1, rows=0)
+
+
 def test_total_order_key_orders_like_the_bits():
     keys = tk.total_order_key(torch.from_numpy(SPECIAL_BITS.view(np.float32)))
     order = torch.argsort(keys, stable=True).tolist()
@@ -90,8 +153,12 @@ def test_arguments_are_checked():
     for k in (0, 5):
         with pytest.raises(ValueError, match="k must be"):
             tk.partial_topk(v, k, device="cpu")
-    with pytest.raises(ValueError, match="1-D"):
-        tk.partial_topk(torch.zeros(2, 2), 1, device="cpu")
+    with pytest.raises(ValueError, match="1-D vector or a 2-D batch"):
+        tk.partial_topk(torch.zeros(2, 2, 2), 1, device="cpu")
+    with pytest.raises(ValueError, match="rows"):
+        tk.partial_topk(torch.zeros(0, 4), 1, device="cpu")
+    with pytest.raises(ValueError, match="k must be"):
+        tk.partial_topk(torch.zeros(3, 4), 5, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         tk.partial_topk(torch.zeros(4, dtype=torch.float64), 1, device="cpu")
     assert tk.default_use_kernel() is False

@@ -237,9 +237,15 @@ def test_deferred_arguments_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             StdWorkflow(algo, prob, device="cpu", **kwargs)
     wf = StdWorkflow(algo, prob, device="cpu")
-    for kwargs in ({"checkpointer": object()}, {"resume_from": "dir"}, {"restarts": object()}):
+    for kwargs in ({"checkpointer": object()}, {"resume_from": "dir"}):
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             wf.run(wf.init(0), 1, **kwargs)
+    # ported since: restarts= (IPOP), which needs a GuardedAlgorithm
+    from evox_tpu_torch import GuardedAlgorithm, IPOPRestarts
+
+    policy = IPOPRestarts(lambda pop: GuardedAlgorithm(OpenES(torch.zeros(dim), pop, device="cpu")))
+    with pytest.raises(TypeError, match="GuardedAlgorithm"):
+        wf.run(wf.init(0), 1, restarts=policy)
     # ported since: the problem's helpers and bf16 residency construct, and
     # the refusals the JAX package keeps stay
     from evox_tpu_torch.problems.neuroevolution import CapEpisode, ObsNormalizer
