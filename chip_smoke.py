@@ -246,10 +246,34 @@ exit 0):
    states bit for bit) and the MO islands phase (NSGA-II islands, pop 1000,
    on DTLZ2: one B3 launch an island at each migration, the elites held
    against the CPU's).
-19. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
-   paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13, B4
-   batched on path 14 as ``partial_topk_rows``), then the last line
-   ``{"ok": true, "device": {...}}``.
+19. main path 16: ``bench.py:613-707``'s workload 6,
+   ``StdWorkflow(PSO(±5, pop 2048, d 512), _HostEvalSphere())`` (numpy
+   ``sum(x²)`` after a 4 ms sleep, seed 13), through ``run_host_pipelined``
+   (the executor: pinned copies, the host evaluation inline, hook lanes)
+   and through ``bench.py``'s serialized ask, evaluate, tell loop in turns
+   (piped, serial, serial, piped; 40 generations each after 3 warm): ms a
+   generation, the device halves' CUDA-event time, the host evaluation,
+   ``overlap_efficiency``, the copies' bytes and ms, the executor's report;
+   10 pipelined generations equal 10 ``wf.step`` generations bit for bit,
+   also with ``eval_chunk=500``; one host-evaluated generation on the card
+   against the CPU. Main path 17: ``bench.py:157-196``'s workload 1b, path
+   4's CSO with ``dtype_policy=BF16_STORAGE, donate_carries=True`` against
+   float32 (turns bf16, f32, f32, bf16; 20 generations each): ms a
+   generation, evaluations/s, the carried bytes, peak memory, the casts'
+   device time, the best fitness, every field's dtype after ``step`` and
+   ``run``; CMA-ES at path 5's shape keeps its strategy float32. Main path
+   18: path 2's NSGA-II for 30 generations from ``init`` under
+   ``WorkflowCheckpointer(every=10, keep=3)``, twice (bit for bit: the run
+   reproduces itself; one B3 launch a generation, one B4 launch a tell),
+   with and without the checkpointer in turns; the gen-30 snapshot deleted
+   and the gen-20 manifest torn, ``latest()`` falls back to gen 10 with a
+   warning; with gen 20 restored, a fresh workflow's ``resume`` equals the
+   straight run bit for bit; a workflow at pop 9998 is refused.
+20. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
+   paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13, B3
+   and B4 on path 18 too, B4 batched on path 14 as
+   ``partial_topk_rows``), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -345,6 +369,17 @@ IPOP_POISON_GEN, IPOP_GENERATIONS = 40, 200
 CONTAINER_POP, CONTAINER_DIM, CONTAINER_BLOCKS = 512, 1024, 8
 # the MO islands phase: NSGA-II islands at the MO family's pop on DTLZ2
 MO_ISLANDS, MO_ISLAND_GENERATIONS = 4, 10
+# main path 16: bench.py:613-707's workload 6, PSO (±5, pop 2048, d 512) on
+# a host Sphere that sleeps 4 ms a generation, seed 13, 3 warm generations;
+# each timed turn 40 generations; the run == step law over 10 generations,
+# whole and in row slices of 500 (a ragged last slice of 48)
+HE_POP, HE_DIM, HE_SLEEP, HE_SEED, HE_WARM, HE_GENERATIONS = 2048, 512, 0.004, 13, 3, 40
+HE_LAW_GENERATIONS, HE_EVAL_CHUNK = 10, 500
+# main path 17: bench.py:157-196's workload 1b, path 4's CSO under
+# BF16_STORAGE against float32, both with donate_carries, seed 42 as there
+BF16_SEED = 42
+# main path 18: path 2's NSGA-II for 30 generations, a snapshot every 10
+CKPT_GENERATIONS, CKPT_EVERY = 30, 10
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # main path 12: path 1's shape (OpenES, pop 65536, 2 episodes, flat 1-hidden
@@ -2834,23 +2869,6 @@ def build_shade_path(torch, pop: int = SHADE_POP, dim: int = SHADE_DIM, device=N
     return StdWorkflow(algo, Ackley(), device=device)
 
 
-def state_to(state, device):
-    """A copy of an algorithm state with every tensor (nested states too) on
-    ``device``."""
-    import dataclasses
-
-    import torch
-
-    def move(v):
-        if isinstance(v, torch.Tensor):
-            return v.to(device)
-        if dataclasses.is_dataclass(v):
-            return v.replace(**{f.name: move(getattr(v, f.name)) for f in dataclasses.fields(v)})
-        return v
-
-    return move(state)
-
-
 def topk_row(torch, v, k: int, name: str) -> dict:
     """``partial_topk`` on ``v`` held against its plain version, and timed
     beside ``torch.topk`` (CUDA events, device time, host time) and its
@@ -2944,7 +2962,7 @@ def phase_shade_card_vs_cpu(torch, wf, state, seed: int) -> dict:
     cpu = SHADE(lb=card.lb.cpu(), ub=card.ub.cpu(), pop_size=card.pop_size, memory_size=card.H,
                 device="cpu")
     card_state = state.algo
-    cpu_state = state_to(card_state, "cpu")
+    cpu_state = _state_on(torch, card_state, "cpu")
     draws = cpu._draw(seed + 1)
     cpu._draw = lambda s: draws
     card._draw = lambda s: {name: d.cuda() for name, d in draws.items()}
@@ -3142,7 +3160,7 @@ def phase_gde3_path(torch, gens: int, seed: int, profile: bool) -> dict:
     on_card = algo.tell(astate, fit)
     cpu_algo = GDE3(algo.lb.cpu(), algo.ub.cpu(), n_objs=LSMOP_M, pop_size=k, F=GDE3_F, CR=GDE3_CR,
                     device="cpu")
-    cpu_state = state_to(astate, "cpu")
+    cpu_state = _state_on(torch, astate, "cpu")
     t0 = time.perf_counter()
     on_cpu = cpu_algo.tell(cpu_state, fit.cpu())
     tell = compare_exact("GDE3 tell on the card against the CPU's plain routes (population and "
@@ -3760,18 +3778,9 @@ def _same_draws(torch, cpu_algo, card_algo, name: str = "_draw") -> None:
 def _state_on(torch, state, device):
     """Any state or draw (tuples of member states, nested states, dicts)
     with every tensor on ``device``."""
-    import dataclasses
+    from evox_tpu_torch.core.struct import map_tensors
 
-    if isinstance(state, torch.Tensor):
-        return state.to(device)
-    if dataclasses.is_dataclass(state):
-        return state.replace(**{f.name: _state_on(torch, getattr(state, f.name), device)
-                                for f in dataclasses.fields(state)})
-    if isinstance(state, (tuple, list)):
-        return type(state)(_state_on(torch, v, device) for v in state)
-    if isinstance(state, dict):
-        return {k: _state_on(torch, v, device) for k, v in state.items()}
-    return state
+    return map_tensors(lambda t: t.to(device), state)
 
 
 def _tensors(torch, state) -> list:
@@ -3932,6 +3941,474 @@ def phase_mo_islands(torch, seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------- main path 16
+
+
+class HostEvalSphere:
+    """``bench.py:633-647``'s ``_HostEvalSphere``: Sphere in numpy float32
+    on the host after a fixed sleep (a stand-in for a simulator with a
+    known host floor); duck-typed, as a user's host problem is."""
+
+    jittable = False
+    fit_dtype = "float32"
+
+    def init(self, seed=None):
+        return None
+
+    def fit_shape(self, pop_size):
+        return (pop_size,)
+
+    def evaluate(self, state, pop):
+        import numpy as np
+
+        time.sleep(HE_SLEEP)
+        return np.sum(np.asarray(pop) ** 2, axis=1).astype(np.float32), state
+
+
+def build_host_path(torch, pop: int = HE_POP, dim: int = HE_DIM, device=None):
+    """Main path 16 as ``bench.py:650-657`` builds it: PSO (±5) on the host
+    Sphere."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.pso import PSO
+
+    bound = torch.full((dim,), 5.0)
+    return StdWorkflow(PSO(lb=-bound, ub=bound, pop_size=pop, device=device), HostEvalSphere(),
+                       device=device)
+
+
+def _pso_tensors(s) -> list:
+    return [s.population, s.velocity, s.pbest_position, s.pbest_fitness, s.gbest_position,
+            s.gbest_fitness]
+
+
+def phase_host_path(torch, seed: int = HE_SEED, gens: int = HE_GENERATIONS,
+                    warm: int = HE_WARM) -> dict:
+    """Main path 16: ``bench.py``'s workload 6, the host problem through
+    ``run_host_pipelined`` (the executor) and through the serialized ask,
+    evaluate, tell loop of ``bench.py:676-706``, in turns (piped, serial,
+    serial, piped), each from the state after ``warm`` generations. The
+    device halves are timed by CUDA events recorded around
+    ``pipeline_ask`` and ``pipeline_tell`` (wrapped on the workflow, which
+    the executor calls through), the host ``evaluate`` on the host's clock,
+    the copies by ``wf.host_link``'s events. Then 10 pipelined generations
+    against 10 ``wf.step`` generations, with and without ``eval_chunk=500``,
+    bit for bit, and one host-evaluated generation on the card against the
+    CPU on the same state and draws."""
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.workflows import chunked_evaluate, run_host_pipelined
+    from evox_tpu_torch.workflows.common import host_candidates
+
+    wf = build_host_path(torch)
+    state = run_host_pipelined(wf, wf.init(seed), warm)  # warm both halves and the copies
+    torch.cuda.synchronize()
+    spans = {"ask": [], "tell": []}
+    raw_ask, raw_tell = wf.pipeline_ask, wf.pipeline_tell
+
+    def timed(name, fn):
+        def call(*args):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            stop.record()
+            spans[name].append((start, stop))
+            return out
+        return call
+
+    wf.pipeline_ask, wf.pipeline_tell = timed("ask", raw_ask), timed("tell", raw_tell)
+
+    def serial(s, n, host_ms):
+        for _ in range(n):
+            cand, ctx = wf.pipeline_ask(s)
+            host = host_candidates(wf.host_link, cand)
+            t0 = time.perf_counter()
+            fitness, _ = chunked_evaluate(wf.problem, s.prob, host, None)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            s = wf.pipeline_tell(s, ctx, fitness, s.prob)
+        return s
+
+    turns, finals = [], {}
+    for mode in ("piped", "serial", "serial", "piped"):
+        for v in spans.values():
+            v.clear()
+        link0 = wf.host_link.report()
+        host_ms = []
+        ex = GenerationExecutor()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "piped":
+            end = run_host_pipelined(wf, state, gens, executor=ex)
+        else:
+            end = serial(state, gens, host_ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        link1 = wf.host_link.report()
+        if any(launches.values()):
+            raise AssertionError(f"kernel launches on the host path: {launches}")
+        device_ms = {k: sum(a.elapsed_time(b) for a, b in v) / gens for k, v in spans.items()}
+        host = (ex.overlap["host_eval_s"] * 1e3 / gens if mode == "piped"
+                else statistics.fmean(host_ms))
+        per_gen = wall_ms / gens
+        turn = {
+            "mode": mode,
+            "ms_per_generation": per_gen,
+            "device_ms_per_generation": device_ms,
+            "host_eval_ms_per_generation": host,
+            # bench.py's overlap_efficiency: wall / max(device, host), with
+            # the device side the two halves' event spans
+            "overlap_efficiency": per_gen / max(sum(device_ms.values()), host),
+            "bench_bound": 1.2,  # bench.py's acceptance bound, a reference only
+            "copies": {
+                "pinned": link1["pinned"],
+                "d2h_bytes_per_generation": (link1["d2h_bytes"] - link0["d2h_bytes"]) / gens,
+                "h2d_bytes_per_generation": (link1["h2d_bytes"] - link0["h2d_bytes"]) / gens,
+                **{f"{k}_ms_per_generation": (None if link1[f"{k}_ms"] is None
+                                              else (link1[f"{k}_ms"] - link0[f"{k}_ms"]) / gens)
+                   for k in ("d2h", "h2d")},
+            },
+        }
+        if mode == "piped":
+            turn["executor"] = ex.report()
+        print(f"[host path] {json.dumps(turn)}", flush=True)
+        turns.append(turn)
+        finals[mode] = end
+    wf.pipeline_ask, wf.pipeline_tell = raw_ask, raw_tell
+    if finals["piped"].generation != warm + gens:
+        raise AssertionError(f"generation {finals['piped'].generation} != {warm + gens}")
+    compare_exact(f"host path: {gens} pipelined generations against the serialized loop",
+                  _pso_tensors(finals["piped"].algo), _pso_tensors(finals["serial"].algo))
+
+    # the run == step law on the card, whole and in ragged row slices
+    looped = state
+    for _ in range(HE_LAW_GENERATIONS):
+        looped = wf.step(looped)
+    law = {}
+    for chunk in (None, HE_EVAL_CHUNK):
+        piped = run_host_pipelined(wf, state, HE_LAW_GENERATIONS, eval_chunk=chunk)
+        law[f"eval_chunk={chunk}"] = compare_exact(
+            f"host path: {HE_LAW_GENERATIONS} pipelined generations (eval_chunk={chunk}) against "
+            f"{HE_LAW_GENERATIONS} wf.step generations", _pso_tensors(piped.algo),
+            _pso_tensors(looped.algo))
+    medians = {m: statistics.median(t["ms_per_generation"] for t in turns if t["mode"] == m)
+               for m in ("piped", "serial")}
+    out = {"pop": HE_POP, "dim": HE_DIM, "sleep_ms": HE_SLEEP * 1e3, "generations": gens,
+           "turns": turns, "median_ms_per_generation": medians, "run_equals_step": law,
+           "card_vs_cpu": phase_host_card_vs_cpu(torch, state)}
+    print(f"[host path] medians {json.dumps(medians)}", flush=True)
+    return out
+
+
+def phase_host_card_vs_cpu(torch, state) -> dict:
+    """One host-evaluated PSO generation (``wf.step``) on the card against
+    the same on the CPU: the same state, the draws made once on the CPU.
+    The candidates are the state's population, the fitness numpy's on the
+    same rows, and the update elementwise float32 on the same draws, one
+    rounding an operation on both devices: bit for bit."""
+    cpu_wf, card_wf = build_host_path(torch, device="cpu"), build_host_path(torch)
+    cpu_state = _state_on(torch, state, "cpu")
+    seed = state.algo.seed
+    from evox_tpu_torch.utils.common import split_seed
+
+    draws = cpu_wf.algorithm._draw(split_seed(seed)[1])
+    cpu_wf.algorithm._draw = lambda s: draws
+    card_wf.algorithm._draw = lambda s: tuple(d.cuda() for d in draws)
+    got, want = card_wf.step(state), cpu_wf.step(cpu_state)
+    return compare_exact("host path: one host-evaluated PSO generation, card against CPU",
+                         [t.cpu() for t in _pso_tensors(got.algo)], _pso_tensors(want.algo))
+
+
+# ----------------------------------------------------------- main path 17
+
+
+def _storage_bytes(torch, state) -> dict:
+    """The algorithm state's tensor bytes: storage-annotated and the rest."""
+    import dataclasses
+
+    out = {"storage_annotated": 0, "other": 0}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            key = "storage_annotated" if f.metadata.get("storage") else "other"
+            out[key] += v.numel() * v.element_size()
+    return out
+
+
+def check_storage_dtypes(torch, state, ref, label: str) -> None:
+    """Every storage-annotated float field of ``state`` (an algorithm state)
+    is bfloat16; every other tensor keeps ``ref``'s (the float32 run's)
+    dtype."""
+    import dataclasses
+
+    for f in dataclasses.fields(state):
+        v, r = getattr(state, f.name), getattr(ref, f.name)
+        if not isinstance(v, torch.Tensor):
+            continue
+        want = torch.bfloat16 if (f.metadata.get("storage") and r.is_floating_point()) else r.dtype
+        if v.dtype != want:
+            raise AssertionError(f"{label}: {f.name} is {v.dtype}, expected {want}")
+
+
+def phase_bf16_path(torch, seed: int = BF16_SEED, gens: int = GENERATIONS,
+                    profile: bool = False) -> dict:
+    """Main path 17: ``bench.py``'s workload 1b, CSO (±32, pop 4096, d 1024)
+    on Ackley with ``dtype_policy=BF16_STORAGE, donate_carries=True``
+    against the same CSO in float32 with ``donate_carries=True``, in turns
+    (bf16, f32, f32, bf16), each ``gens`` generations from its own state
+    after the init step and one warm-up generation. Checks the dtypes of
+    every field after ``step`` and after ``run``; reports ms a generation,
+    evaluations/s, their ratio, the carried state's bytes, peak device
+    memory, the device time of the casts (CUDA events around
+    ``apply_compute`` and ``apply_storage`` on the path's state), the best
+    fitness, and (``--profile``) each run's idle share and top kernels.
+    Then one CMA-ES step at path 5's shape under bf16: its strategy
+    parameters stay float32."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import CMAES
+    from evox_tpu_torch.core.dtype_policy import BF16_STORAGE, apply_compute, apply_storage
+    from evox_tpu_torch.problems.numerical import Rastrigin
+
+    runs = {}
+    for name, policy in (("bf16", BF16_STORAGE), ("f32", None)):
+        wf, _ = build_cso_path(torch)
+        wf = StdWorkflow(wf.algorithm, wf.problem, dtype_policy=policy, donate_carries=True)
+        runs[name] = {"wf": wf, "state": wf.step(wf.step(wf.init(seed)))}
+    f32_algo = runs["f32"]["state"].algo
+    check_storage_dtypes(torch, runs["bf16"]["state"].algo, f32_algo, "bf16 CSO after step")
+    turns = []
+    for name in ("bf16", "f32", "f32", "bf16"):
+        r = runs[name]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = r["wf"].run(r["state"], gens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(read_launches().values()):
+            raise AssertionError(f"kernel launches on the bf16 path: {read_launches()}")
+        turns.append({"policy": name, "ms_per_generation": wall / gens * 1e3,
+                      "evals_per_s": gens * CSO_POP // 2 / wall,
+                      "peak_bytes": torch.cuda.max_memory_allocated()})
+        r["end"] = end
+    check_storage_dtypes(torch, runs["bf16"]["end"].algo, runs["f32"]["end"].algo,
+                         "bf16 CSO after run")
+    for name, r in runs.items():
+        _check_swarm(torch, f"{name} CSO", r["wf"].algorithm, r["end"].algo.population.float())
+    med = {p: statistics.median(t["ms_per_generation"] for t in turns if t["policy"] == p)
+           for p in ("bf16", "f32")}
+    bf16_state = runs["bf16"]["end"]
+    wide = apply_compute(bf16_state, BF16_STORAGE).algo
+    casts = {
+        "apply_compute_ms": _time_ms(lambda: apply_compute(bf16_state, BF16_STORAGE), 2, 10),
+        "apply_storage_ms": _time_ms(lambda: apply_storage(wide, BF16_STORAGE), 2, 10),
+    }
+    out = {
+        "pop": CSO_POP, "dim": CSO_DIM, "generations": gens, "turns": turns,
+        "median_ms_per_generation": med,
+        "bf16_over_f32": med["bf16"] / med["f32"],
+        "evals_per_s": {p: gens * CSO_POP // 2 / (med[p] * gens / 1e3) for p in med},
+        "state_bytes": {p: _storage_bytes(torch, r["end"].algo) for p, r in runs.items()},
+        "peak_bytes": {p: max(t["peak_bytes"] for t in turns if t["policy"] == p) for p in med},
+        "casts_device_ms": casts,
+        "best_fitness": {p: float(r["end"].algo.fitness.float().min()) for p, r in runs.items()},
+    }
+    if profile:
+        out["profile"] = {p: profile_path(torch, r["wf"], r["end"], med[p] * gens / 1e3, gens)
+                          for p, r in runs.items()}
+    print(f"[bf16 path] {json.dumps(out)}", flush=True)
+
+    # CMA-ES under bf16 at path 5's shape: z narrow, the strategy float32
+    cma_wf = StdWorkflow(CMAES(torch.full((CMAES_DIM,), CMAES_CENTER), 1.0), Rastrigin(),
+                         dtype_policy=BF16_STORAGE)
+    cma = cma_wf.step(cma_wf.step(cma_wf.init(seed))).algo
+    kept = {name: str(getattr(cma, name).dtype) for name in ("mean", "C", "B", "D", "pc", "ps")}
+    if any(v != "torch.float32" for v in kept.values()) or cma.z.dtype != torch.bfloat16:
+        raise AssertionError(f"CMA-ES under bf16: {kept}, z {cma.z.dtype}")
+    out["cmaes_dtypes"] = {**kept, "z": str(cma.z.dtype)}
+    return out
+
+
+# ----------------------------------------------------------- main path 18
+
+
+def build_checkpoint_path(torch, pop: int = NSGA2_POP, device=None):
+    """Main path 18's workflow: path 2's configuration (NSGA-II on LSMOP1, d
+    300, m 3, ``use_kernel=True``), without path 2's recording monitor."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.problems.numerical import LSMOP1
+
+    prob = LSMOP1(d=LSMOP_D, m=LSMOP_M, device=device)
+    algo = NSGA2(*prob.bounds(), n_objs=LSMOP_M, pop_size=pop, use_kernel=True, device=device)
+    return StdWorkflow(algo, prob, device=device)
+
+
+def snapshot_split(state) -> dict:
+    """Host ms of each piece of one snapshot write of ``state``, on the
+    calling thread with nothing beside it: the copy to the host, pickle,
+    SHA-256, the attest digest, the config record, and the write with its
+    fsync."""
+    import hashlib
+    import os
+    import pickle
+    import tempfile
+
+    from evox_tpu_torch.core.state_io import host_copy
+    from evox_tpu_torch.workflows.checkpoint import attest_digest_hex, state_config
+
+    out = {}
+    t = time.perf_counter()
+    host = host_copy(state)
+    out["host_copy"] = (time.perf_counter() - t) * 1e3
+    for name, fn in (("pickle", lambda: pickle.dumps(host, protocol=pickle.HIGHEST_PROTOCOL)),
+                     ("attest_digest", lambda: attest_digest_hex(host)),
+                     ("config", lambda: state_config(host))):
+        t = time.perf_counter()
+        value = fn()
+        out[name] = (time.perf_counter() - t) * 1e3
+        if name == "pickle":
+            payload = value
+    t = time.perf_counter()
+    hashlib.sha256(payload).hexdigest()
+    out["sha256"] = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        with open(Path(d) / "snapshot", "wb") as f:
+            f.write(payload)
+            f.flush()
+            os.fsync(f.fileno())
+        out["write_fsync"] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def phase_checkpoint_path(torch, seed: int = SEED, gens: int = CKPT_GENERATIONS,
+                          every: int = CKPT_EVERY, pop: int = NSGA2_POP) -> dict:
+    """Main path 18: NSGA-II at path 2's shape for ``gens`` generations
+    from ``init`` under ``WorkflowCheckpointer(dir, every, keep=3)``, twice
+    (the two final states bit for bit: the run reproduces itself), with
+    and without the checkpointer in turns; then a crash: the newest
+    snapshot deleted and the one before it torn, ``latest()`` warns and
+    falls back one more, and with the torn snapshot restored a fresh
+    workflow's ``resume`` reaches the straight run's final state bit for
+    bit; a workflow at another population size is refused."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from evox_tpu_torch.workflows import CheckpointConfigError, WorkflowCheckpointer
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        def straight(tag):
+            wf = build_checkpoint_path(torch, pop=pop)
+            ck = WorkflowCheckpointer(root / tag, every=every, keep=3)
+            state = wf.init(seed)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            end = wf.run(state, gens, checkpointer=ck)
+            torch.cuda.synchronize()
+            return wf, ck, end, time.perf_counter() - t0, read_launches()
+
+        wf_a, ck_a, end_a, wall_a, launches = straight("a")
+        _, _, end_b, wall_b, _ = straight("b")
+        # one B3 launch a generation (the init step's sort of the parents
+        # and every tell's), one B4 launch a tell
+        want = {"fused_rollout": 0, "packed_dominance": gens, "partial_topk": gens - 1,
+                "fused_mlp_rollout": 0}
+        if launches != want:
+            raise AssertionError(f"launches in {gens} checkpointed NSGA-II generations: "
+                                 f"{launches}, expected {want}")
+        determinism = compare_exact(
+            f"checkpoint path: two straight runs of {gens} generations, final states",
+            _tensors(torch, end_b), _tensors(torch, end_a))
+        ex = wf_a._run_executor
+        saves = [s for s in ex.trace_spans() if s["track"] == "io:checkpoint"]
+        save_split = snapshot_split(end_a)
+        chunks = [s for s in ex.trace_spans() if s["track"] == "device"]
+        snaps = ck_a.snapshots()
+        if [p.name for p in snaps] != [f"ckpt_{g:08d}.pkl" for g in range(every, gens + 1, every)][-3:]:
+            raise AssertionError(f"snapshots {[p.name for p in snaps]}")
+
+        # with and without the checkpointer, in turns, from the same state
+        wf_t = build_checkpoint_path(torch, pop=pop)
+        start = wf_t.init(seed)
+        turns = []
+        for with_ckpt in (True, False, False, True):
+            ck = WorkflowCheckpointer(root / "turn", every=every, keep=3) if with_ckpt else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wf_t.run(start, gens, checkpointer=ck)
+            torch.cuda.synchronize()
+            turns.append({"checkpointer": with_ckpt,
+                          "ms_per_generation": (time.perf_counter() - t0) / gens * 1e3})
+
+        # the crash: the newest snapshot gone, the one before it torn
+        keep = root / "intact"
+        keep.mkdir()
+        g_last, g_prev = gens, gens - every
+        name_prev = f"ckpt_{g_prev:08d}.pkl"
+        for suffix in ("", ".manifest.json"):
+            shutil.copy(root / "a" / (name_prev + suffix), keep / (name_prev + suffix))
+            (root / "a" / f"ckpt_{g_last:08d}.pkl{suffix}").unlink()
+        manifest = root / "a" / (name_prev + ".manifest.json")
+        manifest.write_text(manifest.read_text()[: len(manifest.read_text()) // 2])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fallback = WorkflowCheckpointer(root / "a", every=every).latest()
+        if fallback is None or fallback.generation != gens - 2 * every or not any(
+                name_prev in str(w.message) for w in caught):
+            raise AssertionError(f"latest() after the crash: generation "
+                                 f"{getattr(fallback, 'generation', None)}, warnings "
+                                 f"{[str(w.message) for w in caught]}")
+        for suffix in ("", ".manifest.json"):
+            shutil.copy(keep / (name_prev + suffix), root / "a" / (name_prev + suffix))
+        wf_r = build_checkpoint_path(torch, pop=pop)
+        reset_launches()
+        resumed = wf_r.resume(WorkflowCheckpointer(root / "a", every=every), gens)
+        torch.cuda.synchronize()
+        resume_launches = read_launches()
+        resume_check = compare_exact(
+            f"checkpoint path: resumed from generation {g_prev} to {gens}, against the straight run",
+            _tensors(torch, resumed), _tensors(torch, end_a))
+        refused = False
+        try:
+            build_checkpoint_path(torch, pop=pop - 2).resume(
+                WorkflowCheckpointer(root / "a", every=every), gens)
+        except CheckpointConfigError as e:
+            refused = True
+            print(f"[checkpoint path] pop {pop - 2} refused: {str(e)[:120]}", flush=True)
+        if not refused:
+            raise AssertionError(f"a workflow at pop {pop - 2} restored a pop {pop} snapshot")
+        med = {k: statistics.median(t["ms_per_generation"] for t in turns
+                                    if t["checkpointer"] == (k == "with"))
+               for k in ("with", "without")}
+        out = {
+            "pop": pop, "generations": gens, "every": every, "launches": launches,
+            "ms_per_generation_straight": [wall_a / gens * 1e3, wall_b / gens * 1e3],
+            "determinism": determinism,
+            "snapshot_bytes": snaps[-1].stat().st_size,
+            "save_ms": [s["dur"] * 1e3 for s in saves],
+            "save_split_ms": save_split,
+            # host ms of each chunk's dispatch (every=10 generations); the
+            # chunks after the first follow a save whose pickle and fsync
+            # run on the background lane beside them
+            "chunk_ms": [s["dur"] * 1e3 for s in chunks],
+            "turns": turns,
+            "median_ms_per_generation": med,
+            "fallback_generation": fallback.generation,
+            "resume_launches": resume_launches,
+            "resume_equals_straight": resume_check,
+            "executor": ex.report(),
+        }
+        print(f"[checkpoint path] {json.dumps(out)}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -3968,7 +4445,10 @@ def monitor_callers(name: str, paths: dict) -> list:
                       ("BCEIBEA", "BCE-IBEA's PC selection, until=1, even generations (the "
                                   "indicator family phase)", 3 * MO_FAMILY_POP, MO_M))),
                 *({"caller": f"MaF11.pf() at m {m} (the MaF phase)", "n": maf[f"MaF11_pf_m{m}"]["n"],
-                   "m": m, "launches": maf[f"MaF11_pf_m{m}"]["launches"]} for m in (3, 5))]
+                   "m": m, "launches": maf[f"MaF11_pf_m{m}"]["launches"]} for m in (3, 5)),
+                {"caller": "NSGA-II under WorkflowCheckpointer, straight run from init (path 18)",
+                 "n": [NSGA2_POP, 2 * NSGA2_POP], "m": LSMOP_M,
+                 "launches": paths["checkpoint"]["launches"][name]}]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     shade = paths["shade"]
@@ -3986,7 +4466,10 @@ def monitor_callers(name: str, paths: dict) -> list:
              "k": jade["topk"]["k"], "launches": jade["launches"][name], "shapes": [jade["topk"]]},
             {"caller": "IslandWorkflow's migration elites, one batched launch over the islands "
                        "(path 14; the partial_topk_rows entry)", "rows": ISL_N, "n": ISL_POP, "k": 1,
-             "launches": paths["islands"]["launches"]}]
+             "launches": paths["islands"]["launches"]},
+            {"caller": "rank_crowding_truncate in NSGA-II's tell under WorkflowCheckpointer, "
+                       "straight run from init (path 18)", "n": 2 * NSGA2_POP, "k": NSGA2_POP,
+             "launches": paths["checkpoint"]["launches"][name]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -4232,6 +4715,14 @@ def main() -> int:
     paths["ipop"] = phase_ipop_path(torch, SEED)
     paths["containers"] = phase_containers(torch)
     paths["mo_islands"] = phase_mo_islands(torch, SEED)
+    # 12. main paths 16 (bench.py's workload 6: a host problem through the
+    # executor), 17 (workload 1b: bf16 storage) and 18 (checkpoint and
+    # resume on NSGA-II, B3 and B4 once a generation)
+    torch.cuda.empty_cache()
+    paths["host"] = phase_host_path(torch)
+    paths["bf16"] = phase_bf16_path(torch, profile=args.profile)
+    torch.cuda.empty_cache()
+    paths["checkpoint"] = phase_checkpoint_path(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -4277,6 +4768,9 @@ def main() -> int:
         "ipop_path": paths["ipop"],
         "containers": paths["containers"],
         "mo_islands": paths["mo_islands"],
+        "host_path": paths["host"],
+        "bf16_path": paths["bf16"],
+        "checkpoint_path": paths["checkpoint"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

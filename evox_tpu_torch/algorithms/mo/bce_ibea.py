@@ -26,7 +26,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.crossover.sbx import simulated_binary
 from ...operators.mutation.ops import polynomial
 from ...operators.selection.basic import tournament
@@ -100,15 +100,15 @@ def pc_thinning(pc_fit: torch.Tensor, mask: torch.Tensor, n_nd: torch.Tensor,
 
 
 class BCEIBEAState(PyTreeNode):
-    population: torch.Tensor  # the PC archive (the algorithm's output)
-    fitness: torch.Tensor
-    npc: torch.Tensor  # the NPC (IBEA) population
-    npc_fit: torch.Tensor
-    new_pc: torch.Tensor  # the exploration's offspring, waiting for the even phase
-    new_pc_fit: torch.Tensor
+    population: torch.Tensor = field(storage=True)  # the PC archive (the algorithm's output)
+    fitness: torch.Tensor = field(storage=True)
+    npc: torch.Tensor = field(storage=True)  # the NPC (IBEA) population
+    npc_fit: torch.Tensor = field(storage=True)
+    new_pc: torch.Tensor = field(storage=True)  # the exploration's offspring, waiting for the even phase
+    new_pc_fit: torch.Tensor = field(storage=True)
     n_nd: torch.Tensor  # 0-dim int32
     counter: int
-    offspring: torch.Tensor
+    offspring: torch.Tensor = field(storage=True)
     seed: int
 
 

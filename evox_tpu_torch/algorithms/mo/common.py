@@ -29,7 +29,7 @@ import torch
 
 from ...core.algorithm import Algorithm
 from ...core.device import DeviceLike, resolve_device
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.crossover.sbx import simulated_binary
 from ...operators.mutation.ops import polynomial
 from ...utils.common import (  # noqa: F401  (the cumsum helpers re-exported)
@@ -43,9 +43,9 @@ from ...utils.common import (  # noqa: F401  (the cumsum helpers re-exported)
 
 
 class MOState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor  # (pop, m)
-    offspring: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)  # (pop, m)
+    offspring: torch.Tensor = field(storage=True)
     seed: int
 
 

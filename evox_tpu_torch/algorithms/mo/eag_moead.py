@@ -25,7 +25,7 @@ from typing import Any, Tuple
 
 import torch
 
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.selection.non_dominate import non_dominate_indices
 from ...utils.common import generator, split_seed
 from .common import draw_variation, sbx_first_children, weighted_indices
@@ -33,13 +33,13 @@ from .moead import INF, MOEAD
 
 
 class EAGMOEADState(PyTreeNode):
-    population: torch.Tensor  # the external archive (the algorithm's output)
-    fitness: torch.Tensor
-    inner_pop: torch.Tensor  # MOEA/D's working population
-    inner_fit: torch.Tensor
+    population: torch.Tensor = field(storage=True)  # the external archive (the algorithm's output)
+    fitness: torch.Tensor = field(storage=True)
+    inner_pop: torch.Tensor = field(storage=True)  # MOEA/D's working population
+    inner_fit: torch.Tensor = field(storage=True)
     success: torch.Tensor  # (LP, n) archive admissions per subproblem
-    offspring: torch.Tensor
-    offspring_loc: torch.Tensor  # (n,) the subproblem each offspring came from
+    offspring: torch.Tensor = field(storage=True)
+    offspring_loc: torch.Tensor = field(storage=True)  # (n,) the subproblem each offspring came from
     gen: int
     seed: int
 

@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ...core.device import DeviceLike
+from ...core.struct import field
 from ...metrics.hypervolume import hypervolume_contributions
 from ...operators.selection.basic import tournament_multifit
 from ...operators.selection.non_dominate import non_dominated_sort
@@ -83,7 +84,7 @@ def exact_contrib_2d(fit: torch.Tensor, ref: torch.Tensor, rank: torch.Tensor) -
 
 class HypEState(MOState):
     ref_point: torch.Tensor  # (m,) the fixed sampling reference
-    rank: torch.Tensor  # (pop,) int32: the survivors' non-domination ranks
+    rank: torch.Tensor = field(storage=True)  # (pop,) int32: the survivors' non-domination ranks
     u_select: Optional[torch.Tensor] = None  # the next tell's Monte Carlo uniforms
 
 

@@ -27,6 +27,7 @@ from typing import Any, Tuple
 import torch
 
 from ...core.device import DeviceLike
+from ...core.struct import field
 from ...operators.selection.basic import tournament_multifit
 from ...operators.selection.non_dominate import non_dominated_sort
 from ...utils.common import pairwise_euclidean_dist, sum_last
@@ -34,8 +35,8 @@ from .common import DrawnGAMOAlgorithm, MOState
 
 
 class KnEAState(MOState):
-    knee: torch.Tensor  # (pop,) bool
-    rank: torch.Tensor  # (pop,) int32: the survivors' non-domination ranks
+    knee: torch.Tensor = field(storage=True)  # (pop,) bool
+    rank: torch.Tensor = field(storage=True)  # (pop,) int32: the survivors' non-domination ranks
     r: torch.Tensor  # 0-dim: the adaptive radius factor
     t: torch.Tensor  # 0-dim: the knee ratio of the last processed front
 

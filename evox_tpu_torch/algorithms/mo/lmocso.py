@@ -13,7 +13,7 @@ import torch
 
 from ...core.algorithm import Algorithm
 from ...core.device import DeviceLike, resolve_device
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.mutation.ops import polynomial
 from ...operators.sampling.uniform import UniformSampling
 from ...operators.selection.rvea_selection import ref_vec_guided_indices
@@ -33,9 +33,9 @@ def sde_density(fit: torch.Tensor) -> torch.Tensor:
 
 
 class LMOCSOState(PyTreeNode):
-    population: torch.Tensor
-    velocity: torch.Tensor
-    fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
     offspring: torch.Tensor
     off_velocity: torch.Tensor
     gen: int

@@ -31,7 +31,7 @@ import torch
 
 from ...core.algorithm import Algorithm
 from ...core.device import DeviceLike, resolve_device
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.sampling.uniform import UniformSampling
 from ...utils.aggregation import AggregationFunction
 from ...utils.common import float_vector, generator, inner_products, split_seed, sqrt_rn, sum_last
@@ -57,10 +57,10 @@ def neighbor_table(w: torch.Tensor, T: int, chunk_rows: int = NEIGHBOR_CHUNK_ROW
 
 
 class MOEADState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
     ideal: torch.Tensor
-    offspring: torch.Tensor
+    offspring: torch.Tensor = field(storage=True)
     seed: int
 
 

@@ -21,7 +21,7 @@ import torch
 
 from ...core.algorithm import Algorithm
 from ...core.device import DeviceLike, resolve_device
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.sampling.uniform import UniformSampling
 from ...operators.selection.non_dominate import crowding_distance, non_dominated_sort
 from ...utils.common import float_vector, generator, inner_products, row_norm, split_seed
@@ -32,12 +32,12 @@ INT32_MAX = 2**31 - 1
 
 
 class MOEADDRAState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
     ideal: torch.Tensor
-    utility: torch.Tensor
-    old_value: torch.Tensor  # each subproblem's aggregation value at the last update
-    offspring: torch.Tensor
+    utility: torch.Tensor = field(storage=True)
+    old_value: torch.Tensor = field(storage=True)  # each subproblem's aggregation value at the last update
+    offspring: torch.Tensor = field(storage=True)
     gen: int
     seed: int
 
@@ -106,9 +106,9 @@ class MOEADDRA(MOEAD):
 
 
 class MOEADM2MState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    offspring: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    offspring: torch.Tensor = field(storage=True)
     seed: int
 
 

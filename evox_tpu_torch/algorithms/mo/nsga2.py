@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from ...core.struct import field
 from ...operators.selection.basic import tournament_multifit
 from ...operators.selection.non_dominate import (
     crowding_distance,
@@ -23,8 +24,8 @@ from .common import GAMOAlgorithm, MOState
 
 
 class NSGA2State(MOState):
-    rank: torch.Tensor  # survivors' Pareto rank from the last selection, int32
-    crowd: torch.Tensor  # survivors' crowding distance over the survivors
+    rank: torch.Tensor = field(storage=True)  # survivors' Pareto rank from the last selection, int32
+    crowd: torch.Tensor = field(storage=True)  # survivors' crowding distance over the survivors
 
 
 class NSGA2(GAMOAlgorithm):

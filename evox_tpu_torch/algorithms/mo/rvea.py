@@ -14,7 +14,7 @@ from typing import Any, Tuple
 
 import torch
 
-from ...core.struct import PyTreeNode
+from ...core.struct import PyTreeNode, field
 from ...operators.crossover.sbx import simulated_binary
 from ...operators.mutation.ops import polynomial
 from ...operators.sampling.uniform import UniformSampling
@@ -23,10 +23,10 @@ from ...utils.common import generator, row_norm, split_seed
 from .common import GAMOAlgorithm, draw_variation, uniform_init, weighted_indices
 
 class RVEAState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    vectors: torch.Tensor
-    offspring: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    vectors: torch.Tensor = field(storage=True)
+    offspring: torch.Tensor = field(storage=True)
     gen: int
     seed: int
 

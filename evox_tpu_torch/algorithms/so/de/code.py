@@ -17,7 +17,7 @@ import torch
 
 from ....core.attribution import CODE_STRATEGY_TAGS, Attribution, improvement_mass, success_mask
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....operators.sanitize import sanitize_bounds, validate_bound_handling
 from ....utils.common import generator, split_seed
 from .common import DEAlgorithm, crossover_mask, greedy
@@ -28,9 +28,9 @@ PARAM_POOL = ((1.0, 0.1), (1.0, 0.9), (0.8, 0.2))
 
 
 class CoDEState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    trials: torch.Tensor  # (3 * pop, dim)
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    trials: torch.Tensor = field(storage=True)  # (3 * pop, dim)
     # the three trials a parent folded to the best one's strategy tag
     attrib: Attribution
     seed: int

@@ -16,7 +16,7 @@ import torch
 
 from ....core.attribution import Attribution, de_variant_tag, slot_attribution
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....operators.sanitize import sanitize_bounds, validate_bound_handling
 from ....utils.common import generator, split_seed
 from .common import DEAlgorithm, crossover_mask, greedy
@@ -47,9 +47,9 @@ def select_rand_indices(seed: int, pop_size: int, n: int, device: DeviceLike = N
 
 
 class DEState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    trials: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    trials: torch.Tensor = field(storage=True)
     # this generation's operator attribution (core/attribution.py)
     attrib: Attribution
     seed: int

@@ -25,7 +25,7 @@ from ....core.attribution import (
     success_mask,
 )
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....operators.sanitize import sanitize_bounds, validate_bound_handling
 from ....utils.common import generator, split_seed
 from .common import DEAlgorithm, crossover_mask, greedy, pbest_cut, update_archive
@@ -33,14 +33,14 @@ from .de import select_rand_indices
 
 
 class JaDEState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    trials: torch.Tensor
-    F: torch.Tensor  # (pop,) this generation's
-    CR: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    trials: torch.Tensor = field(storage=True)
+    F: torch.Tensor = field(storage=True)  # (pop,) this generation's
+    CR: torch.Tensor = field(storage=True)
     mu_F: torch.Tensor  # 0-dim
     mu_CR: torch.Tensor
-    archive: torch.Tensor  # (pop, dim) replaced parents
+    archive: torch.Tensor = field(storage=True)  # (pop, dim) replaced parents
     archive_size: torch.Tensor  # 0-dim int64
     attrib: Attribution
     seed: int

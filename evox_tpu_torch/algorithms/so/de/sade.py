@@ -24,7 +24,7 @@ from ....core.attribution import (
     success_mask,
 )
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....operators.sanitize import sanitize_bounds, validate_bound_handling
 from ....utils.common import generator, split_seed, weighted_indices
 from .common import DEAlgorithm, crossover_mask, greedy
@@ -34,11 +34,11 @@ N_STRATEGY = 4
 
 
 class SaDEState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    trials: torch.Tensor
-    strategy: torch.Tensor  # (pop,) the strategy chosen this generation
-    CR: torch.Tensor  # (pop,) the crossover rate drawn this generation
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    trials: torch.Tensor = field(storage=True)
+    strategy: torch.Tensor = field(storage=True)  # (pop,) the strategy chosen this generation
+    CR: torch.Tensor = field(storage=True)  # (pop,) the crossover rate drawn this generation
     probs: torch.Tensor  # (4,) strategy probabilities
     success_mem: torch.Tensor  # (LP, 4) success counts, a ring
     failure_mem: torch.Tensor

@@ -23,7 +23,7 @@ import torch
 
 from ....core.attribution import OP_DE_CUR_TO_PBEST_1, Attribution, slot_attribution, success_mask
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import generator, split_seed
 from .common import DEAlgorithm, crossover_mask, greedy, pbest_cut, update_archive
 from .de import select_rand_indices
@@ -53,15 +53,15 @@ def pbest_k(n: int) -> int:
 
 
 class SHADEState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    trials: torch.Tensor
-    F: torch.Tensor
-    CR: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    trials: torch.Tensor = field(storage=True)
+    F: torch.Tensor = field(storage=True)
+    CR: torch.Tensor = field(storage=True)
     M_F: torch.Tensor  # (H,)
     M_CR: torch.Tensor
     mem_pos: torch.Tensor  # 0-dim int64
-    archive: torch.Tensor
+    archive: torch.Tensor = field(storage=True)
     archive_size: torch.Tensor  # 0-dim int64
     attrib: Attribution
     seed: int

@@ -20,7 +20,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import clamp_step_size, standard_normal
 
@@ -32,7 +32,7 @@ class AMaLGaMState(PyTreeNode):
     c_mult: torch.Tensor
     best_fitness: torch.Tensor
     no_improvement: torch.Tensor  # int32, 0-d
-    population: torch.Tensor
+    population: torch.Tensor = field(storage=True)
     seed: int
 
 

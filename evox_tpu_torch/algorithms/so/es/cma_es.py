@@ -29,7 +29,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, generator, split_seed
 from .common import (
     bounded_sigma_step,
@@ -64,7 +64,7 @@ class CMAESState(PyTreeNode):
     C: torch.Tensor
     B: torch.Tensor
     D: torch.Tensor
-    z: torch.Tensor  # (pop, dim) standard normals of the current generation
+    z: torch.Tensor = field(storage=True)  # (pop, dim) standard normals of the current generation
     iteration: int
     seed: int
 
@@ -188,7 +188,7 @@ class SepCMAESState(PyTreeNode):
     pc: torch.Tensor
     ps: torch.Tensor
     C: torch.Tensor  # the covariance's diagonal
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     iteration: int
     seed: int
 

@@ -17,7 +17,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import clamp_step_size, standard_normal
 from .nes import nes_utilities
@@ -29,7 +29,7 @@ class CRFMNESState(PyTreeNode):
     D: torch.Tensor
     v: torch.Tensor
     ps: torch.Tensor
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     seed: int
 
 

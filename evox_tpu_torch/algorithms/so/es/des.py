@@ -12,7 +12,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import standard_normal
 
@@ -20,7 +20,7 @@ from .common import standard_normal
 class DESState(PyTreeNode):
     mean: torch.Tensor
     sigma: torch.Tensor
-    population: torch.Tensor
+    population: torch.Tensor = field(storage=True)
     seed: int
 
 

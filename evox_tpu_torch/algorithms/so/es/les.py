@@ -29,7 +29,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, generator, split_seed
 from . import les_meta
 from .common import standard_normal
@@ -73,7 +73,7 @@ class LESState(PyTreeNode):
     sigma: torch.Tensor
     path_mean: torch.Tensor  # (3, dim): evolution paths on three timescales
     path_sigma: torch.Tensor
-    population: torch.Tensor
+    population: torch.Tensor = field(storage=True)
     seed: int
 
 

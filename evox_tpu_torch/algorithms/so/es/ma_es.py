@@ -19,7 +19,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .cma_es import _default_pop_size
 from .common import (
@@ -38,7 +38,7 @@ class MAESState(PyTreeNode):
     sigma: torch.Tensor
     ps: torch.Tensor
     M: torch.Tensor
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     seed: int
 
 
@@ -115,7 +115,7 @@ class LMMAESState(PyTreeNode):
     sigma: torch.Tensor
     ps: torch.Tensor
     M: torch.Tensor  # (m, dim) direction vectors
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     iteration: int
     seed: int
 

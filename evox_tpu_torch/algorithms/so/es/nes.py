@@ -12,7 +12,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import standard_normal
 
@@ -43,7 +43,7 @@ class XNESState(PyTreeNode):
     mean: torch.Tensor
     sigma: torch.Tensor
     B: torch.Tensor  # normalised shape matrix; the full transform is sigma * B
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     seed: int
 
 
@@ -105,7 +105,7 @@ class XNES(Algorithm):
 class SeparableNESState(PyTreeNode):
     mean: torch.Tensor
     sigma: torch.Tensor  # per-dimension stdev
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     seed: int
 
 

@@ -18,7 +18,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .cma_es import _default_pop_size
 from .common import (
@@ -39,7 +39,7 @@ class RMESState(PyTreeNode):
     prev_fitness: torch.Tensor
     s: torch.Tensor  # smoothed success measure
     iteration: int
-    z: torch.Tensor  # the composed directions y of the current generation
+    z: torch.Tensor = field(storage=True)  # the composed directions y of the current generation
     seed: int
 
 

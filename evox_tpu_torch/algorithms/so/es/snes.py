@@ -12,7 +12,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import standard_normal
 from .nes import nes_utilities
@@ -21,7 +21,7 @@ from .nes import nes_utilities
 class SNESState(PyTreeNode):
     mean: torch.Tensor
     sigma: torch.Tensor
-    z: torch.Tensor
+    z: torch.Tensor = field(storage=True)
     seed: int
 
 

@@ -10,16 +10,16 @@ from typing import Tuple
 import torch
 
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import split_seed
 from .common import SwarmAlgorithm
 
 
 class CLPSOState(PyTreeNode):
-    population: torch.Tensor
-    velocity: torch.Tensor
-    pbest: torch.Tensor
-    pbest_fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
+    pbest: torch.Tensor = field(storage=True)
+    pbest_fitness: torch.Tensor = field(storage=True)
     seed: int
 
 

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import split_seed
 from .common import SwarmAlgorithm
 
@@ -42,9 +42,9 @@ class CSOPass(PyTreeNode):
 
 
 class CSOState(PyTreeNode):
-    population: torch.Tensor
-    fitness: torch.Tensor
-    velocity: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
     seed: int
     pair_seed: int = 0  # the generation seed of the last ``ask``'s draws
     pending: Optional[CSOPass] = None  # set by ``ask``, taken by ``tell``

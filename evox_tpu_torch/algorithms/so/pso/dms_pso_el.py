@@ -16,17 +16,17 @@ from typing import Tuple
 import torch
 
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import split_seed
 from .common import SwarmAlgorithm
 
 
 class DMSPSOELState(PyTreeNode):
-    population: torch.Tensor
-    velocity: torch.Tensor
-    pbest: torch.Tensor
-    pbest_fitness: torch.Tensor
-    swarm_of: torch.Tensor  # (pop,) sub-swarm id of each particle, int64
+    population: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
+    pbest: torch.Tensor = field(storage=True)
+    pbest_fitness: torch.Tensor = field(storage=True)
+    swarm_of: torch.Tensor = field(storage=True)  # (pop,) sub-swarm id of each particle, int64
     gen: int
     seed: int
 

@@ -9,16 +9,16 @@ from typing import Optional, Tuple
 import torch
 
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import SwarmAlgorithm
 
 
 class PSOState(PyTreeNode):
-    population: torch.Tensor
-    velocity: torch.Tensor
-    pbest_position: torch.Tensor
-    pbest_fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
+    pbest_position: torch.Tensor = field(storage=True)
+    pbest_fitness: torch.Tensor = field(storage=True)
     gbest_position: torch.Tensor
     gbest_fitness: torch.Tensor  # 0-d
     seed: int

@@ -15,15 +15,15 @@ from typing import Tuple
 import torch
 
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import split_seed
 from .common import SwarmAlgorithm
 
 
 class SLPSOState(PyTreeNode):
-    population: torch.Tensor
-    velocity: torch.Tensor
-    fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
+    fitness: torch.Tensor = field(storage=True)
     seed: int
 
 

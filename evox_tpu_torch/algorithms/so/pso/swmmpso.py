@@ -15,17 +15,17 @@ from typing import Optional, Tuple
 import torch
 
 from ....core.device import DeviceLike
-from ....core.struct import PyTreeNode
+from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .common import SwarmAlgorithm
 from .topology import mutate_shortcuts, neighbour_best, ring_neighbours
 
 
 class SwmmPSOState(PyTreeNode):
-    population: torch.Tensor
-    velocity: torch.Tensor
-    pbest: torch.Tensor
-    pbest_fitness: torch.Tensor
+    population: torch.Tensor = field(storage=True)
+    velocity: torch.Tensor = field(storage=True)
+    pbest: torch.Tensor = field(storage=True)
+    pbest_fitness: torch.Tensor = field(storage=True)
     adjacency: torch.Tensor  # bool (pop, pop); (0, 0) without shortcuts
     seed: int
 

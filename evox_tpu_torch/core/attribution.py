@@ -19,7 +19,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from .struct import PyTreeNode
+from .struct import PyTreeNode, field
 
 __all__ = [
     "OP_NONE",
@@ -107,7 +107,7 @@ class Attribution(PyTreeNode):
     parent_idx: torch.Tensor  # (pop,) int32
     op_tag: torch.Tensor  # (pop,) int32
     success: torch.Tensor  # (pop,) bool
-    improvement: torch.Tensor  # (pop,) float32
+    improvement: torch.Tensor = field(storage=False)  # (pop,) float32, kept at full width
 
     @staticmethod
     def empty(pop_size: int, device: torch.device) -> "Attribution":

@@ -43,7 +43,7 @@ import torch
 
 from ..utils.common import fold_in_seed, split_seed, tree_flatten, tree_map
 from .algorithm import Algorithm
-from .struct import PyTreeNode, static_field
+from .struct import PyTreeNode, field, static_field
 
 __all__ = [
     "GuardedAlgorithm",
@@ -73,7 +73,7 @@ _TRIGGER_NAMES = (
 
 class GuardedState(PyTreeNode):
     inner: Any  # the wrapped algorithm's state
-    pop: Any  # the last asked candidate batch (None before the first ask)
+    pop: Any = field(storage=True)  # the last asked candidate batch (None before the first ask)
     best_x: Any  # best-so-far candidate (None before the first tell)
     best_fitness: torch.Tensor  # 0-d float32, internal (minimize) key
     stagnation: int  # generations since best-so-far improved

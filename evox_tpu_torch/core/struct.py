@@ -3,9 +3,10 @@
 Every state object of the port is a plain frozen dataclass of tensors and
 host values with a ``.replace(**changes)`` method, as in the JAX package.
 There is no pytree registration: PyTorch runs eagerly, so nothing traces
-through a state. ``field``/``static_field`` keep only their dataclass
-defaults; the JAX package's sharding and storage metadata wait for the
-scale-out slice (ROADMAP A11).
+through a state. ``field(storage=...)`` records the mixed-precision
+annotation that :mod:`evox_tpu_torch.core.dtype_policy` reads; the JAX
+package's ``sharding`` metadata waits for the scale-out slice (ROADMAP
+A11).
 """
 
 from __future__ import annotations
@@ -15,13 +16,24 @@ from typing import Any, TypeVar
 
 _T = TypeVar("_T")
 
-__all__ = ["field", "static_field", "pytree_dataclass", "PyTreeNode", "replace"]
+__all__ = ["field", "static_field", "pytree_dataclass", "PyTreeNode", "replace", "map_tensors",
+           "named_leaves"]
 
 
-def field(*, static: bool = False, **kwargs: Any) -> dataclasses.Field:
-    """A dataclass field; ``static`` is kept as metadata only."""
+def field(*, static: bool = False, storage: Any = None, **kwargs: Any) -> dataclasses.Field:
+    """A dataclass field. ``static`` is kept as metadata only (it keeps a
+    field out of snapshots' fingerprints and digests).
+
+    ``storage``: the mixed-precision annotation. ``True`` marks the field's
+    floating-point leaves as storage-eligible: under a workflow
+    ``DtypePolicy(storage=bfloat16, compute=float32)`` they are held in
+    bfloat16 between generations and cast back to float32 at step entry.
+    ``False`` opts a field out explicitly; ``None`` (the default) is
+    ineligible. Integer, bool and seed leaves are never cast."""
     metadata = dict(kwargs.pop("metadata", {}) or {})
     metadata["static"] = static
+    if storage is not None:
+        metadata["storage"] = bool(storage)
     return dataclasses.field(metadata=metadata, **kwargs)
 
 
@@ -58,3 +70,48 @@ class PyTreeNode:
 
     def replace(self: _T, **changes: Any) -> _T:  # pragma: no cover
         raise NotImplementedError  # overwritten by pytree_dataclass
+
+
+def _is_state(obj: Any) -> bool:
+    return dataclasses.is_dataclass(obj) and not isinstance(obj, type)
+
+
+def map_tensors(fn: Any, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every tensor: states walked field by
+    field, dicts, lists and tuples walked, anything else unchanged (seeds,
+    counters, ``None``)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if _is_state(tree):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def named_leaves(tree: Any, prefix: str = "", keep_none: bool = False) -> list:
+    """``[(path, leaf)]`` of a state in ``jax.tree_util.keystr`` form: a
+    field is ``.name``, a list or tuple item ``[i]``, a dict item
+    ``['key']`` (keys sorted). Static fields are left out, as the JAX
+    package keeps them out of its pytrees, and so is ``None`` unless
+    ``keep_none``."""
+    if tree is None:
+        return [(prefix, None)] if keep_none else []
+    if _is_state(tree):
+        out = []
+        for f in dataclasses.fields(tree):
+            if not f.metadata.get("static", False):
+                out += named_leaves(getattr(tree, f.name), f"{prefix}.{f.name}", keep_none)
+        return out
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in named_leaves(tree[k], f"{prefix}[{k!r}]", keep_none)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in named_leaves(v, f"{prefix}[{i}]", keep_none)]
+    return [(prefix, tree)]

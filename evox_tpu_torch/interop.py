@@ -32,6 +32,14 @@ neighbour table, and its variants') and ``set_reference_vectors``
 (NSGA-III's, TDEA's, RVEA's, LMOCSO's unit reference directions and
 MOEA/D-M2M's subregion directions).
 
+A state the JAX package holds under ``BF16_STORAGE`` has numpy bfloat16
+leaves (ml_dtypes'). Fields carried by name (:func:`_carry_by_name`: the
+CSO and PSO-family states, the ES and DE families) keep that dtype: such a
+leaf crosses into a torch ``bfloat16`` tensor bit for bit through a
+16-bit integer view (:func:`tensor_from_numpy`), and ``numpy_fields``
+carries a ``bfloat16`` tensor back as its ``uint16`` bit pattern (view it
+as ml_dtypes' bfloat16 on the JAX side).
+
 What cannot cross: PRNG keys. JAX's threefry keys and the port's integer
 seeds for ``torch.Generator`` name unrelated streams, so the port's states
 get fresh seeds from ``seed``; a comparison that needs the same random
@@ -63,6 +71,17 @@ from .utils.common import split_seed, tree_map
 from .utils.optimizers import SGD, Adam, AdamState, ClipUp, ClipUpState
 from .workflows.islands import IslandWorkflow, IslandWorkflowState
 from .workflows.std import StdWorkflow, StdWorkflowState
+
+
+def tensor_from_numpy(array: Any) -> torch.Tensor:
+    """A copy of a numpy array as a CPU tensor, bit for bit; a bfloat16
+    array (ml_dtypes', the JAX package's) crosses through a 16-bit integer
+    view, since numpy itself has no bfloat16."""
+    arr = np.asarray(array)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 def population(array: Any, device: DeviceLike = None) -> torch.Tensor:
@@ -165,10 +184,11 @@ def _carried(ours: Any, theirs: Any, name: str, algo: Any) -> Any:
     if name == "opt_state":
         return optimizer_state(algo.optimizer, theirs, algo.device)
     if isinstance(ours, torch.Tensor):
-        theirs = np.asarray(theirs)
-        if theirs.shape != tuple(ours.shape):
-            raise ValueError(f"{name} has shape {theirs.shape}, expected {tuple(ours.shape)}")
-        return torch.from_numpy(np.array(theirs)).to(device=ours.device, dtype=ours.dtype)
+        theirs = tensor_from_numpy(theirs)
+        if tuple(theirs.shape) != tuple(ours.shape):
+            raise ValueError(f"{name} has shape {tuple(theirs.shape)}, expected {tuple(ours.shape)}")
+        dtype = torch.bfloat16 if theirs.dtype == torch.bfloat16 else ours.dtype  # a bf16 leaf stays
+        return theirs.to(device=ours.device, dtype=dtype)
     if dataclasses.is_dataclass(ours):
         return ours.replace(**{
             f.name: _carried(getattr(ours, f.name), getattr(theirs, f.name), f"{name}.{f.name}", algo)
@@ -450,9 +470,13 @@ def numpy_fields(state: Any) -> Any:
     numpy arrays, nested states as dicts, tuples and dicts walked, host
     values unchanged. What the JAX side's ``state.replace(**fields)`` takes
     (after ``jnp.asarray`` of the arrays), e.g. to hand a port
-    ``GuardedState``'s counters and best-so-far to the JAX package."""
+    ``GuardedState``'s counters and best-so-far to the JAX package. A
+    ``bfloat16`` tensor comes back as its ``uint16`` bit pattern."""
     if isinstance(state, torch.Tensor):
-        return state.detach().cpu().numpy()
+        state = state.detach().cpu()
+        if state.dtype == torch.bfloat16:
+            return state.view(torch.int16).numpy().view(np.uint16)
+        return state.numpy()
     if dataclasses.is_dataclass(state) and not isinstance(state, type):
         return {f.name: numpy_fields(getattr(state, f.name)) for f in dataclasses.fields(state)}
     if isinstance(state, dict):

@@ -1,13 +1,22 @@
 """Plumbing shared by the workflow implementations — the port of parts of
-``evox_tpu/workflows/common.py``."""
+``evox_tpu/workflows/common.py``.
+
+:class:`HostLink` and :func:`host_evaluate` are the counterpart of the
+JAX package's ``callback_evaluate``: a host problem's candidates go to the
+host as numpy, its ``evaluate`` runs there, and its fitness comes back as
+a tensor on the workflow's device.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.monitor import HOOK_NAMES, Monitor
+from ..utils.common import tree_flatten
+from ..utils.io import to_x32_if_needed
 
 
 def build_hook_table(monitors: Sequence[Monitor]) -> Dict[str, Tuple[int, ...]]:
@@ -42,21 +51,21 @@ def finish_step(
     return new_state.replace(monitors=tuple(mstates))
 
 
-def refuse_deferred(where: str, **arguments: Any) -> None:
-    """Raise for each argument given whose port waits for the scale-out
-    slice (``None`` and ``False`` mean not given)."""
+def refuse_deferred(where: str, item: str = "A11", **arguments: Any) -> None:
+    """Raise for each argument given whose port waits for ROADMAP ``item``
+    (``None`` and ``False`` mean not given)."""
     for name, value in arguments.items():
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet (ROADMAP A11)"
+                f"{where}({name}=...) is not ported yet (ROADMAP {item})"
             )
 
 
 def fused_run(wf: Any, state: Any, n_steps: int) -> Any:
     """Shared ``run()`` body: ``n_steps`` generations as a plain Python loop
     over ``wf.step``. The JAX package fuses them into one compiled
-    ``fori_loop``; capturing the loop as a CUDA graph is later work
-    (ROADMAP A2)."""
+    ``fori_loop`` (``make_run_loop``); capturing the loop as a CUDA graph
+    is later work (ROADMAP A3)."""
     for _ in range(n_steps):
         state = wf.step(state)
     return state
@@ -91,3 +100,114 @@ def quarantine_nonfinite(fitness: torch.Tensor) -> torch.Tensor:
     big = torch.full_like(worst, torch.finfo(fitness.dtype).max)
     worst = torch.where(torch.isfinite(worst), worst, big)
     return torch.where(finite, fitness, worst)
+
+
+class HostLink:
+    """Copies between a workflow's device and a host problem.
+
+    ``to_host`` copies the candidates (a tensor or a tree of them) into
+    pinned host memory without blocking and records a CUDA event after the
+    copies; the thread that evaluates waits on the event, and sees numpy
+    arrays that view the pinned memory. Each generation takes fresh blocks
+    from PyTorch's caching host allocator, which hands a block out again
+    only when nothing holds it any more and the copies recorded on it have
+    finished: a block that a copy is still writing, or that a problem
+    still reads, is never reused (in a steady loop two blocks take turns).
+    ``to_device`` coerces the fitness through ``to_x32_if_needed`` and
+    copies it to the device through a pinned block. On the CPU the
+    candidates are copied into fresh numpy arrays and no event is
+    recorded.
+
+    The bytes each way and the copies' device times (CUDA events) are
+    counted; :meth:`report` sums them up.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.counts = {"d2h": 0, "h2d": 0, "d2h_bytes": 0, "h2d_bytes": 0}
+        self._times = {"d2h": 0.0, "h2d": 0.0}
+        self._open: List[Tuple[str, Any, Any]] = []  # copies whose time is not read yet
+
+    def _event(self) -> Optional[torch.cuda.Event]:
+        if not self.pinned:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _close_timed(self, wait: bool = False) -> None:
+        still = []
+        for kind, start, end in self._open:
+            if wait:
+                end.synchronize()
+            if end.query():
+                self._times[kind] += start.elapsed_time(end)
+            else:
+                still.append((kind, start, end))
+        self._open = still
+
+    def to_host(self, cand: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
+        """``(numpy candidates, event)``; the event is ``None`` on the CPU."""
+        leaves, rebuild = tree_flatten(cand)
+        self.counts["d2h"] += 1
+        self.counts["d2h_bytes"] += sum(t.numel() * t.element_size() for t in leaves)
+        if not self.pinned:
+            return rebuild([t.detach().cpu().numpy().copy() for t in leaves]), None
+        self._close_timed()
+        start = self._event()
+        host = []
+        for t in leaves:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t.detach(), non_blocking=True)
+            host.append(buf.numpy())
+        end = self._event()
+        self._open.append(("d2h", start, end))
+        return rebuild(host), end
+
+    def to_device(self, fitness: Any) -> torch.Tensor:
+        """A host fitness (numpy, or a tensor) as a tensor on the device,
+        64-bit numpy coerced to 32 bits first."""
+        if isinstance(fitness, torch.Tensor):
+            return fitness.to(self.device)
+        host = torch.from_numpy(np.ascontiguousarray(to_x32_if_needed(np.asarray(fitness))))
+        self.counts["h2d"] += 1
+        self.counts["h2d_bytes"] += host.numel() * host.element_size()
+        if not self.pinned:
+            return host.clone()
+        start = self._event()
+        buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        buf.copy_(host)
+        out = buf.to(self.device, non_blocking=True)
+        self._open.append(("h2d", start, self._event()))
+        return out
+
+    def report(self) -> dict:
+        """Copies, bytes and device ms each way (a card waits for the copies
+        still in flight), and whether the host buffers are pinned."""
+        self._close_timed(wait=True)
+        out = {"pinned": self.pinned, **self.counts}
+        for kind in ("d2h", "h2d"):
+            out[f"{kind}_ms"] = self._times[kind] if self.pinned else None
+        return out
+
+
+def host_candidates(link: HostLink, cand: Any) -> Any:
+    """The candidates as numpy on the host, once their copy has landed."""
+    host, ready = link.to_host(cand)
+    if ready is not None:
+        ready.synchronize()
+    return host
+
+
+def host_evaluate(problem: Any, link: HostLink, pstate: Any, cand: Any,
+                  eval_chunk: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
+    """One synchronous host evaluation (``wf.step`` with a host problem):
+    candidates to the host, ``evaluate`` (in row slices of ``eval_chunk``),
+    fitness back to the device. External problems are stateless from the
+    device's side: the state passes through and any host update lives on
+    the problem object."""
+    from .pipelined import chunked_evaluate
+
+    fitness, _ = chunked_evaluate(problem, pstate, host_candidates(link, cand), eval_chunk)
+    return link.to_device(fitness), pstate

@@ -12,18 +12,23 @@ Best-so-far (point and fitness) and the cumulative restart counter carry
 across; the fresh state re-centers on the best point. Every doubling is
 recorded in the caller's workflow's ``_ipop_events``.
 
-The JAX package's crash-safe resume (``resolve_ipop_resume``, a
-checkpointer that snapshots after every doubling) waits for ROADMAP A11:
-it raises ``NotImplementedError`` here.
+Checkpointing: each segment runs under the
+:class:`~evox_tpu_torch.workflows.checkpoint.WorkflowCheckpointer` as
+usual, and the state is snapshotted right after every doubling. A resume
+(:func:`resolve_ipop_resume`) first rebuilds the workflow at the
+snapshot's population size, which ``GuardedState.pop_size`` records; a
+crash before the post-doubling snapshot lands re-runs the segment from
+the previous one and takes the same (deterministic) doubling again.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from ..core.guardrail import GuardedState, IPOPRestarts, recenter_state
 from ..utils.common import fold_in_seed
+from .checkpoint import WorkflowCheckpointer, _as_checkpointer, restore_layouts
 
 __all__ = ["grow_guarded", "ipop_run", "resolve_ipop_resume"]
 
@@ -52,10 +57,19 @@ def _require_guarded(astate: Any) -> None:
 
 
 def resolve_ipop_resume(wf: Any, policy: IPOPRestarts, state: Any, n_steps: int,
-                        resume_from: Any) -> Tuple[Any, Any, int, Any]:
-    """Resuming an IPOP run from a checkpoint waits for the checkpointer
-    (ROADMAP A11)."""
-    raise NotImplementedError("resuming an IPOP run is not ported yet (ROADMAP A11)")
+                        resume_from: Any) -> Tuple[Any, Any, int, WorkflowCheckpointer]:
+    """Restore the newest intact snapshot, on the workflow's device, and
+    rebuild the workflow at the snapshot's (possibly doubled) population
+    size. Returns ``(wf, state, remaining_steps, checkpointer)``."""
+    ckpt = _as_checkpointer(resume_from)
+    loaded = ckpt.latest()
+    if loaded is not None:
+        _require_guarded(loaded.algo)
+        snap_pop = int(loaded.algo.pop_size)
+        if snap_pop and snap_pop != int(wf.algorithm.pop_size):
+            wf = wf.clone_with_algorithm(policy.make_algorithm(snap_pop))
+        state = restore_layouts(loaded, wf.device)
+    return wf, state, max(n_steps - int(state.generation), 0), ckpt
 
 
 def _doublings_used(policy: IPOPRestarts, base_pop: int, cur_pop: int) -> int:
@@ -69,11 +83,15 @@ def ipop_run(
     state: Any,
     n_steps: int,
     policy: IPOPRestarts,
-    segment: Callable[[Any, Any, int], Any],
+    segment: Callable[[Any, Any, int, Optional[WorkflowCheckpointer]], Any],
+    checkpointer: Optional[WorkflowCheckpointer] = None,
+    resume_from: Any = None,
 ) -> Any:
-    """Drive ``segment(wf, state, chunk) -> state`` (a run of ``chunk``
-    generations) under the IPOP policy, checking at every boundary of the
-    global ``check_every`` grid."""
+    """Drive ``segment(wf, state, chunk, checkpointer) -> state`` (a run of
+    ``chunk`` generations) under the IPOP policy, checking at every
+    boundary of the global ``check_every`` grid. ``resume_from`` restores
+    the newest snapshot first (:func:`resolve_ipop_resume`) and makes
+    ``n_steps`` the total; its checkpointer stays on."""
     base_pop = int(wf.algorithm.pop_size)
     # every population the doubling schedule can reach must be buildable
     # now: a constructor's error belongs at entry, not at a boundary hours in
@@ -82,19 +100,41 @@ def ipop_run(
     # doublings are recorded on the caller's workflow (and every clone)
     events = list(getattr(wf, "_ipop_events", []))
     wf._ipop_events = events
+    if resume_from is not None:
+        wf, state, n_steps, resumed_ckpt = resolve_ipop_resume(wf, policy, state, n_steps,
+                                                               resume_from)
+        if checkpointer is None:
+            checkpointer = resumed_ckpt
+        # doublings before the crash happened in another process: one
+        # summary entry says how far the schedule got
+        snap_pop = int(state.algo.pop_size or base_pop)
+        used = _doublings_used(policy, base_pop, snap_pop)
+        if used > 0 and not events:
+            events.append({
+                "resumed": True,
+                "generation": int(state.generation),
+                "pop_size": snap_pop,
+                "doublings": used,
+                "handoff": policy.uses_handoff(snap_pop),
+                "algorithm": type(wf.algorithm.algorithm).__name__,
+            })
+        wf._ipop_events = events
     _require_guarded(state.algo)
 
+    # a resume that lands on a boundary takes that boundary's rule again
+    # before running on, so a resumed run doubles where the straight one did
     remaining = n_steps
     while remaining > 0:
         if state.generation % policy.check_every == 0:
-            wf, state = _maybe_double(wf, state, policy, base_pop)
+            wf, state = _maybe_double(wf, state, policy, base_pop, checkpointer)
         chunk = min(remaining, policy.check_every - state.generation % policy.check_every)
-        state = segment(wf, state, chunk)
+        state = segment(wf, state, chunk, checkpointer)
         remaining -= chunk
     return state
 
 
-def _maybe_double(wf: Any, state: Any, policy: IPOPRestarts, base_pop: int) -> Tuple[Any, Any]:
+def _maybe_double(wf: Any, state: Any, policy: IPOPRestarts, base_pop: int,
+                  checkpointer: Optional[WorkflowCheckpointer]) -> Tuple[Any, Any]:
     """The boundary rule: on a restart since the last check (or the
     policy's stagnation limit), rebuild the workflow at the grown
     population; else commit the baseline."""
@@ -123,4 +163,10 @@ def _maybe_double(wf: Any, state: Any, policy: IPOPRestarts, base_pop: int) -> T
     wf._ipop_events = events
     # the fresh state from the wrapper's restart stream, folded per doubling
     fresh = grow_guarded(algo2.init(fold_in_seed(algo_state.key, used)), algo_state)
-    return wf, state.replace(algo=fresh, first_step=True)
+    state = state.replace(algo=fresh, first_step=True)
+    if checkpointer is not None:
+        # the doubled state lands before anything runs on it, so a resume
+        # rebuilds from GuardedState.pop_size (it replaces the segment's
+        # snapshot of the same generation)
+        checkpointer.save(state)
+    return wf, state

@@ -24,9 +24,9 @@ fitness)`` states; PSO and the GA-skeleton MOEAs override it).
 - Whether a generation migrates is decided on the host's generation
   counter (the JAX package's ``lax.cond`` on a device counter).
 
-The JAX package's ``mesh``, ``external_problem``, ``dtype_policy``,
+The JAX package's ``external_problem``, ``dtype_policy``,
 ``donate_carries`` and ``run``'s ``checkpointer``/``resume_from`` wait for
-ROADMAP A11, ``analysis_targets`` for A12: each raises
+ROADMAP A5, ``mesh`` for A11, ``analysis_targets`` for A12: each raises
 ``NotImplementedError``. Its ``use_topk_kernel`` and ``topk_interpret``
 have no counterpart: the tensor's device chooses, as in B4's wrapper.
 """
@@ -120,8 +120,9 @@ class IslandWorkflow:
                 "fit_transforms cannot be combined with island migration: "
                 "migrants carry raw fitness while tell stores shaped values"
             )
-        refuse_deferred("IslandWorkflow", mesh=mesh, external_problem=external_problem,
-                         dtype_policy=dtype_policy, donate_carries=donate_carries)
+        refuse_deferred("IslandWorkflow", mesh=mesh)
+        refuse_deferred("IslandWorkflow", item="A5", external_problem=external_problem,
+                        dtype_policy=dtype_policy, donate_carries=donate_carries)
         self.device = resolve_device(device)
         for part in (algorithm, problem):
             dev = getattr(part, "device", None)
@@ -159,7 +160,8 @@ class IslandWorkflow:
     def run(self, state: IslandWorkflowState, n_steps: int, checkpointer: Any = None,
             resume_from: Any = None) -> IslandWorkflowState:
         """Run ``n_steps`` generations (a Python loop over ``step``)."""
-        refuse_deferred("IslandWorkflow.run", checkpointer=checkpointer, resume_from=resume_from)
+        refuse_deferred("IslandWorkflow.run", item="A5", checkpointer=checkpointer,
+                        resume_from=resume_from)
         return fused_run(self, state, n_steps)
 
     def analysis_targets(self, state: IslandWorkflowState) -> dict:

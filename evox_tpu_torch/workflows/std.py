@@ -4,10 +4,23 @@ One generation is ask → pop transforms → evaluate → direction flip →
 (quarantine) → fit transforms → tell, with the 8 monitor hooks in the same
 order as the JAX package. PyTorch runs eagerly, so ``step`` is a plain call
 and ``run`` a Python loop over it (a CUDA graph over the loop is later work,
-ROADMAP A2). ``run(restarts=IPOPRestarts(...))`` adds IPOP's population
-doubling between segments (``workflows/ipop.py``). The JAX package's mesh,
-host-callback, migration, dtype-policy, donation and checkpoint arguments
-wait for ROADMAP A11: passing one raises ``NotImplementedError``.
+ROADMAP A3).
+
+- A host problem (``jittable = False``, or ``external_problem=True``) is
+  evaluated on the host: ``step`` copies the candidates there and the
+  fitness back synchronously (``workflows/common.py``'s ``HostLink``), and
+  ``run`` goes through ``run_host_pipelined``. ``step`` is
+  ``pipeline_ask``, the evaluation and ``pipeline_tell``, so the pipelined
+  run shares its hooks and their order.
+- ``run(checkpointer=, resume_from=)`` snapshots between chunks and resumes
+  (``workflows/checkpoint.py``); ``resume`` continues a crashed run.
+- ``dtype_policy`` holds storage-annotated leaves in bfloat16 between
+  generations (``core/dtype_policy.py``).
+- ``run(restarts=IPOPRestarts(...))`` adds IPOP's population doubling
+  between segments (``workflows/ipop.py``).
+
+The JAX package's ``mesh``, ``eval_shard_map`` and ``migrate_helper`` wait
+for ROADMAP A11: passing one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,14 +31,18 @@ import torch
 
 from ..core.algorithm import Algorithm
 from ..core.device import DeviceLike, resolve_device
+from ..core.dtype_policy import DtypePolicy, apply_compute, apply_storage
 from ..core.monitor import Monitor
 from ..core.problem import Problem
 from ..core.struct import PyTreeNode, static_field
 from ..utils.common import parse_opt_direction, split_seed
+from .checkpoint import WorkflowCheckpointer, checkpointed_run, enter_run, restore_layouts
 from .common import (
+    HostLink,
     build_hook_table,
     finish_step,
     fused_run,
+    host_evaluate,
     ingest_fitness,
     quarantine_nonfinite,
     refuse_deferred,
@@ -59,6 +76,20 @@ class StdWorkflow:
             monitors' ``post_eval`` still sees the raw fitness.
         device: where the direction vector lives; ``None`` means ``"cuda"``.
             An algorithm or problem that names another device is refused.
+        external_problem: evaluate on the host (numpy in, numpy out);
+            defaults to ``not problem.jittable``.
+        dtype_policy: an optional :class:`~evox_tpu_torch.core.dtype_policy.
+            DtypePolicy` (e.g. ``BF16_STORAGE``): ``field(storage=True)``
+            float leaves are held in the storage dtype between generations
+            and cast to the compute dtype at step entry. ``None`` changes
+            nothing. Checkpoints hold the storage-dtype leaves, and the
+            config guard refuses a restore under another policy.
+        donate_carries: accepted for the JAX package's signature and
+            changes nothing. Donation there lets XLA reuse the carried
+            state's buffers instead of copying the state at every dispatch;
+            eager PyTorch makes no such copy, so there is nothing to remove.
+            A CUDA graph over ``run`` (ROADMAP A3) is where it would act.
+            ``run`` never changes the caller's state in place.
     """
 
     def __init__(
@@ -78,20 +109,14 @@ class StdWorkflow:
         dtype_policy: Any = None,
         donate_carries: bool = False,
     ):
-        self._ctor_args = dict(
-            problem=problem, monitors=monitors, opt_direction=opt_direction,
-            pop_transforms=pop_transforms, fit_transforms=fit_transforms,
-            quarantine_nonfinite=quarantine_nonfinite, device=device,
-        )
         refuse_deferred(
             "StdWorkflow",
             mesh=mesh,
-            external_problem=external_problem,
             eval_shard_map=eval_shard_map,
             migrate_helper=migrate_helper,
-            dtype_policy=dtype_policy,
-            donate_carries=donate_carries,
         )
+        if dtype_policy is not None and not isinstance(dtype_policy, DtypePolicy):
+            raise TypeError(f"dtype_policy must be a DtypePolicy, got {type(dtype_policy).__name__}")
         self.device = resolve_device(device)
         for part in (algorithm, problem):
             dev = getattr(part, "device", None)
@@ -107,6 +132,18 @@ class StdWorkflow:
         self.pop_transforms = tuple(pop_transforms)
         self.fit_transforms = tuple(fit_transforms)
         self.quarantine_nonfinite = quarantine_nonfinite
+        self.external = (not getattr(problem, "jittable", True)) if external_problem is None \
+            else bool(external_problem)
+        self.host_link = HostLink(self.device) if self.external else None
+        self.dtype_policy = dtype_policy
+        self.donate_carries = bool(donate_carries)
+        self._ctor_args = dict(
+            problem=problem, monitors=self.monitors, opt_direction=opt_direction,
+            pop_transforms=self.pop_transforms, fit_transforms=self.fit_transforms,
+            quarantine_nonfinite=quarantine_nonfinite, device=device,
+            external_problem=self.external, dtype_policy=dtype_policy,
+            donate_carries=donate_carries,
+        )
         for m in self.monitors:
             m.set_opt_direction(self.opt_direction)
         self._hook_table = build_hook_table(self.monitors)
@@ -120,13 +157,16 @@ class StdWorkflow:
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> StdWorkflowState:
         seeds = split_seed(seed, 2 + len(self.monitors))
-        return StdWorkflowState(
+        state = StdWorkflowState(
             generation=0,
             algo=self.algorithm.init(seeds[0]),
             prob=self.problem.init(seeds[1]),
             monitors=tuple(m.init(s) for m, s in zip(self.monitors, seeds[2:])),
             first_step=True,
         )
+        # storage-annotated leaves rest in the storage dtype from the first
+        # state on
+        return apply_storage(state, self.dtype_policy)
 
     # ------------------------------------------------------------------ step
     def step(self, state: StdWorkflowState) -> StdWorkflowState:
@@ -136,41 +176,137 @@ class StdWorkflow:
         self,
         state: StdWorkflowState,
         n_steps: int,
-        checkpointer: Any = None,
+        checkpointer: Optional[WorkflowCheckpointer] = None,
         resume_from: Any = None,
         restarts: Any = None,
     ) -> StdWorkflowState:
         """Run ``n_steps`` generations (a Python loop over ``step``).
+
+        A host problem runs through the executor's host pipeline
+        (``run_host_pipelined``: equal to a ``step`` loop bit for bit); call
+        it directly for ``on_generation`` and ``eval_chunk``.
+
+        ``checkpointer=`` runs in chunks that end on its cadence and
+        snapshots between them (the final state identical to the unchunked
+        run's). ``resume_from=`` (a :class:`WorkflowCheckpointer` or a
+        directory) restores the newest intact snapshot first; ``n_steps``
+        then counts total generations, so a crashed run called again with
+        the same arguments finishes the straight run.
 
         ``restarts=`` (an :class:`~evox_tpu_torch.core.guardrail.IPOPRestarts`;
         the algorithm must be a ``GuardedAlgorithm``) adds IPOP's population
         doubling: the run goes in segments on the policy's ``check_every``
         grid, the guarded state's counters are read between segments, and a
         restart since the last check rebuilds the workflow around a doubled
-        population, best-so-far carried across (``workflows/ipop.py``).
-        ``checkpointer=`` and ``resume_from=`` wait for ROADMAP A11.
+        population, best-so-far carried across (``workflows/ipop.py``). It
+        composes with ``checkpointer``/``resume_from``: a resumed run first
+        rebuilds the snapshot's population size.
         """
-        refuse_deferred(
-            "StdWorkflow.run",
-            checkpointer=checkpointer,
-            resume_from=resume_from,
-        )
         if restarts is not None:
+            if self.external:
+                from .pipelined import run_host_pipelined
+
+                return run_host_pipelined(self, state, n_steps, checkpointer=checkpointer,
+                                          resume_from=resume_from, restarts=restarts)
             from .ipop import ipop_run
 
-            return ipop_run(self, state, n_steps, restarts, segment=fused_run)
+            return ipop_run(
+                self, state, n_steps, restarts,
+                segment=lambda w, s, c, ck: (checkpointed_run(w, s, c, ck) if ck is not None
+                                             else fused_run(w, s, c)),
+                checkpointer=checkpointer,
+                resume_from=resume_from,
+            )
+        state, n_steps, checkpointer = enter_run(state, n_steps, checkpointer, resume_from,
+                                                 expect_like=state, device=self.device)
+        if self.external:
+            from .pipelined import run_host_pipelined
+
+            return run_host_pipelined(self, state, n_steps, checkpointer=checkpointer)
+        if checkpointer is not None:
+            return checkpointed_run(self, state, n_steps, checkpointer)
         return fused_run(self, state, n_steps)
 
-    def _dispatch_ask(self, state: StdWorkflowState) -> Tuple[bool, Any, Any]:
-        """First-step-aware ask: ``(use_init, pop, astate)``."""
-        use_init = state.first_step and (
+    def resume(
+        self,
+        checkpointer: WorkflowCheckpointer,
+        n_steps: int,
+        fallback_state: Optional[StdWorkflowState] = None,
+        state_sharding: Any = None,
+        allow_config_mismatch: bool = False,
+    ) -> StdWorkflowState:
+        """Continue an interrupted checkpointed run to ``n_steps`` total
+        generations: restore ``checkpointer``'s newest intact snapshot on
+        this workflow's device (or start from ``fallback_state``, e.g. a
+        fresh ``wf.init(seed)``, when there is none) and run the rest with
+        checkpointing on. A snapshot written under another algorithm,
+        population size or monitor set raises
+        :class:`~evox_tpu_torch.workflows.checkpoint.CheckpointConfigError`
+        unless ``allow_config_mismatch=True`` (the guard's reference is
+        ``fallback_state``, else ``init(0)``). ``state_sharding`` waits for
+        ROADMAP A11."""
+        refuse_deferred("StdWorkflow.resume", state_sharding=state_sharding)
+        expect_like = fallback_state if fallback_state is not None else self.init(0)
+        state = checkpointer.latest(expect_like=expect_like,
+                                    allow_config_mismatch=allow_config_mismatch)
+        if state is None:
+            if fallback_state is None:
+                raise FileNotFoundError(
+                    f"no usable checkpoint under {checkpointer.directory}; "
+                    "pass fallback_state=wf.init(seed) to start fresh"
+                )
+            state = fallback_state
+        else:
+            state = restore_layouts(state, self.device)
+        return self.run(state, max(n_steps - int(state.generation), 0),
+                        checkpointer=checkpointer)
+
+    def _use_init(self, state: StdWorkflowState) -> bool:
+        return state.first_step and (
             self.algorithm.has_init_ask or self.algorithm.has_init_tell
         )
-        if use_init:
-            pop, astate = self.algorithm.init_ask(state.algo)
+
+    def _dispatch_ask(self, state: StdWorkflowState) -> Tuple[Any, Any]:
+        """First-step-aware ask: ``(pop, astate)``; the one dispatch point
+        of the step and the sample/validate previews."""
+        if self._use_init(state):
+            return self.algorithm.init_ask(state.algo)
+        return self.algorithm.ask(state.algo)
+
+    def _ask_preview(self, state: StdWorkflowState) -> Any:
+        # previews see the compute-dtype view the step itself asks on
+        return self._dispatch_ask(apply_compute(state, self.dtype_policy))[0]
+
+    def sample(self, state: StdWorkflowState) -> Any:
+        """The population the algorithm would propose next, without
+        advancing the workflow."""
+        return self._ask_preview(state)
+
+    def validate(
+        self,
+        state: StdWorkflowState,
+        problem: Optional[Problem] = None,
+        seed: Optional[int] = None,
+        problem_state: Any = None,
+    ) -> torch.Tensor:
+        """Score the current population on ``problem`` without ``tell``:
+        ask, transform, evaluate; no state advances and the fitness is not
+        sign-flipped. ``problem`` defaults to the training problem; a
+        validation problem's state is ``problem_state`` when given, else
+        ``problem.init(seed)``."""
+        problem = problem if problem is not None else self.problem
+        cand = self._ask_preview(state)
+        for t in self.pop_transforms:
+            cand = t(cand)
+        if problem_state is not None and problem is self.problem:
+            raise ValueError("problem_state is only meaningful with an explicit validation problem")
+        if problem is self.problem:
+            fitness, _ = self._evaluate(state.prob, cand)
         else:
-            pop, astate = self.algorithm.ask(state.algo)
-        return use_init, pop, astate
+            pstate = problem_state if problem_state is not None else (
+                problem.init(seed) if seed is not None else problem.init())
+            fitness, _ = problem.evaluate(pstate, cand)
+        return fitness
 
     def _run_hooks(self, name: str, mstates: list, *args: Any) -> None:
         run_hooks(self.monitors, self._hook_table, name, mstates, *args)
@@ -181,30 +317,49 @@ class StdWorkflow:
         return fitness * self.opt_direction
 
     def _evaluate(self, pstate: Any, cand: Any) -> Tuple[torch.Tensor, Any]:
+        if self.external:
+            return host_evaluate(self.problem, self.host_link, pstate, cand)
         return self.problem.evaluate(pstate, cand)
 
-    def _step_impl(self, state: StdWorkflowState) -> StdWorkflowState:
+    # ----------------------------------------------- pipelined step halves
+    # The step split at the evaluation. ``step`` runs the two halves around
+    # ``_evaluate``; run_host_pipelined runs them around its host
+    # evaluation. One code path, so a pipelined run gives a wf.step loop's
+    # states bit for bit.
+
+    def pipeline_ask(self, state: StdWorkflowState) -> Tuple[Any, Any]:
+        """``(candidates, ctx)``: everything before the evaluation."""
+        # storage -> compute at step entry: every reduction of the step runs
+        # in the compute dtype
+        state = apply_compute(state, self.dtype_policy)
         mstates = list(state.monitors)
         self._run_hooks("pre_step", mstates)
         self._run_hooks("pre_ask", mstates)
-
-        use_init, pop, astate = self._dispatch_ask(state)
+        pop, astate = self._dispatch_ask(state)
         self._run_hooks("post_ask", mstates, pop)
-
         cand = pop
         for t in self.pop_transforms:
             cand = t(cand)
-
         self._run_hooks("pre_eval", mstates, cand)
-        fitness, pstate = self._evaluate(state.prob, cand)
-        self._run_hooks("post_eval", mstates, cand, fitness)
+        return cand, (astate, tuple(mstates), cand)
 
+    def pipeline_tell(self, state: StdWorkflowState, ctx: Any, fitness: Any,
+                      pstate: Any) -> StdWorkflowState:
+        """Everything after the evaluation: takes ``pipeline_ask``'s ctx and
+        the (fitness, problem state) of the evaluation; a numpy fitness is
+        coerced to 32 bits and copied to the device."""
+        astate, mstates_t, cand = ctx
+        mstates = list(mstates_t)
+        if not isinstance(fitness, torch.Tensor):
+            fitness = self.host_link.to_device(fitness)
+        self._run_hooks("post_eval", mstates, cand, fitness)
         fitness = self._flip(fitness)
         if self.quarantine_nonfinite:
             fitness = quarantine_nonfinite(fitness)
-        astate = ingest_fitness(self, astate, mstates, fitness, use_init)
+        astate = ingest_fitness(self, astate, mstates, fitness, self._use_init(state))
+        # the carried algorithm state leaves the step at storage width
+        astate = apply_storage(astate, self.dtype_policy)
         self._run_hooks("post_tell", mstates)
-
         new_state = state.replace(
             generation=state.generation + 1,
             algo=astate,
@@ -213,3 +368,8 @@ class StdWorkflow:
             first_step=False,
         )
         return finish_step(self.monitors, self._hook_table, new_state)
+
+    def _step_impl(self, state: StdWorkflowState) -> StdWorkflowState:
+        cand, ctx = self.pipeline_ask(state)
+        fitness, pstate = self._evaluate(state.prob, cand)
+        return self.pipeline_tell(state, ctx, fitness, pstate)

@@ -350,11 +350,12 @@ def test_ipop_doubling_schedule_matches_jax():
     assert t_rest == j_rest == [45, 32, 8, 7, 2.0]  # sigma: the handoff track's init_stdev
 
 
-def test_ipop_host_rules_and_refusals():
+def test_ipop_host_rules_and_refusals(tmp_path):
     """The policy's own stagnation limit escalates without a restart
     (to the budget, then only the baseline moves); the schedule is built
-    eagerly at entry; ``run(restarts=)`` needs a GuardedAlgorithm; the
-    checkpointer and resume wait for ROADMAP A11."""
+    eagerly at entry; ``run(restarts=)`` needs a GuardedAlgorithm; a resume
+    from a directory without a snapshot keeps the given state (the resume
+    law itself: tests/test_torch_checkpoint.py)."""
     make, _ = _ipop_factories(False)
     guard_off = lambda pop: tg.GuardedAlgorithm(  # noqa: E731
         tcma.CMAES(np.full(DIM, 3.0), 1.0, pop_size=pop, device="cpu"), stagnation_limit=10_000)
@@ -390,11 +391,10 @@ def test_ipop_host_rules_and_refusals():
     for bad in ({"max_restarts": -1}, {"growth": 1}, {"check_every": 0}, {"handoff_pop": 8}):
         with pytest.raises(ValueError):
             tg.IPOPRestarts(make, **bad)
-    wf = StdWorkflow(make(8), _Plateau(), device="cpu")
-    for arg in ("checkpointer", "resume_from"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            wf.run(wf.init(0), 5, restarts=tg.IPOPRestarts(make), **{arg: "ckpt"})
-    with pytest.raises(NotImplementedError, match="A11"):
-        from evox_tpu_torch.workflows.ipop import resolve_ipop_resume
+    from evox_tpu_torch.workflows.ipop import resolve_ipop_resume
 
-        resolve_ipop_resume(wf, tg.IPOPRestarts(make), None, 5, "ckpt")
+    wf = StdWorkflow(make(8), _Plateau(), device="cpu")
+    state = wf.init(0)
+    got_wf, got, remaining, ckpt = resolve_ipop_resume(wf, tg.IPOPRestarts(make), state, 5,
+                                                       str(tmp_path / "none"))
+    assert (got_wf, got, remaining) == (wf, state, 5) and ckpt.snapshots() == []

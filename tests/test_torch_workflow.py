@@ -224,6 +224,22 @@ def test_entry_points_refuse_a_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StdWorkflow(cso, ZDT1(n_dim=3, device="cpu"), monitors=[mon])
     assert mon.post_eval(mon.init(), torch.zeros(4, 3), torch.rand(4)).topk_fitness.shape == (1,)
+    # the run machinery's entry points: a host problem's workflow, and the
+    # placement of a restored snapshot
+    from evox_tpu_torch.workflows.checkpoint import restore_layouts
+
+    class HostProblem(Problem):
+        jittable = False
+
+        def evaluate(self, state, pop):
+            return np.sum(pop**2, axis=1), state
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StdWorkflow(cso, HostProblem())
+    snapshot = StdWorkflow(cso, HostProblem(), device="cpu").init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        restore_layouts(snapshot)
+    assert restore_layouts(snapshot, "cpu").algo.population.device.type == "cpu"
 
 
 def test_deferred_arguments_raise():
@@ -231,15 +247,23 @@ def test_deferred_arguments_raise():
     apply, dim = flat_mlp_policy(3, 16, 1)
     algo = OpenES(torch.zeros(dim), 4, device="cpu")
     prob = PolicyRolloutProblem(apply, soa.base, fused_env=soa, device="cpu")
-    for kwargs in ({"mesh": object()}, {"external_problem": True}, {"eval_shard_map": True},
-                   {"migrate_helper": lambda: None}, {"dtype_policy": object()},
-                   {"donate_carries": True}):
+    for kwargs in ({"mesh": object()}, {"eval_shard_map": True},
+                   {"migrate_helper": lambda: None}):
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             StdWorkflow(algo, prob, device="cpu", **kwargs)
     wf = StdWorkflow(algo, prob, device="cpu")
-    for kwargs in ({"checkpointer": object()}, {"resume_from": "dir"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            wf.run(wf.init(0), 1, **kwargs)
+    # ported since: external_problem, dtype_policy, donate_carries, and
+    # run's checkpointer/resume_from (tests/test_torch_checkpoint.py,
+    # test_torch_pipelined.py, test_torch_dtype_policy.py)
+    from evox_tpu_torch.core.dtype_policy import BF16_STORAGE
+
+    for kwargs in ({"external_problem": True}, {"dtype_policy": BF16_STORAGE},
+                   {"donate_carries": True}):
+        assert StdWorkflow(algo, prob, device="cpu", **kwargs).init(0).generation == 0
+    with pytest.raises(TypeError, match="DtypePolicy"):
+        StdWorkflow(algo, prob, device="cpu", dtype_policy=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        wf.resume(object(), 1, state_sharding=object())
     # ported since: restarts= (IPOP), which needs a GuardedAlgorithm
     from evox_tpu_torch import GuardedAlgorithm, IPOPRestarts
 
