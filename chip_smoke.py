@@ -269,9 +269,42 @@ exit 0):
    and the gen-20 manifest torn, ``latest()`` falls back to gen 10 with a
    warning; with gen 20 restored, a fresh workflow's ``resume`` equals the
    straight run bit for bit; a workflow at pop 9998 is refused.
-20. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
+20. main path 19: ``bench.py:904-1059``'s workload 8,
+   ``SurrogateWorkflow(PSO(±5, pop 64, d 8), _SleepySphere(),
+   surrogate=GPSurrogate(), screen_frac=0.125, warmup=64, refit_every=1,
+   rank_floor=0.3, monitors=(TelemetryMonitor(capacity=4),))`` (a numpy
+   ``sum(x²)`` after a 2 ms sleep a row, seed 31; archive 256) and its
+   full-evaluation twin ``StdWorkflow`` on the same PSO, problem and
+   monitor, from the state after 3 warm generations, ``run`` (the
+   executor's host pipeline) in turns (screened, full, full, screened; 8
+   generations each): ms a generation and their ratio, the problem's rows
+   against the ledger (equal; 8 a screened generation), the executor's
+   ``bg_refit`` (one a generation) and each refit's CUDA-event ms, host
+   copies a generation (``--profile``), ``surrogate_report`` and
+   ``TelemetryMonitor.report`` as strict-JSON lines; the sleep-free ledger
+   at pop 128 (seed 3, runs of 2 to a best under 1e-2, at most 120
+   generations): generations, true evaluations and their ratio, the JAX
+   test's ≥ 5× printed beside it; one screened generation on the card
+   against the CPU on the same draws (the row count and the screened rows
+   in order equal, archive and PSO state bit for bit, the refitted GP's
+   scales within 1e-3 and its posterior within 1e-2). The GP phase:
+   ``GPSurrogate`` at its bound (capacity 2048, d 64, 1536 live rows) on
+   the card against the CPU (mean and deviation at 512 points within
+   1e-2, Spearman of the two orders), fit and predict by CUDA events with
+   their kernels; ``EnsembleSurrogate.fit`` on that archive (ms and kernel
+   launches a refit); path 19's screened side with ``EnsembleSurrogate()``
+   for 10 generations. Main path 20: ``StdWorkflow(IMMOEA(zeros(12),
+   ones(12), n_objs=3, pop_size=1000), DTLZ2(d=12, m=3))`` (3 clusters of
+   333: pop 999) driven as path 7, one ``packed_dominance`` launch a
+   generation (n 1998) and no other; IGD, the hypervolume, a split (the
+   clusters, the batched GP fits, sampling, mutation, DTLZ2, tell, B3,
+   the sort to the cut, ``non_dominate``), the GP fit's kernels; B3 at the
+   merged fitness against its plain version; one ask on the card against
+   the CPU on CPU-made draws (offspring within 2e-3, mean 1e-4) and one
+   tell (population and fitness bit for bit).
+21. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
    paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13, B3
-   and B4 on path 18 too, B4 batched on path 14 as
+   and B4 on path 18 too, B3 on path 20, B4 batched on path 14 as
    ``partial_topk_rows``), then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -380,6 +413,28 @@ HE_LAW_GENERATIONS, HE_EVAL_CHUNK = 10, 500
 BF16_SEED = 42
 # main path 18: path 2's NSGA-II for 30 generations, a snapshot every 10
 CKPT_GENERATIONS, CKPT_EVERY = 30, 10
+# main path 19: bench.py:904-1059's workload 8, PSO (±5, pop 64, d 8) on a
+# host Sphere that sleeps 2 ms a row it scores, screened by GPSurrogate at
+# 1/8 (8 rows a screened generation), seed 31, 3 warm generations, turns of
+# 8; the ledger sleep-free at pop 128, seed 3, to a best under 1e-2 in runs
+# of 2 up to 120 generations; the ensemble on path 19 for 10 generations
+SUR_POP, SUR_DIM, SUR_SLEEP, SUR_FRAC, SUR_SEED, SUR_WARM, SUR_TURN = 64, 8, 0.002, 0.125, 31, 3, 8
+SUR_LEDGER_POP, SUR_LEDGER_SEED, SUR_THRESHOLD, SUR_MAX_GENS = 128, 3, 1e-2, 120
+SUR_ENSEMBLE_GENERATIONS = 10
+# the refitted GP on the card against the CPU: its scales are plain sums in
+# each device's order (1e-3); its posterior is K^-1 y through a float32
+# Cholesky with a noise floor of 1e-4 of the amplitude, so K's condition
+# number reaches ~1e4, the solve's relative error ~1e4 x 6e-8, and the mean
+# sum(Ks * alpha) cancels terms up to ~10x its value: 1e-2
+SUR_GP_RTOL, SUR_POSTERIOR_RTOL = 1e-3, 1e-2
+# the GP phase: GPSurrogate at its bound, capacity 2048 and d 64, 1536 live
+# rows, predictions at 512 new points (the posterior's tolerance as above)
+GP_CAP, GP_DIM, GP_FILL, GP_TEST = 2048, 64, 1536, 512
+# main path 20: IM-MOEA on DTLZ2 (d 12, m 3; pop 1000 requested: 3 clusters
+# of 333, 36 inverse GPs of 333 points a generation); the card's ask against
+# the CPU's on the same draws: GP samples after 10 adam steps a model
+IMM_D, IMM_POP = 12, 1000
+IMM_OFFSPRING_ATOL, IMM_OFFSPRING_MEAN_ATOL = 2e-3, 1e-4
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # main path 12: path 1's shape (OpenES, pop 65536, 2 episodes, flat 1-hidden
@@ -4409,6 +4464,488 @@ def phase_checkpoint_path(torch, seed: int = SEED, gens: int = CKPT_GENERATIONS,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------------------- main path 19
+
+
+class SleepySphere:
+    """``bench.py:925-949``'s ``_SleepySphere``: a numpy float32 Sphere that
+    sleeps ``sleep_per_row`` seconds a row it evaluates (the cost of an
+    expensive problem grows with the rows it truly scores) and counts the
+    rows; duck-typed, as a user's host problem is."""
+
+    jittable = False
+    fit_dtype = "float32"
+
+    def __init__(self, sleep_per_row: float = SUR_SLEEP):
+        self.sleep_per_row = sleep_per_row
+        self.rows = 0
+
+    def init(self, seed=None):
+        return None
+
+    def fit_shape(self, pop_size):
+        return (pop_size,)
+
+    def evaluate(self, state, pop):
+        import numpy as np
+
+        pop = np.asarray(pop)
+        self.rows += pop.shape[0]
+        if self.sleep_per_row:
+            time.sleep(self.sleep_per_row * pop.shape[0])
+        return np.sum(pop**2, axis=1).astype(np.float32), state
+
+
+def build_surrogate_path(torch, pop: int = SUR_POP, dim: int = SUR_DIM, sleep: float = SUR_SLEEP,
+                         surrogate=None, device=None):
+    """Main path 19 as ``bench.py:952-975`` builds it: ``SurrogateWorkflow``
+    (PSO ±5 on the sleepy Sphere, ``GPSurrogate``, screen_frac 1/8, warmup
+    one population, a refit every generation, rank floor 0.3,
+    ``TelemetryMonitor(capacity=4)``)."""
+    from evox_tpu_torch import SurrogateWorkflow
+    from evox_tpu_torch.algorithms.so.pso import PSO
+    from evox_tpu_torch.monitors import TelemetryMonitor
+    from evox_tpu_torch.operators.surrogate import GPSurrogate
+
+    bound = torch.full((dim,), 5.0)
+    return SurrogateWorkflow(
+        PSO(lb=-bound, ub=bound, pop_size=pop, device=device), SleepySphere(sleep),
+        surrogate=surrogate if surrogate is not None else GPSurrogate(device=device),
+        screen_frac=SUR_FRAC, warmup=pop, refit_every=1, rank_floor=0.3,
+        monitors=(TelemetryMonitor(capacity=4, device=device),), device=device)
+
+
+def full_twin(wf):
+    """The full-evaluation twin of a screened workflow: ``StdWorkflow`` on
+    the same PSO, problem and monitor objects."""
+    from evox_tpu_torch import StdWorkflow
+
+    return StdWorkflow(wf.algorithm, wf.problem, monitors=wf.monitors, device=wf.device)
+
+
+def catch_refits(torch, wf) -> list:
+    """Wrap ``wf.dispatch_refit`` (the executor calls it through the
+    instance) with CUDA events; the list collects the (start, stop) pairs."""
+    spans = []
+    raw = wf.dispatch_refit
+
+    def timed(state, generation):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = raw(state, generation)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    wf.dispatch_refit = timed
+    return spans
+
+
+def host_copies(torch, fn, gens: int) -> dict:
+    """Memcpy events a generation (the profiler's rows) over ``fn()``, which
+    runs ``gens`` generations (DtoH is a host read), with the kernels
+    launched and the device's busy time a generation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"DtoH": 0, "HtoD": 0}
+    launches, busy = 0, 0.0
+    for evt in prof.key_averages():
+        for kind in out:
+            if f"Memcpy {kind}" in evt.key:
+                out[kind] += evt.count
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            launches += evt.count
+            busy += evt.self_device_time_total
+    return {**{f"memcpy_{k}_per_generation": v / gens for k, v in out.items()},
+            "device_ops_per_generation": launches / gens,
+            "device_busy_us_per_generation": busy / gens}
+
+
+def kernel_rows(torch, fn, top: int = 8) -> dict:
+    """The device kernels ``fn()`` launches (torch.profiler): their count,
+    device time and the top rows by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    return {"kernel_launches": sum(r[2] for r in rows),
+            "device_ms": sum(r[0] for r in rows) / 1e3,
+            "top": [{"kernel": k[:90], "device_us": us, "calls": c} for us, k, c in rows[:top]]}
+
+
+def run_to_threshold(wf, seed: int) -> tuple:
+    """``bench.py:1001-1011``: ``run`` in chunks of 2 until the telemetry's
+    best is under the threshold or 120 generations have run."""
+    state, gens = wf.init(seed), 0
+    mon = wf.monitors[0]
+    while gens < SUR_MAX_GENS:
+        state = wf.run(state, 2)
+        gens += 2
+        if float(mon.get_best_fitness(state.monitors[0])) < SUR_THRESHOLD:
+            break
+    return state, gens, float(mon.get_best_fitness(state.monitors[0]))
+
+
+def phase_surrogate_path(torch, seed: int = SUR_SEED, turn: int = SUR_TURN, warm: int = SUR_WARM,
+                         profile: bool = False) -> dict:
+    """Main path 19: ``bench.py``'s workload 8. Both sides from the state
+    after ``warm`` generations, ``run`` (the executor's host pipeline) in
+    turns screened, full, full, screened, ``turn`` generations each; the
+    problem's rows against the ledger; the executor's ``bg_refit`` and the
+    refits' CUDA-event ms; the strict-JSON reports; then the sleep-free
+    ledger to the threshold at pop 128, and one screened generation on the
+    card against the CPU."""
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.workflows import run_host_pipelined
+
+    scr = build_surrogate_path(torch)
+    full = full_twin(scr)
+    prob = scr.problem
+    refit_spans = catch_refits(torch, scr)
+    starts = {"screened": run_host_pipelined(scr, scr.init(seed), warm),
+              "full": run_host_pipelined(full, full.init(seed), warm)}
+    torch.cuda.synchronize()
+    turns = []
+    ends = {}
+    for mode in ("screened", "full", "full", "screened"):
+        wf, start = (scr, starts[mode]) if mode == "screened" else (full, starts[mode])
+        refit_spans.clear()
+        ex = GenerationExecutor()
+        rows0 = prob.rows
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = run_host_pipelined(wf, start, turn, executor=ex)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"kernel launches on the surrogate path: {launches}")
+        rows = prob.rows - rows0
+        out = {"mode": mode, "ms_per_generation": wall / turn * 1e3, "rows": rows,
+               "rows_per_generation": rows / turn,
+               "host_eval_ms_per_generation": ex.overlap["host_eval_s"] * 1e3 / turn,
+               "executor_counters": dict(ex.counters)}
+        if mode == "screened":
+            sur0, sur = start.sur, end.sur
+            ledger = int(sur.true_evals) - int(sur0.true_evals)
+            screened = int(sur.screened_gens) - int(sur0.screened_gens)
+            k = scr._k_for(SUR_POP)
+            if rows != ledger or rows != k * screened + SUR_POP * (turn - screened):
+                raise AssertionError(f"surrogate path: the problem scored {rows} rows, the ledger "
+                                     f"says {ledger} ({screened} screened generations)")
+            if screened < turn // 2:
+                raise AssertionError(f"surrogate path: only {screened} of {turn} warm generations "
+                                     "screened")
+            if ex.counters["bg_refit"] != turn or int(sur.refits) - int(sur0.refits) != turn:
+                raise AssertionError(f"surrogate path: {ex.counters['bg_refit']} refits through the "
+                                     f"executor in {turn} generations, expected {turn}")
+            out.update(screened_generations=screened, true_evals=ledger,
+                       rows_per_screened_generation=k,
+                       fallback_generations=int(sur.fallback_gens) - int(sur0.fallback_gens),
+                       refits=ex.counters["bg_refit"],
+                       refit_ms=[a.elapsed_time(b) for a, b in refit_spans])
+            out["refit_ms_mean"] = statistics.fmean(out["refit_ms"])
+        elif rows != SUR_POP * turn:
+            raise AssertionError(f"full evaluation scored {rows} rows, expected {SUR_POP * turn}")
+        print(f"[surrogate path] {json.dumps(out)}", flush=True)
+        turns.append(out)
+        ends[mode] = end
+    med = {m: statistics.median(t["ms_per_generation"] for t in turns if t["mode"] == m)
+           for m in ("screened", "full")}
+    result = {"pop": SUR_POP, "dim": SUR_DIM, "sleep_ms_per_row": SUR_SLEEP * 1e3,
+              "screen_frac": SUR_FRAC, "archive_capacity": scr._archive.capacity,
+              "generations_per_turn": turn, "turns": turns, "median_ms_per_generation": med,
+              "full_over_screened": med["full"] / med["screened"]}
+    # the reports, strict JSON
+    report = scr.surrogate_report(ends["screened"])
+    telemetry = scr.monitors[0].report(ends["screened"].monitors[0])
+    for name, rep in (("surrogate_report", report), ("telemetry_report", telemetry)):
+        print(f"[surrogate path] {name} {json.dumps(rep, allow_nan=False)}", flush=True)
+    result.update(surrogate_report=report, telemetry_report=telemetry)
+    if profile:
+        result["host_copies_screened"] = host_copies(
+            torch, lambda: run_host_pipelined(scr, starts["screened"], turn), turn)
+        result["host_copies_full"] = host_copies(
+            torch, lambda: run_host_pipelined(full, starts["full"], turn), turn)
+        print(f"[surrogate path] host copies {json.dumps(result['host_copies_screened'])} "
+              f"(full: {json.dumps(result['host_copies_full'])})", flush=True)
+    del scr.dispatch_refit  # the class's method again
+
+    # the ledger, sleep-free at pop 128 (bench.py:985-1036)
+    led_scr = build_surrogate_path(torch, pop=SUR_LEDGER_POP, sleep=0.0)
+    led_full = full_twin(build_surrogate_path(torch, pop=SUR_LEDGER_POP, sleep=0.0))
+    s_scr, g_scr, b_scr = run_to_threshold(led_scr, SUR_LEDGER_SEED)
+    s_full, g_full, b_full = run_to_threshold(led_full, SUR_LEDGER_SEED)
+    evals_scr, evals_full = int(s_scr.sur.true_evals), g_full * SUR_LEDGER_POP
+    if led_scr.problem.rows != evals_scr or led_full.problem.rows != evals_full:
+        raise AssertionError("ledger runs: the problem's rows disagree with the ledgers")
+    result["eval_ledger"] = {
+        "threshold": SUR_THRESHOLD, "pop": SUR_LEDGER_POP,
+        "archive_capacity": led_scr._archive.capacity,
+        "screened": {"true_evals": evals_scr, "generations": g_scr, "best": b_scr,
+                     "fallback_gens": int(s_scr.sur.fallback_gens)},
+        "full": {"true_evals": evals_full, "generations": g_full, "best": b_full},
+        "ratio": evals_full / max(evals_scr, 1),
+        "jax_test_law": "tests/test_surrogate.py:391 asserts a ratio >= 5 (printed, not asserted)",
+    }
+    print(f"[surrogate path] eval ledger {json.dumps(result['eval_ledger'])}", flush=True)
+    result["card_vs_cpu"] = phase_surrogate_card_vs_cpu(torch, scr, ends["screened"])
+    return result
+
+
+def phase_surrogate_card_vs_cpu(torch, card_wf, state) -> dict:
+    """One screened generation (``wf.step``, the inline refit) on the card
+    against the CPU, from the same state on the same draws (made once on the
+    CPU): the row count and the screened rows in order equal (the inert
+    rest as a set), the predicted fitness within ``SUR_POSTERIOR_RTOL``, the
+    archive bit for bit (the same rows, scored by numpy on the host), the
+    tell's PSO state bit for bit (elementwise float32 on equal fitness and
+    draws), the refitted GP's scales within ``SUR_GP_RTOL`` (sums in the two
+    devices' orders) and its posterior at the next ask within
+    ``SUR_POSTERIOR_RTOL`` (a Cholesky solve of condition up to ~1e4)."""
+    from evox_tpu_torch.utils.common import split_seed
+
+    # the first generation from here whose plan screens (a rank fallback
+    # may be armed)
+    for _ in range(4):
+        if not bool(card_wf._screen_plan(state.sur, card_wf.sample(state)).full_eval):
+            break
+        state = card_wf.step(state)
+    cpu_wf = build_surrogate_path(torch, sleep=0.0, device="cpu")
+    cpu_state = _state_on(torch, state, "cpu")
+    draws = cpu_wf.algorithm._draw(split_seed(state.algo.seed)[1])
+    cpu_wf.algorithm._draw = lambda s: draws
+    card_wf.algorithm._draw = lambda s: tuple(d.cuda() for d in draws)
+    try:
+        plan_card = card_wf._screen_plan(state.sur, card_wf.sample(state))
+        plan_cpu = cpu_wf._screen_plan(cpu_state.sur, cpu_wf.sample(cpu_state))
+        if bool(plan_cpu.full_eval):
+            raise AssertionError("surrogate path: no generation screens in 4 from the last turn")
+        # the evaluated head in order; the inert tail as a set (its rows all
+        # take one fill value, so its order reaches nothing)
+        k = int(plan_cpu.n_eval)
+        plan = compare_exact("surrogate path: the row count and the screened rows in order, card "
+                             "against CPU", [plan_card.n_eval.cpu(), plan_card.order[:k].cpu()],
+                             [plan_cpu.n_eval, plan_cpu.order[:k]])
+        plan["tail"] = compare_exact("surrogate path: the inert rows (as a set), card against CPU",
+                                     [plan_card.order[k:].sort().values.cpu()],
+                                     [plan_cpu.order[k:].sort().values])
+        plan["tail_order_equal"] = bool(torch.equal(plan_card.order.cpu(), plan_cpu.order))
+        plan["mean_perm"] = compare("surrogate path: the predicted fitness in evaluation order, "
+                                    "card against CPU", plan_card.mean_perm[:k].cpu(),
+                                    plan_cpu.mean_perm[:k], SUR_POSTERIOR_RTOL, SUR_POSTERIOR_RTOL)
+        got, want = card_wf.step(state), cpu_wf.step(cpu_state)
+    finally:
+        del card_wf.algorithm._draw
+    a, b = got.sur.archive, want.sur.archive
+    archive = compare_exact("surrogate path: the archive after one screened generation, card "
+                            "against CPU", [a.x.cpu(), a.y.cpu(), a.count.cpu()], [b.x, b.y, b.count])
+    pso = compare_exact("surrogate path: the tell's PSO state, card against CPU",
+                        [t.cpu() for t in _pso_tensors(got.algo)], _pso_tensors(want.algo))
+    gp = {}
+    for name in ("lengthscale2", "amplitude", "y_mean"):
+        gp[name] = compare(f"surrogate path: the refitted GP's {name}, card against CPU",
+                           getattr(got.sur.model, name).cpu().reshape(1),
+                           getattr(want.sur.model, name).reshape(1), SUR_GP_RTOL, 0.0)
+    nxt = cpu_wf.sample(want)
+    mean_card, sd_card = card_wf.surrogate.predict(got.sur.model, nxt.cuda())
+    mean_cpu, sd_cpu = cpu_wf.surrogate.predict(want.sur.model, nxt)
+    gp["next_mean"] = compare("surrogate path: the refitted GP's mean at the next ask, card "
+                              "against CPU", mean_card.cpu(), mean_cpu, SUR_POSTERIOR_RTOL,
+                              SUR_POSTERIOR_RTOL)
+    gp["next_sd"] = compare("surrogate path: the refitted GP's deviation at the next ask, card "
+                            "against CPU", sd_card.cpu(), sd_cpu, SUR_POSTERIOR_RTOL,
+                            SUR_POSTERIOR_RTOL)
+    return {"plan": plan, "archive": archive, "pso_state": pso, "gp": gp,
+            "n_eval": int(plan_cpu.n_eval)}
+
+
+def phase_gp_bound(torch, seed: int = SEED) -> dict:
+    """``GPSurrogate`` at its bound (capacity 2048, d 64, the archive three
+    quarters full, Sphere values) on the card against the CPU: mean and
+    deviation at 512 new points within ``SUR_POSTERIOR_RTOL``, Spearman of the
+    two predicted orders; fit and predict timed by CUDA events. Then
+    ``EnsembleSurrogate.fit`` on the same archive (ms and kernel launches a
+    refit), and path 19's screened side with the ensemble for 10
+    generations."""
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.operators.surrogate import (
+        EnsembleSurrogate,
+        GPSurrogate,
+        spearman_correlation,
+    )
+    from evox_tpu_torch.workflows import run_host_pipelined
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((GP_CAP, GP_DIM), generator=g)
+    y = (x**2).sum(1)
+    x[GP_FILL:] = 0.0  # the archive's empty slots, as SurrogateArchive.init leaves them
+    y[GP_FILL:] = float("inf")
+    mask = torch.arange(GP_CAP) < GP_FILL
+    xt = torch.randn((GP_TEST, GP_DIM), generator=g)
+    card, cpu = GPSurrogate(), GPSurrogate(device="cpu")
+    xc, yc, mc, xtc = x.cuda(), y.cuda(), mask.cuda(), xt.cuda()
+    model = card.fit(card.init_model(GP_CAP, GP_DIM), xc, yc, mc)
+    model_cpu = cpu.fit(cpu.init_model(GP_CAP, GP_DIM), x, y, mask)
+    mean, sd = card.predict(model, xtc)
+    mean_cpu, sd_cpu = cpu.predict(model_cpu, xt)
+    out = {"capacity": GP_CAP, "dim": GP_DIM, "live_rows": GP_FILL, "test_points": GP_TEST,
+           "mean": compare("GP at its bound: the posterior mean, card against CPU", mean.cpu(),
+                           mean_cpu, SUR_POSTERIOR_RTOL, SUR_POSTERIOR_RTOL),
+           "sd": compare("GP at its bound: the posterior deviation, card against CPU", sd.cpu(),
+                         sd_cpu, SUR_POSTERIOR_RTOL, SUR_POSTERIOR_RTOL),
+           "spearman_of_orders": float(spearman_correlation(mean.cpu(), mean_cpu))}
+    out["fit_ms"] = _time_ms(lambda: card.fit(model, xc, yc, mc), 2, 5)
+    out["predict_ms"] = _time_ms(lambda: card.predict(model, xtc), 2, 10)
+    out["fit"] = kernel_rows(torch, lambda: card.fit(model, xc, yc, mc))
+    torch.cuda.reset_peak_memory_stats()
+    card.fit(model, xc, yc, mc)
+    torch.cuda.synchronize()
+    out["fit_peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    ens = EnsembleSurrogate()
+    emodel = ens.init_model(GP_CAP, GP_DIM)
+    ens.fit(emodel, xc, yc, mc, 1)  # warm
+    out["ensemble"] = {
+        "members": ens.n_members, "hidden": ens.hidden, "fit_steps": ens.fit_steps,
+        "fit_ms": _time_ms(lambda: ens.fit(emodel, xc, yc, mc, 1), 1, 3),
+        "fit_host_ms": _time_host_ms(torch, lambda: ens.fit(emodel, xc, yc, mc, 1)),
+        **kernel_rows(torch, lambda: ens.fit(emodel, xc, yc, mc, 1)),
+    }
+    print(f"[gp bound] {json.dumps(out)}", flush=True)
+
+    # path 19's screened side with the ensemble
+    wf = build_surrogate_path(torch, surrogate=EnsembleSurrogate())
+    state = run_host_pipelined(wf, wf.init(SUR_SEED), SUR_WARM)
+    ex = GenerationExecutor()
+    rows0 = wf.problem.rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end = run_host_pipelined(wf, state, SUR_ENSEMBLE_GENERATIONS, executor=ex)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gens = SUR_ENSEMBLE_GENERATIONS
+    rows = wf.problem.rows - rows0
+    if rows != int(end.sur.true_evals) - int(state.sur.true_evals) or ex.counters["bg_refit"] != gens:
+        raise AssertionError(f"ensemble path: {rows} rows, ledger "
+                             f"{int(end.sur.true_evals) - int(state.sur.true_evals)}, "
+                             f"{ex.counters['bg_refit']} refits")
+    out["ensemble_path"] = {
+        "generations": gens, "ms_per_generation": wall / gens * 1e3, "refits": ex.counters["bg_refit"],
+        "fallback_generations": int(end.sur.fallback_gens) - int(state.sur.fallback_gens),
+        "screened_generations": int(end.sur.screened_gens) - int(state.sur.screened_gens),
+        "rows": rows, "best": float(wf.monitors[0].get_best_fitness(end.monitors[0]))}
+    print(f"[gp bound] ensemble path {json.dumps(out['ensemble_path'])}", flush=True)
+    return out
+
+
+# ----------------------------------------------------------- main path 20
+
+
+def build_immoea_path(torch, pop: int = IMM_POP, device=None):
+    """Main path 20: ``StdWorkflow(IMMOEA(zeros(12), ones(12), n_objs=3,
+    pop_size=1000), DTLZ2(d=12, m=3))`` (``docs/GUIDE.md:1383-1393``'s
+    recipe at the MO family's shape)."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import IMMOEA
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    algo = IMMOEA(torch.zeros(IMM_D), torch.ones(IMM_D), n_objs=MO_M, pop_size=pop, device=device)
+    return StdWorkflow(algo, DTLZ2(d=IMM_D, m=MO_M, device=device), device=device)
+
+
+def phase_immoea_path(torch, gens: int, seed: int, profile: bool) -> dict:
+    """Main path 20: the init step, one warm-up generation, ``gens`` timed
+    generations with one ``packed_dominance`` launch each (n 1998) and no
+    other; IGD and the hypervolume; a split of a generation (the clusters,
+    the batched GP fits, sampling, mutation, DTLZ2, the tell with B3, the
+    sort to the cut and ``non_dominate``); the GP fit's kernels (cuSOLVER's
+    batched route or a loop); B3 at the path's merged fitness against its
+    plain version; one ask (on CPU-made draws) and one tell on the card
+    against the CPU."""
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.operators.selection import non_dominate, non_dominated_sort
+
+    wf = build_immoea_path(torch)
+    algo = wf.algorithm
+    state, wall, launches = run_mo_path(torch, wf, gens, seed, {"packed_dominance": gens})
+    n = algo.pop_size
+    out = {"pop": n, "clusters": algo.K, "per_cluster": algo.S, "dim": IMM_D,
+           "gp_batch": [algo.K * IMM_D, algo.S, algo.S], "gp_fit_steps": algo.gp.fit_steps,
+           "merged_n": 2 * n, "generations": gens, "launches": launches, "wall_s": wall,
+           "ms_per_generation": wall / gens * 1e3, "generations_per_s": gens / wall,
+           **mo_quality(torch, wf, state)}
+    from evox_tpu_torch.utils.common import split_seed
+
+    draws = algo._draw(split_seed(state.algo.seed)[1])
+    fx, xv = algo.inverse_data(state.algo, draws["obj_pick"])
+    model = algo.gp.fit(fx, xv)
+    merged = lambda a, f: torch.cat([a.fitness, f])
+    extra = {
+        "clusters": lambda a, f: algo.inverse_data(a, draws["obj_pick"]),
+        "gp_fit": lambda a, f: algo.gp.fit(fx, xv),
+        "sample": lambda a, f: algo.sample(model, fx, draws),
+        "mutation": lambda a, f: algo.mutate(a.offspring, draws),
+        "packed_dominance": lambda a, f: kd.packed_dominance(merged(a, f)),
+        "sort_to_cut": lambda a, f: non_dominated_sort(merged(a, f), until=n),
+        "non_dominate": lambda a, f: non_dominate(torch.cat([a.population, a.offspring]),
+                                                  merged(a, f), n),
+    }
+    out["breakdown_ms"] = mo_breakdown(torch, wf, state, extra)
+    out["gp_fit"] = kernel_rows(torch, lambda: algo.gp.fit(fx, xv))
+    print(f"[immoea path] gp fit {json.dumps(out['gp_fit'])}", flush=True)
+
+    # one ask on the card against the CPU, on draws made once on the CPU
+    cpu_wf = build_immoea_path(torch, device="cpu")
+    cpu_algo = cpu_wf.algorithm
+    _same_draws(torch, cpu_algo, algo)
+    try:
+        cpu_state = _state_on(torch, state.algo, "cpu")
+        off_cpu, asked_cpu = cpu_algo.ask(cpu_state)
+        off, asked = algo.ask(state.algo)
+    finally:
+        del algo._draw
+    diff = (off.cpu() - off_cpu).abs()
+    ask = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+           "atol": IMM_OFFSPRING_ATOL, "mean_atol": IMM_OFFSPRING_MEAN_ATOL}
+    print(f"[compare] IM-MOEA ask on the card against the CPU: {json.dumps(ask)}", flush=True)
+    if not (ask["max_abs_err"] <= IMM_OFFSPRING_ATOL and ask["mean_abs_err"] <= IMM_OFFSPRING_MEAN_ATOL):
+        raise AssertionError(f"IM-MOEA ask: the card's offspring disagree with the CPU's: {ask}")
+    out["ask_vs_cpu"] = ask
+    # one tell on the same merged fitness: the card's offspring, scored once
+    fit, _ = wf.problem.evaluate(state.prob, off)
+    told = algo.tell(asked, fit)
+    told_cpu = cpu_algo.tell(_state_on(torch, asked, "cpu"), fit.cpu())
+    out["tell_vs_cpu"] = compare_exact(
+        "IM-MOEA tell on the card against the CPU's plain routes (population and fitness, in "
+        "order)", [told.population.cpu(), told.fitness.cpu()],
+        [told_cpu.population, told_cpu.fitness])
+    # B3 at the path's merged fitness, against its plain version
+    mf = merged(asked, fit)
+    b3 = compare_exact(f"packed_dominance, IM-MOEA merged fitness n={mf.shape[0]} m={MO_M}",
+                       kd.packed_dominance(mf, device=mf.device), kd.packed_dominance_reference(mf))
+    b3["ms"] = _time_ms(lambda: kd.packed_dominance(mf, device=mf.device), 3, 20)
+    b3["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(mf), 1, 5)
+    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(mf.shape[0], MO_M))
+    out["packed_dominance"] = b3
+    if profile:
+        out["profile"] = profile_path(torch, wf, state, wall, gens)
+    print(f"[immoea path] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -4417,6 +4954,7 @@ def monitor_callers(name: str, paths: dict) -> list:
         nsga3 = paths["nsga3"]
         family = paths["mo_family"]
         gde3, ind, maf = paths["gde3"], paths["indicator_family"], paths["maf"]
+        imm = paths["immoea"]
         b3 = {key: nsga3["packed_dominance"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                               "max_abs_err")}
         return [{"caller": "non_dominated_sort in NSGA-II's tell (path 2)", "n": 2 * NSGA2_POP,
@@ -4448,7 +4986,11 @@ def monitor_callers(name: str, paths: dict) -> list:
                    "m": m, "launches": maf[f"MaF11_pf_m{m}"]["launches"]} for m in (3, 5)),
                 {"caller": "NSGA-II under WorkflowCheckpointer, straight run from init (path 18)",
                  "n": [NSGA2_POP, 2 * NSGA2_POP], "m": LSMOP_M,
-                 "launches": paths["checkpoint"]["launches"][name]}]
+                 "launches": paths["checkpoint"]["launches"][name]},
+                {"caller": "non_dominate in IM-MOEA's tell (path 20)", "n": imm["merged_n"],
+                 "m": MO_M, "launches": imm["launches"][name],
+                 **{key: imm["packed_dominance"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                                  "bound_by", "max_abs_err")}}]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     shade = paths["shade"]
@@ -4723,6 +5265,13 @@ def main() -> int:
     paths["bf16"] = phase_bf16_path(torch, profile=args.profile)
     torch.cuda.empty_cache()
     paths["checkpoint"] = phase_checkpoint_path(torch)
+    # 13. main paths 19 (bench.py's workload 8: surrogate screening through
+    # the executor's refit hooks) and 20 (IM-MOEA on DTLZ2, B3 once a
+    # generation), and the GP at its bound
+    torch.cuda.empty_cache()
+    paths["surrogate"] = phase_surrogate_path(torch, profile=args.profile)
+    paths["gp_bound"] = phase_gp_bound(torch)
+    paths["immoea"] = phase_immoea_path(torch, GENERATIONS, SEED, args.profile)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -4771,6 +5320,9 @@ def main() -> int:
         "host_path": paths["host"],
         "bf16_path": paths["bf16"],
         "checkpoint_path": paths["checkpoint"],
+        "surrogate_path": paths["surrogate"],
+        "gp_bound": paths["gp_bound"],
+        "immoea_path": paths["immoea"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

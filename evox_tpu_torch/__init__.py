@@ -26,7 +26,14 @@ from .core import (
     resolve_device,
     static_field,
 )
-from .workflows import IslandWorkflow, IslandWorkflowState, StdWorkflow, StdWorkflowState
+from .workflows import (
+    IslandWorkflow,
+    IslandWorkflowState,
+    StdWorkflow,
+    StdWorkflowState,
+    SurrogateWorkflow,
+    SurrogateWorkflowState,
+)
 
 __all__ = [
     "Algorithm",
@@ -39,6 +46,8 @@ __all__ = [
     "PyTreeNode",
     "StdWorkflow",
     "StdWorkflowState",
+    "SurrogateWorkflow",
+    "SurrogateWorkflowState",
     "field",
     "resolve_device",
     "static_field",

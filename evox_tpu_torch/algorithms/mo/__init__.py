@@ -5,6 +5,7 @@ from .eag_moead import EAGMOEAD, EAGMOEADState
 from .gde3 import GDE3
 from .hype import HypE, HypEState
 from .ibea import IBEA
+from .im_moea import IMMOEA, IMMOEAState
 from .knea import KnEA, KnEAState
 from .lmocso import LMOCSO, LMOCSOState
 from .moead import MOEAD, MOEADState
@@ -18,7 +19,8 @@ from .sra import SRA, SRAState
 from .tdea import TDEA
 
 __all__ = ["BCEIBEA", "BCEIBEAState", "BiGE", "DrawnGAMOAlgorithm", "EAGMOEAD", "EAGMOEADState",
-           "GAMOAlgorithm", "GDE3", "HypE", "HypEState", "IBEA", "KnEA", "KnEAState", "LMOCSO",
+           "GAMOAlgorithm", "GDE3", "HypE", "HypEState", "IBEA", "IMMOEA",
+           "IMMOEAState", "KnEA", "KnEAState", "LMOCSO",
            "LMOCSOState", "MOEAD", "MOEADDRA", "MOEADDRAState", "MOEADM2M", "MOEADM2MState",
            "MOEADState", "MOState", "NSGA2", "NSGA2State", "NSGA3", "RVEA", "RVEAState", "RVEAa",
            "SPEA2", "SRA", "SRAState", "TDEA", "uniform_init"]

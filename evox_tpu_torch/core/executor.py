@@ -11,7 +11,10 @@ generation loop behind ``checkpointed_run`` and ``run_host_pipelined``.
   buffers and a CUDA event), the host ``evaluate`` runs on the calling
   thread, and ``on_generation`` hooks, checkpoint writes and monitor
   fetches run on background lanes, so the user's per-generation host work
-  overlaps the next generation. The dispatch, tell and hook order is
+  overlaps the next generation. A workflow's ``host_evaluate`` hook, where
+  it has one, takes the evaluation (with the candidates still on the
+  card), and ``refit_due``/``dispatch_refit`` refit a surrogate after a
+  tell (``workflows/surrogate.py``). The dispatch, tell and hook order is
   ``wf.step``'s, so the states are a ``wf.step`` loop's bit for bit. At
   ``max_staleness=0`` the tell needs the evaluation's fitness, so nothing
   of the device could overlap the evaluation and it gets no thread of its
@@ -138,6 +141,8 @@ class GenerationExecutor:
             "bg_checkpoint": 0,
             "bg_hook": 0,
             "bg_fetch": 0,
+            # surrogate refits dispatched between tells (refit_due/dispatch_refit)
+            "bg_refit": 0,
         }
         self.queue_stats: Dict[str, int] = {"io_inflight_limit": self.io_inflight,
                                             "io_inflight_max": 0}
@@ -338,12 +343,22 @@ class GenerationExecutor:
         hook_fut: Optional[Future] = None
         link = wf.host_link
         base = state
+        # a SurrogateWorkflow's hooks (duck-typed): host_evaluate evaluates
+        # only the screened rows; refit_due/dispatch_refit refit the model
+        # after a tell, queued on the card's stream without a wait, so the
+        # model an ask reads lags the archive by at most the refit cadence
+        host_eval = getattr(wf, "host_evaluate", None)
+        refit_due = getattr(wf, "refit_due", None)
+        dispatch_refit = getattr(wf, "dispatch_refit", None)
 
         def run_eval(cand, pstate):
-            host_cand = host_candidates(link, cand)
+            if host_eval is None:
+                cand = host_candidates(link, cand)
             t0 = self._clock()
             try:
-                return chunked_evaluate(wf.problem, pstate, host_cand, eval_chunk)
+                if host_eval is not None:
+                    return host_eval(pstate, cand, eval_chunk)
+                return chunked_evaluate(wf.problem, pstate, cand, eval_chunk)
             finally:
                 dt = self._clock() - t0
                 with self._lock:
@@ -364,6 +379,13 @@ class GenerationExecutor:
                 )
                 self.counters["tells"] += 1
                 self.counters["generations"] += 1
+                if refit_due is not None and dispatch_refit is not None and refit_due(gen0 + g + 1):
+                    # before the snapshot: a checkpoint at this generation
+                    # holds the refit, so a resumed run keeps the schedule
+                    self.counters["bg_refit"] += 1
+                    told = base
+                    base = self._timed_dispatch("surrogate_refit",
+                                                lambda: dispatch_refit(told, gen0 + g + 1))
                 if checkpointer is not None and int(base.generation) % checkpointer.every == 0:
                     self._submit_checkpoint(ckpt_lane, checkpointer, base)
                 if on_generation is not None:

@@ -23,8 +23,12 @@ params trees, the decomposition containers' states (their stacked member
 states split into the port's tuples), ``GuardedState`` (its inner state
 and counters; ``numpy_fields`` carries a port state back as numpy fields
 by name), and ``IslandWorkflowState`` (its island-stacked ``algo`` split
-into the port's per-island states). :func:`algorithm_state` picks the
-carry-over for any algorithm.
+into the port's per-island states), IM-MOEA's state (``immoea_state``),
+the TelemetryMonitor state (``telemetry_state``) and the surrogate's
+(``surrogate_state``: the archive, a ``GPModelState`` or the member-stacked
+``EnsembleModelState``, the health readings and the ledger;
+``surrogate_workflow_state`` carries a whole ``SurrogateWorkflowState``).
+:func:`algorithm_state` picks the carry-over for any algorithm.
 
 Constants an algorithm builds in its constructor can be replaced by the
 JAX package's where a float tie decides them: ``set_neighbors`` (MOEA/D's
@@ -66,11 +70,13 @@ from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.device import DeviceLike, resolve_device
 from .core.guardrail import GuardedAlgorithm, GuardedState
 from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
+from .monitors.telemetry import TelemetryMonitor, TelemetryState
 from .problems.neuroevolution.rollout import PolicyRolloutProblem, RolloutState
 from .utils.common import split_seed, tree_map
 from .utils.optimizers import SGD, Adam, AdamState, ClipUp, ClipUpState
 from .workflows.islands import IslandWorkflow, IslandWorkflowState
 from .workflows.std import StdWorkflow, StdWorkflowState
+from .workflows.surrogate import SurrogateState, SurrogateWorkflow, SurrogateWorkflowState
 
 
 def tensor_from_numpy(array: Any) -> torch.Tensor:
@@ -357,8 +363,63 @@ def std_workflow_state(
     )
 
 
+def immoea_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
+    """``IMMOEAState`` from the JAX package's (numpy leaves ``population``,
+    ``fitness``, ``offspring``); the key does not cross."""
+    return mo_state(algo, jax_state, seed)
+
+
+def _like(fresh: Any, theirs: Any, name: str) -> Any:
+    """The JAX leaves of a state (a tree of them) at the shapes and dtypes
+    of the port's ``fresh`` state, field by field; host values from
+    ``fresh``."""
+    if isinstance(fresh, torch.Tensor):
+        if fresh.dtype == torch.bfloat16:  # a leaf at rest under BF16_STORAGE
+            return tensor_from_numpy(theirs).to(device=fresh.device, dtype=fresh.dtype)
+        dtype = torch.empty((), dtype=fresh.dtype).numpy().dtype
+        return _tensor(theirs, dtype, tuple(fresh.shape), name, fresh.device)
+    if isinstance(fresh, dict):
+        return {k: _like(v, theirs[k], f"{name}[{k!r}]") for k, v in fresh.items()}
+    if dataclasses.is_dataclass(fresh):
+        return fresh.replace(**{
+            f.name: _like(getattr(fresh, f.name), getattr(theirs, f.name), f"{name}.{f.name}")
+            for f in dataclasses.fields(fresh) if hasattr(theirs, f.name)})
+    return fresh
+
+
+def telemetry_state(monitor: TelemetryMonitor, jax_state: Any) -> TelemetryState:
+    """``TelemetryState`` from the JAX package's (numpy leaves): every
+    counter, the best key and the rings, each at the port's dtype and
+    shape on the monitor's device."""
+    return _like(monitor.init(), jax_state, "telemetry")
+
+
+def surrogate_state(wf: SurrogateWorkflow, jax_sur: Any, seed: int = 0) -> SurrogateState:
+    """The screening workflow's ``SurrogateState`` from the JAX package's
+    (numpy leaves): the archive, the model (``GPModelState``, or
+    ``EnsembleModelState`` with its member-stacked weights dict), the
+    health readings, the ledger and the fallback ring. The refit key does
+    not cross: the port's refit seed is the one ``wf.init(seed)`` derives."""
+    if not wf._screening:
+        raise ValueError("the workflow does not screen: it has no surrogate state")
+    return _like(wf.init(seed).sur, jax_sur, "sur")
+
+
+def surrogate_workflow_state(wf: SurrogateWorkflow, jax_state: Any, seed: int = 0,
+                             prob_state: Optional[Any] = None) -> SurrogateWorkflowState:
+    """``SurrogateWorkflowState`` from the JAX package's (numpy leaves): as
+    :func:`std_workflow_state`, plus the surrogate state and each
+    ``TelemetryMonitor``'s state (other monitors start fresh)."""
+    base = std_workflow_state(wf, jax_state, seed, prob_state)
+    monitors = tuple(
+        telemetry_state(m, theirs) if isinstance(m, TelemetryMonitor) else ours
+        for m, ours, theirs in zip(wf.monitors, base.monitors, jax_state.monitors))
+    sur = None if jax_state.sur is None else surrogate_state(wf, jax_state.sur, seed)
+    return base.replace(monitors=monitors, sur=sur)
+
+
 # algorithm class -> the carry-over of its state
-_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state}
+_ALGO_STATES = {OpenES: open_es_state, NSGA2: nsga2_state, _mo.IMMOEA: immoea_state}
 _ALGO_STATES.update({cls: mo_state for cls in (_mo.NSGA3, _mo.TDEA, _mo.GDE3, _mo.IBEA, _mo.SRA,
                                                _mo.SPEA2, _mo.BiGE)})
 _ALGO_STATES.update({

@@ -1,4 +1,6 @@
 from .checkpoint_monitor import CheckpointMonitor
 from .eval_monitor import EvalMonitor, EvalMonitorState
+from .telemetry import TelemetryMonitor, TelemetryState
 
-__all__ = ["CheckpointMonitor", "EvalMonitor", "EvalMonitorState"]
+__all__ = ["CheckpointMonitor", "EvalMonitor", "EvalMonitorState", "TelemetryMonitor",
+           "TelemetryState"]
