@@ -302,9 +302,26 @@ exit 0):
    merged fitness against its plain version; one ask on the card against
    the CPU on CPU-made draws (offspring within 2e-3, mean 1e-4) and one
    tell (population and fitness bit for bit).
-21. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
+21. main path 21: ``bench.py:1452-1523``'s run-telemetry leg,
+   ``StdWorkflow(PSO(±32, pop 256, d 64), Ackley(),
+   monitors=(TelemetryMonitor(capacity=30),), donate_carries=True)`` under
+   ``instrument(wf, analyze=True, block_dispatch=True)``, seed 11: run 30,
+   run 30, run 300, three steps (``RunSupervisor`` waits for ROADMAP A11:
+   plain runs), the fetch of ``gbest_fitness``, ``run_report`` and
+   ``write_chrome_trace`` (``chiprun_out/telemetry_trace.json``): both
+   pass ``tools/check_report.py``, ``run``'s ``per_work_s`` is the
+   differenced slope, the generation is 363, the final state equals an
+   uninstrumented run's bit for bit (also after the report's analysis);
+   ms a generation with the recorder and without it in turns (recorder,
+   plain, plain, recorder). Main path 22: path 2 under ``instrument(wf,
+   analyze=True, block_dispatch=True)``, runs of 4 and 8 generations (one
+   B3 and one B4 launch a generation); the report's analysis of ``step``
+   and ``run`` charges one B3 launch of ``dominance_work(20000, 3)`` and
+   one B4 launch of ``topk_work(20000, 10000)`` each, and the report
+   validates; the roofline's classification and achieved rates.
+22. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
    paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13, B3
-   and B4 on path 18 too, B3 on path 20, B4 batched on path 14 as
+   and B4 on paths 18 and 22 too, B3 on path 20, B4 batched on path 14 as
    ``partial_topk_rows``), then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -435,6 +452,15 @@ GP_CAP, GP_DIM, GP_FILL, GP_TEST = 2048, 64, 1536, 512
 # the CPU's on the same draws: GP samples after 10 adam steps a model
 IMM_D, IMM_POP = 12, 1000
 IMM_OFFSPRING_ATOL, IMM_OFFSPRING_MEAN_ATOL = 2e-3, 1e-4
+# main path 21: bench.py:1452-1523's run-telemetry leg, PSO (±32, pop 256, d
+# 64) on Ackley with TelemetryMonitor(capacity=30) and donated carries, seed
+# 11: run 30, run 30, run 300, three steps (363 generations), instrumented
+# against a plain twin in turns
+TEL_GENS, TEL_POP, TEL_DIM, TEL_BOUND, TEL_SEED = 30, 256, 64, 32.0, 11
+TEL_GENERATION = 2 * TEL_GENS + 10 * TEL_GENS + 3  # 363
+# main path 22: path 2 instrumented with analyze=True, runs of 4, 4 and 8
+# generations (two warm work counts: the differenced slope without the cold call)
+INS_RUNS = (4, 4, 8)
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # main path 12: path 1's shape (OpenES, pop 65536, 2 episodes, flat 1-hidden
@@ -444,10 +470,10 @@ ACROBOT_T = 500
 # the mountain car phase: the same at mountain car's default cap, a few
 # generations (a call site of B1's mountain car instance)
 MOUNTAIN_CAR_T, MOUNTAIN_CAR_GENERATIONS = 999, 5
-# B1's envs: (default T, obs, act, env operations a step and trig calls a
-# step, counted from csrc/rollout.cu)
-ROLLOUT_ENVS = {"pendulum": (200, 3, 1, 25, 2), "cartpole": (500, 4, 2, 36, 2),
-                "mountain_car": (999, 2, 1, 20, 1), "acrobot": (500, 6, 3, 60, 8)}
+# B1's envs: (default T, obs, act); their operations a step are
+# kernels/rollout.py's ENV_OPS
+ROLLOUT_ENVS = {"pendulum": (200, 3, 1), "cartpole": (500, 4, 2), "mountain_car": (999, 2, 1),
+                "acrobot": (500, 6, 3)}
 # the normaliser phase: the scan engine with CapEpisode and ObsNormalizer on
 # cartpole, card against CPU
 NORM_POP, NORM_GENERATIONS, NORM_CAP = 4096, 3, 200
@@ -500,20 +526,12 @@ def _time_ms(fn, warmup: int, reps: int) -> float:
 
 
 def rollout_work(n: int, episodes: int, steps: int, obs: int, hidden: int, act: int,
-                 env_ops: int, trig: int) -> tuple:
-    """(bytes, operations) that a fused rollout must move and do.
+                 env: str) -> tuple:
+    """(bytes, operations) of a fused rollout: ``kernels/rollout.py``'s
+    count, the one the cost analysis charges."""
+    from evox_tpu_torch.kernels.rollout import rollout_work as work
 
-    Bytes: genomes read once, state planes read once, returns written once.
-    Operations per env-step: the MLP's multiply-adds (2 each), one per tanh,
-    one per distinct trig call, and the env step's arithmetic (counted
-    from csrc/rollout.cu). Counting a transcendental as one operation makes
-    this a lower bound. ``steps`` is the env-steps this run's data needs.
-    """
-    dim = obs * hidden + hidden + hidden * act + act
-    state_planes = {2: 2, 3: 2, 4: 4, 6: 4}[obs]
-    nbytes = 4 * (n * dim + state_planes * episodes * n + episodes * n)
-    per_step = 2 * (obs * hidden + hidden * act) + hidden + trig + env_ops
-    return nbytes, per_step * steps
+    return work(n, episodes, steps, obs, hidden, act, env)
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple:
@@ -637,7 +655,7 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
     stats["ms"] = _time_ms(lambda: kr.fused_rollout(**kw), 3, 20)
     stats["plain_ms"] = _time_ms(lambda: kr.fused_rollout_plain(**plain_kw), 1, 3)
     n, ep, T = pop.shape[0], kw["episodes"], kw["T"]
-    nbytes, ops = rollout_work(n, ep, ep * n * T, 3, 16, 1, env_ops=25, trig=2)
+    nbytes, ops = rollout_work(n, ep, ep * n * T, 3, 16, 1, "pendulum")
     stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
     stats["bytes"], stats["ops"] = nbytes, ops
     results["pendulum"] = stats
@@ -686,7 +704,7 @@ def phase_kernels(torch, kr, wf, seed: int) -> dict:
             stats["ms"] = _time_ms(lambda: kr.fused_rollout(*args, device=dev), 3, 20)
             stats["plain_ms"] = _time_ms(lambda: kr.fused_rollout_plain(*args), 1, 3)
             steps = int(want.sum().item())  # live env-steps this data needs
-            nbytes, ops = rollout_work(n, 2, steps, 4, 16, 2, env_ops=36, trig=2)
+            nbytes, ops = rollout_work(n, 2, steps, 4, 16, 2, "cartpole")
             stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
             stats["mean_return"] = float(want.mean())
         results[f"cartpole_{n}"] = stats
@@ -745,12 +763,11 @@ def phase_rollout_envs(torch, kr, wf12, seed: int) -> dict:
         st["mean_live_steps"] = float(steps.float().mean())
         if timed:
             n, ep = kw["theta"].shape[0], kw["episodes"]
-            _, _, _, env_ops, trig = ROLLOUT_ENVS[kw["env"].cuda_env]
             st["ms"] = _time_ms(lambda: kr.fused_rollout(**kw), 3, 20)
             st["plain_ms"] = _time_ms(lambda: kr.fused_rollout_plain(**plain_kw), 0, 1)
             live = int(steps.sum())  # the env-steps this run's data needs
             nbytes, ops = rollout_work(n, ep, live, kw["obs_dim"], kw["hidden"], kw["act_dim"],
-                                       env_ops=env_ops, trig=trig)
+                                       kw["env"].cuda_env)
             st["bound_ms"], st["bound_by"] = bound_ms(nbytes, ops)
             st.update(bytes=nbytes, ops=ops, live_steps=live, mean_return=float(want.mean()))
         return st, steps
@@ -1014,18 +1031,19 @@ def build_nsga2_path(torch):
 
 
 def dominance_work(n: int, m: int) -> tuple:
-    """(bytes, operations) of the packed dominance matrix: fitness read
-    once, words and counts written once; per (row, column) pair 2m compares
-    and m and/or steps, about 3m operations."""
-    n_words = (n + 31) // 32
-    return 4 * (n * m + n_words * n + n), 3 * m * n * n
+    """(bytes, operations) of the packed dominance matrix:
+    ``kernels/dominance.py``'s count, the one the cost analysis charges."""
+    from evox_tpu_torch.kernels.dominance import dominance_work as work
+
+    return work(n, m)
 
 
-def topk_work(n: int, k: int) -> tuple:
-    """(bytes, operations) of selecting the k smallest: n floats read, k
-    values and k indices written; one key per value (a radix select needs
-    O(n) work)."""
-    return 4 * n + 8 * k, n
+def topk_work(n: int, k: int, rows: int = 1) -> tuple:
+    """(bytes, operations) of selecting the k smallest of each row:
+    ``kernels/topk.py``'s count, the one the cost analysis charges."""
+    from evox_tpu_torch.kernels.topk import topk_work as work
+
+    return work(n, k, rows)
 
 
 def stress_fitness(torch, n: int, m: int, seed: int, dev):
@@ -1458,21 +1476,11 @@ def build_walker_path(torch, pop: int = WALKER_POP, T: int = WALKER_T, device=No
 
 def mlp_rollout_work(sizes, n: int, episodes: int, steps: int, n_masses: int, act_dim: int,
                      substeps: int) -> tuple:
-    """(bytes, operations) that a fused walker rollout must move and do.
+    """(bytes, operations) of a fused walker rollout:
+    ``kernels/rollout_mlp.py``'s count, the one the cost analysis charges."""
+    from evox_tpu_torch.kernels.rollout_mlp import mlp_rollout_work as work
 
-    Bytes: each individual's weights and biases read once, the state planes
-    read once, the returns written once. Operations per live env-step,
-    counted from csrc/rollout_mlp.cu: 2 per multiply-add of the MLP, one
-    per tanh, ~32 per mass for the observation, ~60 per mass for each
-    substep's forces and integration, and the reward's sums; a
-    transcendental counts as one operation, so this is a lower bound.
-    ``steps`` is the live env-steps this run's data needs."""
-    policy = sum(fi * fo + fo for fi, fo in zip(sizes[:-1], sizes[1:]))
-    macs = sum(fi * fo for fi, fo in zip(sizes[:-1], sizes[1:]))
-    nbytes = 4 * (n * policy + (4 * n_masses + act_dim + 2) * episodes * n + episodes * n)
-    per_step = (2 * macs + sum(sizes[1:-1]) + 3 * act_dim + 32 * n_masses
-                + 60 * n_masses * substeps + n_masses + 6)
-    return nbytes, per_step * steps
+    return work(sizes, n, episodes, steps, n_masses, act_dim, substeps)
 
 
 def ptxas_functions(log: str) -> dict:
@@ -3563,7 +3571,7 @@ def phase_topk_batched(torch, v_path) -> dict:
               "host_us": host_us_per_call(torch, b4), "library_host_us": host_us_per_call(torch, lib),
               "plain_ms": _time_ms(lambda: kt.partial_topk_reference(v, k), 3, 20),
               "max_abs_err": out["shapes"][0]["max_abs_err"]}
-    timing["bound_ms"], timing["bound_by"] = bound_ms(4 * rows * n + 8 * rows * k, rows * n)
+    timing["bound_ms"], timing["bound_by"] = bound_ms(*topk_work(n, k, rows))
     print(f"[topk batched] {json.dumps(timing)}", flush=True)
     out.update(timing)
     return out
@@ -4946,6 +4954,214 @@ def phase_immoea_path(torch, gens: int, seed: int, profile: bool) -> dict:
     return out
 
 
+# --------------------------------------------------- main paths 21 and 22
+
+
+def check_report_module():
+    """``tools/check_report.py``, the repo's validator of run reports and
+    Chrome traces (plain Python: no JAX)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import check_report
+
+    return check_report
+
+
+def validate(report=None, trace=None, label: str = "") -> None:
+    cr = check_report_module()
+    errors = []
+    if report is not None:
+        errors += cr.validate_run_report(json.loads(json.dumps(report)))
+    if trace is not None:
+        errors += cr.validate_chrome_trace(trace)
+    if errors:
+        raise AssertionError(f"{label}: tools/check_report.py rejects the output: {errors[:5]}")
+    print(f"[compare] {label}: tools/check_report.py accepts the "
+          + ("report and the trace" if trace is not None else "report"), flush=True)
+
+
+def build_telemetry_path(torch, device=None):
+    """Main path 21's workflow as ``bench.py``'s ``telemetry_report`` builds
+    it."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.pso import PSO
+    from evox_tpu_torch.monitors import TelemetryMonitor
+    from evox_tpu_torch.problems.numerical import Ackley
+
+    dev = torch.device("cuda" if device is None else device)
+    bound = TEL_BOUND * torch.ones(TEL_DIM, device=dev)
+    return StdWorkflow(PSO(lb=-bound, ub=bound, pop_size=TEL_POP, device=dev), Ackley(),
+                       monitors=(TelemetryMonitor(capacity=TEL_GENS, device=dev),),
+                       donate_carries=True, device=dev)
+
+
+def telemetry_sequence(wf, seed: int):
+    """``bench.py``'s sequence: init, run 30, run 30, run 300, three steps.
+    Its ``RunSupervisor(deadline_s=600, max_retries=2)`` waits for ROADMAP
+    A11, so its supervised runs are plain ``run`` calls here."""
+    state = wf.init(seed)
+    for n in (TEL_GENS, TEL_GENS, 10 * TEL_GENS):
+        state = wf.run(state, n)
+    for _ in range(3):
+        state = wf.step(state)
+    return state
+
+
+def phase_telemetry_path(torch, seed: int = TEL_SEED, device=None, out_dir=None) -> dict:
+    """Main path 21: ``bench.py:1452-1523``'s run-telemetry leg.
+    ``instrument(wf, analyze=True, block_dispatch=True)``, the sequence, the
+    fetch of ``gbest_fitness``, ``run_report`` and ``write_chrome_trace``:
+    both pass ``tools/check_report.py``, ``run``'s ``per_work_s`` is the
+    differenced slope over 30 and 300, the report's generation is 363, and
+    the final state (also after the report's analysis run) equals an
+    uninstrumented run's of the same seed and sequence bit for bit. Then
+    ms a generation with the recorder and without it, in turns (recorder,
+    plain, plain, recorder; the 363 generations after ``init``) after an
+    untimed plain sequence. The report's first analysis pays PyTorch's
+    lazy imports behind its first ``TorchDispatchMode`` (seconds, once a
+    process); ``report_s`` includes them."""
+    from evox_tpu_torch.core.instrument import instrument, run_report, write_chrome_trace
+
+    def timed_turn(instrumented):
+        wf = build_telemetry_path(torch, device)
+        rec = instrument(wf, analyze=True, block_dispatch=True) if instrumented else None
+        state = wf.init(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for n in (TEL_GENS, TEL_GENS, 10 * TEL_GENS):
+            state = wf.run(state, n)
+        for _ in range(3):
+            state = wf.step(state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TEL_GENERATION, wf, rec, state
+
+    timed_turn(False)  # warm: the first sequence of a process pays the first calls
+    reset_launches()
+    turns = []
+    for instrumented in (True, False, False, True):
+        ms, wf, rec, state = timed_turn(instrumented)
+        turns.append({"recorder": instrumented, "ms_per_generation": ms})
+        print(f"[telemetry path] {json.dumps(turns[-1])}", flush=True)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches on the telemetry path: {launches}")
+    # the last turn's instrumented run: fetch, report, trace
+    gbest = rec.fetch(state.algo.gbest_fitness, name="gbest_fitness")
+    plain = telemetry_sequence(build_telemetry_path(torch, device), seed)
+    kept = [t.clone() for t in _tensors(torch, state)]
+    t0 = time.perf_counter()
+    report = run_report(wf, state, recorder=rec)
+    report_s = time.perf_counter() - t0
+    out_dir = Path(out_dir) if out_dir is not None else ROOT / "chiprun_out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = write_chrome_trace(str(out_dir / "telemetry_trace.json"), recorder=rec,
+                               workflow=wf, state=state)
+    validate(report, trace, "path 21 (run telemetry)")
+    if report["generation"] != TEL_GENERATION:
+        raise AssertionError(f"report generation {report['generation']} != {TEL_GENERATION}")
+    if report["telemetry"][0]["generations"] != TEL_GENERATION:
+        raise AssertionError(f"telemetry generations {report['telemetry'][0]['generations']}")
+    ep = report["dispatch"]["entry_points"]
+    calls = {name: e["calls"] for name, e in ep.items()}
+    # donated carries: each run peels one generation through step
+    if calls != {"init": 1, "run": 3, "step": 6}:
+        raise AssertionError(f"entry-point calls {calls}")
+    per_work = ep["run"]["per_work_s"]
+    if per_work["method"] != "differenced" or per_work["work_pair"] != [TEL_GENS, 10 * TEL_GENS]:
+        raise AssertionError(f"run's per_work_s is not the differenced slope: {per_work}")
+    compare_exact("path 21: the instrumented final state against an uninstrumented run",
+                  _tensors(torch, state), _tensors(torch, plain))
+    compare_exact("path 21: the final state after run_report's analysis run",
+                  _tensors(torch, state), kept)
+    roof = report["roofline"]["entries"]
+    out = {
+        "generations": TEL_GENERATION,
+        "turns": turns,
+        "ms_per_generation_recorder": [t["ms_per_generation"] for t in turns if t["recorder"]],
+        "ms_per_generation_plain": [t["ms_per_generation"] for t in turns if not t["recorder"]],
+        "run_per_work_s": per_work,
+        "step_dispatch_s": ep["step"]["dispatch_s"],
+        "calls": calls,
+        "gbest_fitness": float(gbest),
+        "report_s": report_s,
+        "roofline": {name: {k: e.get(k) for k in ("classification", "achieved_tflops",
+                                                  "achieved_gbps", "measured_s_per_unit")}
+                     | {"flops": e["static"].get("flops"),
+                        "bytes": e["static"].get("bytes_accessed"),
+                        "ops": e["static"].get("ops")}
+                     for name, e in roof.items()},
+        "trace_events": len(trace["traceEvents"]),
+        "launches": launches,
+    }
+    print(f"[telemetry path] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_instrumented_nsga2(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 22: path 2 (NSGA-II on LSMOP1, pop 10000, d 300, m 3,
+    ``use_kernel=True``) under ``instrument(wf, analyze=True,
+    block_dispatch=True)``: the init step, one warm step, runs of 4, 4 and
+    8 generations and three steps, with every launch counter set to 0 just
+    before and read just after each (B3 and B4 once a generation). ``run_report``'s
+    analysis of ``step`` and ``run`` must charge exactly one B3 launch of
+    ``dominance_work(20000, 3)`` and one B4 launch of ``topk_work(20000,
+    10000)`` each, and the report must pass ``tools/check_report.py``.
+    Records the roofline's classification and achieved rates of both."""
+    from evox_tpu_torch.core.instrument import instrument, run_report
+
+    wf = build_checkpoint_path(torch, device=device)
+    rec = instrument(wf, analyze=True, block_dispatch=True)
+    state = wf.step(wf.init(seed))
+    state = wf.step(state)
+    launches = []
+    for n in INS_RUNS + (1, 1, 1):
+        reset_launches()
+        state = wf.run(state, n) if n > 1 else wf.step(state)
+        torch.cuda.synchronize()
+        got = read_launches()
+        want = {"fused_rollout": 0, "packed_dominance": n, "partial_topk": n,
+                "fused_mlp_rollout": 0}
+        if got != want:
+            raise AssertionError(f"launches in {n} generation(s): {got}, expected {want}")
+        launches.append(got)
+    t0 = time.perf_counter()
+    report = run_report(wf, state, recorder=rec)
+    report_s = time.perf_counter() - t0
+    validate(report, None, "path 22 (path 2 instrumented)")
+    n = 2 * NSGA2_POP
+    b3_bytes, b3_ops = dominance_work(n, LSMOP_M)
+    b4_bytes, b4_ops = topk_work(n, NSGA2_POP)
+    want_kernels = {"packed_dominance": {"launches": 1, "flops": float(b3_ops),
+                                         "bytes": float(b3_bytes)},
+                    "partial_topk": {"launches": 1, "flops": float(b4_ops),
+                                     "bytes": float(b4_bytes)}}
+    entries = report["roofline"]["entries"]
+    for name in ("step", "run"):
+        got = entries[name]["static"].get("kernels")
+        if got != want_kernels:
+            raise AssertionError(f"path 22: {name}'s analysis charges {got}, want {want_kernels}")
+    print(f"[compare] path 22: step and run each charge one B3 launch ({b3_ops:.3g} operations, "
+          f"{b3_bytes} bytes) and one B4 launch ({b4_bytes} bytes)", flush=True)
+    per_work = report["dispatch"]["entry_points"]["run"]["per_work_s"]
+    out = {
+        "runs": list(INS_RUNS),
+        "steps": 3,
+        "launches": {k: sum(x[k] for x in launches) for k in launches[0]},
+        "launches_per_run": launches,
+        "run_per_work_s": per_work,
+        "report_s": report_s,
+        "kernels_charged": want_kernels,
+        "roofline": {name: {k: e.get(k) for k in (
+            "classification", "measured_s_per_unit", "timing_method", "achieved_tflops",
+            "achieved_gbps", "frac_peak_compute", "frac_peak_bandwidth", "ideal_s",
+            "dispatch_overhead_frac")} | {
+            "flops": e["static"]["flops"], "bytes": e["static"]["bytes_accessed"],
+            "ops": e["static"]["ops"], "flops_by_dtype": e["static"]["flops_by_dtype"]}
+            for name, e in entries.items()},
+    }
+    print(f"[instrumented nsga2] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -4990,7 +5206,10 @@ def monitor_callers(name: str, paths: dict) -> list:
                 {"caller": "non_dominate in IM-MOEA's tell (path 20)", "n": imm["merged_n"],
                  "m": MO_M, "launches": imm["launches"][name],
                  **{key: imm["packed_dominance"][key] for key in ("ms", "plain_ms", "bound_ms",
-                                                                  "bound_by", "max_abs_err")}}]
+                                                                  "bound_by", "max_abs_err")}},
+                {"caller": "non_dominated_sort in NSGA-II's tell, instrumented with "
+                           "analyze=True (path 22)", "n": 2 * NSGA2_POP, "m": LSMOP_M,
+                 "launches": paths["instrumented_nsga2"]["launches"][name]}]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     shade = paths["shade"]
@@ -5011,7 +5230,10 @@ def monitor_callers(name: str, paths: dict) -> list:
              "launches": paths["islands"]["launches"]},
             {"caller": "rank_crowding_truncate in NSGA-II's tell under WorkflowCheckpointer, "
                        "straight run from init (path 18)", "n": 2 * NSGA2_POP, "k": NSGA2_POP,
-             "launches": paths["checkpoint"]["launches"][name]}]
+             "launches": paths["checkpoint"]["launches"][name]},
+            {"caller": "rank_crowding_truncate in NSGA-II's tell, instrumented with "
+                       "analyze=True (path 22)", "n": 2 * NSGA2_POP, "k": NSGA2_POP,
+             "launches": paths["instrumented_nsga2"]["launches"][name]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -5272,6 +5494,12 @@ def main() -> int:
     paths["surrogate"] = phase_surrogate_path(torch, profile=args.profile)
     paths["gp_bound"] = phase_gp_bound(torch)
     paths["immoea"] = phase_immoea_path(torch, GENERATIONS, SEED, args.profile)
+    # 14. main paths 21 (bench.py's run-telemetry leg: instrument,
+    # run_report, the roofline and the Chrome trace) and 22 (path 2
+    # instrumented, its analysis charging B3 and B4)
+    torch.cuda.empty_cache()
+    paths["telemetry"] = phase_telemetry_path(torch)
+    paths["instrumented_nsga2"] = phase_instrumented_nsga2(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -5323,6 +5551,8 @@ def main() -> int:
         "surrogate_path": paths["surrogate"],
         "gp_bound": paths["gp_bound"],
         "immoea_path": paths["immoea"],
+        "telemetry_path": paths["telemetry"],
+        "instrumented_nsga2_path": paths["instrumented_nsga2"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

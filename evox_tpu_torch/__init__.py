@@ -17,14 +17,21 @@ __version__ = "0.1.0"
 
 from .core import (
     Algorithm,
+    CostAnalyzer,
+    DispatchRecorder,
     GuardedAlgorithm,
     IPOPRestarts,
     Monitor,
     Problem,
     PyTreeNode,
+    RetraceError,
     field,
+    instrument,
     resolve_device,
+    run_report,
     static_field,
+    write_chrome_trace,
+    write_report_jsonl,
 )
 from .workflows import (
     IslandWorkflow,
@@ -37,6 +44,8 @@ from .workflows import (
 
 __all__ = [
     "Algorithm",
+    "CostAnalyzer",
+    "DispatchRecorder",
     "GuardedAlgorithm",
     "IPOPRestarts",
     "IslandWorkflow",
@@ -44,11 +53,16 @@ __all__ = [
     "Monitor",
     "Problem",
     "PyTreeNode",
+    "RetraceError",
     "StdWorkflow",
     "StdWorkflowState",
     "SurrogateWorkflow",
     "SurrogateWorkflowState",
     "field",
+    "instrument",
     "resolve_device",
+    "run_report",
     "static_field",
+    "write_chrome_trace",
+    "write_report_jsonl",
 ]

@@ -1,4 +1,5 @@
 from .algorithm import Algorithm
+from .cost import CHIP_CEILINGS, CostAnalyzer
 from .device import resolve_device
 from .guardrail import (
     TRIGGER_DIVERSITY,
@@ -10,12 +11,24 @@ from .guardrail import (
     IPOPRestarts,
     recenter_state,
 )
+from .instrument import (
+    DispatchRecorder,
+    RetraceError,
+    instrument,
+    run_report,
+    write_chrome_trace,
+    write_report_jsonl,
+)
 from .monitor import HOOK_NAMES, Monitor
 from .problem import Problem
 from .struct import PyTreeNode, field, pytree_dataclass, replace, static_field
 
 __all__ = [
     "Algorithm",
+    "CHIP_CEILINGS",
+    "CostAnalyzer",
+    "DispatchRecorder",
+    "RetraceError",
     "GuardedAlgorithm",
     "GuardedState",
     "IPOPRestarts",
@@ -29,8 +42,12 @@ __all__ = [
     "Problem",
     "PyTreeNode",
     "field",
+    "instrument",
     "pytree_dataclass",
     "replace",
     "resolve_device",
+    "run_report",
     "static_field",
+    "write_chrome_trace",
+    "write_report_jsonl",
 ]

@@ -138,6 +138,10 @@ class GenerationExecutor:
             "generations": 0,
             "asks": 0,
             "tells": 0,
+            # stale tells and their lag stay 0: only max_staleness 0 is
+            # ported (the JAX package's report carries them)
+            "stale_tells": 0,
+            "max_lag": 0,
             "bg_checkpoint": 0,
             "bg_hook": 0,
             "bg_fetch": 0,
@@ -145,7 +149,7 @@ class GenerationExecutor:
             "bg_refit": 0,
         }
         self.queue_stats: Dict[str, int] = {"io_inflight_limit": self.io_inflight,
-                                            "io_inflight_max": 0}
+                                            "io_inflight_max": 0, "stale_window_max": 0}
         # seconds: host time spent issuing the device halves (PyTorch
         # returns before the card finishes), host evaluation busy time,
         # background I/O busy time, and the wall time of executor runs

@@ -4,6 +4,7 @@ tensors on the CPU; on a CUDA tensor it launches its kernel or raises."""
 
 from .dominance import (
     column_popcount,
+    dominance_work,
     pack_dominator_rows,
     packed_dominance,
     packed_dominance_reference,
@@ -16,6 +17,7 @@ from .rollout import (
     fused_rollout_plain,
     mountain_car_soa,
     pendulum_soa,
+    rollout_work,
 )
 from .rollout_mlp import (
     PlaneEnv,
@@ -23,8 +25,15 @@ from .rollout_mlp import (
     fused_mlp_rollout,
     fused_mlp_rollout_plain,
     fused_rollout_analysis,
+    mlp_rollout_work,
 )
-from .topk import default_use_kernel, partial_topk, partial_topk_reference, total_order_key
+from .topk import (
+    default_use_kernel,
+    partial_topk,
+    partial_topk_reference,
+    topk_work,
+    total_order_key,
+)
 
 __all__ = [
     "PlaneEnv",
@@ -34,11 +43,13 @@ __all__ = [
     "chain_walker_planes",
     "column_popcount",
     "default_use_kernel",
+    "dominance_work",
     "fused_mlp_rollout",
     "fused_mlp_rollout_plain",
     "fused_rollout",
     "fused_rollout_analysis",
     "fused_rollout_plain",
+    "mlp_rollout_work",
     "mountain_car_soa",
     "pack_dominator_rows",
     "packed_dominance",
@@ -46,5 +57,7 @@ __all__ = [
     "partial_topk",
     "partial_topk_reference",
     "pendulum_soa",
+    "rollout_work",
+    "topk_work",
     "total_order_key",
 ]

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.cost import charge
 from ..core.device import DeviceLike, check_device, resolve_device
 from ..utils.common import dominate_relation
 from . import _build
@@ -55,6 +56,15 @@ SM_SMEM_BYTES = 233_472
 BLOCK_SMEM_RESERVED = 1024
 # the weight of bit k of an int32 word
 _BIT_WEIGHTS = torch.tensor([1 << k for k in range(31)] + [-(2**31)], dtype=torch.int32)
+
+
+def dominance_work(n: int, m: int) -> Tuple[int, int]:
+    """(bytes, operations) of the packed dominance matrix: fitness read
+    once, words and counts written once; per (row, column) pair 2m compares
+    and m and/or steps, about 3m operations. The bound column of PERF.md's
+    kernel table and the cost analysis (``core/cost.py``) both count so."""
+    n_words = (n + 31) // 32
+    return 4 * (n * m + n_words * n + n), 3 * m * n * n
 
 
 def column_popcount(words: torch.Tensor) -> torch.Tensor:
@@ -202,6 +212,8 @@ def _launch(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                  plan["instance"], plan["grid"][0])
     _build.check_launch("dominance", err, "packed_dominance")
     packed_dominance.launches += 1
+    nbytes, ops = dominance_work(n, m)
+    charge("packed_dominance", ops, nbytes)
     return packed, count
 
 

@@ -25,6 +25,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core.cost import charge
 from ..core.device import DeviceLike, check_device, resolve_device
 from ..problems.neuroevolution.control.envs import (
     EnvSpec,
@@ -37,6 +38,32 @@ from . import _build
 
 # environments in SoA form: state is a dict of per-env component planes
 SoAState = Dict[str, torch.Tensor]
+
+# operations of one env step and its distinct trig calls, by the env's
+# counterpart in csrc/rollout.cu (counted from that source)
+ENV_OPS = {"pendulum": (25, 2), "cartpole": (36, 2), "mountain_car": (20, 1), "acrobot": (60, 8)}
+# state planes an env reads, by observation width
+_STATE_PLANES = {2: 2, 3: 2, 4: 4, 6: 4}
+
+
+def rollout_work(n: int, episodes: int, steps: int, obs: int, hidden: int, act: int,
+                 env: str) -> Tuple[int, int]:
+    """(bytes, operations) that a fused rollout must move and do.
+
+    Bytes: genomes read once, state planes read once, returns written once.
+    Operations per env-step: the MLP's multiply-adds (2 each), one per tanh,
+    one per distinct trig call, and the env step's arithmetic
+    (:data:`ENV_OPS`). Counting a transcendental as one operation makes
+    this a lower bound. ``steps`` is the env-steps this run's data needs.
+    The bound column of PERF.md's kernel table and the cost analysis
+    (``core/cost.py``, which charges every env the whole ``T``: the live
+    steps are known only after the launch) both count so.
+    """
+    env_ops, trig = ENV_OPS[env]
+    dim = obs * hidden + hidden + hidden * act + act
+    nbytes = 4 * (n * dim + _STATE_PLANES[obs] * episodes * n + episodes * n)
+    per_step = 2 * (obs * hidden + hidden * act) + hidden + trig + env_ops
+    return nbytes, per_step * steps
 
 
 class SoAEnv(NamedTuple):
@@ -437,6 +464,9 @@ def _launch(theta, init_state, T, obs_dim, hidden, act_dim, env, episodes, n):
         )
     _build.check_launch("rollout", err, "fused_rollout")
     fused_rollout.launches += 1
+    nbytes, ops = rollout_work(n, episodes, episodes * n * int(T), obs_dim, hidden, act_dim,
+                               env.cuda_env)
+    charge("fused_rollout", ops, nbytes)
     return out
 
 

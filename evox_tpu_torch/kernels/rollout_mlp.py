@@ -45,6 +45,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.cost import charge
 from ..core.device import DeviceLike, check_device, resolve_device
 from ..problems.neuroevolution.control.envs import EnvSpec
 from ..problems.neuroevolution.control.walker import chain_walker, walker_config
@@ -79,6 +80,28 @@ class PlaneEnv(NamedTuple):
     cuda_env: Optional[str] = None
     config: Optional[dict] = None
     exploded: Optional[Callable[[PlaneState], torch.Tensor]] = None
+
+
+def mlp_rollout_work(sizes: Sequence[int], n: int, episodes: int, steps: int, n_masses: int,
+                     act_dim: int, substeps: int) -> Tuple[int, int]:
+    """(bytes, operations) that a fused walker rollout must move and do.
+
+    Bytes: each individual's weights and biases read once, the state planes
+    read once, the returns written once. Operations per live env-step,
+    counted from csrc/rollout_mlp.cu: 2 per multiply-add of the MLP, one
+    per tanh, ~32 per mass for the observation, ~60 per mass for each
+    substep's forces and integration, and the reward's sums; a
+    transcendental counts as one operation, so this is a lower bound.
+    ``steps`` is the live env-steps this run's data needs. The bound column
+    of PERF.md's kernel table and the cost analysis (``core/cost.py``,
+    which charges every env the whole ``T``: the live steps are known only
+    after the launch) both count so."""
+    policy = sum(fi * fo + fo for fi, fo in zip(sizes[:-1], sizes[1:]))
+    macs = sum(fi * fo for fi, fo in zip(sizes[:-1], sizes[1:]))
+    nbytes = 4 * (n * policy + (4 * n_masses + act_dim + 2) * episodes * n + episodes * n)
+    per_step = (2 * macs + sum(sizes[1:-1]) + 3 * act_dim + 32 * n_masses
+                + 60 * n_masses * substeps + n_masses + 6)
+    return nbytes, per_step * steps
 
 
 def _const(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -583,6 +606,9 @@ def _launch(weights, biases, init_state, T, sizes, env, episodes, linear, weight
         )
     _build.check_launch("rollout_mlp", err, "fused_mlp_rollout")
     fused_mlp_rollout.launches += 1
+    nbytes, ops = mlp_rollout_work(sizes, n, episodes, episodes * n * int(T), N, A,
+                                   cfg["substeps"])
+    charge("fused_mlp_rollout", ops, nbytes)
     return out
 
 

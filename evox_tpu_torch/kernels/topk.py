@@ -39,6 +39,7 @@ from typing import Mapping, Tuple
 
 import torch
 
+from ..core.cost import charge
 from ..core.device import DeviceLike, check_device, resolve_device
 from . import _build
 
@@ -48,8 +49,17 @@ __all__ = [
     "launch_plan",
     "partial_topk",
     "partial_topk_reference",
+    "topk_work",
     "total_order_key",
 ]
+
+
+def topk_work(n: int, k: int, rows: int = 1) -> Tuple[int, int]:
+    """(bytes, operations) of selecting the k smallest of each of ``rows``
+    rows: n floats read, k values and k indices written; one key per value
+    (a radix select needs O(n) work). The bound column of PERF.md's kernel
+    table and the cost analysis (``core/cost.py``) both count so."""
+    return rows * (4 * n + 8 * k), rows * n
 
 
 def default_use_kernel() -> bool:
@@ -224,7 +234,10 @@ def _launch(values: torch.Tensor, k: int, n: int) -> Tuple[torch.Tensor, torch.T
                 break
     if err:
         _build.check_launch("topk", err, "partial_topk")
-    partial_topk.launches += 1 if plan["code"] == 0 else rows
+    launches = 1 if plan["code"] == 0 else rows
+    partial_topk.launches += launches
+    nbytes, ops = topk_work(n, k, rows)
+    charge("partial_topk", ops, nbytes, launches=launches)
     return out_v, out_i
 
 

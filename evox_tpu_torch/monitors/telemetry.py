@@ -14,7 +14,8 @@ improvement, generation and evaluation counts; in ``post_step``, a
 getters and :meth:`TelemetryMonitor.report` read the state on the host.
 
 ``report`` is strict JSON through ``core/instrument.sanitize_json``;
-``run_report``, which merges it with host timings, waits for ROADMAP A4.
+``core/instrument.run_report`` merges it with the host's timings, and
+``write_chrome_trace`` draws ``counter_tracks`` as counter tracks.
 """
 
 from __future__ import annotations

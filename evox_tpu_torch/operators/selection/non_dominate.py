@@ -142,10 +142,27 @@ def crowding_distance_sort(fitness: torch.Tensor, mask: Optional[torch.Tensor] =
     return torch.argsort(-crowding_distance(fitness, mask), stable=True)
 
 
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32, torch.float16: torch.int16,
+         torch.bfloat16: torch.int16}
+
+
+def _canonical_rows(pop: torch.Tensor) -> torch.Tensor:
+    """``pop`` as integers under ``jnp.unique``'s equality: every NaN one
+    bit pattern (sign and payload dropped), ``-0.0`` written as ``0.0``.
+    ``torch.unique`` on floats holds NaN unequal to itself."""
+    if not pop.is_floating_point():
+        return pop
+    ints = _BITS[pop.dtype]
+    nan_bits = torch.tensor(float("nan"), dtype=pop.dtype, device=pop.device).view(ints)
+    bits = torch.where(pop == 0, torch.zeros_like(pop), pop).view(ints)
+    return torch.where(torch.isnan(pop), nan_bits, bits)
+
+
 def _first_occurrence(pop: torch.Tensor) -> torch.Tensor:
-    """``(n,)`` bool: the row is the first of its identical rows."""
+    """``(n,)`` bool: the row is the first of its equal rows, equal as
+    ``jnp.unique`` holds them (NaN equals NaN, ``-0.0`` equals ``0.0``)."""
     n = pop.shape[0]
-    unique, inverse = torch.unique(pop, dim=0, return_inverse=True)
+    unique, inverse = torch.unique(_canonical_rows(pop.reshape(n, -1)), dim=0, return_inverse=True)
     index = torch.arange(n, device=pop.device)
     # the smallest index of each group: every group has a member, so every
     # slot ends below n

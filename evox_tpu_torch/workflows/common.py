@@ -62,12 +62,27 @@ def refuse_deferred(where: str, item: str = "A11", **arguments: Any) -> None:
 
 
 def fused_run(wf: Any, state: Any, n_steps: int) -> Any:
-    """Shared ``run()`` body: ``n_steps`` generations as a plain Python loop
-    over ``wf.step``. The JAX package fuses them into one compiled
-    ``fori_loop`` (``make_run_loop``); capturing the loop as a CUDA graph
-    is later work (ROADMAP A3)."""
-    for _ in range(n_steps):
+    """Shared ``run()`` body: ``n_steps`` generations as a plain Python loop.
+    The JAX package fuses them into one compiled ``fori_loop``
+    (``make_run_loop``) after peeling the first generation through
+    ``wf.step`` when the state is fresh or the carries are donated; the
+    port peels the same generation through ``wf.step`` and runs the rest
+    through :func:`step_loop`, so a recorder on ``step``
+    (``core/instrument.py``) counts the calls the JAX package's counts.
+    Capturing the loop as a CUDA graph is later work (ROADMAP A3)."""
+    if n_steps <= 0:
+        return state
+    if state.first_step or getattr(wf, "donate_carries", False):
         state = wf.step(state)
+        n_steps -= 1
+    return step_loop(wf, state, n_steps)
+
+
+def step_loop(wf: Any, state: Any, n_steps: int) -> Any:
+    """``n_steps`` generations of ``wf._step_impl``: the loop body of
+    ``run``, the counterpart of the JAX package's ``wf._run_loop``."""
+    for _ in range(n_steps):
+        state = wf._step_impl(state)
     return state
 
 

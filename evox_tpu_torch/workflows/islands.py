@@ -26,9 +26,9 @@ fitness)`` states; PSO and the GA-skeleton MOEAs override it).
 
 The JAX package's ``external_problem``, ``dtype_policy``,
 ``donate_carries`` and ``run``'s ``checkpointer``/``resume_from`` wait for
-ROADMAP A5, ``mesh`` for A11, ``analysis_targets`` for A12: each raises
-``NotImplementedError``. Its ``use_topk_kernel`` and ``topk_interpret``
-have no counterpart: the tensor's device chooses, as in B4's wrapper.
+ROADMAP A5 and ``mesh`` for A11: each raises ``NotImplementedError``. Its
+``use_topk_kernel`` and ``topk_interpret`` have no counterpart: the
+tensor's device chooses, as in B4's wrapper.
 """
 
 from __future__ import annotations
@@ -44,7 +44,14 @@ from ..core.problem import Problem
 from ..core.struct import PyTreeNode, static_field
 from ..kernels.topk import partial_topk
 from ..utils.common import lexsort, parse_opt_direction, split_seed, tree_flatten, tree_map
-from .common import build_hook_table, finish_step, fused_run, refuse_deferred, run_hooks
+from .common import (
+    build_hook_table,
+    finish_step,
+    fused_run,
+    refuse_deferred,
+    run_hooks,
+    step_loop,
+)
 
 
 class IslandWorkflowState(PyTreeNode):
@@ -165,9 +172,17 @@ class IslandWorkflow:
         return fused_run(self, state, n_steps)
 
     def analysis_targets(self, state: IslandWorkflowState) -> dict:
-        """The JAX package's AOT cost targets have no counterpart yet."""
-        raise NotImplementedError(
-            "IslandWorkflow.analysis_targets is not ported yet (ROADMAP A12)")
+        """Entry points for the cost analysis (see
+        :meth:`StdWorkflow.analysis_targets`): the steady step and ``run`` at
+        one generation. A host problem (``jittable = False``) gives ``{}``:
+        the island model has no pipelined halves."""
+        if not getattr(self.problem, "jittable", True):
+            return {}
+        steady = state.replace(first_step=False) if state.first_step else state
+        return {
+            "step": (self._step_impl, (steady,)),
+            "run": (lambda s, n: step_loop(self, s, n), (steady, 1)),
+        }
 
     def best(self, state: IslandWorkflowState) -> Tuple[torch.Tensor, torch.Tensor]:
         """(per-island best fitness, global best) in the user's convention

@@ -35,7 +35,7 @@ from ..core.dtype_policy import DtypePolicy, apply_compute, apply_storage
 from ..core.monitor import Monitor
 from ..core.problem import Problem
 from ..core.struct import PyTreeNode, static_field
-from ..utils.common import parse_opt_direction, split_seed
+from ..utils.common import parse_opt_direction, split_seed, tree_flatten
 from .checkpoint import WorkflowCheckpointer, checkpointed_run, enter_run, restore_layouts
 from .common import (
     HostLink,
@@ -47,6 +47,7 @@ from .common import (
     quarantine_nonfinite,
     refuse_deferred,
     run_hooks,
+    step_loop,
 )
 
 
@@ -85,11 +86,13 @@ class StdWorkflow:
             nothing. Checkpoints hold the storage-dtype leaves, and the
             config guard refuses a restore under another policy.
         donate_carries: accepted for the JAX package's signature and
-            changes nothing. Donation there lets XLA reuse the carried
+            changes no number. Donation there lets XLA reuse the carried
             state's buffers instead of copying the state at every dispatch;
             eager PyTorch makes no such copy, so there is nothing to remove.
             A CUDA graph over ``run`` (ROADMAP A3) is where it would act.
-            ``run`` never changes the caller's state in place.
+            ``run`` never changes the caller's state in place; with
+            donation it runs its first generation through ``step``, as the
+            JAX package does, so a recorder counts the same calls.
     """
 
     def __init__(
@@ -153,6 +156,34 @@ class StdWorkflow:
         problem and monitor objects): where IPOP's population growth
         rebuilds the workflow (``workflows/ipop.py``)."""
         return StdWorkflow(algorithm, **self._ctor_args)
+
+    def analysis_targets(self, state: StdWorkflowState) -> dict:
+        """Entry points for the cost analysis (``core/cost.py``):
+        ``{name: (callable, example_args)}``, the code each entry point runs,
+        unwrapped by any recorder.
+
+        The steady state (``first_step=False``) is analysed: what every
+        generation after the first runs. ``run`` is analysed at one
+        generation, the unit the recorder's differenced slope measures. A
+        host problem is analysed through the pipelined halves (what
+        ``run_host_pipelined`` runs): ``pipeline_tell`` on the ctx of one
+        ``pipeline_ask`` run here and a fitness of zeros of the problem's
+        ``fit_shape``; the host ``evaluate`` between them is outside the
+        analysis, as in the JAX package."""
+        steady = state.replace(first_step=False) if state.first_step else state
+        if self.external:
+            cand, ctx = self._pipeline_ask_impl(steady)
+            leaves = tree_flatten(cand)[0]  # a screening workflow adds its row count
+            pop = next(x for x in leaves if isinstance(x, torch.Tensor)).shape[0]
+            fitness = torch.zeros(self.problem.fit_shape(pop), device=self.device)
+            return {
+                "pipeline_ask": (self._pipeline_ask_impl, (steady,)),
+                "pipeline_tell": (self._pipeline_tell_impl, (steady, ctx, fitness, steady.prob)),
+            }
+        return {
+            "step": (self._step_impl, (steady,)),
+            "run": (lambda s, n: step_loop(self, s, n), (steady, 1)),
+        }
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> StdWorkflowState:
@@ -329,6 +360,18 @@ class StdWorkflow:
 
     def pipeline_ask(self, state: StdWorkflowState) -> Tuple[Any, Any]:
         """``(candidates, ctx)``: everything before the evaluation."""
+        return self._pipeline_ask_impl(state)
+
+    def pipeline_tell(self, state: StdWorkflowState, ctx: Any, fitness: Any,
+                      pstate: Any) -> StdWorkflowState:
+        """Everything after the evaluation: takes ``pipeline_ask``'s ctx and
+        the (fitness, problem state) of the evaluation; a numpy fitness is
+        coerced to 32 bits and copied to the device."""
+        return self._pipeline_tell_impl(state, ctx, fitness, pstate)
+
+    # the halves' bodies: ``step`` and the analysis call these, so a
+    # recorder on the public entry points counts only the caller's calls
+    def _pipeline_ask_impl(self, state: StdWorkflowState) -> Tuple[Any, Any]:
         # storage -> compute at step entry: every reduction of the step runs
         # in the compute dtype
         state = apply_compute(state, self.dtype_policy)
@@ -343,11 +386,8 @@ class StdWorkflow:
         self._run_hooks("pre_eval", mstates, cand)
         return cand, (astate, tuple(mstates), cand)
 
-    def pipeline_tell(self, state: StdWorkflowState, ctx: Any, fitness: Any,
-                      pstate: Any) -> StdWorkflowState:
-        """Everything after the evaluation: takes ``pipeline_ask``'s ctx and
-        the (fitness, problem state) of the evaluation; a numpy fitness is
-        coerced to 32 bits and copied to the device."""
+    def _pipeline_tell_impl(self, state: StdWorkflowState, ctx: Any, fitness: Any,
+                            pstate: Any) -> StdWorkflowState:
         astate, mstates_t, cand = ctx
         mstates = list(mstates_t)
         if not isinstance(fitness, torch.Tensor):
@@ -370,6 +410,6 @@ class StdWorkflow:
         return finish_step(self.monitors, self._hook_table, new_state)
 
     def _step_impl(self, state: StdWorkflowState) -> StdWorkflowState:
-        cand, ctx = self.pipeline_ask(state)
+        cand, ctx = self._pipeline_ask_impl(state)
         fitness, pstate = self._evaluate(state.prob, cand)
-        return self.pipeline_tell(state, ctx, fitness, pstate)
+        return self._pipeline_tell_impl(state, ctx, fitness, pstate)

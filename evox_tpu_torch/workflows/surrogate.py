@@ -427,19 +427,19 @@ class SurrogateWorkflow(StdWorkflow):
                                                   self._k_for(plan.order.shape[0]))
         return self._tell_half(state, ctx, fitness, pstate, refit_inline=True)
 
-    def pipeline_ask(self, state: SurrogateWorkflowState) -> Tuple[Any, Any]:
+    def _pipeline_ask_impl(self, state: SurrogateWorkflowState) -> Tuple[Any, Any]:
         """``((candidates, rows to evaluate), ctx)`` when screening: only
         the leading ``n_eval`` rows reach the problem
         (:meth:`host_evaluate`)."""
         if not self._screening:
-            return super().pipeline_ask(state)
+            return super()._pipeline_ask_impl(state)
         cand, ctx = self._ask_half(state)
         return (cand, ctx[2][2].n_eval), ctx
 
-    def pipeline_tell(self, state: SurrogateWorkflowState, ctx: Any, fitness: Any,
-                      pstate: Any) -> SurrogateWorkflowState:
+    def _pipeline_tell_impl(self, state: SurrogateWorkflowState, ctx: Any, fitness: Any,
+                            pstate: Any) -> SurrogateWorkflowState:
         if not self._screening:
-            return super().pipeline_tell(state, ctx, fitness, pstate)
+            return super()._pipeline_tell_impl(state, ctx, fitness, pstate)
         # the refit is the executor's (dispatch_refit), one owner per driver
         return self._tell_half(state, ctx, fitness, pstate, refit_inline=False)
 

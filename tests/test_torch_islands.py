@@ -188,8 +188,8 @@ def test_constructor_refusals_and_deferred_arguments():
     for name in ("checkpointer", "resume_from"):
         with pytest.raises(NotImplementedError, match="A5"):
             wf.run(state, 1, **{name: "ckpt"})
-    with pytest.raises(NotImplementedError, match="A12"):
-        wf.analysis_targets(state)
+    # analysis_targets is ported: the steady step and run at one generation
+    assert set(wf.analysis_targets(state)) == {"step", "run"}
     with pytest.raises(ValueError, match="migrate_k=9"):
         wf.step(state)  # 9 migrants from a batch of 8
     if not torch.cuda.is_available():  # device=None means cuda

@@ -52,6 +52,7 @@ from evox_tpu_torch.problems.numerical import LSMOP1, ZDT1
 
 # the module, not the function of the same name its package exports
 jnd = importlib.import_module("evox_tpu.operators.selection.non_dominate")
+tnd = importlib.import_module("evox_tpu_torch.operators.selection.non_dominate")
 
 # SBX and polynomial mutation raise float32 numbers to powers (1/21 and 21)
 # in chains; the two libraries' pow may differ in the last ulps.
@@ -248,6 +249,30 @@ def test_non_dominate_deduplicate_matches_jax():
     t_pop, t_fit = NonDominate(60)(_t(pop), _t(fit))
     np.testing.assert_array_equal(t_pop.numpy(), _np(j_pop))
     np.testing.assert_array_equal(t_fit.numpy(), _np(j_fit))
+
+
+def test_non_dominate_deduplicate_nan_and_signed_zero_rows_match_jax():
+    """``jnp.unique`` holds every NaN equal to every other (sign and
+    payload aside) and ``-0.0`` equal to ``0.0``: repeated NaN rows, NaN
+    rows with other payloads or signs, and ``±0.0`` rows give JAX's
+    first-occurrence mask and survivors exactly."""
+    bits = lambda b: np.array(b, dtype=np.uint32).view(np.float32)
+    nan, quiet1, neg, signalling = np.nan, bits(0x7FC00001), bits(0xFFC00000), bits(0x7F800001)
+    pop = np.array([[nan, 1], [nan, 1], [2, 1], [0, 3], [-0.0, 3], [quiet1, 1], [neg, 1],
+                    [signalling, 1], [1, nan], [1, quiet1], [-0.0, -0.0], [0.0, 0.0],
+                    [5, 5], [2, 1]], dtype=np.float32)
+    n = pop.shape[0]
+    _, idx = jnp.unique(jnp.asarray(pop), axis=0, size=n, return_index=True,
+                        fill_value=jnp.nan)
+    want_first = np.zeros(n, dtype=bool)
+    want_first[_np(idx)] = True
+    np.testing.assert_array_equal(tnd._first_occurrence(_t(pop)).numpy(), want_first)
+    fit = _mo_fitness(n, 2, 11)
+    for k in (4, 7, 10):
+        want = _np(jnd.non_dominate_indices(jnp.asarray(fit), k, jnp.asarray(pop),
+                                            deduplicate=True))
+        got = non_dominate_indices(_t(fit), k, _t(pop), deduplicate=True)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ------------------------------------------------------- problem and metric
