@@ -319,11 +319,36 @@ exit 0):
    and ``run`` charges one B3 launch of ``dominance_work(20000, 3)`` and
    one B4 launch of ``topk_work(20000, 10000)`` each, and the report
    validates; the roofline's classification and achieved rates.
-22. a ``{"kernels": [...]}`` line (B1-B4 with their call sites: B1 on
-   paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13, B3
-   and B4 on paths 18 and 22 too, B3 on path 20, B4 batched on path 14 as
-   ``partial_topk_rows``), then the last line ``{"ok": true, "device":
-   {...}}``.
+22. main path 23: stale tells on workload 6's host Sphere and shapes
+   (pop 2048, d 512, 4 ms, seed 13) under OpenES, ``run_host_pipelined(
+   max_staleness=K)`` at K 0, 1, 2 in turns (ms a generation, stale tells,
+   the largest lag and window, ``overlap_efficiency``, the copies), K 0
+   against a ``wf.step`` loop bit for bit, and JAX's staleness gate (OpenES
+   d 8, pop 64, 2 ms, 150 generations at K 1 and 2: f(center) < 0.05, more
+   than 100 stale tells, lag in [1, K], the report valid). Main path 24:
+   path 14 with a host Ackley (``external_problem=True``) against the
+   device problem, checkpointed every 8 for 32 generations with a crash and
+   a resume, and bf16 storage with donated carries in turns with float32,
+   all bit for bit where stated, one batched B4 launch a migration. Main
+   path 25: ``bench.py``'s workload 12, path 4's CSO through
+   ``GenerationExecutor(metrics=FlightRecorder(directory=tmp)).run_fused``
+   in chunks of 100 with a fsynced sample a chunk against ``metrics=None``
+   (trip counts 100 and 600 differenced, in turns): the stream and the
+   report validate, the states are equal. Main path 26: workload 12b,
+   ``StateAttestor(every=10, capacity=64)`` against bare ``wf.run`` the same
+   way; D1 (``csrc/digest.cu``) once an attestation, each ring digest equal
+   to ``host_state_digest``, D1 against its plain version on CSO's state,
+   on stress leaves and on a chained state, bit for bit; ``run_fused(
+   verify_every=1)`` healing a lying dispatch, three distinct digests
+   raising ``IntegrityError``, ``bisect_divergence`` naming a flipped
+   generation. Main path 27: ``LineageMonitor`` on paths 9 and 2 against
+   unmonitored twins in turns (states bit for bit, one more B3 launch a
+   generation on path 2, the ``search`` section valid).
+23. a ``{"kernels": [...]}`` line (B1-B4 and D1 with their call sites: B1
+   on paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13,
+   B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched on
+   paths 14 and 24 as ``partial_topk_rows``, D1 on path 26), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -461,6 +486,26 @@ TEL_GENERATION = 2 * TEL_GENS + 10 * TEL_GENS + 3  # 363
 # main path 22: path 2 instrumented with analyze=True, runs of 4, 4 and 8
 # generations (two warm work counts: the differenced slope without the cold call)
 INS_RUNS = (4, 4, 8)
+# main path 23: workload 6's host Sphere and shapes (pop 2048, d 512, 4 ms,
+# seed 13) under OpenES with JAX's staleness gate's steps (center 5,
+# learning rate 0.15, noise 0.3), K 0, 1, 2 in turns of 20 generations; the
+# gate itself: d 8, pop 64, a 2 ms sleep, 150 generations at K 1 and 2
+STALE_CENTER, STALE_LR, STALE_SIGMA, STALE_GENERATIONS, STALE_LAW_GENERATIONS = 5.0, 0.15, 0.3, 20, 10
+STALE_GATE_POP, STALE_GATE_DIM, STALE_GATE_SLEEP, STALE_GATE_GENERATIONS = 64, 8, 0.002, 150
+# main path 24: path 14 checkpointed every 8 for 32 generations
+ISL_CKPT_EVERY, ISL_CKPT_GENERATIONS = 8, 32
+# main paths 25 and 26: bench.py:1525-1638's workloads 12 and 12b, path 4's
+# CSO (seed 42) in chunks of 100 with one sample a chunk, and attested every
+# 10 into a ring of 64; trip counts 100 and 600 differenced, each the least
+# of three timings, in six turns; the ring checked against the host over 60 generations
+MET_CHUNK, MET_PAIR, MET_REPEATS = 100, (100, 600), 3
+ATT_EVERY, ATT_CAPACITY, ATT_PAIR, ATT_RING_CHECK = 10, 64, (100, 600), 60
+# the voted re-dispatch on path 4: 30 generations in chunks of 10; the
+# bisection: a bit flipped at generation 13, attested every 5, 30 generations
+VOTE_GENERATIONS, VOTE_CHUNK = 30, 10
+BISECT_EVERY, BISECT_FLIP, BISECT_GENERATIONS = 5, 13, 30
+# main path 27: the lineage rings' capacity on paths 9 and 2
+LIN_CAPACITY = 64
 # fused_rollout's wide-angle pendulum cases: (n, episodes)
 PENDULUM_STRESS = ((65536, 2), (1500, 2), (40000, 3))
 # main path 12: path 1's shape (OpenES, pop 65536, 2 episodes, flat 1-hidden
@@ -5162,6 +5207,720 @@ def phase_instrumented_nsga2(torch, seed: int = SEED, device=None) -> dict:
     return out
 
 
+# ----------------------------------------------------------- main path 23
+
+
+class StaleHostSphere(HostEvalSphere):
+    """The host Sphere with its own sleep: workload 6's at 4 ms, JAX's
+    staleness gate's at 2 ms."""
+
+    def __init__(self, sleep: float):
+        self.sleep = sleep
+
+    def evaluate(self, state, pop):
+        import numpy as np
+
+        time.sleep(self.sleep)
+        return np.sum(np.asarray(pop) ** 2, axis=1).astype(np.float32), state
+
+
+def build_stale_path(torch, pop: int = HE_POP, dim: int = HE_DIM, sleep: float = HE_SLEEP,
+                     center: float = STALE_CENTER, device=None):
+    """Main path 23: workload 6's host Sphere and shapes (``bench.py:613-
+    707``) under OpenES with JAX's staleness gate's step sizes (learning
+    rate 0.15, noise 0.3, center 5)."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import OpenES
+
+    algo = OpenES(torch.full((dim,), center), pop, learning_rate=STALE_LR,
+                  noise_stdev=STALE_SIGMA, device=device)
+    return StdWorkflow(algo, StaleHostSphere(sleep), device=device)
+
+
+def phase_stale_path(torch, seed: int = HE_SEED, gens: int = STALE_GENERATIONS,
+                     device=None) -> dict:
+    """Main path 23: stale tells. ``run_host_pipelined(max_staleness=K)`` at
+    K 0, 1 and 2 in turns (0, 1, 2, 2, 1, 0), each ``gens`` generations
+    from the state after 3 warm ones: ms a generation, the executor's
+    stale counters and ``overlap_efficiency``, the copies. K 0 equals a
+    ``wf.step`` loop bit for bit. Then JAX's gate on the card: OpenES d 8,
+    pop 64, a host Sphere sleeping 2 ms, 150 generations at K 1 and 2."""
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.core.instrument import run_report
+    from evox_tpu_torch.monitors import TelemetryMonitor
+    from evox_tpu_torch.workflows import run_host_pipelined
+
+    wf = build_stale_path(torch, device=device)
+    state = run_host_pipelined(wf, wf.init(seed), 3)
+    # warm the pinned blocks and worker threads of the widest window
+    run_host_pipelined(wf, state, 3, max_staleness=2)
+    looped = state
+    for _ in range(STALE_LAW_GENERATIONS):
+        looped = wf.step(looped)
+    piped = run_host_pipelined(wf, state, STALE_LAW_GENERATIONS, max_staleness=0)
+    law = compare_exact(f"stale path: {STALE_LAW_GENERATIONS} generations at K 0 against a "
+                        "wf.step loop", [piped.algo.center], [looped.algo.center])
+    turns = []
+    for K in (0, 1, 2, 2, 1, 0):
+        ex = GenerationExecutor(max_staleness=K)
+        link0 = wf.host_link.report()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = run_host_pipelined(wf, state, gens, executor=ex)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(read_launches().values()):
+            raise AssertionError(f"kernel launches on the stale path: {read_launches()}")
+        link1 = wf.host_link.report()
+        rep = ex.report()
+        if end.generation != state.generation + gens or rep["counters"]["tells"] != gens:
+            raise AssertionError(f"stale path K {K}: {end.generation}, {rep['counters']}")
+        if rep["counters"]["max_lag"] != K or rep["queue"]["stale_window_max"] != K + 1:
+            raise AssertionError(f"stale path K {K}: lag {rep['counters']['max_lag']}, "
+                                 f"window {rep['queue']['stale_window_max']}")
+        turn = {"K": K, "ms_per_generation": wall / gens * 1e3,
+                "stale_tells": rep["counters"]["stale_tells"],
+                "max_lag": rep["counters"]["max_lag"],
+                "stale_window_max": rep["queue"]["stale_window_max"],
+                "overlap_efficiency": rep["overlap"]["overlap_efficiency"],
+                "host_eval_ms_per_generation": rep["overlap"]["host_eval_s"] * 1e3 / gens,
+                "d2h_bytes_per_generation": (link1["d2h_bytes"] - link0["d2h_bytes"]) / gens,
+                "d2h_ms_per_generation": (None if link1["d2h_ms"] is None
+                                          else (link1["d2h_ms"] - link0["d2h_ms"]) / gens),
+                "f_center": float(torch.sum(end.algo.center ** 2))}
+        print(f"[stale path] {json.dumps(turn)}", flush=True)
+        turns.append(turn)
+    medians = {K: statistics.median(t["ms_per_generation"] for t in turns if t["K"] == K)
+               for K in (0, 1, 2)}
+    gate = {}
+    for K in (1, 2):
+        gwf = build_stale_path(torch, pop=STALE_GATE_POP, dim=STALE_GATE_DIM, sleep=STALE_GATE_SLEEP,
+                               device=device)
+        gwf = type(gwf)(gwf.algorithm, gwf.problem, monitors=(TelemetryMonitor(16, device=device),),
+                        device=device)
+        ex = GenerationExecutor(max_staleness=K)
+        t0 = time.perf_counter()
+        end = ex.run_host(gwf, gwf.init(0), STALE_GATE_GENERATIONS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = run_report(gwf, end, executor=ex)
+        c = rep["executor"]["counters"]
+        f = float(torch.sum(end.algo.center ** 2))
+        gate[f"K{K}"] = {"f_center": f, "stale_tells": c["stale_tells"], "max_lag": c["max_lag"],
+                         "ms_per_generation": wall / STALE_GATE_GENERATIONS * 1e3}
+        if not (f < 0.05 and c["stale_tells"] > 100 and 1 <= c["max_lag"] <= K
+                and rep["executor"]["max_staleness"] == K):
+            raise AssertionError(f"JAX's staleness gate at K {K}: {gate[f'K{K}']}")
+        validate(report=rep, label=f"stale path, the gate's report at K {K}")
+    out = {"pop": HE_POP, "dim": HE_DIM, "sleep_ms": HE_SLEEP * 1e3, "generations": gens,
+           "turns": turns, "median_ms_per_generation": medians, "k0_equals_step_loop": law,
+           "gate": gate}
+    print(f"[stale path] medians {json.dumps(medians)} gate {json.dumps(gate)}", flush=True)
+    return out
+
+
+# ----------------------------------------------------------- main path 24
+
+
+class HostAckley:
+    """Ackley as a host problem (numpy in, numpy out) that scores through
+    the card's own ``Ackley``: the island run through the host path then
+    equals the device problem's run bit for bit, and the comparison checks
+    the host plumbing (the flattened batch's copies) alone."""
+
+    jittable = False
+    fit_dtype = "float32"
+
+    def __init__(self, torch, device):
+        from evox_tpu_torch.problems.numerical import Ackley
+
+        self.torch, self.device, self.inner, self.calls = torch, device, Ackley(), 0
+
+    def init(self, seed=None):
+        return None
+
+    def fit_shape(self, pop_size):
+        return (pop_size,)
+
+    def evaluate(self, state, pop):
+        self.calls += 1
+        x = self.torch.from_numpy(pop).to(self.device)
+        return self.inner.evaluate(None, x)[0].cpu().numpy(), state
+
+
+def _island_tensors(state) -> list:
+    return [t for s in state.algo for t in _pso_tensors(s)]
+
+
+def phase_island_arguments(torch, seed: int = ISL_SEED, device=None) -> dict:
+    """Main path 24: path 14 (8 PSO islands of 512, Ackley d 256, migration
+    every 8) with A5's arguments. (a) ``external_problem=True`` on a host
+    Ackley against the device problem, 16 generations, bit for bit. (b)
+    ``run(checkpointer=WorkflowCheckpointer(every=8, keep=3))`` for 32
+    generations against the straight run, then the newest snapshot
+    deleted (a crash after 24), and a fresh workflow's
+    ``run(resume_from=)`` to 32: bit for bit. (c) ``dtype_policy=
+    BF16_STORAGE, donate_carries=True`` in turns with the float32 twin
+    (bf16, f32, f32, bf16), 16 generations each. One batched B4 launch a
+    migration throughout."""
+    import tempfile
+
+    from evox_tpu_torch import IslandWorkflow
+    from evox_tpu_torch.core.dtype_policy import BF16_STORAGE
+    from evox_tpu_torch.workflows.checkpoint import WorkflowCheckpointer
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    base, _ = build_island_paths(torch, device=device)
+
+    def make(**kw):
+        return IslandWorkflow(base.algorithm, kw.pop("problem", base.problem), n_islands=ISL_N,
+                              migrate_every=ISL_EVERY, device=device, **kw)
+
+    out = {"n_islands": ISL_N, "pop": ISL_POP, "dim": ISL_DIM, "every": ISL_EVERY}
+    # (a) a host problem over the flattened (8 x 512, 256) batch
+    host_problem = HostAckley(torch, dev)
+    host_wf, device_wf = make(problem=host_problem, external_problem=True), make()
+    walls, ends = {}, {}
+    for name, wf in (("host", host_wf), ("device", device_wf)):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ends[name] = wf.run(wf.init(seed), ISL_GENERATIONS)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) / ISL_GENERATIONS * 1e3
+        if read_launches()["partial_topk"] != ISL_GENERATIONS // ISL_EVERY:
+            raise AssertionError(f"island arguments ({name}): {read_launches()}")
+    out["external_problem"] = {
+        "ms_per_generation": walls, "host_calls": host_problem.calls,
+        "copies": host_wf.host_link.report(),
+        "equal": compare_exact("islands: a host Ackley against the device problem, "
+                               f"{ISL_GENERATIONS} generations", _island_tensors(ends["host"]),
+                               _island_tensors(ends["device"]))}
+    # (b) the checkpointed run, a crash and a resume
+    with tempfile.TemporaryDirectory(prefix="evox_islands_") as tmp:
+        wf = make()
+        straight = wf.run(wf.init(seed), ISL_CKPT_GENERATIONS)
+        ckpt = WorkflowCheckpointer(tmp, every=ISL_CKPT_EVERY, keep=3)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = wf.run(wf.init(seed), ISL_CKPT_GENERATIONS, checkpointer=ckpt)
+        torch.cuda.synchronize()
+        ckpt_ms = (time.perf_counter() - t0) / ISL_CKPT_GENERATIONS * 1e3
+        launches = read_launches()["partial_topk"]
+        snapshots = [p.name for p in ckpt.snapshots()]
+        for p in Path(tmp).glob(f"ckpt_{ISL_CKPT_GENERATIONS:08d}*"):
+            p.unlink()
+        fresh = make()
+        resumed = fresh.run(fresh.init(seed), ISL_CKPT_GENERATIONS, resume_from=tmp)
+        out["checkpoint"] = {
+            "every": ISL_CKPT_EVERY, "generations": ISL_CKPT_GENERATIONS,
+            "ms_per_generation": ckpt_ms, "snapshots": snapshots, "partial_topk_launches": launches,
+            "saved_equals_straight": compare_exact("islands: the checkpointed run against the "
+                                                   "straight run", _island_tensors(saved),
+                                                   _island_tensors(straight)),
+            "resume_equals_straight": compare_exact(
+                f"islands: resumed from generation {ISL_CKPT_GENERATIONS - ISL_CKPT_EVERY} to "
+                f"{ISL_CKPT_GENERATIONS} against the straight run", _island_tensors(resumed),
+                _island_tensors(straight))}
+    # (c) bf16 storage with donated carries against float32, in turns
+    runs = {"bf16": make(dtype_policy=BF16_STORAGE, donate_carries=True),
+            "f32": make(donate_carries=True)}
+    states = {k: wf.run(wf.init(seed), ISL_EVERY) for k, wf in runs.items()}
+    turns = []
+    for name in ("bf16", "f32", "f32", "bf16"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = runs[name].run(states[name], ISL_GENERATIONS)
+        torch.cuda.synchronize()
+        turns.append({"policy": name,
+                      "ms_per_generation": (time.perf_counter() - t0) / ISL_GENERATIONS * 1e3,
+                      "partial_topk_launches": read_launches()["partial_topk"]})
+        if name == "bf16":
+            for i in (0, ISL_N - 1):
+                check_storage_dtypes(torch, end.algo[i], states["f32"].algo[i], "bf16 islands")
+    out["bf16"] = {"turns": turns, "median_ms_per_generation": {
+        p: statistics.median(t["ms_per_generation"] for t in turns if t["policy"] == p)
+        for p in ("bf16", "f32")}}
+    print(f"[island arguments] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ----------------------------------------------------- main paths 25 and 26
+
+
+def _differenced_ms(timed, pair) -> dict:
+    """bench.py's differenced slope: the least of ``MET_REPEATS`` timings
+    at each trip count, ms a generation from their difference."""
+    t1 = min(timed(pair[0]) for _ in range(MET_REPEATS))
+    t2 = min(timed(pair[1]) for _ in range(MET_REPEATS))
+    return {"t_s": [t1, t2], "ms_per_generation": (t2 - t1) / (pair[1] - pair[0]) * 1e3}
+
+
+def phase_metrics_path(torch, seed: int = BF16_SEED, device=None, out_dir=None) -> dict:
+    """Main path 25: ``bench.py``'s workload 12. Path 4's CSO through
+    ``GenerationExecutor(metrics=FlightRecorder(directory=tmp)).run_fused``
+    in chunks of 100, with ``slo.tenant_gens`` counted and one fsynced
+    ``sample`` a chunk, against the same chunked loop with
+    ``metrics=None``, in turns (instrumented, bare, bare, instrumented),
+    trip counts 100 and 600 differenced. The stream must pass
+    ``validate_metrics_stream``, the report's ``metrics`` and ``slo``
+    sections ``validate_run_report``, and the final states must be equal
+    bit for bit."""
+    import shutil
+    import tempfile
+
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.core.instrument import run_report
+    from evox_tpu_torch.workflows.flightrec import FlightRecorder, read_stream
+
+    wf, _ = build_cso_path(torch, device=device)
+    state = wf.step(wf.step(wf.init(seed)))
+    tmp = tempfile.mkdtemp(prefix="evox_metrics_", dir=out_dir)
+    recorder = FlightRecorder(directory=tmp)
+    sides = {"instrumented": (GenerationExecutor(metrics=recorder), recorder),
+             "bare": (GenerationExecutor(), None)}
+    finals = {}
+
+    def measurer(name):
+        ex, fr = sides[name]
+
+        def timed(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = state
+            for k in range(n // MET_CHUNK):
+                s = ex.run_fused(wf, s, MET_CHUNK)
+                if fr is not None:
+                    fr.count("slo.tenant_gens", MET_CHUNK)
+                    fr.sample(generation=(k + 1) * MET_CHUNK)
+            torch.cuda.synchronize()
+            finals[name] = s
+            return time.perf_counter() - t0
+
+        return timed
+
+    for name in sides:
+        for n in MET_PAIR:
+            measurer(name)(n)  # warm both trip counts
+    turns = []
+    for name in ("instrumented", "bare", "bare", "instrumented", "instrumented", "bare"):
+        turn = {"side": name, **_differenced_ms(measurer(name), MET_PAIR)}
+        print(f"[metrics path] {json.dumps(turn)}", flush=True)
+        turns.append(turn)
+    med = {s: statistics.median(t["ms_per_generation"] for t in turns if t["side"] == s)
+           for s in sides}
+    equal = compare_exact("metrics path: the instrumented run's final state against the bare one",
+                          [finals["instrumented"].algo.population, finals["instrumented"].algo.velocity,
+                           finals["instrumented"].algo.fitness],
+                          [finals["bare"].algo.population, finals["bare"].algo.velocity,
+                           finals["bare"].algo.fitness])
+    records = read_stream(tmp)
+    errors = check_report_module().validate_metrics_stream(records)
+    if errors:
+        raise AssertionError(f"metrics path: the stream fails validation: {errors[:5]}")
+    report = run_report(wf, finals["instrumented"], executor=sides["instrumented"][0],
+                        metrics=recorder)
+    validate(report=report, label="metrics path, the report's metrics and slo sections")
+    snap = recorder.registry.snapshot()
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = {"pop": CSO_POP, "dim": CSO_DIM, "chunk": MET_CHUNK, "pair": list(MET_PAIR),
+           "turns": turns, "median_ms_per_generation": med,
+           "bare_over_instrumented": med["bare"] / med["instrumented"],
+           "bench_law": 0.98,  # the JAX package's ratio, a reference only
+           "stream_records": len(records),
+           "samples": sum(1 for r in records if r.get("kind") == "sample"),
+           "dispatches": snap["counters"]["executor.dispatches"],
+           "dispatch_ms_histogram": snap["histograms"]["executor.dispatch_ms"],
+           "slo": report["slo"], "states_equal": equal}
+    print(f"[metrics path] {json.dumps(out)}", flush=True)
+    return out
+
+
+def _flip_bit(torch, state, leaf: str, index: int = 0, bit: int = 0):
+    """``state`` with one bit flipped in the float32 tensor at the dotted
+    path ``leaf`` (a silent-data-corruption stand-in)."""
+    import dataclasses
+
+    head, _, rest = leaf.partition(".")
+    if rest:
+        return dataclasses.replace(state, **{head: _flip_bit(torch, getattr(state, head), rest,
+                                                             index, bit)})
+    x = getattr(state, head)
+    words = x.contiguous().view(torch.int32).reshape(-1).clone()
+    words[index] ^= 1 << bit
+    return dataclasses.replace(state, **{head: words.view(torch.float32).reshape(x.shape)})
+
+
+class LyingRun:
+    """``wf.run`` that answers wrongly on scripted call indices: ``perturb``
+    flips one mantissa bit of the population, ``stale`` hands back the
+    previous honest result."""
+
+    def __init__(self, torch, fn, lies):
+        self.torch, self.fn, self.lies, self.calls, self.last = torch, fn, dict(lies), 0, None
+
+    def __call__(self, state, n):
+        flavor = self.lies.get(self.calls)
+        self.calls += 1
+        result = self.fn(state, n)
+        if flavor is None:
+            self.last = result
+            return result
+        if flavor == "stale":
+            return self.last
+        return _flip_bit(self.torch, result, "algo.population", 5)
+
+
+def digest_stress_leaves(torch, dev) -> dict:
+    """Leaves of every dtype case on the card: NaN with payloads, +-inf,
+    +-0.0, float64 and float16 with NaN and inf, bf16 (no NaN counted),
+    int64, int8, bool, uint8, an empty leaf, a leaf at an odd offset (the
+    scalar route), a 0-d leaf and Python seeds."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    f32 = torch.randn(100003, generator=g)
+    f32[:4] = torch.tensor([0x7FC00000, -0x3FFFFFFF, 0x7F800001, 0x7FBFFFFF],
+                           dtype=torch.int32).view(torch.float32)
+    f32[4:8] = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0])
+    f64 = torch.randn(4099, generator=g, dtype=torch.float64)
+    f64[:3] = torch.tensor([float("nan"), float("inf"), -0.0], dtype=torch.float64)
+    f16 = torch.randn(5001, generator=g).half()
+    f16[:2] = torch.tensor([float("nan"), float("-inf")]).half()
+    bf16 = torch.randn(7000, generator=g).bfloat16()
+    bf16[:2] = torch.tensor([float("nan"), float("inf")]).bfloat16()
+    leaves = {"f32": f32, "f64": f64, "f16": f16, "bf16": bf16,
+              "i64": torch.randint(-2**62, 2**62, (3001,), generator=g),
+              "i8": torch.randint(-128, 128, (999,), generator=g, dtype=torch.int8),
+              "u8": torch.randint(0, 256, (65537,), generator=g, dtype=torch.uint8),
+              "bool": torch.rand(4097, generator=g) < 0.5,
+              "empty": torch.zeros((0, 5)),
+              "scalar": torch.tensor(2.5)}
+    leaves = {k: v.to(dev) for k, v in leaves.items()}
+    leaves["odd_offset"] = leaves["f32"][1:]  # not 16-byte aligned: the scalar route
+    leaves["f64_odd"] = leaves["f64"][1:]
+    return {**leaves, "seed": 12345, "big_seed": 2**40 + 7}
+
+
+def d1_kernel_ms(torch, leaves, salts, reps: int = 40) -> float:
+    """D1's device ms a launch: raw launches of ``csrc/digest.cu`` on
+    prebuilt tables (a few µs of host a call, under the kernel's time),
+    alternating between ``leaves`` and a copy of them, so that the two
+    (2 x 33.6 MB on CSO's state) exceed the 50 MB L2 and each launch reads
+    its words from device memory; CUDA events around ``reps`` launches."""
+    import numpy as np
+
+    from evox_tpu_torch.kernels import _build
+    from evox_tpu_torch.kernels import digest as kd
+
+    fn = _build.function("digest", "evox_state_digest", kd._SIGNATURE)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, alive = [], []
+    for group in (list(leaves), [x.clone() for x in leaves]):
+        rows, n_blocks, flat = kd._table(group, salts)
+        carry = np.asarray(kd.IDENTITY, np.uint32)
+        dev = group[0].device
+        partial = torch.empty((n_blocks * kd.DIGEST_WORDS + 1,), dtype=torch.int32, device=dev)
+        leaf_out = torch.empty((len(group), kd.DIGEST_WORDS), dtype=torch.int64, device=dev)
+        out = torch.empty((kd.DIGEST_WORDS,), dtype=torch.int64, device=dev)
+        calls.append((rows.ctypes.data, len(group), carry.ctypes.data, n_blocks, partial.data_ptr(),
+                      leaf_out.data_ptr(), out.data_ptr(), None, stream))
+        alive.append((rows, carry, partial, leaf_out, out, flat, group))
+
+    def run():
+        for i in range(reps):
+            _build.check_launch("digest", fn(*calls[i % 2]), "state digest")
+
+    return _time_ms(run, 1, 1) / reps
+
+
+def phase_digest_kernel(torch, state, dev) -> dict:
+    """D1 against its plain version on the card, bit for bit: every tensor
+    leaf of path 4's CSO state in one launch, the stress leaves, and a
+    state of more leaves than a table (chained launches); both against
+    ``host_state_digest``. Times D1 and the plain version on CSO's state
+    (CUDA events) beside their bound."""
+    import numpy as np
+
+    from evox_tpu_torch.core.attest import _salt, host_state_digest, state_digest
+    from evox_tpu_torch.core.struct import named_leaves
+    from evox_tpu_torch.kernels import digest as kd
+
+    def check(label, tree):
+        named = [(n, x) for n, x in named_leaves(tree) if isinstance(x, torch.Tensor) and x.numel()]
+        leaves, salts = [x for _, x in named], [_salt(n) for n, _ in named]
+        got, got_rows = kd.digest_leaves(leaves, salts)
+        want, want_rows = kd.digest_leaves_plain(leaves, salts)
+        stats = compare_exact(f"D1 state digest, {label}: combined and per-leaf words",
+                              [got, got_rows], [want, want_rows])
+        host = host_state_digest(tree)
+        full = state_digest(tree).cpu().numpy().astype(np.uint32)
+        if not (full == host).all():
+            raise AssertionError(f"D1 {label}: state_digest {full} != host_state_digest {host}")
+        return stats
+
+    def two_streams(tree_a, tree_b):
+        # two digests in flight at once on two streams: each launch owns
+        # its block counter, so neither finishes the other's digest
+        def args(tree):
+            named = [(n, x) for n, x in named_leaves(tree)
+                     if isinstance(x, torch.Tensor) and x.numel()]
+            return [x for _, x in named], [_salt(n) for n, _ in named]
+
+        (la, sa), (lb, sb) = args(tree_a), args(tree_b)
+        streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+        torch.cuda.synchronize(dev)
+        got = []
+        for _ in range(4):
+            for st, (leaves, salts) in zip(streams, ((la, sa), (lb, sb))):
+                with torch.cuda.stream(st):
+                    got.append(kd.digest_leaves(leaves, salts)[0])
+        torch.cuda.synchronize(dev)
+        want = [kd.digest_leaves_plain(la, sa)[0], kd.digest_leaves_plain(lb, sb)[0]] * 4
+        return compare_exact("D1 on two streams at once", got, want)
+
+    selected = state.replace(monitors=())
+    stress = digest_stress_leaves(torch, dev)
+    out = {"cso_state": check("path 4's CSO state", selected),
+           "two_streams": two_streams(selected, stress),
+           "stress": check("the stress leaves", stress),
+           "chained": check(f"{kd.MAX_LEAVES + 9} leaves (two launches)",
+                            {f"x{i:03d}": torch.full((37,), float(i), device=dev)
+                             for i in range(kd.MAX_LEAVES + 9)})}
+    named = [(n, x) for n, x in named_leaves(selected) if isinstance(x, torch.Tensor) and x.numel()]
+    leaves, salts = [x for _, x in named], [_salt(n) for n, _ in named]
+    nbytes, ops = kd.digest_work(leaves)
+    t_bound, bound_by = bound_ms(nbytes, ops)
+    before = kd.digest_leaves.launches
+    launch = lambda: kd.digest_leaves(leaves, salts)  # noqa: E731
+    out.update({
+        "leaves": len(leaves), "bytes": nbytes, "operations": ops,
+        # the kernel's own time from device memory (raw launches, CUDA
+        # events); the wrapper's calls back to back (its host time shows
+        # when it exceeds the kernel's), the profiler's device time of a
+        # wrapper call (the words in L2 after the first), its host time
+        "ms": d1_kernel_ms(torch, leaves, salts),
+        "wrapper_ms": _time_ms(launch, 3, 20),
+        "device_us": device_us_per_call(torch, launch),
+        "host_us": host_us_per_call(torch, launch, 200),
+        "plain_ms": _time_ms(lambda: kd.digest_leaves_plain(leaves, salts), 1, 3),
+        "bound_ms": t_bound, "bound_by": bound_by,
+        "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+        "state_digest_host_us": host_us_per_call(torch, lambda: state_digest(selected), 200),
+    })
+    kd.digest_leaves.launches = before  # the comparison's launches are not the path's
+    print(f"[digest kernel] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_attest_path(torch, seed: int = BF16_SEED, device=None) -> dict:
+    """Main path 26: ``bench.py``'s workload 12b. Path 4's CSO with
+    ``StateAttestor(every=10, capacity=64)`` against bare ``wf.run``, in
+    turns, trip counts 100 and 600 differenced; D1's launches counted over
+    an attested run of 600 (one an attestation). Every ring digest of a
+    run equals ``host_state_digest`` of that generation's state. D1 against
+    its plain version (``phase_digest_kernel``). ``run_fused(verify_every=
+    1)`` with a lying dispatch heals, three distinct digests raise
+    ``IntegrityError``, and ``bisect_divergence`` names a generation with
+    one flipped bit."""
+    import tempfile
+
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.core.attest import (
+        IntegrityError,
+        StateAttestor,
+        bisect_divergence,
+        digest_hex,
+        host_state_digest,
+    )
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.core.instrument import run_report
+    from evox_tpu_torch.kernels import digest as kd
+    from evox_tpu_torch.workflows.journal import RunJournal
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    bare, _ = build_cso_path(torch, device=device)
+    att = StateAttestor(every=ATT_EVERY, capacity=ATT_CAPACITY, device=device)
+    attested = StdWorkflow(bare.algorithm, bare.problem, monitors=(att,), device=device)
+    states = {"attested": attested.init(seed), "bare": bare.init(seed)}
+    wfs = {"attested": attested, "bare": bare}
+
+    def measurer(name):
+        def timed(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wfs[name].run(states[name], n)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        return timed
+
+    for name in wfs:
+        for n in ATT_PAIR:
+            measurer(name)(n)
+    turns = []
+    for name in ("attested", "bare", "bare", "attested", "attested", "bare"):
+        turn = {"side": name, **_differenced_ms(measurer(name), ATT_PAIR)}
+        print(f"[attest path] {json.dumps(turn)}", flush=True)
+        turns.append(turn)
+    med = {s: statistics.median(t["ms_per_generation"] for t in turns if t["side"] == s)
+           for s in wfs}
+    # the main path's run: D1 once an attestation, nothing else launched
+    reset_launches()
+    kd.digest_leaves.launches = 0
+    end = attested.run(states["attested"], ATT_PAIR[1])
+    torch.cuda.synchronize()
+    launches = {**read_launches(), "state_digest": kd.digest_leaves.launches}
+    if launches["state_digest"] != ATT_PAIR[1] // ATT_EVERY or any(
+            v for k, v in launches.items() if k != "state_digest"):
+        raise AssertionError(f"attest path: launches {launches}")
+    ledger = att.ledger(end.monitors[0])
+    # every ring digest against the host digest of that generation's state
+    s, host = attested.init(seed), {}
+    for _ in range(ATT_RING_CHECK // ATT_EVERY):
+        s = attested.run(s, ATT_EVERY)
+        host[s.generation] = digest_hex(host_state_digest(s.replace(monitors=())))
+    ring = att.ledger(s.monitors[0])
+    bad = [e for e in ring if host[e["generation"]] != e["digest"]]
+    if bad or len(ring) != ATT_RING_CHECK // ATT_EVERY:
+        raise AssertionError(f"attest path: ring digests against the host: {bad[:3]}, {len(ring)}")
+    kernel = phase_digest_kernel(torch, s, dev)
+
+    # the voted re-dispatch on the card
+    start = bare.init(seed)
+    straight = bare.run(start, VOTE_GENERATIONS)
+    votes = {}
+    for name, lies in (("heal", {2: "perturb"}), ("abort", {2: "perturb", 3: "stale"})):
+        voter = StdWorkflow(bare.algorithm, bare.problem, device=device)
+        voter.run = LyingRun(torch, voter.run, lies)
+        ex = GenerationExecutor()
+        kd.digest_leaves.launches = 0
+        try:
+            healed = ex.run_fused(voter, start, VOTE_GENERATIONS, chunk=VOTE_CHUNK,
+                                  attest=StateAttestor(device=device), verify_every=1)
+        except IntegrityError as e:
+            votes[name] = {"raised": str(e)[:120], "counters": ex.integrity_counters()}
+            continue
+        votes[name] = {
+            "counters": ex.integrity_counters(), "digest_launches": kd.digest_leaves.launches,
+            "equal": compare_exact("attest path: the healed run against the straight run",
+                                   [healed.algo.population, healed.algo.velocity],
+                                   [straight.algo.population, straight.algo.velocity]),
+            "verdict": run_report(voter, healed, executor=ex)["integrity"]["verdict"]}
+    chunks = VOTE_GENERATIONS // VOTE_CHUNK
+    heal = votes["heal"]["counters"]
+    if not (heal["mismatches"] == 1 and heal["healed"] == 1 and heal["verified_chunks"] == chunks - 1
+            and votes["heal"]["verdict"] == "healed"):
+        raise AssertionError(f"attest path: the vote did not heal as expected: {votes['heal']}")
+    if "raised" not in votes["abort"] or votes["abort"]["counters"]["aborted"] != 1:
+        raise AssertionError(f"attest path: three distinct digests did not raise: {votes['abort']}")
+
+    # bisect_divergence names the flipped generation
+    batt = StateAttestor(every=BISECT_EVERY, capacity=16, device=device)
+    bwf = StdWorkflow(bare.algorithm, bare.problem, monitors=(batt,), device=device)
+    state0 = bwf.step(bwf.init(seed))
+
+    def faulty(s, n):
+        for _ in range(int(n)):
+            s = bwf.run(s, 1)
+            if s.generation == BISECT_FLIP:  # a high mantissa bit: the fault survives rounding
+                s = _flip_bit(torch, s, "algo.population", 7, 20)
+        return s
+
+    bad_end = faulty(state0, BISECT_GENERATIONS)
+    with tempfile.TemporaryDirectory(prefix="evox_journal_") as tmp:
+        journal = RunJournal(tmp)
+        batt.journal_ring(bad_end.monitors[0], journal)
+        t0 = time.perf_counter()
+        forensics = bisect_divergence(tmp, wf=bwf, start_state=state0, suspect=faulty,
+                                      attestor=batt, report_to=bwf)
+        bisect_s = time.perf_counter() - t0
+    if forensics["first_divergent_generation"] != BISECT_FLIP or ".algo.population" not in \
+            forensics["leaves"]:
+        raise AssertionError(f"attest path: bisect_divergence: {forensics}")
+    report = run_report(bwf, bad_end)
+    validate(report=report, label="attest path, the integrity section with its bisection")
+    out = {"pop": CSO_POP, "dim": CSO_DIM, "every": ATT_EVERY, "pair": list(ATT_PAIR),
+           "turns": turns, "median_ms_per_generation": med,
+           "bare_over_attested": med["bare"] / med["attested"], "bench_law": 0.98,
+           "launches": launches, "ring_entries": len(ledger), "ring_checked": len(ring),
+           "digest_kernel": kernel, "votes": votes,
+           "bisect": {**{k: forensics[k] for k in ("window", "first_divergent_generation",
+                                                    "leaves", "chunks_replayed",
+                                                    "generations_replayed")},
+                      "seconds": bisect_s}}
+    print(f"[attest path] {json.dumps({k: v for k, v in out.items() if k != 'digest_kernel'})}",
+          flush=True)
+    return out
+
+
+# ----------------------------------------------------------- main path 27
+
+
+def _tensor_leaves(torch, tree) -> list:
+    from evox_tpu_torch.core.struct import named_leaves
+
+    return [x for _, x in named_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def phase_lineage_path(torch, seed: int = SEED, gens: int = GENERATIONS, device=None) -> dict:
+    """Main path 27: ``LineageMonitor(64)`` on path 9 (SHADE on Ackley, pop
+    4096, d 1024: DE's exact parent maps) and ``LineageMonitor(64,
+    num_objectives=3, default_op="crossover")`` on path 2 (NSGA-II on
+    LSMOP1, pop 10000: one more B3 launch a generation for the batch's
+    front, and a 10000 x 10000 churn distance), each in turns with its
+    unmonitored twin (monitored, twin, twin, monitored), ``gens``
+    generations from the state after two; every algorithm state equal to
+    the twin's bit for bit, the ``search`` section valid."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.core.instrument import run_report
+    from evox_tpu_torch.monitors import LineageMonitor
+
+    out = {}
+    shade = build_shade_path(torch, device=device)
+    nsga2 = build_nsga2_path(torch)
+    cases = (("shade", shade, {}),
+             ("nsga2", StdWorkflow(nsga2.algorithm, nsga2.problem, device=device),
+              {"num_objectives": LSMOP_M, "default_op": "crossover"}))
+    for name, twin, kw in cases:
+        mon = LineageMonitor(LIN_CAPACITY, device=device, **kw)
+        watched = StdWorkflow(twin.algorithm, twin.problem, monitors=(mon,), device=device)
+        wfs = {"monitored": watched, "twin": twin}
+        starts = {k: wf.step(wf.step(wf.init(seed))) for k, wf in wfs.items()}
+        turns, ends = [], {}
+        for side in ("monitored", "twin", "twin", "monitored"):
+            torch.cuda.empty_cache()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ends[side] = wfs[side].run(starts[side], gens)
+            torch.cuda.synchronize()
+            turns.append({"side": side, "ms_per_generation": (time.perf_counter() - t0) / gens * 1e3,
+                          "launches": read_launches()})
+            print(f"[lineage path] {name} {json.dumps(turns[-1])}", flush=True)
+        equal = compare_exact(f"lineage path: {name} with the monitor against its twin",
+                              _tensor_leaves(torch, ends["monitored"].algo),
+                              _tensor_leaves(torch, ends["twin"].algo))
+        report = run_report(watched, ends["monitored"])
+        validate(report=report, label=f"lineage path, {name}'s search section")
+        search = report["search"]
+        med = {s: statistics.median(t["ms_per_generation"] for t in turns if t["side"] == s)
+               for s in wfs}
+        b3 = {s: [t["launches"]["packed_dominance"] for t in turns if t["side"] == s] for s in wfs}
+        if name == "nsga2" and not all(m == t + gens for m, t in zip(b3["monitored"], b3["twin"])):
+            raise AssertionError(f"lineage path: B3 launches {b3}, one more a generation expected")
+        out[name] = {"turns": turns, "median_ms_per_generation": med,
+                     "monitored_over_twin": med["monitored"] / med["twin"],
+                     "b3_launches": b3, "equal": equal,
+                     "ancestry_length": len(search["ancestry"]), "ledger": search["ledger"],
+                     "front_size": search["trajectory"].get("front_size", [])[-3:],
+                     "churn": search["trajectory"].get("churn", [])[-3:]}
+    out["launches"] = out["nsga2"]["b3_launches"]["monitored"][-1] \
+        - out["nsga2"]["b3_launches"]["twin"][-1]
+    print(f"[lineage path] {json.dumps({k: v for k, v in out.items()})}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -5209,7 +5968,11 @@ def monitor_callers(name: str, paths: dict) -> list:
                                                                   "bound_by", "max_abs_err")}},
                 {"caller": "non_dominated_sort in NSGA-II's tell, instrumented with "
                            "analyze=True (path 22)", "n": 2 * NSGA2_POP, "m": LSMOP_M,
-                 "launches": paths["instrumented_nsga2"]["launches"][name]}]
+                 "launches": paths["instrumented_nsga2"]["launches"][name]},
+                {"caller": "LineageMonitor's rank-0 front in post_eval, NSGA-II on LSMOP1 "
+                           "(path 27), one more launch a generation than its twin",
+                 "n": NSGA2_POP, "m": LSMOP_M, "launches": paths["lineage"]["launches"],
+                 "b3_launches_a_turn": paths["lineage"]["nsga2"]["b3_launches"]}]
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     shade = paths["shade"]
@@ -5311,6 +6074,30 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "callers": [{"caller": "IslandWorkflow's migration elites over 8 PSO islands of 512 "
                                "(path 14), one launch a migration",
                      "launches": isl["launches"], "launches_per_turn": isl["launches_per_turn"]}],
+    })
+    att = paths["attest"]
+    d1 = att["digest_kernel"]
+    entries.append({
+        "name": "state_digest",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/digest.cu",
+        # no pallas_call: the JAX package's digest is XLA-fused jnp
+        "replaces": "evox_tpu/core/attest.py:316 (XLA-fused jnp, no Pallas kernel)",
+        "launches": att["launches"]["state_digest"],
+        "max_abs_err": d1["max_abs_err"],
+        "ms": d1["ms"],
+        "plain_ms": d1["plain_ms"],
+        "bound_ms": d1["bound_ms"],
+        "bound_by": d1["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes these words
+        "leaves": d1["leaves"], "bytes": d1["bytes"],
+        "wrapper_ms": d1["wrapper_ms"], "device_us": d1["device_us"], "host_us": d1["host_us"],
+        "state_digest_host_us": d1["state_digest_host_us"],
+        "callers": [{"caller": "StateAttestor(every=10) on path 4's CSO, one launch an "
+                               "attestation (path 26)", "launches": att["launches"]["state_digest"]},
+                    {"caller": "run_fused(verify_every=1)'s voted re-dispatch on path 4's CSO, "
+                               "two launches a verified chunk and one more a mismatch (path 26)",
+                     "launches": att["votes"]["heal"]["digest_launches"]}],
     })
     w = kernels["walker"]
     entries.append({
@@ -5500,6 +6287,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["telemetry"] = phase_telemetry_path(torch)
     paths["instrumented_nsga2"] = phase_instrumented_nsga2(torch)
+    # 15. main paths 23 (stale tells on workload 6's host problem), 24 (path
+    # 14 with A5's arguments), 25 (bench.py's workload 12, the metrics
+    # plane), 26 (workload 12b: the attestor on D1, the voted re-dispatch,
+    # bisection) and 27 (lineage on paths 9 and 2, one more B3 launch)
+    torch.cuda.empty_cache()
+    paths["stale"] = phase_stale_path(torch)
+    paths["island_arguments"] = phase_island_arguments(torch)
+    torch.cuda.empty_cache()
+    paths["metrics"] = phase_metrics_path(torch)
+    paths["attest"] = phase_attest_path(torch)
+    torch.cuda.empty_cache()
+    paths["lineage"] = phase_lineage_path(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -5553,6 +6352,11 @@ def main() -> int:
         "immoea_path": paths["immoea"],
         "telemetry_path": paths["telemetry"],
         "instrumented_nsga2_path": paths["instrumented_nsga2"],
+        "stale_path": paths["stale"],
+        "island_arguments_path": paths["island_arguments"],
+        "metrics_path": paths["metrics"],
+        "attest_path": paths["attest"],
+        "lineage_path": paths["lineage"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,5 @@
 from .algorithm import Algorithm
+from .attest import IntegrityError, StateAttestor, bisect_divergence, state_digest
 from .cost import CHIP_CEILINGS, CostAnalyzer
 from .device import resolve_device
 from .guardrail import (
@@ -19,6 +20,7 @@ from .instrument import (
     write_chrome_trace,
     write_report_jsonl,
 )
+from .metrics import MetricsRegistry
 from .monitor import HOOK_NAMES, Monitor
 from .problem import Problem
 from .struct import PyTreeNode, field, pytree_dataclass, replace, static_field
@@ -38,6 +40,11 @@ __all__ = [
     "TRIGGER_STAGNATION",
     "recenter_state",
     "HOOK_NAMES",
+    "IntegrityError",
+    "MetricsRegistry",
+    "StateAttestor",
+    "bisect_divergence",
+    "state_digest",
     "Monitor",
     "Problem",
     "PyTreeNode",

@@ -2,50 +2,83 @@
 generation loop behind ``checkpointed_run`` and ``run_host_pipelined``.
 
 - **Fused runs** (:meth:`GenerationExecutor.run_fused`): ``wf.run`` in
-  chunks that end on the checkpoint cadence; each snapshot is copied to
-  the host without blocking and pickled and fsynced on a background
-  checkpoint lane while the next chunk runs. The chunks change no
-  arithmetic, so the final state is the unchunked run's.
+  chunks that end on the checkpoint cadence (or on ``chunk``); each
+  snapshot is copied to the host without blocking and pickled and fsynced
+  on a background checkpoint lane while the next chunk runs. The chunks
+  change no arithmetic, so the final state is the unchunked run's.
+- **Voted re-dispatch** (``run_fused(attest=, verify_every=K)``): every
+  K-th chunk is dispatched again from its entry state and the two results'
+  digests compared (``core/attest.py``: one digest-kernel launch each, one
+  host read for both); on a mismatch a third dispatch votes 2 of 3, and no
+  majority raises :class:`~evox_tpu_torch.core.attest.IntegrityError`.
+  Off (the default), it costs nothing.
 - **Host problems** (:meth:`GenerationExecutor.run_host`): each
   generation's candidates go to the host (``wf.host_link``, pinned
-  buffers and a CUDA event), the host ``evaluate`` runs on the calling
-  thread, and ``on_generation`` hooks, checkpoint writes and monitor
-  fetches run on background lanes, so the user's per-generation host work
-  overlaps the next generation. A workflow's ``host_evaluate`` hook, where
-  it has one, takes the evaluation (with the candidates still on the
-  card), and ``refit_due``/``dispatch_refit`` refit a surrogate after a
-  tell (``workflows/surrogate.py``). The dispatch, tell and hook order is
-  ``wf.step``'s, so the states are a ``wf.step`` loop's bit for bit. At
-  ``max_staleness=0`` the tell needs the evaluation's fitness, so nothing
-  of the device could overlap the evaluation and it gets no thread of its
-  own; stale tells, which would overlap them, wait (ROADMAP A5).
+  buffers and a CUDA event), the host ``evaluate`` runs, and
+  ``on_generation`` hooks, checkpoint writes and monitor fetches run on
+  background lanes. A workflow's ``host_evaluate`` hook, where it has one,
+  takes the evaluation (with the candidates still on the card), and
+  ``refit_due``/``dispatch_refit`` refit a surrogate after a tell
+  (``workflows/surrogate.py``). At ``max_staleness=0`` the order is
+  ``wf.step``'s and the evaluation runs on the calling thread (the tell
+  needs its fitness, so nothing could overlap it), so the states are a
+  ``wf.step`` loop's bit for bit.
+- **Stale tells** (``max_staleness=K > 0``): up to ``K+1`` evaluations in
+  flight on a pool of ``K+1`` worker threads, and a tell admitted at a lag
+  of at most ``K`` tells. Each tell keeps its own matched (ask artifacts,
+  fitness) pair: the leaves a probe ask changes, and every seed leaf, are
+  grafted from the tell's own ask onto the newest told state, so updates
+  accumulate while the sampling distribution lags by at most ``K`` tells.
+  An ask issued while tells are pending gets fresh seeds,
+  ``fold_in_seed(entry_seed, generation)``. The loop's order does not
+  depend on timing (an ask is issued while ``asked - told <= K``, a tell
+  waits on the oldest evaluation), so runs are deterministic. Each
+  in-flight generation's candidates sit in their own pinned block from
+  PyTorch's caching host allocator, waited on by their own CUDA event; a
+  block goes back to the allocator only when its evaluation has returned
+  and dropped it.
 - **Background I/O lanes**: one worker thread each (work lands in
   submission order) with a bounded in-flight queue; ``submit`` waits on
   the oldest task when the lane is full, and a task's error is raised at
   the next ``submit`` or ``drain``. The checkpoint lane is drained before
   a run returns.
+- **Metrics** (``metrics=``, a
+  :class:`~evox_tpu_torch.workflows.flightrec.FlightRecorder`): dispatch
+  counts and milliseconds, the counter tracks as gauges, integrity events
+  and monitor fetches. ``None`` changes nothing.
 
-Every CUDA call stays on the calling thread: the lanes' worker threads
-see numpy and host tensors, and wait only on CUDA events the calling
-thread recorded after the copies they read.
-
-The JAX package's stale tells (``max_staleness > 0``) wait for ROADMAP
-A5, its supervisor and pod supervisor for A11, and its voted re-dispatch
-(``attest``, ``verify_every``) for A12: each raises
-``NotImplementedError``.
+Every CUDA call stays on the calling thread: the lanes' and the
+evaluation pool's worker threads see numpy and host tensors, and wait
+only on CUDA events the calling thread recorded after the copies they
+read. The JAX package's supervisor and pod supervisor wait for ROADMAP
+A11 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
+import torch
+
+from .attest import IntegrityError
 from .state_io import host_copy_async
+from .struct import named_leaves
 
 __all__ = ["GenerationExecutor"]
+
+# ask-side monitor hooks: an admitted stale tell's monitor chain comes from
+# the newest told state, so monitors whose state advances in these hooks
+# would lose generations
+_ASK_SIDE_HOOKS = ("pre_step", "pre_ask", "post_ask", "pre_eval")
+# a seed leaf: a field named ``seed`` or ``*_seed`` (states hold integer
+# seeds where the JAX package holds keys)
+_SEED_PATH = re.compile(r"\.(\w+_)?seed$")
 
 _MAX_TRACE_SPANS = 20_000
 _MAX_COUNTER_SAMPLES = 20_000
@@ -97,17 +130,108 @@ class _IoLane:
         self._pool.shutdown(wait=False)
 
 
+class _InflightEval:
+    """One generation's in-flight evaluation: its loop index, the ask's
+    ctx, the future of the host evaluation, and ``base_told`` — how many
+    tells the base state had absorbed when this ask sampled from it. A
+    tell admitted after further tells landed is stale by the difference."""
+
+    __slots__ = ("g", "ctx", "fut", "base_told")
+
+    def __init__(self, g: int, ctx: Any, fut: Future, base_told: int):
+        self.g = g
+        self.ctx = ctx
+        self.fut = fut
+        self.base_told = base_told
+
+
+def _is_seed_path(path: str) -> bool:
+    return _SEED_PATH.search(path) is not None
+
+
+def _seed_leaves(algo: Any) -> Dict[str, int]:
+    """path -> value of every seed leaf of an algorithm state."""
+    return {path: leaf for path, leaf in named_leaves(algo) if _is_seed_path(path)}
+
+
+def _ask_artifacts(pre_algo: Any, post_algo: Any) -> Set[str]:
+    """The paths of the algorithm-state leaves ``ask`` writes: compared
+    leaf by leaf between the state before and after one probe ask (unequal
+    leaves, NaN equal to NaN), plus every seed leaf, which always follows
+    the ask. The tensor comparisons are read back in one host read."""
+    pre = dict(named_leaves(pre_algo))
+    artifacts: Set[str] = set()
+    pending: List[Tuple[str, torch.Tensor]] = []
+    for path, b in named_leaves(post_algo):
+        a = pre.get(path)
+        if _is_seed_path(path):
+            artifacts.add(path)
+        elif isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+                artifacts.add(path)
+            else:
+                same = a == b
+                if a.is_floating_point():
+                    same = same | (torch.isnan(a) & torch.isnan(b))
+                pending.append((path, same.all()))
+        elif isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor) or not (
+                a == b or (a != a and b != b)):
+            artifacts.add(path)
+    if pending:
+        flags = torch.stack([f.to(pending[0][1].device) for _, f in pending]).cpu().tolist()
+        artifacts.update(path for (path, _), same in zip(pending, flags) if not same)
+    return artifacts
+
+
+def _graft(base: Any, ask: Any, artifacts: Set[str]) -> Any:
+    """``base`` with the leaves at ``artifacts`` taken from ``ask``."""
+    return _replace_leaves(base, {path: leaf for path, leaf in named_leaves(ask)
+                                  if path in artifacts})
+
+
+def _rekey(algo: Any, entry_seeds: Dict[str, int], g: int) -> Any:
+    """Fresh deterministic seeds for an ask issued while earlier tells are
+    pending (two asks from one told state would otherwise draw alike):
+    each seed leaf becomes ``fold_in_seed(entry_seed, g)``."""
+    from ..utils.common import fold_in_seed
+
+    return _replace_leaves(algo, {path: fold_in_seed(seed, g) for path, seed in entry_seeds.items()})
+
+
+def _replace_leaves(tree: Any, values: Dict[str, Any], prefix: str = "") -> Any:
+    """``tree`` with the leaves at the paths of ``values`` (``named_leaves``
+    form; static fields untouched) replaced by those values."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _replace_leaves(getattr(tree, f.name), values, f"{prefix}.{f.name}")
+            for f in dataclasses.fields(tree) if not f.metadata.get("static", False)})
+    if isinstance(tree, dict):
+        return {k: _replace_leaves(v, values, f"{prefix}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_replace_leaves(v, values, f"{prefix}[{i}]") for i, v in enumerate(tree))
+    return values.get(prefix, tree)
+
+
 class GenerationExecutor:
     """The generation loop (the module docstring has the design). One
     instance may drive many runs; counters and spans accumulate and
     :meth:`report` sums them up.
 
     Args:
-        max_staleness: only ``0`` (a ``wf.step`` loop's order) is ported.
+        max_staleness: default tell-staleness bound ``K`` of
+            :meth:`run_host` (a run may override it). ``0`` is a
+            ``wf.step`` loop's order; ``K > 0`` keeps up to ``K+1`` host
+            evaluations in flight and admits each tell at a lag of at most
+            ``K`` tells (needs an algorithm state with a seed, no
+            ``dtype_policy``, no ``donate_carries`` and no ask-side monitor
+            hooks; the host ``evaluate`` must take concurrent calls).
         io_inflight: bound on in-flight background tasks per lane.
         fetch_monitors_every: every N generations of :meth:`run_host`, copy
             ``state.monitors`` to the host on the fetch lane and keep the
             newest copy in ``last_monitor_fetch``.
+        metrics: a :class:`~evox_tpu_torch.workflows.flightrec.
+            FlightRecorder` (or anything with its ``count``/``set``/
+            ``observe``/``event``); ``None`` records nothing.
     """
 
     def __init__(
@@ -117,19 +241,22 @@ class GenerationExecutor:
         supervisor: Any = None,
         pod_supervisor: Any = None,
         fetch_monitors_every: Optional[int] = None,
+        metrics: Any = None,
     ):
         from ..workflows.common import refuse_deferred
 
-        _refuse_stale(max_staleness)
         refuse_deferred("GenerationExecutor", supervisor=supervisor,
                         pod_supervisor=pod_supervisor)
+        if max_staleness < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
         if io_inflight < 1:
             raise ValueError(f"io_inflight must be >= 1, got {io_inflight}")
         if fetch_monitors_every is not None and fetch_monitors_every < 1:
             raise ValueError("fetch_monitors_every must be >= 1")
-        self.max_staleness = 0
+        self.max_staleness = int(max_staleness)
         self.io_inflight = int(io_inflight)
         self.fetch_monitors_every = fetch_monitors_every
+        self.metrics = metrics
         self._clock = time.perf_counter
         self._lock = threading.Lock()
         self.counters: Dict[str, int] = {
@@ -138,8 +265,6 @@ class GenerationExecutor:
             "generations": 0,
             "asks": 0,
             "tells": 0,
-            # stale tells and their lag stay 0: only max_staleness 0 is
-            # ported (the JAX package's report carries them)
             "stale_tells": 0,
             "max_lag": 0,
             "bg_checkpoint": 0,
@@ -147,12 +272,23 @@ class GenerationExecutor:
             "bg_fetch": 0,
             # surrogate refits dispatched between tells (refit_due/dispatch_refit)
             "bg_refit": 0,
+            # the voted re-dispatch: extra dispatches, chunks whose digests
+            # agreed, mismatches, and mismatches healed by the 2-of-3 vote;
+            # verify_dispatches == verified_chunks + 2 * mismatches
+            "verify_dispatches": 0,
+            "verified_chunks": 0,
+            "integrity_mismatches": 0,
+            "integrity_healed": 0,
         }
+        # the newest run's verify cadence (None: the rung never armed) and
+        # the no-majority aborts
+        self.integrity: Dict[str, Any] = {"verify_every": None, "aborts": 0}
         self.queue_stats: Dict[str, int] = {"io_inflight_limit": self.io_inflight,
                                             "io_inflight_max": 0, "stale_window_max": 0}
         # seconds: host time spent issuing the device halves (PyTorch
-        # returns before the card finishes), host evaluation busy time,
-        # background I/O busy time, and the wall time of executor runs
+        # returns before the card finishes), host evaluation busy time
+        # (summed over the evaluation threads, so it may exceed the wall at
+        # K > 0), background I/O busy time, and the wall time of runs
         self.overlap: Dict[str, float] = {
             "device_dispatch_s": 0.0,
             "host_eval_s": 0.0,
@@ -160,10 +296,14 @@ class GenerationExecutor:
             "wall_s": 0.0,
         }
         self.last_monitor_fetch: Optional[Tuple[int, Any]] = None
+        # the largest per-run max_staleness driven: the report's bound
+        # covers every run's admitted lag
+        self._max_k_seen = 0
         self._trace_spans: List[dict] = []
         self._dropped_spans = 0
         self._counter_samples: Dict[str, List[Tuple[float, float]]] = {
             "executor/io_queue_depth": [],
+            "executor/stale_lag": [],
         }
         self._named_lanes: Dict[str, _IoLane] = {}
 
@@ -183,6 +323,9 @@ class GenerationExecutor:
             samples = self._counter_samples[track]
             if len(samples) < _MAX_COUNTER_SAMPLES:
                 samples.append((self._clock(), float(value)))
+        if self.metrics is not None:
+            # metric names are dotted, trace tracks slash-separated
+            self.metrics.set(track.replace("/", "."), float(value))
 
     def _timed_dispatch(self, name: str, fn: Callable[[], Any]) -> Any:
         t0 = self._clock()
@@ -192,18 +335,22 @@ class GenerationExecutor:
             dt = self._clock() - t0
             self.overlap["device_dispatch_s"] += dt
             self._span("device", name, t0, dt)
+            if self.metrics is not None:
+                self.metrics.count("executor.dispatches")
+                self.metrics.observe("executor.dispatch_ms", dt * 1e3)
 
     # ---------------------------------------------------------------- report
     def report(self) -> dict:
         """Counters, queue high-water marks and the overlap accounting, as
-        strict JSON. ``overlap_efficiency`` is wall / max(dispatch, host
-        evaluation): 1.0 is full overlap."""
+        strict JSON. ``max_staleness`` is the effective bound (per-run
+        overrides widen it); ``overlap_efficiency`` is wall / max(dispatch,
+        host evaluation): 1.0 is full overlap."""
         device = self.overlap["device_dispatch_s"]
         host = self.overlap["host_eval_s"]
         wall = self.overlap["wall_s"]
         bound = max(device, host)
         out = {
-            "max_staleness": self.max_staleness,
+            "max_staleness": max(self.max_staleness, self._max_k_seen),
             "counters": dict(self.counters),
             "queue": dict(self.queue_stats),
             "overlap": {
@@ -227,7 +374,7 @@ class GenerationExecutor:
             return list(self._trace_spans)
 
     def counter_samples(self) -> Dict[str, List[Tuple[float, float]]]:
-        """(t_abs, value) samples per counter track (queue depth)."""
+        """(t_abs, value) samples per counter track (queue depth, stale lag)."""
         with self._lock:
             return {k: list(v) for k, v in self._counter_samples.items()}
 
@@ -238,36 +385,57 @@ class GenerationExecutor:
         state: Any,
         n_steps: int,
         checkpointer: Any = None,
+        chunk: Optional[int] = None,
         resume_from: Any = None,
         supervisor: Any = None,
         pod_supervisor: Any = None,
         attest: Any = None,
         verify_every: Optional[int] = None,
     ) -> Any:
-        """``wf.run(state, n)`` in chunks that end on the checkpoint
-        cadence, each snapshot written on the background checkpoint lane
-        (drained before return). ``n_steps`` counts remaining generations;
-        ``resume_from`` makes it the total, as ``wf.run`` does."""
+        """``wf.run(state, n)`` in chunks that end on the checkpoint cadence
+        (or on ``chunk`` without a checkpointer), each snapshot written on
+        the background checkpoint lane (drained before return). ``n_steps``
+        counts remaining generations; ``resume_from`` makes it the total,
+        as ``wf.run`` does.
+
+        ``verify_every=K`` (with ``attest``, a :class:`~evox_tpu_torch.
+        core.attest.StateAttestor`; one on the workflow's device is built
+        if omitted): every K-th completed chunk is dispatched again from its
+        entry state and the two results' digests compared. On a mismatch a
+        third dispatch votes: the 2-of-3 majority proceeds, and no majority
+        raises :class:`~evox_tpu_torch.core.attest.IntegrityError`.
+        ``None`` (the default) adds no dispatch."""
         from ..workflows.checkpoint import chunk_to_boundary, enter_run
         from ..workflows.common import refuse_deferred
 
         refuse_deferred("GenerationExecutor.run_fused", supervisor=supervisor,
                         pod_supervisor=pod_supervisor)
-        refuse_deferred("GenerationExecutor.run_fused", item="A12", attest=attest,
-                        verify_every=verify_every)
         wf._run_executor = self
         state, n_steps, ckpt = enter_run(state, n_steps, checkpointer, resume_from,
                                          expect_like=state, device=wf.device)
         self.counters["runs"] += 1
+        if verify_every is not None:
+            if verify_every < 1:
+                raise ValueError(f"verify_every must be >= 1, got {verify_every}")
+            if attest is None:
+                from .attest import StateAttestor
+
+                attest = StateAttestor(device=wf.device)
+            self.integrity["verify_every"] = int(verify_every)
         total = n_steps + int(state.generation)
+        chunk_i = 0  # completed chunks of this run: the verify cadence
         lane = _IoLane("checkpoint", self.io_inflight)
         t_run0 = self._clock()
         try:
             while int(state.generation) < total:
                 remaining = total - int(state.generation)
-                step = min(remaining, chunk_to_boundary(state, ckpt))
+                step = min(remaining, chunk_to_boundary(state, ckpt, chunk))
                 attempted = state
                 state = self._timed_dispatch("run", lambda: wf.run(attempted, step))
+                chunk_i += 1
+                if (attest is not None and verify_every is not None
+                        and chunk_i % verify_every == 0):
+                    state = self._verify_chunk(wf, attempted, state, step, attest)
                 self.counters["chunks"] += 1
                 gen = int(state.generation)
                 self.counters["generations"] += gen - int(attempted.generation)
@@ -283,6 +451,67 @@ class GenerationExecutor:
             self._account_lane(lane)
             self.overlap["wall_s"] += self._clock() - t_run0
 
+    # ------------------------------------------------------- integrity rung
+    def _verify_chunk(self, wf: Any, attempted: Any, state: Any, step: int, attest: Any) -> Any:
+        """Dispatch the chunk again from its entry state and compare the
+        digests; on a mismatch a third dispatch votes 2 of 3. No majority
+        raises :class:`IntegrityError`: three disagreeing results leave
+        nothing to continue from."""
+
+        def again() -> Any:
+            return self._timed_dispatch("run:verify", lambda: wf.run(attempted, step))
+
+        def words(*states: Any) -> List[Tuple[int, ...]]:
+            rows = torch.stack([attest.digest(s) for s in states]).cpu().tolist()
+            return [tuple(r) for r in rows]
+
+        gen = int(state.generation)
+        self.counters["verify_dispatches"] += 1
+        redo = again()
+        d0, d1 = words(state, redo)
+        if d0 == d1:
+            self.counters["verified_chunks"] += 1
+            return state
+        self.counters["integrity_mismatches"] += 1
+        if self.metrics is not None:
+            self.metrics.count("executor.integrity_mismatches")
+            self.metrics.event("integrity.mismatch", entry="run", generation=gen)
+        self.counters["verify_dispatches"] += 1
+        third = again()
+        (d2,) = words(third)
+        if d2 == d1:
+            winner, dissent = redo, "first"
+        elif d2 == d0:
+            winner, dissent = state, "redo"
+        else:
+            self.integrity["aborts"] += 1
+            raise IntegrityError(
+                f"no 2-of-3 majority at generation {gen}: three dispatches of the "
+                f"same chunk produced three distinct digests — nothing trustworthy "
+                f"to continue from",
+                generation=gen,
+                where="run:verify",
+            )
+        self.counters["integrity_healed"] += 1
+        if self.metrics is not None:
+            self.metrics.count("executor.integrity_healed")
+            self.metrics.event("integrity.heal", entry="run", generation=gen, dissent=dissent)
+        return winner
+
+    def integrity_counters(self) -> Optional[Dict[str, Any]]:
+        """The executor's part of ``run_report``'s ``integrity`` section
+        (``None`` when the verify rung never armed)."""
+        if self.integrity["verify_every"] is None:
+            return None
+        return {
+            "verify_every": self.integrity["verify_every"],
+            "redispatches": self.counters["verify_dispatches"],
+            "verified_chunks": self.counters["verified_chunks"],
+            "mismatches": self.counters["integrity_mismatches"],
+            "healed": self.counters["integrity_healed"],
+            "aborted": self.integrity["aborts"],
+        }
+
     # ------------------------------------------------------------ host runs
     def run_host(
         self,
@@ -297,9 +526,11 @@ class GenerationExecutor:
         supervisor: Any = None,
     ) -> Any:
         """The host-evaluation loop (external problems): generation ``k``'s
-        device halves and host ``evaluate`` run on the calling thread while
-        the previous generation's ``on_generation`` runs on the hook lane.
-        States equal a ``wf.step`` loop's bit for bit."""
+        device halves and host ``evaluate`` while the previous generation's
+        ``on_generation`` runs on the hook lane. At ``max_staleness=0``
+        (``None``: the executor's own bound) the states equal a
+        ``wf.step`` loop's bit for bit; ``K > 0`` runs stale tells (the
+        module docstring)."""
         from ..workflows.checkpoint import enter_run
         from ..workflows.common import refuse_deferred
 
@@ -308,8 +539,19 @@ class GenerationExecutor:
                 "run_host is for external (host) problems; jittable problems "
                 "should use run_fused / wf.run"
             )
-        _refuse_stale(max_staleness or 0)
         refuse_deferred("GenerationExecutor.run_host", supervisor=supervisor)
+        K = self.max_staleness if max_staleness is None else int(max_staleness)
+        if K < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {K}")
+        self._max_k_seen = max(self._max_k_seen, K)
+        if K > 0:
+            self._check_stale_support(wf)
+            if not _seed_leaves(state.algo):
+                raise ValueError(
+                    "max_staleness > 0 needs an algorithm state with a seed leaf "
+                    "(the fresh ask seeds fold from it); "
+                    f"{type(state.algo).__name__} has none"
+                )
         wf._run_executor = self
         state, n_steps, ckpt = enter_run(state, n_steps, checkpointer, resume_from,
                                          expect_like=state, device=wf.device)
@@ -318,11 +560,35 @@ class GenerationExecutor:
         self.counters["runs"] += 1
         t_run0 = self._clock()
         try:
-            state = self._pipeline_segment(wf, state, n_steps, on_generation, ckpt, eval_chunk)
+            state = self._pipeline_segment(wf, state, n_steps, on_generation, ckpt, eval_chunk, K)
             self.counters["chunks"] += 1
             return state
         finally:
             self.overlap["wall_s"] += self._clock() - t_run0
+
+    def _check_stale_support(self, wf: Any) -> None:
+        if getattr(wf, "dtype_policy", None) is not None:
+            raise ValueError(
+                "max_staleness > 0 cannot compose with a dtype_policy: the "
+                "stale-tell graft splices storage- and compute-dtype state "
+                "branches; run stale tells at full precision"
+            )
+        if getattr(wf, "donate_carries", False):
+            raise ValueError(
+                "max_staleness > 0 cannot compose with donate_carries: a donated "
+                "tell's ctx would alias the base state's buffers, which stale "
+                "tells keep reusing"
+            )
+        table = getattr(wf, "_hook_table", None)
+        if table is not None:
+            ask_side = [n for n in _ASK_SIDE_HOOKS if table.get(n)]
+            if ask_side:
+                raise ValueError(
+                    "max_staleness > 0 skips ask-side monitor hooks "
+                    f"({ask_side} are implemented by attached monitors): stale "
+                    "tells chain monitor state through tells only. Use tell-side "
+                    "monitors (TelemetryMonitor) with stale runs."
+                )
 
     def _pipeline_segment(
         self,
@@ -332,32 +598,43 @@ class GenerationExecutor:
         on_generation: Optional[Callable],
         checkpointer: Any,
         eval_chunk: Optional[int],
+        K: int,
     ) -> Any:
-        """One uninterrupted stretch of ``n_steps`` generations: ask, the
-        host evaluation, tell, in ``wf.step``'s order; the hook of
-        generation ``g`` runs while generation ``g+1`` is asked and
-        evaluated, and its error surfaces before tell ``g+1``."""
-        from ..workflows.common import host_candidates
+        """One uninterrupted stretch of ``n_steps`` generations. ``K = 0``:
+        ask, the host evaluation on the calling thread, tell, in
+        ``wf.step``'s order. ``K > 0``: up to ``K+1`` evaluations in flight
+        on worker threads, and stale tells grafted with their own ask's
+        artifacts. The hook of generation ``g`` runs while later
+        generations are asked and evaluated; its error surfaces before the
+        next tell."""
         from ..workflows.pipelined import chunked_evaluate
 
         gen0 = int(state.generation)
+        eval_pool = (ThreadPoolExecutor(max_workers=K + 1, thread_name_prefix="executor-eval")
+                     if K > 0 else None)
         ckpt_lane = _IoLane("checkpoint", self.io_inflight)
         hook_lane = _IoLane("hook", self.io_inflight)
         fetch_lane = _IoLane("fetch", self.io_inflight)
         hook_fut: Optional[Future] = None
         link = wf.host_link
+        # stale bookkeeping: the entry seeds make the fresh ask seeds; the
+        # artifact set is probed at the first steady ask (a first-step ask
+        # may write other leaves)
+        entry_seeds = _seed_leaves(state.algo) if K > 0 else {}
+        artifacts: Optional[Set[str]] = None
+        pending: deque = deque()
+        asked = told = 0
         base = state
         # a SurrogateWorkflow's hooks (duck-typed): host_evaluate evaluates
-        # only the screened rows; refit_due/dispatch_refit refit the model
-        # after a tell, queued on the card's stream without a wait, so the
-        # model an ask reads lags the archive by at most the refit cadence
+        # only the screened rows (on the calling thread: it reads the card);
+        # refit_due/dispatch_refit refit the model after a tell
         host_eval = getattr(wf, "host_evaluate", None)
         refit_due = getattr(wf, "refit_due", None)
         dispatch_refit = getattr(wf, "dispatch_refit", None)
 
-        def run_eval(cand, pstate):
-            if host_eval is None:
-                cand = host_candidates(link, cand)
+        def evaluate(cand, pstate, ready=None):
+            if ready is not None:
+                ready.synchronize()
             t0 = self._clock()
             try:
                 if host_eval is not None:
@@ -369,36 +646,81 @@ class GenerationExecutor:
                     self.overlap["host_eval_s"] += dt
                 self._span("host_eval", "evaluate", t0, dt)
 
+        def submit_eval(cand, pstate) -> Future:
+            if host_eval is not None:
+                fut: Future = Future()
+                fut.set_result(evaluate(cand, pstate))
+                return fut
+            host, ready = link.to_host(cand)
+            if eval_pool is None:
+                fut = Future()
+                fut.set_result(evaluate(host, pstate, ready))
+                return fut
+            return eval_pool.submit(evaluate, host, pstate, ready)
+
         try:
-            for g in range(n_steps):
-                asked = base
-                cand, ctx = self._timed_dispatch("pipeline_ask", lambda: wf.pipeline_ask(asked))
-                self.counters["asks"] += 1
-                fitness, _ = run_eval(cand, asked.prob)
+            while told < n_steps:
+                # ------------------------------------------------ issue asks
+                while asked < n_steps and asked - told <= K:
+                    ask_state = base
+                    if pending:
+                        # an ask with tells still pending must not draw as
+                        # the base state's ask would: fresh seeds
+                        ask_state = base.replace(
+                            algo=_rekey(base.algo, entry_seeds, gen0 + asked))
+                    probe = K > 0 and artifacts is None and not ask_state.first_step
+                    cand, ctx = self._timed_dispatch("pipeline_ask",
+                                                     lambda: wf.pipeline_ask(ask_state))
+                    if probe:
+                        artifacts = _ask_artifacts(ask_state.algo, ctx[0])
+                    self.counters["asks"] += 1
+                    pending.append(_InflightEval(asked, ctx, submit_eval(cand, base.prob), told))
+                    asked += 1
+                    self.queue_stats["stale_window_max"] = max(
+                        self.queue_stats["stale_window_max"], len(pending))
+                    if K > 0 and artifacts is None:
+                        break  # hold the window at one until the steady artifacts are known
+                # ------------------------------------------------ admit a tell
+                ev = pending.popleft()
+                fitness, _ = ev.fut.result()
                 if hook_fut is not None:
                     hook_fut.result()  # the hook's error surfaces before the tell
                     hook_fut = None
+                # staleness in tells: updates that landed after this
+                # generation's candidates were drawn
+                lag = told - ev.base_told
+                self._sample("executor/stale_lag", lag)
+                if lag > 0:
+                    self.counters["stale_tells"] += 1
+                    self.counters["max_lag"] = max(self.counters["max_lag"], lag)
+                    # the tell's own ask artifacts on the newest told state,
+                    # with the newest monitor chain
+                    hybrid = _graft(base.algo, ev.ctx[0], artifacts)
+                    ctx = (hybrid, tuple(base.monitors), ev.ctx[2])
+                else:
+                    ctx = ev.ctx
+                told_state = base
                 base = self._timed_dispatch(
-                    "pipeline_tell", lambda: wf.pipeline_tell(asked, ctx, fitness, asked.prob)
-                )
+                    "pipeline_tell",
+                    lambda: wf.pipeline_tell(told_state, ctx, fitness, told_state.prob))
+                told += 1
                 self.counters["tells"] += 1
                 self.counters["generations"] += 1
-                if refit_due is not None and dispatch_refit is not None and refit_due(gen0 + g + 1):
+                if refit_due is not None and dispatch_refit is not None and refit_due(gen0 + told):
                     # before the snapshot: a checkpoint at this generation
                     # holds the refit, so a resumed run keeps the schedule
                     self.counters["bg_refit"] += 1
-                    told = base
+                    refit_from = base
                     base = self._timed_dispatch("surrogate_refit",
-                                                lambda: dispatch_refit(told, gen0 + g + 1))
+                                                lambda: dispatch_refit(refit_from, gen0 + told))
                 if checkpointer is not None and int(base.generation) % checkpointer.every == 0:
                     self._submit_checkpoint(ckpt_lane, checkpointer, base)
                 if on_generation is not None:
                     self.counters["bg_hook"] += 1
-                    snapshot, fit_snapshot, g_abs = base, fitness, gen0 + g
+                    snapshot, fit_snapshot, g_abs = base, fitness, gen0 + ev.g
                     hook_fut = hook_lane.submit(
-                        lambda: on_generation(g_abs, snapshot, fit_snapshot)
-                    )
-                if (self.fetch_monitors_every and (g + 1) % self.fetch_monitors_every == 0
+                        lambda: on_generation(g_abs, snapshot, fit_snapshot))
+                if (self.fetch_monitors_every and told % self.fetch_monitors_every == 0
                         and getattr(base, "monitors", None)):
                     self._submit_monitor_fetch(fetch_lane, base)
             if hook_fut is not None:
@@ -413,6 +735,8 @@ class GenerationExecutor:
             _drain_quietly(ckpt_lane)
             raise
         finally:
+            if eval_pool is not None:
+                eval_pool.shutdown(wait=True)  # no worker outlives the run
             for lane in (ckpt_lane, hook_lane, fetch_lane):
                 lane.close()
                 self._account_lane(lane)
@@ -496,7 +820,12 @@ class GenerationExecutor:
             if ready is not None:
                 ready.synchronize()
             self.last_monitor_fetch = (gen, host)
-            self._span("io:fetch", "monitors", t0, self._clock() - t0, generation=gen)
+            dt = self._clock() - t0
+            self._span("io:fetch", "monitors", t0, dt, generation=gen)
+            if self.metrics is not None:
+                self.metrics.count("executor.monitor_fetches")
+                self.metrics.observe("executor.monitor_fetch_ms", dt * 1e3)
+                self.metrics.set("executor.monitor_fetch_gen", gen)
 
         lane.submit(fetch)
         self._sample("executor/io_queue_depth", lane.depth())
@@ -505,15 +834,6 @@ class GenerationExecutor:
         self.overlap["io_s"] += lane.busy_s
         self.queue_stats["io_inflight_max"] = max(self.queue_stats["io_inflight_max"],
                                                   lane.high_water)
-
-
-def _refuse_stale(max_staleness: int) -> None:
-    if max_staleness < 0:
-        raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
-    if max_staleness > 0:
-        raise NotImplementedError(
-            "GenerationExecutor(max_staleness > 0): stale tells are not ported yet (ROADMAP A5)"
-        )
 
 
 def _drain_quietly(lane: _IoLane) -> None:

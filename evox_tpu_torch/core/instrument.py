@@ -39,7 +39,10 @@ seconds by fetch site.
 :func:`run_report` merges the recorder's summary with the reports of the
 workflow's monitors and producers (``TelemetryMonitor``, a
 ``GuardedAlgorithm``'s health, IPOP's events, ``SurrogateWorkflow``'s
-ledger, the ``GenerationExecutor``) into one strict-JSON dict, the JAX
+ledger, the ``GenerationExecutor``, a ``FlightRecorder``'s metrics and SLO
+ledger, a ``LineageMonitor``'s search section, a ``StateAttestor``'s ring
+with the executor's voted re-dispatch and a ``bisect_divergence``
+report) into one strict-JSON dict, the JAX
 package's schema ``evox_tpu.run_report/v14``, plus a ``roofline`` section
 when a :class:`~evox_tpu_torch.core.cost.CostAnalyzer` is attached
 (``instrument(wf, analyze=True)``). Sections whose producers are not
@@ -480,10 +483,6 @@ def _not_ported(section: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"run_report's {section} section is not ported yet (ROADMAP {item})")
 
 
-def _monitor_with(workflow: Any, attr: str) -> bool:
-    return any(hasattr(m, attr) for m in getattr(workflow, "monitors", ()) or ())
-
-
 def _refuse_unported(workflow: Any, analyzer: Any, executor: Any, **given: Any) -> None:
     """Raise for every section asked for (passed, or advertised by the
     workflow as the JAX package's ``run_report`` picks it up) whose
@@ -494,16 +493,10 @@ def _refuse_unported(workflow: Any, analyzer: Any, executor: Any, **given: Any) 
                        or getattr(wf, "_run_supervisor", None) is not None),
         "pod_supervisor": ("A13", given["pod_supervisor"] is not None
                            or getattr(wf, "_pod_supervisor", None) is not None),
-        "metrics": ("A12", given["metrics"] is not None
-                    or getattr(wf, "_flight_recorder", None) is not None),
         "control_plane": ("A13", given["control_plane"] is not None
                           or getattr(wf, "_control_plane", None) is not None),
         "tenancy": ("A9", hasattr(wf, "tenancy_report")),
         "serving": ("A13", getattr(wf, "_exec_cache", None) is not None),
-        "search": ("A12", _monitor_with(wf, "search_report")),
-        "integrity": ("A12", _monitor_with(wf, "integrity_report")
-                      or getattr(wf, "_integrity_forensics", None) is not None
-                      or hasattr(executor, "integrity_counters")),
         "roofline.sharding": ("A11", analyzer is not None and bool(
             getattr(getattr(wf, "algorithm", None), "is_pop_sharded", False))),
         "roofline.multihost": ("A11", analyzer is not None
@@ -551,18 +544,28 @@ def run_report(
     and ``aliased`` is false. Without an analyzer the report has no
     roofline.
 
+    ``metrics=`` (or the workflow's ``_flight_recorder``): a
+    :class:`~evox_tpu_torch.workflows.flightrec.FlightRecorder`'s report
+    is the ``metrics`` section and its SLO ledger the ``slo`` section.
+    ``search``: the first monitor with ``search_report`` (a
+    ``LineageMonitor``). ``integrity``: the first monitor with
+    ``integrity_report`` (a ``StateAttestor``'s ring), joined by the
+    executor's voted re-dispatch counters and a ``bisect_divergence``
+    report the workflow keeps as ``_integrity_forensics``, with one
+    verdict (``clean``, ``detected``, ``healed``, ``aborted``).
+
     ``supervisor=`` (ROADMAP A11), ``pod_supervisor=`` and
-    ``control_plane=`` (A13), ``metrics=`` (A12), and the tenancy (A9),
-    serving (A13), search and integrity (A12), and roofline sharding and
-    multihost (A11) sections raise ``NotImplementedError`` when asked for,
-    passed or advertised by the workflow: their producers are not ported.
+    ``control_plane=`` (A13), and the tenancy (A9), serving (A13), and
+    roofline sharding and multihost (A11) sections raise
+    ``NotImplementedError`` when asked for, passed or advertised by the
+    workflow: their producers are not ported.
     """
     if executor is None and workflow is not None:
         executor = getattr(workflow, "_run_executor", None)
     if analyzer is None and recorder is not None:
         analyzer = recorder.analyzer
     _refuse_unported(workflow, analyzer, executor, supervisor=supervisor,
-                     pod_supervisor=pod_supervisor, metrics=metrics, control_plane=control_plane)
+                     pod_supervisor=pod_supervisor, control_plane=control_plane)
     report: dict = {"schema": SCHEMA, "schema_version": SCHEMA_VERSION}
     if state is not None and hasattr(state, "generation"):
         report["generation"] = int(state.generation)
@@ -589,6 +592,19 @@ def run_report(
                 report["surrogate"] = workflow.surrogate_report(state)
             except Exception as e:  # decoration must never sink the report
                 report["surrogate"] = {"error": f"{type(e).__name__}: {e}"}
+        # the first monitor with search_report (LineageMonitor) gives the
+        # search section, the first with integrity_report (StateAttestor)
+        # the integrity ring; a failing producer leaves an error entry
+        if mstates is not None:
+            for section, attr in (("search", "search_report"),
+                                  ("integrity", "integrity_report")):
+                for i, mon in enumerate(getattr(workflow, "monitors", ())):
+                    if hasattr(mon, attr):
+                        try:
+                            report[section] = getattr(mon, attr)(mstates[i])
+                        except Exception as e:  # must never sink the report
+                            report[section] = {"error": f"{type(e).__name__}: {e}"}
+                        break
     summary = recorder.summary() if recorder is not None else None
     if summary is not None:
         report["dispatch"] = summary
@@ -615,9 +631,46 @@ def run_report(
             }
     if executor is not None and hasattr(executor, "report"):
         report["executor"] = executor.report()
+    if metrics is None and workflow is not None:
+        metrics = getattr(workflow, "_flight_recorder", None)
+    if metrics is not None and hasattr(metrics, "report"):
+        report["metrics"] = metrics.report()
+        if hasattr(metrics, "slo_ledger"):
+            report["slo"] = metrics.slo_ledger()
+    _join_integrity(report, executor, getattr(workflow, "_integrity_forensics", None))
     if extra:
         report["extra"] = dict(extra)
     return sanitize_json(report)
+
+
+def _join_integrity(report: dict, executor: Any, forensics: Optional[dict]) -> None:
+    """The executor's verify counters (``None`` until its rung armed) and a
+    ``bisect_divergence`` report join the attestor's ring, and one verdict
+    sums the section up."""
+    verify = (executor.integrity_counters()
+              if executor is not None and hasattr(executor, "integrity_counters") else None)
+    integ = report.get("integrity")
+    if isinstance(integ, dict) and "error" in integ:
+        return  # the ring's producer failed: its error stands
+    if integ is None and verify is None and forensics is None:
+        return
+    if integ is None:
+        integ = {"enabled": True, "attestations": 0, "ring": []}
+    if verify is not None:
+        integ["verify"] = verify
+    if forensics is not None:
+        integ["bisection"] = dict(forensics)
+    v = integ.get("verify") or {}
+    if v.get("aborted"):
+        integ["verdict"] = "aborted"
+    elif v.get("healed"):
+        integ["verdict"] = "healed"
+    elif v.get("mismatches") or (forensics is not None
+                                 and forensics.get("first_divergent_generation") is not None):
+        integ["verdict"] = "detected"
+    else:
+        integ["verdict"] = "clean"
+    report["integrity"] = integ
 
 
 def write_report_jsonl(report: dict, path: str) -> None:

@@ -2,6 +2,7 @@
 version with the same contract. A wrapper takes the plain version only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises."""
 
+from .digest import digest_leaves, digest_leaves_plain, digest_work
 from .dominance import (
     column_popcount,
     dominance_work,
@@ -43,6 +44,9 @@ __all__ = [
     "chain_walker_planes",
     "column_popcount",
     "default_use_kernel",
+    "digest_leaves",
+    "digest_leaves_plain",
+    "digest_work",
     "dominance_work",
     "fused_mlp_rollout",
     "fused_mlp_rollout_plain",

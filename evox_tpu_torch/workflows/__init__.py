@@ -1,18 +1,27 @@
 from .checkpoint import CheckpointConfigError, WorkflowCheckpointer
+from .flightrec import FlightRecorder, MetricsStream, merge_pod_streams, read_stream
 from .islands import IslandWorkflow, IslandWorkflowState
+from .journal import ChainedLog, JournalIntegrityError, RunJournal
 from .pipelined import chunked_evaluate, run_host_pipelined
 from .std import StdWorkflow, StdWorkflowState
 from .surrogate import SurrogateWorkflow, SurrogateWorkflowState
 
 __all__ = [
+    "ChainedLog",
     "CheckpointConfigError",
+    "FlightRecorder",
     "IslandWorkflow",
     "IslandWorkflowState",
+    "JournalIntegrityError",
+    "MetricsStream",
+    "RunJournal",
     "StdWorkflow",
     "StdWorkflowState",
     "SurrogateWorkflow",
     "SurrogateWorkflowState",
     "WorkflowCheckpointer",
     "chunked_evaluate",
+    "merge_pod_streams",
+    "read_stream",
     "run_host_pipelined",
 ]

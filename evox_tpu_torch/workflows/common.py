@@ -51,13 +51,14 @@ def finish_step(
     return new_state.replace(monitors=tuple(mstates))
 
 
-def refuse_deferred(where: str, item: str = "A11", **arguments: Any) -> None:
-    """Raise for each argument given whose port waits for ROADMAP ``item``
-    (``None`` and ``False`` mean not given)."""
+def refuse_deferred(where: str, **arguments: Any) -> None:
+    """Raise for each argument given whose port waits for ROADMAP A11, the
+    scale-out and supervision slice (``None`` and ``False`` mean not
+    given)."""
     for name, value in arguments.items():
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet (ROADMAP {item})"
+                f"{where}({name}=...) is not ported yet (ROADMAP A11)"
             )
 
 

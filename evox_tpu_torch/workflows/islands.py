@@ -23,12 +23,22 @@ fitness)`` states; PSO and the GA-skeleton MOEAs override it).
   the tie-break, boundary points (+inf crowding) first.
 - Whether a generation migrates is decided on the host's generation
   counter (the JAX package's ``lax.cond`` on a device counter).
+- A host problem (``external_problem``, or a problem with ``jittable =
+  False``) is evaluated on the calling thread over the flattened batch
+  (``workflows/common.py``'s ``host_evaluate``: pinned copies, a CUDA
+  event), where the JAX package goes through ``pure_callback``.
+- ``dtype_policy`` holds the storage-annotated leaves of every island at
+  storage width between generations, as :class:`StdWorkflow` does;
+  ``donate_carries`` is accepted and changes no number (eager PyTorch
+  makes no copy for it to remove), and ``run`` then peels its first
+  generation through ``step`` as the JAX package does.
+- ``run(checkpointer=, resume_from=)`` snapshots the tuple of island
+  states on the checkpoint cadence through the executor's ``run_fused``
+  and resumes under the config guard, as :meth:`StdWorkflow.run`.
 
-The JAX package's ``external_problem``, ``dtype_policy``,
-``donate_carries`` and ``run``'s ``checkpointer``/``resume_from`` wait for
-ROADMAP A5 and ``mesh`` for A11: each raises ``NotImplementedError``. Its
-``use_topk_kernel`` and ``topk_interpret`` have no counterpart: the
-tensor's device chooses, as in B4's wrapper.
+The JAX package's ``mesh`` waits for ROADMAP A11 and raises
+``NotImplementedError``. Its ``use_topk_kernel`` and ``topk_interpret``
+have no counterpart: the tensor's device chooses, as in B4's wrapper.
 """
 
 from __future__ import annotations
@@ -39,15 +49,18 @@ import torch
 
 from ..core.algorithm import Algorithm
 from ..core.device import DeviceLike, resolve_device
+from ..core.dtype_policy import apply_compute, apply_storage
 from ..core.monitor import Monitor
 from ..core.problem import Problem
 from ..core.struct import PyTreeNode, static_field
 from ..kernels.topk import partial_topk
 from ..utils.common import lexsort, parse_opt_direction, split_seed, tree_flatten, tree_map
 from .common import (
+    HostLink,
     build_hook_table,
     finish_step,
     fused_run,
+    host_evaluate,
     refuse_deferred,
     run_hooks,
     step_loop,
@@ -96,6 +109,13 @@ class IslandWorkflow:
             rank and crowding (:func:`mo_elites`) and ingested through the
             algorithm's multi-objective ``migrate``.
         device: ``None`` means ``"cuda"``.
+        external_problem: evaluate on the host (numpy in, numpy out);
+            defaults to ``not problem.jittable``.
+        dtype_policy: an optional :class:`~evox_tpu_torch.core.
+            dtype_policy.DtypePolicy` (e.g. ``BF16_STORAGE``), as
+            :class:`StdWorkflow`'s.
+        donate_carries: accepted for the JAX package's signature; changes
+            no number (:class:`StdWorkflow`'s argument says why).
     """
 
     def __init__(
@@ -128,8 +148,6 @@ class IslandWorkflow:
                 "migrants carry raw fitness while tell stores shaped values"
             )
         refuse_deferred("IslandWorkflow", mesh=mesh)
-        refuse_deferred("IslandWorkflow", item="A5", external_problem=external_problem,
-                        dtype_policy=dtype_policy, donate_carries=donate_carries)
         self.device = resolve_device(device)
         for part in (algorithm, problem):
             dev = getattr(part, "device", None)
@@ -148,17 +166,24 @@ class IslandWorkflow:
             m.set_opt_direction(self.opt_direction)
         self._hook_table = build_hook_table(self.monitors)
         self.pop_transforms = tuple(pop_transforms)
+        self.external = (not getattr(problem, "jittable", True)) if external_problem is None \
+            else bool(external_problem)
+        self.host_link = HostLink(self.device) if self.external else None
+        self.dtype_policy = dtype_policy
+        self.donate_carries = bool(donate_carries)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> IslandWorkflowState:
         seeds = split_seed(seed, 2 + len(self.monitors))
-        return IslandWorkflowState(
+        state = IslandWorkflowState(
             generation=0,
             algo=tuple(self.algorithm.init(s) for s in split_seed(seeds[1], self.n_islands)),
             prob=self.problem.init(seeds[0]),
             monitors=tuple(m.init(s) for m, s in zip(self.monitors, seeds[2:])),
             first_step=True,
         )
+        # the island states rest at storage width from the start
+        return apply_storage(state, self.dtype_policy)
 
     # ------------------------------------------------------------------ step
     def step(self, state: IslandWorkflowState) -> IslandWorkflowState:
@@ -166,17 +191,29 @@ class IslandWorkflow:
 
     def run(self, state: IslandWorkflowState, n_steps: int, checkpointer: Any = None,
             resume_from: Any = None) -> IslandWorkflowState:
-        """Run ``n_steps`` generations (a Python loop over ``step``)."""
-        refuse_deferred("IslandWorkflow.run", item="A5", checkpointer=checkpointer,
-                        resume_from=resume_from)
+        """Run ``n_steps`` generations (a Python loop over ``step``).
+
+        ``checkpointer=`` runs in chunks that end on its cadence and
+        snapshots the tuple of island states between them on the
+        executor's background lane; ``resume_from=`` (a
+        :class:`~evox_tpu_torch.workflows.checkpoint.WorkflowCheckpointer`
+        or a directory) restores the newest intact snapshot under the
+        config guard first, and ``n_steps`` then counts total
+        generations (:meth:`StdWorkflow.run`'s law)."""
+        from .checkpoint import checkpointed_run, enter_run
+
+        state, n_steps, checkpointer = enter_run(state, n_steps, checkpointer, resume_from,
+                                                 expect_like=state, device=self.device)
+        if checkpointer is not None:
+            return checkpointed_run(self, state, n_steps, checkpointer)
         return fused_run(self, state, n_steps)
 
     def analysis_targets(self, state: IslandWorkflowState) -> dict:
         """Entry points for the cost analysis (see
         :meth:`StdWorkflow.analysis_targets`): the steady step and ``run`` at
-        one generation. A host problem (``jittable = False``) gives ``{}``:
-        the island model has no pipelined halves."""
-        if not getattr(self.problem, "jittable", True):
+        one generation. A host problem gives ``{}``: the island model has
+        no pipelined halves."""
+        if self.external:
             return {}
         steady = state.replace(first_step=False) if state.first_step else state
         return {
@@ -227,7 +264,15 @@ class IslandWorkflow:
             self.algorithm.migrate(s, tree_map(lambda r: r[i], recv), recv_fit[i])
             for i, s in enumerate(astates))
 
+    def _evaluate(self, pstate: Any, cand_flat: Any) -> Tuple[torch.Tensor, Any]:
+        if self.external:
+            return host_evaluate(self.problem, self.host_link, pstate, cand_flat)
+        return self.problem.evaluate(pstate, cand_flat)
+
     def _step_impl(self, state: IslandWorkflowState) -> IslandWorkflowState:
+        # storage -> compute at step entry: the algorithm math runs at the
+        # compute width
+        state = apply_compute(state, self.dtype_policy)
         mstates = list(state.monitors)
         run_hooks(self.monitors, self._hook_table, "pre_step", mstates)
         run_hooks(self.monitors, self._hook_table, "pre_ask", mstates)
@@ -248,7 +293,7 @@ class IslandWorkflow:
             cand_flat = t(cand_flat)
 
         run_hooks(self.monitors, self._hook_table, "pre_eval", mstates, cand_flat)
-        raw_fitness, pstate = self.problem.evaluate(state.prob, cand_flat)
+        raw_fitness, pstate = self._evaluate(state.prob, cand_flat)
         run_hooks(self.monitors, self._hook_table, "post_eval", mstates, cand_flat, raw_fitness)
         # the internal minimization convention, shared by tell and migration
         if self.num_objectives > 1:
@@ -266,6 +311,8 @@ class IslandWorkflow:
         gen = state.generation + 1
         if gen % self.migrate_every == 0:
             astates = self._migrate(astates, pop, fitness)
+        # the carried island states leave the step at storage width
+        astates = apply_storage(astates, self.dtype_policy)
         new_state = state.replace(
             generation=gen,
             algo=astates,

@@ -7,9 +7,10 @@ StdWorkflow` whose problem lives on the host through the
 ``evaluate`` runs on the calling thread and the user's per-generation host
 work (``on_generation``: logging, plotting, metrics) for generation ``g``
 on a background lane while generation ``g+1`` is asked and evaluated.
-The dependency chain evaluate → tell → ask → evaluate is untouched, so
-the states equal a ``wf.step`` loop's bit for bit. For a problem that
-runs on the card use ``wf.run``.
+At ``max_staleness=0`` the dependency chain evaluate → tell → ask →
+evaluate is untouched, so the states equal a ``wf.step`` loop's bit for
+bit; ``max_staleness=K > 0`` keeps ``K+1`` evaluations in flight with
+stale tells. For a problem that runs on the card use ``wf.run``.
 """
 
 from __future__ import annotations
@@ -75,9 +76,18 @@ def run_host_pipelined(
 
     ``eval_chunk=``: evaluate in row slices of at most this many candidates
     (:func:`chunked_evaluate`). ``restarts=`` (``IPOPRestarts``) runs the
-    IPOP policy over pipelined segments. ``max_staleness > 0`` waits for
-    ROADMAP A5. ``executor=``: the executor to drive (its counters
-    accumulate); a fresh one otherwise."""
+    IPOP policy over pipelined segments.
+
+    ``max_staleness=K`` (``None``, the default, takes the ``executor``'s
+    configured bound, else 0): admit tells up to ``K`` generations stale —
+    up to ``K+1`` host evaluations in flight on worker threads, each tell
+    grafted onto the newest told state with its own ask's artifacts
+    (:class:`~evox_tpu_torch.core.executor.GenerationExecutor`). ``K=0``
+    equals a ``wf.step`` loop bit for bit; ``K>0`` trades the freshness of
+    each update for throughput when host evaluations can run concurrently.
+
+    ``executor=``: the executor to drive (its counters accumulate and
+    surface in ``run_report()["executor"]``); a fresh one otherwise."""
     if not wf.external:
         raise ValueError(
             "run_host_pipelined is for external (host) problems; problems that "

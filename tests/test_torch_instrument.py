@@ -279,7 +279,6 @@ def test_report_survives_analysis_targets_failure():
 @pytest.mark.parametrize("section,item,kwargs,attr", [
     ("supervisor", "A11", {"supervisor": object()}, None),
     ("pod_supervisor", "A13", {"pod_supervisor": object()}, None),
-    ("metrics", "A12", {"metrics": object()}, None),
     ("control_plane", "A13", {"control_plane": object()}, None),
     ("tenancy", "A9", {}, ("tenancy_report", lambda s: {})),
     ("serving", "A13", {}, ("_exec_cache", object())),

@@ -31,6 +31,7 @@ from evox_tpu_torch.algorithms.mo import NSGA2
 from evox_tpu_torch.algorithms.so.de import DE
 from evox_tpu_torch.algorithms.so.es import OpenES
 from evox_tpu_torch.algorithms.so.pso import PSO
+from evox_tpu_torch.core.dtype_policy import BF16_STORAGE, apply_storage
 from evox_tpu_torch.problems.numerical import ZDT1, Sphere
 from evox_tpu_torch.utils.common import split_seed
 from evox_tpu_torch.workflows.islands import mo_elites
@@ -173,21 +174,27 @@ def test_best_is_in_the_users_convention():
 
 
 def test_constructor_refusals_and_deferred_arguments():
+    """The refusals stand (``mesh`` waits for ROADMAP A11); the JAX
+    package's ``external_problem``, ``dtype_policy``, ``donate_carries``
+    and ``run(checkpointer=, resume_from=)`` are ported and run."""
     algo = PSO(np.zeros(2), np.ones(2), 8, device="cpu")
     for kwargs, match in (({"n_islands": 1}, "islands"), ({"num_objectives": 0}, "num_objectives"),
                           ({"migrate_every": 0}, "migrate_every"),
                           ({"fit_transforms": (lambda f: f,)}, "fit_transforms")):
         with pytest.raises(ValueError, match=match):
             IslandWorkflow(algo, Sphere(), **{"n_islands": 4, **kwargs}, device="cpu")
-    for name, item in (("mesh", "A11"), ("external_problem", "A5"), ("dtype_policy", "A5"),
-                       ("donate_carries", "A5")):
-        with pytest.raises(NotImplementedError, match=item):
-            IslandWorkflow(algo, Sphere(), n_islands=2, device="cpu", **{name: True})
+    with pytest.raises(NotImplementedError, match="A11"):
+        IslandWorkflow(algo, Sphere(), n_islands=2, device="cpu", mesh=True)
+    for name, value in (("external_problem", True), ("dtype_policy", BF16_STORAGE),
+                        ("donate_carries", True)):
+        problem = _HostTiedSphere() if name == "external_problem" else Sphere()
+        wf = IslandWorkflow(algo, problem, n_islands=2, migrate_every=1, device="cpu",
+                            **{name: value})
+        assert wf.run(wf.init(0), 3).generation == 3, name
+    host = IslandWorkflow(algo, _HostTiedSphere(), n_islands=2, device="cpu")
+    assert host.external and host.analysis_targets(host.init(0)) == {}
     wf = IslandWorkflow(algo, Sphere(), n_islands=2, migrate_k=9, migrate_every=1, device="cpu")
     state = wf.init(0)
-    for name in ("checkpointer", "resume_from"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            wf.run(state, 1, **{name: "ckpt"})
     # analysis_targets is ported: the steady step and run at one generation
     assert set(wf.analysis_targets(state)) == {"step", "run"}
     with pytest.raises(ValueError, match="migrate_k=9"):
@@ -195,6 +202,130 @@ def test_constructor_refusals_and_deferred_arguments():
     if not torch.cuda.is_available():  # device=None means cuda
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             IslandWorkflow(algo, Sphere(), n_islands=2)
+
+
+class _HostTiedSphere:
+    """The tied Sphere on the host (numpy in, numpy out), for both packages."""
+
+    jittable = False
+    fit_dtype = "float32"
+
+    def init(self, key=None):
+        return None
+
+    def fit_shape(self, pop_size):
+        return (pop_size,)
+
+    def evaluate(self, state, pop):
+        return np.round(np.sum(np.asarray(pop) ** 2, axis=1) / 4.0).astype(np.float32), state
+
+
+class _JaxHostTiedSphere(_HostTiedSphere, JaxProblem):
+    pass
+
+
+def _bits(x):
+    """A leaf as comparable numpy: bfloat16 as its 16-bit pattern."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    x = np.asarray(x)
+    return x.view(np.int16) if x.dtype.name == "bfloat16" else x
+
+
+def _route_pso_draws(twf, tstate, jstate, pop):
+    table = {}
+    for i, t in enumerate(tstate.algo):
+        _, k1, k2 = jax.random.split(jstate.algo.key[i], 3)
+        table[split_seed(t.seed)[1]] = (_t(jax.random.uniform(k1, (pop, DIM))),
+                                        _t(jax.random.uniform(k2, (pop, DIM))))
+    twf.algorithm._draw = lambda seed: table[seed]
+
+
+@pytest.mark.parametrize("kwargs", [{"external_problem": True},
+                                    {"dtype_policy": "bf16", "donate_carries": True}],
+                         ids=["host_problem", "bf16_donated"])
+def test_a5_arguments_match_jax(kwargs):
+    """4 PSO islands of 8 with migration every 2 through three generations,
+    against the JAX package's ``IslandWorkflow`` with the same arguments,
+    every island leaf exactly: a host problem evaluated over the flattened
+    batch (the JAX package through ``pure_callback``), and bf16 storage
+    with donated carries (the leaves compared as bfloat16 bit patterns)."""
+    from evox_tpu.core.dtype_policy import BF16_STORAGE as JAX_BF16
+
+    lb, ub = -4 * np.ones(DIM, np.float32), 4 * np.ones(DIM, np.float32)
+    bf16 = kwargs.get("dtype_policy") == "bf16"
+    jkw = dict(kwargs, dtype_policy=JAX_BF16) if bf16 else dict(kwargs)
+    tkw = dict(kwargs, dtype_policy=BF16_STORAGE) if bf16 else dict(kwargs)
+    host = "external_problem" in kwargs
+    common = dict(n_islands=4, migrate_every=2, migrate_k=2)
+    jwf = JaxIslandWorkflow(JaxPSO(lb=lb, ub=ub, pop_size=8),
+                            _JaxHostTiedSphere() if host else _JaxTiedSphere(),
+                            use_topk_kernel=True, topk_interpret=True, **common, **jkw)
+    twf = IslandWorkflow(PSO(lb, ub, 8, device="cpu"),
+                         _HostTiedSphere() if host else _TiedSphere(), device="cpu",
+                         **common, **tkw)
+    key = jax.random.PRNGKey(6)
+    jstate = jwf.init(key)
+    # the port starts from JAX's float32 init, cast to storage by its own policy
+    plain = JaxIslandWorkflow(JaxPSO(lb=lb, ub=ub, pop_size=8), _JaxTiedSphere(), **common)
+    tstate = apply_storage(interop.island_workflow_state(twf, _np(plain.init(key)), seed=1),
+                           twf.dtype_policy)
+    for gen in range(3):
+        _route_pso_draws(twf, tstate, jstate, 8)
+        jstate, tstate = jwf.step(jstate), twf.step(tstate)
+        assert tstate.generation == int(jstate.generation)
+        for i, t in enumerate(tstate.algo):
+            for f in dataclasses.fields(t):
+                if hasattr(jstate.algo, f.name):
+                    want = _bits(np.asarray(getattr(jstate.algo, f.name))[i])
+                    np.testing.assert_array_equal(_bits(getattr(t, f.name)), want,
+                                                  err_msg=f"generation {gen + 1}, {f.name}")
+    if bf16:
+        assert tstate.algo[0].population.dtype == torch.bfloat16
+    else:
+        assert twf.host_link.counts["d2h"] == 3  # one flattened batch a generation
+
+
+def test_checkpointed_island_run_resumes_bit_for_bit(tmp_path):
+    """``run(checkpointer=WorkflowCheckpointer(every=4, keep=3))`` for 16
+    generations equals the straight run; after a crash at generation 12 (the
+    newest snapshot dropped) a fresh workflow's ``run(resume_from=)`` to the
+    same total restores generation 8 and finishes bit for bit; a snapshot of
+    another island count is refused by the config guard."""
+    from evox_tpu_torch.workflows.checkpoint import WorkflowCheckpointer
+
+    def make(n_islands=3):
+        return IslandWorkflow(PSO(-4 * np.ones(DIM), 4 * np.ones(DIM), 8, device="cpu"),
+                              _TiedSphere(), n_islands=n_islands, migrate_every=3, migrate_k=2,
+                              device="cpu")
+
+    wf = make()
+    straight = wf.run(wf.init(5), 16)
+    ckpt = WorkflowCheckpointer(str(tmp_path / "isl"), every=4, keep=3)
+    saved = wf.run(wf.init(5), 16, checkpointer=ckpt)
+    _assert_same_islands(saved, straight)
+    assert [p.name for p in ckpt.snapshots()] == [f"ckpt_{g:08d}.pkl" for g in (8, 12, 16)]
+    for path in tmp_path.joinpath("isl").glob("ckpt_00000012*"):
+        path.unlink()
+    for path in tmp_path.joinpath("isl").glob("ckpt_00000016*"):
+        path.unlink()
+    fresh = make()
+    resumed = fresh.run(fresh.init(5), 16, resume_from=str(tmp_path / "isl"))
+    _assert_same_islands(resumed, straight)
+    with pytest.raises(Exception, match="config|island|shape|mismatch"):
+        other = make(4)
+        other.run(other.init(5), 16, resume_from=str(tmp_path / "isl"))
+
+
+def _assert_same_islands(a, b):
+    assert a.generation == b.generation and len(a.algo) == len(b.algo)
+    for x, y in zip(a.algo, b.algo):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, torch.Tensor):
+                assert torch.equal(u, v), f.name
+            else:
+                assert u == v, f.name
 
 
 def test_islands_converge_on_sphere():

@@ -191,18 +191,20 @@ def test_refusals():
     with pytest.raises(ValueError, match="external"):
         GenerationExecutor().run_host(jittable, jittable.init(0), 2)
     wf = _pso_workflow()
-    for call in (lambda: GenerationExecutor(max_staleness=1),
-                 lambda: run_host_pipelined(wf, wf.init(0), 2, max_staleness=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            call()
+    # stale tells are ported: K > 0 runs (tests/test_torch_stale.py holds
+    # them against the JAX loop), and a negative bound is refused
+    stale = GenerationExecutor(max_staleness=1)
+    assert run_host_pipelined(wf, wf.init(0), 2, executor=stale).generation == 2
+    assert stale.report()["max_staleness"] == 1
     with pytest.raises(ValueError, match="max_staleness"):
         GenerationExecutor(max_staleness=-1)
     for kwargs in ({"supervisor": object()}, {"pod_supervisor": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP A11"):
             GenerationExecutor(**kwargs)
-    for kwargs in ({"attest": object()}, {"verify_every": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            GenerationExecutor().run_fused(jittable, jittable.init(0), 1, **kwargs)
+    # the voted re-dispatch is ported (tests/test_torch_attest.py): a
+    # cadence below 1 is refused
+    with pytest.raises(ValueError, match="verify_every"):
+        GenerationExecutor().run_fused(jittable, jittable.init(0), 1, verify_every=0)
     # external_problem=True forces the host path for a problem that could
     # run on the device; the host sees numpy
     forced = StdWorkflow(PSO(-np.ones(3), np.ones(3), 8, device="cpu"), HostSphere(),
