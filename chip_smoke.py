@@ -243,9 +243,11 @@ exit 0):
    Coevolution of PSO over 8 blocks of 128 on Ackley at d 1024,
    RandomMaskAlgorithm through a mask change, TreeAlgorithm over a
    two-leaf dict; each on the card against the CPU on the same draws,
-   states bit for bit) and the MO islands phase (NSGA-II islands, pop 1000,
-   on DTLZ2: one B3 launch an island at each migration, the elites held
-   against the CPU's).
+   states bit for bit; clusters and blocks stacked, one member call) and
+   the MO islands phase (4 stacked NSGA-II islands, pop 1000, on DTLZ2:
+   one batched B3 launch a tell, one for the elites and one for the
+   migrate a migration, one batched B4 cut a steady tell; the elites and
+   one migrating generation's tell and migration held against the CPU).
 19. main path 16: ``bench.py:613-707``'s workload 6,
    ``StdWorkflow(PSO(±5, pop 2048, d 512), _HostEvalSphere())`` (numpy
    ``sum(x²)`` after a 4 ms sleep, seed 13), through ``run_host_pipelined``
@@ -343,11 +345,27 @@ exit 0):
    raising ``IntegrityError``, ``bisect_divergence`` naming a flipped
    generation. Main path 27: ``LineageMonitor`` on paths 9 and 2 against
    unmonitored twins in turns (states bit for bit, one more B3 launch a
-   generation on path 2, the ``search`` section valid).
+   generation on path 2, the ``search`` section valid). B3 batched over
+   members (``DOMINANCE_BATCHES``, stress rows) in one launch against its
+   plain version and against single launches, bit for bit; SHADE islands
+   (8 × 512, d 64, the pbest cut one batched B4 launch a generation) and
+   one migrating generation on the card against the CPU on the same draws.
+   Main path 28: ``bench.py``'s workload 5, ``VectorizedWorkflow(CMAES(
+   zeros(16), 1.0, pop_size=256), Sphere(), n_tenants=64)`` against the
+   same 64 runs one after the other in turns (differenced trip counts 10
+   and 60): ms a generation and their ratio, the member draws' share,
+   peak memory; tenants 0, 31 and 63 each step against the solo step
+   (rtol 1e-5, atol 1e-6), their 10-generation drift from their solo runs
+   and ``fleet_split_points`` (which CMA-ES operation rounds apart first),
+   one fleet generation on the card against the CPU. Main path 29:
+   ``RunQueue`` (4 slots, chunks of 5, a journal, 6 specs of 10 steps),
+   the report valid, an eviction resumed solo bit for bit.
 23. a ``{"kernels": [...]}`` line (B1-B4 and D1 with their call sites: B1
    on paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13,
    B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched on
-   paths 14 and 24 as ``partial_topk_rows``, D1 on path 26), then the last
+   paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE and
+   MO islands, ``packed_dominance_batched`` on the MO islands, D1 on path
+   26), then the last
    line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
@@ -431,9 +449,11 @@ MAF_POP = 10000  # MaF1-15's points a member, card against CPU
 ISL_N, ISL_POP, ISL_DIM, ISL_BOUND, ISL_EVERY, ISL_SEED = 8, 512, 256, 32.0, 8, 5
 ISL_GENERATIONS = 2 * ISL_EVERY
 # B4's batched launch, held bit for bit: (rows, n, k); (3, 20000, 10000) and
-# (64, 2049, 8) on the small route, (3, 30000, 15000) on the large (per row)
+# (64, 2049, 8) on the small route, (3, 30000, 15000) on the large (per row);
+# the launches under vmap: the MO islands' NSGA-II cut (4, 2000, 1000) and
+# the SHADE islands' pbest cut (8, 512, pbest_k(512) = 102)
 TOPK_BATCHES = ((8, 512, 1), (8, 512, 4), (4, 2000, 4), (64, 2049, 8), (3, 20000, 10000),
-                (3, 30000, 15000))
+                (3, 30000, 15000), (4, 2000, 1000), (8, 512, 102))
 # main path 15: docs/GUIDE.md:504-520's IPOP-CMA-ES recipe at path 5's shape
 # (d 1000, pop 24, Rastrigin); C, B and D poisoned with NaN after
 # generation 40, so the boundary at 100 doubles λ to 48 for the segment
@@ -494,6 +514,20 @@ STALE_CENTER, STALE_LR, STALE_SIGMA, STALE_GENERATIONS, STALE_LAW_GENERATIONS = 
 STALE_GATE_POP, STALE_GATE_DIM, STALE_GATE_SLEEP, STALE_GATE_GENERATIONS = 64, 8, 0.002, 150
 # main path 24: path 14 checkpointed every 8 for 32 generations
 ISL_CKPT_EVERY, ISL_CKPT_GENERATIONS = 8, 32
+# B3 batched over a leading member axis: (members, n, m), the MO islands'
+# merged rows (4, 2000, 3) and their migrate's (4, 1004, 3: 1000 and 4
+# migrants) among them, and 64 small members
+DOMINANCE_BATCHES = ((4, 1000, 3), (4, 2000, 3), (8, 1250, 3), (64, 512, 2), (4, 1004, 3))
+# main path 28, bench.py's workload 5 (bench.py:458-606): 64 CMA-ES tenants
+# of pop 256 at d 16, the differenced trip counts, the tenants held
+# against their solo runs
+TEN_N, TEN_POP, TEN_DIM = 64, 256, 16
+TEN_PAIR = (10, 60)
+TEN_CHECK, TEN_CHECK_GENERATIONS = (0, 31, 63), 10
+# main path 29, bench.py's RunQueue leg (bench.py:592-603)
+RQ_SLOTS, RQ_CHUNK, RQ_SPECS, RQ_STEPS = 4, 5, 6, 10
+# SHADE islands: the pbest cut on B4 under vmap
+SHADE_ISL_N, SHADE_ISL_POP, SHADE_ISL_DIM, SHADE_ISL_GENERATIONS = 8, 512, 64, 8
 # main paths 25 and 26: bench.py:1525-1638's workloads 12 and 12b, path 4's
 # CSO (seed 42) in chunks of 100 with one sample a chunk, and attested every
 # 10 into a ring of 64; trip counts 100 and 600 differenced, each the least
@@ -996,10 +1030,16 @@ def profile_generations(torch, wf, state, gens: int) -> dict:
              for us, k, c in rows[:15]]
     for r in table:
         print(f"[profile] {json.dumps(r)}", flush=True)
+    copies = [r for r in rows if r[1].startswith(("Memcpy", "Memset"))]
     return {
         "generations": gens,
         "profiled_wall_us_per_gen": wall_us / gens,
         "device_busy_us_per_gen": busy_us / gens,
+        # device work items a generation: kernels, and the copies to the
+        # host (each a blocking read of the device on the host)
+        "kernel_launches_per_gen": sum(c for _, k, c in rows
+                                       if not k.startswith(("Memcpy", "Memset"))) / gens,
+        "memcpy_dtoh_per_gen": sum(c for _, k, c in copies if "DtoH" in k) / gens,
         "top": table,
     }
 
@@ -3667,7 +3707,7 @@ def phase_island_path(torch, seed: int, profile: bool) -> dict:
             state = s
         else:
             tstate = s
-    for name, s in (("islands", torch.cat([a.population for a in state.algo])),
+    for name, s in (("islands", state.algo.population.reshape(-1, ISL_DIM)),
                     ("panmictic", tstate.algo.population)):
         if not bool(torch.isfinite(s).all()) or float(s.abs().max()) > ISL_BOUND:
             raise AssertionError(f"{name}: the population leaves the bounds or is not finite")
@@ -3678,7 +3718,8 @@ def phase_island_path(torch, seed: int, profile: bool) -> dict:
            for w in ("islands", "panmictic")}
     out = {
         "n_islands": ISL_N, "pop": ISL_POP, "dim": ISL_DIM, "migrate_every": ISL_EVERY,
-        "migrate_k": wf.migrate_k, "turns": turns, "launches": sum(launches),
+        "migrate_k": wf.migrate_k, "member_route": wf.member_route, "turns": turns,
+        "launches": sum(launches),
         "launches_per_turn": launches,
         "ms_per_generation": med["islands"], "panmictic_ms_per_generation": med["panmictic"],
         "evals_per_s": ISL_N * ISL_POP / med["islands"] * 1e3,
@@ -3740,12 +3781,10 @@ def phase_island_card_vs_cpu(torch, wf, state) -> dict:
     exact = ("population", "velocity", "pbest_position", "gbest_position")
     out["state"] = compare_exact(
         "island generation, positions, velocities and bests, card against CPU",
-        [getattr(a, f).cpu() for a in got.algo for f in exact],
-        [getattr(a, f) for a in want.algo for f in exact])
+        [getattr(got.algo, f).cpu() for f in exact], [getattr(want.algo, f) for f in exact])
     out["pbest_fitness"] = compare(
         "island generation, personal-best fitness, card against CPU",
-        torch.cat([a.pbest_fitness for a in got.algo]).cpu(),
-        torch.cat([a.pbest_fitness for a in want.algo]), 1e-6, 0.0)
+        got.algo.pbest_fitness.reshape(-1).cpu(), want.algo.pbest_fitness.reshape(-1), 1e-6, 0.0)
     return out
 
 
@@ -3949,7 +3988,9 @@ def phase_containers(torch) -> dict:
     Ackley at d 1024; RandomMaskAlgorithm(PSO(pop 512), 8 clusters, 2
     masked, a new mask every 2 generations) through one mask change; and
     TreeAlgorithm(PSO(pop 512)) over {"w": (32, 32), "b": (32,)} on a sum
-    of squares: each on the card against the CPU (``container_run``)."""
+    of squares: each on the card against the CPU (``container_run``). The
+    clusters and blocks are stacked states, asked and told in one member
+    call (the tree container is a tuple, as in the JAX package)."""
     from evox_tpu_torch.algorithms import containers as tc
     from evox_tpu_torch.algorithms.so.pso import CSO, PSO
     from evox_tpu_torch.problems.numerical import Ackley
@@ -3998,21 +4039,132 @@ def phase_containers(torch) -> dict:
     return out
 
 
+def build_mo_islands(torch, device=None):
+    """The MO islands phase's workflow: ``IslandWorkflow(NSGA2(pop 1000, m
+    3, use_kernel=True), DTLZ2(d 12), n_islands=4, migrate_every=5,
+    migrate_k=4, num_objectives=3)``."""
+    from evox_tpu_torch import IslandWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    algo = NSGA2(torch.zeros(MOEAD_D), torch.ones(MOEAD_D), n_objs=MO_M, pop_size=MO_FAMILY_POP,
+                 use_kernel=True, device=device)
+    return IslandWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M, device=device), n_islands=MO_ISLANDS,
+                          migrate_every=5, migrate_k=4, num_objectives=MO_M, device=device)
+
+
+def island_generation_halves(torch, wf, cpu_wf, state, cpu_state, evaluate) -> dict:
+    """One stacked island generation on the card and on the CPU, as
+    ``IslandWorkflow``'s step runs it (one member call each for ask and
+    tell, then the ring migration with its elites), from ``state`` on the
+    card and ``cpu_state`` on the CPU: the same state on the CPU, or a
+    function that moves the card's asked state there (its candidates go
+    with it). ``evaluate(candidates)`` scores the CPU's flattened
+    candidates, and that fitness is told to both sides, so no
+    transcendental's last bit decides a selection. Returns each side's
+    candidates, told and migrated states and elites, the fitness, and the
+    kernel launches of the card's tell and migration."""
+    from evox_tpu_torch.core.members import member_call
+    from evox_tpu_torch.kernels import dominance as kd
+    from evox_tpu_torch.kernels import topk as kt
+
+    route = wf.member_route
+    if callable(cpu_state):
+        cand, asked = member_call(wf.algorithm.ask, state.algo, route=route)
+        cand_cpu, asked_cpu = cand.cpu(), cpu_state(asked)
+    else:  # the CPU asks first: ``_same_draws`` hands the CPU's draws to the card
+        cand_cpu, asked_cpu = member_call(cpu_wf.algorithm.ask, cpu_state.algo, route=route)
+        cand, asked = member_call(wf.algorithm.ask, state.algo, route=route)
+    n, batch = cand_cpu.shape[:2]
+    raw = evaluate(cand_cpu.reshape((n * batch,) + cand_cpu.shape[2:]))
+    if wf.num_objectives > 1:
+        fit = (raw * cpu_wf.opt_direction).reshape(n, batch, wf.num_objectives)
+    else:
+        fit = (raw * cpu_wf.opt_direction[0]).reshape(n, batch)
+    out = {"cand": (cand, cand_cpu), "fitness": fit}
+    for side, w, s, c, f in (("card", wf, asked, cand, fit.cuda()),
+                             ("cpu", cpu_wf, asked_cpu, cand_cpu, fit)):
+        b3, b4 = kd.packed_dominance.launches, kt.partial_topk.launches
+        told = member_call(w.algorithm.tell, s, f, route=route)
+        caught = catch_elites(w)
+        try:
+            moved = w._migrate(told, c, f)
+        finally:
+            del w.elites
+        out[side] = {"told": told, "moved": moved, "elites": caught[0][1],
+                     "launches": {"packed_dominance": kd.packed_dominance.launches - b3,
+                                  "partial_topk": kt.partial_topk.launches - b4}}
+    torch.cuda.synchronize()
+    for key in ("told", "moved", "elites"):
+        out[key] = (out["card"][key], out["cpu"][key])
+    out["launches"] = out["card"]["launches"]
+    return out
+
+
+def _nsga2_states_equal(torch, name: str, got, want) -> dict:
+    """Stacked NSGA-II states, card against CPU: population, fitness, rank
+    and offspring bit for bit; crowding's infinite entries equal and its
+    finite ones within 1e-6 relative (the same float32 operations on both
+    devices; the tolerance allows an ulp of the division, as path 2's tell
+    check does)."""
+    fields = ("population", "fitness", "rank", "offspring")
+    out = compare_exact(f"{name} (population, fitness, rank, offspring)",
+                        [getattr(got, f).cpu() for f in fields], [getattr(want, f) for f in fields])
+    crowd, crowd_cpu = got.crowd.cpu(), want.crowd
+    finite = torch.isfinite(crowd_cpu)
+    if not torch.equal(torch.isfinite(crowd), finite) or not torch.equal(crowd[~finite],
+                                                                         crowd_cpu[~finite]):
+        raise AssertionError(f"{name}: the infinite crowding distances differ")
+    out["crowd"] = compare(f"{name}, crowd (finite entries)", crowd[finite], crowd_cpu[finite],
+                           rtol=1e-6, atol=0.0)
+    return out
+
+
+def phase_mo_island_card_vs_cpu(torch, wf, state) -> dict:
+    """One migrating MO island generation on the card against the CPU's
+    plain routes. NSGA-II's operators draw from the device's own
+    generator, so the card's offspring and asked states are moved to the
+    CPU; DTLZ2 of those offspring on the CPU is told to both. Then NSGA-II's
+    tell under vmap (one batched B3 sort, the peel over all islands, one
+    batched B4 cut) and the migration (B3 for the elites, B3 for the
+    ingesting migrate): the told and migrated states as
+    ``_nsga2_states_equal`` holds them, the elites bit for bit."""
+    from evox_tpu_torch.problems.numerical import DTLZ2
+
+    cpu_wf = build_mo_islands(torch, device="cpu")
+    dtlz2 = DTLZ2(d=MOEAD_D, m=MO_M, device="cpu")
+    halves = island_generation_halves(torch, wf, cpu_wf, state,
+                                      lambda asked: _state_on(torch, asked, "cpu"),
+                                      lambda c: dtlz2.evaluate(None, c)[0])
+    want = {"packed_dominance": 3, "partial_topk": 1}
+    if halves["launches"] != want:
+        raise AssertionError(f"the compared MO island generation launched {halves['launches']}, "
+                             f"expected {want} (the tell's sort and cut, the elites, the migrate)")
+    out = {"generation": state.generation + 1, "launches": halves["launches"]}
+    out["tell"] = _nsga2_states_equal(torch, "MO island tell under vmap, card against CPU",
+                                      *halves["told"])
+    out["elites"] = compare_exact("MO island elites under vmap, card against CPU",
+                                  [halves["elites"][0].cpu()], [halves["elites"][1]])
+    out["migrate"] = _nsga2_states_equal(torch, "MO island migrate under vmap, card against CPU",
+                                         *halves["moved"])
+    return out
+
+
 def phase_mo_islands(torch, seed: int) -> dict:
     """The MO islands phase: ``IslandWorkflow(NSGA2(pop 1000, m 3), DTLZ2(d
     12), n_islands=4, migrate_every=5, migrate_k=4, num_objectives=3)`` for
-    10 generations: the elites (rank by B3, then crowding) one B3 launch an
-    island at each migration; the elites of the last migration held against
-    the CPU's plain route."""
-    from evox_tpu_torch import IslandWorkflow
-    from evox_tpu_torch.algorithms.mo import NSGA2
+    10 generations on stacked island states: NSGA-II's tell one batched B3
+    launch a generation over the 4 islands' merged rows (init_tell's sort
+    too), and at each migration one batched B3 launch for the elites (rank,
+    then crowding) and one for the ingesting ``migrate``; NSGA-II's cut
+    (``use_kernel=True``) one batched B4 launch a steady tell; the elites of
+    the last migration held against the CPU's plain route, island by
+    island; then one migrating generation's tell and migration on the card
+    against the CPU (``phase_mo_island_card_vs_cpu``)."""
     from evox_tpu_torch.kernels import dominance as kd
-    from evox_tpu_torch.problems.numerical import DTLZ2
     from evox_tpu_torch.workflows.islands import mo_elites
 
-    algo = NSGA2(torch.zeros(MOEAD_D), torch.ones(MOEAD_D), n_objs=MO_M, pop_size=MO_FAMILY_POP)
-    wf = IslandWorkflow(algo, DTLZ2(d=MOEAD_D, m=MO_M), n_islands=MO_ISLANDS, migrate_every=5,
-                        migrate_k=4, num_objectives=MO_M)
+    wf = build_mo_islands(torch)
     elite_launches = []
     caught = catch_elites(wf)
     inner = wf.elites
@@ -4032,20 +4184,474 @@ def phase_mo_islands(torch, seed: int) -> dict:
     wall = time.perf_counter() - t0
     launches = read_launches()
     del wf.elites
-    if elite_launches != [MO_ISLANDS] * (MO_ISLAND_GENERATIONS // 5):
-        raise AssertionError(f"B3 launches a migration's elites: {elite_launches}, expected "
-                             f"{MO_ISLANDS} each")
+    migrations = MO_ISLAND_GENERATIONS // 5
+    if elite_launches != [1] * migrations:
+        raise AssertionError(f"B3 launches a migration's elites: {elite_launches}, expected one "
+                             f"batched launch for the {MO_ISLANDS} islands each")
+    want_b3 = MO_ISLAND_GENERATIONS + 2 * migrations
+    if launches["packed_dominance"] != want_b3:
+        raise AssertionError(f"B3 launches in {MO_ISLAND_GENERATIONS} MO island generations: "
+                             f"{launches['packed_dominance']}, expected {want_b3} (one a tell, "
+                             "two a migration)")
+    if launches["partial_topk"] != MO_ISLAND_GENERATIONS - 1:
+        raise AssertionError(f"B4 launches of NSGA-II's cut under vmap: {launches['partial_topk']}, "
+                             f"expected one a steady tell ({MO_ISLAND_GENERATIONS - 1})")
     fitness, idx = caught[-1]
     want = torch.stack([mo_elites(f, 4) for f in fitness.cpu()])
     check = compare_exact("MO islands' elites, card against CPU", [idx.cpu()], [want])
+    before = state  # the state before the next migrating generation
+    while (before.generation + 1) % wf.migrate_every:
+        before = wf.step(before)
+    card_vs_cpu = phase_mo_island_card_vs_cpu(torch, wf, before)
     per_island, ideal = wf.best(state)
     if not (per_island.shape == (MO_ISLANDS, MO_M) and bool(torch.isfinite(per_island).all())):
         raise AssertionError(f"MO islands' ideal points: {per_island}")
     out = {"n_islands": MO_ISLANDS, "pop": MO_FAMILY_POP, "generations": MO_ISLAND_GENERATIONS,
-           "launches": launches, "elite_launches": elite_launches,
+           "member_route": wf.member_route, "launches": launches,
+           "elite_launches": elite_launches,
            "ms_per_generation": wall / MO_ISLAND_GENERATIONS * 1e3,
-           "ideal": ideal.tolist(), "elites_max_abs_err": check["max_abs_err"]}
+           "ideal": ideal.tolist(), "elites_max_abs_err": check["max_abs_err"],
+           "card_vs_cpu": card_vs_cpu}
     print(f"[mo islands] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ------------------------------------------- B3 batched, paths 28 and 29
+
+
+def phase_dominance_batched(torch) -> dict:
+    """B3 over a leading member axis: ``packed_dominance_batched`` at each
+    shape of ``DOMINANCE_BATCHES`` (every member a different draw of phase
+    2's stress rows: ties, NaN, ±0.0, ±inf and +inf rows) in one launch,
+    held bit for bit against its plain batched version on the same card
+    tensors and against ``b`` single-member launches; timed by CUDA events
+    against the ``b`` single launches and the plain version, with its bound
+    from the bytes and operations of ``b`` members."""
+    from evox_tpu_torch.kernels import dominance as kd
+
+    out = {"shapes": []}
+    for b, n, m in DOMINANCE_BATCHES:
+        fit = torch.stack([stress_fitness(torch, n, m, 1000 * b + n + r, "cpu")
+                           for r in range(b)]).cuda()
+        before = kd.packed_dominance.launches
+        got = kd.packed_dominance_batched(fit, device=fit.device)
+        launches = kd.packed_dominance.launches - before
+        if launches != 1:
+            raise AssertionError(f"batched packed_dominance ({b}, {n}, {m}): {launches} launches")
+        check = compare_exact(f"batched packed_dominance ({b}, {n}, {m}) with stress rows", got,
+                              kd.packed_dominance_batched_reference(fit))
+        singles = [kd.packed_dominance(f, device=fit.device) for f in fit]
+        compare_exact(f"batched packed_dominance ({b}, {n}, {m}) against single launches", got,
+                      (torch.stack([p for p, _ in singles]), torch.stack([c for _, c in singles])))
+        entry = {"b": b, "n": n, "m": m, "launches": launches, "max_abs_err": check["max_abs_err"],
+                 "ms": _time_ms(lambda: kd.packed_dominance_batched(fit, device=fit.device), 3, 20),
+                 "single_launches_ms": _time_ms(
+                     lambda: [kd.packed_dominance(f, device=fit.device) for f in fit], 2, 10),
+                 "plain_ms": _time_ms(lambda: kd.packed_dominance_batched_reference(fit), 1, 3)}
+        nbytes, ops = dominance_work(n, m)
+        entry["bound_ms"], entry["bound_by"] = bound_ms(b * nbytes, b * ops)
+        out["shapes"].append(entry)
+        print(f"[dominance batched] {json.dumps(entry)}", flush=True)
+    return out
+
+
+def build_shade_islands(torch, device=None):
+    """The SHADE islands phase's workflow: ``IslandWorkflow(SHADE(±32, pop
+    512, d 64), Ackley(), n_islands=8, migrate_every=4)``."""
+    from evox_tpu_torch import IslandWorkflow
+    from evox_tpu_torch.algorithms.so.de import SHADE
+    from evox_tpu_torch.problems.numerical import Ackley
+
+    bound = torch.full((SHADE_ISL_DIM,), 32.0)
+    return IslandWorkflow(SHADE(-bound, bound, SHADE_ISL_POP, device=device), Ackley(),
+                          n_islands=SHADE_ISL_N, migrate_every=4, device=device)
+
+
+def phase_shade_island_card_vs_cpu(torch, wf, state) -> dict:
+    """One migrating SHADE island generation on the card against the CPU on
+    the same draws (each island's made once on the CPU from its own seed and
+    handed to both): the trials of the ask under vmap (its pbest cut one
+    batched B4 launch) bit for bit; Ackley of the CPU's trials told to both;
+    the told states bit for bit but for the memories M_F and M_CR, weighted
+    sums over each island's 512 candidates in each device's order (1e-4
+    relative, as path 9's check); then the migration (B4 for the elites)
+    and the migrated states bit for bit."""
+    from evox_tpu_torch.problems.numerical import ackley_func
+
+    cpu_wf = build_shade_islands(torch, device="cpu")
+    _same_draws(torch, cpu_wf.algorithm, wf.algorithm)
+    try:
+        halves = island_generation_halves(torch, wf, cpu_wf, state, _state_on(torch, state, "cpu"),
+                                          ackley_func)
+    finally:
+        del wf.algorithm._draw
+    if halves["launches"] != {"packed_dominance": 0, "partial_topk": 1}:
+        raise AssertionError(f"the compared SHADE island generation's tell and migration "
+                             f"launched {halves['launches']}, expected one B4 (the elites)")
+    out = {"generation": state.generation + 1,
+           "trials": compare_exact("SHADE island trials under vmap, card against CPU",
+                                   [halves["cand"][0].cpu()], [halves["cand"][1]])}
+    exact = ("population", "fitness", "archive", "archive_size", "mem_pos", "F", "CR")
+    for key in ("told", "moved"):
+        got, want = halves[key]
+        out[key] = compare_exact(
+            f"SHADE island {'tell' if key == 'told' else 'migrate'} under vmap, card against CPU "
+            f"({', '.join(exact)}, attribution)",
+            [getattr(got, f).cpu() for f in exact] + [got.attrib.success.cpu(),
+                                                      got.attrib.improvement.cpu()],
+            [getattr(want, f) for f in exact] + [want.attrib.success, want.attrib.improvement])
+        out[key]["memory"] = compare(
+            f"SHADE island memories M_F and M_CR ({key}), card against CPU",
+            torch.cat([got.M_F, got.M_CR], dim=1).cpu(), torch.cat([want.M_F, want.M_CR], dim=1),
+            rtol=1e-4, atol=0.0)
+    out["elites"] = compare_exact("SHADE island elites, card against CPU",
+                                  [halves["elites"][0].cpu()], [halves["elites"][1]])
+    out["replaced"] = int(halves["told"][1].attrib.success.sum())
+    return out
+
+
+def phase_shade_islands(torch, seed: int = SEED, device=None) -> dict:
+    """SHADE islands: ``IslandWorkflow(SHADE(pop 512, d 64), Ackley(),
+    n_islands=8, migrate_every=4)`` for 8 generations on stacked states:
+    the pbest cut of every island's ask is one batched B4 launch (the cut's
+    vmap rule folds the islands into a (8, 512) launch), and each migration
+    one more for the elites. Then one migrating generation on the card
+    against the CPU (``phase_shade_island_card_vs_cpu``)."""
+    wf = build_shade_islands(torch, device=device)
+    state = wf.step(wf.init(seed))  # the init generation evaluates the population
+    reset_launches()
+    t0 = time.perf_counter()
+    state = wf.run(state, SHADE_ISL_GENERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    migrations = (SHADE_ISL_GENERATIONS + 1) // 4
+    if got["partial_topk"] != SHADE_ISL_GENERATIONS + migrations:
+        raise AssertionError(f"B4 launches in {SHADE_ISL_GENERATIONS} SHADE island generations: "
+                             f"{got['partial_topk']}, expected one a generation and one a "
+                             f"migration ({SHADE_ISL_GENERATIONS + migrations})")
+    if not bool(torch.isfinite(state.algo.fitness).all()):
+        raise AssertionError("SHADE islands: non-finite fitness")
+    out = {"n_islands": SHADE_ISL_N, "pop": SHADE_ISL_POP, "dim": SHADE_ISL_DIM,
+           "generations": SHADE_ISL_GENERATIONS, "member_route": wf.member_route,
+           "launches": got, "ms_per_generation": wall / SHADE_ISL_GENERATIONS * 1e3,
+           "best_fitness": float(wf.best(state)[1])}
+    before = state  # the state before the next migrating generation
+    while (before.generation + 1) % wf.migrate_every:
+        before = wf.step(before)
+    out["card_vs_cpu"] = phase_shade_island_card_vs_cpu(torch, wf, before)
+    print(f"[shade islands] {json.dumps(out)}", flush=True)
+    return out
+
+
+def build_fleet_path(torch, n: int = TEN_N, pop: int = TEN_POP, dim: int = TEN_DIM, device=None):
+    """Main path 28 as ``bench.py:458-606`` builds it: ``VectorizedWorkflow(
+    CMAES(zeros(16), init_stdev=1.0, pop_size=256), Sphere(), n_tenants=64)``
+    and the one solo ``StdWorkflow`` of the same algorithm that drives the
+    sequential side."""
+    from evox_tpu_torch import StdWorkflow, VectorizedWorkflow
+    from evox_tpu_torch.algorithms.so.es import CMAES
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    algo = CMAES(torch.zeros(dim), init_stdev=1.0, pop_size=pop, device=device)
+    return (VectorizedWorkflow(algo, Sphere(), n_tenants=n, device=device),
+            StdWorkflow(algo, Sphere(), device=device))
+
+
+class _Sequential:
+    """The sequential side as one workflow: ``run`` drives every solo state
+    ``n`` generations through one ``StdWorkflow``, one after the other."""
+
+    def __init__(self, wf):
+        self.wf = wf
+
+    def run(self, states, n):
+        return [self.wf.run(s, n) for s in states]
+
+
+def _leaves_close(torch, name: str, got, want, rtol: float = 1e-5, atol: float = 1e-6,
+                  skip=()) -> dict:
+    """Every tensor leaf of ``got`` within ``atol + rtol * |want|`` of
+    ``want`` (``tests/test_tenancy.py:68``'s tolerance), and how many are
+    equal bit for bit; leaves whose path is in ``skip`` are left out."""
+    from evox_tpu_torch.core.struct import named_leaves
+
+    worst, equal, total = 0.0, 0, 0
+    for (path, x), (_, y) in zip(named_leaves(got), named_leaves(want)):
+        if path in skip:
+            continue
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                raise AssertionError(f"{name}: {path} {x} != {y}")
+            continue
+        x, y = x.cpu(), y.cpu()
+        total += 1
+        if torch.equal(x, y):
+            equal += 1
+            continue
+        diff = (x.double() - y.double()).abs()
+        bad = diff > atol + rtol * y.double().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{name}: {path} differs by up to {float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+    return {"leaves": total, "bit_for_bit": equal, "max_abs_err": worst, "rtol": rtol,
+            "atol": atol}
+
+
+def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None) -> dict:
+    """Main path 28, bench.py's workload 5: the 64-tenant CMA-ES fleet
+    against the same 64 runs (seeds 0..63) driven one after the other
+    through one solo ``StdWorkflow``, in turns (fleet, sequential,
+    sequential, fleet), each turn bench's differenced protocol over
+    ``TEN_PAIR`` = (10, 60) generations: ms a fleet generation against ms
+    a generation of all 64 sequential runs. Beside them: the host's thread
+    time a generation, the per-member draws' host share (``member_draw``),
+    peak memory, and with ``profile`` the kernels and DtoH copies a
+    generation. Then tenants 0, 31 and 63: each of 10 fleet steps against
+    the solo step from the same state (``rtol 1e-5, atol 1e-6``; how many
+    are bit for bit), and the drift of the 10-generation runs from their
+    solo runs; and one fleet generation on the card against the CPU on the
+    same draws."""
+    from evox_tpu_torch.core import members
+
+    fleet, solo = build_fleet_path(torch, device=device)
+    seq = _Sequential(solo)
+    seeds = list(range(TEN_N))
+    fstate = fleet.step(fleet.init(seeds))  # the first generation, then steady
+    sstates = [solo.step(solo.init(s)) for s in seeds]
+    for n in TEN_PAIR:  # warm both trip counts on both sides
+        fleet.run(fstate, n)
+        solo.run(sstates[0], n)
+    torch.cuda.synchronize()
+
+    def timed(side, state, n):
+        torch.cuda.synchronize()
+        d0, c0 = members.member_draw.seconds, time.thread_time()
+        t0 = time.perf_counter()
+        side.run(state, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall, time.thread_time() - c0, members.member_draw.seconds - d0
+
+    turns = []
+    for name in ("fleet", "sequential", "sequential", "fleet"):
+        side, state = (fleet, fstate) if name == "fleet" else (seq, sstates)
+        reset_launches()
+        lo, hi = (timed(side, state, n) for n in TEN_PAIR)
+        got = read_launches()
+        if any(got.values()):
+            raise AssertionError(f"{name}: CMA-ES on Sphere launched a kernel: {got}")
+        span = TEN_PAIR[1] - TEN_PAIR[0]
+        turn = {"side": name, "ms_per_generation": (hi[0] - lo[0]) / span * 1e3,
+                "host_thread_ms_per_generation": (hi[1] - lo[1]) / span * 1e3,
+                "wall_s": lo[0] + hi[0]}
+        if name == "fleet":
+            turn["member_draw_ms_per_generation"] = (hi[2] - lo[2]) / span * 1e3
+            turn["member_draw_share"] = turn["member_draw_ms_per_generation"] / turn[
+                "ms_per_generation"]
+        turns.append(turn)
+        print(f"[fleet path] {json.dumps(turn)}", flush=True)
+    med = {side: statistics.median(t["ms_per_generation"] for t in turns if t["side"] == side)
+           for side in ("fleet", "sequential")}
+    out = {"n_tenants": TEN_N, "pop": TEN_POP, "dim": TEN_DIM, "pair": list(TEN_PAIR),
+           "member_route": fleet.member_route, "turns": turns,
+           "fleet_ms_per_generation": med["fleet"],
+           "sequential_ms_per_generation": med["sequential"],
+           "sequential_over_fleet": med["sequential"] / med["fleet"],
+           "member_draws_per_generation": TEN_N}
+    torch.cuda.reset_peak_memory_stats()
+    fleet.run(fstate, TEN_PAIR[0])
+    torch.cuda.synchronize()
+    out["fleet_peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seq.run(sstates, TEN_PAIR[0])
+    torch.cuda.synchronize()
+    out["sequential_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if profile:
+        for name, side, state in (("fleet", fleet, fstate), ("sequential", seq, sstates)):
+            prof = profile_generations(torch, side, state, 5)
+            prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (med[name] * 1e3)
+            out[f"profile_{name}"] = prof
+    # tenants against their solo runs: each of the first 10 fleet
+    # generations against the solo step of the same tenant's state (the
+    # per-step law; a batched cuBLAS product may round apart from the solo
+    # one at the last ulp, and CMA-ES's decomposition amplifies that over
+    # generations, so the 10-generation drift is reported, not gated). The
+    # eigenvectors B are unique only up to sign and a basis of each
+    # degenerate eigenspace, and the batched eigh picks its own: B is held
+    # through B diag(D^2) B^T
+    fresh = fleet.init(seeds)
+    steps = {str(i): [] for i in TEN_CHECK}
+    for _ in range(TEN_CHECK_GENERATIONS):
+        nxt = fleet.step(fresh)
+        for i in TEN_CHECK:
+            got = fleet.extract_tenant(nxt, i)
+            want = solo.step(fleet.extract_tenant(fresh, i).replace(first_step=fresh.first_step))
+            step = _leaves_close(torch, f"fleet tenant {i}'s step against its solo step",
+                                 got.algo, want.algo, skip=(".B",))
+            recon = [(a.B * a.D ** 2) @ a.B.T for a in (got.algo, want.algo)]
+            step["BD2Bt"] = compare(f"fleet tenant {i}'s step, B diag(D^2) B^T", recon[0].cpu(),
+                                    recon[1].cpu(), 1e-5, 1e-6)["max_abs_err"]
+            steps[str(i)].append(step)
+        fresh = nxt
+    out["tenants_vs_solo_steps"] = {
+        i: {"steps": len(v), "bit_for_bit_steps": sum(s["bit_for_bit"] == s["leaves"] for s in v),
+            "max_abs_err": max(s["max_abs_err"] for s in v)} for i, v in steps.items()}
+    # the acceptance law as tests/test_tenancy.py:68 writes it, 10
+    # generations of a tenant against 10 of its solo run: reported (each
+    # field's largest difference over atol + rtol |solo|, above 1 where the
+    # law fails), and where the two first round apart
+    out["tenants_drift_after_10"] = {}
+    for i in TEN_CHECK:
+        want = solo.run(solo.init(seeds[i]), TEN_CHECK_GENERATIONS).algo
+        got = fleet.extract_tenant(fresh, i).algo
+        drift = {}
+        for f in ("mean", "sigma", "C"):
+            x, y = getattr(got, f).double(), getattr(want, f).double()
+            drift[f] = float((x - y).abs().max())
+            drift[f + "_over_tolerance"] = float(((x - y).abs() / (1e-6 + 1e-5 * y.abs())).max())
+        out["tenants_drift_after_10"][str(i)] = drift
+    out["where_they_split"] = fleet_split_points(torch, fleet, fresh)
+    out["card_vs_cpu"] = phase_fleet_card_vs_cpu(torch, fleet, fresh)
+    print(f"[fleet path] {json.dumps({k: v for k, v in out.items() if k != 'turns'})}",
+          flush=True)
+    return out
+
+
+def fleet_split_points(torch, fleet, state) -> dict:
+    """Where a fleet tenant's numbers leave its solo run's: each product of
+    CMA-ES's ask and tell, the norm of ``ps`` and the eigendecomposition,
+    on every tenant's own inputs from ``state`` (its B, D, C, ps and z, the
+    first mu rows of z standing for the sorted ones; each operation fed the
+    solo results of the one before it), run three ways: under
+    ``torch.func.vmap`` over all tenants (the fleet's call), under ``vmap``
+    over a batch of that one tenant, and on the tenant alone (the solo
+    call). For each operation: how many tenants' fleet and batch-of-one
+    results equal the solo result bit for bit, and the largest differences.
+    A batch of one that equals the solo call where the whole fleet does not
+    puts the split in the batch count (the library's choice of kernel by
+    shape), not in vmap's route."""
+    from evox_tpu_torch.algorithms.so.es.common import full_f32_matmul
+
+    algo, s = fleet.algorithm, state.tenants.algo
+    w, mu, n = algo.weights, algo.mu, s.z.shape[0]
+    eigh = lambda C: torch.linalg.eigh((C + C.transpose(-1, -2)) / 2.0)
+    steps = (
+        ("ask: (z D) B^T", lambda zd, B: torch.einsum("pd,ed->pe", zd, B), ("zD", "B")),
+        ("tell: y = (z D) B^T, mu rows", lambda zd, B: torch.einsum("md,ed->me", zd[:mu], B),
+         ("zD", "B")),
+        ("tell: y_w = w y", lambda y: torch.einsum("m,md->d", w, y), ("y",)),
+        ("tell: z_w = w z", lambda z: torch.einsum("m,md->d", w, z[:mu]), ("z",)),
+        ("tell: B z_w", lambda B, zw: torch.einsum("de,e->d", B, zw), ("B", "z_w")),
+        ("tell: rank-mu y^T diag(w) y", lambda y: torch.einsum("md,me->de", y * w[:, None], y),
+         ("y",)),
+        ("tell: |ps|", lambda ps: torch.linalg.vector_norm(ps), ("ps",)),
+        ("eigh: eigenvalues", lambda C: eigh(C)[0], ("C",)),
+        ("eigh: B diag(eigenvalues) B^T", lambda C: (lambda e: (e[1] * e[0]) @ e[1].T)(eigh(C)),
+         ("C",)),
+    )
+    inputs = {"zD": s.z * s.D[:, None, :], "B": s.B, "z": s.z, "ps": s.ps, "C": s.C}
+    keep = {"tell: y = (z D) B^T, mu rows": "y", "tell: z_w = w z": "z_w"}
+    out = {}
+    with full_f32_matmul():
+        for name, fn, args in steps:
+            xs = [inputs[a] for a in args]
+            batched = torch.func.vmap(fn)(*xs)
+            solo = torch.stack([fn(*(x[i] for x in xs)) for i in range(n)])
+            one = torch.stack([torch.func.vmap(fn)(*(x[i:i + 1] for x in xs))[0] for i in range(n)])
+            if name in keep:
+                inputs[keep[name]] = solo
+            out[name] = {
+                "fleet_equal_solo": sum(torch.equal(batched[i], solo[i]) for i in range(n)),
+                "batch_of_one_equal_solo": sum(torch.equal(one[i], solo[i]) for i in range(n)),
+                "fleet_equal_batch_of_one": sum(torch.equal(batched[i], one[i]) for i in range(n)),
+                "fleet_max_abs_err": float((batched - solo).abs().max()),
+                "batch_of_one_max_abs_err": float((one - solo).abs().max()),
+                "tenants": n}
+    return out
+
+
+def phase_fleet_card_vs_cpu(torch, fleet, state) -> dict:
+    """One fleet generation on the card against the same generation on the
+    CPU: the card's state moved to the CPU, every tenant's draw made once on
+    the CPU and handed to both. CMA-ES decomposes its covariance every
+    generation at this shape, and ``eigh``'s eigenvectors are unique only up
+    to sign, so B is left out; mean, sigma, the paths, C, D and the
+    population are held within 1e-5 relative (atol 1e-6)."""
+    cpu_fleet, _ = build_fleet_path(torch, device="cpu")
+    _same_draws(torch, cpu_fleet.algorithm, fleet.algorithm)
+    try:
+        want = cpu_fleet.step(_state_on(torch, state, "cpu"))
+        got = fleet.step(state)
+    finally:
+        del fleet.algorithm._draw
+    out = {}
+    for f in ("mean", "sigma", "pc", "ps", "C", "D", "z"):
+        out[f] = compare(f"fleet generation, {f}, card against CPU",
+                         getattr(got.tenants.algo, f).cpu().reshape(-1),
+                         getattr(want.tenants.algo, f).reshape(-1), 1e-5, 1e-6)["max_abs_err"]
+    return out
+
+
+def phase_runqueue_path(torch, device=None) -> dict:
+    """Main path 29, bench.py's RunQueue leg: a 4-slot CMA-ES fleet (path
+    28's algorithm), ``RunQueue(chunk=5, journal=<temp dir>)``, 6 specs of
+    10 steps each run to completion (every result completed at 10
+    generations, the journal's chunk barriers and the fleet snapshots
+    written); ``run_report``'s tenancy section passes
+    ``tools/check_report.py``. Then one eviction after the first chunk: the
+    evicted tenant's checkpoint, resumed by a solo ``StdWorkflow`` to its
+    budget, equals the solo continuation of the extracted state bit for
+    bit; its drift from an uninterrupted solo run is reported."""
+    import tempfile
+
+    from evox_tpu_torch import RunQueue, TenantSpec, run_report
+
+    out = {"slots": RQ_SLOTS, "chunk": RQ_CHUNK, "specs": RQ_SPECS, "steps": RQ_STEPS}
+    with tempfile.TemporaryDirectory() as td:
+        fleet, _ = build_fleet_path(torch, n=RQ_SLOTS, device=device)
+        q = RunQueue(fleet, chunk=RQ_CHUNK, journal=td)
+        for i in range(RQ_SPECS):
+            q.submit(TenantSpec(seed=i, n_steps=RQ_STEPS, tag=f"bench{i}"))
+        reset_launches()
+        t0 = time.perf_counter()
+        results = q.run()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        done = sorted((r["tag"], r["status"], r["generations"]) for r in results)
+        want = sorted((f"bench{i}", "completed", RQ_STEPS) for i in range(RQ_SPECS))
+        if done != want:
+            raise AssertionError(f"RunQueue results {done}, expected {want}")
+        report = run_report(fleet, q.state)
+        validate(report=report, label="RunQueue tenancy report")
+        out["counters"] = report["tenancy"]["queue"]["counters"]
+        out["journal_events"] = report["tenancy"]["queue"]["journal"]["events"]
+    with tempfile.TemporaryDirectory() as td:
+        fleet, solo = build_fleet_path(torch, n=RQ_SLOTS, device=device)
+        q = RunQueue(fleet, chunk=RQ_CHUNK, checkpoint_dir=td)
+        for i in range(RQ_SLOTS):
+            q.submit(TenantSpec(seed=i, n_steps=RQ_STEPS, tag=f"evict{i}"))
+        q.start()
+        q.step_chunk()
+        extracted = fleet.extract_tenant(q.state, 0)
+        entry = q.evict(0)
+        wf = fleet.solo_workflow(index=0, state=q.state)
+        resumed = wf.run(wf.init(0), RQ_STEPS, resume_from=entry["checkpoint"])
+        continued = wf.run(extracted, RQ_STEPS - int(extracted.generation))
+        check = compare_exact("evicted tenant resumed from its checkpoint against the extracted "
+                              "state's solo continuation", _tensors(torch, resumed.algo),
+                              _tensors(torch, continued.algo))
+        straight = solo.run(solo.init(0), RQ_STEPS).algo
+        out["eviction"] = {"generation": entry["generations"], "resume_bit_for_bit": check,
+                           # the drift from a run that never entered the fleet
+                           # (a batched product's last ulps, amplified by the
+                           # decompositions): reported, the per-step law is
+                           # path 28's
+                           "drift_from_uninterrupted_solo": {
+                               f: float((getattr(resumed.algo, f) - getattr(straight, f)).abs().max())
+                               for f in ("mean", "sigma", "C")}}
+    print(f"[runqueue path] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -5350,7 +5956,7 @@ class HostAckley:
 
 
 def _island_tensors(state) -> list:
-    return [t for s in state.algo for t in _pso_tensors(s)]
+    return _pso_tensors(state.algo)
 
 
 def phase_island_arguments(torch, seed: int = ISL_SEED, device=None) -> dict:
@@ -5439,8 +6045,8 @@ def phase_island_arguments(torch, seed: int = ISL_SEED, device=None) -> dict:
                       "ms_per_generation": (time.perf_counter() - t0) / ISL_GENERATIONS * 1e3,
                       "partial_topk_launches": read_launches()["partial_topk"]})
         if name == "bf16":
-            for i in (0, ISL_N - 1):
-                check_storage_dtypes(torch, end.algo[i], states["f32"].algo[i], "bf16 islands")
+            # the stacked island states: every island's leaves at once
+            check_storage_dtypes(torch, end.algo, states["f32"].algo, "bf16 islands")
     out["bf16"] = {"turns": turns, "median_ms_per_generation": {
         p: statistics.median(t["ms_per_generation"] for t in turns if t["policy"] == p)
         for p in ("bf16", "f32")}}
@@ -5973,6 +6579,8 @@ def monitor_callers(name: str, paths: dict) -> list:
                            "(path 27), one more launch a generation than its twin",
                  "n": NSGA2_POP, "m": LSMOP_M, "launches": paths["lineage"]["launches"],
                  "b3_launches_a_turn": paths["lineage"]["nsga2"]["b3_launches"]}]
+    from evox_tpu_torch.algorithms.so.de.shade import pbest_k
+
     mon = paths["cso_monitored"]
     ars = paths["es_family"]["ARS"]
     shade = paths["shade"]
@@ -5991,6 +6599,14 @@ def monitor_callers(name: str, paths: dict) -> list:
             {"caller": "IslandWorkflow's migration elites, one batched launch over the islands "
                        "(path 14; the partial_topk_rows entry)", "rows": ISL_N, "n": ISL_POP, "k": 1,
              "launches": paths["islands"]["launches"]},
+            {"caller": "SHADE's pbest cut under vmap over 8 stacked islands (the SHADE islands "
+                       "phase), one (8, 512) launch a generation, plus the migration elites",
+             "rows": SHADE_ISL_N, "n": SHADE_ISL_POP, "k": pbest_k(SHADE_ISL_POP),
+             "launches": paths["shade_islands"]["launches"][name]},
+            {"caller": "rank_crowding_truncate's cut under vmap in NSGA-II's tell over 4 stacked "
+                       "islands (the MO islands phase), one (4, 2000) launch a steady tell",
+             "rows": MO_ISLANDS, "n": 2 * MO_FAMILY_POP, "k": MO_FAMILY_POP,
+             "launches": paths["mo_islands"]["launches"][name]},
             {"caller": "rank_crowding_truncate in NSGA-II's tell under WorkflowCheckpointer, "
                        "straight run from init (path 18)", "n": 2 * NSGA2_POP, "k": NSGA2_POP,
              "launches": paths["checkpoint"]["launches"][name]},
@@ -6074,6 +6690,35 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "callers": [{"caller": "IslandWorkflow's migration elites over 8 PSO islands of 512 "
                                "(path 14), one launch a migration",
                      "launches": isl["launches"], "launches_per_turn": isl["launches_per_turn"]}],
+    })
+    db = paths["dominance_batched"]
+    main = next(e for e in db["shapes"]
+                if (e["b"], e["n"], e["m"]) == (MO_ISLANDS, 2 * MO_FAMILY_POP, MO_M))
+    moi = paths["mo_islands"]
+    entries.append({
+        "name": "packed_dominance_batched",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/dominance.cu",
+        # vmap of the JAX kernel over the islands (evox_tpu/workflows/islands.py:320-325)
+        "replaces": "evox_tpu/kernels/dominance.py:222",
+        "launches": moi["launches"]["packed_dominance"],
+        "max_abs_err": max(e["max_abs_err"] for e in db["shapes"]),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this
+        "b": main["b"], "n": main["n"], "m": main["m"],
+        "single_launches_ms": main["single_launches_ms"],
+        "shapes": db["shapes"],
+        "callers": [{"caller": "non_dominated_sort's vmap rule in NSGA-II's tell over 4 stacked "
+                               "islands' merged rows (the MO islands phase), one launch a tell",
+                     "b": MO_ISLANDS, "n": 2 * MO_FAMILY_POP, "m": MO_M,
+                     "launches": moi["generations"]},
+                    {"caller": "mo_elites under vmap (the MO islands' migration elites) and the "
+                               "migrate's truncation, one launch each a migration",
+                     "b": MO_ISLANDS, "n": [MO_FAMILY_POP, MO_FAMILY_POP + 4], "m": MO_M,
+                     "launches": moi["launches"]["packed_dominance"] - moi["generations"]}],
     })
     att = paths["attest"]
     d1 = att["digest_kernel"]
@@ -6266,6 +6911,8 @@ def main() -> int:
     paths["ipop"] = phase_ipop_path(torch, SEED)
     paths["containers"] = phase_containers(torch)
     paths["mo_islands"] = phase_mo_islands(torch, SEED)
+    paths["dominance_batched"] = phase_dominance_batched(torch)
+    paths["shade_islands"] = phase_shade_islands(torch)
     # 12. main paths 16 (bench.py's workload 6: a host problem through the
     # executor), 17 (workload 1b: bf16 storage) and 18 (checkpoint and
     # resume on NSGA-II, B3 and B4 once a generation)
@@ -6299,6 +6946,12 @@ def main() -> int:
     paths["attest"] = phase_attest_path(torch)
     torch.cuda.empty_cache()
     paths["lineage"] = phase_lineage_path(torch)
+    # 16. main paths 28 (bench.py's workload 5: a stacked 64-tenant CMA-ES
+    # fleet against its 64 runs one after the other) and 29 (bench.py's
+    # RunQueue leg, an eviction resumed solo)
+    torch.cuda.empty_cache()
+    paths["fleet"] = phase_fleet_path(torch, profile=args.profile)
+    paths["runqueue"] = phase_runqueue_path(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -6357,6 +7010,10 @@ def main() -> int:
         "metrics_path": paths["metrics"],
         "attest_path": paths["attest"],
         "lineage_path": paths["lineage"],
+        "dominance_batched": paths["dominance_batched"],
+        "shade_islands": paths["shade_islands"],
+        "fleet_path": paths["fleet"],
+        "runqueue_path": paths["runqueue"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

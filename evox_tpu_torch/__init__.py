@@ -27,6 +27,9 @@ from .core import (
     RetraceError,
     field,
     instrument,
+    member_call,
+    stack_states,
+    unstack_states,
     resolve_device,
     run_report,
     static_field,
@@ -36,10 +39,14 @@ from .core import (
 from .workflows import (
     IslandWorkflow,
     IslandWorkflowState,
+    RunQueue,
     StdWorkflow,
     StdWorkflowState,
     SurrogateWorkflow,
     SurrogateWorkflowState,
+    TenantSpec,
+    VectorizedWorkflow,
+    VectorizedWorkflowState,
 )
 
 __all__ = [
@@ -54,15 +61,22 @@ __all__ = [
     "Problem",
     "PyTreeNode",
     "RetraceError",
+    "RunQueue",
     "StdWorkflow",
     "StdWorkflowState",
     "SurrogateWorkflow",
     "SurrogateWorkflowState",
+    "TenantSpec",
+    "VectorizedWorkflow",
+    "VectorizedWorkflowState",
     "field",
     "instrument",
+    "member_call",
     "resolve_device",
     "run_report",
+    "stack_states",
     "static_field",
+    "unstack_states",
     "write_chrome_trace",
     "write_report_jsonl",
 ]

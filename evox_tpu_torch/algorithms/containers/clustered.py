@@ -4,8 +4,11 @@ into ``num_clusters`` contiguous blocks and run one instance of a base
 algorithm per block; the evaluated candidate is the concatenation of the
 blocks.
 
-The members are a tuple of base states, driven one after another (the
-package docstring says why). ``RandomMaskAlgorithm`` changes its mask on a
+The members are stacked base states (a leading cluster axis, the JAX
+package's ``vmap(base.init)`` layout), each call one
+:func:`~evox_tpu_torch.core.members.member_call` for all clusters (a base
+with ``stackable = False`` runs them one by one). ``RandomMaskAlgorithm``
+changes its mask on a
 host integer it already holds, where the JAX package takes a ``lax.cond``
 on a device counter, and re-draws the mask every ``change_every``
 generations: the JAX package's documented intent (and code), not the
@@ -19,6 +22,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from ...core.algorithm import Algorithm
+from ...core.members import member_call, member_route, put_state, stack_states, take_state
 from ...core.struct import PyTreeNode
 from ...utils.common import generator, split_seed
 
@@ -43,30 +47,37 @@ class ClusteredAlgorithm(Algorithm):
         self.base = base_algorithm
         self.dim = dim
         self.num_clusters = num_clusters
+        self.member_route = member_route(base_algorithm)
 
-    def init(self, seed: int) -> Tuple[Any, ...]:
-        return tuple(self.base.init(s) for s in split_seed(seed, self.num_clusters))
+    def init(self, seed: int) -> Any:
+        return stack_states([self.base.init(s) for s in split_seed(seed, self.num_clusters)])
 
-    def _fan_out(self, call, state) -> Tuple[torch.Tensor, Tuple[Any, ...]]:
-        pairs = [call(s) for s in state]
-        # (pop, sub_dim) blocks side by side: (pop, clusters * sub_dim)
-        return torch.cat([p for p, _ in pairs], dim=1), tuple(s for _, s in pairs)
+    def _fan_out(self, call, state) -> Tuple[torch.Tensor, Any]:
+        sub_pops, state = member_call(call, state, route=self.member_route)
+        # (clusters, pop, sub_dim) blocks side by side: (pop, clusters * sub_dim)
+        return _concat(sub_pops), state
 
     def init_ask(self, state):
         return self._fan_out(self.base.init_ask, state)
 
     def init_tell(self, state, fitness: torch.Tensor):
-        return tuple(self.base.init_tell(s, fitness) for s in state)
+        return member_call(self.base.init_tell, state, fitness, in_dims=None,
+                           route=self.member_route)
 
     def ask(self, state):
         return self._fan_out(self.base.ask, state)
 
     def tell(self, state, fitness: torch.Tensor):
-        return tuple(self.base.tell(s, fitness) for s in state)
+        return member_call(self.base.tell, state, fitness, in_dims=None, route=self.member_route)
+
+
+def _concat(sub_pops: torch.Tensor) -> torch.Tensor:
+    """``(clusters, pop, sub_dim)`` blocks -> ``(pop, clusters * sub_dim)``."""
+    return sub_pops.permute(1, 0, 2).reshape(sub_pops.shape[1], -1)
 
 
 class RandomMaskState(PyTreeNode):
-    sub_states: Tuple[Any, ...]  # one base state per cluster
+    sub_states: Any  # the base states, stacked on a leading cluster axis
     sub_pops: Optional[torch.Tensor]  # (clusters, pop, sub_dim) cached blocks; None until seeded
     active: Tuple[int, ...]  # the unmasked clusters, in the order they were drawn
     count: int  # generations since the mask changed; -1, -2: the cache-seeding phases
@@ -99,6 +110,7 @@ class RandomMaskAlgorithm(Algorithm):
         self.num_mask = num_mask
         self.num_active = num_clusters - num_mask
         self.change_every = change_every
+        self.member_route = member_route(base_algorithm)
 
     def _draw_active(self, seed: int) -> List[int]:
         """``num_active`` distinct cluster indices (``jax.random.choice``
@@ -109,26 +121,24 @@ class RandomMaskAlgorithm(Algorithm):
     def init(self, seed: int) -> RandomMaskState:
         s_self, s_mask, *seeds = split_seed(seed, self.num_clusters + 2)
         return RandomMaskState(
-            sub_states=tuple(self.base.init(s) for s in seeds),
+            sub_states=stack_states([self.base.init(s) for s in seeds]),
             sub_pops=None,
             active=tuple(self._draw_active(s_mask)),
             count=-1,  # the cache is not seeded yet
             seed=s_self,
         )
 
-    @staticmethod
-    def _concat(sub_pops: torch.Tensor) -> torch.Tensor:
-        return torch.cat(tuple(sub_pops), dim=1)
+    def _call(self, fn, sub_states, *args, **kwargs):
+        return member_call(fn, sub_states, *args, route=self.member_route, **kwargs)
 
     def init_ask(self, state: RandomMaskState) -> Tuple[torch.Tensor, RandomMaskState]:
         # first generation: the base's own init protocol, every cluster
-        pairs = [self.base.init_ask(s) for s in state.sub_states]
-        return (torch.cat([p for p, _ in pairs], dim=1),
-                state.replace(sub_states=tuple(s for _, s in pairs)))
+        sub_pops, subs = self._call(self.base.init_ask, state.sub_states)
+        return _concat(sub_pops), state.replace(sub_states=subs)
 
     def init_tell(self, state: RandomMaskState, fitness: torch.Tensor) -> RandomMaskState:
-        return state.replace(sub_states=tuple(self.base.init_tell(s, fitness)
-                                              for s in state.sub_states))
+        return state.replace(sub_states=self._call(self.base.init_tell, state.sub_states,
+                                                   fitness, in_dims=None))
 
     def _maybe_change_mask(self, state: RandomMaskState) -> RandomMaskState:
         if state.count < self.change_every:
@@ -140,26 +150,25 @@ class RandomMaskAlgorithm(Algorithm):
         if state.count < 0:
             # first steady generation: every cluster proposes, seeding the
             # cache that masked clusters contribute from later
-            pairs = [self.base.ask(s) for s in state.sub_states]
-            state = state.replace(
-                sub_states=tuple(s for _, s in pairs),
-                sub_pops=torch.stack([p for p, _ in pairs]),
-                count=-2,  # tell every cluster once
-            )
+            sub_pops, subs = self._call(self.base.ask, state.sub_states)
+            state = state.replace(sub_states=subs, sub_pops=sub_pops,
+                                  count=-2)  # tell every cluster once
         else:
             state = self._maybe_change_mask(state)
-            subs = list(state.sub_states)
-            sub_pops = state.sub_pops.clone()
-            for i in state.active:
-                sub_pops[i], subs[i] = self.base.ask(subs[i])
-            state = state.replace(sub_states=tuple(subs), sub_pops=sub_pops)
-        return self._concat(state.sub_pops), state
+            active = list(state.active)
+            # the active clusters, gathered, asked in one call, scattered back
+            pops, new = self._call(self.base.ask, take_state(state.sub_states, active))
+            index = torch.tensor(active, device=state.sub_pops.device)
+            state = state.replace(sub_states=put_state(state.sub_states, active, new),
+                                  sub_pops=state.sub_pops.index_copy(0, index, pops))
+        return _concat(state.sub_pops), state
 
     def tell(self, state: RandomMaskState, fitness: torch.Tensor) -> RandomMaskState:
         if state.count == -2:  # the cache-seeding generation asked every cluster
-            return state.replace(
-                sub_states=tuple(self.base.tell(s, fitness) for s in state.sub_states), count=0)
-        subs = list(state.sub_states)
-        for i in state.active:
-            subs[i] = self.base.tell(subs[i], fitness)
-        return state.replace(sub_states=tuple(subs), count=state.count + 1)
+            return state.replace(sub_states=self._call(self.base.tell, state.sub_states, fitness,
+                                                       in_dims=None), count=0)
+        active = list(state.active)
+        new = self._call(self.base.tell, take_state(state.sub_states, active), fitness,
+                         in_dims=None)
+        return state.replace(sub_states=put_state(state.sub_states, active, new),
+                             count=state.count + 1)

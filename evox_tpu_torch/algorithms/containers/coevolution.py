@@ -11,6 +11,12 @@ of the best known values of the others.
   generation counter the state holds on the host (the JAX package gathers
   and scatters by a traced index).
 
+The blocks' base states are stacked (a leading block axis, the JAX
+package's ``vmap(base.init)`` layout); ``VectorizedCoevolution`` asks and
+tells every block in one :func:`~evox_tpu_torch.core.members.member_call`,
+``Coevolution`` gathers its block with ``take_state`` and scatters it back
+with ``put_state``.
+
 The best rows are taken with ``index_select`` of the ``argmin``: indexing
 by a 0-d CUDA tensor would read it on the host.
 
@@ -27,13 +33,14 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ...core.algorithm import Algorithm
+from ...core.members import member_call, member_route, put_state, stack_states, take_state
 from ...core.struct import PyTreeNode
 from ...utils.common import generator, split_seed
 from .clustered import _check_split
 
 
 class CoevolutionState(PyTreeNode):
-    sub_states: Tuple[Any, ...]  # one base state per block
+    sub_states: Any  # the base states, stacked on a leading block axis
     best_dec: torch.Tensor  # (dim,) best-so-far full decision vector (permuted layout)
     best_fit: torch.Tensor  # (num_subpops,) best fitness seen per block
     coop_pops: torch.Tensor  # the last evaluated candidates (permuted layout)
@@ -56,6 +63,7 @@ class _CoevolutionBase(Algorithm):
         self.num_subpops = num_subpops
         self.random_subpop = random_subpop
         self.device = base_algorithm.device
+        self.member_route = member_route(base_algorithm)
 
     def _draw_permutation(self, seed: int) -> torch.Tensor:
         """A permutation of the ``dim`` decision variables."""
@@ -64,7 +72,7 @@ class _CoevolutionBase(Algorithm):
     def init(self, seed: int) -> CoevolutionState:
         s_self, s_perm, *seeds = split_seed(seed, self.num_subpops + 2)
         return CoevolutionState(
-            sub_states=tuple(self.base.init(s) for s in seeds),
+            sub_states=stack_states([self.base.init(s) for s in seeds]),
             best_dec=torch.zeros((self.dim,), device=self.device),
             best_fit=torch.full((self.num_subpops,), float("inf"), device=self.device),
             coop_pops=torch.zeros((0, self.dim), device=self.device),
@@ -94,15 +102,16 @@ class _CoevolutionBase(Algorithm):
     # first generation: every block proposes; row j of the evaluated batch
     # is the concatenation of every block's row j
     def init_ask(self, state: CoevolutionState) -> Tuple[torch.Tensor, CoevolutionState]:
-        pairs = [self.base.init_ask(s) for s in state.sub_states]
-        pop = torch.cat([p for p, _ in pairs], dim=1)
+        sub_pops, subs = member_call(self.base.init_ask, state.sub_states, route=self.member_route)
+        pop = sub_pops.permute(1, 0, 2).reshape(sub_pops.shape[1], -1)
         return self._unpermute(pop, state.permutation), state.replace(
-            sub_states=tuple(s for _, s in pairs), coop_pops=pop)
+            sub_states=subs, coop_pops=pop)
 
     def init_tell(self, state: CoevolutionState, fitness: torch.Tensor) -> CoevolutionState:
         best = torch.argmin(fitness).reshape(1)
         return state.replace(
-            sub_states=tuple(self.base.init_tell(s, fitness) for s in state.sub_states),
+            sub_states=member_call(self.base.init_tell, state.sub_states, fitness, in_dims=None,
+                                   route=self.member_route),
             best_dec=state.coop_pops.index_select(0, best)[0],
             best_fit=fitness.index_select(0, best).expand(self.num_subpops).clone(),
             coop_pops=state.coop_pops.new_zeros((0, self.dim)),
@@ -113,16 +122,17 @@ class VectorizedCoevolution(_CoevolutionBase):
     """Every block evolves each generation."""
 
     def ask(self, state: CoevolutionState) -> Tuple[torch.Tensor, CoevolutionState]:
-        pairs = [self.base.ask(s) for s in state.sub_states]
-        coop = torch.cat([self._splice(state.best_dec, p, i) for i, (p, _) in enumerate(pairs)])
+        sub_pops, subs = member_call(self.base.ask, state.sub_states, route=self.member_route)
+        coop = torch.cat([self._splice(state.best_dec, p, i) for i, p in enumerate(sub_pops)])
         return self._unpermute(coop, state.permutation), state.replace(
-            sub_states=tuple(s for _, s in pairs), coop_pops=coop)
+            sub_states=subs, coop_pops=coop)
 
     def tell(self, state: CoevolutionState, fitness: torch.Tensor) -> CoevolutionState:
         n = self.num_subpops
         per_sub = fitness.reshape(n, -1)
         ask_size = per_sub.shape[1]
-        sub_states = tuple(self.base.tell(s, f) for s, f in zip(state.sub_states, per_sub))
+        sub_states = member_call(self.base.tell, state.sub_states, per_sub,
+                                 route=self.member_route)
         min_fit = torch.amin(per_sub, dim=1)
         argmin = torch.argmin(per_sub, dim=1)
         arange = torch.arange(n, device=fitness.device)
@@ -145,24 +155,22 @@ class Coevolution(_CoevolutionBase):
 
     def ask(self, state: CoevolutionState) -> Tuple[torch.Tensor, CoevolutionState]:
         idx = state.iter_counter % self.num_subpops
-        sub_pop, new_sub = self.base.ask(state.sub_states[idx])
+        sub_pop, new_sub = self.base.ask(take_state(state.sub_states, idx))
         coop = self._splice(state.best_dec, sub_pop, idx)
-        subs = list(state.sub_states)
-        subs[idx] = new_sub
         return self._unpermute(coop, state.permutation), state.replace(
-            sub_states=tuple(subs), coop_pops=coop)
+            sub_states=put_state(state.sub_states, idx, new_sub), coop_pops=coop)
 
     def tell(self, state: CoevolutionState, fitness: torch.Tensor) -> CoevolutionState:
         idx = state.iter_counter % self.num_subpops
-        subs = list(state.sub_states)
-        subs[idx] = self.base.tell(subs[idx], fitness)
+        subs = put_state(state.sub_states, idx,
+                         self.base.tell(take_state(state.sub_states, idx), fitness))
         best = torch.argmin(fitness).reshape(1)
         best_f = fitness.index_select(0, best)[0]
         improved = best_f < state.best_fit[idx]
         best_fit = state.best_fit.clone()
         best_fit[idx] = torch.minimum(best_fit[idx], best_f)
         return state.replace(
-            sub_states=tuple(subs),
+            sub_states=subs,
             best_dec=torch.where(improved, state.coop_pops.index_select(0, best)[0], state.best_dec),
             best_fit=best_fit,
             coop_pops=state.coop_pops.new_zeros((0, self.dim)),

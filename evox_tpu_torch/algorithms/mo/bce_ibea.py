@@ -113,6 +113,10 @@ class BCEIBEAState(PyTreeNode):
 
 
 class BCEIBEA(IBEA):
+
+    # not under torch.func.vmap: its exploration reads a count on the host
+    # (.item()); stacked members run one by one
+    stackable = False
     def init(self, seed: int) -> BCEIBEAState:
         seed, pop_seed = split_seed(seed)
         pop = self._init_population(pop_seed)

@@ -37,6 +37,7 @@ from ...utils.common import (  # noqa: F401  (the cumsum helpers re-exported)
     blocked_cumsum,
     float_vector,
     generator,
+    seeded,
     split_seed,
     weighted_indices,
 )
@@ -136,7 +137,8 @@ class GAMOAlgorithm(Algorithm):
     # -- generation -----------------------------------------------------------
     def mate(self, seed: int, state: MOState) -> torch.Tensor:
         """Mating pool (default: a random shuffle of the parents)."""
-        idx = torch.randperm(self.pop_size, generator=generator(seed, self.device), device=self.device)
+        idx = seeded(seed, self.device,
+                     lambda g: torch.randperm(self.pop_size, generator=g, device=self.device))
         return state.population[idx]
 
     def variation(self, seed: int, mating_pool: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,10 @@ class EAGMOEADState(PyTreeNode):
 
 
 class EAGMOEAD(MOEAD):
+
+    # not under torch.func.vmap: its archive update writes with in-place
+    # index_put_ into unbatched tensors; stacked members run one by one
+    stackable = False
     def __init__(self, *args: Any, learning_period: int = 8, **kwargs: Any):
         kwargs.setdefault("aggregate_op", "weighted_sum")
         if kwargs["aggregate_op"] != "weighted_sum":

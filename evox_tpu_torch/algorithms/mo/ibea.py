@@ -114,6 +114,10 @@ def worst_removal_stepwise(expo: torch.Tensor, keep: int) -> Tuple[torch.Tensor,
 
 
 class IBEA(DrawnGAMOAlgorithm):
+
+    # not under torch.func.vmap: its removal loop writes through out= arguments,
+    # which vmap has no rule for; stacked members run one by one
+    stackable = False
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, kappa: float = 0.05,
                  mesh: Any = None, device: DeviceLike = None):
         super().__init__(lb, ub, n_objs, pop_size, mesh=mesh, device=device)

@@ -46,6 +46,10 @@ class IMMOEA(Algorithm):
     ``mesh`` waits for ROADMAP A11. ``device``: ``None`` means
     ``"cuda"``."""
 
+    # not under torch.func.vmap: its tell fits Gaussian processes with autograd,
+    # which torch.func.vmap refuses; stacked members run one by one
+    stackable = False
+
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, k_clusters: int = 5,
                  gp_fit_steps: int = 10, mesh: Any = None, device: DeviceLike = None):
         if mesh is not None:

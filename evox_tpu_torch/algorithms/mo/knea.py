@@ -88,6 +88,10 @@ def _plane_dot(plane: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 
 class KnEA(DrawnGAMOAlgorithm):
+
+    # not under torch.func.vmap: its knee search accumulates with in-place
+    # index_add_ into unbatched tensors; stacked members run one by one
+    stackable = False
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, knee_rate: float = 0.5,
                  k_neighbors: int = 3, mesh: Any = None, device: DeviceLike = None):
         super().__init__(lb, ub, n_objs, pop_size, mesh=mesh, device=device)

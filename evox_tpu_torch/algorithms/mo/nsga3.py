@@ -177,6 +177,10 @@ class NSGA3(GAMOAlgorithm):
     """``pop_size`` is a request: the population is the number of Das-Dennis
     reference points (9870 for 10000 at m = 3)."""
 
+    # not under torch.func.vmap: its niching writes with in-place index_add_
+    # into unbatched tensors; stacked members run one by one
+    stackable = False
+
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, mesh: Any = None,
                  device: Any = None):
         super().__init__(lb, ub, n_objs, pop_size, mesh=mesh, device=device)

@@ -61,6 +61,10 @@ def truncate(dist: torch.Tensor, keep: torch.Tensor, removals: int) -> torch.Ten
 
 
 class SPEA2(DrawnGAMOAlgorithm):
+
+    # not under torch.func.vmap: its truncation writes in place into unbatched
+    # tensors; stacked members run one by one
+    stackable = False
     def mate_with(self, state: MOState, draws: dict) -> torch.Tensor:
         return tournament(0, state.population, spea2_fitness(state.fitness),
                           contestants=draws["contestants"])

@@ -73,6 +73,10 @@ def stochastic_ranking(i_eps: torch.Tensor, sde: torch.Tensor, perm: torch.Tenso
 
 
 class SRA(DrawnGAMOAlgorithm):
+
+    # not under torch.func.vmap: its indicator terms are built through out=
+    # arguments; stacked members run one by one
+    stackable = False
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, pc: Optional[float] = None,
                  sweeps: Optional[int] = None, mesh: Any = None, device: DeviceLike = None):
         super().__init__(lb, ub, n_objs, pop_size, mesh=mesh, device=device)

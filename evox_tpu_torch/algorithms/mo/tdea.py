@@ -22,6 +22,10 @@ from .nsga3 import associate, normalize
 
 
 class TDEA(GAMOAlgorithm):
+
+    # not under torch.func.vmap: its selection scatters in place into unbatched
+    # tensors; stacked members run one by one
+    stackable = False
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, theta: float = 5.0,
                  mesh: Any = None, device: Any = None):
         super().__init__(lb, ub, n_objs, pop_size, mesh=mesh, device=device)

@@ -15,7 +15,7 @@ import torch
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
 from ....kernels.topk import partial_topk
-from ....utils.common import float_vector, generator
+from ....utils.common import float_vector, seeded
 
 # the positive quiet NaN every NaN of a sort key becomes
 _CANONICAL_NAN = np.array(0x7FC00000, dtype=np.uint32).view(np.float32).item()
@@ -35,8 +35,8 @@ class DEAlgorithm(Algorithm):
         self.pop_size = pop_size
 
     def _uniform_population(self, seed: int) -> torch.Tensor:
-        u = torch.rand((self.pop_size, self.dim), generator=generator(seed, self.device),
-                       device=self.device)
+        u = seeded(seed, self.device, lambda g: torch.rand((self.pop_size, self.dim), generator=g,
+                                                           device=self.device))
         return u * (self.ub - self.lb) + self.lb
 
     def _inf_fitness(self) -> torch.Tensor:

@@ -141,7 +141,7 @@ class CMAES(Algorithm):
         seed, k = split_seed(state.seed)
         z = self._draw(k)
         with full_f32_matmul():
-            y = (z * state.D) @ state.B.T
+            y = torch.einsum("pd,ed->pe", z * state.D, state.B)
         pop = state.mean + state.sigma * y
         return pop, state.replace(z=z, seed=seed)
 
@@ -150,12 +150,15 @@ class CMAES(Algorithm):
         order = torch.argsort(fitness, stable=True)
         z_sorted = state.z[order[: self.mu]]
         with full_f32_matmul():
-            y_sorted = (z_sorted * state.D) @ state.B.T
-            y_w = self.weights @ y_sorted
-            z_w = self.weights @ z_sorted
+            # every product an einsum (one bmm route), so a member's numbers
+            # under torch.func.vmap equal a solo run's bit for bit on the
+            # CPU (a gemv or a small mm and its batched form round apart)
+            y_sorted = torch.einsum("md,ed->me", z_sorted * state.D, state.B)
+            y_w = torch.einsum("m,md->d", self.weights, y_sorted)
+            z_w = torch.einsum("m,md->d", self.weights, z_sorted)
             # invsqrtC @ y_w == B z_w because y = B D z
-            Bz_w = state.B @ z_w
-            rank_mu = (y_sorted * self.weights[:, None]).T @ y_sorted
+            Bz_w = torch.einsum("de,e->d", state.B, z_w)
+            rank_mu = torch.einsum("md,me->de", y_sorted * self.weights[:, None], y_sorted)
         mean = state.mean + self.cm * state.sigma * y_w
         ps = (1 - self.cs) * state.ps + math.sqrt(self.cs * (2 - self.cs) * self.mueff) * Bz_w
         it = state.iteration + 1

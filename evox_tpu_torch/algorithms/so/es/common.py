@@ -14,7 +14,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from ....utils.common import generator
+from ....utils.common import generator, seeded
 
 __all__ = [
     "MAX_LOG_SIGMA_STEP",
@@ -210,8 +210,8 @@ def full_f32_matmul() -> Iterator[None]:
 def standard_normal(seed: int, shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """Float32 standard normals of ``shape`` on ``device`` from ``seed``:
     what the ES family's draw methods return."""
-    return torch.randn(shape, generator=generator(seed, device), device=device,
-                       dtype=torch.float32)
+    return seeded(seed, device, lambda g: torch.randn(shape, generator=g, device=device,
+                                                      dtype=torch.float32))
 
 
 def f32_sqrt(x: float) -> float:

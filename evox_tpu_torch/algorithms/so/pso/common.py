@@ -11,7 +11,7 @@ import torch
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
 from ....operators.sanitize import sanitize_bounds, validate_bound_handling
-from ....utils.common import float_vector, generator
+from ....utils.common import float_vector, generator, seeded
 
 
 class SwarmAlgorithm(Algorithm):
@@ -35,7 +35,8 @@ class SwarmAlgorithm(Algorithm):
         """``count`` planes of uniforms in [0, 1), each of ``shape``
         (default ``(pop_size, dim)``), from one draw of ``seed``."""
         shape = shape or (self.pop_size, self.dim)
-        u = torch.rand((count,) + shape, generator=self._generator(seed), device=self.device)
+        u = seeded(seed, self.device,
+                   lambda g: torch.rand((count,) + shape, generator=g, device=self.device))
         return list(u.unbind(0))
 
     def _uniform_population(self, seed: int) -> torch.Tensor:

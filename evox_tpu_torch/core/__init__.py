@@ -20,6 +20,16 @@ from .instrument import (
     write_chrome_trace,
     write_report_jsonl,
 )
+from .members import (
+    MemberSeeds,
+    member_call,
+    member_route,
+    member_rows,
+    put_state,
+    stack_states,
+    take_state,
+    unstack_states,
+)
 from .metrics import MetricsRegistry
 from .monitor import HOOK_NAMES, Monitor
 from .problem import Problem
@@ -41,7 +51,15 @@ __all__ = [
     "recenter_state",
     "HOOK_NAMES",
     "IntegrityError",
+    "MemberSeeds",
     "MetricsRegistry",
+    "member_call",
+    "member_route",
+    "member_rows",
+    "put_state",
+    "stack_states",
+    "take_state",
+    "unstack_states",
     "StateAttestor",
     "bisect_divergence",
     "state_digest",

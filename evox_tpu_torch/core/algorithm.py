@@ -7,15 +7,45 @@ Optional ``init_ask``/``init_tell`` overrides serve algorithms whose first
 generation differs from the steady state; workflows detect them by method
 override, as the JAX package does. ``migrate`` ingests foreign individuals
 (island migration); its default serves population-based states.
+
+Stacked members (:mod:`evox_tpu_torch.core.members`): every method whose
+name starts with ``_draw`` takes one host seed and returns that seed's
+draws. Given a stacked state's member seeds it makes each member's draw
+from its own seed and hands each member its row, whether the method is the
+class's or one a test put on the instance. ``stackable = False`` marks an
+algorithm whose ``ask`` or ``tell`` cannot run under ``torch.func.vmap``
+(a host read of the device); its members then run one by one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+import functools
+from typing import Any, Callable, Tuple
 
 import torch
 
 AlgorithmState = Any
+
+
+def _member_seeded(fn: Callable, method: bool) -> Callable:
+    """``fn`` (a draw method, or a draw function put on an instance) mapped
+    over member seeds member by member."""
+    if getattr(fn, "_member_seeded", False):
+        return fn
+
+    @functools.wraps(fn)
+    def draw(*args: Any, **kwargs: Any) -> Any:
+        from .members import MemberSeeds, member_draw
+
+        at = 1 if method else 0
+        seed = args[at] if len(args) > at else None
+        if isinstance(seed, MemberSeeds):
+            head, tail = args[:at], args[at + 1:]
+            return member_draw(lambda s: fn(*head, s, *tail, **kwargs), seed)
+        return fn(*args, **kwargs)
+
+    draw._member_seeded = True
+    return draw
 
 
 class Algorithm:
@@ -33,6 +63,22 @@ class Algorithm:
     random streams are ``torch.Generator``s seeded from integers held in
     the state.
     """
+
+    #: whether ``ask``/``tell``/``migrate`` run under ``torch.func.vmap`` for
+    #: stacked members (``core.members.member_call``); ``False`` runs the
+    #: members one by one
+    stackable = True
+
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        for name, attr in list(vars(cls).items()):
+            if name.startswith("_draw") and callable(attr) and not isinstance(attr, (staticmethod, classmethod)):
+                setattr(cls, name, _member_seeded(attr, method=True))
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name.startswith("_draw") and callable(value):
+            value = _member_seeded(value, method=False)
+        object.__setattr__(self, name, value)
 
     def init(self, seed: int) -> AlgorithmState:
         raise NotImplementedError

@@ -173,6 +173,10 @@ class GuardedAlgorithm(Algorithm):
     wrapped algorithm.
     """
 
+    # not under torch.func.vmap: its tell reads the health flag on the host (one
+    # read a tell); stacked members run one by one
+    stackable = False
+
     def __init__(
         self,
         algorithm: Algorithm,

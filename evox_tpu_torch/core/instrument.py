@@ -495,7 +495,6 @@ def _refuse_unported(workflow: Any, analyzer: Any, executor: Any, **given: Any) 
                            or getattr(wf, "_pod_supervisor", None) is not None),
         "control_plane": ("A13", given["control_plane"] is not None
                           or getattr(wf, "_control_plane", None) is not None),
-        "tenancy": ("A9", hasattr(wf, "tenancy_report")),
         "serving": ("A13", getattr(wf, "_exec_cache", None) is not None),
         "roofline.sharding": ("A11", analyzer is not None and bool(
             getattr(getattr(wf, "algorithm", None), "is_pop_sharded", False))),
@@ -554,8 +553,12 @@ def run_report(
     report the workflow keeps as ``_integrity_forensics``, with one
     verdict (``clean``, ``detected``, ``healed``, ``aborted``).
 
+    ``tenancy``: a fleet's ``tenancy_report`` (``VectorizedWorkflow``:
+    the fleet's shape, each tenant's monitor reports and a ``RunQueue``'s
+    ``queue`` section).
+
     ``supervisor=`` (ROADMAP A11), ``pod_supervisor=`` and
-    ``control_plane=`` (A13), and the tenancy (A9), serving (A13), and
+    ``control_plane=`` (A13), and the serving (A13), and
     roofline sharding and multihost (A11) sections raise
     ``NotImplementedError`` when asked for, passed or advertised by the
     workflow: their producers are not ported.
@@ -580,6 +583,14 @@ def run_report(
                     entry["monitor_index"] = i
                     telemetry.append(entry)
         report["telemetry"] = telemetry
+        # a fleet (VectorizedWorkflow): its per-tenant monitor states live
+        # tenant-stacked under .tenants and come through the tenancy
+        # section, with the fleet's shape and a RunQueue's bookkeeping
+        if hasattr(workflow, "tenancy_report"):
+            try:
+                report["tenancy"] = workflow.tenancy_report(state)
+            except Exception as e:  # decoration must never sink the report
+                report["tenancy"] = {"error": f"{type(e).__name__}: {e}"}
         algo = getattr(workflow, "algorithm", None)
         astate = getattr(state, "algo", None)
         if hasattr(algo, "health_report") and hasattr(astate, "restarts"):

@@ -2,8 +2,11 @@
 
 Every state object of the port is a plain frozen dataclass of tensors and
 host values with a ``.replace(**changes)`` method, as in the JAX package.
-There is no pytree registration: PyTorch runs eagerly, so nothing traces
-through a state. ``field(storage=...)`` records the mixed-precision
+Each is a ``torch.utils._pytree`` node, so ``torch.func.vmap`` takes and
+returns states (:mod:`evox_tpu_torch.core.members`): the fields that hold
+tensors (directly or inside dicts, lists, tuples and states) are its
+children, and the host fields (seeds, counters, flags, ``None``) its
+context. ``field(storage=...)`` records the mixed-precision
 annotation that :mod:`evox_tpu_torch.core.dtype_policy` reads; the JAX
 package's ``sharding`` metadata waits for the scale-out slice (ROADMAP
 A11).
@@ -47,10 +50,52 @@ def replace(obj: _T, **changes: Any) -> _T:
     return dataclasses.replace(obj, **changes)
 
 
+def _has_tensor(value: Any) -> bool:
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return True
+    if _is_state(value):
+        return any(_has_tensor(getattr(value, f.name)) for f in dataclasses.fields(value))
+    if isinstance(value, dict):
+        return any(_has_tensor(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return any(_has_tensor(v) for v in value)
+    return False
+
+
+def _flatten_state(obj: Any):
+    children, names, host = [], [], []
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if _has_tensor(value):
+            children.append(value)
+            names.append(f.name)
+        else:
+            host.append((f.name, value))
+    return children, (type(obj), tuple(names), tuple(host))
+
+
+def _unflatten_state(children: Any, context: Any) -> Any:
+    cls, names, host = context
+    new = object.__new__(cls)
+    for name, value in zip(names, children):
+        object.__setattr__(new, name, value)
+    for name, value in host:
+        object.__setattr__(new, name, value)
+    return new
+
+
 def pytree_dataclass(cls: type[_T]) -> type[_T]:
-    """Turn ``cls`` into a frozen dataclass with a ``.replace`` method."""
+    """Turn ``cls`` into a frozen dataclass with a ``.replace`` method,
+    registered as a ``torch.utils._pytree`` node."""
+    import torch.utils._pytree as pytree
+
     cls = dataclasses.dataclass(frozen=True)(cls)
     cls.replace = replace
+    pytree.register_pytree_node(
+        cls, _flatten_state, _unflatten_state,
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
     return cls
 
 

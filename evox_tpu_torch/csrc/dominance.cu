@@ -54,12 +54,19 @@
 // took 7.5. Compares and selects issue at half rate, so they, not the
 // loads or the stores, set the pace.
 //
+// Batched: a batch of b independent fitness matrices (b, n, m) takes one
+// launch whose grid has the member on its z axis; block (bx, by, z) is the
+// single-member block (bx, by) of member z, offset into member z's
+// fitness, words and counts, so each member's output is what the
+// single-member launch writes, bit for bit.
+//
 // Numerics. Plain IEEE compares, as in the JAX package: a NaN objective
 // makes L false both ways, so a NaN row dominates nothing and is dominated
 // by nothing.
 //
-// C interface (loaded with ctypes): evox_packed_dominance returns
-// cudaGetLastError() after the launch; 0 means launched.
+// C interface (loaded with ctypes): evox_packed_dominance and
+// evox_packed_dominance_batched return cudaGetLastError() after the
+// launch; 0 means launched.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -144,6 +151,10 @@ dominance_kernel(const float* __restrict__ fit, int n, int m, int n_words,
   constexpr int TILE = TileWords<M>::value;
   const int W0 = blockIdx.y * TILE, V0 = blockIdx.x * TILE;
   if (W0 > V0) return;  // the transposes of tiles another block takes
+  // member blockIdx.z of a batch
+  fit += static_cast<long long>(blockIdx.z) * n * m;
+  packed += static_cast<long long>(blockIdx.z) * n_words * n;
+  count += static_cast<long long>(blockIdx.z) * n;
   extern __shared__ __align__(16) float smem[];
   const int stride = M > 0 ? RowOf<(M > 0 ? M : 4)>::kStride : m;
   const int wn = min(TILE, n_words - W0), vn = min(TILE, n_words - V0);
@@ -235,12 +246,16 @@ const void* kernel_of(int instance) {
 }  // namespace
 
 // instance: 1..4 for the exact m (it must equal m), 0 for the generic one;
-// the grid is (grid, grid) with grid = ceil(ceil(n / 32) / tile_words) for
-// the instance's super-tile (kernels/dominance.py::launch_plan)
-extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* packed,
-                                     void* count, void* stream, int instance, int grid) {
+// the grid is (grid, grid, batch) with grid = ceil(ceil(n / 32) /
+// tile_words) for the instance's super-tile (kernels/dominance.py::
+// launch_plan); fitness is (batch, n, m), packed (batch, ceil(n/32), n),
+// count (batch, n)
+extern "C" int evox_packed_dominance_batched(const void* fitness, int batch, int n, int m,
+                                             void* packed, void* count, void* stream,
+                                             int instance, int grid) {
   const int n_words = (n + 31) / 32;
-  if (n <= 0 || m <= 0 || m > kMaxM || !(instance == 0 || instance == m) || instance > 4 ||
+  if (batch <= 0 || batch > 65535 || n <= 0 || m <= 0 || m > kMaxM ||
+      !(instance == 0 || instance == m) || instance > 4 ||
       grid != (n_words + tile_words(instance) - 1) / tile_words(instance) || grid > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -248,9 +263,10 @@ extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* pa
   const float* fit = static_cast<const float*>(fitness);
   int* words = static_cast<int*>(packed);
   int* counts = static_cast<int*>(count);
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(n), st);
+  cudaError_t err = cudaMemsetAsync(
+      counts, 0, sizeof(int) * static_cast<size_t>(n) * static_cast<size_t>(batch), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 g(grid, grid);
+  const dim3 g(grid, grid, batch);
   switch (instance) {
     case 1: launch<1>(fit, n, m, n_words, g, words, counts, st); break;
     case 2: launch<2>(fit, n, m, n_words, g, words, counts, st); break;
@@ -259,6 +275,12 @@ extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* pa
     default: launch<0>(fit, n, m, n_words, g, words, counts, st); break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// one member: the batched launch of a batch of 1
+extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* packed,
+                                     void* count, void* stream, int instance, int grid) {
+  return evox_packed_dominance_batched(fitness, 1, n, m, packed, count, stream, instance, grid);
 }
 
 // the runtime's blocks an SM and registers a thread of an instance, at the

@@ -67,6 +67,7 @@ from .algorithms.so import es as _es
 from .algorithms.so.es import les_meta as _les_meta
 from .algorithms.so.es.open_es import OpenES, OpenESState
 from .algorithms.so.pso.common import SwarmAlgorithm
+from .core.members import stack_states
 from .core.device import DeviceLike, resolve_device
 from .core.guardrail import GuardedAlgorithm, GuardedState
 from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
@@ -460,14 +461,16 @@ def algorithm_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
     return carry(algo, jax_state, seed)
 
 
-def stacked_members(algo: Any, jax_stacked: Any, n: int, seed: int = 0) -> tuple:
-    """The port's tuple of ``n`` member states of ``algo`` from the JAX
+def stacked_members(algo: Any, jax_stacked: Any, n: int, seed: int = 0) -> Any:
+    """The port's stacked state of ``n`` members of ``algo`` from the JAX
     package's member states stacked on a leading axis (``vmap(init)``'s
-    form: island states, cluster and block states); member ``i``'s seed is
+    form: island states, cluster and block states, tenants), in the same
+    layout: every leaf keeps its leading member axis. Each member's leaves
+    cross by the carry-over of its class; member ``i``'s seed is
     ``split_seed(seed, n)[i]``."""
     seeds = split_seed(seed, n)
-    return tuple(algorithm_state(algo, _containers.take_state(jax_stacked, i), s)
-                 for i, s in enumerate(seeds))
+    return stack_states([algorithm_state(algo, _containers.take_state(jax_stacked, i), s)
+                         for i, s in enumerate(seeds)])
 
 
 def container_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:

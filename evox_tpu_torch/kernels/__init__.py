@@ -8,6 +8,8 @@ from .dominance import (
     dominance_work,
     pack_dominator_rows,
     packed_dominance,
+    packed_dominance_batched,
+    packed_dominance_batched_reference,
     packed_dominance_reference,
 )
 from .rollout import (
@@ -57,6 +59,8 @@ __all__ = [
     "mountain_car_soa",
     "pack_dominator_rows",
     "packed_dominance",
+    "packed_dominance_batched",
+    "packed_dominance_batched_reference",
     "packed_dominance_reference",
     "partial_topk",
     "partial_topk_reference",

@@ -20,17 +20,28 @@ it runs
 ``packed_dominance_reference``, the JAX package's XLA fallback in plain
 PyTorch, with its chunked build above n = 20000. A CUDA tensor goes to the
 kernel or raises.
+
+**Batched.** ``packed_dominance_batched`` takes ``(b, n, m)`` and returns
+``(b, ceil(n/32), n)`` words and ``(b, n)`` counts, what ``vmap`` of the
+JAX function gives: on the card one launch with the member on the grid's z
+axis (each member's words and counts those of the single-member launch,
+bit for bit), on the CPU ``packed_dominance_batched_reference`` (the
+single-member plain version stacked over members). ``packed_dominance``
+called under ``torch.func.vmap`` (stacked members,
+:mod:`evox_tpu_torch.core.members`) goes through a ``torch.library``
+custom op whose ``vmap`` rule makes that one batched call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from ..core.cost import charge
 from ..core.device import DeviceLike, check_device, resolve_device
+from ..core.members import is_batched
 from ..utils.common import dominate_relation
 from . import _build
 
@@ -217,6 +228,85 @@ def _launch(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed, count
 
 
+def _launch_batched(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, n, m = fitness.shape
+    if m > MAX_OBJECTIVES:
+        raise ValueError(
+            f"the packed_dominance kernel takes at most {MAX_OBJECTIVES} objectives, got {m}"
+        )
+    if b > 65535:
+        raise ValueError(f"the batched packed_dominance launch takes at most 65535 members, got {b}")
+    fit = fitness.contiguous()
+    packed = torch.empty((b, (n + 31) // 32, n), dtype=torch.int32, device=fit.device)
+    count = torch.empty((b, n), dtype=torch.int32, device=fit.device)
+    if n == 0 or b == 0:
+        return packed, count
+    fn = _build.function("dominance", "evox_packed_dominance_batched", [
+        ctypes.c_void_p,  # fitness (b, n, m) float32
+        ctypes.c_int,  # b
+        ctypes.c_int,  # n
+        ctypes.c_int,  # m
+        ctypes.c_void_p,  # packed (b, ceil(n/32), n) int32
+        ctypes.c_void_p,  # count (b, n) int32
+        ctypes.c_void_p,  # cudaStream_t
+        ctypes.c_int,  # instance
+        ctypes.c_int,  # grid (grid x grid x b blocks)
+    ])
+    plan = launch_plan(n, m)
+    with torch.cuda.device(fit.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(fit.data_ptr(), b, n, m, packed.data_ptr(), count.data_ptr(), stream,
+                 plan["instance"], plan["grid"][0])
+    _build.check_launch("dominance", err, "packed_dominance_batched")
+    packed_dominance.launches += 1
+    nbytes, ops = dominance_work(n, m)
+    charge("packed_dominance", b * ops, b * nbytes)
+    return packed, count
+
+
+def packed_dominance_batched_reference(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain batched version: ``packed_dominance_reference`` of each
+    member of ``(b, n, m)``, stacked."""
+    pairs = [packed_dominance_reference(f) for f in fitness]
+    return torch.stack([p for p, _ in pairs]), torch.stack([c for _, c in pairs])
+
+
+def packed_dominance_batched(
+    fitness: torch.Tensor, device: DeviceLike = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`packed_dominance` of each member of a ``(b, n, m)`` float32
+    batch: int32 ``(b, ceil(n/32), n)`` words and ``(b, n)`` counts. On
+    ``cuda`` one launch for the batch (``packed_dominance.launches`` counts
+    it once); on ``cpu`` ``packed_dominance_batched_reference``."""
+    dev = resolve_device(device)
+    if fitness.ndim != 3 or fitness.dtype != torch.float32:
+        raise ValueError(
+            f"fitness must be float32 (b, n, m), got {fitness.dtype} {tuple(fitness.shape)}")
+    check_device(fitness, dev, "fitness")
+    if dev.type == "cpu":
+        return packed_dominance_batched_reference(fitness)
+    if dev.type == "cuda":
+        return _launch_batched(fitness)
+    raise ValueError(f"packed_dominance runs on cuda or cpu, not {dev}")
+
+
+@torch.library.custom_op("evox_torch::packed_dominance", mutates_args=())
+def _packed_dominance_op(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    packed, count = packed_dominance(fitness, device=fitness.device)
+    return packed.clone(), count.clone()
+
+
+@_packed_dominance_op.register_vmap
+def _packed_dominance_vmap(info: Any, in_dims: Tuple[Any, ...], fitness: torch.Tensor):
+    dim = in_dims[0]
+    fit = fitness.movedim(dim, 0) if dim is not None else fitness.expand(
+        (info.batch_size,) + tuple(fitness.shape))
+    lead = fit.shape[:-2]
+    packed, count = packed_dominance_batched(fit.reshape((-1,) + tuple(fit.shape[-2:])),
+                                             device=fit.device)
+    return (packed.reshape(lead + packed.shape[1:]), count.reshape(lead + count.shape[1:])), (0, 0)
+
+
 def packed_dominance(
     fitness: torch.Tensor, device: DeviceLike = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,6 +330,8 @@ def packed_dominance(
         ``packed[w, j]``: row ``32w + k`` dominates row ``j``) and int32
         ``(n,)`` counts.
     """
+    if is_batched(fitness):  # stacked members: one batched call (the vmap rule)
+        return _packed_dominance_op(fitness)
     dev = resolve_device(device)
     _check_fitness(fitness)
     check_device(fitness, dev, "fitness")

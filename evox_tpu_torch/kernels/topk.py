@@ -28,6 +28,11 @@ The JAX kernel's envelope (``k <= block_size``, ``n < 2**24``, else a
 silent fallback to XLA) does not exist here: the kernel computes the
 whole contract for every ``1 <= k <= n < 2**31``. A CUDA tensor goes to the
 kernel or raises.
+
+Under ``torch.func.vmap`` (stacked members, :mod:`evox_tpu_torch.core.
+members`) ``partial_topk`` goes through a ``torch.library`` custom op whose
+``vmap`` rule folds the member axis into the ``(rows, n)`` batch: one
+launch on the small route.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 from ..core.cost import charge
 from ..core.device import DeviceLike, check_device, resolve_device
+from ..core.members import is_batched
 from . import _build
 
 __all__ = [
@@ -280,6 +286,8 @@ def partial_topk(
         total order of :func:`total_order_key`, ties by lowest index; a
         ``(rows, n)`` batch gives ``(rows, k)`` of each.
     """
+    if is_batched(values):  # stacked members: one (rows, n) call (the vmap rule)
+        return _partial_topk_op(values, k)
     # the hot path's call (no device, or the tensor's own), checked cheaply
     if values.is_cuda and (device is None or device is values.device or device == values.device):
         return _launch(values, k, _check_args(values, k))
@@ -294,3 +302,19 @@ def partial_topk(
 
 
 partial_topk.launches = 0
+
+
+@torch.library.custom_op("evox_torch::partial_topk", mutates_args=())
+def _partial_topk_op(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    out_v, out_i = partial_topk(values, k, device=values.device)
+    return out_v.clone(), out_i.clone()
+
+
+@_partial_topk_op.register_vmap
+def _partial_topk_vmap(info, in_dims, values: torch.Tensor, k: int):
+    dim = in_dims[0]
+    v = values.movedim(dim, 0) if dim is not None else values.expand(
+        (info.batch_size,) + tuple(values.shape))
+    lead = tuple(v.shape[:-1])
+    out_v, out_i = partial_topk(v.reshape(-1, v.shape[-1]), k, device=v.device)
+    return (out_v.reshape(lead + (k,)), out_i.reshape(lead + (k,))), (0, 0)

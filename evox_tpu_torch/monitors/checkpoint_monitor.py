@@ -23,6 +23,9 @@ from ..workflows.checkpoint import WorkflowCheckpointer
 
 
 class CheckpointMonitor(Monitor):
+    # it reads the host each generation: a fleet (VectorizedWorkflow) refuses it
+    uses_host_callbacks = True
+
     def __init__(self, directory: str, every: int = 10, keep: int = 3):
         self.checkpointer = WorkflowCheckpointer(directory, every=every, keep=keep)
         self.directory = self.checkpointer.directory

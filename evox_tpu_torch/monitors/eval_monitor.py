@@ -97,6 +97,8 @@ class EvalMonitor(Monitor):
         self.multi_obj = multi_obj
         self.pf_capacity = pf_capacity
         self.full_fit_history = full_fit_history
+        # unbounded histories grow on the host: a fleet refuses them
+        self.uses_host_callbacks = bool(full_fit_history or full_sol_history)
         self.full_sol_history = full_sol_history
         self.history_capacity = history_capacity
         self.history_solutions = history_solutions

@@ -39,6 +39,9 @@ class PopMonitor(Monitor):
     cost analysis's extra run of an entry (``core/cost.py``) records
     nothing."""
 
+    # it reads the host each generation: a fleet (VectorizedWorkflow) refuses it
+    uses_host_callbacks = True
+
     def __init__(
         self,
         population_name: str = "population",

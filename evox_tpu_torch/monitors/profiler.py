@@ -39,6 +39,9 @@ class StepTimerMonitor(Monitor):
     timed.
     """
 
+    # it reads the host each generation: a fleet (VectorizedWorkflow) refuses it
+    uses_host_callbacks = True
+
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.start_times: List[Any] = []  # CUDA events, or host seconds

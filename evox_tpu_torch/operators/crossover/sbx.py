@@ -7,7 +7,7 @@ from typing import Optional
 
 import torch
 
-from ...utils.common import generator
+from ...utils.common import generator, seeded
 
 
 def simulated_binary(
@@ -26,7 +26,7 @@ def simulated_binary(
     p1 = pop[0::2][:half]
     p2 = pop[1::2][:half]
     if u is None:
-        u = torch.rand((half, d), generator=generator(seed, pop.device), device=pop.device)
+        u = seeded(seed, pop.device, lambda g: torch.rand((half, d), generator=g, device=pop.device))
     e = 1.0 / (distribution_factor + 1.0)
     beta = torch.where(u <= 0.5, (2.0 * u) ** e, (1.0 / (2.0 * (1.0 - u))) ** e)
     c1 = 0.5 * ((1 + beta) * p1 + (1 - beta) * p2)

@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...utils.common import generator, split_seed
+from ...utils.common import generator, seeded, split_seed
 
 
 def polynomial(
@@ -33,9 +33,10 @@ def polynomial(
     ub = torch.broadcast_to(torch.as_tensor(ub, dtype=pop.dtype, device=pop.device), (d,))
     s_site, s_u = split_seed(seed)
     if site is None:
-        site = torch.rand((n, d), generator=generator(s_site, pop.device), device=pop.device) < (pro_m / d)
+        site = seeded(s_site, pop.device,
+                      lambda g: torch.rand((n, d), generator=g, device=pop.device)) < (pro_m / d)
     if u is None:
-        u = torch.rand((n, d), generator=generator(s_u, pop.device), device=pop.device)
+        u = seeded(s_u, pop.device, lambda g: torch.rand((n, d), generator=g, device=pop.device))
     span = ub - lb
     zero = torch.zeros((), dtype=pop.dtype, device=pop.device)
     norm = torch.where(span > 0, (pop - lb) / span, zero)

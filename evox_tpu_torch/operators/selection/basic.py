@@ -18,11 +18,12 @@ from typing import Callable, Optional
 import torch
 
 from ...kernels.topk import partial_topk
-from ...utils.common import generator
+from ...utils.common import generator, seeded
 
 
 def _contestants(seed: int, n: int, n_round: int, size: int, device: torch.device) -> torch.Tensor:
-    return torch.randint(0, n, (n_round, size), generator=generator(seed, device), device=device)
+    return seeded(seed, device,
+                  lambda g: torch.randint(0, n, (n_round, size), generator=g, device=device))
 
 
 def tournament(

@@ -13,6 +13,14 @@ Sorts follow the JAX package's stable ones (``jnp.argsort``,
 ``jnp.lexsort``): ``stable=True`` everywhere, and ``lexsort`` from
 successive stable sorts, so ranks and survivor sets match it exactly.
 
+Under ``torch.func.vmap`` (stacked members, :mod:`evox_tpu_torch.core.
+members`) ``non_dominated_sort`` goes through a ``torch.library`` custom op
+whose ``vmap`` rule sorts every member at once: one batched B3 launch
+(``packed_dominance_batched``) and one peel over all members, which reads
+the host once per front round for all of them; each member's ranks and cut
+equal its own sort's. There ``return_cut_rank`` gives the cut as a 0-d
+tensor, and the selections that use it stay on the device.
+
 The JAX package's ``mesh=`` (the row-sharded sort) waits for the scale-out
 slice (ROADMAP A11): passing one raises ``NotImplementedError``.
 """
@@ -23,7 +31,13 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
-from ...kernels.dominance import column_popcount, pack_dominator_rows, packed_dominance
+from ...core.members import is_batched
+from ...kernels.dominance import (
+    column_popcount,
+    pack_dominator_rows,
+    packed_dominance,
+    packed_dominance_batched,
+)
 from ...kernels.topk import default_use_kernel, partial_topk
 from ...utils.common import lexsort
 
@@ -76,6 +90,58 @@ def _peel_fronts(
     return rank, cut
 
 
+def _peel_fronts_batched(count: torch.Tensor, stop: int, dom_packed: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_peel_fronts` of every member of ``(b, n)`` counts over their
+    ``(b, n_words, n)`` packed matrices at once: one host read of the ``b``
+    front sizes a round. A member whose peel has stopped keeps its ranks.
+    Returns ``(rank (b, n) int32, cut (b,) int64)``."""
+    b, n = count.shape
+    n_words = dom_packed.shape[1]
+    dev = count.device
+    rank = torch.full((b, n), n, dtype=torch.int32, device=dev)
+    front = count == 0
+    done, cut, live = [0] * b, [n] * b, [True] * b
+    r = 0
+    while True:
+        sizes = front.sum(dim=1).tolist()  # the one host read of each round
+        live = [lv and done[i] < stop and sizes[i] > 0 for i, lv in enumerate(live)]
+        if not any(live):
+            break
+        on = torch.tensor(live, device=dev)[:, None]
+        rank = torch.where(front & on, r, rank)
+        for i in range(b):
+            if live[i]:
+                done[i] += sizes[i]
+                if done[i] >= stop and cut[i] == n:
+                    cut[i] = r
+        words = pack_dominator_rows(front.T, n_words).T  # (b, n_words)
+        delta = column_popcount((dom_packed & words[:, :, None]).transpose(0, 1).reshape(
+            n_words, b * n)).reshape(b, n)
+        count = count - delta - front.to(torch.int32)
+        front = count == 0
+        r += 1
+    return rank, torch.tensor(cut, dtype=torch.int64, device=dev)
+
+
+@torch.library.custom_op("evox_torch::non_dominated_sort", mutates_args=())
+def _sort_op(fitness: torch.Tensor, stop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    rank, cut = non_dominated_sort(fitness, until=stop, return_cut_rank=True)
+    return rank.clone(), torch.tensor(cut, dtype=torch.int64, device=fitness.device)
+
+
+@_sort_op.register_vmap
+def _sort_vmap(info: Any, in_dims: Tuple[Any, ...], fitness: torch.Tensor, stop: int):
+    dim = in_dims[0]
+    fit = fitness.movedim(dim, 0) if dim is not None else fitness.expand(
+        (info.batch_size,) + tuple(fitness.shape))
+    lead = tuple(fit.shape[:-2])
+    fit = fit.reshape((-1,) + tuple(fit.shape[-2:]))
+    dom_packed, count = packed_dominance_batched(fit, device=fit.device)
+    rank, cut = _peel_fronts_batched(count, min(stop, fit.shape[1]), dom_packed)
+    return (rank.reshape(lead + rank.shape[1:]), cut.reshape(lead)), (0, 0)
+
+
 def non_dominated_sort(
     fitness: torch.Tensor,
     until: Optional[int] = None,
@@ -89,11 +155,14 @@ def non_dominated_sort(
     unranked rows get the sentinel rank ``n``. ``return_cut_rank=True``
     also returns the rank at which the cumulative front sizes first reach
     ``until`` (the worst admitted rank of environmental selection), as a
-    Python int.
+    Python int (a 0-d tensor under ``torch.func.vmap``).
     """
     _refuse_mesh(mesh)
     n = fitness.shape[0]
     stop = n if until is None else min(until, n)
+    if is_batched(fitness):  # stacked members: one batched sort (the vmap rule)
+        rank, cut = _sort_op(fitness, stop)
+        return (rank, cut) if return_cut_rank else rank
     n_words = (n + 31) // 32
     dom_packed, count = packed_dominance(fitness, device=fitness.device)
 
@@ -268,13 +337,13 @@ def rank_crowding_truncate(
     # slot k is a sink for every row not written: one extra slot, dropped
     order = torch.zeros((k + 1,), dtype=torch.int64, device=dev)
     pos = torch.cumsum(better, dim=0) - 1
-    order.scatter_(0, torch.where(better, pos, k), torch.arange(n, device=dev))
+    order = order.scatter(0, torch.where(better, pos, k), torch.arange(n, device=dev))
     # the cut front fills the remaining k - n_better slots by crowding,
     # descending: other rows carry +inf keys, boundary members -inf
     cut_key = torch.where(rank == worst_rank, -crowd, INF)
     _, cut_idx = partial_topk(cut_key, k, device=dev)
     j = torch.arange(k, device=dev)
     slots = torch.where(j < k - n_better, n_better + j, k)
-    order.scatter_(0, slots, cut_idx.to(torch.int64))
+    order = order.scatter(0, slots, cut_idx.to(torch.int64))
     order = order[:k]
     return order, rank[order]

@@ -16,7 +16,8 @@
 - ``lexsort``: ``jnp.lexsort`` from successive stable sorts.
 - ``blocked_cumsum``/``weighted_indices``: ``jnp.cumsum`` in XLA's CPU
   order, and the indices ``jax.random.choice(p=)`` draws from uniforms.
-- ``generator``: a ``torch.Generator`` seeded from an integer.
+- ``generator``: a ``torch.Generator`` seeded from an integer; ``seeded``
+  draws from one, or member by member from stacked member seeds.
 - ``float_vector``: a float32 copy of a bound or other vector argument.
 - ``split_seed``/``fold_in_seed``: the integer-seed counterparts of
   ``jax.random.split``/``fold_in``. States hold Python integers, and every
@@ -115,20 +116,51 @@ def split_seed(seed: int, num: int = 2) -> List[int]:
     """``num`` new seeds derived deterministically from ``seed`` (on the
     host: a few microseconds, no device work). The counterpart of the JAX
     package's ``new_key``: ``split_seed(seed)`` gives ``(carry, use)`` as
-    ``new_key(key)`` does, a seed standing for a key."""
+    ``new_key(key)`` does, a seed standing for a key.
+
+    Over a stacked state's :class:`~evox_tpu_torch.core.members.MemberSeeds`
+    it splits each member's seed as a solo run does and returns ``num``
+    ``MemberSeeds``."""
+    from ..core.members import MemberSeeds, in_member_call, per_member_seeds
+
+    if isinstance(seed, MemberSeeds):
+        per = per_member_seeds(lambda s: split_seed(s, num), seed)
+        return [MemberSeeds(p[j] for p in per) for j in range(num)]
+    if in_member_call():  # a host seed inside a member call: split outside the vmap
+        return per_member_seeds(lambda s: split_seed(s, num), (seed,))[0]
     g = torch.Generator().manual_seed(int(seed) % 2**63)
     return torch.randint(0, _SEED_BOUND, (num,), generator=g).tolist()
 
 
 def fold_in_seed(seed: int, data: int) -> int:
-    """A seed derived from ``seed`` and ``data`` without advancing ``seed``."""
+    """A seed derived from ``seed`` and ``data`` without advancing ``seed``
+    (member by member over member seeds)."""
+    from ..core.members import MemberSeeds, per_member_seeds
+
+    if isinstance(seed, MemberSeeds):
+        return MemberSeeds(per_member_seeds(lambda s: fold_in_seed(s, data), seed))
     return split_seed((int(seed) * 1_000_003 + int(data) + 1) % 2**63, 1)[0]
 
 
 def generator(seed: int, device: torch.device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed``: where every
-    draw of the port comes from."""
+    draw of the port comes from. Member seeds have no one generator: their
+    draws go through :func:`seeded` or ``core.members.member_draw``."""
+    if isinstance(seed, tuple):
+        raise TypeError(
+            "generator() takes one host seed; draw from member seeds through "
+            "utils.common.seeded or core.members.member_draw")
     return torch.Generator(device=device).manual_seed(int(seed) % 2**63)
+
+
+def seeded(seed: int, device: torch.device, draw: Callable[[torch.Generator], Any]) -> Any:
+    """``draw(generator(seed, device))``; over member seeds, each member's
+    draw from its own seed (``core.members.member_draw``)."""
+    from ..core.members import MemberSeeds, member_draw
+
+    if isinstance(seed, MemberSeeds):
+        return member_draw(lambda s: draw(generator(s, device)), seed)
+    return draw(generator(seed, device))
 
 
 def float_vector(x: Any, device: torch.device) -> torch.Tensor:
@@ -255,7 +287,13 @@ def inner_products(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     axis ``k`` (objectives), summed in index order by elementwise steps.
     cuBLAS and the CPU's BLAS may round the same product differently, and
     the callers' argmax and argsort turn on its last bits."""
+    from ..core.members import is_batched
+
     out = torch.mul(x[:, None, 0], y[None, :, 0])
+    if is_batched(x) or is_batched(y):  # under vmap: no out= (the same sums)
+        for j in range(1, x.shape[1]):
+            out = out + x[:, None, j] * y[None, :, j]
+        return out
     tmp = torch.empty_like(out)
     for j in range(1, x.shape[1]):
         torch.mul(x[:, None, j], y[None, :, j], out=tmp)

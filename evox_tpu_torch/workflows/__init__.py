@@ -5,6 +5,14 @@ from .journal import ChainedLog, JournalIntegrityError, RunJournal
 from .pipelined import chunked_evaluate, run_host_pipelined
 from .std import StdWorkflow, StdWorkflowState
 from .surrogate import SurrogateWorkflow, SurrogateWorkflowState
+from .tenancy import (
+    RunQueue,
+    TenantSpec,
+    TenantState,
+    VectorizedWorkflow,
+    VectorizedWorkflowState,
+    bind_hyperparams,
+)
 
 __all__ = [
     "ChainedLog",
@@ -15,11 +23,17 @@ __all__ = [
     "JournalIntegrityError",
     "MetricsStream",
     "RunJournal",
+    "RunQueue",
     "StdWorkflow",
     "StdWorkflowState",
     "SurrogateWorkflow",
     "SurrogateWorkflowState",
+    "TenantSpec",
+    "TenantState",
+    "VectorizedWorkflow",
+    "VectorizedWorkflowState",
     "WorkflowCheckpointer",
+    "bind_hyperparams",
     "chunked_evaluate",
     "merge_pod_streams",
     "read_stream",

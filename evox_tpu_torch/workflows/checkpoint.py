@@ -266,6 +266,14 @@ class WorkflowCheckpointer:
                       allow_config_mismatch: bool) -> None:
         recorded = manifest.get("config")
         if (expected is not None and recorded is not None and not allow_config_mismatch
+                and recorded["algo"] == "tuple" and expected["algo"] != "tuple"):
+            raise CheckpointConfigError(
+                f"checkpoint {path.name} holds its member states as a tuple, one state a "
+                "member (the layout of the port before its stacked member form); this run "
+                f"holds them stacked on a leading member axis ({expected['algo']}). The "
+                "snapshot cannot be read as a stacked state: rerun from a fresh state or "
+                "restack its members with core.members.stack_states.")
+        if (expected is not None and recorded is not None and not allow_config_mismatch
                 and not _config_matches(recorded, expected)):
             want = hashlib.sha256(json.dumps(expected, sort_keys=True).encode()).hexdigest()
             raise CheckpointConfigError(

@@ -7,20 +7,22 @@ of that generation move one island around the ring, ingested by
 ``algorithm.migrate`` (the base default covers ``(population, 1-d
 fitness)`` states; PSO and the GA-skeleton MOEAs override it).
 
-- The JAX package stacks the island states on a leading axis and runs
-  ``vmap(ask)``/``vmap(tell)``; the port holds a **tuple of island
-  states** and loops over the islands (``torch.func.vmap`` cannot batch
-  the port's ``torch.Generator`` draws nor its ``ctypes`` kernel
-  launches). Island ``i``'s seed comes from ``split_seed``, as its key
-  from ``jax.random.split``.
+- The island states are **stacked** on a leading axis, as the JAX
+  package's; ``ask``, ``tell`` and ``migrate`` each run once for all
+  islands through ``torch.func.vmap`` (:func:`~evox_tpu_torch.core.
+  members.member_call`), each island drawing from its own seed exactly as
+  a solo run of that seed. Island ``i``'s seed comes from ``split_seed``,
+  as its key from ``jax.random.split``. An algorithm with ``stackable =
+  False`` runs its islands one by one (``member_route``).
 - The candidates of all islands are scored as one flattened
   ``(islands * pop, ...)`` batch, and the fitness flipped to the internal
   minimization convention once, for ``tell`` and migration alike.
 - Single-objective elites: one batched ``partial_topk`` over the
   ``(islands, pop)`` fitness (B4, one launch of a grid over the islands on
   the card; the JAX package's ``vmap`` of the kernel). Multi-objective
-  elites: per island, non-dominated rank (B3) with crowding distance as
-  the tie-break, boundary points (+inf crowding) first.
+  elites: :func:`mo_elites` under ``vmap``, non-dominated rank (one batched
+  B3 launch for all islands) with crowding distance as the tie-break,
+  boundary points (+inf crowding) first.
 - Whether a generation migrates is decided on the host's generation
   counter (the JAX package's ``lax.cond`` on a device counter).
 - A host problem (``external_problem``, or a problem with ``jittable =
@@ -32,9 +34,10 @@ fitness)`` states; PSO and the GA-skeleton MOEAs override it).
   ``donate_carries`` is accepted and changes no number (eager PyTorch
   makes no copy for it to remove), and ``run`` then peels its first
   generation through ``step`` as the JAX package does.
-- ``run(checkpointer=, resume_from=)`` snapshots the tuple of island
+- ``run(checkpointer=, resume_from=)`` snapshots the stacked island
   states on the checkpoint cadence through the executor's ``run_fused``
-  and resumes under the config guard, as :meth:`StdWorkflow.run`.
+  and resumes under the config guard, as :meth:`StdWorkflow.run` (a
+  snapshot of the older tuple form is refused by name).
 
 The JAX package's ``mesh`` waits for ROADMAP A11 and raises
 ``NotImplementedError``. Its ``use_topk_kernel`` and ``topk_interpret``
@@ -50,6 +53,7 @@ import torch
 from ..core.algorithm import Algorithm
 from ..core.device import DeviceLike, resolve_device
 from ..core.dtype_policy import apply_compute, apply_storage
+from ..core.members import member_call, member_route, stack_states
 from ..core.monitor import Monitor
 from ..core.problem import Problem
 from ..core.struct import PyTreeNode, static_field
@@ -69,7 +73,7 @@ from .common import (
 
 class IslandWorkflowState(PyTreeNode):
     generation: int
-    algo: Tuple[Any, ...]  # one algorithm state per island
+    algo: Any  # the island states, stacked on a leading island axis
     prob: Any
     monitors: Tuple[Any, ...] = ()
     first_step: bool = static_field(default=True)
@@ -171,13 +175,17 @@ class IslandWorkflow:
         self.host_link = HostLink(self.device) if self.external else None
         self.dtype_policy = dtype_policy
         self.donate_carries = bool(donate_carries)
+        #: ``"vmap"`` (one call for all islands) or ``"loop"`` (an algorithm
+        #: with ``stackable = False``)
+        self.member_route = member_route(algorithm)
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0) -> IslandWorkflowState:
         seeds = split_seed(seed, 2 + len(self.monitors))
         state = IslandWorkflowState(
             generation=0,
-            algo=tuple(self.algorithm.init(s) for s in split_seed(seeds[1], self.n_islands)),
+            algo=stack_states([self.algorithm.init(s)
+                               for s in split_seed(seeds[1], self.n_islands)]),
             prob=self.problem.init(seeds[0]),
             monitors=tuple(m.init(s) for m, s in zip(self.monitors, seeds[2:])),
             first_step=True,
@@ -194,7 +202,7 @@ class IslandWorkflow:
         """Run ``n_steps`` generations (a Python loop over ``step``).
 
         ``checkpointer=`` runs in chunks that end on its cadence and
-        snapshots the tuple of island states between them on the
+        snapshots the stacked island states between them on the
         executor's background lane; ``resume_from=`` (a
         :class:`~evox_tpu_torch.workflows.checkpoint.WorkflowCheckpointer`
         or a directory) restores the newest intact snapshot under the
@@ -229,9 +237,9 @@ class IslandWorkflow:
         Multi-objective: per-objective minima, the per-island ideal points
         ``(islands, m)`` and the global ideal point ``(m,)``."""
         for name in ("gbest_fitness", "pbest_fitness", "fitness"):
-            if getattr(state.algo[0], name, None) is None:
+            arr = getattr(state.algo, name, None)
+            if arr is None:
                 continue
-            arr = torch.stack([getattr(s, name) for s in state.algo])
             if self.num_objectives > 1:
                 per_island = arr.reshape(self.n_islands, -1, self.num_objectives).amin(dim=1)
                 return (per_island * self.opt_direction,
@@ -239,7 +247,7 @@ class IslandWorkflow:
             per_island = arr.reshape(self.n_islands, -1).amin(dim=1)
             sign = self.opt_direction[0]
             return per_island * sign, per_island.amin() * sign
-        raise NotImplementedError(f"{type(state.algo[0]).__name__} exposes no fitness field")
+        raise NotImplementedError(f"{type(state.algo).__name__} exposes no fitness field")
 
     # ------------------------------------------------------------- internals
     def elites(self, fitness: torch.Tensor) -> torch.Tensor:
@@ -250,19 +258,19 @@ class IslandWorkflow:
             raise ValueError(
                 f"migrate_k={k} exceeds the per-island candidate batch ({fitness.shape[1]})")
         if self.num_objectives > 1:
-            return torch.stack([mo_elites(f, k) for f in fitness])
+            # one batched sort for all islands (the sort's vmap rule)
+            return torch.func.vmap(lambda f: mo_elites(f, k))(fitness)
         return partial_topk(fitness.to(torch.float32), k, device=fitness.device)[1].long()
 
-    def _migrate(self, astates: Tuple[Any, ...], pop: Any, fitness: torch.Tensor) -> Tuple[Any, ...]:
+    def _migrate(self, astates: Any, pop: Any, fitness: torch.Tensor) -> Any:
         """Ring migration of each island's elites: island i receives from
-        island i - 1."""
+        island i - 1, all islands' ``migrate`` in one member call."""
         idx = self.elites(fitness)
         rows = torch.arange(self.n_islands, device=idx.device)[:, None]
         recv = tree_map(lambda c: torch.roll(c[rows, idx], 1, dims=0), pop)
         recv_fit = torch.roll(fitness[rows, idx], 1, dims=0)
-        return tuple(
-            self.algorithm.migrate(s, tree_map(lambda r: r[i], recv), recv_fit[i])
-            for i, s in enumerate(astates))
+        return member_call(self.algorithm.migrate, astates, recv, recv_fit,
+                           route=self.member_route)
 
     def _evaluate(self, pstate: Any, cand_flat: Any) -> Tuple[torch.Tensor, Any]:
         if self.external:
@@ -280,13 +288,9 @@ class IslandWorkflow:
         use_init = state.first_step and (
             self.algorithm.has_init_ask or self.algorithm.has_init_tell)
         ask = self.algorithm.init_ask if use_init else self.algorithm.ask
-        pairs = [ask(s) for s in state.algo]
-        astates = tuple(s for _, s in pairs)
         # (islands, B, ...) leaf by leaf
-        leaves, rebuild = tree_flatten(pairs[0][0])
-        per_island = [tree_flatten(p)[0] for p, _ in pairs]
-        pop = rebuild([torch.stack([isl[j] for isl in per_island]) for j in range(len(leaves))])
-        batch = leaves[0].shape[0]
+        pop, astates = member_call(ask, state.algo, route=self.member_route)
+        batch = tree_flatten(pop)[0][0].shape[1]
         cand_flat = tree_map(lambda x: x.reshape((self.n_islands * batch,) + x.shape[2:]), pop)
         run_hooks(self.monitors, self._hook_table, "post_ask", mstates, cand_flat)
         for t in self.pop_transforms:
@@ -305,7 +309,7 @@ class IslandWorkflow:
         run_hooks(self.monitors, self._hook_table, "pre_tell", mstates,
                   fitness.reshape((self.n_islands * batch,) + fitness.shape[2:]))
         tell = self.algorithm.init_tell if use_init else self.algorithm.tell
-        astates = tuple(tell(s, f) for s, f in zip(astates, fitness))
+        astates = member_call(tell, astates, fitness, route=self.member_route)
         run_hooks(self.monitors, self._hook_table, "post_tell", mstates)
 
         gen = state.generation + 1

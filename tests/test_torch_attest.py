@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.core import attest as jattest
 from evox_tpu import GenerationExecutor as JaxExecutor
 from evox_tpu import StdWorkflow as JaxStdWorkflow

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.problems.numerical import cec2022 as jcec
 from evox_tpu_torch.problems import numerical as tnum
 from evox_tpu_torch.problems.numerical import cec2022 as tcec

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.core import attest as jattest
 from evox_tpu_torch import GuardedAlgorithm, IPOPRestarts, StdWorkflow
 from evox_tpu_torch.algorithms.mo import NSGA2

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.so.es import cma_es as jcma
 from evox_tpu.algorithms.so.es import common as jcommon
@@ -268,13 +269,13 @@ def _cmaes_generations(jalgo, talgo, gens, seed=0, check_pop=True):
     _assert_states(tstate, jstate)
     decomps = []
     for _ in range(gens):
-        jpop, jstate = jalgo.ask(jstate)
+        jpop, jstate = jit_once(jalgo, "ask")(jstate)
         talgo._draw = lambda s, z=_t(jstate.z): z
         tpop, tstate = talgo.ask(tstate)
         if check_pop:
             np.testing.assert_allclose(tpop.numpy(), np.asarray(jpop), rtol=RTOL, atol=ATOL)
         fit = _tied_sphere(jpop)
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         talgo._decompose = lambda C, b=_t(jstate.B), d=_t(jstate.D): decomps.append(1) or (b, d)
         tstate = talgo.tell(tstate, _t(fit))
         _assert_states(tstate, jstate)
@@ -308,11 +309,11 @@ def test_cmaes_own_decomposition_matches_jax_up_to_the_basis():
     jstate = jalgo.init(jax.random.PRNGKey(3))
     tstate = interop.es_state(talgo, _numpy_tree(jstate))
     for gen in range(2):
-        jpop, jstate = jalgo.ask(jstate)
+        jpop, jstate = jit_once(jalgo, "ask")(jstate)
         talgo._draw = lambda s, z=_t(jstate.z): z
         _, tstate = talgo.ask(tstate)
         fit = np.sum(np.asarray(jpop) ** 2, axis=1).astype(np.float32)
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         if gen == 0:  # the next generation samples through JAX's basis
             tstate = tstate.replace(B=_t(jstate.B), D=_t(jstate.D))
@@ -330,11 +331,11 @@ def test_cmaes_tied_fitness_sorts_stably():
     talgo = tcma.CMAES(np.zeros(4, np.float32), 1.0, pop_size=8, device="cpu")
     jstate = jalgo.init(jax.random.PRNGKey(0))
     tstate = interop.es_state(talgo, _numpy_tree(jstate))
-    _, jstate = jalgo.ask(jstate)
+    _, jstate = jit_once(jalgo, "ask")(jstate)
     talgo._draw = lambda s, z=_t(jstate.z): z
     _, tstate = talgo.ask(tstate)
     fit = np.ones(8, np.float32)
-    jstate = jalgo.tell(jstate, jnp.asarray(fit))
+    jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
     talgo._decompose = lambda C: (_t(jstate.B), _t(jstate.D))
     tstate = talgo.tell(tstate, _t(fit))
     _assert_states(tstate, jstate)
@@ -350,12 +351,12 @@ def test_sep_cmaes_generations_match_jax(kwargs):
     jstate = jalgo.init(jax.random.PRNGKey(5))
     tstate = interop.es_state(talgo, _numpy_tree(jstate))
     for _ in range(4):
-        jpop, jstate = jalgo.ask(jstate)
+        jpop, jstate = jit_once(jalgo, "ask")(jstate)
         talgo._draw = lambda s, z=_t(jstate.z): z
         tpop, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(tpop.numpy(), np.asarray(jpop), rtol=RTOL, atol=ATOL)
         fit = _tied_sphere(jpop)
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         _assert_states(tstate, jstate)
 
@@ -373,14 +374,14 @@ def test_restart_cmaes_tell_matches_jax(cls, restart):
     jstate = jalgo.init(jax.random.PRNGKey(8))
     tstate = interop.es_state(talgo, _numpy_tree(jstate))
     for _ in range(3):
-        jpop, jstate = jalgo.ask(jstate)
+        jpop, jstate = jit_once(jalgo, "ask")(jstate)
         talgo._draw = lambda s, z=_t(jstate.z): z
         _, tstate = talgo.ask(tstate)
         _, k = jax.random.split(jstate.key)  # the restart's draw, from the state tell holds
         mean = _t(jax.random.uniform(k, (5,), minval=-2.0, maxval=3.0))
         talgo._draw_restart = lambda s, m=mean: m
         fit = np.sum(np.asarray(jpop) ** 2, axis=1).astype(np.float32)
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         talgo._decompose = lambda C, b=_t(jstate.B), d=_t(jstate.D): (b, d)
         tstate = talgo.tell(tstate, _t(fit))
         _assert_states(tstate, jstate)

@@ -3,8 +3,9 @@ CPU: ClusteredAlgorithm, RandomMaskAlgorithm, VectorizedCoevolution,
 Coevolution and TreeAlgorithm over PSO and CSO members.
 
 The JAX package stacks its member states on a leading axis and vmaps the
-members; the port holds a tuple of member states. The JAX containers'
-initial states cross through ``interop.container_state``; each member's
+members; so does the port (``core.members.member_call``), except the tree
+container, a tuple in both. The JAX containers' initial states cross
+through ``interop.container_state``; each member's
 draws are rebuilt from its JAX key and handed to the port's shared base
 algorithm by draw seed (the port's ``_draw(seed)`` receives
 ``split_seed(member.seed)[1]``, so a table keyed by that seed routes each
@@ -24,12 +25,15 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 from evox_tpu.algorithms import containers as jc
 from evox_tpu.algorithms.so.pso import CSO as JaxCSO
 from evox_tpu.algorithms.so.pso import PSO as JaxPSO
 from evox_tpu_torch import interop
 from evox_tpu_torch.algorithms import containers as tc
 from evox_tpu_torch.algorithms.so.pso import CSO, PSO
+from evox_tpu_torch.core.members import n_members, take_state, unstack_states
+from evox_tpu_torch.core.struct import named_leaves
 from evox_tpu_torch.utils.common import split_seed
 
 SUB = 2  # a member's dimension
@@ -105,14 +109,14 @@ def test_take_and_put_state_split_and_join_stacked_states():
     np.testing.assert_array_equal(back.population[[0, 2]], stacked.population[[0, 2]])
     np.testing.assert_array_equal(stacked.population[1], one.population)  # not written in place
     # the port's tensors, several members at once
-    ts = interop.stacked_members(tbase, stacked, 3)
-    t_stacked = dataclasses.replace(ts[0], **{
-        f.name: torch.stack([getattr(s, f.name) for s in ts])
-        for f in dataclasses.fields(ts[0]) if isinstance(getattr(ts[0], f.name), torch.Tensor)})
+    t_stacked = interop.stacked_members(tbase, stacked, 3)
+    assert n_members(t_stacked) == 3 and t_stacked.population.shape == (3, 8, SUB)
     two = tc.take_state(t_stacked, torch.tensor([2, 0]))
     assert torch.equal(two.population, t_stacked.population[[2, 0]])
+    assert tuple(two.seed) == (t_stacked.seed[2], t_stacked.seed[0])
     put = tc.put_state(t_stacked, torch.tensor([2, 0]), two.replace(population=two.population * 0))
-    assert not put.population[[0, 2]].any() and torch.equal(put.population[1], ts[1].population)
+    assert not put.population[[0, 2]].any()
+    assert torch.equal(put.population[1], take_state(t_stacked, 1).population)
 
 
 def test_clustered_cso_matches_jax():
@@ -124,19 +128,20 @@ def test_clustered_cso_matches_jax():
     jalgo, talgo = jc.ClusteredAlgorithm(jbase, dim, n), tc.ClusteredAlgorithm(tbase, dim, n)
     jstate = jalgo.init(jax.random.PRNGKey(3))
     tstate = interop.algorithm_state(talgo, _np(jstate), seed=1)
-    assert isinstance(tstate, tuple) and len(tstate) == n
+    assert n_members(tstate) == n and tstate.population.shape[0] == n
     for gen in range(4):
         ask, tell = ("init_ask", "init_tell") if gen == 0 else ("ask", "tell")
         if gen:
-            _inject(tbase, tstate, _members(jstate, n), lambda j: _cso_draws(jbase, j))
-        jcand, jstate = getattr(jalgo, ask)(jstate)
+            _inject(tbase, unstack_states(tstate), _members(jstate, n),
+                    lambda j: _cso_draws(jbase, j))
+        jcand, jstate = jit_once(jalgo, ask)(jstate)
         tcand, tstate = getattr(talgo, ask)(tstate)
         assert tcand.shape == (8 if gen == 0 else 4, dim)
         np.testing.assert_array_equal(tcand.numpy(), np.asarray(jcand))
         fit = _fitness(jcand)
-        jstate = getattr(jalgo, tell)(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, tell)(jstate, jnp.asarray(fit))
         tstate = getattr(talgo, tell)(tstate, torch.from_numpy(fit))
-        for i, (t, j) in enumerate(zip(tstate, _members(jstate, n))):
+        for i, (t, j) in enumerate(zip(unstack_states(tstate), _members(jstate, n))):
             _assert_member(t, j, f"generation {gen}, cluster {i}")
 
 
@@ -164,7 +169,7 @@ def test_random_mask_matches_jax_through_mask_changes(change_every):
             k = jax.random.split(jstate.key)[1]
             talgo._draw_active = lambda seed, a=_choice(k, n, 2): a
             changes += 1
-        jcand, jstate = getattr(jalgo, ask)(jstate)
+        jcand, jstate = jit_once(jalgo, ask)(jstate)
         tcand, tstate = getattr(talgo, ask)(tstate)
         np.testing.assert_array_equal(tcand.numpy(), np.asarray(jcand))
         assert list(tstate.active) == np.asarray(jstate.active).tolist()
@@ -173,13 +178,15 @@ def test_random_mask_matches_jax_through_mask_changes(change_every):
         # and the seeding generation, then the active ones
         told = range(n) if tstate.count in (-1, -2) else tstate.active
         jm = _members(jstate.sub_states, n)
-        _inject(tbase, [tstate.sub_states[i] for i in told], [jm[i] for i in told], _pso_draws)
-        jstate = getattr(jalgo, tell)(jstate, jnp.asarray(fit))
+        _inject(tbase, [take_state(tstate.sub_states, i) for i in told], [jm[i] for i in told],
+                _pso_draws)
+        jstate = jit_once(jalgo, tell)(jstate, jnp.asarray(fit))
         tstate = getattr(talgo, tell)(tstate, torch.from_numpy(fit))
         assert tstate.count == int(jstate.count)
         np.testing.assert_array_equal(tstate.sub_pops if tstate.sub_pops is not None
                                       else np.zeros_like(jstate.sub_pops), np.asarray(jstate.sub_pops))
-        for i, (t, j) in enumerate(zip(tstate.sub_states, _members(jstate.sub_states, n))):
+        for i, (t, j) in enumerate(zip(unstack_states(tstate.sub_states),
+                                       _members(jstate.sub_states, n))):
             _assert_member(t, j, f"generation {gen}, cluster {i}")
     assert changes == {1: 4, 2: 2}[change_every]
 
@@ -205,7 +212,9 @@ def test_random_mask_schedule_and_refusals():
         masked = set(range(3)) - set(state.active)
         if counts[-1] >= 0:
             for i in masked:
-                assert state.sub_states[i] is before[i]
+                kept, was = take_state(state.sub_states, i), take_state(before, i)
+                for (path, x), (_, y) in zip(named_leaves(kept), named_leaves(was)):
+                    assert (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y), path
     assert counts == [-2, 0, 1, 2, 0, 1, 2, 0]
     assert len(redraws) == 3  # the first mask at init, then two changes
     with pytest.raises(ValueError, match="num_mask"):
@@ -235,7 +244,7 @@ def test_coevolution_matches_jax(kind, random_subpop):
         assert sorted(tstate.permutation.tolist()) == list(range(dim))
     for gen in range(6):
         ask, tell = ("init_ask", "init_tell") if gen == 0 else ("ask", "tell")
-        jcand, jstate = getattr(jalgo, ask)(jstate)
+        jcand, jstate = jit_once(jalgo, ask)(jstate)
         tcand, tstate = getattr(talgo, ask)(tstate)
         np.testing.assert_array_equal(tcand.numpy(), np.asarray(jcand))
         # the batch is the spliced vectors in the problem's layout
@@ -245,14 +254,16 @@ def test_coevolution_matches_jax(kind, random_subpop):
         # PSO draws in its tell (init_tell too)
         jm = _members(jstate.sub_states, n)
         told = range(n) if gen == 0 or kind == "vectorized" else [tstate.iter_counter % n]
-        _inject(tbase, [tstate.sub_states[i] for i in told], [jm[i] for i in told], _pso_draws)
-        jstate = getattr(jalgo, tell)(jstate, jnp.asarray(fit))
+        _inject(tbase, [take_state(tstate.sub_states, i) for i in told], [jm[i] for i in told],
+                _pso_draws)
+        jstate = jit_once(jalgo, tell)(jstate, jnp.asarray(fit))
         tstate = getattr(talgo, tell)(tstate, torch.from_numpy(fit))
         for name in ("best_dec", "best_fit", "coop_pops"):
             np.testing.assert_array_equal(getattr(tstate, name).numpy(),
                                           np.asarray(getattr(jstate, name)), err_msg=name)
         assert tstate.iter_counter == int(jstate.iter_counter)
-        for i, (t, j) in enumerate(zip(tstate.sub_states, _members(jstate.sub_states, n))):
+        for i, (t, j) in enumerate(zip(unstack_states(tstate.sub_states),
+                                       _members(jstate.sub_states, n))):
             _assert_member(t, j, f"generation {gen}, block {i}")
 
 
@@ -273,7 +284,7 @@ def test_tree_algorithm_over_a_dict_matches_jax():
     tstate = interop.algorithm_state(talgo, _np(jstate), seed=5)
     for gen in range(4):
         ask, tell = ("init_ask", "init_tell") if gen == 0 else ("ask", "tell")
-        jcand, jstate = getattr(jalgo, ask)(jstate)
+        jcand, jstate = jit_once(jalgo, ask)(jstate)
         tcand, tstate = getattr(talgo, ask)(tstate)
         assert set(tcand) == {"w", "b"} and tcand["w"].shape == (6, 2, 3)
         for key in tcand:
@@ -282,7 +293,7 @@ def test_tree_algorithm_over_a_dict_matches_jax():
                                        np.asarray(jcand["w"]).reshape(6, -1)], axis=1))
         for a, t, j in zip(talgo.inner, tstate, _np(jstate)):  # PSO draws in its tell
             _inject(a, [t], [j], _pso_draws)
-        jstate = getattr(jalgo, tell)(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, tell)(jstate, jnp.asarray(fit))
         tstate = getattr(talgo, tell)(tstate, torch.from_numpy(fit))
         for i, (t, j) in enumerate(zip(tstate, _np(jstate))):
             _assert_member(t, j, f"generation {gen}, leaf {i}")

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.core import xla_cost as jcost
 from evox_tpu_torch import IslandWorkflow, StdWorkflow
 from evox_tpu_torch.algorithms.so.pso import PSO

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.algorithms.so.pso import CSO as JaxCSO
 from evox_tpu.operators.sanitize import sanitize_bounds as jax_sanitize_bounds
 from evox_tpu.operators.sanitize import validate_bound_handling as jax_validate

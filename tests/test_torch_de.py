@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.algorithms.so import de as jde
 from evox_tpu.algorithms.so.de import de as jde_module
 from evox_tpu.core import attribution as jattr

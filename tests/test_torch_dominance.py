@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.kernels.dominance import packed_dominance as jax_packed_dominance
 from evox_tpu.kernels.dominance import packed_dominance_reference as jax_reference
 from evox_tpu.operators.selection.non_dominate import non_dominated_sort as jax_nds

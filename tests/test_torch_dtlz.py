@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.operators.sampling import GridSampling as JaxGridSampling
 from evox_tpu.operators.sampling import latin_hypercube as jax_latin_hypercube
 from evox_tpu.problems import numerical as jnum

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 import evox_tpu.algorithms.mo as jmo
 import evox_tpu.algorithms.so.de as jde
 import evox_tpu.algorithms.so.es as jes

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.kernels import rollout as jkr
 from evox_tpu.problems.neuroevolution.control import envs as jenvs
 from evox_tpu.utils.common import compose as jax_compose

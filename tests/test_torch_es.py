@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 from evox_tpu.algorithms.so import es as jes
 from evox_tpu.algorithms.so.es import nes as jnes
 from evox_tpu_torch import StdWorkflow, interop
@@ -161,12 +162,12 @@ def test_es_family_generations_match_jax(case):
         talgo._draw = lambda seed, d=draws(jalgo, jstate): d
         if basis is not None:
             talgo._basis = lambda archive, q=basis(jalgo, jstate): q
-        jpop, jstate = jalgo.ask(jstate)
+        jpop, jstate = jit_once(jalgo, "ask")(jstate)
         tpop, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(tpop.numpy(), np.asarray(jpop), rtol=RTOL, atol=ATOL)
         fit = _tied(jpop)
         assert len(np.unique(fit)) < len(fit)  # ties, for the modules that sort
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         _assert_states(tstate, jstate)
 
@@ -215,7 +216,7 @@ def test_amalgam_cholesky_failure_gives_nan_as_jax():
     C = -np.eye(4, dtype=np.float32)
     jstate = jalgo.init(jax.random.PRNGKey(0)).replace(C=jnp.asarray(C))
     tstate = talgo.init(0).replace(C=_t(C))
-    jpop, _ = jalgo.ask(jstate)
+    jpop, _ = jit_once(jalgo, "ask")(jstate)
     tpop, _ = talgo.ask(tstate)
     assert np.isnan(np.asarray(jpop)).all() and torch.isnan(tpop).all()
 
@@ -234,10 +235,10 @@ def test_ars_top_k_with_ties_equals_lax_top_k():
     jstate = jalgo.init(jax.random.PRNGKey(2))
     tstate = interop.es_state(talgo, _numpy_tree(jstate))
     talgo._draw = lambda seed, d=_ars_draws(jalgo, jstate): d
-    _, jstate = jalgo.ask(jstate)
+    _, jstate = jit_once(jalgo, "ask")(jstate)
     _, tstate = talgo.ask(tstate)
     fit = np.concatenate([score, score[::-1]])
-    jstate = jalgo.tell(jstate, jnp.asarray(fit))
+    jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
     tstate = talgo.tell(tstate, _t(fit))
     _assert_states(tstate, jstate)
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.monitors import EvalMonitor as JaxEvalMonitor
 from evox_tpu.utils import ring as jring
 from evox_tpu_torch import StdWorkflow, interop

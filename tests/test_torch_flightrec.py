@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.core.metrics import MetricsRegistry as JaxRegistry
 from evox_tpu.workflows import flightrec as jflightrec
 from evox_tpu.workflows import journal as jjournal

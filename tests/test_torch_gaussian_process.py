@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.operators.gaussian_process import GPClassification as JaxGPClassification
 from evox_tpu.operators.gaussian_process import GPRegression as JaxGPRegression
 from evox_tpu.operators.gaussian_process import ProbitLabelRegression as JaxProbit

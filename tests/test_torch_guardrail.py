@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.so.es import cma_es as jcma
 from evox_tpu.algorithms.so.pso import CSO as JaxCSO
@@ -66,10 +67,10 @@ def _cma_pair(pop=POP, **guard):
 def _cma_step(jalgo, talgo, jstate, tstate, fitness=_sphere):
     _, k = jax.random.split(jstate.inner.key)
     talgo.algorithm._draw = lambda s, z=_t(jax.random.normal(k, (jalgo.pop_size, DIM))): z
-    jcand, jstate = jalgo.ask(jstate)
+    jcand, jstate = jit_once(jalgo, "ask")(jstate)
     _, tstate = talgo.ask(tstate)
     fit = fitness(jcand)
-    return jalgo.tell(jstate, jnp.asarray(fit)), talgo.tell(tstate, torch.from_numpy(fit))
+    return jit_once(jalgo, "tell")(jstate, jnp.asarray(fit)), talgo.tell(tstate, torch.from_numpy(fit))
 
 
 def _assert_guarded(tstate, jstate):
@@ -237,12 +238,12 @@ def test_cso_wider_first_ask_reads_the_scored_rows_like_jax():
         ask, tell = ("init_ask", "init_tell") if gen == 0 else ("ask", "tell")
         if gen:
             talgo.algorithm._draw = lambda s, d=_cso_draws(jbase, jstate.inner): d
-        jcand, jstate = getattr(jalgo, ask)(jstate)
+        jcand, jstate = jit_once(jalgo, ask)(jstate)
         tcand, tstate = getattr(talgo, ask)(tstate)
         widths.append(tcand.shape[0])
         assert torch.equal(tstate.pop, tcand)  # the port keeps the last batch
         fit = np.round(_sphere(jcand)).astype(np.float32)
-        jstate = getattr(jalgo, tell)(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, tell)(jstate, jnp.asarray(fit))
         tstate = getattr(talgo, tell)(tstate, torch.from_numpy(fit))
         np.testing.assert_array_equal(tstate.best_x.numpy(), np.asarray(jstate.best_x))
         assert float(tstate.best_fitness) == float(jstate.best_fitness)
@@ -259,14 +260,14 @@ def test_migrate_folds_migrants_into_best_so_far_like_jax():
     talgo = tg.GuardedAlgorithm(PSO(lb, ub, 8, device="cpu"), stagnation_limit=50)
     jstate = jalgo.init(jax.random.PRNGKey(0))
     tstate = interop.guarded_state(talgo, _np(jstate), seed=1)
-    jcand, jstate = jalgo.init_ask(jstate)
+    jcand, jstate = jit_once(jalgo, "init_ask")(jstate)
     _, tstate = talgo.init_ask(tstate)
     _, k1, k2 = jax.random.split(jstate.inner.key, 3)
     shape = (8, DIM)
     talgo.algorithm._draw = lambda s: (_t(jax.random.uniform(k1, shape)),
                                        _t(jax.random.uniform(k2, shape)))
     fit = _sphere(jcand)
-    jstate = jalgo.init_tell(jstate, jnp.asarray(fit))
+    jstate = jit_once(jalgo, "init_tell")(jstate, jnp.asarray(fit))
     tstate = talgo.init_tell(tstate, torch.from_numpy(fit))
     for migrant, mfit, stag in ((np.zeros((1, DIM)), [0.0], 40), (np.full((1, DIM), 9.0), [405.0], 7)):
         jstate = jstate.replace(stagnation=jnp.asarray(stag, jnp.int32))

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.algorithms.mo.im_moea import IMMOEA as JaxIMMOEA
 from evox_tpu.problems.numerical import DTLZ2 as JaxDTLZ2
 from evox_tpu_torch import StdWorkflow, interop

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 import evox_tpu as jx
 from evox_tpu.algorithms.so.pso import PSO as JaxPSO
 from evox_tpu.monitors import TelemetryMonitor as JaxTelemetryMonitor
@@ -280,7 +281,7 @@ def test_report_survives_analysis_targets_failure():
     ("supervisor", "A11", {"supervisor": object()}, None),
     ("pod_supervisor", "A13", {"pod_supervisor": object()}, None),
     ("control_plane", "A13", {"control_plane": object()}, None),
-    ("tenancy", "A9", {}, ("tenancy_report", lambda s: {})),
+    ("pod_supervisor", "A13", {}, ("_pod_supervisor", object())),
     ("serving", "A13", {}, ("_exec_cache", object())),
     ("supervisor", "A11", {}, ("_run_supervisor", object())),
 ])
@@ -291,6 +292,18 @@ def test_unported_sections_raise_naming_their_item(section, item, kwargs, attr):
         setattr(wf, *attr)
     with pytest.raises(NotImplementedError, match=f"{section} .*ROADMAP {item}"):
         run_report(wf, state, **kwargs)
+
+
+def test_tenancy_section_comes_from_the_workflow():
+    """The tenancy section is ported: a workflow's ``tenancy_report`` is
+    the report's ``tenancy`` section, and a failing producer leaves an
+    error entry without sinking the report."""
+    wf = _port_wf()
+    state = wf.init(0)
+    wf.tenancy_report = lambda s: {"n_tenants": 1}
+    assert run_report(wf, state)["tenancy"] == {"n_tenants": 1}
+    wf.tenancy_report = lambda s: 1 / 0
+    assert run_report(wf, state)["tenancy"] == {"error": "ZeroDivisionError: division by zero"}
 
 
 def test_executor_section_from_a_checkpointed_run(tmp_path):

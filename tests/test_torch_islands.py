@@ -5,7 +5,7 @@ The JAX workflow runs its elites through the Pallas partial top-k in
 interpret mode (``use_topk_kernel=True, topk_interpret=True``), vmapped
 over the islands, as the port's batched ``partial_topk`` runs them. Its
 state crosses through ``interop.island_workflow_state`` (the island-stacked
-states split into the port's tuple); each island's PSO draws are rebuilt
+states, stacked in the port too); each island's PSO draws are rebuilt
 from its JAX key and routed to it by draw seed. The problem is a Sphere
 rounded to a coarse grid on both sides (ties among candidates, so the
 elites' tie law shows); PSO is elementwise float32 arithmetic on the same
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu import IslandWorkflow as JaxIslandWorkflow
 from evox_tpu.algorithms.so.de import DE as JaxDE
 from evox_tpu.algorithms.so.pso import PSO as JaxPSO
@@ -32,6 +33,7 @@ from evox_tpu_torch.algorithms.so.de import DE
 from evox_tpu_torch.algorithms.so.es import OpenES
 from evox_tpu_torch.algorithms.so.pso import PSO
 from evox_tpu_torch.core.dtype_policy import BF16_STORAGE, apply_storage
+from evox_tpu_torch.core.members import n_members, unstack_states
 from evox_tpu_torch.problems.numerical import ZDT1, Sphere
 from evox_tpu_torch.utils.common import split_seed
 from evox_tpu_torch.workflows.islands import mo_elites
@@ -59,7 +61,7 @@ class _TiedSphere(Problem):
 
 def _assert_islands(tstate, jstate, where):
     assert tstate.generation == int(jstate.generation)
-    for i, t in enumerate(tstate.algo):
+    for i, t in enumerate(unstack_states(tstate.algo)):
         for f in dataclasses.fields(t):
             if not hasattr(jstate.algo, f.name):
                 continue  # the keys: the port holds seeds
@@ -82,23 +84,23 @@ def test_migrating_generations_match_jax():
                          migrate_every=2, migrate_k=2, device="cpu")
     jstate = jwf.init(jax.random.PRNGKey(6))
     tstate = interop.island_workflow_state(twf, _np(jstate), seed=1)
-    assert len(tstate.algo) == 4 and tstate.first_step
+    assert n_members(tstate.algo) == 4 and tstate.first_step
     _assert_islands(tstate, jstate, "init")
     for gen in range(3):
         table = {}
-        for i, t in enumerate(tstate.algo):
+        for i, t in enumerate(unstack_states(tstate.algo)):
             _, k1, k2 = jax.random.split(jstate.algo.key[i], 3)
             table[split_seed(t.seed)[1]] = (_t(jax.random.uniform(k1, (8, DIM))),
                                             _t(jax.random.uniform(k2, (8, DIM))))
         twf.algorithm._draw = lambda seed: table[seed]
-        scored = tstate.algo[0].population.numpy()
+        scored = tstate.algo.population[0].numpy()
         jstate, tstate = jwf.step(jstate), twf.step(tstate)
         _assert_islands(tstate, jstate, f"generation {gen + 1}")
         if gen == 1:  # the migration moved rows: island 0's best of the
             # generation is now a personal best (and a particle) of island 1
             elite = scored[np.argsort(np.round(np.sum(scored**2, axis=1) / 4.0), kind="stable")[0]]
-            assert (tstate.algo[1].pbest_position.numpy() == elite).all(axis=1).any()
-            assert (tstate.algo[1].population.numpy() == elite).all(axis=1).any()
+            assert (tstate.algo.pbest_position[1].numpy() == elite).all(axis=1).any()
+            assert (tstate.algo.population[1].numpy() == elite).all(axis=1).any()
 
 
 def test_default_migrate_elitist_acceptance_matches_jax():
@@ -234,7 +236,7 @@ def _bits(x):
 
 def _route_pso_draws(twf, tstate, jstate, pop):
     table = {}
-    for i, t in enumerate(tstate.algo):
+    for i, t in enumerate(unstack_states(tstate.algo)):
         _, k1, k2 = jax.random.split(jstate.algo.key[i], 3)
         table[split_seed(t.seed)[1]] = (_t(jax.random.uniform(k1, (pop, DIM))),
                                         _t(jax.random.uniform(k2, (pop, DIM))))
@@ -274,14 +276,14 @@ def test_a5_arguments_match_jax(kwargs):
         _route_pso_draws(twf, tstate, jstate, 8)
         jstate, tstate = jwf.step(jstate), twf.step(tstate)
         assert tstate.generation == int(jstate.generation)
-        for i, t in enumerate(tstate.algo):
+        for i, t in enumerate(unstack_states(tstate.algo)):
             for f in dataclasses.fields(t):
                 if hasattr(jstate.algo, f.name):
                     want = _bits(np.asarray(getattr(jstate.algo, f.name))[i])
                     np.testing.assert_array_equal(_bits(getattr(t, f.name)), want,
                                                   err_msg=f"generation {gen + 1}, {f.name}")
     if bf16:
-        assert tstate.algo[0].population.dtype == torch.bfloat16
+        assert tstate.algo.population.dtype == torch.bfloat16
     else:
         assert twf.host_link.counts["d2h"] == 3  # one flattened batch a generation
 
@@ -318,8 +320,8 @@ def test_checkpointed_island_run_resumes_bit_for_bit(tmp_path):
 
 
 def _assert_same_islands(a, b):
-    assert a.generation == b.generation and len(a.algo) == len(b.algo)
-    for x, y in zip(a.algo, b.algo):
+    assert a.generation == b.generation and n_members(a.algo) == n_members(b.algo)
+    for x, y in zip(unstack_states(a.algo), unstack_states(b.algo)):
         for f in dataclasses.fields(x):
             u, v = getattr(x, f.name), getattr(y, f.name)
             if isinstance(u, torch.Tensor):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.algorithms.so.es import LES as JLES
 from evox_tpu.algorithms.so.es import les_meta as jles_meta
 from evox_tpu_torch import StdWorkflow, interop

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.algorithms.so.de import DE as JaxDE
 from evox_tpu.core.attribution import Attribution as JaxAttribution
 from evox_tpu.monitors import LineageMonitor as JaxLineageMonitor

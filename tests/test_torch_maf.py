@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.operators.crossover import simple as jsimple
 from evox_tpu.problems.numerical import maf as jmaf
 from evox_tpu_torch.kernels import dominance as tdom

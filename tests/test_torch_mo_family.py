@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 import _torch_mo_draws as draws
 from evox_tpu.algorithms.mo import LMOCSO as JaxLMOCSO
 from evox_tpu.algorithms.mo import RVEA as JaxRVEA
@@ -102,7 +103,7 @@ def _pair(jcls, tcls, **kw):
 
 def _start(jalgo, talgo, jprob, seed):
     jstate = jalgo.init(jax.random.PRNGKey(seed))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     return jstate, interop.mo_family_state(talgo, _numpy_tree(jstate))
 
 
@@ -132,14 +133,14 @@ def test_rvea_generations_from_a_jax_state_match(monkeypatch, cls):
         empty.append(int((~np.isfinite(_np(jstate.fitness)).all(axis=1)).sum()))
         d = draws.rvea(jalgo, jstate)
         monkeypatch.setattr(talgo, "_draw", lambda seed, rows, d=d: d)
-        j_off, jstate = jalgo.ask(jstate)
+        j_off, jstate = jit_once(jalgo, "ask")(jstate)
         t_off, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
         if cls == "RVEAa":
             rand = draws.rveaa_directions(jalgo, jstate.key)
             monkeypatch.setattr(talgo, "_draw_directions", lambda seed, rand=rand: rand)
-        fit = _np(jprob.evaluate(None, j_off)[0])
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         _check(tstate, jstate)
         np.testing.assert_allclose(tstate.vectors.numpy(), _np(jstate.vectors), rtol=APD_RTOL,
@@ -211,12 +212,12 @@ def test_lmocso_generations_from_a_jax_state_match(monkeypatch):
     for _ in range(4):
         d = draws.lmocso(jalgo, jstate.key)
         monkeypatch.setattr(talgo, "_draw", lambda seed, d=d: d)
-        j_off, jstate = jalgo.ask(jstate)
+        j_off, jstate = jit_once(jalgo, "ask")(jstate)
         t_off, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
         _check(tstate, jstate, exact=(), close=("velocity", "off_velocity"))
-        fit = _np(jprob.evaluate(None, j_off)[0])
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         _check(tstate, jstate, close=("population", "velocity"))
     assert tstate.gen == int(jstate.gen) == 4

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 import _torch_mo_draws as draws
 import evox_tpu.algorithms.mo as jmo
 from evox_tpu.algorithms.mo import BCEIBEA as JaxBCEIBEA
@@ -163,7 +164,7 @@ def test_ibea_select_on_nan_and_infinite_objectives_matches_jax():
 
 def _start(jalgo, talgo, jprob, seed, carry=interop.mo_state):
     jstate = jalgo.init(jax.random.PRNGKey(seed))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     return jstate, carry(talgo, _numpy_tree(jstate))
 
 
@@ -172,11 +173,11 @@ def _generation(jalgo, talgo, jprob, jstate, tstate, d):
     port, the same fitness (JAX's offspring evaluated) told to both:
     ``(jax state, port state, the fitness told)``."""
     talgo._draw = lambda *args, d=d: d
-    j_off, jstate = jalgo.ask(jstate)
+    j_off, jstate = jit_once(jalgo, "ask")(jstate)
     t_off, tstate = talgo.ask(tstate)
     np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
-    fit = _np(jprob.evaluate(None, j_off)[0])
-    return jalgo.tell(jstate, jnp.asarray(fit)), talgo.tell(tstate, _t(fit)), fit
+    fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+    return jit_once(jalgo, "tell")(jstate, jnp.asarray(fit)), talgo.tell(tstate, _t(fit)), fit
 
 
 def _check(tstate, jstate, exact=("fitness",), close=("population",)):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 import _torch_mo_draws as draws
 from evox_tpu.algorithms.mo import GDE3 as JaxGDE3
 from evox_tpu.algorithms.mo import BiGE as JaxBiGE
@@ -71,7 +72,7 @@ def test_gde3_ask_on_jax_draws_matches():
     jstate = jalgo.init(jax.random.PRNGKey(0))
     tstate = interop.mo_state(talgo, _numpy_tree(jstate))
     talgo._draw = lambda seed, d=draws.gde3(jalgo, jstate.key): d
-    j_off, _ = jalgo.ask(jstate)
+    j_off, _ = jit_once(jalgo, "ask")(jstate)
     t_off, t_after = talgo.ask(tstate)
     np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
     assert torch.equal(t_after.offspring, t_off)
@@ -102,7 +103,7 @@ def test_gde3_tell_with_inf_rows_matches_jax(case):
     jstate = jalgo.init(jax.random.PRNGKey(1)).replace(
         population=jnp.asarray(pop), fitness=jnp.asarray(parents), offspring=jnp.asarray(off))
     tstate = interop.mo_state(talgo, _numpy_tree(jstate))
-    want = jalgo.tell(jstate, jnp.asarray(trials))
+    want = jit_once(jalgo, "tell")(jstate, jnp.asarray(trials))
     got = talgo.tell(tstate, _t(trials))
     np.testing.assert_array_equal(got.population.numpy(), _np(want.population))
     np.testing.assert_array_equal(got.fitness.numpy(), _np(want.fitness))
@@ -117,7 +118,7 @@ def test_gde3_when_every_parent_dominates_its_trial():
     jalgo, talgo = _gde3_pair(24)
     jstate = jalgo.init(jax.random.PRNGKey(2)).replace(fitness=jnp.asarray(parents))
     tstate = interop.mo_state(talgo, _numpy_tree(jstate))
-    want = jalgo.tell(jstate, jnp.asarray(trials))
+    want = jit_once(jalgo, "tell")(jstate, jnp.asarray(trials))
     got = talgo.tell(tstate, _t(trials))
     np.testing.assert_array_equal(got.fitness.numpy(), _np(want.fitness))
     np.testing.assert_array_equal(got.population.numpy(), _np(want.population))
@@ -134,18 +135,18 @@ def test_gde3_generations_on_lsmop1_match():
     jalgo = JaxGDE3(jnp.asarray(lb), jnp.asarray(ub), n_objs=M, pop_size=POP)
     talgo = tmo.GDE3(lb, ub, n_objs=M, pop_size=POP, device="cpu")
     jstate = jalgo.init(jax.random.PRNGKey(3))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     infs = 0
     for gen in range(3):
         tstate = interop.mo_state(talgo, _numpy_tree(jstate), seed=gen)
         talgo._draw = lambda seed, d=draws.gde3(jalgo, jstate.key): d
-        j_off, jstate = jalgo.ask(jstate)
+        j_off, jstate = jit_once(jalgo, "ask")(jstate)
         t_off, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
-        fit = _np(jprob.evaluate(None, j_off)[0])
+        fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
         par = _np(jstate.fitness)
         infs += int((np.all(fit <= par, 1) & np.any(fit < par, 1)).sum())
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         np.testing.assert_array_equal(tstate.fitness.numpy(), _np(jstate.fitness))
         np.testing.assert_allclose(tstate.population.numpy(), _np(jstate.population),
@@ -186,17 +187,17 @@ def test_knea_generations_with_carried_r_and_t_match():
     talgo = tmo.KnEA(np.zeros(D), np.ones(D), n_objs=M, pop_size=POP, device="cpu")
     jprob = JaxDTLZ2(d=D, m=M)
     jstate = jalgo.init(jax.random.PRNGKey(7))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     tstate = interop.mo_family_state(talgo, _numpy_tree(jstate))
     np.testing.assert_array_equal(tstate.rank.numpy(), _np(jstate.rank))
     knees = 0
     for _ in range(2):
         talgo._draw = lambda seed, d=draws.tournament_ga(jalgo, jstate.key): d
-        j_off, jstate = jalgo.ask(jstate)
+        j_off, jstate = jit_once(jalgo, "ask")(jstate)
         t_off, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
-        fit = _np(jprob.evaluate(None, j_off)[0])
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         for name in ("fitness", "rank", "knee"):
             np.testing.assert_array_equal(getattr(tstate, name).numpy(), _np(getattr(jstate, name)),
@@ -235,7 +236,7 @@ def test_bige_generations_match(monkeypatch):
     talgo = tmo.BiGE(np.zeros(D), np.ones(D), n_objs=M, pop_size=POP, device="cpu")
     jprob = JaxDTLZ2(d=D, m=M)
     jstate = jalgo.init(jax.random.PRNGKey(9))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     calls = []
     plain = tdom.packed_dominance_reference
     monkeypatch.setattr(tdom, "packed_dominance_reference",
@@ -243,11 +244,11 @@ def test_bige_generations_match(monkeypatch):
     for gen in range(2):
         tstate = interop.mo_state(talgo, _numpy_tree(jstate), seed=gen)
         talgo._draw = lambda seed, d=draws.tournament_ga(jalgo, jstate.key): d
-        j_off, jstate = jalgo.ask(jstate)
+        j_off, jstate = jit_once(jalgo, "ask")(jstate)
         t_off, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
-        fit = _np(jprob.evaluate(None, j_off)[0])
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         np.testing.assert_array_equal(tstate.fitness.numpy(), _np(jstate.fitness))
         np.testing.assert_allclose(tstate.population.numpy(), _np(jstate.population),

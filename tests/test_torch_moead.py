@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 import _torch_mo_draws as draws
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.mo import EAGMOEAD as JaxEAGMOEAD
@@ -147,7 +148,7 @@ def _start(jalgo, talgo, jprob, seed):
     """JAX's state after init_tell, and the port's from it (with JAX's
     neighbour table where the algorithm has one)."""
     jstate = jalgo.init(jax.random.PRNGKey(seed))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     if hasattr(jalgo, "neighbors"):
         interop.set_neighbors(talgo, _np(jalgo.neighbors))
     return jstate, interop.mo_family_state(talgo, _numpy_tree(jstate))
@@ -158,11 +159,11 @@ def _generation(jalgo, talgo, jprob, jstate, tstate, draw):
     returns the new states after checking the offspring."""
     d = draw(jstate)
     talgo._draw = lambda *args: d
-    j_off, jstate = jalgo.ask(jstate)
+    j_off, jstate = jit_once(jalgo, "ask")(jstate)
     t_off, tstate = talgo.ask(tstate)
     np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
-    fit = _np(jprob.evaluate(None, j_off)[0])
-    return jalgo.tell(jstate, jnp.asarray(fit)), talgo.tell(tstate, _t(fit))
+    fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+    return jit_once(jalgo, "tell")(jstate, jnp.asarray(fit)), talgo.tell(tstate, _t(fit))
 
 
 def test_moead_generations_from_a_jax_state_match():
@@ -210,7 +211,7 @@ def test_moead_tell_keeps_the_cap_and_gate():
         population=jnp.asarray(pop), fitness=jnp.asarray(fit), offspring=jnp.asarray(off),
         ideal=jnp.zeros(2))
     tstate = interop.mo_family_state(talgo, _numpy_tree(jstate))
-    jnew = jalgo.tell(jstate, jnp.asarray(new))
+    jnew = jit_once(jalgo, "tell")(jstate, jnp.asarray(new))
     tnew = talgo.tell(tstate, _t(new))
     np.testing.assert_array_equal(tnew.population.numpy(), _np(jnew.population))
     np.testing.assert_array_equal(tnew.fitness.numpy(), _np(jnew.fitness))

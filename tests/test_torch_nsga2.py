@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.mo import NSGA2 as JaxNSGA2
 from evox_tpu.metrics import igd as jax_igd
@@ -374,18 +375,18 @@ def test_one_generation_from_a_jax_state_matches(monkeypatch, use_kernel):
     talgo = NSGA2(_np(lb), _np(ub), n_objs=3, pop_size=pop_size, use_kernel=use_kernel,
                   device="cpu")
     jstate = jalgo.init(jax.random.PRNGKey(4))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     tstate = interop.nsga2_state(talgo, _numpy_tree(jstate))
     np.testing.assert_array_equal(tstate.rank.numpy(), _np(jstate.rank))
 
     draws = _jax_draws(jstate.key, pop_size, d)
-    j_off, jstate = jalgo.ask(jstate)
+    j_off, jstate = jit_once(jalgo, "ask")(jstate)
     _inject(monkeypatch, draws)
     t_off, tstate = talgo.ask(tstate)
     np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
 
-    fit = _np(jprob.evaluate(None, j_off)[0])
-    jstate = jalgo.tell(jstate, jnp.asarray(fit))
+    fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+    jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
     tstate = talgo.tell(tstate, _t(fit))
     np.testing.assert_array_equal(tstate.fitness.numpy(), _np(jstate.fitness))
     np.testing.assert_array_equal(tstate.rank.numpy(), _np(jstate.rank))
@@ -404,10 +405,10 @@ def test_migrate_matches_jax():
     talgo = NSGA2(lb, ub, n_objs=2, pop_size=pop_size, device="cpu")
     jprob = JaxZDT1(n_dim=d)
     jstate = jalgo.init(jax.random.PRNGKey(6))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     tstate = interop.nsga2_state(talgo, _numpy_tree(jstate))
     migrants = np.random.default_rng(6).random((16, d)).astype(np.float32)
-    m_fit = _np(jprob.evaluate(None, jnp.asarray(migrants))[0])
+    m_fit = _np(jit_once(jprob, "evaluate")(None, jnp.asarray(migrants))[0])
     jstate = jalgo.migrate(jstate, jnp.asarray(migrants), jnp.asarray(m_fit))
     tstate = talgo.migrate(tstate, _t(migrants), _t(m_fit))
     np.testing.assert_array_equal(tstate.population.numpy(), _np(jstate.population))

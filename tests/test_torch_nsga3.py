@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 import _torch_mo_draws as draws
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.mo import NSGA3 as JaxNSGA3
@@ -215,15 +216,15 @@ def test_generations_from_a_jax_state_match(monkeypatch, cls):
     jalgo, talgo = _pair(100, cls=cls)
     jprob = JaxDTLZ1(d=D, m=M)
     jstate = jalgo.init(jax.random.PRNGKey(1))
-    jstate = jalgo.init_tell(jstate, jprob.evaluate(None, jstate.population)[0])
+    jstate = jit_once(jalgo, "init_tell")(jstate, jit_once(jprob, "evaluate")(None, jstate.population)[0])
     tstate = interop.mo_state(talgo, _numpy_tree(jstate))
     for _ in range(3):
         draws.inject_ga(monkeypatch, talgo, jstate.key)
-        j_off, jstate = jalgo.ask(jstate)
+        j_off, jstate = jit_once(jalgo, "ask")(jstate)
         t_off, tstate = talgo.ask(tstate)
         np.testing.assert_allclose(t_off.numpy(), _np(j_off), rtol=POW_RTOL, atol=POW_ATOL)
-        fit = _np(jprob.evaluate(None, j_off)[0])
-        jstate = jalgo.tell(jstate, jnp.asarray(fit))
+        fit = _np(jit_once(jprob, "evaluate")(None, j_off)[0])
+        jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
         tstate = talgo.tell(tstate, _t(fit))
         np.testing.assert_array_equal(tstate.fitness.numpy(), _np(jstate.fitness))
         np.testing.assert_allclose(tstate.population.numpy(), _np(jstate.population),

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.algorithms.so.es import OpenES as JaxOpenES
 from evox_tpu.utils.common import parse_opt_direction as jax_parse_opt_direction
 from evox_tpu.utils.common import rank_based_fitness as jax_rank_based_fitness

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.metrics.igd import masked_igd as jax_masked_igd
 from evox_tpu.monitors import StepTimerMonitor as JaxStepTimerMonitor
 from evox_tpu_torch import StdWorkflow

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_common import jit_once
 from evox_tpu.algorithms.so import pso as jpso
 from evox_tpu.algorithms.so.pso import topology as jtopo
 from evox_tpu_torch import Problem, StdWorkflow, interop
@@ -142,7 +143,7 @@ def test_pso_family_generations_match_jax(case):
             draws = jax_draws(jalgo, jstate)
             talgo._draw = lambda seed, draws=draws: draws
             draws_used += 1
-        jcand, jstate = getattr(jalgo, ask)(jstate)
+        jcand, jstate = jit_once(jalgo, ask)(jstate)
         tcand, tstate = getattr(talgo, ask)(tstate)
         np.testing.assert_allclose(tcand.numpy(), np.asarray(jcand), rtol=RTOL, atol=ATOL)
         fit = _tied_fitness(jcand)
@@ -150,7 +151,7 @@ def test_pso_family_generations_match_jax(case):
             draws = jax_draws(jalgo, jstate)
             talgo._draw = lambda seed, draws=draws: draws
             draws_used += 1
-        jstate = getattr(jalgo, tell)(jstate, jnp.asarray(fit))
+        jstate = jit_once(jalgo, tell)(jstate, jnp.asarray(fit))
         tstate = getattr(talgo, tell)(tstate, torch.from_numpy(fit))
         _assert_states(tstate, jstate)
     assert draws_used >= 3
@@ -256,7 +257,7 @@ def test_pso_migrate_matches_jax():
     jstate = jalgo.init(jax.random.PRNGKey(2))
     pop = np.asarray(jstate.population)
     fit = _tied_fitness(pop)
-    jstate = jalgo.tell(jstate, jnp.asarray(fit))
+    jstate = jit_once(jalgo, "tell")(jstate, jnp.asarray(fit))
     tstate = interop.swarm_state(talgo, _numpy_tree(jstate))
     migrants = np.arange(3 * DIM, dtype=np.float32).reshape(3, DIM) / 10
     for mfit in (np.array([0.5, 7.0, -1.0], np.float32), np.array([9e9, 9e9, 9e9], np.float32)):

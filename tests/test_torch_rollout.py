@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.kernels import rollout as jkr
 from evox_tpu.problems.neuroevolution import PolicyRolloutProblem as JaxProblem
 from evox_tpu.problems.neuroevolution import flat_mlp_policy as jax_flat_mlp_policy

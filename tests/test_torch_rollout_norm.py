@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.problems.neuroevolution import CapEpisode as JaxCapEpisode
 from evox_tpu.problems.neuroevolution import ObsNormalizer as JaxObsNormalizer
 from evox_tpu.problems.neuroevolution import PolicyRolloutProblem as JaxProblem

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.so.es import OpenES as JaxOpenES
 from evox_tpu.core.executor import GenerationExecutor as JaxExecutor

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu import SurrogateWorkflow as JaxSurrogateWorkflow
 from evox_tpu.algorithms.so.pso import PSO as JaxPSO
 from evox_tpu.monitors import TelemetryMonitor as JaxTelemetryMonitor

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.monitors import TelemetryMonitor as JaxTelemetryMonitor
 from evox_tpu_torch import StdWorkflow, SurrogateWorkflow, interop
 from evox_tpu_torch.algorithms.so.pso import PSO

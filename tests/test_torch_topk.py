@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu.kernels.topk import partial_topk as jax_partial_topk
 from evox_tpu.kernels.topk import partial_topk_reference as jax_reference
 from evox_tpu_torch.kernels import topk as tk

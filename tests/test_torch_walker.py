@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+import _torch_common  # noqa: F401  (one intra-op thread a worker process)
 from evox_tpu import StdWorkflow as JaxStdWorkflow
 from evox_tpu.algorithms.so.es import OpenES as JaxOpenES
 from evox_tpu.kernels import rollout_mlp as jkm
@@ -93,8 +94,9 @@ def test_chain_walker_matches_jax(cfg):
                                rtol=OBS_RTOL, atol=OBS_ATOL)
     act = _actions(16, jenv.act_dim, 0)
     live = np.ones(16, bool)  # after an env's done its state no longer counts
+    jstep = jax.jit(jax.vmap(jenv.step))  # one compile: eager op-by-op dominated the time
     for step in range(5):
-        jstate, jr, jd = jax.vmap(jenv.step)(jstate, jnp.asarray(act))
+        jstate, jr, jd = jstep(jstate, jnp.asarray(act))
         tstate, tr, td = tenv.step(tstate, _t(act))
         np.testing.assert_allclose(tr.numpy()[live], np.asarray(jr)[live],
                                    rtol=REWARD_RTOL, atol=REWARD_ATOL)
@@ -131,8 +133,9 @@ def test_chain_walker_planes_match_jax(cfg):
                                rtol=OBS_RTOL, atol=OBS_ATOL)
     act = _actions(16, jenv.act_dim, 1).T.copy()
     live = np.ones(16, bool)
+    jstep = jax.jit(jp.step_planes)  # one compile: eager op-by-op dominated the time
     for step in range(5):
-        jpl, jr, jd = jp.step_planes(jpl, jnp.asarray(act))
+        jpl, jr, jd = jstep(jpl, jnp.asarray(act))
         tpl, tr, td = tp.step_planes(tpl, _t(act))
         np.testing.assert_allclose(tr.numpy()[0, live], np.asarray(jr)[0, live],
                                    rtol=REWARD_RTOL, atol=REWARD_ATOL)
@@ -241,7 +244,13 @@ def _walker_planes(n, ep, max_steps, seed=0):
 
 def _jax_loop_reference(weights, biases, planes0, T, penv, sizes):
     """tests/test_kernels_mlp.py::_loop_reference: the JAX kernel's math
-    outside Pallas."""
+    outside Pallas, compiled once by ``jax.jit`` (eager op-by-op dominated
+    the time)."""
+    return jax.jit(lambda w, b, p: _jax_loop(w, b, p, T, penv, sizes))(
+        tuple(weights), tuple(biases), dict(planes0))
+
+
+def _jax_loop(weights, biases, planes0, T, penv, sizes):
     state = dict(planes0)
     done = state.pop("done") > 0.5
     total = jnp.zeros_like(done, dtype=jnp.float32)

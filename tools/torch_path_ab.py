@@ -10,7 +10,9 @@ ms: ``run_host_pipelined`` and the serialized ask, evaluate, tell loop).
 Each turn runs in a fresh process inside one checkout: it builds that
 checkout's CUDA sources, takes the init step and one warm-up generation,
 and times 20 generations, three times (host clock, the card synchronised
-on both sides); it reports each path's median ms a generation. The turns go A, B, B, A, so that a slower host between calls
+on both sides); it reports each path's median ms a generation, and for
+path 14 the kernels and the device-to-host copies a generation that
+torch.profiler counts over 8 generations. The turns go A, B, B, A, so that a slower host between calls
 shows on both checkouts alike. Run from a checkout, with both checkouts
 unpacked (``git archive``) into directories::
 
@@ -41,6 +43,27 @@ def _ms(torch, wf, state, run=None) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / GENERATIONS * 1e3)
     return statistics.median(times)
+
+
+def _profile_counts(torch, wf, state, gens: int = 8) -> tuple:
+    """(kernel launches, device-to-host copies) a generation of ``gens``
+    generations, by torch.profiler's CUDA rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wf.run(state, gens)
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if evt.key.startswith(("Memcpy", "Memset")):
+            copies += evt.count if "DtoH" in evt.key else 0
+        else:
+            kernels += evt.count
+    return kernels / gens, copies / gens
 
 
 def _host_paths(torch, chip_smoke) -> dict:
@@ -88,7 +111,10 @@ def measure(tree: Path) -> dict:
                               aggregate_op="pbi"), DTLZ2(d=chip_smoke.MOEAD_D, m=chip_smoke.MO_M))
     out["moead"] = _ms(torch, moead, moead.step(moead.step(moead.init(0))))
     islands, _ = chip_smoke.build_island_paths(torch)
-    out["islands"] = _ms(torch, islands, islands.step(islands.step(islands.init(0))))
+    warm = islands.step(islands.step(islands.init(0)))
+    out["islands"] = _ms(torch, islands, warm)
+    out["islands_kernels_per_gen"], out["islands_dtoh_per_gen"] = _profile_counts(
+        torch, islands, warm)
     out.update(_host_paths(torch, chip_smoke))
     return out
 
