@@ -308,8 +308,9 @@ exit 0):
    ``StdWorkflow(PSO(±32, pop 256, d 64), Ackley(),
    monitors=(TelemetryMonitor(capacity=30),), donate_carries=True)`` under
    ``instrument(wf, analyze=True, block_dispatch=True)``, seed 11: run 30,
-   run 30, run 300, three steps (``RunSupervisor`` waits for ROADMAP A11:
-   plain runs), the fetch of ``gbest_fitness``, ``run_report`` and
+   run 30, run 300, three steps (each run under ``RunSupervisor(
+   deadline_s=600, max_retries=2)``, as bench's leg), the fetch of
+   ``gbest_fitness``, ``run_report`` and
    ``write_chrome_trace`` (``chiprun_out/telemetry_trace.json``): both
    pass ``tools/check_report.py``, ``run``'s ``per_work_s`` is the
    differenced slope, the generation is 363, the final state equals an
@@ -354,19 +355,42 @@ exit 0):
    zeros(16), 1.0, pop_size=256), Sphere(), n_tenants=64)`` against the
    same 64 runs one after the other in turns (differenced trip counts 10
    and 60): ms a generation and their ratio, the member draws' share,
-   peak memory; tenants 0, 31 and 63 each step against the solo step
-   (rtol 1e-5, atol 1e-6), their 10-generation drift from their solo runs
-   and ``fleet_split_points`` (which CMA-ES operation rounds apart first),
-   one fleet generation on the card against the CPU. Main path 29:
-   ``RunQueue`` (4 slots, chunks of 5, a journal, 6 specs of 10 steps),
-   the report valid, an eviction resumed solo bit for bit.
-23. a ``{"kernels": [...]}`` line (B1-B4 and D1 with their call sites: B1
-   on paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and 13,
-   B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched on
-   paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE and
-   MO islands, ``packed_dominance_batched`` on the MO islands, D1 on path
-   26), then the last
-   line ``{"ok": true, "device": {...}}``.
+   peak memory, M1's seven launches a generation; tenants 0, 31 and 63
+   each step against the solo step and after 10 generations against
+   their solo runs, under ``tests/test_tenancy.py:68``'s law and bit for
+   bit, ``fleet_split_points`` (each CMA-ES operation of a
+   tenant in the fleet, in a batch of one and alone), one fleet
+   generation on the card against the CPU. Main path 29: ``RunQueue`` (4
+   slots, chunks of 5, a journal, 6 specs of 10 steps) under a
+   ``RunSupervisor``, the report valid with its ``supervisor`` section, an
+   eviction resumed solo bit for bit and equal to an uninterrupted solo
+   run bit for bit.
+23. kernel M1 (``csrc/smallmm.cu``) against ``smallmm_plain`` at paths 28's
+   and 5's shapes (``SMALLMM_SHAPES``), and a batch against each member in
+   a batch of 1, bit for bit, timed beside ``torch.bmm``; B3's rows form
+   (``packed_dominance_rows``) slab by slab against its plain version and
+   the concatenated slabs against the full B3 at path 31's n 20000 on 8
+   shards and at shapes with a remainder (``DOMINANCE_ROWS``, stress rows),
+   bit for bit, timed a slab and a generation. Main path 30: ``bench.py``'s
+   workload 7, ``ShardedES(SepCMAES(zeros(32), 1.0, pop_size=65536))`` on
+   Sphere on an 8-shard mesh of the card against ``mesh=None, n_shards=8``
+   (samples bit for bit each of 10 generations, mean, C and sigma within
+   rtol 1e-4, atol 1e-4; in turns, ms a generation). Main path 31: path 2
+   with ``mesh=`` an 8-shard mesh of the card (8 B3 rows launches and one
+   B4 a generation) against path 2, population, fitness and ranks bit for
+   bit each of 5 generations, in turns. Main path 32: path 2 under
+   ``RunSupervisor(WorkflowCheckpointer(every=10), deadline_s=3)`` with a
+   transient fault, a hang past the deadline and an out-of-memory error
+   injected: bit for bit with the clean run, the report and the trace
+   accepted by ``tools/check_report.py``. The NCCL world of one: init, an
+   ``all_reduce``, the barriers, shutdown.
+24. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
+   B1 on paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and
+   13, B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched
+   on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
+   and MO islands, ``packed_dominance_batched`` on the MO islands, D1 on
+   path 26, ``packed_dominance_rows`` on path 31, ``smallmm`` on paths 28
+   and 5), then the last line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -524,6 +548,43 @@ DOMINANCE_BATCHES = ((4, 1000, 3), (4, 2000, 3), (8, 1250, 3), (64, 512, 2), (4,
 TEN_N, TEN_POP, TEN_DIM = 64, 256, 16
 TEN_PAIR = (10, 60)
 TEN_CHECK, TEN_CHECK_GENERATIONS = (0, 31, 63), 10
+# M1 launches a CMA-ES generation: the ask's (z D) B^T; the tell's mu rows,
+# w y, w z, B z_w, the rank-mu product and |ps|'s dot product
+CMAES_M1_LAUNCHES = 7
+# M1 at CMA-ES's shapes: (name, batch, p, k, q, trans_a, trans_b): every
+# call shape of cma_es._product and _norm on path 28 (64 tenants, pop 256,
+# d 16, mu 128) and on path 5 (pop 24, d 1000, mu 12), the ask also in a
+# batch of 8; w y and w z share a shape, and p = 1 is a partial tile
+SMALLMM_SHAPES = (
+    ("path 28 ask (z D) B^T", 64, 256, 16, 16, False, True),
+    ("path 28 tell's mu rows (z D) B^T", 64, 128, 16, 16, False, True),
+    ("path 28 w y and w z", 64, 1, 128, 16, False, False),
+    ("path 28 B z_w", 64, 16, 16, 1, False, False),
+    ("path 28 rank-mu y^T diag(w) y", 64, 16, 128, 16, True, False),
+    ("path 28 |ps|'s ps . ps", 64, 1, 16, 1, False, False),
+    ("path 5 ask (z D) B^T", 1, 24, 1000, 1000, False, True),
+    ("path 5 ask, a batch of 8", 8, 24, 1000, 1000, False, True),
+    ("path 5 tell's mu rows (z D) B^T", 1, 12, 1000, 1000, False, True),
+    ("path 5 w y and w z", 1, 1, 12, 1000, False, False),
+    ("path 5 B z_w", 1, 1000, 1000, 1, False, False),
+    ("path 5 rank-mu", 1, 1000, 12, 1000, True, False),
+    ("path 5 |ps|'s ps . ps", 1, 1, 1000, 1, False, False),
+)
+# main path 30 (bench.py's workload 7): SepCMAES at pop 65536, d 32, seed 21,
+# 8 shards on one card against mesh=None, n_shards=8; the differenced pair
+LP_POP, LP_DIM, LP_SEED, LP_SHARDS = 65536, 32, 21, 8
+LP_PAIR = (2, 10)
+LP_CHECK_GENERATIONS = 10
+# main path 31: path 2 with the mesh-sharded sort; generations held bit for
+# bit against path 2, then timed a turn
+SN_CHECK_GENERATIONS, SN_GENERATIONS = 5, 10
+# main path 32: path 2 under RunSupervisor with three faults injected
+SUP_GENERATIONS, SUP_DEADLINE_S = 30, 3.0
+# B3's rows form: (n, m, shards); path 31's merged n 20000 on 8 shards, and
+# shapes whose n is not a multiple of 32 * shards
+PATH31_SHARDS = 8
+DOMINANCE_ROWS = ((20000, 3, 8), (20001, 3, 8), (1000, 3, 8), (33, 3, 8), (4100, 5, 4),
+                  (777, 2, 3))
 # main path 29, bench.py's RunQueue leg (bench.py:592-603)
 RQ_SLOTS, RQ_CHUNK, RQ_SPECS, RQ_STEPS = 4, 5, 6, 10
 # SHADE islands: the pbest cut on B4 under vmap
@@ -2383,16 +2444,25 @@ def phase_cmaes_path(torch, seed: int, profile: bool) -> dict:
     torch.cuda.synchronize()
     eigh_first_ms = (time.perf_counter() - t0) * 1e3
 
+    from evox_tpu_torch.kernels import smallmm as km
+
     reset_launches()  # every count to 0 just before the run
+    km.smallmm.launches = 0
     decomps[0] = 0
     t0 = time.perf_counter()
     state = wf.run(state, gens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()  # read just after
+    m1_launches = km.smallmm.launches
     want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0, "fused_mlp_rollout": 0}
     if launches != want:
         raise AssertionError(f"launches in {gens} CMA-ES generations: {launches}, expected {want}")
+    # M1: the ask's product and the tell's five and |ps|, every generation
+    if m1_launches != CMAES_M1_LAUNCHES * gens:
+        raise AssertionError(f"{m1_launches} M1 launches in {gens} CMA-ES generations, expected "
+                             f"{CMAES_M1_LAUNCHES * gens}")
+    launches = {**launches, "smallmm": m1_launches}
     if decomps[0] != gens // period:
         raise AssertionError(f"{decomps[0]} decompositions in {gens} generations, expected "
                              f"{gens // period}")
@@ -4407,11 +4477,12 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
     a generation of all 64 sequential runs. Beside them: the host's thread
     time a generation, the per-member draws' host share (``member_draw``),
     peak memory, and with ``profile`` the kernels and DtoH copies a
-    generation. Then tenants 0, 31 and 63: each of 10 fleet steps against
-    the solo step from the same state (``rtol 1e-5, atol 1e-6``; how many
-    are bit for bit), and the drift of the 10-generation runs from their
-    solo runs; and one fleet generation on the card against the CPU on the
-    same draws."""
+    generation, and M1's launches (seven a generation). Then tenants 0, 31
+    and 63: each of 10 fleet steps against the solo step from
+    the same state, bit for bit, and the 10-generation runs against their
+    solo runs, under tests/test_tenancy.py:68's law (rtol 1e-5, atol 1e-6)
+    and bit for bit; where a tenant could split from its solo run; and one
+    fleet generation on the card against the CPU on the same draws."""
     from evox_tpu_torch.core import members
 
     fleet, solo = build_fleet_path(torch, device=device)
@@ -4433,18 +4504,26 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
         wall = time.perf_counter() - t0
         return wall, time.thread_time() - c0, members.member_draw.seconds - d0
 
+    from evox_tpu_torch.kernels import smallmm as km
+
     turns = []
     for name in ("fleet", "sequential", "sequential", "fleet"):
         side, state = (fleet, fstate) if name == "fleet" else (seq, sstates)
         reset_launches()
+        km.smallmm.launches = 0
         lo, hi = (timed(side, state, n) for n in TEN_PAIR)
         got = read_launches()
         if any(got.values()):
             raise AssertionError(f"{name}: CMA-ES on Sphere launched a kernel: {got}")
+        # M1: seven a generation, one launch each for all tenants
+        gens = sum(TEN_PAIR) * (1 if name == "fleet" else TEN_N)
+        if km.smallmm.launches != CMAES_M1_LAUNCHES * gens:
+            raise AssertionError(f"{name}: {km.smallmm.launches} M1 launches in {gens} "
+                                 f"generations, expected {CMAES_M1_LAUNCHES * gens}")
         span = TEN_PAIR[1] - TEN_PAIR[0]
         turn = {"side": name, "ms_per_generation": (hi[0] - lo[0]) / span * 1e3,
                 "host_thread_ms_per_generation": (hi[1] - lo[1]) / span * 1e3,
-                "wall_s": lo[0] + hi[0]}
+                "wall_s": lo[0] + hi[0], "m1_launches": km.smallmm.launches}
         if name == "fleet":
             turn["member_draw_ms_per_generation"] = (hi[2] - lo[2]) / span * 1e3
             turn["member_draw_share"] = turn["member_draw_ms_per_generation"] / turn[
@@ -4472,14 +4551,12 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
             prof = profile_generations(torch, side, state, 5)
             prof["device_idle_share"] = 1.0 - prof["device_busy_us_per_gen"] / (med[name] * 1e3)
             out[f"profile_{name}"] = prof
-    # tenants against their solo runs: each of the first 10 fleet
-    # generations against the solo step of the same tenant's state (the
-    # per-step law; a batched cuBLAS product may round apart from the solo
-    # one at the last ulp, and CMA-ES's decomposition amplifies that over
-    # generations, so the 10-generation drift is reported, not gated). The
-    # eigenvectors B are unique only up to sign and a basis of each
-    # degenerate eigenspace, and the batched eigh picks its own: B is held
-    # through B diag(D^2) B^T
+    # tenants against their solo runs: each of the first 10
+    # fleet generations against the solo step of the same tenant's state,
+    # and 10 generations of a tenant against 10 of its solo run, as
+    # tests/test_tenancy.py:68 writes the law (rtol 1e-5, atol 1e-6).
+    # CMA-ES's products go through M1, whose summation order does not
+    # depend on the batch count, so both are held bit for bit
     fresh = fleet.init(seeds)
     steps = {str(i): [] for i in TEN_CHECK}
     for _ in range(TEN_CHECK_GENERATIONS):
@@ -4487,30 +4564,21 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
         for i in TEN_CHECK:
             got = fleet.extract_tenant(nxt, i)
             want = solo.step(fleet.extract_tenant(fresh, i).replace(first_step=fresh.first_step))
-            step = _leaves_close(torch, f"fleet tenant {i}'s step against its solo step",
-                                 got.algo, want.algo, skip=(".B",))
-            recon = [(a.B * a.D ** 2) @ a.B.T for a in (got.algo, want.algo)]
-            step["BD2Bt"] = compare(f"fleet tenant {i}'s step, B diag(D^2) B^T", recon[0].cpu(),
-                                    recon[1].cpu(), 1e-5, 1e-6)["max_abs_err"]
-            steps[str(i)].append(step)
+            steps[str(i)].append(_states_exact(
+                torch, f"fleet tenant {i}'s step against its solo step", got.algo, want.algo))
         fresh = nxt
     out["tenants_vs_solo_steps"] = {
-        i: {"steps": len(v), "bit_for_bit_steps": sum(s["bit_for_bit"] == s["leaves"] for s in v),
-            "max_abs_err": max(s["max_abs_err"] for s in v)} for i, v in steps.items()}
-    # the acceptance law as tests/test_tenancy.py:68 writes it, 10
-    # generations of a tenant against 10 of its solo run: reported (each
-    # field's largest difference over atol + rtol |solo|, above 1 where the
-    # law fails), and where the two first round apart
-    out["tenants_drift_after_10"] = {}
+        i: {"steps": len(v), "bit_for_bit_steps": sum(s["mismatches"] == 0 for s in v)}
+        for i, v in steps.items()}
+    out["tenants_after_10"] = {}
     for i in TEN_CHECK:
         want = solo.run(solo.init(seeds[i]), TEN_CHECK_GENERATIONS).algo
         got = fleet.extract_tenant(fresh, i).algo
-        drift = {}
-        for f in ("mean", "sigma", "C"):
-            x, y = getattr(got, f).double(), getattr(want, f).double()
-            drift[f] = float((x - y).abs().max())
-            drift[f + "_over_tolerance"] = float(((x - y).abs() / (1e-6 + 1e-5 * y.abs())).max())
-        out["tenants_drift_after_10"][str(i)] = drift
+        law = _leaves_close(torch, f"fleet tenant {i} after {TEN_CHECK_GENERATIONS} generations "
+                            "against its solo run", got, want)
+        exact = _states_exact(torch, f"fleet tenant {i} after {TEN_CHECK_GENERATIONS} "
+                              "generations against its solo run, bit for bit", got, want)
+        out["tenants_after_10"][str(i)] = {"law": law, "bit_for_bit": exact}
     out["where_they_split"] = fleet_split_points(torch, fleet, fresh)
     out["card_vs_cpu"] = phase_fleet_card_vs_cpu(torch, fleet, fresh)
     print(f"[fleet path] {json.dumps({k: v for k, v in out.items() if k != 'turns'})}",
@@ -4518,56 +4586,77 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
     return out
 
 
+def _states_exact(torch, name: str, got, want) -> dict:
+    """Every tensor leaf of two states equal bit for bit (floats as their
+    int32 bits); on a mismatch the error names the leaves that differ."""
+    from evox_tpu_torch.core.struct import named_leaves
+
+    bad, elements = [], 0
+    for (path, x), (_, y) in zip(named_leaves(got), named_leaves(want)):
+        if not isinstance(x, torch.Tensor):
+            continue
+        x, y = x.cpu(), y.cpu()
+        elements += x.numel()
+        xi = x.view(torch.int32) if x.dtype == torch.float32 else x
+        yi = y.view(torch.int32) if y.dtype == torch.float32 else y
+        n = int((xi != yi).sum())
+        if n:
+            bad.append({"leaf": path, "mismatches": n,
+                        "max_abs_err": float((x.double() - y.double()).abs().max())})
+    stats = {"elements": elements, "mismatches": sum(b["mismatches"] for b in bad), "leaves": bad}
+    print(f"[compare] {name}: {json.dumps(stats)}", flush=True)
+    if bad:
+        raise AssertionError(f"{name}: not bit for bit: {bad}")
+    return stats
+
+
 def fleet_split_points(torch, fleet, state) -> dict:
-    """Where a fleet tenant's numbers leave its solo run's: each product of
-    CMA-ES's ask and tell, the norm of ``ps`` and the eigendecomposition,
-    on every tenant's own inputs from ``state`` (its B, D, C, ps and z, the
-    first mu rows of z standing for the sorted ones; each operation fed the
-    solo results of the one before it), run three ways: under
-    ``torch.func.vmap`` over all tenants (the fleet's call), under ``vmap``
-    over a batch of that one tenant, and on the tenant alone (the solo
-    call). For each operation: how many tenants' fleet and batch-of-one
-    results equal the solo result bit for bit, and the largest differences.
-    A batch of one that equals the solo call where the whole fleet does not
-    puts the split in the batch count (the library's choice of kernel by
-    shape), not in vmap's route."""
-    from evox_tpu_torch.algorithms.so.es.common import full_f32_matmul
+    """Where a fleet tenant's numbers could leave its solo run's: each
+    product of CMA-ES's ask and tell as the port computes it
+    (``cma_es._product``: M1 on the card), the norm of ``ps`` (M1's dot
+    product) and the eigendecomposition, on every tenant's own inputs from ``state`` (its B,
+    D, C, ps and z, the first mu rows of z standing for the sorted ones;
+    each operation fed the solo results of the one before it), run three
+    ways: under ``torch.func.vmap`` over all tenants (the fleet's call),
+    under ``vmap`` over a batch of that one tenant, and on the tenant alone
+    (the solo call). For each operation: how many tenants' fleet and
+    batch-of-one results equal the solo result bit for bit, and the largest
+    differences."""
+    from evox_tpu_torch.algorithms.so.es.cma_es import _norm, _product
 
     algo, s = fleet.algorithm, state.tenants.algo
     w, mu, n = algo.weights, algo.mu, s.z.shape[0]
     eigh = lambda C: torch.linalg.eigh((C + C.transpose(-1, -2)) / 2.0)
     steps = (
-        ("ask: (z D) B^T", lambda zd, B: torch.einsum("pd,ed->pe", zd, B), ("zD", "B")),
-        ("tell: y = (z D) B^T, mu rows", lambda zd, B: torch.einsum("md,ed->me", zd[:mu], B),
+        ("ask: (z D) B^T", lambda zd, B: _product("pd,ed->pe", zd, B), ("zD", "B")),
+        ("tell: y = (z D) B^T, mu rows", lambda zd, B: _product("md,ed->me", zd[:mu], B),
          ("zD", "B")),
-        ("tell: y_w = w y", lambda y: torch.einsum("m,md->d", w, y), ("y",)),
-        ("tell: z_w = w z", lambda z: torch.einsum("m,md->d", w, z[:mu]), ("z",)),
-        ("tell: B z_w", lambda B, zw: torch.einsum("de,e->d", B, zw), ("B", "z_w")),
-        ("tell: rank-mu y^T diag(w) y", lambda y: torch.einsum("md,me->de", y * w[:, None], y),
+        ("tell: y_w = w y", lambda y: _product("m,md->d", w, y), ("y",)),
+        ("tell: z_w = w z", lambda z: _product("m,md->d", w, z[:mu]), ("z",)),
+        ("tell: B z_w", lambda B, zw: _product("de,e->d", B, zw), ("B", "z_w")),
+        ("tell: rank-mu y^T diag(w) y", lambda y: _product("md,me->de", y * w[:, None], y),
          ("y",)),
-        ("tell: |ps|", lambda ps: torch.linalg.vector_norm(ps), ("ps",)),
+        ("tell: |ps|", lambda ps: _norm(ps), ("ps",)),
         ("eigh: eigenvalues", lambda C: eigh(C)[0], ("C",)),
-        ("eigh: B diag(eigenvalues) B^T", lambda C: (lambda e: (e[1] * e[0]) @ e[1].T)(eigh(C)),
-         ("C",)),
+        ("eigh: eigenvectors", lambda C: eigh(C)[1], ("C",)),
     )
     inputs = {"zD": s.z * s.D[:, None, :], "B": s.B, "z": s.z, "ps": s.ps, "C": s.C}
     keep = {"tell: y = (z D) B^T, mu rows": "y", "tell: z_w = w z": "z_w"}
     out = {}
-    with full_f32_matmul():
-        for name, fn, args in steps:
-            xs = [inputs[a] for a in args]
-            batched = torch.func.vmap(fn)(*xs)
-            solo = torch.stack([fn(*(x[i] for x in xs)) for i in range(n)])
-            one = torch.stack([torch.func.vmap(fn)(*(x[i:i + 1] for x in xs))[0] for i in range(n)])
-            if name in keep:
-                inputs[keep[name]] = solo
-            out[name] = {
-                "fleet_equal_solo": sum(torch.equal(batched[i], solo[i]) for i in range(n)),
-                "batch_of_one_equal_solo": sum(torch.equal(one[i], solo[i]) for i in range(n)),
-                "fleet_equal_batch_of_one": sum(torch.equal(batched[i], one[i]) for i in range(n)),
-                "fleet_max_abs_err": float((batched - solo).abs().max()),
-                "batch_of_one_max_abs_err": float((one - solo).abs().max()),
-                "tenants": n}
+    for name, fn, args in steps:
+        xs = [inputs[a] for a in args]
+        batched = torch.func.vmap(fn)(*xs)
+        solo = torch.stack([fn(*(x[i] for x in xs)) for i in range(n)])
+        one = torch.stack([torch.func.vmap(fn)(*(x[i:i + 1] for x in xs))[0] for i in range(n)])
+        if name in keep:
+            inputs[keep[name]] = solo
+        out[name] = {
+            "fleet_equal_solo": sum(torch.equal(batched[i], solo[i]) for i in range(n)),
+            "batch_of_one_equal_solo": sum(torch.equal(one[i], solo[i]) for i in range(n)),
+            "fleet_equal_batch_of_one": sum(torch.equal(batched[i], one[i]) for i in range(n)),
+            "fleet_max_abs_err": float((batched - solo).abs().max()),
+            "batch_of_one_max_abs_err": float((one - solo).abs().max()),
+            "tenants": n}
     return out
 
 
@@ -4595,22 +4684,29 @@ def phase_fleet_card_vs_cpu(torch, fleet, state) -> dict:
 
 def phase_runqueue_path(torch, device=None) -> dict:
     """Main path 29, bench.py's RunQueue leg: a 4-slot CMA-ES fleet (path
-    28's algorithm), ``RunQueue(chunk=5, journal=<temp dir>)``, 6 specs of
+    28's algorithm), ``RunQueue(chunk=5, journal=<temp dir>, supervisor=
+    RunSupervisor(WorkflowCheckpointer(every=5), deadline_s=3))`` (every
+    chunk dispatched under the supervisor; the report's ``supervisor``
+    section with its dispatches), 6 specs of
     10 steps each run to completion (every result completed at 10
     generations, the journal's chunk barriers and the fleet snapshots
     written); ``run_report``'s tenancy section passes
     ``tools/check_report.py``. Then one eviction after the first chunk: the
     evicted tenant's checkpoint, resumed by a solo ``StdWorkflow`` to its
     budget, equals the solo continuation of the extracted state bit for
-    bit; its drift from an uninterrupted solo run is reported."""
+    bit, and an uninterrupted solo run bit for bit."""
     import tempfile
 
     from evox_tpu_torch import RunQueue, TenantSpec, run_report
 
+    from evox_tpu_torch.workflows.checkpoint import WorkflowCheckpointer
+    from evox_tpu_torch.workflows.supervisor import RunSupervisor
+
     out = {"slots": RQ_SLOTS, "chunk": RQ_CHUNK, "specs": RQ_SPECS, "steps": RQ_STEPS}
-    with tempfile.TemporaryDirectory() as td:
+    with tempfile.TemporaryDirectory() as td, tempfile.TemporaryDirectory() as sd:
         fleet, _ = build_fleet_path(torch, n=RQ_SLOTS, device=device)
-        q = RunQueue(fleet, chunk=RQ_CHUNK, journal=td)
+        sup = RunSupervisor(WorkflowCheckpointer(sd, every=RQ_CHUNK), deadline_s=SUP_DEADLINE_S)
+        q = RunQueue(fleet, chunk=RQ_CHUNK, journal=td, supervisor=sup)
         for i in range(RQ_SPECS):
             q.submit(TenantSpec(seed=i, n_steps=RQ_STEPS, tag=f"bench{i}"))
         reset_launches()
@@ -4625,6 +4721,10 @@ def phase_runqueue_path(torch, device=None) -> dict:
             raise AssertionError(f"RunQueue results {done}, expected {want}")
         report = run_report(fleet, q.state)
         validate(report=report, label="RunQueue tenancy report")
+        if report["supervisor"]["counters"]["dispatches"] < q.counters["chunks"]:
+            raise AssertionError(f"RunQueue: the supervisor dispatched "
+                                 f"{report['supervisor']['counters']}, chunks {q.counters}")
+        out["supervisor"] = {k: report["supervisor"][k] for k in ("counters", "outcome")}
         out["counters"] = report["tenancy"]["queue"]["counters"]
         out["journal_events"] = report["tenancy"]["queue"]["journal"]["events"]
     with tempfile.TemporaryDirectory() as td:
@@ -4643,14 +4743,13 @@ def phase_runqueue_path(torch, device=None) -> dict:
                               "state's solo continuation", _tensors(torch, resumed.algo),
                               _tensors(torch, continued.algo))
         straight = solo.run(solo.init(0), RQ_STEPS).algo
+        # a run that never entered the fleet: M1's products round as the
+        # fleet's, so the evicted tenant equals it bit for bit
+        uninterrupted = compare_exact("evicted tenant resumed solo against its uninterrupted "
+                                      "solo run", _tensors(torch, resumed.algo),
+                                      _tensors(torch, straight))
         out["eviction"] = {"generation": entry["generations"], "resume_bit_for_bit": check,
-                           # the drift from a run that never entered the fleet
-                           # (a batched product's last ulps, amplified by the
-                           # decompositions): reported, the per-step law is
-                           # path 28's
-                           "drift_from_uninterrupted_solo": {
-                               f: float((getattr(resumed.algo, f) - getattr(straight, f)).abs().max())
-                               for f in ("mean", "sigma", "C")}}
+                           "uninterrupted_bit_for_bit": uninterrupted}
     print(f"[runqueue path] {json.dumps(out)}", flush=True)
     return out
 
@@ -5646,12 +5745,18 @@ def build_telemetry_path(torch, device=None):
 
 
 def telemetry_sequence(wf, seed: int):
-    """``bench.py``'s sequence: init, run 30, run 30, run 300, three steps.
-    Its ``RunSupervisor(deadline_s=600, max_retries=2)`` waits for ROADMAP
-    A11, so its supervised runs are plain ``run`` calls here."""
-    state = wf.init(seed)
+    """``bench.py``'s sequence: init, then :func:`telemetry_runs`."""
+    return telemetry_runs(wf, wf.init(seed))
+
+
+def telemetry_runs(wf, state):
+    """The sequence after init: run 30, run 30, run 300 (each under its
+    ``RunSupervisor(deadline_s=600, max_retries=2)``), three steps."""
+    from evox_tpu_torch.workflows.supervisor import RunSupervisor
+
+    sup = RunSupervisor(deadline_s=600.0, max_retries=2)
     for n in (TEL_GENS, TEL_GENS, 10 * TEL_GENS):
-        state = wf.run(state, n)
+        state = sup.run(wf, state, n)
     for _ in range(3):
         state = wf.step(state)
     return state
@@ -5666,8 +5771,11 @@ def phase_telemetry_path(torch, seed: int = TEL_SEED, device=None, out_dir=None)
     the final state (also after the report's analysis run) equals an
     uninstrumented run's of the same seed and sequence bit for bit. Then
     ms a generation with the recorder and without it, in turns (recorder,
-    plain, plain, recorder; the 363 generations after ``init``) after an
-    untimed plain sequence. The report's first analysis pays PyTorch's
+    plain, plain, recorder; the 363 generations after ``init``, the runs
+    supervised, so the span holds each run's watchdog thread) after an
+    untimed plain sequence; the report's
+    ``supervisor`` section (3 dispatches, clean). The report's first
+    analysis pays PyTorch's
     lazy imports behind its first ``TorchDispatchMode`` (seconds, once a
     process); ``report_s`` includes them."""
     from evox_tpu_torch.core.instrument import instrument, run_report, write_chrome_trace
@@ -5678,10 +5786,7 @@ def phase_telemetry_path(torch, seed: int = TEL_SEED, device=None, out_dir=None)
         state = wf.init(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for n in (TEL_GENS, TEL_GENS, 10 * TEL_GENS):
-            state = wf.run(state, n)
-        for _ in range(3):
-            state = wf.step(state)
+        state = telemetry_runs(wf, state)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / TEL_GENERATION, wf, rec, state
 
@@ -5707,6 +5812,9 @@ def phase_telemetry_path(torch, seed: int = TEL_SEED, device=None, out_dir=None)
     trace = write_chrome_trace(str(out_dir / "telemetry_trace.json"), recorder=rec,
                                workflow=wf, state=state)
     validate(report, trace, "path 21 (run telemetry)")
+    if report["supervisor"]["counters"]["dispatches"] != 3 or \
+            report["supervisor"]["outcome"] != "clean":
+        raise AssertionError(f"path 21's supervisor section: {report['supervisor']}")
     if report["generation"] != TEL_GENERATION:
         raise AssertionError(f"report generation {report['generation']} != {TEL_GENERATION}")
     if report["telemetry"][0]["generations"] != TEL_GENERATION:
@@ -6527,6 +6635,429 @@ def phase_lineage_path(torch, seed: int = SEED, gens: int = GENERATIONS, device=
     return out
 
 
+# ------------------------------------------------- M1 and B3's rows form
+
+
+def smallmm_work(b: int, p: int, k: int, q: int) -> tuple:
+    """(bytes, operations) of ``b`` products (p, k)(k, q):
+    ``kernels/smallmm.py``'s count, the one the cost analysis charges."""
+    from evox_tpu_torch.kernels.smallmm import smallmm_work as work
+
+    return work(b, p, k, q)
+
+
+def _smallmm_operands(torch, b, p, k, q, trans_a, trans_b, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn((b,) + ((k, p) if trans_a else (p, k)), generator=g)
+    bb = torch.randn((b,) + ((q, k) if trans_b else (k, q)), generator=g)
+    return a.cuda(), bb.cuda()
+
+
+def phase_smallmm_kernel(torch) -> dict:
+    """Kernel M1 (``csrc/smallmm.cu``) at CMA-ES's shapes on paths 28 and 5
+    (``SMALLMM_SHAPES``): against ``smallmm_plain`` on the same card
+    tensors, bit for bit; a batch against each of its members launched as a
+    batch of 1, bit for bit (the batch-count law M1 exists for); timed by
+    CUDA events (3 warm-up runs, mean of 20) beside the plain version and
+    ``torch.bmm`` on the same operands (the library column), with its bound
+    from ``smallmm_work``."""
+    from evox_tpu_torch.kernels import smallmm as km
+
+    out = {"shapes": []}
+    for name, b, p, k, q, ta, tb in SMALLMM_SHAPES:
+        a, bb = _smallmm_operands(torch, b, p, k, q, ta, tb, 1000 + p + k + q)
+        before = km.smallmm.launches
+        got = km.smallmm(a, bb, ta, tb, device=a.device)
+        if km.smallmm.launches - before != 1:
+            raise AssertionError(f"M1 {name}: {km.smallmm.launches - before} launches")
+        check = compare_exact(f"M1 {name} against its plain version", (got,),
+                              (km.smallmm_plain(a, bb, ta, tb),))
+        singles = torch.stack([km.smallmm(a[i:i + 1], bb[i:i + 1], ta, tb, device=a.device)[0]
+                               for i in range(b)])
+        compare_exact(f"M1 {name}: a batch of {b} against each member in a batch of 1", (got,),
+                      (singles,))
+        A = a.transpose(-1, -2) if ta else a
+        B = bb.transpose(-1, -2) if tb else bb
+        entry = {"name": name, "b": b, "p": p, "k": k, "q": q, "trans_a": ta, "trans_b": tb,
+                 "max_abs_err": check["max_abs_err"],
+                 "ms": _time_ms(lambda: km.smallmm(a, bb, ta, tb, device=a.device), 3, 20),
+                 "plain_ms": _time_ms(lambda: km.smallmm_plain(a, bb, ta, tb), 1,
+                                      3 if k > 100 else 20),
+                 "library_ms": _time_ms(lambda: torch.bmm(A, B), 3, 20)}
+        nbytes, ops = smallmm_work(b, p, k, q)
+        entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops)
+        out["shapes"].append(entry)
+        print(f"[smallmm] {json.dumps(entry)}", flush=True)
+    return out
+
+
+def dominance_rows_work(r: int, n: int, m: int) -> tuple:
+    """(bytes, operations) of a slab of ``r`` rows against ``n`` columns:
+    ``kernels/dominance.py``'s count."""
+    from evox_tpu_torch.kernels.dominance import dominance_rows_work as work
+
+    return work(r, n, m)
+
+
+def phase_dominance_rows(torch) -> dict:
+    """B3's rows form: at each (n, m, shards) of ``DOMINANCE_ROWS`` (path
+    31's n 20000 with 8 shards of 2528 padded rows, and shapes whose n
+    leaves a remainder of ``32 * shards``), every shard's slab of phase 2's
+    stress rows (ties, NaN, ±0.0, ±inf), ``+inf``-padded, launched once:
+    each slab bit for bit against ``packed_dominance_rows_reference``, the
+    concatenated slabs against the full B3 (its words, then zero words)
+    and the summed partial counts against its counts, bit for bit. Timed
+    at path 31's shape: one slab, the 8 slabs of a generation, the plain
+    version of a slab, and the full B3 as the unsharded twin."""
+    from evox_tpu_torch.kernels import dominance as kd
+
+    out = {"shapes": []}
+    for n, m, shards in DOMINANCE_ROWS:
+        fit = stress_fitness(torch, n, m, 7000 + n + shards, "cpu").cuda()
+        n_words = -(-n // 32)
+        words_per = -(-n_words // shards)
+        rows = torch.cat([fit, torch.full((words_per * shards * 32 - n, m), float("inf"),
+                                          device=fit.device)])
+        slab_rows = [rows[s * words_per * 32:(s + 1) * words_per * 32] for s in range(shards)]
+        before = kd.packed_dominance_rows.launches
+        slabs = [kd.packed_dominance_rows(r, fit, device=fit.device) for r in slab_rows]
+        launches = kd.packed_dominance_rows.launches - before
+        if launches != shards:
+            raise AssertionError(f"B3 rows ({n}, {m}, {shards}): {launches} launches")
+        worst = 0.0
+        for s, (r, got) in enumerate(zip(slab_rows, slabs)):
+            worst = max(worst, compare_exact(
+                f"B3 rows slab {s} of {shards} (n {n}, m {m}) against its plain version", got,
+                kd.packed_dominance_rows_reference(r, fit))["max_abs_err"])
+        full_p, full_c = kd.packed_dominance(fit, device=fit.device)
+        words = torch.cat([p for p, _ in slabs])
+        compare_exact(f"B3 rows, {shards} slabs concatenated (n {n}, m {m}) against the full B3",
+                      (words[:n_words], words[n_words:], sum(c for _, c in slabs)),
+                      (full_p, torch.zeros_like(words[n_words:]), full_c))
+        entry = {"n": n, "m": m, "shards": shards, "slab_rows": words_per * 32,
+                 "launches": launches, "max_abs_err": worst}
+        if (n, m, shards) == (2 * NSGA2_POP, LSMOP_M, PATH31_SHARDS):
+            r0 = slab_rows[0]
+            entry.update({
+                "ms": _time_ms(lambda: kd.packed_dominance_rows(r0, fit, device=fit.device), 3, 20),
+                "generation_ms": _time_ms(lambda: [kd.packed_dominance_rows(r, fit, device=fit.device)
+                                                   for r in slab_rows], 3, 20),
+                "plain_ms": _time_ms(lambda: kd.packed_dominance_rows_reference(r0, fit), 1, 3),
+                "full_b3_ms": _time_ms(lambda: kd.packed_dominance(fit, device=fit.device), 3, 20)})
+            nbytes, ops = dominance_rows_work(words_per * 32, n, m)
+            entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops)
+            gen = [dominance_rows_work(words_per * 32, n, m)] * shards
+            entry["generation_bound_ms"], _ = bound_ms(sum(b for b, _ in gen), sum(o for _, o in gen))
+        out["shapes"].append(entry)
+        print(f"[dominance rows] {json.dumps(entry)}", flush=True)
+    out["main"] = next(e for e in out["shapes"] if "ms" in e)
+    return out
+
+
+# ----------------------------------------------------------- paths 30-32
+
+
+def build_sharded_es_path(torch, mesh, n_shards: int, pop: int = LP_POP, dim: int = LP_DIM,
+                          device=None):
+    """Main path 30 as ``bench.py:764-903`` builds workload 7:
+    ``StdWorkflow(ShardedES(SepCMAES(zeros(32), 1.0, pop_size=65536),
+    mesh=mesh, n_shards=n_shards), Sphere())``."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import SepCMAES
+    from evox_tpu_torch.core.distributed import ShardedES
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    algo = ShardedES(SepCMAES(torch.zeros(dim), 1.0, pop_size=pop, device=device), mesh=mesh,
+                     n_shards=n_shards)
+    return StdWorkflow(algo, Sphere(), device=device)
+
+
+def phase_sharded_es(torch, seed: int = LP_SEED, device=None) -> dict:
+    """Main path 30, ``bench.py``'s workload 7: ``ShardedES(SepCMAES)`` at
+    pop 65536, d 32 on Sphere, on an 8-shard mesh of the one card
+    (per-shard draws, rank-weighted partial moments summed in mesh order)
+    against its replicated twin ``mesh=None, n_shards=8`` (the same draws,
+    the sorted-selection tell). From the same seed, 10 generations of each:
+    the samples ``z`` bit for bit every generation, and mean, C and sigma
+    within rtol 1e-4, atol 1e-4 (``tests/test_large_pop.py:154-168``'s
+    sharded-against-replicated tolerance) after 10. Then in turns (sharded,
+    replicated, replicated, sharded) bench's differenced pair ``LP_PAIR`` =
+    (2, 10): ms a generation of each, with every launch counter at 0 before
+    and read after (no kernel on this path)."""
+    from evox_tpu_torch.core.distributed import create_mesh
+    from evox_tpu_torch.kernels import smallmm as km
+
+    dev = torch.device("cuda" if device is None else device)
+    mesh = create_mesh(devices=[torch.device(dev.type, 0) if dev.type == "cuda" else dev]
+                       * LP_SHARDS)
+    sharded = build_sharded_es_path(torch, mesh, LP_SHARDS, device=device)
+    replicated = build_sharded_es_path(torch, None, LP_SHARDS, device=device)
+    a, b = sharded.init(seed), replicated.init(seed)
+    for _ in range(LP_CHECK_GENERATIONS):
+        a, b = sharded.step(a), replicated.step(b)
+        compare_exact("path 30: the sharded generation's samples against the replicated ones",
+                      (a.algo.z,), (b.algo.z,))
+    out = {"pop": LP_POP, "dim": LP_DIM, "shards": LP_SHARDS, "pair": list(LP_PAIR),
+           "after_10": {f: compare(f"path 30: {f} after {LP_CHECK_GENERATIONS} generations, "
+                                   "sharded against replicated",
+                                   getattr(a.algo, f).reshape(-1).cpu(),
+                                   getattr(b.algo, f).reshape(-1).cpu(), 1e-4, 1e-4)["max_abs_err"]
+                        for f in ("mean", "C", "sigma")}}
+    if not (bool(torch.isfinite(a.algo.mean).all()) and float(a.algo.sigma) > 0):
+        raise AssertionError("path 30: the sharded state is not finite")
+    states = {"sharded": (sharded, a), "replicated": (replicated, b)}
+    turns = []
+    for name in ("sharded", "replicated", "replicated", "sharded"):
+        wf, state = states[name]
+        reset_launches()
+        km.smallmm.launches = 0
+        walls = []
+        for n in LP_PAIR:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wf.run(state, n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        got = {**read_launches(), "smallmm": km.smallmm.launches}
+        if any(got.values()):
+            raise AssertionError(f"path 30 ({name}) launched a kernel: {got}")
+        turn = {"side": name,
+                "ms_per_generation": (walls[1] - walls[0]) / (LP_PAIR[1] - LP_PAIR[0]) * 1e3}
+        turns.append(turn)
+        print(f"[sharded es] {json.dumps(turn)}", flush=True)
+    out["turns"] = turns
+    for side in ("sharded", "replicated"):
+        out[f"{side}_ms_per_generation"] = statistics.median(
+            t["ms_per_generation"] for t in turns if t["side"] == side)
+    print(f"[sharded es] {json.dumps({k: v for k, v in out.items() if k != 'turns'})}", flush=True)
+    return out
+
+
+def build_sharded_nsga2_path(torch, mesh, pop: int = NSGA2_POP, device=None):
+    """Main path 31: path 2's NSGA-II on LSMOP1 (pop 10000, d 300, m 3,
+    ``use_kernel=True``) with ``mesh=``."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.problems.numerical import LSMOP1
+
+    prob = LSMOP1(d=LSMOP_D, m=LSMOP_M, device=device)
+    algo = NSGA2(*prob.bounds(), n_objs=LSMOP_M, pop_size=pop, use_kernel=True, mesh=mesh,
+                 device=device)
+    return StdWorkflow(algo, prob, device=device)
+
+
+def phase_sharded_nsga2(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 31: path 2 with the mesh-sharded sort on an 8-shard mesh
+    of the one card (each tell's sort of 20000 merged rows: one B3 rows
+    launch a shard, 2528 padded rows against n 20000, the peel's delta the
+    sum of the shards' popcounts; B4 the last-front cut) against the
+    unsharded path 2 (one B3 launch). From the same seed, every generation
+    of ``SN_CHECK_GENERATIONS``: population, fitness and ranks bit for bit
+    (the ranks and the survivor sets the same). Then in turns (sharded,
+    unsharded, unsharded, sharded), ``SN_GENERATIONS`` generations each, ms
+    a generation, with every counter at 0 just before and read just after:
+    8 rows launches and one B4 launch a sharded generation, one B3 and one
+    B4 an unsharded one."""
+    from evox_tpu_torch.core.distributed import create_mesh
+    from evox_tpu_torch.kernels import dominance as kd
+
+    dev = torch.device("cuda" if device is None else device)
+    mesh = create_mesh(devices=[torch.device(dev.type, 0) if dev.type == "cuda" else dev]
+                       * PATH31_SHARDS)
+    sharded = build_sharded_nsga2_path(torch, mesh, device=device)
+    plain = build_sharded_nsga2_path(torch, None, device=device)
+    a, b = sharded.init(seed), plain.init(seed)
+    for g in range(SN_CHECK_GENERATIONS):
+        a, b = sharded.step(a), plain.step(b)
+        compare_exact(f"path 31 generation {g}: population, fitness and ranks, sharded against "
+                      "unsharded", (a.algo.population, a.algo.fitness, a.algo.rank),
+                      (b.algo.population, b.algo.fitness, b.algo.rank))
+    states = {"sharded": (sharded, a), "unsharded": (plain, b)}
+    turns = []
+    for name in ("sharded", "unsharded", "unsharded", "sharded"):
+        wf, state = states[name]
+        reset_launches()
+        kd.packed_dominance_rows.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = wf.run(state, SN_GENERATIONS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {**read_launches(), "packed_dominance_rows": kd.packed_dominance_rows.launches}
+        want = {"fused_rollout": 0, "fused_mlp_rollout": 0, "partial_topk": SN_GENERATIONS,
+                "packed_dominance": 0 if name == "sharded" else SN_GENERATIONS,
+                "packed_dominance_rows": PATH31_SHARDS * SN_GENERATIONS if name == "sharded" else 0}
+        if got != want:
+            raise AssertionError(f"path 31 ({name}): launches {got}, expected {want}")
+        if not bool(torch.isfinite(end.algo.fitness).all()):
+            raise AssertionError(f"path 31 ({name}): non-finite fitness")
+        turn = {"side": name, "ms_per_generation": wall / SN_GENERATIONS * 1e3, "launches": got}
+        turns.append(turn)
+        print(f"[sharded nsga2] {json.dumps(turn)}", flush=True)
+    out = {"pop": NSGA2_POP, "shards": PATH31_SHARDS, "generations": SN_GENERATIONS,
+           "checked_generations": SN_CHECK_GENERATIONS, "turns": turns,
+           "launches": next(t["launches"] for t in turns if t["side"] == "sharded")}
+    for side in ("sharded", "unsharded"):
+        out[f"{side}_ms_per_generation"] = statistics.median(
+            t["ms_per_generation"] for t in turns if t["side"] == side)
+    return out
+
+
+class _Faults:
+    """A workflow's ``run`` with faults on chosen calls (1-based): a
+    transient error as NCCL reports a lost peer, a hang past the
+    supervisor's deadline (the call sleeps, then returns its input), and
+    PyTorch's out-of-memory error. Other calls run."""
+
+    def __init__(self, wf, faults: dict, hang_s: float):
+        self.run = wf.run
+        self.faults = dict(faults)
+        self.hang_s = hang_s
+        self.calls = 0
+
+    def __call__(self, state, n, *args, **kwargs):
+        import torch
+
+        self.calls += 1
+        kind = self.faults.get(self.calls)
+        if kind == "transient":
+            raise RuntimeError("NCCL error in: ProcessGroupNCCL.cpp, remote process exited or "
+                               "there was a network error, NCCL version 2.21.5: Connection "
+                               "reset by peer")
+        if kind == "hang":
+            time.sleep(self.hang_s)
+            return state
+        if kind == "oom":
+            raise torch.cuda.OutOfMemoryError(
+                "CUDA out of memory. Tried to allocate 2.00 GiB. GPU 0 has a total capacity of "
+                "79.19 GiB of which 1.02 GiB is free.")
+        return self.run(state, n, *args, **kwargs)
+
+
+def phase_supervised_nsga2(torch, seed: int = SEED, device=None, out_dir: str = "chiprun_out"
+                           ) -> dict:
+    """Main path 32: path 2 (as path 18 builds it) for ``SUP_GENERATIONS``
+    under ``RunSupervisor(WorkflowCheckpointer(every=10), deadline_s=
+    SUP_DEADLINE_S)`` with three faults injected into its chunk dispatches
+    (``_Faults``: a transient NCCL-style error on call 2, a hang past the
+    deadline on call 3, an out-of-memory error on call 5, which takes the
+    restore rung back to the snapshot at generation 20 and replays from
+    there): the final state equal to the clean run's bit for bit; the
+    supervisor's counters (2 retries, 1 deadline hit, 1 restore) and
+    outcome ``recovered``; B3 and B4 launched; ``run_report`` and the
+    Chrome trace (``chiprun_out/supervised_trace.json``) accepted by
+    ``tools/check_report.py``. Times the supervised run without faults
+    against the same run checkpointed every 10 generations and
+    unsupervised, in turns."""
+    import tempfile
+
+    from evox_tpu_torch.core.instrument import run_report, write_chrome_trace
+    from evox_tpu_torch.workflows.checkpoint import WorkflowCheckpointer
+    from evox_tpu_torch.workflows.supervisor import RunSupervisor
+
+    clean_wf = build_checkpoint_path(torch, device=device)
+    start = clean_wf.init(seed)
+    reset_launches()
+    t0 = time.perf_counter()
+    clean = clean_wf.run(start, SUP_GENERATIONS)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    out = {"generations": SUP_GENERATIONS, "deadline_s": SUP_DEADLINE_S,
+           "clean_launches": read_launches(), "clean_s": clean_s}
+    with tempfile.TemporaryDirectory() as td:
+        wf = build_checkpoint_path(torch, device=device)
+        wf.run = _Faults(wf, {2: "transient", 3: "hang", 5: "oom"}, SUP_DEADLINE_S + 1.0)
+        sup = RunSupervisor(WorkflowCheckpointer(td, every=10), deadline_s=SUP_DEADLINE_S,
+                            backoff_s=0.01)
+        reset_launches()
+        t0 = time.perf_counter()
+        state = sup.run(wf, wf.init(seed), SUP_GENERATIONS)
+        torch.cuda.synchronize()
+        out["supervised_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        report = sup.report()
+        want = {"retries": 2, "deadline_hits": 1, "restores": 1, "aborts": 0}
+        got = {k: report["counters"][k] for k in want}
+        if got != want or report["outcome"] != "recovered":
+            raise AssertionError(f"path 32: supervisor {report['counters']} {report['outcome']}, "
+                                 f"expected {want} and recovered")
+        if out["launches"]["packed_dominance"] < SUP_GENERATIONS or \
+                out["launches"]["partial_topk"] < SUP_GENERATIONS - 1:
+            raise AssertionError(f"path 32: launches {out['launches']}")
+        out["bit_for_bit"] = _states_exact(torch, "path 32: the supervised run with three faults "
+                                           "against the clean run", state.algo, clean.algo)
+        out["supervisor"] = report
+        rr = run_report(wf, state)
+        path = Path(out_dir) / "supervised_trace.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        trace = write_chrome_trace(str(path), workflow=wf, state=state)
+        validate(report=rr, trace=trace, label="path 32's run_report and trace")
+        markers = sorted(e["name"] for e in trace["traceEvents"] if e.get("cat") == "supervisor")
+        out["trace_markers"] = markers
+    # without faults, in turns with the same checkpointed run unsupervised:
+    # what the supervisor's watchdog thread and ladder cost (both write a
+    # snapshot every 10 generations)
+    turns = []
+    for name in ("checkpointed", "supervised", "supervised", "checkpointed"):
+        with tempfile.TemporaryDirectory() as td:
+            wf = build_checkpoint_path(torch, device=device)
+            s0 = wf.step(wf.init(seed))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "checkpointed":
+                wf.run(s0, SUP_GENERATIONS, checkpointer=WorkflowCheckpointer(td, every=10))
+            else:
+                RunSupervisor(WorkflowCheckpointer(td, every=10), deadline_s=SUP_DEADLINE_S).run(
+                    wf, s0, SUP_GENERATIONS)
+            torch.cuda.synchronize()
+            turns.append({"side": name, "ms_per_generation":
+                          (time.perf_counter() - t0) / SUP_GENERATIONS * 1e3})
+    out["turns"] = turns
+    for side in ("checkpointed", "supervised"):
+        out[f"{side}_ms_per_generation"] = statistics.median(
+            t["ms_per_generation"] for t in turns if t["side"] == side)
+    print(f"[supervised nsga2] {json.dumps({k: v for k, v in out.items() if k != 'supervisor'})}",
+          flush=True)
+    return out
+
+
+def phase_nccl_world(torch) -> dict:
+    """The process layer on the card: a world of one over NCCL (a
+    ``FileStore`` in a temporary directory: no network), an ``all_reduce``
+    of a CUDA tensor (a sum over one rank equals it bit for bit), the
+    store barrier and ``torch.distributed``'s own, then shutdown."""
+    import tempfile
+
+    from evox_tpu_torch.core import distributed as dist
+
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        if dist.is_dist_initialized():
+            raise AssertionError("a process group exists before init_distributed")
+        dist.init_distributed(f"file://{td}/store", num_processes=1, process_id=0,
+                              backend="nccl", timeout_s=60)
+        try:
+            import torch.distributed as tdist
+
+            out["backend"] = str(tdist.get_backend())
+            out["world"] = [dist.process_id(), dist.process_count()]
+            x = torch.arange(1024, dtype=torch.float32, device="cuda") * 0.5
+            y = x.clone()
+            tdist.all_reduce(y)
+            torch.cuda.synchronize()
+            compare_exact("NCCL all_reduce over a world of one", (y,), (x,))
+            dist.process_barrier("nccl_world", timeout_s=30)
+            tdist.barrier(device_ids=[0])
+            out["all_reduce"] = "bit for bit"
+        finally:
+            dist.shutdown_distributed()
+        out["initialized_after_shutdown"] = dist.is_dist_initialized()
+    if out["backend"] != "nccl" or out["world"] != [0, 1] or out["initialized_after_shutdown"]:
+        raise AssertionError(f"the NCCL world of one: {out}")
+    print(f"[nccl world] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -6744,6 +7275,54 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
                                "two launches a verified chunk and one more a mismatch (path 26)",
                      "launches": att["votes"]["heal"]["digest_launches"]}],
     })
+    rows = paths["dominance_rows"]["main"]
+    sn = paths["sharded_nsga2"]
+    entries.append({
+        "name": "packed_dominance_rows",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/dominance.cu",
+        # the sharded sort's slab: dominate_relation + pack_dominator_rows
+        # around the Pallas kernel (evox_tpu/kernels/dominance.py:88-102,
+        # evox_tpu/operators/selection/non_dominate.py:161-250)
+        "replaces": "evox_tpu/kernels/dominance.py:222",
+        "launches": sn["launches"]["packed_dominance_rows"],
+        "max_abs_err": max(e["max_abs_err"] for e in paths["dominance_rows"]["shapes"]),
+        "ms": rows["ms"],
+        "plain_ms": rows["plain_ms"],
+        "bound_ms": rows["bound_ms"],
+        "bound_by": rows["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this
+        "slab_rows": rows["slab_rows"], "n": rows["n"], "m": rows["m"],
+        "generation_ms": rows["generation_ms"], "generation_bound_ms": rows["generation_bound_ms"],
+        "full_b3_ms": rows["full_b3_ms"],
+        "shapes": paths["dominance_rows"]["shapes"],
+        "callers": [{"caller": "the mesh-sharded non_dominated_sort in NSGA-II's tell on an "
+                               "8-shard mesh of the card (path 31), 8 launches a generation",
+                     "launches": sn["launches"]["packed_dominance_rows"]}],
+    })
+    mm = paths["smallmm"]
+    main_mm = next(e for e in mm["shapes"] if e["name"].startswith("path 28 ask"))
+    entries.append({
+        "name": "smallmm",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/smallmm.cu",
+        # no pallas_call: the JAX package leaves CMA-ES's products to XLA
+        "replaces": "evox_tpu/algorithms/so/es/cma_es.py:147-174 (XLA products, no Pallas kernel)",
+        "launches": paths["fleet"]["turns"][0]["m1_launches"],
+        "max_abs_err": max(e["max_abs_err"] for e in mm["shapes"]),
+        "ms": main_mm["ms"],
+        "plain_ms": main_mm["plain_ms"],
+        "bound_ms": main_mm["bound_ms"],
+        "bound_by": main_mm["bound_by"],
+        # torch.bmm on the same operands: another summation order
+        "library_ms": main_mm["library_ms"],
+        "shapes": mm["shapes"],
+        "callers": [{"caller": "CMA-ES's seven products a generation over 64 stacked tenants "
+                               "(path 28's fleet turn, 70 generations)",
+                     "launches": paths["fleet"]["turns"][0]["m1_launches"]},
+                    {"caller": "CMA-ES at d 1000 (path 5), seven a generation",
+                     "launches": paths["cmaes"]["launches"]["smallmm"]}],
+    })
     w = kernels["walker"]
     entries.append({
         "name": "fused_mlp_rollout",
@@ -6952,6 +7531,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["fleet"] = phase_fleet_path(torch, profile=args.profile)
     paths["runqueue"] = phase_runqueue_path(torch)
+    # 17. kernel M1 and B3's rows form against their plain versions; main
+    # paths 30 (bench.py's workload 7: ShardedES on an 8-shard mesh of the
+    # card), 31 (path 2 with the mesh-sharded sort) and 32 (path 2 under
+    # RunSupervisor with three faults); the NCCL world of one
+    torch.cuda.empty_cache()
+    paths["smallmm"] = phase_smallmm_kernel(torch)
+    paths["dominance_rows"] = phase_dominance_rows(torch)
+    paths["sharded_es"] = phase_sharded_es(torch)
+    torch.cuda.empty_cache()
+    paths["sharded_nsga2"] = phase_sharded_nsga2(torch)
+    paths["supervised_nsga2"] = phase_supervised_nsga2(torch)
+    paths["nccl_world"] = phase_nccl_world(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -7014,6 +7605,12 @@ def main() -> int:
         "shade_islands": paths["shade_islands"],
         "fleet_path": paths["fleet"],
         "runqueue_path": paths["runqueue"],
+        "smallmm": paths["smallmm"],
+        "dominance_rows": paths["dominance_rows"],
+        "sharded_es_path": paths["sharded_es"],
+        "sharded_nsga2_path": paths["sharded_nsga2"],
+        "supervised_nsga2_path": paths["supervised_nsga2"],
+        "nccl_world": paths["nccl_world"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -25,6 +25,8 @@ from .core import (
     Problem,
     PyTreeNode,
     RetraceError,
+    ShardedES,
+    create_mesh,
     field,
     instrument,
     member_call,
@@ -40,6 +42,7 @@ from .workflows import (
     IslandWorkflow,
     IslandWorkflowState,
     RunQueue,
+    RunSupervisor,
     StdWorkflow,
     StdWorkflowState,
     SurrogateWorkflow,
@@ -62,6 +65,8 @@ __all__ = [
     "PyTreeNode",
     "RetraceError",
     "RunQueue",
+    "RunSupervisor",
+    "ShardedES",
     "StdWorkflow",
     "StdWorkflowState",
     "SurrogateWorkflow",
@@ -69,6 +74,7 @@ __all__ = [
     "TenantSpec",
     "VectorizedWorkflow",
     "VectorizedWorkflowState",
+    "create_mesh",
     "field",
     "instrument",
     "member_call",

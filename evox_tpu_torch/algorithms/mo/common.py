@@ -97,14 +97,15 @@ class GAMOAlgorithm(Algorithm):
     """GA-skeleton MO base: subclasses implement ``select(state, merged_pop,
     merged_fit) -> (pop, fit)``.
 
-    ``mesh`` (the row-sharded sort of the JAX package) waits for ROADMAP
-    A11: passing one raises ``NotImplementedError``. ``device``: ``None``
-    means ``"cuda"``."""
+    ``mesh``: a :class:`~evox_tpu_torch.core.distributed.Mesh` with a
+    ``"pop"`` axis; the O(n²) non-dominated sort of the tell (and of the
+    migration ingest) is then row-sharded over it, one B3 rows launch a
+    shard, with the unsharded sort's ranks and survivors. It can also be
+    assigned later (``algo.mesh = mesh``). ``device``: ``None`` means
+    ``"cuda"``."""
 
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, mesh: Any = None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(f"{type(self).__name__}(mesh=...) is not ported yet (ROADMAP A11)")
         self.device = resolve_device(device)
         self.lb = float_vector(lb, self.device)
         self.ub = float_vector(ub, self.device)

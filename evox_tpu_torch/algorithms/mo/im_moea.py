@@ -43,8 +43,9 @@ class IMMOEAState(PyTreeNode):
 class IMMOEA(Algorithm):
     """``pop_size`` is rounded down to ``K * S`` (``K = min(k_clusters,
     the UniformSampling count)``, ``S = max(2, pop_size // K)``).
-    ``mesh`` waits for ROADMAP A11. ``device``: ``None`` means
-    ``"cuda"``."""
+    ``mesh``: a :class:`~evox_tpu_torch.core.distributed.Mesh`; the tell's
+    environmental selection then sorts row-sharded over its ``"pop"``
+    axis, with the same survivors. ``device``: ``None`` means ``"cuda"``."""
 
     # not under torch.func.vmap: its tell fits Gaussian processes with autograd,
     # which torch.func.vmap refuses; stacked members run one by one
@@ -52,8 +53,6 @@ class IMMOEA(Algorithm):
 
     def __init__(self, lb: Any, ub: Any, n_objs: int, pop_size: int, k_clusters: int = 5,
                  gp_fit_steps: int = 10, mesh: Any = None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError("IMMOEA(mesh=...) is not ported yet (ROADMAP A11)")
         self.mesh = mesh
         self.device = resolve_device(device)
         self.lb = float_vector(lb, self.device)

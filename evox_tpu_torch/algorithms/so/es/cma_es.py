@@ -13,8 +13,13 @@ How the port differs in form, not in numbers:
   are unique only up to signs, so whole generations compare field by field
   only with the same basis.
 - CMA-ES's matrix products (the sampling product ``(z * D) @ B^T``, the
-  selected steps and the rank-µ update) run in full float32 whatever the
-  process's TF32 setting (:func:`~.common.full_f32_matmul`).
+  selected steps, the weighted sums, ``B z_w``, the rank-µ update and
+  ``|ps|``'s dot product) go through kernel M1 on the card (:func:`~evox_tpu_torch.kernels.smallmm.
+  smallmm`): one fixed summation order that does not depend on the batch
+  count, so a fleet tenant under ``torch.func.vmap`` equals its solo run
+  bit for bit (cuBLAS picks its kernel by the batch count). On the CPU
+  they stay ``einsum`` in full float32 (:func:`~.common.full_f32_matmul`),
+  one bmm route that is already the same in a batch and alone.
 - The restart variants choose between the continued and the restarted
   state field by field with ``torch.where`` on the device, in place of the
   JAX package's ``lax.cond``; the seed advances on every ``tell``.
@@ -29,7 +34,9 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
+from ....core.distributed import POP_AXIS, P
 from ....core.struct import PyTreeNode, field
+from ....kernels.smallmm import smallmm
 from ....utils.common import float_vector, generator, split_seed
 from .common import (
     bounded_sigma_step,
@@ -42,6 +49,7 @@ from .common import (
     safe_eigh,
     sorted_selection_moments,
     standard_normal,
+    weights_at_ranks,
 )
 
 
@@ -54,6 +62,44 @@ def _hsig_denominator(cs: float, it: int) -> torch.Tensor:
     package raises it; a 0-d CPU tensor, which enters a CUDA op as a scalar."""
     base = torch.tensor(1 - cs, dtype=torch.float32)
     return torch.sqrt(1 - torch.pow(base, torch.tensor(2.0 * it, dtype=torch.float32)))
+
+
+def _product(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One of CMA-ES's products, named by its ``einsum`` equation: on the
+    card kernel M1 (``smallmm``, one summation order whatever the batch
+    count); on the CPU the ``einsum`` in full float32 (one bmm route, so a
+    member's numbers under ``torch.func.vmap`` equal a solo run's there)."""
+    if a.device.type != "cuda":
+        with full_f32_matmul():
+            return torch.einsum(equation, a, b)
+    dev = a.device
+    if equation in ("pd,ed->pe", "md,ed->me"):  # rows times B^T
+        return smallmm(a, b, trans_b=True, device=dev)
+    if equation == "m,md->d":  # a weighted sum of rows
+        return smallmm(a[None, :], b, device=dev)[0]
+    if equation == "de,e->d":  # B times a vector
+        return smallmm(a, b[:, None], device=dev)[:, 0]
+    if equation == "md,me->de":  # the rank-mu sum of outer products
+        return smallmm(a, b, trans_a=True, device=dev)
+    raise ValueError(f"no M1 form for {equation!r}")
+
+
+def _scalar(value: Any, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d float32 tensor on ``like``'s device: a divisor
+    that divides the same way alone and under ``torch.func.vmap`` (on the
+    card a Python-number divisor becomes a multiply by its reciprocal in a
+    solo call and a true division in a batched one). On the CPU both are
+    the true division, as before."""
+    return torch.full((), float(value), dtype=torch.float32, device=like.device)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """``|v|``: on the card the square root of M1's ``v . v`` (a reduction
+    kernel sums a row of a batch in another order than a lone vector); on
+    the CPU ``torch.linalg.vector_norm``."""
+    if v.device.type != "cuda":
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(smallmm(v[None, :], v[:, None], device=v.device)[0, 0])
 
 
 class CMAESState(PyTreeNode):
@@ -140,8 +186,7 @@ class CMAES(Algorithm):
     def ask(self, state: CMAESState) -> Tuple[torch.Tensor, CMAESState]:
         seed, k = split_seed(state.seed)
         z = self._draw(k)
-        with full_f32_matmul():
-            y = torch.einsum("pd,ed->pe", z * state.D, state.B)
+        y = _product("pd,ed->pe", z * state.D, state.B)
         pop = state.mean + state.sigma * y
         return pop, state.replace(z=z, seed=seed)
 
@@ -149,21 +194,18 @@ class CMAES(Algorithm):
         n = self.dim
         order = torch.argsort(fitness, stable=True)
         z_sorted = state.z[order[: self.mu]]
-        with full_f32_matmul():
-            # every product an einsum (one bmm route), so a member's numbers
-            # under torch.func.vmap equal a solo run's bit for bit on the
-            # CPU (a gemv or a small mm and its batched form round apart)
-            y_sorted = torch.einsum("md,ed->me", z_sorted * state.D, state.B)
-            y_w = torch.einsum("m,md->d", self.weights, y_sorted)
-            z_w = torch.einsum("m,md->d", self.weights, z_sorted)
-            # invsqrtC @ y_w == B z_w because y = B D z
-            Bz_w = torch.einsum("de,e->d", state.B, z_w)
-            rank_mu = torch.einsum("md,me->de", y_sorted * self.weights[:, None], y_sorted)
+        y_sorted = _product("md,ed->me", z_sorted * state.D, state.B)
+        y_w = _product("m,md->d", self.weights, y_sorted)
+        z_w = _product("m,md->d", self.weights, z_sorted)
+        # invsqrtC @ y_w == B z_w because y = B D z
+        Bz_w = _product("de,e->d", state.B, z_w)
+        rank_mu = _product("md,me->de", y_sorted * self.weights[:, None], y_sorted)
         mean = state.mean + self.cm * state.sigma * y_w
         ps = (1 - self.cs) * state.ps + math.sqrt(self.cs * (2 - self.cs) * self.mueff) * Bz_w
         it = state.iteration + 1
-        ps_norm = torch.linalg.vector_norm(ps)
-        hsig = (ps_norm / _hsig_denominator(self.cs, it) < (1.4 + 2 / (n + 1)) * self.chiN)
+        ps_norm = _norm(ps)
+        hsig = (ps_norm / _scalar(_hsig_denominator(self.cs, it), ps_norm)
+                < (1.4 + 2 / (n + 1)) * self.chiN)
         hsig = hsig.to(torch.float32)
         pc = (1 - self.cc) * state.pc + hsig * math.sqrt(self.cc * (2 - self.cc) * self.mueff) * y_w
         C = (
@@ -172,7 +214,7 @@ class CMAES(Algorithm):
             + self.cmu * rank_mu
         )
         sigma = clamp_step_size(
-            state.sigma * torch.exp(self.cs / self.damps * (ps_norm / self.chiN - 1)),
+            state.sigma * torch.exp(self.cs / self.damps * (ps_norm / _scalar(self.chiN, ps_norm) - 1)),
             self.sigma_floor,
             self.sigma_ceiling,
         )
@@ -191,7 +233,7 @@ class SepCMAESState(PyTreeNode):
     pc: torch.Tensor
     ps: torch.Tensor
     C: torch.Tensor  # the covariance's diagonal
-    z: torch.Tensor = field(storage=True)
+    z: torch.Tensor = field(storage=True, sharding=P(POP_AXIS))
     iteration: int
     seed: int
 
@@ -200,9 +242,13 @@ class SepCMAES(Algorithm):
     """Separable (diagonal-covariance) CMA-ES (Ros & Hansen 2008): O(d)
     memory. ``tell`` goes through the weighted moments of the selected
     samples (``pop_moments``, then ``tell_with_moments``), as in the JAX
-    package."""
+    package. It speaks the POP-sharded protocol of
+    :class:`~evox_tpu_torch.core.distributed.ShardedES` (``ask_rows``,
+    ``rank_weights``, ``pop_moments``, ``tell_with_moments``)."""
 
     pop_fields = ("z",)
+    pop_shard_capable = True
+    sharded_pop_fields = ("z",)
 
     def __init__(
         self,
@@ -258,14 +304,25 @@ class SepCMAES(Algorithm):
             seed=seed,
         )
 
-    def _draw(self, seed: int) -> torch.Tensor:
-        return standard_normal(seed, (self.pop_size, self.dim), self.device)
+    def _draw(self, seed: int, rows: Optional[int] = None) -> torch.Tensor:
+        """The one draw: ``(rows, dim)`` standard normals (``pop_size`` rows
+        by default; a shard's block through ``ask_rows``)."""
+        return standard_normal(seed, (rows or self.pop_size, self.dim), self.device)
 
     def ask(self, state: SepCMAESState) -> Tuple[torch.Tensor, SepCMAESState]:
         seed, k = split_seed(state.seed)
         z = self._draw(k)
         pop = state.mean + state.sigma * torch.sqrt(state.C) * z
         return pop, state.replace(z=z, seed=seed)
+
+    def ask_rows(self, state: SepCMAESState, seed: int, n_rows: int):
+        """One shard's block of the sampling law: ``n_rows`` candidates
+        from ``seed``, and their ``z``."""
+        z = self._draw(seed, n_rows)
+        return state.mean + state.sigma * torch.sqrt(state.C) * z, {"z": z}
+
+    def rank_weights(self, ranks: torch.Tensor) -> torch.Tensor:
+        return weights_at_ranks(self.weights, ranks, self.mu)
 
     def pop_moments(self, rows: dict, weights: torch.Tensor) -> dict:
         z = rows["z"]

@@ -19,6 +19,7 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
+from ....core.distributed import POP_AXIS, P
 from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .cma_es import _default_pop_size
@@ -30,6 +31,7 @@ from .common import (
     recombination_weights,
     sorted_selection_moments,
     standard_normal,
+    weights_at_ranks,
 )
 
 
@@ -115,7 +117,7 @@ class LMMAESState(PyTreeNode):
     sigma: torch.Tensor
     ps: torch.Tensor
     M: torch.Tensor  # (m, dim) direction vectors
-    z: torch.Tensor = field(storage=True)
+    z: torch.Tensor = field(storage=True, sharding=P(POP_AXIS))
     iteration: int
     seed: int
 
@@ -124,9 +126,12 @@ class LMMAES(Algorithm):
     """Limited-memory MA-ES: m = O(log d) direction vectors, O(d log d)
     memory and work. The transform ``d = prod_j ((1 - cd_j) I + cd_j m_j
     m_j^T) z`` is linear per row, so the update needs only ``z_w``, the
-    weighted sum of the selected samples."""
+    weighted sum of the selected samples, and LMMAES speaks
+    :class:`~evox_tpu_torch.core.distributed.ShardedES`'s protocol."""
 
     pop_fields = ("z",)
+    pop_shard_capable = True
+    sharded_pop_fields = ("z",)
 
     def __init__(
         self,
@@ -181,14 +186,22 @@ class LMMAES(Algorithm):
             d = (1 - self.cd[j]) * d + self.cd[j] * torch.outer(d @ mj, mj)
         return d
 
-    def _draw(self, seed: int) -> torch.Tensor:
-        return standard_normal(seed, (self.pop_size, self.dim), self.device)
+    def _draw(self, seed: int, rows: Optional[int] = None) -> torch.Tensor:
+        return standard_normal(seed, (rows or self.pop_size, self.dim), self.device)
 
     def ask(self, state: LMMAESState) -> Tuple[torch.Tensor, LMMAESState]:
         seed, k = split_seed(state.seed)
         z = self._draw(k)
         pop = state.mean + state.sigma * self._transform(z, state.M, state.iteration)
         return pop, state.replace(z=z, seed=seed)
+
+    def ask_rows(self, state: LMMAESState, seed: int, n_rows: int):
+        """One shard's block of the sampling law (``ShardedES``)."""
+        z = self._draw(seed, n_rows)
+        return state.mean + state.sigma * self._transform(z, state.M, state.iteration), {"z": z}
+
+    def rank_weights(self, ranks: torch.Tensor) -> torch.Tensor:
+        return weights_at_ranks(self.weights, ranks, self.mu)
 
     def pop_moments(self, rows: dict, weights: torch.Tensor) -> dict:
         return {"zw": weights @ rows["z"]}

@@ -1,7 +1,11 @@
 """OpenAI Evolution Strategy (Salimans et al. 2017, arXiv:1703.03864).
 
 The port of ``evox_tpu/algorithms/so/es/open_es.py``: mirrored sampling,
-sgd (default) or adam steps on the center.
+sgd (default) or adam steps on the center, and ``lr_scale``, a multiplier
+on the optimizer's updates that a fleet binds per tenant
+(``workflows/tenancy.py``'s hyperparameters): the optimizer's own learning
+rate is fixed at construction. At its default 1.0 the multiply is skipped,
+so the updates are the unscaled ones bit for bit.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ class OpenES(Algorithm):
         self.noise_stdev = noise_stdev
         self.mirrored = mirrored_sampling
         self.optimizer = make_optimizer(optimizer, learning_rate)
+        self.lr_scale = 1.0
 
     def init(self, seed: int) -> OpenESState:
         seed, noise_seed = split_seed(seed)
@@ -93,4 +98,7 @@ class OpenES(Algorithm):
             grad = noise.T @ fitness
         grad = grad / (self.pop_size * self.noise_stdev)
         updates, opt_state = self.optimizer.update(grad, state.opt_state, state.center)
+        if not (isinstance(self.lr_scale, float) and self.lr_scale == 1.0):
+            # a rebound lr_scale: a tenant's 0-d binding, or another float
+            updates = updates * self.lr_scale
         return state.replace(center=state.center + updates, opt_state=opt_state)

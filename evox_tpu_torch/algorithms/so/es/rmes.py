@@ -18,6 +18,8 @@ import torch
 
 from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
+from ....core.distributed import POP_AXIS
+from ....core.distributed import P as PartitionSpec
 from ....core.struct import PyTreeNode, field
 from ....utils.common import float_vector, split_seed
 from .cma_es import _default_pop_size
@@ -27,6 +29,7 @@ from .common import (
     mueff_of,
     sorted_selection_moments,
     standard_normal,
+    weights_at_ranks,
 )
 
 
@@ -39,12 +42,18 @@ class RMESState(PyTreeNode):
     prev_fitness: torch.Tensor
     s: torch.Tensor  # smoothed success measure
     iteration: int
-    z: torch.Tensor = field(storage=True)  # the composed directions y of the current generation
+    # the composed directions y of the current generation
+    z: torch.Tensor = field(storage=True, sharding=PartitionSpec(POP_AXIS))
     seed: int
 
 
 class RMES(Algorithm):
+    """RM-ES. It speaks :class:`~evox_tpu_torch.core.distributed.
+    ShardedES`'s POP-sharded protocol."""
+
     pop_fields = ("z",)
+    pop_shard_capable = True
+    sharded_pop_fields = ("z",)
 
     def __init__(
         self,
@@ -100,12 +109,13 @@ class RMES(Algorithm):
             y = y + coef * r[:, i : i + 1] * P[i]
         return y
 
-    def _draw(self, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The one draw of a generation: ``z`` ``(pop, dim)`` and ``r``
-        ``(pop, m)``, standard normals."""
+    def _draw(self, seed: int, rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The one draw of a generation: ``z`` ``(rows, dim)`` and ``r``
+        ``(rows, m)``, standard normals (``pop_size`` rows by default)."""
         kz, kr = split_seed(seed)
-        return (standard_normal(kz, (self.pop_size, self.dim), self.device),
-                standard_normal(kr, (self.pop_size, self.m), self.device))
+        rows = rows or self.pop_size
+        return (standard_normal(kz, (rows, self.dim), self.device),
+                standard_normal(kr, (rows, self.m), self.device))
 
     def ask(self, state: RMESState) -> Tuple[torch.Tensor, RMESState]:
         seed, k = split_seed(state.seed)
@@ -113,6 +123,16 @@ class RMES(Algorithm):
         y = self._compose(z, r, state.P)
         pop = state.mean + state.sigma * y
         return pop, state.replace(z=y, seed=seed)
+
+    def ask_rows(self, state: RMESState, seed: int, n_rows: int):
+        """One shard's block of the sampling law (``ShardedES``); the
+        artifact is the composed directions, as ``ask`` stores them."""
+        z, r = self._draw(seed, n_rows)
+        y = self._compose(z, r, state.P)
+        return state.mean + state.sigma * y, {"z": y}
+
+    def rank_weights(self, ranks: torch.Tensor) -> torch.Tensor:
+        return weights_at_ranks(self.weights, ranks, self.mu)
 
     def pop_moments(self, rows: dict, weights: torch.Tensor) -> dict:
         return {"yw": weights @ rows["z"]}

@@ -47,11 +47,19 @@ generation loop behind ``checkpointed_run`` and ``run_host_pipelined``.
   counts and milliseconds, the counter tracks as gauges, integrity events
   and monitor fetches. ``None`` changes nothing.
 
-Every CUDA call stays on the calling thread: the lanes' and the
-evaluation pool's worker threads see numpy and host tensors, and wait
-only on CUDA events the calling thread recorded after the copies they
-read. The JAX package's supervisor and pod supervisor wait for ROADMAP
-A11 and raise ``NotImplementedError``.
+- **Supervision as hooks** (``supervisor=``, a
+  :class:`~evox_tpu_torch.workflows.supervisor.RunSupervisor`): every
+  chunk of a fused run, and every chunked pipelined segment, is dispatched
+  through ``supervisor.call`` (the deadline, the classified retry, the
+  restore rung replaying from the newest snapshot, and for pipelined runs
+  the degrade rung halving ``eval_chunk``). Restores are bounded a run.
+
+Every CUDA call of an unsupervised run stays on the calling thread: the
+lanes' and the evaluation pool's worker threads see numpy and host
+tensors, and wait only on CUDA events the calling thread recorded after the
+copies they read; a supervisor with a deadline dispatches each chunk from
+its watchdog thread. The JAX package's pod supervisor waits for ROADMAP
+A13 and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -245,8 +253,7 @@ class GenerationExecutor:
     ):
         from ..workflows.common import refuse_deferred
 
-        refuse_deferred("GenerationExecutor", supervisor=supervisor,
-                        pod_supervisor=pod_supervisor)
+        refuse_deferred("GenerationExecutor", item="A13", pod_supervisor=pod_supervisor)
         if max_staleness < 0:
             raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
         if io_inflight < 1:
@@ -257,6 +264,7 @@ class GenerationExecutor:
         self.io_inflight = int(io_inflight)
         self.fetch_monitors_every = fetch_monitors_every
         self.metrics = metrics
+        self.supervisor = supervisor
         self._clock = time.perf_counter
         self._lock = threading.Lock()
         self.counters: Dict[str, int] = {
@@ -279,6 +287,8 @@ class GenerationExecutor:
             "verified_chunks": 0,
             "integrity_mismatches": 0,
             "integrity_healed": 0,
+            # chunks dispatched through a supervisor's ladder
+            "supervised_chunks": 0,
         }
         # the newest run's verify cadence (None: the rung never armed) and
         # the no-majority aborts
@@ -404,15 +414,23 @@ class GenerationExecutor:
         entry state and the two results' digests compared. On a mismatch a
         third dispatch votes: the 2-of-3 majority proceeds, and no majority
         raises :class:`~evox_tpu_torch.core.attest.IntegrityError`.
-        ``None`` (the default) adds no dispatch."""
+        ``None`` (the default) adds no dispatch.
+
+        ``supervisor`` (default the executor's own): every chunk dispatch
+        runs under its ladder (module docstring); its checkpointer takes the
+        place of a missing ``checkpointer``."""
         from ..workflows.checkpoint import chunk_to_boundary, enter_run
         from ..workflows.common import refuse_deferred
 
-        refuse_deferred("GenerationExecutor.run_fused", supervisor=supervisor,
-                        pod_supervisor=pod_supervisor)
+        refuse_deferred("GenerationExecutor.run_fused", item="A13", pod_supervisor=pod_supervisor)
+        supervisor = self.supervisor if supervisor is None else supervisor
         wf._run_executor = self
+        if supervisor is not None:
+            wf._run_supervisor = supervisor
         state, n_steps, ckpt = enter_run(state, n_steps, checkpointer, resume_from,
                                          expect_like=state, device=wf.device)
+        if ckpt is None and supervisor is not None:
+            ckpt = getattr(supervisor, "checkpointer", None)
         self.counters["runs"] += 1
         if verify_every is not None:
             if verify_every < 1:
@@ -424,20 +442,33 @@ class GenerationExecutor:
             self.integrity["verify_every"] = int(verify_every)
         total = n_steps + int(state.generation)
         chunk_i = 0  # completed chunks of this run: the verify cadence
+        budget = {"used": 0}  # restores are bounded a run, not a chunk
         lane = _IoLane("checkpoint", self.io_inflight)
+        restore = self._restore_thunk(supervisor, ckpt, wf, state, lane)
         t_run0 = self._clock()
         try:
             while int(state.generation) < total:
                 remaining = total - int(state.generation)
                 step = min(remaining, chunk_to_boundary(state, ckpt, chunk))
                 attempted = state
-                state = self._timed_dispatch("run", lambda: wf.run(attempted, step))
+                dispatch = lambda: self._timed_dispatch("run", lambda: wf.run(attempted, step))  # noqa: E731
+                if supervisor is not None:
+                    self.counters["supervised_chunks"] += 1
+                    state = supervisor.call(dispatch, entry="run", restore=restore,
+                                            restore_budget=budget)
+                else:
+                    state = dispatch()
                 chunk_i += 1
+                # only a chunk that ran to its end can be dispatched again: a
+                # restore's result is an older snapshot
                 if (attest is not None and verify_every is not None
-                        and chunk_i % verify_every == 0):
+                        and chunk_i % verify_every == 0
+                        and int(state.generation) == int(attempted.generation) + step):
                     state = self._verify_chunk(wf, attempted, state, step, attest)
                 self.counters["chunks"] += 1
                 gen = int(state.generation)
+                if gen <= int(attempted.generation):
+                    continue  # the restore rung went back: replay from there
                 self.counters["generations"] += gen - int(attempted.generation)
                 if ckpt is not None and (gen % ckpt.every == 0 or gen >= total):
                     self._submit_checkpoint(lane, ckpt, state)
@@ -524,22 +555,26 @@ class GenerationExecutor:
         eval_chunk: Optional[int] = None,
         max_staleness: Optional[int] = None,
         supervisor: Any = None,
+        chunk: Optional[int] = None,
     ) -> Any:
         """The host-evaluation loop (external problems): generation ``k``'s
         device halves and host ``evaluate`` while the previous generation's
         ``on_generation`` runs on the hook lane. At ``max_staleness=0``
         (``None``: the executor's own bound) the states equal a
         ``wf.step`` loop's bit for bit; ``K > 0`` runs stale tells (the
-        module docstring)."""
-        from ..workflows.checkpoint import enter_run
-        from ..workflows.common import refuse_deferred
+        module docstring). With a ``supervisor`` (default the executor's
+        own) or a ``chunk``, the loop runs in segments that end on the
+        checkpoint cadence (or every ``chunk`` generations), each segment
+        under the supervisor's ladder with the OOM degrade rung halving
+        ``eval_chunk`` (floored at ``supervisor.min_eval_chunk``)."""
+        from ..workflows.checkpoint import chunk_to_boundary, enter_run
 
         if not getattr(wf, "external", False):
             raise ValueError(
                 "run_host is for external (host) problems; jittable problems "
                 "should use run_fused / wf.run"
             )
-        refuse_deferred("GenerationExecutor.run_host", supervisor=supervisor)
+        supervisor = self.supervisor if supervisor is None else supervisor
         K = self.max_staleness if max_staleness is None else int(max_staleness)
         if K < 0:
             raise ValueError(f"max_staleness must be >= 0, got {K}")
@@ -553,18 +588,86 @@ class GenerationExecutor:
                     f"{type(state.algo).__name__} has none"
                 )
         wf._run_executor = self
+        if supervisor is not None:
+            wf._run_supervisor = supervisor
         state, n_steps, ckpt = enter_run(state, n_steps, checkpointer, resume_from,
                                          expect_like=state, device=wf.device)
+        if ckpt is None and supervisor is not None:
+            ckpt = getattr(supervisor, "checkpointer", None)
         if n_steps <= 0:
             return state
         self.counters["runs"] += 1
         t_run0 = self._clock()
         try:
-            state = self._pipeline_segment(wf, state, n_steps, on_generation, ckpt, eval_chunk, K)
-            self.counters["chunks"] += 1
+            if supervisor is None and chunk is None:
+                state = self._pipeline_segment(wf, state, n_steps, on_generation, ckpt,
+                                               eval_chunk, K)
+                self.counters["chunks"] += 1
+                return state
+            # segments under the ladder; the degrade rung changes the
+            # evaluation chunk the next attempt reads
+            total = n_steps + int(state.generation)
+            cell = {"eval_chunk": eval_chunk}
+            degrade = self._degrade_thunk(supervisor, wf, cell) if supervisor is not None else None
+            budget = {"used": 0}
+            restore = self._restore_thunk(supervisor, ckpt, wf, state, None)
+            while int(state.generation) < total:
+                step = min(total - int(state.generation), chunk_to_boundary(state, ckpt, chunk))
+                attempted = state
+                segment = lambda: self._pipeline_segment(  # noqa: E731
+                    wf, attempted, step, on_generation, ckpt, cell["eval_chunk"], K)
+                if supervisor is not None:
+                    self.counters["supervised_chunks"] += 1
+                    state = supervisor.call(segment, entry="pipelined", restore=restore,
+                                            degrade=degrade, restore_budget=budget)
+                else:
+                    state = segment()
+                self.counters["chunks"] += 1
             return state
         finally:
             self.overlap["wall_s"] += self._clock() - t_run0
+
+    def _degrade_thunk(self, supervisor: Any, wf: Any, cell: dict) -> Callable[[], bool]:
+        """The OOM degrade rung: halve the host evaluation chunk (the whole
+        population when none is set), floored at the supervisor's
+        ``min_eval_chunk``; False when it cannot halve further."""
+        floor = max(1, int(getattr(supervisor, "min_eval_chunk", 1)))
+
+        def degrade() -> bool:
+            cur = cell["eval_chunk"]
+            if cur is None:
+                pop = getattr(getattr(wf, "algorithm", None), "pop_size", None)
+                if pop is None:
+                    return False
+                nxt = max(int(pop) // 2, floor)
+            elif cur <= floor:
+                return False
+            else:
+                nxt = max(cur // 2, floor)
+            if nxt == cur:
+                return False
+            cell["eval_chunk"] = nxt
+            return True
+
+        return degrade
+
+    def _restore_thunk(self, supervisor: Any, ckpt: Any, wf: Any, expect_like: Any,
+                       lane: Optional[_IoLane]) -> Optional[Callable[[], Any]]:
+        """The supervisor's replay rung, with the run's in-flight snapshots
+        drained first, so a restore never reads a half-landed save."""
+        if supervisor is None or ckpt is None:
+            return None
+        restorer = getattr(supervisor, "_restorer", None)
+        inner = restorer(ckpt, wf, expect_like) if restorer is not None else None
+        if inner is None:
+            return None
+
+        def restore() -> Any:
+            if lane is not None:
+                _drain_quietly(lane)
+            return inner()
+
+        return restore
 
     def _check_stale_support(self, wf: Any) -> None:
         if getattr(wf, "dtype_policy", None) is not None:

@@ -489,8 +489,6 @@ def _refuse_unported(workflow: Any, analyzer: Any, executor: Any, **given: Any) 
     producer the port does not have yet."""
     wf = workflow
     asked = {
-        "supervisor": ("A11", given["supervisor"] is not None
-                       or getattr(wf, "_run_supervisor", None) is not None),
         "pod_supervisor": ("A13", given["pod_supervisor"] is not None
                            or getattr(wf, "_pod_supervisor", None) is not None),
         "control_plane": ("A13", given["control_plane"] is not None
@@ -557,9 +555,13 @@ def run_report(
     the fleet's shape, each tenant's monitor reports and a ``RunQueue``'s
     ``queue`` section).
 
-    ``supervisor=`` (ROADMAP A11), ``pod_supervisor=`` and
-    ``control_plane=`` (A13), and the serving (A13), and
-    roofline sharding and multihost (A11) sections raise
+    ``supervisor``: ``supervisor=``, or the
+    :class:`~evox_tpu_torch.workflows.supervisor.RunSupervisor` that
+    drove the workflow's latest run (``workflow._run_supervisor``): its
+    deadlines, retries, restores, degradations and aborts.
+
+    ``pod_supervisor=`` and ``control_plane=`` (A13), and the serving (A13),
+    and roofline sharding and multihost (A11) sections raise
     ``NotImplementedError`` when asked for, passed or advertised by the
     workflow: their producers are not ported.
     """
@@ -642,6 +644,10 @@ def run_report(
             }
     if executor is not None and hasattr(executor, "report"):
         report["executor"] = executor.report()
+    if supervisor is None and workflow is not None:
+        supervisor = getattr(workflow, "_run_supervisor", None)
+    if supervisor is not None and hasattr(supervisor, "report"):
+        report["supervisor"] = supervisor.report()
     if metrics is None and workflow is not None:
         metrics = getattr(workflow, "_flight_recorder", None)
     if metrics is not None and hasattr(metrics, "report"):
@@ -696,8 +702,8 @@ _US = 1e6  # trace-event timestamps are microseconds
 
 #: trace pids are ``PID_STRIDE * process_index + local track``: track 0 =
 #: host dispatch, 1 = device telemetry, 2 = host counters, 4 = generation
-#: executor (3 and 5, the supervisors' tracks, wait for ROADMAP A11 and
-#: A13). Per-process traces land on disjoint pid ranges.
+#: executor, 3 = run supervisor (5, the pod supervisor's track, waits for
+#: ROADMAP A13). Per-process traces land on disjoint pid ranges.
 PID_STRIDE = 100
 
 
@@ -758,15 +764,17 @@ def write_chrome_trace(
       spans (device dispatch, host evaluation, background I/O; a thread a
       track) at their true host times, and its queue-depth counter.
 
-    ``supervisor=`` waits for ROADMAP A11 and ``pod_supervisor=`` for A13
-    (``NotImplementedError``). Every process gets ``process_name`` and
+    - Supervisor events (``supervisor=``, or the workflow's
+      ``_run_supervisor``) become instant (``ph: "i"``) markers
+      (``supervisor:retry``, ``:deadline``, ``:restore``, ``:degrade``,
+      ``:abort``) on a "run supervisor" process at their host times.
+
+    ``pod_supervisor=`` waits for ROADMAP A13 (``NotImplementedError``).
+    Every process gets ``process_name`` and
     ``thread_name`` metadata and the pid ``PID_STRIDE * process_index +
     track``; ``process_index`` defaults to the ``torch.distributed`` rank
     (0 outside a process group).
     """
-    if supervisor is not None or getattr(workflow, "_run_supervisor", None) is not None:
-        raise NotImplementedError(
-            "write_chrome_trace(supervisor=...) is not ported yet (ROADMAP A11)")
     if pod_supervisor is not None or getattr(workflow, "_pod_supervisor", None) is not None:
         raise NotImplementedError(
             "write_chrome_trace(pod_supervisor=...) is not ported yet (ROADMAP A13)")
@@ -857,6 +865,18 @@ def write_chrome_trace(
         for track, samples in extra_counters.items():
             rel = [(t - t0, v) for t, v in samples]
             events.extend(_counter_events(track, rel, pid=pid_base + 2))
+
+    if supervisor is None and workflow is not None:
+        supervisor = getattr(workflow, "_run_supervisor", None)
+    if supervisor is not None and hasattr(supervisor, "markers"):
+        markers = supervisor.markers()
+        if markers:
+            events.append(meta(3, "run supervisor"))
+            for m in markers:
+                events.append({"ph": "i", "name": m["name"], "cat": "supervisor",
+                               "pid": pid_base + 3, "tid": 1,
+                               "ts": round(max(m["t_abs"] - t0, 0.0) * _US, 3), "s": "p",
+                               "args": sanitize_json(m.get("args", {}))})
 
     if executor is None and workflow is not None:
         executor = getattr(workflow, "_run_executor", None)

@@ -7,9 +7,9 @@ returns states (:mod:`evox_tpu_torch.core.members`): the fields that hold
 tensors (directly or inside dicts, lists, tuples and states) are its
 children, and the host fields (seeds, counters, flags, ``None``) its
 context. ``field(storage=...)`` records the mixed-precision
-annotation that :mod:`evox_tpu_torch.core.dtype_policy` reads; the JAX
-package's ``sharding`` metadata waits for the scale-out slice (ROADMAP
-A11).
+annotation that :mod:`evox_tpu_torch.core.dtype_policy` reads, and
+``field(sharding=P(...))`` the mesh layout that
+:mod:`evox_tpu_torch.core.distributed` reads.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ __all__ = ["field", "static_field", "pytree_dataclass", "PyTreeNode", "replace",
            "named_leaves"]
 
 
-def field(*, static: bool = False, storage: Any = None, **kwargs: Any) -> dataclasses.Field:
+def field(*, static: bool = False, storage: Any = None, sharding: Any = None,
+          **kwargs: Any) -> dataclasses.Field:
     """A dataclass field. ``static`` is kept as metadata only (it keeps a
     field out of snapshots' fingerprints and digests).
 
@@ -32,11 +33,17 @@ def field(*, static: bool = False, storage: Any = None, **kwargs: Any) -> datacl
     ``DtypePolicy(storage=bfloat16, compute=float32)`` they are held in
     bfloat16 between generations and cast back to float32 at step entry.
     ``False`` opts a field out explicitly; ``None`` (the default) is
-    ineligible. Integer, bool and seed leaves are never cast."""
+    ineligible. Integer, bool and seed leaves are never cast.
+
+    ``sharding``: the field's layout on a mesh, a
+    :class:`~evox_tpu_torch.core.distributed.P` (``P(POP_AXIS)``: rows split
+    over the population axis); ``None`` leaves it to the default."""
     metadata = dict(kwargs.pop("metadata", {}) or {})
     metadata["static"] = static
     if storage is not None:
         metadata["storage"] = bool(storage)
+    if sharding is not None:
+        metadata["sharding"] = sharding
     return dataclasses.field(metadata=metadata, **kwargs)
 
 

@@ -60,13 +60,26 @@
 // fitness, words and counts, so each member's output is what the
 // single-member launch writes, bit for bit.
 //
+// Rows form (the mesh-sharded sort's slab, one launch a shard): a slab of
+// R dominator rows (rows, +inf-padded by the caller) against the full
+// fitness (n columns). Block (bx, by) takes the rows of words [by * TILE,
+// ...) of the slab against the columns of words [bx * TILE, ...) of the
+// fitness; every block works (the two sides are different rows, so no
+// tile is another's transpose), and a warp's tile writes only
+//   packed[w][32v + l] = a & ~transpose(b)
+// with a built from slab rows against fitness columns and b from fitness
+// rows against slab columns, as above. The slab's words are (ceil(R/32),
+// n) and its counts (n,) the popcounts of their columns: the concatenated
+// slabs of a padded fitness are the full matrix's words (then zero words),
+// and the slabs' counts sum to the full counts.
+//
 // Numerics. Plain IEEE compares, as in the JAX package: a NaN objective
 // makes L false both ways, so a NaN row dominates nothing and is dominated
 // by nothing.
 //
-// C interface (loaded with ctypes): evox_packed_dominance and
-// evox_packed_dominance_batched return cudaGetLastError() after the
-// launch; 0 means launched.
+// C interface (loaded with ctypes): evox_packed_dominance,
+// evox_packed_dominance_batched and evox_packed_dominance_rows return
+// cudaGetLastError() after the launch; 0 means launched.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -215,6 +228,67 @@ dominance_kernel(const float* __restrict__ fit, int n, int m, int n_words,
   }
 }
 
+// The rows form: slab rows [0, r) of `rows` (word rows by * TILE ..)
+// against fitness columns (word columns bx * TILE ..); rows past r and
+// columns past n are NaN.
+template <int M>
+__global__ void __launch_bounds__(kThreads, M > 0 ? 6 : 8)
+dominance_rows_kernel(const float* __restrict__ rows, int r, const float* __restrict__ fit,
+                      int n, int m, int* __restrict__ packed, int* __restrict__ count) {
+  constexpr int TILE = TileWords<M>::value;
+  const int W0 = blockIdx.y * TILE, V0 = blockIdx.x * TILE;
+  extern __shared__ __align__(16) float smem[];
+  const int stride = M > 0 ? RowOf<(M > 0 ? M : 4)>::kStride : m;
+  const int r_words = (r + 31) / 32, n_words = (n + 31) / 32;
+  const int wn = min(TILE, r_words - W0), vn = min(TILE, n_words - V0);
+  float* xs_w = smem;
+  float* xs_v = smem + 32 * TILE * stride;
+  int* cnt_v = reinterpret_cast<int*>(xs_v + 32 * TILE * stride);
+  stage_rows(rows, r, m, stride, W0, wn, xs_w);
+  stage_rows(fit, n, m, stride, V0, vn, xs_v);
+  for (int t = threadIdx.x; t < 32 * TILE; t += kThreads) cnt_v[t] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < TILE * TILE; t += kWarps) {
+    const int wi = t / TILE, vi = t % TILE;
+    if (wi >= wn || vi >= vn) continue;
+    const int w = W0 + wi, v = V0 + vi;
+    unsigned a = 0, b = 0;  // bit k: L[slab 32w + k][col 32v + lane], L[col 32v + k][slab 32w + lane]
+    if constexpr (M > 0) {
+      using Row = typename RowOf<M>::T;
+      const Row* rw = reinterpret_cast<const Row*>(xs_w) + 32 * wi;
+      const Row* rv = reinterpret_cast<const Row*>(xs_v) + 32 * vi;
+      const Row yv = rv[lane], yw = rw[lane];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        if (le_all<M>(rw[k], yv)) a |= 1u << k;
+        if (le_all<M>(rv[k], yw)) b |= 1u << k;
+      }
+    } else {
+      const float* rw = xs_w + 32 * wi * m;
+      const float* rv = xs_v + 32 * vi * m;
+      const float* yv = rv + lane * m;
+      const float* yw = rw + lane * m;
+#pragma unroll 2
+      for (int k = 0; k < 32; ++k) {
+        a |= static_cast<unsigned>(le_all_generic(rw + k * m, yv, m)) << k;
+        b |= static_cast<unsigned>(le_all_generic(rv + k * m, yw, m)) << k;
+      }
+    }
+    const unsigned bt = transpose32(b, lane);
+    const unsigned d = a & ~bt;  // packed[w][32v + lane]
+    const int jv = 32 * v + lane;
+    if (jv < n) packed[(long long)w * n + jv] = static_cast<int>(d);
+    atomicAdd(cnt_v + 32 * vi + lane, __popc(d));
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < 32 * TILE; t += kThreads) {
+    const int jv = 32 * V0 + t;
+    if (jv < n && cnt_v[t]) atomicAdd(count + jv, cnt_v[t]);
+  }
+}
+
 // the shared-memory floats a row takes in an instance
 int row_stride(int instance, int m) {
   return instance == 0 ? m : instance == 1 ? 1 : instance == 2 ? 2 : 4;
@@ -281,6 +355,41 @@ extern "C" int evox_packed_dominance_batched(const void* fitness, int batch, int
 extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* packed,
                                      void* count, void* stream, int instance, int grid) {
   return evox_packed_dominance_batched(fitness, 1, n, m, packed, count, stream, instance, grid);
+}
+
+// The rows form: rows (r, m) against fitness (n, m); packed (ceil(r/32),
+// n), count (n,). grid_x = ceil(ceil(n / 32) / tile_words), grid_y =
+// ceil(ceil(r / 32) / tile_words) for the instance's super-tile
+// (kernels/dominance.py::rows_launch_plan).
+extern "C" int evox_packed_dominance_rows(const void* rows, int r, const void* fitness, int n,
+                                          int m, void* packed, void* count, void* stream,
+                                          int instance, int grid_x, int grid_y) {
+  const int n_words = (n + 31) / 32, r_words = (r + 31) / 32;
+  if (r <= 0 || n <= 0 || m <= 0 || m > kMaxM || !(instance == 0 || instance == m) ||
+      instance > 4 || grid_x != (n_words + tile_words(instance) - 1) / tile_words(instance) ||
+      grid_y != (r_words + tile_words(instance) - 1) / tile_words(instance) ||
+      grid_y > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* counts = static_cast<int*>(count);
+  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(n), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* rw = static_cast<const float*>(rows);
+  const float* fit = static_cast<const float*>(fitness);
+  int* words = static_cast<int*>(packed);
+  const dim3 g(grid_x, grid_y);
+  // the slab's rows, the fitness's rows and the column counters
+  const size_t smem = sizeof(float) * 2 * 32 * tile_words(instance) * row_stride(instance, m) +
+                      sizeof(int) * 32 * tile_words(instance);
+  switch (instance) {
+    case 1: dominance_rows_kernel<1><<<g, kThreads, smem, st>>>(rw, r, fit, n, m, words, counts); break;
+    case 2: dominance_rows_kernel<2><<<g, kThreads, smem, st>>>(rw, r, fit, n, m, words, counts); break;
+    case 3: dominance_rows_kernel<3><<<g, kThreads, smem, st>>>(rw, r, fit, n, m, words, counts); break;
+    case 4: dominance_rows_kernel<4><<<g, kThreads, smem, st>>>(rw, r, fit, n, m, words, counts); break;
+    default: dominance_rows_kernel<0><<<g, kThreads, smem, st>>>(rw, r, fit, n, m, words, counts); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the runtime's blocks an SM and registers a thread of an instance, at the

@@ -11,6 +11,8 @@ from .dominance import (
     packed_dominance_batched,
     packed_dominance_batched_reference,
     packed_dominance_reference,
+    packed_dominance_rows,
+    packed_dominance_rows_reference,
 )
 from .rollout import (
     SoAEnv,
@@ -30,6 +32,7 @@ from .rollout_mlp import (
     fused_rollout_analysis,
     mlp_rollout_work,
 )
+from .smallmm import smallmm_plain, smallmm_work
 from .topk import (
     default_use_kernel,
     partial_topk,
@@ -62,10 +65,14 @@ __all__ = [
     "packed_dominance_batched",
     "packed_dominance_batched_reference",
     "packed_dominance_reference",
+    "packed_dominance_rows",
+    "packed_dominance_rows_reference",
     "partial_topk",
     "partial_topk_reference",
     "pendulum_soa",
     "rollout_work",
+    "smallmm_plain",
+    "smallmm_work",
     "topk_work",
     "total_order_key",
 ]

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES: Dict[str, Path] = {
-    name: CSRC / f"{name}.cu" for name in ("rollout", "rollout_mlp", "dominance", "topk", "digest")
+    name: CSRC / f"{name}.cu"
+    for name in ("rollout", "rollout_mlp", "dominance", "topk", "digest", "smallmm")
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -30,6 +30,15 @@ single-member plain version stacked over members). ``packed_dominance``
 called under ``torch.func.vmap`` (stacked members,
 :mod:`evox_tpu_torch.core.members`) goes through a ``torch.library``
 custom op whose ``vmap`` rule makes that one batched call.
+
+**Rows form.** ``packed_dominance_rows(rows, fitness)`` compares a slab of
+dominator rows ``(r, m)`` against the full fitness ``(n, m)`` and returns
+the slab's ``(ceil(r/32), n)`` words and its ``(n,)`` partial counts: the
+mesh-sharded sort (``operators/selection/non_dominate.py``) launches it
+once a shard on the shard's ``+inf``-padded rows. In the JAX package the
+slab is ``dominate_relation`` + ``pack_dominator_rows`` outside Pallas
+(``evox_tpu/kernels/dominance.py:88-102``); here it is a launch of B3's
+rows kernel, with ``packed_dominance_rows_reference`` its plain version.
 """
 
 from __future__ import annotations
@@ -262,6 +271,110 @@ def _launch_batched(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     nbytes, ops = dominance_work(n, m)
     charge("packed_dominance", b * ops, b * nbytes)
     return packed, count
+
+
+def dominance_rows_work(r: int, n: int, m: int) -> Tuple[int, int]:
+    """(bytes, operations) of a slab of ``r`` dominator rows against ``n``
+    columns: both row sets read once, the slab's words and counts written
+    once; about 3m operations a (row, column) pair, as
+    :func:`dominance_work` counts."""
+    r_words = (r + 31) // 32
+    return 4 * (r * m + n * m + r_words * n + n), 3 * m * r * n
+
+
+def rows_launch_plan(r: int, n: int, m: int) -> dict:
+    """The rows kernel's launch: :func:`launch_plan`'s instance and tile,
+    a grid of ``ceil(n_words / tile)`` x ``ceil(r_words / tile)`` blocks,
+    every one of which works."""
+    plan = launch_plan(n, m)
+    r_words = -(-r // 32)
+    gy = -(-r_words // plan["tile_words"])
+    return {"instance": plan["instance"], "threads": THREADS, "tile_words": plan["tile_words"],
+            "grid": (plan["grid"][0], gy), "working_blocks": plan["grid"][0] * gy,
+            "r_words": r_words, "n_words": plan["n_words"]}
+
+
+def packed_dominance_rows_reference(rows: torch.Tensor, fitness: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain rows form: ``dominate_relation(rows, fitness)`` packed into
+    ``(ceil(r/32), n)`` words, and their column popcounts."""
+    packed = pack_dominator_rows(dominate_relation(rows, fitness), (rows.shape[0] + 31) // 32)
+    return packed, column_popcount(packed)
+
+
+def _launch_rows(rows: torch.Tensor, fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    r, m = rows.shape
+    n = fitness.shape[0]
+    if m > MAX_OBJECTIVES:
+        raise ValueError(
+            f"the packed_dominance kernel takes at most {MAX_OBJECTIVES} objectives, got {m}"
+        )
+    rw, fit = rows.contiguous(), fitness.contiguous()
+    packed = torch.empty(((r + 31) // 32, n), dtype=torch.int32, device=fit.device)
+    count = torch.empty((n,), dtype=torch.int32, device=fit.device)
+    if n == 0 or r == 0:
+        return packed.zero_(), count.zero_()
+    plan = rows_launch_plan(r, n, m)
+    if plan["grid"][1] > 65535:
+        raise ValueError(f"packed_dominance_rows takes at most {65535 * 32 * plan['tile_words']} "
+                         f"rows a slab, got {r}")
+    fn = _build.function("dominance", "evox_packed_dominance_rows", [
+        ctypes.c_void_p,  # rows (r, m) float32
+        ctypes.c_int,  # r
+        ctypes.c_void_p,  # fitness (n, m) float32
+        ctypes.c_int,  # n
+        ctypes.c_int,  # m
+        ctypes.c_void_p,  # packed (ceil(r/32), n) int32
+        ctypes.c_void_p,  # count (n,) int32
+        ctypes.c_void_p,  # cudaStream_t
+        ctypes.c_int,  # instance
+        ctypes.c_int,  # grid x
+        ctypes.c_int,  # grid y
+    ])
+    with torch.cuda.device(fit.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(rw.data_ptr(), r, fit.data_ptr(), n, m, packed.data_ptr(), count.data_ptr(),
+                 stream, plan["instance"], plan["grid"][0], plan["grid"][1])
+    _build.check_launch("dominance", err, "packed_dominance_rows")
+    packed_dominance_rows.launches += 1
+    nbytes, ops = dominance_rows_work(r, n, m)
+    charge("packed_dominance_rows", ops, nbytes)
+    return packed, count
+
+
+def packed_dominance_rows(rows: torch.Tensor, fitness: torch.Tensor, device: DeviceLike = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dominance words of a slab of dominator rows against every row.
+
+    Args:
+        rows: ``(r, m)`` float32 dominator rows (a shard's slab; ``+inf``
+            padding rows dominate nothing).
+        fitness: ``(n, m)`` float32, the full fitness.
+        device: where both lie; ``None`` means ``"cuda"``. On ``cuda`` the
+            rows kernel runs; on ``cpu``, ``packed_dominance_rows_reference``.
+
+    ``packed_dominance_rows.launches`` counts kernel launches.
+
+    Returns:
+        ``(packed, count)``: int32 ``(ceil(r/32), n)`` words (bit ``k`` of
+        ``packed[w, j]``: slab row ``32w + k`` dominates row ``j``) and the
+        int32 ``(n,)`` popcounts of their columns.
+    """
+    dev = resolve_device(device)
+    _check_fitness(rows)
+    _check_fitness(fitness)
+    if rows.shape[1] != fitness.shape[1]:
+        raise ValueError(f"rows have {rows.shape[1]} objectives, fitness {fitness.shape[1]}")
+    check_device(rows, dev, "rows")
+    check_device(fitness, dev, "fitness")
+    if dev.type == "cpu":
+        return packed_dominance_rows_reference(rows, fitness)
+    if dev.type == "cuda":
+        return _launch_rows(rows, fitness)
+    raise ValueError(f"packed_dominance runs on cuda or cpu, not {dev}")
+
+
+packed_dominance_rows.launches = 0
 
 
 def packed_dominance_batched_reference(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -21,8 +21,16 @@ the host once per front round for all of them; each member's ranks and cut
 equal its own sort's. There ``return_cut_rank`` gives the cut as a 0-d
 tensor, and the selections that use it stay on the device.
 
-The JAX package's ``mesh=`` (the row-sharded sort) waits for the scale-out
-slice (ROADMAP A11): passing one raises ``NotImplementedError``.
+**The mesh-sharded sort** (``mesh=`` with a ``"pop"`` axis of D > 1
+shards, :mod:`evox_tpu_torch.core.distributed`): the dominator rows are
+padded with ``+inf`` rows (which dominate nothing) to ``32·D`` granularity,
+and shard ``s`` builds its slab of ``words_per = ceil(n_words / D)`` words
+with one launch of B3's rows form (``packed_dominance_rows``) on its own
+device, comparing its rows against the full fitness. Each peel's delta is
+the ``psum`` (a sum in mesh order) of the shards' slab popcounts, and the
+counts the ``psum`` of the slabs' partial counts. Everything is integer, so
+ranks and the cut equal the unsharded sort's, and the JAX package's sharded
+sort's, exactly.
 """
 
 from __future__ import annotations
@@ -31,12 +39,14 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
+from ...core.distributed import POP_AXIS, psum, require_single_process
 from ...core.members import is_batched
 from ...kernels.dominance import (
     column_popcount,
     pack_dominator_rows,
     packed_dominance,
     packed_dominance_batched,
+    packed_dominance_rows,
 )
 from ...kernels.topk import default_use_kernel, partial_topk
 from ...utils.common import lexsort
@@ -44,9 +54,10 @@ from ...utils.common import lexsort
 INF = float("inf")
 
 
-def _refuse_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded sort is not ported yet (ROADMAP A11)")
+def _mesh_axis_size(mesh: Any, axis_name: str) -> int:
+    if mesh is None:
+        return 1
+    return mesh.shape.get(axis_name, 1)
 
 
 def _pack_front(front: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -142,11 +153,42 @@ def _sort_vmap(info: Any, in_dims: Tuple[Any, ...], fitness: torch.Tensor, stop:
     return (rank.reshape(lead + rank.shape[1:]), cut.reshape(lead)), (0, 0)
 
 
+def _non_dominated_sort_sharded(fitness: torch.Tensor, mesh: Any, stop: int,
+                                axis_name: str) -> Tuple[torch.Tensor, int]:
+    """The mesh-sharded sort (module docstring): one B3 rows launch a shard
+    on its own device, and a ``psum`` of the shards' popcounts a peel.
+    Returns ``(rank, cut)`` on the fitness's device."""
+    require_single_process(mesh, "non_dominated_sort(mesh=)")
+    n, m = fitness.shape
+    devices = mesh.axis_devices(axis_name)
+    D = len(devices)
+    n_words = (n + 31) // 32
+    words_per = -(-n_words // D)
+    rows_pad = words_per * D * 32
+    fill = torch.full((rows_pad - n, m), INF, dtype=fitness.dtype, device=fitness.device)
+    fit_rows = torch.cat([fitness, fill])
+    slabs, counts = [], []
+    for s, dev in enumerate(devices):
+        local_rows = fit_rows[s * words_per * 32:(s + 1) * words_per * 32].to(dev)
+        packed_local, count_local = packed_dominance_rows(local_rows, fitness.to(dev), device=dev)
+        slabs.append(packed_local)
+        counts.append(count_local)
+    count = psum(counts, fitness.device)
+
+    def delta_fn(front_words: torch.Tensor) -> torch.Tensor:
+        return psum([column_popcount(
+            slab & front_words[s * words_per:(s + 1) * words_per].to(slab.device)[:, None])
+            for s, slab in enumerate(slabs)], fitness.device)
+
+    return _peel_fronts(count, stop, words_per * D, delta_fn)
+
+
 def non_dominated_sort(
     fitness: torch.Tensor,
     until: Optional[int] = None,
     return_cut_rank: bool = False,
     mesh: Any = None,
+    axis_name: str = POP_AXIS,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, int]]:
     """Pareto rank of each row of ``fitness`` ``(n, m)``; rank 0 is the
     non-dominated front (minimisation).
@@ -156,12 +198,20 @@ def non_dominated_sort(
     also returns the rank at which the cumulative front sizes first reach
     ``until`` (the worst admitted rank of environmental selection), as a
     Python int (a 0-d tensor under ``torch.func.vmap``).
+
+    ``mesh`` (with a ``axis_name`` axis of more than one shard): the
+    row-sharded sort (module docstring), with the same ranks and cut.
     """
-    _refuse_mesh(mesh)
     n = fitness.shape[0]
     stop = n if until is None else min(until, n)
     if is_batched(fitness):  # stacked members: one batched sort (the vmap rule)
+        if _mesh_axis_size(mesh, axis_name) > 1:
+            raise ValueError("the mesh-sharded sort takes one member's fitness, not stacked "
+                             "members (the batched sort is one launch for all of them)")
         rank, cut = _sort_op(fitness, stop)
+        return (rank, cut) if return_cut_rank else rank
+    if _mesh_axis_size(mesh, axis_name) > 1:
+        rank, cut = _non_dominated_sort_sharded(fitness, mesh, stop, axis_name)
         return (rank, cut) if return_cut_rank else rank
     n_words = (n + 31) // 32
     dom_packed, count = packed_dominance(fitness, device=fitness.device)
@@ -292,7 +342,6 @@ class NonDominate:
     """Class-form environmental selector."""
 
     def __init__(self, topk: int, deduplicate: bool = False, mesh: Any = None):
-        _refuse_mesh(mesh)
         self.topk = topk
         self.deduplicate = deduplicate
         self.mesh = mesh

@@ -4,6 +4,7 @@ from .islands import IslandWorkflow, IslandWorkflowState
 from .journal import ChainedLog, JournalIntegrityError, RunJournal
 from .pipelined import chunked_evaluate, run_host_pipelined
 from .std import StdWorkflow, StdWorkflowState
+from .supervisor import DispatchDeadlineError, RunAbortedError, RunSupervisor, classify_error
 from .surrogate import SurrogateWorkflow, SurrogateWorkflowState
 from .tenancy import (
     RunQueue,
@@ -16,6 +17,10 @@ from .tenancy import (
 
 __all__ = [
     "ChainedLog",
+    "DispatchDeadlineError",
+    "RunAbortedError",
+    "RunSupervisor",
+    "classify_error",
     "CheckpointConfigError",
     "FlightRecorder",
     "IslandWorkflow",

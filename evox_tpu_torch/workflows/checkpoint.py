@@ -28,9 +28,16 @@ tensors: a bfloat16 leaf keeps its dtype and bits);
 :func:`restore_layouts` places it on the workflow's device. Every random
 draw of the port comes from an integer seed in the state, so a snapshot
 carries the draws to come: a run resumed from generation K reproduces
-the straight run's final state bit for bit. The manifest records process
-count 1 and the device's name; the multi-process barrier and the
-per-leaf sharding record wait for ROADMAP A11.
+the straight run's final state bit for bit. The manifest records the
+saving device, the process count and, for provenance, each leaf's
+non-replicated ``field(sharding=...)`` annotation; the snapshot itself is
+mesh-free host data, and :func:`restore_layouts` places it on the
+restoring workflow's mesh (or by an explicit tree of shardings), so a run
+saved on an 8-shard mesh resumes on 4 or on 1.
+
+In a process group (``core/distributed.py``) every process calls
+``save``, only process 0 writes, and a store barrier holds the others
+until the manifest, the commit record, is durable.
 """
 
 from __future__ import annotations
@@ -144,11 +151,47 @@ def _device_name(state: Any) -> str:
     return "cpu"
 
 
-def restore_layouts(state: Any, device: DeviceLike = None) -> Any:
+def restore_layouts(state: Any, device: DeviceLike = None, mesh: Any = None,
+                    state_sharding: Any = None) -> Any:
     """A restored host snapshot with every tensor placed on ``device``
-    (``None`` means ``"cuda"``), dtypes and bits unchanged."""
+    (``None`` means ``"cuda"``), dtypes and bits unchanged; then, with
+    ``state_sharding`` (a tree of ``NamedSharding`` over the state's
+    leaves), each leaf on its sharding's mesh, else with ``mesh`` each leaf
+    where its ``field(sharding=...)`` annotation puts it on that mesh
+    (``core/distributed.py``'s ``place_state``)."""
+    from ..core.distributed import place_by_sharding, place_state
+
     dev = resolve_device(device)
-    return map_tensors(lambda t: t.to(dev), state)
+    state = map_tensors(lambda t: t.to(dev), state)
+    if state_sharding is not None:
+        return place_by_sharding(state, state_sharding)
+    return place_state(state, mesh)
+
+
+def leaf_shardings(state: Any) -> dict:
+    """``{path: spec}`` of the leaves whose ``field(sharding=...)``
+    annotation splits them: the manifest's provenance record."""
+    from ..core.distributed import annotation_specs
+
+    specs = dict(_named_specs(annotation_specs(state)))
+    return {path: repr(spec) for path, spec in specs.items() if any(a is not None for a in spec)}
+
+
+def _named_specs(tree: Any, prefix: str = "") -> list:
+    import dataclasses
+
+    from ..core.distributed import P
+
+    if isinstance(tree, P):
+        return [(prefix, tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree)
+                for x in _named_specs(getattr(tree, f.name), f"{prefix}.{f.name}")]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_specs(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named_specs(v, f"{prefix}[{i}]")]
+    return []
 
 
 def chunk_to_boundary(state: Any, checkpointer: Optional["WorkflowCheckpointer"],
@@ -180,7 +223,8 @@ class WorkflowCheckpointer:
 
     _CONFIG = "checkpointer.json"
 
-    def __init__(self, directory: str, every: int = 10, keep: int = 3):
+    def __init__(self, directory: str, every: int = 10, keep: int = 3,
+                 barrier_timeout_s: Optional[float] = None):
         if every < 1:
             raise ValueError(f"every must be >= 1, got {every}")
         if keep < 1:
@@ -189,6 +233,15 @@ class WorkflowCheckpointer:
         self.directory.mkdir(parents=True, exist_ok=True)
         self.every = every
         self.keep = keep
+        self.barrier_timeout_s = barrier_timeout_s
+
+    def _commit_barrier(self) -> None:
+        from ..core.distributed import process_barrier
+
+        if self.barrier_timeout_s is None:
+            process_barrier()
+        else:
+            process_barrier(timeout_s=self.barrier_timeout_s)
 
     def _write_config(self) -> None:
         """Persist (every, keep) beside the snapshots, so that a resume that
@@ -204,11 +257,19 @@ class WorkflowCheckpointer:
     def write(self, host_state: Any, device_name: str = "cpu") -> Path:
         """Write a host state as ``ckpt_GGGGGGGG.pkl`` and then its
         ``.manifest.json`` (schema, generation, byte count, SHA-256, attest
-        digest, config fingerprint, the saving device), each durably; then
-        prune to ``keep``. It touches no device, so the executor runs it on
-        its background checkpoint lane."""
+        digest, config fingerprint, the saving device and the leaves'
+        sharding annotations), each durably; then prune to ``keep``. It
+        touches no device, so the executor runs it on its background
+        checkpoint lane. In a process group only process 0 writes; every
+        process meets at a barrier after the manifest is durable."""
+        from ..core.distributed import process_count, process_id
+
         gen = int(host_state.generation)
         path = self.directory / f"ckpt_{gen:08d}.pkl"
+        multiproc = process_count() > 1
+        if multiproc and process_id() != 0:
+            self._commit_barrier()  # wait for the writer's commit
+            return path
         payload = pickle.dumps(host_state, protocol=pickle.HIGHEST_PROTOCOL)
         _write_durable(path, payload, ".pkl.tmp")
         manifest = {
@@ -220,11 +281,14 @@ class WorkflowCheckpointer:
             "attest": {"digest": attest_digest_hex(host_state), "generation": gen},
             "config_sha": state_config_fingerprint(host_state),
             "config": state_config(host_state),
-            "save_topology": {"device": device_name, "process_count": 1},
+            "save_topology": {"device": device_name, "process_count": process_count(),
+                              "leaf_shardings": leaf_shardings(host_state)},
         }
         _write_durable(self._manifest_path(path), json.dumps(manifest).encode(), ".json.tmp")
         self._write_config()
         self._prune()
+        if multiproc:
+            self._commit_barrier()  # the others go on only after the commit
         return path
 
     def maybe_save(self, state: Any) -> Optional[Path]:

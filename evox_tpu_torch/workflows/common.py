@@ -51,15 +51,66 @@ def finish_step(
     return new_state.replace(monitors=tuple(mstates))
 
 
-def refuse_deferred(where: str, **arguments: Any) -> None:
-    """Raise for each argument given whose port waits for ROADMAP A11, the
-    scale-out and supervision slice (``None`` and ``False`` mean not
-    given)."""
+def refuse_deferred(where: str, item: str, **arguments: Any) -> None:
+    """Raise for each argument given whose port waits for the ROADMAP
+    ``item`` that names it (``None`` and ``False`` mean not given)."""
     for name, value in arguments.items():
         if value is not None and value is not False:
             raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet (ROADMAP A11)"
+                f"{where}({name}=...) is not ported yet (ROADMAP {item})"
             )
+
+
+def check_mesh(mesh: Any, algorithm: Any, device: Any, external: bool, eval_shard_map: bool,
+               allow_uneven_shards: bool) -> None:
+    """A workflow's mesh arguments, checked as the JAX package checks them:
+    ``eval_shard_map`` needs a mesh and a problem on the device; a host
+    problem cannot run under a mesh that spans processes; the population
+    must divide over the ``"pop"`` axis unless ``allow_uneven_shards``
+    (never with ``eval_shard_map``); the mesh's first device is the
+    workflow's."""
+    from ..core.distributed import POP_AXIS, mesh_spans_processes, require_single_process
+
+    if eval_shard_map and (mesh is None or external):
+        raise ValueError("eval_shard_map requires a mesh and a problem on the device")
+    if mesh is None:
+        return
+    if external and mesh_spans_processes(mesh):
+        raise ValueError(
+            "external (host) problems are single-process: under a mesh that spans processes "
+            "each process would call the host evaluate on its own shard against "
+            "unsynchronized host state; use a problem on the device for mesh parallelism")
+    require_single_process(mesh, "a workflow's mesh")
+    if mesh.controller.type != device.type:
+        raise ValueError(f"the mesh's first device is {mesh.controller}, the workflow's {device}")
+    n_shards = mesh.shape.get(POP_AXIS, 1)
+    pop_size = getattr(algorithm, "pop_size", None)
+    if pop_size is not None and pop_size % n_shards and (eval_shard_map or not allow_uneven_shards):
+        raise ValueError(
+            f"pop_size {pop_size} is not divisible by the mesh's 'pop' axis ({n_shards} "
+            "shards); pad the population, resize the mesh, or pass allow_uneven_shards=True "
+            "to accept unequal blocks")
+
+
+def shard_map_evaluate(problem: Any, mesh: Any, pstate: Any, cand: Any) -> Tuple[Any, Any]:
+    """``eval_shard_map``'s evaluation: each shard scores its block of the
+    candidates on its own device (the problem state replicated in), and the
+    fitness is gathered in mesh order; the problem state comes back
+    unchanged (the problem must be stateless or pure, as in the JAX
+    package)."""
+    from ..core.distributed import POP_AXIS, P, shard_map
+    from ..utils.common import tree_flatten
+
+    n_cand = next(x for x in tree_flatten(cand)[0] if isinstance(x, torch.Tensor)).shape[0]
+    n_shards = mesh.shape.get(POP_AXIS, 1)
+    if n_cand % n_shards:
+        raise ValueError(
+            f"eval_shard_map: the evaluated candidate batch ({n_cand}) is not divisible by the "
+            f"mesh's 'pop' axis ({n_shards} shards); evaluate without eval_shard_map for this "
+            "algorithm or resize the population or the mesh")
+    fitness = shard_map(lambda c: problem.evaluate(pstate, c)[0], mesh, (P(POP_AXIS),),
+                        P(POP_AXIS))(cand)
+    return fitness, pstate
 
 
 def fused_run(wf: Any, state: Any, n_steps: int) -> Any:
@@ -95,14 +146,25 @@ def ingest_fitness(
     use_init: bool,
 ) -> Any:
     """The tell half once the fitness is final (sign-flipped, quarantined):
-    fit_transforms → pre_tell hook → ``init_tell``/``tell`` dispatch. The
-    JAX package's migrate cond and sharding boundary wait for ROADMAP A11."""
+    fit_transforms → pre_tell hook → ``init_tell``/``tell`` dispatch → the
+    workflow's ``migrate_helper``, polled once a generation: when its
+    ``do_migrate`` holds, the algorithm's ``migrate`` takes the foreign
+    rows, their fitness sign-flipped to the internal minimisation (never
+    fit-transformed). ``do_migrate`` is read on the host (the JAX package's
+    ``lax.cond``)."""
     for t in wf.fit_transforms:
         fitness = t(fitness)
     run_hooks(wf.monitors, wf._hook_table, "pre_tell", mstates, fitness)
     if use_init:
-        return wf.algorithm.init_tell(astate, fitness)
-    return wf.algorithm.tell(astate, fitness)
+        astate = wf.algorithm.init_tell(astate, fitness)
+    else:
+        astate = wf.algorithm.tell(astate, fitness)
+    helper = getattr(wf, "migrate_helper", None)
+    if helper is not None:
+        do_migrate, foreign_pop, foreign_fit = helper()
+        if bool(do_migrate):
+            astate = wf.algorithm.migrate(astate, foreign_pop, wf._flip(foreign_fit))
+    return astate
 
 
 def quarantine_nonfinite(fitness: torch.Tensor) -> torch.Tensor:

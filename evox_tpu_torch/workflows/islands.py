@@ -39,8 +39,12 @@ fitness)`` states; PSO and the GA-skeleton MOEAs override it).
   and resumes under the config guard, as :meth:`StdWorkflow.run` (a
   snapshot of the older tuple form is refused by name).
 
-The JAX package's ``mesh`` waits for ROADMAP A11 and raises
-``NotImplementedError``. Its ``use_topk_kernel`` and ``topk_interpret``
+``mesh`` (a :class:`~evox_tpu_torch.core.distributed.Mesh` with a
+``"pop"`` axis) lays the island axis over the mesh's ``"pop"`` axis: the
+number of islands must divide over it, a host problem cannot run under a
+mesh that spans processes, and the stacked state is placed on the mesh
+(``place_pop``); the islands' one member call runs on the mesh's first
+device. The JAX package's ``use_topk_kernel`` and ``topk_interpret``
 have no counterpart: the tensor's device chooses, as in B4's wrapper.
 """
 
@@ -65,7 +69,6 @@ from .common import (
     finish_step,
     fused_run,
     host_evaluate,
-    refuse_deferred,
     run_hooks,
     step_loop,
 )
@@ -151,7 +154,6 @@ class IslandWorkflow:
                 "fit_transforms cannot be combined with island migration: "
                 "migrants carry raw fitness while tell stores shaped values"
             )
-        refuse_deferred("IslandWorkflow", mesh=mesh)
         self.device = resolve_device(device)
         for part in (algorithm, problem):
             dev = getattr(part, "device", None)
@@ -175,6 +177,20 @@ class IslandWorkflow:
         self.host_link = HostLink(self.device) if self.external else None
         self.dtype_policy = dtype_policy
         self.donate_carries = bool(donate_carries)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..core.distributed import POP_AXIS, mesh_spans_processes, require_single_process
+
+            if self.external and mesh_spans_processes(mesh):
+                raise ValueError(
+                    "external (host) problems are single-process: under a mesh that spans "
+                    "processes each process would evaluate its own islands against "
+                    "unsynchronized host state; run islands on a process-local mesh")
+            require_single_process(mesh, "IslandWorkflow(mesh=)")
+            n_shards = mesh.shape.get(POP_AXIS, 1)
+            if n_islands % n_shards:
+                raise ValueError(f"n_islands {n_islands} is not divisible by the mesh's 'pop' "
+                                 f"axis ({n_shards} shards)")
         #: ``"vmap"`` (one call for all islands) or ``"loop"`` (an algorithm
         #: with ``stackable = False``)
         self.member_route = member_route(algorithm)
@@ -190,8 +206,14 @@ class IslandWorkflow:
             monitors=tuple(m.init(s) for m, s in zip(self.monitors, seeds[2:])),
             first_step=True,
         )
-        # the island states rest at storage width from the start
-        return apply_storage(state, self.dtype_policy)
+        # the island states rest at storage width from the start, the
+        # island axis over the mesh's "pop" axis
+        state = apply_storage(state, self.dtype_policy)
+        if self.mesh is None:
+            return state
+        from ..core.distributed import place_pop
+
+        return state.replace(algo=place_pop(state.algo, self.mesh))
 
     # ------------------------------------------------------------------ step
     def step(self, state: IslandWorkflowState) -> IslandWorkflowState:

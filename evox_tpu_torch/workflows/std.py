@@ -19,8 +19,20 @@ ROADMAP A3).
 - ``run(restarts=IPOPRestarts(...))`` adds IPOP's population doubling
   between segments (``workflows/ipop.py``).
 
-The JAX package's ``mesh``, ``eval_shard_map`` and ``migrate_helper`` wait
-for ROADMAP A11: passing one raises ``NotImplementedError``.
+- ``mesh`` (a :class:`~evox_tpu_torch.core.distributed.Mesh` with a
+  ``"pop"`` axis): the state is placed by its ``field(sharding=...)``
+  annotations (:func:`~evox_tpu_torch.core.distributed.place_state`), the
+  population must divide over the axis unless ``allow_uneven_shards``, and
+  with ``eval_shard_map`` each shard scores its block of candidates on its
+  own device and the fitness is gathered in mesh order. Row-independent
+  problems give the unsharded fitness bit for bit. ``resume(state_sharding=)``
+  places a restored snapshot by an explicit tree of shardings, and a
+  snapshot taken on one mesh resumes on another.
+
+- ``migrate_helper``, a callable ``() -> (do_migrate, foreign_pop,
+  foreign_fitness)`` polled once a generation after the tell: when
+  ``do_migrate`` holds, ``algorithm.migrate`` takes the foreign rows (the
+  JAX package's human-in-the-loop migration slot).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import torch
 
 from ..core.algorithm import Algorithm
 from ..core.device import DeviceLike, resolve_device
+from ..core.distributed import place_state
 from ..core.dtype_policy import DtypePolicy, apply_compute, apply_storage
 from ..core.monitor import Monitor
 from ..core.problem import Problem
@@ -40,13 +53,14 @@ from .checkpoint import WorkflowCheckpointer, checkpointed_run, enter_run, resto
 from .common import (
     HostLink,
     build_hook_table,
+    check_mesh,
     finish_step,
     fused_run,
     host_evaluate,
     ingest_fitness,
     quarantine_nonfinite,
-    refuse_deferred,
     run_hooks,
+    shard_map_evaluate,
     step_loop,
 )
 
@@ -108,16 +122,14 @@ class StdWorkflow:
         mesh: Any = None,
         external_problem: Optional[bool] = None,
         eval_shard_map: bool = False,
+        allow_uneven_shards: bool = False,
         migrate_helper: Optional[Callable] = None,
         dtype_policy: Any = None,
         donate_carries: bool = False,
     ):
-        refuse_deferred(
-            "StdWorkflow",
-            mesh=mesh,
-            eval_shard_map=eval_shard_map,
-            migrate_helper=migrate_helper,
-        )
+        if migrate_helper is not None and fit_transforms:
+            raise ValueError("migrate_helper cannot be combined with fit_transforms: migrants "
+                             "carry raw fitness while tell stores shaped values")
         if dtype_policy is not None and not isinstance(dtype_policy, DtypePolicy):
             raise TypeError(f"dtype_policy must be a DtypePolicy, got {type(dtype_policy).__name__}")
         self.device = resolve_device(device)
@@ -140,12 +152,18 @@ class StdWorkflow:
         self.host_link = HostLink(self.device) if self.external else None
         self.dtype_policy = dtype_policy
         self.donate_carries = bool(donate_carries)
+        self.mesh = mesh
+        self.eval_shard_map = bool(eval_shard_map)
+        self.migrate_helper = migrate_helper
+        check_mesh(mesh, algorithm, self.device, self.external, self.eval_shard_map,
+                   allow_uneven_shards)
         self._ctor_args = dict(
             problem=problem, monitors=self.monitors, opt_direction=opt_direction,
             pop_transforms=self.pop_transforms, fit_transforms=self.fit_transforms,
             quarantine_nonfinite=quarantine_nonfinite, device=device,
             external_problem=self.external, dtype_policy=dtype_policy,
-            donate_carries=donate_carries,
+            donate_carries=donate_carries, mesh=mesh, eval_shard_map=eval_shard_map,
+            allow_uneven_shards=allow_uneven_shards, migrate_helper=migrate_helper,
         )
         for m in self.monitors:
             m.set_opt_direction(self.opt_direction)
@@ -196,8 +214,8 @@ class StdWorkflow:
             first_step=True,
         )
         # storage-annotated leaves rest in the storage dtype from the first
-        # state on
-        return apply_storage(state, self.dtype_policy)
+        # state on; on a mesh, each leaf where its annotation puts it
+        return place_state(apply_storage(state, self.dtype_policy), self.mesh)
 
     # ------------------------------------------------------------------ step
     def step(self, state: StdWorkflowState) -> StdWorkflowState:
@@ -274,9 +292,12 @@ class StdWorkflow:
         population size or monitor set raises
         :class:`~evox_tpu_torch.workflows.checkpoint.CheckpointConfigError`
         unless ``allow_config_mismatch=True`` (the guard's reference is
-        ``fallback_state``, else ``init(0)``). ``state_sharding`` waits for
-        ROADMAP A11."""
-        refuse_deferred("StdWorkflow.resume", state_sharding=state_sharding)
+        ``fallback_state``, else ``init(0)``). The snapshot is placed on
+        this workflow's mesh by the state's annotations, or leaf by leaf by
+        ``state_sharding`` (a tree of
+        :class:`~evox_tpu_torch.core.distributed.NamedSharding` from
+        ``state_sharding()``): a run saved on one mesh resumes on
+        another."""
         expect_like = fallback_state if fallback_state is not None else self.init(0)
         state = checkpointer.latest(expect_like=expect_like,
                                     allow_config_mismatch=allow_config_mismatch)
@@ -288,7 +309,8 @@ class StdWorkflow:
                 )
             state = fallback_state
         else:
-            state = restore_layouts(state, self.device)
+            state = restore_layouts(state, self.device, mesh=self.mesh,
+                                    state_sharding=state_sharding)
         return self.run(state, max(n_steps - int(state.generation), 0),
                         checkpointer=checkpointer)
 
@@ -350,6 +372,8 @@ class StdWorkflow:
     def _evaluate(self, pstate: Any, cand: Any) -> Tuple[torch.Tensor, Any]:
         if self.external:
             return host_evaluate(self.problem, self.host_link, pstate, cand)
+        if self.eval_shard_map:
+            return shard_map_evaluate(self.problem, self.mesh, pstate, cand)
         return self.problem.evaluate(pstate, cand)
 
     # ----------------------------------------------- pipelined step halves

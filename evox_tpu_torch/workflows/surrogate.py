@@ -28,8 +28,12 @@ eager PyTorch needs the row count on the host:
   ``step`` loop and a resumed run the straight one.
 
 Disabled (``surrogate=None`` or ``screen_frac=1.0``) is ``StdWorkflow``
-unchanged, bit for bit. ``mesh`` and ``eval_shard_map`` wait for ROADMAP
-A11 and raise ``NotImplementedError``, as the executor's supervisor does.
+unchanged, bit for bit. ``mesh`` is ``StdWorkflow``'s; ``eval_shard_map``
+composes only with screening off (the evaluated rows of a screened
+generation are a slice the per-shard blocks cannot tile). Under a
+``RunSupervisor`` (``workflows/supervisor.py``) a screened run is retried
+and replayed like any other, and the OOM rung's halved ``eval_chunk``
+reaches :meth:`SurrogateWorkflow.host_evaluate`.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from ..core.struct import PyTreeNode
 from ..operators.surrogate import SurrogateArchive, spearman_correlation
 from ..utils.common import fold_in_seed, tree_flatten, tree_map
 from ..utils.ring import ring_slots, ring_write
-from .common import finish_step, host_candidates, ingest_fitness, quarantine_nonfinite, refuse_deferred
+from .common import finish_step, host_candidates, ingest_fitness, quarantine_nonfinite
 from .std import StdWorkflow, StdWorkflowState
 
 __all__ = [
@@ -165,8 +169,6 @@ class SurrogateWorkflow(StdWorkflow):
         fallback_log: int = 64,
         **std_kwargs: Any,
     ):
-        refuse_deferred("SurrogateWorkflow", mesh=std_kwargs.get("mesh"),
-                        eval_shard_map=std_kwargs.get("eval_shard_map"))
         if not (0.0 < screen_frac <= 1.0):
             raise ValueError(f"screen_frac must be in (0, 1], got {screen_frac}")
         if refit_every < 1:
@@ -186,6 +188,10 @@ class SurrogateWorkflow(StdWorkflow):
         self.unc_ceiling = float(unc_ceiling) if unc_ceiling is not None else None
         self.fallback_log = int(fallback_log)
         self._screening = surrogate is not None and self.screen_frac < 1.0
+        if self._screening and std_kwargs.get("eval_shard_map"):
+            raise ValueError(
+                "surrogate screening cannot compose with eval_shard_map: the truly evaluated "
+                "rows are a slice the per-shard blocks cannot tile; evaluate without it")
         super().__init__(algorithm, problem, **std_kwargs)
         self._sur_kwargs = dict(
             surrogate=surrogate, screen_frac=screen_frac, archive_capacity=archive_capacity,

@@ -31,10 +31,12 @@ Hyperparameters are bound as attributes on a shallow copy of the template
 tensor slice: only values the algorithm reads as tensors in ``init``,
 ``ask`` or ``tell`` can vary per tenant.
 
-Not ported here: ``mesh=`` and ``rules=`` (the (TENANT, POP) layout,
-ROADMAP A11), a RunQueue's ``supervisor=`` (A11) and ``health_policy=``
-(``fleet_health.py``, A13), and ``release_continuation`` (the control
-plane's steal, A13). Each raises ``NotImplementedError`` naming its item.
+``mesh=`` and ``rules=`` lay the fleet out on a (TENANT, POP) mesh
+(``core/distributed.py``), and a RunQueue's ``supervisor=`` dispatches its
+chunks under a ``RunSupervisor``. Not ported here: a RunQueue's
+``health_policy=`` (``fleet_health.py``, A13) and ``release_continuation``
+(the control plane's steal, A13). Each raises ``NotImplementedError``
+naming its item.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import torch
 from ..core.algorithm import Algorithm
 from ..core.attest import IntegrityError
 from ..core.device import DeviceLike, resolve_device
+from ..core.distributed import POP_AXIS, TENANT_AXIS, require_single_process
 from ..core.dtype_policy import DtypePolicy, apply_compute, apply_storage
 from ..core.members import (
     member_call,
@@ -141,6 +144,24 @@ def _tenant_seeds(seed: Any, n: int) -> List[int]:
     return seeds
 
 
+def _check_fleet_mesh(mesh: Any, n_tenants: int, pop_size: Optional[int]) -> None:
+    """The (TENANT, POP) mesh's checks, as the JAX package makes them."""
+    require_single_process(mesh, "VectorizedWorkflow(mesh=)")
+    if TENANT_AXIS not in mesh.axis_names:
+        raise ValueError(
+            f"VectorizedWorkflow mesh must carry a '{TENANT_AXIS}' axis (got axes "
+            f"{tuple(mesh.axis_names)}); build it with create_mesh((TENANT_AXIS, POP_AXIS), "
+            "devices=..., shape=(t, p))")
+    t_shards = mesh.shape[TENANT_AXIS]
+    if n_tenants % t_shards:
+        raise ValueError(f"n_tenants {n_tenants} is not divisible by the mesh's "
+                         f"'{TENANT_AXIS}' axis ({t_shards} shards)")
+    p_shards = mesh.shape.get(POP_AXIS, 1)
+    if pop_size is not None and pop_size % p_shards:
+        raise ValueError(f"pop_size {pop_size} is not divisible by the mesh's '{POP_AXIS}' "
+                         f"axis ({p_shards} shards)")
+
+
 class VectorizedWorkflow:
     """N instances of one algorithm as one stacked fleet.
 
@@ -166,7 +187,17 @@ class VectorizedWorkflow:
         dtype_policy / donate_carries: as :class:`StdWorkflow`, over the
             stacked state.
         device: ``None`` means ``"cuda"``.
-        mesh / rules: the (TENANT, POP) layout waits for ROADMAP A11.
+        mesh: a :class:`~evox_tpu_torch.core.distributed.Mesh` with a
+            ``"tenant"`` axis (and usually a ``"pop"`` axis):
+            ``create_mesh((TENANT_AXIS, POP_AXIS), devices=..., shape=(t,
+            p))``. Each field's annotation shifts one axis right under the
+            tenant axis (``P("pop")`` becomes ``P("tenant", "pop")``,
+            ``P()`` becomes ``P("tenant")``); ``n_tenants`` must divide
+            over the tenant axis and the pop size over the pop axis. The
+            stacked state is placed on the mesh (``place_state``) and the
+            fleet's member call runs on its first device.
+        rules: ``[(regex, P), ...]`` overriding the annotations leaf by
+            leaf (``match_partition_rules``), before the tenant shift.
 
     The JAX package's ``jit_step`` has no counterpart: eager PyTorch
     compiles nothing.
@@ -190,10 +221,6 @@ class VectorizedWorkflow:
         donate_carries: bool = False,
         device: DeviceLike = None,
     ):
-        for name, value in (("mesh", mesh), ("rules", rules)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"VectorizedWorkflow({name}=...) is not ported yet (ROADMAP A11)")
         if n_tenants < 1:
             raise ValueError(f"n_tenants must be >= 1, got {n_tenants}")
         if not getattr(problem, "jittable", True):
@@ -221,8 +248,10 @@ class VectorizedWorkflow:
         self.opt_direction = parse_opt_direction(opt_direction).to(self.device)
         self.pop_transforms = tuple(pop_transforms)
         self.fit_transforms = tuple(fit_transforms)
-        self.mesh = None
-        self.rules = None
+        self.mesh = mesh
+        self.rules = tuple(rules) if rules else None
+        if mesh is not None:
+            _check_fleet_mesh(mesh, n_tenants, getattr(algorithm, "pop_size", None))
         self.num_objectives = num_objectives
         self.quarantine_nonfinite = quarantine_nonfinite
         self.dtype_policy = dtype_policy
@@ -286,7 +315,7 @@ class VectorizedWorkflow:
             self._build_tenant(s, {k: v[i] for k, v in hp.items()}) for i, s in enumerate(seeds)])
         state = VectorizedWorkflowState(generation=0, tenants=tenants, frozen=None,
                                         first_step=True)
-        return apply_storage(state, self.dtype_policy)
+        return self.place(apply_storage(state, self.dtype_policy))
 
     def _build_tenant(self, seed: int, hp: Dict[str, Any]) -> TenantState:
         """One tenant, split as ``StdWorkflow.init`` splits its seed."""
@@ -416,8 +445,29 @@ class VectorizedWorkflow:
         return self._tenant_tell(t, ctx, cand, fitness, pstate, use_init=True)
 
     def place_restored(self, state: VectorizedWorkflowState) -> Any:
-        """A host-restored fleet snapshot on this workflow's device."""
-        return restore_layouts(state, self.device)
+        """A host-restored fleet snapshot on this workflow's device, and on
+        its mesh by the tenant-shifted layout."""
+        return self.place(restore_layouts(state, self.device))
+
+    def place(self, state: Any) -> Any:
+        """``state`` laid out on the fleet's mesh: each leaf by its rule or
+        annotation shifted under the tenant axis (unchanged without a
+        mesh)."""
+        if self.mesh is None:
+            return state
+        from ..core.distributed import TENANT_AXIS, place_state
+
+        return place_state(state, self.mesh, rules=self.rules, axis_prefix=TENANT_AXIS)
+
+    def state_shardings(self, state: Any) -> Any:
+        """The fleet state's per-leaf ``NamedSharding``: rules, then
+        annotations, shifted under the tenant axis (``None`` without a
+        mesh)."""
+        if self.mesh is None:
+            return None
+        from ..core.distributed import TENANT_AXIS, state_sharding
+
+        return state_sharding(state, self.mesh, rules=self.rules, axis_prefix=TENANT_AXIS)
 
     # ------------------------------------------------- eviction / admission
     def solo_workflow(self, index: Optional[int] = None,
@@ -428,9 +478,7 @@ class VectorizedWorkflow:
         bindings (as 0-d tensors, as the fleet binds them), the same
         problem, monitors, transforms and dtype policy; the resume target
         of an evicted tenant's checkpoint. ``state=`` reads the live
-        slot's bindings."""
-        if mesh is not None:
-            raise NotImplementedError("solo_workflow(mesh=...) is not ported yet (ROADMAP A11)")
+        slot's bindings; ``mesh=`` is the solo workflow's mesh."""
         if hyperparams is None:
             hyperparams = self.tenant_hyperparams(index, state=state) if index is not None else {}
         algo = self._bind({k: self._as_value(v) for k, v in hyperparams.items()})
@@ -438,7 +486,7 @@ class VectorizedWorkflow:
             algo, self.problem, monitors=self.monitors, opt_direction=self._opt_direction_arg,
             pop_transforms=self.pop_transforms, fit_transforms=self.fit_transforms,
             quarantine_nonfinite=self.quarantine_nonfinite, device=self.device,
-            dtype_policy=self.dtype_policy, donate_carries=self.donate_carries)
+            dtype_policy=self.dtype_policy, donate_carries=self.donate_carries, mesh=mesh)
 
     def extract_tenant(self, state: VectorizedWorkflowState, index: int,
                        generation: Optional[int] = None) -> StdWorkflowState:
@@ -530,7 +578,7 @@ class VectorizedWorkflow:
         report = {
             "n_tenants": self.n_tenants,
             "generation": int(state.generation),
-            "tenant_axis": None,
+            "tenant_axis": TENANT_AXIS if self.mesh is not None else None,
             "leading_axes": sorted(leading),
             "member_route": self.member_route,
             "per_tenant": per_tenant,
@@ -618,15 +666,18 @@ class RunQueue:
             FlightRecorder` (or a directory) for the SLO ledger.
         attest: a :class:`~evox_tpu_torch.core.attest.StateAttestor` (or
             ``True``) pinning a digest of the fleet onto every barrier.
-        supervisor / health_policy: wait for ROADMAP A11 and A13.
+        supervisor: a :class:`~evox_tpu_torch.workflows.supervisor.
+            RunSupervisor` under whose ladder every chunk is dispatched
+            (``run_fused(supervisor=)``); each admission saves the fleet
+            to its checkpointer, so its restore rung never brings back a
+            fleet from before a tenant was admitted.
+        health_policy: waits for ROADMAP A13.
     """
 
     def __init__(self, workflow: VectorizedWorkflow, chunk: int = 10, supervisor: Any = None,
                  checkpoint_dir: Optional[str] = None, keep: int = 2, executor: Any = None,
                  journal: Any = None, health_policy: Any = None, metrics: Any = None,
                  attest: Any = None):
-        if supervisor is not None:
-            raise NotImplementedError("RunQueue(supervisor=...) is not ported yet (ROADMAP A11)")
         if health_policy is not None:
             raise NotImplementedError(
                 "RunQueue(health_policy=...) needs fleet_health.py, not ported yet (ROADMAP A13)")
@@ -642,7 +693,7 @@ class RunQueue:
                 "it to completion (or build a second workflow) first")
         self.workflow = workflow
         self.chunk = chunk
-        self.supervisor = None
+        self.supervisor = supervisor
         self.health_policy = None
         self.executor = executor if executor is not None else GenerationExecutor()
         if isinstance(journal, (str, Path)):
@@ -807,7 +858,8 @@ class RunQueue:
 
     def _dispatch(self, n: int) -> None:
         running = sum(1 for s in self.slots if s is not None and s.active)
-        self.state = self.executor.run_fused(self.workflow, self.state, n)
+        self.state = self.executor.run_fused(self.workflow, self.state, n,
+                                             supervisor=self.supervisor)
         self.counters["chunks"] += 1
         if self.metrics is not None:
             self.metrics.count("slo.tenant_gens", n * running)
@@ -1055,6 +1107,11 @@ class RunQueue:
         if self.journal is not None:
             self.journal.append("admit", slot=index, spec_seq=getattr(spec, "_journal_seq", None),
                                 fleet_generation=int(self.state.generation), resumed=resumed)
+        # the supervisor's newest snapshot must hold the admitted tenant:
+        # a restore would otherwise bring back the fleet from before it
+        ckpt = getattr(self.supervisor, "checkpointer", None)
+        if ckpt is not None:
+            ckpt.save(self.state)
 
     # ------------------------------------------------------ SLA scheduling
     def _apply_sla(self, gens: np.ndarray) -> np.ndarray:

@@ -65,8 +65,10 @@ def test_save_latest_round_trip_and_pruning(tmp_path):
     assert restored.generation == 7
     _assert_same(restore_layouts(restored, "cpu"), state)
     manifest = json.loads((tmp_path / "ckpt_00000007.pkl.manifest.json").read_text())
-    assert manifest["generation"] == 7 and manifest["save_topology"] == {"device": "cpu",
-                                                                       "process_count": 1}
+    # the per-leaf sharding record lists the annotated leaves a mesh
+    # splits: this state has none
+    assert manifest["generation"] == 7 and manifest["save_topology"] == {
+        "device": "cpu", "process_count": 1, "leaf_shardings": {}}
     assert manifest["attest"]["digest"] == attest.digest_hex(attest.host_state_digest(state))
     assert manifest["config_sha"] == state_config_fingerprint(state)
     assert json.loads((tmp_path / "checkpointer.json").read_text()) == {"every": 2, "keep": 2}

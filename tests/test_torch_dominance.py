@@ -122,8 +122,21 @@ def test_non_dominated_sort_matches_jax(n, m, until, seed):
 
 
 def test_non_dominated_sort_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        non_dominated_sort(torch.zeros(4, 2), mesh=object())
+    """The mesh is ported (the row-sharded sort, ``mesh=``): on an 8-shard
+    CPU mesh the ranks and the cut equal the unsharded sort's, a mesh whose
+    ``"pop"`` axis is 1 shard sorts unsharded, and stacked members with a
+    mesh are refused."""
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    fit = torch.from_numpy(np.random.default_rng(3).integers(0, 9, (300, 3)).astype(np.float32))
+    want = non_dominated_sort(fit, until=150, return_cut_rank=True)
+    for devices in (["cpu"] * 8, ["cpu"]):
+        got = non_dominated_sort(fit, until=150, return_cut_rank=True,
+                                 mesh=create_mesh(devices=devices))
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    with pytest.raises(ValueError, match="one member"):
+        torch.func.vmap(lambda f: non_dominated_sort(f, mesh=create_mesh(devices=["cpu"] * 2)))(
+            torch.stack([fit, fit]))
 
 
 def test_packed_dominance_checks_its_input():

@@ -106,5 +106,17 @@ def test_device_defaults_to_cuda_and_mesh_waits():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             IMMOEA(LB, UB, n_objs=M, pop_size=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        IMMOEA(LB, UB, n_objs=M, pop_size=100, mesh=object(), device="cpu")
+    # the mesh is ported: the tell's selection sorts row-sharded, with the
+    # same survivors as the unsharded sort's
+    from evox_tpu_torch.core.distributed import create_mesh
+    from evox_tpu_torch.operators.selection import non_dominate
+
+    algo = IMMOEA(LB, UB, n_objs=M, pop_size=100, mesh=create_mesh(devices=["cpu"] * 4),
+                  device="cpu")
+    assert algo.mesh.shape == {"pop": 4}
+    rng = np.random.default_rng(0)
+    pop = torch.from_numpy(rng.random((200, DIM), dtype=np.float32))
+    fit = torch.from_numpy(rng.integers(0, 6, (200, M)).astype(np.float32))
+    sharded = non_dominate(pop, fit, 100, mesh=algo.mesh)
+    plain = non_dominate(pop, fit, 100)
+    assert torch.equal(sharded[0], plain[0]) and torch.equal(sharded[1], plain[1])

@@ -277,17 +277,31 @@ def test_report_survives_analysis_targets_failure():
     _check_valid(report=report)
 
 
+class _PopShardedAlgorithm:
+    """Stands for a ``ShardedES``: the roofline's sharding subsection is
+    asked for whenever the workflow's algorithm is POP-sharded."""
+
+    is_pop_sharded = True
+
+
 @pytest.mark.parametrize("section,item,kwargs,attr", [
-    ("supervisor", "A11", {"supervisor": object()}, None),
+    ("roofline.sharding", "A11", {"analyzer": "analyzer"}, ("algorithm", _PopShardedAlgorithm())),
     ("pod_supervisor", "A13", {"pod_supervisor": object()}, None),
     ("control_plane", "A13", {"control_plane": object()}, None),
     ("pod_supervisor", "A13", {}, ("_pod_supervisor", object())),
     ("serving", "A13", {}, ("_exec_cache", object())),
-    ("supervisor", "A11", {}, ("_run_supervisor", object())),
+    ("roofline.sharding", "A11", {"recorder": "recorder"}, ("algorithm", _PopShardedAlgorithm())),
 ])
 def test_unported_sections_raise_naming_their_item(section, item, kwargs, attr):
+    from evox_tpu_torch.core.cost import CostAnalyzer
+    from evox_tpu_torch.core.instrument import instrument as port_instrument
+
     wf = _port_wf()
     state = wf.init(0)
+    if kwargs.get("analyzer") == "analyzer":
+        kwargs = {"analyzer": CostAnalyzer()}
+    if kwargs.get("recorder") == "recorder":
+        kwargs = {"recorder": port_instrument(wf, analyze=True)}
     if attr is not None:
         setattr(wf, *attr)
     with pytest.raises(NotImplementedError, match=f"{section} .*ROADMAP {item}"):

@@ -176,8 +176,9 @@ def test_best_is_in_the_users_convention():
 
 
 def test_constructor_refusals_and_deferred_arguments():
-    """The refusals stand (``mesh`` waits for ROADMAP A11); the JAX
-    package's ``external_problem``, ``dtype_policy``, ``donate_carries``
+    """The refusals stand; the JAX package's ``mesh`` (the island axis
+    over the ``"pop"`` axis, checked for divisibility, equal to the run
+    without it), ``external_problem``, ``dtype_policy``, ``donate_carries``
     and ``run(checkpointer=, resume_from=)`` are ported and run."""
     algo = PSO(np.zeros(2), np.ones(2), 8, device="cpu")
     for kwargs, match in (({"n_islands": 1}, "islands"), ({"num_objectives": 0}, "num_objectives"),
@@ -185,8 +186,16 @@ def test_constructor_refusals_and_deferred_arguments():
                           ({"fit_transforms": (lambda f: f,)}, "fit_transforms")):
         with pytest.raises(ValueError, match=match):
             IslandWorkflow(algo, Sphere(), **{"n_islands": 4, **kwargs}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        IslandWorkflow(algo, Sphere(), n_islands=2, device="cpu", mesh=True)
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    with pytest.raises(ValueError, match="not divisible"):
+        IslandWorkflow(algo, Sphere(), n_islands=2, device="cpu",
+                       mesh=create_mesh(devices=["cpu"] * 4))
+    meshed = IslandWorkflow(algo, Sphere(), n_islands=4, migrate_every=2, device="cpu",
+                            mesh=create_mesh(devices=["cpu"] * 2))
+    plain = IslandWorkflow(algo, Sphere(), n_islands=4, migrate_every=2, device="cpu")
+    a, b = meshed.run(meshed.init(1), 5).algo, plain.run(plain.init(1), 5).algo
+    assert torch.equal(a.population, b.population) and torch.equal(a.velocity, b.velocity)
     for name, value in (("external_problem", True), ("dtype_policy", BF16_STORAGE),
                         ("donate_carries", True)):
         problem = _HostTiedSphere() if name == "external_problem" else Sphere()

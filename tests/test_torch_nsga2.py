@@ -479,7 +479,21 @@ def test_init_population_draw_and_launch_counters_on_the_cpu(monkeypatch):
 
 
 def test_mo_deferred_arguments_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        NSGA2(torch.zeros(2), torch.ones(2), n_objs=2, pop_size=4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        NonDominate(4, mesh=object())
+    """The mesh is ported: NSGA-II on an 8-shard CPU mesh (the row-sharded
+    sort in its tell, one B3 rows launch a shard on the card) runs the
+    unsharded workflow's states bit for bit, and ``NonDominate`` with a
+    mesh keeps the same survivors."""
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    mesh = create_mesh(devices=["cpu"] * 8)
+    runs = []
+    for m in (mesh, None):
+        algo = NSGA2(torch.zeros(8), torch.ones(8), n_objs=2, pop_size=100, mesh=m, device="cpu")
+        wf = StdWorkflow(algo, ZDT1(n_dim=8, device="cpu"), device="cpu")
+        runs.append(wf.run(wf.init(4), 5).algo)
+    assert torch.equal(runs[0].population, runs[1].population)
+    assert torch.equal(runs[0].fitness, runs[1].fitness)
+    fit = torch.rand(60, 2, generator=torch.Generator().manual_seed(1))
+    pop = torch.rand(60, 3, generator=torch.Generator().manual_seed(2))
+    got, want = NonDominate(30, mesh=mesh)(pop, fit), NonDominate(30)(pop, fit)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -199,9 +199,12 @@ def test_refusals():
     assert stale.report()["max_staleness"] == 1
     with pytest.raises(ValueError, match="max_staleness"):
         GenerationExecutor(max_staleness=-1)
-    for kwargs in ({"supervisor": object()}, {"pod_supervisor": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            GenerationExecutor(**kwargs)
+    # the supervisor hook is ported (tests/test_torch_supervisor.py); the
+    # pod supervisor waits for ROADMAP A13
+    sup = object()
+    assert GenerationExecutor(supervisor=sup).supervisor is sup
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        GenerationExecutor(pod_supervisor=object())
     # the voted re-dispatch is ported (tests/test_torch_attest.py): a
     # cadence below 1 is refused
     with pytest.raises(ValueError, match="verify_every"):

@@ -190,14 +190,20 @@ def test_capacity_guard_and_refusals():
     with pytest.raises(ValueError, match="smaller than the widest"):
         SurrogateWorkflow(_pso(), Sphere(), surrogate=GPSurrogate(device="cpu"), screen_frac=0.25,
                           archive_capacity=8, device="cpu")
-    # deferred: the mesh and the explicit-collective evaluation (ROADMAP
-    # A11), as the executor's supervisor
-    for kwargs in ({"mesh": object()}, {"eval_shard_map": True}):
-        with pytest.raises(NotImplementedError, match="SurrogateWorkflow.*ROADMAP A11"):
-            SurrogateWorkflow(_pso(), Sphere(), surrogate=GPSurrogate(device="cpu"),
-                              screen_frac=0.25, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        GenerationExecutor(supervisor=object())
+    # ported: the mesh (StdWorkflow's) and, with screening off, the
+    # per-shard evaluation; screening refuses eval_shard_map, as the JAX
+    # package does, and the executor takes a supervisor
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    mesh = create_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="eval_shard_map"):
+        SurrogateWorkflow(_pso(), Sphere(), surrogate=GPSurrogate(device="cpu"),
+                          screen_frac=0.25, device="cpu", mesh=mesh, eval_shard_map=True)
+    wf = SurrogateWorkflow(_pso(), Sphere(), surrogate=None, device="cpu", mesh=mesh,
+                           eval_shard_map=True)
+    assert wf.mesh is mesh and wf.run(wf.init(0), 2).generation == 2
+    sup = object()
+    assert GenerationExecutor(supervisor=sup).supervisor is sup
 
 
 def test_entry_points_default_to_cuda():
@@ -390,6 +396,70 @@ def test_disabled_is_std_workflow_bit_for_bit(host):
         rb, rd = bare.run(sb, 4), dis.run(sd, 4)
         _assert_equal((rb.algo, rb.monitors), (rd.algo, rd.monitors))
         assert rb.generation == rd.generation == 7
+
+
+def test_eval_shard_map_matches_jax_and_the_unsharded_run():
+    """``SurrogateWorkflow`` with screening off and ``eval_shard_map`` on an
+    8-shard mesh: every step equals the unsharded run bit for bit (Sphere
+    is row by row), and JAX's ``SurrogateWorkflow(mesh=, eval_shard_map=
+    True)`` on its 8 virtual devices on the same PSO draws within the
+    workflow tolerance above."""
+    from evox_tpu.core.distributed import create_mesh as jax_create_mesh
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    lb, ub = -5.0 * np.ones(DIM, np.float32), 5.0 * np.ones(DIM, np.float32)
+    jwf = JaxSurrogateWorkflow(JaxPSO(lb, ub, POP), JaxSphere(), surrogate=None,
+                               mesh=jax_create_mesh(), eval_shard_map=True)
+    jstate = jwf.init(jax.random.PRNGKey(1))
+    start = _np(jstate)
+    jstates, draws = [], []
+    for _ in range(4):
+        draws.append(_pso_draws(jstate.algo))
+        jstate = jwf.step(jstate)
+        jstates.append(_np(jstate))
+    sharded, plain = [SurrogateWorkflow(_pso(), Sphere(), surrogate=None, device="cpu", **kw)
+                      for kw in (dict(mesh=create_mesh(devices=["cpu"] * 8), eval_shard_map=True),
+                                 {})]
+    ss, sp = (interop.surrogate_workflow_state(wf, start) for wf in (sharded, plain))
+    for d, js in zip(draws, jstates):
+        sharded.algorithm._draw = plain.algorithm._draw = lambda seed, d=d: d
+        ss, sp = sharded.step(ss), plain.step(sp)
+        _assert_equal(ss, sp)
+        assert ss.generation == int(js.generation)
+        for name in ("population", "velocity", "pbest_position", "pbest_fitness",
+                     "gbest_position", "gbest_fitness"):
+            np.testing.assert_allclose(getattr(ss.algo, name).numpy(), getattr(js.algo, name),
+                                       rtol=STATE_RTOL, atol=STATE_ATOL, err_msg=name)
+
+
+class FlakyHostSphere(HostSphere):
+    """``HostSphere`` whose ``fail_at``-th evaluation raises once, as a
+    dropped connection to a simulator would."""
+
+    def __init__(self, fail_at):
+        super().__init__()
+        self.calls, self.fail_at = 0, fail_at
+
+    def evaluate(self, state, pop):
+        self.calls += 1
+        if self.calls == self.fail_at:
+            raise ConnectionResetError("Connection reset by peer")
+        return super().evaluate(state, pop)
+
+
+def test_supervised_screened_run_retries_bit_for_bit():
+    """A screened run under ``RunSupervisor``: a host evaluation that fails
+    once is retried from its segment's entry state, and the run ends bit
+    for bit with the unsupervised one (the refit schedule included)."""
+    from evox_tpu_torch.workflows.supervisor import RunSupervisor
+
+    wf, _ = _port_workflow(HostSphere(), refit_every=2)
+    clean = run_host_pipelined(wf, wf.init(2), 8)
+    flaky, _ = _port_workflow(FlakyHostSphere(fail_at=6), refit_every=2)
+    sup = RunSupervisor(backoff_s=0.0)
+    got = sup.run_host_pipelined(flaky, flaky.init(2), 8, chunk=4)
+    _assert_equal(got, clean)
+    assert sup.counters["retries"] == 1 and sup.report()["outcome"] == "recovered"
 
 
 def test_pipelined_equals_step_loop_and_host_rows_equal_the_ledger():

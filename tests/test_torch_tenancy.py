@@ -1,9 +1,9 @@
 """Multi-tenant serving in the port (``workflows/tenancy.py``):
 ``VectorizedWorkflow`` fleets on stacked tenant states, eviction and
 resume, and the ``RunQueue``, on the CPU; the cases of
-``tests/test_tenancy.py``, with the (TENANT, POP) mesh, the rules and
-the supervisor as refusal checks (ROADMAP A11), and the fleet's tenants
-against the JAX package's fleet.
+``tests/test_tenancy.py``, the (TENANT, POP) mesh, the rules and the
+RunQueue's supervisor, and the fleet's tenants against the JAX package's
+fleet.
 
 Laws: tenant ``i`` of a fleet reproduces a solo ``StdWorkflow`` run of the
 same (algorithm, seed, hyperparameters), asserted within
@@ -216,17 +216,44 @@ def test_fleet_init_hooks_mo():
 
 
 def test_mesh_rules_and_supervisor_are_refused_naming_their_items():
-    with pytest.raises(NotImplementedError, match="A11"):
-        _fleet(mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        _fleet(rules=[("x", None)])
-    wf = _fleet()
-    with pytest.raises(NotImplementedError, match="A11"):
-        RunQueue(wf, supervisor=object())
+    """The (TENANT, POP) mesh, the rules and the RunQueue's supervisor are
+    ported: the mesh's checks as the JAX package's, each leaf's layout
+    shifted under the tenant axis (``P("pop")`` to ``P("tenant",
+    "pop")``, the rules first), the fleet on a mesh equal to the fleet
+    without one, a supervised RunQueue's results equal to an
+    unsupervised one's; ``health_policy`` still waits for ROADMAP A13."""
+    from evox_tpu_torch.algorithms.so.es import SepCMAES
+    from evox_tpu_torch.core.distributed import (POP_AXIS, TENANT_AXIS, P, create_mesh)
+    from evox_tpu_torch.workflows.supervisor import RunSupervisor
+
+    with pytest.raises(ValueError, match="'tenant' axis"):
+        _fleet(mesh=create_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="n_tenants"):
+        _fleet(n=3, mesh=create_mesh((TENANT_AXIS, POP_AXIS), ["cpu"] * 4, (2, 2)))
+    mesh = create_mesh((TENANT_AXIS, POP_AXIS), ["cpu"] * 4, (2, 2))
+    algo = SepCMAES(torch.zeros(DIM), 1.0, pop_size=POP, device="cpu")
+    wf = VectorizedWorkflow(algo, Sphere(), n_tenants=N, device="cpu", mesh=mesh,
+                            rules=[(r"\.mean$", P(None))])
+    plain = VectorizedWorkflow(algo, Sphere(), n_tenants=N, device="cpu")
+    state = wf.run(wf.init(SEEDS), 3)
+    _close(state.tenants.algo, plain.run(plain.init(SEEDS), 3).tenants.algo, rtol=0, atol=0)
+    specs = wf.state_shardings(state).tenants.algo
+    assert specs.z.spec == P(TENANT_AXIS, POP_AXIS)
+    assert specs.sigma.spec == P(TENANT_AXIS)
+    assert specs.mean.spec == P(TENANT_AXIS, None)  # the rule before the annotation
+    assert wf.tenancy_report(state)["tenant_axis"] == TENANT_AXIS
+    solo = wf.solo_workflow(0, mesh=create_mesh(devices=["cpu"] * 2))
+    assert solo.mesh.shape == {"pop": 2}
+    results = []
+    for supervisor in (RunSupervisor(), None):
+        q = RunQueue(_fleet(), chunk=2, supervisor=supervisor)
+        for i in range(N):
+            q.submit(TenantSpec(seed=i, n_steps=4, tag=f"t{i}"))
+        q.run()
+        results.append(q.state)
+    _close(results[0].tenants.algo, results[1].tenants.algo, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="A13"):
-        RunQueue(wf, health_policy=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        wf.solo_workflow(0, mesh=object())
+        RunQueue(_fleet(), health_policy=object())
 
 
 def test_hyperparam_validation_and_refusals(tmp_path):

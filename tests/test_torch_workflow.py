@@ -243,15 +243,139 @@ def test_entry_points_refuse_a_missing_cuda(monkeypatch):
     assert restore_layouts(snapshot, "cpu").algo.population.device.type == "cpu"
 
 
+def _post_eval_fitness(log):
+    return [arrays[1] for name, arrays in log if name == "post_eval"]
+
+
+def test_eval_shard_map_matches_jax_and_the_unsharded_run():
+    """``StdWorkflow(mesh=, eval_shard_map=True)``: each of 8 shards scores
+    its block of OpenES's candidates on Sphere. The fitness and the state
+    equal the port's unsharded run bit for bit (Sphere is row by row), and
+    JAX's ``StdWorkflow(mesh=, eval_shard_map=True)`` on its 8 virtual
+    devices within the hook test's tolerance (the two libraries' sums)."""
+    from evox_tpu.core.distributed import create_mesh as jax_create_mesh
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    pop_size, dim, gens = 16, 3, 3
+    jlog = []
+    jwf = JaxStdWorkflow(JaxOpenES(np.ones(dim, np.float32), pop_size, noise_stdev=0.1),
+                         _JaxSphere(), monitors=[_recorder(JaxMonitor)(jlog)],
+                         mesh=jax_create_mesh(), eval_shard_map=True, jit_step=False)
+    jstate = jwf.init(jax.random.PRNGKey(3))
+    halves = []
+    for _ in range(gens):
+        jstate = jwf.step(jstate)
+        halves.append(np.asarray(jax.random.normal(jstate.algo.noise_key, (pop_size // 2, dim))))
+    runs = {}
+    for sharded in (True, False):
+        log = []
+        algo = OpenES(np.ones(dim, np.float32), pop_size, noise_stdev=0.1, device="cpu")
+        kw = dict(mesh=create_mesh(devices=["cpu"] * 8), eval_shard_map=True) if sharded else {}
+        wf = StdWorkflow(algo, _Sphere(), monitors=[_recorder(Monitor)(log)], device="cpu", **kw)
+        _substitute_noise(algo, halves)
+        state = interop.std_workflow_state(wf, _numpy_tree(jwf.init(jax.random.PRNGKey(3))))
+        for _ in range(gens):
+            state = wf.step(state)
+        runs[sharded] = (state, _post_eval_fitness(log))
+    (sharded, fit_sharded), (plain, fit_plain) = runs[True], runs[False]
+    assert len(fit_sharded) == len(fit_plain) == gens
+    for a, b in zip(fit_sharded, fit_plain):
+        np.testing.assert_array_equal(a, b)
+    from evox_tpu_torch.core.struct import named_leaves
+
+    for (name, a), (_, b) in zip(named_leaves(sharded.algo), named_leaves(plain.algo)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, name
+    for a, b in zip(fit_sharded, _post_eval_fitness(jlog)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(sharded.algo.center.numpy(), np.asarray(jstate.algo.center),
+                               rtol=1e-5, atol=1e-6)
+    assert sharded.generation == int(jstate.generation) == gens
+
+
+def _pso_tell_draws(jax_algo_state):
+    """JAX PSO's tell draws from the state its tell receives (its ask
+    leaves the state as it was)."""
+    _, k1, k2 = jax.random.split(jax_algo_state.key, 3)
+    shape = jax_algo_state.population.shape
+    return tuple(torch.as_tensor(np.array(jax.random.uniform(k, shape))) for k in (k1, k2))
+
+
+@pytest.mark.parametrize("direction", ["min", "max"])
+def test_migrate_helper_migrates_as_jax_does(direction):
+    """``StdWorkflow(migrate_helper=)``: a helper polled once a generation
+    that hands PSO three foreign rows on generations 1, 3 and 4. Every
+    state field equals JAX's ``migrate_helper`` run on the same draws and
+    rows (``tests/test_torch_pso.py``'s tolerance), the foreign fitness
+    sign-flipped for ``"max"``, and the migrants reach the personal bests."""
+    from evox_tpu.algorithms.so.pso import PSO as JaxPSO
+
+    dim, pop_size, gens = 3, 12, 5
+    sign = 1.0 if direction == "min" else -1.0
+    lb, ub = np.full(dim, -10.0, np.float32), np.full(dim, 10.0, np.float32)
+    foreign = (0.01 * np.random.default_rng(7).standard_normal((3, dim))).astype(np.float32)
+    foreign_fit = (sign * np.sum(foreign**2, axis=1)).astype(np.float32)
+    schedule = (False, True, False, True, True)
+
+    def helper(to_array):
+        polls = []
+
+        def poll():
+            on = schedule[len(polls)]
+            polls.append(on)
+            return to_array(on), to_array(foreign), to_array(foreign_fit)
+
+        return poll, polls
+
+    class JaxSignedSphere(JaxProblemBase):
+        def evaluate(self, state, pop):
+            return sign * jnp.sum(pop**2, axis=1), state
+
+    class SignedSphere(Problem):
+        def evaluate(self, state, pop):
+            return sign * torch.sum(pop**2, dim=1), state
+
+    jpoll, jpolls = helper(jnp.asarray)
+    jwf = JaxStdWorkflow(JaxPSO(lb, ub, pop_size), JaxSignedSphere(), opt_direction=direction,
+                         migrate_helper=jpoll, jit_step=False)
+    talgo = tpso.PSO(lb, ub, pop_size, device="cpu")
+    tpoll, tpolls = helper(lambda x: torch.as_tensor(np.array(x)))
+    twf = StdWorkflow(talgo, SignedSphere(), opt_direction=direction, migrate_helper=tpoll,
+                      device="cpu")
+    jstate = jwf.init(jax.random.PRNGKey(5))
+    tstate = interop.std_workflow_state(twf, _numpy_tree(jstate))
+    for _ in range(gens):
+        draws = _pso_tell_draws(jstate.algo)
+        talgo._draw = lambda seed, draws=draws: draws
+        jstate, tstate = jwf.step(jstate), twf.step(tstate)
+        for name in ("population", "velocity", "pbest_position", "pbest_fitness",
+                     "gbest_position", "gbest_fitness"):
+            np.testing.assert_allclose(getattr(tstate.algo, name).numpy(),
+                                       np.asarray(getattr(jstate.algo, name)), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+    assert tpolls == jpolls == list(schedule)
+    # the migrants' fitness, in the internal minimisation, is among the bests
+    kept = tstate.algo.pbest_fitness.numpy()
+    assert np.isin(np.abs(foreign_fit), kept).sum() >= 1
+
+
 def test_deferred_arguments_raise():
     soa = tkr.pendulum_soa()
     apply, dim = flat_mlp_policy(3, 16, 1)
     algo = OpenES(torch.zeros(dim), 4, device="cpu")
     prob = PolicyRolloutProblem(apply, soa.base, fused_env=soa, device="cpu")
-    for kwargs in ({"mesh": object()}, {"eval_shard_map": True},
-                   {"migrate_helper": lambda: None}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            StdWorkflow(algo, prob, device="cpu", **kwargs)
+    # ported since: mesh, eval_shard_map (which needs a mesh), and
+    # migrate_helper (which refuses fit_transforms)
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    with pytest.raises(ValueError, match="eval_shard_map requires a mesh"):
+        StdWorkflow(algo, prob, device="cpu", eval_shard_map=True)
+    with pytest.raises(ValueError, match="not divisible"):
+        StdWorkflow(algo, prob, device="cpu", mesh=create_mesh(devices=["cpu"] * 3))
+    assert StdWorkflow(algo, prob, device="cpu", mesh=create_mesh(devices=["cpu"] * 3),
+                       allow_uneven_shards=True).init(0).generation == 0
+    with pytest.raises(ValueError, match="migrate_helper"):
+        StdWorkflow(algo, prob, device="cpu", migrate_helper=lambda: None,
+                    fit_transforms=(rank_based_fitness,))
     wf = StdWorkflow(algo, prob, device="cpu")
     # ported since: external_problem, dtype_policy, donate_carries, and
     # run's checkpointer/resume_from (tests/test_torch_checkpoint.py,
@@ -263,8 +387,8 @@ def test_deferred_arguments_raise():
         assert StdWorkflow(algo, prob, device="cpu", **kwargs).init(0).generation == 0
     with pytest.raises(TypeError, match="DtypePolicy"):
         StdWorkflow(algo, prob, device="cpu", dtype_policy=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        wf.resume(object(), 1, state_sharding=object())
+    # resume(state_sharding=) is ported (tests/test_torch_supervisor.py
+    # holds the 8 -> 4 -> 1 resume)
     # ported since: restarts= (IPOP), which needs a GuardedAlgorithm
     from evox_tpu_torch import GuardedAlgorithm, IPOPRestarts
 
