@@ -384,8 +384,32 @@ exit 0):
    injected: bit for bit with the clean run, the report and the trace
    accepted by ``tools/check_report.py``. The NCCL world of one: init, an
    ``all_reduce``, the barriers, shutdown.
-24. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
-   B1 on paths 1 and 12 and the mountain car phase, B2 on paths 3, 6 and
+24. main path 33: ``StdWorkflow(OpenES(zeros(114), 4096),
+   HostEnvProblem(flat_mlp_policy 4-16-2, NativeVectorEnv("cartpole",
+   4096, 500, min(8, cpus) threads), cap 500), opt_direction="max")``: the
+   C++ engine built with g++ from the checkout, 10 timed generations after
+   2 (a step's split: env, copies by the problem's HostLink; the
+   policy's span in one more generation, outside the timed window), one
+   generation's returns against a CPU replay of the card's actions bit
+   for bit, the card's policy against the CPU's within 1e-5; a pendulum turn (pop 2048, 200
+   steps); the engine against B1 on pendulum at pop 65536 x 1 episode x
+   200 steps from B1's own initial states (median and 99th percentile of
+   the relative difference). Main path 34: ``StdWorkflow(OpenES(zeros(25450),
+   4096, adam), DatasetProblem(InMemoryDataLoader(60000 x 784, 256), the
+   cross-entropy of an MLP 784-32-10))`` on an MNIST-shaped stream made
+   from the seed (labels from a random teacher MLP): 20 timed generations,
+   the batches' rows against a CPU loader's, losses against the CPU, the
+   mean loss falling, accuracy on 10000 held-out rows through
+   ``StdWorkflow.validate`` and a metric view. Main path 35: the thread
+   farm (8 threads, both placements) and the process farm (4 spawned
+   workers) on a gymnasium-API cartpole (pop 1024, cap 200): process
+   against thread farm bit for bit, clean and with a worker killed
+   mid-generation, ``FarmDegradedError`` under the floor, 5 generations
+   through ``run_host_pipelined`` with the ``farm/*`` counter tracks in a
+   Chrome trace; every worker joined.
+25. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
+   B1 on paths 1 and 12, the mountain car phase and path 33's
+   cross-check, B2 on paths 3, 6 and
    13, B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched
    on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
    and MO islands, ``packed_dominance_batched`` on the MO islands, D1 on
@@ -403,6 +427,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -580,6 +605,25 @@ LP_CHECK_GENERATIONS = 10
 SN_CHECK_GENERATIONS, SN_GENERATIONS = 5, 10
 # main path 32: path 2 under RunSupervisor with three faults injected
 SUP_GENERATIONS, SUP_DEADLINE_S = 30, 3.0
+# main path 33: OpenES on HostEnvProblem over the native C++ engine (cartpole,
+# the policy 4-16-2 on the card), 10 timed generations after 2; a pendulum
+# turn (pop, steps, generations); the engine against B1 on one workload
+HENV_ENV, HENV_POP, HENV_STEPS, HENV_HIDDEN = "cartpole", 4096, 500, 16
+HENV_WARM, HENV_GENERATIONS, HENV_LR, HENV_SIGMA = 2, 10, 0.05, 0.1
+HENV_PENDULUM = (2048, 200, 5)
+NATIVE_B1_POP, NATIVE_B1_T = 65536, 200
+# main path 34: supervised OpenES on DatasetProblem over an MNIST-shaped
+# stream (60000 training rows of 784 features, 10 classes, 10000 held out),
+# an MLP 784-32-10 student at pop 4096, batch 256, 20 timed generations
+DS_ROWS, DS_VALID, DS_FEATURES, DS_CLASSES = 60000, 10000, 784, 10
+DS_HIDDEN, DS_TEACHER_HIDDEN, DS_POP, DS_BATCH, DS_VALID_BATCH = 32, 64, 4096, 256, 2000
+DS_GENERATIONS, DS_LR, DS_SIGMA, DS_CHECK_ROWS = 20, 0.01, 0.02, 256
+# main path 35: the thread farm (8 threads, both placements) and the process
+# farm (4 spawned workers) on a gymnasium-API cartpole, pop 1024, cap 200,
+# 2 timed generations each (an env step is ~80 us of numpy: the generations
+# take seconds), 5 through run_host_pipelined
+FARM_POP, FARM_CAP, FARM_THREADS, FARM_PROCS, FARM_GENERATIONS = 1024, 200, 8, 4, 2
+FARM_PIPELINED = 5
 # B3's rows form: (n, m, shards); path 31's merged n 20000 on 8 shards, and
 # shapes whose n is not a multiple of 32 * shards
 PATH31_SHARDS = 8
@@ -7058,6 +7102,620 @@ def phase_nccl_world(torch) -> dict:
     return out
 
 
+# ------------------------------------------ main paths 33-35: host and supervised problems
+
+
+class EnvProbe:
+    """A host vector env wrapper for path 33: the env's host time, its
+    steps, and with ``record`` the reset seed and each step's observations
+    and actions (for the CPU replay)."""
+
+    def __init__(self, env, record: bool = False):
+        self.env, self.record = env, record
+        self.num_envs, self.obs_dim = env.num_envs, env.obs_dim
+        self.steps, self.step_s = 0, 0.0
+        self.seed, self.obs, self.actions, self._last = None, [], [], None
+
+    def reset(self, seed):
+        self._last = self.env.reset(seed)
+        if self.record:
+            self.seed, self.obs, self.actions = seed, [], []
+        return self._last
+
+    def step(self, actions):
+        if self.record:
+            import numpy as np
+
+            self.obs.append(np.array(self._last))  # what these actions answer
+            self.actions.append(np.array(actions))
+        t0 = time.perf_counter()
+        out = self.env.step(actions)
+        self.step_s += time.perf_counter() - t0
+        self.steps += 1
+        self._last = out[0]
+        return out
+
+
+def replay_host_env(env, seed: int, actions: list, cap) -> "np.ndarray":
+    """The returns of a fresh host env fed recorded actions, by a plain
+    numpy loop with ``HostEnvProblem``'s semantics: the float32 sum of the
+    rewards of the envs not done yet, until every env is done or the cap.
+    Fails if the recorded episode stepped past that end or stopped short."""
+    import numpy as np
+
+    env.reset(seed)
+    done = np.zeros((env.num_envs,), dtype=bool)
+    total = np.zeros((env.num_envs,), dtype=np.float32)
+    for t, a in enumerate(actions):
+        if done.all() or (cap is not None and t >= cap):
+            raise AssertionError(f"the recorded episode stepped past its end at step {t}")
+        _, r, te, tr = env.step(a)
+        total = total + np.where(done, np.float32(0.0), r)
+        done = done | te | tr
+    if not (done.all() or (cap is not None and len(actions) == cap)):
+        raise AssertionError(f"the recorded episode stopped after {len(actions)} steps, "
+                             "before its end")
+    return total
+
+
+def build_hostenv_path(torch, env_name: str = HENV_ENV, pop: int = HENV_POP,
+                       steps: int = HENV_STEPS, device=None):
+    """Main path 33 as a user builds it: ``StdWorkflow(OpenES(zeros(dim),
+    pop), HostEnvProblem(flat_mlp_policy obs-16-act, NativeVectorEnv(env,
+    pop, steps, min(8, cpus) threads), cap steps), opt_direction="max")``."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import OpenES
+    from evox_tpu_torch.problems.neuroevolution import (
+        HostEnvProblem,
+        NativeVectorEnv,
+        flat_mlp_policy,
+    )
+
+    env = NativeVectorEnv(env_name, pop, max_steps=steps, num_threads=min(8, os.cpu_count()))
+    apply, dim = flat_mlp_policy(env.obs_dim, HENV_HIDDEN, env.act_dim)
+    problem = HostEnvProblem(apply, env, cap_episode_length=steps, device=device)
+    algo = OpenES(torch.zeros(dim), pop, learning_rate=HENV_LR, noise_stdev=HENV_SIGMA,
+                  device=device)
+    return StdWorkflow(algo, problem, opt_direction="max", device=device)
+
+
+def time_hostenv_run(torch, wf, state, gens: int, policy_gens: int = 1) -> tuple:
+    """``wf.run`` for ``gens`` generations, timed, with the env's host time
+    and the evaluations' host time caught by wrappers (host clock reads)
+    and the copies' counts, bytes and device ms read from the problem's own
+    ``host_link``; launch counts set to 0 before and read after (the path
+    launches no kernel of the port). Then ``policy_gens`` more generations,
+    outside the timed window, with CUDA events around each batched policy
+    call for the policy's device span a step."""
+    problem = wf.problem
+    probe = EnvProbe(problem.env)
+    raw_env, raw_policy, raw_eval = problem.env, problem.batched_policy, problem.evaluate
+    cuda = wf.device.type == "cuda"
+    spans, eval_s = [], []
+
+    def policy(params, obs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = raw_policy(params, obs)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    def evaluate(pstate, pop):
+        t0 = time.perf_counter()
+        out = raw_eval(pstate, pop)
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    link0 = problem.host_link.report()
+    problem.env, problem.evaluate = probe, evaluate
+    try:
+        if cuda:
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = wf.run(state, gens)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        link1 = problem.host_link.report()
+        timed_steps, timed_env_s = probe.steps, probe.step_s
+        if cuda and policy_gens:
+            problem.batched_policy = policy
+            state = wf.run(state, policy_gens)
+            torch.cuda.synchronize()
+    finally:
+        problem.env, problem.batched_policy, problem.evaluate = raw_env, raw_policy, raw_eval
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches on a host env path: {launches}")
+    steps = max(timed_steps, 1)
+    link = {k: link1[k] - link0[k] for k in ("d2h", "h2d", "d2h_bytes", "h2d_bytes")}
+    if cuda:
+        link.update(d2h_ms=link1["d2h_ms"] - link0["d2h_ms"],
+                    h2d_ms=link1["h2d_ms"] - link0["h2d_ms"])
+    policy_steps = probe.steps - timed_steps
+    policy_ms = (sum(a.elapsed_time(b) for a, b in spans) / policy_steps
+                 if spans and policy_steps else None)
+    timed_eval_s = sum(eval_s[:gens])
+    out = {
+        "generations": gens,
+        "ms_per_generation": wall * 1e3 / gens,
+        "evaluate_ms_per_generation": timed_eval_s * 1e3 / gens,
+        "steps_per_generation": timed_steps / gens,
+        "per_step_ms": {
+            "loop": timed_eval_s * 1e3 / steps,
+            "env_step": timed_env_s * 1e3 / steps,
+            "rest_of_loop": (timed_eval_s - timed_env_s) * 1e3 / steps,
+            # a copy each way a step, and the return once a generation
+            "copy_d2h": link["d2h_ms"] / link["d2h"] if cuda and link["d2h"] else None,
+            "copy_h2d": link["h2d_ms"] / link["h2d"] if cuda and link["h2d"] else None,
+        },
+        "host_link": link,
+        "policy_pass": {"generations": policy_gens if spans else 0, "steps": policy_steps,
+                        "policy_device_ms_per_step": policy_ms},
+        "launches": launches,
+    }
+    return state, out
+
+
+def phase_hostenv_path(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 33: OpenES on ``HostEnvProblem`` over the native engine's
+    cartpole at pop 4096, 500 steps: init, ``HENV_WARM`` warm-up
+    generations, ``HENV_GENERATIONS`` timed (ms a generation and the step's
+    split: env, the copies as the problem's ``host_link`` counts them, the
+    rest of the loop), one more generation for the policy's CUDA-event
+    span, the center must move; one generation's returns on the card against a CPU replay of the
+    card's recorded actions through a fresh engine with the same seed, bit
+    for bit, and the card's policy outputs against the CPU's on the same
+    observations; then a pendulum turn (pop 2048, 200 steps)."""
+    import numpy as np
+
+    from evox_tpu_torch.problems.neuroevolution import NativeVectorEnv
+
+    dev = torch.device("cuda" if device is None else device)
+    wf = build_hostenv_path(torch, device=dev)
+    problem = wf.problem
+    state = wf.init(seed)
+    center0 = state.algo.center.clone()
+    for _ in range(HENV_WARM):
+        state = wf.step(state)
+    state, timed = time_hostenv_run(torch, wf, state, HENV_GENERATIONS)
+    moved = float((state.algo.center - center0).norm())
+    if not (moved > 0 and math.isfinite(moved)):
+        raise AssertionError(f"path 33: the center did not move (|delta| = {moved})")
+
+    # one generation recorded on the card, replayed on the CPU
+    cand = wf.sample(state)
+    raw_env = problem.env
+    probe = EnvProbe(raw_env, record=True)
+    problem.env = probe
+    try:
+        fit, _ = problem.evaluate(state.prob, cand)
+    finally:
+        problem.env = raw_env
+    fresh = NativeVectorEnv(HENV_ENV, HENV_POP, max_steps=HENV_STEPS,
+                            num_threads=raw_env.num_threads)
+    total = replay_host_env(fresh, probe.seed, probe.actions, problem.cap)
+    replay = compare_exact("path 33: one generation's returns on the card against the CPU "
+                           "replay of its actions", (fit.cpu(),), (torch.from_numpy(total),))
+    # the card's policy against the CPU's on the observations the card saw
+    cpu_policy = torch.func.vmap(problem.policy)
+    cpu_cand = cand.cpu()
+    got = torch.from_numpy(np.stack(probe.actions))
+    want = torch.stack([cpu_policy(cpu_cand, torch.from_numpy(o)) for o in probe.obs])
+    policy_cmp = compare("path 33: the card's policy outputs against the CPU's "
+                         "(float32 sums in another order, tanh to 1 ulp)", got, want, 1e-5, 1e-6)
+    out = {"env": HENV_ENV, "pop": HENV_POP, "steps": HENV_STEPS, "dim": int(cand.shape[1]),
+           "threads": raw_env.num_threads, **timed,
+           "replay_steps": len(probe.actions), "replay": replay, "policy_vs_cpu": policy_cmp,
+           "mean_return": float(fit.mean())}
+    print(f"[path 33] {json.dumps(out)}", flush=True)
+
+    pop_p, steps_p, gens_p = HENV_PENDULUM
+    wf_p = build_hostenv_path(torch, "pendulum", pop_p, steps_p, device=dev)
+    state_p = wf_p.step(wf_p.init(seed))
+    _, out["pendulum"] = time_hostenv_run(torch, wf_p, state_p, gens_p)
+    out["pendulum"].update(pop=pop_p, steps=steps_p)
+    print(f"[path 33 pendulum] {json.dumps(out['pendulum'])}", flush=True)
+    out["native_vs_b1"] = phase_native_vs_b1(torch, seed, device=dev)
+    return out
+
+
+class StartFrom:
+    """A native env whose every reset lands on given states (set after the
+    engine's own reset); the observations are computed from them as the
+    engine observes (float32 of the float64 cos, sin and speed)."""
+
+    def __init__(self, env, state):
+        self.env, self.state = env, state
+        self.num_envs, self.obs_dim = env.num_envs, env.obs_dim
+
+    def reset(self, seed):
+        import numpy as np
+
+        self.env.reset(seed)
+        self.env.set_state(self.state)
+        th, thdot = self.state[:, 0], self.state[:, 1]
+        return np.stack([np.cos(th), np.sin(th), thdot], axis=1).astype(np.float32)
+
+    def step(self, actions):
+        return self.env.step(actions)
+
+
+def phase_native_vs_b1(torch, seed: int = SEED, pop: int = NATIVE_B1_POP, steps: int = NATIVE_B1_T,
+                       device=None) -> dict:
+    """The native engine against B1 on one workload: pendulum, pop 65536 x
+    1 episode, ``steps`` steps, the flat policy 3-16-1 on random genomes.
+    B1 (``fused_rollout``, one launch) takes ``PolicyRolloutProblem``'s
+    injected initial states (``_episode_states``, caught by a wrapper); the
+    native engine is set to the same states with ``set_state`` and stepped
+    through ``HostEnvProblem``. The returns agree within a tolerance: the
+    engine integrates in float64, B1 in float32, and a trajectory near the
+    pendulum's top separates (the gate reads the median and the 99th
+    percentile of the relative difference). The ms of an evaluation of
+    each, B1 by CUDA events."""
+    import numpy as np
+
+    from evox_tpu_torch.kernels import rollout as kr
+    from evox_tpu_torch.problems.neuroevolution import (
+        HostEnvProblem,
+        NativeVectorEnv,
+        PolicyRolloutProblem,
+        flat_mlp_policy,
+    )
+
+    dev = torch.device("cuda" if device is None else device)
+    soa = kr.pendulum_soa(max_steps=steps)
+    apply, dim = flat_mlp_policy(3, 16, 1)
+    b1 = PolicyRolloutProblem(apply, soa.base, num_episodes=1, stochastic_reset=False,
+                              fused_env=soa, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 33)
+    genomes = 0.3 * torch.randn((pop, dim), generator=g, device=dev)
+    caught = []
+    raw_states = b1._episode_states
+    b1._episode_states = lambda s, env: caught.append(raw_states(s, env)) or caught[-1]
+    pstate = b1.init(seed)
+    reset_launches()
+    f_b1, _ = b1.evaluate(pstate, genomes)
+    launches = read_launches()
+    b1._episode_states = raw_states
+    want = {"fused_rollout": 1, "packed_dominance": 0, "partial_topk": 0, "fused_mlp_rollout": 0}
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"native against B1: launches {launches}, expected {want}")
+    start = caught[0].to(torch.float64).cpu().numpy()  # (1, 2): one episode for all
+    native = NativeVectorEnv("pendulum", pop, max_steps=steps, num_threads=min(8, os.cpu_count()))
+    host = HostEnvProblem(apply, StartFrom(native, np.repeat(start, pop, axis=0)),
+                          cap_episode_length=steps, device=dev)
+    f_native, _ = host.evaluate(0, genomes)
+    got, want_r = f_native.cpu().double(), f_b1.cpu().double()
+    rel = ((got - want_r).abs() / want_r.abs().clamp_min(1.0))
+    stats = {"median_rel": float(rel.median()), "p99_rel": float(rel.quantile(0.99)),
+             "max_rel": float(rel.max()), "mean_b1": float(want_r.mean()),
+             "mean_native": float(got.mean()), "tol_median": 1e-5, "tol_p99": 1e-4}
+    if not (torch.isfinite(got).all() and stats["median_rel"] <= stats["tol_median"]
+            and stats["p99_rel"] <= stats["tol_p99"]):
+        raise AssertionError(f"the native engine disagrees with B1: {stats}")
+    timing = {}
+    if dev.type == "cuda":
+        timing["b1_ms"] = _time_ms(lambda: b1.evaluate(pstate, genomes), 1, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.evaluate(0, genomes)
+        torch.cuda.synchronize()
+        timing["native_ms"] = (time.perf_counter() - t0) * 1e3
+    bound, by = bound_ms(*rollout_work(pop, 1, pop * steps, 3, 16, 1, "pendulum"))  # env-steps
+    out = {"pop": pop, "steps": steps, "episodes": 1, "launches": launches, "returns": stats,
+           "b1_bound_ms": bound, "b1_bound_by": by, **timing}
+    print(f"[native vs B1] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------- main path 34
+
+
+def mnist_like(seed: int, rows: int = DS_ROWS + DS_VALID, features: int = DS_FEATURES,
+               classes: int = DS_CLASSES, hidden: int = DS_TEACHER_HIDDEN) -> tuple:
+    """An MNIST-shaped stream made from ``seed``: pixels uniform in [0, 1)
+    (float32) and the labels of a fixed random teacher MLP (tanh, ``hidden``
+    units), so the data has a signal to learn."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.random((rows, features), dtype=np.float32)
+    w1 = (rng.standard_normal((features, hidden)) / np.sqrt(features)).astype(np.float32)
+    w2 = rng.standard_normal((hidden, classes)).astype(np.float32)
+    y = np.argmax(np.tanh(4.0 * (x - 0.5) @ w1) @ w2, axis=1).astype(np.int32)
+    return x, y
+
+
+def student(torch, features: int = DS_FEATURES, hidden: int = DS_HIDDEN,
+            classes: int = DS_CLASSES) -> tuple:
+    """The MLP ``features``-``hidden``-``classes`` over a flat genome:
+    ``(loss, accuracy, dim)``, each a function of one genome and a batch
+    ``{"x", "y", "i"}`` (cross-entropy, and the share classified right)."""
+    n1 = features * hidden
+    n2 = n1 + hidden
+    n3 = n2 + hidden * classes
+    dim = n3 + classes
+
+    def logits(w, x):
+        h = torch.tanh(x @ w[:n1].reshape(features, hidden) + w[n1:n2])
+        return h @ w[n2:n3].reshape(hidden, classes) + w[n3:]
+
+    def loss(w, batch):
+        logp = torch.log_softmax(logits(w, batch["x"]), dim=-1)
+        onehot = torch.nn.functional.one_hot(batch["y"].long(), classes).to(logp.dtype)
+        return -(logp * onehot).sum(-1).mean()
+
+    def accuracy(w, batch):
+        return (logits(w, batch["x"]).argmax(-1) == batch["y"].long()).to(torch.float32).mean()
+
+    return loss, accuracy, dim
+
+
+def build_dataset_path(torch, seed: int = SEED, pop: int = DS_POP, rows: int = DS_ROWS,
+                       valid: int = DS_VALID, device=None) -> tuple:
+    """Main path 34 as a user builds it: ``StdWorkflow(OpenES(zeros(dim),
+    pop, adam), DatasetProblem(InMemoryDataLoader(train, 256, seed), loss,
+    valid_iterator=InMemoryDataLoader(held out, 2000, seed + 1)))``; returns
+    ``(workflow, train data, accuracy)``."""
+    import numpy as np
+
+    from evox_tpu_torch import Monitor, StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import OpenES
+    from evox_tpu_torch.problems.supervised import DatasetProblem, InMemoryDataLoader
+
+    x, y = mnist_like(seed, rows + valid)
+    train = {"x": x[:rows], "y": y[:rows], "i": np.arange(rows, dtype=np.int32)}
+    held = {"x": x[rows:], "y": y[rows:], "i": np.arange(valid, dtype=np.int32)}
+    loss, accuracy, dim = student(torch)
+    problem = DatasetProblem(InMemoryDataLoader(train, DS_BATCH, seed), loss,
+                             valid_iterator=InMemoryDataLoader(held, DS_VALID_BATCH, seed + 1),
+                             device=device)
+
+    class MeanLoss(Monitor):
+        """Each generation's mean training loss, kept on the device."""
+
+        def init(self, seed=None):
+            return ()
+
+        def hooks(self):
+            return ("post_eval",)
+
+        def post_eval(self, mstate, cand, fitness):
+            return mstate + (fitness.mean(),)
+
+    algo = OpenES(torch.zeros(dim), pop, learning_rate=DS_LR, noise_stdev=DS_SIGMA,
+                  optimizer="adam", device=device)
+    return StdWorkflow(algo, problem, monitors=[MeanLoss()], device=device), train, accuracy
+
+
+def phase_dataset_path(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 34: init and one generation (generation 0), then ``run``
+    for ``DS_GENERATIONS`` with the launch counts set to 0 just before and
+    read just after (no kernel of the port runs); ms a generation, the
+    batch copy's device ms (the problem's ``HostLink``), peak memory. Gates:
+    every batch's row indices, as they reached the device, equal a CPU
+    loader's with the same seed, and the last batch's rows equal the host
+    data bit for bit; losses on the card against the CPU on the same
+    genomes and batch; the mean training loss after the run below
+    generation 0's; accuracy and loss on the held-out rows through
+    ``StdWorkflow.validate`` with a metric view."""
+    from evox_tpu_torch.problems.supervised import InMemoryDataLoader
+
+    dev = torch.device("cuda" if device is None else device)
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    wf, train, accuracy = build_dataset_path(torch, seed, device=dev)
+    setup_s = time.perf_counter() - t0
+    problem = wf.problem
+    seen = []
+    raw_to_device = problem._to_device
+    problem._to_device = lambda batch: seen.append(raw_to_device(batch)) or seen[-1]
+    state = wf.step(wf.init(seed))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    link0 = problem.host_link.report()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = wf.run(state, DS_GENERATIONS)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    link1 = problem.host_link.report()
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches on path 34: {launches}")
+    means = [float(m) for m in state.monitors[0]]
+    if not all(math.isfinite(m) for m in means) or not means[-1] < means[0]:
+        raise AssertionError(f"path 34: the mean training loss did not fall: {means}")
+
+    loader = InMemoryDataLoader(train, DS_BATCH, seed)
+    want_i = [torch.from_numpy(next(loader)["i"]) for _ in seen]
+    indices = compare_exact(f"path 34: the row indices of {len(seen)} batches on the device "
+                            "against a CPU loader's", [b["i"].cpu() for b in seen], want_i)
+    last = seen[-1]
+    rows = compare_exact("path 34: the last batch's rows on the device against the host data",
+                         (last["x"].cpu(), last["y"].cpu()),
+                         (torch.from_numpy(train["x"][last["i"].cpu().numpy()]),
+                          torch.from_numpy(train["y"][last["i"].cpu().numpy()])))
+    cand = wf.sample(state)[:DS_CHECK_ROWS]
+    card = torch.func.vmap(problem.loss_func, in_dims=(0, None))(cand, last)
+    cpu = torch.func.vmap(problem.loss_func, in_dims=(0, None))(
+        cand.cpu(), {k: v.cpu() for k, v in last.items()})
+    losses = compare("path 34: losses on the card against the CPU (float32 dot products of 784 "
+                     "and 32 terms summed in another order)", card.cpu(), cpu, 1e-4, 1e-5)
+    val_acc = wf.validate(state, problem=problem.valid(metric=accuracy))
+    val_loss = wf.validate(state, problem=problem.valid())
+    if not (val_acc.shape == (DS_POP,) and bool(((val_acc >= 0) & (val_acc <= 1)).all())
+            and bool(torch.isfinite(val_loss).all())):
+        raise AssertionError("path 34: validation out of range")
+    copies = link1["h2d"] - link0["h2d"]
+    out = {
+        "pop": DS_POP, "dim": int(cand.shape[1]), "batch": DS_BATCH, "rows": DS_ROWS,
+        "generations": DS_GENERATIONS, "setup_s": setup_s,
+        "ms_per_generation": wall * 1e3 / DS_GENERATIONS,
+        "forward_gflop_per_generation": 2.0 * DS_POP * DS_BATCH * (
+            DS_FEATURES * DS_HIDDEN + DS_HIDDEN * DS_CLASSES) / 1e9,
+        "batch_copies": copies,
+        "batch_copy_ms_per_generation": (None if link1["h2d_ms"] is None
+                                         else (link1["h2d_ms"] - link0["h2d_ms"]) / DS_GENERATIONS),
+        "batch_bytes_per_generation": (link1["h2d_bytes"] - link0["h2d_bytes"]) / DS_GENERATIONS,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        "mean_loss_first_last": [means[0], means[-1]],
+        "indices": indices, "rows_bit_for_bit": rows, "card_vs_cpu": losses,
+        "valid_accuracy_mean": float(val_acc.mean()), "valid_accuracy_max": float(val_acc.max()),
+        "valid_loss_mean": float(val_loss.mean()), "launches": launches,
+    }
+    print(f"[path 34] {json.dumps(out)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------- main path 35
+
+
+def farm_helpers():
+    """``tests/_torch_farm_helpers.py`` (a gymnasium-API scalar cartpole,
+    the flat policy 4-8-2 and a fault-injecting worker), imported by its own
+    name from the checkout so spawned workers unpickle the same module."""
+    path = str(ROOT / "tests")
+    if path not in sys.path:
+        sys.path.append(path)
+    import _torch_farm_helpers
+
+    return _torch_farm_helpers
+
+
+def phase_farm_path(torch, seed: int = SEED, out_dir: str = "chiprun_out", device=None) -> dict:
+    """Main path 35: the rollout farms on a gymnasium-API cartpole, pop
+    1024, cap 200. ``HostRolloutFarm`` with 8 threads in both placements
+    (the lockstep policy on the card), ``FARM_GENERATIONS`` timed;
+    ``ProcessRolloutFarm`` with 4 spawned local workers, whose fitness must
+    equal ``HostRolloutFarm(batch_policy=False)``'s with 4 workers bit for
+    bit on the same injected seed, timed likewise, then 5 generations of
+    OpenES through ``run_host_pipelined`` whose Chrome trace
+    (``out_dir/farm_trace.json``) must hold the three ``farm/*`` counter
+    tracks. A second farm of 4 (one worker that hard-exits on its first
+    request): that generation bit for bit with the thread farm, the drop
+    and the redispatch counted; then, with 3 alive under a floor of 4,
+    ``FarmDegradedError``. Every spawned process is joined under a
+    timeout."""
+    import numpy as np
+
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import OpenES
+    from evox_tpu_torch.core.instrument import write_chrome_trace
+    from evox_tpu_torch.problems.neuroevolution import (
+        FarmDegradedError,
+        HostRolloutFarm,
+        ProcessRolloutFarm,
+        spawn_local_workers,
+    )
+    from evox_tpu_torch.workflows.pipelined import run_host_pipelined
+
+    helpers = farm_helpers()
+    dev = torch.device("cuda" if device is None else device)
+    kw = dict(num_workers=FARM_PROCS, cap_episode=FARM_CAP, host="127.0.0.1",
+              request_timeout=60.0, heartbeat_timeout=10.0, retry_backoff=0.01)
+    clean = ProcessRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole, **kw)
+    chaos = ProcessRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole, **kw)
+    t_spawn = time.perf_counter()
+    procs = spawn_local_workers(clean.address, FARM_PROCS)
+    procs.append(helpers.spawn_chaos_worker(chaos.address, mode="kill"))
+    procs += spawn_local_workers(chaos.address, FARM_PROCS - 1)
+    pop = (0.5 * np.random.default_rng(seed + 35).standard_normal((FARM_POP, helpers.DIM))
+           ).astype(np.float32)
+    out = {"pop": FARM_POP, "cap": FARM_CAP, "threads": FARM_THREADS, "processes": FARM_PROCS}
+
+    def timed(farm):  # nothing compiles on the host side: no warm-up
+        t0 = time.perf_counter()
+        fits = [farm.evaluate(None, pop)[0] for _ in range(FARM_GENERATIONS)]
+        return (time.perf_counter() - t0) * 1e3 / FARM_GENERATIONS, fits[-1]
+
+    def twin(rng_seed):
+        farm = HostRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole,
+                               num_workers=FARM_PROCS, batch_policy=False,
+                               cap_episode=FARM_CAP, device="cpu")
+        farm._seed_rng = np.random.default_rng(rng_seed)
+        return farm
+
+    try:
+        reset_launches()
+        for name, batch_policy in (("lockstep", True), ("per_worker", False)):
+            farm = HostRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole,
+                                   num_workers=FARM_THREADS, batch_policy=batch_policy,
+                                   cap_episode=FARM_CAP, device=dev if batch_policy else "cpu")
+            ms, fit = timed(farm)
+            out[f"thread_{name}"] = {"ms_per_generation": ms, "mean_return": float(fit.mean())}
+        clean.bind(timeout=120.0)
+        chaos.bind(timeout=120.0)
+        out["spawn_to_bound_s"] = time.perf_counter() - t_spawn
+        clean._seed_rng = np.random.default_rng(seed)
+        f_proc, _ = clean.evaluate(None, pop)
+        f_thread, _ = twin(seed).evaluate(None, pop)
+        out["process_vs_thread"] = compare_exact(
+            "path 35: the process farm's fitness against the thread farm's (batch_policy=False)",
+            (torch.from_numpy(f_proc),), (torch.from_numpy(f_thread),))
+        ms, fit = timed(clean)
+        out["process"] = {"ms_per_generation": ms, "mean_return": float(fit.mean())}
+
+        algo = OpenES(torch.zeros(helpers.DIM), FARM_POP, learning_rate=0.05, noise_stdev=0.1,
+                      device=dev)
+        wf = StdWorkflow(algo, clean, opt_direction="max", device=dev)
+        best = []
+        t0 = time.perf_counter()
+        state = run_host_pipelined(wf, wf.init(seed), FARM_PIPELINED,
+                                   on_generation=lambda g, s, f: best.append(float(f.max())))
+        out["pipelined_ms_per_generation"] = (time.perf_counter() - t0) * 1e3 / FARM_PIPELINED
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        trace_path = Path(out_dir) / "farm_trace.json"
+        tracks = clean.counter_tracks()
+        write_chrome_trace(str(trace_path), extra_counters=tracks)
+        counters = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+                    if e.get("ph") == "C" and e.get("name", "").startswith("farm/")]
+        names = sorted({e["name"] for e in counters})
+        if names != ["farm/slices_redispatched", "farm/workers_alive", "farm/workers_dropped"] \
+                or int(state.generation) != FARM_PIPELINED or len(best) != FARM_PIPELINED:
+            raise AssertionError(f"path 35: the pipelined run or its trace: {names}, "
+                                 f"generation {state.generation}")
+        out["trace"] = {"path": str(trace_path), "farm_tracks": names,
+                        "samples": len(counters), "best": best}
+
+        chaos._seed_rng = np.random.default_rng(seed + 1)
+        f_chaos, _ = chaos.evaluate(None, pop)
+        f_thread, _ = twin(seed + 1).evaluate(None, pop)
+        out["killed_vs_thread"] = compare_exact(
+            "path 35: with a worker killed mid-generation, the fitness against the thread farm's",
+            (torch.from_numpy(f_chaos),), (torch.from_numpy(f_thread),))
+        health = chaos.health_report()
+        if not (health["workers_dropped"] == 1 and health["slices_redispatched"] >= 1
+                and health["workers_alive"] == FARM_PROCS - 1):
+            raise AssertionError(f"path 35: the killed worker's health report: {health}")
+        out["health_after_kill"] = health
+        chaos.min_workers = FARM_PROCS
+        try:
+            chaos.evaluate(None, pop)
+        except FarmDegradedError as e:
+            out["degraded"] = str(e)
+        else:
+            raise AssertionError("path 35: no FarmDegradedError below min_workers")
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"kernel launches on path 35: {launches}")
+    finally:
+        clean.shutdown()
+        chaos.shutdown()
+        codes = helpers.reap(procs, timeout=30.0)
+    alive = [p.pid for p in procs if p.is_alive()]
+    out["exit_codes"] = codes
+    if alive or codes != [0] * FARM_PROCS + [1] + [0] * (FARM_PROCS - 1):
+        raise AssertionError(f"path 35: workers left {alive}, exit codes {codes}")
+    print(f"[path 35] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -7172,6 +7830,12 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
                   ("acrobot", "PolicyRolloutProblem, fused acrobot 6-16-3 under OpenES (path 12)"),
                   ("mountain_car", "PolicyRolloutProblem, fused mountain car 2-16-1 under OpenES "
                                    "(the mountain car phase)"))),
+            {"caller": "PolicyRolloutProblem, fused pendulum 3-16-1 at one episode, held against "
+                       "the native C++ engine (path 33's cross-check)",
+             "launches": paths["hostenv"]["native_vs_b1"]["launches"]["fused_rollout"],
+             **{f: paths["hostenv"]["native_vs_b1"][k] for f, k in (
+                 ("ms", "b1_ms"), ("native_engine_ms", "native_ms"), ("bound_ms", "b1_bound_ms"),
+                 ("bound_by", "b1_bound_by"))}},
         ],
     }]
     for name, source, replaces in (
@@ -7543,6 +8207,16 @@ def main() -> int:
     paths["sharded_nsga2"] = phase_sharded_nsga2(torch)
     paths["supervised_nsga2"] = phase_supervised_nsga2(torch)
     paths["nccl_world"] = phase_nccl_world(torch)
+    # 18. main paths 33 (OpenES on HostEnvProblem over the native C++
+    # engine, with the engine against B1 on one workload), 34 (supervised
+    # OpenES on DatasetProblem over an MNIST-shaped stream) and 35 (the
+    # thread and process rollout farms, a worker killed, the floor)
+    torch.cuda.empty_cache()
+    paths["hostenv"] = phase_hostenv_path(torch)
+    torch.cuda.empty_cache()
+    paths["dataset"] = phase_dataset_path(torch)
+    torch.cuda.empty_cache()
+    paths["farm"] = phase_farm_path(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -7611,6 +8285,9 @@ def main() -> int:
         "sharded_nsga2_path": paths["sharded_nsga2"],
         "supervised_nsga2_path": paths["supervised_nsga2"],
         "nccl_world": paths["nccl_world"],
+        "hostenv_path": paths["hostenv"],
+        "dataset_path": paths["dataset"],
+        "farm_path": paths["farm"],
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,3 +1,3 @@
-from . import neuroevolution, numerical
+from . import evoxbench, neuroevolution, numerical, supervised
 
-__all__ = ["neuroevolution", "numerical"]
+__all__ = ["evoxbench", "neuroevolution", "numerical", "supervised"]

@@ -1,4 +1,5 @@
 from . import envs, walker
+from .brax_adapter import brax_env
 from .envs import ENVS, EnvSpec, acrobot, cartpole, make, mountain_car, pendulum
 from .walker import WALKER_DEFAULTS, chain_walker, walker_config
 
@@ -9,6 +10,7 @@ __all__ = [
     "EnvSpec",
     "WALKER_DEFAULTS",
     "acrobot",
+    "brax_env",
     "cartpole",
     "chain_walker",
     "envs",

@@ -244,11 +244,14 @@ class HostLink:
         return rebuild(host), end
 
     def to_device(self, fitness: Any) -> torch.Tensor:
-        """A host fitness (numpy, or a tensor) as a tensor on the device,
-        64-bit numpy coerced to 32 bits first."""
+        """A host array (numpy, or a tensor) as a tensor on the device,
+        64-bit numpy coerced to 32 bits first: a host problem's fitness, a
+        supervised problem's batch leaf."""
         if isinstance(fitness, torch.Tensor):
             return fitness.to(self.device)
-        host = torch.from_numpy(np.ascontiguousarray(to_x32_if_needed(np.asarray(fitness))))
+        arr = to_x32_if_needed(np.asarray(fitness))
+        # ascontiguousarray makes a 0-d array 1-d: keep the shape
+        host = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
         self.counts["h2d"] += 1
         self.counts["h2d_bytes"] += host.numel() * host.element_size()
         if not self.pinned:
