@@ -336,7 +336,7 @@ exit 0):
    path 25: ``bench.py``'s workload 12, path 4's CSO through
    ``GenerationExecutor(metrics=FlightRecorder(directory=tmp)).run_fused``
    in chunks of 100 with a fsynced sample a chunk against ``metrics=None``
-   (trip counts 100 and 600 differenced, in turns): the stream and the
+   (trip counts 100 and 400 differenced, in turns): the stream and the
    report validate, the states are equal. Main path 26: workload 12b,
    ``StateAttestor(every=10, capacity=64)`` against bare ``wf.run`` the same
    way; D1 (``csrc/digest.cu``) once an attestation, each ring digest equal
@@ -407,8 +407,30 @@ exit 0):
    mid-generation, ``FarmDegradedError`` under the floor, 5 generations
    through ``run_host_pipelined`` with the ``farm/*`` counter tracks in a
    Chrome trace; every worker joined.
-25. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
-   B1 on paths 1 and 12, the mountain car phase and path 33's
+25. main path 36: ``bench.py:1177-1400``'s ``serving_elastic`` leg,
+   ``ElasticServer`` over PSO on Sphere (d 64, width 16, chunk 10, pop
+   rungs 256, 512 and 1024) with a serving cache on disk: a seeded trace
+   of 48 requests (pops 200-1024) served, tenant-generations a second
+   differenced over serve rounds; a padded tenant against its
+   ``solo_workflow``, bit for bit; a healthy tenant's ring and state bit
+   for bit between fleets whose neighbours differ; admissions into a warm
+   bucket under a frozen cache (every chunk's ``run`` looked up in it, all
+   hits) and a strict ``DispatchRecorder``; a guarded tenant grown a rung by
+   ``PopAutoscaler``, journaled in both buckets; the cold start of a
+   fresh process (``--cold-start``) with the manifest's pre-warm against
+   without it, in turns. Main path 37: path 28's fleet under
+   ``RunQueue(chunk=10, health_policy=FleetHealthPolicy(...))``, NaN in
+   three tenants drawing a restart, an eviction and a restart escalated
+   to a freeze; the other 61 bit for bit with the sweep without the
+   injection; ms a chunk with and without the policy, in turns (and
+   with ``--profile`` the DtoH copies). Main path 38: ``MultiLevelES(
+   OpenES, PolicyRolloutProblem(pendulum, fused), fleet=False)``, OpenES
+   with adam, 4 groups of pop 16384, 5 inner and 4 outer generations: 80
+   B1 launches, the outer update replayed on the host bit for bit,
+   proposals inside their bounds, the best equal to the best fitness the
+   run returned; ms an outer generation and B1's share.
+26. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
+   B1 on paths 1, 12 and 38, the mountain car phase and path 33's
    cross-check, B2 on paths 3, 6 and
    13, B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched
    on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
@@ -568,10 +590,11 @@ ISL_CKPT_EVERY, ISL_CKPT_GENERATIONS = 8, 32
 # migrants) among them, and 64 small members
 DOMINANCE_BATCHES = ((4, 1000, 3), (4, 2000, 3), (8, 1250, 3), (64, 512, 2), (4, 1004, 3))
 # main path 28, bench.py's workload 5 (bench.py:458-606): 64 CMA-ES tenants
-# of pop 256 at d 16, the differenced trip counts, the tenants held
-# against their solo runs
+# of pop 256 at d 16, the differenced trip counts (10, 60 until PR 21, whose
+# three paths took the script past 540 s: the depth was cut, not the
+# width), the tenants held against their solo runs
 TEN_N, TEN_POP, TEN_DIM = 64, 256, 16
-TEN_PAIR = (10, 60)
+TEN_PAIR = (10, 40)
 TEN_CHECK, TEN_CHECK_GENERATIONS = (0, 31, 63), 10
 # M1 launches a CMA-ES generation: the ask's (z D) B^T; the tell's mu rows,
 # w y, w z, B z_w, the rank-mu product and |ps|'s dot product
@@ -629,16 +652,40 @@ FARM_PIPELINED = 5
 PATH31_SHARDS = 8
 DOMINANCE_ROWS = ((20000, 3, 8), (20001, 3, 8), (1000, 3, 8), (33, 3, 8), (4100, 5, 4),
                   (777, 2, 3))
+# main path 36, bench.py:1177-1400's serving_elastic leg at a served size:
+# PSO on Sphere at d 64, bucket width 16, chunk 10, pop rungs 256-1024, a
+# seeded trace of 48 requests (pops 200-1024, two chunks each); the serve
+# rounds differenced; the padded tenant's live rows; admissions into a warm
+# bucket; the cold-start rounds (pre-warm and none, in turns)
+EL_DIM, EL_WIDTH, EL_CHUNK, EL_RUNGS = 64, 16, 10, (256, 512, 1024)
+EL_REQUESTS, EL_POP_LO, EL_POP_HI, EL_PAIR = 48, 200, 1024, (1, 3)
+EL_PADDED, EL_CHECK_GENERATIONS, EL_ADMISSIONS, EL_COLD_ROUNDS = 700, 10, 4, 2
+# main path 37: path 28's fleet under a health policy, chunks of 10, budgets
+# of 40; the slots NaN goes into, by the action they must draw
+FH_CHUNK, FH_BUDGET = 10, 40
+FH_SLOTS = {"restart": 5, "freeze": 17, "evict": 40}
+# main path 38: MultiLevelES over path 1's B1 pendulum in 4 groups of 16384,
+# 5 inner generations, 4 outer ones, OpenES with adam (path 1's sgd steps
+# the center into the policy's saturation within a phase, where every
+# candidate returns the same fitness and the groups tie); the adapted
+# hyperparameters (name, init, lb, ub), log-transformed. The learning rate
+# is adapted through lr_scale, the multiplier OpenES's update reads: its
+# optimizer takes learning_rate at construction, so a spec on
+# learning_rate moves nothing
+ML_GROUPS, ML_POP, ML_INNER, ML_OUTER = 4, 16384, 5, 4
+ML_LR, ML_SIGMA, ML_OPTIMIZER = 0.05, 0.05, "adam"
+ML_SPECS = (("lr_scale", 1.0, 0.1, 10.0), ("noise_stdev", 0.05, 1e-3, 1.0))
 # main path 29, bench.py's RunQueue leg (bench.py:592-603)
 RQ_SLOTS, RQ_CHUNK, RQ_SPECS, RQ_STEPS = 4, 5, 6, 10
 # SHADE islands: the pbest cut on B4 under vmap
 SHADE_ISL_N, SHADE_ISL_POP, SHADE_ISL_DIM, SHADE_ISL_GENERATIONS = 8, 512, 64, 8
 # main paths 25 and 26: bench.py:1525-1638's workloads 12 and 12b, path 4's
 # CSO (seed 42) in chunks of 100 with one sample a chunk, and attested every
-# 10 into a ring of 64; trip counts 100 and 600 differenced, each the least
-# of three timings, in six turns; the ring checked against the host over 60 generations
-MET_CHUNK, MET_PAIR, MET_REPEATS = 100, (100, 600), 3
-ATT_EVERY, ATT_CAPACITY, ATT_PAIR, ATT_RING_CHECK = 10, 64, (100, 600), 60
+# 10 into a ring of 64; trip counts 100 and 400 differenced (100 and 600
+# until PR 21: depth cut, as path 28's), each the least of three timings, in
+# six turns; the ring checked against the host over 60 generations
+MET_CHUNK, MET_PAIR, MET_REPEATS = 100, (100, 400), 3
+ATT_EVERY, ATT_CAPACITY, ATT_PAIR, ATT_RING_CHECK = 10, 64, (100, 400), 60
 # the voted re-dispatch on path 4: 30 generations in chunks of 10; the
 # bisection: a bit flipped at generation 13, attested every 5, 30 generations
 VOTE_GENERATIONS, VOTE_CHUNK = 30, 10
@@ -4517,7 +4564,7 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
     against the same 64 runs (seeds 0..63) driven one after the other
     through one solo ``StdWorkflow``, in turns (fleet, sequential,
     sequential, fleet), each turn bench's differenced protocol over
-    ``TEN_PAIR`` = (10, 60) generations: ms a fleet generation against ms
+    ``TEN_PAIR`` = (10, 40) generations: ms a fleet generation against ms
     a generation of all 64 sequential runs. Beside them: the host's thread
     time a generation, the per-member draws' host share (``member_draw``),
     peak memory, and with ``profile`` the kernels and DtoH copies a
@@ -6223,7 +6270,7 @@ def phase_metrics_path(torch, seed: int = BF16_SEED, device=None, out_dir=None) 
     in chunks of 100, with ``slo.tenant_gens`` counted and one fsynced
     ``sample`` a chunk, against the same chunked loop with
     ``metrics=None``, in turns (instrumented, bare, bare, instrumented),
-    trip counts 100 and 600 differenced. The stream must pass
+    trip counts 100 and 400 differenced. The stream must pass
     ``validate_metrics_stream``, the report's ``metrics`` and ``slo``
     sections ``validate_run_report``, and the final states must be equal
     bit for bit."""
@@ -6475,8 +6522,8 @@ def phase_digest_kernel(torch, state, dev) -> dict:
 def phase_attest_path(torch, seed: int = BF16_SEED, device=None) -> dict:
     """Main path 26: ``bench.py``'s workload 12b. Path 4's CSO with
     ``StateAttestor(every=10, capacity=64)`` against bare ``wf.run``, in
-    turns, trip counts 100 and 600 differenced; D1's launches counted over
-    an attested run of 600 (one an attestation). Every ring digest of a
+    turns, trip counts 100 and 400 differenced; D1's launches counted over
+    an attested run of 400 (one an attestation). Every ring digest of a
     run equals ``host_state_digest`` of that generation's state. D1 against
     its plain version (``phase_digest_kernel``). ``run_fused(verify_every=
     1)`` with a lying dispatch heals, three distinct digests raise
@@ -7716,6 +7763,603 @@ def phase_farm_path(torch, seed: int = SEED, out_dir: str = "chiprun_out", devic
     return out
 
 
+# ----------------------------------------------- main paths 36, 37 and 38
+
+
+def elastic_factory(torch, device=None, guarded=False, flat=False):
+    """``bench.py:1195``'s serving factory at this path's shapes: PSO (lb -5,
+    ub 5) on Sphere in an ``ElasticWorkflow`` of the bucket's width, with a
+    ``TelemetryMonitor(capacity=8)``; ``guarded`` wraps PSO in
+    ``GuardedAlgorithm(stagnation_limit=3)``, and ``flat`` scores every
+    candidate 0 (nothing improves: the guard's escalation signal)."""
+    import numpy as np
+
+    from evox_tpu_torch import GuardedAlgorithm
+    from evox_tpu_torch.algorithms.so.pso import PSO
+    from evox_tpu_torch.monitors import TelemetryMonitor
+    from evox_tpu_torch.problems.numerical import Sphere
+    from evox_tpu_torch.workflows.elastic import ACTIVE_ROWS, ElasticWorkflow
+
+    class FlatSphere(Sphere):
+        def evaluate(self, state, pop):
+            fit, state = super().evaluate(state, pop)
+            return torch.zeros_like(fit), state
+
+    def factory(shape):
+        algo = PSO(-5.0 * torch.ones(shape.dim), 5.0 * torch.ones(shape.dim), pop_size=shape.pop,
+                   device=device)
+        if guarded:
+            algo = GuardedAlgorithm(algo, stagnation_limit=3)
+        return ElasticWorkflow(
+            algo, FlatSphere() if flat else Sphere(), n_tenants=shape.width,
+            hyperparams={ACTIVE_ROWS: np.full((shape.width,), shape.pop, np.int32)},
+            monitors=(TelemetryMonitor(capacity=8, device=device),), device=device)
+
+    return factory
+
+
+def elastic_server(torch, cache, device=None, **kw):
+    from evox_tpu_torch.workflows.elastic import BucketTable, ElasticServer
+
+    return ElasticServer(elastic_factory(torch, device), table=BucketTable(
+        pop_rungs=EL_RUNGS, width_rungs=(EL_WIDTH,)), cache=cache, width=EL_WIDTH,
+        chunk=EL_CHUNK, **kw)
+
+
+def elastic_trace() -> list:
+    """The seeded churn trace: pops drawn from 200-1024 (every rung), each
+    request living two chunks."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    return [(int(rng.randint(EL_POP_LO, EL_POP_HI + 1)), 2 * EL_CHUNK)
+            for _ in range(EL_REQUESTS)]
+
+
+def _sync(torch, device):
+    if device is None or str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def cold_start_child(mode: str, cache_dir: str, device=None) -> dict:
+    """One fresh process's cold start: build the server (``prewarm`` finds
+    the manifest and warms every listed bucket before serving; ``none``
+    has no manifest), submit one request of pop ``EL_PADDED``, serve one round and
+    fetch its generation. Seconds from this function's start (the
+    interpreter and ``import torch`` come before it; the parent times the
+    whole process)."""
+    t0 = time.perf_counter()
+    import torch
+
+    from evox_tpu_torch.core.exec_cache import ExecutableCache
+    from evox_tpu_torch.workflows.elastic import ElasticSpec
+
+    cache = ExecutableCache(directory=cache_dir if mode == "prewarm" else None)
+    srv = elastic_server(torch, cache, device=device)
+    _sync(torch, device)
+    t_ready = time.perf_counter()
+    shape = srv.submit(ElasticSpec(seed=0, n_steps=EL_CHUNK, pop=EL_PADDED, dim=EL_DIM,
+                                   tag="cold"))
+    srv.serve(max_rounds=1)
+    gen = int(srv._buckets[shape.key].queue.state.generation)
+    t_first = time.perf_counter()
+    return {"mode": mode, "generation": gen, "prewarmed": srv.prewarmed,
+            "server_ready_s": t_ready - t0, "submit_to_first_generation_s": t_first - t_ready,
+            "to_first_generation_s": t_first - t0, "counters": dict(cache.counters)}
+
+
+def _cold_start_round(mode: str, cache_dir: str) -> dict:
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--cold-start", mode,
+                           cache_dir], capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cold start ({mode}) failed: {proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["generation"] < 1:
+        raise AssertionError(f"cold start ({mode}) fetched no generation: {child}")
+    if mode == "prewarm" and (child["counters"]["misses"] or not child["prewarmed"]):
+        raise AssertionError(f"the pre-warmed cold start warmed off the manifest: {child}")
+    return {**child, "process_wall_s": wall}
+
+
+def _tenant_leaves(torch, state, index: int) -> list:
+    from evox_tpu_torch.core.members import take_state
+
+    return [x for x in torch.utils._pytree.tree_leaves(take_state(state.tenants, index))
+            if isinstance(x, torch.Tensor)]
+
+
+def phase_elastic_path(torch, seed: int = SEED, device=None, cold_rounds: int = EL_COLD_ROUNDS
+                       ) -> dict:
+    """Main path 36, ``bench.py:1177-1400``'s ``serving_elastic`` leg at a
+    size its users run: PSO on Sphere at d 64, bucket width 16, chunk 10,
+    pop rungs 256, 512 and 1024, a seeded churn trace of 48 requests (pops
+    200-1024, two chunks each). Warms the three buckets through a serving
+    cache on disk (its manifest), then: sustained tenant-generations a
+    second differenced over ``EL_PAIR`` serve rounds; (a) a padded tenant
+    (``EL_PADDED`` = 700 of 1024 rows) against its ``solo_workflow`` run with the mask over
+    ``EL_CHECK_GENERATIONS``; (b) a healthy tenant's telemetry ring and
+    state, bit for bit, between two fleets whose other tenants (padding and
+    filler neighbours) differ; (c) admissions into a warm bucket under a
+    frozen cache and ``DispatchRecorder(strict_retrace=True)``, the ms of
+    one; (d) a guarded tenant on a flat Sphere grown from the 256 to the
+    512 bucket by ``PopAutoscaler``, journaled in both; the cold start of a
+    fresh process with the manifest's pre-warm against without it, in
+    ``cold_rounds`` interleaved rounds of subprocesses; ``run_report``'s
+    ``serving`` section through ``tools/check_report.py``."""
+    import tempfile
+
+    import numpy as np
+
+    from evox_tpu_torch import instrument, run_report
+    from evox_tpu_torch.core.exec_cache import ExecutableCache
+    from evox_tpu_torch.core.members import take_state
+    from evox_tpu_torch.core.struct import named_leaves
+    from evox_tpu_torch.workflows.elastic import (
+        ACTIVE_ROWS, BucketShape, BucketTable, ElasticServer, ElasticSpec, PopAutoscaler)
+
+    out = {"dim": EL_DIM, "width": EL_WIDTH, "chunk": EL_CHUNK, "rungs": list(EL_RUNGS),
+           "requests": EL_REQUESTS}
+    trace = elastic_trace()
+    with tempfile.TemporaryDirectory() as td:
+        cache_dir = os.path.join(td, "cache")
+        cache = ExecutableCache(directory=cache_dir)
+        srv = elastic_server(torch, cache, device=device)
+        warm = {}
+        for pop in EL_RUNGS:
+            t0 = time.perf_counter()
+            srv._get_bucket(BucketShape(pop, EL_DIM, EL_WIDTH))
+            _sync(torch, device)
+            warm[str(pop)] = (time.perf_counter() - t0) * 1e3
+        out["bucket_build_and_warm_ms"] = warm
+        out["warm_up_s"] = cache.report()["compile_s_paid"]
+        if cache.counters["misses"] != 4 * len(EL_RUNGS):
+            raise AssertionError(f"elastic: warming {len(EL_RUNGS)} buckets made "
+                                 f"{cache.counters}")
+
+        # sustained tenant-generations a second, differenced
+        def timed(n):
+            s = elastic_server(torch, cache, device=device)
+            for i, (pop, steps) in enumerate(trace):
+                s.submit(ElasticSpec(seed=i, n_steps=steps, pop=pop, dim=EL_DIM, tag=f"churn{i}"))
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            s.serve(max_rounds=n)
+            gens = sum(int(b.queue.state.generation) * b.shape.width for b in s._buckets.values()
+                       if b.queue.state is not None)
+            return time.perf_counter() - t0, gens, s
+
+        runs = {}
+        for n in EL_PAIR + EL_PAIR[::-1]:
+            dt, gens, s = timed(n)
+            runs.setdefault(n, []).append((dt, gens))
+        (t1, g1), (t2, g2) = [min(runs[n]) for n in EL_PAIR]
+        out["serve_rounds"] = list(EL_PAIR)
+        out["tenant_generations"] = [g1, g2]
+        out["round_s"] = {str(n): [r[0] for r in runs[n]] for n in EL_PAIR}
+        out["sustained_tenant_generations_per_s"] = (g2 - g1) / (t2 - t1)
+        results = s.serve()
+        done = sorted(r["tag"] for r in results if r["status"] == "completed")
+        if done != sorted(f"churn{i}" for i in range(EL_REQUESTS)):
+            raise AssertionError(f"elastic: the trace did not complete: {len(done)} of "
+                                 f"{EL_REQUESTS}")
+        out["buckets"] = {k: {"admitted": b.queue.counters["admitted"], "fillers": b.fillers}
+                          for k, b in s._buckets.items()}
+        bucket_wf = s._buckets[f"pop{EL_RUNGS[-1]}_dim{EL_DIM}_w{EL_WIDTH}"].workflow
+        report = run_report(bucket_wf, s._buckets[f"pop{EL_RUNGS[-1]}_dim{EL_DIM}_w{EL_WIDTH}"].queue.state)
+        validate(report=report, label="elastic serving report")
+        out["serving_counters"] = report["serving"]["cache"]["counters"]
+
+        # (a) and (b): the padded-tenant law and the ring law
+        wf = elastic_factory(torch, device)(BucketShape(EL_RUNGS[-1], EL_DIM, EL_WIDTH))
+        seeds = list(range(seed, seed + EL_WIDTH))
+        top = EL_RUNGS[-1]
+        active = [EL_PADDED] + [top] * (EL_WIDTH - 1)
+        fleet = wf.run(wf.init(seeds, hyperparams={ACTIVE_ROWS: np.asarray(active, np.int32)}),
+                       EL_CHECK_GENERATIONS)
+        solo_wf = wf.solo_workflow(hyperparams={ACTIVE_ROWS: np.int32(EL_PADDED)})
+        solo = solo_wf.run(solo_wf.init(seeds[0]), EL_CHECK_GENERATIONS)
+        solo_leaves = [x for x in torch.utils._pytree.tree_leaves(solo.algo)
+                       if isinstance(x, torch.Tensor)]
+        member = [x for x in torch.utils._pytree.tree_leaves(take_state(fleet.tenants, 0).algo)
+                  if isinstance(x, torch.Tensor)]
+        if len(member) != len(solo_leaves):
+            raise AssertionError(f"elastic (a): {len(member)} member leaves against "
+                                 f"{len(solo_leaves)} solo leaves")
+        out["padded_vs_solo"] = {**compare_exact("elastic (a): padded tenant against its solo "
+                                                 "run", member, solo_leaves),
+                                 "padded_rows": EL_PADDED, "generations": EL_CHECK_GENERATIONS}
+        other = [s + 1000 if i != 1 else s for i, s in enumerate(seeds)]
+        active2 = [top, top] + [EL_PADDED // 2] * (EL_WIDTH - 2)
+        fleet2 = wf.run(wf.init(other, hyperparams={ACTIVE_ROWS: np.asarray(active2, np.int32)}),
+                        EL_CHECK_GENERATIONS)
+        mon = wf.monitors[0]
+        ring = mon.fingerprint(take_state(fleet.tenants, 1).monitors[0])
+        ring2 = mon.fingerprint(take_state(fleet2.tenants, 1).monitors[0])
+        if ring != ring2:
+            raise AssertionError("elastic (b): a healthy tenant's ring moved with its neighbours")
+        out["ring_law"] = compare_exact("elastic (b): tenant 1 among other neighbours",
+                                        _tenant_leaves(torch, fleet, 1),
+                                        _tenant_leaves(torch, fleet2, 1))
+        solo_wf1 = wf.solo_workflow(hyperparams={ACTIVE_ROWS: np.int32(top)})
+        solo_r1 = solo_wf1.run(solo_wf1.init(seeds[1]), EL_CHECK_GENERATIONS)
+        out["ring_law"]["neighbour_ring_equals_solo"] = (
+            mon.fingerprint(solo_r1.monitors[0]) == ring)
+        # where a member's ring and state part from its solo run's, if they do
+        part = {}
+        for name, got_t, want_t in (("monitor", take_state(fleet.tenants, 1).monitors[0],
+                                     solo_r1.monitors[0]),
+                                    ("algo", take_state(fleet.tenants, 1).algo, solo_r1.algo)):
+            for (path, x), (_, y) in zip(named_leaves(got_t), named_leaves(want_t)):
+                if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+                    d = (x.double() - y.double()).abs()
+                    finite = torch.isfinite(d)
+                    part[name + path] = float(d[finite].max()) if bool(finite.any()) else None
+        out["ring_law"]["neighbour_vs_solo_differing_leaves"] = part
+        del fleet, fleet2, solo, solo_r1
+
+        # (c) warm admissions under a frozen cache and a strict recorder
+        s = elastic_server(torch, cache, device=device)
+        for i in range(EL_WIDTH + EL_ADMISSIONS):
+            s.submit(ElasticSpec(seed=500 + i, n_steps=EL_CHUNK, pop=EL_RUNGS[-2] + 1 + i, dim=EL_DIM,
+                                 tag=f"adm{i}"))
+        b = s._buckets[f"pop{EL_RUNGS[-1]}_dim{EL_DIM}_w{EL_WIDTH}"]
+        q = b.queue
+        q.start()
+        cache.freeze()
+        before = dict(cache.counters)
+        rec = instrument(b.workflow, strict_retrace=True)
+        admissions = []
+        refill = q._refill
+
+        def timed_refill(index):
+            _sync(torch, device)
+            before, t0 = q.counters["admitted"], time.perf_counter()
+            refill(index)
+            _sync(torch, device)
+            if q.counters["admitted"] > before:
+                admissions.append((time.perf_counter() - t0) * 1e3)
+
+        q._refill = timed_refill
+        s.serve()
+        if len(admissions) < EL_ADMISSIONS or rec.summary()["retrace_flags"]:
+            raise AssertionError(f"elastic (c): {len(admissions)} admissions, retraces "
+                                 f"{rec.summary()['retrace_flags']}")
+        # every chunk's run went through the frozen cache's lookup, all hits
+        # (PSO declares no init hooks: an admission dispatches no peel)
+        lookups = cache.counters["hits"] - before["hits"]
+        if lookups != q.counters["chunks"] or cache.counters["misses"] != before["misses"]:
+            raise AssertionError(f"elastic (c): {lookups} cache hits for {q.counters['chunks']} "
+                                 f"chunks, counters {before} -> {cache.counters}")
+        out["warm_admission_ms"] = statistics.median(admissions)
+        out["warm_admissions"] = len(admissions)
+        out["frozen_cache_counters"] = dict(cache.counters)
+
+        # (d) growth into the next rung, journaled in both buckets
+        jd = os.path.join(td, "journals")
+        grow = ElasticServer(elastic_factory(torch, device, guarded=True, flat=True),
+                             table=BucketTable(pop_rungs=EL_RUNGS, width_rungs=(EL_WIDTH,)),
+                             width=EL_WIDTH, chunk=EL_CHUNK, journal_dir=jd,
+                             checkpoint_dir=os.path.join(td, "ckpt"),
+                             autoscaler=PopAutoscaler(max_grows=1))
+        grow.submit(ElasticSpec(seed=1, n_steps=4 * EL_CHUNK, pop=EL_POP_LO, dim=EL_DIM,
+                                tag="grow"))
+        grown = grow.serve()
+        ev = grow.autoscale_events
+        src = f"pop{EL_RUNGS[0]}_dim{EL_DIM}_w{EL_WIDTH}"
+        dst = f"pop{EL_RUNGS[1]}_dim{EL_DIM}_w{EL_WIDTH}"
+        kinds_src = [r["kind"] for r in grow._buckets[src].queue.journal.records()]
+        resumed = [r for r in grow._buckets[dst].queue.journal.records()
+                   if r["kind"] == "submit" and r.get("resume_from")]
+        final = {r["status"]: r for r in grown if r["tag"] == "grow"}
+        if (len(ev) != 1 or (ev[0]["from"], ev[0]["to"]) != (src, dst)
+                or "autoscale" not in kinds_src or len(resumed) != 1
+                or final.get("completed", {}).get("bucket") != dst):
+            raise AssertionError(f"elastic (d): growth {ev}, source kinds {kinds_src}, "
+                                 f"target submits {resumed}, results {final}")
+        out["autoscale"] = {"event": ev[0], "source_journal_autoscale": True,
+                            "target_journal_resume": resumed[0]["resume_from"] is not None,
+                            "completed_generations": final["completed"]["generations"]}
+
+        # the cold start of a fresh process, pre-warm against none, in turns
+        rounds = []
+        for _ in range(cold_rounds):
+            for mode in ("prewarm", "none"):
+                rounds.append(_cold_start_round(mode, cache_dir))
+        out["cold_start"] = rounds
+        for mode in ("prewarm", "none") if rounds else ():
+            mine = [r for r in rounds if r["mode"] == mode]
+            out[f"cold_start_{mode}_process_s"] = statistics.median(r["process_wall_s"]
+                                                                    for r in mine)
+            out[f"cold_start_{mode}_submit_to_first_generation_s"] = statistics.median(
+                r["submit_to_first_generation_s"] for r in mine)
+    print(f"[elastic path] {json.dumps(out)}", flush=True)
+    return out
+
+
+def fleet_health_sweep(torch, policy, inject: bool, device=None, probe=None):
+    """Path 28's fleet (64 CMA-ES tenants, pop 256, d 16, M1) with a
+    ``TelemetryMonitor(capacity=8)``, 64 specs of ``FH_BUDGET`` generations
+    through ``RunQueue(chunk=FH_CHUNK, health_policy=policy)``. With
+    ``inject``: after chunk 1, NaN in slot R's and slot F's CMA-ES mean and
+    in slot E's telemetry best (its state stays finite, its best can never
+    improve again); after chunk 2, NaN in slot F's mean again. ``probe(q)``,
+    when given, runs the second chunk in place of ``q.step_chunk`` and
+    returns its result. Returns the queue and the seconds of each chunk."""
+    from evox_tpu_torch import RunQueue, TenantSpec, VectorizedWorkflow
+    from evox_tpu_torch.algorithms.so.es import CMAES
+    from evox_tpu_torch.monitors import TelemetryMonitor
+    from evox_tpu_torch.problems.numerical import Sphere
+
+    fleet = VectorizedWorkflow(
+        CMAES(torch.zeros(TEN_DIM), init_stdev=1.0, pop_size=TEN_POP, device=device), Sphere(),
+        n_tenants=TEN_N, monitors=(TelemetryMonitor(capacity=8, device=device),), device=device)
+    q = RunQueue(fleet, chunk=FH_CHUNK, health_policy=policy)
+    for i in range(TEN_N):
+        q.submit(TenantSpec(seed=i, n_steps=FH_BUDGET, tag=f"t{i}"))
+    q.start()
+
+    def poison(slot, field):
+        solo = fleet.extract_tenant(q.state, slot)
+        if field == "mean":
+            solo = solo.replace(algo=solo.algo.replace(
+                mean=torch.full_like(solo.algo.mean, float("nan"))))
+        else:
+            mon = solo.monitors[0]
+            solo = solo.replace(monitors=(mon.replace(
+                best_key=torch.full_like(mon.best_key, float("nan"))),))
+        q.state = fleet.insert_tenant(q.state, slot, solo)
+
+    chunks, k = [], 0
+    while True:
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        more = probe(q) if probe is not None and k == 1 else q.step_chunk()
+        _sync(torch, device)
+        chunks.append(time.perf_counter() - t0)
+        k += 1
+        if inject and k == 1:
+            poison(FH_SLOTS["restart"], "mean")
+            poison(FH_SLOTS["freeze"], "mean")
+            poison(FH_SLOTS["evict"], "telemetry")
+        if inject and k == 2:
+            poison(FH_SLOTS["freeze"], "mean")
+        if not more:
+            break
+    return q, chunks
+
+
+def phase_fleet_health_path(torch, profile: bool = False, device=None) -> dict:
+    """Main path 37: path 28's fleet under ``RunQueue(chunk=10,
+    health_policy=FleetHealthPolicy(on_nonfinite="restart",
+    stagnation_limit=10, on_stagnation="evict", max_restarts_per_slot=1))``
+    with a ``TelemetryMonitor(capacity=8)``, budgets of 40. NaN goes into
+    three tenants (``fleet_health_sweep``): slot R restarts once and
+    completes, slot E (its telemetry best NaN) is evicted for stagnation,
+    slot F restarts and, poisoned again, escalates to freeze. Gate: the
+    61 healthy tenants' final states and telemetry fingerprints equal,
+    bit for bit, the same sweep's without the injection. Then the ms of a
+    chunk with the policy against without it, in turns (policy, plain,
+    plain, policy; the median of chunks 2-4), and with ``profile`` the DtoH
+    copies of one chunk with and without the policy and of one fleet step
+    with the frozen mask against one without."""
+    from evox_tpu_torch.workflows.fleet_health import FleetHealthPolicy
+
+    def policy():
+        return FleetHealthPolicy(on_nonfinite="restart", stagnation_limit=FH_CHUNK,
+                                 on_stagnation="evict", max_restarts_per_slot=1)
+
+    out = {"tenants": TEN_N, "pop": TEN_POP, "dim": TEN_DIM, "chunk": FH_CHUNK,
+           "budget": FH_BUDGET, "slots": dict(FH_SLOTS)}
+    base, _ = fleet_health_sweep(torch, policy(), inject=False, device=device)
+    q, _ = fleet_health_sweep(torch, policy(), inject=True, device=device)
+    events = [(e["slot"], e["action"], e["reason"].split(":")[0], e["chunk"])
+              for e in q.health_events]
+    want = [(FH_SLOTS["restart"], "restart", "nonfinite_state", 2),
+            (FH_SLOTS["freeze"], "restart", "nonfinite_state", 2),
+            (FH_SLOTS["evict"], "evict", "stagnation", 2),
+            (FH_SLOTS["freeze"], "freeze", "nonfinite_state", 3)]
+    if sorted(events) != sorted(want):
+        raise AssertionError(f"fleet health: actions {events}, expected {want}")
+    status = {r["tag"]: r["status"] for r in q.results}
+    if (status[f"t{FH_SLOTS['restart']}"], status[f"t{FH_SLOTS['evict']}"],
+            status[f"t{FH_SLOTS['freeze']}"]) != ("completed", "evicted", "frozen"):
+        raise AssertionError(f"fleet health: statuses {status}")
+    out["events"] = q.health_events
+    out["counters"] = dict(q.counters)
+    healthy = [i for i in range(TEN_N) if i not in FH_SLOTS.values()]
+    got = [x for i in healthy for x in _tenant_leaves(torch, q.state, i)]
+    ref = [x for i in healthy for x in _tenant_leaves(torch, base.state, i)]
+    out["isolation"] = compare_exact(f"fleet health: {len(healthy)} healthy tenants against the "
+                                     "sweep without the injection", got, ref)
+    prints = lambda qq: {r["tag"]: r.get("fingerprints") for r in qq.results}
+    p_got, p_ref = prints(q), prints(base)
+    if any(p_got[f"t{i}"] != p_ref[f"t{i}"] for i in healthy):
+        raise AssertionError("fleet health: a healthy tenant's telemetry ring moved")
+    out["isolation"]["healthy_tenants"] = len(healthy)
+    del q, base, got, ref
+
+    chunk_ms = {"policy": [], "plain": []}
+    for mode in ("policy", "plain", "plain", "policy"):
+        _, chunks = fleet_health_sweep(torch, policy() if mode == "policy" else None,
+                                       inject=False, device=device)
+        chunk_ms[mode].append(statistics.median(chunks[1:]) * 1e3)
+    out["chunk_ms"] = chunk_ms
+    out["chunk_ms_policy"] = statistics.median(chunk_ms["policy"])
+    out["chunk_ms_plain"] = statistics.median(chunk_ms["plain"])
+    # the policy's parts: a fleet step with one slot frozen (the select
+    # runs) against one with none, in turns, and the signals' fetch alone
+    from evox_tpu_torch.core.members import select_members
+    from evox_tpu_torch.workflows.fleet_health import fleet_health_signals
+
+    qq, _ = fleet_health_sweep(torch, policy(), inject=False, device=device)
+    wf, plain = qq.workflow, qq.state
+    masked = wf.set_frozen(plain, FH_SLOTS["freeze"], True)
+    split = {"step_plain": [], "step_one_frozen": []}
+    for key in ("step_plain", "step_one_frozen") * 2:
+        st = plain if key == "step_plain" else masked
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        for _ in range(FH_CHUNK):
+            wf.step(st)
+        _sync(torch, device)
+        split[key].append((time.perf_counter() - t0) / FH_CHUNK * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(FH_CHUNK):
+        select_members(masked.frozen, masked.frozen_rows, plain.tenants, plain.tenants)
+    _sync(torch, device)
+    split["select"] = (time.perf_counter() - t0) / FH_CHUNK * 1e3
+    t0 = time.perf_counter()
+    for _ in range(FH_CHUNK):
+        fleet_health_signals(plain)
+    split["signals"] = (time.perf_counter() - t0) / FH_CHUNK * 1e3
+    out["policy_split_ms"] = split
+    if profile:
+        copies = {}
+        for mode in ("policy", "plain"):
+            def probe(q, mode=mode):
+                box = {}
+                copies[mode] = host_copies(torch, lambda: box.update(more=q.step_chunk()),
+                                           FH_CHUNK)
+                return box["more"]
+
+            qq, _ = fleet_health_sweep(torch, policy() if mode == "policy" else None,
+                                       inject=False, device=device, probe=probe)
+        out["copies_per_generation"] = copies
+        wf = qq.workflow
+        state = wf.with_freeze_mask(qq.state)
+        masked = wf.set_frozen(state, FH_SLOTS["freeze"], True)
+        out["step_copies"] = {"masked": host_copies(torch, lambda: wf.step(masked), 1),
+                              "unmasked": host_copies(torch, lambda: wf.step(
+                                  state.replace(frozen=None)), 1)}
+    print(f"[fleet health path] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_multilevel_path(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 38: ``MultiLevelES(OpenES, PolicyRolloutProblem(pendulum,
+    fused), fleet=False)`` with 4 groups of pop 16384 (path 1's 65536 in
+    all), OpenES with adam, ``inner_steps`` 5, 4 outer generations,
+    ``HyperSpec`` s on
+    ``lr_scale`` and ``noise_stdev`` (attr, log). ``init`` evaluates
+    nothing, so B1's launch count, read from its wrapper's counter, must be
+    4 x 5 x 4 = 80. Gates: that count; every outer update replayed on the
+    host from the phase scores the card reported (the JAX package's CEM
+    formula in numpy float32, written out here) gives the card's outer mean
+    and sigma bit for bit; every proposal inside its spec's bounds; the
+    best fitness after each outer generation is, bit for bit, the best of
+    every fitness the run's evaluations returned so far (read beside the
+    drive), and never worse. Prints the ms of an outer generation and the
+    share of it inside B1 (CUDA events around each launch)."""
+    import numpy as np
+
+    from evox_tpu_torch.algorithms.so.es import OpenES
+    from evox_tpu_torch.kernels import rollout as kr
+    from evox_tpu_torch.workflows.multilevel import HyperSpec, MultiLevelES
+
+    wf, _ = build_b1_path(torch, kr.pendulum_soa(max_steps=200), pop=ML_POP, early_exit=False,
+                          device=device)
+    algo = OpenES(torch.zeros(wf.algorithm.dim), ML_POP, learning_rate=ML_LR,
+                  noise_stdev=ML_SIGMA, optimizer=ML_OPTIMIZER, device=device)
+    specs = [HyperSpec(name, init, sigma=0.3, lb=lb, ub=ub) for name, init, lb, ub in ML_SPECS]
+    ml = MultiLevelES(algo, wf.problem, n_groups=ML_GROUPS, hyper_specs=specs,
+                      inner_steps=ML_INNER, opt_direction="max", fleet=False, device=device)
+    records = []
+    update = ml._outer_update
+
+    def recorded(state, gain):
+        new = update(state, gain)
+        records.append((state, new))
+        return new
+
+    ml._outer_update = recorded
+    evaluate = ml.problem.evaluate
+    seen = []  # each evaluation's best fitness, device scalars read after the run
+
+    def recording_evaluate(pstate, pop):
+        fitness, pstate = evaluate(pstate, pop)
+        seen.append(fitness.max())
+        return fitness, pstate
+
+    ml.problem.evaluate = recording_evaluate
+    b1 = kr.fused_rollout
+    events = []
+
+    def timed_b1(*a, **k):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = b1(*a, **k)
+        stop.record()
+        events.append((start, stop))
+        return result
+
+    state = ml.init(seed)
+    torch.cuda.synchronize()
+    reset_launches()
+    # the wrapper counts its launches on the module's ``fused_rollout``,
+    # which is this timing shim while it is in place
+    timed_b1.launches = 0
+    kr.fused_rollout = timed_b1
+    outer_ms, bests, b1_ms, seen_at = [], [], [], []
+    try:
+        for _ in range(ML_OUTER):
+            events.clear()
+            t0 = time.perf_counter()
+            state = ml.step(state)
+            torch.cuda.synchronize()
+            outer_ms.append((time.perf_counter() - t0) * 1e3)
+            b1_ms.append(sum(a.elapsed_time(b) for a, b in events))
+            bests.append(ml.best_fitness(state)[1])
+            seen_at.append(len(seen))
+            for spec in specs:
+                v = ml.hyper_values(state)[spec.name]
+                if not ((v >= spec.lb) & (v <= spec.ub)).all():
+                    raise AssertionError(f"multi-level: {spec.name} proposals {v} outside bounds")
+    finally:
+        kr.fused_rollout = b1
+        b1.launches += timed_b1.launches
+        del ml.problem.evaluate
+    launches = read_launches()["fused_rollout"]
+    want = ML_GROUPS * ML_INNER * ML_OUTER
+    if launches != want:
+        raise AssertionError(f"multi-level: {launches} B1 launches, expected {want}")
+    seen_best = [float(torch.stack(seen[:n]).max()) for n in seen_at]
+    if bests != seen_best or any(b2 < b1_ for b1_, b2 in zip(bests, bests[1:])) or not all(
+            math.isfinite(b) for b in bests):
+        raise AssertionError(f"multi-level: the best {bests} is not the best of the fitness "
+                             f"returned {seen_best}, or got worse")
+    # the replay: gain = -score (exploit), the top half of the active groups,
+    # the mean moved outer_lr of the way to theirs, sigma decayed
+    mismatches = 0
+    for old, new in records:
+        active = old.active.cpu().numpy()
+        gain = np.nan_to_num(-old.score.cpu().numpy(), nan=0.0, posinf=0.0, neginf=0.0)
+        k = max(1, int(round(ml.elite_frac * int(active.sum()))))
+        elite = np.argsort(-np.where(active, gain, -np.inf))[:k]
+        lr = ml.outer_lr
+        mean = ((1 - lr) * old.outer_mean.cpu().numpy()
+                + lr * old.theta.cpu().numpy()[elite].mean(axis=0)).astype(np.float32)
+        sigma = np.maximum(old.outer_sigma.cpu().numpy() * ml.sigma_decay,
+                           1e-4).astype(np.float32)
+        mismatches += int(not np.array_equal(mean, new.outer_mean.cpu().numpy()))
+        mismatches += int(not np.array_equal(sigma, new.outer_sigma.cpu().numpy()))
+    if mismatches or len(records) != ML_OUTER:
+        raise AssertionError(f"multi-level: the host replay of the outer update differs "
+                             f"({mismatches} of {2 * len(records)})")
+    out = {"groups": ML_GROUPS, "pop_per_group": ML_POP, "inner_steps": ML_INNER,
+           "outer_generations": ML_OUTER, "launches": {"fused_rollout": launches},
+           "init_evaluates": False, "outer_ms": outer_ms,
+           "outer_ms_steady": statistics.median(outer_ms[1:]),
+           "b1_ms": b1_ms, "b1_share": sum(b1_ms[1:]) / sum(outer_ms[1:]),
+           "best": bests, "best_is_best_seen": True, "replay_bit_for_bit": True,
+           "score": state.score.cpu().tolist(),
+           "outer_mean_external": ml.report(state)["outer_mean_external"],
+           "hyper_values": {k: v.tolist() for k, v in ml.hyper_values(state).items()}}
+    print(f"[multilevel path] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -7836,6 +8480,10 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
              **{f: paths["hostenv"]["native_vs_b1"][k] for f, k in (
                  ("ms", "b1_ms"), ("native_engine_ms", "native_ms"), ("bound_ms", "b1_bound_ms"),
                  ("bound_by", "b1_bound_by"))}},
+            {"caller": "MultiLevelES over 4 groups of PolicyRolloutProblem's fused pendulum "
+                       "(pop 16384 each; path 38)",
+             "launches": paths["multilevel"]["launches"]["fused_rollout"],
+             "b1_share_of_outer_generation": paths["multilevel"]["b1_share"]},
         ],
     }]
     for name, source, replaces in (
@@ -7982,7 +8630,7 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "library_ms": main_mm["library_ms"],
         "shapes": mm["shapes"],
         "callers": [{"caller": "CMA-ES's seven products a generation over 64 stacked tenants "
-                               "(path 28's fleet turn, 70 generations)",
+                               f"(path 28's fleet turn, {sum(TEN_PAIR)} generations)",
                      "launches": paths["fleet"]["turns"][0]["m1_launches"]},
                     {"caller": "CMA-ES at d 1000 (path 5), seven a generation",
                      "launches": paths["cmaes"]["launches"]["smallmm"]}],
@@ -8016,11 +8664,39 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
     return entries
 
 
+class _TimedPaths(dict):
+    """The paths' results; ``seconds`` holds each entry's command time
+    since the entry before it (phases that store no result fall into the
+    next one's)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seconds = {}
+        self._last = time.perf_counter()
+
+    def __setitem__(self, key, value):
+        now = time.perf_counter()
+        self.seconds[key] = round(now - self._last, 2)
+        self._last = now
+        super().__setitem__(key, value)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None, help="also write the full results as JSON here")
     parser.add_argument("--profile", action="store_true", help="also profile 5 generations")
+    parser.add_argument("--cold-start", nargs=2, metavar=("MODE", "CACHE_DIR"), default=None,
+                        help="run path 36's cold start in this process and print it (a child "
+                             "of path 36)")
     args = parser.parse_args()
+    if args.cold_start is not None:
+        import torch
+
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, str(ROOT))
+        print(json.dumps(cold_start_child(*args.cold_start)), flush=True)
+        return 0
 
     import torch
 
@@ -8062,8 +8738,8 @@ def main() -> int:
     wf3, make_walker_problem, adapter = build_walker_path(torch)
     kernels.update(phase_walker_kernels(torch, wf3, adapter, SEED))
 
-    # 3.-5. the main paths
-    paths = {}
+    # 3.-5. the main paths; each phase's seconds, for the time budget
+    paths = _TimedPaths()
     paths["pendulum"] = phase_main_path(torch, kr, wf, make_problem, GENERATIONS, SEED,
                                         args.profile)
     print(f"[main path] {json.dumps(paths['pendulum'])}", flush=True)
@@ -8217,11 +8893,21 @@ def main() -> int:
     paths["dataset"] = phase_dataset_path(torch)
     torch.cuda.empty_cache()
     paths["farm"] = phase_farm_path(torch)
+    # 19. main paths 36 (bench.py's serving_elastic leg: buckets, warm
+    # admission, autoscaling, the cold start), 37 (path 28's fleet under a
+    # health policy, NaN in three tenants) and 38 (MultiLevelES over B1)
+    torch.cuda.empty_cache()
+    paths["elastic"] = phase_elastic_path(torch)
+    torch.cuda.empty_cache()
+    paths["fleet_health"] = phase_fleet_health_path(torch, profile=args.profile)
+    torch.cuda.empty_cache()
+    paths["multilevel"] = phase_multilevel_path(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
         raise AssertionError("the port pulled in jax or the JAX package")
 
+    print(f"[phase seconds] {json.dumps(paths.seconds)}", flush=True)
     line = {"kernels": kernel_entries(kernels, paths)}
     result = {
         "nvidia_smi": smi,
@@ -8288,6 +8974,10 @@ def main() -> int:
         "hostenv_path": paths["hostenv"],
         "dataset_path": paths["dataset"],
         "farm_path": paths["farm"],
+        "elastic_path": paths["elastic"],
+        "fleet_health_path": paths["fleet_health"],
+        "multilevel_path": paths["multilevel"],
+        "phase_seconds": paths.seconds,
     }
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

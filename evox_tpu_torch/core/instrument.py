@@ -493,7 +493,6 @@ def _refuse_unported(workflow: Any, analyzer: Any, executor: Any, **given: Any) 
                            or getattr(wf, "_pod_supervisor", None) is not None),
         "control_plane": ("A13", given["control_plane"] is not None
                           or getattr(wf, "_control_plane", None) is not None),
-        "serving": ("A13", getattr(wf, "_exec_cache", None) is not None),
         "roofline.sharding": ("A11", analyzer is not None and bool(
             getattr(getattr(wf, "algorithm", None), "is_pop_sharded", False))),
         "roofline.multihost": ("A11", analyzer is not None
@@ -560,8 +559,13 @@ def run_report(
     drove the workflow's latest run (``workflow._run_supervisor``): its
     deadlines, retries, restores, degradations and aborts.
 
-    ``pod_supervisor=`` and ``control_plane=`` (A13), and the serving (A13),
-    and roofline sharding and multihost (A11) sections raise
+    ``serving``: a bucket workflow warmed through the serving cache
+    (``workflows/elastic.py``'s ``warm_fleet_cache``) advertises it as
+    ``_exec_cache`` and its lattice as ``_bucket_table``: the cache's
+    ``report()`` and the lattice, the JAX package's schema.
+
+    ``pod_supervisor=`` and ``control_plane=`` (A13), and the roofline
+    sharding and multihost (A11) sections raise
     ``NotImplementedError`` when asked for, passed or advertised by the
     workflow: their producers are not ported.
     """
@@ -644,6 +648,13 @@ def run_report(
             }
     if executor is not None and hasattr(executor, "report"):
         report["executor"] = executor.report()
+    cache = getattr(workflow, "_exec_cache", None)
+    if cache is not None and hasattr(cache, "report"):
+        serving: dict = {"cache": cache.report()}
+        table = getattr(workflow, "_bucket_table", None)
+        if table is not None and hasattr(table, "report"):
+            serving["buckets"] = table.report()
+        report["serving"] = serving
     if supervisor is None and workflow is not None:
         supervisor = getattr(workflow, "_run_supervisor", None)
     if supervisor is not None and hasattr(supervisor, "report"):

@@ -55,6 +55,7 @@ __all__ = [
     "member_rows",
     "n_members",
     "put_state",
+    "select_members",
     "stack_states",
     "take_state",
     "unstack_states",
@@ -345,6 +346,15 @@ def _put_leaf(full: Any, new: Any, idx: Any) -> Any:
 
 
 def _put(full: Any, new: Any, idx: Any, n: int, name: str) -> Any:
+    # a leaf one side does not hold yet (a guarded state's candidate batch
+    # and best point before its first ask and tell): zeros stand for it,
+    # the JAX package's initial buffers
+    if full is None and isinstance(new, torch.Tensor):
+        lead = () if isinstance(idx, (int, np.integer)) else (1,)
+        full = torch.zeros((n,) + tuple(new.shape[len(lead):]), dtype=new.dtype,
+                           device=new.device)
+    elif new is None and isinstance(full, torch.Tensor):
+        new = torch.zeros(full.shape[1:], dtype=full.dtype, device=full.device)
     if isinstance(full, (torch.Tensor, np.ndarray)):
         return _put_leaf(full, new, idx)
     if _is_state(full):
@@ -376,6 +386,42 @@ def put_state(stacked: Any, idx: Any, sub: Any) -> Any:
     if isinstance(idx, np.ndarray) and _has_torch(stacked):
         idx = torch.as_tensor(idx)
     return _put(stacked, sub, idx, n_members(stacked), "")
+
+
+def select_members(mask: torch.Tensor, rows: Sequence[int], old: Any, new: Any) -> Any:
+    """``new`` with the members in ``rows`` keeping ``old``'s values: each
+    tensor leaf by ``torch.where`` on the ``(n,)`` bool ``mask`` on the
+    device (no read to the host; the other rows pass through bit for bit),
+    each host field by ``rows``, the mask's host mirror. A leaf that
+    ``old`` does not hold yet (``None``) is ``new``'s."""
+    n = n_members(new)
+
+    def walk(o: Any, x: Any, name: str) -> Any:
+        if o is None:
+            return x
+        if isinstance(x, torch.Tensor):
+            m = mask.to(x.device).reshape(mask.shape + (1,) * (x.ndim - 1))
+            return torch.where(m, o.to(x.dtype), x)
+        if isinstance(x, np.ndarray):
+            out = np.array(x, copy=True)
+            out[list(rows)] = np.asarray(o)[list(rows)]
+            return out
+        if _is_state(x):
+            return _rebuild_state(x, {f.name: walk(getattr(o, f.name), getattr(x, f.name), f.name)
+                                      for f in dataclasses.fields(x)})
+        if isinstance(x, dict):
+            return {k: walk(o[k], v, k) for k, v in x.items()}
+        if isinstance(x, (list, tuple)) and not isinstance(x, _PER_MEMBER):
+            return type(x)(walk(o[j], v, name) for j, v in enumerate(x))
+        if not rows:
+            return x
+        values = list(x) if isinstance(x, _PER_MEMBER) else [x] * n
+        before = list(o) if isinstance(o, _PER_MEMBER) else [o] * n
+        for r in rows:
+            values[int(r)] = before[int(r)]
+        return _stack(values, name)
+
+    return walk(old, new, "")
 
 
 # ------------------------------------------------------------ member calls

@@ -189,7 +189,7 @@ class HostEnvProblem(Problem):
 
     def evaluate(self, state: int, pop) -> Tuple[torch.Tensor, int]:
         seed, state = self._episode_seed(state)
-        ob = self.env.reset(int(seed))
+        ob = np.asarray(self.env.reset(int(seed)), dtype=np.float32)
         done = np.zeros((self.num_envs,), dtype=bool)
         total = np.zeros((self.num_envs,), dtype=np.float32)
         zero = np.float32(0.0)
@@ -197,6 +197,7 @@ class HostEnvProblem(Problem):
         while not done.all() and (self.cap is None or i < self.cap):
             actions = self.batched_policy(pop, self.host_link.to_device(ob))
             ob, reward, term, trunc = self.env.step(host_candidates(self.host_link, actions))
+            ob = np.asarray(ob, dtype=np.float32)  # the reference's cast, on the host
             total = total + np.where(done, zero, np.asarray(reward, dtype=np.float32))
             done = done | np.asarray(term, dtype=bool) | np.asarray(trunc, dtype=bool)
             i += 1

@@ -1,7 +1,19 @@
 from .checkpoint import CheckpointConfigError, WorkflowCheckpointer
+from .elastic import (
+    BucketError,
+    BucketShape,
+    BucketTable,
+    ElasticServer,
+    ElasticSpec,
+    ElasticWorkflow,
+    PopAutoscaler,
+    warm_fleet_cache,
+)
+from .fleet_health import FleetHealthPolicy, fleet_health_signals
 from .flightrec import FlightRecorder, MetricsStream, merge_pod_streams, read_stream
 from .islands import IslandWorkflow, IslandWorkflowState
 from .journal import ChainedLog, JournalIntegrityError, RunJournal
+from .multilevel import HyperSpec, MultiLevelES, MultiLevelState
 from .pipelined import chunked_evaluate, run_host_pipelined
 from .std import StdWorkflow, StdWorkflowState
 from .supervisor import DispatchDeadlineError, RunAbortedError, RunSupervisor, classify_error
@@ -16,6 +28,19 @@ from .tenancy import (
 )
 
 __all__ = [
+    "BucketError",
+    "BucketShape",
+    "BucketTable",
+    "ElasticServer",
+    "ElasticSpec",
+    "ElasticWorkflow",
+    "FleetHealthPolicy",
+    "HyperSpec",
+    "MultiLevelES",
+    "MultiLevelState",
+    "PopAutoscaler",
+    "fleet_health_signals",
+    "warm_fleet_cache",
     "ChainedLog",
     "DispatchDeadlineError",
     "RunAbortedError",

@@ -32,11 +32,12 @@ tensor slice: only values the algorithm reads as tensors in ``init``,
 ``ask`` or ``tell`` can vary per tenant.
 
 ``mesh=`` and ``rules=`` lay the fleet out on a (TENANT, POP) mesh
-(``core/distributed.py``), and a RunQueue's ``supervisor=`` dispatches its
-chunks under a ``RunSupervisor``. Not ported here: a RunQueue's
-``health_policy=`` (``fleet_health.py``, A13) and ``release_continuation``
-(the control plane's steal, A13). Each raises ``NotImplementedError``
-naming its item.
+(``core/distributed.py``), a RunQueue's ``supervisor=`` dispatches its
+chunks under a ``RunSupervisor``, and its ``health_policy=`` (a
+``fleet_health.FleetHealthPolicy``) freezes, evicts or restarts unhealthy
+tenants at chunk boundaries. Not ported here: ``release_continuation`` (the
+control plane's steal, A13), which raises ``NotImplementedError`` naming
+its item.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from ..core.members import (
     member_call,
     member_route,
     put_state,
+    select_members,
     stack_states,
     take_state,
 )
@@ -107,6 +109,9 @@ class VectorizedWorkflowState(PyTreeNode):
     # slice; None steps every tenant
     frozen: Any = None
     first_step: bool = static_field(default=True)
+    # the frozen slots as host integers, the mask's mirror: the step keeps
+    # a frozen tenant's host fields (its seeds) without reading the mask
+    frozen_rows: Tuple[int, ...] = static_field(default=())
 
 
 def bind_hyperparams(template: Any, hp: Dict[str, Any]) -> Any:
@@ -364,6 +369,12 @@ class VectorizedWorkflow:
         }
 
     # ------------------------------------------------------------- internals
+    def _filter_fitness(self, t: TenantState, fitness: torch.Tensor) -> torch.Tensor:
+        """Per-tenant fitness filter between the quarantine and the fit
+        transforms: the identity here; ``ElasticWorkflow`` overrides it with
+        the inert-row padding mask."""
+        return fitness
+
     def _flip(self, fitness: torch.Tensor) -> torch.Tensor:
         if fitness.ndim == 1:
             return fitness * self.opt_direction[0]
@@ -390,6 +401,10 @@ class VectorizedWorkflow:
         fitness = self._flip(fitness)
         if self.quarantine_nonfinite:
             fitness = quarantine_nonfinite(fitness)
+        # the per-tenant filter (ElasticWorkflow's inert rows): after the
+        # quarantine, before the fit transforms, where its solo reference
+        # applies it
+        fitness = self._filter_fitness(t, fitness)
         for tr in self.fit_transforms:
             fitness = tr(fitness)
         run_hooks(self.monitors, self._hook_table, "pre_tell", mstates, fitness)
@@ -427,12 +442,12 @@ class VectorizedWorkflow:
             lambda t, c, x, f, p: self._tenant_tell(t, c, x, f, p, use_init),
             tenants, ctx, cand, fitness, pstate,
             in_dims=(0, 0, 0, 0 if _has_tensors(pstate) else None), route=self.member_route)
-        if state.frozen is not None:
-            # a frozen slot keeps its pre-step slice; the others pass
-            # through bit for bit
-            idx = [i for i, f in enumerate(state.frozen.tolist()) if f]
-            if idx:
-                told = put_state(told, idx, take_state(tenants, idx))
+        if state.frozen is not None and state.frozen_rows:
+            # a frozen slot keeps its pre-step slice, an elementwise select
+            # on the device mask; the others pass through bit for bit. With
+            # no slot frozen (the mask's host mirror is empty) the select
+            # would return every computed row unchanged, so it is skipped
+            told = select_members(state.frozen, state.frozen_rows, tenants, told)
         tenants = apply_storage(told, self.dtype_policy)
         return state.replace(generation=state.generation + 1, tenants=tenants, first_step=False)
 
@@ -534,7 +549,7 @@ class VectorizedWorkflow:
         if state.frozen is not None:
             return state
         return state.replace(frozen=torch.zeros((self.n_tenants,), dtype=torch.bool,
-                                                device=self.device))
+                                                device=self.device), frozen_rows=())
 
     def set_frozen(self, state: VectorizedWorkflowState, index: int, flag: bool
                    ) -> VectorizedWorkflowState:
@@ -544,7 +559,9 @@ class VectorizedWorkflow:
                              "with_freeze_mask(state) before the first step")
         frozen = state.frozen.clone()
         frozen[index] = bool(flag)
-        return state.replace(frozen=frozen)
+        rows = set(state.frozen_rows)
+        (rows.add if flag else rows.discard)(int(index))
+        return state.replace(frozen=frozen, frozen_rows=tuple(sorted(rows)))
 
     # -------------------------------------------------------------- reporting
     def monitor_reports(self, mstates: Tuple[Any, ...]) -> List[dict]:
@@ -586,6 +603,10 @@ class VectorizedWorkflow:
         queue = getattr(self, "_run_queue", None)
         if queue is not None and hasattr(queue, "report"):
             report["queue"] = queue.report()
+        if queue is not None and hasattr(queue, "health_report"):
+            health = queue.health_report()
+            if health is not None:
+                report["fleet_health"] = health
         return sanitize_json(report)
 
 
@@ -671,16 +692,17 @@ class RunQueue:
             (``run_fused(supervisor=)``); each admission saves the fleet
             to its checkpointer, so its restore rung never brings back a
             fleet from before a tenant was admitted.
-        health_policy: waits for ROADMAP A13.
+        health_policy: a :class:`~evox_tpu_torch.workflows.fleet_health.
+            FleetHealthPolicy` evaluated at every chunk boundary: per-tenant
+            signals to freeze, evict and restart actions (healthy tenants
+            stay bit for bit untouched), each journaled as a ``health``
+            record.
     """
 
     def __init__(self, workflow: VectorizedWorkflow, chunk: int = 10, supervisor: Any = None,
                  checkpoint_dir: Optional[str] = None, keep: int = 2, executor: Any = None,
                  journal: Any = None, health_policy: Any = None, metrics: Any = None,
                  attest: Any = None):
-        if health_policy is not None:
-            raise NotImplementedError(
-                "RunQueue(health_policy=...) needs fleet_health.py, not ported yet (ROADMAP A13)")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         from ..core.executor import GenerationExecutor
@@ -694,7 +716,7 @@ class RunQueue:
         self.workflow = workflow
         self.chunk = chunk
         self.supervisor = supervisor
-        self.health_policy = None
+        self.health_policy = health_policy
         self.executor = executor if executor is not None else GenerationExecutor()
         if isinstance(journal, (str, Path)):
             journal = RunJournal(str(journal))
@@ -715,6 +737,11 @@ class RunQueue:
             workflow._flight_recorder = metrics
             if getattr(self.executor, "metrics", None) is None:
                 self.executor.metrics = metrics
+            cache = getattr(workflow, "_exec_cache", None)
+            if cache is not None and getattr(cache, "metrics", None) is None:
+                cache.metrics = metrics
+            if health_policy is not None and getattr(health_policy, "metrics", None) is None:
+                health_policy.metrics = metrics
         if attest is True:
             from ..core.attest import StateAttestor
 
@@ -722,6 +749,7 @@ class RunQueue:
         self.attest = attest
         self.integrity_events: List[dict] = []
         self.health_events: List[dict] = []
+        self._slot_restarts: List[int] = [0] * workflow.n_tenants
         self._config_sha: Optional[str] = None
         self._spec_seq = 0
         self.finished = False
@@ -834,11 +862,16 @@ class RunQueue:
         specs = [u if k == "spec" else u["spec"] for k, u in units]
         state = wf.init([int(s.seed) for s in specs],
                         hyperparams=self._stack_hp([s.hyperparams for s in specs]))
+        if self.health_policy is not None and self.health_policy.may_freeze():
+            state = wf.with_freeze_mask(state)  # from the first step on
         self._config_sha = state_config_fingerprint(state)
         if self.journal is not None:
+            policy = self.health_policy
             self.journal.append(
                 "start", config_sha=self._config_sha, n_tenants=wf.n_tenants, chunk=self.chunk,
-                keep=self.keep, freeze_mask=False, health_policy=None,
+                keep=self.keep, freeze_mask=state.frozen is not None,
+                health_policy=policy.report() if policy is not None and hasattr(policy, "report")
+                else None,
                 checkpoint_dir=str(self.checkpoint_dir) if self.checkpoint_dir else None,
                 slots=[getattr(s, "_journal_seq", None) for s in specs])
         self.state = state
@@ -904,6 +937,7 @@ class RunQueue:
         n = int(min(self.chunk, min(s.spec.n_steps - gens[i] for i, s in active)))
         self._dispatch(n)
         self._sweep()
+        self._apply_health_policy()
         self._barrier()
         if self.metrics is not None:
             m = self.metrics
@@ -955,7 +989,76 @@ class RunQueue:
                                            "active": s.active, "frozen": s.frozen}
                    for s in self.slots],
             counters=dict(self.counters), results_len=len(self.results),
-            health_len=len(self.health_events), **extra)
+            health_len=len(self.health_events), slot_restarts=list(self._slot_restarts), **extra)
+
+    # ------------------------------------------------------- health policy
+    def _apply_health_policy(self) -> None:
+        """Evaluate the health policy at the chunk boundary and apply its
+        per-slot actions: a function of the state and the slot table, so
+        recovery replays the same verdicts."""
+        if self.health_policy is None:
+            return
+        from .fleet_health import fleet_health_signals
+
+        signals = fleet_health_signals(self.state)
+        for i, slot in enumerate(self.slots):
+            if slot is None or not slot.active:
+                continue
+            row = {k: v[i] for k, v in signals.items()}
+            verdict = self.health_policy.decide(row, self._slot_restarts[i])
+            if verdict is None:
+                continue
+            action, reason = verdict
+            event = {"health_seq": len(self.health_events), "chunk": self.counters["chunks"],
+                     "slot": i, "tag": slot.spec.tag, "action": action, "reason": reason,
+                     "generation": int(row["generation"])}
+            if self.journal is not None:
+                self.journal.append("health", **event)
+            self.health_events.append(event)
+            if self.metrics is not None:
+                self.metrics.count(f"health.{action}")
+            if action == "freeze":
+                self._freeze(i)
+            elif action == "evict":
+                self.counters["evicted"] += 1
+                self._close_out(i, status="evicted")
+                # an evicted tenant is unhealthy: a slot left parked stops
+                # its rows too
+                self._mask_parked(i)
+            elif action == "restart":
+                self._restart_slot(i)
+
+    def _freeze(self, index: int) -> None:
+        """Quarantine a slot in place: close it out (forensic checkpoint and
+        a ``"frozen"`` result), mask its rows in the fleet's step and park
+        the slot, never refilled."""
+        slot = self.slots[index]
+        self.counters["frozen"] += 1
+        self._close_out(index, status="frozen", refill=False)
+        slot.frozen = True
+        self.state = self.workflow.set_frozen(self.state, index, True)
+
+    def _restart_slot(self, index: int) -> None:
+        """Restart a slot in place (``recenter_state``, budget kept),
+        deterministic in the spec and the fleet generation."""
+        from .fleet_health import restarted_tenant
+
+        slot = self.slots[index]
+        old = take_state(self.state.tenants, index)
+        fresh = restarted_tenant(self.workflow, old, slot.spec.seed, int(self.state.generation),
+                                 slot.spec.hyperparams)
+        self.state = self.workflow.insert_tenant(self.state, index, fresh)
+        self._slot_restarts[index] += 1
+        self.counters["restarted"] += 1
+
+    def _mask_parked(self, index: int) -> None:
+        """After an eviction whose slot could not be refilled, mask the
+        parked slot's rows (when the fleet has a mask). Unlike a freeze the
+        slot stays refillable: the next admission clears the bit."""
+        slot = self.slots[index]
+        if (slot is not None and not slot.active and not slot.frozen
+                and self.state.frozen is not None):
+            self.state = self.workflow.set_frozen(self.state, index, True)
 
     # ------------------------------------------------------- retire / evict
     def _tenant_dir(self, slot: _Slot, index: int) -> Optional[Path]:
@@ -1035,7 +1138,9 @@ class RunQueue:
         if slot is None or not slot.active:
             raise ValueError(f"slot {index} has no active tenant to evict")
         self.counters["evicted"] += 1
-        return self._close_out(index, status="evicted")
+        entry = self._close_out(index, status="evicted")
+        self._mask_parked(index)
+        return entry
 
     @staticmethod
     def _edf_key(spec: TenantSpec):
@@ -1097,6 +1202,7 @@ class RunQueue:
         if self.state.frozen is not None:
             self.state = wf.set_frozen(self.state, index, False)
         self.slots[index] = _Slot(spec=spec)
+        self._slot_restarts[index] = 0
         self.counters["admitted"] += 1
         if resumed:
             self.counters["readmitted"] += 1
@@ -1208,6 +1314,12 @@ class RunQueue:
                     resume_from[seq] = r["resume_from"]
                     resume_done[seq] = int(r["done"]) if r.get("done") is not None else None
         start = next((r for r in recs if r["kind"] == "start"), None)
+        if health_policy is None and start is not None and start.get("health_policy"):
+            # the journaled policy keeps isolating through the replay; an
+            # explicit health_policy= overrides it
+            from .fleet_health import FleetHealthPolicy
+
+            health_policy = FleetHealthPolicy(**start["health_policy"])
         q = cls(workflow, chunk=int(start["chunk"]) if start is not None else 10,
                 supervisor=supervisor,
                 checkpoint_dir=start.get("checkpoint_dir") if start is not None else None,
@@ -1242,6 +1354,8 @@ class RunQueue:
         try:
             expect = workflow.init([int(s.seed) for s in first_wave],
                                    hyperparams=q._stack_hp([s.hyperparams for s in first_wave]))
+            if start.get("freeze_mask"):
+                expect = workflow.with_freeze_mask(expect)
             expected_sha = state_config_fingerprint(expect)
         except Exception as e:
             raise CheckpointConfigError(
@@ -1285,6 +1399,8 @@ class RunQueue:
             break
         if meta is None:
             return fresh_start()
+        if health_policy is not None and health_policy.may_freeze() and state.frozen is None:
+            state = workflow.with_freeze_mask(state)
         q.state = state
         q.pending = [specs[s] for s in meta["pending"]]
         q.continuations = [{"spec": specs[int(c["seq"])], "seq": int(c["seq"]),
@@ -1296,6 +1412,7 @@ class RunQueue:
                    for s in meta["slots"]]
         q.counters.update({k: int(v) for k, v in meta["counters"].items()})
         q.counters["submitted"] = len(specs)
+        q._slot_restarts = [int(v) for v in meta.get("slot_restarts", [0] * workflow.n_tenants)]
         closeouts = {int(r["result_seq"]): r["entry"] for r in recs if r["kind"] in _CLOSE_KINDS}
         q.results = [closeouts[i] for i in range(int(meta["results_len"]))]
         # submits journaled after the barrier (an acknowledged submit
@@ -1323,6 +1440,11 @@ class RunQueue:
                                         "state": None, "done": resume_done.get(seq)})
             else:
                 q.pending.append(specs[seq])
+        healths = {int(r["health_seq"]): {k: v for k, v in r.items()
+                                          if k in ("health_seq", "chunk", "slot", "tag", "action",
+                                                   "reason", "generation")}
+                   for r in recs if r["kind"] == "health"}
+        q.health_events = [healths[i] for i in range(int(meta.get("health_len", 0)))]
         q._used_dirs = {Path(e["checkpoint"]).name for e in q.results if e.get("checkpoint")}
         q.finished = False
         journal.append("recover", generation=int(meta["generation"]),
@@ -1333,8 +1455,15 @@ class RunQueue:
 
     # -------------------------------------------------------------- report
     def health_report(self) -> Optional[dict]:
-        """No health policy is ported (ROADMAP A13): ``None``."""
-        return None
+        """The ``tenancy.fleet_health`` section: the policy's configuration
+        and the chunk-boundary action log (None when no policy ever
+        acted)."""
+        if self.health_policy is None and not self.health_events:
+            return None
+        policy = self.health_policy
+        return {"policy": policy.report() if policy is not None and hasattr(policy, "report")
+                else None,
+                "events": list(self.health_events)}
 
     def report(self) -> dict:
         """``run_report``'s ``tenancy.queue`` section."""

@@ -304,6 +304,48 @@ def test_host_env_copies_go_through_its_host_link():
     assert report["h2d_bytes"] == steps * 6 * 4 * 4 + 6 * 4
 
 
+class _IntObsEnv:
+    """A host env whose observations are integers of ``dtype``: the state
+    counts up from the seed, the reward is the action, and every episode
+    ends after three steps."""
+
+    obs_dim = 3
+
+    def __init__(self, num_envs, dtype):
+        self.num_envs, self.dtype, self._t, self._s = num_envs, dtype, 0, None
+
+    def reset(self, seed):
+        self._t = 0
+        base = np.arange(self.num_envs * self.obs_dim).reshape(self.num_envs, self.obs_dim)
+        self._s = (base + int(seed) % 7) % 5
+        return self._s.astype(self.dtype)
+
+    def step(self, actions):
+        self._t += 1
+        self._s = (self._s + 1) % 5
+        reward = np.asarray(actions, dtype=np.float64).reshape(self.num_envs)
+        term = np.full((self.num_envs,), self._t >= 3)
+        return self._s.astype(self.dtype), reward, term, np.zeros((self.num_envs,), bool)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int64], ids=["uint8", "int64"])
+def test_integer_observations_are_cast_to_float32_as_jax_does(dtype):
+    """The reference casts a host env's observations to float32 before the
+    policy sees them; the port casts on the host too, so a policy ``o @ w``
+    over uint8 or int64 observations gives the JAX problem's fitness."""
+    n = 4
+    pop = np.random.default_rng(5).standard_normal((n, _IntObsEnv.obs_dim)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    ref = JaxHostEnvProblem(lambda w, o: o @ w, _IntObsEnv(n, dtype))
+    f_ref, _ = ref.evaluate(key, jnp.asarray(pop))
+    ours = HostEnvProblem(lambda w, o: o @ w, _IntObsEnv(n, dtype), device="cpu")
+    seed = _jax_seed(key)
+    ours._episode_seed = lambda state: (seed, state)
+    f, _ = ours.evaluate(ours.init(), torch.from_numpy(pop))
+    assert f.dtype == torch.float32
+    np.testing.assert_array_equal(f.numpy(), np.asarray(f_ref))
+
+
 # ------------------------------------------------------ optional adapters
 def test_envpool_make_matches_numpy_cartpole_golden(monkeypatch):
     """``envpool_make`` adapts the EnvPool gymnasium API (the JAX tests'

@@ -289,7 +289,7 @@ class _PopShardedAlgorithm:
     ("pod_supervisor", "A13", {"pod_supervisor": object()}, None),
     ("control_plane", "A13", {"control_plane": object()}, None),
     ("pod_supervisor", "A13", {}, ("_pod_supervisor", object())),
-    ("serving", "A13", {}, ("_exec_cache", object())),
+    ("control_plane", "A13", {}, ("_control_plane", object())),
     ("roofline.sharding", "A11", {"recorder": "recorder"}, ("algorithm", _PopShardedAlgorithm())),
 ])
 def test_unported_sections_raise_naming_their_item(section, item, kwargs, attr):
@@ -306,6 +306,29 @@ def test_unported_sections_raise_naming_their_item(section, item, kwargs, attr):
         setattr(wf, *attr)
     with pytest.raises(NotImplementedError, match=f"{section} .*ROADMAP {item}"):
         run_report(wf, state, **kwargs)
+
+
+def test_serving_section_comes_from_the_serving_cache(tmp_path):
+    """A workflow warmed through the serving cache advertises it: the
+    report's ``serving`` section is the cache's report and the lattice, in
+    the JAX package's schema (``tools/check_report.py``), and matches the
+    JAX report's keys."""
+    from evox_tpu.core.exec_cache import ExecutableCache as JaxCache
+    from evox_tpu_torch.core.exec_cache import ExecutableCache
+    from evox_tpu_torch.workflows.elastic import BucketTable
+
+    wf = _port_wf()
+    state = wf.init(0)
+    wf._exec_cache = cache = ExecutableCache(directory=str(tmp_path))
+    cache.get_or_compile("step", "fp", wf.step, (state,), bucket=(8, 4, 1), device="cpu")
+    cache.get_or_compile("step", "fp", wf.step, (state,), bucket=(8, 4, 1), device="cpu")
+    wf._bucket_table = BucketTable()
+    report = run_report(wf, state)
+    serving = report["serving"]
+    assert serving["cache"]["counters"]["misses"] == 1 and serving["cache"]["counters"]["hits"] == 1
+    assert serving["buckets"]["pop_rungs"][0] == 8
+    assert sorted(serving["cache"]) == sorted(JaxCache().report())
+    _check_valid(report=report)
 
 
 def test_tenancy_section_comes_from_the_workflow():

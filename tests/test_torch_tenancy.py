@@ -221,7 +221,8 @@ def test_mesh_rules_and_supervisor_are_refused_naming_their_items():
     shifted under the tenant axis (``P("pop")`` to ``P("tenant",
     "pop")``, the rules first), the fleet on a mesh equal to the fleet
     without one, a supervised RunQueue's results equal to an
-    unsupervised one's; ``health_policy`` still waits for ROADMAP A13."""
+    unsupervised one's; ``health_policy`` takes a ``FleetHealthPolicy``,
+    whose possible freeze gives the fleet its mask from the start."""
     from evox_tpu_torch.algorithms.so.es import SepCMAES
     from evox_tpu_torch.core.distributed import (POP_AXIS, TENANT_AXIS, P, create_mesh)
     from evox_tpu_torch.workflows.supervisor import RunSupervisor
@@ -252,8 +253,16 @@ def test_mesh_rules_and_supervisor_are_refused_naming_their_items():
         q.run()
         results.append(q.state)
     _close(results[0].tenants.algo, results[1].tenants.algo, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        RunQueue(_fleet(), health_policy=object())
+    from evox_tpu_torch.workflows.fleet_health import FleetHealthPolicy
+
+    q = RunQueue(_fleet(), chunk=2, health_policy=FleetHealthPolicy(on_nonfinite="freeze"))
+    assert q.health_policy.on_nonfinite == "freeze"
+    for i in range(N):
+        q.submit(TenantSpec(seed=i, n_steps=4, tag=f"h{i}"))
+    state = q.start()
+    assert state.frozen is not None and not bool(state.frozen.any()) and state.frozen_rows == ()
+    q.run()
+    assert q.health_events == [] and q.health_report()["policy"]["on_nonfinite"] == "freeze"
 
 
 def test_hyperparam_validation_and_refusals(tmp_path):
