@@ -428,11 +428,34 @@ exit 0):
    with adam, 4 groups of pop 16384, 5 inner and 4 outer generations: 80
    B1 launches, the outer update replayed on the host bit for bit,
    proposals inside their bounds, the best equal to the best fitness the
-   run returned; ms an outer generation and B1's share.
-26. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
+   run returned; ms an outer generation and B1's share. Path 36 also holds
+   a fleet tenant's telemetry rings against its solo run's, bit for bit.
+26. main path 39: ``bench.py:1639-1795``'s workload 13 at path 36's widths,
+   ``ControlPlane`` over path 36's factory (3 pods, width 16, chunk 10,
+   a ``FlightRecorder``) against the same plane with one pod, 360 specs
+   (pop 256, d 64, budgets of 2-4 chunks): 2 warm rounds, ``pod00``
+   declared dead (its journals stolen), 1 round, then serve rounds 2 and
+   6 differenced, 3 times in turns with the single-pod plane, the
+   backlog outlasting the window; the report through
+   ``tools/check_report.py``, each spec admitted once, the census with
+   the dead pod and its steals; every tenant completed in both planes
+   equal in both (results and telemetry fingerprints); the gateway killed
+   mid-steal (``_CRASH_HOOK`` at ``steal_target_durable:``) on a plane of
+   48 specs and ``ControlPlane.recover`` served to the end against an
+   uncrashed plane. Main path 40: path 2 under ``PodSupervisor`` in a
+   world of one over NCCL (a ``FileStore``): ``RunSupervisor.run(...,
+   pod_supervisor=)`` of 30 generations against a plain run bit for bit
+   with B3 and B4 once a generation; a supervised call past a 1 s
+   deadline classified ``hung_collective`` and the next chunk run; a
+   drain at generation 10 (the final checkpoint fsynced, ``pod_drain``
+   journaled) resumed from the barrier to 30, bit for bit; the report
+   and the trace's ``supervisor:pod:*`` markers through
+   ``tools/check_report.py``; ms a generation pod-supervised against bare,
+   in turns.
+27. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
    B1 on paths 1, 12 and 38, the mountain car phase and path 33's
    cross-check, B2 on paths 3, 6 and
-   13, B3 and B4 on paths 18 and 22 too, B3 on paths 20 and 27, B4 batched
+   13, B3 and B4 on paths 18, 22 and 40 too, B3 on paths 20 and 27, B4 batched
    on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
    and MO islands, ``packed_dominance_batched`` on the MO islands, D1 on
    path 26, ``packed_dominance_rows`` on path 31, ``smallmm`` on paths 28
@@ -675,6 +698,15 @@ FH_SLOTS = {"restart": 5, "freeze": 17, "evict": 40}
 ML_GROUPS, ML_POP, ML_INNER, ML_OUTER = 4, 16384, 5, 4
 ML_LR, ML_SIGMA, ML_OPTIMIZER = 0.05, 0.05, "adam"
 ML_SPECS = (("lr_scale", 1.0, 0.1, 10.0), ("noise_stdev", 0.05, 1e-3, 1.0))
+# main path 39, bench.py:1639-1795's workload 13 at path 36's widths: pods,
+# specs (pop 256, d 64, budgets (2 + i % 3) chunks, seeds 3000 up), the
+# differenced pair of serve rounds, its rounds in turns with the one-pod
+# plane; the mid-steal crash's plane
+CP_PODS, CP_SPECS, CP_POP, CP_PAIR, CP_ROUNDS = 3, 360, 256, (2, 6), 3
+CP_CRASH_SPECS = 48
+# main path 40: path 2 under PodSupervisor, checkpointed every 10; the hung
+# call's deadline and sleep; the drain's generation
+POD_GENERATIONS, POD_EVERY, POD_DEADLINE_S, POD_HANG_S, POD_DRAIN_AT = 30, 10, 1.0, 2.5, 10
 # main path 29, bench.py's RunQueue leg (bench.py:592-603)
 RQ_SLOTS, RQ_CHUNK, RQ_SPECS, RQ_STEPS = 4, 5, 6, 10
 # SHADE islands: the pbest cut on B4 under vmap
@@ -7836,6 +7868,7 @@ def cold_start_child(mode: str, cache_dir: str, device=None) -> dict:
 
     cache = ExecutableCache(directory=cache_dir if mode == "prewarm" else None)
     srv = elastic_server(torch, cache, device=device)
+    prewarmed = srv.prewarm()
     _sync(torch, device)
     t_ready = time.perf_counter()
     shape = srv.submit(ElasticSpec(seed=0, n_steps=EL_CHUNK, pop=EL_PADDED, dim=EL_DIM,
@@ -7843,7 +7876,7 @@ def cold_start_child(mode: str, cache_dir: str, device=None) -> dict:
     srv.serve(max_rounds=1)
     gen = int(srv._buckets[shape.key].queue.state.generation)
     t_first = time.perf_counter()
-    return {"mode": mode, "generation": gen, "prewarmed": srv.prewarmed,
+    return {"mode": mode, "generation": gen, "prewarmed": prewarmed,
             "server_ready_s": t_ready - t0, "submit_to_first_generation_s": t_first - t_ready,
             "to_first_generation_s": t_first - t0, "counters": dict(cache.counters)}
 
@@ -7921,6 +7954,7 @@ def phase_elastic_path(torch, seed: int = SEED, device=None, cold_rounds: int = 
         # sustained tenant-generations a second, differenced
         def timed(n):
             s = elastic_server(torch, cache, device=device)
+            s.prewarm()
             for i, (pop, steps) in enumerate(trace):
                 s.submit(ElasticSpec(seed=i, n_steps=steps, pop=pop, dim=EL_DIM, tag=f"churn{i}"))
             _sync(torch, device)
@@ -7997,10 +8031,22 @@ def phase_elastic_path(torch, seed: int = SEED, device=None, cold_rounds: int = 
                     finite = torch.isfinite(d)
                     part[name + path] = float(d[finite].max()) if bool(finite.any()) else None
         out["ring_law"]["neighbour_vs_solo_differing_leaves"] = part
+        # every sum of the monitor's post_eval is in a fixed order: a member's
+        # rings equal its solo run's under member_call on the card
+        member_mon = take_state(fleet.tenants, 1).monitors[0]
+        out["ring_law"]["rings_vs_solo"] = compare_exact(
+            "elastic (b): tenant 1's rings against its solo run",
+            [getattr(member_mon, k) for k in ("ring_mean", "ring_best", "ring_diversity")],
+            [getattr(solo_r1.monitors[0], k) for k in ("ring_mean", "ring_best",
+                                                       "ring_diversity")])
+        if not out["ring_law"]["neighbour_ring_equals_solo"]:
+            raise AssertionError(f"elastic (b): tenant 1's ring fingerprint differs from its solo "
+                                 f"run's: {part}")
         del fleet, fleet2, solo, solo_r1
 
         # (c) warm admissions under a frozen cache and a strict recorder
         s = elastic_server(torch, cache, device=device)
+        s.prewarm()
         for i in range(EL_WIDTH + EL_ADMISSIONS):
             s.submit(ElasticSpec(seed=500 + i, n_steps=EL_CHUNK, pop=EL_RUNGS[-2] + 1 + i, dim=EL_DIM,
                                  tag=f"adm{i}"))
@@ -8360,6 +8406,434 @@ def phase_multilevel_path(torch, seed: int = SEED, device=None) -> dict:
     return out
 
 
+# ----------------------------------------------- main paths 39 and 40
+
+
+def control_plane_specs(prefix: str, n: int | None = None) -> list:
+    """``bench.py``'s ``_cpl_specs`` at path 36's widths: ``CP_SPECS`` specs
+    (or ``n``) of pop ``CP_POP``, seeds 3000 up, budgets of 2, 3 and 4
+    chunks (completions churn admissions through the window), one bucket
+    shape, no deadline."""
+    from evox_tpu_torch.workflows.elastic import ElasticSpec
+
+    return [ElasticSpec(seed=3000 + i, n_steps=(2 + i % 3) * EL_CHUNK, pop=CP_POP, dim=EL_DIM,
+                        tag=f"{prefix}{i:04d}") for i in range(CP_SPECS if n is None else n)]
+
+
+def control_plane(torch, root, n_pods: int, device=None, metrics=None):
+    from evox_tpu_torch.workflows.control_plane import ControlPlane
+    from evox_tpu_torch.workflows.elastic import BucketTable
+
+    return ControlPlane(elastic_factory(torch, device), str(root), n_pods=n_pods,
+                        table=BucketTable(pop_rungs=EL_RUNGS, width_rungs=(EL_WIDTH,)),
+                        width=EL_WIDTH, chunk=EL_CHUNK, metrics=metrics)
+
+
+def completed_digest(results: list) -> dict:
+    """tag -> (generations, telemetry fingerprints, monitor reports) of the
+    completed entries: what a tenant's acknowledged budget produced,
+    without its placement (pod, bucket, slot, checkpoint directory)."""
+    return {r["tag"]: (r["generations"], tuple(r.get("fingerprints") or ()),
+                       json.dumps(r.get("monitors"), sort_keys=True))
+            for r in results if r["status"] == "completed"}
+
+
+def phase_control_plane_path(torch, device=None) -> dict:
+    """Main path 39, ``bench.py:1639-1795``'s workload 13 at path 36's
+    widths: a ``ControlPlane`` of ``CP_PODS`` pods over path 36's factory
+    (PSO on Sphere, d 64, width 16, chunk 10, ``TelemetryMonitor(8)``) with
+    a ``FlightRecorder``, against the same plane with one pod, each given
+    ``CP_SPECS`` specs of pop 256. Two warm rounds, ``pod00`` declared dead
+    (the steal from its journals timed), one round to absorb the stolen
+    work, then the serve rounds ``CP_PAIR`` differenced, ``CP_ROUNDS``
+    times in turns with the one-pod plane: tenant-generations a second
+    (the generations that each dispatch advanced its active, non-padding
+    slots by, over the seconds) of both and their ratio, and each round's
+    seconds inside the pods' serve rounds and in the gateway around them;
+    the backlog must outlast the window. Gates: (a) the report
+    passes ``tools/check_report.py`` and no spec is admitted twice; (b)
+    the census shows ``pod00`` dead and at least one steal; (c) every
+    tenant completed in both planes has equal results and telemetry
+    fingerprints in both; (d) on a plane of ``CP_CRASH_SPECS`` specs the
+    gateway is killed at its first ``steal_target_durable:`` point after
+    ``mark_dead`` (``_CRASH_HOOK``), abandoned, ``ControlPlane.recover``ed
+    from disk (timed) and served to the end: its completed results equal
+    an uncrashed plane's, each spec admitted once."""
+    import tempfile
+
+    from evox_tpu_torch.core.instrument import run_report
+    from evox_tpu_torch.workflows import control_plane as cp
+
+    out = {"pods": CP_PODS, "specs": CP_SPECS, "pop": CP_POP, "dim": EL_DIM, "width": EL_WIDTH,
+           "chunk": EL_CHUNK, "serve_rounds": list(CP_PAIR)}
+    with tempfile.TemporaryDirectory() as td:
+        ours = control_plane(torch, Path(td) / "plane", CP_PODS, device,
+                             metrics=os.path.join(td, "metrics"))
+        base = control_plane(torch, Path(td) / "solo", 1, device,
+                             metrics=os.path.join(td, "metrics_solo"))
+        t0 = time.perf_counter()
+        for s in control_plane_specs("m"):
+            ours.submit(s)
+        out["submit_ms_per_spec"] = (time.perf_counter() - t0) / CP_SPECS * 1e3
+        for s in control_plane_specs("s"):
+            base.submit(s)
+        for plane in (ours, base):
+            plane.serve(max_rounds=2)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        ours.mark_dead("pod00", reason="path 39 injection")
+        out["steal_s"] = time.perf_counter() - t0
+        out["stolen"] = ours.counters["stolen"]
+        ours.serve(max_rounds=1)
+
+        from evox_tpu_torch.core.executor import _IoLane
+        from evox_tpu_torch.workflows.elastic import ElasticServer
+        from evox_tpu_torch.workflows.tenancy import RunQueue
+
+        def queue_sum(plane, get):
+            return sum(get(b.queue) for pid in plane.live_pods()
+                       for b in plane.pods[pid].server._buckets.values())
+
+        def snapshot_busy_s(q):
+            return q.executor.background_lane("fleet_snapshot").busy_s
+
+        # inclusive seconds of each piece of a pod's serve round (``read`` is
+        # the slots' generation read, where the host waits for the card)
+        pieces = {"pod": (ElasticServer, "serve_round"), "sweep": (RunQueue, "_sweep"),
+                  "read": (RunQueue, "_tenant_generations"), "retire": (RunQueue, "_retire"),
+                  "refill": (RunQueue, "_refill"), "dispatch": (RunQueue, "_dispatch"),
+                  "barrier": (RunQueue, "_barrier"), "snapshot_wait": (_IoLane, "submit")}
+
+        def timed(plane, n):
+            """(seconds, tenant-generations served, {piece: seconds}) of ``n``
+            gateway rounds. The served count is each dispatch's generation
+            delta over its active slots that are not width padding, read
+            after the clock stops; ``snapshot_wait`` is the chunk barriers'
+            wait for the previous fleet snapshot, ``snapshot_busy`` the
+            snapshot lanes' own work (on their threads), ``retirements``
+            the tenants retired (each closed out with its checkpoint and
+            its slot refilled)."""
+            dispatches = []
+            spent = dict.fromkeys([*pieces, "snapshot_busy", "retirements"], 0.0)
+            originals = {name: getattr(cls, attr) for name, (cls, attr) in pieces.items()}
+
+            def timer(name):
+                fn = originals[name]
+
+                def wrapped(obj, *args, **kwargs):
+                    t = time.perf_counter()
+                    try:
+                        return fn(obj, *args, **kwargs)
+                    finally:
+                        if name != "snapshot_wait" or obj.name == "fleet_snapshot":
+                            spent[name] += time.perf_counter() - t
+                return wrapped
+
+            timers = {name: timer(name) for name in pieces}
+            timed_dispatch = timers["dispatch"]
+
+            def counted_dispatch(q, k):
+                real = [i for i, sl in enumerate(q.slots) if sl is not None and sl.active
+                        and not str(sl.spec.tag).startswith("_pad_")]
+                before = q.state.tenants.generation.clone()
+                timed_dispatch(q, k)
+                dispatches.append((before, q.state.tenants.generation.clone(), real))
+
+            timers["dispatch"] = counted_dispatch
+            busy0 = queue_sum(plane, snapshot_busy_s)
+            retired0 = queue_sum(plane, lambda q: q.counters["retired"])
+            for name, (cls, attr) in pieces.items():
+                setattr(cls, attr, timers[name])
+            try:
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    plane.serve_round()
+                for pid in plane.live_pods():
+                    for b in plane.pods[pid].server._buckets.values():
+                        if b.queue.state is not None:
+                            int(b.queue.state.generation)
+                _sync(torch, device)
+                wall = time.perf_counter() - t0
+            finally:
+                for name, (cls, attr) in pieces.items():
+                    setattr(cls, attr, originals[name])
+            spent["snapshot_busy"] = queue_sum(plane, snapshot_busy_s) - busy0
+            spent["retirements"] = queue_sum(plane, lambda q: q.counters["retired"]) - retired0
+            served = sum(int((after - before)[real].sum()) for before, after, real in dispatches)
+            return wall, served, spent
+
+        live = len(ours.live_pods())
+        rates = {"ours": [], "single_pod": [], "ratio": [], "served_per_round": [],
+                 "single_pod_served_per_round": [], "split_s_per_round": [],
+                 "single_pod_split_s_per_round": []}
+        for _ in range(CP_ROUNDS):
+            for name, prefix, plane in (("ours", "", ours), ("single_pod", "single_pod_", base)):
+                (t_lo, g_lo, s_lo), (t_hi, g_hi, s_hi) = timed(plane, CP_PAIR[0]), timed(
+                    plane, CP_PAIR[1])
+                rounds = CP_PAIR[1] - CP_PAIR[0]
+                slope, served = (t_hi - t_lo) / rounds, (g_hi - g_lo) / rounds
+                split = {k: (s_hi[k] - s_lo[k]) / rounds for k in s_hi}
+                split["gateway"] = slope - split["pod"]
+                rates[name].append(served / slope)
+                rates[prefix + "served_per_round"].append(served)
+                rates[prefix + "split_s_per_round"].append(split)
+            rates["ratio"].append(rates["ours"][-1] / rates["single_pod"][-1])
+        if not (ours.has_work() and base.has_work()):
+            raise AssertionError("path 39: the backlog drained inside the measured window")
+        out["live_pods"] = live
+        out["full_round_tenant_generations"] = EL_CHUNK * EL_WIDTH * live
+        out["round_rates"] = rates
+        out["tenant_generations_per_s"] = statistics.median(rates["ours"])
+        out["single_pod_tenant_generations_per_s"] = statistics.median(rates["single_pod"])
+        out["ratio"] = statistics.median(rates["ratio"])
+        # (a) and (b)
+        report = run_report(control_plane=ours)
+        validate(report=report, label="path 39's control_plane report")
+        rep = report["control_plane"]
+        if rep["exactly_once"]["duplicate_admissions"]:
+            raise AssertionError(f"path 39 (a): duplicate admissions "
+                                 f"{rep['exactly_once']['duplicate_admissions']}")
+        if rep["pods"]["dead"] != ["pod00"] or rep["tenants"]["stolen"] < 1:
+            raise AssertionError(f"path 39 (b): census {rep['pods']}, {rep['tenants']}")
+        out["census"] = rep["pods"]
+        out["tenants"] = rep["tenants"]
+        out["audited_tags"] = rep["exactly_once"]["audited_tags"]
+        out["slo"] = rep.get("slo")
+        # (c) placement independence: both planes' tags carry one prefix each
+        mine = {t[1:]: v for t, v in completed_digest(ours.results()).items()}
+        theirs = {t[1:]: v for t, v in completed_digest(base.results()).items()}
+        both = sorted(set(mine) & set(theirs))
+        differ = [t for t in both if mine[t] != theirs[t]]
+        if not both or differ:
+            raise AssertionError(f"path 39 (c): {len(differ)} of {len(both)} tenants completed "
+                                 f"in both planes differ: {differ[:5]}")
+        out["completed_in_both"] = len(both)
+        ours.close()
+        base.close()
+
+        # (d) the gateway killed mid-steal, recovered from disk
+        class Killed(BaseException):
+            pass
+
+        def drive(plane, crash):
+            # one round: pod00's tenants (every third spec, budgets of two
+            # chunks) are all still running when it dies
+            for s in control_plane_specs("k", CP_CRASH_SPECS):
+                plane.submit(s)
+            plane.serve(max_rounds=1)
+            if not crash:
+                plane.mark_dead("pod00", reason="path 39 (d)")
+                return plane
+            fired = []
+
+            def hook(point):
+                if point.startswith("steal_target_durable:"):
+                    fired.append(point)
+                    raise Killed(point)
+
+            cp._CRASH_HOOK = hook
+            try:
+                plane.mark_dead("pod00", reason="path 39 (d)")
+            except Killed:
+                pass
+            finally:
+                cp._CRASH_HOOK = None
+            if len(fired) != 1:
+                raise AssertionError(f"path 39 (d): the crash hook fired {len(fired)} times")
+            return plane  # abandoned: only its lanes are joined, at the end
+
+        ref = drive(control_plane(torch, Path(td) / "ref", CP_PODS, device), crash=False)
+        ref_done = completed_digest(ref.serve())
+        ref.close()
+        crashed = drive(control_plane(torch, Path(td) / "crash", CP_PODS, device), crash=True)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        from evox_tpu_torch.workflows.elastic import BucketTable
+
+        rec = cp.ControlPlane.recover(elastic_factory(torch, device), str(Path(td) / "crash"),
+                                      table=BucketTable(pop_rungs=EL_RUNGS,
+                                                        width_rungs=(EL_WIDTH,)),
+                                      width=EL_WIDTH, chunk=EL_CHUNK)
+        _sync(torch, device)
+        out["recover_s"] = time.perf_counter() - t0
+        done = completed_digest(rec.serve())
+        rrep = rec.report()
+        tags = sorted(f"k{i:04d}" for i in range(CP_CRASH_SPECS))
+        if (sorted(done) != tags or done != ref_done
+                or rrep["exactly_once"]["duplicate_admissions"]
+                or rrep["tenants"]["steal_dedup"] < 1):
+            raise AssertionError(
+                f"path 39 (d): {len(done)} of {CP_CRASH_SPECS} completed, "
+                f"{sum(done.get(t) != ref_done.get(t) for t in tags)} differ from the uncrashed "
+                f"plane, duplicates {rrep['exactly_once']['duplicate_admissions']}, dedup "
+                f"{rrep['tenants']['steal_dedup']}")
+        out["mid_steal_crash"] = {"specs": CP_CRASH_SPECS, "completed_equal": len(done),
+                                  "steal_dedup": rrep["tenants"]["steal_dedup"],
+                                  "recoveries": rrep["ledger"]["recoveries"]}
+        rec.close()
+        crashed.close()  # its threads joined before the directory goes
+    print(f"[control plane path] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_pod_supervised_nsga2(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 40: path 2 (NSGA-II on LSMOP1, pop 10000, d 300, m 3,
+    ``use_kernel=True``) under ``PodSupervisor`` in a world of one over NCCL
+    (a ``FileStore`` in a temporary directory, as ``phase_nccl_world``).
+    (1) ``RunSupervisor(WorkflowCheckpointer(every=10)).run(wf, state, 30,
+    pod_supervisor=)`` against a plain ``run`` of 30, bit for bit, with one
+    B3 and one B4 launch a generation in both (B4 from the second); (2) a
+    supervised call sleeping past a 1 s deadline raised as
+    ``hung_collective``, then the next chunk (generations 0-10 through the
+    executor) equal to the plain run's; (3) ``request_drain`` while the
+    chunk to generation 10 runs: the chunk finishes, the barrier checkpoint
+    is fsynced and ``pod_drain`` journaled (seconds from the request to the
+    return), ``resume_from_barrier`` run to 30 equals the plain run; (4)
+    the heartbeat advanced, ``run_report``'s ``pod_supervisor`` section and
+    the trace's ``supervisor:pod:*`` markers through
+    ``tools/check_report.py``; ms a generation pod-supervised (watchdog,
+    rendezvous, a snapshot every 10) against the same run checkpointed
+    unsupervised and against bare, in turns."""
+    import tempfile
+
+    from evox_tpu_torch.core import distributed as dist
+    from evox_tpu_torch.core.executor import GenerationExecutor
+    from evox_tpu_torch.core.instrument import run_report, write_chrome_trace
+    from evox_tpu_torch.core.pod_supervisor import (HUNG_COLLECTIVE, PodFailureError,
+                                                    PodSupervisor)
+    from evox_tpu_torch.workflows.checkpoint import WorkflowCheckpointer
+    from evox_tpu_torch.workflows.journal import RunJournal
+    from evox_tpu_torch.workflows.supervisor import RunSupervisor
+
+    out = {"generations": POD_GENERATIONS, "every": POD_EVERY, "deadline_s": POD_DEADLINE_S}
+    on_card = device is None or str(device).startswith("cuda")
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_distributed(f"file://{td}/store", num_processes=1, process_id=0,
+                              backend="nccl" if on_card else "gloo", timeout_s=60)
+        try:
+            import torch.distributed as tdist
+
+            out["backend"] = str(tdist.get_backend())
+            wf = build_checkpoint_path(torch, device=device)
+            start = wf.init(seed)
+            reset_launches()
+            plain10 = wf.run(start, POD_DRAIN_AT)
+            plain = wf.run(plain10, POD_GENERATIONS - POD_DRAIN_AT)
+            _sync(torch, device)
+            out["plain_launches"] = read_launches()
+            # (1) pod-supervised against plain
+            sup = PodSupervisor(deadline_s=60.0, heartbeat_interval_s=0.1,
+                                journal=os.path.join(td, "journal")).start()
+            reset_launches()
+            state = RunSupervisor(WorkflowCheckpointer(os.path.join(td, "ck1"), every=POD_EVERY)
+                                  ).run(wf, start, POD_GENERATIONS, pod_supervisor=sup)
+            _sync(torch, device)
+            out["launches"] = read_launches()
+            want = {"packed_dominance": POD_GENERATIONS, "partial_topk": POD_GENERATIONS - 1}
+            for side in ("plain_launches", "launches"):
+                got = {k: out[side][k] for k in want}
+                if got != want:
+                    raise AssertionError(f"path 40: {side} {out[side]}, expected {want}")
+            out["supervised_vs_plain"] = _states_exact(torch, "path 40 (1): pod-supervised "
+                                                       "against plain", state.algo, plain.algo)
+            if wf._pod_supervisor is not sup or sup.report()["outcome"] != "clean":
+                raise AssertionError(f"path 40 (1): {sup.report()}")
+            # (2) a hung call, classified, then the next chunk
+            hung = PodSupervisor(deadline_s=POD_DEADLINE_S, heartbeat_interval_s=0.1).start()
+            t0 = time.perf_counter()
+            try:
+                hung.supervised(lambda: time.sleep(POD_HANG_S), entry="chunk")
+            except PodFailureError as e:
+                out["hung"] = {"classification": e.classification,
+                               "detect_s": e.post_mortem["detect_s"],
+                               "raised_after_s": time.perf_counter() - t0}
+            else:
+                raise AssertionError("path 40 (2): the hung call returned")
+            if out["hung"]["classification"] != HUNG_COLLECTIVE:
+                raise AssertionError(f"path 40 (2): {out['hung']}")
+            nxt = GenerationExecutor(pod_supervisor=hung).run_fused(wf, start, POD_DRAIN_AT)
+            _sync(torch, device)
+            _states_exact(torch, "path 40 (2): the chunk after the deadline hit", nxt.algo,
+                          plain10.algo)
+            hung.stop()
+            # (3) the drain at generation 10, resumed from the barrier
+            drain = PodSupervisor(deadline_s=60.0, heartbeat_interval_s=0.1,
+                                  journal=os.path.join(td, "journal_drain")).start()
+            orig, marks = wf.run, {}
+
+            def run(st, n):
+                res = orig(st, n)
+                if "request" not in marks:
+                    marks["request"] = time.perf_counter()
+                    drain.request_drain("path 40")
+                return res
+
+            wf.run = run
+            ck3 = os.path.join(td, "ck3")
+            try:
+                drained = RunSupervisor(WorkflowCheckpointer(ck3, every=POD_EVERY)).run(
+                    wf, start, POD_GENERATIONS, pod_supervisor=drain)
+            finally:
+                wf.run = orig
+            out["drain_s"] = time.perf_counter() - marks["request"]
+            kinds = [r["kind"] for r in RunJournal(os.path.join(td, "journal_drain")).records()]
+            if int(drained.generation) != POD_DRAIN_AT or "pod_drain" not in kinds:
+                raise AssertionError(f"path 40 (3): drained at {int(drained.generation)}, "
+                                     f"journal {kinds}")
+            resumed = drain.resume_from_barrier(wf, ck3, expect_like=start)
+            final = wf.run(resumed, POD_GENERATIONS - int(resumed.generation))
+            _sync(torch, device)
+            out["drain_resume_vs_plain"] = _states_exact(
+                torch, "path 40 (3): drained, resumed from the barrier", final.algo, plain.algo)
+            out["drain_journal"] = kinds
+            drain.stop()
+            # (4) the heartbeat, the report and the trace
+            if sup.counters["heartbeats"] < 2:
+                raise AssertionError(f"path 40 (4): heartbeats {sup.counters}")
+            out["heartbeats"] = sup.counters["heartbeats"]
+            wf._pod_supervisor = hung  # the failed pod: a census, a failure, the markers
+            report = run_report(wf, state)
+            trace = write_chrome_trace(os.path.join(td, "pod_supervisor_trace.json"),
+                                       workflow=wf, state=state)
+            validate(report=report, trace=trace, label="path 40's pod_supervisor report and trace")
+            markers = sorted({e["name"] for e in trace["traceEvents"]
+                              if e.get("name", "").startswith("supervisor:pod:")})
+            if "supervisor:pod:failure" not in markers:
+                raise AssertionError(f"path 40 (4): markers {markers}")
+            out["trace_markers"] = markers
+            out["report_outcome"] = report["pod_supervisor"]["outcome"]
+            sup.stop()
+            # ms a generation, in turns: pod-supervised (watchdog, rendezvous,
+            # a snapshot every 10), the same run checkpointed every 10 without
+            # a supervisor (the snapshots' share), and bare
+            s0 = wf.step(start)
+            turns = []
+            for side in ("bare", "checkpointed", "pod", "pod", "checkpointed", "bare"):
+                pod = PodSupervisor(deadline_s=60.0, heartbeat_interval_s=0.1).start()
+                ck = WorkflowCheckpointer(os.path.join(td, f"t{len(turns)}"), every=POD_EVERY)
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                if side == "bare":
+                    wf.run(s0, POD_GENERATIONS)
+                elif side == "checkpointed":
+                    wf.run(s0, POD_GENERATIONS, checkpointer=ck)
+                else:
+                    RunSupervisor(ck).run(wf, s0, POD_GENERATIONS, pod_supervisor=pod)
+                _sync(torch, device)
+                turns.append({"side": side, "ms_per_generation":
+                              (time.perf_counter() - t0) / POD_GENERATIONS * 1e3})
+                pod.stop()
+            out["turns"] = turns
+            for side in ("bare", "checkpointed", "pod"):
+                out[f"{side}_ms_per_generation"] = statistics.median(
+                    t["ms_per_generation"] for t in turns if t["side"] == side)
+        finally:
+            dist.shutdown_distributed()
+    print(f"[pod supervised nsga2] {json.dumps(out)}", flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -8408,6 +8882,10 @@ def monitor_callers(name: str, paths: dict) -> list:
                 {"caller": "non_dominated_sort in NSGA-II's tell, instrumented with "
                            "analyze=True (path 22)", "n": 2 * NSGA2_POP, "m": LSMOP_M,
                  "launches": paths["instrumented_nsga2"]["launches"][name]},
+                {"caller": "non_dominated_sort in NSGA-II's tell under RunSupervisor and "
+                           "PodSupervisor, straight run from init (path 40)",
+                 "n": [NSGA2_POP, 2 * NSGA2_POP], "m": LSMOP_M,
+                 "launches": paths["pod_supervised_nsga2"]["launches"][name]},
                 {"caller": "LineageMonitor's rank-0 front in post_eval, NSGA-II on LSMOP1 "
                            "(path 27), one more launch a generation than its twin",
                  "n": NSGA2_POP, "m": LSMOP_M, "launches": paths["lineage"]["launches"],
@@ -8445,7 +8923,10 @@ def monitor_callers(name: str, paths: dict) -> list:
              "launches": paths["checkpoint"]["launches"][name]},
             {"caller": "rank_crowding_truncate in NSGA-II's tell, instrumented with "
                        "analyze=True (path 22)", "n": 2 * NSGA2_POP, "k": NSGA2_POP,
-             "launches": paths["instrumented_nsga2"]["launches"][name]}]
+             "launches": paths["instrumented_nsga2"]["launches"][name]},
+            {"caller": "rank_crowding_truncate in NSGA-II's tell under RunSupervisor and "
+                       "PodSupervisor, straight run from init (path 40)", "n": 2 * NSGA2_POP,
+             "k": NSGA2_POP, "launches": paths["pod_supervised_nsga2"]["launches"][name]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -8902,6 +9383,12 @@ def main() -> int:
     paths["fleet_health"] = phase_fleet_health_path(torch, profile=args.profile)
     torch.cuda.empty_cache()
     paths["multilevel"] = phase_multilevel_path(torch)
+    # 20. main paths 39 (bench.py's workload 13: the multi-pod control plane
+    # with a pod declared dead) and 40 (path 2 under the pod fault domain)
+    torch.cuda.empty_cache()
+    paths["control_plane"] = phase_control_plane_path(torch)
+    torch.cuda.empty_cache()
+    paths["pod_supervised_nsga2"] = phase_pod_supervised_nsga2(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -8977,6 +9464,8 @@ def main() -> int:
         "elastic_path": paths["elastic"],
         "fleet_health_path": paths["fleet_health"],
         "multilevel_path": paths["multilevel"],
+        "control_plane_path": paths["control_plane"],
+        "pod_supervised_nsga2_path": paths["pod_supervised_nsga2"],
         "phase_seconds": paths.seconds,
     }
     if args.out is not None:

@@ -17,12 +17,16 @@ __version__ = "0.1.0"
 
 from .core import (
     Algorithm,
+    BarrierTimeoutError,
+    CollectiveDeadlineError,
     CostAnalyzer,
     DispatchRecorder,
     GuardedAlgorithm,
     IPOPRestarts,
     Monitor,
     Problem,
+    PodFailureError,
+    PodSupervisor,
     PyTreeNode,
     RetraceError,
     ShardedES,
@@ -39,6 +43,7 @@ from .core import (
     write_report_jsonl,
 )
 from .workflows import (
+    ControlPlane,
     IslandWorkflow,
     IslandWorkflowState,
     RunQueue,
@@ -54,6 +59,9 @@ from .workflows import (
 
 __all__ = [
     "Algorithm",
+    "BarrierTimeoutError",
+    "CollectiveDeadlineError",
+    "ControlPlane",
     "CostAnalyzer",
     "DispatchRecorder",
     "GuardedAlgorithm",
@@ -61,6 +69,8 @@ __all__ = [
     "IslandWorkflow",
     "IslandWorkflowState",
     "Monitor",
+    "PodFailureError",
+    "PodSupervisor",
     "Problem",
     "PyTreeNode",
     "RetraceError",

@@ -82,6 +82,7 @@ __all__ = [
     "constrain_state",
     "create_mesh",
     "create_pod_mesh",
+    "dist_store",
     "ensure_global_state",
     "host_value",
     "init_distributed",
@@ -855,6 +856,14 @@ def process_count() -> int:
     import torch.distributed as dist
 
     return int(dist.get_world_size())
+
+
+def dist_store() -> Any:
+    """The process group's key-value store (the ``FileStore`` or
+    ``TCPStore`` that :func:`init_distributed` made), or None without one:
+    what :func:`process_barrier` and the pod supervisor's heartbeats meet
+    on, with no collective."""
+    return _STORE if is_dist_initialized() else None
 
 
 def _make_store(init_method: str, world_size: int, rank: int, timeout: timedelta) -> Any:

@@ -58,8 +58,10 @@ Every CUDA call of an unsupervised run stays on the calling thread: the
 lanes' and the evaluation pool's worker threads see numpy and host
 tensors, and wait only on CUDA events the calling thread recorded after the
 copies they read; a supervisor with a deadline dispatches each chunk from
-its watchdog thread. The JAX package's pod supervisor waits for ROADMAP
-A13 and raises ``NotImplementedError``.
+its watchdog thread. A pod supervisor (``pod_supervisor=``,
+``core/pod_supervisor.py``) wraps each chunk of a fused run in its
+collective deadline, innermost, and ends each chunk in its rendezvous: a
+coordinated drain finishes the chunk, saves a final snapshot and returns.
 """
 
 from __future__ import annotations
@@ -251,9 +253,6 @@ class GenerationExecutor:
         fetch_monitors_every: Optional[int] = None,
         metrics: Any = None,
     ):
-        from ..workflows.common import refuse_deferred
-
-        refuse_deferred("GenerationExecutor", item="A13", pod_supervisor=pod_supervisor)
         if max_staleness < 0:
             raise ValueError(f"max_staleness must be >= 0, got {max_staleness}")
         if io_inflight < 1:
@@ -265,6 +264,10 @@ class GenerationExecutor:
         self.fetch_monitors_every = fetch_monitors_every
         self.metrics = metrics
         self.supervisor = supervisor
+        # the pod fault domain (core/pod_supervisor.py): every chunk of a
+        # fused run under its collective deadline, each chunk ending in its
+        # rendezvous; None leaves the loop as it was
+        self.pod_supervisor = pod_supervisor
         self._clock = time.perf_counter
         self._lock = threading.Lock()
         self.counters: Dict[str, int] = {
@@ -418,15 +421,26 @@ class GenerationExecutor:
 
         ``supervisor`` (default the executor's own): every chunk dispatch
         runs under its ladder (module docstring); its checkpointer takes the
-        place of a missing ``checkpointer``."""
-        from ..workflows.checkpoint import chunk_to_boundary, enter_run
-        from ..workflows.common import refuse_deferred
+        place of a missing ``checkpointer``.
 
-        refuse_deferred("GenerationExecutor.run_fused", item="A13", pod_supervisor=pod_supervisor)
+        ``pod_supervisor`` (default the executor's own, a
+        :class:`~evox_tpu_torch.core.pod_supervisor.PodSupervisor`): every
+        chunk runs under its collective deadline with the census-refined
+        classification (:class:`~evox_tpu_torch.core.pod_supervisor.
+        PodFailureError`, fatal to the ladder), each chunk ends in its
+        :meth:`chunk_boundary`, and a coordinated drain finishes the chunk,
+        writes a final barrier snapshot (off the cadence too), drains the
+        lane and returns early. The workflow advertises it as
+        ``_pod_supervisor`` (``run_report``, ``write_chrome_trace``)."""
+        from ..workflows.checkpoint import chunk_to_boundary, enter_run
+
         supervisor = self.supervisor if supervisor is None else supervisor
+        pod = self.pod_supervisor if pod_supervisor is None else pod_supervisor
         wf._run_executor = self
         if supervisor is not None:
             wf._run_supervisor = supervisor
+        if pod is not None:
+            wf._pod_supervisor = pod
         state, n_steps, ckpt = enter_run(state, n_steps, checkpointer, resume_from,
                                          expect_like=state, device=wf.device)
         if ckpt is None and supervisor is not None:
@@ -451,7 +465,11 @@ class GenerationExecutor:
                 remaining = total - int(state.generation)
                 step = min(remaining, chunk_to_boundary(state, ckpt, chunk))
                 attempted = state
-                dispatch = lambda: self._timed_dispatch("run", lambda: wf.run(attempted, step))  # noqa: E731
+                run = lambda: wf.run(attempted, step)  # noqa: E731
+                # innermost: the pod's watchdog classifies a hung collective
+                # before the ladder sees it
+                chunk_fn = run if pod is None else (lambda: pod.supervised(run, entry="run"))
+                dispatch = lambda: self._timed_dispatch("run", chunk_fn)  # noqa: E731
                 if supervisor is not None:
                     self.counters["supervised_chunks"] += 1
                     state = supervisor.call(dispatch, entry="run", restore=restore,
@@ -464,14 +482,23 @@ class GenerationExecutor:
                 if (attest is not None and verify_every is not None
                         and chunk_i % verify_every == 0
                         and int(state.generation) == int(attempted.generation) + step):
-                    state = self._verify_chunk(wf, attempted, state, step, attest)
+                    state = self._verify_chunk(wf, attempted, state, step, attest, pod=pod)
                 self.counters["chunks"] += 1
                 gen = int(state.generation)
                 if gen <= int(attempted.generation):
                     continue  # the restore rung went back: replay from there
                 self.counters["generations"] += gen - int(attempted.generation)
-                if ckpt is not None and (gen % ckpt.every == 0 or gen >= total):
-                    self._submit_checkpoint(lane, ckpt, state)
+                # the pod's rendezvous comes before the snapshot: a drain
+                # decided here forces a final (off-cadence) save below
+                drain = pod is not None and pod.chunk_boundary(gen) == "drain"
+                if ckpt is not None and (gen % ckpt.every == 0 or gen >= total or drain):
+                    self._submit_checkpoint(lane, ckpt, state, pod=pod)
+                if drain:
+                    # the chunk in flight finished and its snapshot is on
+                    # the lane: make every snapshot durable, record, return
+                    lane.drain()
+                    pod.note_drained(gen, checkpointed=ckpt is not None)
+                    return state
             lane.drain()  # every snapshot durable before the run returns
             return state
         except BaseException:
@@ -483,14 +510,18 @@ class GenerationExecutor:
             self.overlap["wall_s"] += self._clock() - t_run0
 
     # ------------------------------------------------------- integrity rung
-    def _verify_chunk(self, wf: Any, attempted: Any, state: Any, step: int, attest: Any) -> Any:
+    def _verify_chunk(self, wf: Any, attempted: Any, state: Any, step: int, attest: Any,
+                      pod: Any = None) -> Any:
         """Dispatch the chunk again from its entry state and compare the
-        digests; on a mismatch a third dispatch votes 2 of 3. No majority
-        raises :class:`IntegrityError`: three disagreeing results leave
-        nothing to continue from."""
+        digests; on a mismatch a third dispatch votes 2 of 3 (the dissent
+        noted against the pod, ``integrity_dissent``, when a pod supervisor
+        runs the chunk). No majority raises :class:`IntegrityError`: three
+        disagreeing results leave nothing to continue from."""
 
         def again() -> Any:
-            return self._timed_dispatch("run:verify", lambda: wf.run(attempted, step))
+            run = lambda: wf.run(attempted, step)  # noqa: E731
+            fn = run if pod is None else (lambda: pod.supervised(run, entry="run:verify"))
+            return self._timed_dispatch("run:verify", fn)
 
         def words(*states: Any) -> List[Tuple[int, ...]]:
             rows = torch.stack([attest.digest(s) for s in states]).cpu().tolist()
@@ -527,6 +558,8 @@ class GenerationExecutor:
         if self.metrics is not None:
             self.metrics.count("executor.integrity_healed")
             self.metrics.event("integrity.heal", entry="run", generation=gen, dissent=dissent)
+        if pod is not None:
+            pod.note_integrity_dissent(generation=gen, entry="run", dissent=dissent)
         return winner
 
     def integrity_counters(self) -> Optional[Dict[str, Any]]:
@@ -893,13 +926,26 @@ class GenerationExecutor:
         if first_err is not None:
             raise first_err
 
-    def _submit_checkpoint(self, lane: _IoLane, ckpt: Any, state: Any) -> None:
+    def _submit_checkpoint(self, lane: _IoLane, ckpt: Any, state: Any, pod: Any = None) -> None:
         """Copy ``state`` to the host without blocking, then pickle and
-        fsync it on ``lane`` once the copy has landed."""
+        fsync it on ``lane`` once the copy has landed. In a process group
+        the save (which ends in a commit barrier) runs on the calling
+        thread, in lockstep with the other processes, and under a pod
+        supervisor as a supervised point with its checkpoint deadline."""
         from ..workflows.checkpoint import _device_name
+        from .distributed import process_count
 
         self.counters["bg_checkpoint"] += 1
         t0 = self._clock()
+        if process_count() > 1:
+            if pod is not None:
+                pod.supervised(lambda: ckpt.save(state), entry="checkpoint",
+                               deadline_s=pod.checkpoint_deadline_s)
+            else:
+                ckpt.save(state)
+            self._span("io:checkpoint", "save", t0, self._clock() - t0,
+                       generation=int(state.generation))
+            return
         host, ready = host_copy_async(state)
         device = _device_name(state)
 

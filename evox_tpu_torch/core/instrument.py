@@ -483,16 +483,12 @@ def _not_ported(section: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"run_report's {section} section is not ported yet (ROADMAP {item})")
 
 
-def _refuse_unported(workflow: Any, analyzer: Any, executor: Any, **given: Any) -> None:
-    """Raise for every section asked for (passed, or advertised by the
-    workflow as the JAX package's ``run_report`` picks it up) whose
-    producer the port does not have yet."""
+def _refuse_unported(workflow: Any, analyzer: Any, executor: Any) -> None:
+    """Raise for every section asked for (advertised by the workflow as the
+    JAX package's ``run_report`` picks it up) whose producer the port does
+    not have yet."""
     wf = workflow
     asked = {
-        "pod_supervisor": ("A13", given["pod_supervisor"] is not None
-                           or getattr(wf, "_pod_supervisor", None) is not None),
-        "control_plane": ("A13", given["control_plane"] is not None
-                          or getattr(wf, "_control_plane", None) is not None),
         "roofline.sharding": ("A11", analyzer is not None and bool(
             getattr(getattr(wf, "algorithm", None), "is_pop_sharded", False))),
         "roofline.multihost": ("A11", analyzer is not None
@@ -564,17 +560,22 @@ def run_report(
     ``_exec_cache`` and its lattice as ``_bucket_table``: the cache's
     ``report()`` and the lattice, the JAX package's schema.
 
-    ``pod_supervisor=`` and ``control_plane=`` (A13), and the roofline
-    sharding and multihost (A11) sections raise
-    ``NotImplementedError`` when asked for, passed or advertised by the
-    workflow: their producers are not ported.
+    ``pod_supervisor``: ``pod_supervisor=``, or the workflow's
+    ``_pod_supervisor`` (``core/pod_supervisor.py``): heartbeats,
+    censuses, classified failures, drains and resumes (the JAX package's
+    schema v9). ``control_plane``: ``control_plane=``, or the workflow's
+    ``_control_plane`` (``workflows/control_plane.py``): the pod census,
+    the ledger's counts, the steals and the exactly-once audit (v12).
+
+    The roofline sharding and multihost (A11) sections raise
+    ``NotImplementedError`` when the workflow asks for them: their
+    producers are not ported.
     """
     if executor is None and workflow is not None:
         executor = getattr(workflow, "_run_executor", None)
     if analyzer is None and recorder is not None:
         analyzer = recorder.analyzer
-    _refuse_unported(workflow, analyzer, executor, supervisor=supervisor,
-                     pod_supervisor=pod_supervisor, control_plane=control_plane)
+    _refuse_unported(workflow, analyzer, executor)
     report: dict = {"schema": SCHEMA, "schema_version": SCHEMA_VERSION}
     if state is not None and hasattr(state, "generation"):
         report["generation"] = int(state.generation)
@@ -659,6 +660,16 @@ def run_report(
         supervisor = getattr(workflow, "_run_supervisor", None)
     if supervisor is not None and hasattr(supervisor, "report"):
         report["supervisor"] = supervisor.report()
+    # a pod-supervised run advertises its PodSupervisor as _pod_supervisor,
+    # a multi-pod gateway's workflow its ControlPlane as _control_plane
+    if pod_supervisor is None and workflow is not None:
+        pod_supervisor = getattr(workflow, "_pod_supervisor", None)
+    if pod_supervisor is not None and hasattr(pod_supervisor, "report"):
+        report["pod_supervisor"] = pod_supervisor.report()
+    if control_plane is None and workflow is not None:
+        control_plane = getattr(workflow, "_control_plane", None)
+    if control_plane is not None and hasattr(control_plane, "report"):
+        report["control_plane"] = control_plane.report()
     if metrics is None and workflow is not None:
         metrics = getattr(workflow, "_flight_recorder", None)
     if metrics is not None and hasattr(metrics, "report"):
@@ -713,8 +724,8 @@ _US = 1e6  # trace-event timestamps are microseconds
 
 #: trace pids are ``PID_STRIDE * process_index + local track``: track 0 =
 #: host dispatch, 1 = device telemetry, 2 = host counters, 4 = generation
-#: executor, 3 = run supervisor (5, the pod supervisor's track, waits for
-#: ROADMAP A13). Per-process traces land on disjoint pid ranges.
+#: executor, 3 = run supervisor, 5 = pod supervisor. Per-process traces
+#: land on disjoint pid ranges.
 PID_STRIDE = 100
 
 
@@ -780,15 +791,16 @@ def write_chrome_trace(
       (``supervisor:retry``, ``:deadline``, ``:restore``, ``:degrade``,
       ``:abort``) on a "run supervisor" process at their host times.
 
-    ``pod_supervisor=`` waits for ROADMAP A13 (``NotImplementedError``).
+    - Pod supervisor events (``pod_supervisor=``, or the workflow's
+      ``_pod_supervisor``) become ``supervisor:pod:*`` instant markers
+      (join, census, barrier_timeout, failure, drain_requested, drain,
+      reform, resume) on a "pod supervisor" process at their host times.
+
     Every process gets ``process_name`` and
     ``thread_name`` metadata and the pid ``PID_STRIDE * process_index +
     track``; ``process_index`` defaults to the ``torch.distributed`` rank
     (0 outside a process group).
     """
-    if pod_supervisor is not None or getattr(workflow, "_pod_supervisor", None) is not None:
-        raise NotImplementedError(
-            "write_chrome_trace(pod_supervisor=...) is not ported yet (ROADMAP A13)")
     events: List[dict] = []
     t0 = recorder._created if recorder is not None else 0.0
     t_end = t0
@@ -886,6 +898,18 @@ def write_chrome_trace(
             for m in markers:
                 events.append({"ph": "i", "name": m["name"], "cat": "supervisor",
                                "pid": pid_base + 3, "tid": 1,
+                               "ts": round(max(m["t_abs"] - t0, 0.0) * _US, 3), "s": "p",
+                               "args": sanitize_json(m.get("args", {}))})
+
+    if pod_supervisor is None and workflow is not None:
+        pod_supervisor = getattr(workflow, "_pod_supervisor", None)
+    if pod_supervisor is not None and hasattr(pod_supervisor, "markers"):
+        markers = pod_supervisor.markers()
+        if markers:
+            events.append(meta(5, "pod supervisor"))
+            for m in markers:
+                events.append({"ph": "i", "name": m["name"], "cat": "supervisor",
+                               "pid": pid_base + 5, "tid": 1,
                                "ts": round(max(m["t_abs"] - t0, 0.0) * _US, 3), "s": "p",
                                "args": sanitize_json(m.get("args", {}))})
 

@@ -102,5 +102,5 @@ class PopMonitor(Monitor):
 
     def plot(self, problem_pf: Optional[Any] = None, **kwargs):
         """The JAX package's objective-space animation needs ``vis_tools``,
-        which waits for ROADMAP A13."""
-        raise NotImplementedError("PopMonitor.plot is not ported yet (ROADMAP A13: vis_tools)")
+        which waits for ROADMAP A13.6."""
+        raise NotImplementedError("PopMonitor.plot is not ported yet (ROADMAP A13.6: vis_tools)")

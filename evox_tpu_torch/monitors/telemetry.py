@@ -30,7 +30,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.instrument import sanitize_json
 from ..core.monitor import Monitor
 from ..core.struct import PyTreeNode, named_leaves
-from ..utils.common import tree_flatten
+from ..utils.common import halving_sum, sqrt_rn, tree_flatten
 from .common import ring_slots, ring_write
 
 
@@ -61,6 +61,20 @@ class TelemetryState(PyTreeNode):
 
 def _float_leaves(tree: Any) -> list:
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor) and x.is_floating_point()]
+
+
+def _column_sums(blocks: list) -> list:
+    """The sum over the rows of each 2-D block, as ``halving_sum`` gives it:
+    blocks with as many rows share one ``halving_sum`` side by side
+    (``log2(rows)`` launches for all of them; each column adds as it would
+    alone)."""
+    out = [None] * len(blocks)
+    for rows in sorted({b.shape[0] for b in blocks}):
+        idx = [i for i, b in enumerate(blocks) if b.shape[0] == rows]
+        sums = halving_sum(torch.cat([blocks[i] for i in idx], dim=1))
+        for i, total in zip(idx, torch.split(sums, [blocks[i].shape[1] for i in idx])):
+            out[i] = total
+    return out
 
 
 class TelemetryMonitor(Monitor):
@@ -127,26 +141,36 @@ class TelemetryMonitor(Monitor):
                 total = total + pred(x).sum(dtype=torch.int32)
             return total
 
-        # diversity: mean per-dimension std over the batch, finite-masked
-        std_sum = torch.zeros((), device=fitness.device)
-        n_dims = 0
-        for x in leaves:
-            flat = x.to(torch.float32).reshape(x.shape[0], -1)
-            ok = torch.isfinite(flat)
-            zero = torch.zeros((), device=flat.device)
-            n = torch.clamp(ok.to(torch.float32).sum(0), min=1.0)
-            mean = torch.where(ok, flat, zero).sum(0) / n
-            var = torch.where(ok, (flat - mean) ** 2, zero).sum(0) / n
-            std_sum = std_sum + torch.sqrt(var).sum()
-            n_dims += flat.shape[1]
-        diversity = std_sum / max(n_dims, 1)
-
         direction = self.opt_direction[0] if m == 1 else self.opt_direction
         key_fit = fitness * direction
         finite = torch.isfinite(key_fit)
         gen_best_key = torch.where(finite, key_fit, float("inf")).amin(0)
-        n_finite = finite.to(torch.float32).sum(0)
-        gen_mean = torch.where(finite, fitness, 0.0).sum(0) / torch.clamp(n_finite, min=1.0)
+
+        # Every sum over the population is a halving_sum, one fixed order: a
+        # member's ring under member_call rounds as its solo run's does, on
+        # the card and on the CPU. The sums of one pass share their
+        # halving_sum (_column_sums).
+        zero = torch.zeros((), device=fitness.device)
+        flats = [x.to(torch.float32).reshape(x.shape[0], -1) for x in leaves]
+        oks = [torch.isfinite(f) for f in flats]
+        fin2 = finite.reshape(finite.shape[0], -1)
+        k = len(flats)
+        sums = _column_sums([ok.to(torch.float32) for ok in oks]
+                            + [torch.where(ok, f, zero) for ok, f in zip(oks, flats)]
+                            + [fin2.to(torch.float32),
+                               torch.where(fin2, fitness.reshape(fin2.shape), zero)])
+        n_finite = sums[2 * k].reshape(fitness.shape[1:])
+        gen_mean = sums[2 * k + 1].reshape(fitness.shape[1:]) / torch.clamp(n_finite, min=1.0)
+
+        # diversity: mean per-dimension std over the batch, finite-masked
+        ns = [torch.clamp(n, min=1.0) for n in sums[:k]]
+        means = [total / n for total, n in zip(sums[k:2 * k], ns)]
+        var = _column_sums([torch.where(ok, (f - mu) ** 2, zero)
+                            for ok, f, mu in zip(oks, flats, means)])
+        std_sum = torch.zeros((), device=fitness.device)
+        for v, n in zip(var, ns):
+            std_sum = std_sum + halving_sum(sqrt_rn(v / n))
+        diversity = std_sum / max(sum(f.shape[1] for f in flats), 1)
 
         improved = (gen_best_key < mstate.best_key).any()
         generations = mstate.generations + 1

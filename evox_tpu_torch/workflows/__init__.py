@@ -1,4 +1,5 @@
 from .checkpoint import CheckpointConfigError, WorkflowCheckpointer
+from .control_plane import ControlLedger, ControlPlane, PodAutoscaler, PodRuntime
 from .elastic import (
     BucketError,
     BucketShape,
@@ -42,6 +43,10 @@ __all__ = [
     "fleet_health_signals",
     "warm_fleet_cache",
     "ChainedLog",
+    "ControlLedger",
+    "ControlPlane",
+    "PodAutoscaler",
+    "PodRuntime",
     "DispatchDeadlineError",
     "RunAbortedError",
     "RunSupervisor",

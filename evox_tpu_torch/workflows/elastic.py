@@ -17,9 +17,9 @@ autoscaling — the port of ``evox_tpu/workflows/elastic.py``.
   (:class:`~evox_tpu_torch.core.exec_cache.ExecutableCache`,
   :func:`warm_fleet_cache`) and routes every :class:`ElasticSpec` to its
   bucket. Admission into a warm bucket is state surgery
-  (``insert_tenant``) at the warmed shapes; a cold process pre-warms the
-  buckets its cache's manifest lists before it serves
-  (:meth:`ElasticServer.prewarm`).
+  (``insert_tenant``) at the warmed shapes; a cold process that calls
+  :meth:`ElasticServer.prewarm` warms the buckets its cache's manifest
+  lists before it serves.
 - :class:`PopAutoscaler` grows a guarded tenant that shows the restart or
   stagnation escalation signal into the next pop rung's bucket when that
   bucket has room: ``workflows/ipop.py``'s ``grow_guarded`` surgery,
@@ -475,9 +475,9 @@ class ElasticServer:
         supervisor: a RunSupervisor shared by every bucket queue.
         strict_after_warm: freeze the cache once a bucket is warm.
 
-    The constructor pre-warms every bucket the cache's manifest lists
-    (:meth:`prewarm`); a server that should start cold is given a cache
-    without a directory.
+    A bucket is built when work first reaches it. A cold process that wants
+    a warm start calls :meth:`prewarm`, which builds every bucket the
+    cache's manifest lists before any request.
     """
 
     def __init__(self, factory: Callable[[BucketShape], ElasticWorkflow],
@@ -507,7 +507,6 @@ class ElasticServer:
         self._buckets: Dict[str, _Bucket] = {}
         self._filler_seq = 0
         self.autoscale_events: List[dict] = []
-        self.prewarmed: List[str] = self.prewarm()
 
     # ------------------------------------------------------------- buckets
     def bucket_for(self, spec: ElasticSpec) -> BucketShape:

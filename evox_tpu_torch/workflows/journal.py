@@ -17,8 +17,8 @@ across files.
 the run's event-kind whitelist (:data:`EVENT_KINDS`): the serving queue's
 transitions, pod lifecycle records, and the integrity records
 (``attest``, ``integrity``) that ``core/attest.py``'s
-``bisect_divergence`` reads. The serving queue itself waits for ROADMAP
-A13. Everything here is host file I/O between dispatches; no tensor is
+``bisect_divergence`` reads. The multi-pod gateway's ledger
+(``workflows/control_plane.py``) is the same machinery too. Everything here is host file I/O between dispatches; no tensor is
 read except through :func:`jsonable`.
 """
 

@@ -11,9 +11,11 @@ dispatch layer; the port of ``evox_tpu/workflows/supervisor.py``.
   ``oom``; ``torch.distributed``'s network and store errors, connection
   resets and timeouts of gloo and NCCL are ``transient``; NCCL's watchdog
   timeout of a collective and this module's and the barrier's deadlines
-  are ``deadline``; a CUDA error that leaves the context unusable (an
-  illegal address, a launch failure) and every unknown error are
-  ``fatal``; a digest mismatch (``core/attest.py``) is ``integrity``.
+  are ``deadline``, as is the pod fault domain's collective deadline
+  (``core/pod_supervisor.py``); a CUDA error that leaves the context
+  unusable (an illegal address, a launch failure), a classified pod fault
+  and every unknown error are ``fatal``; a digest mismatch
+  (``core/attest.py``) is ``integrity``.
   Types decide before messages, and only the message is matched.
 - **Escalation ladder**, per dispatch chunk: retry (bounded, exponential
   backoff with deterministic jitter) → restore the newest
@@ -36,12 +38,12 @@ from __future__ import annotations
 
 import random
 import re
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 from ..core.attest import IntegrityError
 from ..core.distributed import BarrierTimeoutError
+from ..core.pod_supervisor import CollectiveDeadlineError, PodFailureError, _watchdog_call
 
 __all__ = [
     "DEADLINE",
@@ -140,9 +142,11 @@ def classify_error(exc: BaseException) -> str:
 
     if isinstance(exc, IntegrityError):
         return INTEGRITY
-    if isinstance(exc, (DispatchDeadlineError, BarrierTimeoutError)):
+    if isinstance(exc, (DispatchDeadlineError, CollectiveDeadlineError, BarrierTimeoutError)):
         return DEADLINE
-    if isinstance(exc, RunAbortedError):
+    if isinstance(exc, (RunAbortedError, PodFailureError)):
+        # a classified pod fault: no rung of this process heals a pod
+        # (re-formation happens outside it)
         return FATAL
     if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)):
         return OOM
@@ -166,29 +170,16 @@ def classify_error(exc: BaseException) -> str:
 
 def _call_with_deadline(fn: Callable[[], Any], deadline_s: Optional[float], label: str) -> Any:
     """``fn()`` on a fresh daemon thread, waited on for at most
-    ``deadline_s`` (``None``: called inline). A hung call keeps its thread
-    forever, so threads are never pooled: a hung one is abandoned."""
-    if deadline_s is None:
-        return fn()
-    box: dict = {}
-    done = threading.Event()
-
-    def target() -> None:
-        try:
-            box["value"] = fn()
-        except BaseException as e:  # noqa: BLE001 - raised again on the caller
-            box["error"] = e
-        finally:
-            done.set()
-
-    threading.Thread(target=target, daemon=True, name=f"supervised:{label}").start()
-    if not done.wait(deadline_s):
-        raise DispatchDeadlineError(
-            f"dispatch '{label}' exceeded its {deadline_s:g} s deadline; the worker thread is "
-            "abandoned (a hung CUDA call cannot be interrupted)")
-    if "error" in box:
-        raise box["error"]
-    return box["value"]
+    ``deadline_s`` (``None``: called inline): the pod fault domain's
+    watchdog body (``core/pod_supervisor.py``) with this module's timeout
+    error. A hung CUDA call cannot be interrupted, so its thread is
+    abandoned."""
+    return _watchdog_call(
+        fn, deadline_s, label,
+        make_timeout=lambda lbl, dl: DispatchDeadlineError(
+            f"dispatch '{lbl}' exceeded its {dl:g} s deadline; the worker thread is abandoned "
+            "(a hung CUDA call cannot be interrupted)"),
+        thread_prefix="supervised")
 
 
 # event kind -> the counter it increments
@@ -386,19 +377,24 @@ class RunSupervisor:
 
     # ------------------------------------------------------------ fused runs
     def run(self, wf: Any, state: Any, n_steps: int, chunk: Optional[int] = None,
-            resume_from: Any = None, executor: Any = None) -> Any:
+            resume_from: Any = None, executor: Any = None, pod_supervisor: Any = None) -> Any:
         """Supervised ``wf.run``: the run is chunked (at the checkpointer's
         cadence, else every ``chunk`` generations, else one chunk) and each
         chunk dispatched under the deadline and the ladder. Chunking changes
         no arithmetic, and a retry or a replay starts from an immutable
         state, so the final state is a straight ``wf.run``'s bit for bit.
         ``resume_from`` restores the newest intact snapshot first and makes
-        ``n_steps`` the total."""
+        ``n_steps`` the total. ``pod_supervisor`` (a
+        :class:`~evox_tpu_torch.core.pod_supervisor.PodSupervisor`) puts
+        every chunk under the pod fault domain too: its collective deadline
+        inside this ladder, the chunk-boundary rendezvous, the coordinated
+        drain."""
         from ..core.executor import GenerationExecutor
 
         ex = executor if executor is not None else GenerationExecutor()
         return ex.run_fused(wf, state, n_steps, checkpointer=self.checkpointer, chunk=chunk,
-                            resume_from=resume_from, supervisor=self, attest=self.attest,
+                            resume_from=resume_from, supervisor=self,
+                            pod_supervisor=pod_supervisor, attest=self.attest,
                             verify_every=self.verify_every)
 
     # --------------------------------------------------------- pipelined runs

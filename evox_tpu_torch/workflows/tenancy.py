@@ -35,9 +35,9 @@ tensor slice: only values the algorithm reads as tensors in ``init``,
 (``core/distributed.py``), a RunQueue's ``supervisor=`` dispatches its
 chunks under a ``RunSupervisor``, and its ``health_policy=`` (a
 ``fleet_health.FleetHealthPolicy``) freezes, evicts or restarts unhealthy
-tenants at chunk boundaries. Not ported here: ``release_continuation`` (the
-control plane's steal, A13), which raises ``NotImplementedError`` naming
-its item.
+tenants at chunk boundaries. ``release_continuation`` is the multi-pod
+control plane's steal (``workflows/control_plane.py``): a ``steal`` record
+that :meth:`RunQueue.recover` honours.
 """
 
 from __future__ import annotations
@@ -653,6 +653,10 @@ def _spec_from_record(rec: dict) -> TenantSpec:
         deadline=int(rec["deadline"]) if rec.get("deadline") is not None else None,
     )
     spec._journal_seq = int(rec["spec_seq"])
+    if rec.get("grows"):
+        # the elastic grow count bounds PopAutoscaler.max_grows across a
+        # recovery: a scheduling input like pop and deadline
+        spec._elastic_grows = int(rec["grows"])
     return spec
 
 
@@ -765,7 +769,7 @@ class RunQueue:
 
     # ------------------------------------------------------------- lifecycle
     def _spec_record(self, spec: TenantSpec, seq: int) -> dict:
-        return {
+        rec = {
             "spec_seq": seq,
             "seed": int(spec.seed),
             "n_steps": int(spec.n_steps),
@@ -775,6 +779,10 @@ class RunQueue:
             "hyperparams": {k: np.asarray(torch.as_tensor(v).cpu()).tolist()
                             for k, v in spec.hyperparams.items()},
         }
+        grows = getattr(spec, "_elastic_grows", 0)
+        if grows:
+            rec["grows"] = int(grows)
+        return rec
 
     def _validate_spec(self, spec: TenantSpec) -> None:
         if spec.n_steps < 1:
@@ -837,14 +845,52 @@ class RunQueue:
                                    "done": int(done) if done is not None else None})
 
     def release_continuation(self, seq: int) -> dict:
-        raise NotImplementedError(
-            "RunQueue.release_continuation (the control plane's steal) is not ported yet "
-            "(ROADMAP A13)")
+        """Release queued work (a parked continuation or a still-pending
+        spec) that the multi-pod control plane
+        (``workflows/control_plane.py``) stole: its submit is already
+        durable in the target pod's journal (the write-ahead order of the
+        elastic growth handoff: a crash between the two duplicates the
+        work, which the plane's checkpoint and tag dedup heals, and never
+        loses it). A ``steal`` record keeps :meth:`recover` from requeueing
+        the seq here. Returns ``{seq, tag, checkpoint, done}``. Raises
+        ``KeyError`` when no queued work carries ``seq`` (an active slot is
+        preempted first, which parks a continuation), and ``ValueError``
+        for an in-memory continuation on a journaled queue (nothing durable
+        for the target pod to resume from)."""
+        seq = int(seq)
+        for i, c in enumerate(self.continuations):
+            if c.get("seq") is not None and int(c["seq"]) == seq:
+                if self.journal is not None and c.get("checkpoint") is None:
+                    raise ValueError(
+                        "a journaled queue cannot release an in-memory continuation: nothing "
+                        "durable exists for the target pod to resume from")
+                self.continuations.pop(i)
+                desc = {"seq": seq, "tag": c["spec"].tag, "checkpoint": c.get("checkpoint"),
+                        "done": c.get("done")}
+                break
+        else:
+            for i, spec in enumerate(self.pending):
+                if getattr(spec, "_journal_seq", None) == seq:
+                    self.pending.pop(i)
+                    desc = {"seq": seq, "tag": spec.tag, "checkpoint": None, "done": None}
+                    break
+            else:
+                raise KeyError(f"no queued work (continuation or pending spec) carries journal "
+                               f"seq {seq}")
+        self.counters["stolen"] = self.counters.get("stolen", 0) + 1
+        if self.journal is not None:
+            self.journal.append("steal", spec_seq=seq, tag=desc["tag"],
+                                checkpoint=desc["checkpoint"])
+        if self.metrics is not None:
+            self.metrics.event("queue.stolen", tag=desc["tag"], seq=seq)
+        return desc
 
     def _stack_hp(self, hp_dicts: List[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
-        names = set(self.workflow.hyperparams)
-        return {name: torch.stack([self.workflow._as_value(d[name]) for d in hp_dicts])
-                for name in names}
+        # at the fleet's declared dtypes: a journaled integer comes back from
+        # JSON as int64, and the recovered fleet must be the journaled one
+        declared = self.workflow.hyperparams
+        return {name: torch.stack([self.workflow._as_value(d[name]) for d in hp_dicts]).to(
+            declared[name].dtype) for name in declared}
 
     def start(self) -> VectorizedWorkflowState:
         """Fill every slot and init the fleet."""
@@ -1327,15 +1373,22 @@ class RunQueue:
                 journal=journal, health_policy=health_policy, metrics=metrics, attest=attest)
         q._spec_seq = max(specs, default=-1) + 1
         q.counters["submitted"] = len(specs)
+        # a stolen seq is already durable in another pod's journal (the
+        # steal record is appended only after the target's submit): it is
+        # never requeued here, before the barrier or after it
+        stolen = {int(r["spec_seq"]) for r in recs
+                  if r["kind"] == "steal" and r.get("spec_seq") is not None}
 
         def requeue_all() -> None:
             derived = {(r.get("entry") or {}).get("checkpoint") for r in recs
                        if r["kind"] in ("preempt", "autoscale")}
-            q.pending = [specs[s] for s in sorted(specs) if s not in resume_from]
+            q.pending = [specs[s] for s in sorted(specs)
+                         if s not in resume_from and s not in stolen]
             q.continuations = []
             seen: set = set()
             for s in sorted(specs):
-                if s not in resume_from or resume_from[s] in derived or resume_from[s] in seen:
+                if (s in stolen or s not in resume_from or resume_from[s] in derived
+                        or resume_from[s] in seen):
                     continue
                 seen.add(resume_from[s])
                 q.continuations.append({"spec": specs[s], "seq": s, "checkpoint": resume_from[s],
@@ -1402,11 +1455,12 @@ class RunQueue:
         if health_policy is not None and health_policy.may_freeze() and state.frozen is None:
             state = workflow.with_freeze_mask(state)
         q.state = state
-        q.pending = [specs[s] for s in meta["pending"]]
+        q.pending = [specs[s] for s in meta["pending"] if int(s) not in stolen]
         q.continuations = [{"spec": specs[int(c["seq"])], "seq": int(c["seq"]),
                             "checkpoint": c.get("checkpoint"), "state": None,
                             "done": int(c["done"]) if c.get("done") is not None else None}
-                           for c in meta.get("continuations", []) or []]
+                           for c in meta.get("continuations", []) or []
+                           if int(c["seq"]) not in stolen]
         q.slots = [None if s is None else _Slot(spec=specs[s["seq"]], active=bool(s["active"]),
                                                  frozen=bool(s.get("frozen", False)))
                    for s in meta["slots"]]
@@ -1429,7 +1483,7 @@ class RunQueue:
                           if r["kind"] in ("preempt", "autoscale")}
         claimed = {resume_from[s] for s in accounted if s in resume_from}
         for seq in sorted(specs):
-            if seq in accounted:
+            if seq in accounted or seq in stolen:
                 continue
             if seq in resume_from:
                 ck = resume_from[seq]

@@ -281,11 +281,12 @@ _FRESH = textwrap.dedent("""
             monitors=(TelemetryMonitor(capacity=8, device=device),), device=device)
 
     srv = ElasticServer(_pso_bucket_wf, cache_dir={cache!r}, width=2, chunk=3)
+    prewarmed = srv.prewarm()
     pre = dict(srv.cache.counters)
     for i, pop in enumerate((5, 8, 13)):
         srv.submit(ElasticSpec(seed=i, n_steps=5, pop=pop, dim=4, tag="req%d" % i))
     res = srv.serve()
-    print(json.dumps({{"prewarmed": srv.prewarmed, "pre": pre, "post": srv.cache.counters,
+    print(json.dumps({{"prewarmed": prewarmed, "pre": pre, "post": srv.cache.counters,
                       "res": sorted((r["tag"], r["bucket"], r["fingerprints"]) for r in res),
                       "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules)}}))
 """)
@@ -297,7 +298,7 @@ def test_fresh_process_prewarms_from_the_manifest(tmp_path):
     hits, no miss) and serves the same trajectories."""
     cache = str(tmp_path / "cache")
     srv = ElasticServer(_pso_bucket_wf, cache_dir=cache, width=WIDTH, chunk=3)
-    assert srv.prewarmed == []
+    assert srv.prewarm() == []
     for i, pop in enumerate((5, 8, 13)):
         srv.submit(ElasticSpec(seed=i, n_steps=5, pop=pop, dim=DIM, tag=f"req{i}"))
     res = srv.serve()

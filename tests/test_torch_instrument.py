@@ -286,10 +286,6 @@ class _PopShardedAlgorithm:
 
 @pytest.mark.parametrize("section,item,kwargs,attr", [
     ("roofline.sharding", "A11", {"analyzer": "analyzer"}, ("algorithm", _PopShardedAlgorithm())),
-    ("pod_supervisor", "A13", {"pod_supervisor": object()}, None),
-    ("control_plane", "A13", {"control_plane": object()}, None),
-    ("pod_supervisor", "A13", {}, ("_pod_supervisor", object())),
-    ("control_plane", "A13", {}, ("_control_plane", object())),
     ("roofline.sharding", "A11", {"recorder": "recorder"}, ("algorithm", _PopShardedAlgorithm())),
 ])
 def test_unported_sections_raise_naming_their_item(section, item, kwargs, attr):
@@ -306,6 +302,47 @@ def test_unported_sections_raise_naming_their_item(section, item, kwargs, attr):
         setattr(wf, *attr)
     with pytest.raises(NotImplementedError, match=f"{section} .*ROADMAP {item}"):
         run_report(wf, state, **kwargs)
+
+
+class _SectionProducer:
+    """Stands for a PodSupervisor or a ControlPlane: ``run_report`` takes
+    its ``report()`` as the section and the trace its ``markers()``."""
+
+    def __init__(self, section):
+        self.section = section
+
+    def report(self):
+        return {"producer": self.section}
+
+    def markers(self):
+        return [{"t_abs": 0.0, "name": "supervisor:pod:join", "args": {"process_id": 0}}]
+
+
+@pytest.mark.parametrize("section,passed", [
+    ("pod_supervisor", True), ("control_plane", True),
+    ("pod_supervisor", False), ("control_plane", False),
+])
+def test_pod_supervisor_and_control_plane_sections_come_from_their_producers(
+        section, passed, tmp_path):
+    """The sections that were refused until their producers were ported:
+    passed as ``run_report``'s argument or advertised by the workflow
+    (``_pod_supervisor``, ``_control_plane``), the producer's ``report()``
+    is the section; a pod supervisor's markers land on the trace's pod
+    supervisor track (pid 5)."""
+    wf = _port_wf()
+    state = wf.init(0)
+    producer = _SectionProducer(section)
+    if passed:
+        report = run_report(wf, state, **{section: producer})
+    else:
+        setattr(wf, f"_{section}", producer)
+        report = run_report(wf, state)
+    assert report[section] == {"producer": section}
+    if section == "pod_supervisor":
+        kw = {"pod_supervisor": producer} if passed else {}
+        trace = write_chrome_trace(str(tmp_path / "t.json"), workflow=wf, state=state, **kw)
+        pod = [e for e in trace["traceEvents"] if e.get("pid") == 5]
+        assert [e["name"] for e in pod if e["ph"] == "i"] == ["supervisor:pod:join"]
 
 
 def test_serving_section_comes_from_the_serving_cache(tmp_path):

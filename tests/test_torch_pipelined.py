@@ -199,12 +199,11 @@ def test_refusals():
     assert stale.report()["max_staleness"] == 1
     with pytest.raises(ValueError, match="max_staleness"):
         GenerationExecutor(max_staleness=-1)
-    # the supervisor hook is ported (tests/test_torch_supervisor.py); the
-    # pod supervisor waits for ROADMAP A13
+    # the supervisor hook and the pod supervisor's are ported
+    # (tests/test_torch_supervisor.py, tests/test_torch_pod_supervisor.py)
     sup = object()
     assert GenerationExecutor(supervisor=sup).supervisor is sup
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        GenerationExecutor(pod_supervisor=object())
+    assert GenerationExecutor(pod_supervisor=sup).pod_supervisor is sup
     # the voted re-dispatch is ported (tests/test_torch_attest.py): a
     # cadence below 1 is refused
     with pytest.raises(ValueError, match="verify_every"):

@@ -4,8 +4,12 @@ card, in turns, as ``chip_smoke.py`` builds them: path 1 (OpenES on the
 fused pendulum, pop 65536), path 2 (NSGA-II on LSMOP1, pop 10000, d 300),
 path 7 (MOEA/D on DTLZ2, 9870 subproblems), path 9 (SHADE on Ackley, pop
 4096, d 1024), path 14 (8 PSO islands of 512 on Ackley, d 256, migrating
-every 8) and path 16 (PSO on the host Sphere, pop 2048, d 512, sleeping 4
-ms: ``run_host_pipelined`` and the serialized ask, evaluate, tell loop).
+every 8), path 16 (PSO on the host Sphere, pop 2048, d 512, sleeping 4
+ms: ``run_host_pipelined`` and the serialized ask, evaluate, tell loop),
+path 21 (PSO 256 x 64 on Ackley with ``TelemetryMonitor(30)`` and donated
+carries) and path 36's fleet (16 PSO tenants of 256 on Sphere, d 64, each
+with ``TelemetryMonitor(8)``, under one vmap): the last two carry the
+telemetry ring's sums.
 
 Each turn runs in a fresh process inside one checkout: it builds that
 checkout's CUDA sources, takes the init step and one warm-up generation,
@@ -66,6 +70,36 @@ def _profile_counts(torch, wf, state, gens: int = 8) -> tuple:
     return kernels / gens, copies / gens
 
 
+def _chained_ms(torch, wf, state) -> float:
+    """As :func:`_ms`, each run starting from the last one's state (a
+    workflow with donated carries consumes its input)."""
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = wf.run(state, GENERATIONS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / GENERATIONS * 1e3)
+    return statistics.median(times)
+
+
+def _telemetry_paths(torch, chip_smoke) -> dict:
+    """Path 21 and path 36's fleet at pop 256, both carrying the
+    telemetry ring."""
+    import numpy as np
+
+    from evox_tpu_torch.workflows.elastic import ACTIVE_ROWS, BucketShape
+
+    tel = chip_smoke.build_telemetry_path(torch)
+    out = {"telemetry": _chained_ms(torch, tel, tel.step(tel.step(tel.init(11))))}
+    width = chip_smoke.EL_WIDTH
+    fleet = chip_smoke.elastic_factory(torch)(BucketShape(256, chip_smoke.EL_DIM, width))
+    state = fleet.init(list(range(width)),
+                       hyperparams={ACTIVE_ROWS: np.full((width,), 256, np.int32)})
+    out["elastic_fleet"] = _chained_ms(torch, fleet, fleet.run(state, 2))
+    return out
+
+
 def _host_paths(torch, chip_smoke) -> dict:
     """Path 16 piped (``run_host_pipelined``) and serial (ask, evaluate,
     tell on the calling thread, ``bench.py:676-706``)."""
@@ -116,6 +150,7 @@ def measure(tree: Path) -> dict:
     out["islands_kernels_per_gen"], out["islands_dtoh_per_gen"] = _profile_counts(
         torch, islands, warm)
     out.update(_host_paths(torch, chip_smoke))
+    out.update(_telemetry_paths(torch, chip_smoke))
     return out
 
 
