@@ -401,10 +401,12 @@ exit 0):
    the batches' rows against a CPU loader's, losses against the CPU, the
    mean loss falling, accuracy on 10000 held-out rows through
    ``StdWorkflow.validate`` and a metric view. Main path 35: the thread
-   farm (8 threads, both placements) and the process farm (4 spawned
-   workers) on a gymnasium-API cartpole (pop 1024, cap 200): process
-   against thread farm bit for bit, clean and with a worker killed
-   mid-generation, ``FarmDegradedError`` under the floor, 5 generations
+   farm (8 threads, both placements, the policy on the card in both,
+   warmed and timed in turns; the per-worker one's returns against its
+   CPU twin's on the same seeds, reported) and the process farm (4
+   spawned workers) on a gymnasium-API cartpole (pop 1024, cap 200):
+   process against the thread farm's CPU twin bit for bit, clean and with
+   a worker killed mid-generation, ``FarmDegradedError`` under the floor, 5 generations
    through ``run_host_pipelined`` with the ``farm/*`` counter tracks in a
    Chrome trace; every worker joined.
 25. main path 36: ``bench.py:1177-1400``'s ``serving_elastic`` leg,
@@ -452,10 +454,31 @@ exit 0):
    and the trace's ``supervisor:pod:*`` markers through
    ``tools/check_report.py``; ms a generation pod-supervised against bare,
    in turns.
-27. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
-   B1 on paths 1, 12 and 38, the mountain car phase and path 33's
+27. main path 41: path 2 (NSGA-II on LSMOP1, pop 10000, d 300,
+   ``use_kernel=True``) for 20 generations from ``init`` under
+   ``EvoXVisMonitor(batch_size=8, record_population=True)``,
+   ``EvalMonitor(full_fit_history=True, full_sol_history=True)`` and
+   ``PopMonitor(fitness_only=True)``: the final state bit for bit with the
+   unmonitored twin's, the Arrow file read back (one row an evaluation,
+   every row's bytes equal to the EvalMonitor's histories, the JAX
+   package's schema and metadata), B3 and B4 as on path 2 plus the
+   archive's B3, ``plotly_json``'s 3-D figure (one frame a generation) by
+   ``save_html``, ``PopMonitor.plot`` where matplotlib is installed; ms a
+   generation bare against the monitor alone in turns; the hook's host
+   ms; MB written a second. Main path
+   42: LES meta-training at the JAX package's configuration (outer OpenES
+   pop 64, 10 tasks, inner LES pop 16 at d 8, 40 generations), one
+   meta-step on the card against the CPU on the same draws, one profiled
+   meta-step's draw launches and device-to-host copies, 20 timed
+   meta-steps, the held-out mean log10-gap at generation 0 and 20 and of
+   the bundled parameters, the trained center through ``LES(params=...)``
+   on a held-out task. Main path 43: every optimizer's 20 updates of a
+   20945-vector on the card against the CPU; OpenES with adamw on path 1
+   in turns with sgd.
+28. a ``{"kernels": [...]}`` line (B1-B4, D1 and M1 with their call sites:
+   B1 on paths 1, 12, 38 and 43, the mountain car phase and path 33's
    cross-check, B2 on paths 3, 6 and
-   13, B3 and B4 on paths 18, 22 and 40 too, B3 on paths 20 and 27, B4 batched
+   13, B3 and B4 on paths 18, 22, 40 and 41 too, B3 on paths 20 and 27, B4 batched
    on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
    and MO islands, ``packed_dominance_batched`` on the MO islands, D1 on
    path 26, ``packed_dominance_rows`` on path 31, ``smallmm`` on paths 28
@@ -670,6 +693,30 @@ DS_GENERATIONS, DS_LR, DS_SIGMA, DS_CHECK_ROWS = 20, 0.01, 0.02, 256
 # take seconds), 5 through run_host_pipelined
 FARM_POP, FARM_CAP, FARM_THREADS, FARM_PROCS, FARM_GENERATIONS = 1024, 200, 8, 4, 2
 FARM_PIPELINED = 5
+# the thread farm's two placements on the card, each warmed by one
+# generation, then 4 turns (lockstep, per-worker, per-worker, lockstep) of
+# one generation each on the same seeds, the last per-worker one against
+# its CPU twin
+FARM_TURN_GENERATIONS = 1
+# main path 41: path 2 streamed to EvoXVis (20 generations, batches of 8)
+VIS_GENERATIONS = 20
+# main path 42: LES meta-training at the JAX package's configuration, 20
+# meta-steps; 50 held-out tasks; a meta-step's task draws (type, shift,
+# rotation, alphas, teacher) and the card-against-CPU tolerances: the
+# 64 meta-fitnesses are means of log10-gaps after 40 inner generations, in
+# which float32 sums in other orders grow through rastrigin's cos(2 pi y)
+# and the rank features. The limits sit between the sound card's reading
+# and a control's: the same meta-step with the operands of task_eval's
+# rotation product rounded to TF32's 10-bit mantissa, which must fail them
+# (switching TF32 on in cuBLAS leaves this step bit for bit: its small
+# batched products do not take TF32's tensor-core path). The center's
+# limit holds while no two candidates swap ranks; a swap (fitnesses within
+# LM_FIT_ATOL of a tie) moves the center by lr * |noise| / 63 / (64 *
+# std), ~1.5e-4 a unit of noise, and then LM_CENTER_FLIP_ATOL holds
+LM_GENERATIONS, LM_HELD_OUT, LM_TASK_DRAWS = 20, 50, 5
+LM_FIT_ATOL, LM_CENTER_ATOL, LM_CENTER_FLIP_ATOL = 1e-4, 1e-5, 2e-3
+# main path 43: every optimizer's 20 updates of a walker-sized vector
+OPT_DIM, OPT_UPDATES, OPT_TOL = 20945, 20, 1e-5
 # B3's rows form: (n, m, shards); path 31's merged n 20000 on 8 shards, and
 # shapes whose n is not a multiple of 32 * shards
 PATH31_SHARDS = 8
@@ -829,7 +876,7 @@ def compare(name: str, got, want, rtol: float, atol: float) -> dict:
 
 
 def build_b1_path(torch, soa, hidden: int = 16, pop: int = 65536, early_exit: bool = True,
-                  device=None):
+                  device=None, optimizer=None):
     """A B1 path as a user builds it: ``StdWorkflow(OpenES(zeros(dim), pop),
     PolicyRolloutProblem(flat_mlp_policy obs-hidden-act, soa.base, 2
     episodes, fused_env=soa))``; returns ``(workflow, make_problem)``.
@@ -861,7 +908,8 @@ def build_b1_path(torch, soa, hidden: int = 16, pop: int = 65536, early_exit: bo
         def post_eval(self, mstate, cand, fitness):
             return mstate + ((fitness.mean(), torch.isfinite(fitness).all()),)
 
-    algo = OpenES(torch.zeros(dim), pop, learning_rate=0.05, noise_stdev=0.05, device=device)
+    algo = OpenES(torch.zeros(dim), pop, learning_rate=0.05, noise_stdev=0.05,
+                  optimizer=optimizer, device=device)
     wf = StdWorkflow(algo, make_problem(True), monitors=[FitnessRecorder()], opt_direction="max",
                      device=device)
     return wf, make_problem
@@ -7669,8 +7717,12 @@ def farm_helpers():
 
 def phase_farm_path(torch, seed: int = SEED, out_dir: str = "chiprun_out", device=None) -> dict:
     """Main path 35: the rollout farms on a gymnasium-API cartpole, pop
-    1024, cap 200. ``HostRolloutFarm`` with 8 threads in both placements
-    (the lockstep policy on the card), ``FARM_GENERATIONS`` timed;
+    1024, cap 200. ``HostRolloutFarm`` with 8 threads in both placements,
+    the policy on the card in both, each warmed by one generation and then
+    timed in turns on the same seeds (lockstep, per-worker, per-worker,
+    lockstep), the per-worker placement's returns against its CPU twin's on
+    the same seeds (the share of equal episodes and the largest difference
+    of the means, reported);
     ``ProcessRolloutFarm`` with 4 spawned local workers, whose fitness must
     equal ``HostRolloutFarm(batch_policy=False)``'s with 4 workers bit for
     bit on the same injected seed, timed likewise, then 5 generations of
@@ -7713,21 +7765,55 @@ def phase_farm_path(torch, seed: int = SEED, out_dir: str = "chiprun_out", devic
         fits = [farm.evaluate(None, pop)[0] for _ in range(FARM_GENERATIONS)]
         return (time.perf_counter() - t0) * 1e3 / FARM_GENERATIONS, fits[-1]
 
-    def twin(rng_seed):
+    def twin(rng_seed, workers=FARM_PROCS, device="cpu"):
         farm = HostRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole,
-                               num_workers=FARM_PROCS, batch_policy=False,
-                               cap_episode=FARM_CAP, device="cpu")
+                               num_workers=workers, batch_policy=False,
+                               cap_episode=FARM_CAP, device=device)
         farm._seed_rng = np.random.default_rng(rng_seed)
         return farm
 
+    def turn(farm):
+        """One turn of a placement on the card from the same seed
+        generator: its ms a generation and every generation's returns."""
+        farm._seed_rng = np.random.default_rng(seed + 350)
+        t0 = time.perf_counter()
+        fits = [farm.evaluate(None, pop)[0] for _ in range(FARM_TURN_GENERATIONS)]
+        return (time.perf_counter() - t0) * 1e3 / FARM_TURN_GENERATIONS, fits
+
     try:
         reset_launches()
-        for name, batch_policy in (("lockstep", True), ("per_worker", False)):
-            farm = HostRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole,
-                                   num_workers=FARM_THREADS, batch_policy=batch_policy,
-                                   cap_episode=FARM_CAP, device=dev if batch_policy else "cpu")
-            ms, fit = timed(farm)
-            out[f"thread_{name}"] = {"ms_per_generation": ms, "mean_return": float(fit.mean())}
+        farms = {"lockstep": HostRolloutFarm(helpers.flat_policy, helpers.ScalarCartPole,
+                                             num_workers=FARM_THREADS, batch_policy=True,
+                                             cap_episode=FARM_CAP, device=dev),
+                 "per_worker": twin(seed + 350, FARM_THREADS, dev)}
+        for farm in farms.values():  # the warm-up: the card's first calls
+            turn(farm)
+        turns = {"lockstep": [], "per_worker": []}
+        fits = {}
+        for name in ("lockstep", "per_worker", "per_worker", "lockstep"):
+            ms, fits[name] = turn(farms[name])
+            turns[name].append(ms)
+        for name, key in (("lockstep", "thread_lockstep"), ("per_worker", "thread_per_worker")):
+            out[key] = {"ms_per_generation": statistics.mean(turns[name]),
+                        "mean_return": float(fits[name][-1].mean()), "placement": str(dev),
+                        "turns_ms": turns[name]}
+        card_fits = fits["per_worker"]
+        # the same seeds and genomes through the CPU twin: the card's policy
+        # rounds its dot products otherwise, and a cartpole action is an
+        # argmax that an ulp can flip, so this is reported, not gated
+        cpu_farm = twin(seed + 350, FARM_THREADS, "cpu")
+        cpu_fits = [cpu_farm.evaluate(None, pop)[0] for _ in range(FARM_TURN_GENERATIONS)]
+        out["per_worker_card_vs_cpu"] = {
+            "episodes": int(sum(f.size for f in cpu_fits)),
+            "equal_share": float(np.mean(np.concatenate(
+                [a == b for a, b in zip(card_fits, cpu_fits)]))),
+            "max_mean_diff": float(max(abs(float(a.mean()) - float(b.mean()))
+                                       for a, b in zip(card_fits, cpu_fits))),
+            "gated": False,
+        }
+        print(f"[path 35] per-worker placement on {dev} against its CPU twin, same seeds "
+              f"(reported, not gated: an ulp can flip a cartpole action): "
+              f"{json.dumps(out['per_worker_card_vs_cpu'])}", flush=True)
         clean.bind(timeout=120.0)
         chaos.bind(timeout=120.0)
         out["spawn_to_bound_s"] = time.perf_counter() - t_spawn
@@ -8834,6 +8920,453 @@ def phase_pod_supervised_nsga2(torch, seed: int = SEED, device=None) -> dict:
     return out
 
 
+# ------------------------------------------------- main paths 41, 42 and 43
+
+
+def build_vis_path(torch, monitors=(), pop: int = NSGA2_POP, device=None):
+    """Main path 41's workflow: path 2's configuration (NSGA-II on LSMOP1,
+    d 300, m 3, ``use_kernel=True``) under ``monitors``."""
+    from evox_tpu_torch import StdWorkflow
+    from evox_tpu_torch.algorithms.mo import NSGA2
+    from evox_tpu_torch.problems.numerical import LSMOP1
+
+    prob = LSMOP1(d=LSMOP_D, m=LSMOP_M, device=device)
+    algo = NSGA2(*prob.bounds(), n_objs=LSMOP_M, pop_size=pop, use_kernel=True, device=device)
+    return StdWorkflow(algo, prob, monitors=list(monitors), device=device)
+
+
+class _HookTimer:
+    """Host seconds spent inside an ``EvoXVisMonitor``'s hook and its close
+    (``seconds``), and within them in its copies into host buffers (the
+    buffers' allocation included) and its batch writes (``split``), by
+    wrapping the methods on the instance."""
+
+    def __init__(self, mon):
+        self.seconds = 0.0
+        self.split = {"copy": 0.0, "write": 0.0}
+        for name, key in (("post_eval", None), ("close", None), ("_copy", "copy"),
+                          ("_write", "write")):
+            raw = getattr(mon, name)
+
+            def timed(*args, _raw=raw, _key=key, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return _raw(*args, **kwargs)
+                finally:
+                    if _key is None:
+                        self.seconds += time.perf_counter() - t
+                    else:
+                        self.split[_key] += time.perf_counter() - t
+
+            setattr(mon, name, timed)
+
+    def ms_per_generation(self, gens: int) -> dict:
+        return {"hook": self.seconds * 1e3 / gens,
+                **{k: v * 1e3 / gens for k, v in self.split.items()}}
+
+
+def phase_vis_path(torch, seed: int = SEED, gens: int = VIS_GENERATIONS, pop: int = NSGA2_POP,
+                   out_dir: str = "chiprun_out", device=None) -> dict:
+    """Main path 41: path 2 streamed to EvoXVis. One run of ``gens``
+    generations from ``init`` under ``EvoXVisMonitor(batch_size=8,
+    record_population=True)``, ``EvalMonitor(full_fit_history=True,
+    full_sol_history=True)`` (which sees the same ``post_eval`` arguments)
+    and ``PopMonitor(fitness_only=True)``, launch counts set to 0 just
+    before and read just after, against the unmonitored twin. Gates: the
+    final state bit for bit with the twin's; the Arrow file read back (one
+    row an evaluation, generations 0..n-1, every row's fitness and
+    population bytes equal to the EvalMonitor's histories, the JAX
+    package's schema and metadata, batches of 8); B3 and B4 as on path 2,
+    plus the EvalMonitor archive's one B3 a generation; ``plotly_json``'s 3-D
+    figure of the history, one frame a generation, written by ``save_html``
+    into ``out_dir``; ``PopMonitor.plot()`` where matplotlib is installed
+    (else its ``ImportError``). Then ms a generation bare against the vis
+    monitor alone, in turns; the hook's host ms a generation; MB written a
+    second. The Arrow files (~12 MB a generation) go to a temporary
+    directory."""
+    import importlib.util
+    import tempfile
+
+    import pyarrow as pa
+
+    from evox_tpu_torch.monitors import EvalMonitor, EvoXVisMonitor, PopMonitor
+    from evox_tpu_torch.vis_tools import plotly_json
+
+    dev = torch.device("cuda" if device is None else device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"pop": pop, "dim": LSMOP_D, "m": LSMOP_M, "generations": gens, "batch_size": 8}
+    tmp = tempfile.TemporaryDirectory()
+
+    def run(monitors):
+        wf = build_vis_path(torch, monitors, pop, dev)
+        state = wf.init(seed)
+        sync()
+        t0 = time.perf_counter()
+        state = wf.run(state, gens)
+        sync()
+        return state, time.perf_counter() - t0
+
+    try:
+        run(())  # warm-up: first-use library loads at these shapes
+        bare_state, _ = run(())
+        vis = EvoXVisMonitor(base_filename="path41", out_dir=tmp.name, batch_size=8,
+                             record_population=True)
+        hist = EvalMonitor(full_fit_history=True, full_sol_history=True, device=dev)
+        popmon = PopMonitor(fitness_only=True)
+        timer = _HookTimer(vis)
+        reset_launches()
+        state, wall = run((vis, hist, popmon))
+        launches = read_launches()
+        vis.close()
+        reset_launches()
+        run(())
+        bare_launches = read_launches()
+        # as on path 18 from init: B3 a generation, B4 a tell but the first
+        if not (bare_launches["packed_dominance"] == gens
+                and bare_launches["partial_topk"] == gens - 1
+                and launches["packed_dominance"] == bare_launches["packed_dominance"] + gens
+                and launches["partial_topk"] == bare_launches["partial_topk"]
+                and launches["fused_rollout"] == launches["fused_mlp_rollout"] == 0):
+            raise AssertionError(f"path 41 launches: monitored {launches}, bare {bare_launches}")
+        out["launches"] = launches
+        out["bare_launches"] = bare_launches
+        out["state_vs_twin"] = compare_exact(
+            "path 41: the final state under the monitors against the unmonitored twin's",
+            _tensor_leaves(torch, state.algo), _tensor_leaves(torch, bare_state.algo))
+
+        # the Arrow file against the EvalMonitor's histories
+        with pa.OSFile(str(vis.path), "rb") as f:
+            reader = pa.ipc.open_file(f)
+            schema = reader.schema
+            batches = [reader.get_batch(i) for i in range(reader.num_record_batches)]
+        table = pa.Table.from_batches(batches)
+        fits, sols = hist.get_fitness_history(), hist.get_solution_history()
+        meta = {k.decode(): v.decode() for k, v in schema.metadata.items()}
+        want_fields = [("generation", pa.uint64()), ("fitness", pa.binary()),
+                       ("population", pa.binary()), ("duration", pa.float64())]
+        rows_equal = all(
+            table.column("fitness")[i].as_py() == fits[i].numpy().tobytes()
+            and table.column("population")[i].as_py() == sols[i].numpy().tobytes()
+            for i in range(table.num_rows))
+        if not ([(f.name, f.type) for f in schema] == want_fields
+                and set(meta) == {"population_size", "fitness_dtype", "population_dtype",
+                                  "begin_time"}
+                and meta["population_size"] == str(pop) and meta["fitness_dtype"] == "float32"
+                and meta["population_dtype"] == "float32"
+                and table.num_rows == len(fits) == gens
+                and table.column("generation").to_pylist() == list(range(gens))
+                and [b.num_rows for b in batches] == [8] * (gens // 8) + [gens % 8] * bool(gens % 8)
+                and rows_equal):
+            raise AssertionError(f"path 41: the Arrow file: {schema}, {meta}, "
+                                 f"{table.num_rows} rows, rows equal {rows_equal}")
+        file_bytes = vis.path.stat().st_size
+        out["arrow"] = {"rows": table.num_rows, "batches": [b.num_rows for b in batches],
+                        "bytes": file_bytes, "metadata": {k: v for k, v in meta.items()
+                                                          if k != "begin_time"},
+                        "rows_equal_eval_monitor": rows_equal}
+        print(f"[path 41] the Arrow file read back: {json.dumps(out['arrow'])}", flush=True)
+        out["monitored_ms_per_generation"] = wall * 1e3 / gens
+        out["hook_host_ms_per_generation"] = timer.ms_per_generation(gens)
+
+        # the figures
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        fig = plotly_json.plot_obj_space_3d(fits)
+        html = Path(out_dir) / "path41_obj_space_3d.html"
+        plotly_json.save_html(fig, str(html), title="path 41: NSGA-II on LSMOP1")
+        if len(fig["frames"]) != gens or not html.stat().st_size:
+            raise AssertionError(f"path 41: {len(fig['frames'])} frames, {html}")
+        out["plotly"] = {"frames": len(fig["frames"]), "html": str(html),
+                         "html_bytes": html.stat().st_size}
+        if importlib.util.find_spec("matplotlib") is None:
+            try:
+                popmon.plot()
+            except ImportError as e:
+                out["pop_monitor_plot"] = f"matplotlib is not installed: {e}"
+            else:
+                raise AssertionError("path 41: PopMonitor.plot drew without matplotlib")
+            print("[path 41] matplotlib is not installed: PopMonitor.plot raised ImportError; "
+                  "only the plotly JSON figure was rendered", flush=True)
+        else:
+            png = Path(out_dir) / "path41_pop_monitor.png"
+            popmon.plot().savefig(png)
+            out["pop_monitor_plot"] = str(png)
+
+        # the cost: bare against the vis monitor alone, in turns
+        turns = {"bare": [], "vis": []}
+        hook_ms = []
+        mb_per_s = []
+        for kind in ("bare", "vis", "vis", "bare"):
+            if kind == "bare":
+                _, wall = run(())
+            else:
+                mon = EvoXVisMonitor(base_filename="turn", out_dir=tmp.name,
+                                     batch_size=8, record_population=True)
+                timer = _HookTimer(mon)
+                t0 = time.perf_counter()
+                _, _ = run((mon,))
+                mon.close()
+                wall = time.perf_counter() - t0  # the run and the last batch's write
+                hook_ms.append(timer.ms_per_generation(gens))
+                mb_per_s.append(mon.path.stat().st_size / 1e6 / wall)
+                mon.path.unlink()
+            turns[kind].append(wall * 1e3 / gens)
+        out["turns_ms_per_generation"] = turns
+        out["hook_host_ms_per_generation_turns"] = hook_ms
+        out["mb_written_per_s"] = mb_per_s
+    finally:
+        tmp.cleanup()
+    print(f"[path 41] {json.dumps(out)}", flush=True)
+    return out
+
+
+def _round_tf32(torch, t):
+    """``t`` rounded to nearest on TF32's 10-bit mantissa, as a TF32
+    tensor core reads a float32 operand (pointwise: it runs under vmap)."""
+    mag = t.abs()
+    live = mag > 0
+    step = torch.exp2(torch.floor(torch.log2(torch.where(live, mag, torch.ones_like(mag)))) - 10)
+    return torch.where(live, torch.round(t / step) * step, t)
+
+
+def phase_les_meta_path(torch, seed: int = SEED, gens: int = LM_GENERATIONS,
+                        out_dir: str = "chiprun_out", device=None) -> dict:
+    """Main path 42: LES meta-training at the JAX package's configuration
+    (outer OpenES pop 64 over the 214 parameters, 10 tasks a meta-step,
+    inner LES pop 16 at d 8 for 40 generations: 640 LES runs a meta-step),
+    ``gens`` meta-steps from seed 0 after one warm-up meta-step. Gates: one
+    meta-step on the card against the same meta-step on the CPU, every draw
+    made once on the CPU (the 64 meta-fitnesses within ``LM_FIT_ATOL``,
+    the new center within ``LM_CENTER_ATOL``, or ``LM_CENTER_FLIP_ATOL``
+    where two candidates swap ranks), and the same meta-step with the
+    rotation product's operands rounded to TF32 failing those limits (the
+    control); one profiled meta-step's
+    draw launches within 40 + the tasks' own and no device-to-host copy;
+    the trained center, unravelled, runs ``LES(params=...)`` through a
+    ``StdWorkflow`` on a held-out task. Reports ms an outer generation
+    (CUDA events) and its kernel launches, the mean log10-gap on 50 fixed
+    held-out tasks of the center at generation 0 and at ``gens`` and of
+    the bundled parameters; the trained vector is saved into ``out_dir``."""
+    import numpy as np
+
+    from evox_tpu_torch import Problem, StdWorkflow
+    from evox_tpu_torch.algorithms.so.es import LES, les_meta
+    from evox_tpu_torch.monitors import EvalMonitor
+
+    dev = torch.device("cuda" if device is None else device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    trainer = les_meta.MetaTrainer(seed, device=dev)
+    ostate, step_seed = trainer.init()
+    center0 = ostate.center.clone()
+    held = les_meta.sample_tasks(seed + 4242, LM_HELD_OUT, les_meta.META_DIM, dev)
+    held["type"] = torch.arange(LM_HELD_OUT, dtype=torch.int32, device=dev) % les_meta.N_FAMILIES
+    held_noise = torch.randn((les_meta.INNER_GENS, LM_HELD_OUT, les_meta.INNER_POP,
+                              les_meta.META_DIM),
+                             generator=torch.Generator(device=dev).manual_seed(seed + 4243),
+                             device=dev)
+    out = {"outer_pop": les_meta.OUTER_POP, "tasks": les_meta.TASKS_PER_GEN,
+           "inner_pop": les_meta.INNER_POP, "inner_gens": les_meta.INNER_GENS,
+           "dim": les_meta.META_DIM, "generations": gens}
+    ostate, step_seed, _ = trainer.step(ostate, step_seed)  # warm-up
+    sync()
+
+    # (a) one meta-step on the card against the CPU, every draw made once
+    # on the CPU
+    cpu = les_meta.MetaTrainer(seed, device="cpu", center_init=ostate.center.cpu())
+    tasks, noise = cpu._draw_tasks(seed + 1), cpu._draw_inner(seed + 2)
+    half = cpu.outer._draw_noise(seed + 3)
+    cpu._draw_tasks, cpu._draw_inner = (lambda s: tasks), (lambda s: noise)
+    cpu.outer._draw_noise = lambda s: half
+    card = les_meta.MetaTrainer(seed, device=dev, center_init=ostate.center)
+    card._draw_tasks = lambda s: {k: v.to(dev) for k, v in tasks.items()}
+    card._draw_inner = lambda s: noise.to(dev)
+    card.outer._draw_noise = lambda s: half.to(dev)
+    cpu_state = ostate.replace(center=ostate.center.cpu())
+    p_state, _, p_fit = cpu.step(cpu_state, step_seed)
+
+    def against_cpu(c_state, c_fit):
+        fit_err = float((c_fit.cpu() - p_fit).abs().max())
+        center_err = float((c_state.center.cpu() - p_state.center).abs().max())
+        flips = int((torch.argsort(c_fit.cpu(), stable=True)
+                     != torch.argsort(p_fit, stable=True)).sum())
+        center_atol = LM_CENTER_ATOL if flips == 0 else LM_CENTER_FLIP_ATOL
+        return {"max_fit_err": fit_err, "max_center_err": center_err,
+                "rank_positions_differing": flips, "fit_atol": LM_FIT_ATOL,
+                "center_atol": center_atol,
+                "within": fit_err <= LM_FIT_ATOL and center_err <= center_atol}
+
+    c_state, _, c_fit = card.step(ostate, step_seed)
+    out["card_vs_cpu"] = against_cpu(c_state, c_fit)
+    if cuda:  # the control: the gate must refuse a rotation product in TF32
+        sound_eval = les_meta.task_eval
+
+        def tf32_eval(task, x):
+            shift = task["shift"]
+            return sound_eval({**task, "rot": _round_tf32(torch, task["rot"])},
+                              shift + _round_tf32(torch, x - shift))
+
+        les_meta.task_eval = tf32_eval
+        try:
+            t_state, _, t_fit = card.step(ostate, step_seed)
+        finally:
+            les_meta.task_eval = sound_eval
+        out["tf32_control_vs_cpu"] = against_cpu(t_state, t_fit)
+    print(f"[path 42] one meta-step, card against CPU on the same draws (tolerance: 40 inner "
+          f"generations of float32 sums in other orders, magnified by rastrigin and the rank "
+          f"features; the TF32 control must fall outside): {json.dumps(out['card_vs_cpu'])}, "
+          f"control {json.dumps(out.get('tf32_control_vs_cpu'))}", flush=True)
+    if not out["card_vs_cpu"]["within"] or out.get("tf32_control_vs_cpu", {}).get("within"):
+        raise AssertionError(f"path 42: card against CPU: {out['card_vs_cpu']}, TF32 control "
+                             f"{out.get('tf32_control_vs_cpu')}")
+
+    # (b) one profiled meta-step: draw launches and device-to-host copies
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ostate, step_seed, _ = trainer.step(ostate, step_seed)
+            sync()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in events if "Memcpy" not in e.name and "Memset" not in e.name]
+        draws = [e for e in kernels if "distribution" in e.name]
+        dtoh = [e for e in events if "DtoH" in e.name or "Device -> Host" in e.name]
+        readers = sorted({c.name for c in prof.events()
+                          if any("DtoH" in k.name for k in getattr(c, "kernels", []))})
+        out["profiled_meta_step"] = {"kernels": len(kernels), "draw_kernels": len(draws),
+                                     "dtoh_copies": len(dtoh), "dtoh_ops": readers}
+        print(f"[path 42] one meta-step profiled: {json.dumps(out['profiled_meta_step'])}",
+              flush=True)
+        if len(draws) > les_meta.INNER_GENS + LM_TASK_DRAWS or dtoh:
+            raise AssertionError(f"path 42: draws or host reads: {out['profiled_meta_step']}")
+
+    # the timed meta-steps
+    sync()
+    if cuda:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for _ in range(gens):
+        ostate, step_seed, fit = trainer.step(ostate, step_seed)
+    if cuda:
+        stop.record()
+    sync()
+    wall = time.perf_counter() - t0
+    out["ms_per_outer_generation"] = (start.elapsed_time(stop) if cuda else wall * 1e3) / gens
+    out["wall_ms_per_outer_generation"] = wall * 1e3 / gens
+    out["projected_s_for_4000"] = out["ms_per_outer_generation"] * les_meta.OUTER_GENS / 1e3
+    out["best_meta_fitness_last"] = float(fit.min())
+
+    # held-out: the center at generation 0 and now, the bundled parameters
+    bundled = torch.from_numpy(np.load(les_meta.PARAMS_PATH)["flat"]).to(dev)
+    scores = trainer.meta_fitness(torch.stack([center0, ostate.center, bundled]), held,
+                                  held_noise).cpu()
+    out["held_out_mean_log10_gap"] = {"generation_0": float(scores[0]),
+                                      f"generation_{gens}": float(scores[1]),
+                                      "bundled": float(scores[2]), "tasks": LM_HELD_OUT}
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    saved = Path(out_dir) / "path42_les_params.npz"
+    les_meta.save_params(ostate.center, saved)
+    out["saved"] = str(saved)
+
+    # (c) the trained center drives LES on a held-out task
+    task = {k: v[1] for k, v in held.items()}
+
+    class TaskProblem(Problem):
+        def evaluate(self, state, pop):
+            return les_meta.task_eval(task, pop), state
+
+    mon = EvalMonitor(device=dev)
+    algo = LES(torch.zeros(les_meta.META_DIM), pop_size=les_meta.INNER_POP,
+               params=les_meta.unravel(ostate.center), device=dev)
+    wf = StdWorkflow(algo, TaskProblem(), monitors=[mon], device=dev)
+    state = wf.step(wf.init(seed))
+    first = float(mon.get_best_fitness(state.monitors[0]))
+    state = wf.run(state, les_meta.INNER_GENS - 1)
+    best = float(mon.get_best_fitness(state.monitors[0]))
+    if not (math.isfinite(best) and best <= first and bool(torch.isfinite(state.algo.mean).all())):
+        raise AssertionError(f"path 42: LES(params=trained) on a held-out task: {first} -> {best}")
+    out["les_on_held_out_task"] = {"family": int(task["type"]), "best_first": first,
+                                   "best_last": best}
+    print(f"[path 42] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_optimizers_path(torch, seed: int = SEED, device=None) -> dict:
+    """Main path 43: every optimizer ``make_optimizer`` resolves, 20
+    updates of a 20945-vector (the walker's dimension) on the card against
+    the CPU on the same gradients, parameters and (noisy_sgd) noise, each
+    update within ``OPT_TOL`` of its largest entry; then OpenES on path 1
+    (pendulum, B1, pop 65536) with ``optimizer="adamw"`` against path 1's
+    sgd, in turns (sgd, adamw, adamw, sgd), ``GENERATIONS`` each after a
+    warm-up step: ms a generation, one B1 launch a generation."""
+    import warnings
+
+    from evox_tpu_torch.kernels import rollout as kr
+    from evox_tpu_torch.utils.optimizers import OPTIMIZERS, make_optimizer
+
+    dev = torch.device("cuda" if device is None else device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.Generator().manual_seed(seed + 43)
+    params0 = torch.randn(OPT_DIM, generator=g)
+    grads = [torch.randn(OPT_DIM, generator=g) * (0.5 + i % 3) for i in range(OPT_UPDATES)]
+    noise = [torch.randn(OPT_DIM, generator=g) for _ in range(OPT_UPDATES)]
+    out = {"dim": OPT_DIM, "updates": OPT_UPDATES, "tol": OPT_TOL, "optimizers": {}}
+    for name in sorted(OPTIMIZERS):
+        worst, exact = 0.0, True
+        opts = []
+        for _ in range(2):  # the CPU's, the card's
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # optimistic_adam's deprecation
+                opt = make_optimizer(name, 0.01)
+            if name == "noisy_sgd":
+                it = iter(noise)
+                opt._draw = lambda s, like, it=it: next(it).to(like.device)
+            opts.append(opt)
+        o_cpu, o_dev = opts
+        p_cpu, p_dev = params0.clone(), params0.to(dev)
+        s_cpu, s_dev = o_cpu.init(p_cpu), o_dev.init(p_dev)
+        for gr in grads:
+            u_cpu, s_cpu = o_cpu.update(gr, s_cpu, p_cpu)
+            u_dev, s_dev = o_dev.update(gr.to(dev), s_dev, p_dev)
+            u_dev = u_dev.cpu()
+            err = float((u_dev - u_cpu).abs().max())
+            scale = float(u_cpu.abs().max())
+            worst = max(worst, err / scale if scale else err)
+            exact = exact and torch.equal(u_dev.view(torch.int32), u_cpu.view(torch.int32))
+            p_cpu = p_cpu + u_cpu
+            p_dev = p_cpu.to(dev)  # both go on from the same parameters
+        out["optimizers"][name] = {"max_err_over_scale": worst, "bit_for_bit": exact}
+        if not worst <= OPT_TOL:
+            raise AssertionError(f"path 43: {name} on the card against the CPU: {worst}")
+    sync()
+    print(f"[path 43] every optimizer, {OPT_UPDATES} updates of a {OPT_DIM}-vector, card "
+          f"against CPU (tolerance {OPT_TOL} of the update's largest entry: norms and means "
+          f"sum in other orders, the card's rsqrt is not the CPU's): "
+          f"{json.dumps(out['optimizers'])}", flush=True)
+
+    turns = {"sgd": [], "adamw": []}
+    launches = {}
+    for name in ("sgd", "adamw", "adamw", "sgd"):
+        wf, _ = build_b1_path(torch, kr.pendulum_soa(max_steps=200), early_exit=False,
+                              device=dev, optimizer=None if name == "sgd" else name)
+        state = wf.step(wf.init(seed))
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = wf.run(state, GENERATIONS)
+        sync()
+        turns[name].append((time.perf_counter() - t0) * 1e3 / GENERATIONS)
+        launches[name] = read_launches()["fused_rollout"]
+        if launches[name] != GENERATIONS or not bool(torch.isfinite(state.algo.center).all()):
+            raise AssertionError(f"path 43: OpenES with {name}: {launches[name]} B1 launches")
+    out["openes_pendulum_ms_per_generation"] = turns
+    out["launches"] = launches
+    print(f"[path 43] {json.dumps({k: v for k, v in out.items() if k != 'optimizers'})}",
+          flush=True)
+    return out
+
+
 def monitor_callers(name: str, paths: dict) -> list:
     """Each call site of B3 or B4 on the main paths, with its shape and its
     launches in that path's run."""
@@ -8886,6 +9419,11 @@ def monitor_callers(name: str, paths: dict) -> list:
                            "PodSupervisor, straight run from init (path 40)",
                  "n": [NSGA2_POP, 2 * NSGA2_POP], "m": LSMOP_M,
                  "launches": paths["pod_supervised_nsga2"]["launches"][name]},
+                {"caller": "non_dominated_sort in NSGA-II's tell and in the EvalMonitor "
+                           "archive's update, under EvoXVisMonitor, straight run from init "
+                           "(path 41): one launch a generation each",
+                 "n": [NSGA2_POP, 2 * NSGA2_POP, ARCHIVE_CAP + NSGA2_POP], "m": LSMOP_M,
+                 "launches": paths["vis"]["launches"][name]},
                 {"caller": "LineageMonitor's rank-0 front in post_eval, NSGA-II on LSMOP1 "
                            "(path 27), one more launch a generation than its twin",
                  "n": NSGA2_POP, "m": LSMOP_M, "launches": paths["lineage"]["launches"],
@@ -8926,7 +9464,10 @@ def monitor_callers(name: str, paths: dict) -> list:
              "launches": paths["instrumented_nsga2"]["launches"][name]},
             {"caller": "rank_crowding_truncate in NSGA-II's tell under RunSupervisor and "
                        "PodSupervisor, straight run from init (path 40)", "n": 2 * NSGA2_POP,
-             "k": NSGA2_POP, "launches": paths["pod_supervised_nsga2"]["launches"][name]}]
+             "k": NSGA2_POP, "launches": paths["pod_supervised_nsga2"]["launches"][name]},
+            {"caller": "rank_crowding_truncate in NSGA-II's tell under EvoXVisMonitor, "
+                       "EvalMonitor and PopMonitor, straight run from init (path 41)",
+             "n": 2 * NSGA2_POP, "k": NSGA2_POP, "launches": paths["vis"]["launches"][name]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -8965,6 +9506,10 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
                        "(pop 16384 each; path 38)",
              "launches": paths["multilevel"]["launches"]["fused_rollout"],
              "b1_share_of_outer_generation": paths["multilevel"]["b1_share"]},
+            {"caller": "PolicyRolloutProblem, fused pendulum under OpenES with adamw and with "
+                       "sgd, in turns (path 43; the last turn's launches)",
+             "launches": paths["optimizers"]["launches"]["sgd"],
+             "ms_per_generation": paths["optimizers"]["openes_pendulum_ms_per_generation"]},
         ],
     }]
     for name, source, replaces in (
@@ -9389,6 +9934,14 @@ def main() -> int:
     paths["control_plane"] = phase_control_plane_path(torch)
     torch.cuda.empty_cache()
     paths["pod_supervised_nsga2"] = phase_pod_supervised_nsga2(torch)
+    # 21. main paths 41 (path 2 streamed to EvoXVis), 42 (LES meta-training
+    # at the JAX package's configuration) and 43 (every optimizer on the
+    # card against the CPU; OpenES with adamw on path 1)
+    torch.cuda.empty_cache()
+    paths["vis"] = phase_vis_path(torch)
+    torch.cuda.empty_cache()
+    paths["les_meta"] = phase_les_meta_path(torch)
+    paths["optimizers"] = phase_optimizers_path(torch)
     if "jax" in sys.modules or any(
         k == "evox_tpu" or k.startswith("evox_tpu.") for k in sys.modules
     ):
@@ -9466,6 +10019,9 @@ def main() -> int:
         "multilevel_path": paths["multilevel"],
         "control_plane_path": paths["control_plane"],
         "pod_supervised_nsga2_path": paths["pod_supervised_nsga2"],
+        "vis_path": paths["vis"],
+        "les_meta_path": paths["les_meta"],
+        "optimizers_path": paths["optimizers"],
         "phase_seconds": paths.seconds,
     }
     if args.out is not None:

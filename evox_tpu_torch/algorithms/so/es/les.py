@@ -77,6 +77,50 @@ class LESState(PyTreeNode):
     seed: int
 
 
+def les_ask(params: les_meta.Params, state: LESState,
+            noise: torch.Tensor) -> Tuple[torch.Tensor, LESState]:
+    """LES's ask as a plain function: ``mean + sigma * noise`` for
+    ``(pop, dim)`` standard normals ``noise``. :meth:`LES.ask` and the
+    meta-training (``les_meta``, batched under ``torch.func.vmap``) both
+    call it; ``params`` is unused and keeps the two steps' signatures
+    alike."""
+    pop = state.mean + state.sigma * noise
+    return pop, state.replace(population=pop)
+
+
+def les_tell(params: les_meta.Params, state: LESState, fitness: torch.Tensor,
+             timescales: torch.Tensor) -> LESState:
+    """LES's tell as a plain function of the networks' ``params``, the
+    state and the ``(pop,)`` fitness; ``timescales`` is the ``(3, 1)``
+    float32 tensor of the paths' decays (0.1, 0.5, 0.9) on the state's
+    device, made once by the caller. :meth:`LES.tell` and the
+    meta-training both call it."""
+    pop = state.population
+    pop_size = fitness.shape[-1]
+    # fitness features: z-score (std with ddof 0), centred rank, best flag
+    zscore = (fitness - torch.mean(fitness)) / (torch.std(fitness, correction=0) + 1e-8)
+    ranks = torch.argsort(torch.argsort(fitness, stable=True), stable=True).to(torch.float32)
+    crank = ranks / (pop_size - 1) - 0.5
+    best = (ranks == 0).to(torch.float32)
+    feats = torch.stack([zscore, crank, best], dim=-1)
+    w = attention_weights(params["weights"], feats)
+    weighted_mean = w @ pop
+    weighted_std = torch.sqrt(w @ (pop - state.mean) ** 2 + 1e-12)
+    dm = weighted_mean - state.mean
+    ds = weighted_std - state.sigma
+    path_mean = timescales * state.path_mean + (1 - timescales) * dm
+    path_sigma = timescales * state.path_sigma + (1 - timescales) * ds
+    lrs = lr_modulator(params["lr"], torch.cat([path_mean, path_sigma], dim=0).T)
+    mean = state.mean + lrs[:, 0] * dm
+    sigma = torch.clamp_min(state.sigma + lrs[:, 1] * ds, 1e-8)
+    return state.replace(mean=mean, sigma=sigma, path_mean=path_mean, path_sigma=path_sigma)
+
+
+def timescales(device: torch.device) -> torch.Tensor:
+    """The evolution paths' decays as :func:`les_tell` takes them."""
+    return torch.tensor([0.1, 0.5, 0.9], device=device)[:, None]
+
+
 class LES(Algorithm):
     def __init__(
         self,
@@ -92,7 +136,7 @@ class LES(Algorithm):
         self.dim = int(self.center_init.shape[0])
         self.init_stdev = float(init_stdev)
         self.pop_size = pop_size
-        self.timescales = torch.tensor([0.1, 0.5, 0.9], device=self.device)[:, None]
+        self.timescales = timescales(self.device)
         if isinstance(params, str) and params == "auto":
             params = les_meta.load_params(device=self.device)
             if params is None:
@@ -121,25 +165,8 @@ class LES(Algorithm):
 
     def ask(self, state: LESState) -> Tuple[torch.Tensor, LESState]:
         seed, k = split_seed(state.seed)
-        pop = state.mean + state.sigma * self._draw(k)
-        return pop, state.replace(population=pop, seed=seed)
+        pop, state = les_ask(self.params, state, self._draw(k))
+        return pop, state.replace(seed=seed)
 
     def tell(self, state: LESState, fitness: torch.Tensor) -> LESState:
-        pop = state.population
-        # fitness features: z-score (std with ddof 0), centred rank, best flag
-        zscore = (fitness - torch.mean(fitness)) / (torch.std(fitness, correction=0) + 1e-8)
-        ranks = torch.argsort(torch.argsort(fitness, stable=True), stable=True).to(torch.float32)
-        crank = ranks / (self.pop_size - 1) - 0.5
-        best = (ranks == 0).to(torch.float32)
-        feats = torch.stack([zscore, crank, best], dim=-1)
-        w = attention_weights(self.params["weights"], feats)
-        weighted_mean = w @ pop
-        weighted_std = torch.sqrt(w @ (pop - state.mean) ** 2 + 1e-12)
-        dm = weighted_mean - state.mean
-        ds = weighted_std - state.sigma
-        path_mean = self.timescales * state.path_mean + (1 - self.timescales) * dm
-        path_sigma = self.timescales * state.path_sigma + (1 - self.timescales) * ds
-        lrs = lr_modulator(self.params["lr"], torch.cat([path_mean, path_sigma], dim=0).T)
-        mean = state.mean + lrs[:, 0] * dm
-        sigma = torch.clamp_min(state.sigma + lrs[:, 1] * ds, 1e-8)
-        return state.replace(mean=mean, sigma=sigma, path_mean=path_mean, path_sigma=path_sigma)
+        return les_tell(self.params, state, fitness, self.timescales)

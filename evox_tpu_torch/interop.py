@@ -5,8 +5,9 @@ The functions here take the JAX package's states *as numpy arrays* — e.g.
 port's states from them, so both packages can start from the same point.
 They read attributes by name and never import the JAX package.
 
-What crosses unchanged: OpenES centers, the optimizer state (sgd's is
-empty; adam's holds count, mu and nu), the GA-skeleton MO states
+What crosses unchanged: OpenES centers, the optimizer state of every
+port of an optax optimizer (field by field by optax's names, through
+``optimizer_state``), the GA-skeleton MO states
 (population, fitness, offspring; NSGA-II's rank and crowd too), the CSO
 and PSO-family states (every field the two states share by name), the
 EvalMonitor state, the states of the rest of the ES family (CMA-ES,
@@ -74,7 +75,6 @@ from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
 from .monitors.telemetry import TelemetryMonitor, TelemetryState
 from .problems.neuroevolution.rollout import PolicyRolloutProblem, RolloutState
 from .utils.common import split_seed, tree_map
-from .utils.optimizers import SGD, Adam, AdamState, ClipUp, ClipUpState
 from .workflows.islands import IslandWorkflow, IslandWorkflowState
 from .workflows.std import StdWorkflow, StdWorkflowState
 from .workflows.surrogate import SurrogateState, SurrogateWorkflow, SurrogateWorkflowState
@@ -117,26 +117,54 @@ def mlp_params(tree: Any, device: DeviceLike = None) -> list:
     return out
 
 
-def _adam_leaf(opt_state: Any) -> Any:
-    """optax's ScaleByAdamState inside an adam chain state."""
-    for part in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
-        if all(hasattr(part, name) for name in ("count", "mu", "nu")):
-            return part
-    raise ValueError("no adam (count, mu, nu) state in the given optimizer state")
+def _optax_fields(opt_state: Any, out: Optional[dict] = None) -> dict:
+    """Every named field of an optax state (a chain's tuple of named
+    tuples, masked states nested), first occurrence of a name kept."""
+    out = {} if out is None else out
+    if hasattr(opt_state, "_fields"):
+        for name in opt_state._fields:
+            value = getattr(opt_state, name)
+            if hasattr(value, "_fields") or (isinstance(value, tuple) and value
+                                             and hasattr(value[0], "_fields")):
+                _optax_fields(value, out)  # a nested state, or a chain's states
+            else:
+                out.setdefault(name, value)
+    elif isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            _optax_fields(part, out)
+    return out
 
 
 def optimizer_state(optimizer: Any, opt_state: Any, device: torch.device) -> Any:
-    """The port's optimizer state for ``optimizer`` from an optax state."""
-    if isinstance(optimizer, SGD):
-        return ()
-    if isinstance(optimizer, ClipUp):
-        velocity = opt_state.velocity
-        return ClipUpState(velocity=torch.from_numpy(np.array(velocity, dtype=np.float32)).to(device))
-    if isinstance(optimizer, Adam):
-        leaf = _adam_leaf(opt_state)
-        as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
-        return AdamState(count=int(np.asarray(leaf.count)), mu=as_t(leaf.mu), nu=as_t(leaf.nu))
-    raise NotImplementedError(f"no carry-over for {type(optimizer).__name__}")
+    """The port's optimizer state for ``optimizer`` from an optax state
+    (numpy leaves). The port's state fields carry optax's field names, so
+    each is taken by name: arrays as float tensors (the port's dtype),
+    counts as ints, flags as bools; SM3's one-axis accumulator list gives
+    its one vector. A field optax has no counterpart of (``noisy_sgd``'s
+    seed: optax holds a key) keeps the port's fresh value."""
+    fields = _optax_fields(opt_state)
+    vectors = [np.asarray(v) for v in fields.values()
+               if not isinstance(v, (list, tuple)) and np.asarray(v).ndim >= 1]
+    shape = vectors[0].shape if vectors else (0,)
+    fresh = optimizer.init(torch.zeros(shape, device=device))
+    if not dataclasses.is_dataclass(fresh):
+        return fresh  # an empty state: sgd without momentum, sign_sgd, fromage
+    carried = {}
+    for f in dataclasses.fields(fresh):
+        ours = getattr(fresh, f.name)
+        if f.name not in fields or ours is None:
+            continue
+        theirs = fields[f.name]
+        if isinstance(theirs, (list, tuple)):
+            theirs = theirs[0]
+        if isinstance(ours, torch.Tensor):
+            carried[f.name] = torch.from_numpy(np.array(theirs, dtype=np.float32)).to(
+                device=device, dtype=ours.dtype)
+        elif isinstance(ours, bool):
+            carried[f.name] = bool(np.asarray(theirs))
+        else:
+            carried[f.name] = int(np.asarray(theirs))
+    return fresh.replace(**carried)
 
 
 def open_es_state(algo: OpenES, jax_state: Any, seed: int = 0) -> OpenESState:

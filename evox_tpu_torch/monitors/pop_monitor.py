@@ -12,6 +12,7 @@ On the CPU the fields are cloned.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -101,6 +102,23 @@ class PopMonitor(Monitor):
         return self.fitness_history
 
     def plot(self, problem_pf: Optional[Any] = None, **kwargs):
-        """The JAX package's objective-space animation needs ``vis_tools``,
-        which waits for ROADMAP A13.6."""
-        raise NotImplementedError("PopMonitor.plot is not ported yet (ROADMAP A13.6: vis_tools)")
+        """The objective space over the generations through
+        ``vis_tools.plot`` (matplotlib; ``animated=True`` for an
+        animation): curves for one objective, a scatter for two or three.
+        ``None``, with a warning, when nothing was recorded or the
+        objectives are more than three."""
+        self.flush()
+        if not self.fitness_history:
+            warnings.warn("no fitness history recorded, returning None")
+            return None
+        from ..vis_tools import plot
+
+        n_objs = 1 if self.fitness_history[0].ndim == 1 else self.fitness_history[0].shape[1]
+        if n_objs == 1:
+            return plot.plot_obj_space_1d(self.fitness_history, **kwargs)
+        if n_objs == 2:
+            return plot.plot_obj_space_2d(self.fitness_history, problem_pf, **kwargs)
+        if n_objs == 3:
+            return plot.plot_obj_space_3d(self.fitness_history, problem_pf, **kwargs)
+        warnings.warn(f"plotting {n_objs}-objective space is not supported")
+        return None

@@ -11,10 +11,15 @@ of two policy placements:
   on the farm's device, and scatters the actions back to the workers. Only
   observations and actions cross between host and device.
 - ``batch_policy=False``: each worker loops its own episodes to completion
-  with the vmapped policy on the CPU, with no global lockstep: better when
-  episode lengths vary widely and the policy is tiny. It is the placement
-  of :class:`~evox_tpu_torch.problems.neuroevolution.process_farm.
-  ProcessRolloutFarm`'s workers, whose fitness it equals bit for bit.
+  with the vmapped policy on the farm's device, with no global lockstep:
+  better when episode lengths vary widely and the policy is tiny. Each
+  worker moves only its own slice's observations and actions, on the
+  default stream: a stream a worker was measured no faster on the card,
+  where the interpreter lock sets the time (the JAX package runs this
+  placement's ``jax.jit(jax.vmap(policy))`` on the default accelerator).
+  On the CPU it is the placement of :class:`~evox_tpu_torch.problems.
+  neuroevolution.process_farm.ProcessRolloutFarm`'s workers, whose fitness
+  it equals bit for bit.
 
 Threads suffice: env ``step`` bodies are numpy or C code that releases the
 interpreter lock, and so do PyTorch's operators.
@@ -87,15 +92,16 @@ class _Worker:
                 self.acc_mo[i, j] += info[k]
         return np.stack(self.observations), bool(self.done.all())
 
-    def rollout(self, policy_fn: Callable, subpop: Any, seed: int, cap: Optional[int]) -> None:
-        """Independent episode loop with the policy on the CPU
-        (``batch_policy=False`` and the process farm's workers)."""
+    def rollout(self, policy_fn: Callable, subpop: Any, seed: int, cap: Optional[int],
+                device: torch.device = torch.device("cpu")) -> None:
+        """Independent episode loop with the policy on ``device``
+        (``batch_policy=False``; the process farm's workers keep the CPU)."""
         self.reset(seed, _tree_batch_size(subpop))
-        params = tree_map(lambda x: _as_tensor(x, torch.device("cpu")), subpop)
+        params = tree_map(lambda x: _as_tensor(x, device), subpop)
         steps = 0
         while not self.done.all():
             obs = torch.from_numpy(np.stack(self.observations).astype(np.float32, copy=False))
-            self.step(policy_fn(params, obs).numpy())
+            self.step(policy_fn(params, obs.to(device)).cpu().numpy())
             steps += 1
             if cap is not None and steps >= cap:
                 break
@@ -125,15 +131,13 @@ class HostRolloutFarm(Problem):
         env_creator: zero-argument callable building one gymnasium-API env.
         num_workers: worker threads, each owning a slice of the population.
         mo_keys: env-info keys accumulated as objectives.
-        batch_policy: the lockstep placement (policy on ``device``) or the
-            per-worker one (policy on the CPU); see the module docstring.
+        batch_policy: the lockstep placement or the per-worker one, both
+            with the policy on ``device``; see the module docstring.
         cap_episode: step cap of an episode (None = until done).
         adaptive_cap: after each evaluation, set the cap to twice the mean
             measured episode length.
-        device: where the policy runs; ``None`` means ``"cuda"``. The
-            per-worker placement runs it on the CPU and takes only
-            ``device="cpu"`` (the JAX package's runs it on the default
-            accelerator: a standing departure, ROADMAP).
+        device: where the policy runs, in either placement; ``None``
+            means ``"cuda"``.
 
     Episode seeds come from the farm's own host generator ``_seed_rng``
     (unseeded, as in the JAX package): a workflow keeps no state for a
@@ -162,11 +166,6 @@ class HostRolloutFarm(Problem):
         self.cap = cap_episode
         self.adaptive_cap = adaptive_cap
         self.device = resolve_device(device)
-        if not batch_policy and self.device.type != "cpu":
-            raise ValueError(
-                f"batch_policy=False runs each worker's policy on the CPU, not on "
-                f"{self.device}; pass device='cpu'"
-            )
         self.workers = [_Worker(env_creator, mo_keys) for _ in range(num_workers)]
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
         self._seed_rng = np.random.default_rng()
@@ -189,7 +188,8 @@ class HostRolloutFarm(Problem):
             rewards, mo, lengths = self._lockstep(pop, workers, sizes, seed)
         else:
             futures = [
-                self.pool.submit(w.rollout, self.batched_policy, sp, seed + 7919 * i, self.cap)
+                self.pool.submit(w.rollout, self.batched_policy, sp, seed + 7919 * i, self.cap,
+                                 self.device)
                 for i, (w, sp) in enumerate(zip(workers, subpops))
             ]
             for f in futures:

@@ -19,6 +19,9 @@
 - ``generator``: a ``torch.Generator`` seeded from an integer; ``seeded``
   draws from one, or member by member from stacked member seeds.
 - ``float_vector``: a float32 copy of a bound or other vector argument.
+- ``host_array``: a tensor on any device, or an array, as a numpy array
+  (bf16 as float32: numpy has no bf16).
+- ``frames2gif``: frames to an animated GIF, through imageio or else PIL.
 - ``split_seed``/``fold_in_seed``: the integer-seed counterparts of
   ``jax.random.split``/``fold_in``. States hold Python integers, and every
   draw comes from a ``torch.Generator`` seeded with one of them. The port's
@@ -371,3 +374,39 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     for key in keys[1:]:
         order = order[torch.argsort(key[order], stable=True)]
     return order
+
+
+def host_array(x: Any) -> np.ndarray:
+    """``x`` as a numpy array: a tensor is detached and copied off its
+    device (bf16, which numpy lacks, as float32); anything else goes
+    through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
+def frames2gif(frames: Sequence[Any], save_path: str, duration: float = 0.1) -> None:
+    """Write a list of ``(H, W, 3)`` uint8 frames (arrays or tensors) to an
+    animated GIF, through imageio when it is installed, else PIL:
+    ``evox_tpu/utils/common.py::frames2gif``."""
+    arrs = [np.asarray(host_array(f), dtype=np.uint8) for f in frames]
+    try:
+        import imageio
+
+        with imageio.get_writer(save_path, mode="I", duration=duration) as w:
+            for a in arrs:
+                w.append_data(a)
+        return
+    except ImportError:
+        pass
+    from PIL import Image
+
+    imgs = [Image.fromarray(a) for a in arrs]
+    imgs[0].save(
+        save_path,
+        save_all=True,
+        append_images=imgs[1:],
+        duration=int(duration * 1000),
+        loop=0,
+    )

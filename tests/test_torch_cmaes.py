@@ -253,8 +253,9 @@ def test_clipup_matches_jax(kwargs):
 def test_make_optimizer_resolves_clipup_as_jax():
     opt = make_optimizer("clipup", 0.2, momentum=0.8)
     assert isinstance(opt, ClipUp) and opt.learning_rate == 0.2 and opt.momentum == 0.8
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_optimizer("rmsprop", 0.1)
+    assert type(make_optimizer("rmsprop", 0.1)).__name__ == "RMSProp"
+    with pytest.raises(ValueError, match="objective's value"):
+        make_optimizer("lbfgs", 0.1)  # refused, with the reason
 
 
 # --------------------------------------------------------------- CMA-ES

@@ -153,13 +153,25 @@ def test_rollout_farm_visualize_frames():
 
 
 def test_host_farm_per_worker_placement_takes_only_the_cpu():
-    """The per-worker placement runs the policy on the CPU: another device
-    is refused, not ignored (``meta`` stands for a card here)."""
-    with pytest.raises(ValueError, match="device='cpu'"):
-        HostRolloutFarm(flat_policy, ScalarCartPole, num_workers=2, batch_policy=False,
-                        device="meta")
-    HostRolloutFarm(flat_policy, ScalarCartPole, num_workers=2, batch_policy=True,
-                    device="meta")  # the lockstep placement takes any device
+    """The per-worker placement keeps the farm's ``device`` (the JAX
+    package's runs the policy on the default accelerator) and runs each
+    worker's policy there: ``meta`` stands for a card here, so the policy's
+    output arrives on ``meta`` and the read of its actions raises; no
+    worker falls back to the CPU."""
+    seen = []
+
+    def policy(params, obs):
+        seen.append((params.device.type, obs.device.type))
+        return flat_policy(params, obs)
+
+    for batch_policy in (False, True):
+        farm = HostRolloutFarm(policy, ScalarCartPole, num_workers=2, batch_policy=batch_policy,
+                               cap_episode=5, device="meta")
+        assert farm.device == torch.device("meta")
+        seen.clear()
+        with pytest.raises((NotImplementedError, RuntimeError)):
+            farm.evaluate(None, _pop(4))
+        assert seen and set(seen) == {("meta", "meta")}
 
 
 def test_host_farm_nan_env_quarantined():

@@ -112,8 +112,9 @@ def test_open_es_rejects_bad_arguments():
         OpenES(np.zeros(3), 5, device="cpu")
     with pytest.raises(ValueError, match="> 0"):
         OpenES(np.zeros(3), 4, learning_rate=0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_optimizer("rmsprop", 0.1)
+    assert type(make_optimizer("rmsprop", 0.1)).__name__ == "RMSProp"
+    with pytest.raises(ValueError, match="gradient transformation, not an optimizer"):
+        make_optimizer("clip", 0.1)  # refused, with the reason
 
 
 @pytest.mark.parametrize(

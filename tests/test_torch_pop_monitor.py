@@ -62,8 +62,9 @@ def test_pop_monitor_fitness_only_multi_objective():
     fits = mon.get_fitness_history()
     assert len(fits) == 5 and mon.get_population_history() == []
     np.testing.assert_array_equal(fits[-1], state.algo.fitness.numpy())
-    with pytest.raises(NotImplementedError, match="A13"):
-        mon.plot()
+    fig = mon.plot()  # two objectives: a matplotlib scatter of the last generation
+    assert fig is not None and len(fig.axes) == 1
+    np.testing.assert_array_equal(fig.axes[0].collections[-1].get_offsets(), fits[-1])
 
 
 def test_analysis_records_nothing():
