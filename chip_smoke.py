@@ -355,7 +355,7 @@ exit 0):
    zeros(16), 1.0, pop_size=256), Sphere(), n_tenants=64)`` against the
    same 64 runs one after the other in turns (differenced trip counts 10
    and 60): ms a generation and their ratio, the member draws' share,
-   peak memory, M1's seven launches a generation; tenants 0, 31 and 63
+   peak memory, M1's four launches a generation; tenants 0, 31 and 63
    each step against the solo step and after 10 generations against
    their solo runs, under ``tests/test_tenancy.py:68``'s law and bit for
    bit, ``fleet_split_points`` (each CMA-ES operation of a
@@ -367,7 +367,10 @@ exit 0):
    run bit for bit.
 23. kernel M1 (``csrc/smallmm.cu``) against ``smallmm_plain`` at paths 28's
    and 5's shapes (``SMALLMM_SHAPES``), and a batch against each member in
-   a batch of 1, bit for bit, timed beside ``torch.bmm``; B3's rows form
+   a batch of 1, bit for bit, timed beside ``torch.bmm`` (host and device
+   µs of each); M1's grouped launches at CMA-ES's two tell groups
+   (``SMALLMM_GROUPS``) against separate plain calls, each product's own
+   launch and each member alone, bit for bit; B3's rows form
    (``packed_dominance_rows``) slab by slab against its plain version and
    the concatenated slabs against the full B3 at path 31's n 20000 on 8
    shards and at shapes with a remainder (``DOMINANCE_ROWS``, stress rows),
@@ -481,8 +484,9 @@ exit 0):
    13, B3 and B4 on paths 18, 22, 40 and 41 too, B3 on paths 20 and 27, B4 batched
    on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
    and MO islands, ``packed_dominance_batched`` on the MO islands, D1 on
-   path 26, ``packed_dominance_rows`` on path 31, ``smallmm`` on paths 28
-   and 5), then the last line ``{"ok": true, "device": {...}}``.
+   path 26, ``packed_dominance_rows`` on path 31, ``smallmm`` and its
+   grouped entry ``smallmm_group`` on paths 28 and 5), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a torch.profiler breakdown of 5 generations of each main
 path (of one decomposition period on path 5). Exits non-zero, with no
@@ -642,9 +646,10 @@ DOMINANCE_BATCHES = ((4, 1000, 3), (4, 2000, 3), (8, 1250, 3), (64, 512, 2), (4,
 TEN_N, TEN_POP, TEN_DIM = 64, 256, 16
 TEN_PAIR = (10, 40)
 TEN_CHECK, TEN_CHECK_GENERATIONS = (0, 31, 63), 10
-# M1 launches a CMA-ES generation: the ask's (z D) B^T; the tell's mu rows,
-# w y, w z, B z_w, the rank-mu product and |ps|'s dot product
-CMAES_M1_LAUNCHES = 7
+# M1 launches a CMA-ES generation: the ask's (z D) B^T; the tell's two
+# grouped launches ({mu rows, w z}, then {w y, B z_w, the rank-mu product
+# with w as its row scale}); |ps|'s dot product
+CMAES_M1_LAUNCHES = 4
 # M1 at CMA-ES's shapes: (name, batch, p, k, q, trans_a, trans_b): every
 # call shape of cma_es._product and _norm on path 28 (64 tenants, pop 256,
 # d 16, mu 128) and on path 5 (pop 24, d 1000, mu 12), the ask also in a
@@ -664,6 +669,11 @@ SMALLMM_SHAPES = (
     ("path 5 rank-mu", 1, 1000, 12, 1000, True, False),
     ("path 5 |ps|'s ps . ps", 1, 1, 1000, 1, False, False),
 )
+# CMA-ES's two tell groups of M1 (smallmm_group): (name, batch, mu, d) of
+# path 5 (solo, d 1000) and path 28 (64 stacked tenants, d 16)
+SMALLMM_GROUPS = (("path 5", 1, 12, 1000), ("path 28", 64, 128, 16))
+# the dependent-issue latency of a float32 add on sm_80/sm_90, in cycles
+FADD_LATENCY_CYCLES = 4
 # main path 30 (bench.py's workload 7): SepCMAES at pop 65536, d 32, seed 21,
 # 8 shards on one card against mesh=None, n_shards=8; the differenced pair
 LP_POP, LP_DIM, LP_SEED, LP_SHARDS = 65536, 32, 21, 8
@@ -2618,22 +2628,23 @@ def phase_cmaes_path(torch, seed: int, profile: bool) -> dict:
     from evox_tpu_torch.kernels import smallmm as km
 
     reset_launches()  # every count to 0 just before the run
-    km.smallmm.launches = 0
+    km.smallmm.launches = km.smallmm_group.launches = 0
     decomps[0] = 0
     t0 = time.perf_counter()
     state = wf.run(state, gens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()  # read just after
-    m1_launches = km.smallmm.launches
+    m1_single, m1_group = km.smallmm.launches, km.smallmm_group.launches
     want = {"fused_rollout": 0, "packed_dominance": 0, "partial_topk": 0, "fused_mlp_rollout": 0}
     if launches != want:
         raise AssertionError(f"launches in {gens} CMA-ES generations: {launches}, expected {want}")
-    # M1: the ask's product and the tell's five and |ps|, every generation
-    if m1_launches != CMAES_M1_LAUNCHES * gens:
-        raise AssertionError(f"{m1_launches} M1 launches in {gens} CMA-ES generations, expected "
-                             f"{CMAES_M1_LAUNCHES * gens}")
-    launches = {**launches, "smallmm": m1_launches}
+    # M1: the ask's product and |ps|'s, and the tell's two groups, every generation
+    if (m1_single, m1_group) != (2 * gens, 2 * gens) or \
+            m1_single + m1_group != CMAES_M1_LAUNCHES * gens:
+        raise AssertionError(f"{m1_single} single and {m1_group} grouped M1 launches in {gens} "
+                             f"CMA-ES generations, expected {2 * gens} and {2 * gens}")
+    launches = {**launches, "smallmm": m1_single, "smallmm_group": m1_group}
     if decomps[0] != gens // period:
         raise AssertionError(f"{decomps[0]} decompositions in {gens} generations, expected "
                              f"{gens // period}")
@@ -4648,7 +4659,7 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
     a generation of all 64 sequential runs. Beside them: the host's thread
     time a generation, the per-member draws' host share (``member_draw``),
     peak memory, and with ``profile`` the kernels and DtoH copies a
-    generation, and M1's launches (seven a generation). Then tenants 0, 31
+    generation, and M1's launches (four a generation). Then tenants 0, 31
     and 63: each of 10 fleet steps against the solo step from
     the same state, bit for bit, and the 10-generation runs against their
     solo runs, under tests/test_tenancy.py:68's law (rtol 1e-5, atol 1e-6)
@@ -4681,20 +4692,24 @@ def phase_fleet_path(torch, seed: int = SEED, profile: bool = False, device=None
     for name in ("fleet", "sequential", "sequential", "fleet"):
         side, state = (fleet, fstate) if name == "fleet" else (seq, sstates)
         reset_launches()
-        km.smallmm.launches = 0
+        km.smallmm.launches = km.smallmm_group.launches = 0
         lo, hi = (timed(side, state, n) for n in TEN_PAIR)
         got = read_launches()
+        m1_single, m1_group = km.smallmm.launches, km.smallmm_group.launches
         if any(got.values()):
             raise AssertionError(f"{name}: CMA-ES on Sphere launched a kernel: {got}")
-        # M1: seven a generation, one launch each for all tenants
+        # M1: four a generation (two single, two grouped), one launch each
+        # for all tenants
         gens = sum(TEN_PAIR) * (1 if name == "fleet" else TEN_N)
-        if km.smallmm.launches != CMAES_M1_LAUNCHES * gens:
-            raise AssertionError(f"{name}: {km.smallmm.launches} M1 launches in {gens} "
-                                 f"generations, expected {CMAES_M1_LAUNCHES * gens}")
+        if (m1_single, m1_group) != (2 * gens, 2 * gens) or \
+                m1_single + m1_group != CMAES_M1_LAUNCHES * gens:
+            raise AssertionError(f"{name}: {m1_single} single and {m1_group} grouped M1 launches "
+                                 f"in {gens} generations, expected {2 * gens} and {2 * gens}")
         span = TEN_PAIR[1] - TEN_PAIR[0]
         turn = {"side": name, "ms_per_generation": (hi[0] - lo[0]) / span * 1e3,
                 "host_thread_ms_per_generation": (hi[1] - lo[1]) / span * 1e3,
-                "wall_s": lo[0] + hi[0], "m1_launches": km.smallmm.launches}
+                "wall_s": lo[0] + hi[0], "m1_launches": m1_single,
+                "m1_group_launches": m1_group}
         if name == "fleet":
             turn["member_draw_ms_per_generation"] = (hi[2] - lo[2]) / span * 1e3
             turn["member_draw_share"] = turn["member_draw_ms_per_generation"] / turn[
@@ -6824,17 +6839,93 @@ def _smallmm_operands(torch, b, p, k, q, trans_a, trans_b, seed):
     return a.cuda(), bb.cuda()
 
 
+def sm_clock_mhz() -> float:
+    """The card's top SM clock in MHz (``nvidia-smi``'s ``clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def chain_floor_ms(k: int, clock_mhz: float) -> float:
+    """The latency floor of a product with one output a chain of ``k``
+    dependent float32 adds: ``k`` x the add's 4-cycle latency at the card's
+    top clock (a third figure beside the bytes and operations bound, which
+    it does not replace)."""
+    return k * FADD_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
+
+
+def split_device_us(torch, fns: dict, calls: int = 20) -> dict:
+    """Device microseconds a call of each of ``fns`` (name -> (fn, kernel
+    name test)): one torch.profiler session runs every function ``calls``
+    times, and each kernel row goes to the function whose test its name
+    passes (the first that does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _ in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn, _ in fns.values():
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in fns}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = next(n for n, (_, test) in fns.items() if test(e.key))
+        out[name] += e.self_device_time_total / calls
+    return out
+
+
+def _tell_groups(torch, batch: int, mu: int, d: int, seed: int) -> tuple:
+    """CMA-ES's two tell groups on random operands of its shapes: ``{(z D)
+    B^T, w z}`` and ``{w y, B z_w, y^T diag(w) y}`` (``w`` the rank-mu
+    product's row scale), each a list of ``smallmm_group`` products. A
+    batch of 1 is the solo call's 2-D form; a larger batch the vmap rule's
+    3-D form (the weights stacked)."""
+    g = torch.Generator().manual_seed(seed)
+    zd, z, y = (torch.randn(batch, mu, d, generator=g) for _ in range(3))
+    B = torch.randn(batch, d, d, generator=g)
+    zw = torch.randn(batch, d, 1, generator=g)
+    w = torch.rand(mu, generator=g) + 0.1
+    if batch == 1:
+        zd, z, y, B, zw = (x[0].cuda() for x in (zd, z, y, B, zw))
+        wrow, wscale = w[None, :].cuda(), w.cuda()
+    else:
+        zd, z, y, B, zw = (x.cuda() for x in (zd, z, y, B, zw))
+        wrow = w[None, None, :].expand(batch, 1, mu).contiguous().cuda()
+        wscale = w[None, :].expand(batch, mu).contiguous().cuda()
+    return ([(zd, B, False, True), (wrow, z, False, False)],
+            [(wrow, y, False, False), (B, zw, False, False), (y, y, True, False, wscale)])
+
+
+def _member(prods: list, i: int) -> list:
+    """Member ``i`` of a batched group, as a batch of one."""
+    return [tuple(x[i:i + 1] if hasattr(x, "shape") else x for x in prod) for prod in prods]
+
+
 def phase_smallmm_kernel(torch) -> dict:
     """Kernel M1 (``csrc/smallmm.cu``) at CMA-ES's shapes on paths 28 and 5
     (``SMALLMM_SHAPES``): against ``smallmm_plain`` on the same card
     tensors, bit for bit; a batch against each of its members launched as a
     batch of 1, bit for bit (the batch-count law M1 exists for); timed by
     CUDA events (3 warm-up runs, mean of 20) beside the plain version and
-    ``torch.bmm`` on the same operands (the library column), with its bound
-    from ``smallmm_work``."""
+    ``torch.bmm`` on the same operands (the library column), each call's
+    host µs (enqueue, back to back) and device µs (torch.profiler's kernel
+    rows) for M1 and for ``torch.bmm``, with its bound from
+    ``smallmm_work`` and, for one chain an output (p = 1 or q = 1), the
+    chain's latency floor. Then the grouped launches at CMA-ES's two tell
+    groups (``SMALLMM_GROUPS``): one launch each, bit for bit against
+    separate plain calls, against each product's own M1 launch and, for a
+    batch, against each member launched alone; timed beside the separate
+    launches."""
     from evox_tpu_torch.kernels import smallmm as km
 
-    out = {"shapes": []}
+    clock = sm_clock_mhz()
+    out = {"shapes": [], "groups": [], "sm_clock_max_mhz": clock}
     for name, b, p, k, q, ta, tb in SMALLMM_SHAPES:
         a, bb = _smallmm_operands(torch, b, p, k, q, ta, tb, 1000 + p + k + q)
         before = km.smallmm.launches
@@ -6849,17 +6940,79 @@ def phase_smallmm_kernel(torch) -> dict:
                       (singles,))
         A = a.transpose(-1, -2) if ta else a
         B = bb.transpose(-1, -2) if tb else bb
+
+        def m1():
+            return km.smallmm(a, bb, ta, tb, device=a.device)
+
+        def bmm():
+            return torch.bmm(A, B)
+
+        dev_us = split_device_us(torch, {"m1": (m1, lambda key: "smallmm" in key),
+                                         "bmm": (bmm, lambda key: True)})
         entry = {"name": name, "b": b, "p": p, "k": k, "q": q, "trans_a": ta, "trans_b": tb,
-                 "max_abs_err": check["max_abs_err"],
-                 "ms": _time_ms(lambda: km.smallmm(a, bb, ta, tb, device=a.device), 3, 20),
+                 "plan": km.launch_plan(b, p, k, q, ta, tb), "max_abs_err": check["max_abs_err"],
+                 "ms": _time_ms(m1, 3, 20),
                  "plain_ms": _time_ms(lambda: km.smallmm_plain(a, bb, ta, tb), 1,
                                       3 if k > 100 else 20),
-                 "library_ms": _time_ms(lambda: torch.bmm(A, B), 3, 20)}
+                 "library_ms": _time_ms(bmm, 3, 20),
+                 "host_us": host_us_per_call(torch, m1, 200),
+                 "device_us": dev_us["m1"],
+                 "library_host_us": host_us_per_call(torch, bmm, 200),
+                 "library_device_us": dev_us["bmm"]}
         nbytes, ops = smallmm_work(b, p, k, q)
         entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops)
+        if p == 1 or q == 1:
+            entry["chain_floor_ms"] = chain_floor_ms(k, clock)
         out["shapes"].append(entry)
         print(f"[smallmm] {json.dumps(entry)}", flush=True)
+    for name, b, mu, d in SMALLMM_GROUPS:
+        for g, prods in enumerate(_tell_groups(torch, b, mu, d, 2000 + b + mu + d), start=1):
+            before = km.smallmm_group.launches
+            got = km.smallmm_group(prods)
+            if km.smallmm_group.launches - before != 1:
+                raise AssertionError(f"M1 {name} tell group {g}: "
+                                     f"{km.smallmm_group.launches - before} launches")
+            check = compare_exact(f"M1 {name} tell group {g} against separate plain calls", got,
+                                  km.smallmm_group_plain(prods))
+
+            def separate(prods=prods):
+                return [km.smallmm(km._scaled(x[0], x[4] if len(x) == 5 else None), x[1], x[2],
+                                   x[3], device=x[0].device) for x in prods]
+
+            compare_exact(f"M1 {name} tell group {g} against each product's own launch", got,
+                          separate())
+            if b > 1:
+                alone = [torch.cat(parts) for parts in zip(*(km.smallmm_group(_member(prods, i))
+                                                             for i in range(b)))]
+                compare_exact(f"M1 {name} tell group {g}: a batch of {b} against each member "
+                              "alone", got, alone)
+            works = [smallmm_work(b, *_pkq(x)) for x in prods]
+            dev_us = split_device_us(torch, {"group": (lambda prods=prods: km.smallmm_group(prods),
+                                                       lambda key: True)})
+            entry = {"name": f"{name} tell group {g}", "b": b, "products": len(prods),
+                     "shapes": [list(_pkq(x)) for x in prods],
+                     "plans": [km.launch_plan(b, *_pkq(x), x[2], x[3], len(x) == 5)
+                               for x in prods],
+                     "max_abs_err": check["max_abs_err"],
+                     "ms": _time_ms(lambda prods=prods: km.smallmm_group(prods), 3, 20),
+                     "separate_ms": _time_ms(separate, 3, 20),
+                     "plain_ms": _time_ms(lambda prods=prods: km.smallmm_group_plain(prods), 1,
+                                          3 if d > 100 else 20),
+                     "host_us": host_us_per_call(torch, lambda prods=prods: km.smallmm_group(prods),
+                                                 200),
+                     "device_us": dev_us["group"]}
+            entry["bound_ms"], entry["bound_by"] = bound_ms(sum(w[0] for w in works),
+                                                            sum(w[1] for w in works))
+            out["groups"].append(entry)
+            print(f"[smallmm group] {json.dumps(entry)}", flush=True)
     return out
+
+
+def _pkq(prod) -> tuple:
+    """``(p, k, q)`` of a ``smallmm_group`` product."""
+    a, b, ta, tb = prod[:4]
+    p, k = (a.shape[-1], a.shape[-2]) if ta else (a.shape[-2], a.shape[-1])
+    return p, k, (b.shape[-2] if tb else b.shape[-1])
 
 
 def dominance_rows_work(r: int, n: int, m: int) -> tuple:
@@ -6879,7 +7032,8 @@ def phase_dominance_rows(torch) -> dict:
     concatenated slabs against the full B3 (its words, then zero words)
     and the summed partial counts against its counts, bit for bit. Timed
     at path 31's shape: one slab, the 8 slabs of a generation, the plain
-    version of a slab, and the full B3 as the unsharded twin."""
+    version of a slab, and the full B3 as the unsharded twin; a slab's host
+    µs (enqueue) and device µs (torch.profiler)."""
     from evox_tpu_torch.kernels import dominance as kd
 
     out = {"shapes": []}
@@ -6914,7 +7068,11 @@ def phase_dominance_rows(torch) -> dict:
                 "generation_ms": _time_ms(lambda: [kd.packed_dominance_rows(r, fit, device=fit.device)
                                                    for r in slab_rows], 3, 20),
                 "plain_ms": _time_ms(lambda: kd.packed_dominance_rows_reference(r0, fit), 1, 3),
-                "full_b3_ms": _time_ms(lambda: kd.packed_dominance(fit, device=fit.device), 3, 20)})
+                "full_b3_ms": _time_ms(lambda: kd.packed_dominance(fit, device=fit.device), 3, 20),
+                "host_us": host_us_per_call(
+                    torch, lambda: kd.packed_dominance_rows(r0, fit, device=fit.device), 200),
+                "device_us": device_us_per_call(
+                    torch, lambda: kd.packed_dominance_rows(r0, fit, device=fit.device))})
             nbytes, ops = dominance_rows_work(words_per * 32, n, m)
             entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops)
             gen = [dominance_rows_work(words_per * 32, n, m)] * shards
@@ -6981,7 +7139,7 @@ def phase_sharded_es(torch, seed: int = LP_SEED, device=None) -> dict:
     for name in ("sharded", "replicated", "replicated", "sharded"):
         wf, state = states[name]
         reset_launches()
-        km.smallmm.launches = 0
+        km.smallmm.launches = km.smallmm_group.launches = 0
         walls = []
         for n in LP_PAIR:
             torch.cuda.synchronize()
@@ -6989,7 +7147,8 @@ def phase_sharded_es(torch, seed: int = LP_SEED, device=None) -> dict:
             wf.run(state, n)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        got = {**read_launches(), "smallmm": km.smallmm.launches}
+        got = {**read_launches(), "smallmm": km.smallmm.launches,
+               "smallmm_group": km.smallmm_group.launches}
         if any(got.values()):
             raise AssertionError(f"path 30 ({name}) launched a kernel: {got}")
         turn = {"side": name,
@@ -9632,7 +9791,8 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "library_ms": None,  # no single PyTorch call computes this
         "slab_rows": rows["slab_rows"], "n": rows["n"], "m": rows["m"],
         "generation_ms": rows["generation_ms"], "generation_bound_ms": rows["generation_bound_ms"],
-        "full_b3_ms": rows["full_b3_ms"],
+        "full_b3_ms": rows["full_b3_ms"], "host_us": rows["host_us"],
+        "device_us": rows["device_us"],
         "shapes": paths["dominance_rows"]["shapes"],
         "callers": [{"caller": "the mesh-sharded non_dominated_sort in NSGA-II's tell on an "
                                "8-shard mesh of the card (path 31), 8 launches a generation",
@@ -9640,13 +9800,14 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
     })
     mm = paths["smallmm"]
     main_mm = next(e for e in mm["shapes"] if e["name"].startswith("path 28 ask"))
+    fleet_turn = paths["fleet"]["turns"][0]
     entries.append({
         "name": "smallmm",
         "route": "cuda",
         "source": "evox_tpu_torch/csrc/smallmm.cu",
         # no pallas_call: the JAX package leaves CMA-ES's products to XLA
         "replaces": "evox_tpu/algorithms/so/es/cma_es.py:147-174 (XLA products, no Pallas kernel)",
-        "launches": paths["fleet"]["turns"][0]["m1_launches"],
+        "launches": fleet_turn["m1_launches"],
         "max_abs_err": max(e["max_abs_err"] for e in mm["shapes"]),
         "ms": main_mm["ms"],
         "plain_ms": main_mm["plain_ms"],
@@ -9654,12 +9815,38 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "bound_by": main_mm["bound_by"],
         # torch.bmm on the same operands: another summation order
         "library_ms": main_mm["library_ms"],
+        "host_us": main_mm["host_us"], "device_us": main_mm["device_us"],
+        "library_host_us": main_mm["library_host_us"],
+        "library_device_us": main_mm["library_device_us"],
         "shapes": mm["shapes"],
-        "callers": [{"caller": "CMA-ES's seven products a generation over 64 stacked tenants "
-                               f"(path 28's fleet turn, {sum(TEN_PAIR)} generations)",
-                     "launches": paths["fleet"]["turns"][0]["m1_launches"]},
-                    {"caller": "CMA-ES at d 1000 (path 5), seven a generation",
+        "callers": [{"caller": "CMA-ES's ask and |ps|'s dot product over 64 stacked tenants "
+                               f"(path 28's fleet turn, {sum(TEN_PAIR)} generations), two a "
+                               "generation", "launches": fleet_turn["m1_launches"]},
+                    {"caller": "CMA-ES at d 1000 (path 5), two a generation",
                      "launches": paths["cmaes"]["launches"]["smallmm"]}],
+    })
+    main_group = next(e for e in mm["groups"] if e["name"].startswith("path 28 tell group 2"))
+    entries.append({
+        "name": "smallmm_group",
+        "route": "cuda",
+        "source": "evox_tpu_torch/csrc/smallmm.cu",
+        # M1's grouped entry: CMA-ES's independent tell products in one grid
+        "replaces": "evox_tpu/algorithms/so/es/cma_es.py:147-174 (XLA products, no Pallas kernel)",
+        "launches": fleet_turn["m1_group_launches"],
+        "max_abs_err": max(e["max_abs_err"] for e in mm["groups"]),
+        "ms": main_group["ms"],
+        "plain_ms": main_group["plain_ms"],
+        "bound_ms": main_group["bound_ms"],
+        "bound_by": main_group["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes products of three shapes
+        "separate_ms": main_group["separate_ms"],
+        "host_us": main_group["host_us"], "device_us": main_group["device_us"],
+        "groups": mm["groups"],
+        "callers": [{"caller": "CMA-ES's tell over 64 stacked tenants (path 28's fleet turn, "
+                               f"{sum(TEN_PAIR)} generations), two groups a generation",
+                     "launches": fleet_turn["m1_group_launches"]},
+                    {"caller": "CMA-ES's tell at d 1000 (path 5), two groups a generation",
+                     "launches": paths["cmaes"]["launches"]["smallmm_group"]}],
     })
     w = kernels["walker"]
     entries.append({

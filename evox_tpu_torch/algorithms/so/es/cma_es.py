@@ -17,9 +17,13 @@ How the port differs in form, not in numbers:
   ``|ps|``'s dot product) go through kernel M1 on the card (:func:`~evox_tpu_torch.kernels.smallmm.
   smallmm`): one fixed summation order that does not depend on the batch
   count, so a fleet tenant under ``torch.func.vmap`` equals its solo run
-  bit for bit (cuBLAS picks its kernel by the batch count). On the CPU
-  they stay ``einsum`` in full float32 (:func:`~.common.full_f32_matmul`),
-  one bmm route that is already the same in a batch and alone.
+  bit for bit (cuBLAS picks its kernel by the batch count). A generation
+  makes four launches: the ask's product; the tell's two groups of
+  independent products (``smallmm_group``: the selected steps with ``w
+  z``, then ``w y``, ``B z_w`` and the rank-µ product with ``w`` as its
+  row scale); ``|ps|``'s dot product. On the CPU they stay ``einsum`` in
+  full float32 (:func:`~.common.full_f32_matmul`), one bmm route that is
+  already the same in a batch and alone.
 - The restart variants choose between the continued and the restarted
   state field by field with ``torch.where`` on the device, in place of the
   JAX package's ``lax.cond``; the seed advances on every ``tell``.
@@ -36,7 +40,7 @@ from ....core.algorithm import Algorithm
 from ....core.device import DeviceLike, resolve_device
 from ....core.distributed import POP_AXIS, P
 from ....core.struct import PyTreeNode, field
-from ....kernels.smallmm import smallmm
+from ....kernels.smallmm import smallmm, smallmm_group
 from ....utils.common import float_vector, generator, split_seed
 from .common import (
     bounded_sigma_step,
@@ -64,24 +68,49 @@ def _hsig_denominator(cs: float, it: int) -> torch.Tensor:
     return torch.sqrt(1 - torch.pow(base, torch.tensor(2.0 * it, dtype=torch.float32)))
 
 
+def _m1_form(equation: str, a: torch.Tensor, b: torch.Tensor, scale=None):
+    """One of CMA-ES's products, named by its ``einsum`` equation, as M1's
+    ``(a, b, trans_a, trans_b, scale)`` and the view that turns M1's
+    matrix into the product's shape."""
+    if equation in ("pd,ed->pe", "md,ed->me"):  # rows times B^T
+        return (a, b, False, True, scale), lambda c: c
+    if equation == "m,md->d":  # a weighted sum of rows
+        return (a[None, :], b, False, False, scale), lambda c: c[0]
+    if equation == "de,e->d":  # B times a vector
+        return (a, b[:, None], False, False, scale), lambda c: c[:, 0]
+    if equation == "md,me->de":  # the rank-mu sum of outer products, rows of a scaled
+        return (a, b, True, False, scale), lambda c: c
+    raise ValueError(f"no M1 form for {equation!r}")
+
+
+def _einsum(equation: str, a: torch.Tensor, b: torch.Tensor, scale=None) -> torch.Tensor:
+    if scale is not None:
+        a = a * scale[:, None]
+    with full_f32_matmul():
+        return torch.einsum(equation, a, b)
+
+
 def _product(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One of CMA-ES's products, named by its ``einsum`` equation: on the
     card kernel M1 (``smallmm``, one summation order whatever the batch
     count); on the CPU the ``einsum`` in full float32 (one bmm route, so a
     member's numbers under ``torch.func.vmap`` equal a solo run's there)."""
     if a.device.type != "cuda":
-        with full_f32_matmul():
-            return torch.einsum(equation, a, b)
-    dev = a.device
-    if equation in ("pd,ed->pe", "md,ed->me"):  # rows times B^T
-        return smallmm(a, b, trans_b=True, device=dev)
-    if equation == "m,md->d":  # a weighted sum of rows
-        return smallmm(a[None, :], b, device=dev)[0]
-    if equation == "de,e->d":  # B times a vector
-        return smallmm(a, b[:, None], device=dev)[:, 0]
-    if equation == "md,me->de":  # the rank-mu sum of outer products
-        return smallmm(a, b, trans_a=True, device=dev)
-    raise ValueError(f"no M1 form for {equation!r}")
+        return _einsum(equation, a, b)
+    (A, B, ta, tb, _), view = _m1_form(equation, a, b)
+    return view(smallmm(A, B, ta, tb, device=a.device))
+
+
+def _products(*items: tuple) -> list:
+    """Independent products ``(equation, a, b[, scale])`` (``scale``
+    multiplies the rows of ``a`` first): on the card one grouped M1 launch
+    (``smallmm_group``), each product's numbers those of its own launch;
+    on the CPU :func:`_product`'s ``einsum`` each."""
+    if items[0][1].device.type != "cuda":
+        return [_einsum(*item) for item in items]
+    forms = [_m1_form(*item) for item in items]
+    outs = smallmm_group([prod for prod, _ in forms], device=items[0][1].device)
+    return [view(c) for (_, view), c in zip(forms, outs)]
 
 
 def _scalar(value: Any, like: torch.Tensor) -> torch.Tensor:
@@ -194,12 +223,13 @@ class CMAES(Algorithm):
         n = self.dim
         order = torch.argsort(fitness, stable=True)
         z_sorted = state.z[order[: self.mu]]
-        y_sorted = _product("md,ed->me", z_sorted * state.D, state.B)
-        y_w = _product("m,md->d", self.weights, y_sorted)
-        z_w = _product("m,md->d", self.weights, z_sorted)
-        # invsqrtC @ y_w == B z_w because y = B D z
-        Bz_w = _product("de,e->d", state.B, z_w)
-        rank_mu = _product("md,me->de", y_sorted * self.weights[:, None], y_sorted)
+        y_sorted, z_w = _products(("md,ed->me", z_sorted * state.D, state.B),
+                                  ("m,md->d", self.weights, z_sorted))
+        # invsqrtC @ y_w == B z_w because y = B D z; the rank-mu product's
+        # rows of y_sorted scaled by the weights
+        y_w, Bz_w, rank_mu = _products(("m,md->d", self.weights, y_sorted),
+                                       ("de,e->d", state.B, z_w),
+                                       ("md,me->de", y_sorted, y_sorted, self.weights))
         mean = state.mean + self.cm * state.sigma * y_w
         ps = (1 - self.cs) * state.ps + math.sqrt(self.cs * (2 - self.cs) * self.mueff) * Bz_w
         it = state.iteration + 1

@@ -345,12 +345,16 @@ class GenerationExecutor:
         try:
             return fn()
         finally:
-            dt = self._clock() - t0
-            self.overlap["device_dispatch_s"] += dt
-            self._span("device", name, t0, dt)
-            if self.metrics is not None:
-                self.metrics.count("executor.dispatches")
-                self.metrics.observe("executor.dispatch_ms", dt * 1e3)
+            # a call its watchdog abandoned (core/pod_supervisor.py::
+            # _watchdog_call) ends after the retry that replaced it has run:
+            # its time would count twice against the run's wall
+            if not getattr(threading.current_thread(), "abandoned", False):
+                dt = self._clock() - t0
+                self.overlap["device_dispatch_s"] += dt
+                self._span("device", name, t0, dt)
+                if self.metrics is not None:
+                    self.metrics.count("executor.dispatches")
+                    self.metrics.observe("executor.dispatch_ms", dt * 1e3)
 
     # ---------------------------------------------------------------- report
     def report(self) -> dict:

@@ -155,8 +155,12 @@ def _watchdog_call(fn: Callable[[], Any], deadline_s: Optional[float], label: st
         finally:
             done.set()
 
-    threading.Thread(target=target, daemon=True, name=f"{thread_prefix}:{label}").start()
+    worker = threading.Thread(target=target, daemon=True, name=f"{thread_prefix}:{label}")
+    worker.start()
     if not done.wait(deadline_s):
+        # the call returns, if ever, after its caller has moved on: the
+        # executor counts no dispatch time for it (core/executor.py)
+        worker.abandoned = True
         if make_timeout is not None:
             raise make_timeout(label, deadline_s)
         raise CollectiveDeadlineError(

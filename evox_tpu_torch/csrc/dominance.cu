@@ -65,13 +65,26 @@
 // fitness (n columns). Block (bx, by) takes the rows of words [by * TILE,
 // ...) of the slab against the columns of words [bx * TILE, ...) of the
 // fitness; every block works (the two sides are different rows, so no
-// tile is another's transpose), and a warp's tile writes only
-//   packed[w][32v + l] = a & ~transpose(b)
-// with a built from slab rows against fitness columns and b from fitness
-// rows against slab columns, as above. The slab's words are (ceil(R/32),
-// n) and its counts (n,) the popcounts of their columns: the concatenated
-// slabs of a padded fitness are the full matrix's words (then zero words),
-// and the slabs' counts sum to the full counts.
+// tile is another's transpose). Here only one direction is wanted, so a
+// pair is tested one way, strictly, in one pass over the objectives:
+//   bit k of lane l's word = le_all(slab 32w + k, column 32v + l)
+//                            && lt_any(slab 32w + k, column 32v + l)
+// (every x <= y, some x < y). That is the square form's a & ~transpose(b)
+// bit for bit: given L[i][j] (no NaN, no larger objective), the reverse
+// L[j][i] holds exactly when the rows are equal (-0.0 == +0.0), which is
+// exactly when no objective is strictly less; a NaN fails <= and sets no
+// bit; a row of +inf has no < against an equal row. No b word and no
+// transpose32. A lane takes C column words (C = 4 for the exact instances,
+// 2 for the generic one: a warp task is one slab word against C column
+// words, TILE * TILE / C tasks a block), holding its C column rows in
+// registers, so one broadcast shared-memory load of a slab row feeds C
+// pairs. A pair costs m compares into "all <=", m into "some <", a
+// predicated OR into its word and 1/C of a load: about 2m + 1.25
+// instructions, 7.25 at m = 3, against ~10.6 for the two words and their
+// transposes (2 x 5.3). The slab's words are (ceil(R/32), n) and its counts
+// (n,) the popcounts of their columns: the concatenated slabs of a padded
+// fitness are the full matrix's words (then zero words), and the slabs'
+// counts sum to the full counts.
 //
 // Numerics. Plain IEEE compares, as in the JAX package: a NaN objective
 // makes L false both ways, so a NaN row dominates nothing and is dominated
@@ -95,6 +108,10 @@ constexpr int kMaxM = 32;             // objectives the kernel takes
 // 32 KB)
 template <int M> struct TileWords { static constexpr int value = M > 0 ? 8 : 4; };
 
+// column words a lane of the rows form takes: 4 for the exact instances
+// (four column rows in registers), 2 for the generic one
+template <int M> struct RowsColumns { static constexpr int value = M > 0 ? 4 : 2; };
+
 // a row of M objectives as one load: M = 1 float, 2 float2, 3 and 4 float4
 template <int M> struct RowOf { using T = float4; static constexpr int kStride = 4; };
 template <> struct RowOf<1> { using T = float; static constexpr int kStride = 1; };
@@ -114,6 +131,28 @@ __device__ __forceinline__ bool le_all(const Row& x, const Row& y) {
 #pragma unroll
   for (int k = 0; k < M; ++k) le = le & (get(x, k) <= get(y, k));
   return le;
+}
+
+// x Pareto-dominates y: every x_k <= y_k and some x_k < y_k, in one pass
+template <int M, class Row>
+__device__ __forceinline__ bool dominates(const Row& x, const Row& y) {
+  bool le = true, lt = false;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    le = le & (get(x, k) <= get(y, k));
+    lt = lt | (get(x, k) < get(y, k));
+  }
+  return le & lt;
+}
+
+__device__ __forceinline__ bool dominates_generic(const float* x, const float* y, int m) {
+  bool le = true, lt = false;
+#pragma unroll 4
+  for (int k = 0; k < m; ++k) {
+    le = le & (x[k] <= y[k]);
+    lt = lt | (x[k] < y[k]);
+  }
+  return le & lt;
 }
 
 __device__ __forceinline__ bool le_all_generic(const float* x, const float* y, int m) {
@@ -236,6 +275,8 @@ __global__ void __launch_bounds__(kThreads, M > 0 ? 6 : 8)
 dominance_rows_kernel(const float* __restrict__ rows, int r, const float* __restrict__ fit,
                       int n, int m, int* __restrict__ packed, int* __restrict__ count) {
   constexpr int TILE = TileWords<M>::value;
+  constexpr int C = RowsColumns<M>::value;
+  constexpr int kGroups = TILE / C;
   const int W0 = blockIdx.y * TILE, V0 = blockIdx.x * TILE;
   extern __shared__ __align__(16) float smem[];
   const int stride = M > 0 ? RowOf<(M > 0 ? M : 4)>::kStride : m;
@@ -250,37 +291,44 @@ dominance_rows_kernel(const float* __restrict__ rows, int r, const float* __rest
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  for (int t = threadIdx.x >> 5; t < TILE * TILE; t += kWarps) {
-    const int wi = t / TILE, vi = t % TILE;
-    if (wi >= wn || vi >= vn) continue;
-    const int w = W0 + wi, v = V0 + vi;
-    unsigned a = 0, b = 0;  // bit k: L[slab 32w + k][col 32v + lane], L[col 32v + k][slab 32w + lane]
+  for (int t = threadIdx.x >> 5; t < TILE * kGroups; t += kWarps) {
+    const int wi = t / kGroups, v0 = (t - wi * kGroups) * C;  // slab word, first column word
+    if (wi >= wn || v0 >= vn) continue;
+    const int w = W0 + wi;
+    unsigned d[C];  // bit k of d[c]: slab 32w + k dominates column 32(V0 + v0 + c) + lane
+#pragma unroll
+    for (int c = 0; c < C; ++c) d[c] = 0;
     if constexpr (M > 0) {
       using Row = typename RowOf<M>::T;
       const Row* rw = reinterpret_cast<const Row*>(xs_w) + 32 * wi;
-      const Row* rv = reinterpret_cast<const Row*>(xs_v) + 32 * vi;
-      const Row yv = rv[lane], yw = rw[lane];
+      const Row* rv = reinterpret_cast<const Row*>(xs_v) + 32 * v0;
+      Row y[C];  // past vn: never stored
+#pragma unroll
+      for (int c = 0; c < C; ++c) y[c] = rv[32 * c + lane];
 #pragma unroll
       for (int k = 0; k < 32; ++k) {
-        if (le_all<M>(rw[k], yv)) a |= 1u << k;
-        if (le_all<M>(rv[k], yw)) b |= 1u << k;
+        const Row x = rw[k];  // one broadcast load, C pairs
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (dominates<M>(x, y[c])) d[c] |= 1u << k;
       }
     } else {
       const float* rw = xs_w + 32 * wi * m;
-      const float* rv = xs_v + 32 * vi * m;
-      const float* yv = rv + lane * m;
-      const float* yw = rw + lane * m;
+      const float* rv = xs_v + (32 * v0 + lane) * m;
 #pragma unroll 2
       for (int k = 0; k < 32; ++k) {
-        a |= static_cast<unsigned>(le_all_generic(rw + k * m, yv, m)) << k;
-        b |= static_cast<unsigned>(le_all_generic(rv + k * m, yw, m)) << k;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          d[c] |= static_cast<unsigned>(dominates_generic(rw + k * m, rv + 32 * c * m, m)) << k;
       }
     }
-    const unsigned bt = transpose32(b, lane);
-    const unsigned d = a & ~bt;  // packed[w][32v + lane]
-    const int jv = 32 * v + lane;
-    if (jv < n) packed[(long long)w * n + jv] = static_cast<int>(d);
-    atomicAdd(cnt_v + 32 * vi + lane, __popc(d));
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (v0 + c >= vn) break;
+      const int jv = 32 * (V0 + v0 + c) + lane;
+      if (jv < n) packed[(long long)w * n + jv] = static_cast<int>(d[c]);
+      atomicAdd(cnt_v + 32 * (v0 + c) + lane, __popc(d[c]));
+    }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < 32 * TILE; t += kThreads) {
@@ -359,14 +407,17 @@ extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* pa
 
 // The rows form: rows (r, m) against fitness (n, m); packed (ceil(r/32),
 // n), count (n,). grid_x = ceil(ceil(n / 32) / tile_words), grid_y =
-// ceil(ceil(r / 32) / tile_words) for the instance's super-tile
+// ceil(ceil(r / 32) / tile_words) for the instance's super-tile, and
+// columns the column words a lane takes (4 exact, 2 generic)
 // (kernels/dominance.py::rows_launch_plan).
 extern "C" int evox_packed_dominance_rows(const void* rows, int r, const void* fitness, int n,
                                           int m, void* packed, void* count, void* stream,
-                                          int instance, int grid_x, int grid_y) {
+                                          int instance, int grid_x, int grid_y, int columns) {
   const int n_words = (n + 31) / 32, r_words = (r + 31) / 32;
   if (r <= 0 || n <= 0 || m <= 0 || m > kMaxM || !(instance == 0 || instance == m) ||
-      instance > 4 || grid_x != (n_words + tile_words(instance) - 1) / tile_words(instance) ||
+      instance > 4 ||
+      columns != (instance > 0 ? RowsColumns<1>::value : RowsColumns<0>::value) ||
+      grid_x != (n_words + tile_words(instance) - 1) / tile_words(instance) ||
       grid_y != (r_words + tile_words(instance) - 1) / tile_words(instance) ||
       grid_y > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -38,12 +38,15 @@ mesh-sharded sort (``operators/selection/non_dominate.py``) launches it
 once a shard on the shard's ``+inf``-padded rows. In the JAX package the
 slab is ``dominate_relation`` + ``pack_dominator_rows`` outside Pallas
 (``evox_tpu/kernels/dominance.py:88-102``); here it is a launch of B3's
-rows kernel, with ``packed_dominance_rows_reference`` its plain version.
+rows kernel, which tests each (slab row, column) pair once, one way
+("every <=" and "some <" in one pass over the objectives; no transposed
+word), with ``packed_dominance_rows_reference`` its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Any, Optional, Tuple
 
 import torch
@@ -67,6 +70,9 @@ MAX_OBJECTIVES = 32
 THREADS = 128
 EXACT_TILE_WORDS = 8
 GENERIC_TILE_WORDS = 4
+# the rows form's column words a lane (csrc/dominance.cu's RowsColumns)
+ROWS_EXACT_COLUMNS = 4
+ROWS_GENERIC_COLUMNS = 2
 # blocks an SM the __launch_bounds__ of the exact and the generic instances
 # guarantee
 EXACT_MIN_BLOCKS_PER_SM = 6
@@ -285,13 +291,23 @@ def dominance_rows_work(r: int, n: int, m: int) -> Tuple[int, int]:
 def rows_launch_plan(r: int, n: int, m: int) -> dict:
     """The rows kernel's launch: :func:`launch_plan`'s instance and tile,
     a grid of ``ceil(n_words / tile)`` x ``ceil(r_words / tile)`` blocks,
-    every one of which works."""
+    every one of which works. A warp task is one slab word against
+    ``columns_per_lane`` column words (a lane holds that many column rows),
+    ``tile_words * tile_words / columns_per_lane`` tasks a block."""
     plan = launch_plan(n, m)
     r_words = -(-r // 32)
     gy = -(-r_words // plan["tile_words"])
+    columns = ROWS_EXACT_COLUMNS if plan["instance"] else ROWS_GENERIC_COLUMNS
     return {"instance": plan["instance"], "threads": THREADS, "tile_words": plan["tile_words"],
+            "columns_per_lane": columns, "tasks": plan["tile_words"] ** 2 // columns,
             "grid": (plan["grid"][0], gy), "working_blocks": plan["grid"][0] * gy,
             "r_words": r_words, "n_words": plan["n_words"]}
+
+
+@lru_cache(maxsize=None)
+def _rows_args(r: int, n: int, m: int) -> Tuple[int, int, int, int]:
+    plan = rows_launch_plan(r, n, m)
+    return plan["instance"], plan["grid"][0], plan["grid"][1], plan["columns_per_lane"]
 
 
 def packed_dominance_rows_reference(rows: torch.Tensor, fitness: torch.Tensor
@@ -302,6 +318,23 @@ def packed_dominance_rows_reference(rows: torch.Tensor, fitness: torch.Tensor
     return packed, column_popcount(packed)
 
 
+_ROWS_ARGS = [
+    ctypes.c_void_p,  # rows (r, m) float32
+    ctypes.c_int,  # r
+    ctypes.c_void_p,  # fitness (n, m) float32
+    ctypes.c_int,  # n
+    ctypes.c_int,  # m
+    ctypes.c_void_p,  # packed (ceil(r/32), n) int32
+    ctypes.c_void_p,  # count (n,) int32
+    ctypes.c_void_p,  # cudaStream_t
+    ctypes.c_int,  # instance
+    ctypes.c_int,  # grid x
+    ctypes.c_int,  # grid y
+    ctypes.c_int,  # column words a lane
+]
+_rows_entry: list = []  # the C entry point, resolved once a process
+
+
 def _launch_rows(rows: torch.Tensor, fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     r, m = rows.shape
     n = fitness.shape[0]
@@ -309,33 +342,32 @@ def _launch_rows(rows: torch.Tensor, fitness: torch.Tensor) -> Tuple[torch.Tenso
         raise ValueError(
             f"the packed_dominance kernel takes at most {MAX_OBJECTIVES} objectives, got {m}"
         )
-    rw, fit = rows.contiguous(), fitness.contiguous()
-    packed = torch.empty(((r + 31) // 32, n), dtype=torch.int32, device=fit.device)
-    count = torch.empty((n,), dtype=torch.int32, device=fit.device)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    if not fitness.is_contiguous():
+        fitness = fitness.contiguous()
+    packed = fitness.new_empty(((r + 31) // 32, n), dtype=torch.int32)
+    count = fitness.new_empty((n,), dtype=torch.int32)
     if n == 0 or r == 0:
         return packed.zero_(), count.zero_()
-    plan = rows_launch_plan(r, n, m)
-    if plan["grid"][1] > 65535:
-        raise ValueError(f"packed_dominance_rows takes at most {65535 * 32 * plan['tile_words']} "
-                         f"rows a slab, got {r}")
-    fn = _build.function("dominance", "evox_packed_dominance_rows", [
-        ctypes.c_void_p,  # rows (r, m) float32
-        ctypes.c_int,  # r
-        ctypes.c_void_p,  # fitness (n, m) float32
-        ctypes.c_int,  # n
-        ctypes.c_int,  # m
-        ctypes.c_void_p,  # packed (ceil(r/32), n) int32
-        ctypes.c_void_p,  # count (n,) int32
-        ctypes.c_void_p,  # cudaStream_t
-        ctypes.c_int,  # instance
-        ctypes.c_int,  # grid x
-        ctypes.c_int,  # grid y
-    ])
-    with torch.cuda.device(fit.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rw.data_ptr(), r, fit.data_ptr(), n, m, packed.data_ptr(), count.data_ptr(),
-                 stream, plan["instance"], plan["grid"][0], plan["grid"][1])
-    _build.check_launch("dominance", err, "packed_dominance_rows")
+    instance, gx, gy, columns = _rows_args(r, n, m)
+    if gy > 65535:
+        raise ValueError(f"packed_dominance_rows takes at most "
+                         f"{65535 * 32 * rows_launch_plan(r, n, m)['tile_words']} rows a slab, "
+                         f"got {r}")
+    if not _rows_entry:
+        _rows_entry.append(_build.function("dominance", "evox_packed_dominance_rows", _ROWS_ARGS))
+    args = (rows.data_ptr(), r, fitness.data_ptr(), n, m, packed.data_ptr(), count.data_ptr())
+    index = fitness.get_device()
+    if index == torch._C._cuda_getDevice():  # no device context for the current card
+        err = _rows_entry[0](*args, torch._C._cuda_getCurrentRawStream(index), instance, gx, gy,
+                             columns)
+    else:
+        with torch.cuda.device(index):
+            err = _rows_entry[0](*args, torch._C._cuda_getCurrentRawStream(index), instance, gx,
+                                 gy, columns)
+    if err:
+        _build.check_launch("dominance", err, "packed_dominance_rows")
     packed_dominance_rows.launches += 1
     nbytes, ops = dominance_rows_work(r, n, m)
     charge("packed_dominance_rows", ops, nbytes)
@@ -360,11 +392,15 @@ def packed_dominance_rows(rows: torch.Tensor, fitness: torch.Tensor, device: Dev
         ``packed[w, j]``: slab row ``32w + k`` dominates row ``j``) and the
         int32 ``(n,)`` popcounts of their columns.
     """
-    dev = resolve_device(device)
     _check_fitness(rows)
     _check_fitness(fitness)
     if rows.shape[1] != fitness.shape[1]:
         raise ValueError(f"rows have {rows.shape[1]} objectives, fitness {fitness.shape[1]}")
+    if isinstance(device, torch.device) and device.type == "cuda" and rows.is_cuda \
+            and rows.get_device() == fitness.get_device() \
+            and device.index in (None, rows.get_device()):
+        return _launch_rows(rows, fitness)  # both on the named card: no other check
+    dev = resolve_device(device)
     check_device(rows, dev, "rows")
     check_device(fitness, dev, "fitness")
     if dev.type == "cpu":

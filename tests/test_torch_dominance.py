@@ -197,3 +197,80 @@ def test_launch_plan_refuses_what_the_kernel_does_not_take():
     for n, m in ((0, 3), (10, 0), (10, tdom.MAX_OBJECTIVES + 1)):
         with pytest.raises(ValueError, match="plans"):
             tdom.launch_plan(n, m)
+
+
+# ------------------------------------------ B3's rows form: the one-way rule
+
+
+def _stress_rows(n, m, seed):
+    """Rows with ties on every objective, NaN, -0.0 against +0.0, +inf and
+    -inf, duplicated rows and rows equal but for one objective."""
+    rng = np.random.default_rng(seed)
+    fit = np.round(rng.random((n, m)), 1).astype(np.float32)
+    fit[1::7] = fit[0::7][: len(fit[1::7])]  # duplicates
+    fit[2::11, 0] = -0.0
+    fit[3::11, 0] = 0.0
+    fit[4::13] = np.inf
+    fit[5::17, m - 1] = np.nan
+    fit[6::19, 0] = -np.inf
+    fit[8::23] = fit[9::23][: len(fit[8::23])]
+    fit[8::23, m // 2] = np.nextafter(fit[8::23, m // 2], np.float32(-np.inf))
+    return torch.from_numpy(fit)
+
+
+def _one_way_rows(rows, fitness):
+    """The rows kernel's rule in plain PyTorch: bit k of word w, column j
+    is ``le_all(rows[32w + k], fitness[j]) & lt_any(...)``, packed."""
+    le = (rows[:, None, :] <= fitness[None, :, :]).all(-1)
+    lt = (rows[:, None, :] < fitness[None, :, :]).any(-1)
+    packed = tdom.pack_dominator_rows(le & lt, (rows.shape[0] + 31) // 32)
+    return packed, tdom.column_popcount(packed)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 7])
+def test_one_way_strict_rule_equals_the_rows_reference(m):
+    """``le_all & lt_any`` in one pass equals ``a & ~transpose(b)`` (the
+    plain rows form, ``dominate_relation``) word for word on stress rows:
+    ties, NaN, ±0.0 and ±inf, at m 1-5 and a generic m."""
+    fit = _stress_rows(300, m, seed=40 + m)
+    rows = torch.cat([fit[64:160], torch.full((32, m), float("inf"))])
+    got = _one_way_rows(rows, fit)
+    want = tdom.packed_dominance_rows_reference(rows, fit)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _rows_coverage(plan):
+    """``(r_words, n_words)``: how many (block, warp task, lane word) of the
+    rows plan write word row w of the columns of word v, with
+    ``csrc/dominance.cu``'s index arithmetic: block ``(bx, by)``, task t of
+    ``tile * tile / C`` is slab word ``by * tile + t // (tile / C)``
+    against column words ``bx * tile + (t % (tile / C)) * C + c``, c < C,
+    each inside the slab's and the fitness's words."""
+    s, c = plan["tile_words"], plan["columns_per_lane"]
+    gx, gy = plan["grid"]
+    rw, nw = plan["r_words"], plan["n_words"]
+    hits = np.zeros((rw, nw), np.int64)
+    for by in range(gy):
+        for bx in range(gx):
+            wn, vn = min(s, rw - by * s), min(s, nw - bx * s)
+            for t in range(plan["tasks"]):
+                wi, v0 = t // (s // c), (t % (s // c)) * c
+                if wi >= wn or v0 >= vn:
+                    continue
+                for cc in range(c):
+                    if v0 + cc < vn:
+                        hits[by * s + wi, bx * s + v0 + cc] += 1
+    return hits
+
+
+@pytest.mark.parametrize("n,m,shards", __import__("chip_smoke").DOMINANCE_ROWS)
+def test_rows_launch_plan_covers_every_word_once(n, m, shards):
+    """At each ``DOMINANCE_ROWS`` shape (a shard's ``+inf``-padded slab
+    against the full fitness), every (slab word, column word) is written by
+    exactly one warp task and lane word of the plan."""
+    n_words = -(-n // 32)
+    r = -(-n_words // shards) * 32
+    plan = tdom.rows_launch_plan(r, n, m)
+    assert plan["columns_per_lane"] == (4 if m <= 4 else 2)
+    assert plan["tasks"] * plan["columns_per_lane"] == plan["tile_words"] ** 2
+    assert bool((_rows_coverage(plan) == 1).all())

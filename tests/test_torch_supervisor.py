@@ -123,6 +123,34 @@ def test_deadline_fires_within_twice_its_bound():
     assert sup.counters["deadline_hits"] == 1 and sup.report()["outcome"] == "aborted"
 
 
+def test_an_abandoned_dispatch_counts_no_time():
+    """A chunk the deadline abandons ends after its retry: the executor
+    counts the retry's dispatch time and not the abandoned call's, so the
+    dispatch total stays inside the run's wall (``tools/check_report.py``'s
+    coherence law), whenever the abandoned thread ends."""
+    from evox_tpu_torch.core.executor import GenerationExecutor
+
+    ex = GenerationExecutor()
+    sup = RunSupervisor(deadline_s=0.2, max_retries=1)
+    calls, release = [], []
+
+    def chunk():
+        calls.append(1)
+        if len(calls) == 1:  # the first call hangs until released
+            while not release:
+                time.sleep(0.01)
+        return len(calls)
+
+    t0 = time.perf_counter()
+    assert sup.call(lambda: ex._timed_dispatch("run", chunk), entry="run") == 2
+    wall = time.perf_counter() - t0
+    release.append(True)
+    time.sleep(0.1)  # the abandoned thread returns now
+    assert sup.counters["deadline_hits"] == 1
+    assert ex.overlap["device_dispatch_s"] < wall
+    assert [s["name"] for s in ex._trace_spans] == ["run"]
+
+
 def test_retry_and_restore_replay_the_clean_run(tmp_path):
     clean = _wf().run(_wf().init(3), 30)
     wf = _wf()

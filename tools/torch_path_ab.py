@@ -9,7 +9,12 @@ ms: ``run_host_pipelined`` and the serialized ask, evaluate, tell loop),
 path 21 (PSO 256 x 64 on Ackley with ``TelemetryMonitor(30)`` and donated
 carries) and path 36's fleet (16 PSO tenants of 256 on Sphere, d 64, each
 with ``TelemetryMonitor(8)``, under one vmap): the last two carry the
-telemetry ring's sums.
+telemetry ring's sums; path 5 (CMA-ES on Rastrigin at d 1000, pop 24),
+path 28 (64 CMA-ES tenants of pop 256 at d 16 under one vmap) and path 31
+(path 2 with the mesh-sharded sort on an 8-shard mesh of the card): M1's
+and B3 rows' callers. ``--only NAME[,NAME]`` times some of the groups
+``pendulum, nsga2, shade, moead, islands, host, telemetry, cmaes, fleet,
+sharded_nsga2``.
 
 Each turn runs in a fresh process inside one checkout: it builds that
 checkout's CUDA sources, takes the init step and one warm-up generation,
@@ -20,7 +25,7 @@ torch.profiler counts over 8 generations. The turns go A, B, B, A, so that a slo
 shows on both checkouts alike. Run from a checkout, with both checkouts
 unpacked (``git archive``) into directories::
 
-    python3 tools/torch_path_ab.py DIR_A DIR_B [--out PATH]
+    python3 tools/torch_path_ab.py DIR_A DIR_B [--only NAMES] [--out PATH]
 """
 
 from __future__ import annotations
@@ -121,7 +126,27 @@ def _host_paths(torch, chip_smoke) -> dict:
             "host_serial": _ms(torch, wf, state, serial)}
 
 
-def measure(tree: Path) -> dict:
+def _cmaes_paths(torch, chip_smoke, only: set) -> dict:
+    """Path 5 (CMA-ES at d 1000), path 28's fleet (64 tenants under one
+    vmap) and path 31 (NSGA-II with the mesh-sharded sort, 8 shards)."""
+    out = {}
+    if "cmaes" in only:
+        wf = chip_smoke.build_cmaes_path(torch)
+        out["cmaes"] = _ms(torch, wf, wf.step(wf.step(wf.init(0))))
+    if "fleet" in only:
+        fleet, _ = chip_smoke.build_fleet_path(torch)
+        state = fleet.run(fleet.init(list(range(chip_smoke.TEN_N))), 2)
+        out["fleet"] = _ms(torch, fleet, state)
+    if "sharded_nsga2" in only:
+        from evox_tpu_torch.core.distributed import create_mesh
+
+        mesh = create_mesh(devices=[torch.device("cuda", 0)] * chip_smoke.PATH31_SHARDS)
+        wf = chip_smoke.build_sharded_nsga2_path(torch, mesh)
+        out["sharded_nsga2"] = _ms(torch, wf, wf.step(wf.step(wf.init(0))))
+    return out
+
+
+def measure(tree: Path, only: set) -> dict:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -133,36 +158,49 @@ def measure(tree: Path) -> dict:
 
     _build.build()
     out = {}
-    pendulum, _ = chip_smoke.build_main_path(torch, 0)
-    out["pendulum"] = _ms(torch, pendulum, pendulum.step(pendulum.step(pendulum.init(0))))
-    nsga2 = chip_smoke.build_nsga2_path(torch)
-    wf = StdWorkflow(nsga2.algorithm, nsga2.problem)
-    out["nsga2"] = _ms(torch, wf, wf.step(wf.step(wf.init(0))))
-    shade = chip_smoke.build_shade_path(torch)
-    out["shade"] = _ms(torch, shade, shade.step(shade.step(shade.init(0))))
-    lb, ub = torch.zeros(chip_smoke.MOEAD_D), torch.ones(chip_smoke.MOEAD_D)
-    moead = StdWorkflow(MOEAD(lb, ub, n_objs=chip_smoke.MO_M, pop_size=chip_smoke.MO_POP,
-                              aggregate_op="pbi"), DTLZ2(d=chip_smoke.MOEAD_D, m=chip_smoke.MO_M))
-    out["moead"] = _ms(torch, moead, moead.step(moead.step(moead.init(0))))
-    islands, _ = chip_smoke.build_island_paths(torch)
-    warm = islands.step(islands.step(islands.init(0)))
-    out["islands"] = _ms(torch, islands, warm)
-    out["islands_kernels_per_gen"], out["islands_dtoh_per_gen"] = _profile_counts(
-        torch, islands, warm)
-    out.update(_host_paths(torch, chip_smoke))
-    out.update(_telemetry_paths(torch, chip_smoke))
+    if "pendulum" in only:
+        pendulum, _ = chip_smoke.build_main_path(torch, 0)
+        out["pendulum"] = _ms(torch, pendulum, pendulum.step(pendulum.step(pendulum.init(0))))
+    if "nsga2" in only:
+        nsga2 = chip_smoke.build_nsga2_path(torch)
+        wf = StdWorkflow(nsga2.algorithm, nsga2.problem)
+        out["nsga2"] = _ms(torch, wf, wf.step(wf.step(wf.init(0))))
+    if "shade" in only:
+        shade = chip_smoke.build_shade_path(torch)
+        out["shade"] = _ms(torch, shade, shade.step(shade.step(shade.init(0))))
+    if "moead" in only:
+        lb, ub = torch.zeros(chip_smoke.MOEAD_D), torch.ones(chip_smoke.MOEAD_D)
+        moead = StdWorkflow(MOEAD(lb, ub, n_objs=chip_smoke.MO_M, pop_size=chip_smoke.MO_POP,
+                                  aggregate_op="pbi"),
+                            DTLZ2(d=chip_smoke.MOEAD_D, m=chip_smoke.MO_M))
+        out["moead"] = _ms(torch, moead, moead.step(moead.step(moead.init(0))))
+    if "islands" in only:
+        islands, _ = chip_smoke.build_island_paths(torch)
+        warm = islands.step(islands.step(islands.init(0)))
+        out["islands"] = _ms(torch, islands, warm)
+        out["islands_kernels_per_gen"], out["islands_dtoh_per_gen"] = _profile_counts(
+            torch, islands, warm)
+    if "host" in only:
+        out.update(_host_paths(torch, chip_smoke))
+    if "telemetry" in only:
+        out.update(_telemetry_paths(torch, chip_smoke))
+    out.update(_cmaes_paths(torch, chip_smoke, only))
     return out
+
+
+GROUPS = ("pendulum,nsga2,shade,moead,islands,host,telemetry,cmaes,fleet,sharded_nsga2")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("a", type=Path)
     parser.add_argument("b", type=Path)
+    parser.add_argument("--only", default=GROUPS)
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--turn", type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.turn is not None:
-        print(json.dumps(measure(args.turn.resolve())), flush=True)
+        print(json.dumps(measure(args.turn.resolve(), set(args.only.split(",")))), flush=True)
         return 0
     args.a, args.b = args.a.resolve(), args.b.resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -171,8 +209,8 @@ def main() -> int:
     turns = []
     for name, tree in (("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(args.a), str(args.b),
-                               "--turn", str(tree)], capture_output=True, text=True,
-                              cwd=str(tree))
+                               "--turn", str(tree), "--only", args.only], capture_output=True,
+                              text=True, cwd=str(tree))
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
             raise SystemExit(f"turn {name} in {tree} exited {proc.returncode}")
