@@ -513,6 +513,12 @@ ROOT = Path(__file__).resolve().parent
 # bandwidth, at the full 700 W power limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# integer and compare instructions an H100 SM issues a clock (4 partitions
+# of 16 lanes), and its SMs and top SM clock: the issue rate that B3
+# batched's and D1's bounds count at
+INT_ISSUE_PER_SM_CLOCK = 64
+H100_SMS = 132
+SM_CLOCK_MAX_HZ = 1.98e9
 GENERATIONS = 20  # timed main-path generations, after one warm-up step
 SEED = 0
 # main path 2: bench.py:374-388's NSGA-II workload, at full width
@@ -639,6 +645,9 @@ ISL_CKPT_EVERY, ISL_CKPT_GENERATIONS = 8, 32
 # merged rows (4, 2000, 3) and their migrate's (4, 1004, 3: 1000 and 4
 # migrants) among them, and 64 small members
 DOMINANCE_BATCHES = ((4, 1000, 3), (4, 2000, 3), (8, 1250, 3), (64, 512, 2), (4, 1004, 3))
+# B3's small single launches, which share the batched plan: IM-MOEA's merged
+# rows and the EvalMonitor archive's
+DOMINANCE_SMALL_SINGLES = ((1998, 3), (11024, 3))
 # main path 28, bench.py's workload 5 (bench.py:458-606): 64 CMA-ES tenants
 # of pop 256 at d 16, the differenced trip counts (10, 60 until PR 21, whose
 # three paths took the script past 540 s: the depth was cut, not the
@@ -857,6 +866,16 @@ def rollout_work(n: int, episodes: int, steps: int, obs: int, hidden: int, act: 
 def bound_ms(nbytes: int, ops: int) -> tuple:
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def issue_bound_ms(nbytes: int, instructions: float) -> tuple:
+    """The larger of the bytes over the memory rate and ``instructions``
+    (the integer and compare operations the function needs, lane by lane)
+    over the card's issue rate for them, 64 a clock an SM at the top
+    clock."""
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = instructions / (INT_ISSUE_PER_SM_CLOCK * H100_SMS * SM_CLOCK_MAX_HZ) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1472,18 +1491,20 @@ def topk_stress(torch, kt, dev, seed: int, inf_share: float, n_ninf: int) -> dic
     return results
 
 
-def dominance_block_shape(kd, n: int, m: int) -> dict:
-    """The dominance kernel's launch at ``(n, m)``: the plan's instance,
-    threads, super-tile, grid, shared memory and blocks an SM, the
-    runtime's blocks an SM and registers for that instance, and ptxas's
-    registers and spills of every instance (keyed by m, 0 the generic)."""
+def dominance_block_shape(kd, n: int, m: int, b: int = 1) -> dict:
+    """The square dominance kernel's launch for ``b`` members at ``(n,
+    m)``: the plan's instance, threads, super-tile, grid, shared memory and
+    blocks an SM, the runtime's blocks an SM and registers for that
+    instance and super-tile, and ptxas's registers and spills of every
+    square instance (keyed ``m/tile``, m 0 the generic)."""
     from evox_tpu_torch.kernels import _build
 
-    plan = kd.launch_plan(n, m)
+    plan = kd.launch_plan(n, m, b)
     ptxas = {}
     for name, rep in ptxas_functions(_build.build_log("dominance") or "").items():
-        found = re.search(r"dominance_kernelILi(\d+)E", name)
-        ptxas[int(found.group(1)) if found else name] = rep
+        found = re.search(r"dominance_kernelILi(\d+)ELi(\d+)E", name)
+        if found:
+            ptxas[f"{found.group(1)}/{found.group(2)}"] = rep
     runtime = kd.kernel_occupancy(plan, m)
     if runtime["blocks_per_sm"] < plan["blocks_per_sm"]:
         raise AssertionError(f"the dominance kernel fits fewer blocks an SM than its plan: "
@@ -1549,9 +1570,12 @@ def phase_nsga2_kernels(torch, wf, seed: int) -> dict:
                 f"packed_dominance, stress n={sn} m={sm}",
                 kd.packed_dominance(fit_s, device=dev), kd.packed_dominance_reference(fit_s))
             del fit_s
-    for sm in DOMINANCE_STRESS_M:  # no instance spills
-        check_no_spill(stats["block"]["ptxas"], f"dominance_kernel, m={sm}",
-                       kd.launch_plan(1000, sm)["instance"])
+    square = stats["block"]["ptxas"]  # no square instance spills, at any super-tile
+    if len(square) != 14:
+        raise AssertionError(f"ptxas reports {len(square)} square dominance instances, expected 14 "
+                             f"(m 1-4 at 8, 4, 2 words; generic at 4, 2): {sorted(square)}")
+    for key in square:
+        check_no_spill(square, f"dominance_kernel, m/tile {key}", key)
 
     # the main path's cut key: -crowding on the cut front, +inf elsewhere
     rank, cut = non_dominated_sort(merged, until=k, return_cut_rank=True)
@@ -4477,11 +4501,15 @@ def phase_dominance_batched(torch) -> dict:
     2's stress rows: ties, NaN, ±0.0, ±inf and +inf rows) in one launch,
     held bit for bit against its plain batched version on the same card
     tensors and against ``b`` single-member launches; timed by CUDA events
-    against the ``b`` single launches and the plain version, with its bound
-    from the bytes and operations of ``b`` members."""
+    against the ``b`` single launches and the plain version, with its host
+    and device µs a call, its plan (super-tile and blocks) and its bound
+    from the bytes and the compares the function needs on ``b`` members
+    (m an ordered pair). Then the small single launches (n 1998 and 11024, m 3,
+    stress rows), which share the plan, bit for bit against the plain
+    version."""
     from evox_tpu_torch.kernels import dominance as kd
 
-    out = {"shapes": []}
+    out = {"shapes": [], "singles": []}
     for b, n, m in DOMINANCE_BATCHES:
         fit = torch.stack([stress_fitness(torch, n, m, 1000 * b + n + r, "cpu")
                            for r in range(b)]).cuda()
@@ -4495,15 +4523,34 @@ def phase_dominance_batched(torch) -> dict:
         singles = [kd.packed_dominance(f, device=fit.device) for f in fit]
         compare_exact(f"batched packed_dominance ({b}, {n}, {m}) against single launches", got,
                       (torch.stack([p for p, _ in singles]), torch.stack([c for _, c in singles])))
+        call = lambda: kd.packed_dominance_batched(fit, device=fit.device)  # noqa: E731
+        plan = kd.launch_plan(n, m, b)
         entry = {"b": b, "n": n, "m": m, "launches": launches, "max_abs_err": check["max_abs_err"],
-                 "ms": _time_ms(lambda: kd.packed_dominance_batched(fit, device=fit.device), 3, 20),
+                 "plan": {k: plan[k] for k in ("tile_words", "grid", "threads", "warps_per_block")},
+                 "ms": _time_ms(call, 3, 20),
+                 "host_us": host_us_per_call(torch, call, 200),
+                 "device_us": device_us_per_call(torch, call),
                  "single_launches_ms": _time_ms(
                      lambda: [kd.packed_dominance(f, device=fit.device) for f in fit], 2, 10),
                  "plain_ms": _time_ms(lambda: kd.packed_dominance_batched_reference(fit), 1, 3)}
-        nbytes, ops = dominance_work(n, m)
-        entry["bound_ms"], entry["bound_by"] = bound_ms(b * nbytes, b * ops)
+        nbytes, _ = dominance_work(n, m)
+        entry["bound_ms"], entry["bound_by"] = issue_bound_ms(b * nbytes,
+                                                              b * kd.dominance_compares(n, m))
         out["shapes"].append(entry)
         print(f"[dominance batched] {json.dumps(entry)}", flush=True)
+    for n, m in DOMINANCE_SMALL_SINGLES:
+        fit = stress_fitness(torch, n, m, 7 * n + m, "cuda")
+        check = compare_exact(f"packed_dominance, single launch n={n} m={m} with stress rows",
+                              kd.packed_dominance(fit, device=fit.device),
+                              kd.packed_dominance_reference(fit))
+        call = lambda: kd.packed_dominance(fit, device=fit.device)  # noqa: E731
+        plan = kd.launch_plan(n, m)
+        entry = {"n": n, "m": m, "max_abs_err": check["max_abs_err"],
+                 "plan": {k: plan[k] for k in ("tile_words", "grid")},
+                 "ms": _time_ms(call, 3, 20), "host_us": host_us_per_call(torch, call, 200),
+                 "device_us": device_us_per_call(torch, call)}
+        out["singles"].append(entry)
+        print(f"[dominance single] {json.dumps(entry)}", flush=True)
     return out
 
 
@@ -6503,44 +6550,36 @@ def digest_stress_leaves(torch, dev) -> dict:
     return {**leaves, "seed": 12345, "big_seed": 2**40 + 7}
 
 
-def d1_kernel_ms(torch, leaves, salts, reps: int = 40) -> float:
-    """D1's device ms a launch: raw launches of ``csrc/digest.cu`` on
-    prebuilt tables (a few µs of host a call, under the kernel's time),
-    alternating between ``leaves`` and a copy of them, so that the two
-    (2 x 33.6 MB on CSO's state) exceed the 50 MB L2 and each launch reads
-    its words from device memory; CUDA events around ``reps`` launches."""
-    import numpy as np
-
+def d1_kernel_us(torch, leaves, salts, reps: int = 40) -> dict:
+    """D1's device µs a launch: CUDA events around ``reps`` raw launches
+    (``kernels/digest.py::_prepare``'s, a few µs of host each, under the
+    kernel's time). ``memory``: the leaves and a copy of them in turns, so
+    that the two (2 x 33.6 MB on CSO's state) exceed the 50 MB L2 and each
+    launch reads its words from device memory; ``l2``: the leaves alone
+    back to back (33.6 MB, partly held in L2)."""
     from evox_tpu_torch.kernels import _build
     from evox_tpu_torch.kernels import digest as kd
 
-    fn = _build.function("digest", "evox_state_digest", kd._SIGNATURE)
-    stream = torch.cuda.current_stream().cuda_stream
-    calls, alive = [], []
-    for group in (list(leaves), [x.clone() for x in leaves]):
-        rows, n_blocks, flat = kd._table(group, salts)
-        carry = np.asarray(kd.IDENTITY, np.uint32)
-        dev = group[0].device
-        partial = torch.empty((n_blocks * kd.DIGEST_WORDS + 1,), dtype=torch.int32, device=dev)
-        leaf_out = torch.empty((len(group), kd.DIGEST_WORDS), dtype=torch.int64, device=dev)
-        out = torch.empty((kd.DIGEST_WORDS,), dtype=torch.int64, device=dev)
-        calls.append((rows.ctypes.data, len(group), carry.ctypes.data, n_blocks, partial.data_ptr(),
-                      leaf_out.data_ptr(), out.data_ptr(), None, stream))
-        alive.append((rows, carry, partial, leaf_out, out, flat, group))
+    copy = [x.clone() for x in leaves]
+    launches = [kd._prepare(group, salts, kd.IDENTITY, None)[0] for group in (leaves, copy)]
 
-    def run():
+    def run(turn):
         for i in range(reps):
-            _build.check_launch("digest", fn(*calls[i % 2]), "state digest")
+            err = turn[i % len(turn)]()
+            if err:
+                _build.check_launch("digest", err, "state digest")
 
-    return _time_ms(run, 1, 1) / reps
+    return {"memory": _time_ms(lambda: run(launches), 1, 1) / reps * 1e3,
+            "l2": _time_ms(lambda: run(launches[:1]), 1, 1) / reps * 1e3}
 
 
 def phase_digest_kernel(torch, state, dev) -> dict:
     """D1 against its plain version on the card, bit for bit: every tensor
     leaf of path 4's CSO state in one launch, the stress leaves, and a
     state of more leaves than a table (chained launches); both against
-    ``host_state_digest``. Times D1 and the plain version on CSO's state
-    (CUDA events) beside their bound."""
+    ``host_state_digest``; two streams at once; a digest under CUDA graph
+    capture refused. Times D1 and the plain version on CSO's state (CUDA
+    events) beside their bound."""
     import numpy as np
 
     from evox_tpu_torch.core.attest import _salt, host_state_digest, state_digest
@@ -6580,6 +6619,22 @@ def phase_digest_kernel(torch, state, dev) -> dict:
         want = [kd.digest_leaves_plain(la, sa)[0], kd.digest_leaves_plain(lb, sb)[0]] * 4
         return compare_exact("D1 on two streams at once", got, want)
 
+    def capture_refused(tree):
+        # a digest under CUDA graph capture would share its stream's
+        # scratch with the graph's replays: the wrapper refuses it
+        named = [(n, x) for n, x in named_leaves(tree) if isinstance(x, torch.Tensor) and x.numel()]
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        before = kd.digest_leaves.launches
+        try:
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream):
+                kd.digest_leaves([x for _, x in named], [_salt(n) for n, _ in named])
+        except RuntimeError as err:
+            if "captured" not in str(err) or kd.digest_leaves.launches != before:
+                raise
+            return True
+        raise AssertionError("D1: a digest was captured into a CUDA graph")
+
     selected = state.replace(monitors=())
     stress = digest_stress_leaves(torch, dev)
     out = {"cso_state": check("path 4's CSO state", selected),
@@ -6591,22 +6646,29 @@ def phase_digest_kernel(torch, state, dev) -> dict:
     named = [(n, x) for n, x in named_leaves(selected) if isinstance(x, torch.Tensor) and x.numel()]
     leaves, salts = [x for _, x in named], [_salt(n) for n, _ in named]
     nbytes, ops = kd.digest_work(leaves)
-    t_bound, bound_by = bound_ms(nbytes, ops)
     before = kd.digest_leaves.launches
     launch = lambda: kd.digest_leaves(leaves, salts)  # noqa: E731
+    t_bound, bound_by = issue_bound_ms(nbytes, ops)
+    words = [kd.n_words(x) for x in leaves]
+    plan = kd.digest_plan(words, torch_sm_count())
+    kernel_us = d1_kernel_us(torch, leaves, salts)
     out.update({
         "leaves": len(leaves), "bytes": nbytes, "operations": ops,
-        # the kernel's own time from device memory (raw launches, CUDA
-        # events); the wrapper's calls back to back (its host time shows
-        # when it exceeds the kernel's), the profiler's device time of a
-        # wrapper call (the words in L2 after the first), its host time
-        "ms": d1_kernel_ms(torch, leaves, salts),
+        "plan": {"grid": plan["grid"], "threads": plan["threads"], "chunks": plan["chunks"],
+                 "chunk_words": plan["chunk_words"]},
+        # the kernel's own time from device memory and with the words
+        # partly in L2 (raw launches); the wrapper's calls back to back
+        # (its host time shows when it exceeds the kernel's), the
+        # profiler's device time of a wrapper call, its host time
+        "ms": kernel_us["memory"] / 1e3,
+        "l2_ms": kernel_us["l2"] / 1e3,
         "wrapper_ms": _time_ms(launch, 3, 20),
         "device_us": device_us_per_call(torch, launch),
         "host_us": host_us_per_call(torch, launch, 200),
         "plain_ms": _time_ms(lambda: kd.digest_leaves_plain(leaves, salts), 1, 3),
         "bound_ms": t_bound, "bound_by": bound_by,
         "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+        "capture_refused": capture_refused(stress),
         "state_digest_host_us": host_us_per_call(torch, lambda: state_digest(selected), 200),
     })
     kd.digest_leaves.launches = before  # the comparison's launches are not the path's
@@ -9737,8 +9799,9 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this
         "b": main["b"], "n": main["n"], "m": main["m"],
+        "plan": main["plan"], "host_us": main["host_us"], "device_us": main["device_us"],
         "single_launches_ms": main["single_launches_ms"],
-        "shapes": db["shapes"],
+        "shapes": db["shapes"], "small_singles": db["singles"],
         "callers": [{"caller": "non_dominated_sort's vmap rule in NSGA-II's tell over 4 stacked "
                                "islands' merged rows (the MO islands phase), one launch a tell",
                      "b": MO_ISLANDS, "n": 2 * MO_FAMILY_POP, "m": MO_M,
@@ -9764,6 +9827,7 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "bound_by": d1["bound_by"],
         "library_ms": None,  # no single PyTorch call computes these words
         "leaves": d1["leaves"], "bytes": d1["bytes"],
+        "l2_ms": d1["l2_ms"], "plan": d1["plan"],
         "wrapper_ms": d1["wrapper_ms"], "device_us": d1["device_us"], "host_us": d1["host_us"],
         "state_digest_host_us": d1["state_digest_host_us"],
         "callers": [{"caller": "StateAttestor(every=10) on path 4's CSO, one launch an "

@@ -253,12 +253,20 @@ def _scalar_digest(leaf: Any, salt: int) -> Optional[Tuple[int, ...]]:
     per-call cost: an attestation digests a state's seeds every time);
     ``None`` for any other leaf."""
     if isinstance(leaf, (bool, np.bool_)):
-        words = [int(leaf)]
-    elif isinstance(leaf, int) and not isinstance(leaf, np.generic):
-        fits = _INT32.min <= leaf <= _INT32.max
-        words = [leaf & _M32] if fits else [leaf & _M32, (leaf >> 32) & _M32]
+        return _int_digest(1, int(leaf), salt)
+    if isinstance(leaf, int) and not isinstance(leaf, np.generic):
+        return _int_digest(0, leaf, salt)
+    return None
+
+
+@functools.lru_cache(maxsize=4096)
+def _int_digest(is_bool: int, value: int, salt: int) -> Tuple[int, ...]:
+    """``_scalar_digest`` of a bool (``is_bool``) or an int, kept: seeds and
+    counters recur from one digest to the next."""
+    if is_bool or _INT32.min <= value <= _INT32.max:
+        words = [value & _M32]
     else:
-        return None
+        words = [value & _M32, (value >> 32) & _M32]
     s0 = s1 = 0
     for i, w in enumerate(words):
         base = w ^ ((i * _PHI) & _M32) ^ salt
@@ -279,6 +287,20 @@ def _fold(acc: List[int], d: Any) -> None:
     acc[5] = (acc[5] + d[5]) & _M32
 
 
+def _combine_host(digests: List[Tuple[int, ...]]) -> List[int]:
+    """The combination of host digests (tuples of Python integers), from
+    the empty tree's words."""
+    x1 = 0
+    for d in digests:
+        x1 ^= d[1]
+    cols = list(zip(*digests)) or [()] * DIGEST_WORDS
+    return [sum(cols[0]) & _M32, x1, min(cols[2], default=_MIN_IDENTITY),
+            max(cols[3], default=0), sum(cols[4]) & _M32, sum(cols[5]) & _M32]
+
+
+_CPU = torch.device("cpu")
+
+
 def _device_digest(tree: Any, per_leaf: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``(combined, {path: words})`` of ``tree``: non-empty tensor leaves
     through ``kernels/digest.py`` (one launch for the CUDA leaves, the
@@ -287,28 +309,29 @@ def _device_digest(tree: Any, per_leaf: bool = False) -> Tuple[torch.Tensor, Dic
     tensor on the CUDA leaves' device (else the CPU). With ``per_leaf`` the
     dict holds each leaf's words: a device row for a tensor leaf, host
     integers for the rest."""
-    from ..kernels.digest import digest_leaves, empty_leaf_digest
+    from ..kernels import digest as kd
 
-    acc = [int(v) for v in _EMPTY_TREE]
+    host: List[Tuple[int, ...]] = []
     leaves: Dict[str, Any] = {}
     groups: Dict[torch.device, List[Tuple[str, torch.Tensor, int]]] = {}
     for name, leaf in named_leaves(tree):
         salt = _salt(name)
-        if isinstance(leaf, torch.Tensor) and leaf.numel() > 0:
-            groups.setdefault(leaf.device, []).append((name, leaf, salt))
-            continue
         if isinstance(leaf, torch.Tensor):
-            d = empty_leaf_digest(salt)
+            if leaf.numel() > 0:
+                groups.setdefault(leaf.device, []).append((name, leaf, salt))
+                continue
+            d = kd.empty_leaf_digest(salt)
         else:
             d = _scalar_digest(leaf, salt)
             if d is None:
-                d = _leaf_digest_np(leaf, salt)
-        _fold(acc, d)
+                d = tuple(_leaf_digest_np(leaf, salt).tolist())
+        host.append(d)
         if per_leaf:
             leaves[name] = d
-    cpu = groups.pop(torch.device("cpu"), None)
+    acc = _combine_host(host)
+    cpu = groups.pop(_CPU, None)
     if cpu:
-        combined, rows = digest_leaves([x for _, x, _ in cpu], [s for _, _, s in cpu])
+        combined, rows = kd.digest_leaves([x for _, x, _ in cpu], [s for _, _, s in cpu])
         _fold(acc, combined.tolist())
         if per_leaf:
             leaves.update({name: rows[i] for i, (name, _, _) in enumerate(cpu)})
@@ -317,7 +340,11 @@ def _device_digest(tree: Any, per_leaf: bool = False) -> Tuple[torch.Tensor, Dic
     if not groups:
         return torch.tensor(acc, dtype=torch.int64), leaves
     (dev, items), = groups.items()
-    combined, rows = digest_leaves([x for _, x, _ in items], [s for _, _, s in items], carry=acc)
+    leaf_list, salt_list = [x for _, x, _ in items], [s for _, _, s in items]
+    if dev.type == "cuda":  # grouped by device, none empty: the launch needs no other check
+        combined, rows = kd.launch_digest(leaf_list, salt_list, acc)
+    else:
+        combined, rows = kd.digest_leaves(leaf_list, salt_list, carry=acc)
     if per_leaf:
         leaves.update({name: rows[i] for i, (name, _, _) in enumerate(items)})
     return combined, leaves

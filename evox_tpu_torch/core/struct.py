@@ -15,7 +15,8 @@ annotation that :mod:`evox_tpu_torch.core.dtype_policy` reads, and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, TypeVar
+import functools
+from typing import Any, Optional, Tuple, TypeVar
 
 _T = TypeVar("_T")
 
@@ -146,24 +147,48 @@ def map_tensors(fn: Any, tree: Any) -> Any:
     return tree
 
 
+@functools.lru_cache(maxsize=None)
+def _node(cls: type) -> Optional[Tuple[str, ...]]:
+    """How ``named_leaves`` walks an instance of ``cls``: a state's
+    non-static field names in order, ``DICT`` or ``SEQUENCE`` for a dict,
+    list or tuple, ``None`` for a leaf."""
+    if dataclasses.is_dataclass(cls):
+        return tuple(f.name for f in dataclasses.fields(cls) if not f.metadata.get("static", False))
+    if issubclass(cls, dict):
+        return DICT
+    if issubclass(cls, (list, tuple)):
+        return SEQUENCE
+    return None
+
+
+DICT, SEQUENCE = ("<dict>",), ("<sequence>",)
+
+
 def named_leaves(tree: Any, prefix: str = "", keep_none: bool = False) -> list:
     """``[(path, leaf)]`` of a state in ``jax.tree_util.keystr`` form: a
     field is ``.name``, a list or tuple item ``[i]``, a dict item
     ``['key']`` (keys sorted). Static fields are left out, as the JAX
     package keeps them out of its pytrees, and so is ``None`` unless
     ``keep_none``."""
+    out: list = []
+    _collect(tree, prefix, keep_none, out)
+    return out
+
+
+def _collect(tree: Any, prefix: str, keep_none: bool, out: list) -> None:
     if tree is None:
-        return [(prefix, None)] if keep_none else []
-    if _is_state(tree):
-        out = []
-        for f in dataclasses.fields(tree):
-            if not f.metadata.get("static", False):
-                out += named_leaves(getattr(tree, f.name), f"{prefix}.{f.name}", keep_none)
-        return out
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree)
-                for leaf in named_leaves(tree[k], f"{prefix}[{k!r}]", keep_none)]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for i, v in enumerate(tree)
-                for leaf in named_leaves(v, f"{prefix}[{i}]", keep_none)]
-    return [(prefix, tree)]
+        if keep_none:
+            out.append((prefix, None))
+        return
+    node = _node(type(tree))
+    if node is None:
+        out.append((prefix, tree))
+    elif node is DICT:
+        for k in sorted(tree):
+            _collect(tree[k], f"{prefix}[{k!r}]", keep_none, out)
+    elif node is SEQUENCE:
+        for i, v in enumerate(tree):
+            _collect(v, f"{prefix}[{i}]", keep_none, out)
+    else:
+        for name in node:
+            _collect(getattr(tree, name), f"{prefix}.{name}", keep_none, out)

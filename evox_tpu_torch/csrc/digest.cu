@@ -22,37 +22,64 @@
 // and float64 leaves; bfloat16 leaves count none, as the host digest.
 //
 // Design: the table of leaves is a __grid_constant__ kernel parameter (no
-// copy to the device). Block b takes kWordsPerBlock consecutive words of
-// the leaf whose block range holds b, reads them once (16-byte loads where
-// the leaf is 16-byte aligned and its words are 4 bytes wide), mixes in
-// registers and reduces its six words through warp shuffles and shared
-// memory into one row of the partial buffer. The last block to finish
-// reduces each leaf's rows into that leaf's digest and combines the
-// leaves; it is found by a counter that each launch owns (the word after
-// the partial rows, zeroed on the launch's stream just before it), so
-// launches on different streams, or after one that was cut short, do not
-// share it. Every reduction is an exact integer one, so the result does
-// not depend on the order in which blocks finish.
+// copy to the device). The leaves' words are cut into chunks of kChunk
+// words (a leaf's last chunk may be short), numbered leaf after leaf, and
+// a grid of whole waves (blocks an SM x SMs, fewer when there are fewer
+// chunks) takes them: block b the contiguous chunks [b C / G, (b + 1) C /
+// G) of the C chunks, so no block takes more than one chunk over another
+// and no SM an extra block. A block walks the leaves its chunks cross; on
+// each leaf's part its threads stride over 16-byte loads (where the leaf
+// is 16-byte aligned and its words are 4 bytes wide; else word by word),
+// kUnroll loads a thread at a time, the next kUnroll issued before the
+// current ones are mixed, so the loads are in flight under the integer
+// work. The index product is carried as an add (word 4q + j of a load
+// takes (4q) PHI + j PHI), the second mix's first step is the first's
+// XORed with a constant (mix(x ^ CH2) starts from h ^ (CH2 ^ CH2 >> 16)
+// where h = x ^ x >> 16), min and max take two words a step, and a float32
+// load is tested for NaN and inf by one compare of the sum of its four
+// magnitudes (NaN or +inf when one is), the exact counts taken only where
+// that sum is not finite. A block reduces its part of a leaf through
+// warp shuffles and shared memory and folds it into that leaf's six
+// accumulators with atomics (wrapping add, min, max). The last block to
+// finish, found by a counter, reads each leaf's accumulators into its
+// digest, combines the leaves and the carries, and leaves the scratch as
+// it found it: atomicExch puts each accumulator back to its identity, and
+// the counter, advanced by atomicInc with the grid's size, wraps to 0 with
+// the last block. So the scratch (one a stream, zeroed once when the
+// wrapper makes it) needs no zeroing before a launch, and launches on two
+// streams, each with its own scratch, do not share it. Every reduction is
+// an exact integer one, so the result does not depend on the order in
+// which blocks finish.
 //
-// What bounds it on an H100: the bytes. A leaf's bytes are read once
-// (33.6 MB for CSO's (4096, 1024) population and velocity: ~10 us at 3.35
-// TB/s); the two mixes cost ~14 integer operations a word, 1.2e8 for that
-// state, a few microseconds at the card's integer rate.
+// What bounds it on an H100: the bytes and the integer issue, about
+// equally. A leaf's bytes are read once (33.6 MB for CSO's (4096, 1024)
+// population and velocity: 10.0 us at 3.35 TB/s). The function needs
+// about 20 integer operations a word (kernels/digest.py's
+// DIGEST_OPERATIONS_PER_WORD: the index add, the salted word, the shared
+// first step, two finishes of two multiplies, two shifts and two xors,
+// the second's constant, the two sums, min and max), and the card issues
+// them at 64 a clock an SM: 8.4M words x 20 / (132 x 64 x 1.98 GHz) = 10.0
+// us. So the pass keeps loads in flight while it mixes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// kernels/digest.py's MAX_LEAVES, THREADS, BLOCKS_PER_SM and CHUNK_WORDS
 constexpr int kMaxLeaves = 112;
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 4;  // 1024 threads an SM, 64 registers
 constexpr int kWords = 6;
-constexpr long long kWordsPerBlock = 16384;
+constexpr long long kChunk = 1024;  // words a chunk
+constexpr int kUnroll = 4;          // 16-byte loads a thread, twice that in flight
 
 constexpr unsigned kPhi = 0x9E3779B1u;
 constexpr unsigned kMix1 = 0x85EBCA6Bu;
 constexpr unsigned kMix2 = 0xC2B2AE35u;
 constexpr unsigned kCh2 = 0x5BD1E995u;
+// mix(x ^ CH2)'s first step, given h = x ^ (x >> 16): h ^ kH2
+constexpr unsigned kH2 = kCh2 ^ (kCh2 >> 16);
 
 // element width codes and float kinds, as kernels/digest.py writes them
 enum Width : int { kW1 = 1, kW2 = 2, kW4 = 4, kW8 = 8 };
@@ -62,7 +89,7 @@ struct Leaf {
   const void* ptr;
   long long n_words;
   unsigned salt;
-  int block0;  // first block of this leaf
+  int chunk0;  // first chunk of this leaf
   int width;
   int fkind;
 };
@@ -70,16 +97,16 @@ struct Leaf {
 struct Table {
   Leaf leaf[kMaxLeaves];
   int n_leaves;
+  int n_chunks;
   unsigned carry[kWords];
 };
 
-__device__ __forceinline__ unsigned mix32(unsigned h) {
-  h ^= h >> 16;
+// the murmur3 finalizer after its first step (h = x ^ x >> 16)
+__device__ __forceinline__ unsigned finish(unsigned h) {
   h *= kMix1;
   h ^= h >> 13;
   h *= kMix2;
-  h ^= h >> 16;
-  return h;
+  return h ^ (h >> 16);
 }
 
 struct Acc {
@@ -92,12 +119,12 @@ struct Acc {
     nan = 0u;
     inf = 0u;
   }
-  __device__ __forceinline__ void word(unsigned w, unsigned long long i, unsigned salt) {
-    const unsigned base = w ^ (static_cast<unsigned>(i) * kPhi) ^ salt;
-    s0 += mix32(base);
-    s1 += mix32(base ^ kCh2);
-    mn = min(mn, w);
-    mx = max(mx, w);
+  // the two mixes of word w at flat index i, p = i * PHI (mod 2^32)
+  __device__ __forceinline__ void word(unsigned w, unsigned p, unsigned salt) {
+    const unsigned x = w ^ p ^ salt;
+    const unsigned h = x ^ (x >> 16);
+    s0 += finish(h);
+    s1 += finish(h ^ kH2);
   }
   __device__ __forceinline__ void f16(unsigned w) {
     if ((w & 0x7C00u) == 0x7C00u) {
@@ -116,6 +143,83 @@ struct Acc {
   }
 };
 
+// the four words of 16-byte load q, p = (4q) PHI; min and max as two
+// three-way steps
+template <int FKIND>
+__device__ __forceinline__ void quad(Acc& a, const uint4& v, unsigned p, unsigned salt) {
+  a.word(v.x, p, salt);
+  a.word(v.y, p + kPhi, salt);
+  a.word(v.z, p + 2u * kPhi, salt);
+  a.word(v.w, p + 3u * kPhi, salt);
+  a.mn = min(a.mn, min(v.x, v.y));
+  a.mn = min(a.mn, min(v.z, v.w));
+  a.mx = max(a.mx, max(v.x, v.y));
+  a.mx = max(a.mx, max(v.z, v.w));
+  if (FKIND == kF32) {
+    // NaN or +-inf among the four: the sum of their magnitudes is NaN or
+    // +inf (or overflows, a false alarm the exact counts below sort out)
+    const float s = fabsf(__uint_as_float(v.x)) + fabsf(__uint_as_float(v.y)) +
+                    fabsf(__uint_as_float(v.z)) + fabsf(__uint_as_float(v.w));
+    if (!(s < __uint_as_float(0x7F800000u))) {
+      a.f32(v.x);
+      a.f32(v.y);
+      a.f32(v.z);
+      a.f32(v.w);
+    }
+  } else if (FKIND == kF64) {
+    a.f64(v.x, v.y);
+    a.f64(v.z, v.w);
+  }
+}
+
+// the loads [q0, q1) of p4: thread t takes loads q0 + t + k kThreads, in
+// groups of kUnroll with the next group in flight while the current one
+// is mixed (no bound checks inside a whole group); the last, partial group
+// is issued with the last whole one, so no load waits alone
+template <int FKIND>
+__device__ void vector_part(Acc& a, const uint4* __restrict__ p4, long long q0, long long q1,
+                            unsigned salt) {
+  const long long first = q0 + threadIdx.x;
+  if (first >= q1) return;
+  const unsigned n = static_cast<unsigned>((q1 - first + kThreads - 1) / kThreads);
+  const unsigned groups = n / kUnroll, rest = n % kUnroll;
+  const uint4* p = p4 + first;
+  unsigned pp = static_cast<unsigned>(first) * (4u * kPhi);  // (4q) PHI of the next load
+  constexpr unsigned kNext = 4u * kPhi * kThreads;          // from a load to the next
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 cur[kUnroll], tail[kUnroll - 1];
+  if (groups) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) cur[u] = __ldg(p + u * kThreads);
+    for (unsigned g = 1; g < groups; ++g) {
+      uint4 nxt[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) nxt[u] = __ldg(p + (kUnroll + u) * kThreads);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) quad<FKIND>(a, cur[u], pp + u * kNext, salt);
+      p += kUnroll * kThreads;
+      pp += kUnroll * kNext;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+    }
+  }
+  // the partial group's loads, then the last whole group and the partial one
+  const uint4* pt = p + (groups ? kUnroll * kThreads : 0);
+#pragma unroll
+  for (int u = 0; u < kUnroll - 1; ++u) {
+    tail[u] = u < static_cast<int>(rest) ? __ldg(pt + u * kThreads) : zero;
+  }
+  if (groups) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) quad<FKIND>(a, cur[u], pp + u * kNext, salt);
+    pp += kUnroll * kNext;
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll - 1; ++u) {
+    if (u < static_cast<int>(rest)) quad<FKIND>(a, tail[u], pp + u * kNext, salt);
+  }
+}
+
 __device__ __forceinline__ unsigned load_word(const Leaf& L, long long i) {
   switch (L.width) {
     case kW1: return static_cast<unsigned>(__ldg(static_cast<const uint8_t*>(L.ptr) + i));
@@ -124,12 +228,34 @@ __device__ __forceinline__ unsigned load_word(const Leaf& L, long long i) {
   }
 }
 
-// the block's six words into thread 0's accumulator
+// words [i0, i1) of a leaf, one a thread at a time (1- and 2-byte elements,
+// leaves not 16-byte aligned, a leaf's last words); i0 is even, so an
+// 8-byte element's two words fall to one range
+__device__ void scalar_part(Acc& a, const Leaf& L, long long i0, long long i1) {
+  for (long long i = i0 + threadIdx.x; i < i1; i += kThreads) {
+    const unsigned w = load_word(L, i);
+    a.word(w, static_cast<unsigned>(i) * kPhi, L.salt);
+    a.mn = min(a.mn, w);
+    a.mx = max(a.mx, w);
+    if (L.fkind == kF16) {
+      a.f16(w);
+    } else if (L.fkind == kF32) {
+      a.f32(w);
+    } else if (L.fkind == kF64 && (i & 1)) {
+      a.f64(load_word(L, i - 1), w);
+    }
+  }
+}
+
+// the block's six words into thread 0's accumulator; word 1 by XOR when
+// combining leaves, by wrapping sum within one
+template <bool kXor>
 __device__ void block_reduce(Acc& a) {
   __shared__ unsigned sh[kWords][kThreads / 32];
   for (int off = 16; off > 0; off >>= 1) {
     a.s0 += __shfl_xor_sync(0xFFFFFFFFu, a.s0, off);
-    a.s1 += __shfl_xor_sync(0xFFFFFFFFu, a.s1, off);
+    const unsigned s1 = __shfl_xor_sync(0xFFFFFFFFu, a.s1, off);
+    a.s1 = kXor ? a.s1 ^ s1 : a.s1 + s1;
     a.mn = min(a.mn, __shfl_xor_sync(0xFFFFFFFFu, a.mn, off));
     a.mx = max(a.mx, __shfl_xor_sync(0xFFFFFFFFu, a.mx, off));
     a.nan += __shfl_xor_sync(0xFFFFFFFFu, a.nan, off);
@@ -148,7 +274,7 @@ __device__ void block_reduce(Acc& a) {
   if (threadIdx.x == 0) {
     for (int w = 1; w < kThreads / 32; ++w) {
       a.s0 += sh[0][w];
-      a.s1 += sh[1][w];
+      a.s1 = kXor ? a.s1 ^ sh[1][w] : a.s1 + sh[1][w];
       a.mn = min(a.mn, sh[2][w]);
       a.mx = max(a.mx, sh[3][w]);
       a.nan += sh[4][w];
@@ -158,112 +284,88 @@ __device__ void block_reduce(Acc& a) {
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
-digest_kernel(const __grid_constant__ Table t, unsigned* __restrict__ partial,
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+digest_kernel(const __grid_constant__ Table t, unsigned* __restrict__ scratch,
               long long* __restrict__ leaf_out, long long* __restrict__ out,
               const long long* __restrict__ carry_dev) {
-  // the leaf whose block range holds this block (block0 ascends)
-  int lo = 0, hi = t.n_leaves - 1;
-  const int b = static_cast<int>(blockIdx.x);
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (t.leaf[mid].block0 <= b) lo = mid; else hi = mid - 1;
+  // this block's chunks [c_lo, c_hi) and the leaf holding c_lo (chunk0
+  // ascends)
+  const long long C = t.n_chunks, G = gridDim.x, b = blockIdx.x;
+  const long long c_lo = b * C / G, c_hi = (b + 1) * C / G;
+  int l = 0, hi = t.n_leaves - 1;
+  while (l < hi) {
+    const int mid = (l + hi + 1) / 2;
+    if (t.leaf[mid].chunk0 <= c_lo) l = mid; else hi = mid - 1;
   }
-  const Leaf& L = t.leaf[lo];
-  const long long start = static_cast<long long>(b - L.block0) * kWordsPerBlock;
-  const long long end = min(start + kWordsPerBlock, L.n_words);
-
-  Acc a;
-  a.init();
-  long long scalar_from = start;
-  if (L.width >= kW4 && (reinterpret_cast<uintptr_t>(L.ptr) & 15u) == 0) {
-    // four words a load; start is a multiple of four
-    const uint4* p4 = static_cast<const uint4*>(L.ptr);
-    const long long q1 = end / 4;
-    for (long long q = start / 4 + threadIdx.x; q < q1; q += kThreads) {
-      const uint4 v = __ldg(p4 + q);
-      const unsigned long long i = static_cast<unsigned long long>(q) * 4;
-      a.word(v.x, i, L.salt);
-      a.word(v.y, i + 1, L.salt);
-      a.word(v.z, i + 2, L.salt);
-      a.word(v.w, i + 3, L.salt);
+  for (; l < t.n_leaves && t.leaf[l].chunk0 < c_hi; ++l) {
+    const Leaf& L = t.leaf[l];
+    const long long chunks = (L.n_words + kChunk - 1) / kChunk;
+    const long long w0 = (max(c_lo, static_cast<long long>(L.chunk0)) - L.chunk0) * kChunk;
+    const long long w1 = min(min(c_hi - L.chunk0, chunks) * kChunk, L.n_words);
+    Acc a;
+    a.init();
+    long long from = w0;
+    if (L.width >= kW4 && (reinterpret_cast<uintptr_t>(L.ptr) & 15u) == 0) {
+      // four words a load; w0 is a multiple of four
+      const uint4* p4 = static_cast<const uint4*>(L.ptr);
+      const long long q0 = w0 / 4, q1 = w1 / 4;
       if (L.fkind == kF32) {
-        a.f32(v.x);
-        a.f32(v.y);
-        a.f32(v.z);
-        a.f32(v.w);
+        vector_part<kF32>(a, p4, q0, q1, L.salt);
       } else if (L.fkind == kF64) {
-        a.f64(v.x, v.y);
-        a.f64(v.z, v.w);
+        vector_part<kF64>(a, p4, q0, q1, L.salt);
+      } else {
+        vector_part<kNone>(a, p4, q0, q1, L.salt);
       }
+      from = q1 * 4;
     }
-    scalar_from = q1 * 4;
-  }
-  for (long long i = scalar_from + threadIdx.x; i < end; i += kThreads) {
-    const unsigned w = load_word(L, i);
-    a.word(w, static_cast<unsigned long long>(i), L.salt);
-    if (L.fkind == kF16) {
-      a.f16(w);
-    } else if (L.fkind == kF32) {
-      a.f32(w);
-    } else if (L.fkind == kF64 && (i & 1)) {
-      a.f64(load_word(L, i - 1), w);
+    scalar_part(a, L, from, w1);
+    block_reduce<false>(a);
+    if (threadIdx.x == 0) {
+      unsigned* acc = scratch + static_cast<size_t>(l) * kWords;
+      atomicAdd(acc + 0, a.s0);
+      atomicAdd(acc + 1, a.s1);
+      atomicMin(acc + 2, a.mn);
+      atomicMax(acc + 3, a.mx);
+      if (a.nan) atomicAdd(acc + 4, a.nan);
+      if (a.inf) atomicAdd(acc + 5, a.inf);
     }
   }
-  block_reduce(a);
 
   __shared__ bool last;
   if (threadIdx.x == 0) {
-    unsigned* row = partial + static_cast<size_t>(b) * kWords;
-    row[0] = a.s0;
-    row[1] = a.s1;
-    row[2] = a.mn;
-    row[3] = a.mx;
-    row[4] = a.nan;
-    row[5] = a.inf;
     __threadfence();
-    unsigned* done = partial + static_cast<size_t>(gridDim.x) * kWords;
-    last = atomicAdd(done, 1u) == gridDim.x - 1;
+    // wraps to 0 with the grid's last block
+    unsigned* counter = scratch + static_cast<size_t>(kMaxLeaves) * kWords;
+    last = atomicInc(counter, static_cast<unsigned>(gridDim.x - 1)) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
 
-  // the last block: each leaf's rows into its digest, the leaves combined
-  unsigned c0 = t.carry[0], c1 = t.carry[1], c2 = t.carry[2];
-  unsigned c3 = t.carry[3], c4 = t.carry[4], c5 = t.carry[5];
-  for (int l = 0; l < t.n_leaves; ++l) {
-    const int r0 = t.leaf[l].block0;
-    const int r1 = l + 1 < t.n_leaves ? t.leaf[l + 1].block0 : static_cast<int>(gridDim.x);
-    Acc r;
-    r.init();
-    for (int row = r0 + threadIdx.x; row < r1; row += kThreads) {
-      const unsigned* p = partial + static_cast<size_t>(row) * kWords;
-      r.s0 += __ldcg(p + 0);
-      r.s1 += __ldcg(p + 1);
-      r.mn = min(r.mn, __ldcg(p + 2));
-      r.mx = max(r.mx, __ldcg(p + 3));
-      r.nan += __ldcg(p + 4);
-      r.inf += __ldcg(p + 5);
-    }
-    block_reduce(r);
-    if (threadIdx.x == 0) {
-      long long* d = leaf_out + static_cast<size_t>(l) * kWords;
-      d[0] = r.s0;
-      d[1] = r.s1;
-      d[2] = r.mn;
-      d[3] = r.mx;
-      d[4] = r.nan;
-      d[5] = r.inf;
-      c0 += r.s0;
-      c1 ^= r.s1;
-      c2 = min(c2, r.mn);
-      c3 = max(c3, r.mx);
-      c4 += r.nan;
-      c5 += r.inf;
-    }
+  // the last block: thread l takes leaf l's accumulators into its digest
+  // and puts them back to their identity; the leaves combined
+  Acc r;
+  r.init();
+  if (threadIdx.x < t.n_leaves) {
+    unsigned* acc = scratch + static_cast<size_t>(threadIdx.x) * kWords;
+    r.s0 = atomicExch(acc + 0, 0u);
+    r.s1 = atomicExch(acc + 1, 0u);
+    r.mn = atomicExch(acc + 2, 0xFFFFFFFFu);
+    r.mx = atomicExch(acc + 3, 0u);
+    r.nan = atomicExch(acc + 4, 0u);
+    r.inf = atomicExch(acc + 5, 0u);
+    long long* d = leaf_out + static_cast<size_t>(threadIdx.x) * kWords;
+    d[0] = r.s0;
+    d[1] = r.s1;
+    d[2] = r.mn;
+    d[3] = r.mx;
+    d[4] = r.nan;
+    d[5] = r.inf;
   }
+  block_reduce<true>(r);
   if (threadIdx.x == 0) {
+    unsigned c0 = r.s0 + t.carry[0], c1 = r.s1 ^ t.carry[1], c2 = min(r.mn, t.carry[2]);
+    unsigned c3 = max(r.mx, t.carry[3]), c4 = r.nan + t.carry[4], c5 = r.inf + t.carry[5];
     if (carry_dev != nullptr) {
       c0 += static_cast<unsigned>(carry_dev[0]);
       c1 ^= static_cast<unsigned>(carry_dev[1]);
@@ -283,19 +385,23 @@ digest_kernel(const __grid_constant__ Table t, unsigned* __restrict__ partial,
 
 }  // namespace
 
-// rows: n_leaves x 6 int64 (ptr, n_words, salt, block0, width, fkind),
-// carry: 6 uint32 host words; partial: n_blocks x 6 + 1 uint32 scratch
-// (the last word is the launch's block counter);
-// leaf_out: n_leaves x 6 int64; out: 6 int64; carry_dev: 6 int64 or null.
+// rows: n_leaves x 6 int64 (ptr, n_words, salt, chunk0, width, fkind);
+// carry: 6 uint32 host words; n_chunks: the leaves' chunks; blocks: the
+// grid (1 <= blocks <= n_chunks; kernels/digest.py::digest_plan); scratch:
+// the stream's kMaxLeaves x 6 + 1 uint32 accumulators and counter, at
+// their identity (each launch leaves them so); leaf_out: n_leaves x 6
+// int64; out: 6 int64; carry_dev: 6 int64 or null.
 extern "C" int evox_state_digest(const long long* rows, int n_leaves, const unsigned* carry,
-                                 int n_blocks, void* partial, void* leaf_out, void* out,
-                                 const void* carry_dev, void* stream) {
-  if (n_leaves <= 0 || n_leaves > kMaxLeaves || n_blocks <= 0) {
+                                 int n_chunks, int blocks, void* scratch, void* leaf_out,
+                                 void* out, const void* carry_dev, void* stream) {
+  if (n_leaves <= 0 || n_leaves > kMaxLeaves || n_chunks <= 0 || blocks <= 0 ||
+      blocks > n_chunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Table t;
   t.n_leaves = n_leaves;
-  int expect = 0;
+  t.n_chunks = n_chunks;
+  long long expect = 0;
   for (int l = 0; l < n_leaves; ++l) {
     const long long* r = rows + 6 * l;
     const int width = static_cast<int>(r[4]);
@@ -306,24 +412,20 @@ extern "C" int evox_state_digest(const long long* rows, int n_leaves, const unsi
     t.leaf[l].ptr = reinterpret_cast<const void*>(r[0]);
     t.leaf[l].n_words = r[1];
     t.leaf[l].salt = static_cast<unsigned>(r[2]);
-    t.leaf[l].block0 = static_cast<int>(r[3]);
+    t.leaf[l].chunk0 = static_cast<int>(r[3]);
     t.leaf[l].width = width;
     t.leaf[l].fkind = static_cast<int>(r[5]);
-    expect += static_cast<int>((r[1] + kWordsPerBlock - 1) / kWordsPerBlock);
+    expect += (r[1] + kChunk - 1) / kChunk;
   }
-  if (expect != n_blocks) return static_cast<int>(cudaErrorInvalidValue);
+  if (expect != n_chunks) return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < kWords; ++k) t.carry[k] = carry[k];
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned* done = static_cast<unsigned*>(partial) + static_cast<size_t>(n_blocks) * kWords;
-  const cudaError_t zeroed = cudaMemsetAsync(done, 0, sizeof(unsigned), s);
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  digest_kernel<<<n_blocks, kThreads, 0, s>>>(
-      t, static_cast<unsigned*>(partial), static_cast<long long*>(leaf_out),
+  digest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<unsigned*>(scratch), static_cast<long long*>(leaf_out),
       static_cast<long long*>(out), static_cast<const long long*>(carry_dev));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int evox_digest_words_per_block() { return static_cast<int>(kWordsPerBlock); }
+extern "C" int evox_digest_chunk_words() { return static_cast<int>(kChunk); }
 
 extern "C" int evox_digest_max_leaves() { return kMaxLeaves; }
 

@@ -30,15 +30,21 @@
 // the entry point zeroes on the stream first; integer sums are exact in
 // any order, so count is the same every run.
 //
-// Grid: block (bx, by) takes a super-tile of TILE x TILE words (the rows
-// of words from W0 = by * TILE against the columns of words from V0 =
-// bx * TILE; TILE is 8, or 4 for the generic instance), both row ranges
-// staged once in shared
-// memory, rows past n as NaN, which compare false and set no bit. Only
-// blocks with W0 <= V0 work (the others exit at once: their tiles are the
-// transposes of these), and a diagonal super-tile takes its w <= v pairs.
-// The launch plan (instance, grid) is computed by the wrapper,
-// kernels/dominance.py::launch_plan, and checked here.
+// Grid (square and batched forms): a block a super-tile of TILE x TILE
+// words, the rows of words from W0 = by * TILE against the columns of words
+// from V0 = bx * TILE; only the super-tiles by <= bx work (the others are
+// their transposes), a diagonal one on its w <= v pairs. Both row ranges
+// are staged once in shared memory, rows past n as NaN, which compare
+// false and set no bit. TILE is 8, 4 or 2 words (4 or 2 for the generic
+// instance): the wrapper (kernels/dominance.py::launch_plan) takes the
+// largest whose working blocks fill the card, so a small member count or a
+// small n gets smaller super-tiles and more of them, and n 20000 keeps the
+// square form's redesigned plan. At 8 words the grid is that plan's, (g,
+// g, members) with g = ceil(n_words / 8), the blocks by > bx exiting at
+// once. At 4 and 2 words the grid is linear over every member's working
+// super-tiles, so no block exits unused: block i is member z = i / P, P =
+// g (g + 1) / 2, and the t = i - z P-th super-tile of that member in row
+// order (row by holds g - by of them). The entry point checks the plan.
 //
 // Instances: the exact m = 1, 2, 3, 4 (no runtime test of m, a row in one
 // 4-, 8- or 16-byte load; m = 3 pads to 16 bytes) and a generic one for
@@ -55,10 +61,15 @@
 // loads or the stores, set the pace.
 //
 // Batched: a batch of b independent fitness matrices (b, n, m) takes one
-// launch whose grid has the member on its z axis; block (bx, by, z) is the
-// single-member block (bx, by) of member z, offset into member z's
-// fitness, words and counts, so each member's output is what the
-// single-member launch writes, bit for bit.
+// launch; a block's member offsets its fitness, words and counts, so each
+// member's output is what a launch of that member alone writes, bit for
+// bit. The single launch is the batch of one. At the MO islands' (4, 2000,
+// 3) the 8-word plan left 112 of its 256 blocks idle and one block of 4
+// warps an SM; the 2-word super-tiles give 2112 working blocks, 16 an SM.
+// A block stages both its row ranges with every load in flight at once.
+// The batched form's bound is the function's m compares an ordered pair
+// (kernels/dominance.py::dominance_compares) at 64 a clock an SM; the
+// packing, transposes, stores and counts come on top of them.
 //
 // Rows form (the mesh-sharded sort's slab, one launch a shard): a slab of
 // R dominator rows (rows, +inf-padded by the caller) against the full
@@ -193,38 +204,115 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ fit, int n,
   }
 }
 
+// The exact instances' staging of a super-tile's two row ranges (words
+// [w0, w0 + wn) into xs_w, [v0, v0 + vn) into xs_v, as stage_rows lays
+// them out): every load of both ranges issued before the first store, so a
+// block waits for one round trip to memory, not one a range and a loop
+// step
+template <int M, int TILE>
+__device__ __forceinline__ void stage_pair(const float* __restrict__ fit, int n, int w0, int wn,
+                                           int v0, int vn, float* xs_w, float* xs_v) {
+  constexpr int S = RowOf<M>::kStride;
+  constexpr int kRange = 32 * TILE * S;  // floats a range
+  constexpr int kSteps = (2 * kRange + kThreads - 1) / kThreads;
+  float v[kSteps];
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int t = threadIdx.x + i * kThreads;
+    const bool second = t >= kRange;
+    const int tt = second ? t - kRange : t;
+    const int rr = tt / S, k = tt % S;
+    const int r = 32 * (second ? v0 : w0) + rr;
+    v[i] = 0.0f;
+    if (t < 2 * kRange && k < M && rr < 32 * (second ? vn : wn)) {
+      v[i] = r < n ? __ldg(fit + static_cast<long long>(r) * M + k) : __int_as_float(0x7fc00000);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int t = threadIdx.x + i * kThreads;
+    if (t < 2 * kRange) (t >= kRange ? xs_v + (t - kRange) : xs_w + t)[0] = v[i];
+  }
+}
+
+// The first super-tile of row by of a member's g x g super-tiles, in row
+// order (row r holds the g - r super-tiles r <= bx < g)
+__device__ __forceinline__ long long row_start(long long by, long long g) {
+  return by * (2 * g - by + 1) / 2;
+}
+
+// Where a block works: its member and the first words of its super-tile's
+// rows (W0) and columns (V0). On the linear grid (super-tiles of 4 and 2
+// words) thread 0 finds them and every thread reads them back from shared
+// memory where it needs them (volatile), so that no register of the tile
+// loop holds them (the m = 3 and 4 instances use all 80); on the 2-D grid
+// (8 words) they are the block's indices, which cost no register either.
+template <int TILE>
+struct Place {
+  static constexpr bool kLinear = TILE < 8;
+  const volatile int* tile;
+  __device__ __forceinline__ int member() const { return kLinear ? tile[0] : blockIdx.z; }
+  __device__ __forceinline__ int w0() const { return kLinear ? tile[1] : blockIdx.y * TILE; }
+  __device__ __forceinline__ int v0() const { return kLinear ? tile[2] : blockIdx.x * TILE; }
+};
+
 // M in 1..4: exact; M == 0: generic, m <= kMaxM read one objective at a
 // time. The exact instances keep to 80 registers (6 blocks an SM; at 64
 // the m = 3 and 4 instances spill), the generic one to 64 (8).
-template <int M>
+template <int M, int TILE>
 __global__ void __launch_bounds__(kThreads, M > 0 ? 6 : 8)
-dominance_kernel(const float* __restrict__ fit, int n, int m, int n_words,
-                 int* __restrict__ packed, int* __restrict__ count) {
-  constexpr int TILE = TileWords<M>::value;
-  const int W0 = blockIdx.y * TILE, V0 = blockIdx.x * TILE;
-  if (W0 > V0) return;  // the transposes of tiles another block takes
-  // member blockIdx.z of a batch
-  fit += static_cast<long long>(blockIdx.z) * n * m;
-  packed += static_cast<long long>(blockIdx.z) * n_words * n;
-  count += static_cast<long long>(blockIdx.z) * n;
+dominance_kernel(const float* __restrict__ fit, int n, int m, int n_words, int g,
+                 int per_member, int* __restrict__ packed, int* __restrict__ count) {
+  __shared__ int tile_of[3];  // member, W0, V0 on the linear grid
+  const Place<TILE> place{tile_of};
+  if constexpr (Place<TILE>::kLinear) {
+    // block -> (member z, the t-th working super-tile of that member in row
+    // order): row by from the root of by (2g - by + 1) / 2 = t, corrected
+    // to the last row whose first super-tile is at or before t
+    if (threadIdx.x == 0) {
+      const int z = blockIdx.x / per_member;
+      const long long t = blockIdx.x - static_cast<long long>(z) * per_member;
+      const float h = 2.0f * g + 1.0f;
+      int by = static_cast<int>((h - sqrtf(fmaxf(h * h - 8.0f * t, 0.0f))) * 0.5f);
+      by = max(0, min(by, g - 1));
+      while (by > 0 && row_start(by, g) > t) --by;
+      while (by + 1 < g && row_start(by + 1, g) <= t) ++by;
+      tile_of[0] = z;
+      tile_of[1] = by * TILE;
+      tile_of[2] = static_cast<int>(by + t - row_start(by, g)) * TILE;
+    }
+    __syncthreads();
+  } else {
+    if (blockIdx.y > blockIdx.x) return;  // the transposes of super-tiles another block takes
+  }
   extern __shared__ __align__(16) float smem[];
   const int stride = M > 0 ? RowOf<(M > 0 ? M : 4)>::kStride : m;
-  const int wn = min(TILE, n_words - W0), vn = min(TILE, n_words - V0);
   float* xs_w = smem;
   float* xs_v = smem + 32 * TILE * stride;
   int* cnt_w = reinterpret_cast<int*>(xs_v + 32 * TILE * stride);
   int* cnt_v = cnt_w + 32 * TILE;
-  stage_rows(fit, n, m, stride, W0, wn, xs_w);
-  stage_rows(fit, n, m, stride, V0, vn, xs_v);
-  for (int t = threadIdx.x; t < 64 * TILE; t += kThreads) cnt_w[t] = 0;
+  {
+    const int W0 = place.w0(), V0 = place.v0();
+    const float* f = fit + static_cast<long long>(place.member()) * n * m;
+    if constexpr (M > 0) {
+      stage_pair<M, TILE>(f, n, W0, min(TILE, n_words - W0), V0,
+                          min(TILE, n_words - V0), xs_w, xs_v);
+    } else {
+      stage_rows(f, n, m, stride, W0, min(TILE, n_words - W0), xs_w);
+      stage_rows(f, n, m, stride, V0, min(TILE, n_words - V0), xs_v);
+    }
+  }
+  for (int i = threadIdx.x; i < 64 * TILE; i += kThreads) cnt_w[i] = 0;
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  for (int t = threadIdx.x >> 5; t < TILE * TILE; t += kWarps) {
-    const int wi = t / TILE, vi = t % TILE;
-    const int w = W0 + wi, v = V0 + vi;
-    // past the edge, or a diagonal super-tile's lower triangle
-    if (wi >= wn || vi >= vn || w > v) continue;
+  for (int task = threadIdx.x >> 5; task < TILE * TILE; task += kWarps) {
+    const int wi = task / TILE, vi = task % TILE;
+    {
+      const int W0 = place.w0(), V0 = place.v0();
+      // past the edge, or a diagonal super-tile's lower triangle
+      if (wi >= n_words - W0 || vi >= n_words - V0 || W0 + wi > V0 + vi) continue;
+    }
     unsigned a = 0, b = 0;  // bit k: L[32w + k][32v + lane], L[32v + k][32w + lane]
     if constexpr (M > 0) {
       using Row = typename RowOf<M>::T;
@@ -248,22 +336,26 @@ dominance_kernel(const float* __restrict__ fit, int n, int m, int n_words,
       }
     }
     const unsigned at = transpose32(a, lane), bt = transpose32(b, lane);
+    const int w = place.w0() + wi, v = place.v0() + vi;
+    int* words = packed + static_cast<long long>(place.member()) * n_words * n;
     const unsigned d_wv = a & ~bt;  // packed[w][32v + lane]
     const int jv = 32 * v + lane;
-    if (jv < n) packed[(long long)w * n + jv] = static_cast<int>(d_wv);
+    if (jv < n) words[(long long)w * n + jv] = static_cast<int>(d_wv);
     atomicAdd(cnt_v + 32 * vi + lane, __popc(d_wv));
     if (w != v) {
       const unsigned d_vw = b & ~at;  // packed[v][32w + lane]
       const int jw = 32 * w + lane;
-      if (jw < n) packed[(long long)v * n + jw] = static_cast<int>(d_vw);
+      if (jw < n) words[(long long)v * n + jw] = static_cast<int>(d_vw);
       atomicAdd(cnt_w + 32 * wi + lane, __popc(d_vw));
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < 32 * TILE; t += kThreads) {
-    const int jw = 32 * W0 + t, jv = 32 * V0 + t;
-    if (jw < n && cnt_w[t]) atomicAdd(count + jw, cnt_w[t]);
-    if (jv < n && cnt_v[t]) atomicAdd(count + jv, cnt_v[t]);
+  int* counts = count + static_cast<long long>(place.member()) * n;
+  const int W0 = place.w0(), V0 = place.v0();
+  for (int i = threadIdx.x; i < 32 * TILE; i += kThreads) {
+    const int jw = 32 * W0 + i, jv = 32 * V0 + i;
+    if (jw < n && cnt_w[i]) atomicAdd(counts + jw, cnt_w[i]);
+    if (jv < n && cnt_v[i]) atomicAdd(counts + jv, cnt_v[i]);
   }
 }
 
@@ -342,43 +434,61 @@ int row_stride(int instance, int m) {
   return instance == 0 ? m : instance == 1 ? 1 : instance == 2 ? 2 : 4;
 }
 
+// the rows form's super-tile: 8 words a side for the exact instances, 4 for
+// the generic one
 int tile_words(int instance) { return instance > 0 ? TileWords<1>::value : TileWords<0>::value; }
 
+// the square form's super-tiles: 8, 4 or 2 words a side (4 or 2 generic)
+bool square_tile(int instance, int tile) {
+  return tile == 2 || tile == 4 || (tile == 8 && instance > 0);
+}
+
 // a super-tile's two row ranges and two column counters
-size_t smem_bytes(int instance, int m) {
-  return sizeof(float) * 2 * 32 * tile_words(instance) * row_stride(instance, m) +
-         sizeof(int) * 2 * 32 * tile_words(instance);
+size_t smem_bytes(int instance, int tile, int m) {
+  return sizeof(float) * 2 * 32 * tile * row_stride(instance, m) + sizeof(int) * 2 * 32 * tile;
 }
 
-template <int M>
-void launch(const float* fit, int n, int m, int n_words, dim3 grid, int* packed, int* count,
-            cudaStream_t st) {
-  dominance_kernel<M><<<grid, kThreads, smem_bytes(M, m), st>>>(fit, n, m, n_words, packed,
-                                                                count);
+template <int M, int TILE>
+const void* square_kernel() {
+  return reinterpret_cast<const void*>(dominance_kernel<M, TILE>);
 }
 
-const void* kernel_of(int instance) {
-  return instance == 1 ? reinterpret_cast<const void*>(dominance_kernel<1>)
-       : instance == 2 ? reinterpret_cast<const void*>(dominance_kernel<2>)
-       : instance == 3 ? reinterpret_cast<const void*>(dominance_kernel<3>)
-       : instance == 4 ? reinterpret_cast<const void*>(dominance_kernel<4>)
-       : reinterpret_cast<const void*>(dominance_kernel<0>);
+template <int TILE>
+const void* square_kernel_of(int instance) {
+  return instance == 1 ? square_kernel<1, TILE>()
+       : instance == 2 ? square_kernel<2, TILE>()
+       : instance == 3 ? square_kernel<3, TILE>()
+       : instance == 4 ? square_kernel<4, TILE>()
+       : square_kernel<0, (TILE > 4 ? 4 : TILE)>();
+}
+
+const void* kernel_of(int instance, int tile) {
+  return tile == 8 ? square_kernel_of<8>(instance)
+       : tile == 4 ? square_kernel_of<4>(instance) : square_kernel_of<2>(instance);
 }
 
 }  // namespace
 
 // instance: 1..4 for the exact m (it must equal m), 0 for the generic one;
-// the grid is (grid, grid, batch) with grid = ceil(ceil(n / 32) /
-// tile_words) for the instance's super-tile (kernels/dominance.py::
-// launch_plan); fitness is (batch, n, m), packed (batch, ceil(n/32), n),
-// count (batch, n)
+// tile: the super-tile's words a side; blocks: the grid's blocks, batch * g
+// * g for tile 8 (a (g, g, batch) grid), batch * g (g + 1) / 2 for tiles 4
+// and 2 (a linear grid), with g = ceil(ceil(n / 32) / tile)
+// (kernels/dominance.py::launch_plan); fitness is (batch, n, m), packed
+// (batch, ceil(n/32), n), count (batch, n). The counts are zeroed on the
+// stream first (every block adds into them).
 extern "C" int evox_packed_dominance_batched(const void* fitness, int batch, int n, int m,
                                              void* packed, void* count, void* stream,
-                                             int instance, int grid) {
+                                             int instance, int tile, int blocks) {
+  if (batch <= 0 || n <= 0 || m <= 0 || m > kMaxM || !(instance == 0 || instance == m) ||
+      instance > 4 || !square_tile(instance, tile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int n_words = (n + 31) / 32;
-  if (batch <= 0 || batch > 65535 || n <= 0 || m <= 0 || m > kMaxM ||
-      !(instance == 0 || instance == m) || instance > 4 ||
-      grid != (n_words + tile_words(instance) - 1) / tile_words(instance) || grid > 65535) {
+  const long long g = (n_words + tile - 1) / tile;
+  const long long per = g * (g + 1) / 2;
+  const bool linear = tile < 8;
+  if (per > 0x7FFFFFFFLL || static_cast<long long>(blocks) != batch * (linear ? per : g * g) ||
+      (!linear && (g > 65535 || batch > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -388,21 +498,12 @@ extern "C" int evox_packed_dominance_batched(const void* fitness, int batch, int
   cudaError_t err = cudaMemsetAsync(
       counts, 0, sizeof(int) * static_cast<size_t>(n) * static_cast<size_t>(batch), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 g(grid, grid, batch);
-  switch (instance) {
-    case 1: launch<1>(fit, n, m, n_words, g, words, counts, st); break;
-    case 2: launch<2>(fit, n, m, n_words, g, words, counts, st); break;
-    case 3: launch<3>(fit, n, m, n_words, g, words, counts, st); break;
-    case 4: launch<4>(fit, n, m, n_words, g, words, counts, st); break;
-    default: launch<0>(fit, n, m, n_words, g, words, counts, st); break;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// one member: the batched launch of a batch of 1
-extern "C" int evox_packed_dominance(const void* fitness, int n, int m, void* packed,
-                                     void* count, void* stream, int instance, int grid) {
-  return evox_packed_dominance_batched(fitness, 1, n, m, packed, count, stream, instance, grid);
+  int gi = static_cast<int>(g), pi = static_cast<int>(per);
+  void* args[] = {&fit, &n, &m, const_cast<int*>(&n_words), &gi, &pi, &words, &counts};
+  const dim3 grid = linear ? dim3(blocks) : dim3(gi, gi, batch);
+  err = cudaLaunchKernel(kernel_of(instance, tile), grid, dim3(kThreads), args,
+                         smem_bytes(instance, tile, m), st);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The rows form: rows (r, m) against fitness (n, m); packed (ceil(r/32),
@@ -443,17 +544,18 @@ extern "C" int evox_packed_dominance_rows(const void* rows, int r, const void* f
   return static_cast<int>(cudaGetLastError());
 }
 
-// the runtime's blocks an SM and registers a thread of an instance, at the
-// shared memory its super-tile takes for m objectives
-extern "C" int evox_dominance_occupancy(int instance, int m, int* blocks_per_sm,
+// the runtime's blocks an SM and registers a thread of a square-form
+// instance and super-tile, at the shared memory it takes for m objectives
+extern "C" int evox_dominance_occupancy(int instance, int tile, int m, int* blocks_per_sm,
                                         int* registers) {
+  if (!square_tile(instance, tile)) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
-  const void* fn = kernel_of(instance);
+  const void* fn = kernel_of(instance, tile);
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *registers = attr.numRegs;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fn, kThreads, smem_bytes(instance, m)));
+      blocks_per_sm, fn, kThreads, smem_bytes(instance, tile, m)));
 }
 
 extern "C" const char* evox_cuda_error_string(int code) {

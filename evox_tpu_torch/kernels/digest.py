@@ -26,9 +26,10 @@ and writes int64 outputs.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from array import array
+from functools import lru_cache
+from typing import Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..core.cost import charge
@@ -40,14 +41,21 @@ __all__ = [
     "combine_words",
     "digest_leaves",
     "digest_leaves_plain",
+    "digest_plan",
     "digest_work",
+    "launch_digest",
     "leaf_digest_plain",
+    "plan_segments",
 ]
 
 DIGEST_WORDS = 6
-# csrc/digest.cu's table size and block span
+# csrc/digest.cu's table size, chunk, block and blocks an SM
 MAX_LEAVES = 112
-WORDS_PER_BLOCK = 16384
+CHUNK_WORDS = 1024
+THREADS = 256
+BLOCKS_PER_SM = 4
+# the card's SMs (an H100 SXM): the plan's default; the wrapper asks the card
+SM_COUNT = 132
 
 PHI = 0x9E3779B1  # 2**32 / golden ratio — index decorrelation
 MIX1 = 0x85EBCA6B  # murmur3 finalizer constants
@@ -72,13 +80,23 @@ def n_words(x: torch.Tensor) -> int:
     return x.numel() * (2 if _width(x) == 8 else 1)
 
 
+# the integer operations the digest needs a word, one a machine
+# instruction: the index (an add from the previous word's), the salted word
+# (one three-way xor), the mixes' shared first step (a shift, an xor), the
+# second mix's constant (an xor), two finishes of two multiplies, two
+# shifts and two xors, the two sums, and min and max over two words at a
+# time (three-way): 1 + 1 + 2 + 1 + 12 + 2 + 1. The NaN and inf tests of
+# float leaves are not counted
+DIGEST_OPERATIONS_PER_WORD = 20
+
+
 def digest_work(leaves: Sequence[torch.Tensor]) -> Tuple[int, int]:
     """(bytes, operations) of digesting ``leaves``: each leaf read once and
-    six words a leaf written; about 14 integer operations a word (two
-    mixes of five steps, the index product, the salts, min and max). The
-    bound column of PERF.md's table counts so."""
+    six words a leaf written; :data:`DIGEST_OPERATIONS_PER_WORD` integer
+    operations a word. The bound column of PERF.md's table counts so, at
+    the card's integer issue rate."""
     nbytes = sum(x.numel() * x.element_size() for x in leaves) + 8 * DIGEST_WORDS * (len(leaves) + 1)
-    return nbytes, 14 * sum(n_words(x) for x in leaves)
+    return nbytes, DIGEST_OPERATIONS_PER_WORD * sum(n_words(x) for x in leaves)
 
 
 # ------------------------------------------------------------------ plain version
@@ -166,65 +184,152 @@ def digest_leaves_plain(
 
 
 # ------------------------------------------------------------------------ kernel
+def digest_plan(words: Sequence[int], sms: int = SM_COUNT) -> dict:
+    """The kernel's launch for leaves of ``words`` uint32 words each: each
+    leaf cut into chunks of :data:`CHUNK_WORDS` words (its last may be
+    short), numbered leaf after leaf from ``chunk0[l]``; a grid of whole
+    waves, ``BLOCKS_PER_SM * sms`` blocks (fewer when there are fewer
+    chunks), block ``b`` taking the chunks ``[b C // G, (b + 1) C // G)``
+    (:func:`plan_segments`)."""
+    chunk0, c = [], 0
+    for w in words:
+        chunk0.append(c)
+        c += -(-w // CHUNK_WORDS)
+    return {"chunk0": chunk0, "chunks": c, "threads": THREADS,
+            "grid": (min(BLOCKS_PER_SM * sms, c),), "chunk_words": CHUNK_WORDS}
+
+
+def plan_segments(plan: dict, words: Sequence[int], block: int) -> List[Tuple[int, int, int]]:
+    """``[(leaf, first word, end word)]`` that block ``block`` of ``plan``
+    digests, with ``csrc/digest.cu``'s arithmetic."""
+    c, g = plan["chunks"], plan["grid"][0]
+    lo, hi = block * c // g, (block + 1) * c // g
+    out = []
+    for leaf, (c0, w) in enumerate(zip(plan["chunk0"], words)):
+        chunks = -(-w // CHUNK_WORDS)
+        if c0 + chunks <= lo or c0 >= hi:
+            continue
+        first = (max(lo, c0) - c0) * CHUNK_WORDS
+        out.append((leaf, first, min(min(hi - c0, chunks) * CHUNK_WORDS, w)))
+    return out
+
+
 _SIGNATURE = [
     ctypes.c_void_p,  # rows: n_leaves x 6 int64 (host)
     ctypes.c_int,  # n_leaves
     ctypes.c_void_p,  # carry: 6 uint32 (host)
-    ctypes.c_int,  # n_blocks
-    ctypes.c_void_p,  # partial: n_blocks x 6 + 1 uint32 scratch (the last: block counter)
+    ctypes.c_int,  # chunks
+    ctypes.c_int,  # blocks
+    ctypes.c_void_p,  # scratch: the stream's MAX_LEAVES x 6 + 1 uint32 accumulators
     ctypes.c_void_p,  # leaf_out: n_leaves x 6 int64
     ctypes.c_void_p,  # out: 6 int64
     ctypes.c_void_p,  # carry_dev: 6 int64 or null
     ctypes.c_void_p,  # cudaStream_t
 ]
+_entry: list = []  # the C entry point, resolved once a process
+# (device, stream) -> the stream's scratch: MAX_LEAVES rows of six
+# accumulators at their identity, then the block counter at 0. Each launch
+# leaves it as it found it (csrc/digest.cu), so it is made once a stream
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+_IDENTITY_ROW = [0, 0, -1, 0, 0, 0]  # int32 bits of IDENTITY's words
 
 
-def _table(leaves: Sequence[torch.Tensor], salts: Sequence[int]) -> Tuple[np.ndarray, int, list]:
-    """The kernel's table of leaves, ``(rows, n_blocks, flat)``: one row
-    ``(pointer, words, salt, first block, width, float kind)`` a leaf, the
-    blocks of the grid, and the contiguous tensors the pointers name (keep
-    them alive until the launch is queued)."""
-    flat = [x.detach().contiguous() for x in leaves]
-    rows = np.zeros((len(flat), 6), np.int64)
-    block0 = 0
-    for r, (x, salt) in enumerate(zip(flat, salts)):
-        words = n_words(x)
-        rows[r] = (x.data_ptr(), words, salt & MASK32, block0, _width(x),
-                   _FLOAT_KIND.get(x.dtype, 0))
-        block0 += -(-words // WORDS_PER_BLOCK)
-    return rows, block0, flat
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream_scratch(index: int, stream: int) -> torch.Tensor:
+    """The scratch of a stream of card ``index``, made (on that stream, the
+    current one) at its first launch."""
+    scratch = _scratch.get((index, stream))
+    if scratch is None:
+        scratch = torch.tensor(_IDENTITY_ROW * MAX_LEAVES + [0], dtype=torch.int32,
+                               device=torch.device("cuda", index))
+        _scratch[(index, stream)] = scratch
+    return scratch
+
+
+def _table(flat: Sequence[torch.Tensor], salts: Sequence[int]) -> Tuple[array, int, int, int]:
+    """The kernel's table of contiguous leaves, ``(rows, chunks, words,
+    bytes)``: one row ``(pointer, words, salt, first chunk, width, float
+    kind)`` a leaf, and the leaves' chunks, words and bytes (with the
+    outputs', :func:`digest_work`'s count)."""
+    rows, chunks, total, nbytes = array("q"), 0, 0, 8 * DIGEST_WORDS * (len(flat) + 1)
+    for x, salt in zip(flat, salts):
+        width, numel = _width(x), x.numel()
+        words = numel * 2 if width == 8 else numel
+        rows.extend((x.data_ptr(), words, salt & MASK32, chunks, width,
+                     _FLOAT_KIND.get(x.dtype, 0)))
+        chunks += -(-words // CHUNK_WORDS)
+        total += words
+        nbytes += numel * width
+    return rows, chunks, total, nbytes
+
+
+def _prepare(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int],
+             carry_dev: Optional[torch.Tensor]):
+    """One table's launch, built: ``(launch, card, out, leaf_out, words,
+    bytes)``. ``launch()`` launches the kernel on the current stream of the
+    card (which must be the current card) and returns the C entry's error
+    code. It refuses a stream that is being captured into a CUDA graph: the
+    launch folds into the stream's one scratch, which a graph's replays
+    would share with the stream's other digests."""
+    flat = [x if x.is_contiguous() else x.contiguous() for x in leaves]
+    rows, chunks, total, nbytes = _table(flat, salts)
+    index = flat[0].get_device()
+    blocks = min(BLOCKS_PER_SM * _sm_count(index), chunks)
+    carry_words = array("I", carry)
+    # one allocation for the leaves' words and the combination (its last row)
+    words_out = flat[0].new_empty((len(flat) + 1, DIGEST_WORDS), dtype=torch.int64)
+    out = words_out[-1]
+    if not _entry:
+        _entry.append(_build.function("digest", "evox_state_digest", _SIGNATURE))
+
+    def launch() -> int:
+        if torch._C._cuda_isCurrentStreamCapturing():
+            raise RuntimeError("a state digest cannot be captured into a CUDA graph: its launch "
+                               "folds into its stream's one scratch, which the graph's replays "
+                               "would share with the stream's other digests")
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        return _entry[0](rows.buffer_info()[0], len(flat), carry_words.buffer_info()[0], chunks,
+                         blocks, _stream_scratch(index, stream).data_ptr(), words_out.data_ptr(),
+                         out.data_ptr(), None if carry_dev is None else carry_dev.data_ptr(),
+                         stream)
+
+    return launch, index, out, words_out[:-1], total, nbytes
 
 
 def _launch_group(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int],
                   carry_dev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    dev = leaves[0].device
-    rows, n_blocks, flat = _table(leaves, salts)
-    carry_np = np.asarray(carry, np.uint32)
-    partial = torch.empty((n_blocks * DIGEST_WORDS + 1,), dtype=torch.int32, device=dev)
-    leaf_out = torch.empty((len(flat), DIGEST_WORDS), dtype=torch.int64, device=dev)
-    out = torch.empty((DIGEST_WORDS,), dtype=torch.int64, device=dev)
-    fn = _build.function("digest", "evox_state_digest", _SIGNATURE)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rows.ctypes.data, len(flat), carry_np.ctypes.data, n_blocks, partial.data_ptr(),
-                 leaf_out.data_ptr(), out.data_ptr(),
-                 None if carry_dev is None else carry_dev.data_ptr(), stream)
-    _build.check_launch("digest", err, "state digest")
+    launch, index, out, leaf_out, total, nbytes = _prepare(leaves, salts, carry, carry_dev)
+    if index == torch._C._cuda_getDevice():  # no device context for the current card
+        err = launch()
+    else:
+        with torch.cuda.device(index):
+            err = launch()
+    if err:
+        _build.check_launch("digest", err, "state digest")
     digest_leaves.launches += 1
-    nbytes, ops = digest_work(flat)
-    charge("state_digest", ops, nbytes)
+    charge("state_digest", DIGEST_OPERATIONS_PER_WORD * total, nbytes)
     return out, leaf_out
 
 
-def _launch(leaves: Sequence[torch.Tensor], salts: Sequence[int],
-            carry: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_digest(leaves: Sequence[torch.Tensor], salts: Sequence[int],
+                  carry: Sequence[int] = IDENTITY) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`digest_leaves` on the card without its checks: non-empty
+    leaves, all on one CUDA device (``core/attest.py`` groups them so). A
+    state of more than :data:`MAX_LEAVES` leaves chains launches through a
+    device carry."""
+    if len(leaves) <= MAX_LEAVES:
+        return _launch_group(leaves, salts, carry, None)
     out, rows, carry_dev = None, [], None
     for lo in range(0, len(leaves), MAX_LEAVES):
         out, leaf_out = _launch_group(leaves[lo:lo + MAX_LEAVES], salts[lo:lo + MAX_LEAVES],
                                       carry if lo == 0 else IDENTITY, carry_dev)
         carry_dev = out
         rows.append(leaf_out)
-    return out, rows[0] if len(rows) == 1 else torch.cat(rows)
+    return out, torch.cat(rows)
 
 
 def digest_leaves(
@@ -256,7 +361,7 @@ def digest_leaves(
     if dev.type == "cpu":
         return digest_leaves_plain(leaves, salts, carry)
     if dev.type == "cuda":
-        return _launch(list(leaves), list(salts), carry)
+        return launch_digest(list(leaves), list(salts), carry)
     raise ValueError(f"digest_leaves runs on cuda or cpu, not {dev}")
 
 

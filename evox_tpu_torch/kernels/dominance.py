@@ -23,10 +23,13 @@ kernel or raises.
 
 **Batched.** ``packed_dominance_batched`` takes ``(b, n, m)`` and returns
 ``(b, ceil(n/32), n)`` words and ``(b, n)`` counts, what ``vmap`` of the
-JAX function gives: on the card one launch with the member on the grid's z
-axis (each member's words and counts those of the single-member launch,
-bit for bit), on the CPU ``packed_dominance_batched_reference`` (the
-single-member plain version stacked over members). ``packed_dominance``
+JAX function gives: on the card one launch over every member's working
+super-tiles (each member's words and counts those of the single-member
+launch, bit for bit; a single member is the batch of one, and
+:func:`launch_plan` takes smaller super-tiles, on a linear grid, where
+larger ones would leave the card's SMs idle), on the CPU
+``packed_dominance_batched_reference`` (the single-member plain version
+stacked over members). ``packed_dominance``
 called under ``torch.func.vmap`` (stacked members,
 :mod:`evox_tpu_torch.core.members`) goes through a ``torch.library``
 custom op whose ``vmap`` rule makes that one batched call.
@@ -46,6 +49,7 @@ word), with ``packed_dominance_rows_reference`` its plain version.
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 from typing import Any, Optional, Tuple
 
@@ -64,12 +68,22 @@ _DENSE_BUILD_MAX_N = 20_000
 _BUILD_CHUNK_ROWS = 4096
 # objectives the kernel takes (csrc/dominance.cu)
 MAX_OBJECTIVES = 32
-# csrc/dominance.cu's block: 128 threads on a super-tile of 8 x 8 words (4
-# x 4 for the generic instance, whose rows of up to 32 objectives then take
-# 32 KB of shared memory)
+# csrc/dominance.cu's block: 128 threads (4 warps, a warp a 32 x 32 tile
+# pair at a time). The square and batched forms take super-tiles of 8, 4 or
+# 2 words a side (the generic instance, whose rows of up to 32 objectives
+# take 32 KB of shared memory at 4, 4 or 2); the rows form 8 (4 generic)
 THREADS = 128
+WARPS = THREADS // 32
 EXACT_TILE_WORDS = 8
 GENERIC_TILE_WORDS = 4
+SQUARE_TILES = {True: (8, 4, 2), False: (4, 2)}  # by exact instance, largest first
+# the card's SMs (an H100 SXM), and the working blocks a launch wants
+# before it takes a larger super-tile: eight an SM, more than the six that
+# fit at once, so the blocks' staging and flushes overlap other blocks'
+# compares (tools/torch_b3_sweep.py: the fastest super-tile at every
+# DOMINANCE_BATCHES shape and at n 1998, 11024 and 20000)
+SM_COUNT = 132
+FILL_BLOCKS = 8 * SM_COUNT
 # the rows form's column words a lane (csrc/dominance.cu's RowsColumns)
 ROWS_EXACT_COLUMNS = 4
 ROWS_GENERIC_COLUMNS = 2
@@ -91,6 +105,15 @@ def dominance_work(n: int, m: int) -> Tuple[int, int]:
     kernel table and the cost analysis (``core/cost.py``) both count so."""
     n_words = (n + 31) // 32
     return 4 * (n * m + n_words * n + n), 3 * m * n * n
+
+
+def dominance_compares(n: int, m: int) -> int:
+    """The compares the function needs on one member of ``(n, m)``
+    fitness: each of the n**2 ordered pairs compared once for "all <=" over
+    the m objectives (a compare that also ANDs its predicate into the
+    pair's), the strict rule coming from the transposed word. B3's batched
+    bound counts them at the card's integer and compare issue rate."""
+    return n * n * m
 
 
 def column_popcount(words: torch.Tensor) -> torch.Tensor:
@@ -163,33 +186,93 @@ def packed_dominance_reference(
     return packed, column_popcount(packed)
 
 
-def launch_plan(n: int, m: int) -> dict:
-    """The kernel's launch for ``(n, m)`` fitness.
-
-    ``instance``: ``m`` for the exact instances (m = 1..4), 0 for the
-    generic one, each with its ``tile_words``. Block ``(bx, by)`` takes the
-    super-tile of the rows of words ``[by * tile_words, (by + 1) *
-    tile_words)`` against the columns
-    of words ``[bx * tile_words, ...)`` (both cut at ``n_words``) and, from
-    the same compares, its transpose; blocks with ``by > bx`` exit at once,
-    and a block with ``by == bx`` takes the tiles ``w <= v``. A row takes
-    ``stride`` floats of shared memory.
-    """
+def _instance(n: int, m: int) -> Tuple[int, int]:
+    """(instance, the shared-memory floats a row takes): ``m`` for the exact
+    instances (m = 1..4; m 3 pads to 4), 0 for the generic one."""
     if not 1 <= m <= MAX_OBJECTIVES or n < 1:
-        raise ValueError(f"packed_dominance plans n >= 1 and 1 <= m <= {MAX_OBJECTIVES}, got {n}, {m}")
-    instance = m if m <= 4 else 0
-    stride = {1: 1, 2: 2, 3: 4, 4: 4}.get(m, m)
-    tile_words = EXACT_TILE_WORDS if instance else GENERIC_TILE_WORDS
+        raise ValueError(f"packed_dominance plans n >= 1 and 1 <= m <= {MAX_OBJECTIVES}, "
+                         f"got {n}, {m}")
+    return (m, {1: 1, 2: 2, 3: 4, 4: 4}[m]) if m <= 4 else (0, m)
+
+
+def launch_plan(n: int, m: int, b: int = 1) -> dict:
+    """The square kernel's launch for ``b`` members of ``(n, m)`` fitness:
+    :func:`tile_plan` at the largest super-tile of 8, 4, 2 words a side
+    (4, 2 for the generic instance) that gives :data:`FILL_BLOCKS` working
+    blocks, else at the smallest."""
+    instance, _ = _instance(n, m)
+    if b < 1:
+        raise ValueError(f"packed_dominance plans b >= 1 members, got {b}")
     n_words = -(-n // 32)
-    grid = -(-n_words // tile_words)
+    tiles = SQUARE_TILES[bool(instance)]
+    tile = next((t for t in tiles if b * _per_member(n_words, t) >= FILL_BLOCKS), tiles[-1])
+    return tile_plan(n, m, b, tile)
+
+
+def tile_plan(n: int, m: int, b: int, tile_words: int) -> dict:
+    """The square kernel's launch for ``b`` members of ``(n, m)`` fitness
+    on super-tiles of ``tile_words`` x ``tile_words`` words.
+
+    A block takes the rows of words ``[by * tile_words, ...)`` against the
+    columns of words ``[bx * tile_words, ...)`` (cut at ``n_words``) and,
+    from the same compares, its transpose, so only the super-tiles ``by <=
+    bx`` work, a diagonal one on its tile pairs ``w <= v``. At 8 words the
+    grid is the square form's ``(g, g, b)``, the blocks ``by > bx`` exiting
+    at once; at 4 and 2 it is linear over every member's ``g (g + 1) / 2``
+    working super-tiles, so every block works (:func:`block_tile` maps a
+    block to its member and super-tile). A row takes ``stride`` floats of
+    shared memory.
+    """
+    instance, stride = _instance(n, m)
+    if b < 1:
+        raise ValueError(f"packed_dominance plans b >= 1 members, got {b}")
+    tiles = SQUARE_TILES[bool(instance)]
+    if tile_words not in tiles:
+        raise ValueError(f"packed_dominance plans super-tiles of {tiles} words at m {m}, "
+                         f"got {tile_words}")
+    n_words = -(-n // 32)
+    g = -(-n_words // tile_words)
+    per = g * (g + 1) // 2
     smem = 4 * 2 * 32 * tile_words * (stride + 1)  # two row ranges, two column counters
-    return {"instance": instance, "threads": THREADS, "tile_words": tile_words,
-            "grid": (grid, grid), "working_blocks": grid * (grid + 1) // 2,
+    return {"instance": instance, "threads": THREADS, "warps_per_block": WARPS,
+            "tile_words": tile_words, "super_tiles": g, "blocks_per_member": per,
+            "grid": (g, g, b) if tile_words == 8 else (b * per,), "working_blocks": b * per,
             "n_words": n_words, "stride": stride, "smem_bytes": smem,
             # the blocks an SM the __launch_bounds__ guarantee, as far as
             # the SM's shared memory allows
             "blocks_per_sm": min(EXACT_MIN_BLOCKS_PER_SM if instance else GENERIC_MIN_BLOCKS_PER_SM,
                                  SM_SMEM_BYTES // (smem + BLOCK_SMEM_RESERVED))}
+
+
+def _per_member(n_words: int, tile_words: int) -> int:
+    g = -(-n_words // tile_words)
+    return g * (g + 1) // 2
+
+
+def block_tile(plan: dict, block: int) -> Optional[Tuple[int, int, int]]:
+    """``(member, by, bx)`` of block ``block`` of ``plan``'s grid, in launch
+    order, or ``None`` for a block of the 2-D grid that exits (``by >
+    bx``). On the 2-D grid a block's indices are ``(bx, by, member)``; on
+    the linear grid block i is member ``i // P`` and that member's ``t =
+    i % P``-th working super-tile in row order (row ``by`` holds ``g -
+    by``), the last row whose first super-tile, ``by (2g - by + 1) / 2``, is
+    at or before ``t``: the row ``csrc/dominance.cu`` corrects its root
+    estimate to, found here by binary search."""
+    g = plan["super_tiles"]
+    if len(plan["grid"]) == 3:
+        z, rest = divmod(block, g * g)
+        by, bx = divmod(rest, g)
+        return None if by > bx else (z, by, bx)
+    z, t = divmod(block, plan["blocks_per_member"])
+    start = lambda r: r * (2 * g - r + 1) // 2  # noqa: E731
+    by, hi = 0, g - 1
+    while by < hi:
+        mid = (by + hi + 1) // 2
+        if start(mid) <= t:
+            by = mid
+        else:
+            hi = mid - 1
+    return z, by, by + t - start(by)
 
 
 def _check_fitness(fitness: torch.Tensor) -> None:
@@ -201,78 +284,72 @@ def _check_fitness(fitness: torch.Tensor) -> None:
 
 def kernel_occupancy(plan: dict, m: int) -> dict:
     """The runtime's blocks an SM and registers a thread of the kernel
-    instance of a ``launch_plan`` for ``m`` objectives; builds the kernel."""
+    instance and super-tile of a ``launch_plan`` for ``m`` objectives;
+    builds the kernel."""
     fn = _build.function("dominance", "evox_dominance_occupancy", [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)])
     blocks, regs = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(plan["instance"], m, ctypes.byref(blocks), ctypes.byref(regs))
+    err = fn(plan["instance"], plan["tile_words"], m, ctypes.byref(blocks), ctypes.byref(regs))
     _build.check_launch("dominance", err, "occupancy query")
     return {"blocks_per_sm": blocks.value, "registers": regs.value}
 
 
+@lru_cache(maxsize=None)
+def _square_args(b: int, n: int, m: int) -> Tuple[int, int, int]:
+    plan = launch_plan(n, m, b)
+    blocks = math.prod(plan["grid"])
+    if blocks > 2**31 - 1 or (len(plan["grid"]) == 3 and max(plan["grid"]) > 65535):
+        raise ValueError(f"packed_dominance's grid {plan['grid']} for {b} members of n {n} "
+                         f"exceeds the card's")
+    return plan["instance"], plan["tile_words"], blocks
+
+
+_SQUARE_ARGS = [
+    ctypes.c_void_p,  # fitness (b, n, m) float32
+    ctypes.c_int,  # b
+    ctypes.c_int,  # n
+    ctypes.c_int,  # m
+    ctypes.c_void_p,  # packed (b, ceil(n/32), n) int32
+    ctypes.c_void_p,  # count (b, n) int32
+    ctypes.c_void_p,  # cudaStream_t
+    ctypes.c_int,  # instance
+    ctypes.c_int,  # super-tile words a side
+    ctypes.c_int,  # the grid's blocks
+]
+_square_entry: list = []  # the C entry point, resolved once a process
+
+
 def _launch(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    n, m = fitness.shape
+    """One launch for ``(n, m)`` or ``(b, n, m)`` fitness on the card (a
+    single member is the batch of one)."""
+    *lead, n, m = fitness.shape
+    b = lead[0] if lead else 1
     if m > MAX_OBJECTIVES:
         raise ValueError(
             f"the packed_dominance kernel takes at most {MAX_OBJECTIVES} objectives, got {m}"
         )
-    fit = fitness.contiguous()
-    packed = torch.empty(((n + 31) // 32, n), dtype=torch.int32, device=fit.device)
-    count = torch.empty((n,), dtype=torch.int32, device=fit.device)
-    if n == 0:
-        return packed, count
-    fn = _build.function("dominance", "evox_packed_dominance", [
-        ctypes.c_void_p,  # fitness (n, m) float32
-        ctypes.c_int,  # n
-        ctypes.c_int,  # m
-        ctypes.c_void_p,  # packed (ceil(n/32), n) int32
-        ctypes.c_void_p,  # count (n,) int32
-        ctypes.c_void_p,  # cudaStream_t
-        ctypes.c_int,  # instance
-        ctypes.c_int,  # grid (grid x grid blocks)
-    ])
-    plan = launch_plan(n, m)
-    with torch.cuda.device(fit.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(fit.data_ptr(), n, m, packed.data_ptr(), count.data_ptr(), stream,
-                 plan["instance"], plan["grid"][0])
-    _build.check_launch("dominance", err, "packed_dominance")
-    packed_dominance.launches += 1
-    nbytes, ops = dominance_work(n, m)
-    charge("packed_dominance", ops, nbytes)
-    return packed, count
-
-
-def _launch_batched(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, n, m = fitness.shape
-    if m > MAX_OBJECTIVES:
-        raise ValueError(
-            f"the packed_dominance kernel takes at most {MAX_OBJECTIVES} objectives, got {m}"
-        )
-    if b > 65535:
-        raise ValueError(f"the batched packed_dominance launch takes at most 65535 members, got {b}")
-    fit = fitness.contiguous()
-    packed = torch.empty((b, (n + 31) // 32, n), dtype=torch.int32, device=fit.device)
-    count = torch.empty((b, n), dtype=torch.int32, device=fit.device)
+    if not fitness.is_contiguous():
+        fitness = fitness.contiguous()
+    packed = fitness.new_empty((*lead, (n + 31) // 32, n), dtype=torch.int32)
+    count = fitness.new_empty((*lead, n), dtype=torch.int32)
     if n == 0 or b == 0:
         return packed, count
-    fn = _build.function("dominance", "evox_packed_dominance_batched", [
-        ctypes.c_void_p,  # fitness (b, n, m) float32
-        ctypes.c_int,  # b
-        ctypes.c_int,  # n
-        ctypes.c_int,  # m
-        ctypes.c_void_p,  # packed (b, ceil(n/32), n) int32
-        ctypes.c_void_p,  # count (b, n) int32
-        ctypes.c_void_p,  # cudaStream_t
-        ctypes.c_int,  # instance
-        ctypes.c_int,  # grid (grid x grid x b blocks)
-    ])
-    plan = launch_plan(n, m)
-    with torch.cuda.device(fit.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(fit.data_ptr(), b, n, m, packed.data_ptr(), count.data_ptr(), stream,
-                 plan["instance"], plan["grid"][0])
-    _build.check_launch("dominance", err, "packed_dominance_batched")
+    instance, tile, blocks = _square_args(b, n, m)
+    if not _square_entry:
+        _square_entry.append(_build.function("dominance", "evox_packed_dominance_batched",
+                                             _SQUARE_ARGS))
+    args = (fitness.data_ptr(), b, n, m, packed.data_ptr(), count.data_ptr())
+    index = fitness.get_device()
+    if index == torch._C._cuda_getDevice():  # no device context for the current card
+        err = _square_entry[0](*args, torch._C._cuda_getCurrentRawStream(index), instance, tile,
+                               blocks)
+    else:
+        with torch.cuda.device(index):
+            err = _square_entry[0](*args, torch._C._cuda_getCurrentRawStream(index), instance,
+                                   tile, blocks)
+    if err:
+        _build.check_launch("dominance", err, "packed_dominance")
     packed_dominance.launches += 1
     nbytes, ops = dominance_work(n, m)
     charge("packed_dominance", b * ops, b * nbytes)
@@ -289,19 +366,20 @@ def dominance_rows_work(r: int, n: int, m: int) -> Tuple[int, int]:
 
 
 def rows_launch_plan(r: int, n: int, m: int) -> dict:
-    """The rows kernel's launch: :func:`launch_plan`'s instance and tile,
-    a grid of ``ceil(n_words / tile)`` x ``ceil(r_words / tile)`` blocks,
-    every one of which works. A warp task is one slab word against
+    """The rows kernel's launch: :func:`launch_plan`'s instance, super-tiles
+    of 8 words a side (4 for the generic instance), a grid of
+    ``ceil(n_words / tile)`` x ``ceil(r_words / tile)`` blocks, every one
+    of which works. A warp task is one slab word against
     ``columns_per_lane`` column words (a lane holds that many column rows),
     ``tile_words * tile_words / columns_per_lane`` tasks a block."""
-    plan = launch_plan(n, m)
-    r_words = -(-r // 32)
-    gy = -(-r_words // plan["tile_words"])
-    columns = ROWS_EXACT_COLUMNS if plan["instance"] else ROWS_GENERIC_COLUMNS
-    return {"instance": plan["instance"], "threads": THREADS, "tile_words": plan["tile_words"],
-            "columns_per_lane": columns, "tasks": plan["tile_words"] ** 2 // columns,
-            "grid": (plan["grid"][0], gy), "working_blocks": plan["grid"][0] * gy,
-            "r_words": r_words, "n_words": plan["n_words"]}
+    instance, _ = _instance(n, m)
+    tile = EXACT_TILE_WORDS if instance else GENERIC_TILE_WORDS
+    n_words, r_words = -(-n // 32), -(-r // 32)
+    gx, gy = -(-n_words // tile), -(-r_words // tile)
+    columns = ROWS_EXACT_COLUMNS if instance else ROWS_GENERIC_COLUMNS
+    return {"instance": instance, "threads": THREADS, "tile_words": tile,
+            "columns_per_lane": columns, "tasks": tile ** 2 // columns,
+            "grid": (gx, gy), "working_blocks": gx * gy, "r_words": r_words, "n_words": n_words}
 
 
 @lru_cache(maxsize=None)
@@ -427,33 +505,41 @@ def packed_dominance_batched(
     batch: int32 ``(b, ceil(n/32), n)`` words and ``(b, n)`` counts. On
     ``cuda`` one launch for the batch (``packed_dominance.launches`` counts
     it once); on ``cpu`` ``packed_dominance_batched_reference``."""
-    dev = resolve_device(device)
     if fitness.ndim != 3 or fitness.dtype != torch.float32:
         raise ValueError(
             f"fitness must be float32 (b, n, m), got {fitness.dtype} {tuple(fitness.shape)}")
+    if isinstance(device, torch.device) and device.type == "cuda" and fitness.is_cuda \
+            and device.index in (None, fitness.get_device()):
+        return _launch(fitness)  # on the named card: no other check
+    dev = resolve_device(device)
     check_device(fitness, dev, "fitness")
     if dev.type == "cpu":
         return packed_dominance_batched_reference(fitness)
     if dev.type == "cuda":
-        return _launch_batched(fitness)
+        return _launch(fitness)
     raise ValueError(f"packed_dominance runs on cuda or cpu, not {dev}")
 
 
 @torch.library.custom_op("evox_torch::packed_dominance", mutates_args=())
 def _packed_dominance_op(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    packed, count = packed_dominance(fitness, device=fitness.device)
-    return packed.clone(), count.clone()
+    return packed_dominance(fitness, device=fitness.device)
 
 
-@_packed_dominance_op.register_vmap
 def _packed_dominance_vmap(info: Any, in_dims: Tuple[Any, ...], fitness: torch.Tensor):
     dim = in_dims[0]
-    fit = fitness.movedim(dim, 0) if dim is not None else fitness.expand(
-        (info.batch_size,) + tuple(fitness.shape))
-    lead = fit.shape[:-2]
-    packed, count = packed_dominance_batched(fit.reshape((-1,) + tuple(fit.shape[-2:])),
-                                             device=fit.device)
+    if dim is None:
+        fitness = fitness.expand((info.batch_size,) + tuple(fitness.shape))
+    elif dim:
+        fitness = fitness.movedim(dim, 0)
+    if fitness.ndim == 3:
+        return packed_dominance_batched(fitness, device=fitness.device), (0, 0)
+    lead = fitness.shape[:-2]
+    packed, count = packed_dominance_batched(fitness.reshape((-1,) + tuple(fitness.shape[-2:])),
+                                             device=fitness.device)
     return (packed.reshape(lead + packed.shape[1:]), count.reshape(lead + count.shape[1:])), (0, 0)
+
+
+_packed_dominance_op.register_vmap(_packed_dominance_vmap)
 
 
 def packed_dominance(
@@ -481,8 +567,11 @@ def packed_dominance(
     """
     if is_batched(fitness):  # stacked members: one batched call (the vmap rule)
         return _packed_dominance_op(fitness)
-    dev = resolve_device(device)
     _check_fitness(fitness)
+    if isinstance(device, torch.device) and device.type == "cuda" and fitness.is_cuda \
+            and device.index in (None, fitness.get_device()):
+        return _launch(fitness)  # on the named card: no other check
+    dev = resolve_device(device)
     check_device(fitness, dev, "fitness")
     if dev.type == "cpu":
         return packed_dominance_reference(fitness)

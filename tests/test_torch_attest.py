@@ -135,6 +135,135 @@ def test_plain_route_chains_past_one_table():
     np.testing.assert_array_equal(_words(state_digest(tree)), host_state_digest(tree))
 
 
+def _digest_groups(leaves):
+    """The launches ``digest_leaves`` makes on the card: MAX_LEAVES leaves
+    a launch, each with its plan (as the wrapper plans at 132 SMs)."""
+    for lo in range(0, len(leaves), kd.MAX_LEAVES):
+        group = leaves[lo:lo + kd.MAX_LEAVES]
+        words = [kd.n_words(x) for x in group]
+        yield group, words, kd.digest_plan(words)
+
+
+def _plan_cases():
+    rng = np.random.default_rng(5)
+    f32 = torch.from_numpy(rng.standard_normal(4096 * 3 + 5).astype(np.float32))
+    f64 = torch.from_numpy(rng.standard_normal(2049))
+    mixed = [f32, f32[1:], f32[2:2003], f64, f64[1:], torch.zeros(3001, dtype=torch.float16),
+             torch.zeros(1025, dtype=torch.uint8), torch.ones(7, dtype=torch.bool),
+             torch.zeros(5000, dtype=torch.int64)[3:], torch.zeros(1, dtype=torch.bfloat16)]
+    return {
+        "mixed widths and offsets": mixed,
+        "CSO-shaped, 3 leaves": [torch.zeros(4096 * 64), torch.zeros(4096), torch.zeros(4096 * 64)],
+        f"{kd.MAX_LEAVES + 9} small leaves": [torch.zeros(37) for _ in range(kd.MAX_LEAVES + 9)],
+        "more chunks than blocks": [torch.zeros(kd.CHUNK_WORDS * 600 + 3)],
+    }
+
+
+@pytest.mark.parametrize("case", list(_plan_cases()))
+def test_digest_plan_covers_every_word_once(case):
+    """D1's chunk plan: every word of every leaf falls to exactly one
+    block's segment, in each launch of a state past ``MAX_LEAVES`` too; no
+    block takes more than one chunk over another; the grid is whole waves
+    of ``BLOCKS_PER_SM`` an SM, or one block a chunk. Where a segment takes
+    16-byte loads (a 4- or 8-byte leaf at a 16-byte aligned address, as
+    the kernel decides), its loads start on a whole load and an 8-byte
+    element's two words never split between the loads and the word-by-word
+    tail, nor between two blocks. The wrapper's table numbers the chunks as
+    the plan does."""
+    leaves = _plan_cases()[case]
+    for group, words, plan in _digest_groups(leaves):
+        assert len(group) <= kd.MAX_LEAVES
+        rows, chunks, total, _ = kd._table(group, [0] * len(group))  # the wrapper's table
+        assert (chunks, list(rows[3::6]), total) == (plan["chunks"], plan["chunk0"], sum(words))
+        g = plan["grid"][0]
+        assert g == min(kd.BLOCKS_PER_SM * kd.SM_COUNT, plan["chunks"])
+        hits = [np.zeros(w, np.int64) for w in words]
+        per_block = []
+        for b in range(g):
+            segs = kd.plan_segments(plan, words, b)
+            per_block.append(sum(-(-(w1 - w0) // kd.CHUNK_WORDS) for _, w0, w1 in segs))
+            for leaf, w0, w1 in segs:
+                x = group[leaf]
+                assert w0 % kd.CHUNK_WORDS == 0 and w0 < w1
+                hits[leaf][w0:w1] += 1
+                if x.element_size() == 8:
+                    assert w0 % 2 == 0 and w1 % 2 == 0
+                if x.element_size() >= 4 and x.data_ptr() % 16 == 0:
+                    assert w0 % 4 == 0  # the loads' first word; the tail from 4 (w1 // 4)
+        assert all(bool((h == 1).all()) for h in hits)
+        assert max(per_block) - min(per_block) <= 1 and sum(per_block) == plan["chunks"]
+
+
+def test_cached_salt_equals_the_sha256_salt():
+    """The salt of a path, cached a process, is the first four bytes of the
+    sha256 of the path, little-endian, as the JAX package takes it, and a
+    second call is served from the cache."""
+    import hashlib
+
+    from evox_tpu_torch.core.attest import _salt
+
+    names = [".algo.population", ".algo.velocity", ".generation", "['x007']", ".monitors[0].ring"]
+    for name in names:
+        want = int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "little")
+        assert _salt(name) == want == jattest._salt(name)
+    hits = _salt.cache_info().hits
+    assert [_salt(n) for n in names] and _salt.cache_info().hits == hits + len(names)
+
+
+def test_kernel_word_rewrites_equal_the_plain_words():
+    """The three rewrites ``csrc/digest.cu`` makes of a word's arithmetic,
+    held on random and special uint32 words in plain numpy: the second mix
+    from the first's first step (``mix(x ^ CH2) = finish(h ^ kH2)`` with
+    ``h = x ^ x >> 16``, ``kH2 = CH2 ^ CH2 >> 16``), the index product
+    carried as an add (``(4q) PHI + j PHI = (4q + j) PHI`` mod 2**32), and
+    the float32 NaN/inf test by one compare (``not |x| < inf`` iff the
+    exponent is all ones)."""
+    rng = np.random.default_rng(11)
+    w = rng.integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    w[:8] = [0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00001, 0x7F800001, 0, 0x80000000, 0x7F7FFFFF]
+
+    def finish(h):
+        h = h * np.uint32(kd.MIX1)
+        h ^= h >> np.uint32(13)
+        h = h * np.uint32(kd.MIX2)
+        return h ^ (h >> np.uint32(16))
+
+    h = w ^ (w >> np.uint32(16))
+    k_h2 = np.uint32(kd.CH2 ^ (kd.CH2 >> 16))
+    assert np.array_equal(finish(h ^ k_h2), jattest._mix32_np(w ^ np.uint32(kd.CH2)))
+    assert np.array_equal(finish(h), jattest._mix32_np(w))
+    q = rng.integers(0, 2**40, 4096, dtype=np.uint64)
+    for j in range(4):
+        carried = ((q * 4) * kd.PHI + j * kd.PHI) & 0xFFFFFFFF
+        assert np.array_equal(carried, ((q * 4 + j) * kd.PHI) & 0xFFFFFFFF)
+    with np.errstate(invalid="ignore"):
+        one_compare = ~(np.abs(w.view(np.float32)) < np.float32(np.inf))
+    assert np.array_equal(one_compare, (w & 0x7F800000) == 0x7F800000)
+
+
+def test_a_digest_under_graph_capture_is_refused(monkeypatch):
+    """A launch while its stream is being captured into a CUDA graph is
+    refused before it reaches the C entry (its scratch is its stream's,
+    which the graph's replays would share); off capture the same launch
+    reaches the entry on the stream. The card's calls are stand-ins here."""
+    calls = []
+    monkeypatch.setattr(kd, "_entry", [lambda *args: calls.append(args) or 0])
+    monkeypatch.setattr(kd, "_sm_count", lambda index: kd.SM_COUNT)
+    monkeypatch.setattr(kd, "_stream_scratch",
+                        lambda index, stream: torch.zeros(1, dtype=torch.int32))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    capturing = [True]
+    monkeypatch.setattr(torch._C, "_cuda_isCurrentStreamCapturing", lambda: capturing[0],
+                        raising=False)
+    leaves = [torch.arange(4096, dtype=torch.float32), torch.ones(3, dtype=torch.int64)]
+    launch, *_ = kd._prepare(leaves, [1, 2], kd.IDENTITY, None)
+    with pytest.raises(RuntimeError, match="captured into a CUDA graph"):
+        launch()
+    assert calls == []
+    capturing[0] = False
+    assert launch() == 0 and len(calls) == 1 and calls[0][-1] == 7
+
+
 # ------------------------------------------------------------------ attestor
 def _cma_wf(monitors=()):
     return StdWorkflow(CMAES(np.ones(DIM, np.float32), 1.0, pop_size=POP, device="cpu"),

@@ -9,6 +9,8 @@ numpy ``view(uint32)``, counts and ranks exactly. The CUDA kernel is held
 against the plain version on the card by ``chip_smoke.py``.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,39 +150,47 @@ def test_packed_dominance_checks_its_input():
 
 @pytest.mark.parametrize("m", list(range(1, tdom.MAX_OBJECTIVES + 1)))
 def test_launch_plan_instance_and_shared_memory(m):
-    """The exact instance for m = 1..4 (super-tiles of 8 words a side) and
-    the generic one above (4); a block's two row ranges fit in 32 KB of
-    shared memory (48 KB with the counters, the most a launch takes without
-    opting in); the main path's n = 20000 makes 79 x 79 super-tiles, half
-    of them working."""
+    """The exact instance for m = 1..4 (super-tiles of up to 8 words a
+    side) and the generic one above (up to 4); a block's two row ranges fit
+    in 32 KB of shared memory (48 KB with the counters, the most a launch
+    takes without opting in); the main path's n = 20000 keeps the 8 x 8
+    super-tiles, 79 to a side, on the square form's 79 x 79 grid (3160
+    working blocks); the generic instance's 4 x 4 ones on a linear grid of
+    its working blocks."""
     plan = tdom.launch_plan(20000, m)
     assert plan["instance"] == (m if m <= 4 else 0)
     assert plan["tile_words"] == (8 if m <= 4 else 4)
     assert 4 * 2 * 32 * plan["tile_words"] * plan["stride"] <= 32 * 1024
     assert plan["smem_bytes"] <= 48 * 1024
-    g = plan["grid"][0]
-    assert plan["grid"] == (g, g) and (g - 1) * plan["tile_words"] < plan["n_words"] <= g * plan["tile_words"]
+    g = plan["super_tiles"]
+    assert (g - 1) * plan["tile_words"] < plan["n_words"] <= g * plan["tile_words"]
+    assert plan["working_blocks"] == g * (g + 1) // 2
+    assert plan["grid"] == ((g, g, 1) if m <= 4 else (g * (g + 1) // 2,))
     if m <= 4:
-        assert plan["grid"] == (79, 79) and plan["working_blocks"] == 3160
+        assert g == 79 and plan["working_blocks"] == 3160
 
 
-def _plan_coverage(plan):
-    """``(n_words, n_words)``: how many (block, tile pair) of the plan write
-    word row w of the columns of word v, with the kernel's own index
-    arithmetic (``csrc/dominance.cu``: block ``(bx, by)`` works when
-    ``by <= bx``; its tile pair ``(wi, vi)`` is ``w = by * tile_words + wi``
-    against ``v = bx * tile_words + vi`` when both are words and ``w <= v``,
-    and writes word rows w (columns of v) and, when ``w != v``, v (columns
-    of w))."""
-    g, s, nw = plan["grid"][0], plan["tile_words"], plan["n_words"]
-    by, bx, wi, vi = (a.reshape(-1) for a in torch.meshgrid(
-        torch.arange(g), torch.arange(g), torch.arange(s), torch.arange(s), indexing="ij"))
+def _plan_coverage(plan, b=1):
+    """``(b, n_words, n_words)``: how many (block, tile pair) of the plan
+    write word row w of the columns of word v of each member, with the
+    kernel's own index arithmetic (``csrc/dominance.cu``: block i is
+    member and super-tile ``(z, by, bx)`` by :func:`block_tile`, ``by <=
+    bx``; its tile pair ``(wi, vi)`` is ``w = by * tile_words + wi``
+    against ``v = bx * tile_words + vi`` when both are words and ``w <=
+    v``, and writes word rows w (columns of v) and, when ``w != v``, v
+    (columns of w))."""
+    s, nw = plan["tile_words"], plan["n_words"]
+    tiles = [tdom.block_tile(plan, i) for i in range(math.prod(plan["grid"]))]
+    tiles = torch.tensor([t for t in tiles if t is not None])
+    z, by, bx = (tiles[:, k, None, None] for k in range(3))
+    wi, vi = torch.meshgrid(torch.arange(s), torch.arange(s), indexing="ij")
     w, v = by * s + wi, bx * s + vi
+    z = z.expand_as(w)
     work = (by <= bx) & (w < nw) & (v < nw) & (w <= v)
-    w, v = w[work], v[work]
+    z, w, v = z[work], w[work], v[work]
     off = w != v
-    cells = torch.cat([w * nw + v, v[off] * nw + w[off]])
-    return torch.bincount(cells, minlength=nw * nw).view(nw, nw)
+    cells = torch.cat([(z * nw + w) * nw + v, (z[off] * nw + v[off]) * nw + w[off]])
+    return torch.bincount(cells, minlength=b * nw * nw).view(b, nw, nw)
 
 
 @pytest.mark.parametrize("n", [1, 31, 33, 1000, 20001])
@@ -193,10 +203,79 @@ def test_launch_plan_covers_every_word_once(n, m):
     assert bool((_plan_coverage(plan) == 1).all())
 
 
+def _tile_hits(plan, b):
+    """``(b, g, g)``: how many blocks of the plan's linear grid map onto
+    each (member, row super-tile, column super-tile)."""
+    g = plan["super_tiles"]
+    hits = torch.zeros((b, g, g), dtype=torch.int64)
+    for i in range(math.prod(plan["grid"])):
+        tile = tdom.block_tile(plan, i)
+        if tile is not None:
+            hits[tile] += 1
+    return hits
+
+
+_BATCH_SHAPES = [tuple(s) for s in __import__("chip_smoke").DOMINANCE_BATCHES] + [
+    (b, n, m) for n in (1, 31, 33, 1000, 20001) for m in (2, 3, 5, 32) for b in (1, 3)]
+
+
+@pytest.mark.parametrize("b,n,m", _BATCH_SHAPES)
+def test_linear_grid_maps_every_member_super_tile_once(b, n, m):
+    """At every ``DOMINANCE_BATCHES`` shape and at n 1, 31, 33, 1000, 20001
+    for m 2, 3, 5 and 32 (one member and three): the plan's grid (linear
+    at 4 and 2 words, 2-D at 8) maps its working blocks onto every
+    member's working super-tiles (``by <= bx``) exactly once and onto no
+    other, with every super-tile the plan could take; a linear grid has no
+    other block; and the plan takes the largest super-tile that gives
+    ``FILL_BLOCKS`` working blocks, else the smallest."""
+    tiles = tdom.SQUARE_TILES[m <= 4]
+    chosen = tdom.launch_plan(n, m, b)
+    fills = [t for t in tiles if tdom.tile_plan(n, m, b, t)["working_blocks"] >= tdom.FILL_BLOCKS]
+    assert chosen["tile_words"] == (fills[0] if fills else tiles[-1])
+    for t in tiles if b * n <= 3 * 1000 else (chosen["tile_words"],):
+        plan = tdom.tile_plan(n, m, b, t)
+        assert plan == tdom.launch_plan(n, m, b) or t != chosen["tile_words"]
+        g = plan["super_tiles"]
+        upper = torch.triu(torch.ones((g, g), dtype=torch.int64))
+        assert torch.equal(_tile_hits(plan, b), upper.expand(b, g, g))
+        if t < 8:
+            assert plan["grid"] == (plan["working_blocks"],)
+
+
+@pytest.mark.parametrize("b,n,m", [(4, 1000, 3), (8, 1250, 3), (64, 512, 2), (3, 33, 5)])
+def test_batched_plan_covers_every_member_word_once(b, n, m):
+    """Word by word at small batched shapes: every member's (word row, word
+    of columns) is written by exactly one (block, tile pair)."""
+    plan = tdom.launch_plan(n, m, b)
+    assert bool((_plan_coverage(plan, b) == 1).all())
+
+
+def test_path2_shape_keeps_its_plan():
+    """Path 2's single launch (n 20000, m 3) keeps the square form's plan:
+    8 x 8 super-tiles, 128 threads, a 79 x 79 grid; smaller launches (the
+    archive's n 11024, IM-MOEA's n 1998, the MO islands' (4, 2000, 3)) take
+    smaller ones on a linear grid (every batched shape of the chip check 2 x
+    2)."""
+    plan = tdom.launch_plan(20000, 3)
+    assert (plan["tile_words"], plan["threads"], plan["grid"]) == (8, 128, (79, 79, 1))
+    assert plan["working_blocks"] == 3160
+    assert tdom.launch_plan(11024, 3)["tile_words"] == 4
+    assert tdom.launch_plan(1998, 3)["tile_words"] == 2
+    assert tdom.launch_plan(2000, 3, 4)["tile_words"] == 2
+    assert all(tdom.launch_plan(n, m, b)["tile_words"] == 2
+               for b, n, m in __import__("chip_smoke").DOMINANCE_BATCHES)
+
+
 def test_launch_plan_refuses_what_the_kernel_does_not_take():
     for n, m in ((0, 3), (10, 0), (10, tdom.MAX_OBJECTIVES + 1)):
         with pytest.raises(ValueError, match="plans"):
             tdom.launch_plan(n, m)
+    with pytest.raises(ValueError, match="plans"):
+        tdom.launch_plan(10, 3, b=0)
+    with pytest.raises(ValueError, match="plans"):
+        tdom.tile_plan(10, 5, 1, 8)  # the generic instance stops at 4
+    with pytest.raises(ValueError, match="plans"):
+        tdom.tile_plan(10, 3, 0, 2)
 
 
 # ------------------------------------------ B3's rows form: the one-way rule

@@ -19,14 +19,30 @@ after 3 warm-up):
   rows);
 - ``rows``: B3's rows form at path 31's shape: the same merged fitness,
   ``+inf``-padded and cut into 8 slabs of 2528 rows; one slab and the 8
-  slabs of a generation, with a slab's host and device µs.
+  slabs of a generation, with a slab's host and device µs;
+- ``batched``: B3's batched launch at each of ``chip_smoke.
+  DOMINANCE_BATCHES`` (every member a draw of ``chip_smoke.stress_fitness``)
+  and B3's single launch at n 1998, 11024 and 20000 (m 3, stress rows):
+  events, host µs, device µs (torch.profiler's rows, the counts' zeroing
+  apart) and CUDA-graph replays, the plan; at the MO islands' (4, 2000, 3)
+  the host µs of the call under ``torch.func.vmap``, of the custom op's
+  vmap rule called directly and of the batched wrapper;
+- ``digest``: D1 on path 4's CSO state (``chip_smoke.build_cso_path``,
+  pop 4096, d 1024, seed 0): the wrapper's events, host and device µs
+  (the profiler's, the words partly in the 50 MB L2), the kernel's raw
+  launches timed by the checkout's own ``chip_smoke`` (``d1_kernel_us``,
+  or the parent's ``d1_kernel_ms``) from device memory, on the state and
+  a copy in turns (67 MB), and, where it gives it, partly in L2; and
+  ``state_digest``'s host µs. D1 refuses CUDA graph capture, so it has no
+  graph replays.
 
 A main path end to end is ms a generation over 20 generations of ``run``
 after a warm-up, host clock, card synchronised on both sides. The turns go
 A, B, B, A. Each prints one JSON line with the times and a digest of every
 output; the last line holds both checkouts' times. Run from a checkout::
 
-    python3 tools/torch_kernel_ab.py DIR_A DIR_B [--only rollout,dominance,m1,rows] [--out PATH]
+    python3 tools/torch_kernel_ab.py DIR_A DIR_B [--only rollout,dominance,m1,rows,batched,digest]
+        [--out PATH]
 """
 
 from __future__ import annotations
@@ -86,7 +102,9 @@ def _device_us(torch, fn, calls: int = 20) -> float:
 def _graph_us(torch, fn, calls: int = 50, replays: int = 5) -> float:
     """Device microseconds a call of ``fn`` when ``calls`` of them replay
     back to back from one CUDA graph (no host gap between launches), by
-    CUDA events around ``replays`` replays."""
+    CUDA events around ``replays`` replays. The graph is captured on the
+    stream that took the warm-up calls (a wrapper's per-stream state is made
+    by then)."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -94,7 +112,7 @@ def _graph_us(torch, fn, calls: int = 50, replays: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -160,6 +178,108 @@ def _rows(torch, chip_smoke, merged) -> dict:
             "sha256": _digest(*(x for pair in words for x in pair))}
 
 
+def _device_split_us(torch, fn, calls: int = 20) -> dict:
+    """torch.profiler's device µs a call of ``fn`` by kernel name (a memset
+    as ``Memset``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            key = "Memset" if "memset" in e.key.lower() else e.key.split("(")[0][-60:]
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / calls
+    return out
+
+
+# B3's single launches beside the batched shapes: IM-MOEA's merged n, the
+# archive's, path 2's
+B3_SINGLES = ((1998, 3), (11024, 3), (20000, 3))
+
+
+def _plan(kd, b: int, n: int, m: int) -> dict:
+    try:
+        plan = kd.launch_plan(n, m, b)
+    except TypeError:  # a plan of (n, m) alone: the member on the grid's z axis
+        plan = kd.launch_plan(n, m)
+    return {k: plan[k] for k in ("tile_words", "grid", "working_blocks", "threads") if k in plan}
+
+
+def _batched(torch, chip_smoke) -> dict:
+    import types
+
+    from evox_tpu_torch.kernels import dominance as kd
+
+    out = {}
+    shapes = [tuple(s) for s in chip_smoke.DOMINANCE_BATCHES] + [(1, n, m) for n, m in B3_SINGLES]
+    for i, (b, n, m) in enumerate(shapes):
+        fit = torch.stack([chip_smoke.stress_fitness(torch, n, m, 1000 * b + n + r, "cpu")
+                           for r in range(b)]).cuda()
+        dev = fit.device
+        if i < len(chip_smoke.DOMINANCE_BATCHES):
+            def call(fit=fit):
+                return kd.packed_dominance_batched(fit, device=dev)
+        else:
+            def call(f=fit[0]):
+                return kd.packed_dominance(f, device=dev)
+        split = _device_split_us(torch, call)
+        entry = {"ms": chip_smoke._time_ms(call, 3, 20), "host_us": _host_us(torch, call),
+                 "device_us": sum(split.values()), "device_split_us": split,
+                 "graph_us": _graph_us(torch, call), "plan": _plan(kd, b, n, m),
+                 "sha256": _digest(*call())}
+        if (b, n, m) == (4, 2000, 3):
+            # the call under torch.func.vmap (custom op, its vmap rule, the
+            # wrapper), the rule called directly where the module keeps it,
+            # the wrapper; and pieces of the wrapper's host time
+            vmapped = torch.func.vmap(lambda f: kd.packed_dominance(f, device=dev))
+            host = {"vmap_call": _host_us(torch, lambda: vmapped(fit)),
+                    "wrapper": _host_us(torch, call),
+                    "new_empty": _host_us(torch, lambda: fit.new_empty((b, (n + 31) // 32, n),
+                                                                       dtype=torch.int32)),
+                    "current_stream": _host_us(
+                        torch, lambda: torch._C._cuda_getCurrentRawStream(0))}
+            rule = getattr(kd, "_packed_dominance_vmap", None)
+            if callable(rule):
+                info = types.SimpleNamespace(batch_size=b, randomness="error")
+                host["vmap_rule"] = _host_us(torch, lambda: rule(info, (0,), fit))
+            entry["vmap_host_us"] = host
+        out[f"{b}x{n}x{m}"] = entry
+        del fit
+    return out
+
+
+def _digest_kind(torch, chip_smoke) -> dict:
+    from evox_tpu_torch.core.attest import _salt, state_digest
+    from evox_tpu_torch.core.struct import named_leaves
+    from evox_tpu_torch.kernels import digest as kdg
+
+    wf, _ = chip_smoke.build_cso_path(torch)
+    state = wf.init(chip_smoke.SEED).replace(monitors=())
+    named = [(n, x) for n, x in named_leaves(state) if isinstance(x, torch.Tensor) and x.numel()]
+    leaves, salts = [x for _, x in named], [_salt(n) for n, _ in named]
+
+    def call():
+        return kdg.digest_leaves(leaves, salts)
+
+    if hasattr(chip_smoke, "d1_kernel_us"):
+        raw = {f"{k}_us": v for k, v in chip_smoke.d1_kernel_us(torch, leaves, salts).items()}
+    else:  # the parent's raw launches, from device memory only
+        raw = {"memory_us": chip_smoke.d1_kernel_ms(torch, leaves, salts) * 1e3}
+    split = _device_split_us(torch, call)
+    return {"bytes": sum(x.numel() * x.element_size() for x in leaves), "leaves": len(leaves),
+            "ms": chip_smoke._time_ms(call, 3, 20), "host_us": _host_us(torch, call),
+            "device_us": sum(split.values()), "device_split_us": split, **raw,
+            "state_digest_host_us": _host_us(torch, lambda: state_digest(state)),
+            "sha256": _digest(*call())}
+
+
 def measure(tree: Path, only: set) -> dict:
     sys.path.insert(0, str(tree))
     import torch
@@ -169,7 +289,8 @@ def measure(tree: Path, only: set) -> dict:
     from evox_tpu_torch.kernels import dominance as kd
     from evox_tpu_torch.kernels import rollout as kr
 
-    _build.build([name for name in ("rollout", "dominance", "smallmm") if name in _build.SOURCES])
+    _build.build([name for name in ("rollout", "dominance", "smallmm", "digest")
+                  if name in _build.SOURCES])
     out = {"tree": str(tree)}
     dev = torch.device("cuda")
 
@@ -215,6 +336,10 @@ def measure(tree: Path, only: set) -> dict:
             out["rows"] = _rows(torch, chip_smoke, merged)
     if "m1" in only:
         out["m1"] = _m1(torch, chip_smoke)
+    if "batched" in only:
+        out["batched"] = _batched(torch, chip_smoke)
+    if "digest" in only:
+        out["digest"] = _digest_kind(torch, chip_smoke)
     return out
 
 
@@ -230,6 +355,14 @@ def _summary_keys(turn: dict) -> dict:
     for field in ("ms", "generation_ms", "host_us", "device_us", "graph_us"):
         if "rows" in turn:
             keys[f"rows {field}"] = turn["rows"][field]
+    for shape, e in turn.get("batched", {}).items():
+        for field in ("ms", "host_us", "device_us", "graph_us"):
+            keys[f"batched {shape} {field}"] = e[field]
+        for field, v in e.get("vmap_host_us", {}).items():
+            keys[f"batched {shape} {field} host_us"] = v
+    for field in ("ms", "host_us", "device_us", "memory_us", "l2_us", "state_digest_host_us"):
+        if field in turn.get("digest", {}):
+            keys[f"digest {field}"] = turn["digest"][field]
     return keys
 
 
@@ -238,6 +371,9 @@ def _digests(turn: dict) -> dict:
     out.update({f"m1 {name}": e["sha256"] for name, e in turn.get("m1", {}).items()})
     if "rows" in turn:
         out["rows"] = turn["rows"]["sha256"]
+    out.update({f"batched {shape}": e["sha256"] for shape, e in turn.get("batched", {}).items()})
+    if "digest" in turn:
+        out["digest"] = turn["digest"]["sha256"]
     return out
 
 
@@ -245,7 +381,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     parser.add_argument("trees", nargs="*", type=Path)
     parser.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
-    parser.add_argument("--only", default="rollout,dominance,m1,rows")
+    parser.add_argument("--only", default="rollout,dominance,m1,rows,batched,digest")
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args()
     only = set(args.only.split(","))
