@@ -375,13 +375,28 @@ exit 0):
    the concatenated slabs against the full B3 at path 31's n 20000 on 8
    shards and at shapes with a remainder (``DOMINANCE_ROWS``, stress rows),
    bit for bit, timed a slab and a generation. Main path 30: ``bench.py``'s
-   workload 7, ``ShardedES(SepCMAES(zeros(32), 1.0, pop_size=65536))`` on
-   Sphere on an 8-shard mesh of the card against ``mesh=None, n_shards=8``
-   (samples bit for bit each of 10 generations, mean, C and sigma within
-   rtol 1e-4, atol 1e-4; in turns, ms a generation). Main path 31: path 2
+   workload 7, ``StdWorkflow(ShardedES(SepCMAES(zeros(32), 1.0,
+   pop_size=65536)), Sphere(), mesh=)`` on an 8-shard mesh of the card
+   against ``mesh=None, n_shards=8`` (the samples resident on the 8 shards
+   and bit for bit each of 10 generations, mean, C and sigma within rtol
+   1e-4, atol 1e-4; the step's operator outputs without the (65536, 32)
+   shape and each position's peak under the population's bytes, read from
+   ``core/cost.py``'s counter, a ``run_report`` whose
+   ``roofline.sharding`` is gather-free through ``tools/check_report.py``,
+   and both checks shown to fail with one ``.gather()`` in the step; D1's
+   digest of the resident state equal to the gathered state's; in turns,
+   ms a generation). Main path 31: path 2
    with ``mesh=`` an 8-shard mesh of the card (8 B3 rows launches and one
    B4 a generation) against path 2, population, fitness and ranks bit for
-   bit each of 5 generations, in turns. Main path 32: path 2 under
+   bit each of 5 generations, in turns. Main paths 44 and 45: paths 30 and
+   31 on a mesh that spans two processes of the card (``--pair-worker``
+   children, gloo over a ``FileStore``, 4 of the 8 positions each): each
+   process's ``z`` blocks, mean, C and sigma bit for bit with path 30 each
+   of 10 generations, both reports (``run_report``) carrying ``roofline.multihost``
+   and ``roofline.sharding`` through ``tools/check_report.py``, ms a
+   generation and the collectives' staged bytes in turns with path 30;
+   population, fitness and ranks bit for bit with path 31 each of 5
+   generations, 4 B3 rows and one B4 launch a process and generation. Main path 32: path 2 under
    ``RunSupervisor(WorkflowCheckpointer(every=10), deadline_s=3)`` with a
    transient fault, a hang past the deadline and an out-of-memory error
    injected: bit for bit with the clean run, the report and the trace
@@ -484,7 +499,7 @@ exit 0):
    13, B3 and B4 on paths 18, 22, 40 and 41 too, B3 on paths 20 and 27, B4 batched
    on paths 14 and 24 as ``partial_topk_rows``, B4 under vmap on the SHADE
    and MO islands, ``packed_dominance_batched`` on the MO islands, D1 on
-   path 26, ``packed_dominance_rows`` on path 31, ``smallmm`` and its
+   paths 26 and 30, ``packed_dominance_rows`` on paths 31 and 45, ``smallmm`` and its
    grouped entry ``smallmm_group`` on paths 28 and 5), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -691,6 +706,9 @@ LP_CHECK_GENERATIONS = 10
 # main path 31: path 2 with the mesh-sharded sort; generations held bit for
 # bit against path 2, then timed a turn
 SN_CHECK_GENERATIONS, SN_GENERATIONS = 5, 10
+# main paths 44 and 45: paths 30 and 31 over two processes on the one card;
+# the barriers' deadline and the two children's timeout, in seconds
+PAIR_BARRIER_S, PAIR_TIMEOUT_S = 120.0, 420.0
 # main path 32: path 2 under RunSupervisor with three faults injected
 SUP_GENERATIONS, SUP_DEADLINE_S = 30, 3.0
 # main path 33: OpenES on HostEnvProblem over the native C++ engine (cartpole,
@@ -1384,6 +1402,17 @@ def dominance_work(n: int, m: int) -> tuple:
     return work(n, m)
 
 
+def dominance_bound_ms(n: int, m: int, rows: int = None) -> tuple:
+    """B3's bound, as every B3 row of PERF.md counts it: the m compares
+    each ordered pair of ``rows`` dominators (default all n) against the n
+    columns needs (``kernels/dominance.py::dominance_compares``), at the
+    card's issue rate for them, beside the bytes of ``dominance_work``."""
+    from evox_tpu_torch.kernels.dominance import dominance_compares
+
+    nbytes = dominance_work(n, m)[0] if rows is None else dominance_rows_work(rows, n, m)[0]
+    return issue_bound_ms(nbytes, dominance_compares(n, m) * (n if rows is None else rows) // n)
+
+
 def topk_work(n: int, k: int, rows: int = 1) -> tuple:
     """(bytes, operations) of selecting the k smallest of each row:
     ``kernels/topk.py``'s count, the one the cost analysis charges."""
@@ -1556,7 +1585,7 @@ def phase_nsga2_kernels(torch, wf, seed: int) -> dict:
     stats["ms"] = _time_ms(lambda: kd.packed_dominance(merged, device=dev), 3, 20)
     stats["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(merged), 1, 3)
     nbytes, ops = dominance_work(n, m)
-    stats["bound_ms"], stats["bound_by"] = bound_ms(nbytes, ops)
+    stats["bound_ms"], stats["bound_by"] = dominance_bound_ms(n, m)
     stats["bytes"], stats["ops"] = nbytes, ops
     results["packed_dominance"] = stats
     stats["block"] = dominance_block_shape(kd, n, m)
@@ -2555,7 +2584,7 @@ def phase_monitor_archive(torch, wf, seed: int) -> dict:
 
     merged = torch.cat([card.post_eval(card.init(), *batches[0]).topk_fitness, batches[1][1]])
     b3 = {"ms": _time_ms(lambda: kd.packed_dominance(merged), 3, 20)}
-    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(*merged.shape))
+    b3["bound_ms"], b3["bound_by"] = dominance_bound_ms(*merged.shape)
     stats = compare_exact(
         f"EvalMonitor archive (cap {ARCHIVE_CAP}, n {ARCHIVE_CAP + f.shape[0]}) on the card "
         "against the CPU's plain route (fitness, solutions, pf_count)",
@@ -3171,7 +3200,7 @@ def phase_nsga3_path(torch, gens: int, seed: int, profile: bool) -> dict:
     b3 = compare_exact(f"packed_dominance, NSGA-III merged fitness n={n} m={MO_M}", got, want)
     b3["ms"] = _time_ms(lambda: kd.packed_dominance(merged, device=merged.device), 3, 20)
     b3["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(merged), 1, 3)
-    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(n, MO_M))
+    b3["bound_ms"], b3["bound_by"] = dominance_bound_ms(n, MO_M)
     out["packed_dominance"] = b3
 
     # one selection on the card against the CPU's plain route
@@ -3601,7 +3630,7 @@ def phase_gde3_path(torch, gens: int, seed: int, profile: bool) -> dict:
                        kd.packed_dominance_reference(merged))
     b3["ms"] = _time_ms(lambda: kd.packed_dominance(merged, device=merged.device), 3, 20)
     b3["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(merged), 1, 3)
-    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(n, LSMOP_M))
+    b3["bound_ms"], b3["bound_by"] = dominance_bound_ms(n, LSMOP_M)
     out["packed_dominance"] = b3
     if profile:
         out["profile"] = profile_path(torch, wf, state, wall, gens)
@@ -5929,7 +5958,7 @@ def phase_immoea_path(torch, gens: int, seed: int, profile: bool) -> dict:
                        kd.packed_dominance(mf, device=mf.device), kd.packed_dominance_reference(mf))
     b3["ms"] = _time_ms(lambda: kd.packed_dominance(mf, device=mf.device), 3, 20)
     b3["plain_ms"] = _time_ms(lambda: kd.packed_dominance_reference(mf), 1, 5)
-    b3["bound_ms"], b3["bound_by"] = bound_ms(*dominance_work(mf.shape[0], MO_M))
+    b3["bound_ms"], b3["bound_by"] = dominance_bound_ms(mf.shape[0], MO_M)
     out["packed_dominance"] = b3
     if profile:
         out["profile"] = profile_path(torch, wf, state, wall, gens)
@@ -7135,10 +7164,8 @@ def phase_dominance_rows(torch) -> dict:
                     torch, lambda: kd.packed_dominance_rows(r0, fit, device=fit.device), 200),
                 "device_us": device_us_per_call(
                     torch, lambda: kd.packed_dominance_rows(r0, fit, device=fit.device))})
-            nbytes, ops = dominance_rows_work(words_per * 32, n, m)
-            entry["bound_ms"], entry["bound_by"] = bound_ms(nbytes, ops)
-            gen = [dominance_rows_work(words_per * 32, n, m)] * shards
-            entry["generation_bound_ms"], _ = bound_ms(sum(b for b, _ in gen), sum(o for _, o in gen))
+            entry["bound_ms"], entry["bound_by"] = dominance_bound_ms(n, m, words_per * 32)
+            entry["generation_bound_ms"] = dominance_bound_ms(n, m, words_per * 32)[0] * shards
         out["shapes"].append(entry)
         print(f"[dominance rows] {json.dumps(entry)}", flush=True)
     out["main"] = next(e for e in out["shapes"] if "ms" in e)
@@ -7150,9 +7177,9 @@ def phase_dominance_rows(torch) -> dict:
 
 def build_sharded_es_path(torch, mesh, n_shards: int, pop: int = LP_POP, dim: int = LP_DIM,
                           device=None):
-    """Main path 30 as ``bench.py:764-903`` builds workload 7:
+    """Main path 30 as ``bench.py:791-801`` builds workload 7:
     ``StdWorkflow(ShardedES(SepCMAES(zeros(32), 1.0, pop_size=65536),
-    mesh=mesh, n_shards=n_shards), Sphere())``."""
+    mesh=mesh, n_shards=n_shards), Sphere(), mesh=mesh)``."""
     from evox_tpu_torch import StdWorkflow
     from evox_tpu_torch.algorithms.so.es import SepCMAES
     from evox_tpu_torch.core.distributed import ShardedES
@@ -7160,22 +7187,83 @@ def build_sharded_es_path(torch, mesh, n_shards: int, pop: int = LP_POP, dim: in
 
     algo = ShardedES(SepCMAES(torch.zeros(dim), 1.0, pop_size=pop, device=device), mesh=mesh,
                      n_shards=n_shards)
-    return StdWorkflow(algo, Sphere(), device=device)
+    return StdWorkflow(algo, Sphere(), mesh=mesh, device=device)
 
 
-def phase_sharded_es(torch, seed: int = LP_SEED, device=None) -> dict:
+def with_one_gather(wf):
+    """``wf`` whose step gathers the resident population once after the
+    ask, as a problem that cannot score blocks would: the gather-free
+    checks' control."""
+    ask = wf._pipeline_ask_impl
+
+    def ask_and_gather(state):
+        cand, ctx = ask(state)
+        cand.gather()
+        return cand, ctx
+
+    wf._pipeline_ask_impl = ask_and_gather
+    return wf
+
+
+def gather_free_check(wf, state, pop: int, dim: int, shards: int) -> dict:
+    """The steady step under ``core/cost.py``'s operator counter: whether
+    any operator returned the whole ``(pop, dim)`` shape, the shard's
+    shape, the gathers, and each mesh position's peak of live bytes
+    against the population's ``pop dim 4``."""
+    from evox_tpu_torch.core.cost import analyze_callable
+
+    fn, args = wf.analysis_targets(state)["step"]
+    analysis = analyze_callable(fn, *args)
+    if "error" in analysis:
+        raise AssertionError(f"the gather-free check's analysis failed: {analysis['error']}")
+    shapes = analysis["output_shapes"]
+    mem = analysis["memory"]
+    return {"whole_outputs": shapes.get(f"{pop}x{dim}", 0),
+            "shard_outputs": shapes.get(f"{pop // shards}x{dim}", 0),
+            "gathers": analysis["gathers"], "peak_bytes": mem["peak_bytes_estimate"],
+            "full_pop_bytes": pop * dim * 4, "positions": len(mem["per_position_peak_bytes"]),
+            "gather_free": shapes.get(f"{pop}x{dim}", 0) == 0
+            and mem["peak_bytes_estimate"] < pop * dim * 4}
+
+
+def sharded_report(torch, wf, state) -> dict:
+    """``run_report`` of an instrumented run (bench's differenced pair) of
+    ``wf`` from ``state``."""
+    from evox_tpu_torch.core.instrument import instrument, run_report
+
+    rec = instrument(wf, analyze=True, block_dispatch=True)
+    for n in LP_PAIR:
+        state = wf.run(state, n)
+    torch.cuda.synchronize()
+    return run_report(wf, state, recorder=rec)
+
+
+def phase_sharded_es(torch, seed: int = LP_SEED, device=None, ref_dir=None) -> dict:
     """Main path 30, ``bench.py``'s workload 7: ``ShardedES(SepCMAES)`` at
     pop 65536, d 32 on Sphere, on an 8-shard mesh of the one card
     (per-shard draws, rank-weighted partial moments summed in mesh order)
     against its replicated twin ``mesh=None, n_shards=8`` (the same draws,
     the sorted-selection tell). From the same seed, 10 generations of each:
-    the samples ``z`` bit for bit every generation, and mean, C and sigma
-    within rtol 1e-4, atol 1e-4 (``tests/test_large_pop.py:154-168``'s
-    sharded-against-replicated tolerance) after 10. Then in turns (sharded,
-    replicated, replicated, sharded) bench's differenced pair ``LP_PAIR`` =
-    (2, 10): ms a generation of each, with every launch counter at 0 before
-    and read after (no kernel on this path)."""
-    from evox_tpu_torch.core.distributed import create_mesh
+    the samples ``z`` resident on the 8 shards after every step (born
+    there at ``init``) and, gathered, bit for bit with the twin's every
+    generation; mean, C and sigma within rtol 1e-4, atol 1e-4
+    (``tests/test_large_pop.py:154-168``'s sharded-against-replicated
+    tolerance) after 10. The resident step under ``core/cost.py``'s
+    counter: no operator output of shape (65536, 32), each position's
+    peak under the population's bytes; an instrumented run whose
+    ``run_report`` carries ``roofline.sharding`` with ``gather_free``,
+    accepted by ``tools/check_report.py``; the same check and report with
+    one ``.gather()`` put into the step, shown to fail. D1 on the resident
+    state: its digest equal to the gathered state's, and its blocks'
+    entries against the plain version, bit for bit. Then in turns
+    (sharded, replicated, replicated, sharded) bench's differenced pair
+    ``LP_PAIR`` = (2, 10): ms a generation of each, with every launch
+    counter at 0 before and read after (no kernel on this path). With
+    ``ref_dir``, the sharded run's states are saved there for paths 44's
+    two processes to hold themselves against."""
+    from evox_tpu_torch.core.attest import state_digest
+    from evox_tpu_torch.core.distributed import ShardedTensor, create_mesh, gather_tree
+    from evox_tpu_torch.kernels import digest as kdg
     from evox_tpu_torch.kernels import smallmm as km
 
     dev = torch.device("cuda" if device is None else device)
@@ -7184,10 +7272,22 @@ def phase_sharded_es(torch, seed: int = LP_SEED, device=None) -> dict:
     sharded = build_sharded_es_path(torch, mesh, LP_SHARDS, device=device)
     replicated = build_sharded_es_path(torch, None, LP_SHARDS, device=device)
     a, b = sharded.init(seed), replicated.init(seed)
+    ref = {"z": [], "mean": [], "C": [], "sigma": []}
+    shard_rows = [LP_POP // LP_SHARDS] * LP_SHARDS
     for _ in range(LP_CHECK_GENERATIONS):
         a, b = sharded.step(a), replicated.step(b)
+        z = a.algo.z
+        if not (isinstance(z, ShardedTensor) and z.positions == list(range(LP_SHARDS))
+                and z.rows == shard_rows):
+            raise AssertionError(f"path 30: the samples are not resident on the shards: {z!r}")
+        whole = z.gather()
         compare_exact("path 30: the sharded generation's samples against the replicated ones",
-                      (a.algo.z,), (b.algo.z,))
+                      (whole,), (b.algo.z,))
+        for f in ref:
+            ref[f].append((whole if f == "z" else getattr(a.algo, f)).cpu())
+    if ref_dir is not None:
+        torch.save(ref, Path(ref_dir) / "path30.pt")
+    del ref
     out = {"pop": LP_POP, "dim": LP_DIM, "shards": LP_SHARDS, "pair": list(LP_PAIR),
            "after_10": {f: compare(f"path 30: {f} after {LP_CHECK_GENERATIONS} generations, "
                                    "sharded against replicated",
@@ -7196,6 +7296,49 @@ def phase_sharded_es(torch, seed: int = LP_SEED, device=None) -> dict:
                         for f in ("mean", "C", "sigma")}}
     if not (bool(torch.isfinite(a.algo.mean).all()) and float(a.algo.sigma) > 0):
         raise AssertionError("path 30: the sharded state is not finite")
+    # gather-free: the resident step, then the control with one gather
+    out["gather_free"] = gather_free_check(sharded, a, LP_POP, LP_DIM, LP_SHARDS)
+    control = with_one_gather(build_sharded_es_path(torch, mesh, LP_SHARDS, device=device))
+    out["gather_free_control"] = gather_free_check(control, a, LP_POP, LP_DIM, LP_SHARDS)
+    if not out["gather_free"]["gather_free"] or out["gather_free"]["shard_outputs"] == 0:
+        raise AssertionError(f"path 30's resident step is not gather-free: {out['gather_free']}")
+    if out["gather_free_control"]["gather_free"]:
+        raise AssertionError("path 30: the gather-free check passed a step that gathers: "
+                             f"{out['gather_free_control']}")
+    report = sharded_report(torch, build_sharded_es_path(torch, mesh, LP_SHARDS, device=device), a)
+    validate(report=report, label="path 30's run_report")
+    out["sharding"] = report["roofline"]["sharding"]
+    if out["sharding"]["gather_free"] is not True:
+        raise AssertionError(f"path 30: roofline.sharding {out['sharding']}")
+    bad = sharded_report(torch, control, a)["roofline"]["sharding"]
+    out["sharding_control"] = bad
+    if bad["gather_free"] is not False or not check_report_module()._validate_sharding(bad, "x"):
+        raise AssertionError(f"path 30: the control's roofline.sharding passed: {bad}")
+    print(f"[sharded es] gather-free {json.dumps(out['gather_free'])}, control "
+          f"{json.dumps(out['gather_free_control'])}; sharding {json.dumps(out['sharding'])}, "
+          f"control {json.dumps(bad)}", flush=True)
+    # D1 on the resident state: the digest of its blocks in place
+    kdg.digest_leaves.launches = 0
+    resident_digest = state_digest(a)
+    launches = kdg.digest_leaves.launches
+    if launches != 1:
+        raise AssertionError(f"path 30: state_digest of the resident state made {launches} D1 "
+                             "launches, not 1")
+    gathered_digest = state_digest(gather_tree(a))  # the reference: not the path's launch
+    compare_exact("path 30: D1's digest of the resident state against the gathered state's",
+                  (resident_digest,), (gathered_digest,))
+    z = a.algo.z
+    row_words = LP_DIM
+    starts = [s * shard_rows[0] * row_words for s in range(LP_SHARDS)]
+    got = kdg.digest_leaves(z.blocks, [12345] * LP_SHARDS, starts=starts, slots=[0] * LP_SHARDS)
+    want = kdg.digest_leaves_plain([x.cpu() for x in z.blocks], [12345] * LP_SHARDS,
+                                   starts=starts, slots=[0] * LP_SHARDS)
+    out["resident_digest"] = {
+        "launches": launches,
+        **compare_exact("path 30: D1 on the 8 resident blocks of z (one slot) against its plain "
+                        "version", got, want),
+        "ms": _time_ms(lambda: state_digest(a), 3, 20),
+        "gathered_ms": _time_ms(lambda: state_digest(gather_tree(a)), 3, 20)}
     states = {"sharded": (sharded, a), "replicated": (replicated, b)}
     turns = []
     for name in ("sharded", "replicated", "replicated", "sharded"):
@@ -7238,7 +7381,7 @@ def build_sharded_nsga2_path(torch, mesh, pop: int = NSGA2_POP, device=None):
     return StdWorkflow(algo, prob, device=device)
 
 
-def phase_sharded_nsga2(torch, seed: int = SEED, device=None) -> dict:
+def phase_sharded_nsga2(torch, seed: int = SEED, device=None, ref_dir=None) -> dict:
     """Main path 31: path 2 with the mesh-sharded sort on an 8-shard mesh
     of the one card (each tell's sort of 20000 merged rows: one B3 rows
     launch a shard, 2528 padded rows against n 20000, the peel's delta the
@@ -7249,7 +7392,8 @@ def phase_sharded_nsga2(torch, seed: int = SEED, device=None) -> dict:
     unsharded, unsharded, sharded), ``SN_GENERATIONS`` generations each, ms
     a generation, with every counter at 0 just before and read just after:
     8 rows launches and one B4 launch a sharded generation, one B3 and one
-    B4 an unsharded one."""
+    B4 an unsharded one. With ``ref_dir``, the sharded run's checked
+    generations are saved there for path 45's two processes."""
     from evox_tpu_torch.core.distributed import create_mesh
     from evox_tpu_torch.kernels import dominance as kd
 
@@ -7259,11 +7403,16 @@ def phase_sharded_nsga2(torch, seed: int = SEED, device=None) -> dict:
     sharded = build_sharded_nsga2_path(torch, mesh, device=device)
     plain = build_sharded_nsga2_path(torch, None, device=device)
     a, b = sharded.init(seed), plain.init(seed)
+    ref = []
     for g in range(SN_CHECK_GENERATIONS):
         a, b = sharded.step(a), plain.step(b)
         compare_exact(f"path 31 generation {g}: population, fitness and ranks, sharded against "
                       "unsharded", (a.algo.population, a.algo.fitness, a.algo.rank),
                       (b.algo.population, b.algo.fitness, b.algo.rank))
+        ref.append(tuple(x.cpu() for x in (a.algo.population, a.algo.fitness, a.algo.rank)))
+    if ref_dir is not None:
+        torch.save(ref, Path(ref_dir) / "path31.pt")
+    del ref
     states = {"sharded": (sharded, a), "unsharded": (plain, b)}
     turns = []
     for name in ("sharded", "unsharded", "unsharded", "sharded"):
@@ -7292,6 +7441,203 @@ def phase_sharded_nsga2(torch, seed: int = SEED, device=None) -> dict:
     for side in ("sharded", "unsharded"):
         out[f"{side}_ms_per_generation"] = statistics.median(
             t["ms_per_generation"] for t in turns if t["side"] == side)
+    return out
+
+
+# ------------------------------------------- main paths 44 and 45: two processes
+
+
+def pair_sharded_es(torch, mesh, ref_dir: Path) -> dict:
+    """Path 44 in one of its two processes: path 30 (``ShardedES(SepCMAES)``
+    at pop 65536, d 32, ``LP_SEED``) on the 8-position mesh of the two
+    processes, this one's 4 positions on the card. Each of
+    ``LP_CHECK_GENERATIONS``: this process's ``z`` blocks, ``mean``, ``C``
+    and ``sigma`` against path 30's single-process run, bit for bit; an
+    instrumented run's ``run_report`` (``roofline.multihost`` and
+    ``roofline.sharding``) through ``tools/check_report.py``; two timed
+    turns of ``LP_PAIR``: ms a generation, and the collectives' calls,
+    bytes, staged bytes and ms a generation."""
+    from evox_tpu_torch.core import distributed as d
+
+    ref = torch.load(ref_dir / "path30.pt")
+    wf = build_sharded_es_path(torch, mesh, LP_SHARDS)
+    a = wf.init(LP_SEED)
+    shard = LP_POP // LP_SHARDS
+    mine = d.local_positions(mesh)
+    for g in range(LP_CHECK_GENERATIONS):
+        a = wf.step(a)
+        z = a.algo.z
+        if z.positions != mine:
+            raise AssertionError(f"path 44: the blocks of {z!r} are not this process's {mine}")
+        compare_exact(f"path 44 process {d.process_id()} generation {g}: z blocks {mine}, mean, "
+                      "C, sigma against path 30 in one process",
+                      [b.cpu() for b in z.blocks] + [getattr(a.algo, f).cpu()
+                                                      for f in ("mean", "C", "sigma")],
+                      [ref["z"][g][s * shard:(s + 1) * shard] for s in mine]
+                      + [ref[f][g] for f in ("mean", "C", "sigma")])
+    del ref
+    report = sharded_report(torch, build_sharded_es_path(torch, mesh, LP_SHARDS), a)
+    validate(report=report, label=f"path 44 process {d.process_id()}'s run_report")
+    roof = report["roofline"]
+    if roof["multihost"]["process_count"] != 2 or roof["multihost"]["n_local_devices"] != 4 \
+            or roof["sharding"]["gather_free"] is not True:
+        raise AssertionError(f"path 44: {roof['multihost']}, {roof['sharding']}")
+    turns = []
+    for turn in range(2):
+        d.process_barrier(f"path44_turn{turn}", timeout_s=PAIR_BARRIER_S)
+        walls, stats = [], []
+        for n in LP_PAIR:
+            d.reset_collective_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wf.run(a, n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stats.append(d.collective_stats())
+        gens = LP_PAIR[1] - LP_PAIR[0]
+        turns.append({"ms_per_generation": (walls[1] - walls[0]) / gens * 1e3,
+                      **{f"{k}_per_generation": (stats[1][k] - stats[0][k]) / gens
+                         for k in stats[0]}})
+    return {"checked_generations": LP_CHECK_GENERATIONS, "positions": mine,
+            "multihost": roof["multihost"], "sharding": roof["sharding"], "turns": turns}
+
+
+def pair_sharded_nsga2(torch, mesh, ref_dir: Path) -> dict:
+    """Path 45 in one of its two processes: path 31 (path 2's NSGA-II with
+    ``mesh=``, pop 10000, d 300, m 3, ``use_kernel=True``) on the
+    8-position mesh of the two processes: its sort's 4 B3 rows launches a
+    generation here, the peel's counts summed over the processes. Each of
+    ``SN_CHECK_GENERATIONS``: population, fitness and ranks against path 31
+    in one process, bit for bit; then ``SN_GENERATIONS`` timed, every
+    counter at 0 before and read after: 4 B3 rows and one B4 launch a
+    generation, no square B3; the collectives' bytes a generation."""
+    from evox_tpu_torch.core import distributed as d
+    from evox_tpu_torch.kernels import dominance as kd
+
+    ref = torch.load(ref_dir / "path31.pt")
+    wf = build_sharded_nsga2_path(torch, mesh)
+    a = wf.init(SEED)
+    for g in range(SN_CHECK_GENERATIONS):
+        a = wf.step(a)
+        compare_exact(f"path 45 process {d.process_id()} generation {g}: population, fitness and "
+                      "ranks against path 31 in one process",
+                      [x.cpu() for x in (a.algo.population, a.algo.fitness, a.algo.rank)], ref[g])
+    del ref
+    d.process_barrier("path45_turn", timeout_s=PAIR_BARRIER_S)
+    reset_launches()
+    kd.packed_dominance_rows.launches = 0
+    d.reset_collective_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    end = wf.run(a, SN_GENERATIONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {**read_launches(), "packed_dominance_rows": kd.packed_dominance_rows.launches}
+    shards_here = len(d.local_positions(mesh))
+    want = {"fused_rollout": 0, "fused_mlp_rollout": 0, "partial_topk": SN_GENERATIONS,
+            "packed_dominance": 0, "packed_dominance_rows": shards_here * SN_GENERATIONS}
+    if got != want:
+        raise AssertionError(f"path 45 process {d.process_id()}: launches {got}, expected {want}")
+    if not bool(torch.isfinite(end.algo.fitness).all()):
+        raise AssertionError("path 45: non-finite fitness")
+    stats = d.collective_stats()
+    return {"checked_generations": SN_CHECK_GENERATIONS, "generations": SN_GENERATIONS,
+            "launches": got, "ms_per_generation": wall / SN_GENERATIONS * 1e3,
+            **{f"{k}_per_generation": v / SN_GENERATIONS for k, v in stats.items()}}
+
+
+def pair_worker(rank: int, store: str, out: str, ref_dir: str, device: str = "cuda:0") -> None:
+    """One of paths 44-45's two processes: join the gloo world of two on the
+    ``FileStore`` (NCCL refuses two ranks on one card), build the mesh of
+    both processes' 4 positions on ``device``, run path 44 and then path
+    45, meet at a barrier with a deadline and write the results. The
+    kernels' libraries are the ones the parent built."""
+    import torch
+
+    from evox_tpu_torch.core import distributed as d
+
+    d.init_distributed("file://" + store, num_processes=2, process_id=rank, backend="gloo",
+                       timeout_s=PAIR_BARRIER_S)
+    try:
+        mesh = d.create_pod_mesh(devices=d.pod_devices(local=[device] * 4))
+        res = {"world": [d.process_id(), d.process_count()], "backend": "gloo",
+               "path44": pair_sharded_es(torch, mesh, Path(ref_dir))}
+        torch.cuda.empty_cache()
+        res["path45"] = pair_sharded_nsga2(torch, mesh, Path(ref_dir))
+        d.process_barrier("pair_done", timeout_s=PAIR_BARRIER_S)
+    finally:
+        d.shutdown_distributed()
+    Path(out).write_text(json.dumps(res))
+
+
+def _time_path(torch, wf, state, pair) -> float:
+    walls = []
+    for n in pair:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf.run(state, n)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return (walls[1] - walls[0]) / (pair[1] - pair[0]) * 1e3
+
+
+def phase_pair_paths(torch, ref_dir: Path, device=None) -> dict:
+    """Main paths 44 and 45: paths 30 and 31 on a mesh that spans two
+    processes, both on the one card (``pair_worker`` in two children of
+    this script, gloo over a ``FileStore``, each holding 4 of the 8
+    positions), held bit for bit against the single-process runs saved in
+    ``ref_dir``. Either child dying or hanging fails the phase through the
+    barriers' deadline and the children's timeout. Paths 30 and 31 in this
+    process are timed before and after the children (turns: 30, 44, 44,
+    30), each child times two turns of path 44."""
+    import tempfile
+
+    from evox_tpu_torch.core.distributed import create_mesh
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda" if device is None else device)
+    mesh = create_mesh(devices=[torch.device(dev.type, 0) if dev.type == "cuda" else dev]
+                       * LP_SHARDS)
+    solo = build_sharded_es_path(torch, mesh, LP_SHARDS, device=device)
+    s30 = solo.run(solo.init(LP_SEED), 2)
+    before = _time_path(torch, solo, s30, LP_PAIR)
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as td:
+        outs = [Path(td) / f"pair{r}.json" for r in (0, 1)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--pair-worker",
+                                   str(r), str(Path(td) / "store"), str(outs[r]), str(ref_dir)],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PAIR_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"paths 44-45: process {r} exited {p.returncode}: "
+                                     f"{log[-3000:]}")
+        res = [json.loads(o.read_text()) for o in outs]
+    after = _time_path(torch, solo, s30, LP_PAIR)
+    out = {"processes_wall_s": wall, "path30_ms_per_generation": [before, after]}
+    for key in ("path44", "path45"):
+        out[key] = {f"process{r}": res[r][key] for r in (0, 1)}
+    p44 = [t["ms_per_generation"] for r in res for t in r["path44"]["turns"]]
+    out["path44"]["ms_per_generation"] = statistics.median(p44)
+    out["path44"]["staged_bytes_per_generation"] = statistics.median(
+        t["staged_bytes_per_generation"] for r in res for t in r["path44"]["turns"])
+    out["path44"]["staged_ms_per_generation"] = statistics.median(
+        t["staged_ms_per_generation"] for r in res for t in r["path44"]["turns"])
+    out["path45"]["ms_per_generation"] = max(r["path45"]["ms_per_generation"] for r in res)
+    out["path45"]["launches"] = res[0]["path45"]["launches"]
+    print(f"[pair paths] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -9688,7 +10034,12 @@ def monitor_callers(name: str, paths: dict) -> list:
              "k": NSGA2_POP, "launches": paths["pod_supervised_nsga2"]["launches"][name]},
             {"caller": "rank_crowding_truncate in NSGA-II's tell under EvoXVisMonitor, "
                        "EvalMonitor and PopMonitor, straight run from init (path 41)",
-             "n": 2 * NSGA2_POP, "k": NSGA2_POP, "launches": paths["vis"]["launches"][name]}]
+             "n": 2 * NSGA2_POP, "k": NSGA2_POP, "launches": paths["vis"]["launches"][name]},
+            {"caller": "rank_crowding_truncate in NSGA-II's tell with the sort on a mesh that "
+                       "spans two processes of the card (path 45), one a process and generation",
+             "n": 2 * NSGA2_POP, "k": NSGA2_POP,
+             "launches": [paths["pair"]["path45"][f"process{r}"]["launches"][name]
+                          for r in (0, 1)]}]
 
 
 def kernel_entries(kernels: dict, paths: dict) -> list:
@@ -9834,7 +10185,10 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
                                "attestation (path 26)", "launches": att["launches"]["state_digest"]},
                     {"caller": "run_fused(verify_every=1)'s voted re-dispatch on path 4's CSO, "
                                "two launches a verified chunk and one more a mismatch (path 26)",
-                     "launches": att["votes"]["heal"]["digest_launches"]}],
+                     "launches": att["votes"]["heal"]["digest_launches"]},
+                    {"caller": "state_digest of path 30's resident state: z's 8 blocks in one "
+                               "slot, the digest of the gathered state's bits",
+                     "launches": paths["sharded_es"]["resident_digest"]["launches"]}],
     })
     rows = paths["dominance_rows"]["main"]
     sn = paths["sharded_nsga2"]
@@ -9860,7 +10214,11 @@ def kernel_entries(kernels: dict, paths: dict) -> list:
         "shapes": paths["dominance_rows"]["shapes"],
         "callers": [{"caller": "the mesh-sharded non_dominated_sort in NSGA-II's tell on an "
                                "8-shard mesh of the card (path 31), 8 launches a generation",
-                     "launches": sn["launches"]["packed_dominance_rows"]}],
+                     "launches": sn["launches"]["packed_dominance_rows"]},
+                    {"caller": "the same sort on a mesh that spans two processes of the card "
+                               "(path 45), 4 launches a process and generation",
+                     "launches": [paths["pair"]["path45"][f"process{r}"]["launches"][
+                         "packed_dominance_rows"] for r in (0, 1)]}],
     })
     mm = paths["smallmm"]
     main_mm = next(e for e in mm["shapes"] if e["name"].startswith("path 28 ask"))
@@ -9965,7 +10323,19 @@ def main() -> int:
     parser.add_argument("--cold-start", nargs=2, metavar=("MODE", "CACHE_DIR"), default=None,
                         help="run path 36's cold start in this process and print it (a child "
                              "of path 36)")
+    parser.add_argument("--pair-worker", nargs=4, metavar=("RANK", "STORE", "OUT", "REF_DIR"),
+                        default=None, help="run paths 44 and 45 as one of their two processes "
+                                           "(a child of this script)")
     args = parser.parse_args()
+    if args.pair_worker is not None:
+        import torch
+
+        if not torch.cuda.is_available():
+            return 1
+        sys.path.insert(0, str(ROOT))
+        rank, store, out, ref_dir = args.pair_worker
+        pair_worker(int(rank), store, out, ref_dir)
+        return 0
     if args.cold_start is not None:
         import torch
 
@@ -10155,9 +10525,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["smallmm"] = phase_smallmm_kernel(torch)
     paths["dominance_rows"] = phase_dominance_rows(torch)
-    paths["sharded_es"] = phase_sharded_es(torch)
-    torch.cuda.empty_cache()
-    paths["sharded_nsga2"] = phase_sharded_nsga2(torch)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as pair_refs:
+        paths["sharded_es"] = phase_sharded_es(torch, ref_dir=pair_refs)
+        torch.cuda.empty_cache()
+        paths["sharded_nsga2"] = phase_sharded_nsga2(torch, ref_dir=pair_refs)
+        # main paths 44 and 45: paths 30 and 31 on a mesh that spans two
+        # processes of the card, against the runs just saved
+        paths["pair"] = phase_pair_paths(torch, Path(pair_refs))
     paths["supervised_nsga2"] = phase_supervised_nsga2(torch)
     paths["nccl_world"] = phase_nccl_world(torch)
     # 18. main paths 33 (OpenES on HostEnvProblem over the native C++
@@ -10260,6 +10636,7 @@ def main() -> int:
         "dominance_rows": paths["dominance_rows"],
         "sharded_es_path": paths["sharded_es"],
         "sharded_nsga2_path": paths["sharded_nsga2"],
+        "pair_paths": paths["pair"],
         "supervised_nsga2_path": paths["supervised_nsga2"],
         "nccl_world": paths["nccl_world"],
         "hostenv_path": paths["hostenv"],

@@ -212,16 +212,22 @@ def _combine_np(digests: List[np.ndarray]) -> np.ndarray:
 
 def host_state_digest(tree: Any) -> np.ndarray:
     """The ``uint32[6]`` digest of a state (device leaves are copied to the
-    host)."""
-    named = named_leaves(tree)
+    host; a resident leaf gathered first)."""
+    from .distributed import gather_tree
+
+    named = named_leaves(gather_tree(tree))
     if not named:
         return _EMPTY_TREE.copy()
     return _combine_np([_leaf_digest_np(leaf, _salt(name)) for name, leaf in named])
 
 
 def host_leaf_digests(tree: Any) -> Dict[str, str]:
-    """Per-leaf hex digests keyed by path."""
-    return {name: digest_hex(_leaf_digest_np(leaf, _salt(name))) for name, leaf in named_leaves(tree)}
+    """Per-leaf hex digests keyed by path (a resident leaf gathered
+    first)."""
+    from .distributed import gather_tree
+
+    return {name: digest_hex(_leaf_digest_np(leaf, _salt(name)))
+            for name, leaf in named_leaves(gather_tree(tree))}
 
 
 def digest_hex(words: Any) -> str:
@@ -301,6 +307,20 @@ def _combine_host(digests: List[Tuple[int, ...]]) -> List[int]:
 _CPU = torch.device("cpu")
 
 
+def _entries(leaf: Any, name: str, salt: int) -> List[Tuple[str, torch.Tensor, int, int]]:
+    """The kernel's table entries of one non-empty tensor or resident leaf:
+    ``[(name, tensor, salt, first word index)]``: a tensor whole, a
+    resident leaf's blocks on this process at their words' offsets."""
+    from .distributed import ShardedTensor
+
+    if isinstance(leaf, torch.Tensor):
+        return [(name, leaf, salt, 0)]
+    row_words = int(np.prod(leaf.shape[1:])) * (2 if leaf.element_size() == 8 else 1)
+    first = np.cumsum([0] + list(leaf.rows))
+    return [(name, b, salt, int(first[s]) * row_words)
+            for s, b in zip(leaf.positions, leaf.blocks) if b.numel() > 0]
+
+
 def _device_digest(tree: Any, per_leaf: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``(combined, {path: words})`` of ``tree``: non-empty tensor leaves
     through ``kernels/digest.py`` (one launch for the CUDA leaves, the
@@ -308,17 +328,34 @@ def _device_digest(tree: Any, per_leaf: bool = False) -> Tuple[torch.Tensor, Dic
     host, folded into the combination, which lands as a ``(6,)`` int64
     tensor on the CUDA leaves' device (else the CPU). With ``per_leaf`` the
     dict holds each leaf's words: a device row for a tensor leaf, host
-    integers for the rest."""
+    integers for the rest.
+
+    A resident leaf (``ShardedTensor``) enters as its blocks, each at its
+    words' offset in the leaf, folded into one leaf digest: the gathered
+    leaf's words, bit for bit. Blocks on several devices (a mesh of
+    distinct cards) are digested a device at a time, one launch each, and
+    a leaf's rows merged. On a mesh that spans processes each process
+    digests its own blocks and the leaf's partial words cross processes
+    (one ``exchange`` for all such leaves) before the leaves combine."""
     from ..kernels import digest as kd
+    from .distributed import ShardedTensor, exchange, mesh_spans_processes
 
     host: List[Tuple[int, ...]] = []
     leaves: Dict[str, Any] = {}
-    groups: Dict[torch.device, List[Tuple[str, torch.Tensor, int]]] = {}
+    groups: Dict[torch.device, List[Tuple[str, torch.Tensor, int, int]]] = {}
+    partial: List[str] = []  # resident leaves whose other blocks lie in other processes
     for name, leaf in named_leaves(tree):
         salt = _salt(name)
-        if isinstance(leaf, torch.Tensor):
-            if leaf.numel() > 0:
-                groups.setdefault(leaf.device, []).append((name, leaf, salt))
+        if isinstance(leaf, ShardedTensor) and mesh_spans_processes(leaf.mesh) \
+                and leaf.numel() > 0:
+            partial.append(name)
+        if isinstance(leaf, (torch.Tensor, ShardedTensor)):
+            entries = _entries(leaf, name, salt) if leaf.numel() > 0 else []
+            for entry in entries:
+                groups.setdefault(entry[1].device, []).append(entry)
+            if entries:
+                continue
+            if leaf.numel() > 0:  # a resident leaf with no block in this process
                 continue
             d = kd.empty_leaf_digest(salt)
         else:
@@ -329,24 +366,79 @@ def _device_digest(tree: Any, per_leaf: bool = False) -> Tuple[torch.Tensor, Dic
         if per_leaf:
             leaves[name] = d
     acc = _combine_host(host)
+    if partial or len([d for d in groups if d != _CPU]) > 1:
+        return _combine_rows(groups, acc, partial, leaves, per_leaf, exchange)
     cpu = groups.pop(_CPU, None)
     if cpu:
-        combined, rows = kd.digest_leaves([x for _, x, _ in cpu], [s for _, _, s in cpu])
+        tensors, salts, starts, slots = _table_of(cpu)
+        combined, rows = kd.digest_leaves(tensors, salts, starts=starts, slots=slots)
         _fold(acc, combined.tolist())
         if per_leaf:
-            leaves.update({name: rows[i] for i, (name, _, _) in enumerate(cpu)})
-    if len(groups) > 1:
-        raise ValueError(f"state_digest: tensor leaves on several devices {sorted(map(str, groups))}")
+            leaves.update(zip(_slot_names(cpu), rows))
     if not groups:
         return torch.tensor(acc, dtype=torch.int64), leaves
     (dev, items), = groups.items()
-    leaf_list, salt_list = [x for _, x, _ in items], [s for _, _, s in items]
+    tensors, salts, starts, slots = _table_of(items)
     if dev.type == "cuda":  # grouped by device, none empty: the launch needs no other check
-        combined, rows = kd.launch_digest(leaf_list, salt_list, acc)
+        combined, rows = kd.launch_digest(tensors, salts, acc, starts, slots)
     else:
-        combined, rows = kd.digest_leaves(leaf_list, salt_list, carry=acc)
+        combined, rows = kd.digest_leaves(tensors, salts, acc, starts, slots)
     if per_leaf:
-        leaves.update({name: rows[i] for i, (name, _, _) in enumerate(items)})
+        leaves.update(zip(_slot_names(items), rows))
+    return combined, leaves
+
+
+def _slot_names(items: List[Tuple[str, torch.Tensor, int, int]]) -> List[str]:
+    """The leaf of each slot of a table: its entries' names, in order, each
+    once."""
+    names: List[str] = []
+    for name, _, _, _ in items:
+        if not names or names[-1] != name:
+            names.append(name)
+    return names
+
+
+def _table_of(items: List[Tuple[str, torch.Tensor, int, int]]) -> tuple:
+    """``(tensors, salts, starts, slots)`` of a device's entries: one slot
+    a leaf, its blocks' entries sharing it."""
+    slots, k = [], -1
+    for i, (name, _, _, _) in enumerate(items):
+        if i == 0 or name != items[i - 1][0]:
+            k += 1
+        slots.append(k)
+    return ([x for _, x, _, _ in items], [s for _, _, s, _ in items],
+            [st for _, _, _, st in items], slots)
+
+
+def _combine_rows(groups: dict, acc: List[int], partial: List[str], leaves: Dict[str, Any],
+                  per_leaf: bool, exchange: Callable[[torch.Tensor], list]
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The digest of a state whose tensor words lie on several devices or
+    in several processes: each device's leaf rows (one launch, no carry), a
+    leaf's rows from several devices merged, the partial leaves' rows
+    merged over the processes, every leaf row then combined with the host
+    words on the first card's device (else the CPU)."""
+    from ..kernels import digest as kd
+
+    parts: Dict[str, List[torch.Tensor]] = {}
+    dev = next((d for d in groups if d.type == "cuda"), _CPU)
+    for items in groups.values():
+        tensors, salts, starts, slots = _table_of(items)
+        _, per_slot = kd.digest_leaves(tensors, salts, starts=starts, slots=slots)
+        for name, row in zip(_slot_names(items), per_slot):
+            parts.setdefault(name, []).append(row.to(dev))
+    rows = {name: r[0] if len(r) == 1 else kd.merge_rows(torch.stack(r))
+            for name, r in parts.items()}
+    if partial:
+        identity = torch.tensor(kd.IDENTITY, dtype=torch.int64)
+        mine = torch.stack([rows.get(name, identity).to(dev) for name in partial])
+        everyone = torch.stack(exchange(mine))  # (processes, leaves, 6)
+        for i, name in enumerate(partial):
+            rows[name] = kd.merge_rows(everyone[:, i])
+    stacked = torch.stack([r.to(dev) for r in rows.values()])
+    combined = kd.combine_words(stacked, acc)
+    if per_leaf:
+        leaves.update(rows)
     return combined, leaves
 
 

@@ -19,6 +19,22 @@ operators, host reads, Python)?
   of ``kernels/``). Work that runs on the host in numpy (a host problem's
   ``evaluate``) is outside the count, as XLA's analysis leaves the host
   callback out.
+- **Memory, per mesh position**: eager PyTorch has no
+  ``memory_analysis()``, so the counter follows the bytes that are live
+  while the entry runs, and keeps each mesh position's peak (a position
+  is "a device" of a mesh whose devices repeat): the position's resident
+  input blocks (``core/distributed.py``'s ``ShardedTensor``), the storages
+  made while its per-shard function runs (``shard_map``'s context), each
+  followed by a weak reference to its storage until it is freed, and the
+  work outside any per-shard function, which counts at the controller's
+  position (the first this process holds). Unlike XLA's static analysis
+  of a compiled program, this is what one run allocates: a storage is
+  counted at the position that made it, whatever device it lies on, and
+  the caching allocator's rounding is not counted. ``memory`` reports the
+  largest position's peak as ``peak_bytes_estimate`` (what
+  ``run_report``'s ``roofline.sharding`` compares with the whole
+  population's bytes), and ``output_shapes`` every shape an operator
+  returned (a ``(pop, dim)`` output is a gather).
 - **Per generation**: a workflow's ``run`` is analysed at one generation
   (``analysis_targets``), the unit of the recorder's differenced slope.
 - **Roofline**: static FLOPs and bytes over the measured seconds a unit
@@ -36,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -117,10 +134,47 @@ def _walk(tree: Any, leaves: List[Any], parts: List[str]) -> None:
 
 
 def tensor_leaves(tree: Any) -> List[torch.Tensor]:
-    """Every tensor of a state, dict, list or tuple tree."""
+    """Every tensor of a state, dict, list or tuple tree; a resident leaf
+    (``ShardedTensor``) gives its blocks."""
+    from .distributed import ShardedTensor
+
     leaves: List[Any] = []
     _walk(tree, leaves, [])
-    return [x for x in leaves if isinstance(x, torch.Tensor)]
+    out: List[torch.Tensor] = []
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, ShardedTensor):
+            out.extend(x.blocks)
+    return out
+
+
+def _positioned(tree: Any, outside: int) -> List[Tuple[torch.Tensor, int]]:
+    """``[(tensor, position)]`` of a tree: a resident leaf's blocks at their
+    positions, every other tensor at ``outside``."""
+    from .distributed import ShardedTensor
+
+    leaves: List[Any] = []
+    _walk(tree, leaves, [])
+    out: List[Tuple[torch.Tensor, int]] = []
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            out.append((x, outside))
+        elif isinstance(x, ShardedTensor):
+            out.extend(zip(x.blocks, x.positions))
+    return out
+
+
+def _outside_position(tree: Any) -> int:
+    """Where work outside any per-shard function counts: the first position
+    of the resident leaves in ``tree`` that this process holds (its
+    controller), else 0."""
+    from .distributed import ShardedTensor
+
+    leaves: List[Any] = []
+    _walk(tree, leaves, [])
+    return min((p for x in leaves if isinstance(x, ShardedTensor) for p in x.positions),
+               default=0)
 
 
 def _dtype_name(dtype: Any) -> str:
@@ -182,14 +236,43 @@ def charge(name: str, flops: float, nbytes: float, dtype: str = "float32",
 
 
 class _OpCounter(TorchDispatchMode):
-    """FLOPs and bytes of every aten operator dispatched inside it."""
+    """FLOPs and bytes of every aten operator dispatched inside it, the
+    shapes of their outputs, and each mesh position's live and peak bytes
+    (module docstring): a storage counts at the position whose per-shard
+    function made it (``outside`` when none runs) from its first output
+    until a weak reference sees it freed."""
 
-    def __init__(self) -> None:
+    def __init__(self, outside: int = 0) -> None:
         super().__init__()
         self.flops_by_dtype: Dict[str, float] = {}
         self.bytes = 0.0
         self.ops = 0
         self.kernels: Dict[str, dict] = {}
+        self.outside = outside
+        self.live: Dict[int, int] = {}
+        self.peak: Dict[int, int] = {}
+        self.output_shapes: Dict[Tuple[int, ...], int] = {}
+        self._storages: Dict[tuple, tuple] = {}
+
+    def hold(self, t: torch.Tensor, position: int) -> None:
+        """Count ``t``'s storage at ``position`` until it is freed (once: a
+        storage already held stays where it was first counted)."""
+        storage = t.untyped_storage()
+        nbytes = storage.nbytes()
+        key = (t.device.type, t.device.index, storage.data_ptr())
+        if nbytes == 0 or key in self._storages:
+            return
+
+        def freed(_ref: Any, key: tuple = key) -> None:
+            entry = self._storages.pop(key, None)
+            if entry is not None:
+                self.live[entry[1]] -= entry[2]
+
+        self._storages[key] = (weakref.ref(storage, freed), position, nbytes)
+        live = self.live.get(position, 0) + nbytes
+        self.live[position] = live
+        if live > self.peak.get(position, 0):
+            self.peak[position] = live
 
     def add(self, flops: float, nbytes: float, dtype: str, kernel: Optional[str] = None,
             launches: int = 1) -> None:
@@ -202,12 +285,21 @@ class _OpCounter(TorchDispatchMode):
             k["bytes"] += float(nbytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from .distributed import current_position
+
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.overloadpacket in _ALLOCATIONS or getattr(func, "is_view", False):
+        if getattr(func, "is_view", False):
+            return out
+        outs = tensor_leaves(out)
+        position = current_position()
+        for t in outs:
+            self.hold(t, self.outside if position is None else position)
+            shape = tuple(t.shape)
+            self.output_shapes[shape] = self.output_shapes.get(shape, 0) + 1
+        if func.overloadpacket in _ALLOCATIONS:
             return out
         ins = tensor_leaves((args, kwargs))
-        outs = tensor_leaves(out)
         packet = func.overloadpacket
         if packet in flop_registry:
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
@@ -238,9 +330,17 @@ def analyze_callable(fn: Callable, *args: Any, **kwargs: Any) -> dict:
     the call raises (an analysis never sinks the run it describes). What
     ``fn`` returns is thrown away; ``fn`` must not change its arguments in
     place (the port's entry points never do). ``memory`` holds the
-    argument and output bytes (eager PyTorch reports no temporaries ahead
-    of time)."""
-    counter = _OpCounter()
+    argument and output bytes, each mesh position's peak of live bytes
+    (``per_position_peak_bytes``) and the largest (``peak_bytes_estimate``);
+    ``output_shapes`` counts the operators' outputs by shape, and
+    ``gathers`` the resident leaves gathered (``ShardedTensor.gather``)."""
+    from .distributed import gather_counts
+
+    outside = _outside_position((args, kwargs))
+    counter = _OpCounter(outside)
+    for t, position in _positioned((args, kwargs), outside):
+        counter.hold(t, position)
+    gathers = gather_counts()["calls"]
     _ACTIVE.append(counter)
     try:
         with counter:
@@ -250,13 +350,18 @@ def analyze_callable(fn: Callable, *args: Any, **kwargs: Any) -> dict:
     finally:
         _ACTIVE.remove(counter)
     flops = sum(counter.flops_by_dtype.values())
+    peaks = {str(p): int(v) for p, v in sorted(counter.peak.items())}
     return {
         "flops": float(flops),
         "bytes_accessed": float(counter.bytes),
         "flops_by_dtype": {k: float(v) for k, v in sorted(counter.flops_by_dtype.items())},
         "ops": counter.ops,
         "kernels": counter.kernels,
-        "memory": {"argument_bytes": _bytes_of((args, kwargs)), "output_bytes": _bytes_of(out)},
+        "memory": {"argument_bytes": _bytes_of((args, kwargs)), "output_bytes": _bytes_of(out),
+                   "peak_bytes_estimate": max(peaks.values(), default=0),
+                   "per_position_peak_bytes": peaks},
+        "output_shapes": {"x".join(map(str, k)): v for k, v in counter.output_shapes.items()},
+        "gathers": gather_counts()["calls"] - gathers,
         "signature": abstract_signature(args, kwargs)[0],
     }
 
@@ -346,7 +451,10 @@ def roofline_section(
     entry_stats = (dispatch_summary or {}).get("entry_points", {})
     entries: Dict[str, dict] = {}
     for name, analysis in sorted(analyses.items()):
-        entry: dict = {"static": analysis, "classification": None}
+        # the shapes stay with the analysis (the gather-free check reads
+        # them); the report carries the rest
+        static = {k: v for k, v in analysis.items() if k != "output_shapes"}
+        entry: dict = {"static": static, "classification": None}
         if "error" in analysis:
             entries[name] = entry
             continue

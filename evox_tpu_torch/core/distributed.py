@@ -7,22 +7,46 @@ that XLA partitions over devices; PyTorch has no counterpart. Here a
 device may repeat: ``create_mesh(devices=["cuda:0"] * 8)`` is an 8-shard
 mesh on one card (what the JAX tests do with 8 virtual CPU devices),
 ``create_mesh()`` a mesh over every visible card, ``create_mesh(devices=
-["cpu"] * 8)`` the CPU tests' mesh. The program stays single-controller:
+["cpu"] * 8)`` the CPU tests' mesh. Every process runs the same program
+(JAX's multi-controller model); in one process it is the only controller:
 
-- A global value lives on the mesh's first device, its *controller*.
-- :func:`shard_map` runs a per-shard function shard by shard, in mesh
-  order: an input specified ``P(axis)`` enters as its shard's block of rows
-  (a view on the controller, a copy on another device), ``P()`` whole.
-  Each output is combined by its out spec: ``P(axis)`` concatenated in
-  mesh order (the ``all_gather``), ``P()`` shard 0's, :data:`PSUM` summed
-  in mesh order (the ``psum``). Mesh order is fixed, so sums are
-  reproducible; they can differ from the JAX package's only in their order.
+- A replicated value lives whole on the mesh's first device, its
+  *controller* (on a mesh that spans processes, on each process's first
+  device of the mesh).
+- A value split over a mesh axis (``P(axis)``) lives as its blocks, each
+  on its position's device: a :class:`ShardedTensor`. It is not a
+  ``torch.Tensor``, and arithmetic on it raises, so nothing gathers it
+  unseen; :meth:`ShardedTensor.gather` is the explicit, counted
+  all-gather (the JAX package's ``host_value`` and replicated
+  ``with_sharding_constraint``).
+- :func:`shard_map` runs a per-shard function for each of this process's
+  positions of the axis, in mesh order: an input specified ``P(axis)``
+  enters as its position's block (a resident leaf's own block, or a block
+  of rows of a whole tensor), ``P()`` whole. Each output is combined by
+  its out spec: ``P(axis)`` stays resident (a :class:`ShardedTensor` of
+  the blocks), ``P()`` is shard 0's, :data:`PSUM` is summed in mesh order
+  (the ``psum``). Mesh order is fixed, so sums are reproducible; they can
+  differ from the JAX package's only in their order.
 - :func:`axis_index` inside a per-shard function is the shard's index.
 
 So a mesh of repeated devices runs the sharded program's arithmetic on one
 device (the sharded sort's row slabs, ``ShardedES``'s per-shard draws and
 partial moments), and a mesh of distinct cards spreads the per-shard work
-over them, with copies to and from the controller.
+over them.
+
+**A mesh that spans processes** (:func:`create_pod_mesh`: each process's
+devices a contiguous block of positions). :func:`shard_map` runs only this
+process's positions; ``P(axis)`` outputs keep this process's blocks;
+``P()`` is shard 0's value, taken from the process that owns it;
+:data:`PSUM` on floats gathers every shard's partial and each process adds
+them in mesh order, as the single-process :func:`psum` does (the same bits);
+on integers (exact in any order) each process first adds its own shards.
+Every crossing is one :func:`exchange` (an all-gather of bytes) over
+``torch.distributed``: under gloo, which collects
+no CUDA tensor, a CUDA payload is staged through host memory explicitly,
+and :func:`collective_stats` counts the calls, the bytes staged and the
+ms of the staging copies. Nothing switches backend or device on its own: a
+failed collective raises.
 
 **Shardings.** :class:`P` and :class:`NamedSharding` keep the JAX names.
 ``field(sharding=P(POP_AXIS))`` on a state's dataclass field
@@ -30,15 +54,18 @@ over them, with copies to and from the controller.
 :func:`annotation_specs`, :func:`state_sharding`, :func:`match_partition_rules`
 and :func:`constrain_state` resolve them (rules first, then annotations),
 and :func:`place_state`/:func:`place_pop` put a state's leaves on the
-controller, or, on a mesh that spans processes, keep the rows this
-process's devices own (:func:`ensure_global_state`).
+controller, or, on a mesh that spans processes, keep the blocks this
+process's positions own as a :class:`ShardedTensor`
+(:func:`ensure_global_state`).
 
 **ShardedES** wraps a low-memory ES (``SepCMAES``, ``LMMAES``, ``RMES``):
-shard ``s`` draws its block from ``fold_in_seed(k, s)`` (the JAX package's
-``fold_in(k, s)``), and the tell weights every candidate by its global
-fitness rank (one stable argsort and its inverse) and sums per-shard
-moments with :func:`psum`. ``mesh=None, n_shards=N`` runs the same law on
-one device, the reference of the sharded run.
+its per-candidate fields (``sharded_pop_fields``) are born on their shards
+and stay resident between generations; shard ``s`` draws its block from
+``fold_in_seed(k, s)`` (the JAX package's ``fold_in(k, s)``), and the
+tell weights every candidate by its global fitness rank (one stable
+argsort and its inverse) and sums per-shard moments with :data:`PSUM`.
+``mesh=None, n_shards=N`` runs the same law on one device, the reference
+of the sharded run.
 
 **The process layer** runs over ``torch.distributed`` (gloo on the CPU,
 NCCL on cards): :func:`init_distributed` builds its store itself (a
@@ -75,19 +102,27 @@ __all__ = [
     "NamedSharding",
     "P",
     "ShardedES",
+    "ShardedTensor",
     "all_gather",
     "annotation_specs",
     "assemble_global_array",
     "axis_index",
+    "axis_processes",
+    "collective_stats",
     "constrain_state",
     "create_mesh",
     "create_pod_mesh",
     "dist_store",
     "ensure_global_state",
+    "exchange",
+    "gather_counts",
+    "gather_tree",
     "host_value",
     "init_distributed",
     "is_dist_initialized",
+    "local_positions",
     "match_partition_rules",
+    "mesh_psum",
     "mesh_spans_processes",
     "require_single_process",
     "place_by_sharding",
@@ -101,8 +136,10 @@ __all__ = [
     "psum",
     "replicate",
     "replicated_sharding",
+    "reset_collective_stats",
     "shard_map",
     "shard_pop",
+    "shard_tensor",
     "sharded_es_tell",
     "shutdown_distributed",
     "split_rows",
@@ -160,6 +197,15 @@ class Mesh:
         if processes is None:
             processes = np.full(arr.shape, process_id(), dtype=np.int64)
         self.processes = np.asarray(processes, dtype=np.int64).reshape(arr.shape)
+        # what a shard_map call reads off the mesh, made once: the mesh
+        # does not change
+        self._derived: Dict[tuple, Any] = {}
+
+    def derived(self, key: tuple, make: Callable[[], Any]) -> Any:
+        """``make()`` computed once for this mesh and ``key``."""
+        if key not in self._derived:
+            self._derived[key] = make()
+        return self._derived[key]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -177,13 +223,16 @@ class Mesh:
     def axis_devices(self, axis_name: str) -> List[torch.device]:
         """The devices along ``axis_name`` (the other axes at index 0), in
         mesh order: the devices of that axis's shards."""
-        ax = self.axis_names.index(axis_name)
-        index = [0] * self.devices.ndim
-        out = []
-        for i in range(self.devices.shape[ax]):
-            index[ax] = i
-            out.append(self.devices[tuple(index)])
-        return out
+        def make() -> List[torch.device]:
+            ax = self.axis_names.index(axis_name)
+            index = [0] * self.devices.ndim
+            out = []
+            for i in range(self.devices.shape[ax]):
+                index[ax] = i
+                out.append(self.devices[tuple(index)])
+            return out
+
+        return list(self.derived(("axis_devices", axis_name), make))
 
     def _key(self) -> tuple:
         return (tuple(str(d) for d in self.devices.flat), self.devices.shape, self.axis_names,
@@ -248,6 +297,280 @@ def _mesh_axis_size(mesh: Optional[Mesh], axis_name: str) -> int:
     return mesh.shape.get(axis_name, 1)
 
 
+# ------------------------------------------------------- resident leaves
+
+
+def axis_processes(mesh: Mesh, axis_name: str) -> List[int]:
+    """The process that owns each position of ``axis_name`` (the other axes
+    at index 0), in mesh order."""
+    def make() -> List[int]:
+        ax = mesh.axis_names.index(axis_name)
+        return [int(p) for p in np.moveaxis(mesh.processes, ax, 0).reshape(
+            mesh.devices.shape[ax], -1)[:, 0]]
+
+    return list(mesh.derived(("axis_processes", axis_name), make))
+
+
+def local_positions(mesh: Mesh, axis_name: str = POP_AXIS) -> List[int]:
+    """The positions of ``axis_name`` this process runs: all of them in one
+    process, its own on a mesh that spans processes."""
+    me = process_id()
+
+    def make() -> List[int]:
+        owners = axis_processes(mesh, axis_name)
+        if not mesh_spans_processes(mesh):
+            return list(range(len(owners)))
+        return [s for s, p in enumerate(owners) if p == me]
+
+    return list(mesh.derived(("local_positions", axis_name, me), make))
+
+
+_GATHERS = {"calls": 0, "bytes": 0}
+
+
+def gather_counts() -> dict:
+    """``{"calls", "bytes"}`` of :meth:`ShardedTensor.gather` in this
+    process (the explicit all-gathers)."""
+    return dict(_GATHERS)
+
+
+def _refuse(name: str) -> Callable[..., Any]:
+    def refuse(self: "ShardedTensor", *args: Any, **kwargs: Any) -> Any:
+        raise TypeError(
+            f"{name} on a resident leaf {self!r}: its blocks live on their shards; compute "
+            "on them inside shard_map, or gather it explicitly with .gather()")
+
+    return refuse
+
+
+class ShardedTensor:
+    """A value split over one mesh axis (``P(axis)``), held as its blocks.
+
+    ``blocks`` holds one block for each of this process's positions of the
+    axis (every position in one process), in mesh order, each on its
+    position's device; ``positions`` names them. ``rows`` is every
+    position's row count, so ``shape`` and ``dtype`` are the logical
+    value's. Blocks differ in size by at most one row, as
+    :func:`split_rows` cuts them.
+
+    It is not a ``torch.Tensor``: arithmetic, indexing and torch functions
+    on it raise, so no operator gathers it unseen. :meth:`gather` is the
+    explicit, counted all-gather (:func:`gather_counts`; on a mesh that
+    spans processes a collective every process must call);
+    :meth:`map_blocks` applies a function block by block and stays
+    resident. A snapshot stores the gathered value (``core/state_io.py``).
+    """
+
+    __slots__ = ("_blocks", "positions", "rows", "shape", "dtype", "mesh", "spec")
+
+    def __init__(self, blocks: Sequence[torch.Tensor], positions: Sequence[int],
+                 rows: Sequence[int], mesh: Mesh, spec: P):
+        blocks, positions, rows = list(blocks), [int(s) for s in positions], [int(r) for r in rows]
+        if not blocks or len(blocks) != len(positions):
+            raise ValueError("a ShardedTensor needs one block for each of its positions")
+        for s, b in zip(positions, blocks):
+            if b.shape[0] != rows[s] or b.shape[1:] != blocks[0].shape[1:] \
+                    or b.dtype != blocks[0].dtype:
+                raise ValueError(f"block {s} of shape {tuple(b.shape)} {b.dtype} does not fit "
+                                 f"{rows[s]} rows of {tuple(blocks[0].shape[1:])} "
+                                 f"{blocks[0].dtype}")
+        self._blocks = blocks
+        self.positions = positions
+        self.rows = rows
+        self.shape = torch.Size((sum(rows),) + tuple(blocks[0].shape[1:]))
+        self.dtype = blocks[0].dtype
+        self.mesh = mesh
+        self.spec = spec
+
+    @classmethod
+    def from_tensor(cls, x: torch.Tensor, mesh: Mesh, spec: P) -> "ShardedTensor":
+        """``x`` (the whole value) cut into its blocks, this process's kept,
+        each copied onto its position's device (no view keeps ``x``
+        alive)."""
+        axis = spec[0]
+        devices = mesh.axis_devices(axis)
+        parts = split_rows(x, len(devices))
+        mine = local_positions(mesh, axis)
+        return cls([parts[s].to(devices[s], copy=True) for s in mine], mine,
+                   [p.shape[0] for p in parts], mesh, spec)
+
+    @property
+    def blocks(self) -> List[torch.Tensor]:
+        """This process's blocks, in mesh order."""
+        return list(self._blocks)
+
+    @property
+    def axis_name(self) -> str:
+        return self.spec[0]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
+
+    def element_size(self) -> int:
+        return self._blocks[0].element_size()
+
+    def is_floating_point(self) -> bool:
+        return self.dtype.is_floating_point
+
+    def block_at(self, position: int) -> torch.Tensor:
+        return self._blocks[self.positions.index(position)]
+
+    def map_blocks(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ShardedTensor":
+        """``fn`` on every block; the blocks must keep their rows."""
+        return ShardedTensor([fn(b) for b in self._blocks], self.positions, self.rows,
+                             self.mesh, self.spec)
+
+    def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
+        """The whole value on ``device`` (default the controller, or this
+        process's first device of the mesh): the explicit all-gather,
+        counted."""
+        dev = torch.device(device) if device is not None else _local_device(self.mesh)
+        _GATHERS["calls"] += 1
+        _GATHERS["bytes"] += self.numel() * self.element_size()
+        if not mesh_spans_processes(self.mesh):
+            return torch.cat([b.to(dev) for b in self._blocks])
+        owners = axis_processes(self.mesh, self.axis_name)
+        per_process = [0] * process_count()
+        for s, p in enumerate(owners):
+            per_process[p] += self.rows[s]
+        width = max(per_process)
+        mine = torch.cat([b.to(dev) for b in self._blocks])
+        pad = mine.new_zeros((width - mine.shape[0],) + tuple(mine.shape[1:]))
+        got = exchange(torch.cat([mine, pad]))
+        by_position, offset = {}, [0] * len(got)
+        for s, p in enumerate(owners):
+            by_position[s] = got[p][offset[p]:offset[p] + self.rows[s]]
+            offset[p] += self.rows[s]
+        return torch.cat([by_position[s] for s in range(len(owners))])
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.spec!r}, positions={self.positions})")
+
+    def __reduce__(self) -> Any:
+        raise TypeError(f"a resident leaf {self!r} is not pickled: gather it explicitly")
+
+    @classmethod
+    def __torch_function__(cls, func: Any, types: Any, args: Any = (), kwargs: Any = None) -> Any:
+        raise TypeError(
+            f"{getattr(func, '__name__', func)} on a resident leaf: its blocks live on their "
+            "shards; compute on them inside shard_map, or gather it explicitly with .gather()")
+
+    def __array__(self, *args: Any, **kwargs: Any) -> Any:
+        raise TypeError("numpy on a resident leaf: gather it explicitly with .gather()")
+
+
+for _name in ("add", "sub", "mul", "truediv", "floordiv", "mod", "pow", "matmul", "and", "or",
+              "xor", "lshift", "rshift"):
+    setattr(ShardedTensor, f"__{_name}__", _refuse(f"__{_name}__"))
+    setattr(ShardedTensor, f"__r{_name}__", _refuse(f"__r{_name}__"))
+for _name in ("neg", "pos", "abs", "invert", "getitem", "setitem", "lt", "le", "gt", "ge",
+              "float", "int", "index", "iter"):
+    setattr(ShardedTensor, f"__{_name}__", _refuse(f"__{_name}__"))
+
+
+def shard_tensor(x: Any, mesh: Mesh, spec: P) -> Any:
+    """``x`` resident on ``mesh`` by ``spec`` when ``spec`` splits its rows
+    over an axis of the mesh (a resident leaf as it is), else ``x``."""
+    if isinstance(x, ShardedTensor) or not isinstance(x, torch.Tensor):
+        return x
+    if not spec or spec[0] is None or spec[0] not in mesh.axis_names or x.ndim == 0:
+        return x
+    return ShardedTensor.from_tensor(x, mesh, spec)
+
+
+# ------------------------------------------------------- the collective layer
+
+_COLLECTIVES = {"calls": 0, "bytes": 0, "staged_bytes": 0, "staged_ms": 0.0,
+                "collective_ms": 0.0}
+
+
+def collective_stats() -> dict:
+    """The cross-process collectives of this process: ``calls``, the bytes
+    each contributed (``bytes``), the bytes staged between a card and host
+    memory (``staged_bytes``: gloo collects no CUDA tensor), the host ms of
+    those staging copies (``staged_ms``, each waited for) and of the
+    collectives themselves (``collective_ms``)."""
+    return dict(_COLLECTIVES)
+
+
+def reset_collective_stats() -> None:
+    for k in _COLLECTIVES:
+        _COLLECTIVES[k] = 0.0 if k.endswith("_ms") else 0
+
+
+def _staged(t: torch.Tensor) -> bool:
+    import torch.distributed as dist
+
+    return t.is_cuda and dist.get_backend() == "gloo"
+
+
+def exchange(t: torch.Tensor) -> List[torch.Tensor]:
+    """Every process's ``t`` (one shape and dtype in every process), in
+    process order, on ``t``'s device: an ``all_gather`` of its bytes (so
+    every dtype crosses bit for bit). Under gloo a CUDA ``t`` is copied to
+    pinned host memory and the results back, counted in
+    :func:`collective_stats`."""
+    import torch.distributed as dist
+
+    flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    staged = _staged(t)
+    t0 = time.perf_counter()
+    if staged:
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(flat)
+        flat = host
+    t1 = time.perf_counter()
+    outs = [torch.empty_like(flat) for _ in range(process_count())]
+    dist.all_gather(outs, flat)
+    t2 = time.perf_counter()
+    if staged:
+        outs = [o.to(t.device) for o in outs]
+        torch.cuda.synchronize(t.device)
+    t3 = time.perf_counter()
+    _COLLECTIVES["calls"] += 1
+    _COLLECTIVES["bytes"] += flat.numel()
+    _COLLECTIVES["collective_ms"] += (t2 - t1) * 1e3
+    if staged:
+        _COLLECTIVES["staged_bytes"] += flat.numel() * (1 + len(outs))
+        _COLLECTIVES["staged_ms"] += (t1 - t0 + t3 - t2) * 1e3
+    return [o.view(t.dtype).reshape(t.shape) for o in outs]
+
+
+def mesh_psum(parts: Dict[int, torch.Tensor], mesh: Mesh, axis_name: str = POP_AXIS,
+              device: Optional[torch.device] = None) -> torch.Tensor:
+    """The sum over every position of ``axis_name`` of the partials this
+    process computed (``{position: partial}``), in mesh order, on
+    ``device`` (default the controller): :func:`psum` in one process. On a
+    mesh that spans processes a float partial of every position is
+    gathered and the sum taken in mesh order, the same bits as in one
+    process; an integer sum (exact in any order) adds this process's
+    partials first and gathers one a process."""
+    dev = _local_device(mesh) if device is None else device
+    if not mesh_spans_processes(mesh):
+        return psum([parts[s] for s in sorted(parts)], dev)
+    owners = axis_processes(mesh, axis_name)
+    mine = sorted(parts)
+    first = parts[mine[0]]
+    if not (first.is_floating_point() or first.is_complex()):
+        return psum(exchange(psum([parts[s] for s in mine], dev)), dev)
+    counts = {p: owners.count(p) for p in set(owners)}
+    if len(set(counts.values())) > 1:
+        raise ValueError(f"a float PSUM over processes needs equal positions a process, got "
+                         f"{counts}")
+    got = exchange(torch.stack([parts[s] for s in mine]))
+    taken = [0] * len(got)
+    ordered = []
+    for p in owners:
+        ordered.append(got[p][taken[p]])
+        taken[p] += 1
+    return psum(ordered, dev)
+
+
 # ------------------------------------------------------- per-shard programs
 
 _shard_ctx = threading.local()
@@ -265,6 +588,14 @@ def axis_index(axis_name: str = POP_AXIS) -> int:
     return index
 
 
+def current_position() -> Optional[int]:
+    """The position of the per-shard function running in this thread
+    (``None`` outside :func:`shard_map`): where ``core/cost.py`` counts the
+    memory it makes."""
+    stack = getattr(_shard_ctx, "stack", None)
+    return stack[-1][1] if stack else None
+
+
 def split_rows(x: torch.Tensor, n: int) -> List[torch.Tensor]:
     """``x``'s leading axis in ``n`` blocks, in order; the blocks differ in
     size by at most one row where ``n`` does not divide it."""
@@ -275,82 +606,141 @@ def _is_leaf_spec(spec: Any) -> bool:
     return spec is None or spec is PSUM or isinstance(spec, P)
 
 
+def _is_value(x: Any) -> bool:
+    return isinstance(x, (torch.Tensor, ShardedTensor))
+
+
 def _map_spec(fn: Callable[[Any, Any], Any], spec: Any, tree: Any) -> Any:
-    """``fn(spec, tensor)`` over ``tree``'s tensors, where ``spec`` is one
-    spec for the whole tree or a tree of specs of ``tree``'s shape (dicts,
-    lists, tuples and states; a non-tensor leaf maps to ``None``)."""
-    if isinstance(tree, torch.Tensor):
+    """``fn(spec, leaf)`` over ``tree``'s tensors and resident leaves,
+    where ``spec`` is one spec for the whole tree or a tree of specs of
+    ``tree``'s shape (dicts, lists, tuples and states; any other leaf maps
+    to ``None``)."""
+    if _is_value(tree):
         return fn(spec if _is_leaf_spec(spec) else None, tree)
-    if _is_leaf_spec(spec):
-        return _map_leaves(lambda x: fn(spec, x), tree)
+    whole = _is_leaf_spec(spec)
     if isinstance(tree, dict):
-        return {k: _map_spec(fn, spec[k], tree[k]) for k in tree}
+        return {k: _map_spec(fn, spec if whole else spec[k], tree[k]) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_spec(fn, sp, t) for sp, t in zip(spec, tree))
+        return type(tree)(_map_spec(fn, spec if whole else spec[i], t) for i, t in enumerate(tree))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _map_spec(fn, getattr(spec, f.name), getattr(tree, f.name))
+            f.name: _map_spec(fn, spec if whole else getattr(spec, f.name), getattr(tree, f.name))
             for f in dataclasses.fields(tree)})
     return None
 
 
 def _map_leaves(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """``fn`` over ``tree``'s tensors; resident leaves stay as they are."""
     from .struct import map_tensors
 
-    return map_tensors(fn, tree)
+    return map_tensors(fn, tree, resident="keep")
 
 
-def _combine(spec: Any, parts: List[Any], axis_name: str, controller: torch.device) -> Any:
-    if isinstance(parts[0], torch.Tensor):
+class _Combiner:
+    """How :func:`shard_map` combines one call's outputs: this process's
+    ``positions`` of the axis, their devices, the global value's device
+    and the row counts of the first split input (``hint``), which a
+    ``P(axis)`` output that keeps its input's rows takes as its own."""
+
+    def __init__(self, mesh: Mesh, axis_name: str, positions: List[int], hint: Optional[list]):
+        self.mesh, self.axis_name, self.positions, self.hint = mesh, axis_name, positions, hint
+        self.spans = mesh_spans_processes(mesh)
+        self.device = _local_device(mesh)
+
+    def rows(self, parts: List[torch.Tensor]) -> List[int]:
+        local = [p.shape[0] for p in parts]
+        if not self.spans:
+            return local
+        hint = self.hint
+        if hint is not None:
+            if [hint[s] for s in self.positions] != local:
+                raise ValueError(
+                    f"a P({self.axis_name!r}) output's blocks have {local} rows where the split "
+                    f"input's have {[hint[s] for s in self.positions]}: over processes an output "
+                    "keeps its input's rows, or has no split input")
+            return list(hint)
+        # each position's rows from the process that owns it: zeros elsewhere
+        counts = torch.zeros(len(axis_processes(self.mesh, self.axis_name)), dtype=torch.int64,
+                             device=self.device)
+        counts[self.positions] = torch.tensor(local, dtype=torch.int64, device=self.device)
+        return [int(r) for r in torch.stack(exchange(counts)).sum(0).tolist()]
+
+    def leaf(self, spec: Any, parts: List[torch.Tensor]) -> Any:
         if spec is PSUM:
-            return psum(parts, controller)
-        if spec is not None and axis_name in spec:
-            return all_gather(parts, controller)
-        return parts[0].to(controller)
-    if isinstance(parts[0], dict):
-        return {k: _combine(spec if _is_leaf_spec(spec) else spec[k], [p[k] for p in parts],
-                            axis_name, controller) for k in parts[0]}
-    if isinstance(parts[0], (list, tuple)):
-        return type(parts[0])(
-            _combine(spec if _is_leaf_spec(spec) else spec[i], [p[i] for p in parts], axis_name,
-                     controller) for i in range(len(parts[0])))
-    if dataclasses.is_dataclass(parts[0]):
-        return dataclasses.replace(parts[0], **{
-            f.name: _combine(spec if _is_leaf_spec(spec) else getattr(spec, f.name),
-                             [getattr(p, f.name) for p in parts], axis_name, controller)
-            for f in dataclasses.fields(parts[0])})
-    return parts[0]
+            return mesh_psum(dict(zip(self.positions, parts)), self.mesh, self.axis_name,
+                             self.device)
+        if spec is not None and self.axis_name in spec:
+            return ShardedTensor(parts, self.positions, self.rows(parts), self.mesh,
+                                 P(self.axis_name))
+        if not self.spans:
+            return parts[0].to(self.device)
+        # shard 0's value, from the process that owns it (every process's
+        # first position made a value of the same shape)
+        owner = axis_processes(self.mesh, self.axis_name)[0]
+        return exchange(parts[0])[owner].to(self.device)
+
+    def combine(self, spec: Any, parts: List[Any]) -> Any:
+        p0, whole = parts[0], _is_leaf_spec(spec)
+        if isinstance(p0, torch.Tensor):
+            return self.leaf(spec if whole else None, parts)
+        if isinstance(p0, dict):
+            return {k: self.combine(spec if whole else spec[k], [p[k] for p in parts]) for k in p0}
+        if isinstance(p0, (list, tuple)):
+            return type(p0)(self.combine(spec if whole else spec[i], [p[i] for p in parts])
+                            for i in range(len(p0)))
+        if dataclasses.is_dataclass(p0) and not isinstance(p0, type):
+            return dataclasses.replace(p0, **{
+                f.name: self.combine(spec if whole else getattr(spec, f.name),
+                                     [getattr(p, f.name) for p in parts])
+                for f in dataclasses.fields(p0)})
+        return p0
 
 
 def shard_map(fn: Callable[..., Any], mesh: Mesh, in_specs: Sequence[Any], out_specs: Any,
               axis_name: str = POP_AXIS) -> Callable[..., Any]:
-    """The single-controller ``shard_map``: ``fn`` runs once per shard of
-    ``axis_name``, in mesh order, on its shard's device (module docstring).
-    ``in_specs``: one spec (or tree of specs) per argument; ``out_specs``:
-    one for the output (``P(axis)``, ``P()`` or :data:`PSUM`). A mesh
-    that spans processes is refused (:func:`require_single_process`)."""
-    require_single_process(mesh, "shard_map")
+    """``fn`` run once for each of this process's positions of
+    ``axis_name``, in mesh order, on its position's device (module
+    docstring). ``in_specs``: one spec (or tree of specs) per argument; a
+    ``P(axis)`` argument may be a :class:`ShardedTensor` on this axis (its
+    blocks enter as they are) or a whole tensor (cut into blocks); a
+    resident leaf under any other spec raises. ``out_specs``: one for the
+    output (``P(axis)``: resident, ``P()`` or :data:`PSUM`)."""
     n = _mesh_axis_size(mesh, axis_name)
     devices = mesh.axis_devices(axis_name)
+    positions = local_positions(mesh, axis_name)
 
     def run(*args: Any) -> Any:
         if len(args) != len(in_specs):
             raise ValueError(f"shard_map got {len(args)} arguments for {len(in_specs)} specs")
-        blocks = [
-            _map_spec(lambda spec, x: split_rows(x, n) if spec is not None and axis_name in spec
-                      else None, spec, arg)
-            for spec, arg in zip(in_specs, args)]
+        hints: List[list] = []
+
+        def split(spec: Any, x: Any) -> Any:
+            splits = spec is not None and spec is not PSUM and axis_name in spec
+            if isinstance(x, ShardedTensor):
+                if not splits or x.axis_name != axis_name or len(x.rows) != n:
+                    raise ValueError(
+                        f"shard_map over {axis_name!r} ({n} positions) got a resident leaf "
+                        f"{x!r} under {spec!r}: gather it explicitly for a replicated input")
+                hints.append(x.rows)
+                return {s: x.block_at(s) for s in positions}
+            if not splits:
+                return None
+            parts = split_rows(x, n)
+            hints.append([p.shape[0] for p in parts])
+            return {s: parts[s] for s in positions}
+
+        blocks = [_map_spec(split, spec, arg) for spec, arg in zip(in_specs, args)]
         outs = []
         stack = _shard_ctx.__dict__.setdefault("stack", [])
-        for s, dev in enumerate(devices):
-            local = [
-                _local(arg, blk, s, dev) for arg, blk in zip(args, blocks)]
+        for s in positions:
+            local = [_local(arg, blk, s, devices[s]) for arg, blk in zip(args, blocks)]
             stack.append((axis_name, s))
             try:
                 outs.append(fn(*local))
             finally:
                 stack.pop()
-        return _combine(out_specs, outs, axis_name, mesh.controller)
+        combiner = _Combiner(mesh, axis_name, positions, hints[0] if hints else None)
+        return combiner.combine(out_specs, outs)
 
     return run
 
@@ -358,13 +748,13 @@ def shard_map(fn: Callable[..., Any], mesh: Mesh, in_specs: Sequence[Any], out_s
 def _local(arg: Any, blocks: Any, s: int, dev: torch.device) -> Any:
     """Shard ``s``'s view of one argument: its block of each split leaf,
     the whole of each replicated one, on ``dev``."""
-    if isinstance(arg, torch.Tensor):
+    if _is_value(arg):
         return (blocks[s] if blocks is not None else arg).to(dev)
     if isinstance(arg, dict):
         return {k: _local(arg[k], blocks[k], s, dev) for k in arg}
     if isinstance(arg, (list, tuple)):
         return type(arg)(_local(a, b, s, dev) for a, b in zip(arg, blocks))
-    if dataclasses.is_dataclass(arg):
+    if dataclasses.is_dataclass(arg) and not isinstance(arg, type):
         return dataclasses.replace(arg, **{
             f.name: _local(getattr(arg, f.name), getattr(blocks, f.name), s, dev)
             for f in dataclasses.fields(arg)})
@@ -390,10 +780,40 @@ def all_gather(parts: Sequence[torch.Tensor], device: Optional[torch.device] = N
     return torch.cat([p.to(dev) for p in parts])
 
 
+def gather_tree(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """``tree`` with every resident leaf gathered (:meth:`ShardedTensor.
+    gather`, counted)."""
+    from .struct import map_tensors
+
+    return map_tensors(lambda x: x.gather(device) if isinstance(x, ShardedTensor) else x, tree,
+                       resident="leaf")
+
+
 def tree_all_gather(trees: Sequence[Any], device: Optional[torch.device] = None) -> Any:
-    """:func:`all_gather` leaf by leaf over per-shard trees of one shape."""
-    return _combine(P(POP_AXIS), list(trees), POP_AXIS,
-                    device if device is not None else _first_device(trees[0]))
+    """:func:`all_gather` leaf by leaf over per-shard trees of one shape (a
+    resident leaf of them gathered first)."""
+    trees = [gather_tree(t, device) for t in trees]
+    dev = device if device is not None else _first_device(trees[0])
+
+    def cat(*leaves: Any) -> Any:
+        return all_gather(list(leaves), dev)
+
+    return _zip_trees(cat, trees)
+
+
+def _zip_trees(fn: Callable[..., Any], trees: List[Any]) -> Any:
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t0, dict):
+        return {k: _zip_trees(fn, [t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_zip_trees(fn, [t[i] for t in trees]) for i in range(len(t0)))
+    if dataclasses.is_dataclass(t0) and not isinstance(t0, type):
+        return dataclasses.replace(t0, **{
+            f.name: _zip_trees(fn, [getattr(t, f.name) for t in trees])
+            for f in dataclasses.fields(t0)})
+    return t0
 
 
 def _first_device(tree: Any) -> torch.device:
@@ -440,8 +860,8 @@ def _walk(tree: Any, fn: Callable[[str, torch.Tensor, Any], Any], path: str = ""
           spec: Any = None) -> Any:
     """``tree`` with ``fn(path, tensor, annotated_spec)`` at each tensor
     leaf; ``annotated_spec`` is the deepest ``field(sharding=...)`` along
-    the path (``spec`` where none)."""
-    if isinstance(tree, torch.Tensor):
+    the path (``spec`` where none); a resident leaf is a leaf."""
+    if _is_value(tree):
         return fn(path, tree, spec)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         changes = {}
@@ -515,24 +935,26 @@ def constrain_state(state: Any, mesh: Optional[Mesh], policy: Any = None,
     return place_state(state, mesh, rules=rules, axis_prefix=axis_prefix)
 
 
-def _process_block(leaf: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
-    """The rows of a leaf split over a mesh axis that this process's
-    positions of that axis own (all of it for replicated leaves)."""
+def _process_block(leaf: Any, sharding: NamedSharding) -> Any:
+    """A leaf on a mesh that spans processes: split over a mesh axis, the
+    blocks this process's positions own (a :class:`ShardedTensor`);
+    replicated, whole on this process's device (a resident leaf
+    gathered)."""
     mesh, spec = sharding.mesh, sharding.spec
     if not spec or spec[0] is None:
+        return leaf.gather() if isinstance(leaf, ShardedTensor) else leaf.to(_local_device(mesh))
+    if isinstance(leaf, ShardedTensor):
         return leaf
-    ax = mesh.axis_names.index(spec[0])
-    along = np.moveaxis(mesh.processes, ax, 0).reshape(mesh.devices.shape[ax], -1)[:, 0]
-    mine = [i for i, p in enumerate(along) if int(p) == process_id()]
-    blocks = split_rows(leaf, len(along))
-    return torch.cat([blocks[i] for i in mine]) if mine else leaf[:0]
+    out = shard_tensor(leaf, mesh, P(spec[0]))
+    return out if isinstance(out, ShardedTensor) else out.to(_local_device(mesh))
 
 
 def place_state(state: Any, mesh: Optional[Mesh], rules: Optional[Sequence[Tuple[str, P]]] = None,
                 axis_prefix: Optional[str] = None) -> Any:
     """Eager placement of every leaf by its resolved layout: on the mesh's
-    controller (where global values live); on a mesh that spans processes,
-    :func:`ensure_global_state`. ``None`` mesh: unchanged."""
+    controller (where global values live; a resident leaf stays on its
+    shards); on a mesh that spans processes, :func:`ensure_global_state`.
+    ``None`` mesh: unchanged."""
     if mesh is None:
         return state
     if mesh_spans_processes(mesh):
@@ -544,11 +966,13 @@ def place_by_sharding(state: Any, shardings: Any) -> Any:
     """Every leaf placed by its :class:`NamedSharding` in ``shardings`` (a
     tree over the state's leaves, :func:`state_sharding`'s form): on its
     mesh's controller, or this process's rows on a mesh that spans
-    processes."""
-    def place(path: str, leaf: torch.Tensor, _: Any) -> torch.Tensor:
+    processes (:func:`_process_block`)."""
+    def place(path: str, leaf: Any, _: Any) -> Any:
         sh = _leaf_at(shardings, path)
         if mesh_spans_processes(sh.mesh):
-            return _process_block(leaf.to(_local_device(sh.mesh)), sh)
+            return _process_block(leaf, sh)
+        if isinstance(leaf, ShardedTensor):
+            return leaf
         return leaf.to(sh.mesh.controller)
 
     return _walk(state, place)
@@ -570,30 +994,35 @@ def replicate(tree: Any, mesh: Optional[Mesh]) -> Any:
 
 def place_pop(tree: Any, mesh: Optional[Mesh], axis_name: str = POP_AXIS) -> Any:
     """Eager placement of a population tree; on a mesh that spans
-    processes each process keeps the rows its devices own."""
+    processes each process keeps the blocks its positions own (a
+    :class:`ShardedTensor` a leaf)."""
     if mesh is None:
         return tree
     if mesh_spans_processes(mesh):
         sh = pop_sharding(mesh, axis_name)
-        return _map_leaves(lambda x: _process_block(x.to(_local_device(mesh)), sh), tree)
+        return _map_leaves(lambda x: _process_block(x, sh), tree)
     return _map_leaves(lambda x: x.to(mesh.controller), tree)
 
 
 def _local_device(mesh: Mesh) -> torch.device:
-    for d, p in zip(mesh.devices.flat, mesh.processes.flat):
-        if int(p) == process_id():
-            return d
-    raise ValueError("the mesh holds no device of this process")
+    me = process_id()
+
+    def make() -> torch.device:
+        for d, p in zip(mesh.devices.flat, mesh.processes.flat):
+            if int(p) == me:
+                return d
+        raise ValueError("the mesh holds no device of this process")
+
+    return mesh.derived(("local_device", me), make)
 
 
 def assemble_global_array(host_arr: Any, sharding: NamedSharding) -> torch.Tensor:
     """A leaf on ``sharding`` from a full host value every process holds:
-    on a mesh that spans processes, this process's rows; else the whole
-    value on the controller."""
+    on a mesh that spans processes, this process's blocks (or the whole
+    value, replicated); else the whole value on the controller."""
     mesh = sharding.mesh
-    dev = _local_device(mesh) if mesh_spans_processes(mesh) else mesh.controller
-    x = torch.as_tensor(np.asarray(host_arr)).to(dev)
-    return _process_block(x, sharding) if mesh_spans_processes(mesh) else x
+    x = torch.as_tensor(np.asarray(host_arr))
+    return _process_block(x, sharding) if mesh_spans_processes(mesh) else x.to(mesh.controller)
 
 
 def ensure_global_state(state: Any, mesh: Optional[Mesh], default: Optional[P] = None,
@@ -601,17 +1030,16 @@ def ensure_global_state(state: Any, mesh: Optional[Mesh], default: Optional[P] =
                         axis_prefix: Optional[str] = None) -> Any:
     """Per-process assembly of an eagerly built state over a mesh that spans
     processes: each leaf split over a process-spanning axis keeps this
-    process's rows, every other leaf stays whole on this process's device.
-    No-op when the mesh does not span processes."""
+    process's blocks (a :class:`ShardedTensor`), every other leaf stays
+    whole on this process's device. No-op when the mesh does not span
+    processes."""
     if not mesh_spans_processes(mesh):
         return state
     shardings = state_sharding(state, mesh, default=default, rules=rules,
                                axis_prefix=axis_prefix)
-    dev = _local_device(mesh)
 
-    def place(path: str, leaf: torch.Tensor, _: Any) -> torch.Tensor:
-        sh = _leaf_at(shardings, path)
-        return _process_block(leaf.to(dev), sh)
+    def place(path: str, leaf: Any, _: Any) -> Any:
+        return _process_block(leaf, _leaf_at(shardings, path))
 
     return _walk(state, place)
 
@@ -636,25 +1064,20 @@ def _named_any(tree: Any, prefix: str = "") -> list:
     return [(prefix, tree)]
 
 
-def host_value(x: Any, mesh: Optional[Mesh] = None, axis_name: str = POP_AXIS) -> np.ndarray:
-    """The full host (numpy) value of ``x``. On a mesh that spans processes
-    with ``x`` split over ``axis_name``, ``x`` is this process's rows and
-    the value is every process's rows gathered in process order (a
-    collective: every process must call it)."""
+def host_value(x: Any) -> np.ndarray:
+    """The full host (numpy) value of ``x``: a resident leaf gathered
+    (:meth:`ShardedTensor.gather`, a collective over processes on a mesh
+    that spans them: every process must call it)."""
+    if isinstance(x, ShardedTensor):
+        return x.gather().detach().cpu().numpy()
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
-    if mesh is None or not mesh_spans_processes(mesh) or axis_name not in mesh.shape:
-        return x.detach().cpu().numpy()
-    import torch.distributed as dist
-
-    parts = [None] * process_count()
-    dist.all_gather_object(parts, x.detach().cpu().numpy())
-    return np.concatenate(parts)
+    return x.detach().cpu().numpy()
 
 
-def tree_host_value(tree: Any, mesh: Optional[Mesh] = None) -> Any:
+def tree_host_value(tree: Any) -> Any:
     """:func:`host_value` over every tensor leaf of ``tree``."""
-    return _walk(tree, lambda path, leaf, _: host_value(leaf, mesh))
+    return _walk(tree, lambda path, leaf, _: host_value(leaf))
 
 
 # ------------------------------------------- the POP-sharded low-memory ES
@@ -681,12 +1104,16 @@ def global_ranks(fitness: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return order, ranks
 
 
-def sharded_es_tell(algorithm: Any, state: Any, fitness: torch.Tensor, mesh: Mesh,
+def sharded_es_tell(algorithm: Any, state: Any, fitness: Any, mesh: Mesh,
                     axis_name: str = POP_AXIS) -> Any:
     """One tell over a POP-sharded sample matrix: global ranks from the
-    fitness, then per shard the partial moments of its rows weighted by
-    their ranks' weights, summed over the shards in mesh order; the small
-    strategy update (``tell_with_moments``) runs on the sums."""
+    whole fitness (a resident fitness gathered first: every process needs
+    it), then per shard the partial moments of its rows (read where they
+    are resident) weighted by their ranks' weights, summed over the shards
+    in mesh order; the small strategy update (``tell_with_moments``) runs
+    on the sums."""
+    if isinstance(fitness, ShardedTensor):
+        fitness = fitness.gather()
     if fitness.ndim != 1:
         raise ValueError(f"sharded_es_tell is single-objective; got fitness {tuple(fitness.shape)}")
     fields = tuple(algorithm.sharded_pop_fields)
@@ -708,6 +1135,13 @@ class ShardedES:
     rank-weighted partial moments summed over the shards in ``tell``
     (:func:`sharded_es_tell`). Attribute reads forward to the wrapped
     algorithm, so it drops into ``StdWorkflow``.
+
+    On a mesh the ``sharded_pop_fields`` are resident: born on their
+    shards (:meth:`init`), kept there between generations, and ``ask``
+    returns the population as a :class:`ShardedTensor`; no step gathers a
+    ``(pop, dim)`` value. On a mesh that spans processes each process
+    draws, keeps and reads only its own blocks; the fitness and the
+    moments cross processes (:func:`sharded_es_tell`).
 
     Sampling law: ``ask`` splits the state's seed once (``seed, k``), then
     shard ``s`` draws its block of ``pop / n_shards`` rows from
@@ -734,7 +1168,6 @@ class ShardedES:
     def __init__(self, algorithm: Any, mesh: Optional[Mesh] = None, axis_name: str = POP_AXIS,
                  n_shards: Optional[int] = None):
         _require_shard_protocol(algorithm)
-        require_single_process(mesh, "ShardedES")
         if getattr(algorithm, "has_init_ask", False) or getattr(algorithm, "has_init_tell", False):
             raise TypeError("ShardedES supports steady-state ask/tell algorithms only "
                             f"({type(algorithm).__name__} declares init_ask/init_tell)")
@@ -770,8 +1203,22 @@ class ShardedES:
         return False
 
     def init(self, seed: int) -> Any:
-        state = self.algorithm.init(seed)
-        return place_state(state, self.mesh)
+        """The wrapped algorithm's state, its ``sharded_pop_fields`` born on
+        their shards: each position's block made on its device (the whole
+        value, made once on the controller, dropped), and the rest placed
+        as :func:`place_state` places it."""
+        state = place_state(self.algorithm.init(seed), self.mesh)
+        return self.resident(state)
+
+    def resident(self, state: Any) -> Any:
+        """``state`` with its ``sharded_pop_fields`` resident on the mesh
+        (a whole leaf, as a restored snapshot holds it, cut into its
+        blocks); unchanged without a mesh."""
+        if self.mesh is None:
+            return state
+        spec = P(self.axis_name)
+        return state.replace(**{name: shard_tensor(getattr(state, name), self.mesh, spec)
+                                for name in self.algorithm.sharded_pop_fields})
 
     def _blocks(self, state: Any, k: int, first: int, count: int, shard: int):
         """Blocks ``first .. first + count - 1`` of the sampling law,
@@ -979,20 +1426,21 @@ def create_pod_mesh(axis_names: Sequence[str] = (POP_AXIS,), shape: Optional[Seq
 
 def mesh_spans_processes(mesh: Optional[Mesh]) -> bool:
     """True when the mesh holds devices of more than one process."""
-    return mesh is not None and len(set(int(p) for p in mesh.processes.flat)) > 1
+    return mesh is not None and mesh.derived(
+        ("spans",), lambda: len(set(int(p) for p in mesh.processes.flat)) > 1)
 
 
 def require_single_process(mesh: Optional[Mesh], where: str) -> None:
-    """Refuse a computation on a mesh that spans processes. The mesh is
-    single-controller: :func:`shard_map` runs every shard in the calling
-    process and no collective crosses processes, so each process would
-    redo every shard. Placement (:func:`place_state`, :func:`place_pop`)
-    and :func:`host_value` do take such a mesh."""
+    """Refuse a mesh that spans processes where the computation does not
+    take one yet: the tenant fleets and the islands, whose members would
+    have to spread over distinct cards (ROADMAP A11, part 4).
+    :func:`shard_map`, ``ShardedES``, ``StdWorkflow`` over a problem on the
+    device and the sharded sort do take such a mesh."""
     if mesh_spans_processes(mesh):
         raise NotImplementedError(
-            f"{where}: computing on a mesh that spans processes is not ported yet "
-            "(ROADMAP A11: shard-resident state and cross-process collectives); place and "
-            "gather on it, or compute on a mesh of this process's devices")
+            f"{where}: a mesh that spans processes is not ported here yet (ROADMAP A11, "
+            "part 4: tenants, islands and eval_shard_map blocks over distinct cards); run it "
+            "on a mesh of this process's devices")
 
 
 class BarrierTimeoutError(RuntimeError):

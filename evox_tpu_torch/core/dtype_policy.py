@@ -20,7 +20,9 @@ entry ``apply_compute`` writes float32 copies of the storage leaves and
 ``apply_storage`` writes bfloat16 copies at its end, one more read and
 write of each a generation (PERF.md §5 has the measured cost). The
 bfloat16 cast writes NaN as XLA does (the sign and 0x7FC0), so the stored
-bits are the JAX package's, on the CPU and on the card alike.
+bits are the JAX package's, on the CPU and on the card alike. A leaf held
+resident on a mesh (``ShardedTensor``) is cast block by block where its
+blocks lie, and stays resident.
 
 Policy ``None`` (the workflow's default) returns the same state object
 with no walk of the state.
@@ -32,6 +34,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+from .distributed import ShardedTensor
 
 __all__ = [
     "DtypePolicy",
@@ -94,6 +98,9 @@ def _cast(obj: Any, flag: bool, target: torch.dtype) -> Any:
     ``flag`` is the annotation in force above ``obj``."""
     if isinstance(obj, torch.Tensor):
         return _cast_leaf(obj, target) if flag and obj.is_floating_point() else obj
+    if isinstance(obj, ShardedTensor):  # a resident leaf: cast block by block where it lies
+        return obj.map_blocks(lambda b: _cast_leaf(b, target)) \
+            if flag and obj.is_floating_point() else obj
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         changes = {}
         for f in dataclasses.fields(obj):

@@ -479,26 +479,130 @@ def instrument(
 # ------------------------------------------------------------------ report
 
 
-def _not_ported(section: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"run_report's {section} section is not ported yet (ROADMAP {item})")
+def _full_pop_bytes(state: Any, pop: int) -> int:
+    """The bytes of the algorithm state's population-leading leaves (a
+    resident leaf by its logical shape), float leaves at compute width (at
+    least 4 bytes: under a bf16 storage policy the step's temporaries are
+    float32, as in the JAX package)."""
+    from .struct import named_leaves
+
+    full = 0
+    for _, leaf in named_leaves(getattr(state, "algo", None)):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if pop and len(shape) >= 1 and shape[0] == pop:
+            itemsize = leaf.element_size()
+            if leaf.dtype.is_floating_point:
+                itemsize = max(itemsize, 4)
+            full += int(np.prod(shape)) * itemsize
+    return full
 
 
-def _refuse_unported(workflow: Any, analyzer: Any, executor: Any) -> None:
-    """Raise for every section asked for (advertised by the workflow as the
-    JAX package's ``run_report`` picks it up) whose producer the port does
-    not have yet."""
-    wf = workflow
-    asked = {
-        "roofline.sharding": ("A11", analyzer is not None and bool(
-            getattr(getattr(wf, "algorithm", None), "is_pop_sharded", False))),
-        "roofline.multihost": ("A11", analyzer is not None
-                               and torch.distributed.is_available()
-                               and torch.distributed.is_initialized()
-                               and torch.distributed.get_world_size() > 1),
+def _steady_peak(analyses: Dict[str, dict]) -> Tuple[Optional[str], Optional[int]]:
+    """``(entry, peak)`` of the first of ``step`` and ``run`` whose analysis
+    has a peak (``core/cost.py``: the largest mesh position's)."""
+    for entry in ("step", "run"):
+        analysis = analyses.get(entry)
+        if not isinstance(analysis, dict) or "error" in analysis:
+            continue
+        peak = (analysis.get("memory") or {}).get("peak_bytes_estimate")
+        if peak:
+            return entry, int(peak)
+    return None, None
+
+
+def _sharding_subsection(workflow: Any, state: Any, analyses: Dict[str, dict]) -> Optional[dict]:
+    """The roofline ``sharding`` subsection (the JAX package's schema v5):
+    for a workflow driving a POP-sharded algorithm (``ShardedES``, duck-typed
+    by ``is_pop_sharded``), the steady entry's peak bytes per mesh position
+    against the bytes of the whole population's state leaves; a step that
+    keeps the population resident stays strictly below them. Not attached
+    under 4 shards or under 4 MiB of population, where the fixed part of a
+    position's bytes (its input and output blocks, temporaries, replicated
+    leaves) can reach the whole population's without any gather."""
+    algo = getattr(workflow, "algorithm", None)
+    if not getattr(algo, "is_pop_sharded", False):
+        return None
+    n_dev = int(getattr(algo, "n_shards", 1) or 1)
+    if n_dev < 4:
+        return None
+    pop = int(getattr(algo, "pop_size", 0) or 0)
+    full = _full_pop_bytes(state, pop)
+    if full < 4 * 1024 * 1024:
+        return None
+    entry, peak = _steady_peak(analyses)
+    if peak is None:
+        return None
+    return {
+        "axis": str(getattr(algo, "axis_name", "pop")),
+        "n_devices": n_dev,
+        "pop_size": pop,
+        "entry": entry,
+        "per_device_peak_bytes": peak,
+        "full_pop_bytes": int(full),
+        "gather_free": peak < full,
     }
-    for section, (item, wanted) in asked.items():
-        if wanted:
-            raise _not_ported(section, item)
+
+
+def _local_device_count(workflow: Any) -> int:
+    """This process's positions of the algorithm's (else the workflow's)
+    mesh: its "local devices" on a mesh whose devices may repeat."""
+    from .distributed import POP_AXIS, local_positions
+
+    algo = getattr(workflow, "algorithm", None)
+    for owner in (algo, workflow):
+        mesh = getattr(owner, "mesh", None)
+        if mesh is not None:
+            axis = getattr(owner, "axis_name", POP_AXIS)
+            return len(local_positions(mesh, axis if axis in mesh.axis_names else
+                                       mesh.axis_names[0]))
+    return 1
+
+
+def _multihost_subsection(workflow: Any, state: Any, analyses: Dict[str, dict]) -> Optional[dict]:
+    """The roofline ``multihost`` subsection (the JAX package's schema v8),
+    attached when this process is one of several in a process group: the
+    per-process peak (the per-position peak times this process's
+    positions), the whole population's bytes, and the collective bytes a
+    generation: the ``(pop,)`` fitness and ranks every sharded tell
+    replicates (``2 pop 4``) plus, for ``ShardedES``, the summed moment
+    tree, shaped by ``pop_moments`` on ``meta`` tensors (JAX's
+    ``eval_shape``)."""
+    from .distributed import process_count
+
+    if process_count() <= 1:
+        return None
+    algo = getattr(workflow, "algorithm", None)
+    pop = int(getattr(algo, "pop_size", 0) or 0)
+    entry, peak = _steady_peak(analyses)
+    if peak is None:
+        return None
+    n_local = _local_device_count(workflow)
+    astate = getattr(state, "algo", None)
+    collective = 2 * pop * 4
+    if getattr(algo, "is_pop_sharded", False):
+        try:
+            inner = getattr(algo, "algorithm", algo)
+            shard = pop // max(int(getattr(algo, "n_shards", 1) or 1), 1)
+            rows = {name: torch.empty((shard,) + tuple(getattr(astate, name).shape[1:]),
+                                      dtype=torch.float32, device="meta")
+                    for name in getattr(inner, "sharded_pop_fields", ())}
+            moments = inner.pop_moments(rows, torch.empty((shard,), device="meta"))
+            collective += sum(int(np.prod(m.shape)) * 4 for m in tensor_leaves(moments))
+        except Exception:  # the fitness and rank model stands, as in the JAX package
+            pass
+    return {
+        "process_count": int(process_count()),
+        "n_local_devices": int(n_local),
+        "entry": entry,
+        "per_device_peak_bytes": peak,
+        "per_process_peak_bytes": peak * int(n_local),
+        "full_pop_bytes": int(_full_pop_bytes(state, pop)),
+        "collective_bytes_estimate": int(collective),
+        "collective_model": (
+            "2*pop*4 fitness/rank replication + psum moment tree (pop_moments on meta "
+            "tensors); per-process peak = per-position peak * this process's positions"
+        ),
+    }
 
 
 def run_report(
@@ -567,15 +671,16 @@ def run_report(
     ``_control_plane`` (``workflows/control_plane.py``): the pod census,
     the ledger's counts, the steals and the exactly-once audit (v12).
 
-    The roofline sharding and multihost (A11) sections raise
-    ``NotImplementedError`` when the workflow asks for them: their
-    producers are not ported.
+    ``roofline.sharding``: a POP-sharded workflow's (``ShardedES``) peak
+    bytes per mesh position against the whole population's
+    (``gather_free``), from 4 shards and 4 MiB of population up.
+    ``roofline.multihost``: in a process group, the per-process peak and
+    the collective bytes a generation (the JAX package's formulas).
     """
     if executor is None and workflow is not None:
         executor = getattr(workflow, "_run_executor", None)
     if analyzer is None and recorder is not None:
         analyzer = recorder.analyzer
-    _refuse_unported(workflow, analyzer, executor)
     report: dict = {"schema": SCHEMA, "schema_version": SCHEMA_VERSION}
     if state is not None and hasattr(state, "generation"):
         report["generation"] = int(state.generation)
@@ -647,6 +752,12 @@ def run_report(
                 "alias_bytes": {},
                 "aliased": False,
             }
+            if workflow is not None and state is not None:
+                for section, make in (("sharding", _sharding_subsection),
+                                      ("multihost", _multihost_subsection)):
+                    got = make(workflow, state, analyzer.analyses)
+                    if got is not None:
+                        report["roofline"][section] = got
     if executor is not None and hasattr(executor, "report"):
         report["executor"] = executor.report()
     cache = getattr(workflow, "_exec_cache", None)

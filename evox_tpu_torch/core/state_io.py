@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from .distributed import ShardedTensor
 from .struct import map_tensors
 
 __all__ = ["host_copy", "host_copy_async", "load", "save", "wait_for_saves"]
@@ -34,17 +35,22 @@ def host_copy_async(tree: Any) -> Tuple[Any, Optional[torch.cuda.Event]]:
     """``(host tree, event)``: every tensor of ``tree`` copied to the host
     (pinned memory) without blocking the caller, and the CUDA event
     recorded after the copies (``None`` when no tensor lies on a card). A
-    thread that reads the host tree waits on the event first."""
+    thread that reads the host tree waits on the event first. A resident
+    leaf (``ShardedTensor``) is gathered first, explicitly (on a mesh that
+    spans processes, a collective every process makes): a snapshot holds
+    whole leaves, and resumes on any mesh or none."""
     on_card = []
 
-    def copy(t: torch.Tensor) -> torch.Tensor:
+    def copy(t: Any) -> torch.Tensor:
+        if isinstance(t, ShardedTensor):
+            t = t.gather()
         if t.is_cuda:
             on_card.append(t.device)
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             return host.copy_(t.detach(), non_blocking=True)
         return t.detach().clone()
 
-    host = map_tensors(copy, tree)
+    host = map_tensors(copy, tree, resident="leaf")
     if not on_card:
         return host, None
     event = torch.cuda.Event()

@@ -9,7 +9,10 @@ children, and the host fields (seeds, counters, flags, ``None``) its
 context. ``field(storage=...)`` records the mixed-precision
 annotation that :mod:`evox_tpu_torch.core.dtype_policy` reads, and
 ``field(sharding=P(...))`` the mesh layout that
-:mod:`evox_tpu_torch.core.distributed` reads.
+:mod:`evox_tpu_torch.core.distributed` reads. A field held resident on a
+mesh is a ``ShardedTensor`` there: :func:`named_leaves` gives it as one
+leaf (its logical shape and dtype), and :func:`map_tensors` maps its
+blocks where they lie unless told otherwise.
 """
 
 from __future__ import annotations
@@ -129,22 +132,39 @@ def _is_state(obj: Any) -> bool:
     return dataclasses.is_dataclass(obj) and not isinstance(obj, type)
 
 
-def map_tensors(fn: Any, tree: Any) -> Any:
+def map_tensors(fn: Any, tree: Any, resident: str = "blocks") -> Any:
     """``tree`` with ``fn`` applied to every tensor: states walked field by
     field, dicts, lists and tuples walked, anything else unchanged (seeds,
-    counters, ``None``)."""
+    counters, ``None``).
+
+    ``resident`` says what a resident leaf (``core/distributed.py``'s
+    ``ShardedTensor``) takes: ``"blocks"``, ``fn`` on each of its blocks
+    where they lie (it stays resident: a cast, a copy); ``"keep"``, nothing
+    (a placement on the controller leaves it on its shards); ``"leaf"``,
+    ``fn`` on the resident leaf itself (a gather)."""
     import torch
 
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if _is_state(tree):
-        return dataclasses.replace(tree, **{
-            f.name: map_tensors(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
-    if isinstance(tree, dict):
-        return {k: map_tensors(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tensors(fn, v) for v in tree)
-    return tree
+    from .distributed import ShardedTensor
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, torch.Tensor):
+            return fn(node)
+        if isinstance(node, ShardedTensor):
+            if resident == "blocks":
+                return node.map_blocks(fn)
+            return fn(node) if resident == "leaf" else node
+        if _is_state(node):
+            return dataclasses.replace(node, **{
+                f.name: walk(getattr(node, f.name)) for f in dataclasses.fields(node)})
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    if resident not in ("blocks", "keep", "leaf"):
+        raise ValueError(f"resident must be 'blocks', 'keep' or 'leaf', got {resident!r}")
+    return walk(tree)
 
 
 @functools.lru_cache(maxsize=None)

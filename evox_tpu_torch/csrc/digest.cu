@@ -21,6 +21,13 @@
 // table holds). NaN and inf are counted per element on float16, float32
 // and float64 leaves; bfloat16 leaves count none, as the host digest.
 //
+// A table entry is a leaf or a block of one: a leaf held resident on a
+// mesh (core/distributed.py's ShardedTensor) enters as its blocks, each
+// with the flat index of its first word (carried as p0 = i0 * PHI, so its
+// word j mixes (i0 + j) PHI) and the slot of the leaf it belongs to.
+// Entries of one slot fold into that slot's accumulators by the leaf's own
+// reductions, so a resident leaf's words equal its gathered leaf's.
+//
 // Design: the table of leaves is a __grid_constant__ kernel parameter (no
 // copy to the device). The leaves' words are cut into chunks of kChunk
 // words (a leaf's last chunk may be short), numbered leaf after leaf, and
@@ -89,14 +96,17 @@ struct Leaf {
   const void* ptr;
   long long n_words;
   unsigned salt;
-  int chunk0;  // first chunk of this leaf
-  int width;
-  int fkind;
+  int chunk0;       // first chunk of this entry
+  unsigned p0;      // the flat index of its first word, times PHI
+  short slot;       // the leaf (accumulator row) it folds into
+  signed char width;
+  signed char fkind;
 };
 
 struct Table {
   Leaf leaf[kMaxLeaves];
-  int n_leaves;
+  int n_leaves;  // entries
+  int n_slots;   // leaves
   int n_chunks;
   unsigned carry[kWords];
 };
@@ -175,16 +185,17 @@ __device__ __forceinline__ void quad(Acc& a, const uint4& v, unsigned p, unsigne
 // the loads [q0, q1) of p4: thread t takes loads q0 + t + k kThreads, in
 // groups of kUnroll with the next group in flight while the current one
 // is mixed (no bound checks inside a whole group); the last, partial group
-// is issued with the last whole one, so no load waits alone
+// is issued with the last whole one, so no load waits alone; p0 is the
+// entry's first word index times PHI
 template <int FKIND>
 __device__ void vector_part(Acc& a, const uint4* __restrict__ p4, long long q0, long long q1,
-                            unsigned salt) {
+                            unsigned salt, unsigned p0) {
   const long long first = q0 + threadIdx.x;
   if (first >= q1) return;
   const unsigned n = static_cast<unsigned>((q1 - first + kThreads - 1) / kThreads);
   const unsigned groups = n / kUnroll, rest = n % kUnroll;
   const uint4* p = p4 + first;
-  unsigned pp = static_cast<unsigned>(first) * (4u * kPhi);  // (4q) PHI of the next load
+  unsigned pp = p0 + static_cast<unsigned>(first) * (4u * kPhi);  // (i0 + 4q) PHI of the next load
   constexpr unsigned kNext = 4u * kPhi * kThreads;          // from a load to the next
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   uint4 cur[kUnroll], tail[kUnroll - 1];
@@ -234,7 +245,7 @@ __device__ __forceinline__ unsigned load_word(const Leaf& L, long long i) {
 __device__ void scalar_part(Acc& a, const Leaf& L, long long i0, long long i1) {
   for (long long i = i0 + threadIdx.x; i < i1; i += kThreads) {
     const unsigned w = load_word(L, i);
-    a.word(w, static_cast<unsigned>(i) * kPhi, L.salt);
+    a.word(w, L.p0 + static_cast<unsigned>(i) * kPhi, L.salt);
     a.mn = min(a.mn, w);
     a.mx = max(a.mx, w);
     if (L.fkind == kF16) {
@@ -310,18 +321,18 @@ digest_kernel(const __grid_constant__ Table t, unsigned* __restrict__ scratch,
       const uint4* p4 = static_cast<const uint4*>(L.ptr);
       const long long q0 = w0 / 4, q1 = w1 / 4;
       if (L.fkind == kF32) {
-        vector_part<kF32>(a, p4, q0, q1, L.salt);
+        vector_part<kF32>(a, p4, q0, q1, L.salt, L.p0);
       } else if (L.fkind == kF64) {
-        vector_part<kF64>(a, p4, q0, q1, L.salt);
+        vector_part<kF64>(a, p4, q0, q1, L.salt, L.p0);
       } else {
-        vector_part<kNone>(a, p4, q0, q1, L.salt);
+        vector_part<kNone>(a, p4, q0, q1, L.salt, L.p0);
       }
       from = q1 * 4;
     }
     scalar_part(a, L, from, w1);
     block_reduce<false>(a);
     if (threadIdx.x == 0) {
-      unsigned* acc = scratch + static_cast<size_t>(l) * kWords;
+      unsigned* acc = scratch + static_cast<size_t>(L.slot) * kWords;
       atomicAdd(acc + 0, a.s0);
       atomicAdd(acc + 1, a.s1);
       atomicMin(acc + 2, a.mn);
@@ -342,11 +353,11 @@ digest_kernel(const __grid_constant__ Table t, unsigned* __restrict__ scratch,
   if (!last) return;
   __threadfence();
 
-  // the last block: thread l takes leaf l's accumulators into its digest
-  // and puts them back to their identity; the leaves combined
+  // the last block: thread l takes slot l's accumulators into its leaf's
+  // digest and puts them back to their identity; the leaves combined
   Acc r;
   r.init();
-  if (threadIdx.x < t.n_leaves) {
+  if (threadIdx.x < t.n_slots) {
     unsigned* acc = scratch + static_cast<size_t>(threadIdx.x) * kWords;
     r.s0 = atomicExch(acc + 0, 0u);
     r.s1 = atomicExch(acc + 1, 0u);
@@ -385,38 +396,46 @@ digest_kernel(const __grid_constant__ Table t, unsigned* __restrict__ scratch,
 
 }  // namespace
 
-// rows: n_leaves x 6 int64 (ptr, n_words, salt, chunk0, width, fkind);
-// carry: 6 uint32 host words; n_chunks: the leaves' chunks; blocks: the
+// rows: n_leaves x 8 int64 (ptr, n_words, salt, chunk0, width, fkind, p0,
+// slot): the table's entries, their slots 0 .. n_slots - 1 in order;
+// carry: 6 uint32 host words; n_chunks: the entries' chunks; blocks: the
 // grid (1 <= blocks <= n_chunks; kernels/digest.py::digest_plan); scratch:
 // the stream's kMaxLeaves x 6 + 1 uint32 accumulators and counter, at
-// their identity (each launch leaves them so); leaf_out: n_leaves x 6
+// their identity (each launch leaves them so); leaf_out: n_slots x 6
 // int64; out: 6 int64; carry_dev: 6 int64 or null.
-extern "C" int evox_state_digest(const long long* rows, int n_leaves, const unsigned* carry,
-                                 int n_chunks, int blocks, void* scratch, void* leaf_out,
-                                 void* out, const void* carry_dev, void* stream) {
-  if (n_leaves <= 0 || n_leaves > kMaxLeaves || n_chunks <= 0 || blocks <= 0 ||
-      blocks > n_chunks) {
+extern "C" int evox_state_digest(const long long* rows, int n_leaves, int n_slots,
+                                 const unsigned* carry, int n_chunks, int blocks, void* scratch,
+                                 void* leaf_out, void* out, const void* carry_dev, void* stream) {
+  if (n_leaves <= 0 || n_leaves > kMaxLeaves || n_slots <= 0 || n_slots > n_leaves ||
+      n_chunks <= 0 || blocks <= 0 || blocks > n_chunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Table t;
   t.n_leaves = n_leaves;
+  t.n_slots = n_slots;
   t.n_chunks = n_chunks;
   long long expect = 0;
+  long long slot = 0;
   for (int l = 0; l < n_leaves; ++l) {
-    const long long* r = rows + 6 * l;
+    const long long* r = rows + 8 * l;
     const int width = static_cast<int>(r[4]);
     if (r[1] <= 0 || r[3] != expect || !(width == 1 || width == 2 || width == 4 || width == 8) ||
-        r[5] < 0 || r[5] > 3) {
+        r[5] < 0 || r[5] > 3 || r[6] < 0 || r[6] > 0xFFFFFFFFll ||
+        !(r[7] == slot || r[7] == slot + 1) || (l == 0 && r[7] != 0) || r[7] >= n_slots) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    slot = r[7];
     t.leaf[l].ptr = reinterpret_cast<const void*>(r[0]);
     t.leaf[l].n_words = r[1];
     t.leaf[l].salt = static_cast<unsigned>(r[2]);
     t.leaf[l].chunk0 = static_cast<int>(r[3]);
-    t.leaf[l].width = width;
-    t.leaf[l].fkind = static_cast<int>(r[5]);
+    t.leaf[l].p0 = static_cast<unsigned>(r[6]);
+    t.leaf[l].slot = static_cast<short>(r[7]);
+    t.leaf[l].width = static_cast<signed char>(width);
+    t.leaf[l].fkind = static_cast<signed char>(r[5]);
     expect += (r[1] + kChunk - 1) / kChunk;
   }
+  if (slot != n_slots - 1) return static_cast<int>(cudaErrorInvalidValue);
   if (expect != n_chunks) return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < kWords; ++k) t.carry[k] = carry[k];
   digest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -25,7 +25,9 @@ states split into the port's tuples), ``GuardedState`` (its inner state
 and counters; ``numpy_fields`` carries a port state back as numpy fields
 by name), and ``IslandWorkflowState`` (its island-stacked ``algo`` split
 into the port's per-island states), IM-MOEA's state (``immoea_state``),
-the TelemetryMonitor state (``telemetry_state``) and the surrogate's
+the TelemetryMonitor state (``telemetry_state``), a ``ShardedES``'s state
+(``sharded_es_state``: the JAX package's ``P("pop")`` samples, given
+whole as numpy, resident on the port's mesh) and the surrogate's
 (``surrogate_state``: the archive, a ``GPModelState`` or the member-stacked
 ``EnsembleModelState``, the health readings and the ledger;
 ``surrogate_workflow_state`` carries a whole ``SurrogateWorkflowState``).
@@ -70,6 +72,7 @@ from .algorithms.so.es.open_es import OpenES, OpenESState
 from .algorithms.so.pso.common import SwarmAlgorithm
 from .core.members import stack_states
 from .core.device import DeviceLike, resolve_device
+from .core.distributed import ShardedES, place_state
 from .core.guardrail import GuardedAlgorithm, GuardedState
 from .monitors.eval_monitor import EvalMonitor, EvalMonitorState
 from .monitors.telemetry import TelemetryMonitor, TelemetryState
@@ -260,6 +263,16 @@ def es_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
     generations, or after ``ask`` where its stored samples (``z``,
     ``noise``, ``delta``, ``population``) cross with it."""
     return _carry_by_name(algo, jax_state, seed)
+
+
+def sharded_es_state(algo: ShardedES, jax_state: Any, seed: int = 0) -> Any:
+    """A ``ShardedES`` state from the JAX package's (numpy leaves, the
+    ``P("pop")`` fields such as ``z`` given whole, as ``jax.device_get``
+    returns them): the wrapped algorithm's state by :func:`es_state`, placed
+    on the wrapper's mesh, its ``sharded_pop_fields`` resident there (on a
+    mesh that spans processes, this process's blocks). Without a mesh, the
+    wrapped algorithm's state."""
+    return algo.resident(place_state(es_state(algo.algorithm, jax_state, seed), algo.mesh))
 
 
 def mo_family_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
@@ -477,6 +490,8 @@ def algorithm_state(algo: Any, jax_state: Any, seed: int = 0) -> Any:
     functions above, the containers' and :func:`guarded_state`."""
     if isinstance(algo, GuardedAlgorithm):
         return guarded_state(algo, jax_state, seed)
+    if isinstance(algo, ShardedES):
+        return sharded_es_state(algo, jax_state, seed)
     if isinstance(algo, (_containers.ClusteredAlgorithm, _containers.RandomMaskAlgorithm,
                          _containers.VectorizedCoevolution, _containers.Coevolution,
                          _containers.TreeAlgorithm)):

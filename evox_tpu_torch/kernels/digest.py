@@ -16,6 +16,14 @@ word stream ``w``, its min and max word, and its NaN and inf counts
 (float16, float32 and float64 leaves; bfloat16 counts none). Leaves
 combine by wrapping sum (words 0, 4, 5), XOR (word 1), min and max.
 
+**Resident leaves.** A leaf held as blocks on a mesh (``core/
+distributed.py``'s ``ShardedTensor``) is digested where its blocks lie:
+each block is one entry of the launch's table, with the flat index of its
+first word (``starts``) and the leaf it belongs to (``slots``). Entries of
+one slot fold into one leaf digest by the leaf's own reductions (wrapping
+sums, min, max, counts; :func:`merge_rows`), so a resident leaf digests to
+the words of the gathered leaf, bit for bit.
+
 **Words are int64.** PyTorch's ``uint32`` lacks most arithmetic, so every
 word is carried as an int64 in ``[0, 2**32)``: the plain version masks to
 32 bits after each step and splits each 32 x 32 multiply into 16-bit
@@ -38,6 +46,7 @@ from . import _build
 __all__ = [
     "DIGEST_WORDS",
     "MAX_LEAVES",
+    "TABLE_ROW",
     "combine_words",
     "digest_leaves",
     "digest_leaves_plain",
@@ -45,6 +54,7 @@ __all__ = [
     "digest_work",
     "launch_digest",
     "leaf_digest_plain",
+    "merge_rows",
     "plan_segments",
 ]
 
@@ -64,6 +74,10 @@ CH2 = 0x5BD1E995  # second-channel tweak (murmur2 constant)
 MASK32 = 0xFFFFFFFF
 #: the combination's identity: nothing summed, min at its top, max at 0
 IDENTITY = (0, 0, MASK32, 0, 0, 0)
+
+# int64 fields of a table row (csrc/digest.cu's evox_state_digest): pointer,
+# words, salt, first chunk, width, float kind, first index times PHI, slot
+TABLE_ROW = 8
 
 # csrc/digest.cu's float kinds: which leaves count NaN and inf, and how
 _FLOAT_KIND = {torch.float16: 1, torch.float32: 2, torch.float64: 3}
@@ -132,13 +146,14 @@ def empty_leaf_digest(salt: int) -> Tuple[int, ...]:
     return (int(h[0]), int(h[1]), MASK32, 0, 0, 0)
 
 
-def leaf_digest_plain(x: torch.Tensor, salt: int) -> torch.Tensor:
+def leaf_digest_plain(x: torch.Tensor, salt: int, start: int = 0) -> torch.Tensor:
     """``(6,)`` int64 words of one tensor leaf, on its device, in plain
-    PyTorch."""
+    PyTorch; ``start``: the flat index of its first word (a block of a
+    resident leaf: its words' share of the leaf's words)."""
     w = _words(x)
     if w.numel() == 0:
         return torch.tensor(empty_leaf_digest(salt), dtype=torch.int64, device=x.device)
-    idx = torch.arange(w.numel(), dtype=torch.int64, device=w.device) & MASK32
+    idx = (torch.arange(w.numel(), dtype=torch.int64, device=w.device) + start) & MASK32
     base = w ^ _mulmod32(idx, PHI) ^ (salt & MASK32)
     kind = _FLOAT_KIND.get(x.dtype)
     zero = torch.zeros((), dtype=torch.int64, device=w.device)
@@ -172,14 +187,49 @@ def combine_words(digests: torch.Tensor, carry: Sequence[int] = IDENTITY) -> tor
     ])
 
 
+def merge_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The ``(6,)`` words of one leaf from the ``(k, 6)`` words of its
+    parts: the leaf's own reductions (wrapping sums of words 0, 1, 4, 5;
+    min; max)."""
+    return torch.stack([
+        rows[:, 0].sum() & MASK32,
+        rows[:, 1].sum() & MASK32,
+        rows[:, 2].min(),
+        rows[:, 3].max(),
+        rows[:, 4].sum() & MASK32,
+        rows[:, 5].sum() & MASK32,
+    ])
+
+
+def _entry_plan(n: int, starts: Optional[Sequence[int]],
+                slots: Optional[Sequence[int]]) -> Tuple[List[int], List[int], int]:
+    """``(starts, slots, n_slots)`` of ``n`` table entries: by default each
+    entry a leaf of its own from word 0. Slots run 0, 1, ... in order, an
+    entry in its predecessor's slot or the next."""
+    starts = [0] * n if starts is None else [int(v) for v in starts]
+    slots = list(range(n)) if slots is None else [int(v) for v in slots]
+    if len(starts) != n or len(slots) != n:
+        raise ValueError("digest_leaves needs one start and one slot for each leaf")
+    if slots and (slots[0] != 0 or any(b - a not in (0, 1) for a, b in zip(slots, slots[1:]))):
+        raise ValueError(f"digest slots must run 0, 1, ... in order, got {slots}")
+    if any(v < 0 for v in starts):
+        raise ValueError(f"a digest entry's first word index is negative: {starts}")
+    return starts, slots, (slots[-1] + 1 if slots else 0)
+
+
 def digest_leaves_plain(
-    leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int] = IDENTITY
+    leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int] = IDENTITY,
+    starts: Optional[Sequence[int]] = None, slots: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(combined (6,), per-leaf (L, 6))`` int64 words in plain PyTorch,
-    ``carry`` folded into the combination."""
+    """``(combined (6,), per-slot (S, 6))`` int64 words in plain PyTorch,
+    ``carry`` folded into the combination; ``starts`` and ``slots`` as
+    :func:`digest_leaves` takes them."""
     if not leaves:
         raise ValueError("digest_leaves needs at least one leaf")
-    rows = torch.stack([leaf_digest_plain(x, s) for x, s in zip(leaves, salts)])
+    starts, slots, n_slots = _entry_plan(len(leaves), starts, slots)
+    parts = torch.stack([leaf_digest_plain(x, s, st) for x, s, st in zip(leaves, salts, starts)])
+    keys = torch.tensor(slots, device=parts.device)
+    rows = torch.stack([merge_rows(parts[keys == k]) for k in range(n_slots)])
     return combine_words(rows, carry), rows
 
 
@@ -215,13 +265,14 @@ def plan_segments(plan: dict, words: Sequence[int], block: int) -> List[Tuple[in
 
 
 _SIGNATURE = [
-    ctypes.c_void_p,  # rows: n_leaves x 6 int64 (host)
-    ctypes.c_int,  # n_leaves
+    ctypes.c_void_p,  # rows: n_leaves x 8 int64 (host)
+    ctypes.c_int,  # n_leaves: the table's entries
+    ctypes.c_int,  # n_slots: the leaves they fold into
     ctypes.c_void_p,  # carry: 6 uint32 (host)
     ctypes.c_int,  # chunks
     ctypes.c_int,  # blocks
     ctypes.c_void_p,  # scratch: the stream's MAX_LEAVES x 6 + 1 uint32 accumulators
-    ctypes.c_void_p,  # leaf_out: n_leaves x 6 int64
+    ctypes.c_void_p,  # leaf_out: n_slots x 6 int64
     ctypes.c_void_p,  # out: 6 int64
     ctypes.c_void_p,  # carry_dev: 6 int64 or null
     ctypes.c_void_p,  # cudaStream_t
@@ -250,17 +301,21 @@ def _stream_scratch(index: int, stream: int) -> torch.Tensor:
     return scratch
 
 
-def _table(flat: Sequence[torch.Tensor], salts: Sequence[int]) -> Tuple[array, int, int, int]:
-    """The kernel's table of contiguous leaves, ``(rows, chunks, words,
+def _table(flat: Sequence[torch.Tensor], salts: Sequence[int],
+           starts: Optional[Sequence[int]] = None,
+           slots: Optional[Sequence[int]] = None) -> Tuple[array, int, int, int]:
+    """The kernel's table of contiguous entries, ``(rows, chunks, words,
     bytes)``: one row ``(pointer, words, salt, first chunk, width, float
-    kind)`` a leaf, and the leaves' chunks, words and bytes (with the
-    outputs', :func:`digest_work`'s count)."""
-    rows, chunks, total, nbytes = array("q"), 0, 0, 8 * DIGEST_WORDS * (len(flat) + 1)
-    for x, salt in zip(flat, salts):
+    kind, first index times PHI mod 2**32, slot)`` an entry, and the
+    entries' chunks, words and bytes (with the outputs', :func:`digest_work`'s
+    count)."""
+    starts, slots, n_slots = _entry_plan(len(flat), starts, slots)
+    rows, chunks, total, nbytes = array("q"), 0, 0, 8 * DIGEST_WORDS * (n_slots + 1)
+    for x, salt, start, slot in zip(flat, salts, starts, slots):
         width, numel = _width(x), x.numel()
         words = numel * 2 if width == 8 else numel
         rows.extend((x.data_ptr(), words, salt & MASK32, chunks, width,
-                     _FLOAT_KIND.get(x.dtype, 0)))
+                     _FLOAT_KIND.get(x.dtype, 0), (start * PHI) & MASK32, slot))
         chunks += -(-words // CHUNK_WORDS)
         total += words
         nbytes += numel * width
@@ -268,7 +323,8 @@ def _table(flat: Sequence[torch.Tensor], salts: Sequence[int]) -> Tuple[array, i
 
 
 def _prepare(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int],
-             carry_dev: Optional[torch.Tensor]):
+             carry_dev: Optional[torch.Tensor], starts: Optional[Sequence[int]] = None,
+             slots: Optional[Sequence[int]] = None):
     """One table's launch, built: ``(launch, card, out, leaf_out, words,
     bytes)``. ``launch()`` launches the kernel on the current stream of the
     card (which must be the current card) and returns the C entry's error
@@ -276,12 +332,13 @@ def _prepare(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequen
     launch folds into the stream's one scratch, which a graph's replays
     would share with the stream's other digests."""
     flat = [x if x.is_contiguous() else x.contiguous() for x in leaves]
-    rows, chunks, total, nbytes = _table(flat, salts)
+    starts, slots, n_slots = _entry_plan(len(flat), starts, slots)
+    rows, chunks, total, nbytes = _table(flat, salts, starts, slots)
     index = flat[0].get_device()
     blocks = min(BLOCKS_PER_SM * _sm_count(index), chunks)
     carry_words = array("I", carry)
     # one allocation for the leaves' words and the combination (its last row)
-    words_out = flat[0].new_empty((len(flat) + 1, DIGEST_WORDS), dtype=torch.int64)
+    words_out = flat[0].new_empty((n_slots + 1, DIGEST_WORDS), dtype=torch.int64)
     out = words_out[-1]
     if not _entry:
         _entry.append(_build.function("digest", "evox_state_digest", _SIGNATURE))
@@ -292,7 +349,8 @@ def _prepare(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequen
                                "folds into its stream's one scratch, which the graph's replays "
                                "would share with the stream's other digests")
         stream = torch._C._cuda_getCurrentRawStream(index)
-        return _entry[0](rows.buffer_info()[0], len(flat), carry_words.buffer_info()[0], chunks,
+        return _entry[0](rows.buffer_info()[0], len(flat), n_slots, carry_words.buffer_info()[0],
+                         chunks,
                          blocks, _stream_scratch(index, stream).data_ptr(), words_out.data_ptr(),
                          out.data_ptr(), None if carry_dev is None else carry_dev.data_ptr(),
                          stream)
@@ -301,8 +359,10 @@ def _prepare(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequen
 
 
 def _launch_group(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int],
-                  carry_dev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    launch, index, out, leaf_out, total, nbytes = _prepare(leaves, salts, carry, carry_dev)
+                  carry_dev: Optional[torch.Tensor], starts: Sequence[int],
+                  slots: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    launch, index, out, leaf_out, total, nbytes = _prepare(leaves, salts, carry, carry_dev,
+                                                           starts, slots)
     if index == torch._C._cuda_getDevice():  # no device context for the current card
         err = launch()
     else:
@@ -315,39 +375,64 @@ def _launch_group(leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: S
     return out, leaf_out
 
 
+def _chain(slots: Sequence[int]) -> List[Tuple[int, int]]:
+    """The ``[lo, hi)`` entry ranges of a chain of launches: at most
+    :data:`MAX_LEAVES` entries each, cut between slots."""
+    groups, lo = [], 0
+    while lo < len(slots):
+        hi = min(lo + MAX_LEAVES, len(slots))
+        if hi < len(slots):
+            while hi > lo and slots[hi] == slots[hi - 1]:
+                hi -= 1
+            if hi == lo:
+                raise ValueError(f"a resident leaf of more than {MAX_LEAVES} blocks: digest it "
+                                 "gathered")
+        groups.append((lo, hi))
+        lo = hi
+    return groups
+
+
 def launch_digest(leaves: Sequence[torch.Tensor], salts: Sequence[int],
-                  carry: Sequence[int] = IDENTITY) -> Tuple[torch.Tensor, torch.Tensor]:
+                  carry: Sequence[int] = IDENTITY, starts: Optional[Sequence[int]] = None,
+                  slots: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`digest_leaves` on the card without its checks: non-empty
-    leaves, all on one CUDA device (``core/attest.py`` groups them so). A
-    state of more than :data:`MAX_LEAVES` leaves chains launches through a
-    device carry."""
+    entries, all on one CUDA device (``core/attest.py`` groups them so). A
+    state of more than :data:`MAX_LEAVES` entries chains launches through a
+    device carry, each launch holding whole slots."""
+    starts, slots, _ = _entry_plan(len(leaves), starts, slots)
     if len(leaves) <= MAX_LEAVES:
-        return _launch_group(leaves, salts, carry, None)
+        return _launch_group(leaves, salts, carry, None, starts, slots)
     out, rows, carry_dev = None, [], None
-    for lo in range(0, len(leaves), MAX_LEAVES):
-        out, leaf_out = _launch_group(leaves[lo:lo + MAX_LEAVES], salts[lo:lo + MAX_LEAVES],
-                                      carry if lo == 0 else IDENTITY, carry_dev)
+    for lo, hi in _chain(slots):
+        first = slots[lo]
+        out, leaf_out = _launch_group(leaves[lo:hi], salts[lo:hi], carry if lo == 0 else IDENTITY,
+                                      carry_dev, starts[lo:hi], [k - first for k in slots[lo:hi]])
         carry_dev = out
         rows.append(leaf_out)
     return out, torch.cat(rows)
 
 
 def digest_leaves(
-    leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int] = IDENTITY
+    leaves: Sequence[torch.Tensor], salts: Sequence[int], carry: Sequence[int] = IDENTITY,
+    starts: Optional[Sequence[int]] = None, slots: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The digest words of non-empty tensor leaves, all on one device.
 
     Args:
         leaves: tensors with at least one element each (an empty leaf's
-            words are :func:`empty_leaf_digest`, computed on the host).
-        salts: each leaf's salt (``core/attest.py``: a hash of its path).
+            words are :func:`empty_leaf_digest`, computed on the host): the
+            table's entries.
+        salts: each entry's salt (``core/attest.py``: a hash of its path).
         carry: six words folded into the combination (host leaves).
+        starts: each entry's first word index in its leaf (default 0).
+        slots: the leaf each entry belongs to, ``0, 1, ...`` in order
+            (default one each): the blocks of a resident leaf share one.
 
     Returns:
-        ``(combined, per_leaf)``: int64 ``(6,)`` and ``(L, 6)`` on the
-        leaves' device. On CUDA tensors the kernel of ``csrc/digest.cu``
-        runs (``digest_leaves.launches`` counts its launches), on CPU
-        tensors :func:`digest_leaves_plain`.
+        ``(combined, per_leaf)``: int64 ``(6,)`` and ``(S, 6)`` (a row a
+        slot) on the leaves' device. On CUDA tensors the kernel of
+        ``csrc/digest.cu`` runs (``digest_leaves.launches`` counts its
+        launches), on CPU tensors :func:`digest_leaves_plain`.
     """
     if not leaves or len(leaves) != len(salts):
         raise ValueError("digest_leaves needs one salt for each of at least one leaf")
@@ -358,10 +443,11 @@ def digest_leaves(
         if x.numel() == 0:
             raise ValueError("digest_leaves takes non-empty leaves only")
         _width(x)
+    _entry_plan(len(leaves), starts, slots)
     if dev.type == "cpu":
-        return digest_leaves_plain(leaves, salts, carry)
+        return digest_leaves_plain(leaves, salts, carry, starts, slots)
     if dev.type == "cuda":
-        return launch_digest(list(leaves), list(salts), carry)
+        return launch_digest(list(leaves), list(salts), carry, starts, slots)
     raise ValueError(f"digest_leaves runs on cuda or cpu, not {dev}")
 
 

@@ -30,7 +30,11 @@ device, comparing its rows against the full fitness. Each peel's delta is
 the ``psum`` (a sum in mesh order) of the shards' slab popcounts, and the
 counts the ``psum`` of the slabs' partial counts. Everything is integer, so
 ranks and the cut equal the unsharded sort's, and the JAX package's sharded
-sort's, exactly.
+sort's, exactly. The slabs stay on their shards. On a mesh that spans
+processes (every process holding the whole fitness) each process builds
+only its own positions' slabs, and each ``psum`` adds this process's
+partials and gathers one a process (:func:`~evox_tpu_torch.core.
+distributed.mesh_psum`): every process peels the same fronts.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
-from ...core.distributed import POP_AXIS, psum, require_single_process
+from ...core.distributed import POP_AXIS, local_positions, mesh_psum
 from ...core.members import is_batched
 from ...kernels.dominance import (
     column_popcount,
@@ -155,10 +159,10 @@ def _sort_vmap(info: Any, in_dims: Tuple[Any, ...], fitness: torch.Tensor, stop:
 
 def _non_dominated_sort_sharded(fitness: torch.Tensor, mesh: Any, stop: int,
                                 axis_name: str) -> Tuple[torch.Tensor, int]:
-    """The mesh-sharded sort (module docstring): one B3 rows launch a shard
-    on its own device, and a ``psum`` of the shards' popcounts a peel.
-    Returns ``(rank, cut)`` on the fitness's device."""
-    require_single_process(mesh, "non_dominated_sort(mesh=)")
+    """The mesh-sharded sort (module docstring): one B3 rows launch for each
+    of this process's shards on its own device, and a ``psum`` of the
+    shards' popcounts a peel. Returns ``(rank, cut)`` on the fitness's
+    device."""
     n, m = fitness.shape
     devices = mesh.axis_devices(axis_name)
     D = len(devices)
@@ -167,18 +171,17 @@ def _non_dominated_sort_sharded(fitness: torch.Tensor, mesh: Any, stop: int,
     rows_pad = words_per * D * 32
     fill = torch.full((rows_pad - n, m), INF, dtype=fitness.dtype, device=fitness.device)
     fit_rows = torch.cat([fitness, fill])
-    slabs, counts = [], []
-    for s, dev in enumerate(devices):
+    slabs, counts = {}, {}
+    for s in local_positions(mesh, axis_name):
+        dev = devices[s]
         local_rows = fit_rows[s * words_per * 32:(s + 1) * words_per * 32].to(dev)
-        packed_local, count_local = packed_dominance_rows(local_rows, fitness.to(dev), device=dev)
-        slabs.append(packed_local)
-        counts.append(count_local)
-    count = psum(counts, fitness.device)
+        slabs[s], counts[s] = packed_dominance_rows(local_rows, fitness.to(dev), device=dev)
+    count = mesh_psum(counts, mesh, axis_name, fitness.device)
 
     def delta_fn(front_words: torch.Tensor) -> torch.Tensor:
-        return psum([column_popcount(
+        return mesh_psum({s: column_popcount(
             slab & front_words[s * words_per:(s + 1) * words_per].to(slab.device)[:, None])
-            for s, slab in enumerate(slabs)], fitness.device)
+            for s, slab in slabs.items()}, mesh, axis_name, fitness.device)
 
     return _peel_fronts(count, stop, words_per * D, delta_fn)
 

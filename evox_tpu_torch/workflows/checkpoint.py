@@ -31,13 +31,17 @@ carries the draws to come: a run resumed from generation K reproduces
 the straight run's final state bit for bit. The manifest records the
 saving device, the process count and, for provenance, each leaf's
 non-replicated ``field(sharding=...)`` annotation; the snapshot itself is
-mesh-free host data, and :func:`restore_layouts` places it on the
+mesh-free host data (a leaf held resident on a mesh is gathered into it,
+``core/state_io.py``), and :func:`restore_layouts` places it on the
 restoring workflow's mesh (or by an explicit tree of shardings), so a run
-saved on an 8-shard mesh resumes on 4 or on 1.
+saved on an 8-shard mesh resumes on 4 or on 1, or on a mesh that spans
+processes, where each process keeps its own blocks.
 
 In a process group (``core/distributed.py``) every process calls
-``save``, only process 0 writes, and a store barrier holds the others
-until the manifest, the commit record, is durable.
+``save`` (the gathers of resident leaves are collectives), only process 0
+writes, and a store barrier holds the others until the manifest, the
+commit record, is durable. So a run saved by two processes resumes in one,
+and one saved by one resumes in two.
 """
 
 from __future__ import annotations

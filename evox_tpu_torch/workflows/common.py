@@ -65,11 +65,11 @@ def check_mesh(mesh: Any, algorithm: Any, device: Any, external: bool, eval_shar
                allow_uneven_shards: bool) -> None:
     """A workflow's mesh arguments, checked as the JAX package checks them:
     ``eval_shard_map`` needs a mesh and a problem on the device; a host
-    problem cannot run under a mesh that spans processes; the population
-    must divide over the ``"pop"`` axis unless ``allow_uneven_shards``
-    (never with ``eval_shard_map``); the mesh's first device is the
-    workflow's."""
-    from ..core.distributed import POP_AXIS, mesh_spans_processes, require_single_process
+    problem cannot run under a mesh that spans processes (a problem on the
+    device can: each process runs its own positions); the population must
+    divide over the ``"pop"`` axis unless ``allow_uneven_shards`` (never
+    with ``eval_shard_map``); the mesh's first device is the workflow's."""
+    from ..core.distributed import POP_AXIS, mesh_spans_processes
 
     if eval_shard_map and (mesh is None or external):
         raise ValueError("eval_shard_map requires a mesh and a problem on the device")
@@ -80,7 +80,6 @@ def check_mesh(mesh: Any, algorithm: Any, device: Any, external: bool, eval_shar
             "external (host) problems are single-process: under a mesh that spans processes "
             "each process would call the host evaluate on its own shard against "
             "unsynchronized host state; use a problem on the device for mesh parallelism")
-    require_single_process(mesh, "a workflow's mesh")
     if mesh.controller.type != device.type:
         raise ValueError(f"the mesh's first device is {mesh.controller}, the workflow's {device}")
     n_shards = mesh.shape.get(POP_AXIS, 1)
@@ -95,22 +94,45 @@ def check_mesh(mesh: Any, algorithm: Any, device: Any, external: bool, eval_shar
 def shard_map_evaluate(problem: Any, mesh: Any, pstate: Any, cand: Any) -> Tuple[Any, Any]:
     """``eval_shard_map``'s evaluation: each shard scores its block of the
     candidates on its own device (the problem state replicated in), and the
-    fitness is gathered in mesh order; the problem state comes back
-    unchanged (the problem must be stateless or pure, as in the JAX
-    package)."""
-    from ..core.distributed import POP_AXIS, P, shard_map
+    fitness is gathered in mesh order (a ``(pop,)`` or ``(pop, m)`` value,
+    whole); the problem state comes back unchanged (the problem must be
+    stateless or pure, as in the JAX package). Resident candidates
+    (``ShardedTensor``) are scored where their blocks lie, on their own
+    mesh and axis."""
+    from ..core.distributed import POP_AXIS, P, ShardedTensor, shard_map
     from ..utils.common import tree_flatten
 
-    n_cand = next(x for x in tree_flatten(cand)[0] if isinstance(x, torch.Tensor)).shape[0]
-    n_shards = mesh.shape.get(POP_AXIS, 1)
-    if n_cand % n_shards:
+    leaves = tree_flatten(cand)[0]
+    first = next(x for x in leaves if isinstance(x, (torch.Tensor, ShardedTensor)))
+    axis = first.axis_name if isinstance(first, ShardedTensor) else POP_AXIS
+    mesh = first.mesh if isinstance(first, ShardedTensor) else mesh
+    n_shards = mesh.shape.get(axis, 1)
+    if first.shape[0] % n_shards:
         raise ValueError(
-            f"eval_shard_map: the evaluated candidate batch ({n_cand}) is not divisible by the "
-            f"mesh's 'pop' axis ({n_shards} shards); evaluate without eval_shard_map for this "
-            "algorithm or resize the population or the mesh")
-    fitness = shard_map(lambda c: problem.evaluate(pstate, c)[0], mesh, (P(POP_AXIS),),
-                        P(POP_AXIS))(cand)
-    return fitness, pstate
+            f"eval_shard_map: the evaluated candidate batch ({first.shape[0]}) is not divisible "
+            f"by the mesh's {axis!r} axis ({n_shards} shards); evaluate without eval_shard_map "
+            "for this algorithm or resize the population or the mesh")
+    fitness = shard_map(lambda c: problem.evaluate(pstate, c)[0], mesh, (P(axis),),
+                        P(axis), axis)(cand)
+    return fitness.gather(), pstate
+
+
+def is_resident(tree: Any) -> bool:
+    """Whether ``tree`` is, or holds, a resident leaf (``ShardedTensor``)."""
+    from ..core.distributed import ShardedTensor
+    from ..utils.common import tree_flatten
+
+    return any(isinstance(x, ShardedTensor) for x in tree_flatten(tree)[0])
+
+
+def stateless(pstate: Any) -> bool:
+    """A problem state with no leaf at all (``None`` or empty): nothing a
+    block-by-block evaluation could leave out of date. Any leaf counts as
+    state, a Python int too (a rollout's episode-reset seed advances in
+    ``evaluate``)."""
+    from ..core.struct import named_leaves
+
+    return not named_leaves(pstate)
 
 
 def fused_run(wf: Any, state: Any, n_steps: int) -> Any:

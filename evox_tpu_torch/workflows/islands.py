@@ -41,10 +41,11 @@ fitness)`` states; PSO and the GA-skeleton MOEAs override it).
 
 ``mesh`` (a :class:`~evox_tpu_torch.core.distributed.Mesh` with a
 ``"pop"`` axis) lays the island axis over the mesh's ``"pop"`` axis: the
-number of islands must divide over it, a host problem cannot run under a
-mesh that spans processes, and the stacked state is placed on the mesh
-(``place_pop``); the islands' one member call runs on the mesh's first
-device. The JAX package's ``use_topk_kernel`` and ``topk_interpret``
+number of islands must divide over it, and the stacked state is placed
+on the mesh (``place_pop``); the islands' one member call runs on the
+mesh's first device. A mesh that spans processes is refused: islands over
+distinct cards are ROADMAP A11's fourth part (a host problem under one
+raises ``ValueError`` first, as in the JAX package). The JAX package's ``use_topk_kernel`` and ``topk_interpret``
 have no counterpart: the tensor's device chooses, as in B4's wrapper.
 """
 

@@ -27,7 +27,17 @@ ROADMAP A3).
   own device and the fitness is gathered in mesh order. Row-independent
   problems give the unsharded fitness bit for bit. ``resume(state_sharding=)``
   places a restored snapshot by an explicit tree of shardings, and a
-  snapshot taken on one mesh resumes on another.
+  snapshot taken on one mesh resumes on another (or on none, or on a mesh
+  that spans processes).
+- A population the algorithm returns resident (``ShardedES``: a
+  ``ShardedTensor``) stays so: a problem on the device whose state has
+  no leaf at all scores it block by block where the blocks lie (the law of
+  ``eval_shard_map``), and only the ``(pop,)`` fitness is gathered. Any
+  other problem, a pop transform, and the monitors that read the
+  population take one explicit, counted ``.gather()``.
+- On a mesh that spans processes (``create_pod_mesh``) every process runs
+  the same workflow: a problem on the device only (a host problem is
+  refused).
 
 - ``migrate_helper``, a callable ``() -> (do_migrate, foreign_pop,
   foreign_fitness)`` polled once a generation after the tell: when
@@ -43,7 +53,7 @@ import torch
 
 from ..core.algorithm import Algorithm
 from ..core.device import DeviceLike, resolve_device
-from ..core.distributed import place_state
+from ..core.distributed import gather_tree, place_state
 from ..core.dtype_policy import DtypePolicy, apply_compute, apply_storage
 from ..core.monitor import Monitor
 from ..core.problem import Problem
@@ -58,9 +68,11 @@ from .common import (
     fused_run,
     host_evaluate,
     ingest_fitness,
+    is_resident,
     quarantine_nonfinite,
     run_hooks,
     shard_map_evaluate,
+    stateless,
     step_loop,
 )
 
@@ -370,6 +382,11 @@ class StdWorkflow:
         return fitness * self.opt_direction
 
     def _evaluate(self, pstate: Any, cand: Any) -> Tuple[torch.Tensor, Any]:
+        resident = is_resident(cand)
+        if resident and not self.external and (self.eval_shard_map or stateless(pstate)):
+            return shard_map_evaluate(self.problem, self.mesh, pstate, cand)
+        if resident:
+            cand = gather_tree(cand)
         if self.external:
             return host_evaluate(self.problem, self.host_link, pstate, cand)
         if self.eval_shard_map:
@@ -403,6 +420,9 @@ class StdWorkflow:
         self._run_hooks("pre_step", mstates)
         self._run_hooks("pre_ask", mstates)
         pop, astate = self._dispatch_ask(state)
+        if is_resident(pop) and (self.pop_transforms or any(
+                self._hook_table[h] for h in ("post_ask", "pre_eval", "post_eval"))):
+            pop = gather_tree(pop)  # a transform or a monitor reads the whole population
         self._run_hooks("post_ask", mstates, pop)
         cand = pop
         for t in self.pop_transforms:

@@ -150,7 +150,9 @@ def _tenant_seeds(seed: Any, n: int) -> List[int]:
 
 
 def _check_fleet_mesh(mesh: Any, n_tenants: int, pop_size: Optional[int]) -> None:
-    """The (TENANT, POP) mesh's checks, as the JAX package makes them."""
+    """The (TENANT, POP) mesh's checks, as the JAX package makes them; a
+    mesh that spans processes is refused (tenants over distinct cards are
+    ROADMAP A11's fourth part)."""
     require_single_process(mesh, "VectorizedWorkflow(mesh=)")
     if TENANT_AXIS not in mesh.axis_names:
         raise ValueError(

@@ -174,7 +174,8 @@ def test_digest_plan_covers_every_word_once(case):
     for group, words, plan in _digest_groups(leaves):
         assert len(group) <= kd.MAX_LEAVES
         rows, chunks, total, _ = kd._table(group, [0] * len(group))  # the wrapper's table
-        assert (chunks, list(rows[3::6]), total) == (plan["chunks"], plan["chunk0"], sum(words))
+        assert (chunks, list(rows[3::kd.TABLE_ROW]), total) == (plan["chunks"], plan["chunk0"],
+                                                                sum(words))
         g = plan["grid"][0]
         assert g == min(kd.BLOCKS_PER_SM * kd.SM_COUNT, plan["chunks"])
         hits = [np.zeros(w, np.int64) for w in words]

@@ -31,7 +31,7 @@ from evox_tpu.problems.numerical import Sphere as JaxSphere
 from evox_tpu_torch import StdWorkflow
 from evox_tpu_torch.algorithms.so.es import LMMAES, RMES, OpenES, SepCMAES
 from evox_tpu_torch.algorithms.so.pso import PSO
-from evox_tpu_torch.core.distributed import ShardedES, create_mesh, global_ranks
+from evox_tpu_torch.core.distributed import ShardedES, ShardedTensor, create_mesh, global_ranks
 from evox_tpu_torch.problems.numerical import Sphere
 
 N_DEV, DIM, POP = 8, 16, 512
@@ -42,6 +42,12 @@ def _port_wf(cls, mesh, n_shards=None, dim=DIM, pop=POP):
     algo = ShardedES(cls(torch.full((dim,), 2.0), 1.0, pop_size=pop, device="cpu"), mesh=mesh,
                      n_shards=n_shards)
     return StdWorkflow(algo, Sphere(), device="cpu")
+
+
+def _whole(x):
+    """A resident leaf gathered (the samples of a sharded run live on their
+    shards); any other leaf as it is."""
+    return x.gather() if isinstance(x, ShardedTensor) else x
 
 
 def _close(a, b, fields=("mean", "sigma", "C")):
@@ -56,7 +62,7 @@ def test_sharded_trajectory_matches_replicated():
     a, b = sh.init(2), rp.init(2)
     for _ in range(10):
         a, b = sh.step(a), rp.step(b)
-        assert torch.equal(a.algo.z, b.algo.z)  # the same sampling law
+        assert torch.equal(_whole(a.algo.z), b.algo.z)  # the same sampling law
     _close(a.algo, b.algo)
 
 
@@ -67,7 +73,7 @@ def test_protocol_of_lmmaes_and_rmes(cls):
     sh = _port_wf(cls, create_mesh(devices=["cpu"] * 4), dim=8, pop=64)
     rp = _port_wf(cls, None, n_shards=4, dim=8, pop=64)
     a, b = sh.step(sh.init(1)), rp.step(rp.init(1))
-    assert torch.equal(a.algo.z, b.algo.z)
+    assert torch.equal(_whole(a.algo.z), b.algo.z)
     _close(a.algo, b.algo, fields=("mean", "sigma", "ps" if cls is LMMAES else "pc"))
 
 
@@ -78,7 +84,7 @@ def test_sharded_fused_run_matches_step_loop():
         s_loop = wf.step(s_loop)
     s_run = wf.run(wf.init(3), 6)
     for f in ("mean", "sigma", "C", "ps", "pc", "z"):
-        assert torch.equal(getattr(s_loop.algo, f), getattr(s_run.algo, f)), f
+        assert torch.equal(_whole(getattr(s_loop.algo, f)), _whole(getattr(s_run.algo, f))), f
 
 
 def test_sharded_wrapper_identity_without_mesh():
@@ -144,7 +150,7 @@ def test_matches_jax_sharded_es(sharded):
         blocks.extend(torch.from_numpy(b.copy()) for b in np.split(z, N_DEV))
         ts = wf.step(ts)
         assert not blocks
-        np.testing.assert_array_equal(ts.algo.z.numpy(), z)
+        np.testing.assert_array_equal(_whole(ts.algo.z).numpy(), z)
         _close(ts.algo, js.algo, fields=("mean", "sigma", "C", "ps", "pc"))
 
 

@@ -12,9 +12,11 @@ with ``TelemetryMonitor(8)``, under one vmap): the last two carry the
 telemetry ring's sums; path 5 (CMA-ES on Rastrigin at d 1000, pop 24),
 path 28 (64 CMA-ES tenants of pop 256 at d 16 under one vmap) and path 31
 (path 2 with the mesh-sharded sort on an 8-shard mesh of the card): M1's
-and B3 rows' callers. ``--only NAME[,NAME]`` times some of the groups
-``pendulum, nsga2, shade, moead, islands, host, telemetry, cmaes, fleet,
-sharded_nsga2``.
+and B3 rows' callers; path 30 (``ShardedES(SepCMAES)`` at pop 65536, d 32
+on an 8-shard mesh of the card, as the checkout's ``chip_smoke.py`` builds
+it) and its replicated twin (``mesh=None, n_shards=8``). ``--only
+NAME[,NAME]`` times some of the groups ``pendulum, nsga2, shade, moead,
+islands, host, telemetry, cmaes, fleet, sharded_nsga2, sharded_es``.
 
 Each turn runs in a fresh process inside one checkout: it builds that
 checkout's CUDA sources, takes the init step and one warm-up generation,
@@ -128,7 +130,8 @@ def _host_paths(torch, chip_smoke) -> dict:
 
 def _cmaes_paths(torch, chip_smoke, only: set) -> dict:
     """Path 5 (CMA-ES at d 1000), path 28's fleet (64 tenants under one
-    vmap) and path 31 (NSGA-II with the mesh-sharded sort, 8 shards)."""
+    vmap), path 31 (NSGA-II with the mesh-sharded sort, 8 shards) and path
+    30 (ShardedES on 8 shards) with its replicated twin."""
     out = {}
     if "cmaes" in only:
         wf = chip_smoke.build_cmaes_path(torch)
@@ -143,6 +146,13 @@ def _cmaes_paths(torch, chip_smoke, only: set) -> dict:
         mesh = create_mesh(devices=[torch.device("cuda", 0)] * chip_smoke.PATH31_SHARDS)
         wf = chip_smoke.build_sharded_nsga2_path(torch, mesh)
         out["sharded_nsga2"] = _ms(torch, wf, wf.step(wf.step(wf.init(0))))
+    if "sharded_es" in only:
+        from evox_tpu_torch.core.distributed import create_mesh
+
+        mesh = create_mesh(devices=[torch.device("cuda", 0)] * chip_smoke.LP_SHARDS)
+        for name, m in (("sharded_es", mesh), ("sharded_es_replicated", None)):
+            wf = chip_smoke.build_sharded_es_path(torch, m, chip_smoke.LP_SHARDS)
+            out[name] = _ms(torch, wf, wf.step(wf.step(wf.init(chip_smoke.LP_SEED))))
     return out
 
 
@@ -188,7 +198,7 @@ def measure(tree: Path, only: set) -> dict:
     return out
 
 
-GROUPS = ("pendulum,nsga2,shade,moead,islands,host,telemetry,cmaes,fleet,sharded_nsga2")
+GROUPS = ("pendulum,nsga2,shade,moead,islands,host,telemetry,cmaes,fleet,sharded_nsga2,sharded_es")
 
 
 def main() -> int:
